@@ -1,0 +1,3 @@
+"""Typed env-flag getters (never raw ``os.environ`` at call sites)."""
+
+from . import general, kernel, serve  # noqa: F401
