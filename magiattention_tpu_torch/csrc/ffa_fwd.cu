@@ -41,11 +41,11 @@ using magi::LN2;
 using magi::LOG2E;
 using magi::Vec;
 
+using magi::META_DIM;
+
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
-constexpr int META_DIM = 15;
-enum { QS = 0, QE = 1, KS = 2, KE = 3, DLO = 4, DHI = 5, IS_FULL = 8 };
 
 template <int D>
 struct FwdSmem {
@@ -55,29 +55,10 @@ struct FwdSmem {
       sizeof(float) * (BQ * DS + BK * DS + BQ * PSTR);
 };
 
-// 64 rows of D values, row r at src + r * row_stride, into dst (stride
-// D + 4) as float32; rows at or past n_valid are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long row_stride, int n_valid) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int CPR = D / VEC;  // 16-byte chunks per row
-  constexpr int ITER = 64 * CPR / NT;
-  constexpr int DS = D + 4;
-  uint4 raw[ITER];
-#pragma unroll
-  for (int it = 0; it < ITER; ++it) {
-    const int i = threadIdx.x + it * NT;
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    raw[it] = r < n_valid ? magi::ldg16(src + (long)r * row_stride + c)
-                          : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int it = 0; it < ITER; ++it) {
-    const int i = threadIdx.x + it * NT;
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    Vec<T>::to_f32(raw[it], dst + r * DS + c, 1.f);
-  }
+  magi::load_tile<T, D, NT>(dst, src, row_stride, n_valid);
 }
 
 template <typename T, int D>
@@ -119,11 +100,8 @@ __global__ void __launch_bounds__(NT, 2)
 
   const int w_end = run_ptr[qt + 1];
   for (int w = run_ptr[qt]; w < w_end; ++w) {
-    const int* mt = meta + (long)w * META_DIM;
-    const int qs = mt[QS], qe = mt[QE], ks = mt[KS], ke = mt[KE];
-    if (qe <= qs || ke <= ks) continue;  // dummy item of an uncovered tile
-    const int lo = mt[DLO], hi = mt[DHI];
-    const bool full = mt[IS_FULL] != 0;
+    const magi::Item item(meta + (long)w * META_DIM);
+    if (item.empty()) continue;  // dummy item of an uncovered tile
     const int k0 = work_kt[w] * BK;
     const int k_valid = min(BK, sk - k0);
 
@@ -164,13 +142,8 @@ __global__ void __launch_bounds__(NT, 2)
       for (int j = 0; j < 4; ++j) {
         float x = s[i][j] * qk_scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap) * LOG2E;
-        if (!full) {
-          const int gi = q0 + ty + 16 * i, gj = k0 + tx + 16 * j;
-          const int dl = gj - gi;
-          const bool live = gi >= qs && gi < qe && gj >= ks && gj < ke &&
-                            dl >= lo && dl <= hi;
-          if (!live) x = -INFINITY;
-        }
+        if (!item.full && !item.live(q0 + ty + 16 * i, k0 + tx + 16 * j))
+          x = -INFINITY;
         s[i][j] = x;
       }
 

@@ -1,3 +1,3 @@
 """Typed env-flag getters (never raw ``os.environ`` at call sites)."""
 
-from . import general, kernel, serve  # noqa: F401
+from . import backend, general, kernel, serve  # noqa: F401

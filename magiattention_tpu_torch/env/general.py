@@ -1,7 +1,7 @@
 """General runtime toggles, read lazily on each call so tests can
 monkeypatch ``os.environ``.
 
-The port's copy of the few getters its serving slice needs from
+The port's copy of the getters its slices need from
 ``magiattention_tpu/env/general.py``; the flag names are the same.
 """
 
@@ -20,6 +20,16 @@ def _get_int(name: str, default: int) -> int:
 
 def _get_str(name: str, default: str) -> str:
     return os.environ.get(name, default)
+
+
+def kernel_backend() -> str:
+    """Attention kernel backend: ffa | sdpa | sdpa_online."""
+    return _get_str("MAGI_ATTENTION_KERNEL_BACKEND", "ffa").lower()
+
+
+def precision() -> str:
+    """Precision override for attention compute: default | fp32 | bf16."""
+    return _get_str("MAGI_ATTENTION_PRECISION", "default").lower()
 
 
 def is_range_merge_enable() -> bool:

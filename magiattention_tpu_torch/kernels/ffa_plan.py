@@ -49,7 +49,7 @@ class FFAPlan:
     work_qt: np.ndarray  # (W,) int32 — q tile index per item
     work_kt: np.ndarray  # (W,) int32 — k tile index per item
     meta: np.ndarray  # (W, META_DIM) int32
-    # k-major (backward dk/dv, a later slice): runs grouped by k tile
+    # k-major (backward dk/dv): runs grouped by k tile
     work_qt_t: np.ndarray
     work_kt_t: np.ndarray
     meta_t: np.ndarray
@@ -70,14 +70,24 @@ class FFAPlan:
         return len(self.work_qt_t)
 
     def device_arrays(self, device: torch.device) -> tuple[torch.Tensor, ...]:
-        """``(work_kt, meta, run_ptr)`` as int32 tensors on ``device``,
-        copied once per device and kept with the (cached) plan."""
-        key = str(device)
+        """The q-major ``(work_kt, meta, run_ptr)`` as int32 tensors on
+        ``device`` (forward and dq), copied once per device and kept with
+        the (cached) plan."""
+        return self._on_device(device, "q", (self.work_kt, self.meta, self.run_ptr))
+
+    def device_arrays_t(self, device: torch.device) -> tuple[torch.Tensor, ...]:
+        """The k-major ``(work_qt_t, meta_t, run_ptr_t)`` on ``device``
+        (dk/dv), cached like :meth:`device_arrays`."""
+        return self._on_device(
+            device, "k", (self.work_qt_t, self.meta_t, self.run_ptr_t)
+        )
+
+    def _on_device(self, device, major: str, host: tuple) -> tuple[torch.Tensor, ...]:
+        key = (str(device), major)
         arrays = self._device.get(key)
         if arrays is None:
             arrays = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in (self.work_kt, self.meta, self.run_ptr)
+                torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host
             )
             self._device[key] = arrays
         return arrays

@@ -130,10 +130,17 @@ def test_uncovered_rows_are_zero_and_neg_inf():
 
 
 def test_forward_only_raises_on_grad():
+    """The forward-only guard is gone: with grad enabled, ffa_attn returns
+    differentiable outputs (on a CPU tensor through sdpa_attn's autograd;
+    tests/test_torch_ffa_bwd.py holds the gradients against the JAX
+    package), equal to its no-grad outputs."""
     arrays, (qr, kr, lo, hi) = _inputs("causal", 2, "float32")
     q, k, v = _torch(arrays, "float32")
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ffa_attn(q, k, v, qr, kr, d_lo=lo, d_hi=hi)
+    out, lse = ffa_attn(q, k, v, qr, kr, d_lo=lo, d_hi=hi)
+    assert out.requires_grad
+    (dq,) = torch.autograd.grad(out.sum(), (q,))
+    assert dq.shape == q.shape and torch.isfinite(dq).all()
     with torch.no_grad():
-        ffa_attn(q, k, v, qr, kr, d_lo=lo, d_hi=hi)
+        out0, lse0 = ffa_attn(q, k, v, qr, kr, d_lo=lo, d_hi=hi)
+    assert torch.equal(out.detach(), out0) and torch.equal(lse.detach(), lse0)

@@ -39,8 +39,18 @@ def test_port_and_chip_smoke_import_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     loaded = proc.stdout.split()
-    assert "magiattention_tpu_torch.serving.engine" in loaded
-    assert "chip_smoke" in loaded
+    for module in (
+        "magiattention_tpu_torch.serving.engine",
+        "magiattention_tpu_torch.models.llama",
+        "magiattention_tpu_torch.functional.flex_flash_attn",
+        "magiattention_tpu_torch.functional.sink",
+        "magiattention_tpu_torch.kernels.sdpa_online",
+        "magiattention_tpu_torch.common.enum",
+        "magiattention_tpu_torch.common.forward_meta",
+        "magiattention_tpu_torch.env.backend",
+        "chip_smoke",
+    ):
+        assert module in loaded, module
     assert [m for m in loaded if _is_jax_side(m)] == []
 
 
@@ -55,6 +65,7 @@ def test_chip_smoke_names_no_jax_module():
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     assert "magiattention_tpu_torch.serving" in names
+    assert "magiattention_tpu_torch.models.llama" in names
     assert [n for n in names if _is_jax_side(n)] == []
 
 
@@ -63,10 +74,16 @@ def test_entry_points_raise_without_a_gpu():
         """
         import torch
         from magiattention_tpu_torch import PagedKVCache, ToyModel
+        from magiattention_tpu_torch.models import LlamaConfig, init_params
+        from magiattention_tpu_torch.models import params_from_numpy
         assert not torch.cuda.is_available()
+        cfg = LlamaConfig(vocab_size=8, dim=8, n_layers=1, n_heads=2,
+                          n_kv_heads=1, head_dim=4, ffn_hidden=8)
         for make in (
             lambda: ToyModel.create(),
             lambda: PagedKVCache.create(4, 16, 2, 16, 1, 2),
+            lambda: init_params(cfg),
+            lambda: params_from_numpy(init_params(cfg, device="cpu")),
         ):
             try:
                 make()
@@ -75,6 +92,7 @@ def test_entry_points_raise_without_a_gpu():
             else:
                 raise SystemExit("ran on the CPU without being asked")
         ToyModel.create(device="cpu")  # asking for the CPU works
+        init_params(cfg, device="cpu")
         print("ok")
         """
     )
