@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving, training and context-parallel paths on
+one NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and ``nvcc``; it builds the port's kernels from ``csrc/`` first.
@@ -14,28 +15,40 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 2. ``ffa_fwd``: the FFA forward kernel against its plain version
    (``sdpa_attn``) at (a) the serving prefill shape, (b) the bf16 causal
    headline shape and (c) a bf16 varlen mask with uncovered rows.
-3. ``ffa_bwd``: the three backward kernels (delta, dq, dk/dv) against their
+3. ``ffa_bwd``: the split backward kernels (delta, dq, dk/dv) against their
    plain versions at (a) the bf16 causal headline shape, (b) the bf16
-   varlen mask and (c) float32 at the serving prefill shape, plus the
-   whole forward + backward of ``ffa_attn`` against SDPA's.
-4. ``paged_decode``: the paged-decode kernel against ``paged_decode_plain``
+   varlen mask, (c) float32 at the serving prefill shape and (d) the train
+   phase's attention shape, plus the whole forward + backward of
+   ``ffa_attn`` against SDPA's.
+4. ``ffa_bwd_fused``: the fused one-pass backward kernel at the same four
+   shapes, against its plain version and against the split kernels.
+5. ``paged_decode``: the paged-decode kernel against ``paged_decode_plain``
    on 8 ragged slots, in float32 and bfloat16.
-5. ``serve``: ``ServeEngine`` at Llama-3.1-8B attention widths on 16
+6. ``edge_cases``: head_dim 64, ragged tiles, softcap, g = 1 and 8, other
+   page sizes, a k tile no slice reaches and uncovered rows, forward and
+   gradients (both backward modes), kernel against plain version (not
+   timed).
+7. ``serve``: ``ServeEngine`` at Llama-3.1-8B attention widths on 16
    requests; every generated row is held against the sequential replay
    oracle (FFA kernel) on the card, the first two requests against the
    port's own engine on the CPU, and the kernels' launch counters must have
-   risen while the plain versions were never called.
-6. ``edge_cases``: head_dim 64, ragged tiles, softcap, g = 1 and 8, other
-   page sizes, a k tile no slice reaches and uncovered rows, forward and
-   gradients, kernel against plain version (not timed).
-7. ``serve_profile``: the serve run again under ``torch.profiler``.
-8. ``train``: ``models.llama.train_step`` at Llama-3.1-8B widths, depth cut
-   to 2 layers, bf16 over float32 master weights, 8192 packed tokens in two
-   causal documents, 3 SGD steps; launch counts per step, one step under
-   ``torch.profiler``, and a kernel-vs-plain check of loss and gradients at
-   2048 tokens.
-9. ``kernels``: one line per-kernel summary (launches from the serve or
-   train phase, error, kernel / plain / library time and the card's bound).
+   risen while the plain versions were never called. ``serve_profile``:
+   the serve run again under ``torch.profiler``.
+8. ``cp_api``: ``magi_attn_flex_key -> dispatch -> calc_attn ->
+   undispatch`` at cp = 1, forward and backward, at the train phase's
+   attention shape, against ``flex_flash_attn_func``.
+9. ``cp_stages``: the multi-stage compute (``multi_ffa`` over the host and
+   remote kv parts, lse merge, per-part backward) of every rank of a
+   cp = 4, overlap-degree-2 plan, against the plain dense reference.
+10. ``train``: ``models.llama.train_step`` through the API at
+    Llama-3.1-8B widths, depth cut to 2 layers, bf16 over float32 master
+    weights, 8192 packed tokens in two causal documents: 3 SGD steps under
+    the fused backward and one under the split pin; launch counts per
+    step, one step under ``torch.profiler``, and a kernel-vs-plain check
+    of loss and gradients at 2048 tokens.
+11. ``kernels``: one line per-kernel summary (launches from the serve or
+    train phase, error, kernel / plain / library time and the card's
+    bound).
 
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -428,6 +441,94 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
     return results
 
 
+def ffa_bwd_fused_phase(peaks: dict, bwd: dict) -> dict[str, dict]:
+    """The fused one-pass backward kernel at the ``ffa_bwd`` shapes, on the
+    same kind of inputs: against its plain version and against the split
+    kernels (dq, dk/dv), both within the dtype's tolerance. Asserts that
+    uncovered rows get dq exactly 0 and unreached k rows dk = dv = 0. Bound:
+    10 flops per live pair per head and d (its 5 tile products); the
+    library time is SDPA's forward + backward from the ``ffa_bwd`` phase.
+    Atomic traffic: one 64 x d float32 read-modify-write per (work item, q
+    head)."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_dkv_kernel, ffa_bwd_dq_kernel, ffa_bwd_fused_convert,
+        ffa_bwd_fused_kernel, ffa_bwd_fused_plain, ffa_bwd_mode,
+        ffa_delta_plain, ffa_fwd_kernel,
+    )
+    from magiattention_tpu_torch.kernels.ffa_plan import QE, QS
+    from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    all_cases = mask_cases()
+    results = {}
+    for key, name in (
+        ("causal_8192_bf16", "a_causal_8192_bf16"),
+        ("varlen_8192_bf16", "b_varlen_8192_bf16"),
+        ("serving_prefill_f32", "c_serving_prefill_f32"),
+        ("train_docs_8192_bf16", "d_train_docs_8192_bf16"),
+    ):
+        c = all_cases[key]
+        d = 128
+        dname = str(c["dtype"]).removeprefix("torch.")
+        (q, k, v, do), (qr, kr, lo, hi), plan, params = case_inputs(c, gen, with_do=True)
+        out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+        delta = ffa_delta_plain(out, do)
+        args = (q, k, v, do, lse, delta, plan, params)
+        fused = ffa_bwd_fused_kernel(*args)
+        plain = ffa_bwd_fused_plain(*args)
+        split = (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args))
+        torch.cuda.synchronize()
+        err, err_split = {}, {}
+        for i, g in enumerate(("dq", "dk", "dv")):
+            err[g] = grad_check(f"{name} fused {g}", fused[i], plain[i], dname)
+            err_split[g] = grad_check(f"{name} fused vs split {g}", fused[i], split[i], dname)
+        del plain, split
+        if "uncovered" in c:
+            r0, r1 = c["uncovered"]
+            if fused[0][r0:r1].any():
+                raise AssertionError(f"{name}: fused dq of uncovered rows is not 0")
+        if "unreached_k" in c:
+            r0, r1 = c["unreached_k"]
+            if fused[1][r0:r1].any() or fused[2][r0:r1].any():
+                raise AssertionError(f"{name}: fused dk/dv of unreached k rows are not 0")
+
+        mask = build_dense_mask_band(qr, kr, lo, hi, c["sq"], c["sk"], device="cuda")
+        live = int(mask.sum().item())
+        del mask
+        isz, hq = q.element_size(), c["hq"]
+        n_q, n_kv, rows = q.numel(), k.numel(), c["sq"] * c["hq"]
+        in_bytes = (2 * n_q + 2 * n_kv) * isz + 2 * rows * 4
+        flops = 10.0 * hq * d * live
+        b_ms, b_by = bound(flops, in_bytes + (n_q + 2 * n_kv) * 4, dname, peaks)
+        ms = time_ms(lambda: ffa_bwd_fused_kernel(*args))
+        ws = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+        convert_ms = time_ms(lambda: ffa_bwd_fused_convert(ws, 1.0))
+        real_items = int((plan.meta_t[:, QE] > plan.meta_t[:, QS]).sum())
+        res = dict(
+            case=name, dtype=dname, q=list(q.shape), kv=list(k.shape),
+            live_pairs=live, work_items_t=plan.num_work_t,
+            cost_model_mode=ffa_bwd_mode(plan, params, d, d, isz, hq // c["hk"]),
+            vs_plain=err, vs_split=err_split,
+            max_abs_err=max(e["max_abs_err"] for e in err.values()),
+            ms=ms, convert_ms=convert_ms,
+            plain_ms=time_ms(lambda: ffa_bwd_fused_plain(*args), warmup=1),
+            split_ms=bwd[name]["ffa_bwd_dq"]["ms"] + bwd[name]["ffa_bwd_dkv"]["ms"],
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=bwd[name]["sdpa_fwd_bwd_ms"],
+            library_call=bwd[name]["sdpa_fwd_bwd_call"] + " forward + backward",
+            tflops=flops / (ms * 1e-3) / 1e12,
+            atomic_rmw_bytes=real_items * hq * 64 * d * 4 * 2,
+            atol=ATOL[dname], rnorm=RNORM[dname],
+        )
+        emit({"phase": "ffa_bwd_fused", **res})
+        results[name] = res
+        del fused, ws
+        torch.cuda.empty_cache()
+    return results
+
+
 def decode_phase(peaks: dict) -> list[dict]:
     import torch
 
@@ -500,6 +601,7 @@ def edge_phase() -> None:
     page size below and above the 64-token chunk."""
     import torch
 
+    from magiattention_tpu_torch.env.general import scoped_env
     from magiattention_tpu_torch.kernels.ffa import ffa_attn
     from magiattention_tpu_torch.kernels.paged_decode import (
         paged_decode_kernel, paged_decode_plain,
@@ -547,18 +649,23 @@ def edge_phase() -> None:
             for shape in ((230, hq, d), (260, hk, d), (260, hk, d))
         ]
         do = (torch.randn((230, hq, d), generator=gen, device="cuda") / 4).to(dt)
-        grads = []
-        for attn in (ffa_attn, sdpa_attn):
+
+        def grads_of(attn):
             leaves = [t.detach().requires_grad_(True) for t in inputs]
             out, _ = attn(*leaves, qr, kr, attn_type_map=types, softcap=softcap)
-            grads.append(torch.autograd.grad(out, leaves, do))
-        name = f"grad_d{d}_g{hq // hk}_{dname}_cap{softcap:g}"
-        for gname, got, want in zip(("dq", "dk", "dv"), *grads):
-            err = grad_check(f"{name} {gname}", got.float(), want.float(), dname)
-            worst[f"{name}_{gname}"] = err["max_abs_err"]
-        (dq, dk, dv), _ = grads
-        if dq[200:].any() or dk[203:].any() or dv[203:].any():
-            raise AssertionError(f"{name}: gradients of untouched rows are not 0")
+            return torch.autograd.grad(out, leaves, do)
+
+        want = grads_of(sdpa_attn)
+        for pin in ("split", "fused"):  # both backward modes, pinned
+            with scoped_env({"MAGI_ATTENTION_BACKEND_FFA_BWD": pin}):
+                got = grads_of(ffa_attn)
+            name = f"grad_{pin}_d{d}_g{hq // hk}_{dname}_cap{softcap:g}"
+            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                err = grad_check(f"{name} {gname}", a.float(), b.float(), dname)
+                worst[f"{name}_{gname}"] = err["max_abs_err"]
+            dq, dk, dv = got
+            if dq[200:].any() or dk[203:].any() or dv[203:].any():
+                raise AssertionError(f"{name}: gradients of untouched rows are not 0")
     for d, hq, hk, ps, dt in (
         (64, 8, 1, 8, torch.float32),
         (128, 8, 2, 128, torch.bfloat16),
@@ -740,28 +847,237 @@ def serve_profile(model, config, make_requests) -> dict:
     return dict(res, ticks=engine.step_count)
 
 
+# the train phase's attention: Llama-3.1-8B heads, two causal documents
+CP_SEQ, CP_DOC, CP_HQ, CP_HK, CP_D = 8192, 4096, 32, 8, 128
+
+
+def _docs(seq: int, doc: int) -> list[list[int]]:
+    return [[s, s + doc] for s in range(0, seq, doc)]
+
+
+def _bwd_kernels(mode: str) -> tuple[str, ...]:
+    return ("ffa_bwd_fused",) if mode == "fused" else ("ffa_bwd_dq", "ffa_bwd_dkv")
+
+
+def cp_api_phase() -> dict:
+    """The user path ``magi_attn_flex_key -> dispatch -> calc_attn ->
+    undispatch`` at cp = 1 on the card, forward and backward, at the train
+    phase's attention shape (bf16), against ``flex_flash_attn_func`` on
+    the same inputs. Reports the backward mode the port resolved and the
+    kernels the path launched (counts reset just before it)."""
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.functional import flex_flash_attn_func
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
+
+    docs = _docs(CP_SEQ, CP_DOC)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shapes = ((CP_SEQ, CP_HQ, CP_D), (CP_SEQ, CP_HK, CP_D), (CP_SEQ, CP_HK, CP_D))
+    inputs = [torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in shapes]
+    do = (torch.randn(shapes[0], generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    key = api.magi_attn_flex_key(docs, docs, [1, 1], CP_SEQ, CP_SEQ)
+    plan_s = time.perf_counter() - t0
+    runtime = _mgr(key).runtime
+    plan = runtime.plans[0]
+    mode = ffa_bwd_mode(plan, runtime._params(CP_D)[0], CP_D, CP_D, 2, CP_HQ // CP_HK)
+
+    def api_path():
+        q, k, v = (t.detach().requires_grad_(True) for t in inputs)
+        out_d, meta = api.calc_attn(
+            api.dispatch(q, key), api.dispatch(k, key, role="kv"),
+            api.dispatch(v, key, role="kv"), key,
+        )
+        out = api.undispatch(out_d, key)
+        return (out, *torch.autograd.grad(out, (q, k, v), do))
+
+    def direct_path():
+        q, k, v = (t.detach().requires_grad_(True) for t in inputs)
+        out, _ = flex_flash_attn_func(q, k, v, np.array(docs), np.array(docs), np.array([1, 1]))
+        return (out, *torch.autograd.grad(out, (q, k, v), do))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = api_path()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = direct_path()
+    err = {
+        name: grad_check(f"cp_api {name}", a.float(), b.float(), "bfloat16")
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)
+    }
+    expected = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(mode))
+    if any(counts[k] != 1 for k in expected) or any(counts[k] for k in PLAIN_NAMES):
+        raise AssertionError(f"cp_api: launched {counts}, want one of each of {expected}")
+    res = dict(
+        shape=f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, two causal documents",
+        cp=1, resolved_bwd_mode=mode, plan_s=plan_s, work_items=plan.num_work,
+        launches={k: v for k, v in counts.items() if v}, vs_flex_flash_attn=err,
+        fwd_bwd_ms=time_ms(api_path, samples=5),
+        flex_flash_attn_fwd_bwd_ms=time_ms(direct_path, samples=5),
+        atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"],
+    )
+    emit({"phase": "cp_api", **res})
+    return res
+
+
+def cp_stages_phase() -> dict:
+    """The multi-stage compute of a cp = 4, overlap-degree-2 plan at the
+    train phase's attention shape (bf16), for each rank, on this one card:
+    the port's ``multi_ffa`` gets the rank's dispatched q, its own kv shard
+    and each stage's receive buffer, gathered here from the full tensors by
+    the stage's send indices (exactly the rows the GroupCast delivers; the
+    collectives themselves are held on the CPU by tests/test_torch_cp.py).
+    Each rank's out, lse and gradients are held against the plain dense
+    reference (``sdpa_attn``, and ``ffa_bwd_fused_plain`` over the global
+    mask with dO on that rank's rows only)."""
+    import torch
+
+    from magiattention_tpu_torch.common.enum import AttnMaskType
+    from magiattention_tpu_torch.common.ranges import AttnRanges
+    from magiattention_tpu_torch.config import DistAttnConfig, OverlapConfig
+    from magiattention_tpu_torch.functional.dist_attn import DistAttnRuntime, multi_ffa
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_fused_plain, ffa_bwd_mode, ffa_delta_plain, plan_params,
+    )
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+    from magiattention_tpu_torch.meta import (
+        make_attn_meta_from_dispatch_meta, make_dispatch_meta_from_qk_ranges,
+    )
+
+    cp, degree, chunk = 4, 2, 512
+    docs = _docs(CP_SEQ, CP_DOC)
+    config = DistAttnConfig(overlap_config=OverlapConfig(degree=degree))
+    t0 = time.perf_counter()
+    mq, mkv, bucket = make_dispatch_meta_from_qk_ranges(
+        AttnRanges.from_ranges(docs), AttnRanges.from_ranges(docs),
+        [AttnMaskType.CAUSAL] * 2, CP_SEQ, CP_SEQ, chunk, cp, config.dispatch_config,
+    )
+    comm, calc = make_attn_meta_from_dispatch_meta(bucket, mq, config, dispatch_meta_kv=mkv)
+    plan_s = time.perf_counter() - t0
+    if len(comm.kv_stages) != degree:
+        raise AssertionError(f"cp_stages: {len(comm.kv_stages)} stages, want {degree}")
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = ((CP_SEQ, CP_HQ, CP_D), (CP_SEQ, CP_HK, CP_D), (CP_SEQ, CP_HK, CP_D))
+    q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in shapes)
+    do = (torch.randn(shapes[0], generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    qr, kr, types = np.array(docs), np.array(docs), np.array([1, 1])
+    with torch.no_grad():
+        out_ref, lse_ref = sdpa_attn(q, k, v, qr, kr, types)
+    gplan, gparams = plan_params(qr, kr, types, None, None, CP_SEQ, CP_SEQ, CP_D, None, 0.0)
+    pos = [torch.as_tensor(p, dtype=torch.int64, device="cuda") for p in mq.position_ids]
+    pos_kv = [torch.as_tensor(p, dtype=torch.int64, device="cuda") for p in mkv.position_ids]
+
+    ranks = []
+    for r in range(cp):
+        runtime = DistAttnRuntime(comm, calc, cp_rank=r, use_overlap=True)
+        parts_k, parts_v, rows = [k[pos_kv[r]]], [v[pos_kv[r]]], [pos_kv[r]]
+        for stage, cast in zip(comm.kv_stages, runtime.cast_plans):
+            src_rows = torch.cat([
+                pos_kv[s][torch.as_tensor(
+                    stage.send_idx[s, r, : stage.send_counts[s, r]], dtype=torch.int64,
+                    device="cuda",
+                )]
+                for s in range(cp)
+            ])
+            bk_, bv_ = (t.new_zeros((cast.buf_len, CP_HK, CP_D)) for t in (k, v))
+            bk_[: len(src_rows)], bv_[: len(src_rows)] = k[src_rows], v[src_rows]
+            parts_k.append(bk_)
+            parts_v.append(bv_)
+            rows.append(src_rows)
+        leaves_q = q[pos[r]].detach().requires_grad_(True)
+        leaves = [t.detach().requires_grad_(True) for t in (*parts_k, *parts_v)]
+        n = len(parts_k)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out_r, lse_r = multi_ffa(
+            leaves_q, leaves[:n], leaves[n:], runtime.plans, runtime._params(CP_D)
+        )
+        grads = torch.autograd.grad(out_r, (leaves_q, *leaves), do[pos[r]])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if any(counts[p] for p in PLAIN_NAMES) or counts["ffa_fwd"] != n:
+            raise AssertionError(f"cp_stages rank {r}: launched {counts}")
+
+        # reference gradients: dO on this rank's rows only
+        do_r = torch.zeros_like(do)
+        do_r[pos[r]] = do[pos[r]]
+        delta = ffa_delta_plain(out_ref, do_r)
+        dq_ref, dk_ref, dv_ref = ffa_bwd_fused_plain(
+            q, k, v, do_r, lse_ref, delta, gplan, gparams
+        )
+        dk_got = torch.zeros_like(dk_ref)
+        dv_got = torch.zeros_like(dv_ref)
+        for i, idx in enumerate(rows):
+            dk_got.index_add_(0, idx, grads[1 + i][: len(idx)].float())
+            dv_got.index_add_(0, idx, grads[1 + n + i][: len(idx)].float())
+        err = {
+            "out": grad_check(f"cp_stages r{r} out", out_r.float(), out_ref[pos[r]], "bfloat16"),
+            "lse": grad_check(f"cp_stages r{r} lse", lse_r, lse_ref[pos[r]], "bfloat16"),
+            "dq": grad_check(f"cp_stages r{r} dq", grads[0].float(), dq_ref[pos[r]], "bfloat16"),
+            "dk": grad_check(f"cp_stages r{r} dk", dk_got, dk_ref, "bfloat16"),
+            "dv": grad_check(f"cp_stages r{r} dv", dv_got, dv_ref, "bfloat16"),
+        }
+        del dq_ref, dk_ref, dv_ref, delta, do_r
+        torch.cuda.empty_cache()
+        ranks.append(dict(
+            rank=r, stages=runtime.num_stages,
+            part_rows=[int(parts_k[0].shape[0])] + [
+                dict(valid=c.recv_len, buffer=c.buf_len) for c in runtime.cast_plans
+            ],
+            bwd_modes=[
+                ffa_bwd_mode(p, prm, CP_D, CP_D, 2, CP_HQ // CP_HK)
+                for p, prm in zip(runtime.plans, runtime._params(CP_D))
+            ],
+            launches={k_: v_ for k_, v_ in counts.items() if v_},
+            **{f"{name}_max_abs_err": e["max_abs_err"] for name, e in err.items()},
+            **{f"{name}_rel_norm_err": e["rel_norm_err"] for name, e in err.items()},
+        ))
+    res = dict(
+        shape=f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, two causal documents",
+        cp=cp, overlap_degree=degree, chunk_size=chunk, plan_s=plan_s,
+        partitions=mq.partitions, ranks=ranks,
+        atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"],
+    )
+    emit({"phase": "cp_stages", **res})
+    return res
+
+
 # meta-llama/Llama-3.1-8B config.json widths; depth cut from 32 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_DOC, TRAIN_STEPS, TRAIN_LR = 2, 8192, 4096, 3, 1e-4
 CHECK_SEQ, CHECK_DOC = 2048, 1024
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RNORM = 1e-2, 2e-2
-FFA_KERNELS = ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv")
+FFA_KERNELS = ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv", "ffa_bwd_fused")
 
 
 def train_phase() -> dict:
-    """``models.llama.train_step`` on the card; asserts finite losses, one
-    launch of each FFA kernel per layer per step, no plain version on the
-    path, and the kernels' loss and gradients within bounds of the plain
-    path's (``backend="sdpa"``) at CHECK_SEQ tokens: the plain path keeps
-    float32 (32, S, S) tensors per layer for autograd, which at 8192 tokens
-    do not fit twice over on 80 GB."""
+    """``models.llama.train_step`` on the card, attention through the API
+    (``magi_attn_flex_key`` at cp = 1, ``calc_attn`` per layer); asserts
+    finite losses, one launch of each FFA kernel of the resolved backward
+    mode per layer per step, no plain version on the path. The steps run
+    the fused backward (the cost model's choice, or a fused pin where the
+    model picks split); one more step runs under the split pin, so both
+    modes have a step time. Then the kernels' loss and gradients against
+    the plain path's (``MAGI_ATTENTION_KERNEL_BACKEND=sdpa``: dense float32
+    attention under autograd) at CHECK_SEQ tokens: the plain path keeps
+    float32 (32, S, S) tensors per layer for autograd, which at 8192
+    tokens do not fit twice over on 80 GB."""
     import torch
 
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.env.general import scoped_env
     from magiattention_tpu_torch.kernels import (
         PLAIN_NAMES, launch_counts, reset_launch_counts,
     )
+    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
     from magiattention_tpu_torch.models.llama import (
-        LlamaConfig, flex_attn, init_params, param_names, train_step,
-        value_and_grad,
+        LlamaConfig, init_params, param_names, train_step, value_and_grad,
     )
 
     cfg = LlamaConfig(
@@ -782,55 +1098,78 @@ def train_phase() -> dict:
         labels[doc - 1 :: doc] = -100
         return labels
 
-    def attn_of(seq, doc, **kw):
-        ranges = [[s, s + doc] for s in range(0, seq, doc)]
-        return flex_attn(ranges, ranges, [1] * len(ranges), **kw)
+    def key_of(seq, doc, **env):
+        docs = _docs(seq, doc)
+        with scoped_env(env):
+            return api.magi_attn_flex_key(docs, docs, [1] * len(docs), seq, seq)
 
     labels = labels_of(tokens, TRAIN_DOC)
-    attn = attn_of(TRAIN_SEQ, TRAIN_DOC)
+    key = key_of(TRAIN_SEQ, TRAIN_DOC)
+    runtime = _mgr(key).runtime
+    model_mode = ffa_bwd_mode(
+        runtime.plans[0], runtime._params(cfg.head_dim)[0], cfg.head_dim,
+        cfg.head_dim, 2, cfg.n_heads // cfg.n_kv_heads,
+    )
+    pin = {} if model_mode == "fused" else {"MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"}
+    key = key_of(TRAIN_SEQ, TRAIN_DOC, **pin)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    reset_launch_counts()
-    steps = []
-    for i in range(TRAIN_STEPS):
+    def step(i, key, mode):
         before = launch_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        params, loss = train_step(params, cfg, tokens, labels, attn, lr=TRAIN_LR)
-        loss = loss.item()
+        nonlocal params
+        with scoped_env(pin if mode == "fused" else {"MAGI_ATTENTION_BACKEND_FFA_BWD": "split"}):
+            params, loss = train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR)
+            loss = loss.item()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}
-        steps.append(dict(
-            step=i, loss=loss, ms=ms, tokens_per_s=TRAIN_SEQ / (ms * 1e-3),
-            launches={k: launches[k] for k in FFA_KERNELS},
-        ))
-        emit({"phase": "train_step", **steps[-1]})
+        kernels = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(mode))
+        rec = dict(
+            step=i, bwd_mode=mode, loss=loss, ms=ms,
+            tokens_per_s=TRAIN_SEQ / (ms * 1e-3),
+            launches={k: v for k, v in launches.items() if v},
+        )
+        emit({"phase": "train_step", **rec})
         if not np.isfinite(loss):
             raise AssertionError(f"train: step {i} loss {loss} is not finite")
-        if any(launches[k] != cfg.n_layers for k in FFA_KERNELS):
+        others = set(FFA_KERNELS) - set(kernels)
+        if any(launches[k] != cfg.n_layers for k in kernels) or any(launches[k] for k in others):
             raise AssertionError(
                 f"train: step {i} launched {launches}, want {cfg.n_layers} "
-                f"of each of {FFA_KERNELS}"
+                f"of each of {kernels}"
             )
         if any(launches[k] for k in PLAIN_NAMES):
             raise AssertionError(f"train: a plain version ran on the card: {launches}")
-    counts = launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        return rec, launches
 
-    prof = profile_run(
-        lambda: train_step(params, cfg, tokens, labels, attn, lr=TRAIN_LR)
-    )
+    reset_launch_counts()
+    steps = [step(i, key, "fused")[0] for i in range(TRAIN_STEPS)]
+    fused_counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    split_key = key_of(TRAIN_SEQ, TRAIN_DOC, MAGI_ATTENTION_BACKEND_FFA_BWD="split")
+    reset_launch_counts()
+    split_step, _ = step(TRAIN_STEPS, split_key, "split")
+    split_counts = launch_counts()
+
+    with scoped_env(pin):
+        prof = profile_run(
+            lambda: train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR)
+        )
 
     # kernels against the plain path, same weights and tokens
     tok2 = tokens[:CHECK_SEQ]
     lab2 = labels_of(tok2, CHECK_DOC)
-    loss_k, g_k = value_and_grad(params, cfg, tok2, lab2, attn_of(CHECK_SEQ, CHECK_DOC))
-    loss_p, g_p = value_and_grad(
-        params, cfg, tok2, lab2, attn_of(CHECK_SEQ, CHECK_DOC, backend="sdpa")
-    )
+    with scoped_env(pin):
+        loss_k, g_k = value_and_grad(params, cfg, tok2, lab2, key_of(CHECK_SEQ, CHECK_DOC, **pin))
+    plain_env = {"MAGI_ATTENTION_KERNEL_BACKEND": "sdpa"}
+    with scoped_env(plain_env):
+        loss_p, g_p = value_and_grad(
+            params, cfg, tok2, lab2, key_of(CHECK_SEQ, CHECK_DOC, **plain_env)
+        )
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     grad_rn = {
         n: ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
@@ -852,10 +1191,13 @@ def train_phase() -> dict:
             f"ffn 14336, vocab 128256, rope_theta 500000), {cfg.n_layers} of "
             "32 layers, bf16 compute over float32 master weights, seed 0"
         ),
+        attention="api: magi_attn_flex_key (cp 1) -> dispatch -> calc_attn per layer",
         tokens=TRAIN_SEQ, documents=TRAIN_SEQ // TRAIN_DOC, lr=TRAIN_LR,
-        setup_s=setup_s, steps=steps, losses=[s["loss"] for s in steps],
-        launches={k: counts[k] for k in FFA_KERNELS},
-        plain_calls={k: counts[k] for k in PLAIN_NAMES},
+        cost_model_bwd_mode=model_mode, pin=pin, setup_s=setup_s, steps=steps,
+        losses=[s["loss"] for s in steps], split_step=split_step,
+        launches={k: fused_counts[k] for k in FFA_KERNELS},
+        split_launches={k: split_counts[k] for k in FFA_KERNELS},
+        plain_calls={k: fused_counts[k] for k in PLAIN_NAMES},
         peak_memory_gb=peak_gb, profile_step=prof,
         check=dict(
             tokens=CHECK_SEQ, documents=CHECK_SEQ // CHECK_DOC,
@@ -918,9 +1260,12 @@ def main() -> int:
 
     ffa = ffa_phase(peaks)
     bwd = ffa_bwd_phase(peaks)
+    fused = ffa_bwd_fused_phase(peaks, bwd)
     dec = decode_phase(peaks)
     edge_phase()
     serve = serve_phase()
+    cp_api_phase()
+    cp_stages_phase()
     train = train_phase()
 
     t = bwd["d_train_docs_8192_bf16"]
@@ -941,12 +1286,17 @@ def main() -> int:
         ),
         kernel_entry(
             "ffa_bwd_dq", "ffa_bwd_dq.cu", "magiattention_tpu/kernels/ffa.py:751",
-            train["launches"]["ffa_bwd_dq"], t["ffa_bwd_dq"],
+            train["split_launches"]["ffa_bwd_dq"], t["ffa_bwd_dq"],
         ),
         kernel_entry(
             "ffa_bwd_dkv", "ffa_bwd_dkv.cu",
             "magiattention_tpu/kernels/ffa.py:1208 and :1451",
-            train["launches"]["ffa_bwd_dkv"], t["ffa_bwd_dkv"],
+            train["split_launches"]["ffa_bwd_dkv"], t["ffa_bwd_dkv"],
+        ),
+        kernel_entry(
+            "ffa_bwd_fused", "ffa_bwd_fused.cu",
+            "magiattention_tpu/kernels/ffa.py:1780 and :2082",
+            train["launches"]["ffa_bwd_fused"], fused["d_train_docs_8192_bf16"],
         ),
     ]})
     print(smi, flush=True)

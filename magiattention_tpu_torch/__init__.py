@@ -1,16 +1,28 @@
 """PyTorch + CUDA port of magiattention_tpu, for NVIDIA Hopper (sm_90a).
 
-It holds two paths. Serving: chunked FFA prefill and paged decode over a
-paged KV cache, driven by a continuous-batching engine. Training on one
-device: ``flex_flash_attn_func`` (FFA forward and split backward as a
-``torch.autograd.Function``) under a Llama trainer. Their kernels are
-written by hand in CUDA C++ (``csrc/``) and built with ``nvcc`` at first
-use; each has a plain PyTorch version beside it, which CPU tensors take.
+It holds three paths. Serving: chunked FFA prefill and paged decode over
+a paged KV cache, driven by a continuous-batching engine. Single-device
+attention: ``flex_flash_attn_func`` (FFA forward and backward as a
+``torch.autograd.Function``). Context parallelism, the main path:
+``magi_attn_flex_key -> dispatch -> calc_attn -> undispatch`` (the
+dispatch and CP planners, GroupCast/GroupReduce over
+``torch.distributed``, the multi-stage runtime), under a Llama trainer.
+Their kernels are written by hand in CUDA C++ (``csrc/``) and built with
+``nvcc`` at first use; each has a plain PyTorch version beside it, which
+CPU tensors take.
 
 The package imports torch and numpy, never jax or ``magiattention_tpu``.
 """
 
-from . import common, env, functional, kernels, models, resilience, serving, testing  # noqa: F401
+from . import api, comm, common, env, functional, kernels, meta, models, resilience, serving, testing  # noqa: F401
+from .api import (  # noqa: F401
+    calc_attn,
+    dispatch,
+    get_position_ids,
+    magi_attn_flex_key,
+    magi_attn_varlen_key,
+    undispatch,
+)
 from .common import AttnForwardMeta, AttnMaskType  # noqa: F401
 from .functional import flex_flash_attn_func  # noqa: F401
 from .kernels import PagedKVCache, ffa_attn, paged_attn, paged_decode_attn  # noqa: F401
@@ -26,8 +38,14 @@ __all__ = [
     "ServeEngine",
     "ServeRequest",
     "ToyModel",
+    "calc_attn",
+    "dispatch",
     "ffa_attn",
     "flex_flash_attn_func",
+    "get_position_ids",
+    "magi_attn_flex_key",
+    "magi_attn_varlen_key",
     "paged_attn",
     "paged_decode_attn",
+    "undispatch",
 ]

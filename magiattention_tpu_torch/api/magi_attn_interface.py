@@ -1,0 +1,253 @@
+"""Primary user API.
+
+The port's counterpart of ``magiattention_tpu/api/magi_attn_interface.py``:
+``magi_attn_flex_key`` / ``magi_attn_varlen_key`` plan a distributed mask
+and return a hashable key; ``dispatch`` / ``calc_attn`` / ``undispatch``
+run against the cached runtime. Where JAX takes a mesh and a cp axis name,
+the port takes a ``torch.distributed`` process group (``cp_group``; None =
+cp 1, no collectives) and a device (None = the current card; pass
+``device="cpu"`` to run the kernels' plain versions on the CPU). Each
+process holds its own rank: ``dispatch`` returns this rank's rows,
+``calc_attn`` takes and returns them, ``undispatch`` gives every rank the
+whole natural-order tensor. Tensor parallelism over heads (``head_axis``)
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..common.enum import AttnMaskType
+from ..common.forward_meta import AttnForwardMeta
+from ..common.range import RangeError
+from ..common.ranges import AttnRanges
+from ..config import DistAttnConfig
+from ..device import resolve_device
+from ..dist_attn_runtime_mgr import (
+    DistAttnRuntimeDict,
+    DistAttnRuntimeKey,
+    DistAttnRuntimeMgr,
+)
+from ..env import general as env_general
+from ..kernels.mask_utils import types_to_bands
+from .functools import infer_attn_mask_from_cu_seqlens
+
+
+def _check_no_overlapping_slices(q_ranges, k_ranges, mask_ints) -> None:
+    """Sanity invariant: slice coverage must be disjoint — overlapping
+    (q, k) coverage is double-counted by the kernel's online softmax.
+    Pairwise band geometry, gated behind MAGI_ATTENTION_SANITY_CHECK."""
+    n = len(q_ranges)
+    if n > 4096:  # keep the check O(n^2)-affordable
+        return
+    qr = np.array([[r.start, r.end] for r in q_ranges], np.int64)
+    kr = np.array([[r.start, r.end] for r in k_ranges], np.int64)
+    lo, hi = types_to_bands(
+        qr.astype(np.int32), kr.astype(np.int32), np.asarray(mask_ints, np.int32)
+    )
+    lo = lo.astype(np.int64)
+    hi = hi.astype(np.int64)
+    for i in range(n):
+        for j in range(i + 1, n):
+            q0 = max(qr[i, 0], qr[j, 0])
+            q1 = min(qr[i, 1], qr[j, 1])
+            k0 = max(kr[i, 0], kr[j, 0])
+            k1 = min(kr[i, 1], kr[j, 1])
+            if q0 >= q1 or k0 >= k1:
+                continue
+            d_lo = max(lo[i], lo[j], k0 - (q1 - 1))
+            d_hi = min(hi[i], hi[j], (k1 - 1) - q0)
+            if d_lo <= d_hi:
+                raise ValueError(
+                    f"slices {i} and {j} overlap on q[{q0},{q1}) x "
+                    f"k[{k0},{k1}) (band [{d_lo},{d_hi}]): overlapping "
+                    "coverage double-counts in the softmax — make the "
+                    "slice set disjoint"
+                )
+
+
+_runtime_dict = DistAttnRuntimeDict()
+
+
+def _auto_chunk_size(total_seqlen: int, cp_size: int, uneven_shard: bool = False) -> int:
+    """The largest chunk <= 512 giving every rank at least
+    ``MAGI_ATTENTION_MIN_CHUNKS_PER_RANK`` chunks. Uneven shard only needs
+    ``chunk_size | total_seqlen``; even shard also needs the chunk count
+    divisible by cp_size."""
+    shard = total_seqlen // cp_size
+    min_chunks = max(1, env_general.min_chunks_per_rank())
+    target = min(512, max(1, shard // min_chunks))
+    for cs in range(target, 0, -1):
+        if uneven_shard:
+            if total_seqlen % cs == 0:
+                return cs
+        elif total_seqlen % (cs * cp_size) == 0:
+            return cs
+    return 1
+
+
+def _validate_mask_inputs(
+    q_ranges: AttnRanges,
+    k_ranges: AttnRanges,
+    mask_ints: tuple[int, ...],
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+) -> None:
+    """Always-on key-entry validation: a count mismatch would otherwise
+    zip-truncate silently downstream."""
+    if not (len(q_ranges) == len(k_ranges) == len(mask_ints)):
+        raise ValueError(
+            f"q_ranges ({len(q_ranges)}), k_ranges ({len(k_ranges)}) and "
+            f"attn_mask_type ({len(mask_ints)}) must have the same length"
+        )
+    if q_ranges.end > total_seqlen_q:
+        bad = max(q_ranges, key=lambda r: r.end)
+        raise RangeError(
+            f"q range {bad} reaches {q_ranges.end} > total_seqlen_q {total_seqlen_q}"
+        )
+    if k_ranges.end > total_seqlen_k:
+        bad = max(k_ranges, key=lambda r: r.end)
+        raise RangeError(
+            f"k range {bad} reaches {k_ranges.end} > total_seqlen_k {total_seqlen_k}"
+        )
+
+
+def magi_attn_flex_key(
+    q_ranges: AttnRanges | Sequence[Sequence[int]],
+    k_ranges: AttnRanges | Sequence[Sequence[int]],
+    attn_mask_type: Sequence[AttnMaskType | str | int],
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    *,
+    cp_group=None,
+    device: torch.device | str | None = None,
+    head_axis: str | None = None,
+    chunk_size: int | None = None,
+    dist_attn_config: DistAttnConfig | None = None,
+) -> DistAttnRuntimeKey:
+    """Plan a flexible-mask distributed attention; returns the runtime key.
+
+    The mask is ``(q_ranges, k_ranges, attn_mask_type)`` slice metadata in
+    global coordinates. ``cp_group`` is the context-parallel process group
+    (None: cp 1); every rank of it calls this with the same mask.
+    ``total_seqlen_q`` must divide into ``cp_size * chunk_size`` (pad the
+    sequence first).
+    """
+    if head_axis is not None:
+        raise NotImplementedError(
+            "head_axis (tensor parallelism over heads) is not ported yet"
+        )
+    if not isinstance(q_ranges, AttnRanges):
+        q_ranges = AttnRanges.from_ranges(q_ranges)
+    if not isinstance(k_ranges, AttnRanges):
+        k_ranges = AttnRanges.from_ranges(k_ranges)
+    mask_ints = tuple(AttnMaskType.normalize(t).to_int_type() for t in attn_mask_type)
+    _validate_mask_inputs(q_ranges, k_ranges, mask_ints, total_seqlen_q, total_seqlen_k)
+    if env_general.is_sanity_check_enable():
+        _check_no_overlapping_slices(q_ranges, k_ranges, mask_ints)
+    device = resolve_device(device)
+    if cp_group is None:
+        cp_size, cp_rank = 1, 0
+    else:
+        cp_size, cp_rank = dist.get_world_size(cp_group), dist.get_rank(cp_group)
+    if chunk_size is None:
+        uneven = bool(dist_attn_config and dist_attn_config.dispatch_config.uneven_shard)
+        chunk_size = (
+            dist_attn_config.dispatch_config.chunk_size
+            if dist_attn_config and dist_attn_config.dispatch_config.chunk_size
+            else _auto_chunk_size(total_seqlen_q, cp_size, uneven)
+        )
+    key = DistAttnRuntimeKey(
+        q_ranges=tuple(q_ranges.to_naive_ranges()),
+        k_ranges=tuple(k_ranges.to_naive_ranges()),
+        attn_mask_type=mask_ints,
+        total_seqlen_q=total_seqlen_q,
+        total_seqlen_k=total_seqlen_k,
+        chunk_size=chunk_size,
+        cp_size=cp_size,
+        cp_rank=cp_rank,
+        cp_group=cp_group,
+        device=str(device),
+        config=dist_attn_config or DistAttnConfig(),
+        env_snapshot=env_general.snapshot_env(),
+    )
+    _runtime_dict.get_or_create(key)
+    return key
+
+
+def magi_attn_varlen_key(
+    cu_seqlens_q: Sequence[int],
+    cu_seqlens_k: Sequence[int] | None = None,
+    *,
+    causal: bool = False,
+    window_size: tuple[int, int] = (-1, -1),
+    global_window_size: int = 0,
+    cp_group=None,
+    device: torch.device | str | None = None,
+    head_axis: str | None = None,
+    chunk_size: int | None = None,
+    dist_attn_config: DistAttnConfig | None = None,
+) -> DistAttnRuntimeKey:
+    """Varlen (cu_seqlens) convenience wrapper; ``window_size`` /
+    ``global_window_size`` compile per-segment sliding windows with global
+    (sink) tokens."""
+    q_ranges, k_ranges, types = infer_attn_mask_from_cu_seqlens(
+        cu_seqlens_q, cu_seqlens_k, causal,
+        window_size=window_size, global_window_size=global_window_size,
+    )
+    return magi_attn_flex_key(
+        q_ranges, k_ranges, types,
+        total_seqlen_q=q_ranges.end, total_seqlen_k=k_ranges.end,
+        cp_group=cp_group, device=device, head_axis=head_axis,
+        chunk_size=chunk_size, dist_attn_config=dist_attn_config,
+    )
+
+
+def _mgr(key: DistAttnRuntimeKey) -> DistAttnRuntimeMgr:
+    mgr = _runtime_dict.get(key)
+    if mgr is None:
+        raise KeyError(
+            "unknown DistAttnRuntimeKey — create it with magi_attn_flex_key "
+            "in this process first"
+        )
+    return mgr
+
+
+def dispatch(x: torch.Tensor, key: DistAttnRuntimeKey, role: str = "qo") -> torch.Tensor:
+    """Global natural-order tensor -> this rank's dispatched rows."""
+    return _mgr(key).dispatch(x, "qo" if role == "qo" else "kv")
+
+
+def undispatch(x: torch.Tensor, key: DistAttnRuntimeKey, role: str = "qo") -> torch.Tensor:
+    """This rank's dispatched rows -> the global natural-order tensor."""
+    return _mgr(key).undispatch(x, "qo" if role == "qo" else "kv")
+
+
+def calc_attn(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key: DistAttnRuntimeKey,
+    return_max_logits: bool = False,
+) -> tuple[torch.Tensor, AttnForwardMeta]:
+    """Distributed attention over this rank's dispatched q/k/v:
+    (out, AttnForwardMeta(lse)), this rank's rows. Differentiable in q, k
+    and v; lse carries no gradient."""
+    if return_max_logits:
+        raise NotImplementedError("max-logits is not ported yet (ROADMAP)")
+    out, lse = _mgr(key).calc_attn(q, k, v)
+    return out, AttnForwardMeta(lse=lse)
+
+
+def get_position_ids(key: DistAttnRuntimeKey) -> torch.Tensor:
+    """The global position of each of this rank's dispatched rows (for
+    RoPE): ``[shard]`` int64 on the key's device."""
+    return _mgr(key).get_position_ids()
+
+
+def clear_cache() -> None:
+    _runtime_dict.clear()

@@ -1,0 +1,210 @@
+"""Group collectives over ``torch.distributed``, per rank.
+
+The port's counterpart of ``magiattention_tpu/comm/primitives.py``.
+
+- **GroupCast**: every rank sends chosen rows of its kv shard to the ranks
+  that need them; each receiver's buffer holds its sources' rows source by
+  source. One ``all_to_all_single`` per stage with the plan's true
+  per-pair row counts as uneven splits (so no wire padding), over NCCL on
+  CUDA tensors and gloo on CPU tensors.
+- **GroupReduce**: the reverse: partial gradients against a receive buffer
+  go back to the rows' owners (the reverse ``all_to_all_single``) and are
+  summed into their shards (``index_add_``). JAX gets it as the transpose
+  of GroupCast from XLA; here it is written out as the backward of
+  :class:`_GroupCast`.
+
+The JAX package plans three wire lowerings per stage (padded all_to_all,
+ppermute rounds, ragged all_to_all) because XLA's collectives want static
+shapes; ``all_to_all_single`` takes true splits, so the port runs every
+stage one way and reads only the plan's send indices and counts. The
+JAX package's ``cast_rows``/``reduce_rows`` lowering dispatchers and the
+ppermute and ragged lowerings have no counterpart here (ROADMAP queue A6
+ports the two-level plans).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..meta.collection.comm_meta import GroupCollectiveArg
+
+
+@dataclass(frozen=True, eq=False)
+class CastPlan:
+    """One GroupCast stage as one rank sees it."""
+
+    send_rows: np.ndarray  # (n_send,) int64 local rows, grouped by destination
+    send_splits: tuple[int, ...]  # rows sent to each rank
+    recv_splits: tuple[int, ...]  # rows received from each rank
+    buf_len: int  # receive-buffer rows (the stage's padded length)
+    _rows: dict = field(default_factory=dict, init=False, repr=False)
+
+    @property
+    def recv_len(self) -> int:
+        return sum(self.recv_splits)
+
+    @classmethod
+    def from_stage(cls, stage: GroupCollectiveArg, rank: int) -> "CastPlan":
+        """Rank ``rank``'s view of a solver stage. The solver lays out each
+        receive buffer source by source, each source's rows in its send
+        order (``recv_sel``): exactly what ``all_to_all_single`` delivers,
+        which is checked here."""
+        counts = stage.send_counts.astype(np.int64)  # [src][dst]
+        cp = counts.shape[0]
+        send_rows = np.concatenate(
+            [stage.send_idx[rank, d, : counts[rank, d]] for d in range(cp)]
+        ).astype(np.int64)
+        recv_splits = counts[:, rank]
+        n = int(stage.recv_len[rank])
+        sel = stage.recv_sel[rank, :n].astype(np.int64)
+        offsets = np.cumsum(recv_splits) - recv_splits
+        if n != int(recv_splits.sum()) or not np.array_equal(
+            offsets[sel // stage.a_cap] + sel % stage.a_cap, np.arange(n)
+        ):
+            raise ValueError(
+                f"rank {rank}: the stage's receive layout is not source-major "
+                "in send order; all_to_all_single cannot deliver it"
+            )
+        return cls(
+            send_rows=send_rows,
+            send_splits=tuple(int(c) for c in counts[rank]),
+            recv_splits=tuple(int(c) for c in recv_splits),
+            buf_len=int(stage.r_max),
+        )
+
+    def rows(self, device: torch.device) -> torch.Tensor:
+        """``send_rows`` as an int64 tensor on ``device`` (cached)."""
+        t = self._rows.get(device)
+        if t is None:
+            t = torch.from_numpy(self.send_rows).to(device)
+            self._rows[device] = t
+        return t
+
+
+def _all_to_all(out, inp, out_splits, in_splits, group, async_op):
+    return dist.all_to_all_single(
+        out, inp, list(out_splits), list(in_splits), group=group,
+        async_op=async_op,
+    )
+
+
+def _cast_start(x: torch.Tensor, plan: CastPlan, group, dtype: torch.dtype):
+    """Issue one stage's GroupCast of ``x``'s rows in ``dtype``; returns
+    the receive buffer (``plan.buf_len`` rows, those past ``recv_len``
+    zero) and the async work. Read the buffer only after ``work.wait()``.
+    On CUDA, NCCL runs the collective on its own stream; ``wait`` makes the
+    current stream wait for it."""
+    send = x.index_select(0, plan.rows(x.device)).to(dtype)
+    buf = send.new_zeros((plan.buf_len, *x.shape[1:]))
+    work = _all_to_all(
+        buf[: plan.recv_len], send, plan.recv_splits, plan.send_splits,
+        group, True,
+    )
+    return buf, work, send
+
+
+def _reduce_start(y: torch.Tensor, plan: CastPlan, group, dtype: torch.dtype):
+    """Issue one stage's GroupReduce transfer of ``y``'s first ``recv_len``
+    rows, in ``dtype``; returns (rows back in send order, work)."""
+    back = y.new_empty((len(plan.send_rows), *y.shape[1:]), dtype=dtype)
+    inp = y[: plan.recv_len].to(dtype).contiguous()
+    work = _all_to_all(
+        back, inp, plan.send_splits, plan.recv_splits, group, True
+    )
+    return back, work, inp
+
+
+def _reduce_finish(total, plan: CastPlan, back, work, shard_len: int) -> torch.Tensor:
+    """Wait for one stage's GroupReduce transfer and sum its rows into
+    ``total`` (float32 ``[shard_len, ...]``; made on first use, when
+    None). Returns ``total``."""
+    work.wait()
+    if total is None:
+        total = back.new_zeros((shard_len, *back.shape[1:]), dtype=torch.float32)
+    return total.index_add_(0, plan.rows(back.device), back.float())
+
+
+def group_reduce_rows(
+    y: torch.Tensor,
+    plan: CastPlan,
+    group,
+    shard_len: int,
+    dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """GroupReduce (op = sum) of partials ``y`` (``[buf_len, ...]``,
+    against this rank's receive buffer) into ``[shard_len, ...]`` float32:
+    the rows of every rank's partials that this rank owns, summed. The
+    transfer runs in ``dtype`` (default y's)."""
+    back, work, _ = _reduce_start(y, plan, group, dtype or y.dtype)
+    return _reduce_finish(None, plan, back, work, shard_len)
+
+
+class _GroupCast(torch.autograd.Function):
+    """GroupCast of ``x`` over one or more stages; the backward is the
+    GroupReduce of every stage, summed in float32 and cast to ``x``'s dtype
+    once. The forward only issues the transfers: ``waits`` (a list the
+    caller passes) receives one ``wait`` per stage, to call before the
+    stage's buffer is read. With ``hp`` the wire and the buffers are
+    float32 and a float32 copy of ``x`` comes first among the outputs, so
+    that the local part's gradient joins the float32 sum too (the high-
+    precision reduce, MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE)."""
+
+    @staticmethod
+    def forward(ctx, x, plans, group, hp, waits):
+        wire = torch.float32 if hp else x.dtype
+        bufs = []
+        for plan in plans:
+            buf, work, send = _cast_start(x, plan, group, wire)
+            bufs.append(buf)
+            # keep the send rows alive until the transfer is done
+            waits.append(lambda work=work, send=send: work.wait())
+        ctx.plans, ctx.group, ctx.hp = plans, group, hp
+        ctx.shard_len, ctx.x_dtype = x.shape[0], x.dtype
+        return (x.float(), *bufs) if hp else tuple(bufs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0].float() if ctx.hp else None
+        stage_grads = grads[1:] if ctx.hp else grads
+        wire = torch.float32 if ctx.hp else ctx.x_dtype
+        pending = [
+            (plan, *_reduce_start(g, plan, ctx.group, wire))
+            for plan, g in zip(ctx.plans, stage_grads)
+        ]
+        for plan, back, work, _ in pending:
+            total = _reduce_finish(total, plan, back, work, ctx.shard_len)
+        return total.to(ctx.x_dtype), None, None, None, None
+
+
+def group_cast_all(
+    x: torch.Tensor, plans: list[CastPlan], group, hp: bool = False
+) -> tuple[list[torch.Tensor], list]:
+    """Issue the GroupCast of every stage at once. Returns (parts, waits):
+    ``parts`` is ``[local, buf_0, ...]`` (local is ``x``, or its float32
+    copy under ``hp``), differentiable, and ``waits[i]`` must be called
+    before ``buf_i`` is read."""
+    if not plans:
+        return [x], []
+    waits: list = []
+    outs = _GroupCast.apply(x, tuple(plans), group, hp, waits)
+    return (list(outs) if hp else [x, *outs]), waits
+
+
+def group_cast_rows(x: torch.Tensor, plan: CastPlan, group) -> torch.Tensor:
+    """GroupCast of one stage, waited for: the ``[buf_len, ...]`` receive
+    buffer. Differentiable: its backward is :func:`group_reduce_rows`."""
+    (_, buf), waits = group_cast_all(x, [plan], group)
+    waits[0]()
+    return buf
+
+
+def all_gather_v(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated in rank order along dim 0 (the
+    shards are padded to one length, as the dispatch pads them)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)

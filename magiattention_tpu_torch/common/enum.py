@@ -1,14 +1,32 @@
-"""Attention mask types (the port's copy of the ``AttnMaskType`` part of
-``magiattention_tpu/common/enum.py``).
+"""Core enums (the port's copy of ``magiattention_tpu/common/enum.py``).
 
-Integer codes match the reference kernel contract (0=FULL, 1=CAUSAL,
-2=INVCAUSAL, 3=BICAUSAL), so slice metadata arrays are interchangeable
-between the two packages.
+Integer codes for
+``AttnMaskType`` match the reference kernel contract
+(0=FULL, 1=CAUSAL, 2=INVCAUSAL, 3=BICAUSAL) so slice metadata arrays are
+interchangeable.
 """
 
-from __future__ import annotations
-
 from enum import Enum
+from typing import Literal, TypeAlias
+
+GroupReduceOp: TypeAlias = Literal["sum", "avg", "lse"]
+
+AttnSinkLayout: TypeAlias = Literal["sh", "shd", "ssh"]
+
+
+class AttnType(Enum):
+    """Type of attention computation."""
+
+    SELF_ATTN = "self_attn"
+    CROSS_ATTN = "cross_attn"
+
+
+class AttnRole(Enum):
+    """Tensor role in attention."""
+
+    QUERY = "query"
+    KEY = "key"
+    VALUE = "value"
 
 
 class AttnMaskType(Enum):
@@ -36,9 +54,11 @@ class AttnMaskType(Enum):
         return _MASK_TYPE_TO_INT[self]
 
     @classmethod
-    def normalize(cls, value: "AttnMaskType | str | int") -> "AttnMaskType":
-        """Accept enum / str / int forms uniformly (numpy integer scalars
-        included: mask metadata often arrives as int32 arrays)."""
+    def normalize(
+        cls, value: "AttnMaskType | str | int"
+    ) -> "AttnMaskType":
+        """Accept enum / str / int forms uniformly (incl. numpy integer
+        scalars — mask metadata routinely arrives as np.int32 arrays)."""
         if isinstance(value, cls):
             return value
         if isinstance(value, int) or (
@@ -55,3 +75,68 @@ _INT_TO_MASK_TYPE = {
     3: AttnMaskType.BICAUSAL,
 }
 _MASK_TYPE_TO_INT = {v: k for k, v in _INT_TO_MASK_TYPE.items()}
+
+
+class AttnOverlapMode(Enum):
+    """Overlap mode for multi-stage compute/comm overlapping."""
+
+    STATIC = "static"
+    DYNAMIC = "dynamic"
+
+
+class DispatchAlgType(Enum):
+    """Algorithm for load-balanced chunk->rank dispatching."""
+
+    # AUTO is this build's addition (no reference analogue): solve with a
+    # small candidate set and pick by a modeled compute/comm trade-off —
+    # see meta/_make_dispatch_meta.py:_auto_select_partitions
+    AUTO = "auto"
+    LOWER_BOUND = "lower_bound"
+    DYNAMIC_PROGRAMMING = "dynamic_programming"
+    BINARY_SEARCH = "binary_search"
+    MIN_HEAP = "min_heap"
+    TOPP_HEAP = "topp_heap"
+    BACKTRACKING_PRUNING = "backtracing_pruning"
+    RANDOM_SELECT = "random_select"
+    SEQUENTIAL_SELECT = "sequential_select"
+    BATCH_TOPP_HEAP = "batch_topp_heap"
+    SORTED_SEQUENTIAL_SELECT = "sorted_sequential_select"
+
+
+class OverlapAlgType(Enum):
+    """Algorithm for multi-stage overlap planning."""
+
+    UNIFORM = "uniform"
+    GREEDY = "greedy"
+
+
+class DynamicAttnAlgType(Enum):
+    """Algorithm for the dynamic (qo-comm) attention solver."""
+
+    NON_COMMUNICATION_QO = "ncq"
+    GREEDY_RANDOM_GRID = "grg"
+    SIMPLEX_NETWORK_FLOW = "snf"
+    FAST_SNF = "fast_snf"
+    BINARY_GREEDY = "binary_greedy"
+    BINARY_GREEDY_PARALLEL = "binary_greedy_parallel"
+
+
+class AttnKernelBackend(Enum):
+    """Which attention kernel backend executes an AttnArg.
+
+    - ``FFA``: the Pallas-TPU flex-flash-attention kernel (production path).
+    - ``SDPA``: dense jnp reference backend, fp32/fp64 (testing path).
+    - ``SDPA_ONLINE``: blockwise-online jnp backend (low-memory testing path).
+    """
+
+    FFA = "ffa"
+    SDPA = "sdpa"
+    SDPA_ONLINE = "sdpa_online"
+
+
+class AttnPrecision(Enum):
+    """Precision override for attention compute."""
+
+    DEFAULT = "default"
+    FP32 = "fp32"
+    BF16 = "bf16"

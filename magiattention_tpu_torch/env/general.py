@@ -32,10 +32,64 @@ def precision() -> str:
     return _get_str("MAGI_ATTENTION_PRECISION", "default").lower()
 
 
+def is_sanity_check_enable() -> bool:
+    """Expensive invariant checks throughout solver/comm planning."""
+    return _get_bool("MAGI_ATTENTION_SANITY_CHECK")
+
+
+def runtime_dict_size() -> int:
+    """LRU capacity of the runtime-manager cache."""
+    return _get_int("MAGI_ATTENTION_RUNTIME_DICT_SIZE", 100)
+
+
+def is_plan_cache_enable() -> bool:
+    """Solved-plan cache one level below the runtime-manager LRU
+    (dist_attn_runtime_mgr.py): a repeated mask signature skips the
+    solvers. Reuse never changes which plan a signature gets, so this is
+    not a runtime-cache-key flag."""
+    return _get_bool("MAGI_ATTENTION_PLAN_CACHE", default=True)
+
+
+def plan_cache_size() -> int:
+    """LRU capacity of the solved-plan cache (entries = mask signatures)."""
+    return _get_int("MAGI_ATTENTION_PLAN_CACHE_SIZE", 100)
+
+
+def min_chunks_per_rank() -> int:
+    """Lower bound on dispatch chunks per rank when the chunk size is
+    derived (api/magi_attn_interface.py ``_auto_chunk_size``)."""
+    return _get_int("MAGI_ATTENTION_MIN_CHUNKS_PER_RANK", 4)
+
+
 def is_range_merge_enable() -> bool:
     """Merge band-compatible adjacent slices before kernel planning
     (kernels/ffa_plan.py build_ffa_plan -> mask_utils.merge_band_slices)."""
     return _get_bool("MAGI_ATTENTION_RANGE_MERGE", default=True)
+
+
+# flags that change numerics, planning output or the kernels a runtime runs,
+# and so belong to every runtime cache key (the port's subset of the JAX
+# package's ENV_KEYS_AFFECTING_RUNTIME)
+ENV_KEYS_AFFECTING_RUNTIME: tuple[str, ...] = (
+    "MAGI_ATTENTION_KERNEL_BACKEND",
+    "MAGI_ATTENTION_PRECISION",
+    "MAGI_ATTENTION_RANGE_MERGE",
+    "MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE",
+    "MAGI_ATTENTION_MIN_CHUNKS_PER_RANK",
+    "MAGI_ATTENTION_QO_COMM",
+    "MAGI_ATTENTION_HIERARCHICAL_COMM",
+    "MAGI_ATTENTION_FFA_BLOCK_Q",
+    "MAGI_ATTENTION_FFA_BLOCK_K",
+    "MAGI_ATTENTION_FFA_FUSED_BWD",
+    "MAGI_ATTENTION_BACKEND_FFA_BWD",
+    "MAGI_ATTENTION_RAGGED_GRPCOLL",
+    "MAGI_ATTENTION_SPLIT_ALIGNMENT",
+)
+
+
+def snapshot_env() -> tuple[tuple[str, str | None], ...]:
+    """Hashable snapshot of every behavior-affecting flag."""
+    return tuple((k, os.environ.get(k)) for k in ENV_KEYS_AFFECTING_RUNTIME)
 
 
 class scoped_env:

@@ -25,9 +25,7 @@ from ..env import general as env_general
 from ..kernels.ffa import (
     FFAParams,
     ffa_attn,
-    ffa_bwd_dkv,
-    ffa_bwd_dq,
-    ffa_bwd_mode,
+    ffa_bwd,
     ffa_delta,
     ffa_fwd,
     plan_params,
@@ -131,8 +129,8 @@ def flex_flash_attn_func(
 
 class _FFASinkCore(torch.autograd.Function):
     """FFA with a sink: the forward kernel, then the sink folded into
-    (out, lse); the backward runs the split kernels against the sink-
-    adjusted lse (which renormalizes dq/dk/dv exactly) and
+    (out, lse); the backward runs the backward kernels (fused or split, by
+    ``ffa_bwd_mode``) against the sink-adjusted lse (which renormalizes dq/dk/dv exactly) and
     :func:`~.sink.sink_bwd` for dsink. lse's cotangent is ignored."""
 
     @staticmethod
@@ -146,12 +144,10 @@ class _FFASinkCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        ffa_bwd_mode()
         q, k, v, sink, out, lse = ctx.saved_tensors
         plan, params = ctx.plan, ctx.params
         delta = ffa_delta(out, dout)
-        dq = ffa_bwd_dq(q, k, v, dout, lse, delta, plan, params)
-        dk, dv = ffa_bwd_dkv(q, k, v, dout, lse, delta, plan, params)
+        dq, dk, dv = ffa_bwd(q, k, v, dout, lse, delta, plan, params)
         dsink = sink_bwd(sink, lse, delta, ctx.sink_layout)
         return (
             dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dsink,

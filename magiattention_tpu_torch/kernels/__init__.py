@@ -8,6 +8,8 @@ from .ffa import (  # noqa: F401
     ffa_bwd_dkv_plain,
     ffa_bwd_dq_kernel,
     ffa_bwd_dq_plain,
+    ffa_bwd_fused_kernel,
+    ffa_bwd_fused_plain,
     ffa_bwd_mode,
     ffa_delta_kernel,
     ffa_delta_plain,
@@ -35,6 +37,7 @@ _KERNELS = {
     "ffa_bwd_delta": ffa_delta_kernel,
     "ffa_bwd_dq": ffa_bwd_dq_kernel,
     "ffa_bwd_dkv": ffa_bwd_dkv_kernel,
+    "ffa_bwd_fused": ffa_bwd_fused_kernel,
 }
 _PLAINS = {
     "sdpa_attn": sdpa_attn,
@@ -42,6 +45,7 @@ _PLAINS = {
     "ffa_delta_plain": ffa_delta_plain,
     "ffa_bwd_dq_plain": ffa_bwd_dq_plain,
     "ffa_bwd_dkv_plain": ffa_bwd_dkv_plain,
+    "ffa_bwd_fused_plain": ffa_bwd_fused_plain,
 }
 
 PLAIN_NAMES = tuple(_PLAINS)
@@ -73,6 +77,8 @@ __all__ = [
     "ffa_bwd_dkv_plain",
     "ffa_bwd_dq_kernel",
     "ffa_bwd_dq_plain",
+    "ffa_bwd_fused_kernel",
+    "ffa_bwd_fused_plain",
     "ffa_bwd_mode",
     "ffa_delta_kernel",
     "ffa_delta_plain",

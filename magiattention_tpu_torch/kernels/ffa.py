@@ -5,27 +5,34 @@ The port's counterpart of the single-device surface of
 ``ffa_attn_with_plan``, ``ffa_attn``, the custom VJP ``_ffa_core`` and
 ``ffa_bwd_mode``). Slices are diagonal bands; the host plan
 (:mod:`.ffa_plan`) lists the (q tile, k tile, slice) work items, q-major
-for the forward and dq, k-major for dk/dv. Four CUDA kernels walk them:
+for the forward and dq, k-major for dk/dv. Five CUDA kernels walk them:
 
 - ``csrc/ffa_fwd.cu``: out and lse, one CTA per (q-tile run, q head);
 - ``csrc/ffa_bwd_delta.cu``: delta = rowsum(dO * O);
 - ``csrc/ffa_bwd_dq.cu``: dq over the q-major runs;
 - ``csrc/ffa_bwd_dkv.cu``: dk, dv over the k-major runs, the GQA group
-  looped inside the CTA (the split backward: atomic-free, deterministic).
+  looped inside the CTA (with dq, the split backward: atomic-free,
+  deterministic);
+- ``csrc/ffa_bwd_fused.cu``: dq, dk and dv in one pass over the k-major
+  runs (the fused backward: dq by float32 atomics, then a scale pass).
+
+:func:`ffa_bwd_mode` picks split or fused for a plan, in the JAX package's
+order: a split pin, then the plan and kernel feasibility, then a fused pin,
+then the cost model (:func:`.tile_policy.choose_bwd_mode`).
 
 Each kernel has a plain PyTorch version beside it (``sdpa_attn`` for the
 forward, ``ffa_*_plain`` for the backward), which CPU tensors take. A CUDA
 tensor launches the kernel or raises: a kernel that fails to build or
-launch is an error, never a quiet switch to the plain version.
+launch is an error, never a quiet switch to the plain version (nor from
+fused to split).
 
 :class:`_FFACore` pairs the forward with the backward kernels as a
 ``torch.autograd.Function``; ``ffa_attn``/``ffa_attn_with_plan`` go
 through it on CUDA, and stay the autograd-differentiable ``sdpa_attn`` on
 the CPU. As in the JAX package, lse carries no gradient on either route
 (the backward ignores its cotangent; the CPU route detaches it).
-The TPU package's fused one-pass backward, mixed-granularity dispatch,
-auto-tile policy, GQA-packed forward and max-logits output are not ported
-yet (ROADMAP).
+The TPU package's mixed-granularity dispatch, auto-tile policy, GQA-packed
+kernels and max-logits output are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -40,9 +47,10 @@ import torch
 from ..env import backend as env_backend
 from ..env import kernel as env_kernel
 from . import _build
-from .ffa_plan import DHI, DLO, KE, KS, QE, QS, FFAPlan, get_ffa_plan
+from .ffa_plan import DHI, DLO, KE, KS, QE, QS, QVL, FFAPlan, get_ffa_plan
 from .mask_utils import build_dense_mask_band, types_to_bands
 from .sdpa import sdpa_attn
+from .tile_policy import choose_bwd_mode
 
 # the one tile shape the csrc/ffa_*.cu kernels are compiled for
 KERNEL_BLOCKS = (64, 64)
@@ -113,6 +121,8 @@ _ARGTYPES = {
     "ffa_bwd_dq": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
     # q k v do lse delta dk dv | work_qt_t meta_t run_ptr_t | ... nkt | ...
     "ffa_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    # q k v do lse delta dq dk dv | work_qt_t meta_t run_ptr_t | ... nkt | ...
+    "ffa_bwd_fused": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
 }
 
 
@@ -123,6 +133,10 @@ def _lib(name: str) -> ctypes.CDLL:
         fn = getattr(lib, f"{name}_{suffix}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
+    if name == "ffa_bwd_fused":
+        # dq n scale stream
+        lib.ffa_bwd_fused_convert.argtypes = [_P, _L, _F, _P]
+        lib.ffa_bwd_fused_convert.restype = ctypes.c_int
     return lib
 
 
@@ -275,7 +289,56 @@ def ffa_bwd_dkv_kernel(
     return dk, dv
 
 
-for _kernel in (ffa_fwd_kernel, ffa_delta_kernel, ffa_bwd_dq_kernel, ffa_bwd_dkv_kernel):
+def ffa_bwd_fused_convert(dq: torch.Tensor, scale: float) -> None:
+    """The fused backward's convert pass alone: ``dq *= scale`` in place on
+    a contiguous float32 CUDA tensor (what :func:`ffa_bwd_fused_kernel`
+    runs after the one-pass kernel)."""
+    if not (dq.is_cuda and dq.dtype == torch.float32 and dq.is_contiguous()):
+        raise ValueError("ffa_bwd_fused_convert takes a contiguous float32 CUDA tensor")
+    if dq.numel() % 4 or dq.data_ptr() % 16:
+        raise ValueError("ffa_bwd_fused_convert needs 16-byte aligned rows of 4 floats")
+    lib = _lib("ffa_bwd_fused")
+    code = lib.ffa_bwd_fused_convert(
+        dq.data_ptr(), dq.numel(), float(scale),
+        torch.cuda.current_stream(dq.device).cuda_stream,
+    )
+    _build.check(lib, code, "ffa_bwd_fused_convert")
+
+
+def ffa_bwd_fused_kernel(
+    q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/ffa_bwd_fused.cu`` over the plan's k-major runs: one
+    CTA per (k tile, kv head) looping the GQA group, dq added with float32
+    atomics into a zeroed workspace, then the convert pass (scale).
+    Returns (dq ``[sq, hq, d]``, dk, dv ``[sk, hk, d]``), float32. dq is
+    not bitwise reproducible (atomics); dk and dv are. Adds one to
+    ``ffa_bwd_fused_kernel.launches`` per launch."""
+    q, k, v, do = _kernel_inputs("ffa_bwd_fused_kernel", params, q, k, v, do)
+    lse, delta = _row_stats(q, lse, delta)
+    sq, hq, d = q.shape
+    sk, hk, _ = k.shape
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    work_qt_t, meta_t, run_ptr_t = plan.device_arrays_t(q.device)
+    _launch(
+        "ffa_bwd_fused", q.dtype, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), work_qt_t.data_ptr(), meta_t.data_ptr(),
+        run_ptr_t.data_ptr(), sq, sk, hq, hk, d, params.num_k_tiles,
+        params.softmax_scale, params.softcap,
+    )
+    ffa_bwd_fused_convert(dq, params.softmax_scale)
+    ffa_bwd_fused_kernel.launches += 1
+    return dq, dk, dv
+
+
+for _kernel in (
+    ffa_fwd_kernel, ffa_delta_kernel, ffa_bwd_dq_kernel, ffa_bwd_dkv_kernel,
+    ffa_bwd_fused_kernel,
+):
     _kernel.launches = 0
 
 
@@ -349,7 +412,24 @@ def ffa_bwd_dkv_plain(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams)
     )
 
 
-for _plain in (ffa_delta_plain, ffa_bwd_dq_plain, ffa_bwd_dkv_plain):
+def ffa_bwd_fused_plain(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
+    """Plain version of :func:`ffa_bwd_fused_kernel`: (dq ``[sq, hq, d]``,
+    dk, dv ``[sk, hk, d]``) float32 from one dense recompute."""
+    ffa_bwd_fused_plain.calls += 1
+    p, ds, kf, g = _bwd_dense(q, k, v, do, lse, delta, plan, params)
+    sk, hk, d = k.shape
+    dq = torch.einsum("hqk,khd->qhd", ds, kf).mul_(params.softmax_scale)
+    del kf
+    dk = torch.einsum("hqk,qhd->khd", ds, q.float()).mul_(params.softmax_scale)
+    dv = torch.einsum("hqk,qhd->khd", p, do.float())
+    return (
+        dq,
+        dk.reshape(sk, hk, g, d).sum(2),
+        dv.reshape(sk, hk, g, v.shape[-1]).sum(2),
+    )
+
+
+for _plain in (ffa_delta_plain, ffa_bwd_dq_plain, ffa_bwd_dkv_plain, ffa_bwd_fused_plain):
     _plain.calls = 0
 
 
@@ -385,29 +465,90 @@ def ffa_bwd_dkv(q, k, v, do, lse, delta, plan, params):
     return fn(q, k, v, do, lse, delta, plan, params)
 
 
-def ffa_bwd_mode() -> str:
-    """The backward's execution mode: always "split" (delta, then dq over
-    the q-major plan, then dk/dv over the k-major plan; atomic-free and
-    deterministic). A ``fused`` pin (MAGI_ATTENTION_BACKEND_FFA_BWD, or the
-    legacy MAGI_ATTENTION_FFA_FUSED_BWD=1) raises: the fused one-pass
-    kernels need fp32 atomics on a GPU and are not ported yet."""
-    if env_backend.ffa_bwd_pin() == "fused":
-        raise NotImplementedError(
-            "the fused FFA backward is not ported yet (ROADMAP queue B, "
-            "_bwd_fused_kernel[_gqa]); unset the fused pin to run split"
-        )
-    return "split"
+def ffa_bwd_fused(q, k, v, do, lse, delta, plan, params):
+    fn = ffa_bwd_fused_kernel if q.is_cuda else ffa_bwd_fused_plain
+    return fn(q, k, v, do, lse, delta, plan, params)
+
+
+# the shared-memory and register budget of one CTA on an H100 (sm_90)
+SMEM_PER_CTA = 232_448  # 227 KB opt-in dynamic shared memory
+REGS_PER_THREAD = 255
+
+
+def fused_bwd_smem_bytes(d: int) -> int:
+    """Shared memory of one fused-backward CTA (csrc/bwd_kv.cuh
+    ``DkvSmem``): K, V, Q and dO tiles at row stride d + 4, the P^T and
+    dS^T tiles at row stride 80, the q tile's lse and delta, float32."""
+    bq = bk = 64
+    ds, pstr = d + 4, bq + 16
+    return 4 * (2 * bk * ds + 2 * bq * ds + 2 * bk * pstr + 2 * bq)
+
+
+def fused_bwd_feasible(d: int, dv: int) -> bool:
+    """True when the fused kernel can run this head geometry: equal q/k and
+    v head dims in 64-column groups (the thread layout), its shared memory
+    within the opt-in limit, and the live accumulators of a thread (dk and
+    dv, d / 2; the dq block, 16; the S and dP blocks, 32) with room for
+    addresses and operands (64) within the register limit. The JAX
+    package's guard is its VMEM residency (``ffa.fused_bwd_feasible``)."""
+    if d != dv or d % 64:
+        return False
+    accumulators = d // 2 + 16 + 32
+    return (
+        fused_bwd_smem_bytes(d) <= SMEM_PER_CTA
+        and accumulators + 64 <= REGS_PER_THREAD
+    )
+
+
+def ffa_bwd_mode(
+    plan: FFAPlan, params: FFAParams, d: int, dv: int, itemsize: int, group: int
+) -> str:
+    """The backward's execution mode for one plan, "split" or "fused", in
+    the JAX package's order (``kernels/ffa.py:ffa_bwd_mode``): a split pin
+    (MAGI_ATTENTION_BACKEND_FFA_BWD=split, or the legacy
+    MAGI_ATTENTION_FFA_FUSED_BWD=0) wins; a plan without the visit-flag
+    columns, or a head geometry the fused kernel cannot hold
+    (:func:`fused_bwd_feasible`), runs split; then a fused pin wins;
+    otherwise the cost model :func:`.tile_policy.choose_bwd_mode` decides
+    from the plan's work counts and tiles. Split is the deterministic
+    mode (no atomics)."""
+    pin = env_backend.ffa_bwd_pin()
+    if pin == "split":
+        return "split"
+    if plan.meta.shape[1] <= QVL or not fused_bwd_feasible(d, dv):
+        return "split"
+    if pin == "fused":
+        return "fused"
+    bq, bk = params.block_q, params.block_k
+    return choose_bwd_mode(
+        plan.num_work, bq, bk, plan.num_work_t, bq, bk, d, dv,
+        itemsize=itemsize, group=group,
+    )
+
+
+def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
+    """(dq, dk, dv) float32 of one plan under :func:`ffa_bwd_mode`: the
+    fused kernel, or the dq then dk/dv kernels (their plain versions on
+    the CPU)."""
+    mode = ffa_bwd_mode(
+        plan, params, q.shape[-1], v.shape[-1], q.element_size(),
+        q.shape[1] // k.shape[1],
+    )
+    if mode == "fused":
+        return ffa_bwd_fused(q, k, v, do, lse, delta, plan, params)
+    dq = ffa_bwd_dq(q, k, v, do, lse, delta, plan, params)
+    dk, dv = ffa_bwd_dkv(q, k, v, do, lse, delta, plan, params)
+    return dq, dk, dv
 
 
 class _FFACore(torch.autograd.Function):
-    """FFA forward + split backward over one plan (the port's ``_ffa_core``).
+    """FFA forward + backward over one plan (the port's ``_ffa_core``).
 
-    Saves q, k, v, out and lse. The backward runs delta, then dq, then
-    dk/dv, each through :func:`ffa_delta`/:func:`ffa_bwd_dq`/
-    :func:`ffa_bwd_dkv` (kernels on CUDA, plain versions on the CPU), and
-    returns gradients in the input dtypes (the kernels emit float32). lse
-    is an auxiliary output: its cotangent is ignored, as in the JAX
-    package."""
+    Saves q, k, v, out and lse. The backward runs delta, then
+    :func:`ffa_bwd` (fused or split by :func:`ffa_bwd_mode`; kernels on
+    CUDA, plain versions on the CPU), and returns gradients in the input
+    dtypes (the kernels emit float32). lse is an auxiliary output: its
+    cotangent is ignored, as in the JAX package."""
 
     @staticmethod
     def forward(ctx, q, k, v, plan: FFAPlan, params: FFAParams):
@@ -419,12 +560,10 @@ class _FFACore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        ffa_bwd_mode()
         q, k, v, out, lse = ctx.saved_tensors
         plan, params = ctx.plan, ctx.params
         delta = ffa_delta(out, dout)
-        dq = ffa_bwd_dq(q, k, v, dout, lse, delta, plan, params)
-        dk, dv = ffa_bwd_dkv(q, k, v, dout, lse, delta, plan, params)
+        dq, dk, dv = ffa_bwd(q, k, v, dout, lse, delta, plan, params)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 

@@ -2,7 +2,6 @@
 
 from .llama import (  # noqa: F401
     LlamaConfig,
-    flex_attn,
     forward,
     init_params,
     loss_fn,
@@ -13,7 +12,6 @@ from .llama import (  # noqa: F401
 
 __all__ = [
     "LlamaConfig",
-    "flex_attn",
     "forward",
     "init_params",
     "loss_fn",

@@ -1,4 +1,4 @@
-"""Llama-style decoder trained through flex attention, on one device.
+"""Llama-style decoder with context-parallel flex attention.
 
 The port's counterpart of ``magiattention_tpu/models/llama.py``: a
 packed-varlen (no batch dim) decoder whose parameters are a plain dict of
@@ -6,13 +6,15 @@ float32 master weights (the JAX pytree's layout, so
 :func:`params_from_numpy` carries JAX weights over as they are), computed
 in ``cfg.dtype``, trained by plain SGD.
 
-Where the JAX functions take a CP runtime key (``attn_key``), these take an
-attention callable ``attn(q, k, v) -> (out, meta)``. On one device the JAX
-dispatch is the identity (one partition of all chunks, position ids
-``arange``), so the JAX model's attention is exactly single-device FFA over
-the mask's slices: :func:`flex_attn` binds ``flex_flash_attn_func`` to
-them, and :func:`forward` uses positions ``arange(S)``. A later slice
-replaces the callable with ``calc_attn`` over the CP planners and runtime.
+As in JAX, attention runs through the runtime key of the mask
+(``attn_key``, from ``api.magi_attn_flex_key``): the embeddings are
+dispatched, RoPE takes the dispatched rows' global positions
+(``get_position_ids``), every layer calls ``calc_attn``, and the loss is
+taken over the dispatched labels. Every other op is row-wise or a matrix
+product, so the network runs on the dispatched rows as they are. At cp > 1
+each rank's parameter gradients are partial: the cp-group all-reduce of
+them is not ported yet (ROADMAP queue A9), so the loss (and with it
+``value_and_grad`` and ``train_step``) raises on a key with cp > 1.
 
 ``train_step`` updates the parameters in place (JAX donates them).
 """
@@ -20,16 +22,14 @@ replaces the callable with ``calc_attn`` over the CP planners and runtime.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..api import calc_attn, dispatch, get_position_ids
 from ..device import resolve_device
-from ..functional.flex_flash_attn import flex_flash_attn_func
-
-AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], tuple]
+from ..dist_attn_runtime_mgr import DistAttnRuntimeKey
 
 _LAYER_KEYS = (
     "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down",
@@ -129,21 +129,6 @@ def param_names(params: dict) -> list[str]:
     return out
 
 
-def flex_attn(q_ranges, k_ranges, attn_type_map=None, **kwargs) -> AttnFn:
-    """The attention callable of one mask: ``flex_flash_attn_func`` bound
-    to its slices (``kwargs``: e.g. ``backend="sdpa"`` for the plain
-    path). On one device this is what the JAX model's ``calc_attn``
-    computes."""
-    qr = np.asarray(q_ranges, dtype=np.int32).reshape(-1, 2)
-    kr = np.asarray(k_ranges, dtype=np.int32).reshape(-1, 2)
-    tmap = None if attn_type_map is None else np.asarray(attn_type_map, np.int32)
-
-    def attn(q, k, v):
-        return flex_flash_attn_func(q, k, v, qr, kr, tmap, **kwargs)
-
-    return attn
-
-
 def _rms_norm(x, w, eps):
     x32 = x.float()
     scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
@@ -160,8 +145,9 @@ def _rope(x, pos, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def attn_block(x, lyr, cfg: LlamaConfig, pos, attn: AttnFn):
-    """Pre-norm attention sub-block: qkv, rope, attention, wo, residual."""
+def attn_block(x, lyr, cfg: LlamaConfig, pos, attn_key: DistAttnRuntimeKey):
+    """Pre-norm attention sub-block on the dispatched rows: qkv, rope, CP
+    attention, wo, residual."""
     dt = x.dtype
     h = _rms_norm(x, lyr["attn_norm"], cfg.norm_eps)
     q = (h @ lyr["wq"].to(dt)).reshape(-1, cfg.n_heads, cfg.head_dim)
@@ -169,7 +155,7 @@ def attn_block(x, lyr, cfg: LlamaConfig, pos, attn: AttnFn):
     v = (h @ lyr["wv"].to(dt)).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
     q = _rope(q, pos, cfg.rope_theta)
     k = _rope(k, pos, cfg.rope_theta)
-    attn_out, _ = attn(q, k, v)
+    attn_out, _ = calc_attn(q, k, v, attn_key)
     attn_out = attn_out.reshape(-1, cfg.n_heads * cfg.head_dim)
     return x + attn_out @ lyr["wo"].to(dt)
 
@@ -183,14 +169,16 @@ def masked_ce(logits, labels):
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
 
 
-def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn: AttnFn):
-    """Logits ``(S, vocab)`` float32 of ``tokens`` ``(S,)`` int (natural
-    order: one device, so no dispatch permutation)."""
+def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: DistAttnRuntimeKey):
+    """Logits of ``tokens`` ``(S,)`` int, natural order, for this rank's
+    dispatched rows: ``(shard, vocab)`` float32 in DISPATCHED order (the
+    loss dispatches the labels instead of undispatching the logits)."""
     dt = cfg.tdtype
     x = params["embed"][tokens.long()].to(dt)  # (S, dim)
-    pos = torch.arange(tokens.shape[0], dtype=torch.int32, device=x.device)
+    x = dispatch(x, attn_key)
+    pos = get_position_ids(attn_key)
     for lyr in params["layers"]:
-        x = attn_block(x, lyr, cfg, pos, attn)
+        x = attn_block(x, lyr, cfg, pos, attn_key)
         h = _rms_norm(x, lyr["mlp_norm"], cfg.norm_eps)
         gate = F.silu(h @ lyr["w_gate"].to(dt))
         up = h @ lyr["w_up"].to(dt)
@@ -199,12 +187,20 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn: AttnFn):
     return (x @ params["lm_head"].to(dt)).float()
 
 
-def loss_fn(params, cfg: LlamaConfig, tokens, labels, attn: AttnFn):
-    """Next-token cross entropy (labels < 0 are ignored)."""
-    return masked_ce(forward(params, cfg, tokens, attn), labels)
+def loss_fn(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeKey):
+    """Next-token cross entropy over the dispatched rows (labels < 0 are
+    ignored; labels are dispatched with the same permutation). Raises
+    NotImplementedError at cp > 1 (no gradient all-reduce yet)."""
+    if attn_key.cp_size > 1:
+        raise NotImplementedError(
+            "training at cp > 1 needs the cp-group all-reduce of parameter "
+            "gradients and a global label count: not ported yet, ROADMAP queue A9"
+        )
+    logits = forward(params, cfg, tokens, attn_key)
+    return masked_ce(logits, dispatch(labels, attn_key))
 
 
-def value_and_grad(params, cfg: LlamaConfig, tokens, labels, attn: AttnFn):
+def value_and_grad(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeKey):
     """(loss, grads in :func:`param_list` order), by autograd."""
     leaves = [p.detach().requires_grad_(True) for p in param_list(params)]
     it = iter(leaves)
@@ -212,14 +208,16 @@ def value_and_grad(params, cfg: LlamaConfig, tokens, labels, attn: AttnFn):
         "embed": next(it), "final_norm": next(it), "lm_head": next(it),
         "layers": [{key: next(it) for key in _LAYER_KEYS} for _ in params["layers"]],
     }
-    loss = loss_fn(live, cfg, tokens, labels, attn)
+    loss = loss_fn(live, cfg, tokens, labels, attn_key)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads)
 
 
-def train_step(params, cfg: LlamaConfig, tokens, labels, attn: AttnFn, lr: float = 1e-4):
+def train_step(
+    params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeKey, lr: float = 1e-4
+):
     """One SGD step ``p -= lr * g``, in place. Returns (params, loss)."""
-    loss, grads = value_and_grad(params, cfg, tokens, labels, attn)
+    loss, grads = value_and_grad(params, cfg, tokens, labels, attn_key)
     with torch.no_grad():
         for p, g in zip(param_list(params), grads):
             p.sub_(g.to(p.dtype), alpha=lr)

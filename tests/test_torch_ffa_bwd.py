@@ -36,6 +36,9 @@ from magiattention_tpu_torch.kernels.ffa import (
     ffa_bwd_dkv_plain,
     ffa_bwd_dq_kernel,
     ffa_bwd_dq_plain,
+    ffa_bwd_fused_convert,
+    ffa_bwd_fused_kernel,
+    ffa_bwd_fused_plain,
     ffa_bwd_mode,
     ffa_delta_kernel,
     ffa_delta_plain,
@@ -209,28 +212,45 @@ def test_lse_carries_no_gradient_as_in_jax(path):
 
 
 def test_ffa_bwd_mode_is_split_and_refuses_fused(monkeypatch):
-    monkeypatch.delenv("MAGI_ATTENTION_BACKEND_FFA_BWD", raising=False)
-    monkeypatch.delenv("MAGI_ATTENTION_FFA_FUSED_BWD", raising=False)
-    assert ffa_bwd_mode() == "split"
-    monkeypatch.setenv("MAGI_ATTENTION_BACKEND_FFA_BWD", "split")
-    assert ffa_bwd_mode() == "split"
-    for key, val in (
-        ("MAGI_ATTENTION_BACKEND_FFA_BWD", "fused"),
-        ("MAGI_ATTENTION_FFA_FUSED_BWD", "1"),
+    """The mode follows the JAX package's precedence: a split pin (or the
+    legacy flag at 0) wins, a fused pin (or the legacy flag at 1) wins where
+    the fused kernel can run, and a head geometry it cannot hold (head_dim
+    32: its threads own 64-column groups) runs split under any pin."""
+    qr, kr, lo, hi, sq, sk = BWD_MASKS["causal"]
+    plans = {d: plan_params(qr, kr, None, lo, hi, sq, sk, d, None, 0.0) for d in (32, 64)}
+    for key, val, want in (
+        ("MAGI_ATTENTION_BACKEND_FFA_BWD", "split", "split"),
+        ("MAGI_ATTENTION_FFA_FUSED_BWD", "0", "split"),
+        ("MAGI_ATTENTION_BACKEND_FFA_BWD", "fused", "fused"),
+        ("MAGI_ATTENTION_FFA_FUSED_BWD", "1", "fused"),
     ):
         monkeypatch.delenv("MAGI_ATTENTION_BACKEND_FFA_BWD", raising=False)
+        monkeypatch.delenv("MAGI_ATTENTION_FFA_FUSED_BWD", raising=False)
         monkeypatch.setenv(key, val)
-        with pytest.raises(NotImplementedError, match="fused"):
-            ffa_bwd_mode()
+        assert ffa_bwd_mode(*plans[64], 64, 64, 4, 2) == want, (key, val)
+        assert ffa_bwd_mode(*plans[32], 32, 32, 4, 2) == "split", (key, val)
 
 
 def test_fused_pin_raises_in_backward_not_forward(monkeypatch):
-    """No silent downgrade: a fused pin stops the backward."""
-    monkeypatch.setenv("MAGI_ATTENTION_BACKEND_FFA_BWD", "fused")
-    (q, k, v, do), _ = _arrays("causal", 2)
-    fn = _port_path("ffa_core", "causal", 0.0)
-    with pytest.raises(NotImplementedError, match="fused"):
-        _torch_grads(fn, q, k, v, do)
+    """No silent downgrade: under a fused pin the backward runs the fused
+    kernel's plain version and no split one, with the split path's
+    gradients."""
+    qr, kr, lo, hi, sq, sk = BWD_MASKS["varlen"]
+    q, k, v = qkv(np.random.default_rng(7), sq, sk, 2 * HK, HK, 64)
+    do = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+    plan, params = plan_params(qr, kr, None, lo, hi, sq, sk, 64, None, 0.0)
+
+    def run(pin):
+        monkeypatch.setenv("MAGI_ATTENTION_BACKEND_FFA_BWD", pin)
+        ffa_bwd_fused_plain.calls = ffa_bwd_dq_plain.calls = 0
+        got = _torch_grads(lambda q, k, v: _FFACore.apply(q, k, v, plan, params), q, k, v, do)
+        return got, ffa_bwd_fused_plain.calls, ffa_bwd_dq_plain.calls
+
+    fused, n_fused, n_dq = run("fused")
+    assert (n_fused, n_dq) == (1, 0)
+    split, n_fused, n_dq = run("split")
+    assert (n_fused, n_dq) == (0, 1)
+    _assert_all_close(fused, split, "fused vs split")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -242,14 +262,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     lse = torch.zeros(q.shape[:2])
     with pytest.raises(ValueError, match="CUDA"):
         ffa_delta_kernel(tq, tdo)
-    for kernel in (ffa_bwd_dq_kernel, ffa_bwd_dkv_kernel):
+    for kernel in (ffa_bwd_dq_kernel, ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel):
         with pytest.raises(ValueError, match="CUDA"):
             kernel(tq, tk, tv, tdo, lse, lse, plan, params)
+    with pytest.raises(ValueError, match="CUDA"):
+        ffa_bwd_fused_convert(torch.zeros(tq.shape), params.softmax_scale)
 
 
 def test_backward_sources_are_built_at_first_use():
-    for name in ("ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv"):
+    for name in ("ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv", "ffa_bwd_fused"):
         assert name in _build.SOURCES
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces: magiattention_tpu/kernels/ffa.py" in src
-        assert '#include "common.cuh"' in src
+        assert '#include "common.cuh"' in src or '#include "bwd_kv.cuh"' in src

@@ -48,6 +48,22 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.common.enum",
         "magiattention_tpu_torch.common.forward_meta",
         "magiattention_tpu_torch.env.backend",
+        "magiattention_tpu_torch.env.comm",
+        "magiattention_tpu_torch.api.magi_attn_interface",
+        "magiattention_tpu_torch.api.functools",
+        "magiattention_tpu_torch.comm.primitives",
+        "magiattention_tpu_torch.functional.dispatch",
+        "magiattention_tpu_torch.functional.dist_attn",
+        "magiattention_tpu_torch.functional.utils",
+        "magiattention_tpu_torch.dist_attn_runtime_mgr",
+        "magiattention_tpu_torch.config",
+        "magiattention_tpu_torch.common.mask",
+        "magiattention_tpu_torch.common.rectangle",
+        "magiattention_tpu_torch.meta.solver.dispatch_solver",
+        "magiattention_tpu_torch.meta.solver.dist_attn_solver",
+        "magiattention_tpu_torch.meta.solver.overlap_solver",
+        "magiattention_tpu_torch.meta.collection.comm_meta",
+        "magiattention_tpu_torch.kernels.tile_policy",
         "chip_smoke",
     ):
         assert module in loaded, module
@@ -66,6 +82,7 @@ def test_chip_smoke_names_no_jax_module():
             names.append(node.module)
     assert "magiattention_tpu_torch.serving" in names
     assert "magiattention_tpu_torch.models.llama" in names
+    assert "magiattention_tpu_torch.functional.dist_attn" in names
     assert [n for n in names if _is_jax_side(n)] == []
 
 
@@ -73,7 +90,7 @@ def test_entry_points_raise_without_a_gpu():
     proc = _run(
         """
         import torch
-        from magiattention_tpu_torch import PagedKVCache, ToyModel
+        from magiattention_tpu_torch import PagedKVCache, ToyModel, magi_attn_flex_key
         from magiattention_tpu_torch.models import LlamaConfig, init_params
         from magiattention_tpu_torch.models import params_from_numpy
         assert not torch.cuda.is_available()
@@ -84,6 +101,7 @@ def test_entry_points_raise_without_a_gpu():
             lambda: PagedKVCache.create(4, 16, 2, 16, 1, 2),
             lambda: init_params(cfg),
             lambda: params_from_numpy(init_params(cfg, device="cpu")),
+            lambda: magi_attn_flex_key([[0, 8]], [[0, 8]], [1], 8, 8),
         ):
             try:
                 make()
@@ -93,6 +111,7 @@ def test_entry_points_raise_without_a_gpu():
                 raise SystemExit("ran on the CPU without being asked")
         ToyModel.create(device="cpu")  # asking for the CPU works
         init_params(cfg, device="cpu")
+        magi_attn_flex_key([[0, 8]], [[0, 8]], [1], 8, 8, device="cpu")
         print("ok")
         """
     )

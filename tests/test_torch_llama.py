@@ -1,21 +1,20 @@
 """The port's Llama trainer on the CPU against the JAX package's.
 
-A small config (dim 128, 2 layers, 4/2 heads, head_dim 32, ffn 256, vocab
+A small config (dim 128, 2 layers, 4/2 heads, head_dim 64, ffn 256, vocab
 512, 256 tokens, float32) with the weights of JAX ``init_params`` carried
 over by ``params_from_numpy``, under the same two-document causal mask.
-The JAX side runs ``loss_fn``/``train_step`` on a one-device mesh key
-(``magi_attn_flex_key(..., mesh=Mesh(jax.devices("cpu")[:1]))``), whose
-dispatch is the identity, with the split FFA backward (Pallas in interpret
-mode). The port's attention callable is ``flex_flash_attn_func`` bound to
-the slices (``ffa``: on CPU tensors ``sdpa_attn``, autograd), or
-``_FFACore`` directly (``ffa_core``: the backward kernels' plain
-versions).
+Both sides take attention through a cp = 1 runtime key of that mask: JAX's
+``magi_attn_flex_key(..., mesh=Mesh(jax.devices("cpu")[:1]))`` with the
+split FFA backward (Pallas in interpret mode), the port's
+``magi_attn_flex_key(..., device="cpu")`` (the kernels' plain versions)
+under a split or a fused backward pin.
 
 Tolerances: loss rel 1e-5; every gradient atol 1e-5, rtol 1e-4, rel-norm
 1e-4 (float32 through two layers of products summed in different orders);
 three SGD steps at lr 1e-2: losses rel 1e-5, parameters atol 1e-5.
 """
 
+import dataclasses
 from functools import lru_cache
 
 import jax
@@ -27,13 +26,14 @@ from jax.sharding import Mesh
 
 from magiattention_tpu.api import magi_attn_flex_key
 from magiattention_tpu.models import llama as jax_llama
-from magiattention_tpu_torch.kernels.ffa import _FFACore, plan_params
+from magiattention_tpu_torch import api as port_api
+from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
 from magiattention_tpu_torch.models import llama
 from magiattention_tpu_torch.testing import assert_close
 
 CFG = dict(
     vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
-    head_dim=32, ffn_hidden=256, dtype="float32",
+    head_dim=64, ffn_hidden=256, dtype="float32",
 )
 S, LR, STEPS = 256, 1e-2, 3
 RANGES = [[0, S // 2], [S // 2, S]]
@@ -79,15 +79,18 @@ def _jax_run():
     )
 
 
-def _attn(path):
-    if path == "ffa":
-        return llama.flex_attn(RANGES, RANGES, [1, 1])
-    plan, params = plan_params(RANGES, RANGES, [1, 1], None, None, S, S, CFG["head_dim"], None, 0.0)
+def _key(pin, monkeypatch):
+    """The port's cp = 1 key of the mask, under a backward pin."""
+    monkeypatch.setenv("MAGI_ATTENTION_BACKEND_FFA_BWD", pin)
+    return port_api.magi_attn_flex_key(RANGES, RANGES, [1, 1], S, S, device="cpu")
 
-    def attn(q, k, v):
-        return _FFACore.apply(q, k, v, plan, params)
 
-    return attn
+def _check_mode(pin):
+    """The plain version of the pinned backward ran, the other did not."""
+    counts = launch_counts()
+    other = "split" if pin == "fused" else "fused"
+    name = {"fused": "ffa_bwd_fused_plain", "split": "ffa_bwd_dq_plain"}
+    assert counts[name[pin]] > 0 and counts[name[other]] == 0, counts
 
 
 def _port_inputs():
@@ -97,10 +100,13 @@ def _port_inputs():
     return cfg, params, tokens, labels
 
 
-@pytest.mark.parametrize("path", ["ffa", "ffa_core"])
-def test_loss_and_grads_match_jax(path):
+@pytest.mark.parametrize("path", ["split", "fused"])
+def test_loss_and_grads_match_jax(path, monkeypatch):
     cfg, params, tokens, labels = _port_inputs()
-    loss, grads = llama.value_and_grad(params, cfg, tokens, labels, _attn(path))
+    key = _key(path, monkeypatch)
+    reset_launch_counts()
+    loss, grads = llama.value_and_grad(params, cfg, tokens, labels, key)
+    _check_mode(path)
     ref = _jax_run()
     assert abs(loss.item() - ref["loss"]) <= 1e-5 * abs(ref["loss"])
     names = llama.param_names(params)
@@ -110,13 +116,13 @@ def test_loss_and_grads_match_jax(path):
         assert_close(g, want, msg=f"{path} grad {name}", **GRAD_TOL)
 
 
-@pytest.mark.parametrize("path", ["ffa", "ffa_core"])
-def test_three_train_steps_match_jax(path):
+@pytest.mark.parametrize("path", ["split", "fused"])
+def test_three_train_steps_match_jax(path, monkeypatch):
     cfg, params, tokens, labels = _port_inputs()
-    attn = _attn(path)
+    key = _key(path, monkeypatch)
     losses = []
     for _ in range(STEPS):
-        params, loss = llama.train_step(params, cfg, tokens, labels, attn, lr=LR)
+        params, loss = llama.train_step(params, cfg, tokens, labels, key, lr=LR)
         losses.append(loss.item())
     ref = _jax_run()
     np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5)
@@ -149,3 +155,14 @@ def test_masked_ce_ignores_negative_labels():
     want = torch.nn.functional.cross_entropy(logits[valid], labels[valid])
     torch.testing.assert_close(llama.masked_ce(logits, labels), want)
     assert llama.masked_ce(logits, torch.full((6,), -100)).item() == 0.0
+
+
+@pytest.mark.parametrize("entry", ["loss_fn", "value_and_grad", "train_step"])
+def test_training_at_cp_above_one_raises(entry, monkeypatch):
+    """At cp > 1 each rank's gradients would be partial (no cp-group
+    all-reduce yet): the trainer refuses the key instead of letting the
+    ranks' weights drift apart."""
+    cfg, params, tokens, labels = _port_inputs()
+    key = dataclasses.replace(_key("split", monkeypatch), cp_size=2)
+    with pytest.raises(NotImplementedError, match="queue A9"):
+        getattr(llama, entry)(params, cfg, tokens, labels, key)
