@@ -22,6 +22,16 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    ``ffa_attn`` against SDPA's.
 4. ``ffa_bwd_fused``: the fused one-pass backward kernel at the same four
    shapes, against its plain version and against the split kernels.
+   ``ffa_fwd_gqa`` / ``ffa_bwd_dq_gqa``: the GQA-packed forward and dq
+   kernels against their plain versions and, bit for bit, against the
+   unpacked kernels, over group sizes 2, 4, 8, head dims 64 and 128,
+   float32 and bf16, causal, varlen and train-docs masks (the guard's
+   heads per CTA printed). ``max_logits``: the forward's max-logits output
+   against ``dense_max_logits``, softcap off and on, and its cost.
+   ``bwd_mode``: the unpinned backward mode against the measured fused and
+   split times at the four shapes and a sink-window mask (fails where the
+   model picks the slower by more than 5%), and the model's constants from
+   this run.
 5. ``paged_decode``: the paged-decode kernel against ``paged_decode_plain``
    on 8 ragged slots, in float32 and bfloat16.
 6. ``edge_cases``: head_dim 64, ragged tiles, softcap, g = 1 and 8, other
@@ -36,16 +46,18 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    the serve run again under ``torch.profiler``.
 8. ``cp_api``: ``magi_attn_flex_key -> dispatch -> calc_attn ->
    undispatch`` at cp = 1, forward and backward, at the train phase's
-   attention shape, against ``flex_flash_attn_func``.
+   attention shape, against ``flex_flash_attn_func``, with max-logits.
 9. ``cp_stages``: the multi-stage compute (``multi_ffa`` over the host and
    remote kv parts, lse merge, per-part backward) of every rank of a
    cp = 4, overlap-degree-2 plan, against the plain dense reference.
 10. ``train``: ``models.llama.train_step`` through the API at
     Llama-3.1-8B widths, depth cut to 2 layers, bf16 over float32 master
-    weights, 8192 packed tokens in two causal documents: 3 SGD steps under
-    the fused backward and one under the split pin; launch counts per
-    step, one step under ``torch.profiler``, and a kernel-vs-plain check
-    of loss and gradients at 2048 tokens.
+    weights, 8192 packed tokens in two causal documents: 3 SGD steps
+    unpinned (the model resolves fused), one under the split pin, one
+    under the GQA pack flags with the split pin and one under the pack
+    flags unpinned; launch counts per step, one step under
+    ``torch.profiler``, and a kernel-vs-plain check of loss and gradients
+    at 2048 tokens.
 11. ``kernels``: one line per-kernel summary (launches from the serve or
     train phase, error, kernel / plain / library time and the card's
     bound).
@@ -60,6 +72,7 @@ use their own figures, named in the device line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -160,8 +173,26 @@ def check(name: str, err: dict, dtype: str) -> None:
         )
 
 
+def sink_window_mask(seq: int, global_tokens: int = 64, window: int = 64):
+    """(q_ranges, k_ranges, types) of a sliding causal window of
+    ``window`` keys behind every query plus the first ``global_tokens``
+    keys for every query (global / sink tokens), through the port's own
+    mask compiler (``magi_attn_varlen_key``'s ``window_size`` and
+    ``global_window_size``)."""
+    from magiattention_tpu_torch.api.functools import infer_attn_mask_from_cu_seqlens
+
+    qr, kr, types = infer_attn_mask_from_cu_seqlens(
+        [0, seq], causal=False, window_size=(window, 0), global_window_size=global_tokens,
+    )
+    return (
+        np.array(qr.to_naive_ranges()), np.array(kr.to_naive_ranges()),
+        np.array([t.to_int_type() for t in types]),
+    )
+
+
 def mask_cases() -> dict[str, dict]:
-    """The masks and shapes the FFA phases run (head_dim 128)."""
+    """The masks and shapes the FFA phases run (head_dim 128 unless a case
+    names ``d``)."""
     import torch
 
     from magiattention_tpu_torch.kernels.mask_utils import BAND_INF, types_to_bands
@@ -171,6 +202,7 @@ def mask_cases() -> dict[str, dict]:
     qr = np.array([[0, 3072], [3072, 6144], [6144, 7168], [7168, 7680]])
     kr = np.array([[0, 3072], [3072, 6144], [6144, 7168], [6144, 7680]])
     docs = np.array([[0, S // 2], [S // 2, S]])
+    sqr, skr, stypes = sink_window_mask(S)
     return {
         # serving prefill chunk: 512 queries at positions 1536.. over the
         # 4096 gathered rows of a 256-page table, kv_len 2048
@@ -199,6 +231,13 @@ def mask_cases() -> dict[str, dict]:
             lo=types_to_bands(docs, docs, np.array([1, 1]))[0],
             hi=types_to_bands(docs, docs, np.array([1, 1]))[1],
         ),
+        # 64 global tokens and a 64-key sliding window at the train heads:
+        # every q tile reaches k tile 0, so one k-major run is 129 items
+        # long while the q-major runs are 2-3 (where split should beat fused)
+        "sink_window_8192_bf16": dict(
+            dtype=torch.bfloat16, sq=S, sk=S, hq=32, hk=8, qr=sqr, kr=skr,
+            lo=types_to_bands(sqr, skr, stypes)[0], hi=types_to_bands(sqr, skr, stypes)[1],
+        ),
     }
 
 
@@ -209,7 +248,7 @@ def case_inputs(c: dict, gen, with_do: bool = False):
     from magiattention_tpu_torch.kernels.ffa import FFAParams, default_blocks
     from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
 
-    dt, d = c["dtype"], 128
+    dt, d = c["dtype"], c.get("d", 128)
     shapes = [(c["sq"], c["hq"], d), (c["sk"], c["hk"], d), (c["sk"], c["hk"], d)]
     if with_do:
         shapes.append((c["sq"], c["hq"], d))
@@ -509,7 +548,7 @@ def ffa_bwd_fused_phase(peaks: dict, bwd: dict) -> dict[str, dict]:
         res = dict(
             case=name, dtype=dname, q=list(q.shape), kv=list(k.shape),
             live_pairs=live, work_items_t=plan.num_work_t,
-            cost_model_mode=ffa_bwd_mode(plan, params, d, d, isz, hq // c["hk"]),
+            cost_model_mode=ffa_bwd_mode(plan, params, d, d, isz, hq, c["hk"]),
             vs_plain=err, vs_split=err_split,
             max_abs_err=max(e["max_abs_err"] for e in err.values()),
             ms=ms, convert_ms=convert_ms,
@@ -527,6 +566,337 @@ def ffa_bwd_fused_phase(peaks: dict, bwd: dict) -> dict[str, dict]:
         del fused, ws
         torch.cuda.empty_cache()
     return results
+
+
+# the GQA-packed kernels' cases: every group size (2, 4, 8), head dim (64,
+# 128), dtype and mask (causal, varlen with uncovered rows, train documents)
+# appears: (mask case, name, dtype, head_dim, hq, hk)
+GQA_CASES = (
+    ("train_docs_8192_bf16", "a_docs_bf16_d128_g4", "bfloat16", 128, 32, 8),
+    ("causal_8192_bf16", "b_causal_bf16_d128_g2", "bfloat16", 128, 16, 8),
+    ("varlen_8192_bf16", "c_varlen_bf16_d128_g8", "bfloat16", 128, 32, 4),
+    ("causal_8192_bf16", "d_causal_f32_d64_g8", "float32", 64, 32, 4),
+    ("varlen_8192_bf16", "e_varlen_f32_d64_g4", "float32", 64, 16, 4),
+    ("train_docs_8192_bf16", "f_docs_f32_d128_g2", "float32", 128, 16, 8),
+)
+
+
+def gqa_case(key: str, name: str, dtype: str, d: int, hq: int, hk: int) -> dict:
+    import torch
+
+    return dict(mask_cases()[key], name=name, dtype=getattr(torch, dtype), d=d, hq=hq, hk=hk)
+
+
+def live_pairs(c: dict) -> tuple[int, object]:
+    """Live (q, k) pairs of a case's mask, and the dense bool mask."""
+    from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band
+
+    qr, kr = np.asarray(c["qr"], np.int32), np.asarray(c["kr"], np.int32)
+    lo, hi = np.asarray(c["lo"], np.int32), np.asarray(c["hi"], np.int32)
+    mask = build_dense_mask_band(qr, kr, lo, hi, c["sq"], c["sk"], device="cuda")
+    return int(mask.sum().item()), mask
+
+
+def sdpa_ms(c: dict, q, k, v, mask) -> tuple[float | None, str | None]:
+    """SDPA's forward time on the case (is_causal for a causal mask, else
+    the bool mask where every row is covered; None where rows are empty,
+    which SDPA turns into NaN)."""
+    import torch.nn.functional as F
+
+    if "uncovered" in c:
+        return None, None
+    qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
+    if c.get("library") == "causal":
+        kw, call = dict(is_causal=True), "is_causal=True"
+    else:
+        kw, call = dict(attn_mask=mask), "attn_mask=bool"
+    ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw))
+    return ms, f"scaled_dot_product_attention({call}, enable_gqa=True)"
+
+
+def ffa_fwd_gqa_phase(peaks: dict) -> dict[str, dict]:
+    """The packed forward kernel (B2) against its plain version
+    (``sdpa_attn``) and against the unpacked kernel (B1) on the same
+    inputs: out and lse must be bit-identical to B1's. Prints the guard's
+    decision (heads per CTA) and checks the packed CTA's shared memory
+    against the guard's figure. Bound: B1's (the same function; K/V
+    streamed per item drop by the heads per CTA, reported apart)."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import ffa as kffa
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_fwd_gqa_kernel, ffa_fwd_kernel, fwd_pack_heads, fwd_pack_smem_bytes,
+    )
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    results = {}
+    for spec in GQA_CASES:
+        c = gqa_case(*spec)
+        name, d, hq, hk = c["name"], c["d"], c["hq"], c["hk"]
+        dname = str(c["dtype"]).removeprefix("torch.")
+        heads = fwd_pack_heads(hq // hk, d, d)
+        decision = dict(case=name, group=hq // hk, head_dim=d, heads_per_cta=heads)
+        if heads < 2:
+            emit({"phase": "ffa_fwd_gqa", **decision, "route": "unpacked (guard)"})
+            continue
+        lib_smem = kffa._lib("ffa_fwd_gqa").ffa_fwd_gqa_smem_bytes(d, heads)
+        if lib_smem != fwd_pack_smem_bytes(d, heads):
+            raise AssertionError(f"{name}: kernel smem {lib_smem} != guard's {fwd_pack_smem_bytes(d, heads)}")
+        (q, k, v), (qr, kr, lo, hi), plan, params = case_inputs(c, gen)
+
+        def kernel():
+            return ffa_fwd_gqa_kernel(q, k, v, plan, params)
+
+        def unpacked():
+            return ffa_fwd_kernel(q, k, v, plan, params)
+
+        def plain():
+            return sdpa_attn(q, k, v, qr, kr, softmax_scale=params.softmax_scale, d_lo=lo, d_hi=hi)
+
+        out_k, lse_k = kernel()
+        out_u, lse_u = unpacked()
+        out_p, lse_p = plain()
+        torch.cuda.synchronize()
+        err = errors(out_k, lse_k, out_p, lse_p)
+        check(name, err, dname)
+        bitwise = bool(torch.equal(out_k, out_u) and torch.equal(lse_k, lse_u))
+        if not bitwise:
+            raise AssertionError(f"{name}: packed forward is not bit-identical to the unpacked one")
+        if "uncovered" in c:
+            r0, r1 = c["uncovered"]
+            if out_k[r0:r1].any() or not torch.isneginf(lse_k[r0:r1]).all():
+                raise AssertionError(f"{name}: uncovered rows are not (0, -inf)")
+        del out_p, lse_p, out_u, lse_u
+        live, mask = live_pairs(c)
+        flops = 4.0 * hq * d * live
+        isz = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + lse_k.numel() * 4
+        b_ms, b_by = bound(flops, nbytes, dname, peaks)
+        lib_ms, lib_call = sdpa_ms(c, q, k, v, mask)
+        del mask
+        kv_tile = 2 * 64 * d * isz  # a k and a v tile
+        res = dict(
+            **decision, dtype=dname, q=list(q.shape), kv=list(k.shape),
+            live_pairs=live, work_items=plan.num_work, **err, bit_identical_to_unpacked=bitwise,
+            smem_bytes=lib_smem, ms=time_ms(kernel), unpacked_ms=time_ms(unpacked),
+            plain_ms=time_ms(plain, warmup=1, samples=5), bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library_call=lib_call,
+            kv_streamed_gb=plan.num_work * hq // heads * kv_tile / 1e9,
+            kv_streamed_gb_unpacked=plan.num_work * hq * kv_tile / 1e9,
+            atol=ATOL[dname], rnorm=RNORM[dname],
+        )
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        emit({"phase": "ffa_fwd_gqa", **res})
+        results[name] = res
+        torch.cuda.empty_cache()
+    return results
+
+
+def ffa_bwd_gqa_phase(peaks: dict) -> dict[str, dict]:
+    """The packed dq kernel (B4) against its plain version
+    (``ffa_bwd_dq_plain``) and against the unpacked dq kernel (B3) on the
+    same inputs (B1's out and lse, the plain delta): dq must be
+    bit-identical to B3's, and 0 on uncovered rows. Bound: B3's, 6 flops
+    per live pair per head and d."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import ffa as kffa
+    from magiattention_tpu_torch.kernels.ffa import (
+        dq_pack_heads, dq_pack_smem_bytes, ffa_bwd_dq_gqa_kernel, ffa_bwd_dq_kernel,
+        ffa_bwd_dq_plain, ffa_delta_plain, ffa_fwd_kernel,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    results = {}
+    for spec in GQA_CASES:
+        c = gqa_case(*spec)
+        name, d, hq, hk = c["name"], c["d"], c["hq"], c["hk"]
+        dname = str(c["dtype"]).removeprefix("torch.")
+        heads = dq_pack_heads(hq // hk, d, d)
+        decision = dict(case=name, group=hq // hk, head_dim=d, heads_per_cta=heads)
+        if heads < 2:
+            emit({"phase": "ffa_bwd_dq_gqa", **decision, "route": "unpacked (guard)"})
+            continue
+        lib_smem = kffa._lib("ffa_bwd_dq_gqa").ffa_bwd_dq_gqa_smem_bytes(d, heads)
+        if lib_smem != dq_pack_smem_bytes(d, heads):
+            raise AssertionError(f"{name}: kernel smem {lib_smem} != guard's {dq_pack_smem_bytes(d, heads)}")
+        (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
+        out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+        delta = ffa_delta_plain(out, do)
+        args = (q, k, v, do, lse, delta, plan, params)
+        dq_k = ffa_bwd_dq_gqa_kernel(*args)
+        dq_u = ffa_bwd_dq_kernel(*args)
+        torch.cuda.synchronize()
+        err = grad_check(f"{name} dq", dq_k, ffa_bwd_dq_plain(*args), dname)
+        bitwise = bool(torch.equal(dq_k, dq_u))
+        if not bitwise:
+            raise AssertionError(f"{name}: packed dq is not bit-identical to the unpacked one")
+        if "uncovered" in c:
+            r0, r1 = c["uncovered"]
+            if dq_k[r0:r1].any():
+                raise AssertionError(f"{name}: packed dq of uncovered rows is not 0")
+        del dq_u
+        live, mask = live_pairs(c)
+        del mask
+        isz = q.element_size()
+        n_q, n_kv, rows = q.numel(), k.numel(), c["sq"] * hq
+        flops = 6.0 * hq * d * live
+        b_ms, b_by = bound(flops, (2 * n_q + 2 * n_kv) * isz + 2 * rows * 4 + n_q * 4, dname, peaks)
+        res = dict(
+            **decision, dtype=dname, q=list(q.shape), kv=list(k.shape), live_pairs=live,
+            work_items=plan.num_work, **err, bit_identical_to_unpacked=bitwise,
+            smem_bytes=lib_smem, ms=time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args)),
+            unpacked_ms=time_ms(lambda: ffa_bwd_dq_kernel(*args)),
+            plain_ms=time_ms(lambda: ffa_bwd_dq_plain(*args), warmup=1, samples=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            atol=ATOL[dname], rnorm=RNORM[dname],
+        )
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        emit({"phase": "ffa_bwd_dq_gqa", **res})
+        results[name] = res
+        torch.cuda.empty_cache()
+    return results
+
+
+ML_RTOL = 1e-5  # float32: the kernel's and the dense products sum in other orders
+
+
+def max_logits_phase() -> dict[str, dict]:
+    """B1's max-logits output against ``dense_max_logits`` at the four
+    backward shapes, softcap off and on (relative 1e-5), with out and lse
+    unchanged bit for bit by asking for it, and B1's time with and without
+    it; then a mask with no live pair, whose every head must give -inf."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import ffa_fwd_kernel, plan_params
+    from magiattention_tpu_torch.kernels.sdpa import dense_max_logits
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    all_cases = mask_cases()
+    results = {}
+    for key in ("causal_8192_bf16", "varlen_8192_bf16", "serving_prefill_f32", "train_docs_8192_bf16"):
+        c = all_cases[key]
+        (q, k, v), (qr, kr, lo, hi), plan, params0 = case_inputs(c, gen)
+        for softcap in (0.0, 30.0):
+            params = dataclasses.replace(params0, softcap=softcap)
+            out, lse, ml = ffa_fwd_kernel(q, k, v, plan, params, return_max_logits=True)
+            out0, lse0 = ffa_fwd_kernel(q, k, v, plan, params)
+            want = dense_max_logits(
+                q, k, qr, kr, softmax_scale=params.softmax_scale, softcap=softcap,
+                d_lo=lo, d_hi=hi,
+            )
+            torch.cuda.synchronize()
+            if not (torch.equal(out, out0) and torch.equal(lse, lse0)):
+                raise AssertionError(f"{key}: out/lse change when max-logits is asked for")
+            if not torch.isfinite(want).all() or not torch.isfinite(ml).all():
+                raise AssertionError(f"{key}: max-logits not finite where every head attends")
+            rel = ((ml.double() - want.double()).abs() / want.double().abs()).max().item()
+            if rel > ML_RTOL:
+                raise AssertionError(f"{key} softcap {softcap}: max-logits rel err {rel:.3e} > {ML_RTOL}")
+            name = f"{key}_cap{softcap:g}"
+            res = dict(
+                case=name, max_rel_err=rel, max_logit=ml.max().item(),
+                ms=time_ms(lambda: ffa_fwd_kernel(q, k, v, plan, params, return_max_logits=True)),
+                ms_without=time_ms(lambda: ffa_fwd_kernel(q, k, v, plan, params)),
+                rtol=ML_RTOL,
+            )
+            emit({"phase": "max_logits", **res})
+            results[name] = res
+        torch.cuda.empty_cache()
+    # no live pair: one slice whose band misses its rectangle
+    q, k, v = (torch.randn((200, 4, 64), generator=gen, device="cuda") for _ in range(3))
+    k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
+    plan, params = plan_params([[0, 100]], [[150, 200]], None, [-300], [-250], 200, 200, 64, None, 0.0)
+    out, lse, ml = ffa_fwd_kernel(q, k, v, plan, params, return_max_logits=True)
+    torch.cuda.synchronize()
+    if out.any() or not torch.isneginf(lse).all() or not torch.isneginf(ml).all():
+        raise AssertionError("an empty mask does not give out 0, lse -inf and max-logits -inf")
+    emit({"phase": "max_logits", "case": "empty_mask", "max_logits": ml.tolist()})
+    return results
+
+
+def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
+    """The unpinned backward mode against the card: at the four backward
+    shapes (their kernel times from the ``ffa_bwd`` and ``ffa_bwd_fused``
+    phases) and the sink-window mask (timed here, fused checked against
+    split), the cost model's choice beside the measured fused and split
+    (dq + dk/dv) times. Fails where the model picks the slower mode by more
+    than 5%. Also the constants the model would take from this run at the
+    train shape (``tile_policy.calibrate``) beside the ones in the code."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import tile_policy
+    from magiattention_tpu_torch.kernels.ffa import (
+        bwd_shape, ffa_bwd_dkv_kernel, ffa_bwd_dq_gqa_kernel, ffa_bwd_dq_kernel,
+        ffa_bwd_fused_kernel, ffa_bwd_mode, ffa_delta_plain, ffa_fwd_kernel,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    all_cases = mask_cases()
+    measured = {
+        key: dict(
+            dq=bwd[name]["ffa_bwd_dq"]["ms"], dkv=bwd[name]["ffa_bwd_dkv"]["ms"],
+            fused=fused[name]["ms"],
+        )
+        for key, name in (
+            ("causal_8192_bf16", "a_causal_8192_bf16"),
+            ("varlen_8192_bf16", "b_varlen_8192_bf16"),
+            ("serving_prefill_f32", "c_serving_prefill_f32"),
+            ("train_docs_8192_bf16", "d_train_docs_8192_bf16"),
+        )
+    }
+    c = all_cases["sink_window_8192_bf16"]
+    (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
+    out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+    args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
+    dq_f, dk_f, dv_f = ffa_bwd_fused_kernel(*args)
+    for gname, a, b in zip(("dq", "dk", "dv"), (dq_f, dk_f, dv_f), (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args))):
+        grad_check(f"sink_window fused vs split {gname}", a, b, "bfloat16")
+    del dq_f, dk_f, dv_f
+    measured["sink_window_8192_bf16"] = dict(
+        dq=time_ms(lambda: ffa_bwd_dq_kernel(*args)),
+        dkv=time_ms(lambda: ffa_bwd_dkv_kernel(*args)),
+        fused=time_ms(lambda: ffa_bwd_fused_kernel(*args)),
+        dq_gqa=time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args)),
+    )
+
+    rows = []
+    for key, ms in measured.items():
+        c = all_cases[key]
+        isz = 4 if c["dtype"] == torch.float32 else 2
+        (q, k, _), _, plan, params = case_inputs(c, gen)
+        mode = ffa_bwd_mode(plan, params, 128, 128, isz, c["hq"], c["hk"])
+        shape = bwd_shape(plan, c["hq"], c["hk"], 128, 128, isz)
+        split_ms = ms["dq"] + ms["dkv"]
+        faster = "fused" if ms["fused"] <= split_ms else "split"
+        gap = abs(ms["fused"] - split_ms) / min(ms["fused"], split_ms)
+        row = dict(
+            case=key, model_mode=mode, faster=faster, agree=mode == faster, gap=gap,
+            fused_ms=ms["fused"], split_ms=split_ms, dq_ms=ms["dq"], dkv_ms=ms["dkv"],
+            modeled_ms=tile_policy.kernel_ms(shape),
+            real_items=int(shape.items_k.sum()), longest_k_run=int(shape.items_k.max()),
+            longest_q_run=int(shape.items_q.max()),
+        )
+        if "dq_gqa" in ms:
+            row["dq_gqa_ms"] = ms["dq_gqa"]
+        emit({"phase": "bwd_mode", **row})
+        rows.append(row)
+        if not row["agree"] and gap > 0.05:
+            raise AssertionError(f"bwd_mode {key}: model picks {mode}, {faster} is {gap:.1%} faster")
+    c = all_cases["train_docs_8192_bf16"]
+    (q, k, _), _, plan, params = case_inputs(c, gen)
+    shape = bwd_shape(plan, c["hq"], c["hk"], 128, 128, 2)
+    calib = tile_policy.calibrate(shape, measured["train_docs_8192_bf16"])
+    calib.update(tile_policy.calibrate(
+        shape, dict(measured["train_docs_8192_bf16"], dq=dq_gqa["a_docs_bf16_d128_g4"]["ms"]),
+        dq_heads_per_cta=dq_gqa["a_docs_bf16_d128_g4"]["heads_per_cta"],
+    ))
+    emit({
+        "phase": "bwd_mode_constants", "from_this_run": calib,
+        "in_code": dict(tile_policy.ITEM_US, atomic_adds_per_s=tile_policy.ATOMIC_ADDS_PER_S),
+    })
+    return rows
 
 
 def decode_phase(peaks: dict) -> list[dict]:
@@ -597,8 +967,9 @@ def decode_phase(peaks: dict) -> list[dict]:
 def edge_phase() -> None:
     """Kernel paths the main shapes do not reach, checked (not timed):
     head_dim 64, a ragged last q and k tile, softcap, g = 1 and g = 8, a k
-    tile no slice reaches and uncovered rows (forward and gradients), a
-    page size below and above the 64-token chunk."""
+    tile no slice reaches and uncovered rows (forward and gradients, the
+    GQA-packed kernels bit-identical to the unpacked ones there), a page
+    size below and above the 64-token chunk."""
     import torch
 
     from magiattention_tpu_torch.env.general import scoped_env
@@ -625,6 +996,10 @@ def edge_phase() -> None:
         v = torch.randn((203, hk, d), generator=gen, device="cuda").to(dt)
         got = ffa_attn(q, k, v, qr, kr, attn_type_map=types, softcap=softcap)
         want = sdpa_attn(q, k, v, qr, kr, attn_type_map=types, softcap=softcap)
+        with scoped_env(PACK):  # the packed forward (g > 1): bit-identical
+            packed = ffa_attn(q, k, v, qr, kr, attn_type_map=types, softcap=softcap)
+        if not all(torch.equal(a, b) for a, b in zip(packed, got)):
+            raise AssertionError(f"ffa_d{d}_g{hq // hk}: packed forward not bit-identical")
         name = f"ffa_d{d}_g{hq // hk}_{dname}_cap{softcap:g}"
         err = errors(*got, *want)
         check(name, err, dname)
@@ -666,6 +1041,13 @@ def edge_phase() -> None:
             dq, dk, dv = got
             if dq[200:].any() or dk[203:].any() or dv[203:].any():
                 raise AssertionError(f"{name}: gradients of untouched rows are not 0")
+        # the GQA-packed forward and dq (split pin): bit-identical gradients
+        with scoped_env({**PACK, **SPLIT}):
+            packed = grads_of(ffa_attn)
+        with scoped_env(SPLIT):
+            unpacked = grads_of(ffa_attn)
+        if not all(torch.equal(a, b) for a, b in zip(packed, unpacked)):
+            raise AssertionError(f"grad_packed_d{d}_g{hq // hk}: not bit-identical to unpacked")
     for d, hq, hk, ps, dt in (
         (64, 8, 1, 8, torch.float32),
         (128, 8, 2, 128, torch.bfloat16),
@@ -863,8 +1245,9 @@ def cp_api_phase() -> dict:
     """The user path ``magi_attn_flex_key -> dispatch -> calc_attn ->
     undispatch`` at cp = 1 on the card, forward and backward, at the train
     phase's attention shape (bf16), against ``flex_flash_attn_func`` on
-    the same inputs. Reports the backward mode the port resolved and the
-    kernels the path launched (counts reset just before it)."""
+    the same inputs, with the max-logits output against
+    ``dense_max_logits``. Reports the backward mode the port resolved and
+    the kernels the path launched (counts reset just before it)."""
     import torch
 
     from magiattention_tpu_torch import api
@@ -872,6 +1255,7 @@ def cp_api_phase() -> dict:
     from magiattention_tpu_torch.functional import flex_flash_attn_func
     from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
     from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
+    from magiattention_tpu_torch.kernels.sdpa import dense_max_logits
 
     docs = _docs(CP_SEQ, CP_DOC)
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -883,15 +1267,17 @@ def cp_api_phase() -> dict:
     plan_s = time.perf_counter() - t0
     runtime = _mgr(key).runtime
     plan = runtime.plans[0]
-    mode = ffa_bwd_mode(plan, runtime._params(CP_D)[0], CP_D, CP_D, 2, CP_HQ // CP_HK)
+    mode = ffa_bwd_mode(plan, runtime._params(CP_D)[0], CP_D, CP_D, 2, CP_HQ, CP_HK)
 
-    def api_path():
+    def api_path(max_logits=None):
         q, k, v = (t.detach().requires_grad_(True) for t in inputs)
         out_d, meta = api.calc_attn(
             api.dispatch(q, key), api.dispatch(k, key, role="kv"),
-            api.dispatch(v, key, role="kv"), key,
+            api.dispatch(v, key, role="kv"), key, return_max_logits=max_logits is not None,
         )
         out = api.undispatch(out_d, key)
+        if max_logits is not None:
+            max_logits.append(meta.max_logits)
         return (out, *torch.autograd.grad(out, (q, k, v), do))
 
     def direct_path():
@@ -901,7 +1287,8 @@ def cp_api_phase() -> dict:
 
     torch.cuda.synchronize()
     reset_launch_counts()
-    got = api_path()
+    ml = []
+    got = api_path(ml)
     torch.cuda.synchronize()
     counts = launch_counts()
     want = direct_path()
@@ -909,6 +1296,10 @@ def cp_api_phase() -> dict:
         name: grad_check(f"cp_api {name}", a.float(), b.float(), "bfloat16")
         for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)
     }
+    ml_want = dense_max_logits(inputs[0], inputs[1], np.array(docs), np.array(docs), np.array([1, 1]))
+    ml_rel = ((ml[0].double() - ml_want.double()).abs() / ml_want.double().abs()).max().item()
+    if ml_rel > ML_RTOL:
+        raise AssertionError(f"cp_api: max-logits rel err {ml_rel:.3e} > {ML_RTOL}")
     expected = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(mode))
     if any(counts[k] != 1 for k in expected) or any(counts[k] for k in PLAIN_NAMES):
         raise AssertionError(f"cp_api: launched {counts}, want one of each of {expected}")
@@ -916,6 +1307,7 @@ def cp_api_phase() -> dict:
         shape=f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, two causal documents",
         cp=1, resolved_bwd_mode=mode, plan_s=plan_s, work_items=plan.num_work,
         launches={k: v for k, v in counts.items() if v}, vs_flex_flash_attn=err,
+        max_logits_rel_err=ml_rel, max_logits_rtol=ML_RTOL,
         fwd_bwd_ms=time_ms(api_path, samples=5),
         flex_flash_attn_fwd_bwd_ms=time_ms(direct_path, samples=5),
         atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"],
@@ -1031,7 +1423,7 @@ def cp_stages_phase() -> dict:
                 dict(valid=c.recv_len, buffer=c.buf_len) for c in runtime.cast_plans
             ],
             bwd_modes=[
-                ffa_bwd_mode(p, prm, CP_D, CP_D, 2, CP_HQ // CP_HK)
+                ffa_bwd_mode(p, prm, CP_D, CP_D, 2, CP_HQ, CP_HK)
                 for p, prm in zip(runtime.plans, runtime._params(CP_D))
             ],
             launches={k_: v_ for k_, v_ in counts.items() if v_},
@@ -1052,21 +1444,27 @@ def cp_stages_phase() -> dict:
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_DOC, TRAIN_STEPS, TRAIN_LR = 2, 8192, 4096, 3, 1e-4
 CHECK_SEQ, CHECK_DOC = 2048, 1024
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RNORM = 1e-2, 2e-2
-FFA_KERNELS = ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv", "ffa_bwd_fused")
+FFA_KERNELS = (
+    "ffa_fwd", "ffa_fwd_gqa", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dq_gqa",
+    "ffa_bwd_dkv", "ffa_bwd_fused",
+)
+SPLIT = {"MAGI_ATTENTION_BACKEND_FFA_BWD": "split"}
+PACK = {"MAGI_ATTENTION_FFA_GQA_PACK": "1", "MAGI_ATTENTION_FFA_GQA_PACK_DQ": "1"}
 
 
 def train_phase() -> dict:
     """``models.llama.train_step`` on the card, attention through the API
     (``magi_attn_flex_key`` at cp = 1, ``calc_attn`` per layer); asserts
-    finite losses, one launch of each FFA kernel of the resolved backward
-    mode per layer per step, no plain version on the path. The steps run
-    the fused backward (the cost model's choice, or a fused pin where the
-    model picks split); one more step runs under the split pin, so both
-    modes have a step time. Then the kernels' loss and gradients against
-    the plain path's (``MAGI_ATTENTION_KERNEL_BACKEND=sdpa``: dense float32
-    attention under autograd) at CHECK_SEQ tokens: the plain path keeps
-    float32 (32, S, S) tensors per layer for autograd, which at 8192
-    tokens do not fit twice over on 80 GB."""
+    finite losses, one launch of each FFA kernel of the resolved path per
+    layer per step, no plain version on the path. The cost model must
+    resolve the fused backward unpinned here; TRAIN_STEPS steps run so.
+    Then one step under the split pin, one under both GQA pack flags with
+    the split pin (B2, B7, B4, B5/B6) and one under the pack flags unpinned
+    (B2, B7, B8/B9). Then the kernels' loss and gradients against the plain
+    path's (``MAGI_ATTENTION_KERNEL_BACKEND=sdpa``: dense float32 attention
+    under autograd) at CHECK_SEQ tokens: the plain path keeps float32 (32,
+    S, S) tensors per layer for autograd, which at 8192 tokens do not fit
+    twice over on 80 GB."""
     import torch
 
     from magiattention_tpu_torch import api
@@ -1108,29 +1506,27 @@ def train_phase() -> dict:
     runtime = _mgr(key).runtime
     model_mode = ffa_bwd_mode(
         runtime.plans[0], runtime._params(cfg.head_dim)[0], cfg.head_dim,
-        cfg.head_dim, 2, cfg.n_heads // cfg.n_kv_heads,
+        cfg.head_dim, 2, cfg.n_heads, cfg.n_kv_heads,
     )
-    pin = {} if model_mode == "fused" else {"MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"}
-    key = key_of(TRAIN_SEQ, TRAIN_DOC, **pin)
+    if model_mode != "fused":
+        raise AssertionError(f"train: the unpinned backward resolves {model_mode}, want fused")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    def step(i, key, mode):
+    def step(i, env, kernels):
         before = launch_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         nonlocal params
-        with scoped_env(pin if mode == "fused" else {"MAGI_ATTENTION_BACKEND_FFA_BWD": "split"}):
+        with scoped_env(env):
             params, loss = train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR)
             loss = loss.item()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}
-        kernels = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(mode))
         rec = dict(
-            step=i, bwd_mode=mode, loss=loss, ms=ms,
-            tokens_per_s=TRAIN_SEQ / (ms * 1e-3),
+            step=i, env=env, loss=loss, ms=ms, tokens_per_s=TRAIN_SEQ / (ms * 1e-3),
             launches={k: v for k, v in launches.items() if v},
         )
         emit({"phase": "train_step", **rec})
@@ -1144,27 +1540,30 @@ def train_phase() -> dict:
             )
         if any(launches[k] for k in PLAIN_NAMES):
             raise AssertionError(f"train: a plain version ran on the card: {launches}")
-        return rec, launches
+        return rec
 
+    fused_kernels = ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_fused")
     reset_launch_counts()
-    steps = [step(i, key, "fused")[0] for i in range(TRAIN_STEPS)]
+    steps = [step(i, {}, fused_kernels) for i in range(TRAIN_STEPS)]
     fused_counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    split_key = key_of(TRAIN_SEQ, TRAIN_DOC, MAGI_ATTENTION_BACKEND_FFA_BWD="split")
     reset_launch_counts()
-    split_step, _ = step(TRAIN_STEPS, split_key, "split")
+    split_step = step(TRAIN_STEPS, SPLIT, ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv"))
     split_counts = launch_counts()
+    reset_launch_counts()
+    packed_steps = [
+        step(TRAIN_STEPS + 1, {**PACK, **SPLIT},
+             ("ffa_fwd_gqa", "ffa_bwd_delta", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")),
+        step(TRAIN_STEPS + 2, PACK, ("ffa_fwd_gqa", "ffa_bwd_delta", "ffa_bwd_fused")),
+    ]
+    packed_counts = launch_counts()
 
-    with scoped_env(pin):
-        prof = profile_run(
-            lambda: train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR)
-        )
+    prof = profile_run(lambda: train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR))
 
     # kernels against the plain path, same weights and tokens
     tok2 = tokens[:CHECK_SEQ]
     lab2 = labels_of(tok2, CHECK_DOC)
-    with scoped_env(pin):
-        loss_k, g_k = value_and_grad(params, cfg, tok2, lab2, key_of(CHECK_SEQ, CHECK_DOC, **pin))
+    loss_k, g_k = value_and_grad(params, cfg, tok2, lab2, key_of(CHECK_SEQ, CHECK_DOC))
     plain_env = {"MAGI_ATTENTION_KERNEL_BACKEND": "sdpa"}
     with scoped_env(plain_env):
         loss_p, g_p = value_and_grad(
@@ -1193,10 +1592,12 @@ def train_phase() -> dict:
         ),
         attention="api: magi_attn_flex_key (cp 1) -> dispatch -> calc_attn per layer",
         tokens=TRAIN_SEQ, documents=TRAIN_SEQ // TRAIN_DOC, lr=TRAIN_LR,
-        cost_model_bwd_mode=model_mode, pin=pin, setup_s=setup_s, steps=steps,
+        cost_model_bwd_mode=model_mode, setup_s=setup_s, steps=steps,
         losses=[s["loss"] for s in steps], split_step=split_step,
+        packed_steps=packed_steps,
         launches={k: fused_counts[k] for k in FFA_KERNELS},
         split_launches={k: split_counts[k] for k in FFA_KERNELS},
+        packed_launches={k: packed_counts[k] for k in FFA_KERNELS},
         plain_calls={k: fused_counts[k] for k in PLAIN_NAMES},
         peak_memory_gb=peak_gb, profile_step=prof,
         check=dict(
@@ -1261,6 +1662,10 @@ def main() -> int:
     ffa = ffa_phase(peaks)
     bwd = ffa_bwd_phase(peaks)
     fused = ffa_bwd_fused_phase(peaks, bwd)
+    fwd_gqa = ffa_fwd_gqa_phase(peaks)
+    dq_gqa = ffa_bwd_gqa_phase(peaks)
+    max_logits_phase()
+    bwd_mode_phase(bwd, fused, dq_gqa)
     dec = decode_phase(peaks)
     edge_phase()
     serve = serve_phase()
@@ -1297,6 +1702,14 @@ def main() -> int:
             "ffa_bwd_fused", "ffa_bwd_fused.cu",
             "magiattention_tpu/kernels/ffa.py:1780 and :2082",
             train["launches"]["ffa_bwd_fused"], fused["d_train_docs_8192_bf16"],
+        ),
+        kernel_entry(
+            "ffa_fwd_gqa", "ffa_fwd_gqa.cu", "magiattention_tpu/kernels/ffa.py:490",
+            train["packed_launches"]["ffa_fwd_gqa"], fwd_gqa["a_docs_bf16_d128_g4"],
+        ),
+        kernel_entry(
+            "ffa_bwd_dq_gqa", "ffa_bwd_dq_gqa.cu", "magiattention_tpu/kernels/ffa.py:944",
+            train["packed_launches"]["ffa_bwd_dq_gqa"], dq_gqa["a_docs_bf16_d128_g4"],
         ),
     ]})
     print(smi, flush=True)

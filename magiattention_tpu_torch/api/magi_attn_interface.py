@@ -236,11 +236,14 @@ def calc_attn(
 ) -> tuple[torch.Tensor, AttnForwardMeta]:
     """Distributed attention over this rank's dispatched q/k/v:
     (out, AttnForwardMeta(lse)), this rank's rows. Differentiable in q, k
-    and v; lse carries no gradient."""
-    if return_max_logits:
-        raise NotImplementedError("max-logits is not ported yet (ROADMAP)")
-    out, lse = _mgr(key).calc_attn(q, k, v)
-    return out, AttnForwardMeta(lse=lse)
+    and v; lse carries no gradient.
+
+    With ``return_max_logits``, ``meta.max_logits`` is the per-head max of
+    the scaled, softcapped logits ``[hq]`` float32, all-reduced (MAX) over
+    the cp group (the same on every rank; -inf for a head with no attended
+    entry)."""
+    out, lse, *ml = _mgr(key).calc_attn(q, k, v, return_max_logits)
+    return out, AttnForwardMeta(lse=lse, max_logits=ml[0] if ml else None)
 
 
 def get_position_ids(key: DistAttnRuntimeKey) -> torch.Tensor:

@@ -1,0 +1,101 @@
+// GQA-packed FFA forward over the host-built q-major work list, for Hopper
+// (sm_90a): one CTA per (q tile, block of G q heads of one kv head).
+//
+// Replaces: magiattention_tpu/kernels/ffa.py:_fwd_kernel_gqa (wrapper
+// _ffa_fwd_pallas_gqa, pallas_call at ffa.py:692).
+//
+// The TPU kernel stacks the g heads of a kv head into one (g * bq)-row MXU
+// operand so each K/V block is fetched once per work item for the group.
+// Here the CTA keeps the G q tiles and the item's k and v tiles in shared
+// memory and runs the per-head body of csrc/ffa_fwd.cuh once per head
+// against them: each K/V tile is loaded once per item for G heads, where
+// the unpacked kernel loads it once per head. The per-row arithmetic and
+// its order are the unpacked kernel's, so out and lse are bit-identical to
+// csrc/ffa_fwd.cu on the same inputs; only the grid differs.
+//
+// G is 2 or 4, the largest that divides the group and fits (the wrapper's
+// guard, kernels/ffa.py:fwd_pack_heads, computes the same figures): G q
+// tiles, k and v tiles and the P tile, 4 * (G * 64 + 2 * 64) * (D + 4) +
+// 4 * 64 * 80 bytes of shared memory (223 KB at D = 128, G = 4; one CTA per
+// SM), and G heads' accumulators (G * (D / 4 + 8) floats a thread) in
+// registers. A larger group runs in blocks of G heads (g = 8: two CTAs per
+// kv head). No max-logits output: the TPU's packed kernel emits none, and
+// the guard sends a max-logits request to the unpacked kernel.
+#include "ffa_fwd.cuh"
+
+namespace {
+
+template <typename T, int D>
+int dispatch_g(int g, const void* q, const void* k, const void* v, void* out,
+               float* lse, const int* work_kt, const int* meta,
+               const int* run_ptr, int sq, int sk, int hq, int hk,
+               int num_q_tiles, float scale, float softcap, void* stream) {
+  switch (g) {
+    case 2:
+      return launch<T, D, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
+                             run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
+                             softcap, stream);
+    case 4:
+      return launch<T, D, 4>(q, k, v, out, lse, nullptr, work_kt, meta,
+                             run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
+                             softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dispatch(int d, int g, const void* q, const void* k, const void* v,
+             void* out, float* lse, const int* work_kt, const int* meta,
+             const int* run_ptr, int sq, int sk, int hq, int hk,
+             int num_q_tiles, float scale, float softcap, void* stream) {
+  if (g < 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 64:
+      return dispatch_g<T, 64>(g, q, k, v, out, lse, work_kt, meta, run_ptr,
+                               sq, sk, hq, hk, num_q_tiles, scale, softcap,
+                               stream);
+    case 128:
+      return dispatch_g<T, 128>(g, q, k, v, out, lse, work_kt, meta, run_ptr,
+                                sq, sk, hq, hk, num_q_tiles, scale, softcap,
+                                stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// As ffa_fwd_f32/_bf16 (csrc/ffa_fwd.cu) without max_logits, plus
+// heads_per_cta: G, which must divide hq / hk.
+extern "C" int ffa_fwd_gqa_f32(const void* q, const void* k, const void* v,
+                               void* out, float* lse, const int* work_kt,
+                               const int* meta, const int* run_ptr, int sq,
+                               int sk, int hq, int hk, int d,
+                               int heads_per_cta, int num_q_tiles,
+                               float scale, float softcap, void* stream) {
+  return dispatch<float>(d, heads_per_cta, q, k, v, out, lse, work_kt, meta,
+                         run_ptr, sq, sk, hq, hk, num_q_tiles, scale, softcap,
+                         stream);
+}
+
+extern "C" int ffa_fwd_gqa_bf16(const void* q, const void* k, const void* v,
+                                void* out, float* lse, const int* work_kt,
+                                const int* meta, const int* run_ptr, int sq,
+                                int sk, int hq, int hk, int d,
+                                int heads_per_cta, int num_q_tiles,
+                                float scale, float softcap, void* stream) {
+  return dispatch<__nv_bfloat16>(d, heads_per_cta, q, k, v, out, lse, work_kt,
+                                 meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                 scale, softcap, stream);
+}
+
+// The shared memory one CTA takes, for the wrapper's guard to check its
+// own figure against: 0 for a geometry this library has no kernel for.
+extern "C" long ffa_fwd_gqa_smem_bytes(int d, int g) {
+  if (d == 64 && g == 2) return (long)FwdSmem<64, 2>::bytes;
+  if (d == 64 && g == 4) return (long)FwdSmem<64, 4>::bytes;
+  if (d == 128 && g == 2) return (long)FwdSmem<128, 2>::bytes;
+  if (d == 128 && g == 4) return (long)FwdSmem<128, 4>::bytes;
+  return 0;
+}

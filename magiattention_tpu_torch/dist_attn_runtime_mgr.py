@@ -185,10 +185,13 @@ class DistAttnRuntimeMgr:
         rows, n_valid, unpermute = self._indices(role)
         return undispatch_func(x, rows, n_valid, unpermute, self.key.cp_group)
 
-    def calc_attn(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    def calc_attn(
+        self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        return_max_logits: bool = False,
+    ):
         if env_general.precision() == "bf16":
             q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        return self.runtime.calc_attn(q, k, v)
+        return self.runtime.calc_attn(q, k, v, return_max_logits)
 
     def get_position_ids(self) -> torch.Tensor:
         """The global position of each of this rank's dispatched rows."""

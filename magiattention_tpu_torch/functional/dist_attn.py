@@ -22,20 +22,23 @@ transfer (v in k's dtype), as the JAX runtime fuses them.
 ``backend="sdpa"`` (MAGI_ATTENTION_KERNEL_BACKEND=sdpa) replays the merged
 slices with the dense ``sdpa_attn`` instead of FFA, differentiated by
 autograd: the plain path the kernels are checked against, on the card
-too. The ``sdpa_online`` backend, auto-tile, max-logits, TP head sharding
-and the qo-comm/two-level paths are not ported yet (ROADMAP queues
-A5-A6).
+too. With ``return_max_logits`` the per-head max logit is the max over
+the parts, then ``all_reduce(MAX)`` over the cp group (the JAX package's
+``reduce_max_logits``). The ``sdpa_online`` backend, auto-tile, TP head
+sharding and the qo-comm/two-level paths are not ported yet (ROADMAP
+queues A5-A6).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..comm.primitives import CastPlan, group_cast_all
 from ..env import comm as env_comm
-from ..kernels.ffa import FFAParams, default_blocks, ffa_bwd, ffa_delta, ffa_fwd
+from ..kernels.ffa import FFAParams, default_blocks, ffa_bwd, ffa_delta, ffa_fwd_dispatch
 from ..kernels.ffa_plan import FFAPlan, get_ffa_plan
-from ..kernels.sdpa import sdpa_attn
+from ..kernels.sdpa import dense_max_logits, sdpa_attn
 from ..meta.collection.calc_meta import AttnArg, CalcMeta
 from ..meta.collection.comm_meta import CommMeta
 from .utils import lse_weighted_reduce
@@ -52,32 +55,40 @@ class _MultiFFA(torch.autograd.Function):
     part's dq, dk, dv exact with no gradient through the merge weights;
     dq is summed over the parts, dk and dv are returned per part. Parts
     are computed in q's dtype (a float32 part comes from the high-precision
-    reduce) and their gradients returned in the parts' dtypes. lse is an
-    auxiliary output: its cotangent is ignored."""
+    reduce) and their gradients returned in the parts' dtypes. With
+    ``return_max_logits`` a third output is the per-head max logit, the
+    elementwise max over the parts. lse and max_logits are auxiliary
+    outputs: their cotangents are ignored."""
 
     @staticmethod
-    def forward(ctx, q, plans, params, waits, *kvs):
+    def forward(ctx, q, plans, params, waits, return_max_logits, *kvs):
         n = len(plans)
-        outs, lses = [], []
+        outs, lses, mls = [], [], []
         for i in range(n):
             if waits[i] is not None:
                 waits[i]()
-            out_i, lse_i = ffa_fwd(
-                q, kvs[i].to(q.dtype), kvs[n + i].to(q.dtype), plans[i], params[i]
+            out_i, lse_i, *ml_i = ffa_fwd_dispatch(
+                q, kvs[i].to(q.dtype), kvs[n + i].to(q.dtype), plans[i], params[i],
+                return_max_logits,
             )
             outs.append(out_i)
             lses.append(lse_i)
+            mls += ml_i
         if n == 1:
             out, lse = outs[0], lses[0]
         else:
             out, lse = lse_weighted_reduce(torch.stack(outs), torch.stack(lses))
         ctx.save_for_backward(q, out, lse, *kvs)
         ctx.plans, ctx.params = plans, params
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+        if not return_max_logits:
+            ctx.mark_non_differentiable(lse)
+            return out, lse
+        ml = torch.stack(mls).amax(dim=0)
+        ctx.mark_non_differentiable(lse, ml)
+        return out, lse, ml
 
     @staticmethod
-    def backward(ctx, do, _dlse):
+    def backward(ctx, do, *_aux):
         q, out, lse, *kvs = ctx.saved_tensors
         n = len(ctx.plans)
         delta = ffa_delta(out, do)
@@ -91,14 +102,16 @@ class _MultiFFA(torch.autograd.Function):
             dq = dq_i if dq is None else dq.add_(dq_i)
             dks.append(dk_i.to(k.dtype))
             dvs.append(dv_i.to(v.dtype))
-        return (dq.to(q.dtype), None, None, None, *dks, *dvs)
+        return (dq.to(q.dtype), None, None, None, None, *dks, *dvs)
 
 
-def multi_ffa(q, ks, vs, plans, params, waits=None):
-    """(out, lse) of q against the kv parts ``ks``/``vs`` (see
-    :class:`_MultiFFA`), differentiable in q and every part."""
+def multi_ffa(q, ks, vs, plans, params, waits=None, return_max_logits=False):
+    """(out, lse[, max_logits]) of q against the kv parts ``ks``/``vs``
+    (see :class:`_MultiFFA`), differentiable in q and every part."""
     waits = waits or [None] * len(plans)
-    return _MultiFFA.apply(q, tuple(plans), tuple(params), tuple(waits), *ks, *vs)
+    return _MultiFFA.apply(
+        q, tuple(plans), tuple(params), tuple(waits), return_max_logits, *ks, *vs
+    )
 
 
 def _plan(arg: AttnArg, sq: int, sk: int) -> FFAPlan:
@@ -164,16 +177,23 @@ class DistAttnRuntime:
             for p in self.plans
         ]
 
-    def calc_attn(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    def calc_attn(
+        self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        return_max_logits: bool = False,
+    ):
         """Attention of this rank's dispatched rows.
 
         Args:
             q: ``[shard, hq, d]``, k/v ``[kv_shard, hk, d|dv]``: this rank's
                 dispatched rows.
+            return_max_logits: also return the per-head max logit ``[hq]``
+                float32, the max over this rank's parts all-reduced (MAX)
+                over the cp group, so every rank holds the global one.
 
         Returns:
             (out ``[shard, hq, dv]`` in q's dtype, lse ``[shard, hq]``
-            float32, natural log, -inf on rows no slice covers).
+            float32, natural log, -inf on rows no slice covers), plus
+            max_logits when asked for.
         """
         if k.shape[:2] != v.shape[:2]:
             raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ in rows or heads")
@@ -193,13 +213,20 @@ class DistAttnRuntime:
             waits = []
         if self.backend == "sdpa":
             arg = self.calc_meta.merged_args[self.cp_rank]
-            out, lse = sdpa_attn(
-                q, k_parts[0].to(q.dtype), v_parts[0].to(q.dtype), arg.q_ranges,
-                arg.k_ranges, softmax_scale=self.softmax_scale,
-                softcap=self.softcap, d_lo=arg.d_lo, d_hi=arg.d_hi,
+            kv = (k_parts[0].to(q.dtype), v_parts[0].to(q.dtype))
+            kw = dict(
+                softmax_scale=self.softmax_scale, softcap=self.softcap,
+                d_lo=arg.d_lo, d_hi=arg.d_hi,
             )
-            return out, lse.detach()  # lse carries no gradient, as on ffa
-        return multi_ffa(
-            q, k_parts, v_parts, self.plans, self._params(q.shape[-1]),
-            [None, *waits],
-        )
+            out, lse = sdpa_attn(q, *kv, arg.q_ranges, arg.k_ranges, **kw)
+            res = (out, lse.detach())  # lse carries no gradient, as on ffa
+            if return_max_logits:
+                res += (dense_max_logits(q, kv[0], arg.q_ranges, arg.k_ranges, **kw).detach(),)
+        else:
+            res = multi_ffa(
+                q, k_parts, v_parts, self.plans, self._params(q.shape[-1]),
+                [None, *waits], return_max_logits,
+            )
+        if return_max_logits and self.cp_size > 1:
+            dist.all_reduce(res[2], op=dist.ReduceOp.MAX, group=self.cp_group)
+        return res

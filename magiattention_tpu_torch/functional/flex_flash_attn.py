@@ -9,8 +9,10 @@ varlen-packed q/k/v + slice metadata -> (out, AttnForwardMeta). Backends:
 - ``sdpa`` / ``sdpa_online``: the plain dense / blockwise-online backends,
   differentiated by autograd (a sink is folded in afterwards).
 
-``return_max_logits=True`` raises ``NotImplementedError``: max-logits is
-not ported yet (ROADMAP).
+``return_max_logits=True`` fills ``AttnForwardMeta.max_logits`` with the
+per-head max of the scaled, softcapped logits over the attended entries
+(the sink's logits not included): the forward kernel's own output on
+``ffa``, ``dense_max_logits`` on the plain backends.
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ from ..kernels.ffa import (
     ffa_attn,
     ffa_bwd,
     ffa_delta,
-    ffa_fwd,
+    ffa_fwd_dispatch,
     plan_params,
 )
 from ..kernels.ffa_plan import FFAPlan
-from ..kernels.sdpa import sdpa_attn
+from ..kernels.sdpa import dense_max_logits, sdpa_attn
 from ..kernels.sdpa_online import sdpa_online_attn
 from .sink import apply_sink_fwd, check_sink_layout, sink_bwd
 
@@ -75,18 +77,19 @@ def flex_flash_attn_func(
         attn_type_map: ``(N,)`` int32 (0=FULL 1=CAUSAL 2=INVCAUSAL
             3=BICAUSAL); None = all FULL.
         sink: optional sink logits (layout ``sink_layout``: sh | ssh).
-        deterministic: accepted for the reference's signature; the ported
-            backward (split) is deterministic whatever its value.
+        deterministic: accepted for the reference's signature and not read,
+            as in the JAX package; the split backward pin
+            (MAGI_ATTENTION_BACKEND_FFA_BWD=split) is the deterministic mode
+            (the fused backward adds dq with atomics).
         backend: ffa | sdpa | sdpa_online; None = env
             ``MAGI_ATTENTION_KERNEL_BACKEND`` (default ffa).
+        return_max_logits: also fill ``max_logits`` (``[hq]`` float32,
+            -inf for a head with no attended entry).
 
     Returns:
-        (out ``[sq, hq, dv]``, AttnForwardMeta(lse=``[sq, hq]`` float32)).
+        (out ``[sq, hq, dv]``, AttnForwardMeta(lse=``[sq, hq]`` float32,
+        max_logits)).
     """
-    if return_max_logits:
-        raise NotImplementedError(
-            "return_max_logits is not ported yet (ROADMAP: max-logits output)"
-        )
     qr = _as_range_array(q_ranges, "q_ranges")
     kr = _as_range_array(k_ranges, "k_ranges")
     if attn_type_map is None:
@@ -102,6 +105,7 @@ def flex_flash_attn_func(
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
 
     kw = dict(softmax_scale=softmax_scale, softcap=softcap, d_lo=d_lo, d_hi=d_hi)
+    max_logits = None
     if backend == "sdpa":
         out, lse = sdpa_attn(q, k, v, qr, kr, tmap, compute_dtype=torch.float32, **kw)
     elif backend == "sdpa_online":
@@ -114,9 +118,12 @@ def flex_flash_attn_func(
                 qr, kr, tmap, d_lo, d_hi, q.shape[0], k.shape[0], q.shape[-1],
                 softmax_scale, softcap,
             )
-            out, lse = _FFASinkCore.apply(q, k, v, sink, plan, params, sink_layout)
-            return out, AttnForwardMeta(lse=lse)
-        out, lse = ffa_attn(q, k, v, qr, kr, tmap, **kw)
+            out, lse, *ml = _FFASinkCore.apply(
+                q, k, v, sink, plan, params, sink_layout, return_max_logits
+            )
+            return out, AttnForwardMeta(lse=lse, max_logits=ml[0] if ml else None)
+        out, lse, *ml = ffa_attn(q, k, v, qr, kr, tmap, return_max_logits=return_max_logits, **kw)
+        max_logits = ml[0] if ml else None
     else:
         raise ValueError(f"unknown kernel backend: {backend}")
 
@@ -124,26 +131,32 @@ def flex_flash_attn_func(
         # the plain backends are differentiated end to end by autograd, so
         # folding the sink in afterwards is gradient-exact
         out, lse = apply_sink_fwd(out, lse, sink, sink_layout)
-    return out, AttnForwardMeta(lse=lse)
+    if return_max_logits and max_logits is None:
+        max_logits = dense_max_logits(q, k, qr, kr, tmap, **kw).detach()
+    return out, AttnForwardMeta(lse=lse, max_logits=max_logits)
 
 
 class _FFASinkCore(torch.autograd.Function):
     """FFA with a sink: the forward kernel, then the sink folded into
     (out, lse); the backward runs the backward kernels (fused or split, by
     ``ffa_bwd_mode``) against the sink-adjusted lse (which renormalizes dq/dk/dv exactly) and
-    :func:`~.sink.sink_bwd` for dsink. lse's cotangent is ignored."""
+    :func:`~.sink.sink_bwd` for dsink. The cotangents of lse and of the
+    optional max_logits (the kernel's, over the real logits) are ignored."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sink, plan: FFAPlan, params: FFAParams, sink_layout: str):
-        out0, lse0 = ffa_fwd(q, k, v, plan, params)
+    def forward(
+        ctx, q, k, v, sink, plan: FFAPlan, params: FFAParams, sink_layout: str,
+        return_max_logits: bool = False,
+    ):
+        out0, lse0, *ml = ffa_fwd_dispatch(q, k, v, plan, params, return_max_logits)
         out, lse = apply_sink_fwd(out0, lse0, sink, sink_layout)
         ctx.save_for_backward(q, k, v, sink, out, lse)
         ctx.plan, ctx.params, ctx.sink_layout = plan, params, sink_layout
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+        ctx.mark_non_differentiable(lse, *ml)
+        return (out, lse, *ml)
 
     @staticmethod
-    def backward(ctx, dout, _dlse):
+    def backward(ctx, dout, *_aux):
         q, k, v, sink, out, lse = ctx.saved_tensors
         plan, params = ctx.plan, ctx.params
         delta = ffa_delta(out, dout)
@@ -151,5 +164,5 @@ class _FFASinkCore(torch.autograd.Function):
         dsink = sink_bwd(sink, lse, delta, ctx.sink_layout)
         return (
             dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dsink,
-            None, None, None,
+            None, None, None, None,
         )

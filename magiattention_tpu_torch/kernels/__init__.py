@@ -6,6 +6,7 @@ from .ffa import (  # noqa: F401
     ffa_attn_with_plan,
     ffa_bwd_dkv_kernel,
     ffa_bwd_dkv_plain,
+    ffa_bwd_dq_gqa_kernel,
     ffa_bwd_dq_kernel,
     ffa_bwd_dq_plain,
     ffa_bwd_fused_kernel,
@@ -13,6 +14,7 @@ from .ffa import (  # noqa: F401
     ffa_bwd_mode,
     ffa_delta_kernel,
     ffa_delta_plain,
+    ffa_fwd_gqa_kernel,
     ffa_fwd_kernel,
 )
 from .paged_decode import (  # noqa: F401
@@ -27,7 +29,7 @@ from .paged_kv import (  # noqa: F401
     gather_kv,
     paged_attn,
 )
-from .sdpa import sdpa_attn  # noqa: F401
+from .sdpa import dense_max_logits, sdpa_attn  # noqa: F401
 from .sdpa_online import sdpa_online_attn  # noqa: F401
 
 # name -> kernel wrapper (``.launches``) / plain version (``.calls``)
@@ -38,6 +40,8 @@ _KERNELS = {
     "ffa_bwd_dq": ffa_bwd_dq_kernel,
     "ffa_bwd_dkv": ffa_bwd_dkv_kernel,
     "ffa_bwd_fused": ffa_bwd_fused_kernel,
+    "ffa_fwd_gqa": ffa_fwd_gqa_kernel,
+    "ffa_bwd_dq_gqa": ffa_bwd_dq_gqa_kernel,
 }
 _PLAINS = {
     "sdpa_attn": sdpa_attn,
@@ -71,10 +75,12 @@ __all__ = [
     "PagedKVCache",
     "append_kv",
     "assign_pages",
+    "dense_max_logits",
     "ffa_attn",
     "ffa_attn_with_plan",
     "ffa_bwd_dkv_kernel",
     "ffa_bwd_dkv_plain",
+    "ffa_bwd_dq_gqa_kernel",
     "ffa_bwd_dq_kernel",
     "ffa_bwd_dq_plain",
     "ffa_bwd_fused_kernel",
@@ -82,6 +88,7 @@ __all__ = [
     "ffa_bwd_mode",
     "ffa_delta_kernel",
     "ffa_delta_plain",
+    "ffa_fwd_gqa_kernel",
     "ffa_fwd_kernel",
     "gather_kv",
     "launch_counts",

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "ffa_fwd", "paged_decode", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv",
-    "ffa_bwd_fused",
+    "ffa_bwd_fused", "ffa_fwd_gqa", "ffa_bwd_dq_gqa",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

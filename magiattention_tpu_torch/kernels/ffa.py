@@ -5,20 +5,33 @@ The port's counterpart of the single-device surface of
 ``ffa_attn_with_plan``, ``ffa_attn``, the custom VJP ``_ffa_core`` and
 ``ffa_bwd_mode``). Slices are diagonal bands; the host plan
 (:mod:`.ffa_plan`) lists the (q tile, k tile, slice) work items, q-major
-for the forward and dq, k-major for dk/dv. Five CUDA kernels walk them:
+for the forward and dq, k-major for dk/dv. Seven CUDA kernels walk them:
 
-- ``csrc/ffa_fwd.cu``: out and lse, one CTA per (q-tile run, q head);
+- ``csrc/ffa_fwd.cu``: out, lse and optionally the per-head max logit,
+  one CTA per (q-tile run, q head);
+- ``csrc/ffa_fwd_gqa.cu``: out and lse, one CTA per (q-tile run, block of
+  the query heads of one kv head), each K/V tile loaded once per item for
+  the block (``MAGI_ATTENTION_FFA_GQA_PACK=1``);
 - ``csrc/ffa_bwd_delta.cu``: delta = rowsum(dO * O);
 - ``csrc/ffa_bwd_dq.cu``: dq over the q-major runs;
+- ``csrc/ffa_bwd_dq_gqa.cu``: the same, packed like the forward
+  (``MAGI_ATTENTION_FFA_GQA_PACK_DQ=1``);
 - ``csrc/ffa_bwd_dkv.cu``: dk, dv over the k-major runs, the GQA group
   looped inside the CTA (with dq, the split backward: atomic-free,
   deterministic);
 - ``csrc/ffa_bwd_fused.cu``: dq, dk and dv in one pass over the k-major
   runs (the fused backward: dq by float32 atomics, then a scale pass).
 
+:func:`ffa_fwd_dispatch` and :func:`ffa_bwd_dq_dispatch` are the one entry
+of every forward and split-dq caller; they pick the packed or unpacked
+kernel as the JAX package's ``ffa_fwd_pallas_dispatch`` /
+``ffa_bwd_dq_pallas_dispatch`` do, before the launch (flag, group > 1, no
+max-logits for the forward, and the packed CTA's budget). The packed
+kernels compute the same functions as the unpacked ones, bit for bit.
 :func:`ffa_bwd_mode` picks split or fused for a plan, in the JAX package's
 order: a split pin, then the plan and kernel feasibility, then a fused pin,
-then the cost model (:func:`.tile_policy.choose_bwd_mode`).
+then the cost model (:func:`.tile_policy.choose_bwd_mode`, derived for
+these kernels and measured on the H100).
 
 Each kernel has a plain PyTorch version beside it (``sdpa_attn`` for the
 forward, ``ffa_*_plain`` for the backward), which CPU tensors take. A CUDA
@@ -30,9 +43,9 @@ fused to split).
 ``torch.autograd.Function``; ``ffa_attn``/``ffa_attn_with_plan`` go
 through it on CUDA, and stay the autograd-differentiable ``sdpa_attn`` on
 the CPU. As in the JAX package, lse carries no gradient on either route
-(the backward ignores its cotangent; the CPU route detaches it).
-The TPU package's mixed-granularity dispatch, auto-tile policy, GQA-packed
-kernels and max-logits output are not ported yet (ROADMAP).
+(the backward ignores its cotangent; the CPU route detaches it), nor
+does max-logits. The TPU package's mixed-granularity dispatch and auto-tile
+policy are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -49,8 +62,8 @@ from ..env import kernel as env_kernel
 from . import _build
 from .ffa_plan import DHI, DLO, KE, KS, QE, QS, QVL, FFAPlan, get_ffa_plan
 from .mask_utils import build_dense_mask_band, types_to_bands
-from .sdpa import sdpa_attn
-from .tile_policy import choose_bwd_mode
+from .sdpa import dense_max_logits, sdpa_attn
+from .tile_policy import BwdShape, choose_bwd_mode
 
 # the one tile shape the csrc/ffa_*.cu kernels are compiled for
 KERNEL_BLOCKS = (64, 64)
@@ -113,12 +126,17 @@ def plan_params(
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 _ARGTYPES = {
-    # q k v out lse | work_kt meta run_ptr | sq sk hq hk d nqt | scale cap | stream
-    "ffa_fwd": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    # q k v out lse max_logits | work_kt meta run_ptr | sq sk hq hk d nqt |
+    # scale cap | stream
+    "ffa_fwd": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
+    # q k v out lse | work_kt meta run_ptr | sq sk hq hk d heads nqt | ...
+    "ffa_fwd_gqa": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
     # out do delta | rows d | stream
     "ffa_bwd_delta": [_P] * 3 + [_L, _I, _P],
     # q k v do lse delta dq | work_kt meta run_ptr | sq sk hq hk d nqt | ...
     "ffa_bwd_dq": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
+    # q k v do lse delta dq | work_kt meta run_ptr | ... d heads nqt | ...
+    "ffa_bwd_dq_gqa": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
     # q k v do lse delta dk dv | work_qt_t meta_t run_ptr_t | ... nkt | ...
     "ffa_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
     # q k v do lse delta dq dk dv | work_qt_t meta_t run_ptr_t | ... nkt | ...
@@ -137,6 +155,11 @@ def _lib(name: str) -> ctypes.CDLL:
         # dq n scale stream
         lib.ffa_bwd_fused_convert.argtypes = [_P, _L, _F, _P]
         lib.ffa_bwd_fused_convert.restype = ctypes.c_int
+    if name.endswith("_gqa"):
+        # d heads_per_cta -> shared memory bytes of one CTA
+        smem = getattr(lib, f"{name}_smem_bytes")
+        smem.argtypes = [_I, _I]
+        smem.restype = ctypes.c_long
     return lib
 
 
@@ -191,25 +214,68 @@ def ffa_fwd_kernel(
     v: torch.Tensor,
     plan: FFAPlan,
     params: FFAParams,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_max_logits: bool = False,
+):
     """Launch ``csrc/ffa_fwd.cu`` on CUDA tensors ``q [sq, hq, d]``,
     ``k/v [sk, hk, d]`` of one dtype (float32 or bfloat16). Returns
-    (out ``[sq, hq, d]`` in q's dtype, lse ``[sq, hq]`` float32). Adds one
-    to ``ffa_fwd_kernel.launches`` per launch."""
+    (out ``[sq, hq, d]`` in q's dtype, lse ``[sq, hq]`` float32), plus the
+    per-head max logit ``[hq]`` float32 (scaled, softcapped, natural units;
+    -inf for a head with no attended entry) when ``return_max_logits``: the
+    kernel writes one per (q tile, head), reduced here. Adds one to
+    ``ffa_fwd_kernel.launches`` per launch."""
     q, k, v = _kernel_inputs("ffa_fwd_kernel", params, q, k, v)
     sq, hq, d = q.shape
     sk, hk, _ = k.shape
     out = torch.empty_like(q)
     lse = torch.empty((sq, hq), dtype=torch.float32, device=q.device)
+    tiles_ml = (
+        torch.empty((params.num_q_tiles, hq), dtype=torch.float32, device=q.device)
+        if return_max_logits else None
+    )
     work_kt, meta, run_ptr = plan.device_arrays(q.device)
     _launch(
         "ffa_fwd", q.dtype, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), work_kt.data_ptr(), meta.data_ptr(),
-        run_ptr.data_ptr(), sq, sk, hq, hk, d, params.num_q_tiles,
+        lse.data_ptr(), 0 if tiles_ml is None else tiles_ml.data_ptr(),
+        work_kt.data_ptr(), meta.data_ptr(), run_ptr.data_ptr(),
+        sq, sk, hq, hk, d, params.num_q_tiles,
         params.softmax_scale, params.softcap,
     )
     ffa_fwd_kernel.launches += 1
+    if tiles_ml is None:
+        return out, lse
+    return out, lse, tiles_ml.amax(dim=0)
+
+
+def ffa_fwd_gqa_kernel(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    plan: FFAPlan,
+    params: FFAParams,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/ffa_fwd_gqa.cu``: :func:`ffa_fwd_kernel`'s (out, lse),
+    bit for bit, with one CTA per (q-tile run, block of
+    :func:`fwd_pack_heads` query heads of one kv head). Raises on a
+    geometry the packed kernel does not take. Adds one to
+    ``ffa_fwd_gqa_kernel.launches`` per launch."""
+    q, k, v = _kernel_inputs("ffa_fwd_gqa_kernel", params, q, k, v)
+    sq, hq, d = q.shape
+    sk, hk, _ = k.shape
+    heads = fwd_pack_heads(hq // hk, d, v.shape[-1])
+    if heads < 2:
+        raise ValueError(f"ffa_fwd_gqa_kernel: group {hq // hk} at d={d} does not pack")
+    out = torch.empty_like(q)
+    lse = torch.empty((sq, hq), dtype=torch.float32, device=q.device)
+    work_kt, meta, run_ptr = plan.device_arrays(q.device)
+    _launch(
+        "ffa_fwd_gqa", q.dtype, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), work_kt.data_ptr(), meta.data_ptr(),
+        run_ptr.data_ptr(), sq, sk, hq, hk, d, heads, params.num_q_tiles,
+        params.softmax_scale, params.softcap,
+    )
+    ffa_fwd_gqa_kernel.launches += 1
     return out, lse
 
 
@@ -260,6 +326,35 @@ def ffa_bwd_dq_kernel(
         params.softmax_scale, params.softcap,
     )
     ffa_bwd_dq_kernel.launches += 1
+    return dq
+
+
+def ffa_bwd_dq_gqa_kernel(
+    q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams
+) -> torch.Tensor:
+    """Launch ``csrc/ffa_bwd_dq_gqa.cu``: :func:`ffa_bwd_dq_kernel`'s dq,
+    bit for bit, with one CTA per (q-tile run, block of
+    :func:`dq_pack_heads` query heads of one kv head). Raises on a
+    geometry the packed kernel does not take. Adds one to
+    ``ffa_bwd_dq_gqa_kernel.launches`` per launch."""
+    q, k, v, do = _kernel_inputs("ffa_bwd_dq_gqa_kernel", params, q, k, v, do)
+    lse, delta = _row_stats(q, lse, delta)
+    sq, hq, d = q.shape
+    sk, hk, _ = k.shape
+    heads = dq_pack_heads(hq // hk, d, v.shape[-1])
+    if heads < 2:
+        raise ValueError(f"ffa_bwd_dq_gqa_kernel: group {hq // hk} at d={d} does not pack")
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    work_kt, meta, run_ptr = plan.device_arrays(q.device)
+    _launch(
+        "ffa_bwd_dq_gqa", q.dtype, q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        work_kt.data_ptr(), meta.data_ptr(), run_ptr.data_ptr(),
+        sq, sk, hq, hk, d, heads, params.num_q_tiles,
+        params.softmax_scale, params.softcap,
+    )
+    ffa_bwd_dq_gqa_kernel.launches += 1
     return dq
 
 
@@ -336,8 +431,8 @@ def ffa_bwd_fused_kernel(
 
 
 for _kernel in (
-    ffa_fwd_kernel, ffa_delta_kernel, ffa_bwd_dq_kernel, ffa_bwd_dkv_kernel,
-    ffa_bwd_fused_kernel,
+    ffa_fwd_kernel, ffa_fwd_gqa_kernel, ffa_delta_kernel, ffa_bwd_dq_kernel,
+    ffa_bwd_dq_gqa_kernel, ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel,
 ):
     _kernel.launches = 0
 
@@ -439,16 +534,26 @@ for _plain in (ffa_delta_plain, ffa_bwd_dq_plain, ffa_bwd_dkv_plain, ffa_bwd_fus
 # ---------------------------------------------------------------------------
 
 
-def ffa_fwd(q, k, v, plan: FFAPlan, params: FFAParams):
-    """(out, lse) over a plan: the kernel on CUDA, ``sdpa_attn`` over the
-    plan's slices on the CPU."""
+def ffa_fwd(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logits: bool = False):
+    """(out, lse[, max_logits]) over a plan by the unpacked forward: the
+    kernel on CUDA; on the CPU ``sdpa_attn`` (and ``dense_max_logits``)
+    over the plan's slices."""
     if q.is_cuda:
-        return ffa_fwd_kernel(q, k, v, plan, params)
+        return ffa_fwd_kernel(q, k, v, plan, params, return_max_logits)
     qr, kr, lo, hi = _plan_slices(plan)
-    return sdpa_attn(
-        q, k, v, qr, kr, softmax_scale=params.softmax_scale,
-        softcap=params.softcap, d_lo=lo, d_hi=hi,
-    )
+    kw = dict(softmax_scale=params.softmax_scale, softcap=params.softcap, d_lo=lo, d_hi=hi)
+    out, lse = sdpa_attn(q, k, v, qr, kr, **kw)
+    if not return_max_logits:
+        return out, lse
+    return out, lse, dense_max_logits(q, k, qr, kr, **kw)
+
+
+def ffa_fwd_gqa(q, k, v, plan: FFAPlan, params: FFAParams):
+    """(out, lse) by the packed forward: the kernel on CUDA; on the CPU
+    the unpacked route's plain version (the same function)."""
+    if q.is_cuda:
+        return ffa_fwd_gqa_kernel(q, k, v, plan, params)
+    return ffa_fwd(q, k, v, plan, params)
 
 
 def ffa_delta(out, do):
@@ -457,6 +562,11 @@ def ffa_delta(out, do):
 
 def ffa_bwd_dq(q, k, v, do, lse, delta, plan, params):
     fn = ffa_bwd_dq_kernel if q.is_cuda else ffa_bwd_dq_plain
+    return fn(q, k, v, do, lse, delta, plan, params)
+
+
+def ffa_bwd_dq_gqa(q, k, v, do, lse, delta, plan, params):
+    fn = ffa_bwd_dq_gqa_kernel if q.is_cuda else ffa_bwd_dq_plain
     return fn(q, k, v, do, lse, delta, plan, params)
 
 
@@ -473,15 +583,120 @@ def ffa_bwd_fused(q, k, v, do, lse, delta, plan, params):
 # the shared-memory and register budget of one CTA on an H100 (sm_90)
 SMEM_PER_CTA = 232_448  # 227 KB opt-in dynamic shared memory
 REGS_PER_THREAD = 255
+# head blocks the packed kernels are compiled for, largest first
+PACK_HEADS = (4, 2)
+P_TILE_FLOATS = 64 * 80  # the 64 x 64 P / dS tile at row stride 80
+
+
+def _tile_floats(d: int) -> int:
+    """One 64-row float32 operand tile at row stride d + 4."""
+    return 64 * (d + 4)
+
+
+def fwd_pack_smem_bytes(d: int, heads: int) -> int:
+    """Shared memory of one packed-forward CTA (csrc/ffa_fwd.cuh
+    ``FwdSmem``): the heads' q tiles, the k and v tiles, the P tile."""
+    return 4 * ((heads + 2) * _tile_floats(d) + P_TILE_FLOATS)
+
+
+def dq_pack_smem_bytes(d: int, heads: int) -> int:
+    """Shared memory of one packed-dq CTA (csrc/ffa_bwd_dq.cuh ``DqSmem``):
+    the heads' q and dO tiles, the k and v tiles, the dS tile."""
+    return 4 * ((2 * heads + 2) * _tile_floats(d) + P_TILE_FLOATS)
+
+
+def _pack_heads(group: int, d: int, dv: int, smem_bytes, regs_per_head: int, regs_shared: int) -> int:
+    if d != dv or d not in KERNEL_HEAD_DIMS:
+        return 1
+    for heads in PACK_HEADS:
+        if (
+            group % heads == 0
+            and smem_bytes(d, heads) <= SMEM_PER_CTA
+            and heads * regs_per_head + regs_shared + 64 <= REGS_PER_THREAD
+        ):
+            return heads
+    return 1
+
+
+def fwd_pack_heads(group: int, d: int, dv: int) -> int:
+    """Query heads per CTA of the packed forward at this geometry, 1 where
+    it does not pack: the largest of :data:`PACK_HEADS` that divides the
+    group and fits, i.e. shared memory (:func:`fwd_pack_smem_bytes`) within
+    the opt-in limit and a thread's live accumulators (per head 4 rows x
+    d/16 output columns, 4 maxima and 4 sums; the 4 x 4 score block) with
+    room for addresses and operands (64) within the register limit. A
+    group larger than the block runs in several blocks per kv head."""
+    return _pack_heads(group, d, dv, fwd_pack_smem_bytes, d // 4 + 8, 16)
+
+
+def dq_pack_heads(group: int, d: int, dv: int) -> int:
+    """Query heads per CTA of the packed dq kernel, as
+    :func:`fwd_pack_heads`: shared memory :func:`dq_pack_smem_bytes`
+    (two tiles per head, so 2 heads at head_dim 128), registers per head 4
+    rows x d/16 dq columns and 4 lse and delta values, the 4 x 4 score and
+    dP blocks."""
+    return _pack_heads(group, d, dv, dq_pack_smem_bytes, d // 4 + 8, 32)
+
+
+def gqa_pack_variant(kind: str) -> str:
+    """'gqa_packed' | 'plain' for the fwd / dq / dkv kernels: the pin the
+    JAX package's registry resolves from the pack flags
+    (``kernels/registry.py:gqa_pack_variant``); the call site's budget
+    guard applies on top. "dkv" reads its flag, but the port has one dk/dv
+    kernel (packed semantics), which either value selects."""
+    flags = {
+        "fwd": env_kernel.ffa_gqa_pack,
+        "dq": env_kernel.ffa_gqa_pack_dq,
+        "dkv": env_kernel.ffa_gqa_pack_dkv,
+    }
+    if kind not in flags:
+        raise ValueError(f"unknown gqa pack kind: {kind!r}")
+    return "gqa_packed" if flags[kind]() else "plain"
+
+
+def _use_gqa_pack(group: int, d: int, dv: int, return_max_logits: bool = False) -> int:
+    """Heads per CTA of the forward (the JAX package's ``_use_gqa_pack``
+    for Hopper): the packed kernel's (:func:`fwd_pack_heads`) when the flag
+    is on, the group is > 1 and no max-logits is asked for (the packed
+    kernel emits none, as in the JAX package); 1, the unpacked kernel,
+    otherwise. Decided before any launch: a failed launch raises."""
+    if gqa_pack_variant("fwd") != "gqa_packed" or group <= 1 or return_max_logits:
+        return 1
+    return fwd_pack_heads(group, d, dv)
+
+
+def _use_gqa_pack_dq(group: int, d: int, dv: int) -> int:
+    """Heads per CTA of the dq kernel (the JAX package's
+    ``_use_gqa_pack_dq``): :func:`dq_pack_heads` when the flag is on and
+    the group is > 1, else 1."""
+    if gqa_pack_variant("dq") != "gqa_packed" or group <= 1:
+        return 1
+    return dq_pack_heads(group, d, dv)
+
+
+def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logits: bool = False):
+    """The forward with the GQA-packing dispatch applied (the JAX package's
+    ``ffa_fwd_pallas_dispatch``): the one entry of every forward caller
+    (``_FFACore``, the sink core, ``_MultiFFA``). Returns (out, lse), plus
+    max_logits ``[hq]`` when asked for (always by the unpacked kernel)."""
+    if _use_gqa_pack(q.shape[1] // k.shape[1], q.shape[-1], v.shape[-1], return_max_logits) > 1:
+        return ffa_fwd_gqa(q, k, v, plan, params)
+    return ffa_fwd(q, k, v, plan, params, return_max_logits)
+
+
+def ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
+    """dq of the split backward with the GQA-packing dispatch applied (the
+    JAX package's ``ffa_bwd_dq_pallas_dispatch``): the one entry of every
+    split-dq caller."""
+    fn = ffa_bwd_dq_gqa if _use_gqa_pack_dq(q.shape[1] // k.shape[1], q.shape[-1], v.shape[-1]) > 1 else ffa_bwd_dq
+    return fn(q, k, v, do, lse, delta, plan, params)
 
 
 def fused_bwd_smem_bytes(d: int) -> int:
     """Shared memory of one fused-backward CTA (csrc/bwd_kv.cuh
     ``DkvSmem``): K, V, Q and dO tiles at row stride d + 4, the P^T and
     dS^T tiles at row stride 80, the q tile's lse and delta, float32."""
-    bq = bk = 64
-    ds, pstr = d + 4, bq + 16
-    return 4 * (2 * bk * ds + 2 * bq * ds + 2 * bk * pstr + 2 * bq)
+    return 4 * (4 * _tile_floats(d) + 2 * P_TILE_FLOATS + 2 * 64)
 
 
 def fused_bwd_feasible(d: int, dv: int) -> bool:
@@ -500,8 +715,29 @@ def fused_bwd_feasible(d: int, dv: int) -> bool:
     )
 
 
+def _run_items(meta: np.ndarray, run_ptr: np.ndarray) -> np.ndarray:
+    """Real (non-dummy) work items of each run."""
+    real = ((meta[:, QE] > meta[:, QS]) & (meta[:, KE] > meta[:, KS])).astype(np.int64)
+    return np.add.reduceat(real, run_ptr[:-1])
+
+
+def bwd_shape(plan: FFAPlan, hq: int, hk: int, d: int, dv: int, itemsize: int) -> BwdShape:
+    """What the backward-mode model reads of a plan and its heads."""
+    return BwdShape(
+        items_q=_run_items(plan.meta, plan.run_ptr),
+        items_k=_run_items(plan.meta_t, plan.run_ptr_t),
+        block_q=plan.block_q, block_k=plan.block_k, hq=hq, hk=hk, d=d, dv=dv,
+        itemsize=itemsize,
+    )
+
+
+@lru_cache(maxsize=256)
+def _modeled_mode(plan: FFAPlan, hq: int, hk: int, d: int, dv: int, itemsize: int, dq_heads: int) -> str:
+    return choose_bwd_mode(bwd_shape(plan, hq, hk, d, dv, itemsize), dq_heads)
+
+
 def ffa_bwd_mode(
-    plan: FFAPlan, params: FFAParams, d: int, dv: int, itemsize: int, group: int
+    plan: FFAPlan, params: FFAParams, d: int, dv: int, itemsize: int, hq: int, hk: int
 ) -> str:
     """The backward's execution mode for one plan, "split" or "fused", in
     the JAX package's order (``kernels/ffa.py:ffa_bwd_mode``): a split pin
@@ -510,8 +746,8 @@ def ffa_bwd_mode(
     columns, or a head geometry the fused kernel cannot hold
     (:func:`fused_bwd_feasible`), runs split; then a fused pin wins;
     otherwise the cost model :func:`.tile_policy.choose_bwd_mode` decides
-    from the plan's work counts and tiles. Split is the deterministic
-    mode (no atomics)."""
+    from the plan's runs, the heads and the dq kernel the split mode would
+    run (cached per plan). Split is the deterministic mode (no atomics)."""
     pin = env_backend.ffa_bwd_pin()
     if pin == "split":
         return "split"
@@ -519,24 +755,20 @@ def ffa_bwd_mode(
         return "split"
     if pin == "fused":
         return "fused"
-    bq, bk = params.block_q, params.block_k
-    return choose_bwd_mode(
-        plan.num_work, bq, bk, plan.num_work_t, bq, bk, d, dv,
-        itemsize=itemsize, group=group,
-    )
+    dq_heads = _use_gqa_pack_dq(hq // hk, d, dv)
+    return _modeled_mode(plan, hq, hk, d, dv, itemsize, dq_heads)
 
 
 def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     """(dq, dk, dv) float32 of one plan under :func:`ffa_bwd_mode`: the
-    fused kernel, or the dq then dk/dv kernels (their plain versions on
-    the CPU)."""
+    fused kernel, or the dq (:func:`ffa_bwd_dq_dispatch`) then dk/dv
+    kernels (their plain versions on the CPU)."""
     mode = ffa_bwd_mode(
-        plan, params, q.shape[-1], v.shape[-1], q.element_size(),
-        q.shape[1] // k.shape[1],
+        plan, params, q.shape[-1], v.shape[-1], q.element_size(), q.shape[1], k.shape[1],
     )
     if mode == "fused":
         return ffa_bwd_fused(q, k, v, do, lse, delta, plan, params)
-    dq = ffa_bwd_dq(q, k, v, do, lse, delta, plan, params)
+    dq = ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan, params)
     dk, dv = ffa_bwd_dkv(q, k, v, do, lse, delta, plan, params)
     return dq, dk, dv
 
@@ -547,24 +779,24 @@ class _FFACore(torch.autograd.Function):
     Saves q, k, v, out and lse. The backward runs delta, then
     :func:`ffa_bwd` (fused or split by :func:`ffa_bwd_mode`; kernels on
     CUDA, plain versions on the CPU), and returns gradients in the input
-    dtypes (the kernels emit float32). lse is an auxiliary output: its
-    cotangent is ignored, as in the JAX package."""
+    dtypes (the kernels emit float32). lse and max_logits are auxiliary
+    outputs: their cotangents are ignored, as in the JAX package."""
 
     @staticmethod
-    def forward(ctx, q, k, v, plan: FFAPlan, params: FFAParams):
-        out, lse = ffa_fwd(q, k, v, plan, params)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, plan: FFAPlan, params: FFAParams, return_max_logits: bool = False):
+        res = ffa_fwd_dispatch(q, k, v, plan, params, return_max_logits)
+        ctx.save_for_backward(q, k, v, res[0], res[1])
         ctx.plan, ctx.params = plan, params
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+        ctx.mark_non_differentiable(*res[1:])
+        return res
 
     @staticmethod
-    def backward(ctx, dout, _dlse):
+    def backward(ctx, dout, *_aux):
         q, k, v, out, lse = ctx.saved_tensors
         plan, params = ctx.plan, ctx.params
         delta = ffa_delta(out, dout)
         dq, dk, dv = ffa_bwd(q, k, v, dout, lse, delta, plan, params)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def ffa_attn_with_plan(
@@ -573,7 +805,8 @@ def ffa_attn_with_plan(
     v: torch.Tensor,
     plan: FFAPlan,
     params: FFAParams,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_max_logits: bool = False,
+):
     """FFA over an explicit plan, differentiable.
 
     Args:
@@ -581,12 +814,13 @@ def ffa_attn_with_plan(
         plan: the host work list (its device arrays are cached on it).
         params: static dims + scalars; sq/sk must fit the tile counts.
 
-    Returns (out ``[sq,hq,dv]``, lse ``[sq,hq]`` float32).
+    Returns (out ``[sq,hq,dv]``, lse ``[sq,hq]`` float32), plus the per-head
+    max logit ``[hq]`` float32 when ``return_max_logits``.
     """
     if q.is_cuda:
-        return _FFACore.apply(q, k, v, plan, params)
-    out, lse = ffa_fwd(q, k, v, plan, params)
-    return out, lse.detach()
+        return _FFACore.apply(q, k, v, plan, params, return_max_logits)
+    out, *aux = ffa_fwd_dispatch(q, k, v, plan, params, return_max_logits)
+    return (out, *(t.detach() for t in aux))
 
 
 def ffa_attn(
@@ -602,6 +836,7 @@ def ffa_attn(
     block_k: int | None = None,
     d_lo=None,
     d_hi=None,
+    return_max_logits: bool = False,
 ):
     """FFA over slice metadata. Same contract as :func:`~.sdpa.sdpa_attn`,
     differentiable in q, k and v.
@@ -613,18 +848,21 @@ def ffa_attn(
     lse carries no gradient on either route, as in the JAX package.
 
     Returns (out ``[sq,hq,dv]`` in q's dtype, lse ``[sq,hq]`` float32,
-    natural log, ``-inf`` on rows no slice covers, whose out is 0).
+    natural log, ``-inf`` on rows no slice covers, whose out is 0), plus
+    the per-head max of the scaled, softcapped logits ``[hq]`` float32
+    (``-inf`` for a head with no attended entry) when
+    ``return_max_logits``.
     """
     if not q.is_cuda:
         qr = np.asarray(q_ranges, dtype=np.int32).reshape(-1, 2)
         kr = np.asarray(k_ranges, dtype=np.int32).reshape(-1, 2)
-        out, lse = sdpa_attn(
-            q, k, v, qr, kr, attn_type_map, softmax_scale=softmax_scale,
-            softcap=softcap, d_lo=d_lo, d_hi=d_hi,
-        )
-        return out, lse.detach()
+        kw = dict(softmax_scale=softmax_scale, softcap=softcap, d_lo=d_lo, d_hi=d_hi)
+        out, lse = sdpa_attn(q, k, v, qr, kr, attn_type_map, **kw)
+        if not return_max_logits:
+            return out, lse.detach()
+        return out, lse.detach(), dense_max_logits(q, k, qr, kr, attn_type_map, **kw).detach()
     plan, params = plan_params(
         q_ranges, k_ranges, attn_type_map, d_lo, d_hi, q.shape[0],
         k.shape[0], q.shape[-1], softmax_scale, softcap, block_q, block_k,
     )
-    return _FFACore.apply(q, k, v, plan, params)
+    return _FFACore.apply(q, k, v, plan, params, return_max_logits)

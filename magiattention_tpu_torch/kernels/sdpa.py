@@ -1,6 +1,7 @@
 """Dense masked softmax over band slices: the plain version of the FFA forward.
 
-The port's copy of ``magiattention_tpu/kernels/sdpa.py``. It materializes
+The port's copy of ``magiattention_tpu/kernels/sdpa.py`` (``sdpa_attn``,
+``dense_max_logits``). It materializes
 the ``(sq, sk)`` mask and the ``(hq, sq, sk)`` logits in float32, so it is a
 reference for tests and for ``chip_smoke.py``, and the CPU path of
 :func:`~.ffa.ffa_attn`; it is no yardstick of speed. ``sdpa_attn.calls``
@@ -72,3 +73,38 @@ def sdpa_attn(
 
 
 sdpa_attn.calls = 0
+
+
+def dense_max_logits(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    q_ranges,
+    k_ranges,
+    attn_type_map=None,
+    softmax_scale: float | None = None,
+    softcap: float = 0.0,
+    d_lo=None,
+    d_hi=None,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Per-head max of the (scaled, softcapped) masked logits: ``[hq]``
+    float32, -inf for heads with no attended entry. The plain version of
+    the FFA forward kernel's max-logits output (the port's copy of the JAX
+    package's ``dense_max_logits``)."""
+    sq, hq, d = q.shape
+    sk, hk, _ = k.shape
+    if softmax_scale is None:
+        softmax_scale = d ** -0.5
+    if d_lo is None or d_hi is None:
+        if attn_type_map is None:
+            attn_type_map = np.zeros(len(np.asarray(q_ranges)), np.int32)
+        d_lo, d_hi = types_to_bands(q_ranges, k_ranges, attn_type_map)
+    mask = build_dense_mask_band(
+        q_ranges, k_ranges, d_lo, d_hi, sq, sk, device=q.device
+    )
+    kc = k.to(compute_dtype).repeat_interleave(hq // hk, dim=1)
+    logits = torch.einsum("qhd,khd->hqk", q.to(compute_dtype), kc) * softmax_scale
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    return logits.amax(dim=(1, 2)).float()

@@ -1,111 +1,187 @@
-"""The backward-mode cost model.
+"""The backward-mode cost model, derived for the port's Hopper kernels.
 
-The port's copy of the split-vs-fused part of
-``magiattention_tpu/kernels/tile_policy.py`` (``bwd_mxu_elems``,
-``bwd_hbm_bytes``, ``choose_bwd_mode``), with the compute/memory balance
-constant re-derived for the H100. The TPU tile-size policy (auto-tile,
-mixed dispatch) is not ported yet (ROADMAP).
+The JAX package's model (``magiattention_tpu/kernels/tile_policy.py``:
+``bwd_mxu_elems``, ``bwd_hbm_bytes``, ``choose_bwd_mode``) prices
+tensor-core tile products per work item plus HBM blocks per work item,
+and charges the fused mode a float32 dq read-modify-write in HBM for
+every (k-major item, head). None of that describes the port's kernels:
+they run float32 FMA on the CUDA cores, one CTA per run of a tile's items
+(operands of the run's tile resident, the other side streamed per item),
+and the fused kernel's dq atomics resolve in L2. So this model prices what
+the card does:
+
+- **compute**: each kernel's CTAs, in launch order, dealt to the SMs'
+  slots as they free up (one CTA per SM for the dq, dk/dv and fused
+  kernels), each CTA taking (items in its run) x (heads it loops) x the
+  kernel's measured time per (item, head); the kernel's time is the
+  last CTA's finish. This is what separates the modes: both do the same
+  items, but the fused mode runs all of them over the k-major runs, so a
+  mask with one long k-major run (a column every q tile reaches, e.g.
+  global tokens before a sliding window) leaves it waiting on that run,
+  where split spreads the dq part over the short q-major runs;
+- **atomics**: the fused kernel's float32 adds of dq (64 x d per item and
+  head) at the rate the card sustains, measured;
+- **DRAM**: the operand streams per run and per item, the outputs, and
+  the fused dq workspace about once per pass (zeroed, written back from
+  L2, read and written by the convert pass), at the data-sheet HBM rate.
+
+The constants were measured by ``chip_smoke.py`` (phase ``bwd_mode``) on an
+NVIDIA H100 80GB HBM3 at a 700 W power limit: each kernel's time at the
+train phase's attention shape over its modeled makespan in (item, head)
+units, at head_dim 128; the atomic rate from the fused kernel's time less
+5/4 of the dk/dv kernel's (the fused body is the dk/dv body plus one tile
+product, dS K, and the atomics). Other head dims scale the per-item times
+by d / 128.
 """
 
 from __future__ import annotations
 
-# tile matmuls per work item (asserted 7 -> 5 by unit test)
-BWD_TILE_MATMULS_SPLIT_DQ = 3  # s, dp, dq
-BWD_TILE_MATMULS_SPLIT_DKV = 4  # s_t, dp_t, dk, dv
-BWD_TILE_MATMULS_SPLIT = BWD_TILE_MATMULS_SPLIT_DQ + BWD_TILE_MATMULS_SPLIT_DKV
-BWD_TILE_MATMULS_FUSED = 5  # s_t, dp_t, dk, dv, dq
-# Tensor-core elements per HBM byte at which compute and memory time
-# balance: NVIDIA H100 SXM data sheet, 989 TFLOP/s dense bf16 against
-# 3.35 TB/s HBM3 = 295.2 (the JAX package's 240 is a TPU v5e's 197 TFLOP/s
-# over 819 GB/s). Converts the HBM term into the units the product term is
-# counted in.
-BWD_MXU_ELEMS_PER_HBM_BYTE = 295
+import heapq
+from dataclasses import dataclass
+
+import numpy as np
+
+# the card: NVIDIA H100 SXM data sheet
+NUM_SMS = 132
+HBM_BYTES_PER_S = 3.35e12
+
+# Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase
+# bwd_mode): microseconds one CTA spends per (work item, q head) at
+# head_dim 128 in each kernel's loop (dq packed: per head of its block).
+ITEM_US = {"dq": 11.50, "dq_gqa": 11.73, "dkv": 15.27}
+# the fused kernel's per-(item, head) body, 5/4 of the dk/dv kernel's (one
+# more 64 x 64 x d product of the same shape)
+FUSED_BODY_OVER_DKV = 1.25
+# float32 atomic adds per second the fused kernel's dq block sustains
+ATOMIC_ADDS_PER_S = 4.45e11
 
 
-def bwd_mxu_elems(
-    mode: str,
-    w_dq: int,
-    bq_dq: int,
-    bk_dq: int,
-    wt: int,
-    bq_dkv: int,
-    bk_dkv: int,
-    d: int,
-) -> int:
-    """Product-element (multiply-add) count of one backward under
-    ``mode`` ("split" | "fused"): tile products per work item x the item's
-    (bq, bk, d) volume. Under equal blocks and equal work counts the split/fused
-    ratio is exactly 7/5 — the fusion's recompute saving."""
-    if mode == "split":
-        return (
-            BWD_TILE_MATMULS_SPLIT_DQ * w_dq * bq_dq * bk_dq * d
-            + BWD_TILE_MATMULS_SPLIT_DKV * wt * bq_dkv * bk_dkv * d
-        )
-    return BWD_TILE_MATMULS_FUSED * wt * bq_dkv * bk_dkv * d
+@dataclass(frozen=True)
+class BwdShape:
+    """What the model reads of one backward: real (non-dummy) items per
+    q-major and per k-major run, tile sizes, heads and head dims."""
+
+    items_q: np.ndarray  # (num_q_tiles,) real items of each q-major run
+    items_k: np.ndarray  # (num_k_tiles,) real items of each k-major run
+    block_q: int
+    block_k: int
+    hq: int
+    hk: int
+    d: int
+    dv: int
+    itemsize: int
 
 
-def bwd_hbm_bytes(
-    mode: str,
-    w_dq: int,
-    bq_dq: int,
-    bk_dq: int,
-    wt: int,
-    bq_dkv: int,
-    bk_dkv: int,
-    d: int,
-    dv: int,
-    itemsize: int = 2,
-    group: int = 1,
-) -> int:
-    """Modeled HBM bytes streamed by one backward under ``mode``: per grid
-    item, the operand blocks fetched plus the output blocks written. The
-    fused mode drops the dq pass's whole stream but adds the revisited dq
-    window's fp32 read-modify-write every step."""
-    g = group
-    dq_stream = (
-        (bq_dq * d + bk_dq * d + bk_dq * dv + bq_dq * dv) * itemsize
-        + bq_dq * d * 4  # fp32 dq out
+def makespan(cta_work: np.ndarray, slots: int = NUM_SMS) -> float:
+    """Finish time of CTAs of the given work, dealt in launch order to
+    ``slots`` slots, each CTA to the slot that frees first."""
+    work = np.asarray(cta_work, dtype=np.float64)
+    if len(work) <= slots:
+        return float(work.max(initial=0.0))
+    free = [0.0] * slots
+    for w in work.tolist():
+        heapq.heapreplace(free, free[0] + w)
+    return max(free)
+
+
+def _ctas(items: np.ndarray, heads: int, heads_per_cta: int, reverse: bool) -> np.ndarray:
+    """Per-CTA (item, head) work in launch order: grid x over the runs
+    (last first when ``reverse``, as the q-major kernels take them), y
+    over the head blocks."""
+    runs = items[::-1] if reverse else items
+    return np.tile(runs * heads_per_cta, heads // heads_per_cta)
+
+
+def kernel_units(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
+    """Makespans in (item, head) units: the dq kernel over the q-major runs
+    (one CTA per (run, block of ``dq_heads_per_cta`` heads), last run
+    first) and the k-major kernels (dk/dv and fused: one CTA per (run, kv
+    head) looping the group, first run first)."""
+    g = s.hq // s.hk
+    return {
+        "dq": makespan(_ctas(s.items_q, s.hq, dq_heads_per_cta, True)),
+        "kv": makespan(_ctas(s.items_k, s.hk, 1, False) * g),
+    }
+
+
+def dram_bytes(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
+    """Bytes each kernel streams from and to device memory: per CTA the
+    run tile's resident operands and its outputs, per (item, head) the
+    streamed operands (K/V for dq, once per head block; Q/dO with lse and
+    delta for the k-major kernels), and the fused dq workspace about once
+    per pass (zeroed, written back, read and written by the convert)."""
+    isz, bq, bk, d, dv = s.itemsize, s.block_q, s.block_k, s.d, s.dv
+    n_q, n_k = len(s.items_q), len(s.items_k)
+    kv = (
+        n_k * s.hk * bk * (d + dv) * (isz + 4)  # K, V in; dk, dv out
+        + float(s.items_k.sum()) * s.hq * bq * ((d + dv) * isz + 2 * 4)  # Q, dO, lse, delta
     )
-    dkv_stream = (
-        (g * bq_dkv * d + bk_dkv * d + bk_dkv * dv + g * bq_dkv * dv)
-        * itemsize
-        + (bk_dkv * d + bk_dkv * dv) * 4  # fp32 dk/dv outs
-    )
-    if mode == "split":
-        return w_dq * dq_stream + wt * dkv_stream
-    # fused: one pass, plus 2x the fp32 dq window (read + write) per step
-    return wt * (dkv_stream + 2 * g * bq_dkv * d * 4)
+    return {
+        "dq": n_q * s.hq * bq * ((d + dv) * isz + 2 * 4 + d * 4)  # Q, dO, stats; dq
+        + float(s.items_q.sum()) * (s.hq // dq_heads_per_cta) * bk * (d + dv) * isz,  # K, V
+        "dkv": kv,
+        "fused": kv + 4 * n_q * bq * s.hq * d * 4,
+    }
 
 
-def choose_bwd_mode(
-    w_dq: int,
-    bq_dq: int,
-    bk_dq: int,
-    wt: int,
-    bq_dkv: int,
-    bk_dkv: int,
-    d: int,
-    dv: int,
-    itemsize: int = 2,
-    group: int = 1,
-) -> str:
-    """"fused" or "split" by modeled cost (product elements + balanced HBM
-    term).
+def atomic_adds(s: BwdShape) -> float:
+    """The fused kernel's float32 adds into the dq workspace: one 64 x d
+    block per (real item, q head)."""
+    return float(s.items_k.sum()) * s.hq * s.block_q * s.d
 
-    Fused wins whenever the two plans are comparably sized (the common
-    case: 5/7 the recompute and half the operand streams); split wins when
-    the q-major dq plan is much cheaper than the k-major plan — e.g. a
-    mask whose k-major tiling fragments far worse than its q-major one,
-    where rerunning the cheap dq pass beats dragging dq through every
-    k-major step's fp32 read-modify-write. Feasibility (shared memory and
-    registers, plan meta columns) is the caller's job
-    (kernels/ffa.ffa_bwd_mode)."""
-    args = (w_dq, bq_dq, bk_dq, wt, bq_dkv, bk_dkv, d)
-    hbm = (dv, itemsize, group)
-    split_cost = bwd_mxu_elems("split", *args) + (
-        BWD_MXU_ELEMS_PER_HBM_BYTE * bwd_hbm_bytes("split", *args, *hbm)
-    )
-    fused_cost = bwd_mxu_elems("fused", *args) + (
-        BWD_MXU_ELEMS_PER_HBM_BYTE * bwd_hbm_bytes("fused", *args, *hbm)
-    )
-    return "fused" if fused_cost <= split_cost else "split"
+
+def kernel_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
+    """Modeled milliseconds of each backward kernel on one backward."""
+    units = kernel_units(s, dq_heads_per_cta)
+    nbytes = dram_bytes(s, dq_heads_per_cta)
+    scale = s.d / 128.0
+    dq_us = ITEM_US["dq_gqa" if dq_heads_per_cta > 1 else "dq"] * scale
+    dkv_us = ITEM_US["dkv"] * scale
+    return {
+        "dq": units["dq"] * dq_us * 1e-3 + nbytes["dq"] / HBM_BYTES_PER_S * 1e3,
+        "dkv": units["kv"] * dkv_us * 1e-3 + nbytes["dkv"] / HBM_BYTES_PER_S * 1e3,
+        "fused": units["kv"] * FUSED_BODY_OVER_DKV * dkv_us * 1e-3
+        + atomic_adds(s) / ATOMIC_ADDS_PER_S * 1e3
+        + nbytes["fused"] / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def bwd_mode_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
+    """Modeled milliseconds of the split pair (dq, then dk/dv) and of the
+    fused kernel on one backward."""
+    t = kernel_ms(s, dq_heads_per_cta)
+    return {"split": t["dq"] + t["dkv"], "fused": t["fused"]}
+
+
+def calibrate(s: BwdShape, ms: dict[str, float], dq_heads_per_cta: int = 1) -> dict[str, float]:
+    """The constants that make the model reproduce measured kernel times
+    ``ms`` ("dq", "dkv", "fused") at one shape: per-(item, head)
+    microseconds at head_dim 128 after the DRAM time, and the atomic rate
+    from the fused time less its body (5/4 of the dk/dv time) and DRAM."""
+    units = kernel_units(s, dq_heads_per_cta)
+    nbytes = dram_bytes(s, dq_heads_per_cta)
+    per_128 = 128.0 / s.d
+
+    def item_us(kernel, unit):
+        return (ms[kernel] - nbytes[kernel] / HBM_BYTES_PER_S * 1e3) * 1e3 / units[unit] * per_128
+
+    dkv_us = item_us("dkv", "kv")
+    body_ms = units["kv"] * FUSED_BODY_OVER_DKV * dkv_us / per_128 * 1e-3
+    rest_ms = ms["fused"] - body_ms - nbytes["fused"] / HBM_BYTES_PER_S * 1e3
+    return {
+        "dq_gqa" if dq_heads_per_cta > 1 else "dq": item_us("dq", "dq"),
+        "dkv": dkv_us,
+        "atomic_adds_per_s": atomic_adds(s) / (rest_ms * 1e-3) if rest_ms > 0 else float("inf"),
+    }
+
+
+def choose_bwd_mode(s: BwdShape, dq_heads_per_cta: int = 1) -> str:
+    """"fused" or "split", whichever the model times faster (fused on a
+    tie). Fused does 5 tile products per (item, head) where split does 7,
+    so it wins whenever its k-major runs spread over the card about as
+    well as the q-major ones; split wins when one k-major run is far
+    longer than the rest and holds the fused kernel back. Feasibility
+    (shared memory and registers, plan meta columns) and the pins are the
+    caller's job (kernels/ffa.ffa_bwd_mode)."""
+    t = bwd_mode_ms(s, dq_heads_per_cta)
+    return "fused" if t["fused"] <= t["split"] else "split"

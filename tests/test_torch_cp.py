@@ -14,6 +14,9 @@ jitted. Held: the natural-order output and dq, dk, dv
 (every rank's, which must be the whole gradients, as JAX's global ones
 are) and each rank's lse rows; float32 atol/rtol/rel-norm 1e-5.
 
+The per-head max-logits of every rank against the JAX package's
+(``calc_attn(return_max_logits=True)``, all-reduced over the group).
+
 Also GroupCast and GroupReduce on their own (``group_cast_rows`` and its
 backward, ``group_reduce_rows``) against a numpy gather and scatter-add
 over the solver's send indices.
@@ -85,7 +88,8 @@ def _port_run(cp: int) -> str:
 
 @lru_cache(maxsize=None)
 def _jax_run(cp: int, mask: str, degree: int, hp: bool):
-    """JAX (out, lse in the dispatched layout, dq, dk, dv), natural order."""
+    """JAX (out, lse in the dispatched layout, dq, dk, dv), natural order,
+    and the per-head max-logits."""
     qr, kr, types = MASKS[mask]
     env = {"MAGI_ATTENTION_KERNEL_BACKEND": "sdpa", **(HP if hp else {})}
     with pytest.MonkeyPatch.context() as mpatch:
@@ -103,14 +107,14 @@ def _jax_run(cp: int, mask: str, degree: int, hp: bool):
         def loss(q, k, v):
             out_d, meta = jax_api.calc_attn(
                 jax_api.dispatch(q, key), jax_api.dispatch(k, key, role="kv"),
-                jax_api.dispatch(v, key, role="kv"), key,
+                jax_api.dispatch(v, key, role="kv"), key, return_max_logits=True,
             )
             out = jax_api.undispatch(out_d, key)
-            return jnp.sum(out * do), (out, meta.lse)
+            return jnp.sum(out * do), (out, meta.lse, meta.max_logits)
 
         grad_fn = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))
-        (_, (out, lse)), grads = grad_fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    return np.asarray(out), np.asarray(lse), [np.asarray(g) for g in grads]
+        (_, (out, lse, ml)), grads = grad_fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out), np.asarray(lse), [np.asarray(g) for g in grads], np.asarray(ml)
 
 
 @pytest.mark.parametrize(
@@ -118,7 +122,7 @@ def _jax_run(cp: int, mask: str, degree: int, hp: bool):
 )
 def test_cp_matches_jax(cp, mask, degree, env):
     out_dir = _port_run(cp)
-    out, lse, grads = _jax_run(cp, mask, degree, bool(env))
+    out, lse, grads, _ = _jax_run(cp, mask, degree, bool(env))
     name = _case_name(mask, degree, env)
     shard = lse.shape[0] // cp
     stages = set()
@@ -135,6 +139,22 @@ def test_cp_matches_jax(cp, mask, degree, env):
     assert len(stages) == 1  # every rank ran the same plan
     if cp == 4 and degree > 1:
         assert stages.pop() > 1  # the multi-stage path ran
+
+
+@pytest.mark.parametrize(
+    "cp,mask,degree,env", CP_CASES, ids=[f"cp{c[0]}-{_case_name(*c[1:])}" for c in CP_CASES]
+)
+def test_cp_max_logits_matches_jax(cp, mask, degree, env):
+    """``calc_attn(return_max_logits=True)``: every rank holds the global
+    per-head max (its parts' max, all-reduced MAX over the gloo group),
+    equal to the JAX package's at the same cp size."""
+    out_dir = _port_run(cp)
+    want = _jax_run(cp, mask, degree, bool(env))[3]
+    name = _case_name(mask, degree, env)
+    for r in range(cp):
+        got = np.load(os.path.join(out_dir, f"{name}_{r}.npz"))["ml"]
+        assert got.shape == want.shape and np.isfinite(got).all()
+        assert_close(got, want, msg=f"{name} rank {r} max_logits", **TOL)
 
 
 @pytest.mark.parametrize("cp", [2, 4])

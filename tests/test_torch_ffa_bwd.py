@@ -34,6 +34,7 @@ from magiattention_tpu_torch.kernels.ffa import (
     ffa_attn,
     ffa_bwd_dkv_kernel,
     ffa_bwd_dkv_plain,
+    ffa_bwd_dq_gqa_kernel,
     ffa_bwd_dq_kernel,
     ffa_bwd_dq_plain,
     ffa_bwd_fused_convert,
@@ -42,6 +43,8 @@ from magiattention_tpu_torch.kernels.ffa import (
     ffa_bwd_mode,
     ffa_delta_kernel,
     ffa_delta_plain,
+    ffa_fwd_gqa_kernel,
+    ffa_fwd_kernel,
     plan_params,
 )
 from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
@@ -227,8 +230,8 @@ def test_ffa_bwd_mode_is_split_and_refuses_fused(monkeypatch):
         monkeypatch.delenv("MAGI_ATTENTION_BACKEND_FFA_BWD", raising=False)
         monkeypatch.delenv("MAGI_ATTENTION_FFA_FUSED_BWD", raising=False)
         monkeypatch.setenv(key, val)
-        assert ffa_bwd_mode(*plans[64], 64, 64, 4, 2) == want, (key, val)
-        assert ffa_bwd_mode(*plans[32], 32, 32, 4, 2) == "split", (key, val)
+        assert ffa_bwd_mode(*plans[64], 64, 64, 4, 4, 2) == want, (key, val)
+        assert ffa_bwd_mode(*plans[32], 32, 32, 4, 4, 2) == "split", (key, val)
 
 
 def test_fused_pin_raises_in_backward_not_forward(monkeypatch):
@@ -262,16 +265,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     lse = torch.zeros(q.shape[:2])
     with pytest.raises(ValueError, match="CUDA"):
         ffa_delta_kernel(tq, tdo)
-    for kernel in (ffa_bwd_dq_kernel, ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel):
+    for kernel in (
+        ffa_bwd_dq_kernel, ffa_bwd_dq_gqa_kernel, ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel,
+    ):
         with pytest.raises(ValueError, match="CUDA"):
             kernel(tq, tk, tv, tdo, lse, lse, plan, params)
+    with pytest.raises(ValueError, match="CUDA"):
+        ffa_fwd_gqa_kernel(tq, tk, tv, plan, params)
+    with pytest.raises(ValueError, match="CUDA"):
+        ffa_fwd_kernel(tq, tk, tv, plan, params, return_max_logits=True)
     with pytest.raises(ValueError, match="CUDA"):
         ffa_bwd_fused_convert(torch.zeros(tq.shape), params.softmax_scale)
 
 
 def test_backward_sources_are_built_at_first_use():
-    for name in ("ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv", "ffa_bwd_fused"):
+    for name in (
+        "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv", "ffa_bwd_fused", "ffa_fwd_gqa",
+        "ffa_bwd_dq_gqa",
+    ):
         assert name in _build.SOURCES
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces: magiattention_tpu/kernels/ffa.py" in src
-        assert '#include "common.cuh"' in src or '#include "bwd_kv.cuh"' in src
+        assert any(
+            f'#include "{h}"' in src
+            for h in ("common.cuh", "bwd_kv.cuh", "ffa_fwd.cuh", "ffa_bwd_dq.cuh")
+        )

@@ -13,10 +13,12 @@ uncovered rows and unreached k tiles, whose gradients must be exact
 zeros.
 
 Also: ``ffa_bwd_mode`` follows the JAX package's precedence (a split pin
-wins, a fused pin wins where the kernel fits), and unpinned, its cost-model
-choice on a plan equals JAX's ``choose_bwd_mode`` on the JAX plan of the
-same slices, with the JAX model's balance constant set to the port's
-(the port re-derives it for the H100: 295 against the TPU's 240).
+wins, a fused pin wins where the kernel fits), and unpinned, its cost
+model (derived for the port's kernels, its constants measured on an NVIDIA
+H100 80GB HBM3 at 700 W by chip_smoke.py's ``bwd_mode`` phase) picks the
+mode the card measured faster at the shapes that phase times, where the
+JAX package's model (which prices TPU tensor-core tiles and a per-item dq
+read-modify-write in HBM) picks split at all of them.
 """
 
 from functools import lru_cache
@@ -42,7 +44,7 @@ from magiattention_tpu_torch.kernels.ffa import (
 )
 from magiattention_tpu_torch.testing import assert_close
 
-from tests.torch_port_cases import MASKS, _typed, qkv
+from tests.torch_port_cases import BAND_INF, MASKS, _typed, qkv
 
 HK, D = 2, 64
 TOL = dict(atol=1e-5, rtol=1e-5, norm_rtol=1e-5)
@@ -135,7 +137,7 @@ def test_mode_precedence_matches_jax(pin, monkeypatch):
         monkeypatch.setenv("MAGI_ATTENTION_BACKEND_FFA_BWD", pin)
     qr, kr, lo, hi, sq, sk = FUSED_MASKS["causal"]
     plan, params = plan_params(qr, kr, None, lo, hi, sq, sk, D, None, 0.0)
-    got = ffa_bwd_mode(plan, params, D, D, 4, 2)
+    got = ffa_bwd_mode(plan, params, D, D, 4, 2 * HK, HK)
     if pin is None:
         assert got in ("split", "fused")
         return
@@ -149,57 +151,94 @@ def test_mode_precedence_matches_jax(pin, monkeypatch):
     assert got == want == pin
 
 
-# (q_ranges, k_ranges, types, seqlen): causal, two documents, a shared
-# prefix with a causal tail, and a sparse band, at 4096 tokens
-COST_MASKS = {
-    "causal": ([[0, 4096]], [[0, 4096]], [1], 4096),
-    "docs": ([[0, 2048], [2048, 4096]], [[0, 2048], [2048, 4096]], [1, 1], 4096),
-    "prefix": ([[0, 4096], [512, 4096]], [[0, 512], [512, 4096]], [0, 1], 4096),
-    "band": ([[0, 4096]], [[0, 4096]], [3], 4096),
+def _sink_window(seq=8192):
+    from magiattention_tpu_torch.api.functools import infer_attn_mask_from_cu_seqlens
+
+    qr, kr, types = infer_attn_mask_from_cu_seqlens(
+        [0, seq], causal=False, window_size=(64, 0), global_window_size=64
+    )
+    return qr.to_naive_ranges(), kr.to_naive_ranges(), [t.to_int_type() for t in types]
+
+
+_DOCS = [[0, 4096], [4096, 8192]]
+_VARLEN_Q = [[0, 3072], [3072, 6144], [6144, 7168], [7168, 7680]]
+_VARLEN_K = [[0, 3072], [3072, 6144], [6144, 7168], [6144, 7680]]
+# chip_smoke.py's backward shapes: (q_ranges, k_ranges, types, sq, sk, hq,
+# hk, itemsize), head_dim 128, and the mode the card measured faster there
+# (NVIDIA H100 80GB HBM3, 700.00 W; fused against dq + dk/dv ms)
+MEASURED_SHAPES = {
+    "causal_8192_bf16": (([[0, 8192]], [[0, 8192]], [1], 8192, 8192, 16, 8, 2), "fused"),  # 22.99 / 29.93
+    "varlen_8192_bf16": ((_VARLEN_Q, _VARLEN_K, [1, 1, 2, 3], 8192, 8192, 16, 8, 2), "fused"),  # 8.41 / 10.54
+    "serving_prefill_f32": (([[0, 512]], [[0, 2048]], None, 512, 4096, 32, 8, 4), "fused"),  # 1.59 / 2.01
+    "train_docs_8192_bf16": ((_DOCS, _DOCS, [1, 1], 8192, 8192, 32, 8, 2), "fused"),  # 25.49 / 31.89
+    "sink_window_8192_bf16": ((*_sink_window(), 8192, 8192, 32, 8, 2), "split"),  # 13.38 / 11.05
 }
+# the train shape's kernel times in the same run (ms; dq_gqa: the packed dq
+# kernel, 2 heads per CTA)
+MEASURED_TRAIN_MS = {"dq": 13.314752, "dq_gqa": 13.263728, "dkv": 18.575008, "fused": 25.490304}
+
+
+def _measured_plan(name):
+    (qr, kr, types, sq, sk, hq, hk, itemsize), faster = MEASURED_SHAPES[name]
+    if types is None:  # the serving prefill chunk: queries at 1536.. over 2048 stored rows
+        plan, params = plan_params(qr, kr, None, [-BAND_INF], [1536], sq, sk, 128, None, 0.0)
+    else:
+        plan, params = plan_params(qr, kr, types, None, None, sq, sk, 128, None, 0.0)
+    return plan, params, hq, hk, itemsize, faster
 
 
 def test_cost_model_choice_equals_jax(monkeypatch):
+    """Unpinned, the port picks the mode the card measured faster at each
+    timed shape. The JAX package's model, on the same plans at the same
+    tiles, picks split at all of them: it equals the port's choice only
+    where split is the faster mode (one long k-major run: the sink-window
+    mask)."""
     monkeypatch.delenv("MAGI_ATTENTION_BACKEND_FFA_BWD", raising=False)
     monkeypatch.delenv("MAGI_ATTENTION_FFA_FUSED_BWD", raising=False)
-    monkeypatch.setattr(
-        jax_tile_policy, "BWD_MXU_ELEMS_PER_HBM_BYTE", tile_policy.BWD_MXU_ELEMS_PER_HBM_BYTE
-    )
-    seen = set()
-    for name, (qr, kr, types, s) in COST_MASKS.items():
-        lo, hi = port_ffa.types_to_bands(np.array(qr), np.array(kr), np.array(types))
-        ref = build_ffa_plan(np.array(qr, np.int32), np.array(kr, np.int32), lo, hi, s, s, 64, 64)
-        for d in (64, 128):
-            plan, params = plan_params(qr, kr, types, None, None, s, s, d, None, 0.0)
-            assert (plan.num_work, plan.num_work_t) == (ref.num_work, ref.num_work_t)
-            for itemsize in (2, 4):
-                for g in (1, 2, 4):
-                    got = ffa_bwd_mode(plan, params, d, d, itemsize, g)
-                    want = jax_tile_policy.choose_bwd_mode(
-                        ref.num_work, 64, 64, ref.num_work_t, 64, 64, d, d,
-                        itemsize=itemsize, group=g,
-                    )
-                    assert got == want, (name, d, itemsize, g)
-                    seen.add(got)
-    assert seen == {"split", "fused"}  # both branches of the model are reached
+    for name in MEASURED_SHAPES:
+        plan, params, hq, hk, itemsize, faster = _measured_plan(name)
+        got = ffa_bwd_mode(plan, params, 128, 128, itemsize, hq, hk)
+        assert got == faster, name
+        want = jax_tile_policy.choose_bwd_mode(
+            plan.num_work, 64, 64, plan.num_work_t, 64, 64, 128, 128,
+            itemsize=itemsize, group=hq // hk,
+        )
+        assert want == "split" and (got == want) == (faster == "split"), name
 
 
 def test_balance_constant_is_the_h100_data_sheet_ratio():
-    assert tile_policy.BWD_MXU_ELEMS_PER_HBM_BYTE == round(989e12 / 3.35e12)
+    """The model's card figures are the H100 SXM data sheet's (132 SMs,
+    3.35 TB/s), and its measured constants are what
+    ``tile_policy.calibrate`` derives from the kernel times measured at the
+    train shape."""
+    assert tile_policy.NUM_SMS == 132 and tile_policy.HBM_BYTES_PER_S == 3.35e12
+    plan, _, hq, hk, itemsize, _ = _measured_plan("train_docs_8192_bf16")
+    shape = port_ffa.bwd_shape(plan, hq, hk, 128, 128, itemsize)
+    got = tile_policy.calibrate(shape, MEASURED_TRAIN_MS)
+    got.update(tile_policy.calibrate(
+        shape, dict(MEASURED_TRAIN_MS, dq=MEASURED_TRAIN_MS["dq_gqa"]), dq_heads_per_cta=2
+    ))
+    for key, us in tile_policy.ITEM_US.items():
+        assert us == pytest.approx(got[key], rel=2e-3), key
+    assert tile_policy.ATOMIC_ADDS_PER_S == pytest.approx(got["atomic_adds_per_s"], rel=2e-3)
+    modeled = tile_policy.kernel_ms(shape)
+    for key in ("dq", "dkv", "fused"):
+        assert modeled[key] == pytest.approx(MEASURED_TRAIN_MS[key], rel=5e-3), key
 
 
 def test_train_shape_picks_split_in_both_models(monkeypatch):
     """At the trainer's attention shape (two causal documents of 4096,
-    group 4, head_dim 128, bf16) the port's model picks split at the
-    Hopper tiles, and so does the JAX package's at its own TPU tiles and
-    balance constant: unpinned, the port runs the reference's default
-    backward there. The per-item dq read-modify-write term decides it in
-    both (ROADMAP lists re-deriving it for the H100 kernel)."""
+    group 4, head_dim 128, bf16) the JAX package's model picks split, at
+    its own TPU tiles and balance constant as at the port's tiles; the
+    port's model picks fused there, the mode the H100 measured faster
+    (25.49 against 31.89 ms), with the split or packed dq kernel alike."""
     monkeypatch.delenv("MAGI_ATTENTION_BACKEND_FFA_BWD", raising=False)
     monkeypatch.delenv("MAGI_ATTENTION_FFA_FUSED_BWD", raising=False)
-    qr, kr, types, s = [[0, 4096], [4096, 8192]], [[0, 4096], [4096, 8192]], [1, 1], 8192
+    qr, kr, types, s = _DOCS, _DOCS, [1, 1], 8192
     plan, params = plan_params(qr, kr, types, None, None, s, s, 128, None, 0.0)
-    assert ffa_bwd_mode(plan, params, 128, 128, 2, 4) == "split"
+    assert ffa_bwd_mode(plan, params, 128, 128, 2, 32, 8) == "fused"
+    monkeypatch.setenv("MAGI_ATTENTION_FFA_GQA_PACK_DQ", "1")
+    assert ffa_bwd_mode(plan, params, 128, 128, 2, 32, 8) == "fused"
     bq, bk = jax_ffa.default_blocks(s, s)
     lo, hi = port_ffa.types_to_bands(np.array(qr), np.array(kr), np.array(types))
     ref = build_ffa_plan(np.array(qr, np.int32), np.array(kr, np.int32), lo, hi, s, s, bq, bk)

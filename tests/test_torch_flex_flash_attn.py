@@ -7,7 +7,9 @@ gradients of sum(out * dO) in q, k, v and the sink. The JAX ``ffa`` backend
 runs its Pallas kernels in interpret mode (tests/conftest.py) under the
 split backward; the port's runs ``ffa_attn`` (on CPU tensors:
 ``sdpa_attn``, autograd) or, with a sink, ``_FFASinkCore`` over the
-kernels' plain versions. Tolerance float32 atol/rtol/rel-norm 1e-5.
+kernels' plain versions. Tolerance float32 atol/rtol/rel-norm 1e-5. The
+max-logits output of each backend, with and without a sink and a softcap,
+against the JAX package's on the same inputs.
 """
 
 from functools import lru_cache
@@ -113,11 +115,35 @@ def test_backend_from_env(monkeypatch):
     assert_close(meta.lse, want[1], **TOL)
 
 
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("sink_layout", SINKS, ids=str)
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_max_logits_matches_jax(backend, sink_layout, softcap):
+    """Per-head max of the scaled (softcapped) logits over the attended
+    entries, the sink's excluded: the forward kernel's own output on
+    ``ffa`` (on the CPU its plain version), the dense oracle on the plain
+    backends, in both packages."""
+    q, k, v, _, sink = _arrays(sink_layout)
+    kw = dict(
+        softcap=softcap, sink_layout=sink_layout or "sh", backend=backend,
+        return_max_logits=True,
+    )
+    _, meta = flex_flash_attn_func(
+        *(torch.from_numpy(a) for a in (q, k, v)), Q_RANGES, K_RANGES, TYPES,
+        sink=None if sink is None else torch.from_numpy(sink), **kw,
+    )
+    _, jmeta = jax_flex_flash_attn_func(
+        *(jnp.asarray(a) for a in (q, k, v)), Q_RANGES, K_RANGES, TYPES,
+        sink=None if sink is None else jnp.asarray(sink), **kw,
+    )
+    got = meta.max_logits
+    assert got.shape == (HQ,) and got.dtype == torch.float32 and not got.requires_grad
+    assert_close(got, np.asarray(jmeta.max_logits), **TOL)
+
+
 def test_unsupported_options_raise():
     q, k, v, _, _ = _arrays(None)
     t = [torch.from_numpy(a) for a in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="max_logits"):
-        flex_flash_attn_func(*t, Q_RANGES, K_RANGES, TYPES, return_max_logits=True)
     with pytest.raises(ValueError, match="backend"):
         flex_flash_attn_func(*t, Q_RANGES, K_RANGES, TYPES, backend="flash")
     with pytest.raises(NotImplementedError, match="shd"):

@@ -123,7 +123,7 @@ def cp_inputs(seed: int):
 def cp_worker(rank: int, world: int, init_file: str, out_dir: str, cases: list) -> None:
     """One rank of the gloo group: every case (name, q/k ranges, types,
     overlap degree, env) through the port's key -> dispatch -> calc_attn
-    -> undispatch, forward and backward, then GroupCast and GroupReduce of
+    -> undispatch (with max-logits), forward and backward, then GroupCast and GroupReduce of
     the first multi-stage plan; results to ``out_dir/<name>_<rank>.npz``."""
     import os
 
@@ -153,7 +153,7 @@ def cp_worker(rank: int, world: int, init_file: str, out_dir: str, cases: list) 
             q_d = api.dispatch(leaves[0], key)
             k_d = api.dispatch(leaves[1], key, role="kv")
             v_d = api.dispatch(leaves[2], key, role="kv")
-            out_d, meta = api.calc_attn(q_d, k_d, v_d, key)
+            out_d, meta = api.calc_attn(q_d, k_d, v_d, key, return_max_logits=True)
             out = api.undispatch(out_d, key)
             (out * do).sum().backward()
             runtime = _mgr(key).runtime
@@ -161,7 +161,8 @@ def cp_worker(rank: int, world: int, init_file: str, out_dir: str, cases: list) 
                 os.path.join(out_dir, f"{name}_{rank}.npz"),
                 out=out.detach().numpy(), lse=meta.lse.numpy(),
                 dq=leaves[0].grad.numpy(), dk=leaves[1].grad.numpy(),
-                dv=leaves[2].grad.numpy(), stages=runtime.num_stages,
+                dv=leaves[2].grad.numpy(), ml=meta.max_logits.numpy(),
+                stages=runtime.num_stages,
             )
             for key_ in env:
                 os.environ.pop(key_)
