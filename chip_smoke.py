@@ -33,7 +33,14 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    model picks the slower by more than 5%), and the model's constants from
    this run.
 5. ``paged_decode``: the paged-decode kernel against ``paged_decode_plain``
-   on 8 ragged slots, in float32 and bfloat16.
+   on 8 ragged slots, in float32 and bfloat16. ``paged_decode_spec``: the
+   speculative-verify kernel on the same slots, spec_k 2 and 4 (8, 16 and
+   32 rows per CTA), against ``paged_decode_spec_plain``, bit for bit
+   against the paged-decode kernel at spec_k 1. ``paged_decode_int8``: the
+   int8 kernel over pages written by the port's own append, q float32 and
+   bf16, against ``paged_decode_int8_plain``; ``int8_append``: the
+   wave-batched quantized append of 512 rows against the row-by-row loop,
+   bit for bit.
 6. ``edge_cases``: head_dim 64, ragged tiles, softcap, g = 1 and 8, other
    page sizes, a k tile no slice reaches and uncovered rows, forward and
    gradients (both backward modes), kernel against plain version (not
@@ -43,7 +50,11 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    oracle (FFA kernel) on the card, the first two requests against the
    port's own engine on the CPU, and the kernels' launch counters must have
    risen while the plain versions were never called. ``serve_profile``:
-   the serve run again under ``torch.profiler``.
+   the serve run again under ``torch.profiler``. ``serve_spec``: the same
+   requests with ``spec_tokens = 4`` (greedy draft; the oracle draft's
+   accept rate reported), held against the same replay. ``serve_int8``: the
+   same requests on an int8 cache, held against the int8 replay, the CPU
+   int8 engine and (within the quantization bound) the float32 rows.
 8. ``cp_api``: ``magi_attn_flex_key -> dispatch -> calc_attn ->
    undispatch`` at cp = 1, forward and backward, at the train phase's
    attention shape, against ``flex_flash_attn_func``, with max-logits.
@@ -964,6 +975,200 @@ def decode_phase(peaks: dict) -> list[dict]:
     return results
 
 
+DECODE_LENGTHS = [0, 1, 15, 16, 17, 1000, 4095, 4096]
+
+
+def decode_pages(dt, hk: int, seed: int):
+    """``decode_phase``'s cache at ``hk`` kv heads: 8 slots with
+    ``DECODE_LENGTHS`` over 1024 random pages of 16 (tables of 256), every
+    page holding data, dead ones too."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.paged_kv import PagedKVCache, assign_pages
+
+    S, d, ps, P, N = 8, 128, 16, 256, 1024
+    perm = np.random.default_rng(seed).permutation(N)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache = PagedKVCache.create(N, ps, hk, d, S, P, dtype=dt, device="cuda")
+    cache.k_pages.copy_(torch.randn(cache.k_pages.shape, generator=gen, device="cuda"))
+    cache.v_pages.copy_(torch.randn(cache.v_pages.shape, generator=gen, device="cuda"))
+    used = 0
+    for s, length in enumerate(DECODE_LENGTHS):
+        n = -(-length // ps)
+        assign_pages(cache, s, perm[used : used + n])
+        used += n
+    cache.lengths.copy_(torch.tensor(DECODE_LENGTHS, dtype=torch.int32))
+    return cache
+
+
+def decode_spec_phase(peaks: dict) -> dict[str, dict]:
+    """B11 at the decode phase's geometry: spec_k 2 and 4 at hk 8 (8 and 16
+    rows per CTA), spec_k 4 at hk 4 (32 rows), float32 and bf16, against
+    its plain version; rows with nothing live are (0, -inf); at spec_k 1 it
+    gives B10's bits."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.paged_decode import (
+        paged_decode_kernel, paged_decode_spec_kernel, paged_decode_spec_plain,
+    )
+
+    S, hq, d, ps = 8, 32, 128, 16
+    scale = d ** -0.5
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).removeprefix("torch.")
+        for hk, spec_k in ((8, 2), (8, 4), (4, 4)):
+            cache = decode_pages(dt, hk, seed=3)
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            q = torch.randn((S, spec_k, hq, d), generator=gen, device="cuda").to(dt)
+            if spec_k == 4 and hk == 8:  # B11 at spec_k 1 is B10, bit for bit
+                one = paged_decode_spec_kernel(q[:, :1], cache, scale)
+                ref = paged_decode_kernel(q[:, 0], cache, scale)
+                if not (torch.equal(one[0][:, 0], ref[0]) and torch.equal(one[1][:, 0], ref[1])):
+                    raise AssertionError(f"paged_decode_spec_{dname}: spec_k 1 is not B10's bits")
+
+            def kernel():
+                return paged_decode_spec_kernel(q, cache, scale)
+
+            def plain():
+                return paged_decode_spec_plain(q, cache, scale)
+
+            out_k, lse_k = kernel()
+            out_p, lse_p = plain()
+            torch.cuda.synchronize()
+            name = f"spec{spec_k}_hk{hk}_{dname}"
+            err = errors(out_k, lse_k, out_p, lse_p)
+            check(f"paged_decode_spec_{name}", err, dname)
+            limits = [
+                [max(0, n - (spec_k - 1 - t)) for t in range(spec_k)]
+                for n in DECODE_LENGTHS
+            ]
+            for s_, lim in enumerate(limits):
+                for t, n in enumerate(lim):
+                    if n == 0 and (out_k[s_, t].any() or not torch.isneginf(lse_k[s_, t]).all()):
+                        raise AssertionError(f"paged_decode_spec_{name}: empty row is not (0, -inf)")
+            isz = q.element_size()
+            tokens = sum(DECODE_LENGTHS)  # K/V rows read once per kv head
+            nbytes = (
+                2 * q.numel() * isz + lse_k.numel() * 4
+                + tokens * hk * d * 2 * isz
+                + sum(-(-n // ps) for n in DECODE_LENGTHS) * 4 + S * 4
+            )
+            pairs = sum(sum(lim) for lim in limits) * hq  # live (row, column)
+            b_ms, b_by = bound(4.0 * d * pairs, nbytes, dname, peaks)
+            res = dict(
+                case=name, dtype=dname, spec_k=spec_k, hk=hk,
+                rows_per_cta=spec_k * hq // hk, lengths=DECODE_LENGTHS,
+                q=list(q.shape), pages=list(cache.k_pages.shape), **err,
+                ms=time_ms(kernel), plain_ms=time_ms(plain, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                atol=ATOL[dname], rnorm=RNORM[dname],
+            )
+            res["gb_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+            results[name] = res
+            emit({"phase": "paged_decode_spec", **res})
+            del cache
+    return results
+
+
+def decode_int8_phase(peaks: dict) -> dict[str, dict]:
+    """B12 at the decode phase's geometry, the int8 pages written by the
+    port's own (wave-batched) append on the card, against its plain version
+    for q float32 and bf16; the empty slot is (0, -inf). Then a 512-row
+    append that starts mid-page, waves against the row-by-row loop, bit for
+    bit."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import paged_kv
+    from magiattention_tpu_torch.kernels.paged_decode import (
+        paged_decode_int8_kernel, paged_decode_int8_plain,
+    )
+
+    S, hq, hk, d, ps, P, N = 8, 32, 8, 128, 16, 256, 1024
+    scale = d ** -0.5
+    perm = np.random.default_rng(5).permutation(N)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cache = paged_kv.PagedKVCache.create(N, ps, hk, d, S, P, dtype=torch.int8, device="cuda")
+    used = 0
+    t0 = time.perf_counter()
+    for s, length in enumerate(DECODE_LENGTHS):
+        n = -(-length // ps)
+        paged_kv.assign_pages(cache, s, perm[used : used + n])
+        used += n
+        for start in range(0, length, 512):  # prefill-sized chunks
+            rows = min(512, length - start)
+            k = torch.randn((rows, hk, d), generator=gen, device="cuda")
+            v = torch.randn((rows, hk, d), generator=gen, device="cuda")
+            paged_kv.append_kv(cache, s, k, v)
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    if cache.lengths.tolist() != DECODE_LENGTHS:
+        raise AssertionError("paged_decode_int8: appends did not reach the lengths")
+    results = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).removeprefix("torch.")
+        q = torch.randn((S, hq, d), generator=gen, device="cuda").to(dt)
+
+        def kernel():
+            return paged_decode_int8_kernel(q, cache, scale)
+
+        def plain():
+            return paged_decode_int8_plain(q, cache, scale)
+
+        out_k, lse_k = kernel()
+        out_p, lse_p = plain()
+        torch.cuda.synchronize()
+        err = errors(out_k, lse_k, out_p, lse_p)
+        check(f"paged_decode_int8_q{dname}", err, dname)
+        if out_k[0].any() or not torch.isneginf(lse_k[0]).all():
+            raise AssertionError("paged_decode_int8: empty slot is not (0, -inf)")
+        isz = q.element_size()
+        tokens = sum(DECODE_LENGTHS)
+        pages = sum(-(-n // ps) for n in DECODE_LENGTHS)
+        nbytes = (
+            2 * q.numel() * isz + lse_k.numel() * 4
+            + tokens * hk * d * 2 + pages * hk * 2 * 4 + pages * 4 + S * 4
+        )
+        b_ms, b_by = bound(4.0 * hq * d * tokens, nbytes, "float32", peaks)
+        res = dict(
+            case=f"int8_pages_q{dname}", q_dtype=dname, lengths=DECODE_LENGTHS,
+            q=list(q.shape), pages=list(cache.k_pages.shape), **err,
+            ms=time_ms(kernel), plain_ms=time_ms(plain, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            atol=ATOL[dname], rnorm=RNORM[dname], append_s=append_s,
+        )
+        res["gb_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+        results[dname] = res
+        emit({"phase": "paged_decode_int8", **res})
+
+    # waves against the loop: 512 rows from position 37 (mid-page) over
+    # the pages of the slot of length 1000, whose scales are all in use
+    pages, scales = cache.k_pages.clone(), cache.k_scales.clone()
+    table = cache.page_table[5].long()
+    pos = 37 + torch.arange(512, device="cuda")
+    page_idx, row = table[pos // ps], pos % ps
+    x = 1.5 * torch.randn((512, hk, d), generator=gen, device="cuda")
+    loop_pages, loop_scales = pages.clone(), scales.clone()
+    t0 = time.perf_counter()
+    paged_kv._quantize_append(loop_pages, loop_scales, page_idx, row, x)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paged_kv._quantize_append_waves(pages, scales, page_idx, row, x, 37)
+    torch.cuda.synchronize()
+    waves_s = time.perf_counter() - t0
+    if not (torch.equal(pages, loop_pages) and torch.equal(scales, loop_scales)):
+        raise AssertionError("int8 append: waves differ from the row-by-row loop")
+    if torch.equal(scales, cache.k_scales):
+        raise AssertionError("int8 append: no scale was raised (case too weak)")
+    emit({
+        "phase": "int8_append", "rows": 512, "start": 37,
+        "waves": len(paged_kv.append_waves(37, 512, ps)), "bit_identical": True,
+        "loop_s": loop_s, "waves_s": waves_s,
+    })
+    return results
+
+
 def edge_phase() -> None:
     """Kernel paths the main shapes do not reach, checked (not timed):
     head_dim 64, a ragged last q and k tile, softcap, g = 1 and g = 8, a k
@@ -1083,7 +1288,30 @@ SERVE_REQUESTS = [
 ]
 
 
-def serve_phase() -> dict:
+def rows_err(what: str, reqs, want: dict, atol: float = SERVE_ATOL,
+             rnorm: float = SERVE_RNORM) -> tuple[float, float]:
+    """Worst max-abs and rel-norm error of every request's generated rows
+    against ``want[req_id]``; raises beyond (atol, rnorm) or on a row that
+    is not finite or a request that is short of rows."""
+    worst_abs = worst_rn = 0.0
+    for r in reqs:
+        if len(r.generated) != len(want[r.req_id]):
+            raise AssertionError(f"{what}: request {r.req_id} row count differs")
+        a = np.stack(r.generated).astype(np.float64)
+        b = np.stack(want[r.req_id]).astype(np.float64)
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{what}: non-finite generated rows")
+        worst_abs = max(worst_abs, float(np.abs(a - b).max()))
+        worst_rn = max(worst_rn, float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    if worst_abs > atol or worst_rn > rnorm:
+        raise AssertionError(
+            f"{what}: max abs {worst_abs:.3e}, rel-norm {worst_rn:.3e} "
+            f"beyond {atol}, {rnorm}"
+        )
+    return worst_abs, worst_rn
+
+
+def serve_phase() -> tuple[dict, dict]:
     import torch
 
     from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1128,23 +1356,8 @@ def serve_phase() -> dict:
     if counts["sdpa_attn"] or counts["paged_decode_plain"]:
         raise AssertionError(f"serve: a plain version ran on the card: {counts}")
 
-    def row_errs(rows_a, rows_b):
-        a = np.stack(rows_a).astype(np.float64)
-        b = np.stack(rows_b).astype(np.float64)
-        if not np.isfinite(a).all():
-            raise AssertionError("serve: non-finite generated rows")
-        return float(np.abs(a - b).max()), float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
     reference = run_reference(model, reqs, config)
-    worst_abs = worst_rn = 0.0
-    for r in reqs:
-        ea, en = row_errs(r.generated, reference[r.req_id])
-        worst_abs, worst_rn = max(worst_abs, ea), max(worst_rn, en)
-    if worst_abs > SERVE_ATOL or worst_rn > SERVE_RNORM:
-        raise AssertionError(
-            f"serve: engine vs replay oracle max abs {worst_abs:.3e}, "
-            f"rel-norm {worst_rn:.3e} beyond {SERVE_ATOL}, {SERVE_RNORM}"
-        )
+    worst_abs, worst_rn = rows_err("serve: engine vs replay oracle", reqs, reference)
 
     # the first two requests through the port's own engine on the CPU
     cpu_model = ToyModel.from_numpy(
@@ -1157,15 +1370,10 @@ def serve_phase() -> dict:
     )
     cpu_reqs = requests(cpu_model)[:2]
     ServeEngine(cpu_model, cpu_config).run(cpu_reqs)
-    cpu_abs = cpu_rn = 0.0
-    for r_gpu, r_cpu in zip(reqs[:2], cpu_reqs):
-        ea, en = row_errs(r_gpu.generated, r_cpu.generated)
-        cpu_abs, cpu_rn = max(cpu_abs, ea), max(cpu_rn, en)
-    if cpu_abs > SERVE_ATOL or cpu_rn > SERVE_RNORM:
-        raise AssertionError(
-            f"serve: card vs CPU engine max abs {cpu_abs:.3e}, "
-            f"rel-norm {cpu_rn:.3e} beyond {SERVE_ATOL}, {SERVE_RNORM}"
-        )
+    cpu_abs, cpu_rn = rows_err(
+        "serve: card vs CPU engine", reqs[:2],
+        {r.req_id: r.generated for r in cpu_reqs},
+    )
 
     prompt_tokens = sum(r.prompt_len for r in reqs)
     gen_tokens = sum(len(r.generated) for r in reqs)
@@ -1184,7 +1392,12 @@ def serve_phase() -> dict:
     )
     emit({"phase": "serve", **res})
     emit({"phase": "serve_profile", **serve_profile(model, config, requests)})
-    return res
+    ctx = dict(
+        model=model, config=config, requests=requests, reference=reference,
+        rows={r.req_id: r.generated for r in reqs}, cpu_model=cpu_model,
+        cpu_config=cpu_config, cpu_rows={r.req_id: r.generated for r in cpu_reqs},
+    )
+    return res, ctx
 
 
 def profile_run(fn) -> dict:
@@ -1227,6 +1440,163 @@ def serve_profile(model, config, make_requests) -> dict:
     engine = ServeEngine(model, config)
     res = profile_run(lambda: engine.run(reqs))
     return dict(res, ticks=engine.step_count)
+
+
+def serve_run(engine, reqs) -> tuple[list[dict], float, dict]:
+    """Drain ``reqs`` through ``engine`` with the launch counters zeroed
+    just before: every tick's stats, the wall seconds and the counts."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = []
+    while engine.scheduler.has_work():
+        stats.append(engine.step())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if len(engine.finished) != len(reqs) or any(
+        len(r.generated) != r.max_new_tokens for r in reqs
+    ):
+        raise AssertionError(f"{len(engine.finished)}/{len(reqs)} requests completed")
+    return stats, wall, counts
+
+
+def check_launches(what: str, counts: dict, kernels: tuple[str, ...]) -> None:
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES
+
+    if any(counts[k] == 0 for k in kernels):
+        raise AssertionError(f"{what}: a kernel of the path was never launched: {counts}")
+    if any(counts[k] for k in PLAIN_NAMES):
+        raise AssertionError(f"{what}: a plain version ran on the card: {counts}")
+
+
+def serve_spec_phase(ctx: dict) -> dict:
+    """The serve phase's model, config and requests with spec_tokens = 4
+    and the greedy self-draft: every committed row within SERVE_ATOL /
+    SERVE_RNORM of the replay oracle, real rollbacks, B11 launched and no
+    plain version; then the accept rate of the oracle draft (reported)."""
+    from magiattention_tpu_torch.serving import ServeEngine, oracle_draft_fn
+
+    model, reqs = ctx["model"], ctx["requests"](ctx["model"])
+    config = dataclasses.replace(ctx["config"], spec_tokens=4)
+    stats, wall, counts = serve_run(ServeEngine(model, config), reqs)
+    check_launches("serve_spec", counts, ("ffa_fwd", "paged_decode_spec"))
+    worst_abs, worst_rn = rows_err("serve_spec: engine vs replay oracle", reqs, ctx["reference"])
+    attempted = sum(s["draft_attempted"] for s in stats)
+    accepted = sum(s["draft_accepted"] for s in stats)
+    if not accepted < attempted:
+        raise AssertionError("serve_spec: every draft accepted, rollback not exercised")
+    oracle_reqs = ctx["requests"](model)
+    o_stats, o_wall, _ = serve_run(
+        ServeEngine(model, config, draft_fn=oracle_draft_fn(ctx["reference"])), oracle_reqs,
+    )
+    rows_err("serve_spec: oracle-draft engine vs replay oracle", oracle_reqs, ctx["reference"])
+    o_att = sum(s["draft_attempted"] for s in o_stats)
+    o_acc = sum(s["draft_accepted"] for s in o_stats)
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    gen_tokens = sum(len(r.generated) for r in reqs)
+    res = dict(
+        spec_tokens=4, requests=len(reqs), ticks=len(stats), wall_s=wall,
+        generated_tokens=gen_tokens, generated_tokens_per_s=gen_tokens / wall,
+        total_tokens_per_s=(prompt_tokens + gen_tokens) / wall,
+        draft_attempted=attempted, draft_accepted=accepted,
+        accept_rate=accepted / attempted,
+        kernel_launches={k: counts[k] for k in ("ffa_fwd", "paged_decode_spec")},
+        oracle_max_abs_err=worst_abs, oracle_rel_norm_err=worst_rn,
+        oracle_draft=dict(
+            ticks=len(o_stats), wall_s=o_wall, draft_attempted=o_att,
+            draft_accepted=o_acc, accept_rate=o_acc / o_att,
+        ),
+        atol=SERVE_ATOL, rnorm=SERVE_RNORM,
+    )
+    emit({"phase": "serve_spec", **res})
+    return res
+
+
+# int8 rows against float32 rows: the quantization error, bounded from a
+# CPU run of the port at these widths (the first two requests: max abs
+# 0.0201, rel-norm 0.0103), with room for longer prompts
+INT8_VS_F32_ATOL, INT8_VS_F32_RNORM = 0.1, 0.05
+
+
+def serve_int8_phase(ctx: dict) -> dict:
+    """The serve phase's model, config and requests on an int8 cache: every
+    row within SERVE_ATOL / SERVE_RNORM of the int8 replay oracle fed the
+    engine's rows, and within the int8 bound of the free-running replay and
+    of the float32 serve rows (nonzero); B12 launched and no plain version;
+    the first two requests int8 against float32 on the CPU (the source of
+    the bound); the page accounting of float32 against int8."""
+    import torch
+
+    from magiattention_tpu_torch.serving import (
+        ServeEngine, generate_reference, kv_page_bytes, run_reference, slot_residency,
+    )
+
+    model, reqs = ctx["model"], ctx["requests"](ctx["model"])
+    config = dataclasses.replace(ctx["config"], kv_dtype="int8")
+    stats, wall, counts = serve_run(ServeEngine(model, config), reqs)
+    check_launches("serve_int8", counts, ("ffa_fwd", "paged_decode_int8"))
+    # the replay fed the engine's own rows: the same codes, so only B12
+    # against B1 differs (float32 tolerance); free-running, a last-bit
+    # difference can move a later code by one (the int8 bound)
+    forced = {
+        r.req_id: generate_reference(model, r, config, forced=r.generated) for r in reqs
+    }
+    worst_abs, worst_rn = rows_err("serve_int8: engine vs int8 replay oracle", reqs, forced)
+    free_abs, free_rn = rows_err(
+        "serve_int8: engine vs free-running int8 replay", reqs,
+        run_reference(model, reqs, config),
+        atol=INT8_VS_F32_ATOL, rnorm=INT8_VS_F32_RNORM,
+    )
+    f32_abs, f32_rn = rows_err(
+        "serve_int8: int8 vs float32 serve rows", reqs, ctx["rows"],
+        atol=INT8_VS_F32_ATOL, rnorm=INT8_VS_F32_RNORM,
+    )
+    if f32_abs == 0.0:
+        raise AssertionError("serve_int8: rows equal the float32 rows: not quantizing?")
+    cpu_model = ctx["cpu_model"]
+    cpu_reqs = ctx["requests"](cpu_model)[:2]
+    ServeEngine(cpu_model, dataclasses.replace(ctx["cpu_config"], kv_dtype="int8")).run(cpu_reqs)
+    cpu_f32 = rows_err(
+        "serve_int8: CPU int8 vs CPU float32 rows", cpu_reqs, ctx["cpu_rows"],
+        atol=INT8_VS_F32_ATOL, rnorm=INT8_VS_F32_RNORM,
+    )
+    geometry = dict(page_size=config.page_size, n_kv_heads=model.n_kv_heads,
+                    head_dim=model.head_dim)
+    budget = torch.cuda.get_device_properties(0).total_memory
+    accounting = {
+        dt: dict(
+            page_bytes=kv_page_bytes(kv_dtype=dt, **geometry),
+            slots_in_device_memory=slot_residency(
+                budget, kv_page_bytes(kv_dtype=dt, **geometry), config.max_pages_per_seq,
+            ),
+        )
+        for dt in ("float32", "int8")
+    }
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    gen_tokens = sum(len(r.generated) for r in reqs)
+    res = dict(
+        kv_dtype="int8", requests=len(reqs), ticks=len(stats), wall_s=wall,
+        generated_tokens=gen_tokens, generated_tokens_per_s=gen_tokens / wall,
+        total_tokens_per_s=(prompt_tokens + gen_tokens) / wall,
+        kernel_launches={k: counts[k] for k in ("ffa_fwd", "paged_decode_int8")},
+        oracle_max_abs_err=worst_abs, oracle_rel_norm_err=worst_rn,
+        free_oracle_max_abs_err=free_abs, free_oracle_rel_norm_err=free_rn,
+        vs_f32_max_abs_err=f32_abs, vs_f32_rel_norm_err=f32_rn,
+        cpu_int8_vs_f32=dict(max_abs_err=cpu_f32[0], rel_norm_err=cpu_f32[1]),
+        vs_f32_atol=INT8_VS_F32_ATOL, vs_f32_rnorm=INT8_VS_F32_RNORM,
+        atol=SERVE_ATOL, rnorm=SERVE_RNORM,
+        device_memory_bytes=budget, pages_per_slot=config.max_pages_per_seq,
+        accounting=accounting,
+    )
+    emit({"phase": "serve_int8", **res})
+    return res
 
 
 # the train phase's attention: Llama-3.1-8B heads, two causal documents
@@ -1667,8 +2037,13 @@ def main() -> int:
     max_logits_phase()
     bwd_mode_phase(bwd, fused, dq_gqa)
     dec = decode_phase(peaks)
+    spec = decode_spec_phase(peaks)
+    int8 = decode_int8_phase(peaks)
     edge_phase()
-    serve = serve_phase()
+    serve, serve_ctx = serve_phase()
+    serve_spec = serve_spec_phase(serve_ctx)
+    serve_int8 = serve_int8_phase(serve_ctx)
+    del serve_ctx
     cp_api_phase()
     cp_stages_phase()
     train = train_phase()
@@ -1694,13 +2069,19 @@ def main() -> int:
             train["split_launches"]["ffa_bwd_dq"], t["ffa_bwd_dq"],
         ),
         kernel_entry(
-            "ffa_bwd_dkv", "ffa_bwd_dkv.cu",
-            "magiattention_tpu/kernels/ffa.py:1208 and :1451",
+            "ffa_bwd_dkv", "ffa_bwd_dkv.cu", "magiattention_tpu/kernels/ffa.py:1208",
+            train["split_launches"]["ffa_bwd_dkv"], t["ffa_bwd_dkv"],
+        ),
+        kernel_entry(  # the same CUDA kernel loops the query group (B6)
+            "ffa_bwd_dkv (gqa)", "ffa_bwd_dkv.cu", "magiattention_tpu/kernels/ffa.py:1451",
             train["split_launches"]["ffa_bwd_dkv"], t["ffa_bwd_dkv"],
         ),
         kernel_entry(
-            "ffa_bwd_fused", "ffa_bwd_fused.cu",
-            "magiattention_tpu/kernels/ffa.py:1780 and :2082",
+            "ffa_bwd_fused", "ffa_bwd_fused.cu", "magiattention_tpu/kernels/ffa.py:1780",
+            train["launches"]["ffa_bwd_fused"], fused["d_train_docs_8192_bf16"],
+        ),
+        kernel_entry(  # the same CUDA kernel loops the query group (B9)
+            "ffa_bwd_fused (gqa)", "ffa_bwd_fused.cu", "magiattention_tpu/kernels/ffa.py:2082",
             train["launches"]["ffa_bwd_fused"], fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(
@@ -1710,6 +2091,16 @@ def main() -> int:
         kernel_entry(
             "ffa_bwd_dq_gqa", "ffa_bwd_dq_gqa.cu", "magiattention_tpu/kernels/ffa.py:944",
             train["packed_launches"]["ffa_bwd_dq_gqa"], dq_gqa["a_docs_bf16_d128_g4"],
+        ),
+        kernel_entry(  # serve_spec's shape: float32, 4 draft rows x g 4
+            "paged_decode_spec", "paged_decode_spec.cu",
+            "magiattention_tpu/kernels/paged_decode.py:352",
+            serve_spec["kernel_launches"]["paged_decode_spec"], spec["spec4_hk8_float32"],
+        ),
+        kernel_entry(  # serve_int8's shape: float32 q over int8 pages
+            "paged_decode_int8", "paged_decode_int8.cu",
+            "magiattention_tpu/kernels/paged_decode.py:568",
+            serve_int8["kernel_launches"]["paged_decode_int8"], int8["float32"],
         ),
     ]})
     print(smi, flush=True)

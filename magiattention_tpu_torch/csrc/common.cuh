@@ -77,6 +77,21 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// int8 codes (quantized KV pages): mul is the code's dequantization scale.
+template <>
+struct Vec<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void to_f32(const uint4& raw, float* dst,
+                                                float mul) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; i += 4)
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4((float)b[i] * mul, (float)b[i + 1] * mul,
+                      (float)b[i + 2] * mul, (float)b[i + 3] * mul);
+  }
+};
+
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -133,9 +148,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory, once.
+// Opt a kernel into more than 48 KB of dynamic shared memory, once. Static:
+// kernels of one signature in two libraries must each reach their own
+// library's CUDA runtime.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
+static inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
   if (*done) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

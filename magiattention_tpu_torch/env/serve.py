@@ -29,8 +29,8 @@ def serve_prefill_chunk() -> int:
 
 
 def serve_kv_dtype() -> str:
-    """KV-cache storage dtype: 'float32' (the port serves only this) or
-    'int8' (raises NotImplementedError in the port's engine)."""
+    """KV-cache storage dtype: 'float32' or 'int8' (int8 codes with
+    per-(page, kv head) float32 scales)."""
     return _get_str("MAGI_ATTENTION_SERVE_KV_DTYPE", "float32").lower()
 
 

@@ -19,8 +19,14 @@ from .ffa import (  # noqa: F401
 )
 from .paged_decode import (  # noqa: F401
     paged_decode_attn,
+    paged_decode_attn_int8,
+    paged_decode_attn_spec,
+    paged_decode_int8_kernel,
+    paged_decode_int8_plain,
     paged_decode_kernel,
     paged_decode_plain,
+    paged_decode_spec_kernel,
+    paged_decode_spec_plain,
 )
 from .paged_kv import (  # noqa: F401
     PagedKVCache,
@@ -42,6 +48,8 @@ _KERNELS = {
     "ffa_bwd_fused": ffa_bwd_fused_kernel,
     "ffa_fwd_gqa": ffa_fwd_gqa_kernel,
     "ffa_bwd_dq_gqa": ffa_bwd_dq_gqa_kernel,
+    "paged_decode_spec": paged_decode_spec_kernel,
+    "paged_decode_int8": paged_decode_int8_kernel,
 }
 _PLAINS = {
     "sdpa_attn": sdpa_attn,
@@ -50,6 +58,8 @@ _PLAINS = {
     "ffa_bwd_dq_plain": ffa_bwd_dq_plain,
     "ffa_bwd_dkv_plain": ffa_bwd_dkv_plain,
     "ffa_bwd_fused_plain": ffa_bwd_fused_plain,
+    "paged_decode_spec_plain": paged_decode_spec_plain,
+    "paged_decode_int8_plain": paged_decode_int8_plain,
 }
 
 PLAIN_NAMES = tuple(_PLAINS)
@@ -94,8 +104,14 @@ __all__ = [
     "launch_counts",
     "paged_attn",
     "paged_decode_attn",
+    "paged_decode_attn_int8",
+    "paged_decode_attn_spec",
+    "paged_decode_int8_kernel",
+    "paged_decode_int8_plain",
     "paged_decode_kernel",
     "paged_decode_plain",
+    "paged_decode_spec_kernel",
+    "paged_decode_spec_plain",
     "reset_launch_counts",
     "sdpa_attn",
     "sdpa_online_attn",

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "ffa_fwd", "paged_decode", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv",
-    "ffa_bwd_fused", "ffa_fwd_gqa", "ffa_bwd_dq_gqa",
+    "ffa_bwd_fused", "ffa_fwd_gqa", "ffa_bwd_dq_gqa", "paged_decode_spec",
+    "paged_decode_int8",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,4 +1,4 @@
-"""Paged KV cache + paged attention over it (float pages).
+"""Paged KV cache + paged attention over it (float or int8 pages).
 
 The port's counterpart of ``magiattention_tpu/kernels/paged_kv.py``. K/V
 live in fixed-size pages indexed by a per-sequence page table. The TPU
@@ -6,6 +6,10 @@ package updates its cache functionally (``.at[].set``) and returns a new
 pytree; the port updates :class:`PagedKVCache` IN PLACE (``index_put_`` and
 slice assignment, no copy of the pages) and returns the same object, so
 call sites read the same (``cache = append_kv(cache, ...)``).
+
+An int8 cache stores symmetric codes with one float32 scale per (page, kv
+head); :func:`append_kv` quantizes on the way in, :func:`gather_kv`
+dequantizes on the way out, so prefill and the oracle see float32.
 
 Prefill attention gathers a sequence's pages into contiguous ``[sk, hk, d]``
 rows and runs :func:`~.ffa.ffa_attn` with a one-slice plan whose k range
@@ -33,16 +37,25 @@ class PagedKVCache:
         page_table: ``(max_seqs, max_pages_per_seq)`` int32 page ids
             (-1 = unallocated).
         lengths: ``(max_seqs,)`` int32 tokens currently stored per sequence.
+        k_scales / v_scales: ``(num_pages, hk)`` float32 per-(page, kv
+            head) scales of an int8 cache (value = code * scale); None on
+            a float cache.
     """
 
     k_pages: torch.Tensor
     v_pages: torch.Tensor
     page_table: torch.Tensor
     lengths: torch.Tensor
+    k_scales: torch.Tensor | None = None
+    v_scales: torch.Tensor | None = None
 
     @property
     def page_size(self) -> int:
         return self.k_pages.shape[1]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
 
     @property
     def device(self) -> torch.device:
@@ -61,14 +74,18 @@ class PagedKVCache:
         device: torch.device | str | None = None,
     ) -> "PagedKVCache":
         """Zeroed pages and an all -1 table, on the card unless ``device``
-        says otherwise (int8 pages are not ported: ROADMAP kernel B12)."""
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise NotImplementedError(
-                f"PagedKVCache dtype {dtype}: the port serves float pages "
-                "only; int8 pages wait for kernel B12 (ROADMAP)"
+        says otherwise. ``dtype=torch.int8`` adds zeroed scales."""
+        if dtype not in (torch.float32, torch.bfloat16, torch.int8):
+            raise ValueError(
+                f"PagedKVCache dtype {dtype}: float32, bfloat16 or int8"
             )
         device = resolve_device(device)
         shape = (num_pages, page_size, n_kv_heads, head_dim)
+        scales = None
+        if dtype == torch.int8:
+            scales = torch.zeros(
+                (num_pages, n_kv_heads), dtype=torch.float32, device=device
+            )
         return cls(
             k_pages=torch.zeros(shape, dtype=dtype, device=device),
             v_pages=torch.zeros(shape, dtype=dtype, device=device),
@@ -77,6 +94,8 @@ class PagedKVCache:
                 device=device,
             ),
             lengths=torch.zeros((max_seqs,), dtype=torch.int32, device=device),
+            k_scales=scales,
+            v_scales=None if scales is None else torch.zeros_like(scales),
         )
 
 
@@ -91,9 +110,63 @@ def assign_pages(
 
 def rollback_kv(cache: PagedKVCache, seq_id: int, new_length: int) -> PagedKVCache:
     """Discard a sequence's rows past ``new_length`` (in place; the rows
-    stay as garbage in their pages, dead under the length mask)."""
+    stay as garbage in their pages, dead under the length mask; an int8
+    page keeps its scale, which the rescale-on-append algebra handles)."""
     cache.lengths[seq_id] = new_length
     return cache
+
+
+def _quantize_rows(pages, scales, page_idx, row, x):
+    """Quantize ``x`` ``(n, hk, d)`` into row ``row[i]`` of page
+    ``page_idx[i]`` (distinct pages), in place: a row may raise its page's
+    scale per head to ``max(old, max|x| / 127)``; the page's codes are then
+    rescaled by ``round(code * old / new)`` before the row is quantized
+    (half-to-even rounding, clipped to +-127). Each op is elementwise or a
+    per-(page, head) max, so a page's result does not depend on which other
+    pages share the call."""
+    x = x.float()
+    # a tensor divisor: CUDA turns division by a Python scalar into a
+    # multiply by its reciprocal, which may round differently
+    cand = x.abs().amax(dim=-1) / x.new_full((), 127.0)  # (n, hk)
+    old = scales[page_idx]
+    new = torch.maximum(old, cand)
+    safe = torch.where(new > 0.0, new, 1.0)
+    ratio = old / safe  # 0 where the page was fresh
+    page = torch.round(pages[page_idx].float() * ratio[:, None, :, None])
+    page = page.clamp(-127, 127)
+    row_q = torch.round(x / safe[:, :, None]).clamp(-127, 127)
+    page[torch.arange(len(row), device=row.device), row] = row_q
+    pages[page_idx] = page.to(torch.int8)
+    scales[page_idx] = new
+
+
+def _quantize_append(pages, scales, page_idx, row, x_new):
+    """The plain version: one appended row at a time, in order, as the JAX
+    package's ``_quantize_append`` does."""
+    for i in range(x_new.shape[0]):
+        _quantize_rows(
+            pages, scales, page_idx[i : i + 1], row[i : i + 1], x_new[i : i + 1]
+        )
+
+
+def append_waves(start: int, t: int, ps: int) -> list[list[int]]:
+    """The rows of an append of ``t`` rows at position ``start``, grouped
+    in waves: wave w holds the w-th appended row of every page the append
+    touches, so a wave's pages are distinct and each page sees its rows in
+    order. At most ``min(t, ps)`` waves."""
+    pos = start + np.arange(t)
+    first = np.maximum(pos // ps * ps, start)  # first appended row of its page
+    wave = pos - first
+    return [np.flatnonzero(wave == w).tolist() for w in range(int(wave.max()) + 1)]
+
+
+def _quantize_append_waves(pages, scales, page_idx, row, x_new, start):
+    """:func:`_quantize_append` in waves (:func:`append_waves`): the same
+    operations on every (page, head) in the same order, so the same bits,
+    in at most ``page_size`` batched steps instead of one per row."""
+    for rows in append_waves(start, x_new.shape[0], pages.shape[1]):
+        sel = torch.tensor(rows, device=x_new.device)
+        _quantize_rows(pages, scales, page_idx[sel], row[sel], x_new[sel])
 
 
 def append_kv(
@@ -101,8 +174,10 @@ def append_kv(
 ) -> PagedKVCache:
     """Append ``(t, hk, d)`` rows to a sequence whose pages are assigned.
 
-    Positions are ``lengths[seq_id] .. +t``, computed on the device (no
-    host sync). In place."""
+    Positions are ``lengths[seq_id] .. +t``, computed on the device. An
+    int8 cache quantizes the rows on the way in: row by row on the CPU, in
+    waves on the card (which reads the start position on the host). In
+    place."""
     t = k_new.shape[0]
     ps = cache.page_size
     pos = cache.lengths[seq_id] + torch.arange(
@@ -110,8 +185,19 @@ def append_kv(
     )
     page_idx = cache.page_table[seq_id, (pos // ps).long()].long()
     row = (pos % ps).long()
-    cache.k_pages.index_put_((page_idx, row), k_new.to(cache.k_pages.dtype))
-    cache.v_pages.index_put_((page_idx, row), v_new.to(cache.v_pages.dtype))
+    if cache.quantized:
+        start = int(cache.lengths[seq_id]) if cache.k_pages.is_cuda else None
+        for pages, scales, x in (
+            (cache.k_pages, cache.k_scales, k_new),
+            (cache.v_pages, cache.v_scales, v_new),
+        ):
+            if start is None:
+                _quantize_append(pages, scales, page_idx, row, x)
+            else:
+                _quantize_append_waves(pages, scales, page_idx, row, x, start)
+    else:
+        cache.k_pages.index_put_((page_idx, row), k_new.to(cache.k_pages.dtype))
+        cache.v_pages.index_put_((page_idx, row), v_new.to(cache.v_pages.dtype))
     cache.lengths[seq_id] += t
     return cache
 
@@ -122,13 +208,18 @@ def gather_kv(
     """A sequence's pages as contiguous ``(cap, hk, d)`` K/V (cap =
     max_pages * page_size). -1 entries clamp to page 0; rows beyond
     ``lengths[seq_id]`` are whatever the pages hold and must be masked by
-    the caller."""
+    the caller. An int8 cache is dequantized to float32 (code * scale)."""
     table = cache.page_table[seq_id]
     if max_pages is not None:
         table = table[:max_pages]
     safe = table.clamp_min(0).long()
     k = cache.k_pages.index_select(0, safe)  # (P, ps, hk, d)
     v = cache.v_pages.index_select(0, safe)
+    if cache.quantized:
+        ks = cache.k_scales.index_select(0, safe)  # (P, hk)
+        vs = cache.v_scales.index_select(0, safe)
+        k = k.float() * ks[:, None, :, None]
+        v = v.float() * vs[:, None, :, None]
     return k.flatten(0, 1), v.flatten(0, 1)
 
 

@@ -3,9 +3,10 @@
 The port's counterpart of ``magiattention_tpu/serving/cache.py``. The device
 cache is :class:`~..kernels.paged_kv.PagedKVCache`; this module owns the
 HOST bookkeeping around it: which pages are free, how many a request needs,
-and resetting a slot's table row when a request finishes or is evicted.
-Allocation order is deterministic (FIFO free list), which is what makes slot
-reuse and eviction replayable in tests.
+resetting a slot's table row when a request finishes or is evicted, and
+the quantization scales of released int8 pages. Allocation order is
+deterministic (FIFO free list), which is what makes slot reuse and eviction
+replayable in tests.
 
 The pool may be partitioned into ``num_shards`` contiguous ranges with
 independent FIFO free lists, and the scheduler routes each slot to the
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 from collections import deque
 
+import torch
+
 from ..kernels.paged_kv import PagedKVCache
 from ..resilience.errors import PageExhaustedError
 
@@ -24,6 +27,34 @@ def pages_needed(tokens: int, page_size: int) -> int:
     """Pages covering ``tokens`` rows (at least one: a slot's first token
     always needs a page)."""
     return max(1, -(-tokens // page_size))
+
+
+def kv_page_bytes(
+    page_size: int,
+    n_kv_heads: int,
+    head_dim: int,
+    head_dim_v: int | None = None,
+    kv_dtype: str = "float32",
+) -> int:
+    """Device bytes one KV page costs under ``kv_dtype``, including the
+    per-(page, head) float32 scales a quantized cache carries: int8 pages
+    cost about 1/2 of bf16 and 1/4 of float32."""
+    dv = head_dim if head_dim_v is None else head_dim_v
+    itemsize = {"int8": 1, "bfloat16": 2, "float16": 2, "float32": 4}[
+        str(kv_dtype)
+    ]
+    nbytes = page_size * n_kv_heads * (head_dim + dv) * itemsize
+    if kv_dtype == "int8":
+        nbytes += 2 * n_kv_heads * 4  # k_scales + v_scales rows
+    return nbytes
+
+
+def slot_residency(
+    budget_bytes: int, page_bytes: int, pages_per_slot: int
+) -> int:
+    """How many full slots (``pages_per_slot`` pages each) fit in a device
+    memory budget."""
+    return budget_bytes // (page_bytes * pages_per_slot)
 
 
 class PagePool:
@@ -81,6 +112,21 @@ class PagePool:
     def release(self, page_ids: list[int]) -> None:
         for pid in page_ids:
             self._free[self.shard_of(pid)].append(pid)
+
+
+def reset_page_scales(
+    cache: PagedKVCache, page_ids: list[int]
+) -> PagedKVCache:
+    """Zero the quantization scales of released pages (in place), so a
+    reused page quantizes exactly like a fresh one: scales only grow within
+    a page's lifetime, and a predecessor's larger scale would otherwise
+    leak into the successor's codes. No-op on float caches."""
+    if not cache.quantized or not page_ids:
+        return cache
+    idx = torch.as_tensor(page_ids, dtype=torch.long, device=cache.device)
+    cache.k_scales[idx] = 0.0
+    cache.v_scales[idx] = 0.0
+    return cache
 
 
 def release_slot(cache: PagedKVCache, slot: int) -> PagedKVCache:

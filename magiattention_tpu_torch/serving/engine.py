@@ -7,33 +7,42 @@ static ``(max_slots, hq, d)`` block — empty slots carry zero queries and
 length 0), then retire completed requests. A long prompt never stalls other
 requests for more than a tick.
 
-The engine runs where its model's weights are: on a card, prefill goes
-through the FFA forward kernel and decode through the paged-decode kernel;
-on the CPU, through their plain versions.
+- ``spec_tokens`` k > 1 switches the decode phase to speculative verify:
+  each tick drafts k-1 extra inputs (``draft_fn``, default the model's
+  greedy self-draft), appends all k rows, verifies them in ONE call,
+  commits the longest accepted prefix, and rolls the rejected rows back
+  (lengths and pages; released pages get their int8 scales reset). Draft
+  input 0 is always the true ``pending_x``, so at least one token commits
+  per tick.
+- ``kv_dtype='int8'`` stores the KV pages as int8 codes with per-(page, kv
+  head) float32 scales; decode reads them through the int8 kernel, and
+  verify on an int8 cache through the dequantized gather + FFA.
 
-Not ported yet (they raise ``NotImplementedError`` naming the ROADMAP
-item): ``spec_tokens > 1`` (speculative verify, kernel B11),
-``kv_dtype='int8'`` (int8 pages, kernel B12) and ``decode_shards > 1`` (the
-head-sharded decode). Telemetry is left out; ``step()`` still returns the
-tick's stats dict.
+The engine runs where its model's weights are: on a card, through the
+hand-written kernels (FFA forward for prefill, the paged-decode, spec or
+int8 kernel for decode); on the CPU, through their plain versions.
+``decode_shards > 1`` (the head-sharded decode) is not ported and raises
+``NotImplementedError``. Telemetry is left out; ``step()`` still returns
+the tick's stats dict.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from ..env import serve as env_serve
-from ..kernels.paged_kv import PagedKVCache, append_kv
+from ..kernels.paged_kv import PagedKVCache, append_kv, rollback_kv
 from .cache import PagePool
-from .decode import decode_attn_step
+from .decode import decode_attn_step, verify_attn_step
 from .model import ToyModel
 from .prefill import prefill_request
 from .scheduler import Scheduler, ServeRequest
 
-__all__ = ["ServeConfig", "ServeEngine", "ServeRequest"]
+__all__ = ["DraftFn", "ServeConfig", "ServeEngine", "ServeRequest"]
 
 
 @dataclass(frozen=True)
@@ -69,6 +78,16 @@ class ServeConfig:
         )
 
 
+# draft_fn(model, request, current_input, draft_index) -> next draft input
+DraftFn = Callable[[ToyModel, ServeRequest, torch.Tensor, int], torch.Tensor]
+
+
+def _greedy_draft(
+    model: ToyModel, req: ServeRequest, x: torch.Tensor, j: int
+) -> torch.Tensor:
+    return model.draft_next(x)
+
+
 def _check_supported(config: ServeConfig) -> None:
     if config.kv_dtype not in ("float32", "int8"):
         raise ValueError(
@@ -76,16 +95,6 @@ def _check_supported(config: ServeConfig) -> None:
         )
     if config.spec_tokens < 1:
         raise ValueError(f"spec_tokens={config.spec_tokens} must be >= 1")
-    if config.spec_tokens > 1:
-        raise NotImplementedError(
-            "spec_tokens > 1 needs the speculative-verify decode kernel "
-            "(ROADMAP queue B item 11), not ported yet"
-        )
-    if config.kv_dtype == "int8":
-        raise NotImplementedError(
-            "kv_dtype='int8' needs the int8 paged-decode kernel "
-            "(ROADMAP queue B item 12), not ported yet"
-        )
     if config.decode_shards > 1:
         raise NotImplementedError(
             "decode_shards > 1 needs the head-sharded decode rung "
@@ -97,10 +106,16 @@ class ServeEngine:
     """Drives a :class:`ToyModel`-shaped model over a shared paged cache,
     on the model's device."""
 
-    def __init__(self, model: ToyModel, config: ServeConfig) -> None:
+    def __init__(
+        self,
+        model: ToyModel,
+        config: ServeConfig,
+        draft_fn: DraftFn | None = None,
+    ) -> None:
         _check_supported(config)
         self.model = model
         self.config = config
+        self.draft_fn = draft_fn or _greedy_draft
         self.cache = PagedKVCache.create(
             num_pages=config.num_pages,
             page_size=config.page_size,
@@ -108,7 +123,7 @@ class ServeEngine:
             head_dim=model.head_dim,
             max_seqs=config.max_slots,
             max_pages_per_seq=config.max_pages_per_seq,
-            dtype=torch.float32,
+            dtype=torch.int8 if config.kv_dtype == "int8" else torch.float32,
             device=model.device,
         )
         self.scheduler = Scheduler(
@@ -131,14 +146,16 @@ class ServeEngine:
     # -- one tick ---------------------------------------------------------
     @torch.no_grad()
     def step(self) -> dict:
-        """Admit, prefill, decode one token per active slot, retire.
-        Returns the tick's stats dict."""
+        """Admit, prefill, decode (one token or a spec_tokens draft window)
+        per active slot, retire. Returns the tick's stats dict."""
         t0 = time.perf_counter()
         cfg = self.config
         sched = self.scheduler
         model = self.model
+        spec_k = cfg.spec_tokens
         admitted = evicted = completed = 0
         prefill_tokens = decode_tokens = 0
+        draft_attempted = draft_accepted = 0
 
         # 1. admission + prefill
         self.cache, newly = sched.admit(self.cache)
@@ -152,7 +169,7 @@ class ServeEngine:
             prefill_tokens += req.prompt_len
             admitted += 1
 
-        # 2. page growth for this tick's token (may evict — including a
+        # 2. page growth for this tick's tokens (may evict — including a
         # request admitted above, whose prefill is then redone after
         # re-admission)
         for slot in range(cfg.max_slots):
@@ -160,40 +177,78 @@ class ServeEngine:
             if req is None or req.pending_x is None:
                 continue
             self.cache, n_evicted = sched.ensure_capacity(
-                self.cache, req, req.length + 1
+                self.cache, req, req.length + spec_k
             )
             evicted += n_evicted
 
-        # 3. decode: one token per surviving slot, one kernel launch
+        # 3. decode: one token (spec_k == 1) or draft + verify (spec_k > 1)
+        # per surviving slot, one kernel launch
         q_rows: dict[int, torch.Tensor] = {}
+        draft_xs: dict[int, list[torch.Tensor]] = {}
         for slot in range(cfg.max_slots):
             req = sched.slots[slot]
             if req is None or req.pending_x is None:
                 continue
-            q, k, v = model.qkv(req.pending_x[None])
+            xs = [req.pending_x]
+            for j in range(1, spec_k):
+                xs.append(self.draft_fn(model, req, xs[-1], j))
+            q, k, v = model.qkv(torch.stack(xs))  # (spec_k, ...)
             self.cache = append_kv(self.cache, slot, k, v)
-            req.length += 1
-            q_rows[slot] = q[0]
-            decode_tokens += 1
+            req.length += spec_k
+            q_rows[slot] = q
+            draft_xs[slot] = xs
+            draft_attempted += spec_k
 
         if q_rows:
-            zero_row = torch.zeros(
-                (model.n_heads, model.head_dim), device=model.device
+            zero = torch.zeros(
+                (spec_k, model.n_heads, model.head_dim), device=model.device
             )
             q_batch = torch.stack(
-                [q_rows.get(s, zero_row) for s in range(cfg.max_slots)]
+                [q_rows.get(s, zero) for s in range(cfg.max_slots)]
             )
-            out, _ = decode_attn_step(q_batch, self.cache, cfg.softmax_scale)
+            if spec_k == 1:
+                out, _ = decode_attn_step(
+                    q_batch[:, 0], self.cache, cfg.softmax_scale
+                )
+                out = out[:, None]
+            else:
+                host_lengths = tuple(
+                    sched.slots[s].length if s in q_rows else 0
+                    for s in range(cfg.max_slots)
+                )
+                out, _ = verify_attn_step(
+                    q_batch, self.cache, host_lengths, cfg.softmax_scale
+                )
             slots = sorted(q_rows)
-            hidden = model.project(out[slots])  # (n, d_model)
+            # (n, spec_k, d_model): row j is right iff draft inputs 0..j
+            # were (causal rows never see later garbage)
+            hidden = model.project(out[slots].flatten(0, 1)).reshape(
+                len(slots), spec_k, -1
+            )
             hidden_host = hidden.cpu().numpy()
             now = time.perf_counter()
             for i, slot in enumerate(slots):
                 req = sched.slots[slot]
-                req.generated.append(hidden_host[i])
+                xs = draft_xs[slot]
+                # longest accepted prefix: draft 0 is the true pending_x,
+                # so row 0 is always right; row j commits iff its input
+                # equals what row j-1's output implies
+                accept = 1
+                while accept < spec_k and torch.equal(
+                    xs[accept], model.next_input(hidden[i, accept - 1])
+                ):
+                    accept += 1
+                commit = min(accept, req.max_new_tokens - len(req.generated))
+                req.generated.extend(hidden_host[i, :commit])
                 if req.first_token_time is None:
                     req.first_token_time = now
-                req.pending_x = model.next_input(hidden[i])
+                req.pending_x = model.next_input(hidden[i, commit - 1])
+                decode_tokens += commit
+                draft_accepted += commit
+                if commit < spec_k:  # roll back the rejected rows + pages
+                    req.length -= spec_k - commit
+                    self.cache = rollback_kv(self.cache, slot, req.length)
+                    self.cache = sched.shrink_to_length(self.cache, req)
 
         # 4. retirement
         for slot in range(cfg.max_slots):
@@ -216,6 +271,14 @@ class ServeEngine:
             completed=completed,
             prefill_tokens=prefill_tokens,
             decode_tokens=decode_tokens,
+            kv_dtype=cfg.kv_dtype,
+            shards=cfg.decode_shards,
+            spec_k=spec_k,
+            draft_attempted=draft_attempted,
+            draft_accepted=draft_accepted,
+            accept_rate=(
+                draft_accepted / draft_attempted if draft_attempted else 0.0
+            ),
         )
 
     # -- full drain -------------------------------------------------------

@@ -125,6 +125,17 @@ class ToyModel(nn.Module):
         next step's input row (tanh keeps magnitudes bounded)."""
         return torch.tanh(hidden)
 
+    def draft_next(self, x: torch.Tensor) -> torch.Tensor:
+        """Greedy zero-context draft of the next input: the layer run as if
+        ``x`` were the only token (softmax over one position makes the
+        attention output just ``v``), closed with ``next_input``. No cache
+        access; right whenever attention is dominated by the current token,
+        which the speculative engine's accept rate measures."""
+        _, _, v = self.qkv(x[None])  # (1, hk, d)
+        g = self.n_heads // self.n_kv_heads
+        out = v[0].repeat_interleave(g, dim=0)[None]  # (1, hq, d)
+        return self.next_input(self.project(out)[0])
+
     def prompt(self, length: int, seed: int) -> torch.Tensor:
         """A deterministic synthetic prompt ``(length, d_model)``, drawn as
         the JAX model draws it, on the model's device."""

@@ -26,7 +26,7 @@ import torch
 
 from ..kernels.paged_kv import PagedKVCache, assign_pages
 from ..resilience.errors import PageExhaustedError
-from .cache import PagePool, pages_needed, release_slot
+from .cache import PagePool, pages_needed, release_slot, reset_page_scales
 
 
 @dataclass
@@ -178,12 +178,30 @@ class Scheduler:
             raise PageExhaustedError(requested=1, free=free)
         victim = max(victims, key=lambda r: r.admit_seq)
         self.pool.release(victim.page_ids)
+        cache = reset_page_scales(cache, victim.page_ids)
         cache = release_slot(cache, victim.slot)
         self.slots[victim.slot] = None
         victim.reset_runtime()
         victim.evictions += 1
         self.waiting.appendleft(victim)
         return cache
+
+    def shrink_to_length(
+        self, cache: PagedKVCache, req: ServeRequest
+    ) -> PagedKVCache:
+        """Release pages past ``pages_needed(req.length)`` back to the pool
+        (speculative-verify page-level rollback). The table entries beyond
+        the kept prefix go back to -1, and released int8 pages get their
+        scales reset."""
+        need = pages_needed(req.length, self.page_size)
+        extra = req.page_ids[need:]
+        if not extra:
+            return cache
+        req.page_ids = req.page_ids[:need]
+        self.pool.release(extra)
+        cache = reset_page_scales(cache, extra)
+        cache.page_table[req.slot] = -1
+        return assign_pages(cache, req.slot, req.page_ids)
 
     # -- completion -------------------------------------------------------
     def finish(
@@ -192,6 +210,7 @@ class Scheduler:
         """Free a completed request's resources (its outputs stay on the
         request object)."""
         self.pool.release(req.page_ids)
+        cache = reset_page_scales(cache, req.page_ids)
         cache = release_slot(cache, req.slot)
         self.slots[req.slot] = None
         req.page_ids = []

@@ -8,6 +8,8 @@ import subprocess
 import sys
 import textwrap
 
+from tests import torch_port_cases  # noqa: F401  (caps torch's threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -64,6 +66,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.meta.solver.overlap_solver",
         "magiattention_tpu_torch.meta.collection.comm_meta",
         "magiattention_tpu_torch.kernels.tile_policy",
+        "magiattention_tpu_torch.kernels.paged_decode",
+        "magiattention_tpu_torch.kernels.paged_kv",
+        "magiattention_tpu_torch.serving.decode",
+        "magiattention_tpu_torch.serving.reference",
+        "magiattention_tpu_torch.serving.scheduler",
         "chip_smoke",
     ):
         assert module in loaded, module
@@ -99,6 +106,7 @@ def test_entry_points_raise_without_a_gpu():
         for make in (
             lambda: ToyModel.create(),
             lambda: PagedKVCache.create(4, 16, 2, 16, 1, 2),
+            lambda: PagedKVCache.create(4, 16, 2, 16, 1, 2, dtype=torch.int8),
             lambda: init_params(cfg),
             lambda: params_from_numpy(init_params(cfg, device="cpu")),
             lambda: magi_attn_flex_key([[0, 8]], [[0, 8]], [1], 8, 8),

@@ -30,6 +30,7 @@ from magiattention_tpu_torch import api as port_api
 from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
 from magiattention_tpu_torch.models import llama
 from magiattention_tpu_torch.testing import assert_close
+from tests import torch_port_cases  # noqa: F401  (caps torch's threads)
 
 CFG = dict(
     vocab_size=512, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,

@@ -27,6 +27,7 @@ from magiattention_tpu_torch.serving.decode import (
     decode_attn_step,
 )
 from magiattention_tpu_torch.testing import assert_close
+from tests import torch_port_cases  # noqa: F401  (caps torch's threads)
 
 HK, D, PS, NUM_PAGES, P = 2, 16, 8, 16, 4
 LENGTHS = [0, 5, 8, 19]  # empty, ragged, page boundary, three pages

@@ -39,6 +39,7 @@ from magiattention_tpu_torch.serving import (
     run_reference,
 )
 from magiattention_tpu_torch.testing import assert_close
+from tests import torch_port_cases  # noqa: F401  (caps torch's threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-5, rtol=1e-5, norm_rtol=1e-5)
@@ -226,13 +227,24 @@ def test_unservable_request_raises_typed(port_model):
 
 @pytest.mark.parametrize(
     "field,value,item",
-    [("spec_tokens", 2, "item 11"), ("kv_dtype", "int8", "item 12"),
-     ("decode_shards", 2, "sharded")],
+    [("decode_shards", 2, "sharded")],
 )
 def test_unported_options_raise(port_model, field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         ServeEngine(port_model, ServeConfig(**{field: value}))
 
+
+@pytest.mark.parametrize(
+    "field,value,stat", [("spec_tokens", 2, "spec_k"), ("kv_dtype", "int8", "kv_dtype")]
+)
+def test_scale_options_run_on_the_cpu(port_model, field, value, stat):
+    """The speculative and int8 options build an engine on the CPU, and the
+    first tick's stats carry them."""
+    engine = ServeEngine(port_model, ServeConfig(**{field: value}))
+    engine.submit(ServeRequest(0, port_model.prompt(5, seed=7), 2))
+    stats = engine.step()
+    assert stats[stat] == value
+    assert engine.cache.quantized == (field == "kv_dtype")
 
 
 def test_config_from_env_reads_the_jax_variables():

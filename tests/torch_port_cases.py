@@ -2,11 +2,20 @@
 
 Every case is band-slice metadata at a small size (sequences <= 256), given
 to the JAX package and to the port as the same numpy arrays.
+
+Every port test file imports this module, which caps torch's intra-op
+threads at 2 per process: the suite runs several xdist workers on a few
+cores beside the JAX package's timing-sensitive tests, and torch's default
+of one thread per core would oversubscribe them.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+TORCH_THREADS = 2
+torch.set_num_threads(TORCH_THREADS)
 
 BAND_INF = 1 << 30
 
