@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and context-parallel paths on
-one NVIDIA H100.
+"""Drive the PyTorch port's serving, training, context-parallel and NSA
+paths on one NVIDIA H100.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and ``nvcc``; it builds the port's kernels from ``csrc/`` first.
@@ -55,9 +55,17 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    accept rate reported), held against the same replay. ``serve_int8``: the
    same requests on an int8 cache, held against the int8 replay, the CPU
    int8 engine and (within the quantization bound) the float32 rows.
+   ``serve_pinned``: ``serve``, ``serve_spec`` (greedy and oracle drafts)
+   and ``serve_int8`` under MAGI_ATTENTION_BACKEND_SERVE_DECODE=gather_ffa,
+   every row equal to its replay's to the bit, the oracle draft's accept
+   rate, and whether B1's multi-row call equals its single-row calls.
 8. ``cp_api``: ``magi_attn_flex_key -> dispatch -> calc_attn ->
    undispatch`` at cp = 1, forward and backward, at the train phase's
    attention shape, against ``flex_flash_attn_func``, with max-logits.
+   ``deterministic``: two forward + backward runs at that shape through
+   ``calc_attn`` under MAGI_ATTENTION_DETERMINISTIC_MODE=1 and two through
+   ``flex_flash_attn_func(deterministic=True)``, equal to the bit; the
+   drift of two unpinned (fused) runs reported.
 9. ``cp_stages``: the multi-stage compute (``multi_ffa`` over the host and
    remote kv parts, lse merge, per-part backward) of every rank of a
    cp = 4, overlap-degree-2 plan, against the plain dense reference.
@@ -69,9 +77,18 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     flags unpinned; launch counts per step, one step under
     ``torch.profiler``, and a kernel-vs-plain check of loss and gradients
     at 2048 tokens.
-11. ``kernels``: one line per-kernel summary (launches from the serve or
-    train phase, error, kernel / plain / library time and the card's
-    bound).
+11. ``block_sparse``: the NSA selected-branch kernels B13 and B14
+    against their plain versions over chunk tables with duplicate chunks:
+    g 1, 4, 8, head_dim 64 and 128, float32 and bf16, d_stride 16 and 32,
+    and the nsa phase's shape (timed, with the ``ptxas`` report). ``nsa``:
+    ``parallel.nsa_attn`` forward and backward at Llama-3.1-8B attention
+    widths over 8192 tokens in two documents with the NSA paper's sparse
+    settings: the kernel route (B13/B14, B1, B7, the resolved backward;
+    launch counts) against the gathered route on equal selections, in
+    bf16 and at 2048 tokens in float32.
+12. ``kernels``: one line per-kernel summary (launches from the serve,
+    train or nsa phase, error, kernel / plain / library time and the
+    card's bound).
 
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -1982,6 +1999,435 @@ def train_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# NSA: the block-sparse kernels (B13, B14) and nsa_attn over them
+# ---------------------------------------------------------------------------
+
+BSP_L_SLC, BSP_BQ = 64, 16
+# (name, g, head_dim, dtype, d_stride, seq, hk, top_k): g 1, 4, 8; head dims
+# 64, 128; float32, bf16; d_stride 16, 32 at l_slc 64, so the clustered
+# picks of bsp_table overlap and put duplicate chunks in a row; the last is
+# the nsa phase's shape (Llama-3.1-8B heads, the NSA paper's settings)
+BSP_CASES = (
+    ("g1_d64_f32_ds16", 1, 64, "float32", 16, 2048, 2, 4),
+    ("g4_d128_f32_ds32", 4, 128, "float32", 32, 2048, 2, 4),
+    ("g8_d64_bf16_ds32", 8, 64, "bfloat16", 32, 2048, 2, 4),
+    ("g8_d128_bf16_ds16", 8, 128, "bfloat16", 16, 2048, 2, 4),
+    ("g1_d128_bf16_ds16", 1, 128, "bfloat16", 16, 2048, 4, 4),
+    ("g4_d64_f32_ds16", 4, 64, "float32", 16, 2048, 2, 4),
+    ("slice_g4_d128_bf16_ds16", 4, 128, "bfloat16", 16, 8192, 8, 16),
+)
+
+
+def bsp_table(gen, seq: int, hk: int, top_k: int, ds: int):
+    """A top-k block table over the stride-``ds`` blocks of one sequence,
+    clustered as NSA's selections are: each row picks ``top_k`` distinct
+    blocks among ``2 * top_k`` consecutive ones, so neighbouring picks
+    overlap. Returns (block_idx (hk, n_qb, top_k) on the card, starts)."""
+    import torch
+
+    starts = np.arange(0, seq - BSP_L_SLC + 1, ds, dtype=np.int32)
+    n_qb = seq // BSP_BQ
+    base = torch.randint(
+        0, len(starts) - 2 * top_k + 1, (hk, n_qb, 1), generator=gen, device="cuda"
+    )
+    offs = torch.rand((hk, n_qb, 2 * top_k), generator=gen, device="cuda").argsort(-1)
+    return base + offs[..., :top_k], starts
+
+
+def build_report(name: str) -> list[str]:
+    """The ``ptxas -v`` register and spill lines of one kernel library."""
+    from magiattention_tpu_torch.kernels import _build
+
+    log = _build.library_path(name).with_suffix(".log")
+    return [
+        line.strip() for line in log.read_text().splitlines()
+        if "registers" in line or "spill" in line
+    ] if log.exists() else []
+
+
+def block_sparse_phase(peaks: dict) -> dict[str, dict]:
+    """B13 and B14 against their plain versions on the same chunk tables
+    (``block_sparse_fwd_plain`` / ``block_sparse_bwd_plain``: a gathered
+    dense softmax, duplicate chunks counted twice), the backward on the
+    kernel forward's lse and the same delta. Bounds: 4 flops per (query
+    row, key slot) pair and head dim for the forward, 10 for the backward
+    (S, dP, P^T dO, dS^T Q, dS K); bytes count q, dO, out, lse, delta and
+    the k/v rows the table names, once, and the float32 gradients. No
+    single PyTorch call computes the same function (a chunk named twice
+    doubles its keys' softmax mass), so library_ms is null."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.block_sparse import (
+        BSPParams, block_sparse_bwd_kernel, block_sparse_bwd_plain,
+        block_sparse_fwd_kernel, block_sparse_fwd_plain, chunk_table,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    results = {}
+    for name, g, d, dname, ds, seq, hk, top_k in BSP_CASES:
+        dt = getattr(torch, dname)
+        hq = hk * g
+        idx, starts = bsp_table(gen, seq, hk, top_k, ds)
+        q = torch.randn((seq, hq, d), generator=gen, device="cuda").to(dt)
+        k = torch.randn((seq, hk, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((seq, hk, d), generator=gen, device="cuda").to(dt)
+        do = torch.randn((seq, hq, d), generator=gen, device="cuda").to(dt)
+        ctbl = chunk_table(idx, starts, ds, BSP_L_SLC)
+        params = BSPParams(softmax_scale=d ** -0.5, d_stride=ds, block_size_q=BSP_BQ)
+        out, lse = block_sparse_fwd_kernel(q, k, v, ctbl, params)
+        out_p, lse_p = block_sparse_fwd_plain(q, k, v, ctbl, params)
+        fwd_err = errors(out, lse, out_p, lse_p)
+        check(f"block_sparse {name} fwd", fwd_err, dname)
+        del out_p, lse_p
+        delta = (out.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, ctbl, params)
+        got, want = block_sparse_bwd_kernel(*args), block_sparse_bwd_plain(*args)
+        bwd_err = {
+            n: grad_check(f"block_sparse {name} {n}", a, b, dname)
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)
+        }
+        del got, want
+        torch.cuda.synchronize()
+
+        n_keys = ctbl.shape[2] * ds
+        rows = ctbl.sort(-1).values
+        dup = int((rows[..., 1:] == rows[..., :-1]).sum().item())  # chunks named twice
+        heads = torch.arange(hk, device="cuda")[:, None, None] * (seq // ds)
+        kv_rows = torch.unique(ctbl.long() + heads).numel() * ds  # (head, key) rows read
+        isz = q.element_size()
+        pairs = seq * hq * n_keys
+        q_bytes, kv_bytes, row_bytes = q.numel() * isz, kv_rows * d * isz, seq * hq * 4
+        fwd_b = bound(4.0 * pairs * d, 2 * q_bytes + 2 * kv_bytes + row_bytes, dname, peaks)
+        bwd_b = bound(
+            10.0 * pairs * d,
+            2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + (q.numel() + 2 * k.numel()) * 4,
+            dname, peaks,
+        )
+        samples = 3 if seq > 4096 else 10
+        ms_f = time_ms(lambda: block_sparse_fwd_kernel(q, k, v, ctbl, params))
+        ms_b = time_ms(lambda: block_sparse_bwd_kernel(*args))
+        res = dict(
+            case=name, dtype=dname, q=list(q.shape), kv=list(k.shape), g=g,
+            d_stride=ds, l_slc=BSP_L_SLC, block_size_q=BSP_BQ, top_k=top_k,
+            chunks_per_row=ctbl.shape[2], keys_per_row=n_keys,
+            duplicate_chunk_entries=dup, pairs=pairs,
+            atol=ATOL[dname], rnorm=RNORM[dname],
+            block_sparse_fwd=dict(
+                **fwd_err, ms=ms_f,
+                plain_ms=time_ms(lambda: block_sparse_fwd_plain(q, k, v, ctbl, params),
+                                 warmup=1, samples=samples),
+                bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=None,
+                tflops=4.0 * pairs * d / (ms_f * 1e-3) / 1e12,
+            ),
+            block_sparse_bwd=dict(
+                max_abs_err=max(e["max_abs_err"] for e in bwd_err.values()),
+                errors=bwd_err, ms=ms_b,
+                plain_ms=time_ms(lambda: block_sparse_bwd_plain(*args), warmup=1,
+                                 samples=samples),
+                bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None,
+                tflops=10.0 * pairs * d / (ms_b * 1e-3) / 1e12,
+            ),
+        )
+        if name.startswith("slice"):
+            res["ptxas"] = {n: build_report(n) for n in ("block_sparse_fwd", "block_sparse_bwd")}
+        emit({"phase": "block_sparse", **res})
+        results[name] = res
+        del q, k, v, do, out, lse, delta, args
+        torch.cuda.empty_cache()
+    return results
+
+
+def sum_check(name: str, got, want, dtype: str) -> dict:
+    """Max abs and rel-norm error of a result that is a sum over the
+    sequence (NSA's outputs and gradients, returned in bf16 where the
+    inputs are): rel-norm within the dtype's bound and max abs within its
+    atol times the largest magnitude (at least 1), since one bf16 ulp of a
+    gradient of size 4 is already 0.03."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: not finite")
+    a, b = got.double(), want.double()
+    scale = max(1.0, b.abs().max().item())
+    err = {
+        "max_abs_err": (a - b).abs().max().item(),
+        "rel_norm_err": ((a - b).norm() / b.norm().clamp_min(1e-30)).item(),
+        "max_abs_want": scale,
+    }
+    atol, rnorm = ATOL[dtype] * scale, RNORM[dtype]
+    if not (err["max_abs_err"] <= atol and err["rel_norm_err"] <= rnorm):
+        raise AssertionError(f"{name}: {err} beyond atol {atol}, rel-norm {rnorm}")
+    return err
+
+
+# the slice's NSA: Llama-3.1-8B attention widths, two causal documents of
+# 4096, the NSA paper's sparse settings (Yuan et al., arXiv:2502.11089, §4)
+NSA_SEQ, NSA_DOC, NSA_HQ, NSA_HK, NSA_D = 8192, 4096, 32, 8, 128
+NSA_KW = dict(
+    l_cmp=32, l_slc=64, d_stride=16, block_size_q=16, slc_top_k=16,
+    window=(512, 0), causal=True,
+)
+NSA_GATHERED = {"MAGI_ATTENTION_BACKEND_NSA_SLC": "gathered_dense"}
+
+
+def nsa_phase() -> dict:
+    """``nsa_attn`` forward and backward at the slice's configuration
+    (bf16 q/k/v, float32 parameters from a seed), gradients to q, k, v and
+    the six parameters: the kernel route (unpinned: B13/B14 for the slc
+    branch, B1, B7 and the resolved FFA backward for the win branch; the
+    counts zeroed just before and read just after, no plain version)
+    against the gathered route (MAGI_ATTENTION_BACKEND_NSA_SLC=
+    gathered_dense) on the same inputs: the selection tables equal first,
+    then out and every gradient within the bf16 bounds (``sum_check``).
+    Then the same at float32 over 2048 tokens (two documents of 1024)
+    within the float32 bounds. Reports both routes' fwd+bwd ms and the
+    kernel route's device time by kernel (``torch.profiler``)."""
+    import torch
+
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode, plan_params
+    from magiattention_tpu_torch.parallel.nsa import PARAM_NAMES, init_nsa_params, nsa_attn
+
+    def case(seq, doc, dtype, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        q = torch.randn((seq, NSA_HQ, NSA_D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((seq, NSA_HK, NSA_D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((seq, NSA_HK, NSA_D), generator=gen, device="cuda").to(dtype)
+        params = init_nsa_params(gen, NSA_D, NSA_KW["l_cmp"], device="cuda")
+        do = torch.randn((seq, NSA_HQ, NSA_D), generator=gen, device="cuda")
+        cu = list(range(0, seq + 1, doc))
+
+        def fwd_bwd(env=None):
+            with scoped_env(env or {}):
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                ps = {n: params[n].detach().requires_grad_(True) for n in PARAM_NAMES}
+                out, idx = nsa_attn(*leaves, ps, cu, return_selection=True, **NSA_KW)
+                grads = torch.autograd.grad(out, [*leaves, *ps.values()], do.to(out.dtype))
+            return out, idx, grads
+
+        return fwd_bwd, cu
+
+    def compare(what, got, want, dname):
+        if not torch.equal(got[1], want[1]):
+            rows = (got[1] != want[1]).any(-1).nonzero()[:4].tolist()
+            raise AssertionError(f"{what}: the routes selected other blocks at {rows}")
+        names = ("out", "dq", "dk", "dv", *PARAM_NAMES)
+        return {
+            n: sum_check(f"{what} {n}", a, b, dname)
+            for n, a, b in zip(names, (got[0], *got[2]), (want[0], *want[2]))
+        }
+
+    fwd_bwd, cu = case(NSA_SEQ, NSA_DOC, torch.bfloat16, 21)
+    qr = np.array([[a, b] for a, b in zip(cu[:-1], cu[1:])], np.int32)
+    n_seg = len(qr)
+    plan, params = plan_params(
+        qr, qr, None, np.full(n_seg, -NSA_KW["window"][0], np.int32),
+        np.zeros(n_seg, np.int32), NSA_SEQ, NSA_SEQ, NSA_D, None, 0.0,
+    )
+    mode = ffa_bwd_mode(plan, params, NSA_D, NSA_D, 2, NSA_HQ, NSA_HK)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = fwd_bwd()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want_counts = {
+        "block_sparse_fwd": 1, "block_sparse_bwd": 1, "ffa_fwd": 1, "ffa_bwd_delta": 1,
+        **({"ffa_bwd_fused": 1} if mode == "fused" else {"ffa_bwd_dq": 1, "ffa_bwd_dkv": 1}),
+    }
+    launched = {k: v for k, v in counts.items() if v}
+    if launched != want_counts or any(counts[k] for k in PLAIN_NAMES):
+        raise AssertionError(f"nsa: launched {launched}, want {want_counts}")
+    reset_launch_counts()
+    want = fwd_bwd(NSA_GATHERED)
+    gathered_counts = {k: v for k, v in launch_counts().items() if v}
+    if gathered_counts.get("block_sparse_fwd") or gathered_counts.get("block_sparse_bwd"):
+        raise AssertionError(f"nsa: the gathered route launched {gathered_counts}")
+    err = compare("nsa bf16", got, want, "bfloat16")
+    sel = got[1]
+    del got, want
+    res = dict(
+        shape=(
+            f"bf16 q [{NSA_SEQ}, {NSA_HQ}, {NSA_D}], k/v [{NSA_SEQ}, {NSA_HK}, "
+            f"{NSA_D}], documents of {NSA_DOC}; float32 parameters"
+        ),
+        settings=NSA_KW, resolved_win_bwd_mode=mode, launches=launched,
+        gathered_route_launches=gathered_counts,
+        selection_shape=list(sel.shape), vs_gathered=err,
+        fwd_bwd_ms=time_ms(fwd_bwd, warmup=1, samples=3),
+        gathered_fwd_bwd_ms=time_ms(lambda: fwd_bwd(NSA_GATHERED), warmup=1, samples=3),
+        profile=profile_run(fwd_bwd),
+        atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"],
+    )
+    torch.cuda.empty_cache()
+
+    fwd_bwd, _ = case(2048, 1024, torch.float32, 22)
+    res["float32_2048"] = compare("nsa float32", fwd_bwd(), fwd_bwd(NSA_GATHERED), "float32")
+    res["float32_atol"], res["float32_rnorm"] = ATOL["float32"], RNORM["float32"]
+    emit({"phase": "nsa", **res})
+    torch.cuda.empty_cache()
+    return res
+
+
+def deterministic_phase() -> dict:
+    """ROADMAP C1: the backward is bitwise reproducible when asked. Two
+    forward + backward runs at the train phase's attention shape through
+    ``calc_attn`` at cp 1 under MAGI_ATTENTION_DETERMINISTIC_MODE=1, and
+    two through ``flex_flash_attn_func(deterministic=True)``: out, lse,
+    dq, dk and dv equal to the bit within each pair, the split kernels
+    launched and not the fused one. Reported, not gated: whether the two
+    paths agree to the bit, and the largest difference between two
+    unpinned (fused) runs of ``flex_flash_attn_func``."""
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.functional import flex_flash_attn_func
+    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    docs = _docs(CP_SEQ, CP_DOC)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = ((CP_SEQ, CP_HQ, CP_D), (CP_SEQ, CP_HK, CP_D), (CP_SEQ, CP_HK, CP_D))
+    inputs = [torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in shapes]
+    do = (torch.randn(shapes[0], generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    det_env = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+    with scoped_env(det_env):
+        key = api.magi_attn_flex_key(docs, docs, [1, 1], CP_SEQ, CP_SEQ)
+
+    def api_path():
+        q, k, v = (t.detach().requires_grad_(True) for t in inputs)
+        with scoped_env(det_env):
+            out_d, meta = api.calc_attn(
+                api.dispatch(q, key), api.dispatch(k, key, role="kv"),
+                api.dispatch(v, key, role="kv"), key,
+            )
+            out = api.undispatch(out_d, key)
+            grads = torch.autograd.grad(out, (q, k, v), do)
+        return (out, meta.lse, *grads)
+
+    def flex_path(deterministic=True):
+        q, k, v = (t.detach().requires_grad_(True) for t in inputs)
+        out, meta = flex_flash_attn_func(
+            q, k, v, np.array(docs), np.array(docs), np.array([1, 1]),
+            deterministic=deterministic,
+        )
+        return (out, meta.lse, *torch.autograd.grad(out, (q, k, v), do))
+
+    names = ("out", "lse", "dq", "dk", "dv")
+    res = {}
+    for what, fn in (("calc_attn_env", api_path), ("flex_deterministic", flex_path)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        first = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        second = fn()
+        differ = [n for n, a, b in zip(names, first, second) if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"deterministic {what}: two runs differ in {differ}")
+        if counts.get("ffa_bwd_fused") or not (counts.get("ffa_bwd_dq") or counts.get("ffa_bwd_dq_gqa")):
+            raise AssertionError(f"deterministic {what}: launched {counts}, want the split backward")
+        res[what] = dict(bitwise_equal=True, launches=counts)
+        res[f"{what}_outputs"] = first
+    a, b = res.pop("calc_attn_env_outputs"), res.pop("flex_deterministic_outputs")
+    # lse stays in the dispatched order on the calc_attn path
+    res["paths_bitwise_equal"] = {
+        n: torch.equal(x, y) for n, x, y in zip(names, a, b) if n != "lse"
+    }
+    x, y = flex_path(False), flex_path(False)
+    res["unpinned_two_runs_max_abs_diff"] = {
+        n: (s.double() - t.double()).abs().max().item()
+        for n, s, t in zip(names, x, y) if n != "lse"
+    }
+    res["shape"] = f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, two causal documents"
+    emit({"phase": "deterministic", **res})
+    return res
+
+
+def bitwise_rows(what: str, reqs, want: dict) -> None:
+    """Every request's generated rows equal ``want[req_id]`` to the bit."""
+    for r in reqs:
+        a, b = np.stack(r.generated), np.stack(want[r.req_id])
+        if a.shape != b.shape or not np.array_equal(a, b):
+            i = next((i for i in range(min(len(a), len(b))) if not np.array_equal(a[i], b[i])), None)
+            raise AssertionError(f"{what}: request {r.req_id} differs first at row {i}")
+
+
+SERVE_PIN = {"MAGI_ATTENTION_BACKEND_SERVE_DECODE": "gather_ffa"}
+
+
+def serve_pinned_phase(ctx: dict) -> dict:
+    """ROADMAP C2: the serve phases under MAGI_ATTENTION_BACKEND_SERVE_DECODE=
+    gather_ffa, where the engine runs the replay oracle's own calls: every
+    row of ``serve``, ``serve_spec`` (greedy and oracle drafts) and
+    ``serve_int8`` equal to its replay's to the bit, only B1 launched for
+    attention (no decode kernel, no plain version). Reports the oracle
+    draft's accept rate and whether every window a request could commit
+    was accepted, and (not gated) whether B1's multi-row call equals its
+    single-row calls to the bit at the verify geometry."""
+    import torch
+
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.kernels.paged_kv import paged_attn
+    from magiattention_tpu_torch.serving import ServeEngine, oracle_draft_fn, run_reference
+
+    model, base = ctx["model"], ctx["config"]
+    res = {}
+    with scoped_env(SERVE_PIN):
+        for what, config, draft in (
+            ("serve", base, None),
+            ("serve_spec_greedy", dataclasses.replace(base, spec_tokens=4), None),
+            ("serve_spec_oracle", dataclasses.replace(base, spec_tokens=4),
+             oracle_draft_fn(ctx["reference"])),
+            ("serve_int8", dataclasses.replace(base, kv_dtype="int8"), None),
+        ):
+            reqs = ctx["requests"](model)
+            stats, wall, counts = serve_run(ServeEngine(model, config, draft_fn=draft), reqs)
+            check_launches(f"serve_pinned {what}", counts, ("ffa_fwd",))
+            decode = {k: counts[k] for k in ("paged_decode", "paged_decode_spec", "paged_decode_int8")}
+            if any(decode.values()):
+                raise AssertionError(f"serve_pinned {what}: a decode kernel ran: {decode}")
+            want = (
+                run_reference(model, reqs, config) if config.kv_dtype == "int8"
+                else ctx["reference"]
+            )
+            bitwise_rows(f"serve_pinned {what}", reqs, want)
+            att = sum(s["draft_attempted"] for s in stats)
+            acc = sum(s["draft_accepted"] for s in stats)
+            k = config.spec_tokens
+            res[what] = dict(
+                wall_s=wall, ticks=len(stats), bitwise_equal_to_replay=True,
+                ffa_fwd_launches=counts["ffa_fwd"], draft_attempted=att,
+                draft_accepted=acc, accept_rate=acc / att,
+                # every draft window accepted <=> no tick beyond ceil(n / k)
+                all_windows_accepted=att == k * sum(-(-r.max_new_tokens // k) for r in reqs),
+            )
+    if not res["serve_spec_oracle"]["all_windows_accepted"]:
+        raise AssertionError(f"serve_pinned: the oracle draft was rejected: {res['serve_spec_oracle']}")
+
+    # B1: a verify call's rows against the same rows alone (reported)
+    from magiattention_tpu_torch.kernels.paged_kv import PagedKVCache, append_kv, assign_pages
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pages = 256
+    cache = PagedKVCache.create(pages, 16, 8, 128, 1, pages, dtype=torch.float32, device="cuda")
+    cache = assign_pages(cache, 0, np.arange(pages, dtype=np.int32))
+    length = 3001
+    kv = torch.randn((2, length, 8, 128), generator=gen, device="cuda")
+    cache = append_kv(cache, 0, kv[0], kv[1])
+    q = torch.randn((4, 32, 128), generator=gen, device="cuda")
+    multi, _ = paged_attn(q, cache, 0, q_start=length - 4, max_pages=pages)
+    single = torch.cat([
+        paged_attn(q[t : t + 1], cache, 0, q_start=length - 4 + t, max_pages=pages)[0]
+        for t in range(4)
+    ])
+    res["b1_multi_row_equals_single_rows"] = bool(torch.equal(multi, single))
+    res["b1_multi_row_max_abs_diff"] = (multi - single).abs().max().item()
+    emit({"phase": "serve_pinned", **res})
+    return res
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
     return {
         "name": name, "route": "cuda",
@@ -2015,11 +2461,8 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     for src in _build.SOURCES:
-        log = _build.library_path(src).with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[{src}] {line.strip()}", file=sys.stderr)
+        for line in build_report(src):
+            print(f"[{src}] {line}", file=sys.stderr)
     emit({
         "phase": "device", "name": name, "nvidia_smi": smi,
         "driver": nvidia_smi("driver_version"), "torch": torch.__version__,
@@ -2043,10 +2486,14 @@ def main() -> int:
     serve, serve_ctx = serve_phase()
     serve_spec = serve_spec_phase(serve_ctx)
     serve_int8 = serve_int8_phase(serve_ctx)
+    serve_pinned_phase(serve_ctx)
     del serve_ctx
     cp_api_phase()
+    deterministic_phase()
     cp_stages_phase()
     train = train_phase()
+    bsp = block_sparse_phase(peaks)["slice_g4_d128_bf16_ds16"]
+    nsa = nsa_phase()
 
     t = bwd["d_train_docs_8192_bf16"]
     emit({"kernels": [
@@ -2101,6 +2548,16 @@ def main() -> int:
             "paged_decode_int8", "paged_decode_int8.cu",
             "magiattention_tpu/kernels/paged_decode.py:568",
             serve_int8["kernel_launches"]["paged_decode_int8"], int8["float32"],
+        ),
+        kernel_entry(  # the nsa phase's shape: bf16, g 4, d 128, 16 x 64 keys
+            "block_sparse_fwd", "block_sparse_fwd.cu",
+            "magiattention_tpu/kernels/block_sparse.py:76",
+            nsa["launches"]["block_sparse_fwd"], bsp["block_sparse_fwd"],
+        ),
+        kernel_entry(
+            "block_sparse_bwd", "block_sparse_bwd.cu",
+            "magiattention_tpu/kernels/block_sparse.py:210",
+            nsa["launches"]["block_sparse_bwd"], bsp["block_sparse_bwd"],
         ),
     ]})
     print(smi, flush=True)

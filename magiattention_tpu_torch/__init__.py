@@ -1,20 +1,21 @@
 """PyTorch + CUDA port of magiattention_tpu, for NVIDIA Hopper (sm_90a).
 
-It holds three paths. Serving: chunked FFA prefill and paged decode over
+It holds four paths. Serving: chunked FFA prefill and paged decode over
 a paged KV cache, driven by a continuous-batching engine. Single-device
 attention: ``flex_flash_attn_func`` (FFA forward and backward as a
 ``torch.autograd.Function``). Context parallelism, the main path:
 ``magi_attn_flex_key -> dispatch -> calc_attn -> undispatch`` (the
 dispatch and CP planners, GroupCast/GroupReduce over
 ``torch.distributed``, the multi-stage runtime), under a Llama trainer.
-Their kernels are written by hand in CUDA C++ (``csrc/``) and built with
+NSA attention on one device: ``parallel.nsa_attn``, its selected branch
+over block-sparse kernels. Their kernels are written by hand in CUDA C++ (``csrc/``) and built with
 ``nvcc`` at first use; each has a plain PyTorch version beside it, which
 CPU tensors take.
 
 The package imports torch and numpy, never jax or ``magiattention_tpu``.
 """
 
-from . import api, comm, common, env, functional, kernels, meta, models, resilience, serving, testing  # noqa: F401
+from . import api, comm, common, env, functional, kernels, meta, models, parallel, resilience, serving, testing  # noqa: F401
 from .api import (  # noqa: F401
     calc_attn,
     dispatch,

@@ -1,8 +1,8 @@
 """Backend pins.
 
-The port's copy of the pin the training slice reads from
-``magiattention_tpu/env/backend.py``; the flag names are the same. A pin
-is an explicit backend name, ``None`` when unset.
+The port's copy of the pins its slices read from
+``magiattention_tpu/env/backend.py``; the flag names and values are the
+same. A pin is an explicit backend name, ``None`` when unset.
 """
 
 from __future__ import annotations
@@ -44,4 +44,45 @@ def ffa_bwd_pin() -> str | None:
             mapped,
         )
         return mapped
+    return None
+
+
+def serve_decode_pin() -> str | None:
+    """Pin for the serve decode rung: 'paged_decode_sharded' |
+    'paged_decode_spec' | 'paged_decode_int8' | 'paged_decode' |
+    'gather_ffa' | 'dense' | None.
+
+    MAGI_ATTENTION_BACKEND_SERVE_DECODE wins; legacy
+    MAGI_ATTENTION_SERVE_DECODE_KERNEL maps 1->paged_decode, 0->gather_ffa,
+    auto->None. A pin stays subject to the call site's feasibility (cache
+    dtype, 1-row vs multi-row step): an infeasible pin starts at the first
+    feasible rung below it (``serving/decode.py``)."""
+    val = _get_str("MAGI_ATTENTION_BACKEND_SERVE_DECODE", "").lower()
+    if val in (
+        "paged_decode_sharded",
+        "paged_decode_spec",
+        "paged_decode_int8",
+        "paged_decode",
+        "gather_ffa",
+        "dense",
+    ):
+        return val
+    legacy = os.environ.get("MAGI_ATTENTION_SERVE_DECODE_KERNEL")
+    if legacy in ("0", "1"):
+        mapped = "paged_decode" if legacy == "1" else "gather_ffa"
+        _warn_legacy_once(
+            "MAGI_ATTENTION_SERVE_DECODE_KERNEL",
+            "MAGI_ATTENTION_BACKEND_SERVE_DECODE", mapped,
+        )
+        return mapped
+    return None
+
+
+def nsa_slc_pin() -> str | None:
+    """Pin for the NSA selected-block branch: 'block_sparse_pallas' (the
+    block-sparse kernels; the JAX package's value name, kept as the flag's
+    public value) | 'gathered_dense' | None. No legacy key exists."""
+    val = _get_str("MAGI_ATTENTION_BACKEND_NSA_SLC", "").lower()
+    if val in ("block_sparse_pallas", "gathered_dense"):
+        return val
     return None

@@ -32,6 +32,15 @@ def precision() -> str:
     return _get_str("MAGI_ATTENTION_PRECISION", "default").lower()
 
 
+def is_deterministic_mode_enable() -> bool:
+    """MAGI_ATTENTION_DETERMINISTIC_MODE=1: the attention backward must be
+    bitwise reproducible (the original MagiAttention's key). The JAX
+    package needs no such key (its kernels run in a fixed order); the port
+    keeps the guarantee by resolving the split FFA backward, which has no
+    atomics (``kernels/ffa.py:ffa_bwd_mode``)."""
+    return _get_bool("MAGI_ATTENTION_DETERMINISTIC_MODE")
+
+
 def is_sanity_check_enable() -> bool:
     """Expensive invariant checks throughout solver/comm planning."""
     return _get_bool("MAGI_ATTENTION_SANITY_CHECK")

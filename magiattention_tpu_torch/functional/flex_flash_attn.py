@@ -77,10 +77,11 @@ def flex_flash_attn_func(
         attn_type_map: ``(N,)`` int32 (0=FULL 1=CAUSAL 2=INVCAUSAL
             3=BICAUSAL); None = all FULL.
         sink: optional sink logits (layout ``sink_layout``: sh | ssh).
-        deterministic: accepted for the reference's signature and not read,
-            as in the JAX package; the split backward pin
-            (MAGI_ATTENTION_BACKEND_FFA_BWD=split) is the deterministic mode
-            (the fused backward adds dq with atomics).
+        deterministic: make the backward bitwise reproducible on the
+            ``ffa`` backend: the kernels' backward resolves the split mode
+            (no atomics) ahead of every pin and the cost model, as
+            MAGI_ATTENTION_DETERMINISTIC_MODE=1 does for every caller. The
+            plain backends are deterministic as they are.
         backend: ffa | sdpa | sdpa_online; None = env
             ``MAGI_ATTENTION_KERNEL_BACKEND`` (default ffa).
         return_max_logits: also fill ``max_logits`` (``[hq]`` float32,
@@ -116,13 +117,16 @@ def flex_flash_attn_func(
         if sink is not None:
             plan, params = plan_params(
                 qr, kr, tmap, d_lo, d_hi, q.shape[0], k.shape[0], q.shape[-1],
-                softmax_scale, softcap,
+                softmax_scale, softcap, deterministic=deterministic,
             )
             out, lse, *ml = _FFASinkCore.apply(
                 q, k, v, sink, plan, params, sink_layout, return_max_logits
             )
             return out, AttnForwardMeta(lse=lse, max_logits=ml[0] if ml else None)
-        out, lse, *ml = ffa_attn(q, k, v, qr, kr, tmap, return_max_logits=return_max_logits, **kw)
+        out, lse, *ml = ffa_attn(
+            q, k, v, qr, kr, tmap, return_max_logits=return_max_logits,
+            deterministic=deterministic, **kw,
+        )
         max_logits = ml[0] if ml else None
     else:
         raise ValueError(f"unknown kernel backend: {backend}")

@@ -1,6 +1,13 @@
 """Device compute: the hand-written Hopper kernels, their plain versions,
 the host plan and the paged KV cache."""
 
+from .block_sparse import (  # noqa: F401
+    block_sparse_attn,
+    block_sparse_bwd_kernel,
+    block_sparse_bwd_plain,
+    block_sparse_fwd_kernel,
+    block_sparse_fwd_plain,
+)
 from .ffa import (  # noqa: F401
     ffa_attn,
     ffa_attn_with_plan,
@@ -50,6 +57,8 @@ _KERNELS = {
     "ffa_bwd_dq_gqa": ffa_bwd_dq_gqa_kernel,
     "paged_decode_spec": paged_decode_spec_kernel,
     "paged_decode_int8": paged_decode_int8_kernel,
+    "block_sparse_fwd": block_sparse_fwd_kernel,
+    "block_sparse_bwd": block_sparse_bwd_kernel,
 }
 _PLAINS = {
     "sdpa_attn": sdpa_attn,
@@ -60,6 +69,8 @@ _PLAINS = {
     "ffa_bwd_fused_plain": ffa_bwd_fused_plain,
     "paged_decode_spec_plain": paged_decode_spec_plain,
     "paged_decode_int8_plain": paged_decode_int8_plain,
+    "block_sparse_fwd_plain": block_sparse_fwd_plain,
+    "block_sparse_bwd_plain": block_sparse_bwd_plain,
 }
 
 PLAIN_NAMES = tuple(_PLAINS)
@@ -85,6 +96,11 @@ __all__ = [
     "PagedKVCache",
     "append_kv",
     "assign_pages",
+    "block_sparse_attn",
+    "block_sparse_bwd_kernel",
+    "block_sparse_bwd_plain",
+    "block_sparse_fwd_kernel",
+    "block_sparse_fwd_plain",
     "dense_max_logits",
     "ffa_attn",
     "ffa_attn_with_plan",

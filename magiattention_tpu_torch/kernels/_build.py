@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "ffa_fwd", "paged_decode", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv",
     "ffa_bwd_fused", "ffa_fwd_gqa", "ffa_bwd_dq_gqa", "paged_decode_spec",
-    "paged_decode_int8",
+    "paged_decode_int8", "block_sparse_fwd", "block_sparse_bwd",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -28,10 +28,12 @@ kernel as the JAX package's ``ffa_fwd_pallas_dispatch`` /
 ``ffa_bwd_dq_pallas_dispatch`` do, before the launch (flag, group > 1, no
 max-logits for the forward, and the packed CTA's budget). The packed
 kernels compute the same functions as the unpacked ones, bit for bit.
-:func:`ffa_bwd_mode` picks split or fused for a plan, in the JAX package's
-order: a split pin, then the plan and kernel feasibility, then a fused pin,
-then the cost model (:func:`.tile_policy.choose_bwd_mode`, derived for
-these kernels and measured on the H100).
+:func:`ffa_bwd_mode` picks split or fused for a plan: a deterministic
+request (``deterministic=True`` or MAGI_ATTENTION_DETERMINISTIC_MODE=1)
+resolves split; then, in the JAX package's order, a split pin, the plan
+and kernel feasibility, a fused pin, and the cost model
+(:func:`.tile_policy.choose_bwd_mode`, derived for these kernels and
+measured on the H100).
 
 Each kernel has a plain PyTorch version beside it (``sdpa_attn`` for the
 forward, ``ffa_*_plain`` for the backward), which CPU tensors take. A CUDA
@@ -58,6 +60,7 @@ import numpy as np
 import torch
 
 from ..env import backend as env_backend
+from ..env import general as env_general
 from ..env import kernel as env_kernel
 from . import _build
 from .ffa_plan import DHI, DLO, KE, KS, QE, QS, QVL, FFAPlan, get_ffa_plan
@@ -80,6 +83,8 @@ class FFAParams:
     block_k: int
     softmax_scale: float
     softcap: float
+    # the backward must be bitwise reproducible (ffa_bwd_mode: split)
+    deterministic: bool = False
 
 
 def default_blocks(sq: int, sk: int, block_q=None, block_k=None) -> tuple[int, int]:
@@ -94,6 +99,7 @@ def plan_params(
     q_ranges, k_ranges, attn_type_map, d_lo, d_hi, sq: int, sk: int, d: int,
     softmax_scale: float | None, softcap: float,
     block_q: int | None = None, block_k: int | None = None,
+    deterministic: bool = False,
 ) -> tuple[FFAPlan, FFAParams]:
     """The (cached) plan of host slice metadata, and its kernel params.
     Slices are mask types (``attn_type_map``, None = all FULL) unless
@@ -116,6 +122,7 @@ def plan_params(
         block_k=bk,
         softmax_scale=float(d) ** -0.5 if softmax_scale is None else float(softmax_scale),
         softcap=float(softcap),
+        deterministic=bool(deterministic),
     )
     return plan, params
 
@@ -739,15 +746,23 @@ def _modeled_mode(plan: FFAPlan, hq: int, hk: int, d: int, dv: int, itemsize: in
 def ffa_bwd_mode(
     plan: FFAPlan, params: FFAParams, d: int, dv: int, itemsize: int, hq: int, hk: int
 ) -> str:
-    """The backward's execution mode for one plan, "split" or "fused", in
-    the JAX package's order (``kernels/ffa.py:ffa_bwd_mode``): a split pin
+    """The backward's execution mode for one plan, "split" or "fused".
+
+    Split is the deterministic mode (no atomics), so a deterministic
+    request (``params.deterministic``, from ``flex_flash_attn_func(
+    deterministic=True)``, or MAGI_ATTENTION_DETERMINISTIC_MODE=1, which
+    reaches the CP runtime and the trainer too) resolves split ahead of
+    every other rule, a fused pin included. Then the JAX package's order
+    (``kernels/ffa.py:ffa_bwd_mode``): a split pin
     (MAGI_ATTENTION_BACKEND_FFA_BWD=split, or the legacy
     MAGI_ATTENTION_FFA_FUSED_BWD=0) wins; a plan without the visit-flag
     columns, or a head geometry the fused kernel cannot hold
     (:func:`fused_bwd_feasible`), runs split; then a fused pin wins;
     otherwise the cost model :func:`.tile_policy.choose_bwd_mode` decides
     from the plan's runs, the heads and the dq kernel the split mode would
-    run (cached per plan). Split is the deterministic mode (no atomics)."""
+    run (cached per plan)."""
+    if params.deterministic or env_general.is_deterministic_mode_enable():
+        return "split"
     pin = env_backend.ffa_bwd_pin()
     if pin == "split":
         return "split"
@@ -837,9 +852,11 @@ def ffa_attn(
     d_lo=None,
     d_hi=None,
     return_max_logits: bool = False,
+    deterministic: bool = False,
 ):
     """FFA over slice metadata. Same contract as :func:`~.sdpa.sdpa_attn`,
-    differentiable in q, k and v.
+    differentiable in q, k and v. ``deterministic`` makes the CUDA
+    backward bitwise reproducible (:func:`ffa_bwd_mode` resolves split).
 
     Slices may be given as mask types (``attn_type_map``) or directly as
     diagonal bands (``d_lo``/``d_hi``). The metadata must be host values —
@@ -864,5 +881,6 @@ def ffa_attn(
     plan, params = plan_params(
         q_ranges, k_ranges, attn_type_map, d_lo, d_hi, q.shape[0],
         k.shape[0], q.shape[-1], softmax_scale, softcap, block_q, block_k,
+        deterministic,
     )
     return _FFACore.apply(q, k, v, plan, params, return_max_logits)

@@ -3,24 +3,30 @@
 The port's counterpart of ``magiattention_tpu/serving/decode.py``. The TPU
 package descends a registry ladder (sharded / spec / int8 / base Pallas
 kernels -> gather+FFA -> dense) with fault injection and fallback. The port
-has no ladder: the cache's configuration alone picks one route, as JAX's
-``_feasibility`` does for its first rung, and that route launches its CUDA
-kernel for CUDA tensors or raises.
+has no registry and no fallback: one route per call, the first rung of
+JAX's ladder that is feasible for the cache (JAX's ``_feasibility``),
+starting at the caller's pin (:func:`..env.backend.serve_decode_pin`) or,
+unpinned, at the top. That route launches its CUDA kernel for CUDA tensors
+or raises.
 
-- :func:`decode_attn_step`: a float cache takes the paged-decode kernel
-  (B10), an int8 cache the int8 kernel (B12).
-- :func:`verify_attn_step`: a float cache takes the spec kernel (B11); an
-  int8 cache never does (JAX's spec rung is infeasible there) and verifies
-  through :func:`_gather_ffa_verify`, the dequantized gather + FFA (B1).
-
-:func:`_gather_ffa_decode`, :func:`_dense_decode` and :func:`_dense_verify`
-stay as plain functions for the tests and the oracle.
+- :func:`decode_attn_step`: unpinned, a float cache takes the paged-decode
+  kernel (B10), an int8 cache the int8 kernel (B12).
+- :func:`verify_attn_step`: unpinned, a float cache takes the spec kernel
+  (B11); an int8 cache never does (JAX's spec rung is infeasible there) and
+  verifies through :func:`_gather_ffa_verify`, the dequantized gather + FFA
+  (B1).
+- ``gather_ffa`` pinned: :func:`_gather_ffa_decode` /
+  :func:`_gather_ffa_verify`, the replay oracle's own call (one query row
+  per FFA call); ``dense`` pinned: :func:`_dense_decode` /
+  :func:`_dense_verify`. ``paged_decode_sharded`` raises (ROADMAP queue A
+  item 8), as ``decode_shards > 1`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..env import backend as env_backend
 from ..kernels.paged_decode import (
     paged_decode_attn,
     paged_decode_attn_int8,
@@ -29,23 +35,64 @@ from ..kernels.paged_decode import (
 from ..kernels.paged_kv import PagedKVCache, gather_kv, paged_attn
 
 
+# JAX's serve_decode ladder below the sharded rung, in rank order
+RUNGS = ("paged_decode_spec", "paged_decode_int8", "paged_decode", "gather_ffa", "dense")
+
+
+def decode_route(cache: PagedKVCache, multi_row: bool) -> str:
+    """The rung a decode (``multi_row`` False) or verify step runs: the
+    first rung at or below the pin (unpinned: the top) that is feasible
+    for the cache, JAX's ``_feasibility`` rules. A ``paged_decode_sharded``
+    pin raises: the head-sharded rung is not ported."""
+    pin = env_backend.serve_decode_pin()
+    if pin == "paged_decode_sharded":
+        raise NotImplementedError(
+            "MAGI_ATTENTION_BACKEND_SERVE_DECODE=paged_decode_sharded needs "
+            "the head-sharded decode rung (ROADMAP queue A item 8), not ported yet"
+        )
+    quantized = cache.quantized
+    feasible = {
+        "paged_decode_spec": multi_row and not quantized,
+        "paged_decode_int8": not multi_row and quantized,
+        "paged_decode": not multi_row and not quantized,
+        "gather_ffa": True,
+        "dense": True,
+    }
+    start = RUNGS.index(pin) if pin else 0
+    return next(r for r in RUNGS[start:] if feasible[r])
+
+
+def _host_lengths(cache: PagedKVCache, host_lengths) -> tuple[int, ...]:
+    return tuple(cache.lengths.tolist()) if host_lengths is None else tuple(host_lengths)
+
+
 def decode_attn_step(
     q_batch: torch.Tensor,
     cache: PagedKVCache,
     softmax_scale: float | None = None,
+    host_lengths: tuple[int, ...] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One decode step for every slot.
+    """One decode step for every slot, on :func:`decode_route`'s rung.
 
     Args:
         q_batch: ``(max_seqs, hq, d)`` — one query row per slot (zeros on
             inactive slots, whose length is 0).
         cache: the paged cache AFTER this step's k/v rows were appended.
+        host_lengths: per-slot counts as host ints (0 = inactive), which
+            the gather and dense rungs need; None reads ``cache.lengths``
+            (a device-to-host copy) when they do.
 
     Returns (out ``(max_seqs, hq, dv)``, lse ``(max_seqs, hq)``).
     """
-    if cache.quantized:
+    route = decode_route(cache, multi_row=False)
+    if route == "paged_decode_int8":
         return paged_decode_attn_int8(q_batch, cache, softmax_scale=softmax_scale)
-    return paged_decode_attn(q_batch, cache, softmax_scale=softmax_scale)
+    if route == "paged_decode":
+        return paged_decode_attn(q_batch, cache, softmax_scale=softmax_scale)
+    lengths = _host_lengths(cache, host_lengths)
+    if route == "gather_ffa":
+        return _gather_ffa_decode(q_batch, cache, lengths, softmax_scale)
+    return _dense_decode(q_batch, cache, lengths, softmax_scale)
 
 
 def verify_attn_step(
@@ -62,14 +109,17 @@ def verify_attn_step(
             sits at absolute position ``lengths - spec_k + t`` (the draft
             rows are already appended, so lengths include them).
         host_lengths: per-slot counts AFTER the append (0 = inactive); the
-            int8 route needs them on the host.
+            gather and dense rungs need them on the host.
 
     Returns (out ``(max_seqs, spec_k, hq, dv)``,
-    lse ``(max_seqs, spec_k, hq)``).
+    lse ``(max_seqs, spec_k, hq)``), on :func:`decode_route`'s rung.
     """
-    if cache.quantized:
+    route = decode_route(cache, multi_row=True)
+    if route == "paged_decode_spec":
+        return paged_decode_attn_spec(q_spec, cache, softmax_scale=softmax_scale)
+    if route == "gather_ffa":
         return _gather_ffa_verify(q_spec, cache, host_lengths, softmax_scale)
-    return paged_decode_attn_spec(q_spec, cache, softmax_scale=softmax_scale)
+    return _dense_verify(q_spec, cache, host_lengths, softmax_scale)
 
 
 def _gather_ffa_decode(q_batch, cache, host_lengths, softmax_scale=None):
@@ -99,30 +149,38 @@ def _gather_ffa_decode(q_batch, cache, host_lengths, softmax_scale=None):
 
 
 def _gather_ffa_verify(q_spec, cache, host_lengths, softmax_scale=None):
-    """Per-slot gather+FFA over the ``spec_k`` draft rows at once: row 0
-    sits at ``length - spec_k``, the causal band puts row ``t`` at
-    ``length - spec_k + t``, the spec kernel's geometry (rows before the
-    slot's first token have nothing live: (0, -inf))."""
+    """Per-slot gather+FFA over the ``spec_k`` draft rows: row ``t`` sits at
+    ``length - spec_k + t`` and attends its own causal prefix, the spec
+    kernel's geometry (a row before the slot's first token has nothing
+    live: (0, -inf)). Each row is its own FFA call, the replay oracle's
+    decode call: the plain FFA on the CPU computes a row of a multi-row
+    call in another order than the same row alone (last-bit differences),
+    and the pinned engine is held to the replay bit for bit."""
     S, spec_k, hq, d = q_spec.shape
     dv = cache.v_pages.shape[-1]
     max_pages = cache.page_table.shape[1]
     outs, lses = [], []
     for s, length in enumerate(host_lengths):
-        if length <= 0:
-            outs.append(q_spec.new_zeros((spec_k, hq, dv)))
-            lses.append(
-                torch.full((spec_k, hq), float("-inf"), device=q_spec.device)
+        for t in range(spec_k):
+            pos = int(length) - spec_k + t
+            if length <= 0 or pos < 0:
+                outs.append(q_spec.new_zeros((hq, dv)))
+                lses.append(
+                    torch.full((hq,), float("-inf"), device=q_spec.device)
+                )
+                continue
+            out, lse = paged_attn(
+                q_spec[s, t : t + 1], cache, s,
+                q_start=pos,
+                max_pages=max_pages,
+                softmax_scale=softmax_scale,
             )
-            continue
-        out, lse = paged_attn(
-            q_spec[s], cache, s,
-            q_start=int(length) - spec_k,
-            max_pages=max_pages,
-            softmax_scale=softmax_scale,
-        )
-        outs.append(out)
-        lses.append(lse)
-    return torch.stack(outs), torch.stack(lses)
+            outs.append(out[0])
+            lses.append(lse[0])
+    return (
+        torch.stack(outs).reshape(S, spec_k, hq, dv),
+        torch.stack(lses).reshape(S, spec_k, hq),
+    )
 
 
 def _dense_decode(q_batch, cache, host_lengths, softmax_scale=None):

@@ -24,6 +24,13 @@ int8 kernel for decode); on the CPU, through their plain versions.
 ``decode_shards > 1`` (the head-sharded decode) is not ported and raises
 ``NotImplementedError``. Telemetry is left out; ``step()`` still returns
 the tick's stats dict.
+
+Under MAGI_ATTENTION_BACKEND_SERVE_DECODE=gather_ffa the decode tick runs
+the replay oracle's own calls: attention through the gather + FFA rung,
+and the model's products one row at a time (a row of a multi-row matmul
+may differ in its last bit from the same row alone, on the CPU and on a
+card), so the engine's rows equal :func:`.reference.run_reference`'s bit
+for bit. Unpinned, the products stay batched over slots and draft rows.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Callable
 
 import torch
 
+from ..env import backend as env_backend
 from ..env import serve as env_serve
 from ..kernels.paged_kv import PagedKVCache, append_kv, rollback_kv
 from .cache import PagePool
@@ -86,6 +94,11 @@ def _greedy_draft(
     model: ToyModel, req: ServeRequest, x: torch.Tensor, j: int
 ) -> torch.Tensor:
     return model.draft_next(x)
+
+
+def _rows_alone(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over the rows of ``x`` one at a time (the replay's calls)."""
+    return torch.cat([fn(row) for row in x.split(1)])
 
 
 def _check_supported(config: ServeConfig) -> None:
@@ -156,6 +169,7 @@ class ServeEngine:
         admitted = evicted = completed = 0
         prefill_tokens = decode_tokens = 0
         draft_attempted = draft_accepted = 0
+        replay_exact = env_backend.serve_decode_pin() == "gather_ffa"
 
         # 1. admission + prefill
         self.cache, newly = sched.admit(self.cache)
@@ -192,7 +206,11 @@ class ServeEngine:
             xs = [req.pending_x]
             for j in range(1, spec_k):
                 xs.append(self.draft_fn(model, req, xs[-1], j))
-            q, k, v = model.qkv(torch.stack(xs))  # (spec_k, ...)
+            x_block = torch.stack(xs)  # (spec_k, d_model)
+            if replay_exact:  # the replay's one-row products
+                q, k, v = (torch.cat(t) for t in zip(*map(model.qkv, x_block.split(1))))
+            else:
+                q, k, v = model.qkv(x_block)
             self.cache = append_kv(self.cache, slot, k, v)
             req.length += spec_k
             q_rows[slot] = q
@@ -206,25 +224,26 @@ class ServeEngine:
             q_batch = torch.stack(
                 [q_rows.get(s, zero) for s in range(cfg.max_slots)]
             )
+            host_lengths = tuple(
+                sched.slots[s].length if s in q_rows else 0
+                for s in range(cfg.max_slots)
+            )
             if spec_k == 1:
                 out, _ = decode_attn_step(
-                    q_batch[:, 0], self.cache, cfg.softmax_scale
+                    q_batch[:, 0], self.cache, cfg.softmax_scale, host_lengths
                 )
                 out = out[:, None]
             else:
-                host_lengths = tuple(
-                    sched.slots[s].length if s in q_rows else 0
-                    for s in range(cfg.max_slots)
-                )
                 out, _ = verify_attn_step(
                     q_batch, self.cache, host_lengths, cfg.softmax_scale
                 )
             slots = sorted(q_rows)
             # (n, spec_k, d_model): row j is right iff draft inputs 0..j
             # were (causal rows never see later garbage)
-            hidden = model.project(out[slots].flatten(0, 1)).reshape(
-                len(slots), spec_k, -1
+            project = (
+                (lambda o: _rows_alone(model.project, o)) if replay_exact else model.project
             )
+            hidden = project(out[slots].flatten(0, 1)).reshape(len(slots), spec_k, -1)
             hidden_host = hidden.cpu().numpy()
             now = time.perf_counter()
             for i, slot in enumerate(slots):

@@ -29,6 +29,11 @@ import torch
 from magiattention_tpu.kernels.ffa import ffa_attn as jax_ffa_attn
 from magiattention_tpu.kernels.sdpa import sdpa_attn as jax_sdpa_attn
 from magiattention_tpu_torch.kernels import _build
+from magiattention_tpu_torch.kernels.block_sparse import (
+    BSPParams,
+    block_sparse_bwd_kernel,
+    block_sparse_fwd_kernel,
+)
 from magiattention_tpu_torch.kernels.ffa import (
     _FFACore,
     ffa_attn,
@@ -276,6 +281,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ffa_fwd_kernel(tq, tk, tv, plan, params, return_max_logits=True)
     with pytest.raises(ValueError, match="CUDA"):
         ffa_bwd_fused_convert(torch.zeros(tq.shape), params.softmax_scale)
+    # the NSA selected branch's kernels (B13, B14)
+    ctbl = torch.zeros((k.shape[1], 128 // 16, 2), dtype=torch.int32)
+    bsp = BSPParams(softmax_scale=D ** -0.5, d_stride=16, block_size_q=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_sparse_fwd_kernel(tq, tk, tv, ctbl, bsp)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_sparse_bwd_kernel(tq, tk, tv, tdo, lse, lse, ctbl, bsp)
 
 
 def test_backward_sources_are_built_at_first_use():

@@ -71,6 +71,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.serving.decode",
         "magiattention_tpu_torch.serving.reference",
         "magiattention_tpu_torch.serving.scheduler",
+        "magiattention_tpu_torch.kernels.block_sparse",
+        "magiattention_tpu_torch.parallel",
+        "magiattention_tpu_torch.parallel.nsa",
         "chip_smoke",
     ):
         assert module in loaded, module

@@ -3,10 +3,16 @@
 Every case is band-slice metadata at a small size (sequences <= 256), given
 to the JAX package and to the port as the same numpy arrays.
 
-Every port test file imports this module, which caps torch's intra-op
-threads at 2 per process: the suite runs several xdist workers on a few
-cores beside the JAX package's timing-sensitive tests, and torch's default
-of one thread per core would oversubscribe them.
+Every port test file imports this module, which runs torch's intra-op
+work on the calling thread alone (one thread per process). The suite runs
+several xdist workers on a few cores beside the JAX package's
+timing-sensitive tests, and torch's default of one thread per core would
+oversubscribe them. One thread, not two: with JAX's runtime in the same
+process, a torch worker thread now and then computes exp/log less
+accurately (measured on the CPU: a plain softmax's lse off by up to
+4.6e-5 at lse = 5 on the rows the second thread took, in one process in
+five; never on the calling thread), so a second thread made float32
+results vary from process to process.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-TORCH_THREADS = 2
+TORCH_THREADS = 1
 torch.set_num_threads(TORCH_THREADS)
 
 BAND_INF = 1 << 30
