@@ -11,15 +11,21 @@ c.ffa_bwd_phase(c.card_peaks(torch.cuda.get_device_name(0)))"``.
 Phases, each printing JSON lines (any failure raises, exit code != 0):
 
 1. ``device``: the card's name, power limit and NVIDIA driver version,
-   and the build time.
+   and the build time. ``tensor_cores``: per library of the bf16
+   tensor-core kernels (``ffa_fwd``, ``ffa_fwd_gqa``, ``ffa_bwd_fused``),
+   the HGMMA and HMMA counts of each kernel's SASS (``cuobjdump -sass``)
+   and each bf16 instance's registers, spills and shared memory; fails if
+   one has no HGMMA or spills.
 2. ``ffa_fwd``: the FFA forward kernel against its plain version
    (``sdpa_attn``) at (a) the serving prefill shape, (b) the bf16 causal
-   headline shape and (c) a bf16 varlen mask with uncovered rows.
+   headline shape, (c) a bf16 varlen mask with uncovered rows and (d) the
+   train phase's attention shape.
 3. ``ffa_bwd``: the split backward kernels (delta, dq, dk/dv) against their
    plain versions at (a) the bf16 causal headline shape, (b) the bf16
    varlen mask, (c) float32 at the serving prefill shape and (d) the train
    phase's attention shape, plus the whole forward + backward of
-   ``ffa_attn`` against SDPA's.
+   ``ffa_attn`` against SDPA's, and SDPA's backward alone where every row
+   is covered.
 4. ``ffa_bwd_fused``: the fused one-pass backward kernel at the same four
    shapes, against its plain version and against the split kernels.
    ``ffa_fwd_gqa`` / ``ffa_bwd_dq_gqa``: the GQA-packed forward and dq
@@ -307,6 +313,7 @@ def ffa_phase(peaks: dict) -> list[dict]:
             ("serving_prefill_f32", "a_serving_prefill_f32"),
             ("causal_8192_bf16", "b_causal_8192_bf16"),
             ("varlen_8192_bf16", "c_varlen_8192_bf16"),
+            ("train_docs_8192_bf16", "d_train_docs_8192_bf16"),
         )
     ]
 
@@ -501,6 +508,17 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
             "scaled_dot_product_attention(" + ("is_causal=True" if "is_causal" in sdpa_kw
                                               else "attn_mask=bool") + ", enable_gqa=True)"
         )
+        # SDPA's backward alone, where every row is covered: the forward
+        # runs once outside the timer, the graph is kept for every call
+        res["sdpa_bwd_ms"] = None
+        if "uncovered" not in c:
+            qt, kt, vt = (t.transpose(0, 1)[None] for t in (qg, kg, vg))
+            o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
+            do_t = do.transpose(0, 1)[None]
+            res["sdpa_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(o, (qg, kg, vg), do_t, retain_graph=True), samples=5
+            )
+            del o
         emit({"phase": "ffa_bwd", **res})
         results[name] = res
         del mask, qg, kg, vg
@@ -514,7 +532,8 @@ def ffa_bwd_fused_phase(peaks: dict, bwd: dict) -> dict[str, dict]:
     kernels (dq, dk/dv), both within the dtype's tolerance. Asserts that
     uncovered rows get dq exactly 0 and unreached k rows dk = dv = 0. Bound:
     10 flops per live pair per head and d (its 5 tile products); the
-    library time is SDPA's forward + backward from the ``ffa_bwd`` phase.
+    library time is SDPA's backward alone from the ``ffa_bwd`` phase where
+    every row is covered, else its forward + backward.
     Atomic traffic: one 64 x d float32 read-modify-write per (work item, q
     head)."""
     import torch
@@ -583,8 +602,10 @@ def ffa_bwd_fused_phase(peaks: dict, bwd: dict) -> dict[str, dict]:
             plain_ms=time_ms(lambda: ffa_bwd_fused_plain(*args), warmup=1),
             split_ms=bwd[name]["ffa_bwd_dq"]["ms"] + bwd[name]["ffa_bwd_dkv"]["ms"],
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=bwd[name]["sdpa_fwd_bwd_ms"],
-            library_call=bwd[name]["sdpa_fwd_bwd_call"] + " forward + backward",
+            library_ms=bwd[name]["sdpa_bwd_ms"] or bwd[name]["sdpa_fwd_bwd_ms"],
+            library_call=bwd[name]["sdpa_fwd_bwd_call"] + (
+                " backward alone" if bwd[name]["sdpa_bwd_ms"] else " forward + backward"
+            ),
             tflops=flops / (ms * 1e-3) / 1e12,
             atomic_rmw_bytes=real_items * hq * 64 * d * 4 * 2,
             atol=ATOL[dname], rnorm=RNORM[dname],
@@ -663,14 +684,17 @@ def ffa_fwd_gqa_phase(peaks: dict) -> dict[str, dict]:
         c = gqa_case(*spec)
         name, d, hq, hk = c["name"], c["d"], c["hq"], c["hk"]
         dname = str(c["dtype"]).removeprefix("torch.")
-        heads = fwd_pack_heads(hq // hk, d, d)
+        isz = c["dtype"].itemsize
+        heads = fwd_pack_heads(hq // hk, d, d, isz)
         decision = dict(case=name, group=hq // hk, head_dim=d, heads_per_cta=heads)
         if heads < 2:
             emit({"phase": "ffa_fwd_gqa", **decision, "route": "unpacked (guard)"})
             continue
-        lib_smem = kffa._lib("ffa_fwd_gqa").ffa_fwd_gqa_smem_bytes(d, heads)
-        if lib_smem != fwd_pack_smem_bytes(d, heads):
-            raise AssertionError(f"{name}: kernel smem {lib_smem} != guard's {fwd_pack_smem_bytes(d, heads)}")
+        lib_smem = kffa._lib("ffa_fwd_gqa").ffa_fwd_gqa_smem_bytes(d, heads, int(isz == 2))
+        if lib_smem != fwd_pack_smem_bytes(d, heads, isz):
+            raise AssertionError(
+                f"{name}: kernel smem {lib_smem} != guard's {fwd_pack_smem_bytes(d, heads, isz)}"
+            )
         (q, k, v), (qr, kr, lo, hi), plan, params = case_inputs(c, gen)
 
         def kernel():
@@ -850,8 +874,10 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
     phases) and the sink-window mask (timed here, fused checked against
     split), the cost model's choice beside the measured fused and split
     (dq + dk/dv) times. Fails where the model picks the slower mode by more
-    than 5%. Also the constants the model would take from this run at the
-    train shape (``tile_policy.calibrate``) beside the ones in the code."""
+    than 5%. Also the constants the model would take from this run
+    (``tile_policy.calibrate`` at the train shape for the CUDA-core
+    kernels, ``calibrate_fused_tc`` over the four bf16 masks for the
+    tensor-core fused body) beside the ones in the code."""
     import torch
 
     from magiattention_tpu_torch.kernels import tile_policy
@@ -889,20 +915,23 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
         dq_gqa=time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args)),
     )
 
-    rows = []
+    rows, tc_shapes, tc_ms = [], [], []
     for key, ms in measured.items():
         c = all_cases[key]
         isz = 4 if c["dtype"] == torch.float32 else 2
         (q, k, _), _, plan, params = case_inputs(c, gen)
         mode = ffa_bwd_mode(plan, params, 128, 128, isz, c["hq"], c["hk"])
         shape = bwd_shape(plan, c["hq"], c["hk"], 128, 128, isz)
+        if isz == 2:  # the tensor-core fused body's times, for its fit
+            tc_shapes.append(shape)
+            tc_ms.append(ms["fused"])
         split_ms = ms["dq"] + ms["dkv"]
         faster = "fused" if ms["fused"] <= split_ms else "split"
         gap = abs(ms["fused"] - split_ms) / min(ms["fused"], split_ms)
         row = dict(
             case=key, model_mode=mode, faster=faster, agree=mode == faster, gap=gap,
             fused_ms=ms["fused"], split_ms=split_ms, dq_ms=ms["dq"], dkv_ms=ms["dkv"],
-            modeled_ms=tile_policy.kernel_ms(shape),
+            modeled_ms=tile_policy.kernel_ms(shape), fused_body=tile_policy.fused_body(shape),
             real_items=int(shape.items_k.sum()), longest_k_run=int(shape.items_k.max()),
             longest_q_run=int(shape.items_q.max()),
         )
@@ -915,14 +944,22 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
     c = all_cases["train_docs_8192_bf16"]
     (q, k, _), _, plan, params = case_inputs(c, gen)
     shape = bwd_shape(plan, c["hq"], c["hk"], 128, 128, 2)
+    # the CUDA-core split kernels' constants (the fused time here is the
+    # tensor-core body's, so calibrate's atomic rate of the CUDA-core
+    # fused body does not apply and is left out)
     calib = tile_policy.calibrate(shape, measured["train_docs_8192_bf16"])
-    calib.update(tile_policy.calibrate(
+    calib.pop("atomic_adds_per_s")
+    calib["dq_gqa"] = tile_policy.calibrate(
         shape, dict(measured["train_docs_8192_bf16"], dq=dq_gqa["a_docs_bf16_d128_g4"]["ms"]),
         dq_heads_per_cta=dq_gqa["a_docs_bf16_d128_g4"]["heads_per_cta"],
-    ))
+    )["dq_gqa"]
+    calib.update(tile_policy.calibrate_fused_tc(tc_shapes, tc_ms))
     emit({
         "phase": "bwd_mode_constants", "from_this_run": calib,
-        "in_code": dict(tile_policy.ITEM_US, atomic_adds_per_s=tile_policy.ATOMIC_ADDS_PER_S),
+        "in_code": dict(
+            tile_policy.ITEM_US, atomic_adds_per_s=tile_policy.ATOMIC_ADDS_PER_S,
+            fused_tc_item_us=tile_policy.FUSED_TC_ITEM_US,
+        ),
     })
     return rows
 
@@ -2046,6 +2083,136 @@ def build_report(name: str) -> list[str]:
     ] if log.exists() else []
 
 
+# the libraries whose bf16 entries run on the tensor cores; every such
+# kernel's name carries TC_TAG (csrc/ffa_fwd_tc.cuh, csrc/bwd_fused_tc.cuh)
+TC_LIBRARIES = ("ffa_fwd", "ffa_fwd_gqa", "ffa_bwd_fused")
+TC_TAG = "_tc_kernel"
+
+
+def kernel_label(mangled: str) -> str:
+    """``ffa_fwd_tc_kernel<128,1>`` from a kernel's mangled name (its name
+    and integer template arguments)."""
+    import re
+
+    m = re.search(r"\d([a-z_]+_kernel)(?:I(.*?)EEv|E)", mangled)
+    if not m:
+        return mangled
+    if m.group(2) is None:
+        return m.group(1)
+    args = re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)|Lb(\d)E", m.group(2) + "E")
+    parts = [a or ("float" if f else "bf16" if b else c) for a, f, b, c in args]
+    return f"{m.group(1)}<{','.join(parts)}>"
+
+
+def ptxas_report(name: str) -> dict[str, dict]:
+    """Per kernel of one library (by :func:`kernel_label`), what its
+    ``ptxas -v`` log says: registers and spill bytes."""
+    import re
+
+    from magiattention_tpu_torch.kernels import _build
+
+    report, fn = {}, None
+    for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = kernel_label(m.group(1))
+            report[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            report[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            report[fn]["registers"] = int(m.group(1))
+    return report
+
+
+def cuobjdump() -> str:
+    """The CUDA toolkit's ``cuobjdump``, else the copy in Triton's package."""
+    import os
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "cuobjdump")):
+            return os.path.join(root, "bin", "cuobjdump")
+    import triton
+
+    return os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump")
+
+
+def sass_counts(name: str) -> dict[str, dict]:
+    """Per kernel of one library (by :func:`kernel_label`), its HGMMA
+    (wgmma) and HMMA (mma.sync) instructions in the SASS."""
+    from magiattention_tpu_torch.kernels import _build
+
+    out = subprocess.run(
+        [cuobjdump(), "-sass", str(_build.library_path(name))],
+        check=True, capture_output=True, text=True, timeout=300,
+    ).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = kernel_label(line.split("Function :")[1].strip())
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn and "HGMMA" in line:
+            counts[fn]["HGMMA"] += 1
+        elif fn and "HMMA" in line:
+            counts[fn]["HMMA"] += 1
+    return counts
+
+
+def tensor_core_phase() -> dict[str, dict]:
+    """Proof that the bf16 FFA forward (B1, B2) and fused backward (B8/B9)
+    run on the tensor cores: per library, the HGMMA and HMMA counts of
+    each kernel's SASS, and beside each bf16 (tensor-core) instance its
+    registers, spills and dynamic shared memory (the library's own
+    ``<name>_smem_bytes``, held equal to the Python figure the guards
+    use). Fails if a library has no tensor-core kernel, if one has no
+    HGMMA, if one spills, or if the two shared-memory figures differ."""
+    import re
+
+    from magiattention_tpu_torch.kernels import ffa as kffa
+
+    results = {}
+    for lib in TC_LIBRARIES:
+        sass, ptxas = sass_counts(lib), ptxas_report(lib)
+        tc = {}
+        for fn, n in sass.items():
+            if TC_TAG not in fn:
+                continue
+            dims = [int(x) for x in re.findall(r"\d+", fn.split("<")[1])]
+            query = getattr(kffa._lib(lib), f"{lib}_smem_bytes")
+            if lib == "ffa_bwd_fused":
+                smem, want = query(dims[0], 1), kffa.fused_bwd_smem_bytes(dims[0], 2)
+            elif lib == "ffa_fwd":
+                smem, want = query(dims[0], 1), kffa.fwd_pack_smem_bytes(dims[0], 1, 2)
+            else:
+                smem, want = query(dims[0], dims[1], 1), kffa.fwd_pack_smem_bytes(dims[0], dims[1], 2)
+            if smem != want:
+                raise AssertionError(f"{lib}: {fn} shared memory {smem} != guard's {want}")
+            tc[fn] = dict(**n, **ptxas.get(fn, {}), smem_bytes=smem)
+        row = dict(
+            library=lib,
+            hgmma=sum(n["HGMMA"] for n in sass.values()),
+            hmma=sum(n["HMMA"] for n in sass.values()),
+            tensor_core_kernels=tc,
+            cuda_core_kernels={fn: n for fn, n in sass.items() if TC_TAG not in fn},
+        )
+        emit({"phase": "tensor_cores", **row})
+        if not tc:
+            raise AssertionError(f"{lib}: no tensor-core kernel in the library")
+        for fn, r in tc.items():
+            if r["HGMMA"] == 0:
+                raise AssertionError(f"{lib}: {fn} has no HGMMA instruction")
+            if r.get("spill_stores", 1) or r.get("spill_loads", 1):
+                raise AssertionError(f"{lib}: {fn} spills (or has no ptxas report): {r}")
+        results[lib] = row
+    return results
+
+
 def block_sparse_phase(peaks: dict) -> dict[str, dict]:
     """B13 and B14 against their plain versions on the same chunk tables
     (``block_sparse_fwd_plain`` / ``block_sparse_bwd_plain``: a gathered
@@ -2472,6 +2639,7 @@ def main() -> int:
         "peak_tb_s": peaks["bytes_s"] / 1e12, "build_s": build_s,
     })
 
+    tensor_core_phase()
     ffa = ffa_phase(peaks)
     bwd = ffa_bwd_phase(peaks)
     fused = ffa_bwd_fused_phase(peaks, bwd)

@@ -16,9 +16,9 @@
 // Design. The TPU kernel accumulates dq in its output window, revisited
 // along a sequential grid under the plan's first/last-visit flags
 // (QVF/QVL). A GPU runs CTAs in no order, so here dq goes to a float32
-// workspace the wrapper zeroes: the kernel (csrc/bwd_kv.cuh, FUSED) adds
-// each (item, head)'s dS K block to it with float32 atomics, and
-// ffa_bwd_fused_convert then multiplies it by softmax_scale in place. The
+// workspace the wrapper zeroes: the kernel adds each (item, head)'s dS K
+// block to it with float32 atomics, and ffa_bwd_fused_convert then
+// multiplies it by softmax_scale in place. The
 // atomics make dq depend on the order of the additions, so it is not
 // bitwise reproducible; the split backward (dq and dkv kernels) stays the
 // deterministic mode. Scores are scaled in float32 inside the kernel, as in
@@ -26,14 +26,19 @@
 // in the input type and divides ln 2 back out of dk); softcap keeps the
 // exp domain and the 1 - tanh^2 factor.
 //
-// What bounds it on this card: operations. Work is 10 * D flops per live
-// (row, col) pair and q head (S, dP, P^T dO, dS^T Q, dS K) on the CUDA
-// cores in float32 (67 TFLOP/s peak on an H100 SXM); tensor cores and TMA
-// are later work. Shared memory is the dk/dv kernel's (173 KB at D = 128):
-// the dq block reads the dS^T and K tiles already resident. Atomic traffic
-// is one 64 x D float32 block per (item, q head): a read-modify-write of
+// Two bodies. bfloat16: csrc/bwd_fused_tc.cuh, the five products on the
+// tensor cores (wgmma, one warpgroup per CTA, the next step's Q and dO
+// double-buffered by cp.async, dq added by 16-byte vector atomics).
+// float32: csrc/bwd_kv.cuh with FUSED, float32 FMA on the CUDA cores (67
+// TFLOP/s peak on an H100 SXM), shared with the split dk/dv kernel; its
+// shared memory is the dk/dv kernel's (173 KB at D = 128): the dq block
+// reads the dS^T and K tiles already resident, and adds with scalar
+// atomics. What bounds both: operations, 10 * D flops per live (row, col)
+// pair and q head (S, dP, P^T dO, dS^T Q, dS K); then atomic traffic, one
+// 64 x D float32 block per (item, q head), a read-modify-write of
 // 64 * D * 4 bytes in L2 each.
 #include "bwd_kv.cuh"
+#include "bwd_fused_tc.cuh"
 
 namespace {
 
@@ -80,10 +85,31 @@ extern "C" int ffa_bwd_fused_bf16(const void* q, const void* k, const void* v,
                                   int sq, int sk, int hq, int hk, int d,
                                   int num_k_tiles, float scale, float softcap,
                                   void* stream) {
-  return dispatch<__nv_bfloat16, true>(d, q, k, v, dout, lse, delta, dk, dv,
-                                       dq, work_qt_t, meta_t, run_ptr_t, sq,
-                                       sk, hq, hk, num_k_tiles, scale,
-                                       softcap, stream);
+  switch (d) {
+    case 64:
+      return bwd_tc::launch<64>(q, k, v, dout, lse, delta, dk, dv, dq,
+                                work_qt_t, meta_t, run_ptr_t, sq, sk, hq, hk,
+                                num_k_tiles, scale, softcap, stream);
+    case 128:
+      return bwd_tc::launch<128>(q, k, v, dout, lse, delta, dk, dv, dq,
+                                 work_qt_t, meta_t, run_ptr_t, sq, sk, hq, hk,
+                                 num_k_tiles, scale, softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shared memory one CTA takes (bf16: the tensor-core body, else the
+// float32 one), for the wrapper's figure to be checked against: 0 for a
+// head dim this library has no kernel for.
+extern "C" long ffa_bwd_fused_smem_bytes(int d, int bf16) {
+  if (d == 64)
+    return bf16 ? (long)bwd_tc::Smem<64>::bytes
+                : (long)DkvSmem<64>::bytes;
+  if (d == 128)
+    return bf16 ? (long)bwd_tc::Smem<128>::bytes
+                : (long)DkvSmem<128>::bytes;
+  return 0;
 }
 
 // The convert pass: dq (n float32 values, n % 4 == 0) *= scale, in place.

@@ -5,11 +5,14 @@
 // _ffa_fwd_pallas, pallas_call at ffa.py:462), with its optional
 // max-logits output (ffa.py:130, :482-487).
 //
-// The kernel body, its design and what bounds it are in csrc/ffa_fwd.cuh,
-// shared with the GQA-packed variant (csrc/ffa_fwd_gqa.cu). Here G = 1:
-// Q and one K-or-V tile (the v tile replaces the k tile each item) and the
-// 64 x 80 P tile, 86 KB of shared memory at D = 128, so two CTAs share an
-// SM.
+// Two bodies, each shared with the GQA-packed variant (csrc/ffa_fwd_gqa.cu),
+// here at G = 1. bfloat16: csrc/ffa_fwd_tc.cuh, on the tensor cores (wgmma,
+// one warpgroup per CTA, K/V double-buffered by cp.async; 80 KB of shared
+// memory at D = 128, two CTAs per SM). float32: csrc/ffa_fwd.cuh, float32
+// FMA on the CUDA cores (never TF32, for the serving replay tolerance): Q
+// and one K-or-V tile (the v tile replaces the k tile each item) and the
+// 64 x 80 P tile, 86 KB at D = 128, two CTAs per SM. Their designs and
+// what bounds them are in the headers.
 //
 // Max-logits: the TPU kernel keeps a per-(head, q tile) running max of the
 // scaled, softcapped logits and reduces it on the host. Here the running
@@ -19,6 +22,7 @@
 // with ln(2) and writes one float per (q tile, head); the wrapper takes the
 // max over q tiles. A nullptr skips it.
 #include "ffa_fwd.cuh"
+#include "ffa_fwd_tc.cuh"
 
 namespace {
 
@@ -65,7 +69,29 @@ extern "C" int ffa_fwd_bf16(const void* q, const void* k, const void* v,
                             const int* run_ptr, int sq, int sk, int hq, int hk,
                             int d, int num_q_tiles, float scale,
                             float softcap, void* stream) {
-  return dispatch<__nv_bfloat16>(d, q, k, v, out, lse, max_logits, work_kt,
-                                 meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                 scale, softcap, stream);
+  switch (d) {
+    case 64:
+      return fwd_tc::launch<64, 1>(q, k, v, out, lse, max_logits, work_kt,
+                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                   scale, softcap, stream);
+    case 128:
+      return fwd_tc::launch<128, 1>(q, k, v, out, lse, max_logits, work_kt,
+                                    meta, run_ptr, sq, sk, hq, hk,
+                                    num_q_tiles, scale, softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shared memory one CTA takes (bf16: the tensor-core body, else the
+// float32 one), for the wrapper's figure to be checked against: 0 for a
+// head dim this library has no kernel for.
+extern "C" long ffa_fwd_smem_bytes(int d, int bf16) {
+  if (d == 64)
+    return bf16 ? (long)fwd_tc::Smem<64, 1>::bytes
+                : (long)FwdSmem<64, 1>::bytes;
+  if (d == 128)
+    return bf16 ? (long)fwd_tc::Smem<128, 1>::bytes
+                : (long)FwdSmem<128, 1>::bytes;
+  return 0;
 }

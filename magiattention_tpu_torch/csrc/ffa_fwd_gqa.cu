@@ -7,21 +7,28 @@
 // The TPU kernel stacks the g heads of a kv head into one (g * bq)-row MXU
 // operand so each K/V block is fetched once per work item for the group.
 // Here the CTA keeps the G q tiles and the item's k and v tiles in shared
-// memory and runs the per-head body of csrc/ffa_fwd.cuh once per head
-// against them: each K/V tile is loaded once per item for G heads, where
-// the unpacked kernel loads it once per head. The per-row arithmetic and
-// its order are the unpacked kernel's, so out and lse are bit-identical to
-// csrc/ffa_fwd.cu on the same inputs; only the grid differs.
+// memory and runs the per-head body of csrc/ffa_fwd.cu's kernel once per
+// head against them: each K/V tile is loaded once per item for G heads,
+// where the unpacked kernel loads it once per head. The per-row arithmetic
+// and its order are the unpacked kernel's, so out and lse are
+// bit-identical to csrc/ffa_fwd.cu on the same inputs; only the grid
+// differs.
 //
-// G is 2 or 4, the largest that divides the group and fits (the wrapper's
-// guard, kernels/ffa.py:fwd_pack_heads, computes the same figures): G q
-// tiles, k and v tiles and the P tile, 4 * (G * 64 + 2 * 64) * (D + 4) +
-// 4 * 64 * 80 bytes of shared memory (223 KB at D = 128, G = 4; one CTA per
-// SM), and G heads' accumulators (G * (D / 4 + 8) floats a thread) in
-// registers. A larger group runs in blocks of G heads (g = 8: two CTAs per
-// kv head). No max-logits output: the TPU's packed kernel emits none, and
-// the guard sends a max-logits request to the unpacked kernel.
+// bfloat16 (csrc/ffa_fwd_tc.cuh, tensor cores): one consumer warpgroup per
+// head; G q tiles and two stages of K and V, (G + 4) * 64 * D * 2 bytes of
+// shared memory, and a thread holds its head's O accumulator (D / 2
+// floats), S (32) and P (16): G is 2 at D = 128 (four warpgroups would
+// leave 128 registers a thread) and 2 or 4 at D = 64.
+// float32 (csrc/ffa_fwd.cuh, CUDA cores): G q tiles, k and v tiles and the
+// P tile, 4 * (G * 64 + 2 * 64) * (D + 4) + 4 * 64 * 80 bytes (223 KB at
+// D = 128, G = 4; one CTA per SM), and G heads' accumulators (G * (D / 4 +
+// 8) floats a thread); G is 2 or 4.
+// The wrapper's guard (kernels/ffa.py:fwd_pack_heads) computes the same
+// figures. A larger group runs in blocks of G heads (g = 8: several CTAs
+// per kv head). No max-logits output: the TPU's packed kernel emits none,
+// and the guard sends a max-logits request to the unpacked kernel.
 #include "ffa_fwd.cuh"
+#include "ffa_fwd_tc.cuh"
 
 namespace {
 
@@ -85,14 +92,33 @@ extern "C" int ffa_fwd_gqa_bf16(const void* q, const void* k, const void* v,
                                 int sk, int hq, int hk, int d,
                                 int heads_per_cta, int num_q_tiles,
                                 float scale, float softcap, void* stream) {
-  return dispatch<__nv_bfloat16>(d, heads_per_cta, q, k, v, out, lse, work_kt,
-                                 meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                 scale, softcap, stream);
+  const int g = heads_per_cta;
+  if (g < 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
+  if (d == 128 && g == 2)
+    return fwd_tc::launch<128, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
+                                  run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
+                                  softcap, stream);
+  if (d == 64 && g == 2)
+    return fwd_tc::launch<64, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
+                                 run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
+                                 softcap, stream);
+  if (d == 64 && g == 4)
+    return fwd_tc::launch<64, 4>(q, k, v, out, lse, nullptr, work_kt, meta,
+                                 run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
+                                 softcap, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The shared memory one CTA takes, for the wrapper's guard to check its
-// own figure against: 0 for a geometry this library has no kernel for.
-extern "C" long ffa_fwd_gqa_smem_bytes(int d, int g) {
+// The shared memory one CTA takes (bf16: the tensor-core body, else the
+// float32 one), for the wrapper's guard to check its own figure against:
+// 0 for a geometry this library has no kernel for.
+extern "C" long ffa_fwd_gqa_smem_bytes(int d, int g, int bf16) {
+  if (bf16) {
+    if (d == 64 && g == 2) return (long)fwd_tc::Smem<64, 2>::bytes;
+    if (d == 64 && g == 4) return (long)fwd_tc::Smem<64, 4>::bytes;
+    if (d == 128 && g == 2) return (long)fwd_tc::Smem<128, 2>::bytes;
+    return 0;
+  }
   if (d == 64 && g == 2) return (long)FwdSmem<64, 2>::bytes;
   if (d == 64 && g == 4) return (long)FwdSmem<64, 4>::bytes;
   if (d == 128 && g == 2) return (long)FwdSmem<128, 2>::bytes;

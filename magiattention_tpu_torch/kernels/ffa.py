@@ -22,6 +22,13 @@ for the forward and dq, k-major for dk/dv. Seven CUDA kernels walk them:
 - ``csrc/ffa_bwd_fused.cu``: dq, dk and dv in one pass over the k-major
   runs (the fused backward: dq by float32 atomics, then a scale pass).
 
+The bf16 entries of the forward pair and the fused backward run on the
+tensor cores (``csrc/ffa_fwd_tc.cuh``, ``csrc/bwd_fused_tc.cuh``: wgmma,
+one warpgroup per head); their float32 entries, and the split pair in
+both dtypes, run float32 FMA on the CUDA cores. So the packed forward's
+guard (:func:`fwd_pack_heads`) and the cost model's fused body
+(:mod:`.tile_policy`) depend on the dtype.
+
 :func:`ffa_fwd_dispatch` and :func:`ffa_bwd_dq_dispatch` are the one entry
 of every forward and split-dq caller; they pick the packed or unpacked
 kernel as the JAX package's ``ffa_fwd_pallas_dispatch`` /
@@ -150,6 +157,11 @@ _ARGTYPES = {
     "ffa_bwd_fused": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
 }
 
+# the libraries that report one CTA's shared memory in bytes, with the int
+# arguments of their <name>_smem_bytes: d, then heads_per_cta (packed)
+# and/or a bf16 flag
+_SMEM_ARGS = {"ffa_fwd": 2, "ffa_fwd_gqa": 3, "ffa_bwd_dq_gqa": 2, "ffa_bwd_fused": 2}
+
 
 @lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
@@ -162,10 +174,9 @@ def _lib(name: str) -> ctypes.CDLL:
         # dq n scale stream
         lib.ffa_bwd_fused_convert.argtypes = [_P, _L, _F, _P]
         lib.ffa_bwd_fused_convert.restype = ctypes.c_int
-    if name.endswith("_gqa"):
-        # d heads_per_cta -> shared memory bytes of one CTA
+    if name in _SMEM_ARGS:
         smem = getattr(lib, f"{name}_smem_bytes")
-        smem.argtypes = [_I, _I]
+        smem.argtypes = [_I] * _SMEM_ARGS[name]
         smem.restype = ctypes.c_long
     return lib
 
@@ -269,7 +280,7 @@ def ffa_fwd_gqa_kernel(
     q, k, v = _kernel_inputs("ffa_fwd_gqa_kernel", params, q, k, v)
     sq, hq, d = q.shape
     sk, hk, _ = k.shape
-    heads = fwd_pack_heads(hq // hk, d, v.shape[-1])
+    heads = fwd_pack_heads(hq // hk, d, v.shape[-1], q.element_size())
     if heads < 2:
         raise ValueError(f"ffa_fwd_gqa_kernel: group {hq // hk} at d={d} does not pack")
     out = torch.empty_like(q)
@@ -600,9 +611,14 @@ def _tile_floats(d: int) -> int:
     return 64 * (d + 4)
 
 
-def fwd_pack_smem_bytes(d: int, heads: int) -> int:
-    """Shared memory of one packed-forward CTA (csrc/ffa_fwd.cuh
-    ``FwdSmem``): the heads' q tiles, the k and v tiles, the P tile."""
+def fwd_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
+    """Shared memory of one packed-forward CTA. float32 (csrc/ffa_fwd.cuh
+    ``FwdSmem``): the heads' q tiles, the k and v tiles, the P tile.
+    bfloat16 (csrc/ffa_fwd_tc.cuh ``Smem``): the heads' q tiles and two
+    stages of k and v tiles in bf16, 16 bytes a head for the max-logits
+    reduction, and 1024 bytes to align the window for the swizzle."""
+    if itemsize == 2:
+        return (heads + 4) * 64 * d * 2 + 16 * heads + 1024
     return 4 * ((heads + 2) * _tile_floats(d) + P_TILE_FLOATS)
 
 
@@ -625,14 +641,45 @@ def _pack_heads(group: int, d: int, dv: int, smem_bytes, regs_per_head: int, reg
     return 1
 
 
-def fwd_pack_heads(group: int, d: int, dv: int) -> int:
+# the register file of one SM; a packed tensor-core CTA runs one warpgroup
+# (128 threads) per head
+REGS_PER_SM = 65_536
+# what a thread of a tensor-core forward warpgroup holds beside its O
+# accumulator (d / 2 floats): S (32), P in bf16 (16), and addresses,
+# indices and the softmax state (40)
+TC_FWD_REGS_SHARED = 88
+
+
+def _tc_fwd_pack_heads(group: int, d: int, dv: int) -> int:
+    """Heads per CTA of the bf16 (tensor-core) packed forward: the largest
+    of :data:`PACK_HEADS` dividing the group whose CTA fits the shared
+    memory limit and whose warpgroups (128 threads a head) each find the
+    registers a thread needs (d / 2 + 88) in the SM's file."""
+    if d != dv or d not in KERNEL_HEAD_DIMS:
+        return 1
+    for heads in PACK_HEADS:
+        regs = min(REGS_PER_THREAD, REGS_PER_SM // (128 * heads))
+        if (
+            group % heads == 0
+            and fwd_pack_smem_bytes(d, heads, 2) <= SMEM_PER_CTA
+            and d // 2 + TC_FWD_REGS_SHARED <= regs
+        ):
+            return heads
+    return 1
+
+
+def fwd_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
     """Query heads per CTA of the packed forward at this geometry, 1 where
     it does not pack: the largest of :data:`PACK_HEADS` that divides the
-    group and fits, i.e. shared memory (:func:`fwd_pack_smem_bytes`) within
-    the opt-in limit and a thread's live accumulators (per head 4 rows x
-    d/16 output columns, 4 maxima and 4 sums; the 4 x 4 score block) with
-    room for addresses and operands (64) within the register limit. A
+    group and fits. float32 (the CUDA-core body): shared memory
+    (:func:`fwd_pack_smem_bytes`) within the opt-in limit and a thread's
+    live accumulators (per head 4 rows x d/16 output columns, 4 maxima and
+    4 sums; the 4 x 4 score block) with room for addresses and operands
+    (64) within the register limit. bfloat16 (the tensor-core body):
+    :func:`_tc_fwd_pack_heads`, 2 heads at head_dim 128 and 4 at 64. A
     group larger than the block runs in several blocks per kv head."""
+    if itemsize == 2:
+        return _tc_fwd_pack_heads(group, d, dv)
     return _pack_heads(group, d, dv, fwd_pack_smem_bytes, d // 4 + 8, 16)
 
 
@@ -661,15 +708,18 @@ def gqa_pack_variant(kind: str) -> str:
     return "gqa_packed" if flags[kind]() else "plain"
 
 
-def _use_gqa_pack(group: int, d: int, dv: int, return_max_logits: bool = False) -> int:
+def _use_gqa_pack(
+    group: int, d: int, dv: int, return_max_logits: bool = False, itemsize: int = 4
+) -> int:
     """Heads per CTA of the forward (the JAX package's ``_use_gqa_pack``
-    for Hopper): the packed kernel's (:func:`fwd_pack_heads`) when the flag
-    is on, the group is > 1 and no max-logits is asked for (the packed
-    kernel emits none, as in the JAX package); 1, the unpacked kernel,
-    otherwise. Decided before any launch: a failed launch raises."""
+    for Hopper): the packed kernel's (:func:`fwd_pack_heads` for the input
+    dtype's ``itemsize``) when the flag is on, the group is > 1 and no
+    max-logits is asked for (the packed kernel emits none, as in the JAX
+    package); 1, the unpacked kernel, otherwise. Decided before any
+    launch: a failed launch raises."""
     if gqa_pack_variant("fwd") != "gqa_packed" or group <= 1 or return_max_logits:
         return 1
-    return fwd_pack_heads(group, d, dv)
+    return fwd_pack_heads(group, d, dv, itemsize)
 
 
 def _use_gqa_pack_dq(group: int, d: int, dv: int) -> int:
@@ -686,7 +736,8 @@ def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logit
     ``ffa_fwd_pallas_dispatch``): the one entry of every forward caller
     (``_FFACore``, the sink core, ``_MultiFFA``). Returns (out, lse), plus
     max_logits ``[hq]`` when asked for (always by the unpacked kernel)."""
-    if _use_gqa_pack(q.shape[1] // k.shape[1], q.shape[-1], v.shape[-1], return_max_logits) > 1:
+    group, itemsize = q.shape[1] // k.shape[1], q.element_size()
+    if _use_gqa_pack(group, q.shape[-1], v.shape[-1], return_max_logits, itemsize) > 1:
         return ffa_fwd_gqa(q, k, v, plan, params)
     return ffa_fwd(q, k, v, plan, params, return_max_logits)
 
@@ -699,10 +750,15 @@ def ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParam
     return fn(q, k, v, do, lse, delta, plan, params)
 
 
-def fused_bwd_smem_bytes(d: int) -> int:
-    """Shared memory of one fused-backward CTA (csrc/bwd_kv.cuh
+def fused_bwd_smem_bytes(d: int, itemsize: int = 4) -> int:
+    """Shared memory of one fused-backward CTA. float32 (csrc/bwd_kv.cuh
     ``DkvSmem``): K, V, Q and dO tiles at row stride d + 4, the P^T and
-    dS^T tiles at row stride 80, the q tile's lse and delta, float32."""
+    dS^T tiles at row stride 80, the q tile's lse and delta, float32.
+    bfloat16 (csrc/bwd_fused_tc.cuh ``Smem``): K, V and two stages of Q
+    and dO in bf16, the 64 x 64 bf16 dS^T tile, two stages of lse and
+    delta, and 1024 bytes to align the window for the swizzle."""
+    if itemsize == 2:
+        return 6 * 64 * d * 2 + 64 * 64 * 2 + 2 * 2 * 64 * 4 + 1024
     return 4 * (4 * _tile_floats(d) + 2 * P_TILE_FLOATS + 2 * 64)
 
 
@@ -711,8 +767,12 @@ def fused_bwd_feasible(d: int, dv: int) -> bool:
     v head dims in 64-column groups (the thread layout), its shared memory
     within the opt-in limit, and the live accumulators of a thread (dk and
     dv, d / 2; the dq block, 16; the S and dP blocks, 32) with room for
-    addresses and operands (64) within the register limit. The JAX
-    package's guard is its VMEM residency (``ffa.fused_bwd_feasible``)."""
+    addresses and operands (64) within the register limit. These are the
+    float32 body's figures; the bf16 tensor-core body takes less shared
+    memory (:func:`fused_bwd_smem_bytes`) and fits its registers at head
+    dims 64 and 128 without a spill (chip_smoke.py's ``tensor_cores``
+    phase reports both from the build). The JAX package's
+    guard is its VMEM residency (``ffa.fused_bwd_feasible``)."""
     if d != dv or d % 64:
         return False
     accumulators = d // 2 + 16 + 32

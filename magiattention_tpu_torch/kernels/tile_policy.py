@@ -5,33 +5,42 @@ The JAX package's model (``magiattention_tpu/kernels/tile_policy.py``:
 tensor-core tile products per work item plus HBM blocks per work item,
 and charges the fused mode a float32 dq read-modify-write in HBM for
 every (k-major item, head). None of that describes the port's kernels:
-they run float32 FMA on the CUDA cores, one CTA per run of a tile's items
-(operands of the run's tile resident, the other side streamed per item),
-and the fused kernel's dq atomics resolve in L2. So this model prices what
-the card does:
+the split kernels (dq, dk/dv) and the float32 fused kernel run float32 FMA
+on the CUDA cores, the bf16 fused kernel runs its products on the tensor
+cores (csrc/bwd_fused_tc.cuh), all one CTA per run of a tile's
+items (operands of the run's tile resident, the other side streamed per
+item), and the fused kernel's dq atomics resolve in L2. So this model
+prices what the card does:
 
 - **compute**: each kernel's CTAs, in launch order, dealt to the SMs'
-  slots as they free up (one CTA per SM for the dq, dk/dv and fused
-  kernels), each CTA taking (items in its run) x (heads it loops) x the
-  kernel's measured time per (item, head); the kernel's time is the
+  slots as they free up (one CTA per SM for the dq, dk/dv and float32
+  fused kernels, two for the bf16 fused kernel), each CTA taking (items
+  in its run) x (heads it loops) x the kernel's measured time per
+  (item, head); the kernel's time is the
   last CTA's finish. This is what separates the modes: both do the same
   items, but the fused mode runs all of them over the k-major runs, so a
   mask with one long k-major run (a column every q tile reaches, e.g.
   global tokens before a sliding window) leaves it waiting on that run,
   where split spreads the dq part over the short q-major runs;
-- **atomics**: the fused kernel's float32 adds of dq (64 x d per item and
-  head) at the rate the card sustains, measured;
+- **atomics**: the float32 fused kernel's scalar float32 adds of dq (64 x
+  d per item and head) at the rate the card sustains (the bf16 body's
+  16-byte vector adds fit at no cost beside its products, so it has no
+  such term);
 - **DRAM**: the operand streams per run and per item, the outputs, and
   the fused dq workspace about once per pass (zeroed, written back from
   L2, read and written by the convert pass), at the data-sheet HBM rate.
 
 The constants were measured by ``chip_smoke.py`` (phase ``bwd_mode``) on an
-NVIDIA H100 80GB HBM3 at a 700 W power limit: each kernel's time at the
-train phase's attention shape over its modeled makespan in (item, head)
-units, at head_dim 128; the atomic rate from the fused kernel's time less
-5/4 of the dk/dv kernel's (the fused body is the dk/dv body plus one tile
-product, dS K, and the atomics). Other head dims scale the per-item times
-by d / 128.
+NVIDIA H100 80GB HBM3 at a 700 W power limit. CUDA-core kernels
+(:func:`calibrate`): each kernel's time at the train phase's attention
+shape over its modeled makespan in (item, head) units, at head_dim 128;
+the atomic rate from the float32 fused kernel's time less 5/4 of the dk/dv
+kernel's (that body is the dk/dv body plus one tile product, dS K, and the
+atomics). The bf16 fused body (:func:`calibrate_fused_tc`): its
+per-(item, head) time fitted by least squares to its times at the four
+bf16 masks of the phase. Other head dims scale the
+per-item times by d / 128. Which fused body a backward runs follows its
+dtype (``BwdShape.itemsize``: 2 is bf16, the tensor-core body).
 """
 
 from __future__ import annotations
@@ -54,6 +63,15 @@ ITEM_US = {"dq": 11.50, "dq_gqa": 11.73, "dkv": 15.27}
 FUSED_BODY_OVER_DKV = 1.25
 # float32 atomic adds per second the fused kernel's dq block sustains
 ATOMIC_ADDS_PER_S = 4.45e11
+# The bf16 fused kernel (tensor cores, csrc/bwd_fused_tc.cuh), measured on
+# NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase bwd_mode,
+# calibrate_fused_tc over its four bf16 masks): microseconds one CTA spends
+# per (work item, q head) at head_dim 128, its dq atomics included.
+FUSED_TC_ITEM_US = 5.2102
+# CTAs of the bf16 fused kernel one SM runs at once (108.5 KB of shared
+# memory and 248 registers a thread at head_dim 128): its per-item time is
+# a CTA's while it shares the SM, and a lone long run finishes at that pace
+FUSED_TC_CTAS_PER_SM = 2
 
 
 @dataclass(frozen=True)
@@ -92,16 +110,24 @@ def _ctas(items: np.ndarray, heads: int, heads_per_cta: int, reverse: bool) -> n
     return np.tile(runs * heads_per_cta, heads // heads_per_cta)
 
 
-def kernel_units(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
+def kernel_units(
+    s: BwdShape, dq_heads_per_cta: int = 1, kv_slots: int = NUM_SMS
+) -> dict[str, float]:
     """Makespans in (item, head) units: the dq kernel over the q-major runs
     (one CTA per (run, block of ``dq_heads_per_cta`` heads), last run
     first) and the k-major kernels (dk/dv and fused: one CTA per (run, kv
-    head) looping the group, first run first)."""
+    head) looping the group, first run first, on ``kv_slots`` slots)."""
     g = s.hq // s.hk
     return {
         "dq": makespan(_ctas(s.items_q, s.hq, dq_heads_per_cta, True)),
-        "kv": makespan(_ctas(s.items_k, s.hk, 1, False) * g),
+        "kv": makespan(_ctas(s.items_k, s.hk, 1, False) * g, kv_slots),
     }
+
+
+def _tc_units(s: BwdShape) -> float:
+    """The bf16 fused kernel's makespan in (item, head) units, its CTAs
+    dealt to FUSED_TC_CTAS_PER_SM slots per SM."""
+    return kernel_units(s, kv_slots=NUM_SMS * FUSED_TC_CTAS_PER_SM)["kv"]
 
 
 def dram_bytes(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
@@ -130,19 +156,31 @@ def atomic_adds(s: BwdShape) -> float:
     return float(s.items_k.sum()) * s.hq * s.block_q * s.d
 
 
+def fused_body(s: BwdShape) -> str:
+    """The fused kernel's body for the backward's dtype: "tc" (bf16, the
+    tensor cores) or "fma" (float32, the CUDA cores)."""
+    return "tc" if s.itemsize == 2 else "fma"
+
+
 def kernel_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
-    """Modeled milliseconds of each backward kernel on one backward."""
+    """Modeled milliseconds of each backward kernel on one backward, the
+    fused kernel's body the dtype's (:func:`fused_body`)."""
     units = kernel_units(s, dq_heads_per_cta)
     nbytes = dram_bytes(s, dq_heads_per_cta)
     scale = s.d / 128.0
     dq_us = ITEM_US["dq_gqa" if dq_heads_per_cta > 1 else "dq"] * scale
     dkv_us = ITEM_US["dkv"] * scale
+    if fused_body(s) == "tc":
+        fused_ms = _tc_units(s) * FUSED_TC_ITEM_US * scale * 1e-3
+    else:
+        fused_ms = (
+            units["kv"] * FUSED_BODY_OVER_DKV * dkv_us * 1e-3
+            + atomic_adds(s) / ATOMIC_ADDS_PER_S * 1e3
+        )
     return {
         "dq": units["dq"] * dq_us * 1e-3 + nbytes["dq"] / HBM_BYTES_PER_S * 1e3,
         "dkv": units["kv"] * dkv_us * 1e-3 + nbytes["dkv"] / HBM_BYTES_PER_S * 1e3,
-        "fused": units["kv"] * FUSED_BODY_OVER_DKV * dkv_us * 1e-3
-        + atomic_adds(s) / ATOMIC_ADDS_PER_S * 1e3
-        + nbytes["fused"] / HBM_BYTES_PER_S * 1e3,
+        "fused": fused_ms + nbytes["fused"] / HBM_BYTES_PER_S * 1e3,
     }
 
 
@@ -173,6 +211,18 @@ def calibrate(s: BwdShape, ms: dict[str, float], dq_heads_per_cta: int = 1) -> d
         "dkv": dkv_us,
         "atomic_adds_per_s": atomic_adds(s) / (rest_ms * 1e-3) if rest_ms > 0 else float("inf"),
     }
+
+
+def calibrate_fused_tc(shapes: list[BwdShape], fused_ms: list[float]) -> dict[str, float]:
+    """The bf16 fused body's per-(item, head) microseconds at head_dim 128
+    from its measured times ``fused_ms`` at several shapes: least squares
+    of (time - DRAM time) over its makespan in (item, head) units on
+    FUSED_TC_CTAS_PER_SM slots per SM."""
+    units = np.asarray([_tc_units(s) * s.d / 128.0 * 1e-3 for s in shapes])
+    rest = np.asarray([
+        ms - dram_bytes(s)["fused"] / HBM_BYTES_PER_S * 1e3 for s, ms in zip(shapes, fused_ms)
+    ])
+    return {"fused_tc_item_us": float(np.dot(units, rest) / np.dot(units, units))}
 
 
 def choose_bwd_mode(s: BwdShape, dq_heads_per_cta: int = 1) -> str:

@@ -165,22 +165,26 @@ def _jax_params(plan, g, emit_max_logits):
     )
 
 
+@pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("flag", ["0", "1"])
-def test_guard_takes_the_packed_route_where_jax_does(flag, monkeypatch):
+def test_guard_takes_the_packed_route_where_jax_does(flag, itemsize, monkeypatch):
     """Flag, group > 1 and (forward) no max-logits, at geometries both
-    packages' budgets fit (head_dim 64, 64 x 64 tiles)."""
+    packages' budgets fit (head_dim 64 and 128, 64 x 64 tiles), for
+    float32 and bf16 inputs (bf16's forward runs the tensor-core body,
+    whose own head count the guard takes)."""
     monkeypatch.setenv("MAGI_ATTENTION_FFA_GQA_PACK", flag)
     monkeypatch.setenv("MAGI_ATTENTION_FFA_GQA_PACK_DQ", flag)
     plan, _ = plan_params(*_meta("bands")[:2], None, *_meta("bands")[2:], SEQ, SEQ, D, None, 0.0)
     seen = set()
-    for g in (1, 2, 4):
-        for ml in (False, True):
-            want = jax_ffa._use_gqa_pack(_jax_params(plan, g, ml), D, D, 4)
-            got = port_ffa._use_gqa_pack(g, D, D, ml) > 1
-            assert got == want, (flag, g, ml)
-            seen.add(got)
-        want_dq = jax_ffa._use_gqa_pack_dq(_jax_params(plan, g, False), D, D, 4)
-        assert (port_ffa._use_gqa_pack_dq(g, D, D) > 1) == want_dq, (flag, g)
+    for d in (64, 128):
+        for g in (1, 2, 4):
+            for ml in (False, True):
+                want = jax_ffa._use_gqa_pack(_jax_params(plan, g, ml), d, d, itemsize)
+                got = port_ffa._use_gqa_pack(g, d, d, ml, itemsize) > 1
+                assert got == want, (flag, d, g, ml)
+                seen.add(got)
+            want_dq = jax_ffa._use_gqa_pack_dq(_jax_params(plan, g, False), d, d, itemsize)
+            assert (port_ffa._use_gqa_pack_dq(g, d, d) > 1) == want_dq, (flag, d, g)
     assert seen == ({True, False} if flag == "1" else {False})
 
 
