@@ -12,10 +12,12 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 
 1. ``device``: the card's name, power limit and NVIDIA driver version,
    and the build time. ``tensor_cores``: per library of the bf16
-   tensor-core kernels (``ffa_fwd``, ``ffa_fwd_gqa``, ``ffa_bwd_fused``),
-   the HGMMA and HMMA counts of each kernel's SASS (``cuobjdump -sass``)
-   and each bf16 instance's registers, spills and shared memory; fails if
-   one has no HGMMA or spills.
+   tensor-core kernels (``ffa_fwd``, ``ffa_fwd_gqa``, ``ffa_bwd_dq``,
+   ``ffa_bwd_dq_gqa``, ``ffa_bwd_dkv``, ``ffa_bwd_fused``), the HGMMA,
+   HMMA and atomic (RED/ATOM) counts of each kernel's SASS (``cuobjdump
+   -sass``) and each bf16 instance's registers, spills and shared memory;
+   fails if one has no HGMMA, has HMMA or spills, if its shared memory is
+   not the guard's, or if a split (deterministic) kernel has an atomic.
 2. ``ffa_fwd``: the FFA forward kernel against its plain version
    (``sdpa_attn``) at (a) the serving prefill shape, (b) the bf16 causal
    headline shape, (c) a bf16 varlen mask with uncovered rows and (d) the
@@ -25,7 +27,8 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    varlen mask, (c) float32 at the serving prefill shape and (d) the train
    phase's attention shape, plus the whole forward + backward of
    ``ffa_attn`` against SDPA's, and SDPA's backward alone where every row
-   is covered.
+   is covered (with the split pair's ratio to it), and whether the split
+   dk/dv equal the fused kernel's to the bit.
 4. ``ffa_bwd_fused``: the fused one-pass backward kernel at the same four
    shapes, against its plain version and against the split kernels.
    ``ffa_fwd_gqa`` / ``ffa_bwd_dq_gqa``: the GQA-packed forward and dq
@@ -401,7 +404,8 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
 
     from magiattention_tpu_torch.kernels.ffa import (
         ffa_attn, ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, ffa_bwd_dq_kernel,
-        ffa_bwd_dq_plain, ffa_delta_kernel, ffa_delta_plain, ffa_fwd_kernel,
+        ffa_bwd_dq_plain, ffa_bwd_fused_kernel, ffa_delta_kernel,
+        ffa_delta_plain, ffa_fwd_kernel,
     )
     from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band
 
@@ -432,6 +436,11 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
         ev = grad_check(f"{name} dv", dv, dv_p, dname)
         err["ffa_bwd_dkv"] = {m: max(ek[m], ev[m]) for m in ek}
         del dk_p, dv_p
+        # the split dk/dv run the fused kernel's dk/dv products in its order
+        # (the same body in both dtypes): reported, not gated
+        _, dk_f, dv_f = ffa_bwd_fused_kernel(*args)
+        dkv_equal_fused = bool(torch.equal(dk, dk_f) and torch.equal(dv, dv_f))
+        del dk_f, dv_f
         if "uncovered" in c:
             r0, r1 = c["uncovered"]
             if ffa_bwd_dq_kernel(*args)[r0:r1].any():
@@ -465,6 +474,7 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
             case=name, dtype=dname, q=list(q.shape), kv=list(k.shape),
             live_pairs=live, work_items=plan.num_work,
             work_items_t=plan.num_work_t, atol=ATOL[dname], rnorm=RNORM[dname],
+            dkv_bitwise_equal_to_fused=dkv_equal_fused,
         )
         total_ms = 0.0
         for kname, (kern, plain, flops, nbytes) in kernels.items():
@@ -519,6 +529,11 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
                 lambda: torch.autograd.grad(o, (qg, kg, vg), do_t, retain_graph=True), samples=5
             )
             del o
+        # the split pair (dq, then dk/dv) over SDPA's backward alone
+        res["split_over_sdpa_bwd"] = (
+            (res["ffa_bwd_dq"]["ms"] + res["ffa_bwd_dkv"]["ms"]) / res["sdpa_bwd_ms"]
+            if res["sdpa_bwd_ms"] else None
+        )
         emit({"phase": "ffa_bwd", **res})
         results[name] = res
         del mask, qg, kg, vg
@@ -765,14 +780,17 @@ def ffa_bwd_gqa_phase(peaks: dict) -> dict[str, dict]:
         c = gqa_case(*spec)
         name, d, hq, hk = c["name"], c["d"], c["hq"], c["hk"]
         dname = str(c["dtype"]).removeprefix("torch.")
-        heads = dq_pack_heads(hq // hk, d, d)
+        isz = c["dtype"].itemsize
+        heads = dq_pack_heads(hq // hk, d, d, isz)
         decision = dict(case=name, group=hq // hk, head_dim=d, heads_per_cta=heads)
         if heads < 2:
             emit({"phase": "ffa_bwd_dq_gqa", **decision, "route": "unpacked (guard)"})
             continue
-        lib_smem = kffa._lib("ffa_bwd_dq_gqa").ffa_bwd_dq_gqa_smem_bytes(d, heads)
-        if lib_smem != dq_pack_smem_bytes(d, heads):
-            raise AssertionError(f"{name}: kernel smem {lib_smem} != guard's {dq_pack_smem_bytes(d, heads)}")
+        lib_smem = kffa._lib("ffa_bwd_dq_gqa").ffa_bwd_dq_gqa_smem_bytes(d, heads, int(isz == 2))
+        if lib_smem != dq_pack_smem_bytes(d, heads, isz):
+            raise AssertionError(
+                f"{name}: kernel smem {lib_smem} != guard's {dq_pack_smem_bytes(d, heads, isz)}"
+            )
         (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
         out, lse = ffa_fwd_kernel(q, k, v, plan, params)
         delta = ffa_delta_plain(out, do)
@@ -791,7 +809,6 @@ def ffa_bwd_gqa_phase(peaks: dict) -> dict[str, dict]:
         del dq_u
         live, mask = live_pairs(c)
         del mask
-        isz = q.element_size()
         n_q, n_kv, rows = q.numel(), k.numel(), c["sq"] * hq
         flops = 6.0 * hq * d * live
         b_ms, b_by = bound(flops, (2 * n_q + 2 * n_kv) * isz + 2 * rows * 4 + n_q * 4, dname, peaks)
@@ -874,10 +891,12 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
     phases) and the sink-window mask (timed here, fused checked against
     split), the cost model's choice beside the measured fused and split
     (dq + dk/dv) times. Fails where the model picks the slower mode by more
-    than 5%. Also the constants the model would take from this run
-    (``tile_policy.calibrate`` at the train shape for the CUDA-core
-    kernels, ``calibrate_fused_tc`` over the four bf16 masks for the
-    tensor-core fused body) beside the ones in the code."""
+    than 5% (after printing the constants). Also the constants the model would take from this run
+    (``tile_policy.calibrate_tc`` over the four bf16 masks for each
+    tensor-core kernel: dq, dk/dv, fused, and the packed dq over the train
+    shape and the sink window) beside the ones in the code; the CUDA-core
+    kernels run only the float32 serving prefill here (their constants
+    came from a run where bf16 took them too, at the train shape)."""
     import torch
 
     from magiattention_tpu_torch.kernels import tile_policy
@@ -915,23 +934,22 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
         dq_gqa=time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args)),
     )
 
-    rows, tc_shapes, tc_ms = [], [], []
+    rows, tc_shapes = [], {}
     for key, ms in measured.items():
         c = all_cases[key]
         isz = 4 if c["dtype"] == torch.float32 else 2
         (q, k, _), _, plan, params = case_inputs(c, gen)
         mode = ffa_bwd_mode(plan, params, 128, 128, isz, c["hq"], c["hk"])
         shape = bwd_shape(plan, c["hq"], c["hk"], 128, 128, isz)
-        if isz == 2:  # the tensor-core fused body's times, for its fit
-            tc_shapes.append(shape)
-            tc_ms.append(ms["fused"])
+        if isz == 2:  # the tensor-core bodies' shapes, for their fit
+            tc_shapes[key] = shape
         split_ms = ms["dq"] + ms["dkv"]
         faster = "fused" if ms["fused"] <= split_ms else "split"
         gap = abs(ms["fused"] - split_ms) / min(ms["fused"], split_ms)
         row = dict(
             case=key, model_mode=mode, faster=faster, agree=mode == faster, gap=gap,
             fused_ms=ms["fused"], split_ms=split_ms, dq_ms=ms["dq"], dkv_ms=ms["dkv"],
-            modeled_ms=tile_policy.kernel_ms(shape), fused_body=tile_policy.fused_body(shape),
+            modeled_ms=tile_policy.kernel_ms(shape), body=tile_policy.dtype_body(shape),
             real_items=int(shape.items_k.sum()), longest_k_run=int(shape.items_k.max()),
             longest_q_run=int(shape.items_q.max()),
         )
@@ -939,28 +957,35 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
             row["dq_gqa_ms"] = ms["dq_gqa"]
         emit({"phase": "bwd_mode", **row})
         rows.append(row)
-        if not row["agree"] and gap > 0.05:
-            raise AssertionError(f"bwd_mode {key}: model picks {mode}, {faster} is {gap:.1%} faster")
-    c = all_cases["train_docs_8192_bf16"]
+    # the packed dq (its guard's heads per CTA) at the two bf16 masks that
+    # time it: the train shape (its own phase) and the sink window
+    measured["train_docs_8192_bf16"]["dq_gqa"] = dq_gqa["a_docs_bf16_d128_g4"]["ms"]
+    tc = {}
+    for kern in ("dq", "dkv", "fused", "dq_gqa"):
+        keys = [key for key in tc_shapes if kern in measured[key]]
+        tc[kern] = tile_policy.calibrate_tc(
+            kern, [tc_shapes[key] for key in keys], [measured[key][kern] for key in keys],
+            dq_heads_per_cta=dq_gqa["a_docs_bf16_d128_g4"]["heads_per_cta"],
+        )
+    c = all_cases["serving_prefill_f32"]
     (q, k, _), _, plan, params = case_inputs(c, gen)
-    shape = bwd_shape(plan, c["hq"], c["hk"], 128, 128, 2)
-    # the CUDA-core split kernels' constants (the fused time here is the
-    # tensor-core body's, so calibrate's atomic rate of the CUDA-core
-    # fused body does not apply and is left out)
-    calib = tile_policy.calibrate(shape, measured["train_docs_8192_bf16"])
-    calib.pop("atomic_adds_per_s")
-    calib["dq_gqa"] = tile_policy.calibrate(
-        shape, dict(measured["train_docs_8192_bf16"], dq=dq_gqa["a_docs_bf16_d128_g4"]["ms"]),
-        dq_heads_per_cta=dq_gqa["a_docs_bf16_d128_g4"]["heads_per_cta"],
-    )["dq_gqa"]
-    calib.update(tile_policy.calibrate_fused_tc(tc_shapes, tc_ms))
+    f32 = tile_policy.calibrate(
+        bwd_shape(plan, c["hq"], c["hk"], 128, 128, 4), measured["serving_prefill_f32"]
+    )
     emit({
-        "phase": "bwd_mode_constants", "from_this_run": calib,
+        "phase": "bwd_mode_constants",
+        "from_this_run": dict(tensor_cores=tc, cuda_cores_at_serving_prefill=f32),
         "in_code": dict(
-            tile_policy.ITEM_US, atomic_adds_per_s=tile_policy.ATOMIC_ADDS_PER_S,
-            fused_tc_item_us=tile_policy.FUSED_TC_ITEM_US,
+            tensor_cores=tile_policy.TC_ITEM_US, cuda_cores=tile_policy.ITEM_US,
+            atomic_adds_per_s=tile_policy.ATOMIC_ADDS_PER_S,
         ),
     })
+    for row in rows:  # after the constants, so a failing run still shows them
+        if not row["agree"] and row["gap"] > 0.05:
+            raise AssertionError(
+                f"bwd_mode {row['case']}: model picks {row['model_mode']}, "
+                f"{row['faster']} is {row['gap']:.1%} faster"
+            )
     return rows
 
 
@@ -1274,6 +1299,7 @@ def edge_phase() -> None:
     for d, hq, hk, dt, softcap in (
         (64, 6, 3, torch.float32, 30.0),
         (64, 4, 4, torch.bfloat16, 0.0),
+        (64, 8, 1, torch.bfloat16, 30.0),
         (128, 8, 1, torch.float32, 0.0),
         (128, 16, 2, torch.bfloat16, 30.0),
     ):
@@ -2084,9 +2110,16 @@ def build_report(name: str) -> list[str]:
 
 
 # the libraries whose bf16 entries run on the tensor cores; every such
-# kernel's name carries TC_TAG (csrc/ffa_fwd_tc.cuh, csrc/bwd_fused_tc.cuh)
-TC_LIBRARIES = ("ffa_fwd", "ffa_fwd_gqa", "ffa_bwd_fused")
+# kernel's name carries TC_TAG (csrc/ffa_fwd_tc.cuh, csrc/ffa_bwd_dq_tc.cuh,
+# csrc/bwd_kv_tc.cuh)
+TC_LIBRARIES = (
+    "ffa_fwd", "ffa_fwd_gqa", "ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv", "ffa_bwd_fused",
+)
 TC_TAG = "_tc_kernel"
+# the split backward's libraries: the deterministic mode, no atomics
+SPLIT_LIBRARIES = ("ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")
+# SASS opcodes of global and shared-memory atomics and reductions
+ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
 
 
 def kernel_label(mangled: str) -> str:
@@ -2145,52 +2178,73 @@ def cuobjdump() -> str:
 
 def sass_counts(name: str) -> dict[str, dict]:
     """Per kernel of one library (by :func:`kernel_label`), its HGMMA
-    (wgmma) and HMMA (mma.sync) instructions in the SASS."""
+    (wgmma), HMMA (mma.sync) and atomic (:data:`ATOMIC_OPS`, by opcode)
+    instructions in the SASS."""
+    import re
+
     from magiattention_tpu_torch.kernels import _build
 
     out = subprocess.run(
         [cuobjdump(), "-sass", str(_build.library_path(name))],
         check=True, capture_output=True, text=True, timeout=300,
     ).stdout
+    # "/*0a70*/  @!P0 REDG.E.ADD.F32x4... ;": the opcode after an optional
+    # predicate
+    instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
     counts, fn = {}, None
     for line in out.splitlines():
         if "Function :" in line:
             fn = kernel_label(line.split("Function :")[1].strip())
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
-        elif fn and "HGMMA" in line:
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "atomics": 0}
+            continue
+        m = instr.search(line) if fn else None
+        if not m:
+            continue
+        op = m.group(1)
+        if op == "HGMMA":
             counts[fn]["HGMMA"] += 1
-        elif fn and "HMMA" in line:
+        elif op == "HMMA":
             counts[fn]["HMMA"] += 1
+        elif op in ATOMIC_OPS:
+            counts[fn]["atomics"] += 1
     return counts
 
 
 def tensor_core_phase() -> dict[str, dict]:
-    """Proof that the bf16 FFA forward (B1, B2) and fused backward (B8/B9)
-    run on the tensor cores: per library, the HGMMA and HMMA counts of
+    """Proof that every bf16 FFA kernel (B1/B2, B3/B4, B5/B6, B8/B9) runs
+    on the tensor cores: per library, the HGMMA, HMMA and atomic counts of
     each kernel's SASS, and beside each bf16 (tensor-core) instance its
     registers, spills and dynamic shared memory (the library's own
     ``<name>_smem_bytes``, held equal to the Python figure the guards
     use). Fails if a library has no tensor-core kernel, if one has no
-    HGMMA, if one spills, or if the two shared-memory figures differ."""
+    HGMMA or any HMMA, if one spills, if the two shared-memory figures
+    differ, or if a bf16 instance of a split library (the deterministic
+    mode) has an atomic; the fused kernel's bf16 instance must show its dq
+    atomics, which proves the count reads the SASS."""
     import re
 
     from magiattention_tpu_torch.kernels import ffa as kffa
 
+    guards = {  # library -> the guard's figure of (d, heads) in bf16
+        "ffa_fwd": lambda d, g: kffa.fwd_pack_smem_bytes(d, 1, 2),
+        "ffa_fwd_gqa": lambda d, g: kffa.fwd_pack_smem_bytes(d, g, 2),
+        "ffa_bwd_dq": lambda d, g: kffa.dq_pack_smem_bytes(d, 1, 2),
+        "ffa_bwd_dq_gqa": lambda d, g: kffa.dq_pack_smem_bytes(d, g, 2),
+        "ffa_bwd_dkv": lambda d, g: kffa.dkv_smem_bytes(d, 2),
+        "ffa_bwd_fused": lambda d, g: kffa.fused_bwd_smem_bytes(d, 2),
+    }
     results = {}
     for lib in TC_LIBRARIES:
         sass, ptxas = sass_counts(lib), ptxas_report(lib)
+        query = getattr(kffa._lib(lib), f"{lib}_smem_bytes")
         tc = {}
         for fn, n in sass.items():
             if TC_TAG not in fn:
                 continue
             dims = [int(x) for x in re.findall(r"\d+", fn.split("<")[1])]
-            query = getattr(kffa._lib(lib), f"{lib}_smem_bytes")
-            if lib == "ffa_bwd_fused":
-                smem, want = query(dims[0], 1), kffa.fused_bwd_smem_bytes(dims[0], 2)
-            elif lib == "ffa_fwd":
-                smem, want = query(dims[0], 1), kffa.fwd_pack_smem_bytes(dims[0], 1, 2)
-            else:
-                smem, want = query(dims[0], dims[1], 1), kffa.fwd_pack_smem_bytes(dims[0], dims[1], 2)
+            packed = lib.endswith("_gqa")  # template <D, G>: G heads a CTA
+            smem = query(dims[0], dims[1], 1) if packed else query(dims[0], 1)
+            want = guards[lib](dims[0], dims[1] if packed else 1)
             if smem != want:
                 raise AssertionError(f"{lib}: {fn} shared memory {smem} != guard's {want}")
             tc[fn] = dict(**n, **ptxas.get(fn, {}), smem_bytes=smem)
@@ -2198,6 +2252,7 @@ def tensor_core_phase() -> dict[str, dict]:
             library=lib,
             hgmma=sum(n["HGMMA"] for n in sass.values()),
             hmma=sum(n["HMMA"] for n in sass.values()),
+            atomics=sum(n["atomics"] for n in sass.values()),
             tensor_core_kernels=tc,
             cuda_core_kernels={fn: n for fn, n in sass.items() if TC_TAG not in fn},
         )
@@ -2205,10 +2260,14 @@ def tensor_core_phase() -> dict[str, dict]:
         if not tc:
             raise AssertionError(f"{lib}: no tensor-core kernel in the library")
         for fn, r in tc.items():
-            if r["HGMMA"] == 0:
-                raise AssertionError(f"{lib}: {fn} has no HGMMA instruction")
+            if r["HGMMA"] == 0 or r["HMMA"]:
+                raise AssertionError(f"{lib}: {fn} has no HGMMA or has HMMA: {r}")
             if r.get("spill_stores", 1) or r.get("spill_loads", 1):
                 raise AssertionError(f"{lib}: {fn} spills (or has no ptxas report): {r}")
+            if lib in SPLIT_LIBRARIES and r["atomics"]:
+                raise AssertionError(f"{lib}: {fn} (deterministic mode) has atomics: {r}")
+            if lib == "ffa_bwd_fused" and not r["atomics"]:
+                raise AssertionError(f"{lib}: {fn} shows no atomics: the SASS count is wrong")
         results[lib] = row
     return results
 
@@ -2444,8 +2503,9 @@ def deterministic_phase() -> dict:
     two through ``flex_flash_attn_func(deterministic=True)``: out, lse,
     dq, dk and dv equal to the bit within each pair, the split kernels
     launched and not the fused one. Reported, not gated: whether the two
-    paths agree to the bit, and the largest difference between two
-    unpinned (fused) runs of ``flex_flash_attn_func``."""
+    paths agree to the bit, the largest difference between two unpinned
+    (fused) runs of ``flex_flash_attn_func``, and the forward + backward
+    ms of ``flex_flash_attn_func`` deterministic and unpinned."""
     import torch
 
     from magiattention_tpu_torch import api
@@ -2507,6 +2567,11 @@ def deterministic_phase() -> dict:
         n: (s.double() - t.double()).abs().max().item()
         for n, s, t in zip(names, x, y) if n != "lse"
     }
+    del x, y
+    res["fwd_bwd_ms"] = dict(
+        deterministic=time_ms(flex_path, samples=5),
+        unpinned=time_ms(lambda: flex_path(False), samples=5),
+    )
     res["shape"] = f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, two causal documents"
     emit({"phase": "deterministic", **res})
     return res
@@ -2679,32 +2744,35 @@ def main() -> int:
             "magiattention_tpu/kernels/ffa.py:1722",
             train["launches"]["ffa_bwd_delta"], t["ffa_bwd_delta"],
         ),
+        # the train shape's rows are bf16: their sources are the
+        # tensor-core bodies (entries ffa_bwd_dq.cu, ffa_bwd_dkv.cu,
+        # ffa_bwd_fused.cu, ffa_fwd_gqa.cu, ffa_bwd_dq_gqa.cu)
         kernel_entry(
-            "ffa_bwd_dq", "ffa_bwd_dq.cu", "magiattention_tpu/kernels/ffa.py:751",
+            "ffa_bwd_dq", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:751",
             train["split_launches"]["ffa_bwd_dq"], t["ffa_bwd_dq"],
         ),
         kernel_entry(
-            "ffa_bwd_dkv", "ffa_bwd_dkv.cu", "magiattention_tpu/kernels/ffa.py:1208",
+            "ffa_bwd_dkv", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1208",
             train["split_launches"]["ffa_bwd_dkv"], t["ffa_bwd_dkv"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B6)
-            "ffa_bwd_dkv (gqa)", "ffa_bwd_dkv.cu", "magiattention_tpu/kernels/ffa.py:1451",
+            "ffa_bwd_dkv (gqa)", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1451",
             train["split_launches"]["ffa_bwd_dkv"], t["ffa_bwd_dkv"],
         ),
         kernel_entry(
-            "ffa_bwd_fused", "ffa_bwd_fused.cu", "magiattention_tpu/kernels/ffa.py:1780",
+            "ffa_bwd_fused", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1780",
             train["launches"]["ffa_bwd_fused"], fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B9)
-            "ffa_bwd_fused (gqa)", "ffa_bwd_fused.cu", "magiattention_tpu/kernels/ffa.py:2082",
+            "ffa_bwd_fused (gqa)", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:2082",
             train["launches"]["ffa_bwd_fused"], fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(
-            "ffa_fwd_gqa", "ffa_fwd_gqa.cu", "magiattention_tpu/kernels/ffa.py:490",
+            "ffa_fwd_gqa", "ffa_fwd_tc.cuh", "magiattention_tpu/kernels/ffa.py:490",
             train["packed_launches"]["ffa_fwd_gqa"], fwd_gqa["a_docs_bf16_d128_g4"],
         ),
         kernel_entry(
-            "ffa_bwd_dq_gqa", "ffa_bwd_dq_gqa.cu", "magiattention_tpu/kernels/ffa.py:944",
+            "ffa_bwd_dq_gqa", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:944",
             train["packed_launches"]["ffa_bwd_dq_gqa"], dq_gqa["a_docs_bf16_d128_g4"],
         ),
         kernel_entry(  # serve_spec's shape: float32, 4 draft rows x g 4

@@ -1,8 +1,9 @@
-// The k-major FFA backward kernel shared by csrc/ffa_bwd_dkv.cu (dk, dv:
-// the split backward's second pass) and csrc/ffa_bwd_fused.cu (dk, dv and
-// dq in one pass). Each source includes this header once and instantiates
-// the kernel with FUSED false or true; the body is the same up to the dq
-// block that FUSED adds.
+// The float32 k-major FFA backward kernel on the CUDA cores, shared by the
+// float32 entries of csrc/ffa_bwd_dkv.cu (dk, dv: the split backward's
+// second pass) and csrc/ffa_bwd_fused.cu (dk, dv and dq in one pass); their
+// bf16 entries run csrc/bwd_kv_tc.cuh on the tensor cores. Each source
+// includes this header once and instantiates the kernel with FUSED false
+// or true; the body is the same up to the dq block that FUSED adds.
 //
 // What it computes: for every kv head and k row j, over the q rows i that
 // some slice lets see j, and over the g = hq / hk query heads h of that kv
@@ -34,8 +35,8 @@
 //
 // What bounds it on this card: operations. Work is 8 * D flops per live
 // (row, col) pair and q head (S, dP, P^T dO, dS^T Q), on the CUDA cores in
-// float32 (67 TFLOP/s peak on an H100 SXM); tensor cores and TMA are later
-// work. Shared memory per CTA is 173 KB at D = 128 (K, V, Q, dO at stride
+// float32 (67 TFLOP/s peak on an H100 SXM): the float32 gate of 1e-5
+// against the plain version needs float32 FMA. Shared memory per CTA is 173 KB at D = 128 (K, V, Q, dO at stride
 // D + 4, the P^T and dS^T tiles, the tile's lse and delta) and a thread
 // holds 64 accumulators, so one CTA runs per SM.
 //

@@ -1,13 +1,14 @@
-// The bf16 fused FFA backward on Hopper's tensor cores: the bf16 entry of
-// csrc/ffa_bwd_fused.cu (B8/B9). The float32 entry keeps the CUDA-core body
-// of csrc/bwd_kv.cuh (FUSED), and the split backward (csrc/ffa_bwd_dkv.cu,
-// the deterministic mode) keeps it for both types.
+// The bf16 k-major FFA backward on Hopper's tensor cores, shared by the
+// bf16 entries of csrc/ffa_bwd_dkv.cu (B5/B6: dk and dv, the split
+// backward's second pass, FUSED false) and csrc/ffa_bwd_fused.cu (B8/B9:
+// dk, dv and dq in one pass, FUSED true). The float32 entries of both keep
+// the CUDA-core body of csrc/bwd_kv.cuh: their 1e-5 gates need float32 FMA.
 //
-// What it computes is csrc/bwd_kv.cuh's fused function: for every kv head
-// and k row j, over the live q rows i and the g query heads h of that kv
-// head, dv[j] = sum P^T dO, dk[j] = scale * sum dS^T q, and
+// What it computes is csrc/bwd_kv.cuh's function: for every kv head and k
+// row j, over the live q rows i and the g query heads h of that kv head,
+// dv[j] = sum P^T dO and dk[j] = scale * sum dS^T q; with FUSED also
 // dq[i] += sum_j dS[i, j] k[j] into a zeroed float32 workspace (the
-// wrapper's convert pass scales it); P = exp(s - lse) from the forward's
+// wrapper's convert pass scales it). P = exp(s - lse) from the forward's
 // natural-log lse, 0 where the lse is -inf or the pair is masked;
 // dS = P (dP - delta), times 1 - tanh^2 under a softcap. A k tile no slice
 // reaches, and every k row no live pair touches, gets exact zeros; dq of
@@ -16,8 +17,9 @@
 // Design (building blocks in csrc/tc.cuh). One CTA (one warpgroup, 128
 // threads) owns one (k tile, kv head), keeps K and V in shared memory and
 // dk, dv in registers (float32, D / 2 each a thread) for its k-major run,
-// and writes them once. It loops the run's real items and, inside each,
-// the query group; per (item, q head) "step":
+// and writes them once: no atomics, so dk and dv do not depend on the
+// order CTAs run in. It loops the run's real items and, inside each, the
+// query group; per (item, q head) "step":
 // - S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 (64 k rows), K, V,
 //   Q and dO read K-major;
 // - P^T and dS^T in registers, each split into bf16 hi + lo A fragments
@@ -27,29 +29,33 @@
 //   every q row and head that sees a k row (all 32768 of them for a global
 //   token under a sink-window mask), where one bf16 rounding of P and dS
 //   alone leaves them 2^-9 relative, up to 2e-2 absolute, from float32;
-// - dS^T (hi) stored once to shared memory (bf16, swizzled), then dQ = dS K in
-//   64-column halves (m64n64k16, both operands MN-major: dS is the
-//   transpose of the stored tile), each half added to the workspace with
-//   vector atomics (one 16-byte red.add per lane and 8-column chunk: two
-//   lanes swap a row pair first), rows outside the item skipped.
-// The next step's Q, dO, lse and delta are double-buffered by cp.async and
+// - FUSED only: dS^T (hi) stored once to shared memory (bf16, swizzled),
+//   then dQ = dS K in 64-column halves (m64n64k16, both operands MN-major:
+//   dS is the transpose of the stored tile), each half added to the
+//   workspace with vector atomics (one 16-byte red.add per lane and
+//   8-column chunk: two lanes swap a row pair first), rows outside the
+//   item skipped.
+// Both instances run the dk/dv products in the same order on the same
+// fragments, so the split dk/dv equals the fused kernel's to the bit. The
+// next step's Q, dO, lse and delta are double-buffered by cp.async and
 // land while this step's products run.
 //
-// What bounds it on this card: operations, 10 * D flops per live pair and
-// q head on the bf16 tensor cores (989 TFLOP/s on an H100 SXM; the lo
-// products make it 14 * D executed); then the dq atomics, 64 * D float32
-// adds per (item, q head). Shared memory: K,
-// V, two stages of Q and dO, the dS^T tile and two stages of lse and delta
-// (105 KB at D = 128: two CTAs per SM). Registers: dk and dv (2 * D / 2)
-// beside at most two 64 x 64 blocks: S^T and dP^T, then P^T's hi and lo
-// fragments and dP^T, then dS^T's, then a dq half (dV's products finish
-// before dK's fragments are formed).
+// What bounds it on this card: operations on the bf16 tensor cores (989
+// TFLOP/s on an H100 SXM): 8 * D flops per live pair and q head for dk/dv
+// (S, dP, P^T dO, dS^T Q; the lo products make it 12 * D executed), 10 * D
+// with FUSED (14 * D executed), then the dq atomics, 64 * D float32 adds
+// per (item, q head). Shared memory: K, V, two stages of Q and dO and of
+// lse and delta (100,352 bytes at D = 128), with FUSED also the dS^T tile
+// (108,544 bytes): two CTAs per SM either way. Registers: dk and dv
+// (2 * D / 2) beside at most two 64 x 64 blocks: S^T and dP^T, then P^T's
+// hi and lo fragments and dP^T, then dS^T's, then (FUSED) a dq half (dV's
+// products finish before dK's fragments are formed).
 #pragma once
 
 #include "tc.cuh"
 
 namespace {
-namespace bwd_tc {
+namespace kv_tc {
 
 using namespace magi::tc;
 using magi::LOG2E;
@@ -58,18 +64,19 @@ using magi::META_DIM;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 
-template <int D>
+template <int D, bool FUSED>
 struct Smem {
   static constexpr uint32_t TILE = 64 * D * 2;
   static constexpr uint32_t QDO = 2 * TILE;        // [2 stages][Q, dO]
   static constexpr uint32_t DS = QDO + 4 * TILE;   // dS^T, 64 x 64 bf16
-  static constexpr uint32_t STATS = DS + 64 * 128; // [2 stages][lse, delta]
+  // [2 stages][lse, delta]
+  static constexpr uint32_t STATS = DS + (FUSED ? 64 * 128 : 0);
   static constexpr size_t bytes = STATS + 2 * 2 * 64 * 4 + 1024;
 };
 
-template <int D>
+template <int D, bool FUSED>
 __global__ void __launch_bounds__(128, 1)
-    ffa_bwd_fused_tc_kernel(const __nv_bfloat16* __restrict__ q,
+    ffa_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             const __nv_bfloat16* __restrict__ dout,
@@ -81,7 +88,7 @@ __global__ void __launch_bounds__(128, 1)
                             const int* __restrict__ meta_t,
                             const int* __restrict__ run_ptr_t, int sq, int sk,
                             int hq, int hk, float scale, float softcap) {
-  using S = Smem<D>;
+  using S = Smem<D, FUSED>;
   constexpr int NACC = D / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -216,7 +223,7 @@ __global__ void __launch_bounds__(128, 1)
     to_a_frags_split(fh, fl, dpt);
     // dS^T (hi) to shared memory, the A operand of dQ = dS K (read
     // transposed)
-    {
+    if constexpr (FUSED) {
       const int rr = (int)opaque(r0), cc = (int)opaque(c0);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -238,47 +245,52 @@ __global__ void __launch_bounds__(128, 1)
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs_t1<D>(dk_acc, fl[kk], desc_mn(Qs, kk));
     wgmma_commit();
-    fence_async_smem();  // the dS^T tile is visible to wgmma
-    __syncthreads();
+    if constexpr (FUSED) {
+      fence_async_smem();  // the dS^T tile is visible to wgmma
+      __syncthreads();
+    }
     wgmma_wait<0>();
     fence_regs(dk_acc);
     fence_regs(fh);
     fence_regs(fl);
 
-    const uint32_t dSs = Ks + S::DS;
+    if constexpr (FUSED) {  // dQ = dS K, added to the workspace
+      const uint32_t dSs = Ks + S::DS;
 #pragma unroll
-    for (int half = 0; half < D / 64; ++half) {
-      float dq[32];
+      for (int half = 0; half < D / 64; ++half) {
+        float dq[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-      fence_regs(dq);
-      wgmma_fence();
+        for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+        fence_regs(dq);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n64_t11(dq, desc_mn(dSs, kk),
-                         desc_mn(Ks + half * PANEL_BYTES, kk), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dq);
-      // lanes 2j, 2j + 1 swap a row pair: the even lane then holds 4
-      // columns of the first row, the odd lane 4 of the second
-      const bool odd = lane & 1;
-      const int row = q0 + r0 + (odd ? 8 : 0);
-      const bool add = row < sq && row >= item.qs && row < item.qe;
-      float* dst = dq_acc + ((long)row * hq + h) * D + half * 64 + 2 * (lane & 2);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64_t11(dq, desc_mn(dSs, kk),
+                           desc_mn(Ks + half * PANEL_BYTES, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        // lanes 2j, 2j + 1 swap a row pair: the even lane then holds 4
+        // columns of the first row, the odd lane 4 of the second
+        const bool odd = lane & 1;
+        const int row = q0 + r0 + (odd ? 8 : 0);
+        const bool add = row < sq && row >= item.qs && row < item.qe;
+        float* dst =
+            dq_acc + ((long)row * hq + h) * D + half * 64 + 2 * (lane & 2);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float s0 = odd ? dq[4 * j] : dq[4 * j + 2];
-        const float s1 = odd ? dq[4 * j + 1] : dq[4 * j + 3];
-        const float x0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-        const float x1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-        const float4 val =
-            odd ? make_float4(x0, x1, dq[4 * j + 2], dq[4 * j + 3])
-                : make_float4(dq[4 * j], dq[4 * j + 1], x0, x1);
-        if (add) atomicAdd(reinterpret_cast<float4*>(dst + 8 * j), val);
+        for (int j = 0; j < 8; ++j) {
+          const float s0 = odd ? dq[4 * j] : dq[4 * j + 2];
+          const float s1 = odd ? dq[4 * j + 1] : dq[4 * j + 3];
+          const float x0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+          const float x1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+          const float4 val =
+              odd ? make_float4(x0, x1, dq[4 * j + 2], dq[4 * j + 3])
+                  : make_float4(dq[4 * j], dq[4 * j + 1], x0, x1);
+          if (add) atomicAdd(reinterpret_cast<float4*>(dst + 8 * j), val);
+        }
       }
     }
-    __syncthreads();  // this stage and the dS^T tile are free
+    __syncthreads();  // this stage (and the dS^T tile) are free
     w = wn;
     gi = gn;
     stage ^= 1;
@@ -302,19 +314,19 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
-template <int D>
+template <int D, bool FUSED>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, float* dk, float* dv,
            float* dq_acc, const int* work_qt_t, const int* meta_t,
            const int* run_ptr_t, int sq, int sk, int hq, int hk,
            int num_k_tiles, float scale, float softcap, void* stream) {
   static bool smem_ok = false;
-  const size_t smem = Smem<D>::bytes;
+  const size_t smem = Smem<D, FUSED>::bytes;
   cudaError_t e =
-      magi::allow_smem(ffa_bwd_fused_tc_kernel<D>, smem, &smem_ok);
+      magi::allow_smem(ffa_bwd_kv_tc_kernel<D, FUSED>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(num_k_tiles, hk);
-  ffa_bwd_fused_tc_kernel<D><<<grid, 128, smem, (cudaStream_t)stream>>>(
+  ffa_bwd_kv_tc_kernel<D, FUSED><<<grid, 128, smem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -323,5 +335,5 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-}  // namespace bwd_tc
+}  // namespace kv_tc
 }  // namespace

@@ -1,14 +1,25 @@
 // FFA backward, dk and dv, over the host-built k-major work list, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): the split backward's second pass (the deterministic
+// mode's dk/dv: one CTA owns a (k tile, kv head) and writes its rows once,
+// no atomics).
 //
 // Replaces: magiattention_tpu/kernels/ffa.py:_bwd_dkv_kernel (wrapper
 // _ffa_bwd_dkv_pallas, pallas_call at ffa.py:1432) and its GQA-packed twin
 // _bwd_dkv_kernel_gqa (wrapper _ffa_bwd_dkv_pallas_gqa, pallas_call at
 // ffa.py:1657). One kernel does both: it always loops the query group.
 //
-// The kernel body is in csrc/bwd_kv.cuh (shared with the fused backward,
-// csrc/ffa_bwd_fused.cu); this source instantiates it without dq.
+// Two bodies, each shared with the fused backward (csrc/ffa_bwd_fused.cu),
+// here without dq. bfloat16: csrc/bwd_kv_tc.cuh (FUSED false), the four
+// products S^T, dP^T, P^T dO and dS^T Q on the tensor cores (wgmma, the
+// last two as bf16 hi + lo pairs), bound by operations at 8 * D flops per
+// live pair and q head against 989 TFLOP/s; 100,352 bytes of shared memory
+// at D = 128, two CTAs per SM. Its dk and dv equal the fused kernel's to the
+// bit. float32: csrc/bwd_kv.cuh (FUSED false), float32 FMA on the CUDA
+// cores (67 TFLOP/s peak): the float32 gate of 1e-5 against the plain
+// version needs float32 products; 173 KB of shared memory at D = 128, one
+// CTA per SM.
 #include "bwd_kv.cuh"
+#include "bwd_kv_tc.cuh"
 
 // q/do [sq, hq, d], k/v [sk, hk, d] are contiguous rows of one dtype;
 // lse/delta [sq, hq] float32; dk/dv [sk, hk, d] float32, every row written.
@@ -33,8 +44,31 @@ extern "C" int ffa_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                 const int* run_ptr_t, int sq, int sk, int hq,
                                 int hk, int d, int num_k_tiles, float scale,
                                 float softcap, void* stream) {
-  return dispatch<__nv_bfloat16, false>(d, q, k, v, dout, lse, delta, dk, dv,
-                                        nullptr, work_qt_t, meta_t, run_ptr_t,
-                                        sq, sk, hq, hk, num_k_tiles, scale,
-                                        softcap, stream);
+  switch (d) {
+    case 64:
+      return kv_tc::launch<64, false>(q, k, v, dout, lse, delta, dk, dv,
+                                      nullptr, work_qt_t, meta_t, run_ptr_t,
+                                      sq, sk, hq, hk, num_k_tiles, scale,
+                                      softcap, stream);
+    case 128:
+      return kv_tc::launch<128, false>(q, k, v, dout, lse, delta, dk, dv,
+                                       nullptr, work_qt_t, meta_t, run_ptr_t,
+                                       sq, sk, hq, hk, num_k_tiles, scale,
+                                       softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shared memory one CTA takes (bf16: the tensor-core body, else the
+// float32 one), for the wrapper's figure to be checked against: 0 for a
+// head dim this library has no kernel for.
+extern "C" long ffa_bwd_dkv_smem_bytes(int d, int bf16) {
+  if (d == 64)
+    return bf16 ? (long)kv_tc::Smem<64, false>::bytes
+                : (long)DkvSmem<64>::bytes;
+  if (d == 128)
+    return bf16 ? (long)kv_tc::Smem<128, false>::bytes
+                : (long)DkvSmem<128>::bytes;
+  return 0;
 }

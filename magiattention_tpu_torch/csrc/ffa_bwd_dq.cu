@@ -1,38 +1,22 @@
 // FFA backward, dq, over the host-built q-major work list, for Hopper
-// (sm_90a): one CTA per (q tile, q head).
+// (sm_90a): one CTA per (q tile, q head), the split backward's first pass
+// (the deterministic mode's dq: each CTA writes its rows once, no atomics).
 //
 // Replaces: magiattention_tpu/kernels/ffa.py:_bwd_dq_kernel (wrapper
 // _ffa_bwd_dq_pallas, pallas_call at ffa.py:931).
 //
-// The kernel body, its design and what bounds it are in
-// csrc/ffa_bwd_dq.cuh, shared with the GQA-packed variant
-// (csrc/ffa_bwd_dq_gqa.cu). Here G = 1: Q, dO, K, V at stride D + 4 and the
-// 64 x 80 dS tile, 152 KB of shared memory at D = 128, one CTA per SM.
+// Two bodies, each shared with the GQA-packed variant
+// (csrc/ffa_bwd_dq_gqa.cu), here at G = 1. bfloat16: csrc/ffa_bwd_dq_tc.cuh,
+// the three products S = Q K^T, dP = dO V^T and dQ += dS K on the tensor
+// cores (wgmma, one warpgroup per CTA, K/V double-buffered by cp.async),
+// bound by operations at 6 * D flops per live pair and head against 989
+// TFLOP/s; 99,328 bytes of shared memory at D = 128, two CTAs per SM.
+// float32: csrc/ffa_bwd_dq.cuh, float32 FMA on the CUDA cores (67 TFLOP/s
+// peak): the float32 gate of 1e-5 against the plain version needs float32
+// products; Q, dO, K, V at stride D + 4 and the 64 x 80 dS tile, 152 KB at
+// D = 128, one CTA per SM. Their designs are in the headers.
 #include "ffa_bwd_dq.cuh"
-
-namespace {
-
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v,
-             const void* dout, const float* lse, const float* delta,
-             float* dq, const int* work_kt, const int* meta,
-             const int* run_ptr, int sq, int sk, int hq, int hk,
-             int num_q_tiles, float scale, float softcap, void* stream) {
-  switch (d) {
-    case 64:
-      return launch<T, 64, 1>(q, k, v, dout, lse, delta, dq, work_kt, meta,
-                              run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                              softcap, stream);
-    case 128:
-      return launch<T, 128, 1>(q, k, v, dout, lse, delta, dq, work_kt, meta,
-                               run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                               softcap, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+#include "ffa_bwd_dq_tc.cuh"
 
 // q/do [sq, hq, d], k/v [sk, hk, d] are contiguous rows of one dtype;
 // lse/delta [sq, hq] and dq [sq, hq, d] float32. work_kt (W,), meta
@@ -45,9 +29,18 @@ extern "C" int ffa_bwd_dq_f32(const void* q, const void* k, const void* v,
                               const int* run_ptr, int sq, int sk, int hq,
                               int hk, int d, int num_q_tiles, float scale,
                               float softcap, void* stream) {
-  return dispatch<float>(d, q, k, v, dout, lse, delta, dq, work_kt, meta,
-                         run_ptr, sq, sk, hq, hk, num_q_tiles, scale, softcap,
-                         stream);
+  switch (d) {
+    case 64:
+      return launch<float, 64, 1>(q, k, v, dout, lse, delta, dq, work_kt,
+                                  meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                  scale, softcap, stream);
+    case 128:
+      return launch<float, 128, 1>(q, k, v, dout, lse, delta, dq, work_kt,
+                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                   scale, softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int ffa_bwd_dq_bf16(const void* q, const void* k, const void* v,
@@ -57,7 +50,28 @@ extern "C" int ffa_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                const int* run_ptr, int sq, int sk, int hq,
                                int hk, int d, int num_q_tiles, float scale,
                                float softcap, void* stream) {
-  return dispatch<__nv_bfloat16>(d, q, k, v, dout, lse, delta, dq, work_kt,
-                                 meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                 scale, softcap, stream);
+  switch (d) {
+    case 64:
+      return dq_tc::launch<64, 1>(q, k, v, dout, lse, delta, dq, work_kt,
+                                  meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                  scale, softcap, stream);
+    case 128:
+      return dq_tc::launch<128, 1>(q, k, v, dout, lse, delta, dq, work_kt,
+                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                   scale, softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The shared memory one CTA takes (bf16: the tensor-core body, else the
+// float32 one), for the wrapper's figure to be checked against: 0 for a
+// head dim this library has no kernel for.
+extern "C" long ffa_bwd_dq_smem_bytes(int d, int bf16) {
+  if (d == 64)
+    return bf16 ? (long)dq_tc::Smem<64, 1>::bytes : (long)DqSmem<64, 1>::bytes;
+  if (d == 128)
+    return bf16 ? (long)dq_tc::Smem<128, 1>::bytes
+                : (long)DqSmem<128, 1>::bytes;
+  return 0;
 }

@@ -1,8 +1,10 @@
-// The FFA dq backward kernel shared by csrc/ffa_bwd_dq.cu (one q head per
-// CTA, G = 1) and csrc/ffa_bwd_dq_gqa.cu (G q heads of one GQA group per
-// CTA, the port of the TPU's packed twin). Each source includes this header
-// once and instantiates the kernel for its G; the per-head arithmetic is the
-// same inline code in both, so a row's dq does not depend on G.
+// The float32 FFA dq backward kernel on the CUDA cores, shared by the
+// float32 entries of csrc/ffa_bwd_dq.cu (one q head per CTA, G = 1) and
+// csrc/ffa_bwd_dq_gqa.cu (G q heads of one GQA group per CTA, the port of
+// the TPU's packed twin). Their bf16 entries run csrc/ffa_bwd_dq_tc.cuh on
+// the tensor cores. Each source includes this header once and instantiates
+// the kernel for its G; the per-head arithmetic is the same inline code in
+// both, so a row's dq does not depend on G.
 //
 // What it computes: for every q head h and q row i,
 //   dq[i] = scale * sum_j dS[i, j] k[j],   dS = P * (dP - delta[i]) (* dcap)
@@ -37,8 +39,9 @@
 //
 // What bounds it on this card: operations. Work is 6 * D flops per live
 // (row, col) pair and head (S, dP and dS K), on the CUDA cores in float32
-// (67 TFLOP/s peak on an H100 SXM) for bf16 inputs too; tensor cores and
-// TMA are later work. Shared memory per CTA is
+// (67 TFLOP/s peak on an H100 SXM): the float32 gate of 1e-5 against the
+// plain version needs float32 FMA (TF32 or bf16 tensor-core products would
+// not pass it). Shared memory per CTA is
 // 4 * (2 * G * 64 + 2 * 64) * (D + 4) + 4 * 64 * 80 bytes (Q and dO of G
 // heads, K, V, the 64 x 80 dS tile): 152 KB at D = 128, G = 1, so one CTA
 // runs per SM.

@@ -8,60 +8,48 @@
 // dP products so each K/V block is fetched once per work item for the
 // group, with lse/delta tile-packed on the host. Here the CTA keeps the G
 // heads' Q and dO tiles in shared memory, loads each item's k and v tiles
-// once for the G heads, and runs the per-head body of csrc/ffa_bwd_dq.cuh
+// once for the G heads, and runs the per-head body of the unpacked kernel
 // once per head against them; lse and delta are read from the [sq, hq] rows
 // directly. The per-row arithmetic and its order are the unpacked kernel's,
 // so dq is bit-identical to csrc/ffa_bwd_dq.cu on the same inputs; only the
-// grid differs.
+// grid differs. No atomics: the deterministic mode may take this kernel.
 //
-// G is 2 or 4, the largest that divides the group and fits (the wrapper's
-// guard, kernels/ffa.py:dq_pack_heads, computes the same figures): shared
-// memory 4 * (2 * G * 64 + 2 * 64) * (D + 4) + 4 * 64 * 80 bytes, so G = 2
-// at D = 128 (223 KB; four heads' float32 Q and dO tiles would need 350 KB)
-// and up to G = 4 at D = 64 (195 KB), one CTA per SM; a larger group runs in
-// blocks of G heads.
+// Two bodies, as in csrc/ffa_bwd_dq.cu. bfloat16: csrc/ffa_bwd_dq_tc.cuh,
+// one warpgroup per head on the tensor cores; shared memory (2 G + 4) * 64
+// * D * 2 + 1024 bytes (G Q and dO tiles, two stages of K and V) and a
+// thread's registers (the dQ accumulator, D / 2, beside S, dP and dS's
+// fragments) make G 2 at D = 64 and 128 (132,096 bytes at D = 128; four
+// warpgroups would leave 128 registers a thread). float32:
+// csrc/ffa_bwd_dq.cuh, float32 FMA on the CUDA cores (the 1e-5 gate needs
+// float32 products); shared memory 4 * (2 * G * 64 + 2 * 64) * (D + 4) +
+// 4 * 64 * 80 bytes, so G = 2 at D = 128 (223 KB; four heads' float32 Q and
+// dO tiles would need 350 KB) and up to G = 4 at D = 64 (195 KB), one CTA
+// per SM. The wrapper's guard (kernels/ffa.py:dq_pack_heads) computes the
+// same figures; a larger group runs in blocks of G heads.
 #include "ffa_bwd_dq.cuh"
+#include "ffa_bwd_dq_tc.cuh"
 
 namespace {
 
-template <typename T, int D>
-int dispatch_g(int g, const void* q, const void* k, const void* v,
-               const void* dout, const float* lse, const float* delta,
-               float* dq, const int* work_kt, const int* meta,
-               const int* run_ptr, int sq, int sk, int hq, int hk,
-               int num_q_tiles, float scale, float softcap, void* stream) {
+// the float32 body's instances: G = 2, and G = 4 where four heads' tiles
+// fit (D = 64)
+template <int D>
+int dispatch_f32(int g, const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 float* dq, const int* work_kt, const int* meta,
+                 const int* run_ptr, int sq, int sk, int hq, int hk,
+                 int num_q_tiles, float scale, float softcap, void* stream) {
   switch (g) {
     case 2:
-      return launch<T, D, 2>(q, k, v, dout, lse, delta, dq, work_kt, meta,
-                             run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                             softcap, stream);
+      return launch<float, D, 2>(q, k, v, dout, lse, delta, dq, work_kt,
+                                 meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                 scale, softcap, stream);
     case 4:
-      if constexpr (D == 64)  // four heads' tiles fit at D = 64 only
-        return launch<T, D, 4>(q, k, v, dout, lse, delta, dq, work_kt, meta,
-                               run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                               softcap, stream);
+      if constexpr (D == 64)
+        return launch<float, D, 4>(q, k, v, dout, lse, delta, dq, work_kt,
+                                   meta, run_ptr, sq, sk, hq, hk,
+                                   num_q_tiles, scale, softcap, stream);
       return (int)cudaErrorInvalidValue;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int dispatch(int d, int g, const void* q, const void* k, const void* v,
-             const void* dout, const float* lse, const float* delta,
-             float* dq, const int* work_kt, const int* meta,
-             const int* run_ptr, int sq, int sk, int hq, int hk,
-             int num_q_tiles, float scale, float softcap, void* stream) {
-  if (g < 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
-  switch (d) {
-    case 64:
-      return dispatch_g<T, 64>(g, q, k, v, dout, lse, delta, dq, work_kt,
-                               meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                               scale, softcap, stream);
-    case 128:
-      return dispatch_g<T, 128>(g, q, k, v, dout, lse, delta, dq, work_kt,
-                                meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                scale, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -79,9 +67,20 @@ extern "C" int ffa_bwd_dq_gqa_f32(const void* q, const void* k,
                                   int sk, int hq, int hk, int d,
                                   int heads_per_cta, int num_q_tiles,
                                   float scale, float softcap, void* stream) {
-  return dispatch<float>(d, heads_per_cta, q, k, v, dout, lse, delta, dq,
-                         work_kt, meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                         scale, softcap, stream);
+  const int g = heads_per_cta;
+  if (g < 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 64:
+      return dispatch_f32<64>(g, q, k, v, dout, lse, delta, dq, work_kt, meta,
+                              run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
+                              softcap, stream);
+    case 128:
+      return dispatch_f32<128>(g, q, k, v, dout, lse, delta, dq, work_kt,
+                               meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                               scale, softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int ffa_bwd_dq_gqa_bf16(const void* q, const void* k,
@@ -92,14 +91,31 @@ extern "C" int ffa_bwd_dq_gqa_bf16(const void* q, const void* k,
                                    int sq, int sk, int hq, int hk, int d,
                                    int heads_per_cta, int num_q_tiles,
                                    float scale, float softcap, void* stream) {
-  return dispatch<__nv_bfloat16>(d, heads_per_cta, q, k, v, dout, lse, delta,
-                                 dq, work_kt, meta, run_ptr, sq, sk, hq, hk,
-                                 num_q_tiles, scale, softcap, stream);
+  const int g = heads_per_cta;
+  if (g != 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 64:
+      return dq_tc::launch<64, 2>(q, k, v, dout, lse, delta, dq, work_kt,
+                                  meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                  scale, softcap, stream);
+    case 128:
+      return dq_tc::launch<128, 2>(q, k, v, dout, lse, delta, dq, work_kt,
+                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                   scale, softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The shared memory one CTA takes, for the wrapper's guard to check its
-// own figure against: 0 for a geometry this library has no kernel for.
-extern "C" long ffa_bwd_dq_gqa_smem_bytes(int d, int g) {
+// The shared memory one CTA takes (bf16: the tensor-core body, else the
+// float32 one), for the wrapper's guard to check its own figure against:
+// 0 for a geometry this library has no kernel for.
+extern "C" long ffa_bwd_dq_gqa_smem_bytes(int d, int g, int bf16) {
+  if (bf16) {
+    if (d == 64 && g == 2) return (long)dq_tc::Smem<64, 2>::bytes;
+    if (d == 128 && g == 2) return (long)dq_tc::Smem<128, 2>::bytes;
+    return 0;
+  }
   if (d == 64 && g == 2) return (long)DqSmem<64, 2>::bytes;
   if (d == 64 && g == 4) return (long)DqSmem<64, 4>::bytes;
   if (d == 128 && g == 2) return (long)DqSmem<128, 2>::bytes;

@@ -26,9 +26,11 @@
 // in the input type and divides ln 2 back out of dk); softcap keeps the
 // exp domain and the 1 - tanh^2 factor.
 //
-// Two bodies. bfloat16: csrc/bwd_fused_tc.cuh, the five products on the
-// tensor cores (wgmma, one warpgroup per CTA, the next step's Q and dO
-// double-buffered by cp.async, dq added by 16-byte vector atomics).
+// Two bodies. bfloat16: csrc/bwd_kv_tc.cuh with FUSED (shared with the
+// split dk/dv kernel's bf16 entry), the products on the tensor cores
+// (wgmma, one warpgroup per CTA, the next step's Q and dO double-buffered
+// by cp.async, dq added by 16-byte vector atomics; 108,544 bytes of shared
+// memory at D = 128, two CTAs per SM).
 // float32: csrc/bwd_kv.cuh with FUSED, float32 FMA on the CUDA cores (67
 // TFLOP/s peak on an H100 SXM), shared with the split dk/dv kernel; its
 // shared memory is the dk/dv kernel's (173 KB at D = 128): the dq block
@@ -38,7 +40,7 @@
 // 64 x D float32 block per (item, q head), a read-modify-write of
 // 64 * D * 4 bytes in L2 each.
 #include "bwd_kv.cuh"
-#include "bwd_fused_tc.cuh"
+#include "bwd_kv_tc.cuh"
 
 namespace {
 
@@ -87,11 +89,11 @@ extern "C" int ffa_bwd_fused_bf16(const void* q, const void* k, const void* v,
                                   void* stream) {
   switch (d) {
     case 64:
-      return bwd_tc::launch<64>(q, k, v, dout, lse, delta, dk, dv, dq,
+      return kv_tc::launch<64, true>(q, k, v, dout, lse, delta, dk, dv, dq,
                                 work_qt_t, meta_t, run_ptr_t, sq, sk, hq, hk,
                                 num_k_tiles, scale, softcap, stream);
     case 128:
-      return bwd_tc::launch<128>(q, k, v, dout, lse, delta, dk, dv, dq,
+      return kv_tc::launch<128, true>(q, k, v, dout, lse, delta, dk, dv, dq,
                                  work_qt_t, meta_t, run_ptr_t, sq, sk, hq, hk,
                                  num_k_tiles, scale, softcap, stream);
     default:
@@ -104,10 +106,10 @@ extern "C" int ffa_bwd_fused_bf16(const void* q, const void* k, const void* v,
 // head dim this library has no kernel for.
 extern "C" long ffa_bwd_fused_smem_bytes(int d, int bf16) {
   if (d == 64)
-    return bf16 ? (long)bwd_tc::Smem<64>::bytes
+    return bf16 ? (long)kv_tc::Smem<64, true>::bytes
                 : (long)DkvSmem<64>::bytes;
   if (d == 128)
-    return bf16 ? (long)bwd_tc::Smem<128>::bytes
+    return bf16 ? (long)kv_tc::Smem<128, true>::bytes
                 : (long)DkvSmem<128>::bytes;
   return 0;
 }

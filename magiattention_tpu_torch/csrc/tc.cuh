@@ -1,5 +1,6 @@
 // Tensor-core building blocks for the port's bf16 kernels on Hopper
-// (sm_90a): csrc/ffa_fwd_tc.cuh (B1/B2) and csrc/bwd_fused_tc.cuh (B8/B9).
+// (sm_90a): csrc/ffa_fwd_tc.cuh (B1/B2), csrc/ffa_bwd_dq_tc.cuh (B3/B4) and
+// csrc/bwd_kv_tc.cuh (B5/B6, B8/B9).
 //
 // Tiles. An operand tile is 64 rows of bf16 in shared memory, cut into
 // panels of 64 columns (128 bytes a row, 8 KB a panel, panels PANEL_BYTES

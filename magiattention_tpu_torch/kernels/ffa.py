@@ -22,12 +22,13 @@ for the forward and dq, k-major for dk/dv. Seven CUDA kernels walk them:
 - ``csrc/ffa_bwd_fused.cu``: dq, dk and dv in one pass over the k-major
   runs (the fused backward: dq by float32 atomics, then a scale pass).
 
-The bf16 entries of the forward pair and the fused backward run on the
-tensor cores (``csrc/ffa_fwd_tc.cuh``, ``csrc/bwd_fused_tc.cuh``: wgmma,
-one warpgroup per head); their float32 entries, and the split pair in
-both dtypes, run float32 FMA on the CUDA cores. So the packed forward's
-guard (:func:`fwd_pack_heads`) and the cost model's fused body
-(:mod:`.tile_policy`) depend on the dtype.
+Every bf16 entry of the FFA kernels above (all but delta) runs on the
+tensor cores (wgmma, one warpgroup per head): ``csrc/ffa_fwd_tc.cuh``
+(forward), ``csrc/ffa_bwd_dq_tc.cuh`` (split dq) and ``csrc/bwd_kv_tc.cuh``
+(split dk/dv and the fused backward). Their float32 entries run float32
+FMA on the CUDA cores, which their 1e-5 gates need. So the packed guards
+(:func:`fwd_pack_heads`, :func:`dq_pack_heads`) and the cost model's
+bodies (:mod:`.tile_policy`) depend on the dtype.
 
 :func:`ffa_fwd_dispatch` and :func:`ffa_bwd_dq_dispatch` are the one entry
 of every forward and split-dq caller; they pick the packed or unpacked
@@ -158,9 +159,12 @@ _ARGTYPES = {
 }
 
 # the libraries that report one CTA's shared memory in bytes, with the int
-# arguments of their <name>_smem_bytes: d, then heads_per_cta (packed)
-# and/or a bf16 flag
-_SMEM_ARGS = {"ffa_fwd": 2, "ffa_fwd_gqa": 3, "ffa_bwd_dq_gqa": 2, "ffa_bwd_fused": 2}
+# arguments of their <name>_smem_bytes: d, then heads_per_cta (packed),
+# then a bf16 flag
+_SMEM_ARGS = {
+    "ffa_fwd": 2, "ffa_fwd_gqa": 3, "ffa_bwd_dq": 2, "ffa_bwd_dq_gqa": 3,
+    "ffa_bwd_dkv": 2, "ffa_bwd_fused": 2,
+}
 
 
 @lru_cache(maxsize=None)
@@ -359,7 +363,7 @@ def ffa_bwd_dq_gqa_kernel(
     lse, delta = _row_stats(q, lse, delta)
     sq, hq, d = q.shape
     sk, hk, _ = k.shape
-    heads = dq_pack_heads(hq // hk, d, v.shape[-1])
+    heads = dq_pack_heads(hq // hk, d, v.shape[-1], q.element_size())
     if heads < 2:
         raise ValueError(f"ffa_bwd_dq_gqa_kernel: group {hq // hk} at d={d} does not pack")
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -622,9 +626,14 @@ def fwd_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
     return 4 * ((heads + 2) * _tile_floats(d) + P_TILE_FLOATS)
 
 
-def dq_pack_smem_bytes(d: int, heads: int) -> int:
-    """Shared memory of one packed-dq CTA (csrc/ffa_bwd_dq.cuh ``DqSmem``):
-    the heads' q and dO tiles, the k and v tiles, the dS tile."""
+def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
+    """Shared memory of one dq CTA of ``heads`` heads. float32
+    (csrc/ffa_bwd_dq.cuh ``DqSmem``): the heads' q and dO tiles, the k and
+    v tiles, the dS tile. bfloat16 (csrc/ffa_bwd_dq_tc.cuh ``Smem``): the
+    heads' q and dO tiles and two stages of k and v tiles in bf16, and 1024
+    bytes to align the window for the swizzle."""
+    if itemsize == 2:
+        return (2 * heads + 4) * 64 * d * 2 + 1024
     return 4 * ((2 * heads + 2) * _tile_floats(d) + P_TILE_FLOATS)
 
 
@@ -648,21 +657,26 @@ REGS_PER_SM = 65_536
 # accumulator (d / 2 floats): S (32), P in bf16 (16), and addresses,
 # indices and the softmax state (40)
 TC_FWD_REGS_SHARED = 88
+# what a thread of a tensor-core dq warpgroup holds beside its dQ
+# accumulator (d / 2 floats): S and dP (32 each), dS in bf16 (16), and
+# addresses, indices and the row statistics (40)
+TC_DQ_REGS_SHARED = 120
 
 
-def _tc_fwd_pack_heads(group: int, d: int, dv: int) -> int:
-    """Heads per CTA of the bf16 (tensor-core) packed forward: the largest
-    of :data:`PACK_HEADS` dividing the group whose CTA fits the shared
-    memory limit and whose warpgroups (128 threads a head) each find the
-    registers a thread needs (d / 2 + 88) in the SM's file."""
+def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_shared: int) -> int:
+    """Heads per CTA of a bf16 (tensor-core) packed kernel: the largest of
+    :data:`PACK_HEADS` dividing the group whose CTA fits the shared memory
+    limit (``smem_bytes(d, heads, 2)``) and whose warpgroups (128 threads a
+    head) each find the registers a thread needs (d / 2 + ``regs_shared``)
+    in the SM's file."""
     if d != dv or d not in KERNEL_HEAD_DIMS:
         return 1
     for heads in PACK_HEADS:
         regs = min(REGS_PER_THREAD, REGS_PER_SM // (128 * heads))
         if (
             group % heads == 0
-            and fwd_pack_smem_bytes(d, heads, 2) <= SMEM_PER_CTA
-            and d // 2 + TC_FWD_REGS_SHARED <= regs
+            and smem_bytes(d, heads, 2) <= SMEM_PER_CTA
+            and d // 2 + regs_shared <= regs
         ):
             return heads
     return 1
@@ -676,19 +690,24 @@ def fwd_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
     live accumulators (per head 4 rows x d/16 output columns, 4 maxima and
     4 sums; the 4 x 4 score block) with room for addresses and operands
     (64) within the register limit. bfloat16 (the tensor-core body):
-    :func:`_tc_fwd_pack_heads`, 2 heads at head_dim 128 and 4 at 64. A
-    group larger than the block runs in several blocks per kv head."""
+    :func:`_tc_pack_heads` with d / 2 + 88 registers a thread, 2 heads at
+    head_dim 128 and 4 at 64. A group larger than the block runs in
+    several blocks per kv head."""
     if itemsize == 2:
-        return _tc_fwd_pack_heads(group, d, dv)
+        return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, TC_FWD_REGS_SHARED)
     return _pack_heads(group, d, dv, fwd_pack_smem_bytes, d // 4 + 8, 16)
 
 
-def dq_pack_heads(group: int, d: int, dv: int) -> int:
+def dq_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
     """Query heads per CTA of the packed dq kernel, as
-    :func:`fwd_pack_heads`: shared memory :func:`dq_pack_smem_bytes`
-    (two tiles per head, so 2 heads at head_dim 128), registers per head 4
-    rows x d/16 dq columns and 4 lse and delta values, the 4 x 4 score and
-    dP blocks."""
+    :func:`fwd_pack_heads`. float32: shared memory
+    :func:`dq_pack_smem_bytes` (two tiles per head, so 2 heads at head_dim
+    128), registers per head 4 rows x d/16 dq columns and 4 lse and delta
+    values, the 4 x 4 score and dP blocks. bfloat16 (the tensor-core body):
+    :func:`_tc_pack_heads` with d / 2 + 120 registers a thread, so 2 heads
+    at head_dim 64 and 128 (four warpgroups would leave 128 a thread)."""
+    if itemsize == 2:
+        return _tc_pack_heads(group, d, dv, dq_pack_smem_bytes, TC_DQ_REGS_SHARED)
     return _pack_heads(group, d, dv, dq_pack_smem_bytes, d // 4 + 8, 32)
 
 
@@ -722,13 +741,13 @@ def _use_gqa_pack(
     return fwd_pack_heads(group, d, dv, itemsize)
 
 
-def _use_gqa_pack_dq(group: int, d: int, dv: int) -> int:
+def _use_gqa_pack_dq(group: int, d: int, dv: int, itemsize: int = 4) -> int:
     """Heads per CTA of the dq kernel (the JAX package's
-    ``_use_gqa_pack_dq``): :func:`dq_pack_heads` when the flag is on and
-    the group is > 1, else 1."""
+    ``_use_gqa_pack_dq``): :func:`dq_pack_heads` for the input dtype's
+    ``itemsize`` when the flag is on and the group is > 1, else 1."""
     if gqa_pack_variant("dq") != "gqa_packed" or group <= 1:
         return 1
-    return dq_pack_heads(group, d, dv)
+    return dq_pack_heads(group, d, dv, itemsize)
 
 
 def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logits: bool = False):
@@ -746,20 +765,29 @@ def ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParam
     """dq of the split backward with the GQA-packing dispatch applied (the
     JAX package's ``ffa_bwd_dq_pallas_dispatch``): the one entry of every
     split-dq caller."""
-    fn = ffa_bwd_dq_gqa if _use_gqa_pack_dq(q.shape[1] // k.shape[1], q.shape[-1], v.shape[-1]) > 1 else ffa_bwd_dq
+    group, itemsize = q.shape[1] // k.shape[1], q.element_size()
+    packed = _use_gqa_pack_dq(group, q.shape[-1], v.shape[-1], itemsize) > 1
+    fn = ffa_bwd_dq_gqa if packed else ffa_bwd_dq
     return fn(q, k, v, do, lse, delta, plan, params)
 
 
-def fused_bwd_smem_bytes(d: int, itemsize: int = 4) -> int:
-    """Shared memory of one fused-backward CTA. float32 (csrc/bwd_kv.cuh
+def dkv_smem_bytes(d: int, itemsize: int = 4) -> int:
+    """Shared memory of one dk/dv CTA. float32 (csrc/bwd_kv.cuh
     ``DkvSmem``): K, V, Q and dO tiles at row stride d + 4, the P^T and
     dS^T tiles at row stride 80, the q tile's lse and delta, float32.
-    bfloat16 (csrc/bwd_fused_tc.cuh ``Smem``): K, V and two stages of Q
-    and dO in bf16, the 64 x 64 bf16 dS^T tile, two stages of lse and
-    delta, and 1024 bytes to align the window for the swizzle."""
+    bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``): K, V and two stages of Q and dO
+    in bf16, two stages of lse and delta, and 1024 bytes to align the
+    window for the swizzle."""
     if itemsize == 2:
-        return 6 * 64 * d * 2 + 64 * 64 * 2 + 2 * 2 * 64 * 4 + 1024
+        return 6 * 64 * d * 2 + 2 * 2 * 64 * 4 + 1024
     return 4 * (4 * _tile_floats(d) + 2 * P_TILE_FLOATS + 2 * 64)
+
+
+def fused_bwd_smem_bytes(d: int, itemsize: int = 4) -> int:
+    """Shared memory of one fused-backward CTA: the dk/dv CTA's
+    (:func:`dkv_smem_bytes`; float32 keeps its dS^T tile for dq already),
+    plus in bf16 the 64 x 64 bf16 dS^T tile that dQ = dS K reads."""
+    return dkv_smem_bytes(d, itemsize) + (64 * 64 * 2 if itemsize == 2 else 0)
 
 
 def fused_bwd_feasible(d: int, dv: int) -> bool:
@@ -830,7 +858,7 @@ def ffa_bwd_mode(
         return "split"
     if pin == "fused":
         return "fused"
-    dq_heads = _use_gqa_pack_dq(hq // hk, d, dv)
+    dq_heads = _use_gqa_pack_dq(hq // hk, d, dv, itemsize)
     return _modeled_mode(plan, hq, hk, d, dv, itemsize, dq_heads)
 
 

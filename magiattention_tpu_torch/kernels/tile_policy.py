@@ -5,17 +5,17 @@ The JAX package's model (``magiattention_tpu/kernels/tile_policy.py``:
 tensor-core tile products per work item plus HBM blocks per work item,
 and charges the fused mode a float32 dq read-modify-write in HBM for
 every (k-major item, head). None of that describes the port's kernels:
-the split kernels (dq, dk/dv) and the float32 fused kernel run float32 FMA
-on the CUDA cores, the bf16 fused kernel runs its products on the tensor
-cores (csrc/bwd_fused_tc.cuh), all one CTA per run of a tile's
-items (operands of the run's tile resident, the other side streamed per
-item), and the fused kernel's dq atomics resolve in L2. So this model
-prices what the card does:
+in float32 the split kernels (dq, dk/dv) and the fused kernel run float32
+FMA on the CUDA cores, in bf16 all three run their products on the tensor
+cores (csrc/ffa_bwd_dq_tc.cuh, csrc/bwd_kv_tc.cuh), all one CTA per run
+of a tile's items (operands of the run's tile resident, the other side
+streamed per item), and the fused kernel's dq atomics resolve in L2. So
+this model prices what the card does:
 
 - **compute**: each kernel's CTAs, in launch order, dealt to the SMs'
-  slots as they free up (one CTA per SM for the dq, dk/dv and float32
-  fused kernels, two for the bf16 fused kernel), each CTA taking (items
-  in its run) x (heads it loops) x the kernel's measured time per
+  slots as they free up (one CTA per SM for the CUDA-core kernels; per
+  tensor-core kernel :data:`TC_CTAS_PER_SM`), each CTA taking (items in
+  its run) x (heads it loops) x the kernel's measured time per
   (item, head); the kernel's time is the
   last CTA's finish. This is what separates the modes: both do the same
   items, but the fused mode runs all of them over the k-major runs, so a
@@ -36,11 +36,11 @@ NVIDIA H100 80GB HBM3 at a 700 W power limit. CUDA-core kernels
 shape over its modeled makespan in (item, head) units, at head_dim 128;
 the atomic rate from the float32 fused kernel's time less 5/4 of the dk/dv
 kernel's (that body is the dk/dv body plus one tile product, dS K, and the
-atomics). The bf16 fused body (:func:`calibrate_fused_tc`): its
-per-(item, head) time fitted by least squares to its times at the four
-bf16 masks of the phase. Other head dims scale the
-per-item times by d / 128. Which fused body a backward runs follows its
-dtype (``BwdShape.itemsize``: 2 is bf16, the tensor-core body).
+atomics). The tensor-core bodies (:func:`calibrate_tc`): each kernel's
+per-(item, head) time fitted by least squares to its times at the bf16
+masks of the phase. Other head dims scale the per-item times by d / 128.
+Which bodies a backward runs follows its dtype (``BwdShape.itemsize``: 2
+is bf16, the tensor-core bodies; :func:`dtype_body`).
 """
 
 from __future__ import annotations
@@ -54,24 +54,29 @@ import numpy as np
 NUM_SMS = 132
 HBM_BYTES_PER_S = 3.35e12
 
-# Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase
-# bwd_mode): microseconds one CTA spends per (work item, q head) at
-# head_dim 128 in each kernel's loop (dq packed: per head of its block).
+# The CUDA-core kernels (float32), measured on NVIDIA H100 80GB HBM3,
+# 700.00 W (chip_smoke.py phase bwd_mode, in a run where bf16 took them
+# too): microseconds one CTA spends per (work item, q head) at head_dim
+# 128 in each kernel's loop (dq packed: per head of its block).
 ITEM_US = {"dq": 11.50, "dq_gqa": 11.73, "dkv": 15.27}
 # the fused kernel's per-(item, head) body, 5/4 of the dk/dv kernel's (one
 # more 64 x 64 x d product of the same shape)
 FUSED_BODY_OVER_DKV = 1.25
 # float32 atomic adds per second the fused kernel's dq block sustains
 ATOMIC_ADDS_PER_S = 4.45e11
-# The bf16 fused kernel (tensor cores, csrc/bwd_fused_tc.cuh), measured on
-# NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase bwd_mode,
-# calibrate_fused_tc over its four bf16 masks): microseconds one CTA spends
-# per (work item, q head) at head_dim 128, its dq atomics included.
-FUSED_TC_ITEM_US = 5.2102
-# CTAs of the bf16 fused kernel one SM runs at once (108.5 KB of shared
-# memory and 248 registers a thread at head_dim 128): its per-item time is
-# a CTA's while it shares the SM, and a lone long run finishes at that pace
-FUSED_TC_CTAS_PER_SM = 2
+# The tensor-core kernels (bf16: csrc/ffa_bwd_dq_tc.cuh for dq and
+# dq_gqa, csrc/bwd_kv_tc.cuh for dkv and fused), measured on NVIDIA H100
+# 80GB HBM3, 700.00 W (chip_smoke.py phase bwd_mode, calibrate_tc over the
+# four bf16 masks; dq_gqa over the two that time it): microseconds one CTA
+# spends per (work item, q head) at head_dim 128, the fused kernel's dq
+# atomics included (dq_gqa: per head of its block of 2).
+TC_ITEM_US = {"dq": 0.9092, "dq_gqa": 1.0122, "dkv": 2.8878, "fused": 5.121}
+# CTAs of each tensor-core kernel one SM runs at once, from its shared
+# memory at head_dim 128 (dq 99,328 bytes, dq_gqa 132,096, dkv 100,352,
+# fused 108,544; 227 KB a CTA at most, 228 KB an SM): its per-item time is
+# a CTA's while it shares the SM. A lone long run (the sink window's 516
+# steps) is slower than that pace: the model is 4-23% under it there.
+TC_CTAS_PER_SM = {"dq": 2, "dq_gqa": 1, "dkv": 2, "fused": 2}
 
 
 @dataclass(frozen=True)
@@ -111,23 +116,33 @@ def _ctas(items: np.ndarray, heads: int, heads_per_cta: int, reverse: bool) -> n
 
 
 def kernel_units(
-    s: BwdShape, dq_heads_per_cta: int = 1, kv_slots: int = NUM_SMS
+    s: BwdShape, dq_heads_per_cta: int = 1, kv_slots: int = NUM_SMS,
+    dq_slots: int = NUM_SMS,
 ) -> dict[str, float]:
     """Makespans in (item, head) units: the dq kernel over the q-major runs
     (one CTA per (run, block of ``dq_heads_per_cta`` heads), last run
-    first) and the k-major kernels (dk/dv and fused: one CTA per (run, kv
-    head) looping the group, first run first, on ``kv_slots`` slots)."""
+    first, on ``dq_slots`` slots) and the k-major kernels (dk/dv and fused:
+    one CTA per (run, kv head) looping the group, first run first, on
+    ``kv_slots`` slots)."""
     g = s.hq // s.hk
     return {
-        "dq": makespan(_ctas(s.items_q, s.hq, dq_heads_per_cta, True)),
+        "dq": makespan(_ctas(s.items_q, s.hq, dq_heads_per_cta, True), dq_slots),
         "kv": makespan(_ctas(s.items_k, s.hk, 1, False) * g, kv_slots),
     }
 
 
-def _tc_units(s: BwdShape) -> float:
-    """The bf16 fused kernel's makespan in (item, head) units, its CTAs
-    dealt to FUSED_TC_CTAS_PER_SM slots per SM."""
-    return kernel_units(s, kv_slots=NUM_SMS * FUSED_TC_CTAS_PER_SM)["kv"]
+def _dq_key(dq_heads_per_cta: int) -> str:
+    return "dq_gqa" if dq_heads_per_cta > 1 else "dq"
+
+
+def _tc_units(s: BwdShape, kernel: str, dq_heads_per_cta: int = 1) -> float:
+    """A tensor-core kernel's makespan in (item, head) units ("dq",
+    "dq_gqa", "dkv" or "fused"), its CTAs dealt to its
+    :data:`TC_CTAS_PER_SM` slots per SM."""
+    slots = NUM_SMS * TC_CTAS_PER_SM[kernel]
+    if kernel in ("dq", "dq_gqa"):
+        return kernel_units(s, dq_heads_per_cta, dq_slots=slots)["dq"]
+    return kernel_units(s, kv_slots=slots)["kv"]
 
 
 def dram_bytes(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
@@ -156,32 +171,47 @@ def atomic_adds(s: BwdShape) -> float:
     return float(s.items_k.sum()) * s.hq * s.block_q * s.d
 
 
-def fused_body(s: BwdShape) -> str:
-    """The fused kernel's body for the backward's dtype: "tc" (bf16, the
+def dtype_body(s: BwdShape) -> str:
+    """The backward kernels' body for the backward's dtype: "tc" (bf16, the
     tensor cores) or "fma" (float32, the CUDA cores)."""
     return "tc" if s.itemsize == 2 else "fma"
 
 
-def kernel_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
-    """Modeled milliseconds of each backward kernel on one backward, the
-    fused kernel's body the dtype's (:func:`fused_body`)."""
-    units = kernel_units(s, dq_heads_per_cta)
+def _with_dram(s: BwdShape, dq_heads_per_cta: int, compute: dict[str, float]) -> dict[str, float]:
     nbytes = dram_bytes(s, dq_heads_per_cta)
+    return {k: compute[k] + nbytes[k] / HBM_BYTES_PER_S * 1e3 for k in compute}
+
+
+def fma_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
+    """Modeled milliseconds of each backward kernel in its CUDA-core body
+    (float32 FMA; the one float32 runs)."""
+    units = kernel_units(s, dq_heads_per_cta)
     scale = s.d / 128.0
-    dq_us = ITEM_US["dq_gqa" if dq_heads_per_cta > 1 else "dq"] * scale
     dkv_us = ITEM_US["dkv"] * scale
-    if fused_body(s) == "tc":
-        fused_ms = _tc_units(s) * FUSED_TC_ITEM_US * scale * 1e-3
-    else:
-        fused_ms = (
-            units["kv"] * FUSED_BODY_OVER_DKV * dkv_us * 1e-3
-            + atomic_adds(s) / ATOMIC_ADDS_PER_S * 1e3
-        )
-    return {
-        "dq": units["dq"] * dq_us * 1e-3 + nbytes["dq"] / HBM_BYTES_PER_S * 1e3,
-        "dkv": units["kv"] * dkv_us * 1e-3 + nbytes["dkv"] / HBM_BYTES_PER_S * 1e3,
-        "fused": fused_ms + nbytes["fused"] / HBM_BYTES_PER_S * 1e3,
+    return _with_dram(s, dq_heads_per_cta, {
+        "dq": units["dq"] * ITEM_US[_dq_key(dq_heads_per_cta)] * scale * 1e-3,
+        "dkv": units["kv"] * dkv_us * 1e-3,
+        "fused": units["kv"] * FUSED_BODY_OVER_DKV * dkv_us * 1e-3
+        + atomic_adds(s) / ATOMIC_ADDS_PER_S * 1e3,
+    })
+
+
+def tc_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
+    """Modeled milliseconds of each backward kernel in its tensor-core body
+    (the one bf16 runs)."""
+    dq = _dq_key(dq_heads_per_cta)
+    units = {
+        "dq": _tc_units(s, dq, dq_heads_per_cta) * TC_ITEM_US[dq],
+        "dkv": _tc_units(s, "dkv") * TC_ITEM_US["dkv"],
+        "fused": _tc_units(s, "fused") * TC_ITEM_US["fused"],
     }
+    return _with_dram(s, dq_heads_per_cta, {k: us * s.d / 128.0 * 1e-3 for k, us in units.items()})
+
+
+def kernel_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
+    """Modeled milliseconds of each backward kernel on one backward, in the
+    dtype's body (:func:`dtype_body`)."""
+    return (tc_ms if dtype_body(s) == "tc" else fma_ms)(s, dq_heads_per_cta)
 
 
 def bwd_mode_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
@@ -213,24 +243,31 @@ def calibrate(s: BwdShape, ms: dict[str, float], dq_heads_per_cta: int = 1) -> d
     }
 
 
-def calibrate_fused_tc(shapes: list[BwdShape], fused_ms: list[float]) -> dict[str, float]:
-    """The bf16 fused body's per-(item, head) microseconds at head_dim 128
-    from its measured times ``fused_ms`` at several shapes: least squares
-    of (time - DRAM time) over its makespan in (item, head) units on
-    FUSED_TC_CTAS_PER_SM slots per SM."""
-    units = np.asarray([_tc_units(s) * s.d / 128.0 * 1e-3 for s in shapes])
+def calibrate_tc(
+    kernel: str, shapes: list[BwdShape], ms: list[float], dq_heads_per_cta: int = 1
+) -> float:
+    """A tensor-core kernel's ("dq", "dq_gqa", "dkv" or "fused")
+    per-(item, head) microseconds at head_dim 128 from its measured times
+    ``ms`` at several shapes: least squares of (time - DRAM time) over its
+    makespan in (item, head) units on its :data:`TC_CTAS_PER_SM` slots per
+    SM (dq_gqa: ``dq_heads_per_cta`` heads a CTA)."""
+    heads = dq_heads_per_cta if kernel == "dq_gqa" else 1
+    dram = "dq" if kernel == "dq_gqa" else kernel
+    units = np.asarray([_tc_units(s, kernel, heads) * s.d / 128.0 * 1e-3 for s in shapes])
     rest = np.asarray([
-        ms - dram_bytes(s)["fused"] / HBM_BYTES_PER_S * 1e3 for s, ms in zip(shapes, fused_ms)
+        t - dram_bytes(s, heads)[dram] / HBM_BYTES_PER_S * 1e3 for s, t in zip(shapes, ms)
     ])
-    return {"fused_tc_item_us": float(np.dot(units, rest) / np.dot(units, units))}
+    return float(np.dot(units, rest) / np.dot(units, units))
 
 
 def choose_bwd_mode(s: BwdShape, dq_heads_per_cta: int = 1) -> str:
     """"fused" or "split", whichever the model times faster (fused on a
-    tie). Fused does 5 tile products per (item, head) where split does 7,
-    so it wins whenever its k-major runs spread over the card about as
-    well as the q-major ones; split wins when one k-major run is far
-    longer than the rest and holds the fused kernel back. Feasibility
+    tie). Fused does 5 tile products per (item, head) where split does 7
+    (tensor cores: 7 executed, with the lo products, against 9), so it
+    wins whenever its k-major runs spread over the card about as well as
+    the q-major ones; split wins when one k-major run is far longer than
+    the rest and holds the fused kernel back (its dk/dv kernel, lighter
+    per item, waits on that run less). Feasibility
     (shared memory and registers, plan meta columns) and the pins are the
     caller's job (kernels/ffa.ffa_bwd_mode)."""
     t = bwd_mode_ms(s, dq_heads_per_cta)

@@ -16,8 +16,8 @@ Also: ``ffa_bwd_mode`` follows the JAX package's precedence (a split pin
 wins, a fused pin wins where the kernel fits), and unpinned, its cost
 model (derived for the port's kernels, its constants measured on an NVIDIA
 H100 80GB HBM3 at 700 W by chip_smoke.py's ``bwd_mode`` phase) picks the
-mode the card measured faster at the shapes that phase times, where the
-JAX package's model (which prices TPU tensor-core tiles and a per-item dq
+mode the card measured faster at the shapes that phase times (either where
+the two are within 5%, as that phase's gate), where the JAX package's model (which prices TPU tensor-core tiles and a per-item dq
 read-modify-write in HBM) picks split at all of them.
 """
 
@@ -164,17 +164,17 @@ _DOCS = [[0, 4096], [4096, 8192]]
 _VARLEN_Q = [[0, 3072], [3072, 6144], [6144, 7168], [7168, 7680]]
 _VARLEN_K = [[0, 3072], [3072, 6144], [6144, 7168], [6144, 7680]]
 # chip_smoke.py's backward shapes: (q_ranges, k_ranges, types, sq, sk, hq,
-# hk, itemsize), head_dim 128, and the mode the card measured faster there
-# (NVIDIA H100 80GB HBM3, 700.00 W; fused against dq + dk/dv ms; bf16 runs
-# the tensor-core fused body, whose times these are: the CUDA-core body's
-# times, under which split won the sink window at 13.38 / 11.05, are in
+# hk, itemsize), head_dim 128, and the fused and split (dq + dk/dv) ms the
+# card measured there (NVIDIA H100 80GB HBM3, 700.00 W; bf16 runs the
+# tensor-core bodies, whose times these are: the CUDA-core bodies' times,
+# under which split won only the sink window, at 13.38 / 11.05, are in
 # tests/test_torch_tensor_cores.py)
 MEASURED_SHAPES = {
-    "causal_8192_bf16": (([[0, 8192]], [[0, 8192]], [1], 8192, 8192, 16, 8, 2), "fused"),  # 4.56 / 29.90
-    "varlen_8192_bf16": ((_VARLEN_Q, _VARLEN_K, [1, 1, 2, 3], 8192, 8192, 16, 8, 2), "fused"),  # 1.57 / 10.75
-    "serving_prefill_f32": (([[0, 512]], [[0, 2048]], None, 512, 4096, 32, 8, 4), "fused"),  # 1.61 / 2.03
-    "train_docs_8192_bf16": ((_DOCS, _DOCS, [1, 1], 8192, 8192, 32, 8, 2), "fused"),  # 4.79 / 32.07
-    "sink_window_8192_bf16": ((*_sink_window(), 8192, 8192, 32, 8, 2), "fused"),  # 3.38 / 11.12
+    "causal_8192_bf16": (([[0, 8192]], [[0, 8192]], [1], 8192, 8192, 16, 8, 2), (4.44, 4.76)),
+    "varlen_8192_bf16": ((_VARLEN_Q, _VARLEN_K, [1, 1, 2, 3], 8192, 8192, 16, 8, 2), (1.54, 1.64)),
+    "serving_prefill_f32": (([[0, 512]], [[0, 2048]], None, 512, 4096, 32, 8, 4), (1.57, 2.00)),
+    "train_docs_8192_bf16": ((_DOCS, _DOCS, [1, 1], 8192, 8192, 32, 8, 2), (4.90, 4.88)),
+    "sink_window_8192_bf16": ((*_sink_window(), 8192, 8192, 32, 8, 2), (3.21, 2.50)),
 }
 # the train shape's kernel times in the same run (ms; dq_gqa: the packed dq
 # kernel, 2 heads per CTA)
@@ -182,31 +182,38 @@ MEASURED_TRAIN_MS = {"dq": 13.314752, "dq_gqa": 13.263728, "dkv": 18.575008, "fu
 
 
 def _measured_plan(name):
-    (qr, kr, types, sq, sk, hq, hk, itemsize), faster = MEASURED_SHAPES[name]
+    """Plan, params, heads and itemsize of a measured shape, and the modes
+    chip_smoke.py's bwd_mode gate accepts there: the faster, and the other
+    too where the two are within 5%."""
+    (qr, kr, types, sq, sk, hq, hk, itemsize), (fused, split) = MEASURED_SHAPES[name]
     if types is None:  # the serving prefill chunk: queries at 1536.. over 2048 stored rows
         plan, params = plan_params(qr, kr, None, [-BAND_INF], [1536], sq, sk, 128, None, 0.0)
     else:
         plan, params = plan_params(qr, kr, types, None, None, sq, sk, 128, None, 0.0)
-    return plan, params, hq, hk, itemsize, faster
+    if abs(fused - split) / min(fused, split) <= 0.05:
+        accepted = {"fused", "split"}
+    else:
+        accepted = {"fused" if fused < split else "split"}
+    return plan, params, hq, hk, itemsize, accepted
 
 
 def test_cost_model_choice_equals_jax(monkeypatch):
     """Unpinned, the port picks the mode the card measured faster at each
-    timed shape. The JAX package's model, on the same plans at the same
-    tiles, picks split at all of them: it equals the port's choice only
-    where split is the faster mode (with the tensor-core fused body, no
-    timed shape)."""
+    timed shape (either at the train shape, where the two are 0.3% apart):
+    fused at four, split at the sink window. The JAX package's model, on
+    the same plans at the same tiles, picks split at all of them: it
+    equals the port's choice only at the sink window."""
     monkeypatch.delenv("MAGI_ATTENTION_BACKEND_FFA_BWD", raising=False)
     monkeypatch.delenv("MAGI_ATTENTION_FFA_FUSED_BWD", raising=False)
     for name in MEASURED_SHAPES:
-        plan, params, hq, hk, itemsize, faster = _measured_plan(name)
+        plan, params, hq, hk, itemsize, accepted = _measured_plan(name)
         got = ffa_bwd_mode(plan, params, 128, 128, itemsize, hq, hk)
-        assert got == faster, name
+        assert got in accepted, name
         want = jax_tile_policy.choose_bwd_mode(
             plan.num_work, 64, 64, plan.num_work_t, 64, 64, 128, 128,
             itemsize=itemsize, group=hq // hk,
         )
-        assert want == "split" and (got == want) == (faster == "split"), name
+        assert want == "split" and (got == want) == name.startswith("sink_window"), name
 
 
 def test_balance_constant_is_the_h100_data_sheet_ratio():
@@ -225,7 +232,7 @@ def test_balance_constant_is_the_h100_data_sheet_ratio():
     for key, us in tile_policy.ITEM_US.items():
         assert us == pytest.approx(got[key], rel=2e-3), key
     assert tile_policy.ATOMIC_ADDS_PER_S == pytest.approx(got["atomic_adds_per_s"], rel=2e-3)
-    modeled = tile_policy.kernel_ms(shape)
+    modeled = tile_policy.fma_ms(shape)
     for key in ("dq", "dkv"):
         assert modeled[key] == pytest.approx(MEASURED_TRAIN_MS[key], rel=5e-3), key
 
@@ -234,8 +241,11 @@ def test_train_shape_picks_split_in_both_models(monkeypatch):
     """At the trainer's attention shape (two causal documents of 4096,
     group 4, head_dim 128, bf16) the JAX package's model picks split, at
     its own TPU tiles and balance constant as at the port's tiles; the
-    port's model picks fused there, the mode the H100 measured faster
-    (25.49 against 31.89 ms), with the split or packed dq kernel alike."""
+    port's model picks fused there, with the split or packed dq kernel
+    alike: the H100 measured fused faster with the CUDA-core bodies
+    (25.49 against 31.89 ms) and the two 0.3% apart with the tensor-core
+    bodies (4.90 against 4.88 ms), where chip_smoke.py's gate takes
+    either."""
     monkeypatch.delenv("MAGI_ATTENTION_BACKEND_FFA_BWD", raising=False)
     monkeypatch.delenv("MAGI_ATTENTION_FFA_FUSED_BWD", raising=False)
     qr, kr, types, s = _DOCS, _DOCS, [1, 1], 8192

@@ -170,8 +170,8 @@ def _jax_params(plan, g, emit_max_logits):
 def test_guard_takes_the_packed_route_where_jax_does(flag, itemsize, monkeypatch):
     """Flag, group > 1 and (forward) no max-logits, at geometries both
     packages' budgets fit (head_dim 64 and 128, 64 x 64 tiles), for
-    float32 and bf16 inputs (bf16's forward runs the tensor-core body,
-    whose own head count the guard takes)."""
+    float32 and bf16 inputs (bf16's forward and dq run the tensor-core
+    bodies, whose own head counts the guards take)."""
     monkeypatch.setenv("MAGI_ATTENTION_FFA_GQA_PACK", flag)
     monkeypatch.setenv("MAGI_ATTENTION_FFA_GQA_PACK_DQ", flag)
     plan, _ = plan_params(*_meta("bands")[:2], None, *_meta("bands")[2:], SEQ, SEQ, D, None, 0.0)
@@ -184,7 +184,7 @@ def test_guard_takes_the_packed_route_where_jax_does(flag, itemsize, monkeypatch
                 assert got == want, (flag, d, g, ml)
                 seen.add(got)
             want_dq = jax_ffa._use_gqa_pack_dq(_jax_params(plan, g, False), d, d, itemsize)
-            assert (port_ffa._use_gqa_pack_dq(g, d, d) > 1) == want_dq, (flag, d, g)
+            assert (port_ffa._use_gqa_pack_dq(g, d, d, itemsize) > 1) == want_dq, (flag, d, g)
     assert seen == ({True, False} if flag == "1" else {False})
 
 
