@@ -42,14 +42,24 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    model picks the slower by more than 5%), and the model's constants from
    this run.
 5. ``paged_decode``: the paged-decode kernel against ``paged_decode_plain``
-   on 8 ragged slots, in float32 and bfloat16. ``paged_decode_spec``: the
+   on 8 ragged slots, in float32 and bfloat16, with the split plan it
+   launched (``splits``, ``split_len``). ``paged_decode_spec``: the
    speculative-verify kernel on the same slots, spec_k 2 and 4 (8, 16 and
    32 rows per CTA), against ``paged_decode_spec_plain``, bit for bit
    against the paged-decode kernel at spec_k 1. ``paged_decode_int8``: the
    int8 kernel over pages written by the port's own append, q float32 and
    bf16, against ``paged_decode_int8_plain``; ``int8_append``: the
    wave-batched quantized append of 512 rows against the row-by-row loop,
-   bit for bit.
+   bit for bit. Their ``ms`` is the time per call, host included
+   (:func:`time_ms`, as for every kernel), ``device_ms`` the device time
+   from a CUDA graph with a cold L2 (:func:`graph_ms`).
+   ``decode_split_edges``: B10 and B11 at slot lengths around the split
+   length and the full table, spec rows ending in an earlier split,
+   against the plain versions, two launches equal to the bit (not timed).
+   ``decode_long_slot``: one live 4096-token slot of eight, the case only
+   the split moves, timed beside the 8-slot case. ``decode_sass``: every
+   split instance of B10 and B11 shows LDGSTS (cp.async) and no spill, and
+   B12's one-CTA walk no LDGSTS.
 6. ``edge_cases``: head_dim 64, ragged tiles, softcap, g = 1 and 8, other
    page sizes, a k tile no slice reaches and uncovered rows, forward and
    gradients (both backward modes), kernel against plain version (not
@@ -68,6 +78,8 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    and ``serve_int8`` under MAGI_ATTENTION_BACKEND_SERVE_DECODE=gather_ffa,
    every row equal to its replay's to the bit, the oracle draft's accept
    rate, and whether B1's multi-row call equals its single-row calls.
+   ``serve_profile`` and ``serve_spec_profile`` give the paged-decode
+   kernels' device time (``decode_device_ms``).
 8. ``cp_api``: ``magi_attn_flex_key -> dispatch -> calc_attn ->
    undispatch`` at cp = 1, forward and backward, at the train phase's
    attention shape, against ``flex_flash_attn_func``, with max-logits.
@@ -171,6 +183,45 @@ def time_ms(fn, warmup: int = 3, samples: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, samples: int = 10) -> float:
+    """Median device ms of one call of ``fn`` with a cold L2: ``reps``
+    calls, each after a 64 MiB write that evicts the 50 MB L2, captured in
+    one CUDA graph and replayed (so no host work between the launches),
+    less the same graph's writes alone. For kernels shorter than their
+    host wrapper, whose :func:`time_ms` is the host's time."""
+    import torch
+
+    flush = torch.empty(1 << 24, dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # builds, shared-memory attributes, allocator
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graphs = []
+    for with_fn in (True, False):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                flush.zero_()
+                if with_fn:
+                    fn()
+        graphs.append(g)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = {True: [], False: []}
+    for _ in range(samples):
+        for with_fn, g in zip((True, False), graphs):
+            g.replay()  # warm
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            times[with_fn].append(start.elapsed_time(end) / reps)
+    del graphs
+    return statistics.median(times[True]) - statistics.median(times[False])
 
 
 def bound(flops: float, nbytes: float, dtype: str, peaks: dict) -> tuple[float, str]:
@@ -989,6 +1040,9 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
     return rows
 
 
+DECODE_LENGTHS = [0, 1, 15, 16, 17, 1000, 4095, 4096]
+
+
 def decode_phase(peaks: dict) -> list[dict]:
     import torch
 
@@ -998,7 +1052,7 @@ def decode_phase(peaks: dict) -> list[dict]:
     from magiattention_tpu_torch.kernels.paged_kv import PagedKVCache, assign_pages
 
     S, hq, hk, d, ps, P, N = 8, 32, 8, 128, 16, 256, 1024
-    lengths = [0, 1, 15, 16, 17, 1000, 4095, 4096]
+    lengths = DECODE_LENGTHS
     rng = np.random.default_rng(1)
     perm = rng.permutation(N)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1033,51 +1087,88 @@ def decode_phase(peaks: dict) -> list[dict]:
         check(f"paged_decode_{dname}", err, dname)
         if out_k[0].any() or not torch.isneginf(lse_k[0]).all():
             raise AssertionError("paged_decode: empty slot is not (0, -inf)")
-        tokens = sum(lengths)
-        isz = q.element_size()
-        nbytes = (
-            2 * q.numel() * isz + lse_k.numel() * 4
-            + tokens * hk * d * 2 * isz
-            + sum(-(-n // ps) for n in lengths) * 4 + S * 4
-        )
-        b_ms, b_by = bound(4.0 * hq * d * tokens, nbytes, dname, peaks)
+        nbytes = decode_bytes(q, lse_k, lengths, hk, ps)
+        b_ms, b_by = bound(4.0 * hq * d * sum(lengths), nbytes, dname, peaks)
         res = dict(
             case=f"decode_8slots_{dname}", dtype=dname, lengths=lengths,
-            q=list(q.shape), pages=list(cache.k_pages.shape), **err,
-            ms=time_ms(kernel), plain_ms=time_ms(plain, warmup=1),
+            q=list(q.shape), pages=list(cache.k_pages.shape),
+            **split_of(cache), **err,
+            ms=time_ms(kernel), device_ms=graph_ms(kernel),
+            plain_ms=time_ms(plain, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             atol=ATOL[dname], rnorm=RNORM[dname],
         )
         res["gb_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+        res["device_gb_s"] = nbytes / (res["device_ms"] * 1e-3) / 1e9
         results.append(res)
         emit({"phase": "paged_decode", **res})
     return results
 
 
-DECODE_LENGTHS = [0, 1, 15, 16, 17, 1000, 4095, 4096]
+def split_of(cache) -> dict:
+    """The split plan B10 and B11 launch with on this card's cache."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.paged_decode import split_plan_of
+
+    splits, split_len = split_plan_of(
+        cache, torch.cuda.get_device_properties(0).multi_processor_count
+    )
+    return {"splits": splits, "split_len": split_len}
 
 
-def decode_pages(dt, hk: int, seed: int):
+def decode_pages(dt, hk: int, seed: int, lengths=None, d: int = 128, ps: int = 16,
+                 P: int = 256):
     """``decode_phase``'s cache at ``hk`` kv heads: 8 slots with
-    ``DECODE_LENGTHS`` over 1024 random pages of 16 (tables of 256), every
-    page holding data, dead ones too."""
+    ``lengths`` (default ``DECODE_LENGTHS``) over 1024 random pages of
+    ``ps`` (default 16; tables of ``P``), every page holding data, dead
+    ones too."""
     import torch
 
     from magiattention_tpu_torch.kernels.paged_kv import PagedKVCache, assign_pages
 
-    S, d, ps, P, N = 8, 128, 16, 256, 1024
+    lengths = DECODE_LENGTHS if lengths is None else lengths
+    S, N = 8, 1024
     perm = np.random.default_rng(seed).permutation(N)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cache = PagedKVCache.create(N, ps, hk, d, S, P, dtype=dt, device="cuda")
     cache.k_pages.copy_(torch.randn(cache.k_pages.shape, generator=gen, device="cuda"))
     cache.v_pages.copy_(torch.randn(cache.v_pages.shape, generator=gen, device="cuda"))
     used = 0
-    for s, length in enumerate(DECODE_LENGTHS):
+    for s, length in enumerate(lengths):
         n = -(-length // ps)
         assign_pages(cache, s, perm[used : used + n])
         used += n
-    cache.lengths.copy_(torch.tensor(DECODE_LENGTHS, dtype=torch.int32))
+    cache.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
     return cache
+
+
+def spec_limits(lengths: list[int], spec_k: int) -> list[list[int]]:
+    """Live columns of each (slot, draft token) row: ``length - (spec_k -
+    1 - t)``, at least 0."""
+    return [[max(0, n - (spec_k - 1 - t)) for t in range(spec_k)] for n in lengths]
+
+
+def check_empty_rows(what: str, out, lse, limits: list[list[int]]) -> None:
+    """Every row with no live column is (0, -inf); ``out (S, spec_k, hq,
+    d)``, ``lse (S, spec_k, hq)``."""
+    import torch
+
+    for s_, lim in enumerate(limits):
+        for t, n in enumerate(lim):
+            if n == 0 and (out[s_, t].any() or not torch.isneginf(lse[s_, t]).all()):
+                raise AssertionError(f"{what}: empty row is not (0, -inf)")
+
+
+def decode_bytes(q, lse, lengths: list[int], hk: int, ps: int) -> int:
+    """Bytes a paged decode must move: q and out, lse, each live K/V row
+    once per kv head, the live table entries and the lengths."""
+    isz, d = q.element_size(), q.shape[-1]
+    return (
+        2 * q.numel() * isz + lse.numel() * 4
+        + sum(lengths) * hk * d * 2 * isz
+        + sum(-(-n // ps) for n in lengths) * 4 + len(lengths) * 4
+    )
 
 
 def decode_spec_phase(peaks: dict) -> dict[str, dict]:
@@ -1118,32 +1209,23 @@ def decode_spec_phase(peaks: dict) -> dict[str, dict]:
             name = f"spec{spec_k}_hk{hk}_{dname}"
             err = errors(out_k, lse_k, out_p, lse_p)
             check(f"paged_decode_spec_{name}", err, dname)
-            limits = [
-                [max(0, n - (spec_k - 1 - t)) for t in range(spec_k)]
-                for n in DECODE_LENGTHS
-            ]
-            for s_, lim in enumerate(limits):
-                for t, n in enumerate(lim):
-                    if n == 0 and (out_k[s_, t].any() or not torch.isneginf(lse_k[s_, t]).all()):
-                        raise AssertionError(f"paged_decode_spec_{name}: empty row is not (0, -inf)")
-            isz = q.element_size()
-            tokens = sum(DECODE_LENGTHS)  # K/V rows read once per kv head
-            nbytes = (
-                2 * q.numel() * isz + lse_k.numel() * 4
-                + tokens * hk * d * 2 * isz
-                + sum(-(-n // ps) for n in DECODE_LENGTHS) * 4 + S * 4
-            )
+            limits = spec_limits(DECODE_LENGTHS, spec_k)
+            check_empty_rows(f"paged_decode_spec_{name}", out_k, lse_k, limits)
+            nbytes = decode_bytes(q, lse_k, DECODE_LENGTHS, hk, ps)
             pairs = sum(sum(lim) for lim in limits) * hq  # live (row, column)
             b_ms, b_by = bound(4.0 * d * pairs, nbytes, dname, peaks)
             res = dict(
                 case=name, dtype=dname, spec_k=spec_k, hk=hk,
                 rows_per_cta=spec_k * hq // hk, lengths=DECODE_LENGTHS,
-                q=list(q.shape), pages=list(cache.k_pages.shape), **err,
-                ms=time_ms(kernel), plain_ms=time_ms(plain, warmup=1),
+                q=list(q.shape), pages=list(cache.k_pages.shape),
+                **split_of(cache), **err,
+                ms=time_ms(kernel), device_ms=graph_ms(kernel),
+                plain_ms=time_ms(plain, warmup=1),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 atol=ATOL[dname], rnorm=RNORM[dname],
             )
             res["gb_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+            res["device_gb_s"] = nbytes / (res["device_ms"] * 1e-3) / 1e9
             results[name] = res
             emit({"phase": "paged_decode_spec", **res})
             del cache
@@ -1212,11 +1294,13 @@ def decode_int8_phase(peaks: dict) -> dict[str, dict]:
         res = dict(
             case=f"int8_pages_q{dname}", q_dtype=dname, lengths=DECODE_LENGTHS,
             q=list(q.shape), pages=list(cache.k_pages.shape), **err,
-            ms=time_ms(kernel), plain_ms=time_ms(plain, warmup=1),
+            ms=time_ms(kernel), device_ms=graph_ms(kernel),
+            plain_ms=time_ms(plain, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             atol=ATOL[dname], rnorm=RNORM[dname], append_s=append_s,
         )
         res["gb_s"] = nbytes / (res["ms"] * 1e-3) / 1e9
+        res["device_gb_s"] = nbytes / (res["device_ms"] * 1e-3) / 1e9
         results[dname] = res
         emit({"phase": "paged_decode_int8", **res})
 
@@ -1245,6 +1329,159 @@ def decode_int8_phase(peaks: dict) -> dict[str, dict]:
         "waves": len(paged_kv.append_waves(37, 512, ps)), "bit_identical": True,
         "loop_s": loop_s, "waves_s": waves_s,
     })
+    return results
+
+
+def decode_split_phase() -> dict:
+    """B10 and B11 where the split walk has its edges (checked, not timed):
+    slot lengths at the split length, one below and one and two past it,
+    twice it and one past, and the full table (``P * ps``), so spec rows
+    end in an earlier split than their slot's last token. Two tables: the
+    decode cell's (d 128, pages of 16, hq 32: hk 8 and 4, spec_k 1 (B10),
+    2 and 4) and d 64 over pages of 24 (page and row by division; hq 16:
+    hk 2 and 4, 8 to 32 rows a CTA); float32 and bf16 against the plain
+    versions at the decode tolerances, empty rows (0, -inf), two launches
+    equal to the bit, and B11 at spec_k 1 equal to B10 to the bit."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.paged_decode import (
+        decode_split_plan, paged_decode_kernel, paged_decode_plain,
+        paged_decode_spec_kernel, paged_decode_spec_plain,
+    )
+
+    S = 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, earlier, tables = {}, {}, {}
+    runs = []  # (d, ps, P, hq, hk, spec_k, lengths, plan)
+    for d, ps, P, hq, cases in (
+        (128, 16, 256, 32, ((8, 1), (4, 1), (8, 2), (8, 4), (4, 4))),
+        (64, 24, 171, 16, ((2, 1), (4, 4), (2, 2), (2, 4))),
+    ):
+        splits, L = decode_split_plan(P, ps, cases[0][0], sms)
+        lengths = [0, L - 1, L, L + 1, L + 2, 2 * L, 2 * L + 1, P * ps]
+        tables[f"d{d}_ps{ps}"] = dict(lengths=lengths, splits=splits, split_len=L)
+        runs += [(d, ps, P, hq, hk, spec_k, lengths, (splits, L)) for hk, spec_k in cases]
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).removeprefix("torch.")
+        for d, ps, P, hq, hk, spec_k, lengths, (splits, L) in runs:
+            scale = d ** -0.5
+            cache = decode_pages(dt, hk, seed=7, lengths=lengths, d=d, ps=ps, P=P)
+            if split_of(cache) != {"splits": splits, "split_len": L}:
+                raise AssertionError(f"decode_split: hk {hk} plans {split_of(cache)}")
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            q = torch.randn((S, spec_k, hq, d), generator=gen, device="cuda").to(dt)
+            name = f"d{d}_ps{ps}_spec{spec_k}_hk{hk}_{dname}"
+            if spec_k == 1:
+                got = paged_decode_kernel(q[:, 0], cache, scale)
+                again = paged_decode_kernel(q[:, 0], cache, scale)
+                want = paged_decode_plain(q[:, 0], cache, scale)
+                got, again, want = [(o[:, None], l[:, None]) for o, l in (got, again, want)]
+            else:
+                got = paged_decode_spec_kernel(q, cache, scale)
+                again = paged_decode_spec_kernel(q, cache, scale)
+                want = paged_decode_spec_plain(q, cache, scale)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"decode_split {name}: two launches differ")
+            err = errors(*got, *want)
+            check(f"decode_split {name}", err, dname)
+            limits = spec_limits(lengths, spec_k)
+            check_empty_rows(f"decode_split {name}", *got, limits)
+            if spec_k == 4:  # B11 at spec_k 1 is B10, bit for bit
+                one = paged_decode_spec_kernel(q[:, :1], cache, scale)
+                ref = paged_decode_kernel(q[:, 0], cache, scale)
+                if not (torch.equal(one[0][:, 0], ref[0]) and torch.equal(one[1][:, 0], ref[1])):
+                    raise AssertionError(f"decode_split {name}: spec_k 1 is not B10's bits")
+            earlier[name] = sum(  # live rows whose last column is in an earlier split
+                1 for n, lim in zip(lengths, limits) for m in lim
+                if 0 < m and (m - 1) // L < (n - 1) // L
+            )
+            worst[name] = err["max_abs_err"]
+            del cache
+    if not all(earlier[k] for k in earlier if "spec4" in k):
+        raise AssertionError(f"decode_split: a spec_k 4 case has no row in an earlier split: {earlier}")
+    res = dict(
+        tables=tables, max_abs_err=worst, rows_in_earlier_split=earlier,
+        bitwise_repeat=True,
+    )
+    emit({"phase": "decode_split_edges", **res})
+    return res
+
+
+def decode_long_phase(peaks: dict, dec: list[dict], spec: dict[str, dict]) -> dict[str, dict]:
+    """One live slot of 4096 tokens and seven empty ones, the case only the
+    split moves (the one-CTA walk gave it hk CTAs): B10 in float32 and bf16
+    and B11 at spec_k 4, hk 8 in float32, checked against the plain
+    versions and timed beside the 8-slot case."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.paged_decode import (
+        paged_decode_kernel, paged_decode_plain, paged_decode_spec_kernel,
+        paged_decode_spec_plain,
+    )
+
+    S, hq, hk, d, ps = 8, 32, 8, 128, 16
+    scale = d ** -0.5
+    lengths = [4096] + [0] * 7
+    results = {}
+    for spec_k, dt, eight in (
+        (1, torch.float32, dec[0]), (1, torch.bfloat16, dec[1]),
+        (4, torch.float32, spec["spec4_hk8_float32"]),
+    ):
+        dname = str(dt).removeprefix("torch.")
+        cache = decode_pages(dt, hk, seed=9, lengths=lengths)
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        if spec_k == 1:
+            q = torch.randn((S, hq, d), generator=gen, device="cuda").to(dt)
+            kfn, pfn, what = paged_decode_kernel, paged_decode_plain, "paged_decode"
+        else:
+            q = torch.randn((S, spec_k, hq, d), generator=gen, device="cuda").to(dt)
+            kfn, pfn, what = paged_decode_spec_kernel, paged_decode_spec_plain, "paged_decode_spec"
+        out_k, lse_k = kfn(q, cache, scale)
+        err = errors(out_k, lse_k, *pfn(q, cache, scale))
+        name = f"{what}_long_slot_spec{spec_k}_{dname}"
+        check(name, err, dname)
+        nbytes = decode_bytes(q, lse_k, lengths, hk, ps)
+        pairs = sum(sum(lim) for lim in spec_limits(lengths, spec_k)) * hq
+        b_ms, b_by = bound(4.0 * d * pairs, nbytes, dname, peaks)
+        ms = time_ms(lambda: kfn(q, cache, scale))
+        device_ms = graph_ms(lambda: kfn(q, cache, scale))
+        res = dict(
+            case=name, dtype=dname, spec_k=spec_k, lengths=lengths,
+            **split_of(cache), **err, ms=ms, device_ms=device_ms,
+            bound_ms=b_ms, bound_by=b_by, gb_s=nbytes / (ms * 1e-3) / 1e9,
+            device_gb_s=nbytes / (device_ms * 1e-3) / 1e9,
+            **{f"eight_slot_{k}": eight[k] for k in (
+                "case", "ms", "device_ms", "bound_ms", "gb_s", "device_gb_s")},
+        )
+        results[name] = res
+        emit({"phase": "decode_long_slot", **res})
+        del cache
+    return results
+
+
+def decode_sass_phase() -> dict[str, dict]:
+    """Proof of the decode design in the SASS: every split instance of
+    paged_decode and paged_decode_spec (``decode_kernel<..., 1>``) shows
+    LDGSTS (cp.async) and no spill in its ``ptxas`` report;
+    paged_decode_int8's one-CTA walk (``decode_kernel<..., 0>``) shows no
+    LDGSTS; merge_kernel is reported as it is."""
+    results = {}
+    for lib in ("paged_decode", "paged_decode_spec", "paged_decode_int8"):
+        sass, ptxas = sass_counts(lib), ptxas_report(lib)
+        rows = {fn: dict(**n, **ptxas.get(fn, {})) for fn, n in sass.items()}
+        emit({"phase": "decode_sass", "library": lib, "kernels": rows})
+        walks = {fn: r for fn, r in rows.items() if fn.startswith("decode_kernel<")}
+        split = {fn: r for fn, r in walks.items() if fn.endswith(",1>")}
+        if lib == "paged_decode_int8":
+            if split or not walks or any(r["LDGSTS"] for r in walks.values()):
+                raise AssertionError(f"{lib}: not the one-CTA walk: {walks}")
+        elif not split or len(split) != len(walks):
+            raise AssertionError(f"{lib}: an instance is not the split walk: {walks}")
+        for fn, r in split.items():
+            if r["LDGSTS"] == 0 or r.get("spill_stores", 1) or r.get("spill_loads", 1):
+                raise AssertionError(f"{lib}: {fn} has no LDGSTS or spills: {r}")
+        results[lib] = rows
     return results
 
 
@@ -1483,7 +1720,8 @@ def serve_phase() -> tuple[dict, dict]:
 def profile_run(fn) -> dict:
     """``fn()`` under ``torch.profiler``: device time by kernel, device
     busy time against the wall (the profiler's own cost inflates the wall,
-    so the idle share is an upper bound)."""
+    so the idle share is an upper bound), and the paged-decode kernels'
+    device time and launches (``magi::decode::``: the walk and the merge)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1502,9 +1740,12 @@ def profile_run(fn) -> dict:
             kernels.append((e.key, us, e.count))
     kernels.sort(key=lambda r: -r[1])
     busy_s = sum(us for _, us, _ in kernels) / 1e6
+    decode = [(us, c) for k, us, c in kernels if "magi::decode::" in k]
     return dict(
         wall_s=wall, device_busy_s=busy_s,
         idle_share=1.0 - busy_s / wall if wall > 0 else None,
+        decode_device_ms=sum(us for us, _ in decode) / 1e3,
+        decode_launches=sum(c for _, c in decode),
         top_kernels=[
             {"name": k[:90], "device_ms": us / 1e3, "count": c}
             for k, us, c in kernels[:12]
@@ -1513,7 +1754,7 @@ def profile_run(fn) -> dict:
 
 
 def serve_profile(model, config, make_requests) -> dict:
-    """The same serve run once more under ``torch.profiler``."""
+    """A serve run of ``config`` once more under ``torch.profiler``."""
     from magiattention_tpu_torch.serving import ServeEngine
 
     reqs = make_requests(model)
@@ -1596,6 +1837,7 @@ def serve_spec_phase(ctx: dict) -> dict:
         atol=SERVE_ATOL, rnorm=SERVE_RNORM,
     )
     emit({"phase": "serve_spec", **res})
+    emit({"phase": "serve_spec_profile", **serve_profile(model, config, ctx["requests"])})
     return res
 
 
@@ -2178,8 +2420,8 @@ def cuobjdump() -> str:
 
 def sass_counts(name: str) -> dict[str, dict]:
     """Per kernel of one library (by :func:`kernel_label`), its HGMMA
-    (wgmma), HMMA (mma.sync) and atomic (:data:`ATOMIC_OPS`, by opcode)
-    instructions in the SASS."""
+    (wgmma), HMMA (mma.sync), atomic (:data:`ATOMIC_OPS`, by opcode) and
+    LDGSTS (cp.async) instructions in the SASS."""
     import re
 
     from magiattention_tpu_torch.kernels import _build
@@ -2195,7 +2437,7 @@ def sass_counts(name: str) -> dict[str, dict]:
     for line in out.splitlines():
         if "Function :" in line:
             fn = kernel_label(line.split("Function :")[1].strip())
-            counts[fn] = {"HGMMA": 0, "HMMA": 0, "atomics": 0}
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "atomics": 0, "LDGSTS": 0}
             continue
         m = instr.search(line) if fn else None
         if not m:
@@ -2207,6 +2449,8 @@ def sass_counts(name: str) -> dict[str, dict]:
             counts[fn]["HMMA"] += 1
         elif op in ATOMIC_OPS:
             counts[fn]["atomics"] += 1
+        elif op == "LDGSTS":
+            counts[fn]["LDGSTS"] += 1
     return counts
 
 
@@ -2715,6 +2959,9 @@ def main() -> int:
     dec = decode_phase(peaks)
     spec = decode_spec_phase(peaks)
     int8 = decode_int8_phase(peaks)
+    decode_split_phase()
+    decode_long_phase(peaks, dec, spec)
+    decode_sass_phase()
     edge_phase()
     serve, serve_ctx = serve_phase()
     serve_spec = serve_spec_phase(serve_ctx)

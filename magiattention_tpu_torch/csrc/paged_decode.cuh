@@ -10,32 +10,61 @@
 // page_table[s, p / ps] at row p % ps. A row with limit <= 0 gives out 0 and
 // lse -inf; lse in natural log. With spec_k = 1 this is the one-row decode.
 //
-// Design. One CTA per (kv head, slot) holds the spec_k * g rows of that kv
-// head (at most RMAX), which share every K/V read, as the TPU kernels' q
-// tile does. The CTA walks the slot's page table in chunks of 64 tokens
-// (four 16-row pages: a page alone is smaller than a useful tile), loads the
-// chunk's K and V rows into shared memory as float32 (all loads of a chunk
-// are in flight before the first is used; an int8 row is multiplied by its own
-// page's (page, head) scale as it is converted), computes the rows x 64
-// scores (a thread reads each K value once for all of its rows), updates the
-// running max and sum per row in the exp2 domain (q scaled by softmax_scale
-// * log2(e) in float32 inside the kernel), and accumulates P V with one
-// output column per thread (the probabilities are stored token-major, so one
-// 16-byte read brings four rows' values of a token). Lengths are read on the
-// device, so one launch serves every tick. The walk stops at the longest
-// row's horizon, ceil(length / ps) pages, and never reads a dead page or
-// table entry; a shorter row masks its columns past its own limit.
+// Design. A CTA holds the spec_k * g rows of one kv head (at most RMAX),
+// which share every K/V read, as the TPU kernels' q tile does, and walks
+// the slot's page table chunk by chunk: the rows x chunk scores, the
+// running max and sum per row in the exp2 domain (q scaled by
+// softmax_scale * log2(e) in float32 inside the kernel), and P V
+// (probabilities stored token-major, so one 16-byte read brings four rows'
+// values of a token). Lengths and the table are read on the device, so one
+// launch serves every tick; the walk stops at the slot's length and never
+// reads a dead page or table entry; a shorter row masks its columns past
+// its own limit. Two walks, by the SPLIT template flag:
+//
+// - Split (B10, B11; flash-decoding). The grid is (kv head, slot, split):
+//   split z owns tokens [z * split_len, (z + 1) * split_len) of the slot,
+//   a whole number of 64-token units fixed on the host from the table
+//   width, page size, kv-head count and SM count, never from the lengths
+//   or spec_k (kernels/paged_decode.py:decode_split_plan), so
+//   one launch serves every tick and spec_k = 1 is B10's instance and bits.
+//   A CTA whose range starts past its slot's length returns at once. 256
+//   threads walk the range in 32-token chunks of raw page rows (float32 or
+//   bf16, converted as they are read), double-buffered in shared memory by
+//   cp.async: chunk c is computed while chunk c + 1 is copied and the
+//   table entries of chunk c + 2 are read. Scores: a thread takes one
+//   token, a quarter of d and half of the rows, its K slice read once into
+//   registers; the four partial sums are added in order by the softmax (one
+//   warp per row). P V: a thread takes two output columns (one at 32 rows)
+//   of a quarter (d 128) or an eighth (d 64) of the chunk's tokens; the
+//   token groups' sums are added pairwise in a fixed order after the walk.
+//   A slot that fits in one split is written by its split 0 directly;
+//   otherwise each split writes its unnormalised accumulator, max and sum
+//   per row to a float32 workspace and merge_kernel combines them in split
+//   order (no atomics: two launches give the same bits). Shared memory at
+//   d 128 with float32 pages (K rows padded 16 bytes against bank
+//   conflicts, V rows not; the partial scores and the probabilities share
+//   one space): 73.1 KiB at RMAX 8, 81.3 at 16, 97.5 at 32; with ptxas's
+//   80, 128 and 128 registers that is three, two and two CTAs an SM. bf16
+//   pages halve the K/V buffers.
+// - One CTA per (kv head, slot) (B12). 128 threads, 64-token chunks loaded
+//   to registers, then stored to shared memory as float32 (an int8 row
+//   multiplied by its own page's (page, head) scale as it is converted),
+//   one stage; a thread scores one token for a quarter of the rows, and
+//   P V takes one output column a thread.
 //
 // What bounds it on this card: bytes. Each live K/V row is read once (2 * D
 // * itemsize per token and kv head: 1 byte an element for int8 pages)
 // against 4 * rows * D flops, below the ~20 flops a byte at which float32
-// CUDA cores would be the limit even at 32 rows. With one CTA per (kv head,
-// slot) a small batch fills few SMs and each CTA loads, then computes;
-// splitting long sequences across CTAs (flash-decoding) and overlapping the
-// next chunk's loads with this chunk's math are later work.
+// CUDA cores would be the limit even at 32 rows. The split walk spreads a
+// long slot over hk * splits CTAs; what remains between it and the bytes
+// bound is the work of each chunk on the CUDA cores and in shared memory
+// (bf16 pages, half the bytes, are not twice as fast), three CTAs an SM at
+// most, and the merge launch.
 #pragma once
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "tc.cuh"  // cp.async
 
 namespace magi {
 namespace decode {
@@ -45,58 +74,428 @@ namespace decode {
 // kernels.
 namespace {
 
-constexpr int NT = 128;  // threads per CTA
-constexpr int TC = 64;   // tokens per chunk
+constexpr int NT = 128;   // threads per CTA, one-CTA walk
+constexpr int NTS = 256;  // threads per CTA, split walk
+constexpr int TC = 64;    // tokens per chunk, one-CTA walk
+constexpr int TCS = 32;   // tokens per chunk, split walk (split_len % TCS == 0)
+constexpr int STAGES = 2;  // K/V chunks in shared memory, split walk
+constexpr int NSL = 4;     // split walk: d-slices of a score
 
-template <int D, int RMAX>
+// split walk: output columns per P V thread (one at 32 rows, where two
+// would hold 64 accumulators a thread)
+template <int RMAX>
+__host__ __device__ constexpr int cpt() {
+  return RMAX >= 32 ? 1 : 2;
+}
+
+// One CTA's shared memory: the q rows (float32), four arrays per row, then
+// the K and V chunks of TCH tokens in TS (one stage, or STAGES on the split
+// walk; K rows, and the one-CTA walk's V rows, strided D plus 16 bytes so
+// the 16-byte reads of 8 neighbouring threads hit distinct banks) and the
+// scores: token-major scores or probabilities, on the split walk in the
+// same space as the NSL x RMAX x TCH partial scores. After the walk the
+// split walk's G / 2 x RMAX x D token-group sums reuse the chunks.
+template <typename TS, int D, int RMAX, bool SPLIT>
 struct Smem {
-  static constexpr int DS = D + 4;     // row stride of the K and V chunks
-  static constexpr int SR = RMAX + 4;  // token stride of the scores
+  static constexpr int TCH = SPLIT ? TCS : TC;
+  static constexpr int NST = SPLIT ? STAGES : 1;
+  static constexpr int DS = D + 16 / (int)sizeof(TS);  // K row stride
+  static constexpr int DSV = SPLIT ? D : DS;           // V row stride
+  static constexpr int KCH = TCH * DS;   // elements of one K chunk
+  static constexpr int VCH = TCH * DSV;  // elements of one V chunk
+  static constexpr int SR = RMAX + 4;    // token stride of the scores
+  static constexpr int SCR = SPLIT && NSL * RMAX * TCH > TCH * SR
+                                 ? NSL * RMAX * TCH : TCH * SR;
+  static constexpr int G = SPLIT ? NTS / (D / cpt<RMAX>()) : 1;
+  static constexpr size_t walk =
+      sizeof(TS) * NST * (KCH + VCH) + sizeof(float) * SCR;
+  static constexpr size_t red = sizeof(float) * (G / 2) * RMAX * D;
   static constexpr size_t bytes =
-      sizeof(float) * (RMAX * D + 2 * TC * DS + TC * SR + 4 * RMAX);
+      sizeof(float) * (RMAX * D + 4 * RMAX) + (walk > red ? walk : red);
 };
 
+// 16 / sizeof(T) consecutive values of a K row in shared memory as float32
+__device__ __forceinline__ void smem_vec(const float* p, float* x) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void smem_vec(const __nv_bfloat16* p, float* x) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(b[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ float smem_f32(float x) { return x; }
+__device__ __forceinline__ float smem_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// One-CTA walk: the rows x TCH scores of a chunk into Ss (token-major,
+// -inf past each row's limit): thread -> token j = tid % TCH and rows tid /
+// TCH + k * (NTH / TCH), each K value read from shared memory once for all
+// of them, summed in d order.
+template <typename TS, int D, int RMAX, int TCH, int NTH>
+__device__ __forceinline__ void chunk_scores(const float* Qs, const TS* Ks,
+                                             float* Ss, const int* Lim,
+                                             int rows, int c0) {
+  constexpr int DS = D + 16 / (int)sizeof(TS);
+  constexpr int SR = RMAX + 4;
+  constexpr int RG = NTH / TCH;    // score threads per token
+  constexpr int RPT = RMAX / RG;   // score rows per thread
+  constexpr int VEC = 16 / (int)sizeof(TS);
+  static_assert(RPT * RG == RMAX, "score geometry");
+  const int j = threadIdx.x % TCH, r0 = threadIdx.x / TCH;
+  float a[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) a[k] = 0.f;
+#pragma unroll 4
+  for (int dd = 0; dd < D; dd += VEC) {
+    float kv[VEC];
+    smem_vec(Ks + j * DS + dd, kv);
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int r = r0 + k * RG;
+      if (r < rows) {
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(Qs + r * D + dd + e);
+          a[k] = fmaf(qv.x, kv[e], a[k]);
+          a[k] = fmaf(qv.y, kv[e + 1], a[k]);
+          a[k] = fmaf(qv.z, kv[e + 2], a[k]);
+          a[k] = fmaf(qv.w, kv[e + 3], a[k]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int r = r0 + k * RG;
+    if (r < rows) Ss[j * SR + r] = c0 + j < Lim[r] ? a[k] : -INFINITY;
+  }
+}
+
+// The online-softmax update of a chunk's scores: one warp per row (the
+// rows of a warp interleaved), the scores replaced by their probabilities,
+// Ms and Ls updated and As given each row's rescale.
+template <int RMAX, int TCH, int NTH>
+__device__ __forceinline__ void chunk_softmax(float* Ss, float* Ms,
+                                              float* Ls, float* As,
+                                              int rows) {
+  constexpr int SR = RMAX + 4;
+  constexpr int TPL = TCH / 32;  // tokens per lane
+  constexpr int WARPS = NTH / 32;
+  static_assert(TPL * 32 == TCH && RMAX % WARPS == 0, "softmax geometry");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < RMAX / WARPS; ++k) {
+    const int r = warp + k * WARPS;
+    if (r >= rows) continue;  // warp-uniform
+    float x[TPL];
+#pragma unroll
+    for (int i = 0; i < TPL; ++i) x[i] = Ss[(lane + 32 * i) * SR + r];
+    float mx = x[0];
+#pragma unroll
+    for (int i = 1; i < TPL; ++i) mx = fmaxf(mx, x[i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_old = Ms[r];
+    const float m_new = fmaxf(m_old, mx);
+    // -inf only while a row has seen no live column: then p and the
+    // rescale are 0 and the row stays empty
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < TPL; ++i) {
+      const float p = exp2f(x[i] - m_use);
+      Ss[(lane + 32 * i) * SR + r] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      const float alpha = exp2f(m_old - m_use);
+      As[r] = alpha;
+      Ls[r] = Ls[r] * alpha + sum;
+      Ms[r] = m_new;
+    }
+  }
+}
+
+// Split walk: a chunk's scores as NSL partial dot products over d-slices
+// of W = D / NSL values. Thread -> token j = tid % TCH, slice sl = (tid /
+// TCH) % NSL, rows rh * RR .. rh * RR + RR - 1 of row half rh = tid / (TCH
+// * NSL): its K slice read once into registers for all of its rows (q read
+// by broadcast), each row's partial to Pp[sl][r][j].
+template <typename TS, int D, int RMAX, int TCH, int NTH>
+__device__ __forceinline__ void split_scores(const float* Qs, const TS* Ks,
+                                             float* Pp, int rows) {
+  constexpr int DS = D + 16 / (int)sizeof(TS);
+  constexpr int VEC = 16 / (int)sizeof(TS);
+  constexpr int RH = NTH / TCH / NSL;  // row halves
+  constexpr int RR = RMAX / RH;        // rows per thread
+  constexpr int W = D / NSL;
+  static_assert(RH * NSL * TCH == NTH && RR * RH == RMAX && W % VEC == 0,
+                "score geometry");
+  const int j = threadIdx.x % TCH, sl = (threadIdx.x / TCH) % NSL;
+  const int rh = threadIdx.x / (TCH * NSL);
+  float kv[W];
+#pragma unroll
+  for (int e = 0; e < W; e += VEC) smem_vec(Ks + j * DS + sl * W + e, kv + e);
+  const float* qs = Qs + sl * W;
+#pragma unroll 8  // 16 rows at once would spill at 32 rows a CTA
+  for (int k = 0; k < RR; ++k) {
+    const int r = rh * RR + k;
+    if (r < rows) {
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int e = 0; e < W; e += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + r * D + e);
+        a0 = fmaf(qv.x, kv[e], a0);
+        a1 = fmaf(qv.y, kv[e + 1], a1);
+        a0 = fmaf(qv.z, kv[e + 2], a0);
+        a1 = fmaf(qv.w, kv[e + 3], a1);
+      }
+      Pp[(sl * RMAX + r) * TCH + j] = a0 + a1;
+    }
+  }
+}
+
+// Split walk: each row's score of token j = lane as the sum of its NSL
+// partials in slice order (-inf past the row's limit), then the online
+// softmax update as chunk_softmax. The probabilities go to Ss (token-major),
+// which shares the partials' space: every warp has read its partials (a
+// barrier) before any writes them.
+template <int RMAX, int TCH, int NTH>
+__device__ __forceinline__ void split_softmax(const float* Pp, float* Ss,
+                                              float* Ms, float* Ls, float* As,
+                                              const int* Lim, int rows,
+                                              int c0) {
+  constexpr int SR = RMAX + 4;
+  constexpr int WARPS = NTH / 32;
+  constexpr int RPW = RMAX / WARPS;  // rows per warp
+  static_assert(TCH == 32 && RPW * WARPS == RMAX, "softmax geometry");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float p[RPW];
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    const int r = warp + k * WARPS;
+    if (r >= rows) continue;  // warp-uniform
+    float x = Pp[r * TCH + lane];
+#pragma unroll
+    for (int sl = 1; sl < NSL; ++sl) x += Pp[(sl * RMAX + r) * TCH + lane];
+    x = c0 + lane < Lim[r] ? x : -INFINITY;
+    float mx = x;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_old = Ms[r];
+    const float m_new = fmaxf(m_old, mx);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // as chunk_softmax
+    p[k] = exp2f(x - m_use);
+    float sum = p[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      const float alpha = exp2f(m_old - m_use);
+      As[r] = alpha;
+      Ls[r] = Ls[r] * alpha + sum;
+      Ms[r] = m_new;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    const int r = warp + k * WARPS;
+    if (r < rows) Ss[lane * SR + r] = p[k];
+  }
+}
+
+// Split walk: acc[c][r] = acc[c][r] * As[r] + sum over tokens j in [j0, j0
+// + nj) of P[j, r] * V[j, col + c * cs] for c < NC (one 16-byte read of
+// four rows' probabilities serves NC columns; V rows unpadded, a warp reads
+// consecutive columns)
+template <typename TS, int D, int RMAX, int NC>
+__device__ __forceinline__ void split_pv(const TS* Vs, const float* Ss,
+                                         const float* As, int rows, int col,
+                                         int cs, int j0, int nj,
+                                         float (&acc)[NC][RMAX]) {
+  constexpr int SR = RMAX + 4;
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r)
+    if (r < rows) {
+      const float a = As[r];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[c][r] *= a;
+    }
+#pragma unroll 4
+  for (int i = 0; i < nj; ++i) {
+    const int j = j0 + i;
+    float vv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) vv[c] = smem_f32(Vs[j * D + col + c * cs]);
+#pragma unroll
+    for (int r = 0; r < RMAX; r += 4)
+      if (r < rows) {
+        const float4 p = *reinterpret_cast<const float4*>(Ss + j * SR + r);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          acc[c][r] = fmaf(p.x, vv[c], acc[c][r]);
+          acc[c][r + 1] = fmaf(p.y, vv[c], acc[c][r + 1]);
+          acc[c][r + 2] = fmaf(p.z, vv[c], acc[c][r + 2]);
+          acc[c][r + 3] = fmaf(p.w, vv[c], acc[c][r + 3]);
+        }
+      }
+  }
+}
+
+// One-CTA walk: acc[r] = acc[r] * As[r] + sum over the n tokens j of
+// P[j, r] * V[j, col], rows below `rows` (16-byte reads of four rows'
+// probabilities of a token)
+template <typename TS, int D, int RMAX>
+__device__ __forceinline__ void chunk_pv(const TS* Vs, const float* Ss,
+                                         const float* As, int rows, int col,
+                                         int n, float (&acc)[RMAX]) {
+  constexpr int DS = D + 16 / (int)sizeof(TS);
+  constexpr int SR = RMAX + 4;
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r)
+    if (r < rows) acc[r] *= As[r];
+  for (int j = 0; j < n; ++j) {
+    const float vv = smem_f32(Vs[j * DS + col]);
+#pragma unroll
+    for (int r = 0; r < RMAX; r += 4)
+      if (r < rows) {
+        const float4 p = *reinterpret_cast<const float4*>(Ss + j * SR + r);
+        acc[r] = fmaf(p.x, vv, acc[r]);
+        acc[r + 1] = fmaf(p.y, vv, acc[r + 1]);
+        acc[r + 2] = fmaf(p.z, vv, acc[r + 2]);
+        acc[r + 3] = fmaf(p.w, vv, acc[r + 3]);
+      }
+  }
+}
+
+// pos / ps and pos % ps, by shift and mask where ps is a power of two
+// (psh = log2 ps, else -1)
+__device__ __forceinline__ int page_of(int pos, int ps, int psh) {
+  return psh >= 0 ? pos >> psh : pos / ps;
+}
+__device__ __forceinline__ int row_of(int pos, int ps, int psh) {
+  return psh >= 0 ? pos & (ps - 1) : pos % ps;
+}
+
+// The page of each token this thread copies in the TCH-token chunk at c0
+// (0 past hi: never read), ahead of the chunk's copies.
+template <typename TP, int D, int TCH>
+__device__ __forceinline__ void chunk_pages(int (&page)[TCH * D / Vec<TP>::N / NTS],
+                                            const int* __restrict__ trow,
+                                            int c0, int hi, int ps, int psh) {
+  constexpr int CPR = D / Vec<TP>::N;  // 16-byte chunks per page row
+#pragma unroll
+  for (int it = 0; it < TCH * CPR / NTS; ++it) {
+    const int pos = c0 + (int)(threadIdx.x + it * NTS) / CPR;
+    page[it] = pos < hi ? trow[page_of(pos, ps, psh)] : 0;
+  }
+}
+
+// The K and V rows of the TCH-token chunk at c0 (its pages from
+// chunk_pages) into shared memory at kd (row stride D + 16 bytes) and vd
+// (row stride D), raw, by cp.async; rows at or past hi are zero-filled.
+template <typename TP, int D, int TCH>
+__device__ __forceinline__ void chunk_copy(TP* kd, TP* vd,
+                                           const TP* __restrict__ k_pages,
+                                           const TP* __restrict__ v_pages,
+                                           const int (&page)[TCH * D / Vec<TP>::N / NTS],
+                                           int c0, int hi, int ps, int psh,
+                                           long page_row, int h) {
+  constexpr int VEC = Vec<TP>::N;
+  constexpr int CPR = D / VEC;
+  constexpr int DS = D + VEC;
+#pragma unroll
+  for (int it = 0; it < TCH * CPR / NTS; ++it) {
+    const int i = threadIdx.x + it * NTS;
+    const int j = i / CPR, c = (i % CPR) * VEC;
+    const bool ok = c0 + j < hi;
+    const long base = ((long)page[it] * ps + row_of(c0 + j, ps, psh)) * page_row +
+                      (long)h * D + c;
+    tc::cp_async16(tc::smem_u32(kd + j * DS + c), ok ? k_pages + base : k_pages, ok);
+    tc::cp_async16(tc::smem_u32(vd + j * D + c), ok ? v_pages + base : v_pages, ok);
+  }
+}
+
+// Out row of CTA row r = t * g + j: (s * spec_k + t) * hq + h * g + j.
+__device__ __forceinline__ long out_row(int s, int spec_k, int hq, int h,
+                                        int g, int r) {
+  return ((long)s * spec_k + r / g) * hq + (long)h * g + r % g;
+}
+
 // TQ: q and out (float or bf16); TP: the pages (TQ, or int8_t with float32
-// scales per (page, kv head)).
-template <typename TQ, typename TP, int D, int RMAX>
-__global__ void __launch_bounds__(NT)
-    kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pages,
-           const TP* __restrict__ v_pages, const float* __restrict__ k_scales,
-           const float* __restrict__ v_scales, const int* __restrict__ table,
-           const int* __restrict__ lengths, TQ* __restrict__ out,
-           float* __restrict__ lse, int hq, int hk, int ps, int P, int spec_k,
-           float scale_log2) {
-  static_assert(D <= NT, "one output column per thread");
+// scales per (page, kv head), one-CTA walk only). SPLIT: the split walk,
+// grid z = splits, partials of multi-split slots to part (splits x R rows
+// of D accumulators, then splits x R rows of (max, sum); R = S * spec_k *
+// hq, a row's index that of its out row).
+template <typename TQ, typename TP, int D, int RMAX, bool SPLIT>
+__global__ void __launch_bounds__(SPLIT ? NTS : NT,
+                                  SPLIT ? (RMAX <= 8 ? 3 : 2) : 1)
+    decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pages,
+                  const TP* __restrict__ v_pages,
+                  const float* __restrict__ k_scales,
+                  const float* __restrict__ v_scales,
+                  const int* __restrict__ table,
+                  const int* __restrict__ lengths, TQ* __restrict__ out,
+                  float* __restrict__ lse, float* __restrict__ part, int hq,
+                  int hk, int ps, int P, int spec_k, int split_len,
+                  float scale_log2) {
   constexpr bool QUANT = sizeof(TP) == 1;
-  constexpr int DS = Smem<D, RMAX>::DS;
-  constexpr int SR = Smem<D, RMAX>::SR;
-  constexpr int RPT = RMAX / (NT / TC);  // score rows per thread
+  static_assert(!(SPLIT && QUANT), "int8 pages take the one-CTA walk");
+  constexpr int NTH = SPLIT ? NTS : NT;
+  using TS = std::conditional_t<SPLIT, TP, float>;  // K/V in shared memory
+  using SM = Smem<TS, D, RMAX, SPLIT>;
+  constexpr int TCH = SM::TCH;
+  constexpr int CPT = cpt<RMAX>();
+  constexpr int CS = D / CPT;  // split walk: P V threads per token group
+  constexpr int G = SM::G;     // split walk: token groups of P V
+  constexpr int DS = SM::DS;
   constexpr int QVEC = Vec<TQ>::N;
   constexpr int QCPR = D / QVEC;  // 16-byte chunks per q row
   constexpr int VEC = Vec<TP>::N;
   constexpr int CPR = D / VEC;  // 16-byte chunks per page row
-  constexpr int ITER = TC * CPR / NT;
-  static_assert(ITER * NT == TC * CPR, "a chunk is a whole number of loads");
+  constexpr int ITER = TCH * CPR / NTH;
+  static_assert(D <= NT && NTH % CS == 0, "output columns per thread");
+  static_assert(ITER * NTH == TCH * CPR, "a chunk is a whole number of loads");
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // rows x D, pre-scaled
-  float* Ks = Qs + RMAX * D;    // TC x DS
-  float* Vs = Ks + TC * DS;     // TC x DS
-  float* Ss = Vs + TC * DS;     // TC x SR scores, then probabilities
-  float* Ms = Ss + TC * SR;     // running max per row (log2 domain)
-  float* Ls = Ms + RMAX;        // running sum per row
-  float* As = Ls + RMAX;        // this chunk's rescale factor per row
+  float* Qs = smem;        // rows x D, pre-scaled
+  float* Ms = Qs + RMAX * D;  // running max per row (log2 domain)
+  float* Ls = Ms + RMAX;   // running sum per row
+  float* As = Ls + RMAX;   // this chunk's rescale factor per row
   int* Lim = reinterpret_cast<int*>(As + RMAX);  // live columns per row
+  TS* Ks = reinterpret_cast<TS*>(Lim + RMAX);  // NST x TCH x DS
+  TS* Vs = Ks + SM::NST * SM::KCH;             // NST x TCH x DSV
+  float* Ss = reinterpret_cast<float*>(Vs + SM::NST * SM::VCH);
 
   const int g = hq / hk, rows = spec_k * g;
   const int h = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
   const int len = lengths[s];
+  // this CTA's tokens [lo, hi): the slot, or split blockIdx.z's range
+  const int lo = SPLIT ? (int)blockIdx.z * split_len : 0;
+  if (SPLIT && blockIdx.z > 0 && lo >= len) return;
+  const int hi = SPLIT ? min(len, lo + split_len) : len;
   const int* trow = table + (long)s * P;
   const long page_row = (long)hk * D;  // elements between rows of a page
 
-  // CTA row r = t * g + j is q / out row (s * spec_k + t) * hq + h * g + j
-  for (int i = tid; i < rows * QCPR; i += NT) {
+  for (int i = tid; i < rows * QCPR; i += NTH) {
     const int r = i / QCPR, c = (i % QCPR) * QVEC;
-    const long qr = ((long)s * spec_k + r / g) * hq + (long)h * g + r % g;
+    const long qr = out_row(s, spec_k, hq, h, g, r);
     Vec<TQ>::to_f32(ldg16(q + qr * D + c), Qs + r * D + c, scale_log2);
   }
   if (tid < RMAX) {
@@ -104,180 +503,272 @@ __global__ void __launch_bounds__(NT)
     Ls[tid] = 0.f;
     Lim[tid] = len - (spec_k - 1 - tid / g);
   }
-  float acc[RMAX];
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
 
-  for (int c0 = 0; c0 < len; c0 += TC) {
-    const int n = min(TC, len - c0);
-    __syncthreads();  // the previous chunk is done with Ks, Vs and Ss
-    uint4 rk[ITER], rv[ITER];
-    float sk[QUANT ? ITER : 1], sv[QUANT ? ITER : 1];
+  if constexpr (SPLIT) {
+    // chunk c0 is computed while chunk c0 + TCH is copied and the table
+    // entries of chunk c0 + 2 TCH are read. P V: thread -> columns cp + c *
+    // CS (c < CPT) of token group grp, tokens [grp * TCH / G, (grp + 1) *
+    // TCH / G) of each chunk; the groups' sums are added after the walk.
+    const int cp = tid % CS, grp = tid / CS;
+    const int psh = (ps & (ps - 1)) == 0 ? __ffs(ps) - 1 : -1;
+    float acc[CPT][RMAX];
 #pragma unroll
-    for (int it = 0; it < ITER; ++it) {
-      const int i = tid + it * NT;
-      const int j = i / CPR, c = (i % CPR) * VEC;
-      if (j < n) {
-        const int pos = c0 + j;
-        const int page = trow[pos / ps];
-        const long base =
-            ((long)page * ps + pos % ps) * page_row + (long)h * D + c;
-        rk[it] = ldg16(k_pages + base);
-        rv[it] = ldg16(v_pages + base);
-        if constexpr (QUANT) {
-          sk[it] = __ldg(k_scales + (long)page * hk + h);
-          sv[it] = __ldg(v_scales + (long)page * hk + h);
-        }
-      } else {
-        rk[it] = rv[it] = make_uint4(0u, 0u, 0u, 0u);
-        if constexpr (QUANT) sk[it] = sv[it] = 0.f;
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) acc[c][r] = 0.f;
+    int page[ITER];
+    chunk_pages<TP, D, TCH>(page, trow, lo, hi, ps, psh);
+    if (lo < hi)
+      chunk_copy<TP, D, TCH>(Ks, Vs, k_pages, v_pages, page, lo, hi, ps, psh,
+                             page_row, h);
+    tc::cp_async_commit();
+    chunk_pages<TP, D, TCH>(page, trow, lo + TCH, hi, ps, psh);
+    for (int c0 = lo, st = 0; c0 < hi; c0 += TCH, st ^= 1) {
+      if (c0 + TCH < hi) {
+        chunk_copy<TP, D, TCH>(Ks + (st ^ 1) * SM::KCH,
+                               Vs + (st ^ 1) * SM::VCH, k_pages, v_pages,
+                               page, c0 + TCH, hi, ps, psh, page_row, h);
+        chunk_pages<TP, D, TCH>(page, trow, c0 + 2 * TCH, hi, ps, psh);
       }
+      tc::cp_async_commit();   // empty at the last chunk
+      tc::cp_async_wait<1>();  // this thread's copies of chunk c0 landed
+      __syncthreads();         // everyone's, and Qs and Lim at the first
+      split_scores<TS, D, RMAX, TCH, NTH>(Qs, Ks + st * SM::KCH, Ss, rows);
+      __syncthreads();
+      split_softmax<RMAX, TCH, NTH>(Ss, Ss, Ms, Ls, As, Lim, rows, c0);
+      __syncthreads();
+      // a token past hi has probability 0 and a zero-filled V row
+      split_pv<TS, D, RMAX, CPT>(Vs + st * SM::VCH, Ss, As, rows, cp, CS,
+                                 grp * (TCH / G), TCH / G, acc);
+      __syncthreads();  // stage st and Ss are free for the next chunk
     }
+    // the token groups' accumulators, added pairwise (group k + half into
+    // group k, half = G / 2, G / 4, ..., 1): a fixed order
+    float* red = reinterpret_cast<float*>(Ks);  // G / 2 x RMAX x D
 #pragma unroll
-    for (int it = 0; it < ITER; ++it) {
-      const int i = tid + it * NT;
-      const int j = i / CPR, c = (i % CPR) * VEC;
-      if constexpr (QUANT) {
-        Vec<TP>::to_f32(rk[it], Ks + j * DS + c, sk[it]);
-        Vec<TP>::to_f32(rv[it], Vs + j * DS + c, sv[it]);
-      } else {
-        Vec<TP>::to_f32(rk[it], Ks + j * DS + c, 1.f);
-        Vec<TP>::to_f32(rv[it], Vs + j * DS + c, 1.f);
+    for (int half = G / 2; half > 0; half /= 2) {
+      if (grp >= half && grp < 2 * half) {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c)
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r)
+            if (r < rows) red[((grp - half) * RMAX + r) * D + cp + c * CS] = acc[c][r];
       }
+      __syncthreads();
+      if (grp < half) {
+#pragma unroll
+        for (int c = 0; c < CPT; ++c)
+#pragma unroll
+          for (int r = 0; r < RMAX; ++r)
+            if (r < rows) acc[c][r] += red[(grp * RMAX + r) * D + cp + c * CS];
+      }
+      __syncthreads();
     }
-    __syncthreads();
-
-    {  // scores: thread -> token j, rows r = tid / TC + k * NT / TC; each
-       // K value is read from shared memory once for all of them
-      const int j = tid % TC, r0 = tid / TC;
-      float a[RPT];
+    const bool direct = len <= split_len;  // the row's whole walk
+    const long R = (long)gridDim.y * spec_k * hq;
+    if (grp == 0) {
 #pragma unroll
-      for (int k = 0; k < RPT; ++k) a[k] = 0.f;
-#pragma unroll 4
-      for (int dd = 0; dd < D; dd += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(Ks + j * DS + dd);
+      for (int r = 0; r < RMAX; ++r)
+        if (r < rows) {
+          const long orow = out_row(s, spec_k, hq, h, g, r);
 #pragma unroll
-        for (int k = 0; k < RPT; ++k) {
-          const int r = r0 + k * (NT / TC);
-          if (r < rows) {
-            const float4 qv = *reinterpret_cast<const float4*>(Qs + r * D + dd);
-            a[k] = fmaf(qv.x, kv.x, a[k]);
-            a[k] = fmaf(qv.y, kv.y, a[k]);
-            a[k] = fmaf(qv.z, kv.z, a[k]);
-            a[k] = fmaf(qv.w, kv.w, a[k]);
+          for (int c = 0; c < CPT; ++c) {
+            const int col = cp + c * CS;
+            if (direct)
+              store_out(out + orow * D + col, Lim[r] > 0 ? acc[c][r] / Ls[r] : 0.f);
+            else  // this split's partials (no live column: 0, -inf, 0)
+              part[(blockIdx.z * R + orow) * D + col] = acc[c][r];
           }
         }
-      }
-#pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        const int r = r0 + k * (NT / TC);
-        if (r < rows) Ss[j * SR + r] = c0 + j < Lim[r] ? a[k] : -INFINITY;
+    }
+    if (tid < rows) {
+      const long orow = out_row(s, spec_k, hq, h, g, tid);
+      if (direct) {
+        lse[orow] = Lim[tid] > 0 ? (Ms[tid] + log2f(Ls[tid])) * LN2 : -INFINITY;
+      } else {
+        float* pml = part + gridDim.z * R * D + (blockIdx.z * R + orow) * 2;
+        pml[0] = Ms[tid];
+        pml[1] = Ls[tid];
       }
     }
-    __syncthreads();
-
-    {  // online softmax: one warp per row
-      const int warp = tid >> 5, lane = tid & 31;
-      for (int r = warp; r < rows; r += NT / 32) {
-        const float a = Ss[lane * SR + r], b = Ss[(lane + 32) * SR + r];
-        float mx = fmaxf(a, b);
+  } else {
+    float acc[RMAX];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_old = Ms[r];
-        const float m_new = fmaxf(m_old, mx);
-        // -inf only while a row has seen no live column: then p and the
-        // rescale are 0 and the row stays empty
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        const float pa = exp2f(a - m_use), pb = exp2f(b - m_use);
-        Ss[lane * SR + r] = pa;
-        Ss[(lane + 32) * SR + r] = pb;
-        float sum = pa + pb;
+    for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
+    for (int c0 = 0; c0 < len; c0 += TC) {
+      const int n = min(TC, len - c0);
+      __syncthreads();  // the previous chunk is done with Ks, Vs and Ss
+      uint4 rk[ITER], rv[ITER];
+      float sk[QUANT ? ITER : 1], sv[QUANT ? ITER : 1];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (lane == 0) {
-          const float alpha = exp2f(m_old - m_use);
-          As[r] = alpha;
-          Ls[r] = Ls[r] * alpha + sum;
-          Ms[r] = m_new;
+      for (int it = 0; it < ITER; ++it) {
+        const int i = tid + it * NTH;
+        const int j = i / CPR, c = (i % CPR) * VEC;
+        if (j < n) {
+          const int pos = c0 + j;
+          const int page = trow[pos / ps];
+          const long base =
+              ((long)page * ps + pos % ps) * page_row + (long)h * D + c;
+          rk[it] = ldg16(k_pages + base);
+          rv[it] = ldg16(v_pages + base);
+          if constexpr (QUANT) {
+            sk[it] = __ldg(k_scales + (long)page * hk + h);
+            sv[it] = __ldg(v_scales + (long)page * hk + h);
+          }
+        } else {
+          rk[it] = rv[it] = make_uint4(0u, 0u, 0u, 0u);
+          if constexpr (QUANT) sk[it] = sv[it] = 0.f;
         }
       }
+#pragma unroll
+      for (int it = 0; it < ITER; ++it) {
+        const int i = tid + it * NTH;
+        const int j = i / CPR, c = (i % CPR) * VEC;
+        if constexpr (QUANT) {
+          Vec<TP>::to_f32(rk[it], Ks + j * DS + c, sk[it]);
+          Vec<TP>::to_f32(rv[it], Vs + j * DS + c, sv[it]);
+        } else {
+          Vec<TP>::to_f32(rk[it], Ks + j * DS + c, 1.f);
+          Vec<TP>::to_f32(rv[it], Vs + j * DS + c, 1.f);
+        }
+      }
+      __syncthreads();
+      chunk_scores<TS, D, RMAX, TCH, NTH>(Qs, Ks, Ss, Lim, rows, c0);
+      __syncthreads();
+      chunk_softmax<RMAX, TCH, NTH>(Ss, Ms, Ls, As, rows);
+      __syncthreads();
+      if (tid < D) chunk_pv<TS, D, RMAX>(Vs, Ss, As, rows, tid, n, acc);
     }
     __syncthreads();
-
     if (tid < D) {
 #pragma unroll
       for (int r = 0; r < RMAX; ++r)
-        if (r < rows) acc[r] *= As[r];
-      for (int j = 0; j < n; ++j) {
-        const float vv = Vs[j * DS + tid];
-#pragma unroll
-        for (int r = 0; r < RMAX; r += 4)
-          if (r < rows) {  // token j's probabilities of rows r..r+3
-            const float4 p = *reinterpret_cast<const float4*>(Ss + j * SR + r);
-            acc[r] = fmaf(p.x, vv, acc[r]);
-            acc[r + 1] = fmaf(p.y, vv, acc[r + 1]);
-            acc[r + 2] = fmaf(p.z, vv, acc[r + 2]);
-            acc[r + 3] = fmaf(p.w, vv, acc[r + 3]);
-          }
-      }
+        if (r < rows)
+          store_out(out + out_row(s, spec_k, hq, h, g, r) * D + tid,
+                    Lim[r] > 0 ? acc[r] / Ls[r] : 0.f);
     }
-  }
-  __syncthreads();
-
-  if (tid < D) {
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r)
-      if (r < rows) {
-        const long orow = ((long)s * spec_k + r / g) * hq + (long)h * g + r % g;
-        store_out(out + orow * D + tid, Lim[r] > 0 ? acc[r] / Ls[r] : 0.f);
-      }
-  }
-  if (tid < rows) {
-    const long orow =
-        ((long)s * spec_k + tid / g) * hq + (long)h * g + tid % g;
-    lse[orow] = Lim[tid] > 0 ? (Ms[tid] + log2f(Ls[tid])) * LN2 : -INFINITY;
+    if (tid < rows)
+      lse[out_row(s, spec_k, hq, h, g, tid)] =
+          Lim[tid] > 0 ? (Ms[tid] + log2f(Ls[tid])) * LN2 : -INFINITY;
   }
 }
 
-// One launch over S slots x hk kv heads; 0 or the CUDA error.
-template <typename TQ, typename TP, int D, int RMAX>
+// The splits' partials of one out row per warp, in split order: M = max
+// m_i, L = sum l_i 2^(m_i - M), out = sum acc_i 2^(m_i - M) / L, lse =
+// (M + log2 L) ln 2. Lane i reads split i's (m, l), so the reads of a row
+// are in flight together; the sums then run over the splits in order. A
+// split in which the row saw no live column (m_i = -inf) adds nothing; a
+// row with none in any split gives (0, -inf). Rows of a slot that fits in
+// one split were written by its split 0.
+template <typename TQ, int D>
+__global__ void __launch_bounds__(NT)
+    merge_kernel(const float* __restrict__ part,
+                 const int* __restrict__ lengths, TQ* __restrict__ out,
+                 float* __restrict__ lse, long R, int rows_per_slot,
+                 int splits, int split_len) {
+  constexpr int CPL = D / 32;  // columns per lane
+  const int lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  if (row >= R) return;
+  const int len = lengths[row / rows_per_slot];
+  if (len <= split_len) return;
+  const int n = (len + split_len - 1) / split_len;  // splits with tokens
+  const float* ml = part + splits * R * D;
+  float M = -INFINITY;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    if (i < n) M = fmaxf(M, ml[(i * R + row) * 2]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+  float L = 0.f, o[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) o[c] = 0.f;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    float w = 0.f, l = 0.f;  // this lane's split: weight and sum
+    if (i < n) {
+      const float m = ml[(i * R + row) * 2];
+      l = ml[(i * R + row) * 2 + 1];
+      w = m == -INFINITY ? 0.f : exp2f(m - M);
+    }
+    const int cnt = min(32, n - i0);
+#pragma unroll 4
+    for (int u = 0; u < cnt; ++u) {
+      const float wu = __shfl_sync(0xffffffffu, w, u);
+      L = fmaf(__shfl_sync(0xffffffffu, l, u), wu, L);
+      const float* a = part + ((i0 + u) * R + row) * D;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) o[c] = fmaf(a[lane + 32 * c], wu, o[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CPL; ++c)
+    store_out(out + row * D + lane + 32 * c, L > 0.f ? o[c] / L : 0.f);
+  if (lane == 0) lse[row] = L > 0.f ? (M + log2f(L)) * LN2 : -INFINITY;
+}
+
+// One launch of decode_kernel over S slots x hk kv heads (x splits on the
+// split walk), then merge_kernel where the plan has more than one split;
+// 0 or the CUDA error.
+template <typename TQ, typename TP, int D, int RMAX, bool SPLIT>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const float* k_scales, const float* v_scales, const int* table,
-           const int* lengths, void* out, float* lse, int S, int hq, int hk,
-           int ps, int P, int spec_k, float softmax_scale, void* stream) {
+           const int* lengths, void* out, float* lse, float* part, int S,
+           int hq, int hk, int ps, int P, int spec_k, int splits,
+           int split_len, float softmax_scale, void* stream) {
+  using TS = std::conditional_t<SPLIT, TP, float>;
   static bool smem_ok = false;
-  const size_t smem = Smem<D, RMAX>::bytes;
-  cudaError_t e = allow_smem(kernel<TQ, TP, D, RMAX>, smem, &smem_ok);
+  const size_t smem = Smem<TS, D, RMAX, SPLIT>::bytes;
+  auto* kernel = decode_kernel<TQ, TP, D, RMAX, SPLIT>;
+  cudaError_t e = allow_smem(kernel, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(hk, S);
-  kernel<TQ, TP, D, RMAX><<<grid, NT, smem, (cudaStream_t)stream>>>(
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(hk, S, SPLIT ? splits : 1);
+  kernel<<<grid, SPLIT ? NTS : NT, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TP*>(k_pages),
       static_cast<const TP*>(v_pages), k_scales, v_scales, table, lengths,
-      static_cast<TQ*>(out), lse, hq, hk, ps, P, spec_k,
+      static_cast<TQ*>(out), lse, part, hq, hk, ps, P, spec_k, split_len,
       softmax_scale * LOG2E);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !SPLIT || splits == 1) return (int)e;
+  const long R = (long)S * spec_k * hq;
+  const long warps = NT / 32;
+  merge_kernel<TQ, D><<<(unsigned)((R + warps - 1) / warps), NT, 0, st>>>(
+      part, lengths, static_cast<TQ*>(out), lse, R, spec_k * hq, splits,
+      split_len);
   return (int)cudaGetLastError();
 }
 
-// head_dim 64 or 128; rows = spec_k * hq / hk at most RMAX.
-template <typename TQ, typename TP, int RMAX>
+// head_dim 64 or 128; rows = spec_k * hq / hk at most RMAX. The split walk
+// takes splits >= 1 ranges of split_len tokens (a multiple of TCS) that
+// cover the table (splits * split_len >= P * ps) and, where splits > 1, a
+// workspace part of splits * S * spec_k * hq * (D + 2) floats; the one-CTA
+// walk ignores the three.
+template <typename TQ, typename TP, int RMAX, bool SPLIT>
 int dispatch(int d, const void* q, const void* k_pages, const void* v_pages,
              const float* k_scales, const float* v_scales, const int* table,
-             const int* lengths, void* out, float* lse, int S, int hq, int hk,
-             int ps, int P, int spec_k, float softmax_scale, void* stream) {
+             const int* lengths, void* out, float* lse, float* part, int S,
+             int hq, int hk, int ps, int P, int spec_k, int splits,
+             int split_len, float softmax_scale, void* stream) {
   if (hk <= 0 || hq % hk != 0 || spec_k < 1 || spec_k * (hq / hk) > RMAX)
+    return (int)cudaErrorInvalidValue;
+  if (SPLIT && (splits < 1 || split_len <= 0 || split_len % TCS != 0 ||
+                (long)splits * split_len < (long)P * ps ||
+                (splits > 1 && part == nullptr)))
     return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64:
-      return launch<TQ, TP, 64, RMAX>(q, k_pages, v_pages, k_scales, v_scales,
-                                      table, lengths, out, lse, S, hq, hk, ps,
-                                      P, spec_k, softmax_scale, stream);
+      return launch<TQ, TP, 64, RMAX, SPLIT>(
+          q, k_pages, v_pages, k_scales, v_scales, table, lengths, out, lse,
+          part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
+          stream);
     case 128:
-      return launch<TQ, TP, 128, RMAX>(q, k_pages, v_pages, k_scales,
-                                       v_scales, table, lengths, out, lse, S,
-                                       hq, hk, ps, P, spec_k, softmax_scale,
-                                       stream);
+      return launch<TQ, TP, 128, RMAX, SPLIT>(
+          q, k_pages, v_pages, k_scales, v_scales, table, lengths, out, lse,
+          part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
+          stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

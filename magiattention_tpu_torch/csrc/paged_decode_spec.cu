@@ -11,41 +11,53 @@
 // with nothing live (a slot shorter than spec_k, or length 0) gives out 0
 // and lse -inf; lse in natural log.
 //
-// Design: the body in paged_decode.cuh. One CTA per (kv head, slot) holds
-// the spec_k * g rows of that kv head, token-major (row r = t * g + j, as
-// the TPU kernel's q tile), so every K/V chunk is read once for all draft
-// tokens; each row masks the columns past its own limit and the walk stops
-// at the longest row's horizon (the last token's, the slot's length). The
-// row count picks the instance: RMAX 8, 16 or 32 (shared memory 74, 80 or
-// 93 KB at d 128; one accumulator per row and output column in registers).
-// At spec_k = 1 this is B10's instance and gives B10's bits.
+// Design: the split walk of the body in paged_decode.cuh. A CTA per (kv
+// head, slot, split) holds the spec_k * g rows of that kv head,
+// token-major (row r = t * g + j, as the TPU kernel's q tile), so every
+// K/V chunk is read once for all draft tokens; each row masks the columns
+// past its own limit, and the walk of a split stops at the slot's length.
+// The split plan is B10's (decode_split_plan: from the table width, page
+// size, kv-head count and SM count, never from spec_k or the lengths), so at spec_k = 1 this is B10's instance and gives B10's bits.
+// K/V chunks of 32 tokens are double-buffered raw in shared memory by
+// cp.async; a multi-split slot's partials are merged in split order by
+// merge_kernel. A spec row whose limit falls in an earlier split than the
+// slot's last token has no live column in the later ones: those leave
+// (max -inf, sum 0, accumulator 0), which the merge skips. The row count
+// picks the instance: RMAX 8, 16 or 32 (shared memory 73.1, 81.3 or 97.5
+// KiB at d 128 in float32, 80, 128 and 128 registers: three, two and two
+// CTAs an SM; P V holds two output columns' accumulators a thread, one at
+// 32 rows).
 //
 // What bounds it on this card: bytes, as B10: each live K/V row is read
 // once per CTA whatever spec_k is, while the flops grow with the rows
 // (4 * spec_k * g * D per token), still below the float32 CUDA cores' ~20
-// flops a byte at 32 rows.
+// flops a byte at 32 rows; at 16 and 32 rows the chunk's scores and P V
+// on the CUDA cores and in shared memory take longer than its copy.
 #include "paged_decode.cuh"
 
 namespace {
 
 template <typename T>
 int run(const void* q, const void* k_pages, const void* v_pages,
-        const int* table, const int* lengths, void* out, float* lse, int S,
-        int spec_k, int hq, int hk, int d, int ps, int P, float softmax_scale,
-        void* stream) {
+        const int* table, const int* lengths, void* out, float* lse,
+        float* part, int S, int spec_k, int hq, int hk, int d, int ps, int P,
+        int splits, int split_len, float softmax_scale, void* stream) {
   if (hk <= 0 || hq % hk != 0 || spec_k < 1) return (int)cudaErrorInvalidValue;
   const int rows = spec_k * (hq / hk);
   if (rows <= 8)
-    return magi::decode::dispatch<T, T, 8>(
-        d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse, S,
-        hq, hk, ps, P, spec_k, softmax_scale, stream);
+    return magi::decode::dispatch<T, T, 8, true>(
+        d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse,
+        part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
+        stream);
   if (rows <= 16)
-    return magi::decode::dispatch<T, T, 16>(
-        d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse, S,
-        hq, hk, ps, P, spec_k, softmax_scale, stream);
-  return magi::decode::dispatch<T, T, 32>(
-      d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse, S,
-      hq, hk, ps, P, spec_k, softmax_scale, stream);
+    return magi::decode::dispatch<T, T, 16, true>(
+        d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse,
+        part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
+        stream);
+  return magi::decode::dispatch<T, T, 32, true>(
+      d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse,
+      part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
+      stream);
 }
 
 }  // namespace
@@ -53,22 +65,29 @@ int run(const void* q, const void* k_pages, const void* v_pages,
 // q [S, spec_k, hq, d] and out [S, spec_k, hq, d] contiguous; k/v pages
 // [N, ps, hk, d] contiguous, same dtype as q; table [S, P] and lengths [S]
 // int32 on the device; lse [S, spec_k, hq] float32. spec_k * hq / hk <= 32.
+// The plan's splits x split_len tokens cover P * ps; part: splits * S *
+// spec_k * hq * (d + 2) float32 where splits > 1, else null.
 extern "C" int paged_decode_spec_f32(const void* q, const void* k_pages,
                                      const void* v_pages, const int* table,
                                      const int* lengths, void* out, float* lse,
-                                     int S, int spec_k, int hq, int hk, int d,
-                                     int ps, int P, float softmax_scale,
+                                     float* part, int S, int spec_k, int hq,
+                                     int hk, int d, int ps, int P, int splits,
+                                     int split_len, float softmax_scale,
                                      void* stream) {
-  return run<float>(q, k_pages, v_pages, table, lengths, out, lse, S, spec_k,
-                    hq, hk, d, ps, P, softmax_scale, stream);
+  return run<float>(q, k_pages, v_pages, table, lengths, out, lse, part, S,
+                    spec_k, hq, hk, d, ps, P, splits, split_len,
+                    softmax_scale, stream);
 }
 
 extern "C" int paged_decode_spec_bf16(const void* q, const void* k_pages,
                                       const void* v_pages, const int* table,
                                       const int* lengths, void* out,
-                                      float* lse, int S, int spec_k, int hq,
-                                      int hk, int d, int ps, int P,
-                                      float softmax_scale, void* stream) {
-  return run<__nv_bfloat16>(q, k_pages, v_pages, table, lengths, out, lse, S,
-                            spec_k, hq, hk, d, ps, P, softmax_scale, stream);
+                                      float* lse, float* part, int S,
+                                      int spec_k, int hq, int hk, int d,
+                                      int ps, int P, int splits,
+                                      int split_len, float softmax_scale,
+                                      void* stream) {
+  return run<__nv_bfloat16>(q, k_pages, v_pages, table, lengths, out, lse,
+                            part, S, spec_k, hq, hk, d, ps, P, splits,
+                            split_len, softmax_scale, stream);
 }

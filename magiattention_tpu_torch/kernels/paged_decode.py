@@ -5,10 +5,21 @@ The port's counterpart of ``paged_decode_attn``, ``paged_decode_attn_spec``
 and ``paged_decode_attn_int8`` in ``magiattention_tpu/kernels/paged_decode.py``.
 A CUDA tensor launches the matching kernel (``csrc/paged_decode.cu``,
 ``csrc/paged_decode_spec.cu``, ``csrc/paged_decode_int8.cu``: one body,
-``csrc/paged_decode.cuh``, one CTA per (kv head, slot), lengths and page
-table read on the device, so one launch serves every tick); a CPU tensor
-takes the plain version. There is no other route: a kernel that fails to
-build or launch raises.
+``csrc/paged_decode.cuh``, lengths and page table read on the device, so
+one launch serves every tick); a CPU tensor takes the plain version. There
+is no other route: a kernel that fails to build or launch raises.
+
+B10 and B11 split each slot's page walk across CTAs (flash-decoding): the
+grid is (kv head, slot, split), each split a fixed token range that
+:func:`decode_split_plan` sets from the cache's shape and the SM count
+alone, so one launch still serves every tick and B11 at one draft row is
+B10. The chunks of a range are double-buffered in shared memory by
+``cp.async``; a slot longer than one split leaves per-row partials in a
+float32 workspace (:func:`split_workspace`, allocated here per launch) that
+a second kernel merges in split order, so two launches give the same bits.
+What still bounds them is each chunk's work on the CUDA cores and in shared
+memory, and the merge launch (PERF.md). B12 keeps the one-CTA-per-(kv head,
+slot) walk.
 
 The head-sharded variant of the TPU module is not ported (ROADMAP).
 """
@@ -26,23 +37,70 @@ from .paged_kv import PagedKVCache
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8  # GMAX in csrc/paged_decode.cu and paged_decode_int8.cu
 KERNEL_MAX_SPEC_ROWS = 32  # largest RMAX in csrc/paged_decode_spec.cu
+SPLIT_UNIT = 64  # splits are whole 64-token units (two of the walk's chunks)
+MIN_SPLIT_TOKENS = 256  # a split loads its q rows and writes its partials once
+
+
+def decode_split_plan(P: int, ps: int, hk: int, sms: int) -> tuple[int, int]:
+    """``(splits, split_len)``: how B10 and B11 cut each slot's page walk.
+
+    Split ``z`` of a slot owns tokens ``[z * split_len, (z + 1) *
+    split_len)``; ``splits * split_len`` covers the table's ``P * ps``
+    tokens. The plan reads only the table width ``P``, the page size, the
+    kv heads and the SM count: never the lengths (which live on the
+    device) nor the draft rows, so one launch serves every tick and B11 at
+    one draft row keeps B10's geometry. About as many splits as one long
+    slot needs to give each SM a CTA (``hk * splits`` near ``sms``, never
+    above it), none shorter than :data:`MIN_SPLIT_TOKENS`.
+    """
+    if min(P, ps, hk, sms) < 1:
+        raise ValueError(f"decode_split_plan: P={P}, ps={ps}, hk={hk}, sms={sms}")
+    span = P * ps
+    per = -(-span // -(-sms // hk))
+    split_len = max(MIN_SPLIT_TOKENS, -(-per // SPLIT_UNIT) * SPLIT_UNIT)
+    return -(-span // split_len), split_len
+
+
+def split_plan_of(cache: PagedKVCache, sms: int) -> tuple[int, int]:
+    """:func:`decode_split_plan` of a cache's shape on a card of ``sms``
+    SMs: the plan B10 and B11 launch with."""
+    P = cache.page_table.shape[1]
+    _, ps, hk, _ = cache.v_pages.shape
+    return decode_split_plan(P, ps, hk, sms)
+
+
+def split_workspace(splits: int, rows: int, d: int,
+                    device: torch.device | str) -> torch.Tensor | None:
+    """The float32 partials of a split launch over ``rows`` out rows
+    (``S * spec_k * hq``): per split, ``rows x d`` accumulators, then per
+    split ``rows x 2`` (max in the log2 domain, sum). ``None`` for one
+    split, where every slot is written directly."""
+    if splits == 1:
+        return None
+    return torch.empty(splits * rows * (d + 2), dtype=torch.float32, device=device)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library -> argument types of its ``<name>_f32`` / ``<name>_bf16`` (pointers
+# first, then the ints, the softmax scale and the stream)
+_ARGTYPES = {
+    "paged_decode": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "paged_decode_spec": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "paged_decode_int8": [_P] * 9 + [_I] * 6 + [_F, _P],
+}
 
 
 @lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.library(name)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "paged_decode":
-        fns, args = (lib.paged_decode_f32, lib.paged_decode_bf16), [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
-    elif name == "paged_decode_spec":
-        fns, args = (lib.paged_decode_spec_f32, lib.paged_decode_spec_bf16), [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
-    else:
-        fns, args = (lib.paged_decode_int8_f32, lib.paged_decode_int8_bf16), [
-            p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
-    for fn in fns:
-        fn.argtypes = args
+    for suffix in ("f32", "bf16"):
+        fn = getattr(lib, f"{name}_{suffix}")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return lib
 
@@ -86,8 +144,9 @@ def paged_decode_kernel(
     q: torch.Tensor, cache: PagedKVCache, softmax_scale: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/paged_decode.cu``: ``q (S, hq, d)`` CUDA tensor of the
-    pages' dtype (float32 or bfloat16). Adds one to
-    ``paged_decode_kernel.launches`` per launch."""
+    pages' dtype (float32 or bfloat16), split by :func:`split_plan_of`.
+    Adds one to ``paged_decode_kernel.launches`` per launch (the split walk
+    and its merge)."""
     q = q.contiguous()
     S, hq, d = q.shape
     num_pages, ps, hk, _ = cache.v_pages.shape
@@ -95,13 +154,16 @@ def paged_decode_kernel(
                   KERNEL_MAX_GROUP)
     out = torch.empty_like(q)
     lse = torch.empty((S, hq), dtype=torch.float32, device=q.device)
+    splits, split_len = split_plan_of(cache, _sm_count(q.device))
+    part = split_workspace(splits, S * hq, d, q.device)
     lib = _lib("paged_decode")
     fn = lib.paged_decode_f32 if q.dtype == torch.float32 else lib.paged_decode_bf16
     code = fn(
         q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
         cache.page_table.data_ptr(), cache.lengths.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), S, hq, hk, d, ps,
-        cache.page_table.shape[1], softmax_scale, _stream(q),
+        out.data_ptr(), lse.data_ptr(), None if part is None else part.data_ptr(),
+        S, hq, hk, d, ps, cache.page_table.shape[1], splits, split_len,
+        softmax_scale, _stream(q),
     )
     _build.check(lib, code, "paged_decode_kernel")
     paged_decode_kernel.launches += 1
@@ -115,8 +177,9 @@ def paged_decode_spec_kernel(
     q: torch.Tensor, cache: PagedKVCache, softmax_scale: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/paged_decode_spec.cu``: ``q (S, spec_k, hq, d)`` CUDA
-    tensor of the pages' dtype, ``spec_k * hq / hk <= 32``. Adds one to
-    ``paged_decode_spec_kernel.launches`` per launch."""
+    tensor of the pages' dtype, ``spec_k * hq / hk <= 32``, split as
+    :func:`paged_decode_kernel` (the same plan at every ``spec_k``). Adds
+    one to ``paged_decode_spec_kernel.launches`` per launch."""
     q = q.contiguous()
     S, spec_k, hq, d = q.shape
     num_pages, ps, hk, _ = cache.v_pages.shape
@@ -126,14 +189,17 @@ def paged_decode_spec_kernel(
                   q.dtype, KERNEL_MAX_SPEC_ROWS)
     out = torch.empty_like(q)
     lse = torch.empty((S, spec_k, hq), dtype=torch.float32, device=q.device)
+    splits, split_len = split_plan_of(cache, _sm_count(q.device))
+    part = split_workspace(splits, S * spec_k * hq, d, q.device)
     lib = _lib("paged_decode_spec")
     fn = (lib.paged_decode_spec_f32 if q.dtype == torch.float32
           else lib.paged_decode_spec_bf16)
     code = fn(
         q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
         cache.page_table.data_ptr(), cache.lengths.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), S, spec_k, hq, hk, d, ps,
-        cache.page_table.shape[1], softmax_scale, _stream(q),
+        out.data_ptr(), lse.data_ptr(), None if part is None else part.data_ptr(),
+        S, spec_k, hq, hk, d, ps, cache.page_table.shape[1], splits, split_len,
+        softmax_scale, _stream(q),
     )
     _build.check(lib, code, "paged_decode_spec_kernel")
     paged_decode_spec_kernel.launches += 1
