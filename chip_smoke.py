@@ -11,17 +11,25 @@ c.ffa_bwd_phase(c.card_peaks(torch.cuda.get_device_name(0)))"``.
 Phases, each printing JSON lines (any failure raises, exit code != 0):
 
 1. ``device``: the card's name, power limit and NVIDIA driver version,
-   and the build time. ``tensor_cores``: per library of the bf16
-   tensor-core kernels (``ffa_fwd``, ``ffa_fwd_gqa``, ``ffa_bwd_dq``,
-   ``ffa_bwd_dq_gqa``, ``ffa_bwd_dkv``, ``ffa_bwd_fused``), the HGMMA,
-   HMMA and atomic (RED/ATOM) counts of each kernel's SASS (``cuobjdump
-   -sass``) and each bf16 instance's registers, spills and shared memory;
-   fails if one has no HGMMA, has HMMA or spills, if its shared memory is
-   not the guard's, or if a split (deterministic) kernel has an atomic.
+   and the build time. ``tensor_cores``: per library of the tensor-core
+   kernels (``ffa_fwd``, ``ffa_fwd_gqa``: bf16 and the float32 3xTF32
+   body; ``ffa_bwd_dq``, ``ffa_bwd_dq_gqa``, ``ffa_bwd_dkv``,
+   ``ffa_bwd_fused``: bf16), the HGMMA, HMMA and atomic (RED/ATOM) counts
+   of each kernel's SASS (``cuobjdump -sass``) and each tensor-core
+   instance's registers, spills and shared memory; fails if one has no
+   HGMMA, has HMMA or spills, if its shared memory is not the guard's, if
+   a forward library has no float32 (tf32) instance, or if a split
+   (deterministic) kernel has an atomic. ``tf32_probe``: 3xTF32 on wgmma
+   (``csrc/tf32_probe.cu``) at the serving prefill shape, one
+   accumulator against the forward body's accumulators, beside float32
+   FMA, all against float64 (fails if the body's layout loses more than
+   twice float32 FMA's rms error).
 2. ``ffa_fwd``: the FFA forward kernel against its plain version
-   (``sdpa_attn``) at (a) the serving prefill shape, (b) the bf16 causal
-   headline shape, (c) a bf16 varlen mask with uncovered rows and (d) the
-   train phase's attention shape.
+   (``sdpa_attn``) at (a) the serving prefill shape (float32, also against
+   a float64 run beside the float32 plain version's own error, the bound
+   that of three tf32 products a pair beside float32 FMA's), (b) the bf16
+   causal headline shape, (c) a bf16 varlen mask with uncovered rows and
+   (d) the train phase's attention shape.
 3. ``ffa_bwd``: the split backward kernels (delta, dq, dk/dv) against their
    plain versions at (a) the bf16 causal headline shape, (b) the bf16
    varlen mask, (c) float32 at the serving prefill shape and (d) the train
@@ -53,13 +61,13 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    bit for bit. Their ``ms`` is the time per call, host included
    (:func:`time_ms`, as for every kernel), ``device_ms`` the device time
    from a CUDA graph with a cold L2 (:func:`graph_ms`).
-   ``decode_split_edges``: B10 and B11 at slot lengths around the split
-   length and the full table, spec rows ending in an earlier split,
+   ``decode_split_edges``: B10, B11 and B12 at slot lengths around the
+   split length and the full table, spec rows ending in an earlier split,
    against the plain versions, two launches equal to the bit (not timed).
    ``decode_long_slot``: one live 4096-token slot of eight, the case only
-   the split moves, timed beside the 8-slot case. ``decode_sass``: every
-   split instance of B10 and B11 shows LDGSTS (cp.async) and no spill, and
-   B12's one-CTA walk no LDGSTS.
+   the split moves (B10, B11, B12), timed beside the 8-slot case.
+   ``decode_sass``: every instance of the split walk in B10, B11 and B12
+   shows LDGSTS (cp.async) and no spill.
 6. ``edge_cases``: head_dim 64, ragged tiles, softcap, g = 1 and 8, other
    page sizes, a k tile no slice reaches and uncovered rows, forward and
    gradients (both backward modes), kernel against plain version (not
@@ -78,8 +86,9 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    and ``serve_int8`` under MAGI_ATTENTION_BACKEND_SERVE_DECODE=gather_ffa,
    every row equal to its replay's to the bit, the oracle draft's accept
    rate, and whether B1's multi-row call equals its single-row calls.
-   ``serve_profile`` and ``serve_spec_profile`` give the paged-decode
-   kernels' device time (``decode_device_ms``).
+   ``serve_profile``, ``serve_spec_profile`` and ``serve_int8_profile``
+   give the paged-decode kernels' device time (``decode_device_ms``) and
+   the FFA forward's (``forward_device_ms``).
 8. ``cp_api``: ``magi_attn_flex_key -> dispatch -> calc_attn ->
    undispatch`` at cp = 1, forward and backward, at the train phase's
    attention shape, against ``flex_flash_attn_func``, with max-logits.
@@ -114,9 +123,10 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
 
-Bounds use the card's data-sheet peaks (H100 SXM: 989 TFLOP/s bf16 tensor
-cores, 67 TFLOP/s float32 CUDA cores, 3.35 TB/s HBM3); other H100 forms
-use their own figures, named in the device line.
+Bounds use the card's data-sheet peaks (H100 SXM: 989 TFLOP/s bf16 and
+494.7 TFLOP/s TF32 dense tensor cores, 67 TFLOP/s float32 CUDA cores,
+3.35 TB/s HBM3); other H100 forms use their own figures, named in the
+device line.
 """
 
 from __future__ import annotations
@@ -134,12 +144,15 @@ ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RNORM = {"float32": 1e-5, "bfloat16": 1e-2}
 SERVE_ATOL, SERVE_RNORM = 1e-4, 1e-5
 
-# (name substring, bf16 dense TFLOP/s, fp32 CUDA-core TFLOP/s, HBM TB/s)
+# (name substring, bf16 dense TFLOP/s, fp32 CUDA-core TFLOP/s, TF32 dense
+# TFLOP/s, HBM TB/s)
 PEAKS = (
-    ("H100 NVL", 835e12, 60e12, 3.9e12),
-    ("H100 PCIe", 756e12, 51e12, 2.0e12),
-    ("H100", 989e12, 67e12, 3.35e12),  # SXM5 (HBM3)
+    ("H100 NVL", 835e12, 60e12, 417.5e12, 3.9e12),
+    ("H100 PCIe", 756e12, 51e12, 378e12, 2.0e12),
+    ("H100", 989e12, 67e12, 494.7e12, 3.35e12),  # SXM5 (HBM3)
 )
+# tf32 products a pair of the float32 forward (csrc/ffa_fwd_tf32.cuh)
+TF32_PRODUCTS = 3
 
 
 def emit(obj: dict) -> None:
@@ -154,9 +167,10 @@ def nvidia_smi(fields: str) -> str:
 
 
 def card_peaks(name: str) -> dict:
-    for key, bf16, f32, bw in PEAKS:
+    for key, bf16, f32, tf32, bw in PEAKS:
         if key in name:
-            return {"form": key, "bfloat16": bf16, "float32": f32, "bytes_s": bw}
+            return {"form": key, "bfloat16": bf16, "float32": f32, "tfloat32": tf32,
+                    "bytes_s": bw}
     raise RuntimeError(f"no peak figures for card {name!r}")
 
 
@@ -228,6 +242,15 @@ def bound(flops: float, nbytes: float, dtype: str, peaks: dict) -> tuple[float, 
     t_ops = flops / peaks[dtype] * 1e3
     t_bytes = nbytes / peaks["bytes_s"] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fwd_bound(flops: float, nbytes: float, dtype: str, peaks: dict) -> tuple[float, str]:
+    """The FFA forward's bound: bf16 at the bf16 tensor-core peak; float32
+    as the 3xTF32 body runs it, three tf32 products a pair at the TF32
+    peak (float32 FMA's bound at the CUDA-core peak: :func:`bound`)."""
+    if dtype == "float32":
+        return bound(TF32_PRODUCTS * flops, nbytes, "tfloat32", peaks)
+    return bound(flops, nbytes, dtype, peaks)
 
 
 def errors(out_k, lse_k, out_p, lse_p) -> dict:
@@ -393,12 +416,17 @@ def ffa_phase(peaks: dict) -> list[dict]:
             r0, r1 = c["uncovered"]
             if out_k[r0:r1].any() or not torch.isneginf(lse_k[r0:r1]).all():
                 raise AssertionError(f"{c['name']}: uncovered rows are not (0, -inf)")
+        f64 = {}
+        if dname == "float32":
+            f64 = float64_report(q, k, v, out_k, lse_k, out_p, lse_p, qr, kr, lo, hi, scale)
         mask = build_dense_mask_band(qr, kr, lo, hi, c["sq"], c["sk"], device="cuda")
         live = int(mask.sum().item())
         flops = 4.0 * c["hq"] * d * live
         isz = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + lse_k.numel() * 4
-        b_ms, b_by = bound(flops, nbytes, dname, peaks)
+        b_ms, b_by = fwd_bound(flops, nbytes, dname, peaks)
+        if dname == "float32":
+            f64["fma_bound_ms"] = bound(flops, nbytes, dname, peaks)[0]
         library_ms = None
         if c.get("library") == "causal":
             qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
@@ -413,7 +441,7 @@ def ffa_phase(peaks: dict) -> list[dict]:
             live_pairs=live, work_items=plan.num_work, **err,
             ms=time_ms(kernel), plain_ms=time_ms(plain, warmup=1, samples=10),
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-            atol=ATOL[dname], rnorm=RNORM[dname],
+            atol=ATOL[dname], rnorm=RNORM[dname], **f64,
         )
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         results.append(res)
@@ -421,6 +449,98 @@ def ffa_phase(peaks: dict) -> list[dict]:
         del mask, out_p, lse_p
         torch.cuda.empty_cache()
     return results
+
+
+def float64_report(q, k, v, out_k, lse_k, out_p, lse_p, qr, kr, lo, hi, scale) -> dict:
+    """A float32 forward case against a float64 run of the plain version:
+    the kernel's errors (3xTF32) beside the float32 plain version's own
+    (cuBLAS float32 FMA), and the scores of the last q tile's rows (the
+    longest) from the 3xTF32 split emulated exactly in float64
+    (``scores_3xtf32``: the split's error alone, without the tensor cores'
+    accumulation) and from float32 FMA, against float64 q k^T."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import scores_3xtf32
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+
+    out_64, lse_64 = sdpa_attn(q.double(), k.double(), v.double(), qr, kr, softmax_scale=scale,
+                               d_lo=lo, d_hi=hi, compute_dtype=torch.float64)
+    g = q.shape[1] // k.shape[1]
+    qt = q[-64:]
+    kx = k.repeat_interleave(g, dim=1)
+    s64 = torch.einsum("qhd,khd->hqk", qt.double(), kx.double())
+    s32 = torch.einsum("qhd,khd->hqk", qt, kx)
+    s3 = scores_3xtf32(qt, k)
+    return {
+        "vs_float64": errors(out_k, lse_k, out_64, lse_64),
+        "plain_float32_vs_float64": errors(out_p, lse_p, out_64, lse_64),
+        "scores_3xtf32_emulated_max_abs_err": (s3 - s64).abs().max().item(),
+        "scores_float32_fma_max_abs_err": (s32.double() - s64).abs().max().item(),
+        "scores_max_abs": s64.abs().max().item(),
+    }
+
+
+TF32_PROBE_MODES = {1: "tf32_1x", 3: "tf32_3x_one_accumulator", 4: "tf32_3x_body"}
+
+
+def tf32_probe_phase() -> dict:
+    """The 3xTF32 probe (``csrc/tf32_probe.cu``) at the serving prefill
+    shape (q 512 x 32 x 128, k/v 4096 x 8 x 128, seed 0): S = Q K^T and O
+    = P V (P uniform in [0, 1) over all 4096 keys) by wgmma from tf32
+    hi / lo splits, one product (mode 1), three into one accumulator (3)
+    and the forward body's accumulators (4), against float64; beside them
+    float32 FMA's (cuBLAS, TF32 off) and the split's own error with every
+    product and sum exact (``scores_3xtf32``). Fails if the body's layout
+    loses more than twice float32 FMA's rms error."""
+    import ctypes
+
+    import torch
+
+    from magiattention_tpu_torch.kernels import _build
+    from magiattention_tpu_torch.kernels.ffa import scores_3xtf32
+
+    lib = _build.library("tf32_probe")
+    for fn in (lib.tf32_probe_s, lib.tf32_probe_pv):
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
+    sq, sk, hq, hk, d = 512, 4096, 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(sh, generator=gen, device="cuda")
+               for sh in ((sq, hq, d), (sk, hk, d), (sk, hk, d)))
+    kx, vx = (t.repeat_interleave(hq // hk, dim=1) for t in (k, v))
+
+    def err(got, want) -> dict:
+        e = (got.double() - want).abs()
+        return {"max_abs": e.max().item(), "rms": e.pow(2).mean().sqrt().item()}
+
+    res = {}
+    s64 = torch.einsum("qhd,khd->hqk", q.double(), kx.double())
+    res["s_float32_fma"] = err(torch.einsum("qhd,khd->hqk", q, kx), s64)
+    res["s_3xtf32_exact_sums"] = err(scores_3xtf32(q, k), s64)
+    for mode, name in TF32_PROBE_MODES.items():
+        out = torch.empty((hq, sq, sk), device="cuda")
+        _build.check(lib, lib.tf32_probe_s(q.data_ptr(), k.data_ptr(), out.data_ptr(),
+                                           sq, sk, hq, hk, mode), "tf32_probe_s")
+        torch.cuda.synchronize()
+        res[f"s_{name}"] = err(out, s64)
+    del s64, out
+    p = torch.rand((hq, sq, sk), generator=gen, device="cuda")
+    o64 = torch.einsum("hqk,khd->hqd", p.double(), vx.double())
+    res["o_float32_fma"] = err(torch.einsum("hqk,khd->hqd", p, vx), o64)
+    for mode, name in TF32_PROBE_MODES.items():
+        out = torch.empty((hq, sq, d), device="cuda")
+        _build.check(lib, lib.tf32_probe_pv(p.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                            sq, sk, hq, hk, mode), "tf32_probe_pv")
+        torch.cuda.synchronize()
+        res[f"o_{name}"] = err(out, o64)
+    res["o_max_abs"] = o64.abs().max().item()
+    del p, o64, out
+    torch.cuda.empty_cache()
+    emit({"phase": "tf32_probe", **res})
+    for x in ("s", "o"):
+        if res[f"{x}_tf32_3x_body"]["rms"] > 2 * res[f"{x}_float32_fma"]["rms"]:
+            raise AssertionError(f"tf32_probe: the body's {x} loses more than 2x float32 FMA: {res}")
+    return res
 
 
 def grad_check(name: str, got, want, dtype: str) -> dict:
@@ -790,7 +910,7 @@ def ffa_fwd_gqa_phase(peaks: dict) -> dict[str, dict]:
         flops = 4.0 * hq * d * live
         isz = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + lse_k.numel() * 4
-        b_ms, b_by = bound(flops, nbytes, dname, peaks)
+        b_ms, b_by = fwd_bound(flops, nbytes, dname, peaks)
         lib_ms, lib_call = sdpa_ms(c, q, k, v, mask)
         del mask
         kv_tile = 2 * 64 * d * isz  # a k and a v tile
@@ -1143,6 +1263,30 @@ def decode_pages(dt, hk: int, seed: int, lengths=None, d: int = 128, ps: int = 1
     return cache
 
 
+def int8_pages(hk: int, seed: int, lengths, d: int = 128, ps: int = 16, P: int = 256):
+    """:func:`decode_pages`'s layout over an int8 cache: random codes in
+    [-127, 127] on every page and a random (page, kv head) scale in [0.005,
+    0.02) for K and for V."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.paged_kv import PagedKVCache, assign_pages
+
+    S, N = 8, 1024
+    perm = np.random.default_rng(seed).permutation(N)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache = PagedKVCache.create(N, ps, hk, d, S, P, dtype=torch.int8, device="cuda")
+    for pages, scales in ((cache.k_pages, cache.k_scales), (cache.v_pages, cache.v_scales)):
+        pages.copy_(torch.randint(-127, 128, pages.shape, generator=gen, device="cuda"))
+        scales.copy_(0.005 + 0.015 * torch.rand(scales.shape, generator=gen, device="cuda"))
+    used = 0
+    for s, length in enumerate(lengths):
+        n = -(-length // ps)
+        assign_pages(cache, s, perm[used : used + n])
+        used += n
+    cache.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    return cache
+
+
 def spec_limits(lengths: list[int], spec_k: int) -> list[list[int]]:
     """Live columns of each (slot, draft token) row: ``length - (spec_k -
     1 - t)``, at least 0."""
@@ -1168,6 +1312,17 @@ def decode_bytes(q, lse, lengths: list[int], hk: int, ps: int) -> int:
         2 * q.numel() * isz + lse.numel() * 4
         + sum(lengths) * hk * d * 2 * isz
         + sum(-(-n // ps) for n in lengths) * 4 + len(lengths) * 4
+    )
+
+
+def int8_bytes(q, lse, lengths: list[int], hk: int, ps: int) -> int:
+    """:func:`decode_bytes` over int8 pages: one byte a code, and each live
+    page's K and V scale per kv head."""
+    isz, d = q.element_size(), q.shape[-1]
+    pages = sum(-(-n // ps) for n in lengths)
+    return (
+        2 * q.numel() * isz + lse.numel() * 4
+        + sum(lengths) * hk * d * 2 + pages * hk * 2 * 4 + pages * 4 + len(lengths) * 4
     )
 
 
@@ -1283,17 +1438,12 @@ def decode_int8_phase(peaks: dict) -> dict[str, dict]:
         check(f"paged_decode_int8_q{dname}", err, dname)
         if out_k[0].any() or not torch.isneginf(lse_k[0]).all():
             raise AssertionError("paged_decode_int8: empty slot is not (0, -inf)")
-        isz = q.element_size()
-        tokens = sum(DECODE_LENGTHS)
-        pages = sum(-(-n // ps) for n in DECODE_LENGTHS)
-        nbytes = (
-            2 * q.numel() * isz + lse_k.numel() * 4
-            + tokens * hk * d * 2 + pages * hk * 2 * 4 + pages * 4 + S * 4
-        )
-        b_ms, b_by = bound(4.0 * hq * d * tokens, nbytes, "float32", peaks)
+        nbytes = int8_bytes(q, lse_k, DECODE_LENGTHS, hk, ps)
+        b_ms, b_by = bound(4.0 * hq * d * sum(DECODE_LENGTHS), nbytes, "float32", peaks)
         res = dict(
             case=f"int8_pages_q{dname}", q_dtype=dname, lengths=DECODE_LENGTHS,
-            q=list(q.shape), pages=list(cache.k_pages.shape), **err,
+            q=list(q.shape), pages=list(cache.k_pages.shape),
+            **split_of(cache), **err,
             ms=time_ms(kernel), device_ms=graph_ms(kernel),
             plain_ms=time_ms(plain, warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1333,20 +1483,23 @@ def decode_int8_phase(peaks: dict) -> dict[str, dict]:
 
 
 def decode_split_phase() -> dict:
-    """B10 and B11 where the split walk has its edges (checked, not timed):
-    slot lengths at the split length, one below and one and two past it,
-    twice it and one past, and the full table (``P * ps``), so spec rows
-    end in an earlier split than their slot's last token. Two tables: the
-    decode cell's (d 128, pages of 16, hq 32: hk 8 and 4, spec_k 1 (B10),
-    2 and 4) and d 64 over pages of 24 (page and row by division; hq 16:
-    hk 2 and 4, 8 to 32 rows a CTA); float32 and bf16 against the plain
-    versions at the decode tolerances, empty rows (0, -inf), two launches
-    equal to the bit, and B11 at spec_k 1 equal to B10 to the bit."""
+    """B10, B11 and B12 where the split walk has its edges (checked, not
+    timed): slot lengths at the split length, one below and one and two
+    past it, twice it and one past, and the full table (``P * ps``), so
+    spec rows end in an earlier split than their slot's last token. Two
+    tables: the decode cell's (d 128, pages of 16, hq 32: hk 8 and 4,
+    spec_k 1 (B10), 2 and 4) and d 64 over pages of 24 (page and row by
+    division; hq 16: hk 2 and 4, 8 to 32 rows a CTA); float32 and bf16
+    against the plain versions at the decode tolerances, empty rows (0,
+    -inf), two launches equal to the bit, and B11 at spec_k 1 equal to B10
+    to the bit. B12 over int8 pages of both tables (:func:`int8_pages`) at
+    each table's spec_k 1 geometries, q float32 and bf16."""
     import torch
 
     from magiattention_tpu_torch.kernels.paged_decode import (
-        decode_split_plan, paged_decode_kernel, paged_decode_plain,
-        paged_decode_spec_kernel, paged_decode_spec_plain,
+        decode_split_plan, paged_decode_int8_kernel, paged_decode_int8_plain,
+        paged_decode_kernel, paged_decode_plain, paged_decode_spec_kernel,
+        paged_decode_spec_plain,
     )
 
     S = 8
@@ -1398,6 +1551,28 @@ def decode_split_phase() -> dict:
             )
             worst[name] = err["max_abs_err"]
             del cache
+        for d, ps, P, hq, hk, spec_k, lengths, (splits, L) in runs:
+            if spec_k != 1:
+                continue
+            scale = d ** -0.5
+            cache = int8_pages(hk, seed=11, lengths=lengths, d=d, ps=ps, P=P)
+            if split_of(cache) != {"splits": splits, "split_len": L}:
+                raise AssertionError(f"decode_split int8: hk {hk} plans {split_of(cache)}")
+            gen = torch.Generator(device="cuda").manual_seed(12)
+            q = torch.randn((S, hq, d), generator=gen, device="cuda").to(dt)
+            name = f"int8_d{d}_ps{ps}_hk{hk}_q{dname}"
+            got = paged_decode_int8_kernel(q, cache, scale)
+            again = paged_decode_int8_kernel(q, cache, scale)
+            want = paged_decode_int8_plain(q, cache, scale)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"decode_split {name}: two launches differ")
+            err = errors(*got, *want)
+            check(f"decode_split {name}", err, dname)
+            check_empty_rows(f"decode_split {name}", got[0][:, None], got[1][:, None],
+                             spec_limits(lengths, 1))
+            worst[name] = err["max_abs_err"]
+            del cache
     if not all(earlier[k] for k in earlier if "spec4" in k):
         raise AssertionError(f"decode_split: a spec_k 4 case has no row in an earlier split: {earlier}")
     res = dict(
@@ -1408,16 +1583,18 @@ def decode_split_phase() -> dict:
     return res
 
 
-def decode_long_phase(peaks: dict, dec: list[dict], spec: dict[str, dict]) -> dict[str, dict]:
+def decode_long_phase(peaks: dict, dec: list[dict], spec: dict[str, dict],
+                      int8: dict[str, dict]) -> dict[str, dict]:
     """One live slot of 4096 tokens and seven empty ones, the case only the
-    split moves (the one-CTA walk gave it hk CTAs): B10 in float32 and bf16
-    and B11 at spec_k 4, hk 8 in float32, checked against the plain
-    versions and timed beside the 8-slot case."""
+    split moves (a walk of one CTA per (kv head, slot) gave it hk CTAs):
+    B10 in float32 and bf16, B11 at spec_k 4, hk 8 in float32 and B12 (q
+    float32 over int8 pages), checked against the plain versions and timed
+    beside the 8-slot case."""
     import torch
 
     from magiattention_tpu_torch.kernels.paged_decode import (
-        paged_decode_kernel, paged_decode_plain, paged_decode_spec_kernel,
-        paged_decode_spec_plain,
+        paged_decode_int8_kernel, paged_decode_int8_plain, paged_decode_kernel,
+        paged_decode_plain, paged_decode_spec_kernel, paged_decode_spec_plain,
     )
 
     S, hq, hk, d, ps = 8, 32, 8, 128, 16
@@ -1426,12 +1603,19 @@ def decode_long_phase(peaks: dict, dec: list[dict], spec: dict[str, dict]) -> di
     results = {}
     for spec_k, dt, eight in (
         (1, torch.float32, dec[0]), (1, torch.bfloat16, dec[1]),
-        (4, torch.float32, spec["spec4_hk8_float32"]),
+        (4, torch.float32, spec["spec4_hk8_float32"]), (1, "int8", int8["float32"]),
     ):
+        quant = dt == "int8"
+        if quant:
+            dt, cache = torch.float32, int8_pages(hk, seed=9, lengths=lengths)
+        else:
+            cache = decode_pages(dt, hk, seed=9, lengths=lengths)
         dname = str(dt).removeprefix("torch.")
-        cache = decode_pages(dt, hk, seed=9, lengths=lengths)
         gen = torch.Generator(device="cuda").manual_seed(10)
-        if spec_k == 1:
+        if quant:
+            q = torch.randn((S, hq, d), generator=gen, device="cuda")
+            kfn, pfn, what = paged_decode_int8_kernel, paged_decode_int8_plain, "paged_decode_int8"
+        elif spec_k == 1:
             q = torch.randn((S, hq, d), generator=gen, device="cuda").to(dt)
             kfn, pfn, what = paged_decode_kernel, paged_decode_plain, "paged_decode"
         else:
@@ -1441,7 +1625,7 @@ def decode_long_phase(peaks: dict, dec: list[dict], spec: dict[str, dict]) -> di
         err = errors(out_k, lse_k, *pfn(q, cache, scale))
         name = f"{what}_long_slot_spec{spec_k}_{dname}"
         check(name, err, dname)
-        nbytes = decode_bytes(q, lse_k, lengths, hk, ps)
+        nbytes = (int8_bytes if quant else decode_bytes)(q, lse_k, lengths, hk, ps)
         pairs = sum(sum(lim) for lim in spec_limits(lengths, spec_k)) * hq
         b_ms, b_by = bound(4.0 * d * pairs, nbytes, dname, peaks)
         ms = time_ms(lambda: kfn(q, cache, scale))
@@ -1461,24 +1645,19 @@ def decode_long_phase(peaks: dict, dec: list[dict], spec: dict[str, dict]) -> di
 
 
 def decode_sass_phase() -> dict[str, dict]:
-    """Proof of the decode design in the SASS: every split instance of
-    paged_decode and paged_decode_spec (``decode_kernel<..., 1>``) shows
-    LDGSTS (cp.async) and no spill in its ``ptxas`` report;
-    paged_decode_int8's one-CTA walk (``decode_kernel<..., 0>``) shows no
-    LDGSTS; merge_kernel is reported as it is."""
+    """Proof of the decode design in the SASS: every instance of the split
+    walk (``decode_kernel<...>``) in paged_decode, paged_decode_spec and
+    paged_decode_int8 shows LDGSTS (cp.async) and no spill in its ``ptxas``
+    report; merge_kernel is reported as it is."""
     results = {}
     for lib in ("paged_decode", "paged_decode_spec", "paged_decode_int8"):
         sass, ptxas = sass_counts(lib), ptxas_report(lib)
         rows = {fn: dict(**n, **ptxas.get(fn, {})) for fn, n in sass.items()}
         emit({"phase": "decode_sass", "library": lib, "kernels": rows})
         walks = {fn: r for fn, r in rows.items() if fn.startswith("decode_kernel<")}
-        split = {fn: r for fn, r in walks.items() if fn.endswith(",1>")}
-        if lib == "paged_decode_int8":
-            if split or not walks or any(r["LDGSTS"] for r in walks.values()):
-                raise AssertionError(f"{lib}: not the one-CTA walk: {walks}")
-        elif not split or len(split) != len(walks):
-            raise AssertionError(f"{lib}: an instance is not the split walk: {walks}")
-        for fn, r in split.items():
+        if not walks:
+            raise AssertionError(f"{lib}: no instance of the split walk: {rows}")
+        for fn, r in walks.items():
             if r["LDGSTS"] == 0 or r.get("spill_stores", 1) or r.get("spill_loads", 1):
                 raise AssertionError(f"{lib}: {fn} has no LDGSTS or spills: {r}")
         results[lib] = rows
@@ -1741,11 +1920,14 @@ def profile_run(fn) -> dict:
     kernels.sort(key=lambda r: -r[1])
     busy_s = sum(us for _, us, _ in kernels) / 1e6
     decode = [(us, c) for k, us, c in kernels if "magi::decode::" in k]
+    forward = [(us, c) for k, us, c in kernels if "ffa_fwd_t" in k]  # B1/B2's bodies
     return dict(
         wall_s=wall, device_busy_s=busy_s,
         idle_share=1.0 - busy_s / wall if wall > 0 else None,
         decode_device_ms=sum(us for us, _ in decode) / 1e3,
         decode_launches=sum(c for _, c in decode),
+        forward_device_ms=sum(us for us, _ in forward) / 1e3,
+        forward_launches=sum(c for _, c in forward),
         top_kernels=[
             {"name": k[:90], "device_ms": us / 1e3, "count": c}
             for k, us, c in kernels[:12]
@@ -1754,7 +1936,9 @@ def profile_run(fn) -> dict:
 
 
 def serve_profile(model, config, make_requests) -> dict:
-    """A serve run of ``config`` once more under ``torch.profiler``."""
+    """A serve run of ``config`` once more under ``torch.profiler``: the
+    device time by kernel, the decode kernels' and the FFA forward's
+    (``forward_device_ms``)."""
     from magiattention_tpu_torch.serving import ServeEngine
 
     reqs = make_requests(model)
@@ -1918,6 +2102,7 @@ def serve_int8_phase(ctx: dict) -> dict:
         accounting=accounting,
     )
     emit({"phase": "serve_int8", **res})
+    emit({"phase": "serve_int8_profile", **serve_profile(model, config, ctx["requests"])})
     return res
 
 
@@ -2353,11 +2538,13 @@ def build_report(name: str) -> list[str]:
 
 # the libraries whose bf16 entries run on the tensor cores; every such
 # kernel's name carries TC_TAG (csrc/ffa_fwd_tc.cuh, csrc/ffa_bwd_dq_tc.cuh,
-# csrc/bwd_kv_tc.cuh)
+# csrc/bwd_kv_tc.cuh), and the float32 forward's (3xTF32,
+# csrc/ffa_fwd_tf32.cuh) TF32_TAG
 TC_LIBRARIES = (
     "ffa_fwd", "ffa_fwd_gqa", "ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv", "ffa_bwd_fused",
 )
 TC_TAG = "_tc_kernel"
+TF32_TAG = "_tf32_kernel"
 # the split backward's libraries: the deterministic mode, no atomics
 SPLIT_LIBRARIES = ("ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")
 # SASS opcodes of global and shared-memory atomics and reductions
@@ -2366,17 +2553,29 @@ ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
 
 def kernel_label(mangled: str) -> str:
     """``ffa_fwd_tc_kernel<128,1>`` from a kernel's mangled name (its name
-    and integer template arguments)."""
+    and template arguments: integers, float, bf16, int8): the nested
+    name's length-prefixed parts are read in turn, the last one ending in
+    ``_kernel`` is the name."""
     import re
 
-    m = re.search(r"\d([a-z_]+_kernel)(?:I(.*?)EEv|E)", mangled)
-    if not m:
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else None
+    if i is None:
         return mangled
-    if m.group(2) is None:
-        return m.group(1)
-    args = re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)|Lb(\d)E", m.group(2) + "E")
-    parts = [a or ("float" if f else "bf16" if b else c) for a, f, b, c in args]
-    return f"{m.group(1)}<{','.join(parts)}>"
+    name = None
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if name is None or not name.endswith("_kernel"):
+        return mangled
+    m = re.match(r"I(.*?)EEv", mangled[i:])
+    if not m:
+        return name
+    args = re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)|(a)|Lb(\d)E", m.group(1) + "E")
+    parts = [n or ("float" if f else "bf16" if b else "int8" if a else c) for n, f, b, a, c in args]
+    return f"{name}<{','.join(parts)}>"
 
 
 def ptxas_report(name: str) -> dict[str, dict]:
@@ -2455,27 +2654,28 @@ def sass_counts(name: str) -> dict[str, dict]:
 
 
 def tensor_core_phase() -> dict[str, dict]:
-    """Proof that every bf16 FFA kernel (B1/B2, B3/B4, B5/B6, B8/B9) runs
-    on the tensor cores: per library, the HGMMA, HMMA and atomic counts of
-    each kernel's SASS, and beside each bf16 (tensor-core) instance its
-    registers, spills and dynamic shared memory (the library's own
-    ``<name>_smem_bytes``, held equal to the Python figure the guards
-    use). Fails if a library has no tensor-core kernel, if one has no
-    HGMMA or any HMMA, if one spills, if the two shared-memory figures
-    differ, or if a bf16 instance of a split library (the deterministic
-    mode) has an atomic; the fused kernel's bf16 instance must show its dq
-    atomics, which proves the count reads the SASS."""
+    """Proof that every bf16 FFA kernel (B1/B2, B3/B4, B5/B6, B8/B9) and
+    the float32 forward (B1/B2, 3xTF32) run on the tensor cores: per
+    library, the HGMMA, HMMA and atomic counts of each kernel's SASS, and
+    beside each tensor-core instance its registers, spills and dynamic
+    shared memory (the library's own ``<name>_smem_bytes``, held equal to
+    the Python figure the guards use). Fails if a library has no
+    tensor-core kernel, if one has no HGMMA or any HMMA, if one spills, if
+    the two shared-memory figures differ, or if a bf16 instance of a split
+    library (the deterministic mode) has an atomic; the fused kernel's bf16
+    instance must show its dq atomics, which proves the count reads the
+    SASS."""
     import re
 
     from magiattention_tpu_torch.kernels import ffa as kffa
 
-    guards = {  # library -> the guard's figure of (d, heads) in bf16
-        "ffa_fwd": lambda d, g: kffa.fwd_pack_smem_bytes(d, 1, 2),
-        "ffa_fwd_gqa": lambda d, g: kffa.fwd_pack_smem_bytes(d, g, 2),
-        "ffa_bwd_dq": lambda d, g: kffa.dq_pack_smem_bytes(d, 1, 2),
-        "ffa_bwd_dq_gqa": lambda d, g: kffa.dq_pack_smem_bytes(d, g, 2),
-        "ffa_bwd_dkv": lambda d, g: kffa.dkv_smem_bytes(d, 2),
-        "ffa_bwd_fused": lambda d, g: kffa.fused_bwd_smem_bytes(d, 2),
+    guards = {  # library -> the guard's figure of (d, heads, itemsize)
+        "ffa_fwd": lambda d, g, isz: kffa.fwd_pack_smem_bytes(d, 1, isz),
+        "ffa_fwd_gqa": lambda d, g, isz: kffa.fwd_pack_smem_bytes(d, g, isz),
+        "ffa_bwd_dq": lambda d, g, isz: kffa.dq_pack_smem_bytes(d, 1, isz),
+        "ffa_bwd_dq_gqa": lambda d, g, isz: kffa.dq_pack_smem_bytes(d, g, isz),
+        "ffa_bwd_dkv": lambda d, g, isz: kffa.dkv_smem_bytes(d, isz),
+        "ffa_bwd_fused": lambda d, g, isz: kffa.fused_bwd_smem_bytes(d, isz),
     }
     results = {}
     for lib in TC_LIBRARIES:
@@ -2483,12 +2683,13 @@ def tensor_core_phase() -> dict[str, dict]:
         query = getattr(kffa._lib(lib), f"{lib}_smem_bytes")
         tc = {}
         for fn, n in sass.items():
-            if TC_TAG not in fn:
+            if TC_TAG not in fn and TF32_TAG not in fn:
                 continue
             dims = [int(x) for x in re.findall(r"\d+", fn.split("<")[1])]
+            bf16 = TC_TAG in fn
             packed = lib.endswith("_gqa")  # template <D, G>: G heads a CTA
-            smem = query(dims[0], dims[1], 1) if packed else query(dims[0], 1)
-            want = guards[lib](dims[0], dims[1] if packed else 1)
+            smem = query(dims[0], dims[1], int(bf16)) if packed else query(dims[0], int(bf16))
+            want = guards[lib](dims[0], dims[1] if packed else 1, 2 if bf16 else 4)
             if smem != want:
                 raise AssertionError(f"{lib}: {fn} shared memory {smem} != guard's {want}")
             tc[fn] = dict(**n, **ptxas.get(fn, {}), smem_bytes=smem)
@@ -2498,7 +2699,7 @@ def tensor_core_phase() -> dict[str, dict]:
             hmma=sum(n["HMMA"] for n in sass.values()),
             atomics=sum(n["atomics"] for n in sass.values()),
             tensor_core_kernels=tc,
-            cuda_core_kernels={fn: n for fn, n in sass.items() if TC_TAG not in fn},
+            cuda_core_kernels={fn: n for fn, n in sass.items() if fn not in tc},
         )
         emit({"phase": "tensor_cores", **row})
         if not tc:
@@ -2512,6 +2713,8 @@ def tensor_core_phase() -> dict[str, dict]:
                 raise AssertionError(f"{lib}: {fn} (deterministic mode) has atomics: {r}")
             if lib == "ffa_bwd_fused" and not r["atomics"]:
                 raise AssertionError(f"{lib}: {fn} shows no atomics: the SASS count is wrong")
+        if lib.startswith("ffa_fwd") and not any(TF32_TAG in fn for fn in tc):
+            raise AssertionError(f"{lib}: no float32 (3xTF32) tensor-core kernel: {list(tc)}")
         results[lib] = row
     return results
 
@@ -2934,7 +3137,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(_build.SOURCES + ("tf32_probe",))
     build_s = time.perf_counter() - t0
     for src in _build.SOURCES:
         for line in build_report(src):
@@ -2945,10 +3148,12 @@ def main() -> int:
         "cuda": torch.version.cuda, "peaks_for": peaks["form"],
         "peak_bf16_tflops": peaks["bfloat16"] / 1e12,
         "peak_f32_tflops": peaks["float32"] / 1e12,
+        "peak_tf32_tflops": peaks["tfloat32"] / 1e12,
         "peak_tb_s": peaks["bytes_s"] / 1e12, "build_s": build_s,
     })
 
     tensor_core_phase()
+    tf32_probe_phase()
     ffa = ffa_phase(peaks)
     bwd = ffa_bwd_phase(peaks)
     fused = ffa_bwd_fused_phase(peaks, bwd)
@@ -2960,7 +3165,7 @@ def main() -> int:
     spec = decode_spec_phase(peaks)
     int8 = decode_int8_phase(peaks)
     decode_split_phase()
-    decode_long_phase(peaks, dec, spec)
+    decode_long_phase(peaks, dec, spec, int8)
     decode_sass_phase()
     edge_phase()
     serve, serve_ctx = serve_phase()
@@ -2977,8 +3182,8 @@ def main() -> int:
 
     t = bwd["d_train_docs_8192_bf16"]
     emit({"kernels": [
-        kernel_entry(
-            "ffa_fwd", "ffa_fwd.cu", "magiattention_tpu/kernels/ffa.py:251",
+        kernel_entry(  # serve's shape: float32, the 3xTF32 body
+            "ffa_fwd", "ffa_fwd_tf32.cuh", "magiattention_tpu/kernels/ffa.py:251",
             serve["kernel_launches"]["ffa_fwd"], ffa[0],
         ),
         kernel_entry(

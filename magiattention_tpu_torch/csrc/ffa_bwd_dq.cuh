@@ -17,7 +17,7 @@
 //
 // Design. The TPU kernel walks a sequential grid (hq, W) and carries a q
 // tile's dq in VMEM scratch from its IS_FIRST item to its IS_LAST item.
-// Here, as in csrc/ffa_fwd.cuh, ONE CTA owns one (q tile, head block of G
+// Here, as in the FFA forward, ONE CTA owns one (q tile, head block of G
 // heads) and loops over that q tile's run of the SAME q-major plan
 // (run_ptr), so dq stays in registers for the whole run, is written once,
 // and needs no atomics: the result does not depend on the order in which

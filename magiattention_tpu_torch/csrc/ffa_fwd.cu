@@ -6,13 +6,13 @@
 // max-logits output (ffa.py:130, :482-487).
 //
 // Two bodies, each shared with the GQA-packed variant (csrc/ffa_fwd_gqa.cu),
-// here at G = 1. bfloat16: csrc/ffa_fwd_tc.cuh, on the tensor cores (wgmma,
-// one warpgroup per CTA, K/V double-buffered by cp.async; 80 KB of shared
-// memory at D = 128, two CTAs per SM). float32: csrc/ffa_fwd.cuh, float32
-// FMA on the CUDA cores (never TF32, for the serving replay tolerance): Q
-// and one K-or-V tile (the v tile replaces the k tile each item) and the
-// 64 x 80 P tile, 86 KB at D = 128, two CTAs per SM. Their designs and
-// what bounds them are in the headers.
+// here at G = 1, both on the tensor cores (wgmma, one warpgroup per CTA).
+// bfloat16: csrc/ffa_fwd_tc.cuh (K/V double-buffered by cp.async; 80 KB of
+// shared memory at D = 128, two CTAs per SM). float32: csrc/ffa_fwd_tf32.cuh,
+// 3xTF32 (each operand split into tf32 hi and lo, three products a pair, so
+// the serving replay tolerance holds; one TF32 product would not), each
+// chunk's split under the previous chunk's products; 225 KB at D = 128,
+// one CTA per SM. Their designs and what bounds them are in the headers.
 //
 // Max-logits: the TPU kernel keeps a per-(head, q tile) running max of the
 // scaled, softcapped logits and reduces it on the host. Here the running
@@ -21,32 +21,8 @@
 // log2(e) after the tanh), so each CTA reduces its 64 rows' m, converts
 // with ln(2) and writes one float per (q tile, head); the wrapper takes the
 // max over q tiles. A nullptr skips it.
-#include "ffa_fwd.cuh"
 #include "ffa_fwd_tc.cuh"
-
-namespace {
-
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* out,
-             float* lse, float* max_logits, const int* work_kt,
-             const int* meta, const int* run_ptr, int sq, int sk, int hq,
-             int hk, int num_q_tiles, float scale, float softcap,
-             void* stream) {
-  switch (d) {
-    case 64:
-      return launch<T, 64, 1>(q, k, v, out, lse, max_logits, work_kt, meta,
-                              run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                              softcap, stream);
-    case 128:
-      return launch<T, 128, 1>(q, k, v, out, lse, max_logits, work_kt, meta,
-                               run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                               softcap, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+#include "ffa_fwd_tf32.cuh"
 
 // q [sq, hq, d], k/v [sk, hk, d] and out [sq, hq, d] are contiguous rows of
 // one dtype; lse [sq, hq] float32; max_logits [num_q_tiles, hq] float32 or
@@ -58,9 +34,18 @@ extern "C" int ffa_fwd_f32(const void* q, const void* k, const void* v,
                            const int* run_ptr, int sq, int sk, int hq, int hk,
                            int d, int num_q_tiles, float scale, float softcap,
                            void* stream) {
-  return dispatch<float>(d, q, k, v, out, lse, max_logits, work_kt, meta,
-                         run_ptr, sq, sk, hq, hk, num_q_tiles, scale, softcap,
-                         stream);
+  switch (d) {
+    case 64:
+      return fwd_tf32::launch<64, 1>(q, k, v, out, lse, max_logits, work_kt,
+                                     meta, run_ptr, sq, sk, hq, hk,
+                                     num_q_tiles, scale, softcap, stream);
+    case 128:
+      return fwd_tf32::launch<128, 1>(q, k, v, out, lse, max_logits, work_kt,
+                                      meta, run_ptr, sq, sk, hq, hk,
+                                      num_q_tiles, scale, softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int ffa_fwd_bf16(const void* q, const void* k, const void* v,
@@ -83,15 +68,15 @@ extern "C" int ffa_fwd_bf16(const void* q, const void* k, const void* v,
   }
 }
 
-// The shared memory one CTA takes (bf16: the tensor-core body, else the
-// float32 one), for the wrapper's figure to be checked against: 0 for a
-// head dim this library has no kernel for.
+// The shared memory one CTA takes (bf16: csrc/ffa_fwd_tc.cuh, else
+// csrc/ffa_fwd_tf32.cuh), for the wrapper's figure to be checked against: 0
+// for a head dim this library has no kernel for.
 extern "C" long ffa_fwd_smem_bytes(int d, int bf16) {
   if (d == 64)
     return bf16 ? (long)fwd_tc::Smem<64, 1>::bytes
-                : (long)FwdSmem<64, 1>::bytes;
+                : (long)fwd_tf32::Smem<64, 1>::bytes;
   if (d == 128)
     return bf16 ? (long)fwd_tc::Smem<128, 1>::bytes
-                : (long)FwdSmem<128, 1>::bytes;
+                : (long)fwd_tf32::Smem<128, 1>::bytes;
   return 0;
 }

@@ -1,13 +1,14 @@
 // The bf16 FFA forward on Hopper's tensor cores, shared by the bf16 entries
 // of csrc/ffa_fwd.cu (B1: one q head per CTA, G = 1) and csrc/ffa_fwd_gqa.cu
-// (B2: G q heads of one GQA group per CTA). The float32 entries keep the
-// CUDA-core body of csrc/ffa_fwd.cuh (float32 FMA, never TF32).
+// (B2: G q heads of one GQA group per CTA). The float32 entries run
+// csrc/ffa_fwd_tf32.cuh, the same structure as 3xTF32 (one TF32 product
+// would miss the float32 gates).
 //
-// What it computes is csrc/ffa_fwd.cuh's function: out = softmax(S) V over
-// the live (q, k) pairs of the plan's slices, lse in natural log, out 0 and
-// lse -inf on rows no slice covers, the optional per-(q tile, head) max of
-// the scaled, softcapped logits in natural units, head_dim 64 or 128,
-// ragged last tiles, q tiles taken from the last to the first.
+// What it computes: out = softmax(S) V over the live (q, k) pairs of the
+// plan's slices, lse in natural log, out 0 and lse -inf on rows no slice
+// covers, the optional per-(q tile, head) max of the scaled, softcapped
+// logits in natural units, head_dim 64 or 128, ragged last tiles, q tiles
+// taken from the last to the first.
 //
 // Design (the building blocks are in csrc/tc.cuh). One CTA owns one q tile
 // and G heads of one kv head and loops that q tile's run of work items;

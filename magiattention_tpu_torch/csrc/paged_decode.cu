@@ -24,9 +24,9 @@
 //
 // What bounds it on this card: bytes (each live K/V row read once, 2 * D *
 // itemsize per token and kv head, against 4 * g * D flops). The split
-// spreads a 4096-token slot over 8 x 16 CTAs at the serving shape, where
-// the one-CTA walk had 8; what remains is each chunk's work on the CUDA
-// cores and in shared memory, and the merge launch.
+// spreads a 4096-token slot over 8 x 16 CTAs at the serving shape; what
+// remains is each chunk's work on the CUDA cores and in shared memory, and
+// the merge launch.
 #include "paged_decode.cuh"
 
 namespace {
@@ -38,7 +38,7 @@ int run(const void* q, const void* k_pages, const void* v_pages,
         const int* table, const int* lengths, void* out, float* lse,
         float* part, int S, int hq, int hk, int d, int ps, int P, int splits,
         int split_len, float softmax_scale, void* stream) {
-  return magi::decode::dispatch<T, T, GMAX, true>(
+  return magi::decode::dispatch<T, T, GMAX>(
       d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse,
       part, S, hq, hk, ps, P, 1, splits, split_len, softmax_scale, stream);
 }

@@ -1,7 +1,8 @@
 // The body shared by the three paged-decode kernels for Hopper (sm_90a):
 // paged_decode.cu (B10, one query row per slot), paged_decode_spec.cu (B11,
 // spec_k draft rows per slot, a causal horizon per row) and
-// paged_decode_int8.cu (B12, int8 pages dequantized in the kernel).
+// paged_decode_int8.cu (B12, int8 pages with a float32 scale per (page, kv
+// head)).
 //
 // What it computes: for slot s, kv head h and CTA row r = t * g + j (draft
 // token t of spec_k, query head h * g + j of the group), softmax attention
@@ -12,54 +13,60 @@
 //
 // Design. A CTA holds the spec_k * g rows of one kv head (at most RMAX),
 // which share every K/V read, as the TPU kernels' q tile does, and walks
-// the slot's page table chunk by chunk: the rows x chunk scores, the
-// running max and sum per row in the exp2 domain (q scaled by
+// its part of the slot's page table chunk by chunk: the rows x chunk
+// scores, the running max and sum per row in the exp2 domain (q scaled by
 // softmax_scale * log2(e) in float32 inside the kernel), and P V
 // (probabilities stored token-major, so one 16-byte read brings four rows'
 // values of a token). Lengths and the table are read on the device, so one
 // launch serves every tick; the walk stops at the slot's length and never
 // reads a dead page or table entry; a shorter row masks its columns past
-// its own limit. Two walks, by the SPLIT template flag:
+// its own limit.
 //
-// - Split (B10, B11; flash-decoding). The grid is (kv head, slot, split):
-//   split z owns tokens [z * split_len, (z + 1) * split_len) of the slot,
-//   a whole number of 64-token units fixed on the host from the table
-//   width, page size, kv-head count and SM count, never from the lengths
-//   or spec_k (kernels/paged_decode.py:decode_split_plan), so
-//   one launch serves every tick and spec_k = 1 is B10's instance and bits.
-//   A CTA whose range starts past its slot's length returns at once. 256
-//   threads walk the range in 32-token chunks of raw page rows (float32 or
-//   bf16, converted as they are read), double-buffered in shared memory by
-//   cp.async: chunk c is computed while chunk c + 1 is copied and the
-//   table entries of chunk c + 2 are read. Scores: a thread takes one
-//   token, a quarter of d and half of the rows, its K slice read once into
-//   registers; the four partial sums are added in order by the softmax (one
-//   warp per row). P V: a thread takes two output columns (one at 32 rows)
-//   of a quarter (d 128) or an eighth (d 64) of the chunk's tokens; the
-//   token groups' sums are added pairwise in a fixed order after the walk.
-//   A slot that fits in one split is written by its split 0 directly;
-//   otherwise each split writes its unnormalised accumulator, max and sum
-//   per row to a float32 workspace and merge_kernel combines them in split
-//   order (no atomics: two launches give the same bits). Shared memory at
-//   d 128 with float32 pages (K rows padded 16 bytes against bank
-//   conflicts, V rows not; the partial scores and the probabilities share
-//   one space): 73.1 KiB at RMAX 8, 81.3 at 16, 97.5 at 32; with ptxas's
-//   80, 128 and 128 registers that is three, two and two CTAs an SM. bf16
-//   pages halve the K/V buffers.
-// - One CTA per (kv head, slot) (B12). 128 threads, 64-token chunks loaded
-//   to registers, then stored to shared memory as float32 (an int8 row
-//   multiplied by its own page's (page, head) scale as it is converted),
-//   one stage; a thread scores one token for a quarter of the rows, and
-//   P V takes one output column a thread.
+// The walk is split across CTAs (flash-decoding). The grid is (kv head,
+// slot, split): split z owns tokens [z * split_len, (z + 1) * split_len) of
+// the slot, a whole number of 64-token units fixed on the host from the
+// table width, page size, kv-head count and SM count, never from the
+// lengths or spec_k (kernels/paged_decode.py:decode_split_plan), so one
+// launch serves every tick and spec_k = 1 is B10's instance and bits. A CTA
+// whose range starts past its slot's length returns at once. 256 threads
+// walk the range in 32-token chunks of raw page rows (float32, bf16 or int8
+// codes, converted as they are read), double-buffered in shared memory by
+// cp.async: chunk c is computed while chunk c + 1 is copied and the table
+// entries of chunk c + 2 are read. Scores: a thread takes one token, a
+// quarter of d and half of the rows, its K slice read once into registers;
+// the four partial sums are added in order by the softmax (one warp per
+// row). P V: a thread takes two output columns (one at 32 rows) of a
+// quarter (d 128) or an eighth (d 64) of the chunk's tokens; the token
+// groups' sums are added pairwise in a fixed order after the walk. A slot
+// that fits in one split is written by its split 0 directly; otherwise each
+// split writes its unnormalised accumulator, max and sum per row to a
+// float32 workspace and merge_kernel combines them in split order (no
+// atomics: two launches give the same bits). Shared memory at d 128 with
+// float32 pages (K rows padded 16 bytes against bank conflicts, V rows not;
+// the partial scores and the probabilities share one space): 73.1 KiB at
+// RMAX 8, 81.3 at 16, 97.5 at 32; with ptxas's 80, 128 and 128 registers
+// that is three, two and two CTAs an SM. bf16 pages halve the K/V buffers.
+//
+// int8 pages (B12). The codes stay raw in shared memory (16 a cp.async, K
+// rows strided D + 16 bytes), and each stage also holds every token row's K
+// and V scale (its page's (page, kv head) entries, copied by 4-byte
+// cp.async in the chunk's commit group: a 32-token chunk spans two pages of
+// 16). The scales are folded into the softmax warp, not into every element:
+// a token's summed score is multiplied by its K scale before the limit
+// mask, the running sum takes the unscaled probability, and the stored
+// probability is multiplied by the token's V scale for P V. That is two
+// multiplies per (token, row) where a dequantizing copy pays one per
+// element; the rounding differs from the plain version's code * scale
+// first, within the float32 gate.
 //
 // What bounds it on this card: bytes. Each live K/V row is read once (2 * D
-// * itemsize per token and kv head: 1 byte an element for int8 pages)
-// against 4 * rows * D flops, below the ~20 flops a byte at which float32
-// CUDA cores would be the limit even at 32 rows. The split walk spreads a
-// long slot over hk * splits CTAs; what remains between it and the bytes
-// bound is the work of each chunk on the CUDA cores and in shared memory
-// (bf16 pages, half the bytes, are not twice as fast), three CTAs an SM at
-// most, and the merge launch.
+// * itemsize per token and kv head: 1 byte an element for int8 pages, plus
+// 8 bytes of scales per page and kv head) against 4 * rows * D flops, below
+// the ~20 flops a byte at which float32 CUDA cores would be the limit even
+// at 32 rows. The split spreads a long slot over hk * splits CTAs; what
+// remains between it and the bytes bound is the work of each chunk on the
+// CUDA cores and in shared memory (bf16 pages, half the bytes, are not
+// twice as fast), three CTAs an SM at most, and the merge launch.
 #pragma once
 
 #include <type_traits>
@@ -74,47 +81,46 @@ namespace decode {
 // kernels.
 namespace {
 
-constexpr int NT = 128;   // threads per CTA, one-CTA walk
-constexpr int NTS = 256;  // threads per CTA, split walk
-constexpr int TC = 64;    // tokens per chunk, one-CTA walk
-constexpr int TCS = 32;   // tokens per chunk, split walk (split_len % TCS == 0)
-constexpr int STAGES = 2;  // K/V chunks in shared memory, split walk
-constexpr int NSL = 4;     // split walk: d-slices of a score
+constexpr int NTS = 256;   // threads per CTA of the walk
+constexpr int NTM = 128;   // threads per CTA of merge_kernel
+constexpr int TCS = 32;    // tokens per chunk (split_len % TCS == 0)
+constexpr int STAGES = 2;  // K/V chunks in shared memory
+constexpr int NSL = 4;     // d-slices of a score
 
-// split walk: output columns per P V thread (one at 32 rows, where two
-// would hold 64 accumulators a thread)
+// output columns per P V thread (one at 32 rows, where two would hold 64
+// accumulators a thread)
 template <int RMAX>
 __host__ __device__ constexpr int cpt() {
   return RMAX >= 32 ? 1 : 2;
 }
 
 // One CTA's shared memory: the q rows (float32), four arrays per row, then
-// the K and V chunks of TCH tokens in TS (one stage, or STAGES on the split
-// walk; K rows, and the one-CTA walk's V rows, strided D plus 16 bytes so
-// the 16-byte reads of 8 neighbouring threads hit distinct banks) and the
-// scores: token-major scores or probabilities, on the split walk in the
-// same space as the NSL x RMAX x TCH partial scores. After the walk the
-// split walk's G / 2 x RMAX x D token-group sums reuse the chunks.
-template <typename TS, int D, int RMAX, bool SPLIT>
+// STAGES K and V chunks of TCS raw page rows of type TP (K rows strided D
+// plus 16 bytes so the 16-byte reads of 8 neighbouring threads hit
+// distinct banks, V rows not), the scores (token-major probabilities in
+// the same space as the NSL x RMAX x TCS partial scores) and, for int8
+// pages, each stage's K and V scale of every token row. After the walk
+// the G / 2 x RMAX x D token-group sums reuse the chunks.
+template <typename TP, int D, int RMAX>
 struct Smem {
-  static constexpr int TCH = SPLIT ? TCS : TC;
-  static constexpr int NST = SPLIT ? STAGES : 1;
-  static constexpr int DS = D + 16 / (int)sizeof(TS);  // K row stride
-  static constexpr int DSV = SPLIT ? D : DS;           // V row stride
-  static constexpr int KCH = TCH * DS;   // elements of one K chunk
-  static constexpr int VCH = TCH * DSV;  // elements of one V chunk
-  static constexpr int SR = RMAX + 4;    // token stride of the scores
-  static constexpr int SCR = SPLIT && NSL * RMAX * TCH > TCH * SR
-                                 ? NSL * RMAX * TCH : TCH * SR;
-  static constexpr int G = SPLIT ? NTS / (D / cpt<RMAX>()) : 1;
-  static constexpr size_t walk =
-      sizeof(TS) * NST * (KCH + VCH) + sizeof(float) * SCR;
+  static constexpr bool QUANT = sizeof(TP) == 1;
+  static constexpr int DS = D + 16 / (int)sizeof(TP);  // K row stride
+  static constexpr int KCH = TCS * DS;  // elements of one K chunk
+  static constexpr int VCH = TCS * D;   // elements of one V chunk
+  static constexpr int SR = RMAX + 4;   // token stride of the scores
+  static constexpr int SCR = NSL * RMAX * TCS > TCS * SR ? NSL * RMAX * TCS
+                                                         : TCS * SR;
+  static constexpr int SCALES = QUANT ? 2 * STAGES * TCS : 0;  // floats
+  static constexpr int G = NTS / (D / cpt<RMAX>());
+  static constexpr size_t walk = sizeof(TP) * STAGES * (KCH + VCH) +
+                                 sizeof(float) * (SCR + SCALES);
   static constexpr size_t red = sizeof(float) * (G / 2) * RMAX * D;
   static constexpr size_t bytes =
       sizeof(float) * (RMAX * D + 4 * RMAX) + (walk > red ? walk : red);
 };
 
 // 16 / sizeof(T) consecutive values of a K row in shared memory as float32
+// (int8: the codes, unscaled)
 __device__ __forceinline__ void smem_vec(const float* p, float* x) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x;
@@ -132,122 +138,36 @@ __device__ __forceinline__ void smem_vec(const __nv_bfloat16* p, float* x) {
     x[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void smem_vec(const int8_t* p, float* x) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] = (float)b[i];
+}
 __device__ __forceinline__ float smem_f32(float x) { return x; }
 __device__ __forceinline__ float smem_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float smem_f32(int8_t x) { return (float)x; }
 
-// One-CTA walk: the rows x TCH scores of a chunk into Ss (token-major,
-// -inf past each row's limit): thread -> token j = tid % TCH and rows tid /
-// TCH + k * (NTH / TCH), each K value read from shared memory once for all
-// of them, summed in d order.
-template <typename TS, int D, int RMAX, int TCH, int NTH>
-__device__ __forceinline__ void chunk_scores(const float* Qs, const TS* Ks,
-                                             float* Ss, const int* Lim,
-                                             int rows, int c0) {
-  constexpr int DS = D + 16 / (int)sizeof(TS);
-  constexpr int SR = RMAX + 4;
-  constexpr int RG = NTH / TCH;    // score threads per token
-  constexpr int RPT = RMAX / RG;   // score rows per thread
-  constexpr int VEC = 16 / (int)sizeof(TS);
-  static_assert(RPT * RG == RMAX, "score geometry");
-  const int j = threadIdx.x % TCH, r0 = threadIdx.x / TCH;
-  float a[RPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) a[k] = 0.f;
-#pragma unroll 4
-  for (int dd = 0; dd < D; dd += VEC) {
-    float kv[VEC];
-    smem_vec(Ks + j * DS + dd, kv);
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const int r = r0 + k * RG;
-      if (r < rows) {
-#pragma unroll
-        for (int e = 0; e < VEC; e += 4) {
-          const float4 qv =
-              *reinterpret_cast<const float4*>(Qs + r * D + dd + e);
-          a[k] = fmaf(qv.x, kv[e], a[k]);
-          a[k] = fmaf(qv.y, kv[e + 1], a[k]);
-          a[k] = fmaf(qv.z, kv[e + 2], a[k]);
-          a[k] = fmaf(qv.w, kv[e + 3], a[k]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int r = r0 + k * RG;
-    if (r < rows) Ss[j * SR + r] = c0 + j < Lim[r] ? a[k] : -INFINITY;
-  }
-}
-
-// The online-softmax update of a chunk's scores: one warp per row (the
-// rows of a warp interleaved), the scores replaced by their probabilities,
-// Ms and Ls updated and As given each row's rescale.
-template <int RMAX, int TCH, int NTH>
-__device__ __forceinline__ void chunk_softmax(float* Ss, float* Ms,
-                                              float* Ls, float* As,
-                                              int rows) {
-  constexpr int SR = RMAX + 4;
-  constexpr int TPL = TCH / 32;  // tokens per lane
-  constexpr int WARPS = NTH / 32;
-  static_assert(TPL * 32 == TCH && RMAX % WARPS == 0, "softmax geometry");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < RMAX / WARPS; ++k) {
-    const int r = warp + k * WARPS;
-    if (r >= rows) continue;  // warp-uniform
-    float x[TPL];
-#pragma unroll
-    for (int i = 0; i < TPL; ++i) x[i] = Ss[(lane + 32 * i) * SR + r];
-    float mx = x[0];
-#pragma unroll
-    for (int i = 1; i < TPL; ++i) mx = fmaxf(mx, x[i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_old = Ms[r];
-    const float m_new = fmaxf(m_old, mx);
-    // -inf only while a row has seen no live column: then p and the
-    // rescale are 0 and the row stays empty
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < TPL; ++i) {
-      const float p = exp2f(x[i] - m_use);
-      Ss[(lane + 32 * i) * SR + r] = p;
-      sum += p;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      const float alpha = exp2f(m_old - m_use);
-      As[r] = alpha;
-      Ls[r] = Ls[r] * alpha + sum;
-      Ms[r] = m_new;
-    }
-  }
-}
-
-// Split walk: a chunk's scores as NSL partial dot products over d-slices
-// of W = D / NSL values. Thread -> token j = tid % TCH, slice sl = (tid /
-// TCH) % NSL, rows rh * RR .. rh * RR + RR - 1 of row half rh = tid / (TCH
-// * NSL): its K slice read once into registers for all of its rows (q read
-// by broadcast), each row's partial to Pp[sl][r][j].
-template <typename TS, int D, int RMAX, int TCH, int NTH>
-__device__ __forceinline__ void split_scores(const float* Qs, const TS* Ks,
+// A chunk's scores as NSL partial dot products over d-slices of W = D /
+// NSL values. Thread -> token j = tid % TCS, slice sl = (tid / TCS) % NSL,
+// rows rh * RR .. rh * RR + RR - 1 of row half rh = tid / (TCS * NSL): its
+// K slice read once into registers for all of its rows (q read by
+// broadcast), each row's partial to Pp[sl][r][j]. int8 pages: the codes,
+// unscaled (split_softmax applies the token row's scale).
+template <typename TP, int D, int RMAX>
+__device__ __forceinline__ void split_scores(const float* Qs, const TP* Ks,
                                              float* Pp, int rows) {
-  constexpr int DS = D + 16 / (int)sizeof(TS);
-  constexpr int VEC = 16 / (int)sizeof(TS);
-  constexpr int RH = NTH / TCH / NSL;  // row halves
+  constexpr int DS = D + 16 / (int)sizeof(TP);
+  constexpr int VEC = 16 / (int)sizeof(TP);
+  constexpr int RH = NTS / TCS / NSL;  // row halves
   constexpr int RR = RMAX / RH;        // rows per thread
   constexpr int W = D / NSL;
-  static_assert(RH * NSL * TCH == NTH && RR * RH == RMAX && W % VEC == 0,
+  static_assert(RH * NSL * TCS == NTS && RR * RH == RMAX && W % VEC == 0,
                 "score geometry");
-  const int j = threadIdx.x % TCH, sl = (threadIdx.x / TCH) % NSL;
-  const int rh = threadIdx.x / (TCH * NSL);
+  const int j = threadIdx.x % TCS, sl = (threadIdx.x / TCS) % NSL;
+  const int rh = threadIdx.x / (TCS * NSL);
   float kv[W];
 #pragma unroll
   for (int e = 0; e < W; e += VEC) smem_vec(Ks + j * DS + sl * W + e, kv + e);
@@ -265,34 +185,39 @@ __device__ __forceinline__ void split_scores(const float* Qs, const TS* Ks,
         a0 = fmaf(qv.z, kv[e + 2], a0);
         a1 = fmaf(qv.w, kv[e + 3], a1);
       }
-      Pp[(sl * RMAX + r) * TCH + j] = a0 + a1;
+      Pp[(sl * RMAX + r) * TCS + j] = a0 + a1;
     }
   }
 }
 
-// Split walk: each row's score of token j = lane as the sum of its NSL
-// partials in slice order (-inf past the row's limit), then the online
-// softmax update as chunk_softmax. The probabilities go to Ss (token-major),
-// which shares the partials' space: every warp has read its partials (a
-// barrier) before any writes them.
-template <int RMAX, int TCH, int NTH>
+// Each row's score of token j = lane as the sum of its NSL partials in
+// slice order (int8 pages: times the token row's K scale Sk[lane]), -inf
+// past the row's limit, then the online-softmax update in the exp2 domain:
+// one warp per row (the rows of a warp interleaved), the running max Ms
+// and sum Ls updated and As given each row's rescale. The probabilities go
+// to Ss (token-major; int8 pages: times the token row's V scale Sv[lane],
+// while Ls sums them unscaled), which shares the partials' space: every
+// warp has read its partials (a barrier) before any writes them.
+template <int RMAX, bool QUANT>
 __device__ __forceinline__ void split_softmax(const float* Pp, float* Ss,
                                               float* Ms, float* Ls, float* As,
-                                              const int* Lim, int rows,
+                                              const int* Lim, const float* Sk,
+                                              const float* Sv, int rows,
                                               int c0) {
   constexpr int SR = RMAX + 4;
-  constexpr int WARPS = NTH / 32;
+  constexpr int WARPS = NTS / 32;
   constexpr int RPW = RMAX / WARPS;  // rows per warp
-  static_assert(TCH == 32 && RPW * WARPS == RMAX, "softmax geometry");
+  static_assert(TCS == 32 && RPW * WARPS == RMAX, "softmax geometry");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float p[RPW];
 #pragma unroll
   for (int k = 0; k < RPW; ++k) {
     const int r = warp + k * WARPS;
     if (r >= rows) continue;  // warp-uniform
-    float x = Pp[r * TCH + lane];
+    float x = Pp[r * TCS + lane];
 #pragma unroll
-    for (int sl = 1; sl < NSL; ++sl) x += Pp[(sl * RMAX + r) * TCH + lane];
+    for (int sl = 1; sl < NSL; ++sl) x += Pp[(sl * RMAX + r) * TCS + lane];
+    if constexpr (QUANT) x *= Sk[lane];
     x = c0 + lane < Lim[r] ? x : -INFINITY;
     float mx = x;
 #pragma unroll
@@ -300,7 +225,9 @@ __device__ __forceinline__ void split_softmax(const float* Pp, float* Ss,
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     const float m_old = Ms[r];
     const float m_new = fmaxf(m_old, mx);
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;  // as chunk_softmax
+    // -inf only while a row has seen no live column: then p and the
+    // rescale are 0 and the row stays empty
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
     p[k] = exp2f(x - m_use);
     float sum = p[k];
 #pragma unroll
@@ -314,19 +241,20 @@ __device__ __forceinline__ void split_softmax(const float* Pp, float* Ss,
     }
   }
   __syncthreads();
+  const float sv = QUANT ? Sv[lane] : 1.f;
 #pragma unroll
   for (int k = 0; k < RPW; ++k) {
     const int r = warp + k * WARPS;
-    if (r < rows) Ss[lane * SR + r] = p[k];
+    if (r < rows) Ss[lane * SR + r] = QUANT ? p[k] * sv : p[k];
   }
 }
 
-// Split walk: acc[c][r] = acc[c][r] * As[r] + sum over tokens j in [j0, j0
-// + nj) of P[j, r] * V[j, col + c * cs] for c < NC (one 16-byte read of
-// four rows' probabilities serves NC columns; V rows unpadded, a warp reads
+// acc[c][r] = acc[c][r] * As[r] + sum over tokens j in [j0, j0 + nj) of
+// P[j, r] * V[j, col + c * cs] for c < NC (one 16-byte read of four rows'
+// probabilities serves NC columns; V rows unpadded, a warp reads
 // consecutive columns)
-template <typename TS, int D, int RMAX, int NC>
-__device__ __forceinline__ void split_pv(const TS* Vs, const float* Ss,
+template <typename TP, int D, int RMAX, int NC>
+__device__ __forceinline__ void split_pv(const TP* Vs, const float* Ss,
                                          const float* As, int rows, int col,
                                          int cs, int j0, int nj,
                                          float (&acc)[NC][RMAX]) {
@@ -359,32 +287,6 @@ __device__ __forceinline__ void split_pv(const TS* Vs, const float* Ss,
   }
 }
 
-// One-CTA walk: acc[r] = acc[r] * As[r] + sum over the n tokens j of
-// P[j, r] * V[j, col], rows below `rows` (16-byte reads of four rows'
-// probabilities of a token)
-template <typename TS, int D, int RMAX>
-__device__ __forceinline__ void chunk_pv(const TS* Vs, const float* Ss,
-                                         const float* As, int rows, int col,
-                                         int n, float (&acc)[RMAX]) {
-  constexpr int DS = D + 16 / (int)sizeof(TS);
-  constexpr int SR = RMAX + 4;
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r)
-    if (r < rows) acc[r] *= As[r];
-  for (int j = 0; j < n; ++j) {
-    const float vv = smem_f32(Vs[j * DS + col]);
-#pragma unroll
-    for (int r = 0; r < RMAX; r += 4)
-      if (r < rows) {
-        const float4 p = *reinterpret_cast<const float4*>(Ss + j * SR + r);
-        acc[r] = fmaf(p.x, vv, acc[r]);
-        acc[r + 1] = fmaf(p.y, vv, acc[r + 1]);
-        acc[r + 2] = fmaf(p.z, vv, acc[r + 2]);
-        acc[r + 3] = fmaf(p.w, vv, acc[r + 3]);
-      }
-  }
-}
-
 // pos / ps and pos % ps, by shift and mask where ps is a power of two
 // (psh = log2 ps, else -1)
 __device__ __forceinline__ int page_of(int pos, int ps, int psh) {
@@ -394,42 +296,63 @@ __device__ __forceinline__ int row_of(int pos, int ps, int psh) {
   return psh >= 0 ? pos & (ps - 1) : pos % ps;
 }
 
-// The page of each token this thread copies in the TCH-token chunk at c0
-// (0 past hi: never read), ahead of the chunk's copies.
-template <typename TP, int D, int TCH>
-__device__ __forceinline__ void chunk_pages(int (&page)[TCH * D / Vec<TP>::N / NTS],
+// 16-byte copies of one K (or V) chunk: CPR a page row, ITER a thread
+// (int8 at d 64: half of the threads copy nothing)
+template <typename TP, int D>
+struct Copy {
+  static constexpr int CPR = D / Vec<TP>::N;
+  static constexpr int N = TCS * CPR;
+  static constexpr int ITER = (N + NTS - 1) / NTS;
+};
+
+// The page of each token this thread copies in the chunk at c0 (0 past
+// hi: never read), ahead of the chunk's copies.
+template <typename TP, int D>
+__device__ __forceinline__ void chunk_pages(int (&page)[Copy<TP, D>::ITER],
                                             const int* __restrict__ trow,
                                             int c0, int hi, int ps, int psh) {
-  constexpr int CPR = D / Vec<TP>::N;  // 16-byte chunks per page row
+  using C = Copy<TP, D>;
 #pragma unroll
-  for (int it = 0; it < TCH * CPR / NTS; ++it) {
-    const int pos = c0 + (int)(threadIdx.x + it * NTS) / CPR;
+  for (int it = 0; it < C::ITER; ++it) {
+    const int pos = c0 + (int)(threadIdx.x + it * NTS) / C::CPR;
     page[it] = pos < hi ? trow[page_of(pos, ps, psh)] : 0;
   }
 }
 
-// The K and V rows of the TCH-token chunk at c0 (its pages from
-// chunk_pages) into shared memory at kd (row stride D + 16 bytes) and vd
-// (row stride D), raw, by cp.async; rows at or past hi are zero-filled.
-template <typename TP, int D, int TCH>
-__device__ __forceinline__ void chunk_copy(TP* kd, TP* vd,
+// The K and V rows of the chunk at c0 (its pages from chunk_pages) into
+// shared memory at kd (row stride D + 16 bytes) and vd (row stride D), raw,
+// by cp.async; rows at or past hi are zero-filled. int8 pages: the thread
+// that copies a row's first 16 bytes also copies its page's (page, kv head)
+// scales into sk[j] and sv[j] (0 past hi), in the same commit group.
+template <typename TP, int D>
+__device__ __forceinline__ void chunk_copy(TP* kd, TP* vd, float* sk, float* sv,
                                            const TP* __restrict__ k_pages,
                                            const TP* __restrict__ v_pages,
-                                           const int (&page)[TCH * D / Vec<TP>::N / NTS],
+                                           const float* __restrict__ k_scales,
+                                           const float* __restrict__ v_scales,
+                                           const int (&page)[Copy<TP, D>::ITER],
                                            int c0, int hi, int ps, int psh,
-                                           long page_row, int h) {
+                                           long page_row, int hk, int h) {
+  using C = Copy<TP, D>;
   constexpr int VEC = Vec<TP>::N;
-  constexpr int CPR = D / VEC;
   constexpr int DS = D + VEC;
 #pragma unroll
-  for (int it = 0; it < TCH * CPR / NTS; ++it) {
+  for (int it = 0; it < C::ITER; ++it) {
     const int i = threadIdx.x + it * NTS;
-    const int j = i / CPR, c = (i % CPR) * VEC;
+    if (C::N % NTS != 0 && i >= C::N) break;
+    const int j = i / C::CPR, c = (i % C::CPR) * VEC;
     const bool ok = c0 + j < hi;
     const long base = ((long)page[it] * ps + row_of(c0 + j, ps, psh)) * page_row +
                       (long)h * D + c;
     tc::cp_async16(tc::smem_u32(kd + j * DS + c), ok ? k_pages + base : k_pages, ok);
     tc::cp_async16(tc::smem_u32(vd + j * D + c), ok ? v_pages + base : v_pages, ok);
+    if constexpr (sizeof(TP) == 1) {
+      if (c == 0) {
+        const long si = (long)page[it] * hk + h;
+        tc::cp_async4(tc::smem_u32(sk + j), ok ? k_scales + si : k_scales, ok);
+        tc::cp_async4(tc::smem_u32(sv + j), ok ? v_scales + si : v_scales, ok);
+      }
+    }
   }
 }
 
@@ -440,13 +363,12 @@ __device__ __forceinline__ long out_row(int s, int spec_k, int hq, int h,
 }
 
 // TQ: q and out (float or bf16); TP: the pages (TQ, or int8_t with float32
-// scales per (page, kv head), one-CTA walk only). SPLIT: the split walk,
-// grid z = splits, partials of multi-split slots to part (splits x R rows
-// of D accumulators, then splits x R rows of (max, sum); R = S * spec_k *
-// hq, a row's index that of its out row).
-template <typename TQ, typename TP, int D, int RMAX, bool SPLIT>
-__global__ void __launch_bounds__(SPLIT ? NTS : NT,
-                                  SPLIT ? (RMAX <= 8 ? 3 : 2) : 1)
+// scales per (page, kv head)). Grid (kv head, slot, split); the partials of
+// multi-split slots go to part (splits x R rows of D accumulators, then
+// splits x R rows of (max, sum); R = S * spec_k * hq, a row's index that of
+// its out row).
+template <typename TQ, typename TP, int D, int RMAX>
+__global__ void __launch_bounds__(NTS, RMAX <= 8 ? 3 : 2)
     decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pages,
                   const TP* __restrict__ v_pages,
                   const float* __restrict__ k_scales,
@@ -456,44 +378,37 @@ __global__ void __launch_bounds__(SPLIT ? NTS : NT,
                   float* __restrict__ lse, float* __restrict__ part, int hq,
                   int hk, int ps, int P, int spec_k, int split_len,
                   float scale_log2) {
-  constexpr bool QUANT = sizeof(TP) == 1;
-  static_assert(!(SPLIT && QUANT), "int8 pages take the one-CTA walk");
-  constexpr int NTH = SPLIT ? NTS : NT;
-  using TS = std::conditional_t<SPLIT, TP, float>;  // K/V in shared memory
-  using SM = Smem<TS, D, RMAX, SPLIT>;
-  constexpr int TCH = SM::TCH;
+  using SM = Smem<TP, D, RMAX>;
+  constexpr bool QUANT = SM::QUANT;
   constexpr int CPT = cpt<RMAX>();
-  constexpr int CS = D / CPT;  // split walk: P V threads per token group
-  constexpr int G = SM::G;     // split walk: token groups of P V
-  constexpr int DS = SM::DS;
+  constexpr int CS = D / CPT;  // P V threads per token group
+  constexpr int G = SM::G;     // token groups of P V
   constexpr int QVEC = Vec<TQ>::N;
   constexpr int QCPR = D / QVEC;  // 16-byte chunks per q row
-  constexpr int VEC = Vec<TP>::N;
-  constexpr int CPR = D / VEC;  // 16-byte chunks per page row
-  constexpr int ITER = TCH * CPR / NTH;
-  static_assert(D <= NT && NTH % CS == 0, "output columns per thread");
-  static_assert(ITER * NTH == TCH * CPR, "a chunk is a whole number of loads");
+  static_assert(NTS % CS == 0, "output columns per thread");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;        // rows x D, pre-scaled
   float* Ms = Qs + RMAX * D;  // running max per row (log2 domain)
   float* Ls = Ms + RMAX;   // running sum per row
   float* As = Ls + RMAX;   // this chunk's rescale factor per row
   int* Lim = reinterpret_cast<int*>(As + RMAX);  // live columns per row
-  TS* Ks = reinterpret_cast<TS*>(Lim + RMAX);  // NST x TCH x DS
-  TS* Vs = Ks + SM::NST * SM::KCH;             // NST x TCH x DSV
-  float* Ss = reinterpret_cast<float*>(Vs + SM::NST * SM::VCH);
+  TP* Ks = reinterpret_cast<TP*>(Lim + RMAX);  // STAGES x TCS x DS
+  TP* Vs = Ks + STAGES * SM::KCH;              // STAGES x TCS x D
+  float* Ss = reinterpret_cast<float*>(Vs + STAGES * SM::VCH);
+  float* Sks = Ss + SM::SCR;        // int8: STAGES x TCS K scales
+  float* Svs = Sks + STAGES * TCS;  // int8: STAGES x TCS V scales
 
   const int g = hq / hk, rows = spec_k * g;
   const int h = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
   const int len = lengths[s];
-  // this CTA's tokens [lo, hi): the slot, or split blockIdx.z's range
-  const int lo = SPLIT ? (int)blockIdx.z * split_len : 0;
-  if (SPLIT && blockIdx.z > 0 && lo >= len) return;
-  const int hi = SPLIT ? min(len, lo + split_len) : len;
+  // this CTA's tokens [lo, hi): split blockIdx.z's range of the slot
+  const int lo = (int)blockIdx.z * split_len;
+  if (blockIdx.z > 0 && lo >= len) return;
+  const int hi = min(len, lo + split_len);
   const int* trow = table + (long)s * P;
   const long page_row = (long)hk * D;  // elements between rows of a page
 
-  for (int i = tid; i < rows * QCPR; i += NTH) {
+  for (int i = tid; i < rows * QCPR; i += NTS) {
     const int r = i / QCPR, c = (i % QCPR) * QVEC;
     const long qr = out_row(s, spec_k, hq, h, g, r);
     Vec<TQ>::to_f32(ldg16(q + qr * D + c), Qs + r * D + c, scale_log2);
@@ -504,152 +419,93 @@ __global__ void __launch_bounds__(SPLIT ? NTS : NT,
     Lim[tid] = len - (spec_k - 1 - tid / g);
   }
 
-  if constexpr (SPLIT) {
-    // chunk c0 is computed while chunk c0 + TCH is copied and the table
-    // entries of chunk c0 + 2 TCH are read. P V: thread -> columns cp + c *
-    // CS (c < CPT) of token group grp, tokens [grp * TCH / G, (grp + 1) *
-    // TCH / G) of each chunk; the groups' sums are added after the walk.
-    const int cp = tid % CS, grp = tid / CS;
-    const int psh = (ps & (ps - 1)) == 0 ? __ffs(ps) - 1 : -1;
-    float acc[CPT][RMAX];
+  // chunk c0 is computed while chunk c0 + TCS is copied and the table
+  // entries of chunk c0 + 2 TCS are read. P V: thread -> columns cp + c *
+  // CS (c < CPT) of token group grp, tokens [grp * TCS / G, (grp + 1) *
+  // TCS / G) of each chunk; the groups' sums are added after the walk.
+  const int cp = tid % CS, grp = tid / CS;
+  const int psh = (ps & (ps - 1)) == 0 ? __ffs(ps) - 1 : -1;
+  float acc[CPT][RMAX];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
+  for (int c = 0; c < CPT; ++c)
 #pragma unroll
-      for (int r = 0; r < RMAX; ++r) acc[c][r] = 0.f;
-    int page[ITER];
-    chunk_pages<TP, D, TCH>(page, trow, lo, hi, ps, psh);
-    if (lo < hi)
-      chunk_copy<TP, D, TCH>(Ks, Vs, k_pages, v_pages, page, lo, hi, ps, psh,
-                             page_row, h);
-    tc::cp_async_commit();
-    chunk_pages<TP, D, TCH>(page, trow, lo + TCH, hi, ps, psh);
-    for (int c0 = lo, st = 0; c0 < hi; c0 += TCH, st ^= 1) {
-      if (c0 + TCH < hi) {
-        chunk_copy<TP, D, TCH>(Ks + (st ^ 1) * SM::KCH,
-                               Vs + (st ^ 1) * SM::VCH, k_pages, v_pages,
-                               page, c0 + TCH, hi, ps, psh, page_row, h);
-        chunk_pages<TP, D, TCH>(page, trow, c0 + 2 * TCH, hi, ps, psh);
-      }
-      tc::cp_async_commit();   // empty at the last chunk
-      tc::cp_async_wait<1>();  // this thread's copies of chunk c0 landed
-      __syncthreads();         // everyone's, and Qs and Lim at the first
-      split_scores<TS, D, RMAX, TCH, NTH>(Qs, Ks + st * SM::KCH, Ss, rows);
-      __syncthreads();
-      split_softmax<RMAX, TCH, NTH>(Ss, Ss, Ms, Ls, As, Lim, rows, c0);
-      __syncthreads();
-      // a token past hi has probability 0 and a zero-filled V row
-      split_pv<TS, D, RMAX, CPT>(Vs + st * SM::VCH, Ss, As, rows, cp, CS,
-                                 grp * (TCH / G), TCH / G, acc);
-      __syncthreads();  // stage st and Ss are free for the next chunk
+    for (int r = 0; r < RMAX; ++r) acc[c][r] = 0.f;
+  int page[Copy<TP, D>::ITER];
+  chunk_pages<TP, D>(page, trow, lo, hi, ps, psh);
+  if (lo < hi)
+    chunk_copy<TP, D>(Ks, Vs, Sks, Svs, k_pages, v_pages, k_scales, v_scales,
+                      page, lo, hi, ps, psh, page_row, hk, h);
+  tc::cp_async_commit();
+  chunk_pages<TP, D>(page, trow, lo + TCS, hi, ps, psh);
+  for (int c0 = lo, st = 0; c0 < hi; c0 += TCS, st ^= 1) {
+    if (c0 + TCS < hi) {
+      chunk_copy<TP, D>(Ks + (st ^ 1) * SM::KCH, Vs + (st ^ 1) * SM::VCH,
+                        Sks + (st ^ 1) * TCS, Svs + (st ^ 1) * TCS, k_pages,
+                        v_pages, k_scales, v_scales, page, c0 + TCS, hi, ps,
+                        psh, page_row, hk, h);
+      chunk_pages<TP, D>(page, trow, c0 + 2 * TCS, hi, ps, psh);
     }
-    // the token groups' accumulators, added pairwise (group k + half into
-    // group k, half = G / 2, G / 4, ..., 1): a fixed order
-    float* red = reinterpret_cast<float*>(Ks);  // G / 2 x RMAX x D
+    tc::cp_async_commit();   // empty at the last chunk
+    tc::cp_async_wait<1>();  // this thread's copies of chunk c0 landed
+    __syncthreads();         // everyone's, and Qs and Lim at the first
+    split_scores<TP, D, RMAX>(Qs, Ks + st * SM::KCH, Ss, rows);
+    __syncthreads();
+    split_softmax<RMAX, QUANT>(Ss, Ss, Ms, Ls, As, Lim, Sks + st * TCS,
+                               Svs + st * TCS, rows, c0);
+    __syncthreads();
+    // a token past hi has probability 0 and a zero-filled V row
+    split_pv<TP, D, RMAX, CPT>(Vs + st * SM::VCH, Ss, As, rows, cp, CS,
+                               grp * (TCS / G), TCS / G, acc);
+    __syncthreads();  // stage st and Ss are free for the next chunk
+  }
+  // the token groups' accumulators, added pairwise (group k + half into
+  // group k, half = G / 2, G / 4, ..., 1): a fixed order
+  float* red = reinterpret_cast<float*>(Ks);  // G / 2 x RMAX x D
 #pragma unroll
-    for (int half = G / 2; half > 0; half /= 2) {
-      if (grp >= half && grp < 2 * half) {
+  for (int half = G / 2; half > 0; half /= 2) {
+    if (grp >= half && grp < 2 * half) {
 #pragma unroll
-        for (int c = 0; c < CPT; ++c)
+      for (int c = 0; c < CPT; ++c)
 #pragma unroll
-          for (int r = 0; r < RMAX; ++r)
-            if (r < rows) red[((grp - half) * RMAX + r) * D + cp + c * CS] = acc[c][r];
-      }
-      __syncthreads();
-      if (grp < half) {
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-#pragma unroll
-          for (int r = 0; r < RMAX; ++r)
-            if (r < rows) acc[c][r] += red[(grp * RMAX + r) * D + cp + c * CS];
-      }
-      __syncthreads();
-    }
-    const bool direct = len <= split_len;  // the row's whole walk
-    const long R = (long)gridDim.y * spec_k * hq;
-    if (grp == 0) {
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < rows) {
-          const long orow = out_row(s, spec_k, hq, h, g, r);
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) {
-            const int col = cp + c * CS;
-            if (direct)
-              store_out(out + orow * D + col, Lim[r] > 0 ? acc[c][r] / Ls[r] : 0.f);
-            else  // this split's partials (no live column: 0, -inf, 0)
-              part[(blockIdx.z * R + orow) * D + col] = acc[c][r];
-          }
-        }
-    }
-    if (tid < rows) {
-      const long orow = out_row(s, spec_k, hq, h, g, tid);
-      if (direct) {
-        lse[orow] = Lim[tid] > 0 ? (Ms[tid] + log2f(Ls[tid])) * LN2 : -INFINITY;
-      } else {
-        float* pml = part + gridDim.z * R * D + (blockIdx.z * R + orow) * 2;
-        pml[0] = Ms[tid];
-        pml[1] = Ls[tid];
-      }
-    }
-  } else {
-    float acc[RMAX];
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
-    for (int c0 = 0; c0 < len; c0 += TC) {
-      const int n = min(TC, len - c0);
-      __syncthreads();  // the previous chunk is done with Ks, Vs and Ss
-      uint4 rk[ITER], rv[ITER];
-      float sk[QUANT ? ITER : 1], sv[QUANT ? ITER : 1];
-#pragma unroll
-      for (int it = 0; it < ITER; ++it) {
-        const int i = tid + it * NTH;
-        const int j = i / CPR, c = (i % CPR) * VEC;
-        if (j < n) {
-          const int pos = c0 + j;
-          const int page = trow[pos / ps];
-          const long base =
-              ((long)page * ps + pos % ps) * page_row + (long)h * D + c;
-          rk[it] = ldg16(k_pages + base);
-          rv[it] = ldg16(v_pages + base);
-          if constexpr (QUANT) {
-            sk[it] = __ldg(k_scales + (long)page * hk + h);
-            sv[it] = __ldg(v_scales + (long)page * hk + h);
-          }
-        } else {
-          rk[it] = rv[it] = make_uint4(0u, 0u, 0u, 0u);
-          if constexpr (QUANT) sk[it] = sv[it] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int it = 0; it < ITER; ++it) {
-        const int i = tid + it * NTH;
-        const int j = i / CPR, c = (i % CPR) * VEC;
-        if constexpr (QUANT) {
-          Vec<TP>::to_f32(rk[it], Ks + j * DS + c, sk[it]);
-          Vec<TP>::to_f32(rv[it], Vs + j * DS + c, sv[it]);
-        } else {
-          Vec<TP>::to_f32(rk[it], Ks + j * DS + c, 1.f);
-          Vec<TP>::to_f32(rv[it], Vs + j * DS + c, 1.f);
-        }
-      }
-      __syncthreads();
-      chunk_scores<TS, D, RMAX, TCH, NTH>(Qs, Ks, Ss, Lim, rows, c0);
-      __syncthreads();
-      chunk_softmax<RMAX, TCH, NTH>(Ss, Ms, Ls, As, rows);
-      __syncthreads();
-      if (tid < D) chunk_pv<TS, D, RMAX>(Vs, Ss, As, rows, tid, n, acc);
+        for (int r = 0; r < RMAX; ++r)
+          if (r < rows) red[((grp - half) * RMAX + r) * D + cp + c * CS] = acc[c][r];
     }
     __syncthreads();
-    if (tid < D) {
+    if (grp < half) {
 #pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < rows)
-          store_out(out + out_row(s, spec_k, hq, h, g, r) * D + tid,
-                    Lim[r] > 0 ? acc[r] / Ls[r] : 0.f);
+      for (int c = 0; c < CPT; ++c)
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r)
+          if (r < rows) acc[c][r] += red[(grp * RMAX + r) * D + cp + c * CS];
     }
-    if (tid < rows)
-      lse[out_row(s, spec_k, hq, h, g, tid)] =
-          Lim[tid] > 0 ? (Ms[tid] + log2f(Ls[tid])) * LN2 : -INFINITY;
+    __syncthreads();
+  }
+  const bool direct = len <= split_len;  // the row's whole walk
+  const long R = (long)gridDim.y * spec_k * hq;
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r)
+      if (r < rows) {
+        const long orow = out_row(s, spec_k, hq, h, g, r);
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const int col = cp + c * CS;
+          if (direct)
+            store_out(out + orow * D + col, Lim[r] > 0 ? acc[c][r] / Ls[r] : 0.f);
+          else  // this split's partials (no live column: 0, -inf, 0)
+            part[(blockIdx.z * R + orow) * D + col] = acc[c][r];
+        }
+      }
+  }
+  if (tid < rows) {
+    const long orow = out_row(s, spec_k, hq, h, g, tid);
+    if (direct) {
+      lse[orow] = Lim[tid] > 0 ? (Ms[tid] + log2f(Ls[tid])) * LN2 : -INFINITY;
+    } else {
+      float* pml = part + gridDim.z * R * D + (blockIdx.z * R + orow) * 2;
+      pml[0] = Ms[tid];
+      pml[1] = Ls[tid];
+    }
   }
 }
 
@@ -661,14 +517,14 @@ __global__ void __launch_bounds__(SPLIT ? NTS : NT,
 // row with none in any split gives (0, -inf). Rows of a slot that fits in
 // one split were written by its split 0.
 template <typename TQ, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NTM)
     merge_kernel(const float* __restrict__ part,
                  const int* __restrict__ lengths, TQ* __restrict__ out,
                  float* __restrict__ lse, long R, int rows_per_slot,
                  int splits, int split_len) {
   constexpr int CPL = D / 32;  // columns per lane
   const int lane = threadIdx.x & 31;
-  const long row = (long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
+  const long row = (long)blockIdx.x * (NTM / 32) + (threadIdx.x >> 5);
   if (row >= R) return;
   const int len = lengths[row / rows_per_slot];
   if (len <= split_len) return;
@@ -709,44 +565,42 @@ __global__ void __launch_bounds__(NT)
   if (lane == 0) lse[row] = L > 0.f ? (M + log2f(L)) * LN2 : -INFINITY;
 }
 
-// One launch of decode_kernel over S slots x hk kv heads (x splits on the
-// split walk), then merge_kernel where the plan has more than one split;
-// 0 or the CUDA error.
-template <typename TQ, typename TP, int D, int RMAX, bool SPLIT>
+// One launch of decode_kernel over S slots x hk kv heads x splits, then
+// merge_kernel where the plan has more than one split; 0 or the CUDA
+// error.
+template <typename TQ, typename TP, int D, int RMAX>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const float* k_scales, const float* v_scales, const int* table,
            const int* lengths, void* out, float* lse, float* part, int S,
            int hq, int hk, int ps, int P, int spec_k, int splits,
            int split_len, float softmax_scale, void* stream) {
-  using TS = std::conditional_t<SPLIT, TP, float>;
   static bool smem_ok = false;
-  const size_t smem = Smem<TS, D, RMAX, SPLIT>::bytes;
-  auto* kernel = decode_kernel<TQ, TP, D, RMAX, SPLIT>;
+  const size_t smem = Smem<TP, D, RMAX>::bytes;
+  auto* kernel = decode_kernel<TQ, TP, D, RMAX>;
   cudaError_t e = allow_smem(kernel, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(hk, S, SPLIT ? splits : 1);
-  kernel<<<grid, SPLIT ? NTS : NT, smem, st>>>(
+  kernel<<<dim3(hk, S, splits), NTS, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TP*>(k_pages),
       static_cast<const TP*>(v_pages), k_scales, v_scales, table, lengths,
       static_cast<TQ*>(out), lse, part, hq, hk, ps, P, spec_k, split_len,
       softmax_scale * LOG2E);
   e = cudaGetLastError();
-  if (e != cudaSuccess || !SPLIT || splits == 1) return (int)e;
+  if (e != cudaSuccess || splits == 1) return (int)e;
   const long R = (long)S * spec_k * hq;
-  const long warps = NT / 32;
-  merge_kernel<TQ, D><<<(unsigned)((R + warps - 1) / warps), NT, 0, st>>>(
+  const long warps = NTM / 32;
+  merge_kernel<TQ, D><<<(unsigned)((R + warps - 1) / warps), NTM, 0, st>>>(
       part, lengths, static_cast<TQ*>(out), lse, R, spec_k * hq, splits,
       split_len);
   return (int)cudaGetLastError();
 }
 
-// head_dim 64 or 128; rows = spec_k * hq / hk at most RMAX. The split walk
-// takes splits >= 1 ranges of split_len tokens (a multiple of TCS) that
-// cover the table (splits * split_len >= P * ps) and, where splits > 1, a
-// workspace part of splits * S * spec_k * hq * (D + 2) floats; the one-CTA
-// walk ignores the three.
-template <typename TQ, typename TP, int RMAX, bool SPLIT>
+// head_dim 64 or 128; rows = spec_k * hq / hk at most RMAX; splits >= 1
+// ranges of split_len tokens (a multiple of TCS) that cover the table
+// (splits * split_len >= P * ps) and, where splits > 1, a workspace part
+// of splits * S * spec_k * hq * (D + 2) floats; int8 pages need their
+// scales.
+template <typename TQ, typename TP, int RMAX>
 int dispatch(int d, const void* q, const void* k_pages, const void* v_pages,
              const float* k_scales, const float* v_scales, const int* table,
              const int* lengths, void* out, float* lse, float* part, int S,
@@ -754,18 +608,19 @@ int dispatch(int d, const void* q, const void* k_pages, const void* v_pages,
              int split_len, float softmax_scale, void* stream) {
   if (hk <= 0 || hq % hk != 0 || spec_k < 1 || spec_k * (hq / hk) > RMAX)
     return (int)cudaErrorInvalidValue;
-  if (SPLIT && (splits < 1 || split_len <= 0 || split_len % TCS != 0 ||
-                (long)splits * split_len < (long)P * ps ||
-                (splits > 1 && part == nullptr)))
+  if (splits < 1 || split_len <= 0 || split_len % TCS != 0 ||
+      (long)splits * split_len < (long)P * ps ||
+      (splits > 1 && part == nullptr) ||
+      (sizeof(TP) == 1 && (k_scales == nullptr || v_scales == nullptr)))
     return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64:
-      return launch<TQ, TP, 64, RMAX, SPLIT>(
+      return launch<TQ, TP, 64, RMAX>(
           q, k_pages, v_pages, k_scales, v_scales, table, lengths, out, lse,
           part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
           stream);
     case 128:
-      return launch<TQ, TP, 128, RMAX, SPLIT>(
+      return launch<TQ, TP, 128, RMAX>(
           q, k_pages, v_pages, k_scales, v_scales, table, lengths, out, lse,
           part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
           stream);

@@ -45,16 +45,16 @@ int run(const void* q, const void* k_pages, const void* v_pages,
   if (hk <= 0 || hq % hk != 0 || spec_k < 1) return (int)cudaErrorInvalidValue;
   const int rows = spec_k * (hq / hk);
   if (rows <= 8)
-    return magi::decode::dispatch<T, T, 8, true>(
+    return magi::decode::dispatch<T, T, 8>(
         d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse,
         part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
         stream);
   if (rows <= 16)
-    return magi::decode::dispatch<T, T, 16, true>(
+    return magi::decode::dispatch<T, T, 16>(
         d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse,
         part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
         stream);
-  return magi::decode::dispatch<T, T, 32, true>(
+  return magi::decode::dispatch<T, T, 32>(
       d, q, k_pages, v_pages, nullptr, nullptr, table, lengths, out, lse,
       part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
       stream);

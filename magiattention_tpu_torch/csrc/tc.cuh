@@ -1,6 +1,7 @@
 // Tensor-core building blocks for the port's bf16 kernels on Hopper
 // (sm_90a): csrc/ffa_fwd_tc.cuh (B1/B2), csrc/ffa_bwd_dq_tc.cuh (B3/B4) and
-// csrc/bwd_kv_tc.cuh (B5/B6, B8/B9).
+// csrc/bwd_kv_tc.cuh (B5/B6, B8/B9); and, below the bf16 ones, the tf32
+// blocks of the float32 forward (csrc/ffa_fwd_tf32.cuh, 3xTF32).
 //
 // Tiles. An operand tile is 64 rows of bf16 in shared memory, cut into
 // panels of 64 columns (128 bytes a row, 8 KB a panel, panels PANEL_BYTES
@@ -321,6 +322,207 @@ __device__ __forceinline__ void wgmma_rs_t1(float (&d)[N / 2],
     wgmma_rs_n128_t1(d, a, db, 1);
   else
     wgmma_rs_n64_t1(d, a, db, 1);
+}
+
+// ---- tf32 (the float32 bodies: 3xTF32) ----
+//
+// A float32 operand tile for the .tf32 products uses the same 128-byte
+// swizzle, 32 values a 128-byte row: element (r, c) of a tile of ROWS rows
+// sits in panel c / 32 (ROWS * 128 bytes apart), row r, 16-byte chunk
+// ((c % 32) / 4) ^ (r % 8). A k-step of wgmma's .tf32 shapes is 8 values,
+// 32 bytes, as the bf16 k-step of 16, so k-step kk starts (kk % 4) * 32
+// bytes into panel kk / 4. The PTX ISA lets only 16-bit types be read
+// MN-major: both operands of a .tf32 product are K-major, so the B operand
+// of O += P V is V transposed (head-dim rows of keys).
+//
+// The register A operand of m64nNk8.tf32: thread t (warp w, lane l) holds
+// rows 16 w + l / 4 (a0, a2) and that + 8 (a1, a3), columns l % 4 (a0, a1)
+// and l % 4 + 4 (a2, a3) of the k-step. The accumulator holds columns
+// 2 (l % 4) and that + 1 instead: to feed an accumulator (P) back as A
+// without shuffles, a k-step's logical column c is key 2 c for c < 4 and
+// key 2 (c - 4) + 1 above, and the B operand's keys are stored in that
+// order (kperm).
+//
+// 3xTF32: x = hi + lo with hi = tf32(x) (round to nearest) and lo = x -
+// hi (exact in float32; wgmma reads its top 19 bits, dropping about 2^-21
+// of x); a b is taken as hi_a hi_b + hi_a lo_b + lo_a hi_b, the dropped lo
+// lo term about 2^-22 of |a b|, against 2^-11 for one tf32 product.
+
+// byte offset of float32 element (r, c) of a swizzled tile of ROWS rows
+template <int ROWS>
+__device__ __forceinline__ uint32_t tile_offset32(int r, int c) {
+  return (c >> 5) * (ROWS * 128) + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
+         ((c & 3) << 2);
+}
+
+// the logical position within its 8-key k-step of key j (kperm's inverse)
+__host__ __device__ constexpr int kpos(int j) {
+  return (j & 1) * 4 + ((j & 7) >> 1);
+}
+
+// k-step kk (8 values) of a float32 tile of ROWS rows read K-major
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k32(uint32_t tile, int kk) {
+  return make_desc(tile + (kk >> 2) * (ROWS * 128) + (kk & 3) * 32, 16, 1024);
+}
+
+// finite x rounded to tf32 (the low 13 bits zero), to nearest, ties away
+// from zero: cvt.rna.tf32.f32's result by two integer operations
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// x as hi = tf32(x) and lo = x - hi
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = x - hi;
+}
+
+// D[64 x 32] += A[64 x 8] B[8 x 32], tf32 from shared memory (both
+// K-major), float32 accumulate.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 8] B[8 x 64], tf32 from shared memory (both
+// K-major), float32 accumulate.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 8] B[8 x 64], A tf32 from registers, B from shared
+// memory (K-major), float32 accumulate.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 8] B[8 x 128], as wgmma_tf32_rs_n64.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x N] += A B over one k-step, A tf32 from registers, B K-major: N =
+// 64 or 128 (the head dim).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (N == 128)
+    wgmma_tf32_rs_n128(d, a, db);
+  else
+    wgmma_tf32_rs_n64(d, a, db);
+}
+
+// k-step kk of an m64n32 accumulator (P over a 32-key chunk) as the tf32
+// A operand in kperm order, split: hi and lo (see above)
+__device__ __forceinline__ void to_a_frags_tf32(uint32_t (&hi)[4][4],
+                                                uint32_t (&lo)[4][4],
+                                                const float (&d)[16]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // a0 row r col kperm(t) = key 2t: d[4kk]; a1 row r + 8: d[4kk + 2];
+    // a2 key 2t + 1: d[4kk + 1]; a3: d[4kk + 3]
+    const float x[4] = {d[4 * kk], d[4 * kk + 2], d[4 * kk + 1], d[4 * kk + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float h, l;
+      split_tf32(x[e], h, l);
+      hi[kk][e] = __float_as_uint(h);
+      lo[kk][e] = __float_as_uint(l);
+    }
+  }
 }
 
 }  // namespace tc

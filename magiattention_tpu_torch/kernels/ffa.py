@@ -25,8 +25,10 @@ for the forward and dq, k-major for dk/dv. Seven CUDA kernels walk them:
 Every bf16 entry of the FFA kernels above (all but delta) runs on the
 tensor cores (wgmma, one warpgroup per head): ``csrc/ffa_fwd_tc.cuh``
 (forward), ``csrc/ffa_bwd_dq_tc.cuh`` (split dq) and ``csrc/bwd_kv_tc.cuh``
-(split dk/dv and the fused backward). Their float32 entries run float32
-FMA on the CUDA cores, which their 1e-5 gates need. So the packed guards
+(split dk/dv and the fused backward). The float32 forward runs on them too,
+as 3xTF32 (``csrc/ffa_fwd_tf32.cuh``: each operand split into tf32 hi and
+lo, three products a pair, within the float32 1e-5 gates); the float32
+backward entries run float32 FMA on the CUDA cores. So the packed guards
 (:func:`fwd_pack_heads`, :func:`dq_pack_heads`) and the cost model's
 bodies (:mod:`.tile_policy`) depend on the dtype.
 
@@ -299,6 +301,35 @@ def ffa_fwd_gqa_kernel(
     )
     ffa_fwd_gqa_kernel.launches += 1
     return out, lse
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` does (to
+    nearest, ties away from zero): the low 13 mantissa bits zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 forward's operand split (csrc/tc.cuh ``split_tf32``):
+    ``hi = tf32(x)`` and ``lo = x - hi``, exact in float32, so ``hi + lo ==
+    x``."""
+    hi = tf32_round(x)
+    return hi, x.float() - hi
+
+
+def scores_3xtf32(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The scores ``q k^T`` (``[hq, sq, sk]``, float64) as the float32
+    forward's three tf32 products give them before any accumulation error:
+    ``hi_q hi_k + hi_q lo_k + lo_q hi_k``, where wgmma reads ``lo``'s top
+    19 bits (the low 13 truncated), every product and sum exact in
+    float64. ``q [sq, hq, d]``, ``k [sk, hk, d]``."""
+    g = q.shape[1] // k.shape[1]
+    (qh, ql), (kh, kl) = (tf32_split(t) for t in (q, k.repeat_interleave(g, dim=1)))
+    ql, kl = ((t.view(torch.int32) & ~0x1FFF).view(torch.float32) for t in (ql, kl))
+    qh, ql, kh, kl = (t.double() for t in (qh, ql, kh, kl))
+    prod = lambda a, b: torch.einsum("qhd,khd->hqk", a, b)  # noqa: E731
+    return prod(qh, kh) + (prod(qh, kl) + prod(ql, kh))
 
 
 def ffa_delta_kernel(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -616,14 +647,19 @@ def _tile_floats(d: int) -> int:
 
 
 def fwd_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
-    """Shared memory of one packed-forward CTA. float32 (csrc/ffa_fwd.cuh
-    ``FwdSmem``): the heads' q tiles, the k and v tiles, the P tile.
+    """Shared memory of one packed-forward CTA. float32
+    (csrc/ffa_fwd_tf32.cuh ``Smem``): the heads' q tiles in tf32 hi and lo,
+    the raw k and v chunk of 32 rows and the hi and lo tiles of K and of
+    V^T split from it, two stages of those where they fit, else one.
     bfloat16 (csrc/ffa_fwd_tc.cuh ``Smem``): the heads' q tiles and two
-    stages of k and v tiles in bf16, 16 bytes a head for the max-logits
-    reduction, and 1024 bytes to align the window for the swizzle."""
+    stages of k and v tiles in bf16. Both: 16 bytes a head for the
+    max-logits reduction, and 1024 bytes to align the window for the
+    swizzle."""
     if itemsize == 2:
         return (heads + 4) * 64 * d * 2 + 16 * heads + 1024
-    return 4 * ((heads + 2) * _tile_floats(d) + P_TILE_FLOATS)
+    fixed = d * (512 * heads + 256) + 16 * heads + 1024
+    two_stages = fixed + 2 * 512 * d
+    return two_stages if two_stages <= SMEM_PER_CTA else fixed + 512 * d
 
 
 def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
@@ -657,26 +693,31 @@ REGS_PER_SM = 65_536
 # accumulator (d / 2 floats): S (32), P in bf16 (16), and addresses,
 # indices and the softmax state (40)
 TC_FWD_REGS_SHARED = 88
+# the float32 (3xTF32) forward's thread holds beside its O accumulator the
+# chunk's P V (d / 2 floats more), P's tf32 hi and lo (32) and addresses,
+# indices and the softmax state (40)
+TF32_FWD_REGS_SHARED = 72
 # what a thread of a tensor-core dq warpgroup holds beside its dQ
 # accumulator (d / 2 floats): S and dP (32 each), dS in bf16 (16), and
 # addresses, indices and the row statistics (40)
 TC_DQ_REGS_SHARED = 120
 
 
-def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_shared: int) -> int:
-    """Heads per CTA of a bf16 (tensor-core) packed kernel: the largest of
+def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_needed: int,
+                   itemsize: int = 2) -> int:
+    """Heads per CTA of a tensor-core packed kernel: the largest of
     :data:`PACK_HEADS` dividing the group whose CTA fits the shared memory
-    limit (``smem_bytes(d, heads, 2)``) and whose warpgroups (128 threads a
-    head) each find the registers a thread needs (d / 2 + ``regs_shared``)
-    in the SM's file."""
+    limit (``smem_bytes(d, heads, itemsize)``) and whose warpgroups (128
+    threads a head) each find the registers a thread needs
+    (``regs_needed``) in the SM's file."""
     if d != dv or d not in KERNEL_HEAD_DIMS:
         return 1
     for heads in PACK_HEADS:
         regs = min(REGS_PER_THREAD, REGS_PER_SM // (128 * heads))
         if (
             group % heads == 0
-            and smem_bytes(d, heads, 2) <= SMEM_PER_CTA
-            and d // 2 + regs_shared <= regs
+            and smem_bytes(d, heads, itemsize) <= SMEM_PER_CTA
+            and regs_needed <= regs
         ):
             return heads
     return 1
@@ -685,17 +726,15 @@ def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_shared: int) ->
 def fwd_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
     """Query heads per CTA of the packed forward at this geometry, 1 where
     it does not pack: the largest of :data:`PACK_HEADS` that divides the
-    group and fits. float32 (the CUDA-core body): shared memory
-    (:func:`fwd_pack_smem_bytes`) within the opt-in limit and a thread's
-    live accumulators (per head 4 rows x d/16 output columns, 4 maxima and
-    4 sums; the 4 x 4 score block) with room for addresses and operands
-    (64) within the register limit. bfloat16 (the tensor-core body):
-    :func:`_tc_pack_heads` with d / 2 + 88 registers a thread, 2 heads at
-    head_dim 128 and 4 at 64. A group larger than the block runs in
-    several blocks per kv head."""
+    group and fits, by :func:`_tc_pack_heads` (both bodies run on the
+    tensor cores, one warpgroup a head). bfloat16: d / 2 + 88 registers a
+    thread, 2 heads at head_dim 128 and 4 at 64. float32 (3xTF32): d + 72
+    registers a thread and :func:`fwd_pack_smem_bytes`, 2 heads at head_dim
+    64 and 128 (four warpgroups would leave 128 registers a thread). A
+    group larger than the block runs in several blocks per kv head."""
     if itemsize == 2:
-        return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, TC_FWD_REGS_SHARED)
-    return _pack_heads(group, d, dv, fwd_pack_smem_bytes, d // 4 + 8, 16)
+        return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, d // 2 + TC_FWD_REGS_SHARED)
+    return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, d + TF32_FWD_REGS_SHARED, 4)
 
 
 def dq_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
@@ -707,7 +746,7 @@ def dq_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
     :func:`_tc_pack_heads` with d / 2 + 120 registers a thread, so 2 heads
     at head_dim 64 and 128 (four warpgroups would leave 128 a thread)."""
     if itemsize == 2:
-        return _tc_pack_heads(group, d, dv, dq_pack_smem_bytes, TC_DQ_REGS_SHARED)
+        return _tc_pack_heads(group, d, dv, dq_pack_smem_bytes, d // 2 + TC_DQ_REGS_SHARED)
     return _pack_heads(group, d, dv, dq_pack_smem_bytes, d // 4 + 8, 32)
 
 

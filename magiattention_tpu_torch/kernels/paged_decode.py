@@ -9,17 +9,17 @@ A CUDA tensor launches the matching kernel (``csrc/paged_decode.cu``,
 one launch serves every tick); a CPU tensor takes the plain version. There
 is no other route: a kernel that fails to build or launch raises.
 
-B10 and B11 split each slot's page walk across CTAs (flash-decoding): the
+All three split each slot's page walk across CTAs (flash-decoding): the
 grid is (kv head, slot, split), each split a fixed token range that
 :func:`decode_split_plan` sets from the cache's shape and the SM count
 alone, so one launch still serves every tick and B11 at one draft row is
 B10. The chunks of a range are double-buffered in shared memory by
-``cp.async``; a slot longer than one split leaves per-row partials in a
+``cp.async`` (B12: the raw int8 codes, with each token row's K and V scale
+beside them); a slot longer than one split leaves per-row partials in a
 float32 workspace (:func:`split_workspace`, allocated here per launch) that
 a second kernel merges in split order, so two launches give the same bits.
 What still bounds them is each chunk's work on the CUDA cores and in shared
-memory, and the merge launch (PERF.md). B12 keeps the one-CTA-per-(kv head,
-slot) walk.
+memory, and the merge launch (PERF.md).
 
 The head-sharded variant of the TPU module is not ported (ROADMAP).
 """
@@ -42,7 +42,8 @@ MIN_SPLIT_TOKENS = 256  # a split loads its q rows and writes its partials once
 
 
 def decode_split_plan(P: int, ps: int, hk: int, sms: int) -> tuple[int, int]:
-    """``(splits, split_len)``: how B10 and B11 cut each slot's page walk.
+    """``(splits, split_len)``: how B10, B11 and B12 cut each slot's page
+    walk.
 
     Split ``z`` of a slot owns tokens ``[z * split_len, (z + 1) *
     split_len)``; ``splits * split_len`` covers the table's ``P * ps``
@@ -63,7 +64,7 @@ def decode_split_plan(P: int, ps: int, hk: int, sms: int) -> tuple[int, int]:
 
 def split_plan_of(cache: PagedKVCache, sms: int) -> tuple[int, int]:
     """:func:`decode_split_plan` of a cache's shape on a card of ``sms``
-    SMs: the plan B10 and B11 launch with."""
+    SMs: the plan B10, B11 and B12 launch with."""
     P = cache.page_table.shape[1]
     _, ps, hk, _ = cache.v_pages.shape
     return decode_split_plan(P, ps, hk, sms)
@@ -91,7 +92,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "paged_decode": [_P] * 8 + [_I] * 8 + [_F, _P],
     "paged_decode_spec": [_P] * 8 + [_I] * 9 + [_F, _P],
-    "paged_decode_int8": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "paged_decode_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -213,7 +214,8 @@ def paged_decode_int8_kernel(
     q: torch.Tensor, cache: PagedKVCache, softmax_scale: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/paged_decode_int8.cu``: ``q (S, hq, d)`` CUDA tensor
-    (float32 or bfloat16) over an int8 cache with its scales. Adds one to
+    (float32 or bfloat16) over an int8 cache with its scales, split as
+    :func:`paged_decode_kernel`. Adds one to
     ``paged_decode_int8_kernel.launches`` per launch."""
     if not cache.quantized:
         raise ValueError("paged_decode_int8_kernel needs an int8 cache")
@@ -226,6 +228,8 @@ def paged_decode_int8_kernel(
         raise TypeError("paged_decode_int8_kernel: scales must be float32")
     out = torch.empty_like(q)
     lse = torch.empty((S, hq), dtype=torch.float32, device=q.device)
+    splits, split_len = split_plan_of(cache, _sm_count(q.device))
+    part = split_workspace(splits, S * hq, d, q.device)
     lib = _lib("paged_decode_int8")
     fn = (lib.paged_decode_int8_f32 if q.dtype == torch.float32
           else lib.paged_decode_int8_bf16)
@@ -233,8 +237,9 @@ def paged_decode_int8_kernel(
         q.data_ptr(), cache.k_pages.data_ptr(), cache.v_pages.data_ptr(),
         cache.k_scales.data_ptr(), cache.v_scales.data_ptr(),
         cache.page_table.data_ptr(), cache.lengths.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), S, hq, hk, d, ps,
-        cache.page_table.shape[1], softmax_scale, _stream(q),
+        out.data_ptr(), lse.data_ptr(), None if part is None else part.data_ptr(),
+        S, hq, hk, d, ps, cache.page_table.shape[1], splits, split_len,
+        softmax_scale, _stream(q),
     )
     _build.check(lib, code, "paged_decode_int8_kernel")
     paged_decode_int8_kernel.launches += 1

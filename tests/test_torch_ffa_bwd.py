@@ -300,5 +300,5 @@ def test_backward_sources_are_built_at_first_use():
         assert "Replaces: magiattention_tpu/kernels/ffa.py" in src
         assert any(
             f'#include "{h}"' in src
-            for h in ("common.cuh", "bwd_kv.cuh", "ffa_fwd.cuh", "ffa_bwd_dq.cuh")
+            for h in ("common.cuh", "bwd_kv.cuh", "ffa_fwd_tf32.cuh", "ffa_bwd_dq.cuh")
         )

@@ -189,18 +189,21 @@ def test_guard_takes_the_packed_route_where_jax_does(flag, itemsize, monkeypatch
 
 
 def test_pack_heads_follow_the_budget():
-    """Heads per CTA: the largest of 4 and 2 dividing the group whose
-    tiles fit 227 KB of shared memory (dq: 2 tiles per head) and whose
-    accumulators fit the register limit; 1 (unpacked) otherwise."""
+    """Heads per CTA (float32): the largest of 4 and 2 dividing the group
+    whose tiles fit 227 KB of shared memory (dq: 2 tiles per head) and
+    whose accumulators fit the register limit; 1 (unpacked) otherwise. The
+    forward's 3xTF32 body runs a warpgroup a head with d + 72 registers a
+    thread, so it packs 2 heads at head_dim 64 and 128."""
     assert port_ffa.PACK_HEADS == (4, 2)
     assert port_ffa.SMEM_PER_CTA == 232_448
     for g, d, fwd, dq in (
-        (2, 64, 2, 2), (4, 64, 4, 4), (8, 64, 4, 4), (3, 64, 1, 1), (6, 64, 2, 2),
-        (2, 128, 2, 2), (4, 128, 4, 2), (8, 128, 4, 2), (1, 128, 1, 1),
+        (2, 64, 2, 2), (4, 64, 2, 4), (8, 64, 2, 4), (3, 64, 1, 1), (6, 64, 2, 2),
+        (2, 128, 2, 2), (4, 128, 2, 2), (8, 128, 2, 2), (1, 128, 1, 1),
     ):
         assert port_ffa.fwd_pack_heads(g, d, d) == fwd, (g, d)
         assert port_ffa.dq_pack_heads(g, d, d) == dq, (g, d)
-    assert port_ffa.fwd_pack_smem_bytes(128, 4) == 223_232 <= port_ffa.SMEM_PER_CTA
+    assert port_ffa.fwd_pack_smem_bytes(128, 2) == 230_432 <= port_ffa.SMEM_PER_CTA
+    assert port_ffa.fwd_pack_smem_bytes(128, 4) > port_ffa.SMEM_PER_CTA
     assert port_ffa.dq_pack_smem_bytes(128, 4) > port_ffa.SMEM_PER_CTA
     assert port_ffa.fwd_pack_heads(4, 128, 64) == 1  # d != dv: unpacked
     assert port_ffa.gqa_pack_variant("dkv") == "gqa_packed"  # the JAX default

@@ -1,12 +1,12 @@
-"""B10 and B11's split page walk, what surrounds it, on the CPU.
+"""The split page walk of B10, B11 and B12, what surrounds it, on the CPU.
 
 The split walk (``csrc/paged_decode.cuh``) runs only on the card. Pinned
 here: the plan ``decode_split_plan`` gives (whole 64-token units covering
 the table, from the cache's shape and the SM count alone), the workspace
-and arguments the two wrappers launch with (through a stand-in that
+and arguments the three wrappers launch with (through a stand-in that
 records the C calls), the C entry points' argument counts against the
-bindings, B12 staying on the one-CTA walk, and CPU tensors taking the
-plain versions with the kernel counters untouched.
+bindings, every entry on the split walk, and CPU tensors taking the plain
+versions with the kernel counters untouched.
 """
 
 import inspect
@@ -114,7 +114,8 @@ def recorded(monkeypatch):
     monkeypatch.setattr(pd, "_stream", lambda q: 0)
     monkeypatch.setattr(pd, "_sm_count", lambda device: 132)
     monkeypatch.setattr(pd, "split_workspace", workspace)
-    for fn in (pd.paged_decode_kernel, pd.paged_decode_spec_kernel):
+    for fn in (pd.paged_decode_kernel, pd.paged_decode_spec_kernel,
+               pd.paged_decode_int8_kernel):
         monkeypatch.setattr(fn, "launches", 0)
     return rec, spaces
 
@@ -145,14 +146,45 @@ def test_b10_and_b11_launch_one_plan_at_every_spec_k(recorded, dtype):
     assert pd.paged_decode_spec_kernel.launches == 3
 
 
-def test_one_split_launches_without_a_workspace(recorded):
+# wrapper -> (its int8 flag, the index of the workspace pointer and of
+# (splits, split_len) in its C call)
+WRAPPERS = {
+    "paged_decode": (False, 7, 14),
+    "paged_decode_int8": (True, 9, 16),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_one_split_launches_without_a_workspace(recorded, kernel):
     """A table no longer than one split: no workspace, a null pointer."""
     rec, spaces = recorded
-    cache = _cache([5, 16], P=4, num_pages=8)
-    pd.paged_decode_kernel(torch.zeros(2, 4, 64), cache, 0.125)
+    quant, ws, plan = WRAPPERS[kernel]
+    cache = _cache([5, 16], P=4, num_pages=8,
+                   dtype=torch.int8 if quant else torch.float32)
+    getattr(pd, f"{kernel}_kernel")(torch.zeros(2, 4, 64), cache, 0.125)
     (_, args), = rec.calls
-    assert args[14:16] == (1, 256) and args[7] is None
+    assert args[plan:plan + 2] == (1, 256) and args[ws] is None
     assert spaces == [(1, 8, 64, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b12_launches_the_split_plan(recorded, dtype):
+    """B12 over int8 pages, q float32 or bf16: B10's plan for the cache's
+    shape, a workspace of splits x S * hq x (d + 2) floats and its pointer,
+    the scales' pointers, one launch counted."""
+    rec, spaces = recorded
+    cache = _cache([0, 300], dtype=torch.int8)
+    S, hq, d = 2, 4, 64
+    pd.paged_decode_int8_kernel(torch.zeros(S, hq, d, dtype=dtype), cache, d ** -0.5)
+    (name, args), = rec.calls
+    assert name == "paged_decode_int8_" + ("f32" if dtype == torch.float32 else "bf16")
+    assert len(args) == len(pd._ARGTYPES["paged_decode_int8"])
+    assert args[16:18] == pd.split_plan_of(cache, 132) == (4, 256)
+    assert spaces == [(4, S * hq, d, 4 * S * hq * (d + 2))]
+    assert args[9] is not None
+    assert args[3:5] == (cache.k_scales.data_ptr(), cache.v_scales.data_ptr())
+    assert args[10:16] == (S, hq, 2, d, 16, 64)  # S hq hk d ps P
+    assert pd.paged_decode_int8_kernel.launches == 1
 
 
 @pytest.mark.parametrize("splits,rows,d", [(1, 8, 64), (2, 8, 64), (16, 1024, 128)])
@@ -174,15 +206,18 @@ def _extern_c(source: str) -> dict[str, int]:
 @pytest.mark.parametrize("name", sorted(pd._ARGTYPES))
 def test_entry_points_take_the_bindings_arguments(name):
     """``<name>_f32`` / ``_bf16`` are ``extern "C"`` in ``csrc/<name>.cu``
-    with as many arguments as ``_lib`` binds, and B12 alone instantiates
-    the body with the split flag off."""
+    with as many arguments as ``_lib`` binds, each taking the workspace and
+    the plan (``part``, ``splits``, ``split_len``): every entry dispatches
+    the one (split) walk of the body."""
     assert name in _build.SOURCES
     src = (_build.CSRC / f"{name}.cu").read_text()
     exported = _extern_c(src)
     for suffix in ("f32", "bf16"):
         assert exported.get(f"{name}_{suffix}") == len(pd._ARGTYPES[name])
-    flags = set(re.findall(r"dispatch<[^>]*, (true|false)>", src))
-    assert flags == ({"false"} if name == "paged_decode_int8" else {"true"})
+    for m in re.finditer(r'extern "C" int \w+\(([^)]*)\)', src):
+        params = [a.split()[-1].lstrip("*") for a in m.group(1).split(",")]
+        assert {"part", "splits", "split_len"} <= set(params)
+    assert re.findall(r"magi::decode::dispatch<", src)
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -515,12 +515,12 @@ def test_bf16_pack_heads_follow_the_tensor_core_budget(g, d, heads, monkeypatch)
     """bf16 packs the heads of a group into one CTA of one warpgroup per
     head: 4 heads at head_dim 64, 2 at 128 (four warpgroups would leave 128
     registers a thread for an O accumulator of 64 and S, P beside it),
-    within the shared-memory limit; float32 keeps the CUDA-core budget (4
+    within the shared-memory limit; float32 has its own 3xTF32 budget (2
     heads at 128). The dispatch reads the dtype from q."""
     assert port_ffa.fwd_pack_heads(g, d, d, 2) == heads
     if heads > 1:
         assert port_ffa.fwd_pack_smem_bytes(d, heads, 2) <= port_ffa.SMEM_PER_CTA
-    assert port_ffa.fwd_pack_heads(4, 128, 128) == 4
+    assert port_ffa.fwd_pack_heads(4, 128, 128) == 2
     monkeypatch.setenv("MAGI_ATTENTION_FFA_GQA_PACK", "1")
     assert port_ffa._use_gqa_pack(g, d, d, False, 2) == (heads if g > 1 else 1)
     assert port_ffa._use_gqa_pack(g, d, d, True, 2) == 1  # max-logits: unpacked
