@@ -71,7 +71,9 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 6. ``edge_cases``: head_dim 64, ragged tiles, softcap, g = 1 and 8, other
    page sizes, a k tile no slice reaches and uncovered rows, forward and
    gradients (both backward modes), kernel against plain version (not
-   timed).
+   timed); and ROADMAP C4's head dims (d 32, d 96, d 64 with dv 128,
+   padded to the kernels' widths) through FFA, B10-B12 and B13/B14, a d
+   of 192 raising in each family.
 7. ``serve``: ``ServeEngine`` at Llama-3.1-8B attention widths on 16
    requests; every generated row is held against the sequential replay
    oracle (FFA kernel) on the card, the first two requests against the
@@ -107,15 +109,17 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     flags unpinned; launch counts per step, one step under
     ``torch.profiler``, and a kernel-vs-plain check of loss and gradients
     at 2048 tokens.
-11. ``block_sparse``: the NSA selected-branch kernels B13 and B14
-    against their plain versions over chunk tables with duplicate chunks:
-    g 1, 4, 8, head_dim 64 and 128, float32 and bf16, d_stride 16 and 32,
-    and the nsa phase's shape (timed, with the ``ptxas`` report). ``nsa``:
-    ``parallel.nsa_attn`` forward and backward at Llama-3.1-8B attention
-    widths over 8192 tokens in two documents with the NSA paper's sparse
-    settings: the kernel route (B13/B14, B1, B7, the resolved backward;
-    launch counts) against the gathered route on equal selections, in
-    bf16 and at 2048 tokens in float32.
+11. ``block_sparse``: the NSA selected-branch kernels B13 and B14 (its
+    dq and dk/dv walks) against their plain versions over chunk tables
+    with duplicate chunks: g 1, 4, 8, head_dim 64 and 128, float32 and
+    bf16, d_stride 16 and 32, and the nsa phase's shape (timed: B14 whole
+    and by launch and key-table build; two backward runs equal to the bit;
+    the ``ptxas`` report). ``nsa``: ``parallel.nsa_attn`` forward and
+    backward at Llama-3.1-8B attention widths over 8192 tokens in two
+    documents with the NSA paper's sparse settings: the kernel route (B13,
+    B14's two walks, B1, B7, the resolved backward; launch counts) against
+    the gathered route on equal selections, in bf16 and at 2048 tokens in
+    float32.
 12. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase, error, kernel / plain / library time and the
     card's bound).
@@ -132,6 +136,7 @@ device line.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -1771,7 +1776,160 @@ def edge_phase() -> None:
                      *paged_decode_plain(q, cache, d ** -0.5))
         check(name, err, dname)
         worst[name] = err["max_abs_err"]
+    head_dim_cases(gen, worst)
     emit({"phase": "edge_cases", "max_abs_err": worst})
+
+
+# (d, dv) of ROADMAP C4's cases: padded to the kernels' 64 or 128 columns
+C4_DIMS = ((32, 32), (96, 96), (64, 128))
+
+
+def head_dim_cases(gen, worst: dict) -> None:
+    """ROADMAP C4: head dims the kernels are not compiled for run padded
+    with zero columns to 64 or 128 (``kernels/head_dims.py``), within the
+    float32 / bf16 tolerances of the plain versions on the unpadded
+    tensors: d 32, d 96 and d 64 with dv 128, float32 and bf16, through
+    FFA forward and backward (fused and split pinned), B10, B11 (spec_k 2)
+    and B12 over a cache of that width, and B13/B14 through
+    ``block_sparse_attn``. A d of 192 raises ``ValueError`` naming the
+    128 limit in each family."""
+    import torch
+
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.kernels.block_sparse import (
+        BSPParams, block_sparse_attn, block_sparse_bwd_plain, block_sparse_fwd_plain,
+        chunk_table,
+    )
+    from magiattention_tpu_torch.kernels.ffa import ffa_attn
+    from magiattention_tpu_torch.kernels.paged_decode import (
+        paged_decode_int8_kernel, paged_decode_int8_plain, paged_decode_kernel,
+        paged_decode_plain, paged_decode_spec_kernel, paged_decode_spec_plain,
+    )
+    from magiattention_tpu_torch.kernels.paged_kv import PagedKVCache, assign_pages
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+
+    qr = np.array([[0, 40], [40, 150], [150, 200]])
+    kr = np.array([[0, 50], [30, 170], [100, 203]])
+    types = np.array([1, 0, 3])
+    hq, hk = 8, 2
+    for (d, dv), dt in itertools.product(C4_DIMS, (torch.float32, torch.bfloat16)):
+        dname = str(dt).removeprefix("torch.")
+        tag = f"c4_d{d}_dv{dv}_{dname}"
+        # FFA: forward, then gradients under both backward pins
+        inputs = [
+            torch.randn(shape, generator=gen, device="cuda").to(dt)
+            for shape in ((230, hq, d), (203, hk, d), (203, hk, dv))
+        ]
+        do = (torch.randn((230, hq, dv), generator=gen, device="cuda") / 4).to(dt)
+        got = ffa_attn(*inputs, qr, kr, attn_type_map=types)
+        if got[0].shape[-1] != dv:
+            raise AssertionError(f"{tag}: out is {tuple(got[0].shape)}")
+        err = errors(*got, *sdpa_attn(*inputs, qr, kr, attn_type_map=types))
+        check(f"{tag} ffa fwd", err, dname)
+        worst[f"{tag}_ffa_fwd"] = err["max_abs_err"]
+
+        def grads_of(attn):
+            leaves = [t.detach().requires_grad_(True) for t in inputs]
+            out, _ = attn(*leaves, qr, kr, attn_type_map=types)
+            return torch.autograd.grad(out, leaves, do)
+
+        want = grads_of(sdpa_attn)
+        for pin in ("split", "fused"):
+            with scoped_env({"MAGI_ATTENTION_BACKEND_FFA_BWD": pin}):
+                got = grads_of(ffa_attn)
+            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                if a.shape != b.shape:
+                    raise AssertionError(f"{tag} {pin} {gname}: {tuple(a.shape)}")
+                e = grad_check(f"{tag} ffa {pin} {gname}", a.float(), b.float(), dname)
+                worst[f"{tag}_ffa_{pin}_{gname}"] = e["max_abs_err"]
+
+        # B10, B11, B12 over caches of these logical widths
+        lengths, N, ps, P = [300, 0, 1, 129], 64, 16, 40
+        perm, used = np.random.default_rng(d + dv).permutation(N), 0
+        caches = {}
+        for page_dt in (dt, torch.int8):
+            cache = PagedKVCache.create(N, ps, hk, d, 4, P, dtype=page_dt, device="cuda",
+                                        head_dim_v=dv)
+            if page_dt == torch.int8:
+                cache.k_pages[..., :d].copy_(torch.randint(
+                    -127, 128, cache.k_pages[..., :d].shape, generator=gen, device="cuda"))
+                cache.v_pages[..., :dv].copy_(torch.randint(
+                    -127, 128, cache.v_pages[..., :dv].shape, generator=gen, device="cuda"))
+                for sc in (cache.k_scales, cache.v_scales):
+                    sc.copy_(0.005 + 0.015 * torch.rand(sc.shape, generator=gen, device="cuda"))
+            else:
+                cache.k_pages[..., :d].copy_(torch.randn(
+                    cache.k_pages[..., :d].shape, generator=gen, device="cuda"))
+                cache.v_pages[..., :dv].copy_(torch.randn(
+                    cache.v_pages[..., :dv].shape, generator=gen, device="cuda"))
+            for s_, length in enumerate(lengths):
+                n = -(-length // ps)
+                assign_pages(cache, s_, perm[used: used + n])
+                used += n
+            used = 0
+            cache.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+            caches[page_dt] = cache
+        q1 = torch.randn((4, hq, d), generator=gen, device="cuda").to(dt)
+        q2 = torch.randn((4, 2, hq, d), generator=gen, device="cuda").to(dt)
+        scale = d ** -0.5
+        for what, kern, plain, q_, cache in (
+            ("paged_decode", paged_decode_kernel, paged_decode_plain, q1, caches[dt]),
+            ("paged_decode_spec", paged_decode_spec_kernel, paged_decode_spec_plain, q2,
+             caches[dt]),
+            ("paged_decode_int8", paged_decode_int8_kernel, paged_decode_int8_plain, q1,
+             caches[torch.int8]),
+        ):
+            got = kern(q_, cache, scale)
+            if got[0].shape[-1] != dv:
+                raise AssertionError(f"{tag} {what}: out is {tuple(got[0].shape)}")
+            err = errors(*got, *plain(q_, cache, scale))
+            check(f"{tag} {what}", err, dname)
+            worst[f"{tag}_{what}"] = err["max_abs_err"]
+
+        # B13/B14 through block_sparse_attn (its autograd pads once)
+        seq = 512
+        idx, starts = bsp_table(gen, seq, hk, 4, 16)
+        bsp_in = [
+            torch.randn(shape, generator=gen, device="cuda").to(dt)
+            for shape in ((seq, hq, d), (seq, hk, d), (seq, hk, dv))
+        ]
+        bsp_do = (torch.randn((seq, hq, dv), generator=gen, device="cuda") / 4).to(dt)
+        leaves = [t.detach().requires_grad_(True) for t in bsp_in]
+        out, lse = block_sparse_attn(*leaves, idx, starts, block_len=BSP_L_SLC,
+                                     d_stride=16, block_size_q=BSP_BQ)
+        got = torch.autograd.grad(out, leaves, bsp_do)
+        ctbl = chunk_table(idx, starts, 16, BSP_L_SLC)
+        params = BSPParams(softmax_scale=d ** -0.5, d_stride=16, block_size_q=BSP_BQ)
+        out_p, lse_p = block_sparse_fwd_plain(*bsp_in, ctbl, params)
+        err = errors(out.detach(), lse, out_p, lse_p)
+        check(f"{tag} block_sparse fwd", err, dname)
+        worst[f"{tag}_block_sparse_fwd"] = err["max_abs_err"]
+        delta = (out_p.float() * bsp_do.float()).sum(-1)
+        want = block_sparse_bwd_plain(*bsp_in, bsp_do, lse_p, delta, ctbl, params)
+        for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+            if a.shape != b.shape:
+                raise AssertionError(f"{tag} block_sparse {gname}: {tuple(a.shape)}")
+            e = grad_check(f"{tag} block_sparse {gname}", a.float(), b, dname)
+            worst[f"{tag}_block_sparse_{gname}"] = e["max_abs_err"]
+
+    # above 128: every family raises, naming the limit
+    q = torch.zeros((64, hq, 192), device="cuda")
+    kv = torch.zeros((64, hk, 192), device="cuda")
+    idx = torch.zeros((hk, 64 // BSP_BQ, 1), dtype=torch.int64, device="cuda")
+    for what, call in (
+        ("ffa_attn", lambda: ffa_attn(q, kv, kv, [[0, 64]], [[0, 64]])),
+        ("PagedKVCache", lambda: PagedKVCache.create(8, 16, hk, 192, 2, 4, device="cuda")),
+        ("block_sparse_attn", lambda: block_sparse_attn(
+            q, kv, kv, idx, np.array([0]), block_len=BSP_L_SLC, block_size_q=BSP_BQ)),
+    ):
+        try:
+            call()
+        except ValueError as e:
+            if "128" not in str(e):
+                raise AssertionError(f"{what} at d 192: {e}") from e
+        else:
+            raise AssertionError(f"{what} at d 192 did not raise")
+    torch.cuda.empty_cache()
 
 
 # (prompt_len, new_tokens): short requests first (held against the CPU
@@ -2549,6 +2707,10 @@ TF32_TAG = "_tf32_kernel"
 SPLIT_LIBRARIES = ("ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")
 # SASS opcodes of global and shared-memory atomics and reductions
 ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
+# the NSA libraries and their tensor-core (bf16) instances at d 64 and 128:
+# B13's forward, B14's dq and dk/dv walks (csrc/block_sparse_tc.cuh); their
+# float32 instances run on the CUDA cores
+BSP_TC_INSTANCES = {"block_sparse_fwd": 2, "block_sparse_bwd": 4}
 
 
 def kernel_label(mangled: str) -> str:
@@ -2654,8 +2816,9 @@ def sass_counts(name: str) -> dict[str, dict]:
 
 
 def tensor_core_phase() -> dict[str, dict]:
-    """Proof that every bf16 FFA kernel (B1/B2, B3/B4, B5/B6, B8/B9) and
-    the float32 forward (B1/B2, 3xTF32) run on the tensor cores: per
+    """Proof that every bf16 FFA kernel (B1/B2, B3/B4, B5/B6, B8/B9), the
+    float32 forward (B1/B2, 3xTF32) and the bf16 NSA kernels (B13, B14's
+    two walks) run on the tensor cores: per
     library, the HGMMA, HMMA and atomic counts of each kernel's SASS, and
     beside each tensor-core instance its registers, spills and dynamic
     shared memory (the library's own ``<name>_smem_bytes``, held equal to
@@ -2664,7 +2827,8 @@ def tensor_core_phase() -> dict[str, dict]:
     the two shared-memory figures differ, or if a bf16 instance of a split
     library (the deterministic mode) has an atomic; the fused kernel's bf16
     instance must show its dq atomics, which proves the count reads the
-    SASS."""
+    SASS. The NSA libraries: every bf16 instance HGMMA and no HMMA, no
+    instance spills, and none of B14's (either dtype) has an atomic."""
     import re
 
     from magiattention_tpu_torch.kernels import ffa as kffa
@@ -2716,6 +2880,29 @@ def tensor_core_phase() -> dict[str, dict]:
         if lib.startswith("ffa_fwd") and not any(TF32_TAG in fn for fn in tc):
             raise AssertionError(f"{lib}: no float32 (3xTF32) tensor-core kernel: {list(tc)}")
         results[lib] = row
+    for lib, n_tc in BSP_TC_INSTANCES.items():  # B13, B14
+        sass, ptxas = sass_counts(lib), ptxas_report(lib)
+        every = {fn: dict(**n, **ptxas.get(fn, {})) for fn, n in sass.items()}
+        tc = {fn: r for fn, r in every.items() if TC_TAG in fn}
+        row = dict(
+            library=lib,
+            hgmma=sum(r["HGMMA"] for r in every.values()),
+            hmma=sum(r["HMMA"] for r in every.values()),
+            atomics=sum(r["atomics"] for r in every.values()),
+            tensor_core_kernels=tc,
+            cuda_core_kernels={fn: r for fn, r in every.items() if fn not in tc},
+        )
+        emit({"phase": "tensor_cores", **row})
+        if len(tc) != n_tc:
+            raise AssertionError(f"{lib}: {len(tc)} tensor-core instances, want {n_tc}: {list(every)}")
+        for fn, r in every.items():
+            if fn in tc and (r["HGMMA"] == 0 or r["HMMA"]):
+                raise AssertionError(f"{lib}: {fn} has no HGMMA or has HMMA: {r}")
+            if r.get("spill_stores", 1) or r.get("spill_loads", 1):
+                raise AssertionError(f"{lib}: {fn} spills (or has no ptxas report): {r}")
+            if lib == "block_sparse_bwd" and r["atomics"]:
+                raise AssertionError(f"{lib}: {fn} has atomics: {r}")
+        results[lib] = row
     return results
 
 
@@ -2723,17 +2910,21 @@ def block_sparse_phase(peaks: dict) -> dict[str, dict]:
     """B13 and B14 against their plain versions on the same chunk tables
     (``block_sparse_fwd_plain`` / ``block_sparse_bwd_plain``: a gathered
     dense softmax, duplicate chunks counted twice), the backward on the
-    kernel forward's lse and the same delta. Bounds: 4 flops per (query
-    row, key slot) pair and head dim for the forward, 10 for the backward
-    (S, dP, P^T dO, dS^T Q, dS K); bytes count q, dO, out, lse, delta and
-    the k/v rows the table names, once, and the float32 gradients. No
-    single PyTorch call computes the same function (a chunk named twice
-    doubles its keys' softmax mass), so library_ms is null."""
+    kernel forward's lse and the same delta, run twice and equal to the bit
+    (dq, dk, dv: no atomics). B14's time is the whole call, and beside it
+    each of its two launches (the dq walk, the dk/dv walk) and the key
+    table's build. Bounds: 4 flops per (query row, key slot) pair and head
+    dim for the forward, 10 for the backward (S, dP, P^T dO, dS^T Q, dS
+    K); bytes count q, dO, out, lse, delta and the k/v rows the table
+    names, once, and the float32 gradients. No single PyTorch call
+    computes the same function (a chunk named twice doubles its keys'
+    softmax mass), so library_ms is null."""
     import torch
 
     from magiattention_tpu_torch.kernels.block_sparse import (
-        BSPParams, block_sparse_bwd_kernel, block_sparse_bwd_plain,
-        block_sparse_fwd_kernel, block_sparse_fwd_plain, chunk_table,
+        BSPParams, block_sparse_bwd_dkv_kernel, block_sparse_bwd_dq_kernel,
+        block_sparse_bwd_kernel, block_sparse_bwd_plain, block_sparse_fwd_kernel,
+        block_sparse_fwd_plain, chunk_table, key_table,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -2760,7 +2951,11 @@ def block_sparse_phase(peaks: dict) -> dict[str, dict]:
             n: grad_check(f"block_sparse {name} {n}", a, b, dname)
             for n, a, b in zip(("dq", "dk", "dv"), got, want)
         }
-        del got, want
+        again = block_sparse_bwd_kernel(*args)
+        for n, a, b in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"block_sparse {name}: two backward runs differ in {n}")
+        del got, want, again
         torch.cuda.synchronize()
 
         n_keys = ctbl.shape[2] * ds
@@ -2778,6 +2973,8 @@ def block_sparse_phase(peaks: dict) -> dict[str, dict]:
             dname, peaks,
         )
         samples = 3 if seq > 4096 else 10
+        ktbl = key_table(ctbl, seq, ds)
+        visits = ktbl.ptr[1:] - ktbl.ptr[:-1]
         ms_f = time_ms(lambda: block_sparse_fwd_kernel(q, k, v, ctbl, params))
         ms_b = time_ms(lambda: block_sparse_bwd_kernel(*args))
         res = dict(
@@ -2785,6 +2982,8 @@ def block_sparse_phase(peaks: dict) -> dict[str, dict]:
             d_stride=ds, l_slc=BSP_L_SLC, block_size_q=BSP_BQ, top_k=top_k,
             chunks_per_row=ctbl.shape[2], keys_per_row=n_keys,
             duplicate_chunk_entries=dup, pairs=pairs,
+            key_tiles=ktbl.order.numel(), key_table_visits=int(visits.sum().item()),
+            most_visits_a_tile=int(visits.max().item()),
             atol=ATOL[dname], rnorm=RNORM[dname],
             block_sparse_fwd=dict(
                 **fwd_err, ms=ms_f,
@@ -2795,7 +2994,12 @@ def block_sparse_phase(peaks: dict) -> dict[str, dict]:
             ),
             block_sparse_bwd=dict(
                 max_abs_err=max(e["max_abs_err"] for e in bwd_err.values()),
-                errors=bwd_err, ms=ms_b,
+                errors=bwd_err, ms=ms_b, bitwise_repeat=True,
+                dq_walk_ms=time_ms(lambda: block_sparse_bwd_dq_kernel(*args)),
+                key_table_ms=time_ms(lambda: key_table(ctbl, seq, ds)),
+                dkv_walk_ms=time_ms(
+                    lambda: block_sparse_bwd_dkv_kernel(q, k, v, do, lse, delta, ktbl, params)
+                ),
                 plain_ms=time_ms(lambda: block_sparse_bwd_plain(*args), warmup=1,
                                  samples=samples),
                 bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None,
@@ -2806,7 +3010,7 @@ def block_sparse_phase(peaks: dict) -> dict[str, dict]:
             res["ptxas"] = {n: build_report(n) for n in ("block_sparse_fwd", "block_sparse_bwd")}
         emit({"phase": "block_sparse", **res})
         results[name] = res
-        del q, k, v, do, out, lse, delta, args
+        del q, k, v, do, out, lse, delta, args, ktbl
         torch.cuda.empty_cache()
     return results
 
@@ -2847,8 +3051,9 @@ NSA_GATHERED = {"MAGI_ATTENTION_BACKEND_NSA_SLC": "gathered_dense"}
 def nsa_phase() -> dict:
     """``nsa_attn`` forward and backward at the slice's configuration
     (bf16 q/k/v, float32 parameters from a seed), gradients to q, k, v and
-    the six parameters: the kernel route (unpinned: B13/B14 for the slc
-    branch, B1, B7 and the resolved FFA backward for the win branch; the
+    the six parameters: the kernel route (unpinned: B13 and B14's two
+    walks for the slc branch, B1, B7 and the resolved FFA backward for the
+    win branch; the
     counts zeroed just before and read just after, no plain version)
     against the gathered route (MAGI_ATTENTION_BACKEND_NSA_SLC=
     gathered_dense) on the same inputs: the selection tables equal first,
@@ -2906,7 +3111,8 @@ def nsa_phase() -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     want_counts = {
-        "block_sparse_fwd": 1, "block_sparse_bwd": 1, "ffa_fwd": 1, "ffa_bwd_delta": 1,
+        "block_sparse_fwd": 1, "block_sparse_bwd_dq": 1, "block_sparse_bwd_dkv": 1,
+        "ffa_fwd": 1, "ffa_bwd_delta": 1,
         **({"ffa_bwd_fused": 1} if mode == "fused" else {"ffa_bwd_dq": 1, "ffa_bwd_dkv": 1}),
     }
     launched = {k: v for k, v in counts.items() if v}
@@ -2915,7 +3121,7 @@ def nsa_phase() -> dict:
     reset_launch_counts()
     want = fwd_bwd(NSA_GATHERED)
     gathered_counts = {k: v for k, v in launch_counts().items() if v}
-    if gathered_counts.get("block_sparse_fwd") or gathered_counts.get("block_sparse_bwd"):
+    if any(n.startswith("block_sparse") for n in gathered_counts):
         raise AssertionError(f"nsa: the gathered route launched {gathered_counts}")
     err = compare("nsa bf16", got, want, "bfloat16")
     sel = got[1]
@@ -3237,15 +3443,18 @@ def main() -> int:
             "magiattention_tpu/kernels/paged_decode.py:568",
             serve_int8["kernel_launches"]["paged_decode_int8"], int8["float32"],
         ),
-        kernel_entry(  # the nsa phase's shape: bf16, g 4, d 128, 16 x 64 keys
-            "block_sparse_fwd", "block_sparse_fwd.cu",
+        # the nsa phase's shape: bf16, g 4, d 128, 16 x 64 keys; the bf16
+        # bodies of block_sparse_fwd.cu and block_sparse_bwd.cu
+        kernel_entry(
+            "block_sparse_fwd", "block_sparse_tc.cuh",
             "magiattention_tpu/kernels/block_sparse.py:76",
             nsa["launches"]["block_sparse_fwd"], bsp["block_sparse_fwd"],
         ),
-        kernel_entry(
-            "block_sparse_bwd", "block_sparse_bwd.cu",
+        kernel_entry(  # B14's two launches (dq walk, dk/dv walk), summed
+            "block_sparse_bwd", "block_sparse_tc.cuh",
             "magiattention_tpu/kernels/block_sparse.py:210",
-            nsa["launches"]["block_sparse_bwd"], bsp["block_sparse_bwd"],
+            nsa["launches"]["block_sparse_bwd_dq"] + nsa["launches"]["block_sparse_bwd_dkv"],
+            bsp["block_sparse_bwd"],
         ),
     ]})
     print(smi, flush=True)

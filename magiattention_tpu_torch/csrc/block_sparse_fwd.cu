@@ -15,23 +15,27 @@
 // scalar-prefetched table and carries m/l/acc in VMEM scratch; q is
 // pre-scaled on the host in q's dtype. Here ONE CTA owns 64 query rows of
 // one (kv head, q block) and loops over the row's keys itself, 64 at a
-// time: each step's key rows come from the table (step_keys), the K tile
-// is gathered straight from k (S, hk, d) into shared memory, and the
-// FFA forward's online-softmax step (csrc/ffa_fwd.cuh: scores,
-// softmax_update, pv_accumulate; the V tile replaces the K tile) runs on
-// it, with the key slots past n_keys masked. Any ds works: a step may span
-// several chunks or part of one. The softmax scale is applied to the
-// float32 scores (scale * log2(e), exp2 domain), never to a rounded copy
-// of q. m/l/acc stay in registers, out and lse are written once, and
-// nothing is atomic.
-//
-// What bounds it on this card: operations, 4 * d flops per (query row,
-// key slot) pair, on the CUDA cores in float32 (67 TFLOP/s peak on an H100
-// SXM) for bf16 inputs too; tensor cores and TMA are later work. 88 KB of
-// shared memory at d = 128 (the Q tile, one K-or-V tile, the 64 x 80 P
-// tile, 64 key rows), so two CTAs share an SM.
+// time, each step's key rows gathered from k (S, hk, d) through the table;
+// any ds works (a step may span several chunks or part of one), key slots
+// past n_keys are masked, the softmax scale is applied to the float32
+// scores (exp2 domain), m/l/acc stay in registers, out and lse are written
+// once, and nothing is atomic. Two bodies:
+// - bfloat16: csrc/block_sparse_tc.cuh on the tensor cores (wgmma, one
+//   warpgroup; K and V gathered by cp.async into swizzled tiles,
+//   double-buffered; P in registers as the A operand of O += P V). Bound:
+//   4 * d flops per (query row, key slot) pair at 989 TFLOP/s (H100 SXM);
+//   82,944 bytes of shared memory at d = 128, two CTAs per SM.
+// - float32: the CUDA-core body below, the FFA forward's online-softmax
+//   step (csrc/ffa_fwd.cuh: scores, softmax_update, pv_accumulate; the V
+//   tile replaces the K tile) on gathered float32 tiles, for the 1e-5 gate.
+//   Bound: the same flops on the CUDA cores (67 TFLOP/s); 88 KB of shared
+//   memory at d = 128 (the Q tile, one K-or-V tile, the 64 x 80 P tile, 64
+//   key rows), one CTA per SM there (registers), two at d = 64.
+#include <type_traits>
+
 #include "ffa_fwd.cuh"
 #include "block_sparse.cuh"
+#include "block_sparse_tc.cuh"
 
 namespace {
 
@@ -44,8 +48,10 @@ struct BspFwdSmem {
       sizeof(int) * BSP_KEYS;
 };
 
+// At d = 128 the float32 body needs more than the 128 registers a thread
+// that two CTAs an SM leave (ptxas spilled there): one CTA an SM.
 template <typename T, int D>
-__global__ void __launch_bounds__(BSP_NT, 2)
+__global__ void __launch_bounds__(BSP_NT, D == 128 ? 1 : 2)
     block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const int* __restrict__ tbl, T* __restrict__ out,
@@ -125,16 +131,27 @@ int bsp_launch(const void* q, const void* k, const void* v, const int* tbl,
                void* out, float* lse, int hq, int hk, int bq, int n_qb, int C,
                int ds, float scale, void* stream) {
   static bool smem_ok = false;
-  const size_t smem = BspFwdSmem<D>::bytes;
-  cudaError_t e =
-      magi::allow_smem(block_sparse_fwd_kernel<T, D>, smem, &smem_ok);
-  if (e != cudaSuccess) return (int)e;
+  constexpr bool TC = !std::is_same<T, float>::value;
+  const size_t smem = TC ? bsp_tc::FwdSmem<D>::bytes : BspFwdSmem<D>::bytes;
   const int r_total = bq * (hq / hk);
   const dim3 grid(n_qb, hk, (r_total + BSP_ROWS - 1) / BSP_ROWS);
-  block_sparse_fwd_kernel<T, D><<<grid, BSP_NT, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tbl, static_cast<T*>(out), lse, hq, hk, bq,
-      n_qb, C, ds, scale);
+  if constexpr (TC) {
+    cudaError_t e = magi::allow_smem(bsp_tc::bsp_fwd_tc_kernel<D>, smem, &smem_ok);
+    if (e != cudaSuccess) return (int)e;
+    bsp_tc::bsp_fwd_tc_kernel<D><<<grid, 128, smem, (cudaStream_t)stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), tbl,
+        static_cast<__nv_bfloat16*>(out), lse, hq, hk, bq, n_qb, C, ds, scale);
+  } else {
+    cudaError_t e =
+        magi::allow_smem(block_sparse_fwd_kernel<float, D>, smem, &smem_ok);
+    if (e != cudaSuccess) return (int)e;
+    block_sparse_fwd_kernel<float, D><<<grid, BSP_NT, smem, (cudaStream_t)stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), tbl, static_cast<float*>(out), lse, hq,
+        hk, bq, n_qb, C, ds, scale);
+  }
   return (int)cudaGetLastError();
 }
 

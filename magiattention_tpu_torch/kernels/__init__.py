@@ -3,6 +3,8 @@ the host plan and the paged KV cache."""
 
 from .block_sparse import (  # noqa: F401
     block_sparse_attn,
+    block_sparse_bwd_dkv_kernel,
+    block_sparse_bwd_dq_kernel,
     block_sparse_bwd_kernel,
     block_sparse_bwd_plain,
     block_sparse_fwd_kernel,
@@ -58,7 +60,8 @@ _KERNELS = {
     "paged_decode_spec": paged_decode_spec_kernel,
     "paged_decode_int8": paged_decode_int8_kernel,
     "block_sparse_fwd": block_sparse_fwd_kernel,
-    "block_sparse_bwd": block_sparse_bwd_kernel,
+    "block_sparse_bwd_dq": block_sparse_bwd_dq_kernel,
+    "block_sparse_bwd_dkv": block_sparse_bwd_dkv_kernel,
 }
 _PLAINS = {
     "sdpa_attn": sdpa_attn,
@@ -97,6 +100,8 @@ __all__ = [
     "append_kv",
     "assign_pages",
     "block_sparse_attn",
+    "block_sparse_bwd_dkv_kernel",
+    "block_sparse_bwd_dq_kernel",
     "block_sparse_bwd_kernel",
     "block_sparse_bwd_plain",
     "block_sparse_fwd_kernel",

@@ -74,13 +74,15 @@ from ..env import general as env_general
 from ..env import kernel as env_kernel
 from . import _build
 from .ffa_plan import DHI, DLO, KE, KS, QE, QS, QVL, FFAPlan, get_ffa_plan
+from .head_dims import (
+    KERNEL_HEAD_DIMS, is_kernel_width, kernel_head_dim, pad_head_dim, pad_to_kernel_width,
+)
 from .mask_utils import build_dense_mask_band, types_to_bands
 from .sdpa import dense_max_logits, sdpa_attn
 from .tile_policy import BwdShape, choose_bwd_mode
 
 # the one tile shape the csrc/ffa_*.cu kernels are compiled for
 KERNEL_BLOCKS = (64, 64)
-KERNEL_HEAD_DIMS = (64, 128)
 
 
 @dataclass(frozen=True)
@@ -208,10 +210,11 @@ def _kernel_inputs(name, params: FFAParams, q, k, v, *rest) -> list[torch.Tensor
             f"{name} is compiled for blocks {KERNEL_BLOCKS}, "
             f"plan has ({params.block_q}, {params.block_k})"
         )
-    if d != dv or d not in KERNEL_HEAD_DIMS or hq % hk:
+    if not is_kernel_width(d, dv) or hq % hk:
         raise ValueError(
             f"{name}: head dims d={d}, dv={dv} (need equal, one of "
-            f"{KERNEL_HEAD_DIMS}) and hq={hq} a multiple of hk={hk}"
+            f"{KERNEL_HEAD_DIMS}: the dispatchers pad other dims) and "
+            f"hq={hq} a multiple of hk={hk}"
         )
     if params.num_q_tiles * params.block_q < sq or params.num_k_tiles * params.block_k < sk:
         raise ValueError("plan tiles do not cover the sequences")
@@ -610,7 +613,15 @@ def ffa_fwd_gqa(q, k, v, plan: FFAPlan, params: FFAParams):
 
 
 def ffa_delta(out, do):
-    return ffa_delta_kernel(out, do) if out.is_cuda else ffa_delta_plain(out, do)
+    """delta = rowsum(dO * O): the kernel on CUDA (rows that are not a
+    whole number of 16-byte chunks padded with zero columns first), the
+    plain version on the CPU."""
+    if not out.is_cuda:
+        return ffa_delta_plain(out, do)
+    if (out.shape[-1] * out.element_size()) % 16:
+        width = kernel_head_dim(out.shape[-1])
+        out, do = pad_head_dim(out, width), pad_head_dim(do, width)
+    return ffa_delta_kernel(out, do)
 
 
 def ffa_bwd_dq(q, k, v, do, lse, delta, plan, params):
@@ -674,7 +685,7 @@ def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
 
 
 def _pack_heads(group: int, d: int, dv: int, smem_bytes, regs_per_head: int, regs_shared: int) -> int:
-    if d != dv or d not in KERNEL_HEAD_DIMS:
+    if not is_kernel_width(d, dv):
         return 1
     for heads in PACK_HEADS:
         if (
@@ -710,7 +721,7 @@ def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_needed: int,
     limit (``smem_bytes(d, heads, itemsize)``) and whose warpgroups (128
     threads a head) each find the registers a thread needs
     (``regs_needed``) in the SM's file."""
-    if d != dv or d not in KERNEL_HEAD_DIMS:
+    if not is_kernel_width(d, dv):
         return 1
     for heads in PACK_HEADS:
         regs = min(REGS_PER_THREAD, REGS_PER_SM // (128 * heads))
@@ -793,11 +804,21 @@ def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logit
     """The forward with the GQA-packing dispatch applied (the JAX package's
     ``ffa_fwd_pallas_dispatch``): the one entry of every forward caller
     (``_FFACore``, the sink core, ``_MultiFFA``). Returns (out, lse), plus
-    max_logits ``[hq]`` when asked for (always by the unpacked kernel)."""
+    max_logits ``[hq]`` when asked for (always by the unpacked kernel). On
+    CUDA, head dims other than d == dv in (64, 128) run padded to the
+    kernels' width (:func:`.head_dims.pad_to_kernel_width`), which the
+    packing guard sees; out comes back at v's width."""
+    dv = v.shape[-1]
+    if q.is_cuda:
+        q, k, v = pad_to_kernel_width(q, k, v)
     group, itemsize = q.shape[1] // k.shape[1], q.element_size()
     if _use_gqa_pack(group, q.shape[-1], v.shape[-1], return_max_logits, itemsize) > 1:
-        return ffa_fwd_gqa(q, k, v, plan, params)
-    return ffa_fwd(q, k, v, plan, params, return_max_logits)
+        res = ffa_fwd_gqa(q, k, v, plan, params)
+    else:
+        res = ffa_fwd(q, k, v, plan, params, return_max_logits)
+    if res[0].shape[-1] == dv:
+        return res
+    return (res[0][..., :dv].contiguous(), *res[1:])
 
 
 def ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
@@ -904,15 +925,24 @@ def ffa_bwd_mode(
 def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     """(dq, dk, dv) float32 of one plan under :func:`ffa_bwd_mode`: the
     fused kernel, or the dq (:func:`ffa_bwd_dq_dispatch`) then dk/dv
-    kernels (their plain versions on the CPU)."""
+    kernels (their plain versions on the CPU). On CUDA, head dims other
+    than d == dv in (64, 128) run padded to the kernels' width
+    (:func:`.head_dims.pad_to_kernel_width`), which the mode and packing
+    guards see; the gradients come back at their inputs' widths."""
+    d, d_v = q.shape[-1], v.shape[-1]
+    if q.is_cuda:
+        q, k, v, do = pad_to_kernel_width(q, k, v, do)
     mode = ffa_bwd_mode(
         plan, params, q.shape[-1], v.shape[-1], q.element_size(), q.shape[1], k.shape[1],
     )
     if mode == "fused":
-        return ffa_bwd_fused(q, k, v, do, lse, delta, plan, params)
-    dq = ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan, params)
-    dk, dv = ffa_bwd_dkv(q, k, v, do, lse, delta, plan, params)
-    return dq, dk, dv
+        dq, dk, dv = ffa_bwd_fused(q, k, v, do, lse, delta, plan, params)
+    else:
+        dq = ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan, params)
+        dk, dv = ffa_bwd_dkv(q, k, v, do, lse, delta, plan, params)
+    if dq.shape[-1] == d and dv.shape[-1] == d_v:
+        return dq, dk, dv
+    return dq[..., :d].contiguous(), dk[..., :d].contiguous(), dv[..., :d_v].contiguous()
 
 
 class _FFACore(torch.autograd.Function):

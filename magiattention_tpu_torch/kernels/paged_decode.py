@@ -21,6 +21,11 @@ a second kernel merges in split order, so two launches give the same bits.
 What still bounds them is each chunk's work on the CUDA cores and in shared
 memory, and the merge launch (PERF.md).
 
+The kernels are compiled at head dims 64 and 128. A cache on the card
+holds its pages at that width already (``PagedKVCache.create``), so a call
+with other logical dims pads only q (small, per tick) and slices out back
+to ``head_dim_v``.
+
 The head-sharded variant of the TPU module is not ported (ROADMAP).
 """
 
@@ -32,9 +37,9 @@ from functools import lru_cache
 import torch
 
 from . import _build
+from .head_dims import KERNEL_HEAD_DIMS, pad_head_dim
 from .paged_kv import PagedKVCache
 
-KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8  # GMAX in csrc/paged_decode.cu and paged_decode_int8.cu
 KERNEL_MAX_SPEC_ROWS = 32  # largest RMAX in csrc/paged_decode_spec.cu
 SPLIT_UNIT = 64  # splits are whole 64-token units (two of the walk's chunks)
@@ -111,15 +116,21 @@ def _check_launch(what: str, q: torch.Tensor, cache: PagedKVCache, rows: int,
     """What every paged-decode kernel takes; raises before any launch."""
     S = q.shape[0]
     hq, d = q.shape[-2:]
-    num_pages, ps, hk, dv = cache.v_pages.shape
+    num_pages, ps, hk, width = cache.v_pages.shape
     if not (q.is_cuda and cache.k_pages.device == q.device):
         raise ValueError(f"{what} takes CUDA tensors on one device")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: dtype {q.dtype} not supported")
     if cache.k_pages.dtype != page_dtype or cache.v_pages.dtype != page_dtype:
         raise TypeError(f"{what}: pages must be {page_dtype}")
-    if d != dv or d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: head dims d={d}, dv={dv}")
+    if d != cache.head_dim:
+        raise ValueError(f"{what}: q's head dim {d} is not the cache's {cache.head_dim}")
+    if cache.k_pages.shape[-1] != width or width not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"{what}: pages {cache.k_pages.shape[-1]} / {width} wide: the kernels "
+            f"take pages of one width in {KERNEL_HEAD_DIMS} (PagedKVCache.create "
+            "on the card allocates them so)"
+        )
     if hq % hk or rows > max_rows:
         raise ValueError(
             f"{what}: hq={hq} must be a multiple of hk={hk}, with at most "
@@ -137,6 +148,12 @@ def _check_launch(what: str, q: torch.Tensor, cache: PagedKVCache, rows: int,
         raise TypeError(f"{what}: table and lengths must be int32")
 
 
+def _logical(out: torch.Tensor, cache: PagedKVCache) -> torch.Tensor:
+    """out at the cache's v width (a copy only where the pages are wider)."""
+    dv = cache.head_dim_v
+    return out if out.shape[-1] == dv else out[..., :dv].contiguous()
+
+
 def _stream(q: torch.Tensor) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
@@ -149,10 +166,11 @@ def paged_decode_kernel(
     Adds one to ``paged_decode_kernel.launches`` per launch (the split walk
     and its merge)."""
     q = q.contiguous()
-    S, hq, d = q.shape
-    num_pages, ps, hk, _ = cache.v_pages.shape
-    _check_launch("paged_decode_kernel", q, cache, hq // hk, q.dtype,
+    num_pages, ps, hk, width = cache.v_pages.shape
+    _check_launch("paged_decode_kernel", q, cache, q.shape[1] // hk, q.dtype,
                   KERNEL_MAX_GROUP)
+    q = pad_head_dim(q, width)
+    S, hq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((S, hq), dtype=torch.float32, device=q.device)
     splits, split_len = split_plan_of(cache, _sm_count(q.device))
@@ -168,7 +186,7 @@ def paged_decode_kernel(
     )
     _build.check(lib, code, "paged_decode_kernel")
     paged_decode_kernel.launches += 1
-    return out, lse
+    return _logical(out, cache), lse
 
 
 paged_decode_kernel.launches = 0
@@ -182,12 +200,14 @@ def paged_decode_spec_kernel(
     :func:`paged_decode_kernel` (the same plan at every ``spec_k``). Adds
     one to ``paged_decode_spec_kernel.launches`` per launch."""
     q = q.contiguous()
-    S, spec_k, hq, d = q.shape
-    num_pages, ps, hk, _ = cache.v_pages.shape
+    S, spec_k, hq, _ = q.shape
+    num_pages, ps, hk, width = cache.v_pages.shape
     if spec_k < 1:
         raise ValueError(f"spec_k={spec_k} must be >= 1")
     _check_launch("paged_decode_spec_kernel", q, cache, spec_k * (hq // hk),
                   q.dtype, KERNEL_MAX_SPEC_ROWS)
+    q = pad_head_dim(q, width)
+    d = q.shape[-1]
     out = torch.empty_like(q)
     lse = torch.empty((S, spec_k, hq), dtype=torch.float32, device=q.device)
     splits, split_len = split_plan_of(cache, _sm_count(q.device))
@@ -204,7 +224,7 @@ def paged_decode_spec_kernel(
     )
     _build.check(lib, code, "paged_decode_spec_kernel")
     paged_decode_spec_kernel.launches += 1
-    return out, lse
+    return _logical(out, cache), lse
 
 
 paged_decode_spec_kernel.launches = 0
@@ -220,10 +240,11 @@ def paged_decode_int8_kernel(
     if not cache.quantized:
         raise ValueError("paged_decode_int8_kernel needs an int8 cache")
     q = q.contiguous()
+    num_pages, ps, hk, width = cache.v_pages.shape
+    _check_launch("paged_decode_int8_kernel", q, cache, q.shape[1] // hk,
+                  torch.int8, KERNEL_MAX_GROUP)
+    q = pad_head_dim(q, width)
     S, hq, d = q.shape
-    num_pages, ps, hk, _ = cache.v_pages.shape
-    _check_launch("paged_decode_int8_kernel", q, cache, hq // hk, torch.int8,
-                  KERNEL_MAX_GROUP)
     if cache.k_scales.dtype != torch.float32 or cache.v_scales.dtype != torch.float32:
         raise TypeError("paged_decode_int8_kernel: scales must be float32")
     out = torch.empty_like(q)
@@ -243,7 +264,7 @@ def paged_decode_int8_kernel(
     )
     _build.check(lib, code, "paged_decode_int8_kernel")
     paged_decode_int8_kernel.launches += 1
-    return out, lse
+    return _logical(out, cache), lse
 
 
 paged_decode_int8_kernel.launches = 0
@@ -251,16 +272,17 @@ paged_decode_int8_kernel.launches = 0
 
 def _plain_pages(cache: PagedKVCache) -> tuple[torch.Tensor, torch.Tensor]:
     """Every slot's pages gathered (-1 entries clamp to page 0) as float32
-    ``(S, P * ps, hk, d)`` K and V, dequantized on an int8 cache."""
+    ``(S, P * ps, hk, head_dim)`` K and ``(..., head_dim_v)`` V, dequantized
+    on an int8 cache."""
     S, P = cache.page_table.shape
-    num_pages, ps, hk, d = cache.k_pages.shape
+    ps, hk = cache.k_pages.shape[1:3]
     table = cache.page_table.clamp_min(0).long()  # (S, P)
-    k = cache.k_pages[table].float()  # (S, P, ps, hk, d)
-    v = cache.v_pages[table].float()
+    k = cache.k_pages[table][..., : cache.head_dim].float()  # (S, P, ps, hk, d)
+    v = cache.v_pages[table][..., : cache.head_dim_v].float()
     if cache.quantized:
         k = k * cache.k_scales[table][:, :, None, :, None]
         v = v * cache.v_scales[table][:, :, None, :, None]
-    return k.reshape(S, P * ps, hk, d), v.reshape(S, P * ps, hk, -1)
+    return k.reshape(S, P * ps, hk, -1), v.reshape(S, P * ps, hk, -1)
 
 
 def _plain_attend(q, k, v, limits, softmax_scale):

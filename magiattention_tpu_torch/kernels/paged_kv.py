@@ -14,6 +14,14 @@ dequantizes on the way out, so prefill and the oracle see float32.
 Prefill attention gathers a sequence's pages into contiguous ``[sk, hk, d]``
 rows and runs :func:`~.ffa.ffa_attn` with a one-slice plan whose k range
 ends at the host-static ``kv_len``; rows past it are never attended.
+
+A cache on the card stores its pages at the decode kernels' width
+(:func:`.head_dims.kernel_head_dim` of ``head_dim`` and ``head_dim_v``),
+allocated once when it is created, so no tick copies the pool: the extra
+columns stay zero (appends write zeros there, and an int8 page's row
+scale, a max over the row, is unchanged by them). ``head_dim`` and
+``head_dim_v`` stay the cache's logical widths, and appends, gathers and
+the plain versions read only those columns.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from .ffa import ffa_attn
+from .head_dims import kernel_head_dim, pad_head_dim
 from .mask_utils import BAND_INF
 
 
@@ -40,6 +49,8 @@ class PagedKVCache:
         k_scales / v_scales: ``(num_pages, hk)`` float32 per-(page, kv
             head) scales of an int8 cache (value = code * scale); None on
             a float cache.
+        head_dim / head_dim_v: the logical k and v widths (default: the
+            pages' own); the pages may be wider, the extra columns zero.
     """
 
     k_pages: torch.Tensor
@@ -48,6 +59,19 @@ class PagedKVCache:
     lengths: torch.Tensor
     k_scales: torch.Tensor | None = None
     v_scales: torch.Tensor | None = None
+    head_dim: int | None = None
+    head_dim_v: int | None = None
+
+    def __post_init__(self) -> None:
+        if self.head_dim is None:
+            self.head_dim = self.k_pages.shape[-1]
+        if self.head_dim_v is None:
+            self.head_dim_v = self.v_pages.shape[-1]
+        if self.head_dim > self.k_pages.shape[-1] or self.head_dim_v > self.v_pages.shape[-1]:
+            raise ValueError(
+                f"head dims {self.head_dim}, {self.head_dim_v} exceed the "
+                f"pages' widths {self.k_pages.shape[-1]}, {self.v_pages.shape[-1]}"
+            )
 
     @property
     def page_size(self) -> int:
@@ -72,23 +96,30 @@ class PagedKVCache:
         max_pages_per_seq: int,
         dtype: torch.dtype = torch.bfloat16,
         device: torch.device | str | None = None,
+        head_dim_v: int | None = None,
     ) -> "PagedKVCache":
         """Zeroed pages and an all -1 table, on the card unless ``device``
-        says otherwise. ``dtype=torch.int8`` adds zeroed scales."""
+        says otherwise. ``dtype=torch.int8`` adds zeroed scales. v rows are
+        ``head_dim_v`` wide (default ``head_dim``). On the card both page
+        tensors take the decode kernels' width (raises above 128)."""
         if dtype not in (torch.float32, torch.bfloat16, torch.int8):
             raise ValueError(
                 f"PagedKVCache dtype {dtype}: float32, bfloat16 or int8"
             )
         device = resolve_device(device)
-        shape = (num_pages, page_size, n_kv_heads, head_dim)
+        dv = head_dim if head_dim_v is None else head_dim_v
+        widths = (head_dim, dv)
+        if device.type == "cuda":
+            widths = (kernel_head_dim(head_dim, dv),) * 2
+        shape = (num_pages, page_size, n_kv_heads)
         scales = None
         if dtype == torch.int8:
             scales = torch.zeros(
                 (num_pages, n_kv_heads), dtype=torch.float32, device=device
             )
         return cls(
-            k_pages=torch.zeros(shape, dtype=dtype, device=device),
-            v_pages=torch.zeros(shape, dtype=dtype, device=device),
+            k_pages=torch.zeros((*shape, widths[0]), dtype=dtype, device=device),
+            v_pages=torch.zeros((*shape, widths[1]), dtype=dtype, device=device),
             page_table=torch.full(
                 (max_seqs, max_pages_per_seq), -1, dtype=torch.int32,
                 device=device,
@@ -96,6 +127,8 @@ class PagedKVCache:
             lengths=torch.zeros((max_seqs,), dtype=torch.int32, device=device),
             k_scales=scales,
             v_scales=None if scales is None else torch.zeros_like(scales),
+            head_dim=head_dim,
+            head_dim_v=dv,
         )
 
 
@@ -172,13 +205,16 @@ def _quantize_append_waves(pages, scales, page_idx, row, x_new, start):
 def append_kv(
     cache: PagedKVCache, seq_id: int, k_new: torch.Tensor, v_new: torch.Tensor
 ) -> PagedKVCache:
-    """Append ``(t, hk, d)`` rows to a sequence whose pages are assigned.
+    """Append ``(t, hk, d)`` / ``(t, hk, dv)`` rows to a sequence whose
+    pages are assigned.
 
     Positions are ``lengths[seq_id] .. +t``, computed on the device. An
     int8 cache quantizes the rows on the way in: row by row on the CPU, in
-    waves on the card (which reads the start position on the host). In
-    place."""
+    waves on the card (which reads the start position on the host). Rows
+    are padded with zero columns to the pages' width. In place."""
     t = k_new.shape[0]
+    k_new = pad_head_dim(k_new, cache.k_pages.shape[-1])
+    v_new = pad_head_dim(v_new, cache.v_pages.shape[-1])
     ps = cache.page_size
     pos = cache.lengths[seq_id] + torch.arange(
         t, dtype=torch.int32, device=cache.device
@@ -205,10 +241,11 @@ def append_kv(
 def gather_kv(
     cache: PagedKVCache, seq_id: int, max_pages: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A sequence's pages as contiguous ``(cap, hk, d)`` K/V (cap =
-    max_pages * page_size). -1 entries clamp to page 0; rows beyond
-    ``lengths[seq_id]`` are whatever the pages hold and must be masked by
-    the caller. An int8 cache is dequantized to float32 (code * scale)."""
+    """A sequence's pages as ``(cap, hk, head_dim)`` K and ``(cap, hk,
+    head_dim_v)`` V (cap = max_pages * page_size): the logical columns.
+    -1 entries clamp to page 0; rows beyond ``lengths[seq_id]`` are
+    whatever the pages hold and must be masked by the caller. An int8
+    cache is dequantized to float32 (code * scale)."""
     table = cache.page_table[seq_id]
     if max_pages is not None:
         table = table[:max_pages]
@@ -220,7 +257,7 @@ def gather_kv(
         vs = cache.v_scales.index_select(0, safe)
         k = k.float() * ks[:, None, :, None]
         v = v.float() * vs[:, None, :, None]
-    return k.flatten(0, 1), v.flatten(0, 1)
+    return k.flatten(0, 1)[..., : cache.head_dim], v.flatten(0, 1)[..., : cache.head_dim_v]
 
 
 def paged_attn(

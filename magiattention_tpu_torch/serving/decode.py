@@ -127,7 +127,7 @@ def _gather_ffa_decode(q_batch, cache, host_lengths, softmax_scale=None):
     ``length - 1`` (appended before attending), so the causal band covers
     exactly the stored rows."""
     S, hq, d = q_batch.shape
-    dv = cache.v_pages.shape[-1]
+    dv = cache.head_dim_v
     max_pages = cache.page_table.shape[1]
     outs, lses = [], []
     for s, length in enumerate(host_lengths):
@@ -157,7 +157,7 @@ def _gather_ffa_verify(q_spec, cache, host_lengths, softmax_scale=None):
     call in another order than the same row alone (last-bit differences),
     and the pinned engine is held to the replay bit for bit."""
     S, spec_k, hq, d = q_spec.shape
-    dv = cache.v_pages.shape[-1]
+    dv = cache.head_dim_v
     max_pages = cache.page_table.shape[1]
     outs, lses = [], []
     for s, length in enumerate(host_lengths):
@@ -186,7 +186,7 @@ def _gather_ffa_verify(q_spec, cache, host_lengths, softmax_scale=None):
 def _dense_decode(q_batch, cache, host_lengths, softmax_scale=None):
     """Masked dense softmax over each slot's gathered pages, slot by slot."""
     S, hq, d = q_batch.shape
-    dv = cache.v_pages.shape[-1]
+    dv = cache.head_dim_v
     hk = cache.k_pages.shape[2]
     g = hq // hk
     if softmax_scale is None:

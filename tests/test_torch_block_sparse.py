@@ -5,6 +5,8 @@ flags, table audit, modeled bytes), the argument checks, and
 versions, JAX through its Pallas kernels in interpret mode), at the shapes
 of ``tests/test_attn/test_nsa_block_sparse.py``."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -197,3 +199,159 @@ def test_block_sparse_sources_are_built_at_first_use():
         assert f"Replaces: magiattention_tpu/kernels/block_sparse.py:{kernel}" in src
         assert '#include "block_sparse.cuh"' in src and "__global__" in src
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+# ---------------------------------------------------------------------------
+# B14's key-major dk/dv walk: the transposed table and its sum
+# ---------------------------------------------------------------------------
+
+
+def _chunk_rows(g: int, ds: int, seed: int, seq: int = 512, hk: int = 2):
+    """A chunk table over clustered picks (overlapping blocks, so chunks
+    named twice), with one row forced to name a chunk twice more; and the
+    q, k, v, dO of a g-group at that size."""
+    rng = np.random.default_rng(seed)
+    starts = np.arange(0, seq - L_SLC + 1, ds, dtype=np.int32)
+    n_qb = seq // BQ
+    base = rng.integers(0, len(starts) - 8, size=(hk, n_qb, 1))
+    offs = np.argsort(rng.random((hk, n_qb, 8)), axis=-1)[..., :4]
+    idx = torch.from_numpy((base + offs).astype(np.int32))
+    ctbl = tbs.chunk_table(idx, starts, ds, L_SLC).clone()
+    ctbl[0, 0, :2] = ctbl[0, 0, 2]  # the first row names one chunk three times
+    d = 16
+    q, k, v, do = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        for s in ((seq, hk * g, d), (seq, hk, d), (seq, hk, d), (seq, hk * g, d))
+    )
+    return ctbl, seq, (q, k, v, do)
+
+
+def _brute_key_table(ctbl: np.ndarray, seq: int, ds: int):
+    """{(h, kt): [(q block, multiplicities per chunk slot)]}: every (kv
+    head, key tile) and the rows naming a chunk that overlaps it, by
+    looping over rows and tiles."""
+    hk, n_qb, _ = ctbl.shape
+    slots = tbs.chunk_slots(ds)
+    out = {}
+    for h in range(hk):
+        for kt in range(-(-seq // 64)):
+            lo, hi = 64 * kt, min(64 * kt + 64, seq)
+            c0 = lo // ds
+            visits = []
+            for b in range(n_qb):
+                mult = [0] * slots
+                for c in ctbl[h, b]:
+                    if c * ds < hi and (c + 1) * ds > lo:
+                        mult[c - c0] += 1
+                if any(mult):
+                    visits.append((b, mult))
+            out[(h, kt)] = visits
+    return out
+
+
+@pytest.mark.parametrize("g, ds", [(1, 16), (4, 16), (1, 32), (4, 32)])
+def test_key_table_inverts_the_chunk_table(g, ds):
+    """The transposed table equals a brute-force inversion of chunk_table's
+    output: per (kv head, key tile) the visiting q blocks, ascending, and
+    each one's multiplicities (a chunk named twice or three times counts
+    so); pairs ordered by visit count, most first, ties by index."""
+    ctbl, seq, _ = _chunk_rows(g, ds, seed=g * ds)
+    kt = tbs.key_table(ctbl, seq, ds)
+    want = _brute_key_table(ctbl.numpy(), seq, ds)
+    hk = ctbl.shape[0]
+    assert kt.n_tiles == seq // 64 and kt.slots == tbs.chunk_slots(ds)
+    assert kt.mult.max() >= 3  # the forced row
+    ptr = kt.ptr.tolist()
+    for (h, t), visits in want.items():
+        p = h * kt.n_tiles + t
+        got = [
+            (int(kt.qblock[r]), kt.mult[r].tolist()) for r in range(ptr[p], ptr[p + 1])
+        ]
+        assert got == visits, (h, t)
+    counts = np.diff(ptr)
+    assert kt.order.tolist() == sorted(range(hk * kt.n_tiles), key=lambda p: -counts[p])
+    assert all(t.dtype == torch.int32 for t in (kt.order, kt.ptr, kt.qblock, kt.mult))
+
+
+def test_key_table_over_chunks_wider_than_a_tile():
+    """d_stride 48 and 128: a chunk overlaps two key tiles, a tile two
+    chunks, and the table still inverts by brute force."""
+    for ds, seq in ((48, 384), (128, 512)):
+        rng = np.random.default_rng(ds)
+        ctbl = torch.from_numpy(rng.integers(0, seq // ds, size=(2, 8, 5)).astype(np.int32))
+        kt = tbs.key_table(ctbl, seq, ds)
+        want = _brute_key_table(ctbl.numpy(), seq, ds)
+        for (h, t), visits in want.items():
+            p = h * kt.n_tiles + t
+            got = [
+                (int(kt.qblock[r]), kt.mult[r].tolist())
+                for r in range(int(kt.ptr[p]), int(kt.ptr[p + 1]))
+            ]
+            assert got == visits, (ds, h, t)
+
+
+def _key_major_dkv(q, k, v, do, lse, delta, kt, params, hk):
+    """The dk/dv walk's sum, emulated in float32: per (kv head, key tile),
+    per visiting q block, S^T and dP^T over the block's rows, each key row
+    of P^T and dS^T weighted by its chunk's multiplicity."""
+    S, hq, d = q.shape
+    g, bq, ds, scale = hq // hk, params.block_size_q, params.d_stride, params.softmax_scale
+    dk, dv = torch.zeros(S, hk, d), torch.zeros(S, hk, v.shape[-1])
+    ptr = kt.ptr.tolist()
+    for h in range(hk):
+        for t in range(kt.n_tiles):
+            k0 = 64 * t
+            keys = torch.arange(k0, min(k0 + 64, S))
+            chunk = keys // ds - k0 // ds
+            p = h * kt.n_tiles + t
+            for r in range(ptr[p], ptr[p + 1]):
+                b = int(kt.qblock[r])
+                w = kt.mult[r][chunk].float()  # (keys,)
+                qs = slice(b * bq, (b + 1) * bq)
+                heads = slice(h * g, (h + 1) * g)
+                qq = q[qs, heads].reshape(-1, d)
+                dd = do[qs, heads].reshape(-1, v.shape[-1])
+                l = lse[qs, heads].reshape(-1)
+                de = delta[qs, heads].reshape(-1)
+                st = k[keys, h] @ qq.T * scale  # (keys, rows)
+                pt = w[:, None] * torch.exp(st - l[None])
+                dst = pt * (v[keys, h] @ dd.T - de[None])
+                dv[keys, h] += pt @ dd
+                dk[keys, h] += scale * dst @ qq
+    return dk, dv
+
+
+@pytest.mark.parametrize("g, ds", [(1, 16), (4, 32)])
+def test_key_major_sum_equals_the_plain_backward(g, ds):
+    """The key-major sum over the transposed table (the CUDA dk/dv walk's
+    arithmetic, in float32 PyTorch) gives block_sparse_bwd_plain's dk and
+    dv within float32 1e-5: the weights reproduce a chunk named twice
+    counting twice."""
+    ctbl, seq, (q, k, v, do) = _chunk_rows(g, ds, seed=40 + g)
+    hk = k.shape[1]
+    params = tbs.BSPParams(softmax_scale=16 ** -0.5, d_stride=ds, block_size_q=BQ)
+    out, lse = tbs.block_sparse_fwd_plain(q, k, v, ctbl, params)
+    delta = (out * do).sum(-1)
+    _, dk, dv = tbs.block_sparse_bwd_plain(q, k, v, do, lse, delta, ctbl, params)
+    kt = tbs.key_table(ctbl, seq, ds)
+    got_dk, got_dv = _key_major_dkv(q, k, v, do, lse, delta, kt, params, hk)
+    torch.testing.assert_close(got_dk, dk, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_dv, dv, rtol=1e-5, atol=1e-5)
+
+
+def _extern_c(source: str) -> dict[str, int]:
+    found = {}
+    for m in re.finditer(r'extern "C" \w+\*? (\w+)\(([^)]*)\)', source):
+        found[m.group(1)] = len([a for a in m.group(2).split(",") if a.strip()])
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(tbs._LIBRARIES))
+def test_launch_symbols_are_exported(name):
+    """Every ``<prefix>_{f32,bf16}`` the ctypes bindings look up is an
+    ``extern "C"`` function of ``csrc/<name>.cu`` with the argument count
+    bound (read from the source: nothing compiles here)."""
+    exported = _extern_c((_build.CSRC / f"{name}.cu").read_text())
+    for prefix in tbs._LIBRARIES[name]:
+        for suffix in ("f32", "bf16"):
+            assert exported.get(f"{prefix}_{suffix}") == len(tbs._ARGTYPES[prefix]), (prefix, suffix)
