@@ -71,9 +71,11 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 6. ``edge_cases``: head_dim 64, ragged tiles, softcap, g = 1 and 8, other
    page sizes, a k tile no slice reaches and uncovered rows, forward and
    gradients (both backward modes), kernel against plain version (not
-   timed); and ROADMAP C4's head dims (d 32, d 96, d 64 with dv 128,
-   padded to the kernels' widths) through FFA, B10-B12 and B13/B14, a d
-   of 192 raising in each family.
+   timed); and ROADMAP C4's and C4b's head dims (d 32, d 96, d 64 with dv
+   128, d 256, d 192 with dv 128, d 256 with dv 128, padded to the
+   kernels' widths) through FFA (the packed forward where its guard
+   admits the width), B10-B12 and B13/B14, a d of 320 raising in each
+   family.
 7. ``serve``: ``ServeEngine`` at Llama-3.1-8B attention widths on 16
    requests; every generated row is held against the sequential replay
    oracle (FFA kernel) on the card, the first two requests against the
@@ -108,11 +110,23 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     under the GQA pack flags with the split pin and one under the pack
     flags unpinned; launch counts per step, one step under
     ``torch.profiler``, and a kernel-vs-plain check of loss and gradients
-    at 2048 tokens.
-11. ``block_sparse``: the NSA selected-branch kernels B13 and B14 (its
+    at 2048 tokens. ``train_padded``: the same model on 8000 tokens in two
+    documents padded to 8192 (``compute_pad_size``, ``apply_padding``,
+    ``pad_at_dim``), one step, its loss against the unpadded step's and
+    the pad rows' attention 0.
+11. ``d256_kernels``: each family's 256 instance (the column split) timed
+    against its plain version and bound: B1 bf16 at Gemma-2-9B's attention
+    against SDPA, B1 float32 at the serving prefill shape, B3 + B5 and B8
+    against SDPA's backward alone (``bwd_mode``'s rule held at d 256), B10
+    on 8 slots in both dtypes. ``hybrid_d256``: Gemma-2-9B attention
+    (softcap 50) through the API, the global causal dispatch key and its
+    4096-token sliding window re-keyed onto it, fwd+bwd against the plain
+    versions, ms, bound and share per key.
+12. ``block_sparse``: the NSA selected-branch kernels B13 and B14 (its
     dq and dk/dv walks) against their plain versions over chunk tables
-    with duplicate chunks: g 1, 4, 8, head_dim 64 and 128, float32 and
-    bf16, d_stride 16 and 32, and the nsa phase's shape (timed: B14 whole
+    with duplicate chunks: g 1, 2, 4, 8, head_dim 64, 128 and 256, float32
+    and bf16, d_stride 16 and 32, and the nsa phase's shape and its d 256
+    twin at Gemma-2-9B's heads (timed: B14 whole
     and by launch and key-table build; two backward runs equal to the bit;
     the ``ptxas`` report). ``nsa``: ``parallel.nsa_attn`` forward and
     backward at Llama-3.1-8B attention widths over 8192 tokens in two
@@ -120,7 +134,7 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     B14's two walks, B1, B7, the resolved backward; launch counts) against
     the gathered route on equal selections, in bf16 and at 2048 tokens in
     float32.
-12. ``kernels``: one line per-kernel summary (launches from the serve,
+13. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase, error, kernel / plain / library time and the
     card's bound).
 
@@ -1776,23 +1790,27 @@ def edge_phase() -> None:
                      *paged_decode_plain(q, cache, d ** -0.5))
         check(name, err, dname)
         worst[name] = err["max_abs_err"]
-    head_dim_cases(gen, worst)
-    emit({"phase": "edge_cases", "max_abs_err": worst})
+    packed = head_dim_cases(gen, worst)
+    emit({"phase": "edge_cases", "max_abs_err": worst, "head_dim_packed_fwd_launches": packed})
 
 
-# (d, dv) of ROADMAP C4's cases: padded to the kernels' 64 or 128 columns
-C4_DIMS = ((32, 32), (96, 96), (64, 128))
+# (d, dv) of ROADMAP C4's and C4b's cases: padded to the kernels' 64, 128
+# or 256 columns (d 256: Gemma-2/3; d 192 with dv 128: DeepSeek-V3's MLA)
+C4_DIMS = ((32, 32), (96, 96), (64, 128), (256, 256), (192, 128), (256, 128))
 
 
-def head_dim_cases(gen, worst: dict) -> None:
-    """ROADMAP C4: head dims the kernels are not compiled for run padded
-    with zero columns to 64 or 128 (``kernels/head_dims.py``), within the
+def head_dim_cases(gen, worst: dict) -> dict[str, int]:
+    """ROADMAP C4 and C4b: head dims other than 64 and 128 run padded with
+    zero columns to 64, 128 or 256 (``kernels/head_dims.py``; the 256
+    instances split the columns they write in two halves), within the
     float32 / bf16 tolerances of the plain versions on the unpadded
-    tensors: d 32, d 96 and d 64 with dv 128, float32 and bf16, through
-    FFA forward and backward (fused and split pinned), B10, B11 (spec_k 2)
-    and B12 over a cache of that width, and B13/B14 through
-    ``block_sparse_attn``. A d of 192 raises ``ValueError`` naming the
-    128 limit in each family."""
+    tensors: d 32, d 96, d 64 with dv 128, d 256, d 192 with dv 128 and
+    d 256 with dv 128, float32 and bf16, through FFA forward (and the
+    packed forward where its guard admits the width: bit-identical to the
+    unpacked one) and backward (fused and split pinned), B10, B11 (spec_k
+    2) and B12 over a cache of that width, and B13/B14 through
+    ``block_sparse_attn``. A d of 320 raises ``ValueError`` naming the 256
+    limit (ROADMAP C4c) in each family."""
     import torch
 
     from magiattention_tpu_torch.env.general import scoped_env
@@ -1800,7 +1818,7 @@ def head_dim_cases(gen, worst: dict) -> None:
         BSPParams, block_sparse_attn, block_sparse_bwd_plain, block_sparse_fwd_plain,
         chunk_table,
     )
-    from magiattention_tpu_torch.kernels.ffa import ffa_attn
+    from magiattention_tpu_torch.kernels.ffa import ffa_attn, ffa_fwd_gqa_kernel
     from magiattention_tpu_torch.kernels.paged_decode import (
         paged_decode_int8_kernel, paged_decode_int8_plain, paged_decode_kernel,
         paged_decode_plain, paged_decode_spec_kernel, paged_decode_spec_plain,
@@ -1812,6 +1830,7 @@ def head_dim_cases(gen, worst: dict) -> None:
     kr = np.array([[0, 50], [30, 170], [100, 203]])
     types = np.array([1, 0, 3])
     hq, hk = 8, 2
+    packed_launches = {}  # the packed forward's launches per case
     for (d, dv), dt in itertools.product(C4_DIMS, (torch.float32, torch.bfloat16)):
         dname = str(dt).removeprefix("torch.")
         tag = f"c4_d{d}_dv{dv}_{dname}"
@@ -1827,6 +1846,12 @@ def head_dim_cases(gen, worst: dict) -> None:
         err = errors(*got, *sdpa_attn(*inputs, qr, kr, attn_type_map=types))
         check(f"{tag} ffa fwd", err, dname)
         worst[f"{tag}_ffa_fwd"] = err["max_abs_err"]
+        launched = ffa_fwd_gqa_kernel.launches
+        with scoped_env(PACK):  # the packed forward where the guard admits it
+            packed = ffa_attn(*inputs, qr, kr, attn_type_map=types)
+        if not all(torch.equal(a, b) for a, b in zip(packed, got)):
+            raise AssertionError(f"{tag}: packed forward not bit-identical")
+        packed_launches[tag] = ffa_fwd_gqa_kernel.launches - launched
 
         def grads_of(attn):
             leaves = [t.detach().requires_grad_(True) for t in inputs]
@@ -1912,24 +1937,25 @@ def head_dim_cases(gen, worst: dict) -> None:
             e = grad_check(f"{tag} block_sparse {gname}", a.float(), b, dname)
             worst[f"{tag}_block_sparse_{gname}"] = e["max_abs_err"]
 
-    # above 128: every family raises, naming the limit
-    q = torch.zeros((64, hq, 192), device="cuda")
-    kv = torch.zeros((64, hk, 192), device="cuda")
+    # above 256: every family raises, naming the limit and ROADMAP C4c
+    q = torch.zeros((64, hq, 320), device="cuda")
+    kv = torch.zeros((64, hk, 320), device="cuda")
     idx = torch.zeros((hk, 64 // BSP_BQ, 1), dtype=torch.int64, device="cuda")
     for what, call in (
         ("ffa_attn", lambda: ffa_attn(q, kv, kv, [[0, 64]], [[0, 64]])),
-        ("PagedKVCache", lambda: PagedKVCache.create(8, 16, hk, 192, 2, 4, device="cuda")),
+        ("PagedKVCache", lambda: PagedKVCache.create(8, 16, hk, 320, 2, 4, device="cuda")),
         ("block_sparse_attn", lambda: block_sparse_attn(
             q, kv, kv, idx, np.array([0]), block_len=BSP_L_SLC, block_size_q=BSP_BQ)),
     ):
         try:
             call()
         except ValueError as e:
-            if "128" not in str(e):
-                raise AssertionError(f"{what} at d 192: {e}") from e
+            if "256" not in str(e) or "C4c" not in str(e):
+                raise AssertionError(f"{what} at d 320: {e}") from e
         else:
-            raise AssertionError(f"{what} at d 192 did not raise")
+            raise AssertionError(f"{what} at d 320 did not raise")
     torch.cuda.empty_cache()
+    return packed_launches
 
 
 # (prompt_len, new_tokens): short requests first (held against the CPU
@@ -2652,8 +2678,8 @@ def train_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 BSP_L_SLC, BSP_BQ = 64, 16
-# (name, g, head_dim, dtype, d_stride, seq, hk, top_k): g 1, 4, 8; head dims
-# 64, 128; float32, bf16; d_stride 16, 32 at l_slc 64, so the clustered
+# (name, g, head_dim, dtype, d_stride, seq, hk, top_k): g 1, 2, 4, 8; head
+# dims 64, 128, 256; float32, bf16; d_stride 16, 32 at l_slc 64, so the clustered
 # picks of bsp_table overlap and put duplicate chunks in a row; the last is
 # the nsa phase's shape (Llama-3.1-8B heads, the NSA paper's settings)
 BSP_CASES = (
@@ -2664,6 +2690,10 @@ BSP_CASES = (
     ("g1_d128_bf16_ds16", 1, 128, "bfloat16", 16, 2048, 4, 4),
     ("g4_d64_f32_ds16", 4, 64, "float32", 16, 2048, 2, 4),
     ("slice_g4_d128_bf16_ds16", 4, 128, "bfloat16", 16, 8192, 8, 16),
+    # the 256 instances at the slice shape's sequence and Gemma-2-9B's
+    # heads (16 / 8, head_dim 256)
+    ("slice_g2_d256_bf16_ds16", 2, 256, "bfloat16", 16, 8192, 8, 16),
+    ("g2_d256_f32_ds16", 2, 256, "float32", 16, 2048, 2, 4),
 )
 
 
@@ -2707,10 +2737,10 @@ TF32_TAG = "_tf32_kernel"
 SPLIT_LIBRARIES = ("ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")
 # SASS opcodes of global and shared-memory atomics and reductions
 ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
-# the NSA libraries and their tensor-core (bf16) instances at d 64 and 128:
-# B13's forward, B14's dq and dk/dv walks (csrc/block_sparse_tc.cuh); their
-# float32 instances run on the CUDA cores
-BSP_TC_INSTANCES = {"block_sparse_fwd": 2, "block_sparse_bwd": 4}
+# the NSA libraries and their tensor-core (bf16) instances at d 64, 128 and
+# 256: B13's forward, B14's dq and dk/dv walks (csrc/block_sparse_tc.cuh);
+# their float32 instances run on the CUDA cores
+BSP_TC_INSTANCES = {"block_sparse_fwd": 3, "block_sparse_bwd": 6}
 
 
 def kernel_label(mangled: str) -> str:
@@ -3313,6 +3343,322 @@ def serve_pinned_phase(ctx: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Head dim 256 (ROADMAP C4b): each family's 256 instance, Gemma-2-9B
+# attention through the API with a re-keyed window, and a padded train step
+# ---------------------------------------------------------------------------
+
+# google/gemma-2-9b's attention: 16 query heads, 8 kv heads, head_dim 256,
+# attn_logit_softcapping 50, sliding_window 4096, query_pre_attn_scalar 256
+GEMMA_SEQ, GEMMA_HQ, GEMMA_HK, GEMMA_D, GEMMA_SOFTCAP, GEMMA_WINDOW = 8192, 16, 8, 256, 50.0, 4096
+BWD_MODE_SLACK = 1.05  # bwd_mode's rule: the model's pick within 5% of the faster
+
+
+def d256_phase(peaks: dict) -> dict[str, dict]:
+    """Every kernel family's 256 instance timed at a main-path shape,
+    against its plain version, with its bound: B1 bf16 at Gemma-2-9B's
+    attention (q 8192 x 16 x 256, k/v 8192 x 8 x 256, causal, no softcap)
+    against SDPA (``is_causal``, ``enable_gqa``); B1 float32 at the
+    serving prefill shape at d 256; the backward at the bf16 shape: B3 (dq)
+    + B5 (dk/dv) and B8 (fused), against SDPA's backward alone, and the
+    unpinned mode held to ``bwd_mode``'s rule (the faster where the two
+    differ by more than 5%); B10 on the decode phase's 8 slots at hq 16,
+    hk 8, d 256, float32 and bf16. B13/B14 at d 256 run in the
+    block_sparse phase. Bounds count the true work (forward 4, dq 6, dk/dv
+    8, fused 10 flops per live pair, head and d), not the halves'
+    recompute of S and dP."""
+    import torch
+    import torch.nn.functional as F
+
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, ffa_bwd_dq_kernel, ffa_bwd_dq_plain,
+        ffa_bwd_fused_kernel, ffa_bwd_fused_plain, ffa_bwd_mode, ffa_delta_plain,
+        ffa_fwd_kernel,
+    )
+    from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band
+    from magiattention_tpu_torch.kernels.paged_decode import paged_decode_kernel, paged_decode_plain
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    cases = mask_cases()
+    d = GEMMA_D
+    results = {}
+    for key in ("causal_8192_bf16", "serving_prefill_f32"):
+        c = dict(cases[key], d=d)
+        if key == "causal_8192_bf16":
+            c.update(hq=GEMMA_HQ, hk=GEMMA_HK)
+        dname = str(c["dtype"]).removeprefix("torch.")
+        (q, k, v, do), (qr, kr, lo, hi), plan, params = case_inputs(c, gen, with_do=True)
+        do = (do / 4).to(q.dtype)
+        scale = params.softmax_scale
+        out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+        plain = lambda: sdpa_attn(q, k, v, qr, kr, softmax_scale=scale, d_lo=lo, d_hi=hi)  # noqa: E731
+        err = errors(out, lse, *plain())
+        check(f"d256 {key} fwd", err, dname)
+        mask = build_dense_mask_band(qr, kr, lo, hi, c["sq"], c["sk"], device="cuda")
+        live = int(mask.sum().item())
+        hq, isz = c["hq"], q.element_size()
+        flops = 4.0 * hq * d * live
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + lse.numel() * 4
+        b_ms, b_by = fwd_bound(flops, nbytes, dname, peaks)
+        ms = time_ms(lambda: ffa_fwd_kernel(q, k, v, plan, params))
+        qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
+        causal = c.get("library") == "causal"
+        res = {"ffa_fwd": dict(
+            **err, ms=ms, plain_ms=time_ms(plain, warmup=1, samples=3), bound_ms=b_ms,
+            bound_by=b_by, share=b_ms / ms, tflops=flops / (ms * 1e-3) / 1e12,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)) if causal else None,
+        )}
+        if causal:  # the backward's 256 instances, both modes
+            delta = ffa_delta_plain(out, do)
+            args = (q, k, v, do, lse, delta, plan, params)
+            dq, (dk, dv) = ffa_bwd_dq_kernel(*args), ffa_bwd_dkv_kernel(*args)
+            want = (ffa_bwd_dq_plain(*args), *ffa_bwd_dkv_plain(*args))
+            errs = {n: grad_check(f"d256 split {n}", a, b, dname)
+                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+            fused = ffa_bwd_fused_kernel(*args)
+            errs.update({f"fused_{n}": grad_check(f"d256 fused {n}", a, b, dname)
+                         for n, a, b in zip(("dq", "dk", "dv"), fused, want)})
+            del dq, dk, dv, fused, want
+            n_q, n_kv, rows = q.numel(), k.numel(), c["sq"] * hq
+            in_bytes = (2 * n_q + 2 * n_kv) * isz + 2 * rows * 4
+            for kname, kern, plain_fn, fl, nb in (
+                ("ffa_bwd_dq", ffa_bwd_dq_kernel, ffa_bwd_dq_plain, 6.0, in_bytes + n_q * 4),
+                ("ffa_bwd_dkv", ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, 8.0, in_bytes + 2 * n_kv * 4),
+                ("ffa_bwd_fused", ffa_bwd_fused_kernel, ffa_bwd_fused_plain, 10.0,
+                 in_bytes + (n_q + 2 * n_kv) * 4),
+            ):
+                b_ms, b_by = bound(fl * hq * d * live, nb, dname, peaks)
+                ms = time_ms(lambda kern=kern: kern(*args), samples=5)
+                res[kname] = dict(
+                    ms=ms, plain_ms=time_ms(lambda p=plain_fn: p(*args), warmup=1, samples=3),
+                    bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
+                    tflops=fl * hq * d * live / (ms * 1e-3) / 1e12, library_ms=None,
+                )
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o = F.scaled_dot_product_attention(*(t.transpose(0, 1)[None] for t in (qg, kg, vg)),
+                                               is_causal=True, enable_gqa=True)
+            do_t = do.transpose(0, 1)[None]
+            sdpa_bwd = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do_t, retain_graph=True),
+                               samples=5)
+            del o
+            split_ms = res["ffa_bwd_dq"]["ms"] + res["ffa_bwd_dkv"]["ms"]
+            fused_ms = res["ffa_bwd_fused"]["ms"]
+            mode = ffa_bwd_mode(plan, params, d, d, isz, hq, c["hk"])
+            picked, other = (fused_ms, split_ms) if mode == "fused" else (split_ms, fused_ms)
+            emit({"phase": "bwd_mode", "case": "causal_8192_bf16_d256", "resolved": mode,
+                  "split_ms": split_ms, "fused_ms": fused_ms, "slack": BWD_MODE_SLACK})
+            if picked > other * BWD_MODE_SLACK:
+                raise AssertionError(
+                    f"bwd_mode d256: the model picks {mode} ({picked:.3f} ms), the other mode "
+                    f"takes {other:.3f} ms")
+            res.update(
+                bwd_errors=errs, split_ms=split_ms, sdpa_bwd_ms=sdpa_bwd, resolved_bwd_mode=mode,
+                split_bound_ms=res["ffa_bwd_dq"]["bound_ms"] + res["ffa_bwd_dkv"]["bound_ms"],
+                split_library_ms=sdpa_bwd,
+            )
+            res["ffa_bwd_fused"]["library_ms"] = sdpa_bwd
+            del qg, kg, vg, delta, args
+        res.update(case=f"{key}_d{d}", dtype=dname, q=list(q.shape), kv=list(k.shape),
+                   live_pairs=live, atol=ATOL[dname], rnorm=RNORM[dname])
+        emit({"phase": "d256_kernels", **res})
+        results[key] = res
+        del q, k, v, do, out, lse, mask
+        torch.cuda.empty_cache()
+
+    dec = {}
+    for dt in (torch.float32, torch.bfloat16):  # B10
+        dname = str(dt).removeprefix("torch.")
+        cache = decode_pages(dt, GEMMA_HK, seed=26, d=d)
+        q = torch.randn((8, GEMMA_HQ, d), generator=gen, device="cuda").to(dt)
+        kernel = lambda: paged_decode_kernel(q, cache, d ** -0.5)  # noqa: E731
+        plain = lambda: paged_decode_plain(q, cache, d ** -0.5)  # noqa: E731
+        out_k, lse_k = kernel()
+        err = errors(out_k, lse_k, *plain())
+        check(f"d256 paged_decode {dname}", err, dname)
+        nbytes = decode_bytes(q, lse_k, DECODE_LENGTHS, GEMMA_HK, 16)
+        b_ms, b_by = bound(4.0 * GEMMA_HQ * d * sum(DECODE_LENGTHS), nbytes, dname, peaks)
+        ms, dev = time_ms(kernel), graph_ms(kernel)
+        dec[dname] = dict(**err, **split_of(cache), ms=ms, device_ms=dev,
+                          plain_ms=time_ms(plain, warmup=1), bound_ms=b_ms, bound_by=b_by,
+                          share=b_ms / dev, gb_s=nbytes / (ms * 1e-3) / 1e9, library_ms=None)
+        del cache
+    emit({"phase": "d256_kernels", "case": f"decode_8slots_d{d}", "q_heads": GEMMA_HQ,
+          "kv_heads": GEMMA_HK, "lengths": DECODE_LENGTHS, "paged_decode": dec})
+    results["paged_decode"] = dec
+    torch.cuda.empty_cache()
+    return results
+
+
+def hybrid_d256_phase(peaks: dict) -> dict:
+    """Gemma-2-9B attention through the API at cp 1, at full width (bf16,
+    hq 16, hk 8, d 256, softcap 50, scale 256^-0.5) over 8192 tokens in one
+    causal document: the dispatch key is the global causal mask
+    (``magi_attn_varlen_key``), re-keyed by
+    ``make_varlen_key_for_new_mask_after_dispatch`` to the 4096-token
+    sliding window ``(4095, 0)``, whose partitions must equal the dispatch
+    key's. Through each key, q/k/v dispatched by the first: ``calc_attn``,
+    ``undispatch`` and the backward, against ``sdpa_attn`` (the plain
+    version) on the key's own mask under autograd, at the bf16 gates;
+    fwd+bwd ms, the bound (4 + 10 flops per live pair, head and d; the split
+    mode 4 + 14) and the share for each key, and the launches of the
+    resolved kernels (counts reset just before each run). The API takes
+    no softcap (as the JAX package's), so each key's runtime gets it."""
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
+    from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band, types_to_bands
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+
+    s, hq, hk, d = GEMMA_SEQ, GEMMA_HQ, GEMMA_HK, GEMMA_D
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    shapes = ((s, hq, d), (s, hk, d), (s, hk, d))
+    inputs = [torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in shapes]
+    do = (torch.randn(shapes[0], generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    key_g = api.magi_attn_varlen_key([0, s], causal=True)
+    key_w = api.make_varlen_key_for_new_mask_after_dispatch(
+        [0, s], [0, s], key_g, causal=False, window_size=(GEMMA_WINDOW - 1, 0))
+    plan_s = time.perf_counter() - t0
+    parts = [list(p) for p in _mgr(key_g).dispatch_meta_q.partitions]
+    if [list(p) for p in key_w.fixed_partitions] != parts or (
+            [list(p) for p in _mgr(key_w).dispatch_meta_q.partitions] != parts):
+        raise AssertionError("hybrid_d256: the re-keyed partitions differ from the dispatch key's")
+    res = dict(
+        model="google/gemma-2-9b attention: 16/8 heads, head_dim 256, softcap 50, "
+              "scale 256^-0.5, sliding window 4096 beside global causal",
+        shape=f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, one causal document",
+        cp=1, plan_s=plan_s, partitions=len(parts),
+    )
+    for name, key in (("global", key_g), ("window", key_w)):
+        runtime = _mgr(key).runtime
+        runtime.softcap = GEMMA_SOFTCAP  # the API takes none: the runtime's field
+        mode = ffa_bwd_mode(runtime.plans[0], runtime._params(d)[0], d, d, 2, hq, hk)
+
+        def api_path():
+            q, k, v = (t.detach().requires_grad_(True) for t in inputs)
+            out_d, _ = api.calc_attn(api.dispatch(q, key_g), api.dispatch(k, key_g, role="kv"),
+                                     api.dispatch(v, key_g, role="kv"), key)
+            out = api.undispatch(out_d, key)
+            return (out, *torch.autograd.grad(out, (q, k, v), do))
+
+        qr, kr = np.array(key.q_ranges), np.array(key.k_ranges)
+        types = np.array(key.attn_mask_type)
+
+        def plain_path():
+            q, k, v = (t.detach().requires_grad_(True) for t in inputs)
+            out, _ = sdpa_attn(q, k, v, qr, kr, attn_type_map=types, softcap=GEMMA_SOFTCAP)
+            return (out, *torch.autograd.grad(out, (q, k, v), do))
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = api_path()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expected = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(mode))
+        if any(counts[k] != 1 for k in expected) or any(counts[k] for k in PLAIN_NAMES):
+            raise AssertionError(f"hybrid_d256 {name}: launched {counts}, want one of {expected}")
+        want = plain_path()
+        err = {n: grad_check(f"hybrid_d256 {name} {n}", a.float(), b.float(), "bfloat16")
+               for n, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+        del got, want
+        lo, hi = types_to_bands(qr.astype(np.int32), kr.astype(np.int32), types.astype(np.int32))
+        mask = build_dense_mask_band(qr, kr, lo, hi, s, s, device="cuda")
+        live = int(mask.sum().item())
+        del mask
+        flops = (4.0 + (10.0 if mode == "fused" else 14.0)) * hq * d * live
+        nbytes = (4 * inputs[0].numel() + 4 * inputs[1].numel()) * 2 + 2 * s * hq * 4
+        b_ms, b_by = bound(flops, nbytes, "bfloat16", peaks)
+        ms = time_ms(api_path, samples=5)
+        res[name] = dict(
+            resolved_bwd_mode=mode, live_pairs=live, launches={k: v for k, v in counts.items() if v},
+            vs_plain=err, fwd_bwd_ms=ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
+            tflops=flops / (ms * 1e-3) / 1e12,
+        )
+        torch.cuda.empty_cache()
+    res.update(atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"])
+    emit({"phase": "hybrid_d256", **res})
+    return res
+
+
+# train_padded: two documents of 4096 and 3904 tokens, padded to 8192
+PAD_DOCS, PAD_CHUNK = (4096, 3904), 512
+
+
+def train_padded_phase(train: dict) -> dict:
+    """The Llama trainer at the train phase's widths (2 layers, bf16, seed
+    0) on 8000 tokens in two documents (4096 + 3904), padded to 8192 with
+    ``compute_pad_size`` / ``apply_padding`` / ``pad_at_dim`` at chunk 512
+    and cp 1, labels -100 on the pad rows: one step, its loss within rel
+    1e-2 of the unpadded 8000-token step's, and the attention output of the
+    pad rows 0 (lse -inf) through the padded key; its step ms beside the
+    train phase's."""
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.functools import infer_attn_mask_from_cu_seqlens
+    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.models.llama import LlamaConfig, init_params, train_step, value_and_grad
+
+    cfg = LlamaConfig(
+        vocab_size=128256, dim=4096, n_layers=TRAIN_LAYERS, n_heads=32, n_kv_heads=8,
+        head_dim=128, ffn_hidden=14336, rope_theta=500000.0, norm_eps=1e-5, dtype="bfloat16",
+    )
+    params = init_params(cfg, seed=0, device="cuda")
+    s = sum(PAD_DOCS)
+    cu = [0, PAD_DOCS[0], s]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (s,), generator=gen, device="cuda")
+    labels = torch.roll(tokens, -1).clone()
+    labels[torch.tensor(cu[1:], device="cuda") - 1] = -100  # each document's end
+    qr, kr, types = infer_attn_mask_from_cu_seqlens(cu, causal=True)
+    key_u = api.magi_attn_flex_key(qr, kr, types, s, s)
+    loss_u, _ = value_and_grad(params, cfg, tokens, labels, key_u)
+    loss_u = loss_u.item()
+    pad = api.compute_pad_size(s, 1, PAD_CHUNK)
+    qr_p, kr_p, types_p = api.apply_padding(qr, kr, types, s, pad)
+    key_p = api.magi_attn_flex_key(qr_p, kr_p, types_p, s + pad, s + pad, chunk_size=PAD_CHUNK)
+    tokens_p = api.pad_at_dim(tokens, 0, pad)
+    labels_p = api.pad_at_dim(labels, 0, pad, value=-100)
+    # the pad rows' attention through the padded key: out 0, lse -inf
+    att = [torch.randn((s + pad, h, cfg.head_dim), generator=gen, device="cuda").to(torch.bfloat16)
+           for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    out_d, meta = api.calc_attn(api.dispatch(att[0], key_p), api.dispatch(att[1], key_p, role="kv"),
+                                api.dispatch(att[2], key_p, role="kv"), key_p)
+    out = api.undispatch(out_d, key_p)
+    lse = api.undispatch(meta.lse, key_p)
+    if out[s:].any() or not torch.isneginf(lse[s:]).all():
+        raise AssertionError("train_padded: the pad rows' attention is not (0, -inf)")
+    del att, out_d, out, lse
+    train_step(params, cfg, tokens_p, labels_p, key_p, lr=0.0)  # warm: plans, shapes
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, loss_p = train_step(params, cfg, tokens_p, labels_p, key_p, lr=TRAIN_LR)
+    loss_p = loss_p.item()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    counts = {k: v for k, v in launch_counts().items() if v}
+    rel = abs(loss_p - loss_u) / abs(loss_u)
+    if not np.isfinite(loss_p) or rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train_padded: loss {loss_p} vs unpadded {loss_u} (rel {rel:.3e})")
+    if not counts.get("ffa_fwd"):
+        raise AssertionError(f"train_padded: no FFA launch: {counts}")
+    res = dict(
+        tokens=s, documents=list(PAD_DOCS), pad=pad, padded_tokens=s + pad, chunk=PAD_CHUNK,
+        loss_padded=loss_p, loss_unpadded=loss_u, loss_rel_err=rel, loss_rtol=TRAIN_LOSS_RTOL,
+        step_ms=ms, train_step_ms=train["steps"][-1]["ms"], launches=counts,
+    )
+    emit({"phase": "train_padded", **res})
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
     return {
         "name": name, "route": "cuda",
@@ -3383,6 +3729,9 @@ def main() -> int:
     deterministic_phase()
     cp_stages_phase()
     train = train_phase()
+    train_padded_phase(train)
+    d256_phase(peaks)
+    hybrid_d256_phase(peaks)
     bsp = block_sparse_phase(peaks)["slice_g4_d128_bf16_ds16"]
     nsa = nsa_phase()
 

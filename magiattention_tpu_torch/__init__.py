@@ -20,7 +20,11 @@ from .api import (  # noqa: F401
     calc_attn,
     dispatch,
     get_position_ids,
+    init_dist_attn_runtime_key,
+    init_dist_attn_runtime_mgr,
+    magi_attn_flex_dispatch,
     magi_attn_flex_key,
+    magi_attn_varlen_dispatch,
     magi_attn_varlen_key,
     undispatch,
 )
@@ -44,7 +48,11 @@ __all__ = [
     "ffa_attn",
     "flex_flash_attn_func",
     "get_position_ids",
+    "init_dist_attn_runtime_key",
+    "init_dist_attn_runtime_mgr",
+    "magi_attn_flex_dispatch",
     "magi_attn_flex_key",
+    "magi_attn_varlen_dispatch",
     "magi_attn_varlen_key",
     "paged_attn",
     "paged_decode_attn",

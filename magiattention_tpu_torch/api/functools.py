@@ -2,16 +2,26 @@
 ``magiattention_tpu/api/functools.py``; ref: magi_attention/api/functools.py).
 
 The mask compilers that ``magi_attn_varlen_key`` calls (cu_seqlens ->
-slices :335, sliding-window -> slices :180). Pure host code. The padding
-and batch-packing helpers are not ported yet (ROADMAP).
+slices :335, sliding-window -> slices :180) and the padding and
+batch-packing helpers (:27-178): host code, with PyTorch's idiom where a
+tensor appears (``pad_at_dim``, ``unpad_at_dim``, ``squash_batch_dim``).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+import torch.nn.functional as F
+
 from ..common.enum import AttnMaskType
 from ..common.ranges import AttnRanges
+
+
+def compute_pad_size(total_seqlen_q: int, cp_size: int, chunk_size: int) -> int:
+    """Rows to append so the sequence divides evenly into cp_size * chunks."""
+    block = cp_size * chunk_size
+    return (-total_seqlen_q) % block
 
 
 def infer_attn_mask_from_cu_seqlens(
@@ -106,6 +116,37 @@ def infer_attn_mask_from_cu_seqlens(
         _compile_band(qs, qe, ks + g, ke, diag_c - lw_l, diag_c + rw_l,
                       emit)
     return out_q, out_k, out_t
+
+
+def infer_varlen_mask_from_batch(batch_size: int, seq_len: int) -> tuple[list[int], list[int]]:
+    """Fixed-length batch -> varlen cu_seqlens (ref functools.py:68): the
+    packed-layout cumulative boundaries [0, s, 2s, ..., b*s] for q and k.
+    Host lists: they feed the host planners."""
+    cu = [i * seq_len for i in range(batch_size + 1)]
+    return cu, list(cu)
+
+
+def apply_padding(
+    q_ranges: AttnRanges,
+    k_ranges: AttnRanges,
+    attn_mask_type: list[AttnMaskType],
+    total_seqlen: int,
+    pad_size: int,
+) -> tuple[AttnRanges, AttnRanges, list[AttnMaskType]]:
+    """Append a padding q range attending an empty k range (ref :142).
+
+    The pad rows [total_seqlen, total_seqlen + pad_size) get a dummy
+    zero-length k range + FULL type: they produce out=0 / lse=-inf and are
+    sliced off by :func:`unpad_at_dim` after undispatch."""
+    if pad_size <= 0:
+        return q_ranges, k_ranges, list(attn_mask_type)
+    qr = q_ranges.to_naive_ranges() + [(total_seqlen, total_seqlen + pad_size)]
+    kr = k_ranges.to_naive_ranges() + [(0, 0)]
+    return (
+        AttnRanges.from_ranges(qr),
+        AttnRanges.from_ranges(kr),
+        list(attn_mask_type) + [AttnMaskType.FULL],
+    )
 
 
 def _compile_band(qs, qe, ks, ke, lo, hi, emit):
@@ -228,3 +269,31 @@ def infer_attn_mask_from_sliding_window(
             _compile_band(qv0, qe, ks, ke, lo, hi, emit)
     return out_q, out_k, out_t
 
+
+def pad_at_dim(x: torch.Tensor, dim: int, pad: int, value: float = 0.0) -> torch.Tensor:
+    """``x`` with ``pad`` rows of ``value`` appended along ``dim``."""
+    if pad == 0:
+        return x
+    dim = dim % x.dim()
+    widths = [0, 0] * (x.dim() - 1 - dim) + [0, pad]  # F.pad: last dim first
+    return F.pad(x, widths, value=value)
+
+
+def unpad_at_dim(x: torch.Tensor, dim: int, orig_len: int) -> torch.Tensor:
+    """The first ``orig_len`` rows of ``x`` along ``dim`` (a view)."""
+    return x.narrow(dim, 0, orig_len)
+
+
+def squash_batch_dim(x: torch.Tensor) -> torch.Tensor:
+    """(b, s, ...) -> (b*s, ...) — batch -> varlen packing (ref :54-92)."""
+    return x.reshape(-1, *x.shape[2:])
+
+
+def full_attention_mask(
+    total_seqlen_q: int, total_seqlen_k: int, causal: bool = False
+) -> tuple[AttnRanges, AttnRanges, list[AttnMaskType]]:
+    """Single-slice metadata covering the whole (sq, sk) plane."""
+    q_ranges = AttnRanges.from_ranges([(0, total_seqlen_q)])
+    k_ranges = AttnRanges.from_ranges([(0, total_seqlen_k)])
+    t = AttnMaskType.CAUSAL if causal else AttnMaskType.FULL
+    return q_ranges, k_ranges, [t]

@@ -11,6 +11,14 @@ process holds its own rank: ``dispatch`` returns this rank's rows,
 ``calc_attn`` takes and returns them, ``undispatch`` gives every rank the
 whole natural-order tensor. Tensor parallelism over heads (``head_axis``)
 is not ported yet.
+
+Hybrid-attention models (e.g. sliding-window layers beside global ones)
+plan one mask for the dispatch and re-key the others onto its layout
+(``make_flex_key_for_new_mask_after_dispatch`` /
+``make_varlen_key_for_new_mask_after_dispatch``). A sequence that does not
+divide into ``cp_size * chunk_size`` is padded first: ``compute_pad_size``
+and ``apply_padding`` (``api/functools.py``), or ``pad_size`` of
+``init_dist_attn_runtime_key``.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from ..dist_attn_runtime_mgr import (
 )
 from ..env import general as env_general
 from ..kernels.mask_utils import types_to_bands
-from .functools import infer_attn_mask_from_cu_seqlens
+from .functools import apply_padding, infer_attn_mask_from_cu_seqlens
 
 
 def _check_no_overlapping_slices(q_ranges, k_ranges, mask_ints) -> None:
@@ -71,6 +79,7 @@ def _check_no_overlapping_slices(q_ranges, k_ranges, mask_ints) -> None:
 
 
 _runtime_dict = DistAttnRuntimeDict()
+_most_recent_key: DistAttnRuntimeKey | None = None
 
 
 def _auto_chunk_size(total_seqlen: int, cp_size: int, uneven_shard: bool = False) -> int:
@@ -137,6 +146,7 @@ def magi_attn_flex_key(
     ``total_seqlen_q`` must divide into ``cp_size * chunk_size`` (pad the
     sequence first).
     """
+    global _most_recent_key
     if head_axis is not None:
         raise NotImplementedError(
             "head_axis (tensor parallelism over heads) is not ported yet"
@@ -176,6 +186,7 @@ def magi_attn_flex_key(
         env_snapshot=env_general.snapshot_env(),
     )
     _runtime_dict.get_or_create(key)
+    _most_recent_key = key
     return key
 
 
@@ -204,6 +215,74 @@ def magi_attn_varlen_key(
         total_seqlen_q=q_ranges.end, total_seqlen_k=k_ranges.end,
         cp_group=cp_group, device=device, head_axis=head_axis,
         chunk_size=chunk_size, dist_attn_config=dist_attn_config,
+    )
+
+
+def make_flex_key_for_new_mask_after_dispatch(
+    q_ranges: AttnRanges | Sequence[Sequence[int]],
+    k_ranges: AttnRanges | Sequence[Sequence[int]],
+    attn_mask_type: Sequence[AttnMaskType | str | int],
+    key_for_dispatch: DistAttnRuntimeKey,
+    dist_attn_config: DistAttnConfig | None = None,
+) -> DistAttnRuntimeKey:
+    """A key for a new mask over the same dispatch (ref :1320).
+
+    For hybrid-attention models applying several masks in one pass: one
+    mask is planned for the dispatch (load balance and communication
+    follow it); the others keep its chunk -> rank assignment (its
+    ``fixed_partitions``, with its capacity vector) and get fresh
+    communication and calc plans, so tensors dispatched by
+    ``key_for_dispatch`` feed ``calc_attn`` under the new key as they are.
+    No balance guarantee for the extra masks."""
+    global _most_recent_key
+    mgr0 = _mgr(key_for_dispatch)
+    if not isinstance(q_ranges, AttnRanges):
+        q_ranges = AttnRanges.from_ranges(q_ranges)
+    if not isinstance(k_ranges, AttnRanges):
+        k_ranges = AttnRanges.from_ranges(k_ranges)
+    mask_ints = tuple(AttnMaskType.normalize(t).to_int_type() for t in attn_mask_type)
+    old = key_for_dispatch
+    # the same rules as magi_attn_flex_key: the new mask must fit the
+    # layout planned by key_for_dispatch
+    _validate_mask_inputs(q_ranges, k_ranges, mask_ints, old.total_seqlen_q, old.total_seqlen_k)
+    key = DistAttnRuntimeKey(
+        q_ranges=tuple(q_ranges.to_naive_ranges()),
+        k_ranges=tuple(k_ranges.to_naive_ranges()),
+        attn_mask_type=mask_ints,
+        total_seqlen_q=old.total_seqlen_q,
+        total_seqlen_k=old.total_seqlen_k,
+        chunk_size=old.chunk_size,
+        cp_size=old.cp_size,
+        cp_rank=old.cp_rank,
+        cp_group=old.cp_group,
+        device=old.device,
+        config=dist_attn_config or old.config,
+        env_snapshot=env_general.snapshot_env(),
+        fixed_partitions=tuple(tuple(p) for p in mgr0.dispatch_meta_q.partitions),
+        capacities=old.capacities,
+    )
+    _runtime_dict.get_or_create(key)
+    _most_recent_key = key
+    return key
+
+
+def make_varlen_key_for_new_mask_after_dispatch(
+    cu_seqlens_q: Sequence[int],
+    cu_seqlens_k: Sequence[int] | None,
+    key_for_dispatch: DistAttnRuntimeKey,
+    causal: bool = False,
+    window_size: tuple[int, int] = (-1, -1),
+    global_window_size: int = 0,
+    dist_attn_config: DistAttnConfig | None = None,
+) -> DistAttnRuntimeKey:
+    """The varlen form of re-keying (ref :1172): the mask compiles as
+    :func:`magi_attn_varlen_key` compiles it (windows, global tokens)."""
+    q_ranges, k_ranges, types = infer_attn_mask_from_cu_seqlens(
+        cu_seqlens_q, cu_seqlens_k, causal,
+        window_size=window_size, global_window_size=global_window_size,
+    )
+    return make_flex_key_for_new_mask_after_dispatch(
+        q_ranges, k_ranges, types, key_for_dispatch, dist_attn_config
     )
 
 
@@ -250,6 +329,100 @@ def get_position_ids(key: DistAttnRuntimeKey) -> torch.Tensor:
     """The global position of each of this rank's dispatched rows (for
     RoPE): ``[shard]`` int64 on the key's device."""
     return _mgr(key).get_position_ids()
+
+
+def magi_attn_flex_dispatch(
+    x: torch.Tensor,
+    q_ranges,
+    k_ranges,
+    attn_mask_type,
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    **key_kwargs,
+) -> tuple[torch.Tensor, DistAttnRuntimeKey]:
+    """Key + dispatch in one call: ``(this rank's rows of x, key)`` (ref
+    :730; keyword arguments as :func:`magi_attn_flex_key` takes them)."""
+    key = magi_attn_flex_key(
+        q_ranges, k_ranges, attn_mask_type, total_seqlen_q, total_seqlen_k, **key_kwargs
+    )
+    return dispatch(x, key), key
+
+
+def magi_attn_varlen_dispatch(
+    x: torch.Tensor, cu_seqlens_q, cu_seqlens_k=None, **key_kwargs
+) -> tuple[torch.Tensor, DistAttnRuntimeKey]:
+    """Key + dispatch for cu_seqlens masks: ``(this rank's rows of x,
+    key)`` (ref :307; keyword arguments as :func:`magi_attn_varlen_key`)."""
+    key = magi_attn_varlen_key(cu_seqlens_q, cu_seqlens_k, **key_kwargs)
+    return dispatch(x, key), key
+
+
+def get_most_recent_key() -> DistAttnRuntimeKey | None:
+    """The key the last key call of this process planned (or re-keyed)."""
+    return _most_recent_key
+
+
+def init_dist_attn_runtime_key(
+    q_ranges: AttnRanges | Sequence[Sequence[int]],
+    k_ranges: AttnRanges | Sequence[Sequence[int]],
+    attn_mask_type: Sequence[AttnMaskType | str | int],
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    chunk_size: int,
+    *,
+    cp_group=None,
+    device: torch.device | str | None = None,
+    head_axis: str | None = None,
+    pad_size: int = 0,
+    dist_attn_config: DistAttnConfig | None = None,
+) -> DistAttnRuntimeKey:
+    """Reference-named runtime-key init (ref dist_attn_runtime_mgr.py:486):
+    :func:`magi_attn_flex_key` with ``pad_size > 0`` applying
+    :func:`.functools.apply_padding` to the mask first (the pad rows
+    attend nothing) and growing both totals by it. The reference's head
+    counts and head dim are not needed: the kernels take them from the
+    tensors."""
+    if not isinstance(q_ranges, AttnRanges):
+        q_ranges = AttnRanges.from_ranges(q_ranges)
+    if not isinstance(k_ranges, AttnRanges):
+        k_ranges = AttnRanges.from_ranges(k_ranges)
+    mask_types = [AttnMaskType.normalize(t) for t in attn_mask_type]
+    if pad_size > 0:
+        q_ranges, k_ranges, mask_types = apply_padding(
+            q_ranges, k_ranges, mask_types, total_seqlen_q, pad_size
+        )
+        total_seqlen_q += pad_size
+        total_seqlen_k += pad_size
+    return magi_attn_flex_key(
+        q_ranges, k_ranges, mask_types, total_seqlen_q, total_seqlen_k,
+        cp_group=cp_group, device=device, head_axis=head_axis,
+        chunk_size=chunk_size, dist_attn_config=dist_attn_config,
+    )
+
+
+def init_dist_attn_runtime_mgr(
+    q_ranges: AttnRanges | Sequence[Sequence[int]],
+    k_ranges: AttnRanges | Sequence[Sequence[int]],
+    attn_mask_type: Sequence[AttnMaskType | str | int],
+    total_seqlen_q: int,
+    total_seqlen_k: int,
+    chunk_size: int,
+    *,
+    cp_group=None,
+    device: torch.device | str | None = None,
+    head_axis: str | None = None,
+    pad_size: int = 0,
+    dist_attn_config: DistAttnConfig | None = None,
+) -> DistAttnRuntimeMgr:
+    """Reference-named manager init (ref dist_attn_runtime_mgr.py:558):
+    plans the mask as :func:`init_dist_attn_runtime_key` does and returns
+    the manager itself (from the same cache as the key API)."""
+    key = init_dist_attn_runtime_key(
+        q_ranges, k_ranges, attn_mask_type, total_seqlen_q, total_seqlen_k, chunk_size,
+        cp_group=cp_group, device=device, head_axis=head_axis, pad_size=pad_size,
+        dist_attn_config=dist_attn_config,
+    )
+    return _mgr(key)
 
 
 def clear_cache() -> None:

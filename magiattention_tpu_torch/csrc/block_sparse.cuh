@@ -9,7 +9,8 @@
 // GQA group of kv head h), so q, dO, out, dq, lse and delta are read and
 // written straight in their (S, h, d) / (S, h) layouts, with no transposed
 // copy. A CTA takes 64 of the r rows (blockIdx.z) and walks the table row
-// 64 keys at a time.
+// 64 keys at a time. At d = 256 every kernel also splits the columns it
+// writes in two 128-column halves, one a CTA (BSP_DV).
 #pragma once
 
 #include "common.cuh"
@@ -43,8 +44,9 @@ __device__ __forceinline__ void step_keys(int* krow, const int* tbl_row,
 }
 
 // 64 rows of D values into dst (row stride D + 4, float32): tile row r
-// from src + off(r) * D, zeros where off(r) < 0. All threads take part.
-template <typename T, int D, typename Off>
+// from src + off(r) * LD (rows LD values wide: a D-column chunk of a wider
+// row where LD > D), zeros where off(r) < 0. All threads take part.
+template <typename T, int D, int LD = D, typename Off>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           const Off& off) {
   constexpr int VEC = magi::Vec<T>::N;
@@ -57,7 +59,7 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
     const int i = threadIdx.x + it * BSP_NT;
     const int r = i / CPR, c = (i % CPR) * VEC;
     const long o = off(r);
-    raw[it] = o >= 0 ? magi::ldg16(src + o * D + c)
+    raw[it] = o >= 0 ? magi::ldg16(src + o * LD + c)
                      : make_uint4(0u, 0u, 0u, 0u);
   }
 #pragma unroll
@@ -67,6 +69,13 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
     magi::Vec<T>::to_f32(raw[it], dst + r * DS + c, 1.f);
   }
 }
+
+// The output columns one CTA writes (a 128-column half at D = 256), and
+// the halves of a row.
+template <int D>
+constexpr int BSP_DV = D > 128 ? 128 : D;
+template <int D>
+constexpr int BSP_NCH = D / BSP_DV<D>;
 
 // The (S, hk) row of each gathered key slot of kv head h.
 struct KeyMap {

@@ -61,6 +61,14 @@
 // the dS^T tile, the rows' lse and delta, 64 key rows), dk/dv walk 173 KB
 // (K, V, Q, dO, the P^T and dS^T tiles, lse, delta, the weights): one CTA
 // per SM; the bf16 bodies' in their header.
+//
+// At d = 256 every walk takes one 128-column half of what it writes (dq in
+// grid z = row tile * 2 + half, dk and dv in grid y). The float32 bodies
+// then chunk the contraction too: four 256-wide tiles would not fit, so
+// each step loads Q, dO, K and V 128 columns at a time (the other half
+// first, its own last) and adds each chunk's products into S^T and dP^T;
+// the products after it read the chunks left in shared memory, its own
+// half. Their tiles stay 128 wide.
 #include <type_traits>
 
 #include "block_sparse.cuh"
@@ -72,7 +80,7 @@ using magi::LOG2E;
 
 template <int D>
 struct DqSmemF32 {
-  static constexpr int DS = D + 4;
+  static constexpr int DS = BSP_DV<D> + 4;  // tiles are a chunk wide
   static constexpr int PSTR = BSP_ROWS + 16;  // row stride of dS^T
   static constexpr size_t bytes =
       sizeof(float) * (2 * BSP_ROWS * DS + 2 * BSP_KEYS * DS +
@@ -82,7 +90,7 @@ struct DqSmemF32 {
 
 template <int D>
 struct DkvSmemF32 {
-  static constexpr int DS = D + 4;
+  static constexpr int DS = BSP_DV<D> + 4;  // tiles are a chunk wide
   static constexpr int PSTR = BSP_ROWS + 16;  // row stride of P^T, dS^T
   static constexpr size_t bytes =
       sizeof(float) * (2 * BSP_KEYS * DS + 2 * BSP_ROWS * DS +
@@ -101,20 +109,27 @@ __device__ __forceinline__ float lane(const float4& a, int e) {
   return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
 }
 
-// This thread's 4 x 4 blocks of S^T = K Q^T and dP^T = V dO^T: key slots
-// ty + 16 i (rows of Ks, Vs), query rows tx + 16 j (rows of Qs, dOs).
-template <int D>
-__device__ __forceinline__ void scores_t(float (&s)[4][4], float (&dp)[4][4],
-                                         const float* Ks, const float* Vs,
-                                         const float* Qs, const float* dOs,
-                                         int tx, int ty) {
-  constexpr int DS = D + 4;
+__device__ __forceinline__ void zero_blocks(float (&s)[4][4],
+                                            float (&dp)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+}
+
+// This thread's 4 x 4 blocks of S^T = K Q^T and dP^T = V dO^T, added to s
+// and dp over the W columns of the tiles (row stride W + 4): key slots
+// ty + 16 i (rows of Ks, Vs), query rows tx + 16 j (rows of Qs, dOs).
+template <int W>
+__device__ __forceinline__ void scores_t_acc(float (&s)[4][4],
+                                             float (&dp)[4][4],
+                                             const float* Ks, const float* Vs,
+                                             const float* Qs,
+                                             const float* dOs, int tx,
+                                             int ty) {
+  constexpr int DS = W + 4;
 #pragma unroll 2
-  for (int dd = 0; dd < D; dd += 4) {
+  for (int dd = 0; dd < W; dd += 4) {
     float4 a[4], c4[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -139,6 +154,15 @@ __device__ __forceinline__ void scores_t(float (&s)[4][4], float (&dp)[4][4],
   }
 }
 
+template <int D>
+__device__ __forceinline__ void scores_t(float (&s)[4][4], float (&dp)[4][4],
+                                         const float* Ks, const float* Vs,
+                                         const float* Qs, const float* dOs,
+                                         int tx, int ty) {
+  zero_blocks(s, dp);
+  scores_t_acc<D>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
+}
+
 // The dq walk, float32: one CTA per 64 query rows of (kv head, q block).
 template <int D>
 __global__ void __launch_bounds__(BSP_NT, 1)
@@ -150,9 +174,11 @@ __global__ void __launch_bounds__(BSP_NT, 1)
                       const int* __restrict__ tbl, float* __restrict__ dq,
                       int hq, int hk, int bq, int n_qb, int C, int ds,
                       float scale) {
+  constexpr int DC = BSP_DV<D>;  // tile width, and dq columns of this CTA
+  constexpr int NC = BSP_NCH<D>;
   constexpr int DS = DqSmemF32<D>::DS;
   constexpr int PSTR = DqSmemF32<D>::PSTR;
-  constexpr int CG = D / 64;  // float4 column groups a thread owns
+  constexpr int CG = DC / 64;  // float4 column groups a thread owns
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + BSP_ROWS * DS;
@@ -164,7 +190,8 @@ __global__ void __launch_bounds__(BSP_NT, 1)
   int* krow = reinterpret_cast<int*>(Dls + BSP_ROWS);
 
   const int b = blockIdx.x, h = blockIdx.y;
-  const int row0 = blockIdx.z * BSP_ROWS;
+  const int row0 = (int)(blockIdx.z / NC) * BSP_ROWS;
+  const int ch = NC > 1 ? (int)(blockIdx.z % NC) : 0;  // the dq column half
   const int g = hq / hk;
   const RowMap rows{b, h, bq, g, hq, bq * g};
   const int n_keys = C * ds;
@@ -172,8 +199,10 @@ __global__ void __launch_bounds__(BSP_NT, 1)
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const auto row_of = [&](int r) { return rows(row0 + r); };
 
-  load_rows<float, D>(Qs, q, row_of);
-  load_rows<float, D>(dOs, dout, row_of);
+  if constexpr (NC == 1) {
+    load_rows<float, D>(Qs, q, row_of);
+    load_rows<float, D>(dOs, dout, row_of);
+  }
   if (tid < BSP_ROWS) {
     const long row = row_of(tid);
     Ls[tid] = row < 0 ? -INFINITY : lse[row] * LOG2E;  // -inf: dead row
@@ -192,13 +221,28 @@ __global__ void __launch_bounds__(BSP_NT, 1)
     __syncthreads();  // the previous step is done with the tiles and krow
     step_keys(krow, tbl_row, k0, n_keys, ds);
     __syncthreads();
-    load_rows<float, D>(Ks, k, keys);
-    load_rows<float, D>(Vs, v, keys);
-    __syncthreads();
 
     {  // dS^T of this thread's 4 key slots x 4 query rows
       float s[4][4], dp[4][4];
-      scores_t<D>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
+      if constexpr (NC == 1) {
+        load_rows<float, D>(Ks, k, keys);
+        load_rows<float, D>(Vs, v, keys);
+        __syncthreads();
+        scores_t<D>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
+      } else {  // chunk by chunk, this CTA's half last
+        zero_blocks(s, dp);
+#pragma unroll 1
+        for (int ci = 0; ci < NC; ++ci) {
+          const int c = (ch + 1 + ci) % NC;  // ci = NC - 1: c = ch
+          if (ci > 0) __syncthreads();  // the last chunk's products are done
+          load_rows<float, DC, D>(Qs, q + c * DC, row_of);
+          load_rows<float, DC, D>(dOs, dout + c * DC, row_of);
+          load_rows<float, DC, D>(Ks, k + c * DC, keys);
+          load_rows<float, DC, D>(Vs, v + c * DC, keys);
+          __syncthreads();
+          scores_t_acc<DC>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int slot = ty + 16 * i;
@@ -242,7 +286,7 @@ __global__ void __launch_bounds__(BSP_NT, 1)
   for (int i = 0; i < 4; ++i) {
     const long row = row_of(ty + 16 * i);
     if (row < 0) continue;
-    float* o = dq + row * D;
+    float* o = dq + row * D + ch * DC;
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg)
       *reinterpret_cast<float4*>(o + cg * 64 + tx * 4) = make_float4(
@@ -268,9 +312,11 @@ __global__ void __launch_bounds__(BSP_NT, 1)
                        const int* __restrict__ vmult, float* __restrict__ dk,
                        float* __restrict__ dv, int hq, int hk, int bq, int S,
                        int ds, int M, int n_tiles, float scale) {
+  constexpr int DC = BSP_DV<D>;  // tile width, and dk / dv columns of a CTA
+  constexpr int NC = BSP_NCH<D>;
   constexpr int DS = DkvSmemF32<D>::DS;
   constexpr int PSTR = DkvSmemF32<D>::PSTR;
-  constexpr int CG = D / 64;
+  constexpr int CG = DC / 64;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + BSP_KEYS * DS;
@@ -289,12 +335,15 @@ __global__ void __launch_bounds__(BSP_NT, 1)
   const int chunk0 = k0 / ds;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const float qk_scale = scale * LOG2E;
+  const int ch = NC > 1 ? (int)blockIdx.y : 0;  // the dk / dv column half
 
   const auto key_of = [&](int r) {
     return r < n_valid ? (long)(k0 + r) * hk + h : -1L;
   };
-  load_rows<float, D>(Ks, k, key_of);
-  load_rows<float, D>(Vs, v, key_of);
+  if constexpr (NC == 1) {
+    load_rows<float, D>(Ks, k, key_of);
+    load_rows<float, D>(Vs, v, key_of);
+  }
 
   float dk_acc[4][4 * CG], dv_acc[4][4 * CG];
 #pragma unroll
@@ -307,24 +356,43 @@ __global__ void __launch_bounds__(BSP_NT, 1)
     const RowMap rows{vq[vi], h, bq, g, hq, r_total};
     for (int row0 = 0; row0 < r_total; row0 += BSP_ROWS) {
       const auto row_of = [&](int r) { return rows(row0 + r); };
-      __syncthreads();  // the previous step is done with its tiles
-      load_rows<float, D>(Qs, q, row_of);
-      load_rows<float, D>(dOs, dout, row_of);
-      if (tid < BSP_ROWS) {
-        const long row = row_of(tid);
-        Ls[tid] = row < 0 ? -INFINITY : lse[row] * LOG2E;  // -inf: dead row
-        Dls[tid] = row < 0 ? 0.f : delta[row];
-      } else if (tid < BSP_ROWS + BSP_KEYS) {
-        const int j = tid - BSP_ROWS;  // key rows past S weigh 0
-        Ws[j] = j < n_valid
-                    ? (float)vmult[(long)vi * M + (k0 + j) / ds - chunk0]
-                    : 0.f;
+      const auto load_stats = [&]() {
+        if (tid < BSP_ROWS) {
+          const long row = row_of(tid);
+          Ls[tid] = row < 0 ? -INFINITY : lse[row] * LOG2E;  // -inf: dead
+          Dls[tid] = row < 0 ? 0.f : delta[row];
+        } else if (tid < BSP_ROWS + BSP_KEYS) {
+          const int j = tid - BSP_ROWS;  // key rows past S weigh 0
+          Ws[j] = j < n_valid
+                      ? (float)vmult[(long)vi * M + (k0 + j) / ds - chunk0]
+                      : 0.f;
+        }
+      };
+      float s[4][4], dp[4][4];
+      if constexpr (NC == 1) {
+        __syncthreads();  // the previous step is done with its tiles
+        load_rows<float, D>(Qs, q, row_of);
+        load_rows<float, D>(dOs, dout, row_of);
+        load_stats();
+        __syncthreads();
+        scores_t<D>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
+      } else {  // chunk by chunk, this CTA's half last
+        zero_blocks(s, dp);
+#pragma unroll 1
+        for (int ci = 0; ci < NC; ++ci) {
+          const int c = (ch + 1 + ci) % NC;  // ci = NC - 1: c = ch
+          __syncthreads();  // the previous products are done with the tiles
+          load_rows<float, DC, D>(Ks, k + c * DC, key_of);
+          load_rows<float, DC, D>(Vs, v + c * DC, key_of);
+          load_rows<float, DC, D>(Qs, q + c * DC, row_of);
+          load_rows<float, DC, D>(dOs, dout + c * DC, row_of);
+          if (ci == 0) load_stats();
+          __syncthreads();
+          scores_t_acc<DC>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
+        }
       }
-      __syncthreads();
 
       {  // P^T and dS^T of this thread's 4 key slots x 4 query rows
-        float s[4][4], dp[4][4];
-        scores_t<D>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int slot = ty + 16 * i;
@@ -387,8 +455,8 @@ __global__ void __launch_bounds__(BSP_NT, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= S) continue;
-    float* pk = dk + ((long)row * hk + h) * D + tx * 4;
-    float* pv = dv + ((long)row * hk + h) * D + tx * 4;
+    float* pk = dk + ((long)row * hk + h) * D + ch * DC + tx * 4;
+    float* pv = dv + ((long)row * hk + h) * D + ch * DC + tx * 4;
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg) {
       *reinterpret_cast<float4*>(pk + cg * 64) = make_float4(
@@ -410,7 +478,8 @@ int dq_launch(const void* q, const void* k, const void* v, const void* dout,
   constexpr bool TC = !std::is_same<T, float>::value;
   const size_t smem = TC ? bsp_tc::DqSmem<D>::bytes : DqSmemF32<D>::bytes;
   const int r_total = bq * (hq / hk);
-  const dim3 grid(n_qb, hk, (r_total + BSP_ROWS - 1) / BSP_ROWS);
+  const dim3 grid(n_qb, hk,
+                  (r_total + BSP_ROWS - 1) / BSP_ROWS * BSP_NCH<D>);
   if constexpr (TC) {
     cudaError_t e =
         magi::allow_smem(bsp_tc::bsp_bwd_dq_tc_kernel<D>, smem, &smem_ok);
@@ -441,7 +510,7 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
   static bool smem_ok = false;
   constexpr bool TC = !std::is_same<T, float>::value;
   const size_t smem = TC ? bsp_tc::DkvSmem<D>::bytes : DkvSmemF32<D>::bytes;
-  const dim3 grid(hk * n_tiles);
+  const dim3 grid(hk * n_tiles, BSP_NCH<D>);
   if constexpr (TC) {
     cudaError_t e =
         magi::allow_smem(bsp_tc::bsp_bwd_dkv_tc_kernel<D>, smem, &smem_ok);
@@ -478,6 +547,9 @@ int dq_dispatch(int d, const void* q, const void* k, const void* v,
     case 128:
       return dq_launch<T, 128>(q, k, v, dout, lse, delta, tbl, dq, hq, hk, bq,
                                n_qb, C, ds, scale, stream);
+    case 256:
+      return dq_launch<T, 256>(q, k, v, dout, lse, delta, tbl, dq, hq, hk, bq,
+                               n_qb, C, ds, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -500,6 +572,10 @@ int dkv_dispatch(int d, const void* q, const void* k, const void* v,
                                scale, stream);
     case 128:
       return dkv_launch<T, 128>(q, k, v, dout, lse, delta, order, vptr, vq,
+                                vmult, dk, dv, hq, hk, bq, S, ds, M, n_tiles,
+                                scale, stream);
+    case 256:
+      return dkv_launch<T, 256>(q, k, v, dout, lse, delta, order, vptr, vq,
                                 vmult, dk, dv, hq, hk, bq, S, ds, M, n_tiles,
                                 scale, stream);
     default:

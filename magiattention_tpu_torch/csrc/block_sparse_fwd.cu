@@ -31,6 +31,11 @@
 //   Bound: the same flops on the CUDA cores (67 TFLOP/s); 88 KB of shared
 //   memory at d = 128 (the Q tile, one K-or-V tile, the 64 x 80 P tile, 64
 //   key rows), one CTA per SM there (registers), two at d = 64.
+// At d = 256 both bodies split out's columns: a CTA takes one 128-column
+// half (grid z = row tile * 2 + half) with the width-128 register plan and
+// recomputes S over the full width (Q and K tiles 256 wide, the V tile its
+// half): 129 KB (bf16) and 150 KB (float32) of shared memory, one CTA per
+// SM.
 #include <type_traits>
 
 #include "ffa_fwd.cuh"
@@ -51,7 +56,7 @@ struct BspFwdSmem {
 // At d = 128 the float32 body needs more than the 128 registers a thread
 // that two CTAs an SM leave (ptxas spilled there): one CTA an SM.
 template <typename T, int D>
-__global__ void __launch_bounds__(BSP_NT, D == 128 ? 1 : 2)
+__global__ void __launch_bounds__(BSP_NT, D >= 128 ? 1 : 2)
     block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const int* __restrict__ tbl, T* __restrict__ out,
@@ -59,16 +64,19 @@ __global__ void __launch_bounds__(BSP_NT, D == 128 ? 1 : 2)
                             int n_qb, int C, int ds, float scale) {
   static_assert(BSP_ROWS == BQ && BSP_KEYS == BK && BSP_NT == NT,
                 "the FFA forward helpers' tile shape");
+  constexpr int W = BSP_DV<D>;  // out columns of this CTA
+  constexpr int NCH = BSP_NCH<D>;
   constexpr int DS = D + 4;
-  constexpr int CG = RowState<D>::CG;
+  constexpr int CG = RowState<W>::CG;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* KVs = Qs + BSP_ROWS * DS;  // the K tile, then the V tile
+  float* KVs = Qs + BSP_ROWS * DS;  // the K tile, then the V tile (half)
   float* Ps = KVs + BSP_KEYS * DS;
   int* krow = reinterpret_cast<int*>(Ps + BSP_ROWS * BspFwdSmem<D>::PSTR);
 
   const int b = blockIdx.x, h = blockIdx.y;
-  const int row0 = blockIdx.z * BSP_ROWS;
+  const int row0 = (int)(blockIdx.z / NCH) * BSP_ROWS;
+  const int ch = NCH > 1 ? (int)(blockIdx.z % NCH) : 0;  // the column half
   const int g = hq / hk;
   const RowMap rows{b, h, bq, g, hq, bq * g};
   const int n_keys = C * ds;
@@ -77,7 +85,7 @@ __global__ void __launch_bounds__(BSP_NT, D == 128 ? 1 : 2)
 
   load_rows<T, D>(Qs, q, [&](int r) { return rows(row0 + r); });
 
-  RowState<D> st;
+  RowState<W> st;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     st.m[i] = -INFINITY;
@@ -102,11 +110,11 @@ __global__ void __launch_bounds__(BSP_NT, D == 128 ? 1 : 2)
     const magi::Item item(mt);
     float s[4][4];
     scores<D>(s, Qs, KVs, tx, ty, qk_scale, 0.f, item, 0, k0);
-    softmax_update<D>(s, st, Ps, tx, ty);
+    softmax_update<W>(s, st, Ps, tx, ty);
     __syncthreads();  // P is visible, S is done with the K tile
-    load_rows<T, D>(KVs, v, keys);
+    load_rows<T, W, D>(KVs, v + ch * W, keys);
     __syncthreads();
-    pv_accumulate<D>(st, Ps, KVs, tx, ty);
+    pv_accumulate<W>(st, Ps, KVs, tx, ty);
   }
 
 #pragma unroll
@@ -114,14 +122,14 @@ __global__ void __launch_bounds__(BSP_NT, D == 128 ? 1 : 2)
     const long row = rows(row0 + ty + 16 * i);
     if (row < 0) continue;
     const bool empty = st.l[i] == 0.f;
-    T* o = out + row * D;
+    T* o = out + row * D + ch * W;
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         magi::store_out(o + cg * 64 + tx * 4 + e,
                         empty ? 0.f : st.acc[i][cg * 4 + e] / st.l[i]);
-    if (tx == 0)
+    if (tx == 0 && ch == 0)
       lse[row] = empty ? -INFINITY : (st.m[i] + log2f(st.l[i])) * LN2;
   }
 }
@@ -134,7 +142,8 @@ int bsp_launch(const void* q, const void* k, const void* v, const int* tbl,
   constexpr bool TC = !std::is_same<T, float>::value;
   const size_t smem = TC ? bsp_tc::FwdSmem<D>::bytes : BspFwdSmem<D>::bytes;
   const int r_total = bq * (hq / hk);
-  const dim3 grid(n_qb, hk, (r_total + BSP_ROWS - 1) / BSP_ROWS);
+  const dim3 grid(n_qb, hk,
+                  (r_total + BSP_ROWS - 1) / BSP_ROWS * BSP_NCH<D>);
   if constexpr (TC) {
     cudaError_t e = magi::allow_smem(bsp_tc::bsp_fwd_tc_kernel<D>, smem, &smem_ok);
     if (e != cudaSuccess) return (int)e;
@@ -167,6 +176,9 @@ int dispatch(int d, const void* q, const void* k, const void* v,
                                ds, scale, stream);
     case 128:
       return bsp_launch<T, 128>(q, k, v, tbl, out, lse, hq, hk, bq, n_qb, C,
+                                ds, scale, stream);
+    case 256:
+      return bsp_launch<T, 256>(q, k, v, tbl, out, lse, hq, hk, bq, n_qb, C,
                                 ds, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -50,6 +50,14 @@
 // 1024 bytes (82,944 at D = 128); dq walk Q, dO and two stages of K, V
 // (99,328); dk/dv walk K, V and two stages of Q, dO and of lse, delta and
 // w (100,864): two CTAs per SM each.
+//
+// Head dim 256: each kernel takes one 128-column half of what it writes (out,
+// dq, dk and dv; the forward and dq walk in grid z = row tile * 2 + half,
+// the dk/dv walk in grid y) and keeps the width-128 register plan; S (and
+// dP) still run over the full width from shared memory, so each half
+// recomputes them, and the half's products read its two 64-column panels
+// of K, dO or Q. Shared memory: forward 129 KB (V tiles the half), dq walk
+// 193 KB, dk/dv walk 194 KB: one CTA per SM.
 #pragma once
 
 #include "block_sparse.cuh"
@@ -86,6 +94,27 @@ __device__ __forceinline__ void gather_pair_async(
   }
 }
 
+// One 64-row tile of W bf16 values into the swizzled tile at dst by
+// cp.async, row r from src + off(r) * LD (a W-column chunk of rows LD
+// wide), zeros where off(r) < 0.
+template <int W, int LD, int NT, typename Off>
+__device__ __forceinline__ void gather_async(uint32_t dst,
+                                             const __nv_bfloat16* src,
+                                             const Off& off, int t) {
+  constexpr int CPR = W / 8;  // 16-byte chunks a row
+  static_assert((64 * CPR) % NT == 0, "chunks must divide among threads");
+#pragma unroll
+  for (int it = 0; it < 64 * CPR / NT; ++it) {
+    const int i = t + it * NT;
+    const int r = i / CPR, cc = i % CPR;
+    const long o = off(r);
+    const bool ok = o >= 0;
+    cp_async16(dst + (cc >> 3) * PANEL_BYTES + r * 128 +
+                   (((cc & 7) ^ (r & 7)) << 4),
+               ok ? src + o * LD + cc * 8 : src, ok);
+  }
+}
+
 // The (S, hk) row of key slot k0 + r of a table row (keys in table order),
 // -1 past n_keys: what step_keys (csrc/block_sparse.cuh) computes, per
 // thread, so the gathered copies need no shared key list.
@@ -102,10 +131,11 @@ struct SlotMap {
 
 template <int D>
 struct FwdSmem {
-  static constexpr uint32_t TILE = 64 * D * 2;
+  static constexpr uint32_t TILE = 64 * D * 2;                  // Q or K
+  static constexpr uint32_t STAGE = TILE + 64 * BSP_DV<D> * 2;  // K, V
   static constexpr uint32_t KV = TILE;  // [2 stages][K, V] after Q
   // + 1024: the dynamic window is rounded up to a 1024-byte boundary
-  static constexpr size_t bytes = KV + 4 * TILE + 1024;
+  static constexpr size_t bytes = KV + 2 * STAGE + 1024;
 };
 
 template <int D>
@@ -118,7 +148,9 @@ __global__ void __launch_bounds__(128, 1)
                       float* __restrict__ lse, int hq, int hk, int bq,
                       int n_qb, int C, int ds, float scale) {
   using S = FwdSmem<D>;
-  constexpr int NACC = D / 2;
+  constexpr int W = BSP_DV<D>;  // out columns of this CTA
+  constexpr int NCH = BSP_NCH<D>;
+  constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -126,7 +158,9 @@ __global__ void __launch_bounds__(128, 1)
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
   const int c0 = 2 * (lane & 3);  // columns c0, c0 + 1 of each 8-col chunk
-  const int b = blockIdx.x, h = blockIdx.y, row0 = blockIdx.z * 64;
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int row0 = (int)(blockIdx.z / NCH) * 64;
+  const int ch = NCH > 1 ? (int)(blockIdx.z % NCH) : 0;  // the column half
   const int g = hq / hk;
   const RowMap rows{b, h, bq, g, hq, bq * g};
   const int n_keys = C * ds;
@@ -149,9 +183,14 @@ __global__ void __launch_bounds__(128, 1)
   }
   cp_async_commit();
   auto load_kv = [&](int k0, int stage) {
-    const uint32_t Ks = base + S::KV + 2 * stage * S::TILE;
+    const uint32_t Ks = base + S::KV + stage * S::STAGE;
     const SlotMap keys{tbl_row, k0, n_keys, ds, hk, h};
-    gather_pair_async<D, 128>(Ks, Ks + S::TILE, k, v, keys, t);
+    if constexpr (NCH == 1) {
+      gather_pair_async<D, 128>(Ks, Ks + S::TILE, k, v, keys, t);
+    } else {
+      gather_async<D, D, 128>(Ks, k, keys, t);
+      gather_async<W, D, 128>(Ks + S::TILE, v + ch * W, keys, t);
+    }
   };
   if (n_keys > 0) load_kv(0, 0);
   cp_async_commit();
@@ -170,7 +209,7 @@ __global__ void __launch_bounds__(128, 1)
     fence_async_smem();
     __syncthreads();
 
-    const uint32_t Ks = base + S::KV + 2 * stage * S::TILE;
+    const uint32_t Ks = base + S::KV + stage * S::STAGE;
     const uint32_t Vs = Ks + S::TILE;
     const bool full = k0 + 64 <= n_keys;
 
@@ -222,7 +261,7 @@ __global__ void __launch_bounds__(128, 1)
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t1<D>(acc, pa[kk], desc_mn(Vs, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t1<W>(acc, pa[kk], desc_mn(Vs, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -239,15 +278,15 @@ __global__ void __launch_bounds__(128, 1)
     const long row = rows(row0 + r0 + 8 * hh);
     if (row < 0) continue;
     const bool empty = l[hh] == 0.f;
-    __nv_bfloat16* o = out + row * D;
+    __nv_bfloat16* o = out + row * D + ch * W;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       const float a0 = empty ? 0.f : acc[4 * j + 2 * hh] / l[hh];
       const float a1 = empty ? 0.f : acc[4 * j + 2 * hh + 1] / l[hh];
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + c0) =
           __floats2bfloat162_rn(a0, a1);
     }
-    if ((lane & 3) == 0)
+    if ((lane & 3) == 0 && ch == 0)
       lse[row] = empty ? -INFINITY : (m[hh] + log2f(l[hh])) * LN2;
   }
 }
@@ -272,7 +311,9 @@ __global__ void __launch_bounds__(128, 1)
                          int hq, int hk, int bq, int n_qb, int C, int ds,
                          float scale) {
   using S = DqSmem<D>;
-  constexpr int NACC = D / 2;
+  constexpr int W = BSP_DV<D>;  // dq columns of this CTA
+  constexpr int NCH = BSP_NCH<D>;
+  constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -280,7 +321,9 @@ __global__ void __launch_bounds__(128, 1)
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
-  const int b = blockIdx.x, h = blockIdx.y, row0 = blockIdx.z * 64;
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int row0 = (int)(blockIdx.z / NCH) * 64;
+  const int ch = NCH > 1 ? (int)(blockIdx.z % NCH) : 0;  // the column half
   const int g = hq / hk;
   const RowMap rows{b, h, bq, g, hq, bq * g};
   const int n_keys = C * ds;
@@ -357,7 +400,9 @@ __global__ void __launch_bounds__(128, 1)
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t1<D>(acc, da[kk], desc_mn(Ks, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_t1<W>(acc, da[kk],
+                     desc_mn(Ks + ch * (W / 64) * PANEL_BYTES, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -372,9 +417,9 @@ __global__ void __launch_bounds__(128, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const long row = row_of(r0 + 8 * hh);
     if (row < 0) continue;
-    float* o = dq + row * D;
+    float* o = dq + row * D + ch * W;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < W / 8; ++j)
       *reinterpret_cast<float2*>(o + 8 * j + c0) = make_float2(
           acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
   }
@@ -408,11 +453,15 @@ __global__ void __launch_bounds__(128, 1)
                           int hq, int hk, int bq, int S, int ds, int M,
                           int n_tiles, float scale) {
   using Sm = DkvSmem<D>;
-  constexpr int NACC = D / 2;
+  constexpr int W = BSP_DV<D>;  // dk / dv columns of this CTA
+  constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
+  // the column half (grid y), and its first panel's offset in a D-wide tile
+  const int ch = BSP_NCH<D> > 1 ? (int)blockIdx.y : 0;
+  const uint32_t chp = ch * (W / 64) * PANEL_BYTES;
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // key rows r0 and r0 + 8
@@ -522,10 +571,10 @@ __global__ void __launch_bounds__(128, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<D>(dv_acc, fh[kk], desc_mn(dOs, kk));
+      wgmma_rs_t1<W>(dv_acc, fh[kk], desc_mn(dOs + chp, kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<D>(dv_acc, fl[kk], desc_mn(dOs, kk));
+      wgmma_rs_t1<W>(dv_acc, fl[kk], desc_mn(dOs + chp, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
@@ -539,10 +588,10 @@ __global__ void __launch_bounds__(128, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<D>(dk_acc, fh[kk], desc_mn(Qs, kk));
+      wgmma_rs_t1<W>(dk_acc, fh[kk], desc_mn(Qs + chp, kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<D>(dk_acc, fl[kk], desc_mn(Qs, kk));
+      wgmma_rs_t1<W>(dk_acc, fl[kk], desc_mn(Qs + chp, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dk_acc);
@@ -558,10 +607,10 @@ __global__ void __launch_bounds__(128, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int row = k0 + r0 + 8 * hh;
     if (row >= S) continue;
-    float* ok = dk + ((long)row * hk + h) * D;
-    float* ov = dv + ((long)row * hk + h) * D;
+    float* ok = dk + ((long)row * hk + h) * D + ch * W;
+    float* ov = dv + ((long)row * hk + h) * D + ch * W;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       *reinterpret_cast<float2*>(ok + 8 * j + c0) = make_float2(
           dk_acc[4 * j + 2 * hh] * scale, dk_acc[4 * j + 2 * hh + 1] * scale);
       *reinterpret_cast<float2*>(ov + 8 * j + c0) =

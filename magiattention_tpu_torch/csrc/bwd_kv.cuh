@@ -49,6 +49,15 @@
 // tile products per (item, head) where the split path spends 7, and adds
 // no shared memory: the dS^T and K tiles the products read are already
 // resident.
+//
+// Head dim 256: four 256-wide tiles would take 266 KB, so the contraction
+// is chunked and the output split. The CTA takes one 128-column half of dk
+// and dv (grid z; with FUSED, of dq's atomics too); per (item, head) it
+// loads K, V, Q and dO 128 columns at a time (the other half first, its
+// own last), adds each chunk's products into S^T and dP^T, and then the
+// dV, dK (and dQ) products read the chunks left in shared memory, its own
+// half. Tiles stay 128 wide (173 KB); K and V are read again per (item,
+// head) instead of once per CTA (L2).
 #pragma once
 
 #include "common.cuh"
@@ -64,7 +73,8 @@ constexpr int NT = 256;
 
 template <int D>
 struct DkvSmem {
-  static constexpr int DS = D + 4;      // row stride of K, V, Q, dO
+  static constexpr int W = D > 128 ? 128 : D;  // tile width (a chunk)
+  static constexpr int DS = W + 4;      // row stride of K, V, Q, dO
   static constexpr int PSTR = BQ + 16;  // row stride of the P^T, dS^T tiles
   static constexpr size_t bytes =
       sizeof(float) * (2 * BK * DS + 2 * BQ * DS + 2 * BK * PSTR + 2 * BQ);
@@ -82,6 +92,44 @@ __device__ __forceinline__ float lane(const float4& a, int e) {
   return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
 }
 
+// s += K Q^T and dp += V dO^T of this thread's 4 x 4 block (k rows ty +
+// 16 i, q cols tx + 16 j) over the W columns of the tiles (row stride W +
+// 4)
+template <int W>
+__device__ __forceinline__ void st_dpt_accumulate(float (&s)[4][4],
+                                                  float (&dp)[4][4],
+                                                  const float* Ks,
+                                                  const float* Vs,
+                                                  const float* Qs,
+                                                  const float* dOs, int tx,
+                                                  int ty) {
+  constexpr int DS = W + 4;
+#pragma unroll 2
+  for (int dd = 0; dd < W; dd += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(Ks + (ty + 16 * i) * DS + dd);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(Qs + (tx + 16 * j) * DS + dd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], b[j], s[i][j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(Vs + (ty + 16 * i) * DS + dd);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(dOs + (tx + 16 * j) * DS + dd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dp[i][j] = dot4(a[i], b[j], dp[i][j]);
+  }
+}
+
 template <typename T, int D, bool FUSED>
 __global__ void __launch_bounds__(NT, 1)
     ffa_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -94,9 +142,11 @@ __global__ void __launch_bounds__(NT, 1)
                       const int* __restrict__ meta_t,
                       const int* __restrict__ run_ptr_t, int sq, int sk,
                       int hq, int hk, float scale, float softcap) {
+  constexpr int DC = DkvSmem<D>::W;  // tile width
+  constexpr int NC = D / DC;         // chunks of the contraction
   constexpr int DS = DkvSmem<D>::DS;
   constexpr int PSTR = DkvSmem<D>::PSTR;
-  constexpr int CG = D / 64;  // float4 column groups a thread owns
+  constexpr int CG = DC / 64;  // float4 column groups a thread owns
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + BK * DS;
@@ -114,11 +164,14 @@ __global__ void __launch_bounds__(NT, 1)
   const int k0 = kt * BK;
   const long q_rs = (long)hq * D, kv_rs = (long)hk * D;
   const int k_valid = min(BK, sk - k0);
+  const int ch = NC > 1 ? (int)blockIdx.z : 0;  // the dk / dv column half
 
-  magi::load_tile<T, D, NT>(Ks, k + ((long)k0 * hk + hkv) * D, kv_rs,
-                            k_valid);
-  magi::load_tile<T, D, NT>(Vs, v + ((long)k0 * hk + hkv) * D, kv_rs,
-                            k_valid);
+  if constexpr (NC == 1) {
+    magi::load_tile<T, D, NT>(Ks, k + ((long)k0 * hk + hkv) * D, kv_rs,
+                              k_valid);
+    magi::load_tile<T, D, NT>(Vs, v + ((long)k0 * hk + hkv) * D, kv_rs,
+                              k_valid);
+  }
 
   const bool capped = softcap > 0.f;
   const float qk_scale = capped ? scale : scale * LOG2E;
@@ -138,48 +191,52 @@ __global__ void __launch_bounds__(NT, 1)
 
     for (int gi = 0; gi < g; ++gi) {
       const int h = hkv * g + gi;
-      __syncthreads();  // the previous head's products are done with smem
-      magi::load_tile<T, D, NT>(Qs, q + ((long)q0 * hq + h) * D, q_rs,
-                                q_valid);
-      magi::load_tile<T, D, NT>(dOs, dout + ((long)q0 * hq + h) * D, q_rs,
-                                q_valid);
-      if (tid < BQ) {
-        const int row = q0 + tid;
-        const float l = row < sq ? lse[(long)row * hq + h] : -INFINITY;
-        Ls[tid] = capped ? l : l * LOG2E;
-        Dls[tid] = row < sq ? delta[(long)row * hq + h] : 0.f;
-      }
-      __syncthreads();
-
+      // this head's q tile's lse and delta (at the first chunk's loads)
+      const auto load_stats = [&]() {
+        if (tid < BQ) {
+          const int row = q0 + tid;
+          const float l = row < sq ? lse[(long)row * hq + h] : -INFINITY;
+          Ls[tid] = capped ? l : l * LOG2E;
+          Dls[tid] = row < sq ? delta[(long)row * hq + h] : 0.f;
+        }
+      };
       float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-      for (int dd = 0; dd < D; dd += 4) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(Ks + (ty + 16 * i) * DS + dd);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] = *reinterpret_cast<const float4*>(Qs + (tx + 16 * j) * DS + dd);
+      if constexpr (NC == 1) {
+        __syncthreads();  // the previous head's products are done with smem
+        magi::load_tile<T, D, NT>(Qs, q + ((long)q0 * hq + h) * D, q_rs,
+                                  q_valid);
+        magi::load_tile<T, D, NT>(dOs, dout + ((long)q0 * hq + h) * D, q_rs,
+                                  q_valid);
+        load_stats();
+        __syncthreads();
+
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], b[j], s[i][j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(Vs + (ty + 16 * i) * DS + dd);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] =
-              *reinterpret_cast<const float4*>(dOs + (tx + 16 * j) * DS + dd);
+          for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        st_dpt_accumulate<D>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
+      } else {  // chunk by chunk, this CTA's half last: its K, V, Q and
+                // dO stay in shared memory for the products below
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) dp[i][j] = dot4(a[i], b[j], dp[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 1
+        for (int ci = 0; ci < NC; ++ci) {
+          const int c = (ch + 1 + ci) % NC;  // ci = NC - 1: c = ch
+          __syncthreads();  // the previous products are done with smem
+          magi::load_tile<T, DC, NT>(
+              Ks, k + ((long)k0 * hk + hkv) * D + c * DC, kv_rs, k_valid);
+          magi::load_tile<T, DC, NT>(
+              Vs, v + ((long)k0 * hk + hkv) * D + c * DC, kv_rs, k_valid);
+          magi::load_tile<T, DC, NT>(
+              Qs, q + ((long)q0 * hq + h) * D + c * DC, q_rs, q_valid);
+          magi::load_tile<T, DC, NT>(
+              dOs, dout + ((long)q0 * hq + h) * D + c * DC, q_rs, q_valid);
+          if (ci == 0) load_stats();
+          __syncthreads();
+          st_dpt_accumulate<DC>(s, dp, Ks, Vs, Qs, dOs, tx, ty);
+        }
       }
 
 #pragma unroll
@@ -266,8 +323,8 @@ __global__ void __launch_bounds__(NT, 1)
           for (int i = 0; i < 4; ++i) {
             const int row = q0 + ty + 16 * i;
             if (row >= sq || row < item.qs || row >= item.qe) continue;
-            float* p =
-                dq_acc + ((long)row * hq + h) * D + cg * 64 + tx * 4;
+            float* p = dq_acc + ((long)row * hq + h) * D + ch * DC + cg * 64 +
+                       tx * 4;
             atomicAdd(p + 0, acc[i][0]);
             atomicAdd(p + 1, acc[i][1]);
             atomicAdd(p + 2, acc[i][2]);
@@ -283,8 +340,8 @@ __global__ void __launch_bounds__(NT, 1)
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= sk) continue;
-    float* ok = dk + ((long)row * hk + hkv) * D;
-    float* ov = dv + ((long)row * hk + hkv) * D;
+    float* ok = dk + ((long)row * hk + hkv) * D + ch * DC;
+    float* ov = dv + ((long)row * hk + hkv) * D + ch * DC;
 #pragma unroll
     for (int cg = 0; cg < CG; ++cg) {
       const int c = cg * 4;
@@ -308,7 +365,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e =
       magi::allow_smem(ffa_bwd_kv_kernel<T, D, FUSED>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_k_tiles, hk);
+  const dim3 grid(num_k_tiles, hk, D / DkvSmem<D>::W);
   ffa_bwd_kv_kernel<T, D, FUSED><<<grid, NT, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, dk,
@@ -331,6 +388,10 @@ int dispatch(int d, const void* q, const void* k, const void* v,
                                   hk, num_k_tiles, scale, softcap, stream);
     case 128:
       return launch<T, 128, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc,
+                                   work_qt_t, meta_t, run_ptr_t, sq, sk, hq,
+                                   hk, num_k_tiles, scale, softcap, stream);
+    case 256:
+      return launch<T, 256, FUSED>(q, k, v, dout, lse, delta, dk, dv, dq_acc,
                                    work_qt_t, meta_t, run_ptr_t, sq, sk, hq,
                                    hk, num_k_tiles, scale, softcap, stream);
     default:

@@ -40,14 +40,21 @@
 // next step's Q, dO, lse and delta are double-buffered by cp.async and
 // land while this step's products run.
 //
+// Head dim 256: a column split. The CTA takes one 128-column half of dk and
+// dv (grid z), and with FUSED the same half of dq's atomics, and keeps the
+// width-128 register plan; S^T and dP^T run over the full width from
+// shared memory, so each half recomputes them, and the dV, dK and dQ
+// products read the half's two 64-column panels of dO, Q and K.
+//
 // What bounds it on this card: operations on the bf16 tensor cores (989
 // TFLOP/s on an H100 SXM): 8 * D flops per live pair and q head for dk/dv
 // (S, dP, P^T dO, dS^T Q; the lo products make it 12 * D executed), 10 * D
 // with FUSED (14 * D executed), then the dq atomics, 64 * D float32 adds
 // per (item, q head). Shared memory: K, V, two stages of Q and dO and of
 // lse and delta (100,352 bytes at D = 128), with FUSED also the dS^T tile
-// (108,544 bytes): two CTAs per SM either way. Registers: dk and dv
-// (2 * D / 2) beside at most two 64 x 64 blocks: S^T and dP^T, then P^T's
+// (108,544 bytes): two CTAs per SM either way (at D = 256, 198,656 and
+// 206,848 bytes: one). Registers: dk and dv (2 * DV / 2, DV = min(D,
+// 128)) beside at most two 64 x 64 blocks: S^T and dP^T, then P^T's
 // hi and lo fragments and dP^T, then dS^T's, then (FUSED) a dq half (dV's
 // products finish before dK's fragments are formed).
 #pragma once
@@ -63,6 +70,13 @@ using magi::META_DIM;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
+
+// the dk / dv columns one CTA computes (a 128-column half at D = 256) and
+// the halves of a row
+template <int D>
+constexpr int DV = D > 128 ? 128 : D;
+template <int D>
+constexpr int NCH = D / DV<D>;
 
 template <int D, bool FUSED>
 struct Smem {
@@ -89,11 +103,15 @@ __global__ void __launch_bounds__(128, 1)
                             const int* __restrict__ run_ptr_t, int sq, int sk,
                             int hq, int hk, float scale, float softcap) {
   using S = Smem<D, FUSED>;
-  constexpr int NACC = D / 2;
+  constexpr int W = DV<D>;  // dk / dv columns of this CTA
+  constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
+  // the column half, and its first panel's offset in a D-wide tile
+  const int ch = NCH<D> > 1 ? (int)blockIdx.z : 0;
+  const uint32_t chp = ch * (W / 64) * PANEL_BYTES;
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // k rows r0 and r0 + 8
@@ -210,10 +228,10 @@ __global__ void __launch_bounds__(128, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<D>(dv_acc, fh[kk], desc_mn(dOs, kk));
+      wgmma_rs_t1<W>(dv_acc, fh[kk], desc_mn(dOs + chp, kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<D>(dv_acc, fl[kk], desc_mn(dOs, kk));
+      wgmma_rs_t1<W>(dv_acc, fl[kk], desc_mn(dOs + chp, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
@@ -240,10 +258,10 @@ __global__ void __launch_bounds__(128, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<D>(dk_acc, fh[kk], desc_mn(Qs, kk));
+      wgmma_rs_t1<W>(dk_acc, fh[kk], desc_mn(Qs + chp, kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<D>(dk_acc, fl[kk], desc_mn(Qs, kk));
+      wgmma_rs_t1<W>(dk_acc, fl[kk], desc_mn(Qs + chp, kk));
     wgmma_commit();
     if constexpr (FUSED) {
       fence_async_smem();  // the dS^T tile is visible to wgmma
@@ -257,7 +275,7 @@ __global__ void __launch_bounds__(128, 1)
     if constexpr (FUSED) {  // dQ = dS K, added to the workspace
       const uint32_t dSs = Ks + S::DS;
 #pragma unroll
-      for (int half = 0; half < D / 64; ++half) {
+      for (int half = 0; half < W / 64; ++half) {
         float dq[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) dq[i] = 0.f;
@@ -266,7 +284,7 @@ __global__ void __launch_bounds__(128, 1)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
           wgmma_ss_n64_t11(dq, desc_mn(dSs, kk),
-                           desc_mn(Ks + half * PANEL_BYTES, kk), 1);
+                           desc_mn(Ks + chp + half * PANEL_BYTES, kk), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -275,8 +293,8 @@ __global__ void __launch_bounds__(128, 1)
         const bool odd = lane & 1;
         const int row = q0 + r0 + (odd ? 8 : 0);
         const bool add = row < sq && row >= item.qs && row < item.qe;
-        float* dst =
-            dq_acc + ((long)row * hq + h) * D + half * 64 + 2 * (lane & 2);
+        float* dst = dq_acc + ((long)row * hq + h) * D + ch * W + half * 64 +
+                     2 * (lane & 2);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float s0 = odd ? dq[4 * j] : dq[4 * j + 2];
@@ -302,10 +320,10 @@ __global__ void __launch_bounds__(128, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int row = k0 + r0 + 8 * hh;
     if (row >= sk) continue;
-    float* ok = dk + ((long)row * hk + hkv) * D;
-    float* ov = dv + ((long)row * hk + hkv) * D;
+    float* ok = dk + ((long)row * hk + hkv) * D + ch * W;
+    float* ov = dv + ((long)row * hk + hkv) * D + ch * W;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       *reinterpret_cast<float2*>(ok + 8 * j + c0) = make_float2(
           dk_acc[4 * j + 2 * hh] * scale, dk_acc[4 * j + 2 * hh + 1] * scale);
       *reinterpret_cast<float2*>(ov + 8 * j + c0) =
@@ -325,7 +343,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e =
       magi::allow_smem(ffa_bwd_kv_tc_kernel<D, FUSED>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_k_tiles, hk);
+  const dim3 grid(num_k_tiles, hk, NCH<D>);
   ffa_bwd_kv_tc_kernel<D, FUSED><<<grid, 128, smem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),

@@ -17,7 +17,10 @@
 // bit. float32: csrc/bwd_kv.cuh (FUSED false), float32 FMA on the CUDA
 // cores (67 TFLOP/s peak): the float32 gate of 1e-5 against the plain
 // version needs float32 products; 173 KB of shared memory at D = 128, one
-// CTA per SM.
+// CTA per SM. Head dims 64, 128 and 256; at 256 both bodies split dk's and
+// dv's columns in two halves across the grid's z (each half recomputes
+// S^T and dP^T over the full width; the float32 body chunks that
+// contraction 128 columns at a time).
 #include "bwd_kv.cuh"
 #include "bwd_kv_tc.cuh"
 
@@ -55,6 +58,11 @@ extern "C" int ffa_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                        nullptr, work_qt_t, meta_t, run_ptr_t,
                                        sq, sk, hq, hk, num_k_tiles, scale,
                                        softcap, stream);
+    case 256:
+      return kv_tc::launch<256, false>(q, k, v, dout, lse, delta, dk, dv,
+                                       nullptr, work_qt_t, meta_t, run_ptr_t,
+                                       sq, sk, hq, hk, num_k_tiles, scale,
+                                       softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -70,5 +78,8 @@ extern "C" long ffa_bwd_dkv_smem_bytes(int d, int bf16) {
   if (d == 128)
     return bf16 ? (long)kv_tc::Smem<128, false>::bytes
                 : (long)DkvSmem<128>::bytes;
+  if (d == 256)
+    return bf16 ? (long)kv_tc::Smem<256, false>::bytes
+                : (long)DkvSmem<256>::bytes;
   return 0;
 }

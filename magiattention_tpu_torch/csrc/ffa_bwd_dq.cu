@@ -14,7 +14,10 @@
 // float32: csrc/ffa_bwd_dq.cuh, float32 FMA on the CUDA cores (67 TFLOP/s
 // peak): the float32 gate of 1e-5 against the plain version needs float32
 // products; Q, dO, K, V at stride D + 4 and the 64 x 80 dS tile, 152 KB at
-// D = 128, one CTA per SM. Their designs are in the headers.
+// D = 128, one CTA per SM. Head dims 64, 128 and 256; at 256 both bodies
+// split dq's columns in two halves across the grid's z (each half
+// recomputes S and dP over the full width; the float32 body chunks that
+// contraction 128 columns at a time). Their designs are in the headers.
 #include "ffa_bwd_dq.cuh"
 #include "ffa_bwd_dq_tc.cuh"
 
@@ -38,6 +41,10 @@ extern "C" int ffa_bwd_dq_f32(const void* q, const void* k, const void* v,
       return launch<float, 128, 1>(q, k, v, dout, lse, delta, dq, work_kt,
                                    meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
                                    scale, softcap, stream);
+    case 256:
+      return launch<float, 256, 1>(q, k, v, dout, lse, delta, dq, work_kt,
+                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                   scale, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -59,6 +66,10 @@ extern "C" int ffa_bwd_dq_bf16(const void* q, const void* k, const void* v,
       return dq_tc::launch<128, 1>(q, k, v, dout, lse, delta, dq, work_kt,
                                    meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
                                    scale, softcap, stream);
+    case 256:
+      return dq_tc::launch<256, 1>(q, k, v, dout, lse, delta, dq, work_kt,
+                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+                                   scale, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -73,5 +84,8 @@ extern "C" long ffa_bwd_dq_smem_bytes(int d, int bf16) {
   if (d == 128)
     return bf16 ? (long)dq_tc::Smem<128, 1>::bytes
                 : (long)DqSmem<128, 1>::bytes;
+  if (d == 256)
+    return bf16 ? (long)dq_tc::Smem<256, 1>::bytes
+                : (long)DqSmem<256, 1>::bytes;
   return 0;
 }

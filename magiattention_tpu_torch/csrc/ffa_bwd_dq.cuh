@@ -45,6 +45,14 @@
 // 4 * (2 * G * 64 + 2 * 64) * (D + 4) + 4 * 64 * 80 bytes (Q and dO of G
 // heads, K, V, the 64 x 80 dS tile): 152 KB at D = 128, G = 1, so one CTA
 // runs per SM.
+//
+// Head dim 256 (G = 1): four 256-wide tiles would take 266 KB, so the
+// contraction is chunked and the output split. The CTA takes one
+// 128-column half of dq (grid z); per item it loads Q, dO, K and V 128
+// columns at a time (the other half first, its own last), adds each
+// chunk's products into S and dP, and then dS K reads the K chunk left in
+// shared memory, its own half. Tiles stay 128 wide (152 KB), and Q and dO
+// are read again per item (L2).
 #pragma once
 
 #include "common.cuh"
@@ -60,7 +68,8 @@ constexpr int NT = 256;
 
 template <int D, int G>
 struct DqSmem {
-  static constexpr int DS = D + 4;      // row stride of Q, dO, K, V
+  static constexpr int W = D > 128 ? 128 : D;  // tile width (a chunk)
+  static constexpr int DS = W + 4;      // row stride of Q, dO, K, V
   static constexpr int PSTR = BK + 16;  // row stride of the dS tile
   static constexpr size_t bytes =
       sizeof(float) * (2 * G * BQ * DS + 2 * BK * DS + BQ * PSTR);
@@ -82,25 +91,19 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
   return fmaf(a.w, b.w, acc);
 }
 
-// dS of this thread's 4 x 4 block of one (item, head) into dSs
-template <int D>
-__device__ __forceinline__ void ds_block(const DqState<D>& st,
-                                         const float* Qs, const float* dOs,
-                                         const float* Ks, const float* Vs,
-                                         float* dSs, int tx, int ty,
-                                         bool capped, float qk_scale,
-                                         float softcap,
-                                         const magi::Item& item, int q0,
-                                         int k0) {
-  constexpr int DS = D + 4;
-  constexpr int PSTR = BK + 16;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+// s += Q K^T and dp += dO V^T of this thread's 4 x 4 block over the W
+// columns of the tiles (row stride W + 4)
+template <int W>
+__device__ __forceinline__ void sdp_accumulate(float (&s)[4][4],
+                                               float (&dp)[4][4],
+                                               const float* Qs,
+                                               const float* dOs,
+                                               const float* Ks,
+                                               const float* Vs, int tx,
+                                               int ty) {
+  constexpr int DS = W + 4;
 #pragma unroll 2
-  for (int dd = 0; dd < D; dd += 4) {
+  for (int dd = 0; dd < W; dd += 4) {
     float4 a[4], b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -123,7 +126,19 @@ __device__ __forceinline__ void ds_block(const DqState<D>& st,
 #pragma unroll
       for (int j = 0; j < 4; ++j) dp[i][j] = dot4(a[i], b[j], dp[i][j]);
   }
+}
 
+// dS of this thread's 4 x 4 block from its S and dP sums, into dSs
+template <int D>
+__device__ __forceinline__ void ds_finish(const DqState<D>& st,
+                                          const float (&s)[4][4],
+                                          const float (&dp)[4][4],
+                                          float* dSs, int tx, int ty,
+                                          bool capped, float qk_scale,
+                                          float softcap,
+                                          const magi::Item& item, int q0,
+                                          int k0) {
+  constexpr int PSTR = BK + 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -142,6 +157,26 @@ __device__ __forceinline__ void ds_block(const DqState<D>& st,
       dSs[(ty + 16 * i) * PSTR + tx + 16 * j] =
           p * (dp[i][j] - st.delta[i]) * dcap;
     }
+}
+
+// dS of this thread's 4 x 4 block of one (item, head) into dSs
+template <int D>
+__device__ __forceinline__ void ds_block(const DqState<D>& st,
+                                         const float* Qs, const float* dOs,
+                                         const float* Ks, const float* Vs,
+                                         float* dSs, int tx, int ty,
+                                         bool capped, float qk_scale,
+                                         float softcap,
+                                         const magi::Item& item, int q0,
+                                         int k0) {
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  sdp_accumulate<D>(s, dp, Qs, dOs, Ks, Vs, tx, ty);
+  ds_finish<D>(st, s, dp, dSs, tx, ty, capped, qk_scale, softcap, item, q0,
+               k0);
 }
 
 // acc += dS K over the item's 64 k rows
@@ -192,8 +227,11 @@ __global__ void __launch_bounds__(NT, 1)
                       const int* __restrict__ meta,
                       const int* __restrict__ run_ptr, int sq, int sk, int hq,
                       int hk, int num_q_tiles, float scale, float softcap) {
+  constexpr int DC = DqSmem<D, G>::W;  // tile width
+  constexpr int NC = D / DC;            // chunks of the contraction
+  static_assert(NC == 1 || G == 1, "the chunked instance runs one head");
   constexpr int DS = DqSmem<D, G>::DS;
-  constexpr int CG = DqState<D>::CG;
+  constexpr int CG = DqState<DC>::CG;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                 // G tiles
   float* dOs = Qs + G * BQ * DS;    // G tiles
@@ -208,21 +246,25 @@ __global__ void __launch_bounds__(NT, 1)
   const int q0 = qt * BQ;
   const long q_rs = (long)hq * D, kv_rs = (long)hk * D;
   const int q_valid = min(BQ, sq - q0);
+  const int ch = NC > 1 ? (int)blockIdx.z : 0;  // the dq column half
 
+  if constexpr (NC == 1) {
 #pragma unroll
-  for (int h = 0; h < G; ++h) {
-    magi::load_tile<T, D, NT>(Qs + h * BQ * DS,
-                              q + ((long)q0 * hq + h0 + h) * D, q_rs, q_valid);
-    magi::load_tile<T, D, NT>(dOs + h * BQ * DS,
-                              dout + ((long)q0 * hq + h0 + h) * D, q_rs,
-                              q_valid);
+    for (int h = 0; h < G; ++h) {
+      magi::load_tile<T, D, NT>(Qs + h * BQ * DS,
+                                q + ((long)q0 * hq + h0 + h) * D, q_rs,
+                                q_valid);
+      magi::load_tile<T, D, NT>(dOs + h * BQ * DS,
+                                dout + ((long)q0 * hq + h0 + h) * D, q_rs,
+                                q_valid);
+    }
   }
 
   // softcap-free scores go straight to the log2 domain, and lse with them;
   // with a softcap the tanh runs on the naturally scaled score
   const bool capped = softcap > 0.f;
   const float qk_scale = capped ? scale : scale * LOG2E;
-  DqState<D> st[G];
+  DqState<DC> st[G];
 #pragma unroll
   for (int h = 0; h < G; ++h)
 #pragma unroll
@@ -244,20 +286,47 @@ __global__ void __launch_bounds__(NT, 1)
     const int k0 = work_kt[w] * BK;
     const int k_valid = min(BK, sk - k0);
 
-    __syncthreads();  // the previous item's dS K is done with Ks and dSs
-    magi::load_tile<T, D, NT>(Ks, k + ((long)k0 * hk + hkv) * D, kv_rs,
-                              k_valid);
-    magi::load_tile<T, D, NT>(Vs, v + ((long)k0 * hk + hkv) * D, kv_rs,
-                              k_valid);
-    __syncthreads();
+    if constexpr (NC == 1) {
+      __syncthreads();  // the previous item's dS K is done with Ks and dSs
+      magi::load_tile<T, D, NT>(Ks, k + ((long)k0 * hk + hkv) * D, kv_rs,
+                                k_valid);
+      magi::load_tile<T, D, NT>(Vs, v + ((long)k0 * hk + hkv) * D, kv_rs,
+                                k_valid);
+      __syncthreads();
 
 #pragma unroll
-    for (int h = 0; h < G; ++h) {
-      ds_block<D>(st[h], Qs + h * BQ * DS, dOs + h * BQ * DS, Ks, Vs, dSs, tx,
-                  ty, capped, qk_scale, softcap, item, q0, k0);
+      for (int h = 0; h < G; ++h) {
+        ds_block<D>(st[h], Qs + h * BQ * DS, dOs + h * BQ * DS, Ks, Vs, dSs,
+                    tx, ty, capped, qk_scale, softcap, item, q0, k0);
+        __syncthreads();  // dS is visible
+        dsk_accumulate<D>(st[h], dSs, Ks, tx, ty);
+        if (h + 1 < G) __syncthreads();  // dS K is done with dSs
+      }
+    } else {  // S and dP chunk by chunk, this CTA's half last
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 1
+      for (int ci = 0; ci < NC; ++ci) {
+        const int c = (ch + 1 + ci) % NC;  // ci = NC - 1: c = ch
+        __syncthreads();  // the last products are done with the tiles
+        magi::load_tile<T, DC, NT>(Qs, q + ((long)q0 * hq + h0) * D + c * DC,
+                                   q_rs, q_valid);
+        magi::load_tile<T, DC, NT>(
+            dOs, dout + ((long)q0 * hq + h0) * D + c * DC, q_rs, q_valid);
+        magi::load_tile<T, DC, NT>(Ks, k + ((long)k0 * hk + hkv) * D + c * DC,
+                                   kv_rs, k_valid);
+        magi::load_tile<T, DC, NT>(Vs, v + ((long)k0 * hk + hkv) * D + c * DC,
+                                   kv_rs, k_valid);
+        __syncthreads();
+        sdp_accumulate<DC>(s, dp, Qs, dOs, Ks, Vs, tx, ty);
+      }
+      ds_finish<DC>(st[0], s, dp, dSs, tx, ty, capped, qk_scale, softcap,
+                    item, q0, k0);
       __syncthreads();  // dS is visible
-      dsk_accumulate<D>(st[h], dSs, Ks, tx, ty);
-      if (h + 1 < G) __syncthreads();  // dS K is done with dSs
+      dsk_accumulate<DC>(st[0], dSs, Ks, tx, ty);
     }
   }
 
@@ -268,7 +337,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty + 16 * i;
       if (row >= sq) continue;
-      float* o = dq + ((long)row * hq + h0 + h) * D;
+      float* o = dq + ((long)row * hq + h0 + h) * D + ch * DC;
 #pragma unroll
       for (int cg = 0; cg < CG; ++cg)
         *reinterpret_cast<float4*>(o + cg * 64 + tx * 4) =
@@ -290,7 +359,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e =
       magi::allow_smem(ffa_bwd_dq_kernel<T, D, G>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_q_tiles, hq / G);
+  const dim3 grid(num_q_tiles, hq / G, D / DqSmem<D, G>::W);
   ffa_bwd_dq_kernel<T, D, G><<<grid, NT, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, dq,

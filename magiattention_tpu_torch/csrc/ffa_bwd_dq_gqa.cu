@@ -19,7 +19,8 @@
 // * D * 2 + 1024 bytes (G Q and dO tiles, two stages of K and V) and a
 // thread's registers (the dQ accumulator, D / 2, beside S, dP and dS's
 // fragments) make G 2 at D = 64 and 128 (132,096 bytes at D = 128; four
-// warpgroups would leave 128 registers a thread). float32:
+// warpgroups would leave 128 registers a thread); at D = 256 two heads
+// would take 263,168 bytes, so the guard never packs there. float32:
 // csrc/ffa_bwd_dq.cuh, float32 FMA on the CUDA cores (the 1e-5 gate needs
 // float32 products); shared memory 4 * (2 * G * 64 + 2 * 64) * (D + 4) +
 // 4 * 64 * 80 bytes, so G = 2 at D = 128 (223 KB; four heads' float32 Q and

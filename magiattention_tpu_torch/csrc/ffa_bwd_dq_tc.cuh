@@ -34,12 +34,18 @@
 // where dk/dv (csrc/bwd_kv_tc.cuh) sum over every row and head of a
 // group and take hi + lo products.
 //
+// Head dim 256: a column split. The CTA takes one 128-column half of dq
+// (grid z) and keeps the width-128 register plan; S = Q K^T and dP = dO V^T
+// run over the full width from shared memory, so each half recomputes
+// them, and dQ += dS K reads the half's two 64-column panels of K.
+//
 // What bounds it on this card: operations, 6 * D flops per live pair and
 // head on the bf16 tensor cores (989 TFLOP/s on an H100 SXM). Shared
 // memory: G Q and G dO tiles and two stages of K and V, (2 G + 4) * 64 *
 // D * 2 + 1024 bytes (99,328 at D = 128, G = 1: two CTAs per SM; 132,096
-// at G = 2: one). Registers: the dQ accumulator (D / 2 floats a thread),
-// S and dP (32 each), dS's A fragments (16).
+// at G = 2: one; 197,632 at D = 256, G = 1). Registers: the dQ
+// accumulator (DV / 2 floats a thread, DV = min(D, 128)), S and dP (32
+// each), dS's A fragments (16).
 #pragma once
 
 #include "tc.cuh"
@@ -53,6 +59,13 @@ using magi::META_DIM;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
+
+// the dq columns one CTA computes (a 128-column half at D = 256) and the
+// halves of a row
+template <int D>
+constexpr int DV = D > 128 ? 128 : D;
+template <int D>
+constexpr int NCH = D / DV<D>;
 
 template <int D, int G>
 struct Smem {
@@ -79,11 +92,13 @@ __global__ void __launch_bounds__(128 * G, 1)
                          float softcap) {
   using S = Smem<D, G>;
   constexpr int NT = 128 * G;
-  constexpr int NACC = D / 2;
+  constexpr int W = DV<D>;  // dq columns of this CTA
+  constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
 
+  const int ch = NCH<D> > 1 ? (int)blockIdx.z : 0;  // the column half
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
@@ -195,7 +210,9 @@ __global__ void __launch_bounds__(128 * G, 1)
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t1<D>(acc, da[kk], desc_mn(Ks, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_t1<W>(acc, da[kk],
+                     desc_mn(Ks + ch * (W / 64) * PANEL_BYTES, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -211,9 +228,9 @@ __global__ void __launch_bounds__(128 * G, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int row = q0 + r0 + 8 * hh;
     if (row >= sq) continue;
-    float* o = dq + ((long)row * hq + h) * D;
+    float* o = dq + ((long)row * hq + h) * D + ch * W;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < W / 8; ++j)
       *reinterpret_cast<float2*>(o + 8 * j + c0) = make_float2(
           acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
   }
@@ -229,7 +246,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const size_t smem = Smem<D, G>::bytes;
   cudaError_t e = magi::allow_smem(ffa_bwd_dq_tc_kernel<D, G>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_q_tiles, hq / G);
+  const dim3 grid(num_q_tiles, hq / G, NCH<D>);
   ffa_bwd_dq_tc_kernel<D, G><<<grid, 128 * G, smem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),

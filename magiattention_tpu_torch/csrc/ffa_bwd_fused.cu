@@ -38,7 +38,9 @@
 // atomics. What bounds both: operations, 10 * D flops per live (row, col)
 // pair and q head (S, dP, P^T dO, dS^T Q, dS K); then atomic traffic, one
 // 64 x D float32 block per (item, q head), a read-modify-write of
-// 64 * D * 4 bytes in L2 each.
+// 64 * D * 4 bytes in L2 each. Head dims 64, 128 and 256: at 256 each
+// body takes one 128-column half of dk, dv and the dq atomics per CTA
+// (grid z), as csrc/ffa_bwd_dkv.cu's.
 #include "bwd_kv.cuh"
 #include "bwd_kv_tc.cuh"
 
@@ -96,6 +98,10 @@ extern "C" int ffa_bwd_fused_bf16(const void* q, const void* k, const void* v,
       return kv_tc::launch<128, true>(q, k, v, dout, lse, delta, dk, dv, dq,
                                  work_qt_t, meta_t, run_ptr_t, sq, sk, hq, hk,
                                  num_k_tiles, scale, softcap, stream);
+    case 256:
+      return kv_tc::launch<256, true>(q, k, v, dout, lse, delta, dk, dv, dq,
+                                 work_qt_t, meta_t, run_ptr_t, sq, sk, hq, hk,
+                                 num_k_tiles, scale, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -111,6 +117,9 @@ extern "C" long ffa_bwd_fused_smem_bytes(int d, int bf16) {
   if (d == 128)
     return bf16 ? (long)kv_tc::Smem<128, true>::bytes
                 : (long)DkvSmem<128>::bytes;
+  if (d == 256)
+    return bf16 ? (long)kv_tc::Smem<256, true>::bytes
+                : (long)DkvSmem<256>::bytes;
   return 0;
 }
 

@@ -12,7 +12,10 @@
 // 3xTF32 (each operand split into tf32 hi and lo, three products a pair, so
 // the serving replay tolerance holds; one TF32 product would not), each
 // chunk's split under the previous chunk's products; 225 KB at D = 128,
-// one CTA per SM. Their designs and what bounds them are in the headers.
+// one CTA per SM. Head dims 64, 128 and 256; at 256 both bodies split the
+// output columns in two halves across the grid's z (each half recomputes
+// S over the full width). Their designs and what bounds them are in the
+// headers.
 //
 // Max-logits: the TPU kernel keeps a per-(head, q tile) running max of the
 // scaled, softcapped logits and reduces it on the host. Here the running
@@ -43,6 +46,10 @@ extern "C" int ffa_fwd_f32(const void* q, const void* k, const void* v,
       return fwd_tf32::launch<128, 1>(q, k, v, out, lse, max_logits, work_kt,
                                       meta, run_ptr, sq, sk, hq, hk,
                                       num_q_tiles, scale, softcap, stream);
+    case 256:
+      return fwd_tf32::launch<256, 1>(q, k, v, out, lse, max_logits, work_kt,
+                                      meta, run_ptr, sq, sk, hq, hk,
+                                      num_q_tiles, scale, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -63,6 +70,10 @@ extern "C" int ffa_fwd_bf16(const void* q, const void* k, const void* v,
       return fwd_tc::launch<128, 1>(q, k, v, out, lse, max_logits, work_kt,
                                     meta, run_ptr, sq, sk, hq, hk,
                                     num_q_tiles, scale, softcap, stream);
+    case 256:
+      return fwd_tc::launch<256, 1>(q, k, v, out, lse, max_logits, work_kt,
+                                    meta, run_ptr, sq, sk, hq, hk,
+                                    num_q_tiles, scale, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -78,5 +89,8 @@ extern "C" long ffa_fwd_smem_bytes(int d, int bf16) {
   if (d == 128)
     return bf16 ? (long)fwd_tc::Smem<128, 1>::bytes
                 : (long)fwd_tf32::Smem<128, 1>::bytes;
+  if (d == 256)
+    return bf16 ? (long)fwd_tc::Smem<256, 1>::bytes
+                : (long)fwd_tf32::Smem<256, 1>::bytes;
   return 0;
 }

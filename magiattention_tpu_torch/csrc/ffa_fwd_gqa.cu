@@ -18,14 +18,16 @@
 // head; G q tiles and two stages of K and V, (G + 4) * 64 * D * 2 bytes of
 // shared memory, and a thread holds its head's O accumulator (D / 2
 // floats), S (32) and P (16): G is 2 at D = 128 (four warpgroups would
-// leave 128 registers a thread) and 2 or 4 at D = 64.
+// leave 128 registers a thread) and 2 or 4 at D = 64; at D = 256 (the
+// column split: V tiles of 128 columns, O of 64 floats) G is 2, 161 KB.
 // float32 (csrc/ffa_fwd_tf32.cuh, 3xTF32 on the tensor cores): one consumer
 // warpgroup per head; G q tiles in hi and lo, the raw K/V chunk and two
 // stages of split K and V^T tiles where they fit (one at D = 128),
 // D * (512 G + 256 + 512 stages) + 16 G + 1024 bytes (145 KB at D = 64,
 // 225 KB at D = 128), and a thread holds its head's O accumulator and the
 // chunk's P V (D / 2 floats each), S (48) and P (32): G is 2 (four
-// warpgroups would leave 128 registers a thread).
+// warpgroups would leave 128 registers a thread); at D = 256 one head's
+// tiles take 225 KB, so the guard never packs there.
 // The wrapper's guard (kernels/ffa.py:fwd_pack_heads) computes the same
 // figures. A larger group runs in blocks of G heads (g = 8: several CTAs
 // per kv head). No max-logits output: the TPU's packed kernel emits none,
@@ -74,6 +76,10 @@ extern "C" int ffa_fwd_gqa_bf16(const void* q, const void* k, const void* v,
     return fwd_tc::launch<64, 4>(q, k, v, out, lse, nullptr, work_kt, meta,
                                  run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
                                  softcap, stream);
+  if (d == 256 && g == 2)
+    return fwd_tc::launch<256, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
+                                  run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
+                                  softcap, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -85,6 +91,7 @@ extern "C" long ffa_fwd_gqa_smem_bytes(int d, int g, int bf16) {
     if (d == 64 && g == 2) return (long)fwd_tc::Smem<64, 2>::bytes;
     if (d == 64 && g == 4) return (long)fwd_tc::Smem<64, 4>::bytes;
     if (d == 128 && g == 2) return (long)fwd_tc::Smem<128, 2>::bytes;
+    if (d == 256 && g == 2) return (long)fwd_tc::Smem<256, 2>::bytes;
     return 0;
   }
   if (d == 64 && g == 2) return (long)fwd_tf32::Smem<64, 2>::bytes;

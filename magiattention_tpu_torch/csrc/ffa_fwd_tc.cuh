@@ -7,8 +7,8 @@
 // What it computes: out = softmax(S) V over the live (q, k) pairs of the
 // plan's slices, lse in natural log, out 0 and lse -inf on rows no slice
 // covers, the optional per-(q tile, head) max of the scaled, softcapped
-// logits in natural units, head_dim 64 or 128, ragged last tiles, q tiles
-// taken from the last to the first.
+// logits in natural units, head_dim 64, 128 or 256, ragged last tiles, q
+// tiles taken from the last to the first.
 //
 // Design (the building blocks are in csrc/tc.cuh). One CTA owns one q tile
 // and G heads of one kv head and loops that q tile's run of work items;
@@ -25,11 +25,19 @@
 // The item's K and V tiles are double-buffered: cp.async loads of the next
 // real item are issued before this item's products, so they overlap.
 //
+// Head dim 256: a column split. The CTA keeps the width-128 register plan
+// and takes one 128-column half of out (grid z); S = Q K^T still runs over
+// the full 256 columns from shared memory (16 k-steps), so each half
+// recomputes S: about 1.5x the flops of one pass at d = dv = 256. lse and
+// the max logits are written by half 0 only.
+//
 // What bounds it on this card: operations, 4 * D flops per live pair and
 // head on the bf16 tensor cores (989 TFLOP/s on an H100 SXM). Shared
 // memory: G q tiles and two stages of K and V, (G + 4) * 64 * D * 2 bytes
-// (80 KB at D = 128, G = 1: two CTAs per SM). Registers: the O
-// accumulator (D / 2 floats a thread), S (32) and P (16).
+// (80 KB at D = 128, G = 1: two CTAs per SM; at D = 256 the V tiles are
+// the 128-column half, 129 KB at G = 1, one CTA per SM). Registers: the O
+// accumulator (DV / 2 floats a thread, DV = min(D, 128)), S (32) and P
+// (16).
 #pragma once
 
 #include "tc.cuh"
@@ -45,11 +53,19 @@ using magi::META_DIM;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 
+// the output columns one CTA computes (a 128-column half at D = 256) and
+// the halves of a row
+template <int D>
+constexpr int DV = D > 128 ? 128 : D;
+template <int D>
+constexpr int NCH = D / DV<D>;
+
 template <int D, int G>
 struct Smem {
-  static constexpr uint32_t TILE = 64 * D * 2;
+  static constexpr uint32_t TILE = 64 * D * 2;        // Q or K
+  static constexpr uint32_t STAGE = TILE + 64 * DV<D> * 2;  // K, V
   static constexpr uint32_t KV = G * TILE;        // [2 stages][K, V]
-  static constexpr uint32_t RED = KV + 4 * TILE;  // 4 floats a warpgroup
+  static constexpr uint32_t RED = KV + 2 * STAGE;  // 4 floats a warpgroup
   // + 1024: the dynamic window is rounded up to a 1024-byte boundary
   static constexpr size_t bytes = RED + 16 * G + 1024;
 };
@@ -67,12 +83,14 @@ __global__ void __launch_bounds__(128 * G, 1)
                       int hk, int num_q_tiles, float scale, float softcap) {
   using S = Smem<D, G>;
   constexpr int NT = 128 * G;
-  constexpr int NACC = D / 2;
+  constexpr int W = DV<D>;  // output columns of this CTA
+  constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
 
+  const int ch = NCH<D> > 1 ? (int)blockIdx.z : 0;  // the column half
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
@@ -95,11 +113,11 @@ __global__ void __launch_bounds__(128 * G, 1)
   };
   auto load_kv = [&](int w, int stage) {
     const int k0 = work_kt[w] * BK;
-    const uint32_t Ks = base + S::KV + 2 * stage * S::TILE;
+    const uint32_t Ks = base + S::KV + stage * S::STAGE;
     const long off = ((long)k0 * hk + hkv) * D;
     load_tile_async<D, NT>(Ks, k + off, kv_rs, min(BK, sk - k0), tid);
-    load_tile_async<D, NT>(Ks + S::TILE, v + off, kv_rs, min(BK, sk - k0),
-                           tid);
+    load_tile_async<W, NT>(Ks + S::TILE, v + off + ch * W, kv_rs,
+                           min(BK, sk - k0), tid);
   };
 
   int w = next_real(run_ptr[qt]);
@@ -125,7 +143,7 @@ __global__ void __launch_bounds__(128 * G, 1)
 
     const magi::Item item(meta + (long)w * META_DIM);
     const int k0 = work_kt[w] * BK;
-    const uint32_t Ks = base + S::KV + 2 * stage * S::TILE;
+    const uint32_t Ks = base + S::KV + stage * S::STAGE;
     const uint32_t Vs = Ks + S::TILE;
 
     float s[32];
@@ -178,7 +196,7 @@ __global__ void __launch_bounds__(128 * G, 1)
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t1<D>(acc, pa[kk], desc_mn(Vs, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t1<W>(acc, pa[kk], desc_mn(Vs, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -196,19 +214,19 @@ __global__ void __launch_bounds__(128 * G, 1)
     const int row = q0 + r0 + 8 * hh;
     if (row >= sq) continue;
     const bool empty = l[hh] == 0.f;  // no slice covers this row
-    __nv_bfloat16* o = out + ((long)row * hq + h) * D;
+    __nv_bfloat16* o = out + ((long)row * hq + h) * D + ch * W;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       const float a0 = empty ? 0.f : acc[4 * j + 2 * hh] / l[hh];
       const float a1 = empty ? 0.f : acc[4 * j + 2 * hh + 1] / l[hh];
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + c0) =
           __floats2bfloat162_rn(a0, a1);
     }
-    if ((lane & 3) == 0)
+    if ((lane & 3) == 0 && ch == 0)
       lse[(long)row * hq + h] =
           empty ? -INFINITY : (m[hh] + log2f(l[hh])) * LN2;
   }
-  if (max_logits != nullptr) {
+  if (max_logits != nullptr && ch == 0) {
     // the tile's max logit of this head: the row maxima of its 4 warps
     float mx = fmaxf(m[0], m[1]);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
@@ -233,7 +251,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   const size_t smem = Smem<D, G>::bytes;
   cudaError_t e = magi::allow_smem(ffa_fwd_tc_kernel<D, G>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_q_tiles, hq / G);
+  const dim3 grid(num_q_tiles, hq / G, NCH<D>);
   ffa_fwd_tc_kernel<D, G><<<grid, 128 * G, smem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),

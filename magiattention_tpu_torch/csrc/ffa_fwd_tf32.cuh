@@ -6,8 +6,8 @@
 // softmax(S) V over the live (q, k) pairs of the plan's slices, lse in
 // natural log, out 0 and lse -inf on rows no slice covers, the optional
 // per-(q tile, head) max of the scaled, softcapped logits in natural units,
-// head_dim 64 or 128, ragged last tiles, q tiles taken from the last to the
-// first.
+// head_dim 64, 128 or 256, ragged last tiles, q tiles taken from the last
+// to the first.
 //
 // Precision. One tf32 product keeps 10 mantissa bits (about 2^-11 of each
 // product), which misses the serving replay gates: a single-TF32 body is
@@ -55,8 +55,16 @@
 // 1024 to align the window (225 KB at D = 128, G = 1: one CTA per SM);
 // where two stages do not fit (D = 128, G = 2) one, each chunk split at
 // the start of its own step.
-// Registers: O and the chunk's P V (D / 2 floats a thread each), S in
-// three accumulators (48) and P's hi and lo (32).
+// Registers: O and the chunk's P V (DV / 2 floats a thread each, DV =
+// min(D, 128)), S in three accumulators (48) and P's hi and lo (32).
+//
+// Head dim 256: a column split, as csrc/ffa_fwd_tc.cuh's. The CTA takes one
+// 128-column half of out (grid z) and keeps the width-128 register plan;
+// S runs over all 256 columns (32 k-steps), so each half recomputes it.
+// The q tiles alone (hi and lo) take 128 KB there, so the raw staging
+// buffer goes: each chunk's K rows and V half are read from global memory
+// by the threads that split them (no cp.async), into one stage (K's
+// stacked tile 64 KB, V^T's hi and lo 32 KB): 230,416 bytes at G = 1.
 #pragma once
 
 #include "tc.cuh"
@@ -73,16 +81,27 @@ constexpr int BQ = 64;
 constexpr int BK = 64;  // keys of a work item
 constexpr int KC = 32;  // keys of a chunk
 
+// the output columns one CTA computes (a 128-column half at D = 256), the
+// halves of a row, and whether chunks are staged raw by cp.async (else
+// read from global memory by the split itself)
+template <int D>
+constexpr int DV = D > 128 ? 128 : D;
+template <int D>
+constexpr int NCH = D / DV<D>;
+template <int D>
+constexpr bool RAW = D <= 128;
+
 template <int D, int G>
 struct Smem {
   static constexpr uint32_t QT = BQ * D * 4;  // one q tile, hi or lo
-  static constexpr uint32_t CT = KC * D * 4;  // one chunk tile
+  static constexpr uint32_t CT = KC * D * 4;  // one K chunk tile
+  static constexpr uint32_t CV = KC * DV<D> * 4;  // one V chunk tile
   static constexpr uint32_t QH = 0;           // [G][hi, lo] q tiles
   static constexpr uint32_t KR = 2 * G * QT;  // raw K chunk, row-major
-  static constexpr uint32_t VR = KR + CT;     // raw V chunk, row-major
+  static constexpr uint32_t VR = KR + (RAW<D> ? CT : 0);  // raw V chunk
   // [NST stages][K hi and lo stacked (64 rows: hi, then lo), V^T hi, lo]
-  static constexpr uint32_t ST = VR + CT;
-  static constexpr uint32_t STAGE = 4 * CT;
+  static constexpr uint32_t ST = VR + (RAW<D> ? CV : 0);
+  static constexpr uint32_t STAGE = 2 * CT + 2 * CV;
   // two stages where they fit the opt-in limit (+ 1024: the dynamic
   // window is rounded up to a 1024-byte boundary), else one
   static constexpr int NST = ST + 2 * STAGE + 16 * G + 1024 <= 232448 ? 2 : 1;
@@ -117,6 +136,7 @@ __device__ __forceinline__ void load_chunk(uint32_t kr, uint32_t vr,
 template <int D, int NT>
 __device__ __forceinline__ void split_chunk(uint8_t* stage, const float* kraw,
                                             const float* vraw, int t) {
+  static_assert(RAW<D>, "staged chunks are D wide in K and V");
   constexpr uint32_t CT = KC * D * 4;
 #pragma unroll 4
   for (int i = t; i < KC * D / 4; i += NT) {  // K: row r, columns c .. c + 3
@@ -148,6 +168,55 @@ __device__ __forceinline__ void split_chunk(uint8_t* stage, const float* kraw,
   }
 }
 
+// split_chunk's tiles without a raw stage (D = 256): K rows [k0, k0 + KC)
+// and the W = DV columns of V from column c0v, of kv head hkv, read from
+// global memory (rows at or past sk zero); all NT threads take part.
+template <int D, int NT>
+__device__ __forceinline__ void split_chunk_global(uint8_t* stage,
+                                                   const float* k,
+                                                   const float* v, int k0,
+                                                   int sk, int hk, int hkv,
+                                                   int c0v, int t) {
+  constexpr int W = DV<D>;
+  constexpr uint32_t CT = KC * D * 4, CV = KC * W * 4;
+  const long rs = (long)hk * D;
+  const float* kb = k + ((long)k0 * hk + hkv) * D;
+  const float* vb = v + ((long)k0 * hk + hkv) * D + c0v;
+  const int nv = sk - k0;  // valid rows of the chunk
+#pragma unroll 4
+  for (int i = t; i < KC * D / 4; i += NT) {  // K: row r, columns c .. c + 3
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nv) x = __ldg(reinterpret_cast<const float4*>(kb + r * rs + c));
+    float4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<float4*>(stage + tile_offset32<2 * KC>(r, c)) = hi;
+    *reinterpret_cast<float4*>(stage + tile_offset32<2 * KC>(r + KC, c)) = lo;
+  }
+#pragma unroll 2
+  for (int i = t; i < W * (KC / 8); i += NT) {  // V^T: row n, keys 8 gr ..
+    const int n = i % W, gr = i / W;
+    float hv[8], lv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = gr * 8 + j;
+      split_tf32(r < nv ? __ldg(vb + r * rs + n) : 0.f, hv[kpos(j)],
+                 lv[kpos(j)]);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const uint32_t o = tile_offset32<W>(n, gr * 8 + hf * 4);
+      *reinterpret_cast<float4*>(stage + 2 * CT + o) =
+          make_float4(hv[4 * hf], hv[4 * hf + 1], hv[4 * hf + 2], hv[4 * hf + 3]);
+      *reinterpret_cast<float4*>(stage + 2 * CT + CV + o) =
+          make_float4(lv[4 * hf], lv[4 * hf + 1], lv[4 * hf + 2], lv[4 * hf + 3]);
+    }
+  }
+}
+
 template <int D, int G>
 __global__ void __launch_bounds__(128 * G, 1)
     ffa_fwd_tf32_kernel(const float* __restrict__ q,
@@ -162,12 +231,14 @@ __global__ void __launch_bounds__(128 * G, 1)
                         float softcap) {
   using S = Smem<D, G>;
   constexpr int NT = 128 * G;
-  constexpr int NACC = D / 2;
+  constexpr int W = DV<D>;  // output columns of this CTA
+  constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
 
+  const int ch = NCH<D> > 1 ? (int)blockIdx.z : 0;  // the column half
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
@@ -203,10 +274,19 @@ __global__ void __launch_bounds__(128 * G, 1)
     } while (w < w_end && !live_chunk(w, sub));
   };
   auto load = [&](int w, int sub) {
-    if (w < w_end)
+    if (RAW<D> && w < w_end)
       load_chunk<D, NT>(base + S::KR, base + S::VR, k, v,
                         work_kt[w] * BK + sub * KC, sk, hk, hkv, tid);
     cp_async_commit();
+  };
+  // the chunk (w, sub) into the stage at st: from the raw buffer, or
+  // straight from global memory
+  auto split = [&](uint8_t* st, int w, int sub) {
+    if constexpr (RAW<D>)
+      split_chunk<D, NT>(st, kraw, vraw, tid);
+    else
+      split_chunk_global<D, NT>(st, k, v, work_kt[w] * BK + sub * KC, sk, hk,
+                                hkv, ch * W, tid);
   };
 
   int w = run_ptr[qt], sub = 0;
@@ -241,7 +321,7 @@ __global__ void __launch_bounds__(128 * G, 1)
   if (S::NST == 2 && w < w_end) {
     cp_async_wait<0>();
     __syncthreads();
-    split_chunk<D, NT>(smem + S::ST, kraw, vraw, tid);
+    split(smem + S::ST, w, sub);
     next_chunk(wn, subn);
     fence_async_smem();
     __syncthreads();  // stage 0 is complete, raw is free
@@ -260,13 +340,13 @@ __global__ void __launch_bounds__(128 * G, 1)
     const magi::Item item(meta + (long)w * META_DIM);
     const int kc0 = work_kt[w] * BK + sub * KC;
     const uint32_t Kst = base + S::ST + st * S::STAGE;  // K hi / lo rows
-    const uint32_t Vh = Kst + 2 * S::CT, Vl = Vh + S::CT;
+    const uint32_t Vh = Kst + 2 * S::CT, Vl = Vh + S::CV;
     if (S::NST == 1) {  // this chunk's tiles (the last step's products are
                         // done in every warpgroup: the barrier), then the
                         // next chunk's copy
       cp_async_wait<0>();
       __syncthreads();
-      split_chunk<D, NT>(smem + S::ST, kraw, vraw, tid);
+      split(smem + S::ST, w, sub);
       next_chunk(wn, subn);
       fence_async_smem();
       __syncthreads();  // the stage is complete (and the q tiles at the
@@ -298,7 +378,7 @@ __global__ void __launch_bounds__(128 * G, 1)
     if (S::NST == 2 && wn < w_end) {
       cp_async_wait<0>();
       __syncthreads();
-      split_chunk<D, NT>(smem + S::ST + (st ^ 1) * S::STAGE, kraw, vraw, tid);
+      split(smem + S::ST + (st ^ 1) * S::STAGE, wn, subn);
       next_chunk(wnn, subnn);
       fence_async_smem();
       __syncthreads();  // raw is free
@@ -351,9 +431,9 @@ __global__ void __launch_bounds__(128 * G, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KC / 8; ++kk) {
-      wgmma_tf32_rs<D>(o, pl[kk], desc_k32<D>(Vh, kk));
-      wgmma_tf32_rs<D>(o, ph[kk], desc_k32<D>(Vl, kk));
-      wgmma_tf32_rs<D>(o, ph[kk], desc_k32<D>(Vh, kk));
+      wgmma_tf32_rs<W>(o, pl[kk], desc_k32<W>(Vh, kk));
+      wgmma_tf32_rs<W>(o, ph[kk], desc_k32<W>(Vl, kk));
+      wgmma_tf32_rs<W>(o, ph[kk], desc_k32<W>(Vh, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -376,18 +456,18 @@ __global__ void __launch_bounds__(128 * G, 1)
     const int row = q0 + r0 + 8 * hh;
     if (row >= sq) continue;
     const bool empty = l[hh] == 0.f;  // no slice covers this row
-    float* orow = out + ((long)row * hq + h) * D;
+    float* orow = out + ((long)row * hq + h) * D + ch * W;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       const float a0 = empty ? 0.f : acc[4 * j + 2 * hh] / l[hh];
       const float a1 = empty ? 0.f : acc[4 * j + 2 * hh + 1] / l[hh];
       *reinterpret_cast<float2*>(orow + 8 * j + c0) = make_float2(a0, a1);
     }
-    if ((lane & 3) == 0)
+    if ((lane & 3) == 0 && ch == 0)
       lse[(long)row * hq + h] =
           empty ? -INFINITY : (m[hh] + log2f(l[hh])) * LN2;
   }
-  if (max_logits != nullptr) {
+  if (max_logits != nullptr && ch == 0) {
     // the tile's max logit of this head: the row maxima of its 4 warps
     float mx = fmaxf(m[0], m[1]);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
@@ -412,7 +492,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   const size_t smem = Smem<D, G>::bytes;
   cudaError_t e = magi::allow_smem(ffa_fwd_tf32_kernel<D, G>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_q_tiles, hq / G);
+  const dim3 grid(num_q_tiles, hq / G, NCH<D>);
   ffa_fwd_tf32_kernel<D, G><<<grid, 128 * G, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, max_logits,

@@ -67,6 +67,13 @@
 // remains between it and the bytes bound is the work of each chunk on the
 // CUDA cores and in shared memory (bf16 pages, half the bytes, are not
 // twice as fast), three CTAs an SM at most, and the merge launch.
+//
+// Head dim 256: page rows twice as wide, the same walk. A score takes NSL =
+// 8 d-slices of 32 values (so a thread's K slice stays 32 registers and a
+// thread takes every row), P V two columns (one at 32 rows) of a half
+// (the whole chunk's tokens at 32 rows), the int8 row scales unchanged.
+// Shared memory at float32 pages: 152 KB at RMAX 8 to 197 KB at 32, one
+// CTA an SM.
 #pragma once
 
 #include <type_traits>
@@ -85,7 +92,12 @@ constexpr int NTS = 256;   // threads per CTA of the walk
 constexpr int NTM = 128;   // threads per CTA of merge_kernel
 constexpr int TCS = 32;    // tokens per chunk (split_len % TCS == 0)
 constexpr int STAGES = 2;  // K/V chunks in shared memory
-constexpr int NSL = 4;     // d-slices of a score
+
+// d-slices of a score: 32 or fewer values a slice
+template <int D>
+__host__ __device__ constexpr int nsl() {
+  return D > 128 ? 8 : 4;
+}
 
 // output columns per P V thread (one at 32 rows, where two would hold 64
 // accumulators a thread)
@@ -108,6 +120,7 @@ struct Smem {
   static constexpr int KCH = TCS * DS;  // elements of one K chunk
   static constexpr int VCH = TCS * D;   // elements of one V chunk
   static constexpr int SR = RMAX + 4;   // token stride of the scores
+  static constexpr int NSL = nsl<D>();
   static constexpr int SCR = NSL * RMAX * TCS > TCS * SR ? NSL * RMAX * TCS
                                                          : TCS * SR;
   static constexpr int SCALES = QUANT ? 2 * STAGES * TCS : 0;  // floats
@@ -161,7 +174,8 @@ __device__ __forceinline__ void split_scores(const float* Qs, const TP* Ks,
                                              float* Pp, int rows) {
   constexpr int DS = D + 16 / (int)sizeof(TP);
   constexpr int VEC = 16 / (int)sizeof(TP);
-  constexpr int RH = NTS / TCS / NSL;  // row halves
+  constexpr int NSL = nsl<D>();
+  constexpr int RH = NTS / TCS / NSL;  // row halves (1 at NSL 8)
   constexpr int RR = RMAX / RH;        // rows per thread
   constexpr int W = D / NSL;
   static_assert(RH * NSL * TCS == NTS && RR * RH == RMAX && W % VEC == 0,
@@ -198,7 +212,7 @@ __device__ __forceinline__ void split_scores(const float* Qs, const TP* Ks,
 // to Ss (token-major; int8 pages: times the token row's V scale Sv[lane],
 // while Ls sums them unscaled), which shares the partials' space: every
 // warp has read its partials (a barrier) before any writes them.
-template <int RMAX, bool QUANT>
+template <int RMAX, bool QUANT, int NSL>
 __device__ __forceinline__ void split_softmax(const float* Pp, float* Ss,
                                               float* Ms, float* Ls, float* As,
                                               const int* Lim, const float* Sk,
@@ -368,7 +382,7 @@ __device__ __forceinline__ long out_row(int s, int spec_k, int hq, int h,
 // splits x R rows of (max, sum); R = S * spec_k * hq, a row's index that of
 // its out row).
 template <typename TQ, typename TP, int D, int RMAX>
-__global__ void __launch_bounds__(NTS, RMAX <= 8 ? 3 : 2)
+__global__ void __launch_bounds__(NTS, D > 128 ? 1 : RMAX <= 8 ? 3 : 2)
     decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pages,
                   const TP* __restrict__ v_pages,
                   const float* __restrict__ k_scales,
@@ -450,8 +464,9 @@ __global__ void __launch_bounds__(NTS, RMAX <= 8 ? 3 : 2)
     __syncthreads();         // everyone's, and Qs and Lim at the first
     split_scores<TP, D, RMAX>(Qs, Ks + st * SM::KCH, Ss, rows);
     __syncthreads();
-    split_softmax<RMAX, QUANT>(Ss, Ss, Ms, Ls, As, Lim, Sks + st * TCS,
-                               Svs + st * TCS, rows, c0);
+    split_softmax<RMAX, QUANT, SM::NSL>(Ss, Ss, Ms, Ls, As, Lim,
+                                        Sks + st * TCS, Svs + st * TCS, rows,
+                                        c0);
     __syncthreads();
     // a token past hi has probability 0 and a zero-filled V row
     split_pv<TP, D, RMAX, CPT>(Vs + st * SM::VCH, Ss, As, rows, cp, CS,
@@ -595,7 +610,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
-// head_dim 64 or 128; rows = spec_k * hq / hk at most RMAX; splits >= 1
+// head_dim 64, 128 or 256; rows = spec_k * hq / hk at most RMAX; splits >= 1
 // ranges of split_len tokens (a multiple of TCS) that cover the table
 // (splits * split_len >= P * ps) and, where splits > 1, a workspace part
 // of splits * S * spec_k * hq * (D + 2) floats; int8 pages need their
@@ -621,6 +636,11 @@ int dispatch(int d, const void* q, const void* k_pages, const void* v_pages,
           stream);
     case 128:
       return launch<TQ, TP, 128, RMAX>(
+          q, k_pages, v_pages, k_scales, v_scales, table, lengths, out, lse,
+          part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
+          stream);
+    case 256:
+      return launch<TQ, TP, 256, RMAX>(
           q, k_pages, v_pages, k_scales, v_scales, table, lengths, out, lse,
           part, S, hq, hk, ps, P, spec_k, splits, split_len, softmax_scale,
           stream);

@@ -313,7 +313,7 @@ __device__ __forceinline__ void to_a_frags_split(uint32_t (&hi)[4][4],
 }
 
 // O[64 x N] += A B over k-step kk, A from registers, B MN-major: N = 64
-// or 128 (the head dim).
+// or 128 (the head dim, or its 128-column half).
 template <int N>
 __device__ __forceinline__ void wgmma_rs_t1(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
@@ -494,7 +494,7 @@ __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
 }
 
 // O[64 x N] += A B over one k-step, A tf32 from registers, B K-major: N =
-// 64 or 128 (the head dim).
+// 64 or 128 (the head dim, or its 128-column half).
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],

@@ -197,6 +197,43 @@ class DistAttnRuntimeMgr:
         """The global position of each of this rank's dispatched rows."""
         return self._indices("qo")[0]
 
+    def get_xattn_args(
+        self, ref_xattn_q_ranges: AttnRanges, ref_xattn_k_ranges: AttnRanges, attn_mask_type=None
+    ) -> list:
+        """Cross-attention args for the dispatched q layout (ref :269-357):
+        each global (q_range, k_range) pair of a FULL cross-attention over a
+        new, undistributed kv tensor, in every rank's local dispatched q
+        coordinates. Host-only: the list holds one :class:`AttnArg` per
+        rank (this rank's is ``[self.key.cp_rank]``), as in the JAX
+        package."""
+        from .kernels.mask_utils import BAND_INF
+        from .meta.collection.calc_meta import AttnArg
+
+        if len(ref_xattn_q_ranges) != len(ref_xattn_k_ranges):
+            raise ValueError(
+                f"q/k range count mismatch: {len(ref_xattn_q_ranges)} vs "
+                f"{len(ref_xattn_k_ranges)}"
+            )
+        if attn_mask_type is not None:
+            types = (
+                attn_mask_type if isinstance(attn_mask_type, list)
+                else [attn_mask_type] * len(ref_xattn_q_ranges)
+            )
+            if any(AttnMaskType.normalize(t) != AttnMaskType.FULL for t in types):
+                raise ValueError("only FULL cross-attention masks are supported (ref :293)")
+        meta = self.dispatch_meta_q
+        sk = ref_xattn_k_ranges.end
+        args = []
+        for rank in range(meta.cp_size):
+            own = meta.host_ranges_per_rank[rank]
+            slices = []
+            for qr, kr in zip(ref_xattn_q_ranges, ref_xattn_k_ranges):
+                for piece in AttnRanges([qr]).find_overlap_ranges(own):
+                    q_loc = own.make_range_local(piece)
+                    slices.append((q_loc.start, q_loc.end, kr.start, kr.end, -BAND_INF, BAND_INF))
+            args.append(AttnArg.from_slices(slices, meta.shard_seqlen, sk))
+        return args
+
 
 class DistAttnRuntimeDict:
     """LRU cache of managers by key."""

@@ -21,8 +21,8 @@ Hand-written Hopper kernels walk it, behind the
 
 Their bf16 bodies run on the tensor cores (``csrc/block_sparse_tc.cuh``),
 their float32 bodies on the CUDA cores. The kernels are compiled at head
-dims 64 and 128; :class:`_BSPCore` pads other dims up to 128 with zero
-columns (:mod:`.head_dims`). Beside each kernel, a plain PyTorch version
+dims 64, 128 and 256; :class:`_BSPCore` pads other dims up to 256 with
+zero columns (:mod:`.head_dims`). Beside each kernel, a plain PyTorch version
 (:func:`block_sparse_fwd_plain`, :func:`block_sparse_bwd_plain`): a
 gathered dense softmax over the same chunk table. CPU tensors take the
 plain versions; CUDA tensors launch the kernels or raise.
@@ -341,7 +341,7 @@ def _dims(q, k, ctbl, params: BSPParams) -> tuple[int, ...]:
 def block_sparse_fwd_kernel(q, k, v, ctbl, params: BSPParams):
     """Launch ``csrc/block_sparse_fwd.cu`` (B13) on CUDA tensors ``q
     [S, hq, d]``, ``k/v [S, hk, d]`` of one dtype (float32 or bfloat16,
-    d 64 or 128) and the chunk table ``ctbl [hk, S / block_size_q, C]``,
+    d 64, 128 or 256) and the chunk table ``ctbl [hk, S / block_size_q, C]``,
     whose entries the caller keeps in ``[0, S / d_stride)``. Returns (out
     ``[S, hq, d]`` in q's dtype, lse ``[S, hq]`` float32). Adds one to
     ``block_sparse_fwd_kernel.launches`` per launch."""
@@ -513,7 +513,7 @@ def block_sparse_bwd(q, k, v, do, lse, delta, ctbl, params: BSPParams):
 class _BSPCore(torch.autograd.Function):
     """B13 forward + B14 backward over one chunk table (the JAX package's
     ``_bsp_core`` custom VJP): kernels for CUDA tensors, plain versions for
-    CPU ones. On CUDA, head dims other than d == dv in (64, 128) run padded
+    CPU ones. On CUDA, head dims other than d == dv in (64, 128, 256) run padded
     with zero columns to the kernels' width (:mod:`.head_dims`), once per
     call: q, k, v here, dO in the backward. delta = rowsum(dO * out) is a
     torch sum outside the kernel, as in the JAX package; gradients come

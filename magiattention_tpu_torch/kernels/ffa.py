@@ -75,7 +75,8 @@ from ..env import kernel as env_kernel
 from . import _build
 from .ffa_plan import DHI, DLO, KE, KS, QE, QS, QVL, FFAPlan, get_ffa_plan
 from .head_dims import (
-    KERNEL_HEAD_DIMS, is_kernel_width, kernel_head_dim, pad_head_dim, pad_to_kernel_width,
+    KERNEL_HEAD_DIMS, SPLIT_WIDTH, cta_width, is_kernel_width, kernel_head_dim, pad_head_dim,
+    pad_to_kernel_width,
 )
 from .mask_utils import build_dense_mask_band, types_to_bands
 from .sdpa import dense_max_logits, sdpa_attn
@@ -665,12 +666,17 @@ def fwd_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
     bfloat16 (csrc/ffa_fwd_tc.cuh ``Smem``): the heads' q tiles and two
     stages of k and v tiles in bf16. Both: 16 bytes a head for the
     max-logits reduction, and 1024 bytes to align the window for the
-    swizzle."""
+    swizzle. At d = 256 (the column split) the v tiles are the 128-column
+    half, and float32 splits each chunk straight from global memory (no
+    raw chunk)."""
+    w = cta_width(d)
     if itemsize == 2:
-        return (heads + 4) * 64 * d * 2 + 16 * heads + 1024
-    fixed = d * (512 * heads + 256) + 16 * heads + 1024
-    two_stages = fixed + 2 * 512 * d
-    return two_stages if two_stages <= SMEM_PER_CTA else fixed + 512 * d
+        return heads * 64 * d * 2 + 2 * 64 * (d + w) * 2 + 16 * heads + 1024
+    raw = 128 * (d + w) if d <= SPLIT_WIDTH else 0
+    fixed = 512 * heads * d + raw + 16 * heads + 1024
+    stage = 256 * (d + w)
+    two_stages = fixed + 2 * stage
+    return two_stages if two_stages <= SMEM_PER_CTA else fixed + stage
 
 
 def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
@@ -678,10 +684,11 @@ def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
     (csrc/ffa_bwd_dq.cuh ``DqSmem``): the heads' q and dO tiles, the k and
     v tiles, the dS tile. bfloat16 (csrc/ffa_bwd_dq_tc.cuh ``Smem``): the
     heads' q and dO tiles and two stages of k and v tiles in bf16, and 1024
-    bytes to align the window for the swizzle."""
+    bytes to align the window for the swizzle. At d = 256 the float32
+    tiles are the contraction's 128-column chunks."""
     if itemsize == 2:
         return (2 * heads + 4) * 64 * d * 2 + 1024
-    return 4 * ((2 * heads + 2) * _tile_floats(d) + P_TILE_FLOATS)
+    return 4 * ((2 * heads + 2) * _tile_floats(cta_width(d)) + P_TILE_FLOATS)
 
 
 def _pack_heads(group: int, d: int, dv: int, smem_bytes, regs_per_head: int, regs_shared: int) -> int:
@@ -720,7 +727,8 @@ def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_needed: int,
     :data:`PACK_HEADS` dividing the group whose CTA fits the shared memory
     limit (``smem_bytes(d, heads, itemsize)``) and whose warpgroups (128
     threads a head) each find the registers a thread needs
-    (``regs_needed``) in the SM's file."""
+    (``regs_needed``, from the accumulators of one CTA's columns: a
+    128-column half at d = 256) in the SM's file."""
     if not is_kernel_width(d, dv):
         return 1
     for heads in PACK_HEADS:
@@ -741,11 +749,13 @@ def fwd_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
     tensor cores, one warpgroup a head). bfloat16: d / 2 + 88 registers a
     thread, 2 heads at head_dim 128 and 4 at 64. float32 (3xTF32): d + 72
     registers a thread and :func:`fwd_pack_smem_bytes`, 2 heads at head_dim
-    64 and 128 (four warpgroups would leave 128 registers a thread). A
-    group larger than the block runs in several blocks per kv head."""
+    64 and 128 (four warpgroups would leave 128 registers a thread). At
+    d = 256 bf16 packs 2 heads and float32 none (one head's tiles take
+    225 KB). A group larger than the block runs in several blocks per kv
+    head."""
     if itemsize == 2:
-        return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, d // 2 + TC_FWD_REGS_SHARED)
-    return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, d + TF32_FWD_REGS_SHARED, 4)
+        return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, cta_width(d) // 2 + TC_FWD_REGS_SHARED)
+    return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, cta_width(d) + TF32_FWD_REGS_SHARED, 4)
 
 
 def dq_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
@@ -755,9 +765,13 @@ def dq_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
     128), registers per head 4 rows x d/16 dq columns and 4 lse and delta
     values, the 4 x 4 score and dP blocks. bfloat16 (the tensor-core body):
     :func:`_tc_pack_heads` with d / 2 + 120 registers a thread, so 2 heads
-    at head_dim 64 and 128 (four warpgroups would leave 128 a thread)."""
+    at head_dim 64 and 128 (four warpgroups would leave 128 a thread). At
+    d = 256 neither packs: bf16's two heads take 263,168 bytes, and the
+    float32 instance chunks its contraction for one head a CTA."""
     if itemsize == 2:
-        return _tc_pack_heads(group, d, dv, dq_pack_smem_bytes, d // 2 + TC_DQ_REGS_SHARED)
+        return _tc_pack_heads(group, d, dv, dq_pack_smem_bytes, cta_width(d) // 2 + TC_DQ_REGS_SHARED)
+    if d > SPLIT_WIDTH:
+        return 1
     return _pack_heads(group, d, dv, dq_pack_smem_bytes, d // 4 + 8, 32)
 
 
@@ -805,7 +819,7 @@ def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logit
     ``ffa_fwd_pallas_dispatch``): the one entry of every forward caller
     (``_FFACore``, the sink core, ``_MultiFFA``). Returns (out, lse), plus
     max_logits ``[hq]`` when asked for (always by the unpacked kernel). On
-    CUDA, head dims other than d == dv in (64, 128) run padded to the
+    CUDA, head dims other than d == dv in (64, 128, 256) run padded to the
     kernels' width (:func:`.head_dims.pad_to_kernel_width`), which the
     packing guard sees; out comes back at v's width."""
     dv = v.shape[-1]
@@ -837,10 +851,11 @@ def dkv_smem_bytes(d: int, itemsize: int = 4) -> int:
     dS^T tiles at row stride 80, the q tile's lse and delta, float32.
     bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``): K, V and two stages of Q and dO
     in bf16, two stages of lse and delta, and 1024 bytes to align the
-    window for the swizzle."""
+    window for the swizzle. At d = 256 the float32 tiles are the
+    contraction's 128-column chunks."""
     if itemsize == 2:
         return 6 * 64 * d * 2 + 2 * 2 * 64 * 4 + 1024
-    return 4 * (4 * _tile_floats(d) + 2 * P_TILE_FLOATS + 2 * 64)
+    return 4 * (4 * _tile_floats(cta_width(d)) + 2 * P_TILE_FLOATS + 2 * 64)
 
 
 def fused_bwd_smem_bytes(d: int, itemsize: int = 4) -> int:
@@ -856,14 +871,15 @@ def fused_bwd_feasible(d: int, dv: int) -> bool:
     within the opt-in limit, and the live accumulators of a thread (dk and
     dv, d / 2; the dq block, 16; the S and dP blocks, 32) with room for
     addresses and operands (64) within the register limit. These are the
-    float32 body's figures; the bf16 tensor-core body takes less shared
-    memory (:func:`fused_bwd_smem_bytes`) and fits its registers at head
-    dims 64 and 128 without a spill (chip_smoke.py's ``tensor_cores``
+    float32 body's figures (at d = 256 those of one 128-column half); the
+    bf16 tensor-core body takes less shared memory at head dims 64 and 128
+    (:func:`fused_bwd_smem_bytes`) and fits its registers at each width
+    without a spill (chip_smoke.py's ``tensor_cores``
     phase reports both from the build). The JAX package's
     guard is its VMEM residency (``ffa.fused_bwd_feasible``)."""
     if d != dv or d % 64:
         return False
-    accumulators = d // 2 + 16 + 32
+    accumulators = cta_width(d) // 2 + 16 + 32
     return (
         fused_bwd_smem_bytes(d) <= SMEM_PER_CTA
         and accumulators + 64 <= REGS_PER_THREAD
@@ -926,7 +942,7 @@ def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     """(dq, dk, dv) float32 of one plan under :func:`ffa_bwd_mode`: the
     fused kernel, or the dq (:func:`ffa_bwd_dq_dispatch`) then dk/dv
     kernels (their plain versions on the CPU). On CUDA, head dims other
-    than d == dv in (64, 128) run padded to the kernels' width
+    than d == dv in (64, 128, 256) run padded to the kernels' width
     (:func:`.head_dims.pad_to_kernel_width`), which the mode and packing
     guards see; the gradients come back at their inputs' widths."""
     d, d_v = q.shape[-1], v.shape[-1]

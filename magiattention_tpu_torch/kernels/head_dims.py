@@ -1,18 +1,19 @@
 """The head dims the port's CUDA kernels are compiled for, and the zero
-padding that takes every other ``d, dv <= 128`` through them.
+padding that takes every other ``d, dv <= 256`` through them.
 
-Every kernel body is instantiated at head dims 64 and 128 with equal q/k
-and v widths. A call with other dims pads q and k (width ``d``) and v, dO
+Every kernel body is instantiated at head dims 64, 128 and 256 with equal
+q/k and v widths. A call with other dims pads q and k (width ``d``) and v, dO
 and out (width ``dv``) with zero columns to the smallest compiled width
 that holds both, runs the kernel and slices the logical columns back. The
 padding is exact: zero columns add exact zeros to S, dP and delta and give
 zero columns in every output. The softmax scale stays the caller's (the
 true ``d``'s), fixed before any tensor is padded.
 
-Above 128 the card has no kernel: a 256-wide tile's dk and dv (2 x 128
-floats a thread) do not fit one warpgroup's registers, so a new register
-plan is needed (ROADMAP C4b). No model configuration of the repo exceeds
-128.
+The 256 instances keep the width-128 register plan and split the columns
+they write in two 128-column halves across the grid (each half recomputes
+S and dP over the full width). Above 256 the card has no kernel (ROADMAP
+C4c): at 512 the Q, K and V tiles take 64 KB each in bf16, and no public
+model configuration of the repo's families is that wide.
 """
 
 from __future__ import annotations
@@ -20,8 +21,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+# the widest output a CTA writes: above it a kernel splits its output
+# columns into halves of this width across the grid
+SPLIT_WIDTH = 128
+
+
+def cta_width(d: int) -> int:
+    """The output columns one CTA writes at compiled width ``d``."""
+    return min(d, SPLIT_WIDTH)
+
+
+def column_halves(d: int) -> int:
+    """The column halves a kernel's grid runs at compiled width ``d``: 2
+    at 256, else 1."""
+    return d // cta_width(d)
 
 
 def kernel_head_dim(d: int, dv: int | None = None) -> int:
@@ -35,8 +50,8 @@ def kernel_head_dim(d: int, dv: int | None = None) -> int:
     if widest > MAX_HEAD_DIM:
         raise ValueError(
             f"head dims d={d}, dv={dv}: the CUDA kernels take at most "
-            f"{MAX_HEAD_DIM} (a 256-wide tile's dk and dv, 2 x 128 floats a "
-            "thread, do not fit one warpgroup's registers; ROADMAP C4b)"
+            f"{MAX_HEAD_DIM} (at 512 the Q, K and V tiles take 64 KB each in "
+            "bf16; ROADMAP C4c)"
         )
     return next(w for w in KERNEL_HEAD_DIMS if w >= widest)
 

@@ -21,7 +21,7 @@ a second kernel merges in split order, so two launches give the same bits.
 What still bounds them is each chunk's work on the CUDA cores and in shared
 memory, and the merge launch (PERF.md).
 
-The kernels are compiled at head dims 64 and 128. A cache on the card
+The kernels are compiled at head dims 64, 128 and 256. A cache on the card
 holds its pages at that width already (``PagedKVCache.create``), so a call
 with other logical dims pads only q (small, per tick) and slices out back
 to ``head_dim_v``.

@@ -101,7 +101,7 @@ class PagedKVCache:
         """Zeroed pages and an all -1 table, on the card unless ``device``
         says otherwise. ``dtype=torch.int8`` adds zeroed scales. v rows are
         ``head_dim_v`` wide (default ``head_dim``). On the card both page
-        tensors take the decode kernels' width (raises above 128)."""
+        tensors take the decode kernels' width (raises above 256)."""
         if dtype not in (torch.float32, torch.bfloat16, torch.int8):
             raise ValueError(
                 f"PagedKVCache dtype {dtype}: float32, bfloat16 or int8"

@@ -38,9 +38,14 @@ the atomic rate from the float32 fused kernel's time less 5/4 of the dk/dv
 kernel's (that body is the dk/dv body plus one tile product, dS K, and the
 atomics). The tensor-core bodies (:func:`calibrate_tc`): each kernel's
 per-(item, head) time fitted by least squares to its times at the bf16
-masks of the phase. Other head dims scale the per-item times by d / 128.
-Which bodies a backward runs follows its dtype (``BwdShape.itemsize``: 2
-is bf16, the tensor-core bodies; :func:`dtype_body`).
+masks of the phase. Head dims up to 128 scale the per-item times by
+d / 128. At 256 (:func:`width_scale`) every kernel splits the columns it
+writes in two 128-column halves across the grid, so it runs twice the
+CTAs, and each CTA does its 128-wide output products beside S and dP over
+the full 256 (the recompute: :data:`TC_PRODUCTS`, :data:`FMA_PRODUCTS`);
+the tensor-core bodies then run one CTA an SM (shared memory). Which
+bodies a backward runs follows its dtype (``BwdShape.itemsize``: 2 is
+bf16, the tensor-core bodies; :func:`dtype_body`).
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ import heapq
 from dataclasses import dataclass
 
 import numpy as np
+
+from .head_dims import SPLIT_WIDTH, column_halves
 
 # the card: NVIDIA H100 SXM data sheet
 NUM_SMS = 132
@@ -77,6 +84,22 @@ TC_ITEM_US = {"dq": 0.9092, "dq_gqa": 1.0122, "dkv": 2.8878, "fused": 5.121}
 # a CTA's while it shares the SM. A lone long run (the sink window's 516
 # steps) is slower than that pace: the model is 4-23% under it there.
 TC_CTAS_PER_SM = {"dq": 2, "dq_gqa": 1, "dkv": 2, "fused": 2}
+# The 256-wide instances: per (item, head) each body's products over the
+# full head dim (S, dP: recomputed by both column halves) and over its half
+# (the outputs; the tensor-core dk/dv products are hi + lo pairs), for
+# :func:`width_scale`.
+TC_PRODUCTS = {"dq": (2, 1), "dq_gqa": (2, 1), "dkv": (2, 4), "fused": (2, 5)}
+FMA_PRODUCTS = {"dq": (2, 1), "dq_gqa": (2, 1), "dkv": (2, 2), "fused": (2, 3)}
+
+
+def width_scale(d: int, products: tuple[int, int]) -> float:
+    """One CTA's per-(item, head) time at head dim d over its time at 128:
+    d / 128 up to 128; above, its (full-width, half-width) ``products``
+    at d and at the 128-column half, over all of them at 128."""
+    if d <= SPLIT_WIDTH:
+        return d / 128.0
+    full, half = products
+    return (full * d + half * SPLIT_WIDTH) / ((full + half) * 128.0)
 
 
 @dataclass(frozen=True)
@@ -115,6 +138,10 @@ def _ctas(items: np.ndarray, heads: int, heads_per_cta: int, reverse: bool) -> n
     return np.tile(runs * heads_per_cta, heads // heads_per_cta)
 
 
+def _halves(s: "BwdShape") -> int:
+    return column_halves(max(s.d, s.dv))
+
+
 def kernel_units(
     s: BwdShape, dq_heads_per_cta: int = 1, kv_slots: int = NUM_SMS,
     dq_slots: int = NUM_SMS,
@@ -124,10 +151,10 @@ def kernel_units(
     first, on ``dq_slots`` slots) and the k-major kernels (dk/dv and fused:
     one CTA per (run, kv head) looping the group, first run first, on
     ``kv_slots`` slots)."""
-    g = s.hq // s.hk
+    g, n = s.hq // s.hk, _halves(s)  # grid z: the column halves
     return {
-        "dq": makespan(_ctas(s.items_q, s.hq, dq_heads_per_cta, True), dq_slots),
-        "kv": makespan(_ctas(s.items_k, s.hk, 1, False) * g, kv_slots),
+        "dq": makespan(np.tile(_ctas(s.items_q, s.hq, dq_heads_per_cta, True), n), dq_slots),
+        "kv": makespan(np.tile(_ctas(s.items_k, s.hk, 1, False) * g, n), kv_slots),
     }
 
 
@@ -138,8 +165,8 @@ def _dq_key(dq_heads_per_cta: int) -> str:
 def _tc_units(s: BwdShape, kernel: str, dq_heads_per_cta: int = 1) -> float:
     """A tensor-core kernel's makespan in (item, head) units ("dq",
     "dq_gqa", "dkv" or "fused"), its CTAs dealt to its
-    :data:`TC_CTAS_PER_SM` slots per SM."""
-    slots = NUM_SMS * TC_CTAS_PER_SM[kernel]
+    :data:`TC_CTAS_PER_SM` slots per SM (one at 256)."""
+    slots = NUM_SMS * (TC_CTAS_PER_SM[kernel] if _halves(s) == 1 else 1)
     if kernel in ("dq", "dq_gqa"):
         return kernel_units(s, dq_heads_per_cta, dq_slots=slots)["dq"]
     return kernel_units(s, kv_slots=slots)["kv"]
@@ -152,14 +179,14 @@ def dram_bytes(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
     delta for the k-major kernels), and the fused dq workspace about once
     per pass (zeroed, written back, read and written by the convert)."""
     isz, bq, bk, d, dv = s.itemsize, s.block_q, s.block_k, s.d, s.dv
-    n_q, n_k = len(s.items_q), len(s.items_k)
+    n_q, n_k, n = len(s.items_q), len(s.items_k), _halves(s)  # each half reads all
     kv = (
-        n_k * s.hk * bk * (d + dv) * (isz + 4)  # K, V in; dk, dv out
-        + float(s.items_k.sum()) * s.hq * bq * ((d + dv) * isz + 2 * 4)  # Q, dO, lse, delta
+        n_k * s.hk * bk * (d + dv) * (n * isz + 4)  # K, V in; dk, dv out
+        + n * float(s.items_k.sum()) * s.hq * bq * ((d + dv) * isz + 2 * 4)  # Q, dO, lse, delta
     )
     return {
-        "dq": n_q * s.hq * bq * ((d + dv) * isz + 2 * 4 + d * 4)  # Q, dO, stats; dq
-        + float(s.items_q.sum()) * (s.hq // dq_heads_per_cta) * bk * (d + dv) * isz,  # K, V
+        "dq": n_q * s.hq * bq * ((d + dv) * n * isz + 2 * 4 * n + d * 4)  # Q, dO, stats; dq
+        + n * float(s.items_q.sum()) * (s.hq // dq_heads_per_cta) * bk * (d + dv) * isz,  # K, V
         "dkv": kv,
         "fused": kv + 4 * n_q * bq * s.hq * d * 4,
     }
@@ -186,12 +213,12 @@ def fma_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
     """Modeled milliseconds of each backward kernel in its CUDA-core body
     (float32 FMA; the one float32 runs)."""
     units = kernel_units(s, dq_heads_per_cta)
-    scale = s.d / 128.0
-    dkv_us = ITEM_US["dkv"] * scale
+    dq, d = _dq_key(dq_heads_per_cta), max(s.d, s.dv)
     return _with_dram(s, dq_heads_per_cta, {
-        "dq": units["dq"] * ITEM_US[_dq_key(dq_heads_per_cta)] * scale * 1e-3,
-        "dkv": units["kv"] * dkv_us * 1e-3,
-        "fused": units["kv"] * FUSED_BODY_OVER_DKV * dkv_us * 1e-3
+        "dq": units["dq"] * ITEM_US[dq] * width_scale(d, FMA_PRODUCTS[dq]) * 1e-3,
+        "dkv": units["kv"] * ITEM_US["dkv"] * width_scale(d, FMA_PRODUCTS["dkv"]) * 1e-3,
+        "fused": units["kv"] * FUSED_BODY_OVER_DKV * ITEM_US["dkv"]
+        * width_scale(d, FMA_PRODUCTS["fused"]) * 1e-3
         + atomic_adds(s) / ATOMIC_ADDS_PER_S * 1e3,
     })
 
@@ -199,13 +226,16 @@ def fma_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
 def tc_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
     """Modeled milliseconds of each backward kernel in its tensor-core body
     (the one bf16 runs)."""
-    dq = _dq_key(dq_heads_per_cta)
+    dq, d = _dq_key(dq_heads_per_cta), max(s.d, s.dv)
     units = {
         "dq": _tc_units(s, dq, dq_heads_per_cta) * TC_ITEM_US[dq],
         "dkv": _tc_units(s, "dkv") * TC_ITEM_US["dkv"],
         "fused": _tc_units(s, "fused") * TC_ITEM_US["fused"],
     }
-    return _with_dram(s, dq_heads_per_cta, {k: us * s.d / 128.0 * 1e-3 for k, us in units.items()})
+    kern = {"dq": dq, "dkv": "dkv", "fused": "fused"}
+    return _with_dram(s, dq_heads_per_cta, {
+        k: us * width_scale(d, TC_PRODUCTS[kern[k]]) * 1e-3 for k, us in units.items()
+    })
 
 
 def kernel_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:

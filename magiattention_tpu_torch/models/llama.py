@@ -7,14 +7,23 @@ float32 master weights (the JAX pytree's layout, so
 in ``cfg.dtype``, trained by plain SGD.
 
 As in JAX, attention runs through the runtime key of the mask
-(``attn_key``, from ``api.magi_attn_flex_key``): the embeddings are
-dispatched, RoPE takes the dispatched rows' global positions
+(``attn_key``, from ``api.magi_attn_flex_key``): the tokens are
+dispatched and embedded, RoPE takes the dispatched rows' global positions
 (``get_position_ids``), every layer calls ``calc_attn``, and the loss is
 taken over the dispatched labels. Every other op is row-wise or a matrix
-product, so the network runs on the dispatched rows as they are. At cp > 1
-each rank's parameter gradients are partial: the cp-group all-reduce of
-them is not ported yet (ROADMAP queue A9), so the loss (and with it
-``value_and_grad`` and ``train_step``) raises on a key with cp > 1.
+product, so the network runs on the dispatched rows as they are.
+
+At cp > 1 (a key with a cp group) each rank holds its own rows. The loss
+is the global mean, as JAX's ``masked_ce`` gives it on the global array:
+each rank sums its rows' NLL over the global count of valid labels (one
+``all_reduce`` of the count), so the ranks' losses add up to the global
+loss. Each rank's parameter gradients are then its rows' share of the
+global loss's (the tokens are dispatched before the embedding, so the
+embedding's gradient is a share too; attention's cross-rank gradients
+already return to their owners through GroupReduce), and
+:func:`value_and_grad` adds them over the group with one flat
+``all_reduce`` that also carries the loss. At cp 1 no collective is
+issued.
 
 ``train_step`` updates the parameters in place (JAX donates them).
 """
@@ -25,6 +34,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..api import calc_attn, dispatch, get_position_ids
@@ -160,13 +170,20 @@ def attn_block(x, lyr, cfg: LlamaConfig, pos, attn_key: DistAttnRuntimeKey):
     return x + attn_out @ lyr["wo"].to(dt)
 
 
-def masked_ce(logits, labels):
-    """Mean cross entropy over positions with ``labels >= 0`` (ignored
-    positions clamped before the gather so no wrapped index is read)."""
+def _nll_sum(logits, labels):
+    """(summed cross entropy over positions with ``labels >= 0``, their
+    count): ignored positions are clamped before the gather so no wrapped
+    index is read."""
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, 1, labels.clamp(min=0)[:, None].long())[:, 0]
     valid = labels >= 0
-    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
+def masked_ce(logits, labels):
+    """Mean cross entropy over positions with ``labels >= 0``."""
+    total, count = _nll_sum(logits, labels)
+    return total / count.clamp(min=1)
 
 
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: DistAttnRuntimeKey):
@@ -174,8 +191,9 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: Dist
     dispatched rows: ``(shard, vocab)`` float32 in DISPATCHED order (the
     loss dispatches the labels instead of undispatching the logits)."""
     dt = cfg.tdtype
-    x = params["embed"][tokens.long()].to(dt)  # (S, dim)
-    x = dispatch(x, attn_key)
+    # this rank's tokens, then their embeddings: the embedding's gradient
+    # is this rank's share, as every other parameter's
+    x = params["embed"][dispatch(tokens, attn_key).long()].to(dt)  # (shard, dim)
     pos = get_position_ids(attn_key)
     for lyr in params["layers"]:
         x = attn_block(x, lyr, cfg, pos, attn_key)
@@ -189,19 +207,28 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: Dist
 
 def loss_fn(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeKey):
     """Next-token cross entropy over the dispatched rows (labels < 0 are
-    ignored; labels are dispatched with the same permutation). Raises
-    NotImplementedError at cp > 1 (no gradient all-reduce yet)."""
-    if attn_key.cp_size > 1:
-        raise NotImplementedError(
-            "training at cp > 1 needs the cp-group all-reduce of parameter "
-            "gradients and a global label count: not ported yet, ROADMAP queue A9"
+    ignored; labels are dispatched with the same permutation). At cp > 1
+    this rank's share of the global mean: its rows' summed NLL over the
+    count of valid labels of every rank (one ``all_reduce`` over the key's
+    cp group)."""
+    if attn_key.cp_size > 1 and attn_key.cp_group is None:
+        raise ValueError(
+            f"a key of cp_size {attn_key.cp_size} without its cp group: the ranks' "
+            "gradients could not be summed"
         )
     logits = forward(params, cfg, tokens, attn_key)
-    return masked_ce(logits, dispatch(labels, attn_key))
+    labels_d = dispatch(labels, attn_key)
+    if attn_key.cp_size == 1:
+        return masked_ce(logits, labels_d)
+    total, count = _nll_sum(logits, labels_d)
+    dist.all_reduce(count, group=attn_key.cp_group)
+    return total / count.clamp(min=1)
 
 
 def value_and_grad(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeKey):
-    """(loss, grads in :func:`param_list` order), by autograd."""
+    """(loss, grads in :func:`param_list` order), by autograd. At cp > 1
+    the ranks' losses and gradients are added over the cp group by one
+    flat ``all_reduce``: every rank gets the global loss and gradients."""
     leaves = [p.detach().requires_grad_(True) for p in param_list(params)]
     it = iter(leaves)
     live = {
@@ -209,8 +236,18 @@ def value_and_grad(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnR
         "layers": [{key: next(it) for key in _LAYER_KEYS} for _ in params["layers"]],
     }
     loss = loss_fn(live, cfg, tokens, labels, attn_key)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), list(grads)
+    grads = list(torch.autograd.grad(loss, leaves))
+    loss = loss.detach()
+    if attn_key.cp_size > 1:
+        flat = torch.cat([loss.reshape(1).float()] + [g.reshape(-1).float() for g in grads])
+        dist.all_reduce(flat, group=attn_key.cp_group)
+        loss = flat[0].to(loss.dtype)
+        sizes = [g.numel() for g in grads]
+        grads = [
+            part.view_as(g).to(g.dtype)
+            for part, g in zip(flat[1:].split(sizes), grads)
+        ]
+    return loss, grads
 
 
 def train_step(

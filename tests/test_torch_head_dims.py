@@ -1,26 +1,33 @@
-"""ROADMAP C4 on the CPU: the padding that takes head dims other than 64
-and 128 through the port's CUDA kernels (``kernels/head_dims.py``).
+"""ROADMAP C4 and C4b on the CPU: the padding that takes head dims other
+than 64, 128 and 256 through the port's CUDA kernels
+(``kernels/head_dims.py``).
 
-The kernels are compiled at head dims 64 and 128 with equal q/k and v
-widths; a CUDA call with other ``d, dv <= 128`` pads with zero columns to
+The kernels are compiled at head dims 64, 128 and 256 with equal q/k and v
+widths; a CUDA call with other ``d, dv <= 256`` pads with zero columns to
 the smallest compiled width that holds both, runs the kernel and slices the
 logical columns back. The kernels run on the card only; what the CPU checks
 is the padding's arithmetic: the width per (d, dv), that the padded
 problem through each family's plain version, sliced, equals the unpadded
 one and the JAX package's ``ffa_attn``, with the true d's softmax scale,
-that d == dv in (64, 128) is passed through with no copy, and that above
-128 the helper raises naming the limit. The paged cache keeps its pages at
-the kernels' width on the card; a padded cache built here by hand (the
-layout ``PagedKVCache.create`` gives on the card) appends, gathers and
-decodes as the logical one does."""
+that d == dv in (64, 128, 256) is passed through with no copy, and that
+above 256 the helper raises naming the limit (ROADMAP C4c). The paged
+cache keeps its pages at the kernels' width on the card; a padded cache
+built here by hand (the layout ``PagedKVCache.create`` gives on the card)
+appends, gathers and decodes as the logical one does. C4b's widths are
+public models': d 256 (Gemma-2/3), d 192 with dv 128 (DeepSeek-V3's MLA),
+and d 256 with dv 128."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from magiattention_tpu.kernels import block_sparse as jbs
 from magiattention_tpu.kernels import ffa as jffa
+from magiattention_tpu.kernels import paged_decode as jpd
+from magiattention_tpu.kernels import paged_kv as jpk
 from magiattention_tpu_torch.kernels import block_sparse as tbs
 from magiattention_tpu_torch.kernels import ffa as tffa
 from magiattention_tpu_torch.kernels import paged_decode as tpd
@@ -39,28 +46,33 @@ from magiattention_tpu_torch.kernels.paged_kv import (
 from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
 from tests.torch_port_cases import MASKS
 
-# (d, dv) of ROADMAP C4's cases
-DIMS = [(32, 32), (96, 96), (64, 128)]
+# (d, dv) of ROADMAP C4's and C4b's cases
+DIMS = [(32, 32), (96, 96), (64, 128), (256, 256), (192, 128), (256, 128)]
+C4B_DIMS = DIMS[3:]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize(
     "d, dv, width",
     [(32, 32, 64), (96, 96, 128), (64, 128, 128), (128, 64, 128), (1, 1, 64),
-     (64, 64, 64), (128, 128, 128), (65, 16, 128)],
+     (64, 64, 64), (128, 128, 128), (65, 16, 128), (129, 129, 256),
+     (192, 192, 256), (200, 200, 256), (256, 256, 256), (192, 128, 256),
+     (256, 128, 256), (8, 129, 256)],
 )
 def test_kernel_head_dim(d, dv, width):
     assert kernel_head_dim(d, dv) == width
 
 
-@pytest.mark.parametrize("d, dv", [(192, 192), (64, 192), (129, 8)])
+@pytest.mark.parametrize("d, dv", [(257, 257), (64, 320), (512, 8)])
 def test_above_the_limit_raises_naming_it(d, dv):
-    with pytest.raises(ValueError, match=str(MAX_HEAD_DIM)):
+    assert MAX_HEAD_DIM == 256
+    with pytest.raises(ValueError, match=str(MAX_HEAD_DIM)) as err:
         kernel_head_dim(d, dv)
+    assert "C4c" in str(err.value)
 
 
 def test_kernel_widths_pass_through_without_a_copy():
-    for d in (64, 128):
+    for d in (64, 128, 256):
         ts = [torch.zeros(8, 2, d) for _ in range(4)]
         assert all(a is b for a, b in zip(pad_to_kernel_width(*ts), ts))
     q = torch.ones(3, 2, 32)
@@ -202,13 +214,141 @@ def test_padded_pages_append_gather_and_decode_as_logical(d, dv, dtype):
 
 def test_cache_create_raises_above_the_limit_only_on_the_card():
     """The CPU cache keeps any width (its plain versions take any); the
-    card's pages are the kernels' width, so create raises above 128 there.
+    card's pages are the kernels' width, so create raises above 256 there.
     The CPU sees the width it would allocate."""
-    PagedKVCache.create(4, 8, 1, 192, 1, 2, device="cpu")
-    with pytest.raises(ValueError, match="128"):
-        kernel_head_dim(192, 192)
+    PagedKVCache.create(4, 8, 1, 320, 1, 2, device="cpu")
+    with pytest.raises(ValueError, match="256"):
+        kernel_head_dim(320, 320)
 
 
 def test_padding_helper_rejects_narrowing():
     with pytest.raises(ValueError):
         pad_head_dim(torch.zeros(2, 65), 64)
+
+
+def _bsp_case(rng, d, dv, seq=128, hk=1, g=2, ds=16, top=2):
+    starts = np.arange(0, seq - 32 + 1, ds, dtype=np.int32)
+    idx = np.stack([
+        rng.choice(len(starts), size=top, replace=False) for _ in range(hk * seq // 16)
+    ]).reshape(hk, seq // 16, top).astype(np.int32)
+    q, k, v, do = (
+        rng.standard_normal(s).astype(np.float32)
+        for s in ((seq, hk * g, d), (seq, hk, d), (seq, hk, dv), (seq, hk * g, dv))
+    )
+    return starts, idx, q, k, v, do
+
+
+@pytest.mark.parametrize("d, dv", C4B_DIMS, ids=lambda x: str(x))
+def test_block_sparse_padded_plain_equals_jax(d, dv):
+    """C4b's widths through _BSPCore's padding on the plain pair (pad ->
+    plain -> slice), forward and backward, against the JAX package's
+    block_sparse_attn and its vjp (Pallas in interpret mode), which take
+    these widths (d != dv included), float32 1e-5; 2 query heads."""
+    rng = np.random.default_rng(11 + d + dv)
+    starts, idx, q, k, v, do = _bsp_case(rng, d, dv)
+    kw = dict(block_len=32, d_stride=16, block_size_q=16)
+    params = tbs.BSPParams(softmax_scale=d ** -0.5, d_stride=16, block_size_q=16)
+    ctbl = tbs.chunk_table(torch.from_numpy(idx), starts, 16, 32)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    pq, pk, pv, pdo = pad_to_kernel_width(tq, tk, tv, tdo)
+    assert {t.shape[-1] for t in (pq, pk, pv, pdo)} == {256}
+    pout, plse = tbs.block_sparse_fwd_plain(pq, pk, pv, ctbl, params)
+    delta = (pout[..., :dv] * tdo).sum(-1)
+    grads = tbs.block_sparse_bwd_plain(pq, pk, pv, pdo, plse, delta, ctbl, params)
+    (jout, jlse), vjp = jax.vjp(
+        lambda a, b, c: jbs.block_sparse_attn(
+            a, b, c, jnp.asarray(idx), starts, softmax_scale=d ** -0.5, interpret=True, **kw
+        ),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    jgrads = vjp((jnp.asarray(do), jnp.zeros_like(jlse)))
+    assert not pout[..., dv:].any()
+    np.testing.assert_allclose(pout[..., :dv].numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(plse.numpy(), np.asarray(jlse), **TOL)
+    for name, g, jg, n in zip(("dq", "dk", "dv"), grads, jgrads, (d, d, dv)):
+        assert not g[..., n:].any(), name
+        np.testing.assert_allclose(g[..., :n].numpy(), np.asarray(jg), **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("d, dv", C4B_DIMS, ids=lambda x: str(x))
+def test_paged_decode_padded_256_cache(d, dv):
+    """A 256-wide padded cache (the layout PagedKVCache.create gives on the
+    card at C4b's widths) on the CPU path: appends leave the pad columns
+    zero, and the decode plain walk, sliced, equals the unpadded one and,
+    where d == dv, the JAX package's paged_decode_attn (interpret mode) on
+    a logical cache: the JAX cache holds one head dim for k and v, so at
+    d != dv the unpadded plain walk is the only reference."""
+    rng = np.random.default_rng(d * 3 + dv)
+    num_pages, ps, hk, lengths, P = 8, 8, 1, [0, 5, 19], 3
+    logical = PagedKVCache.create(num_pages, ps, hk, d, 3, P, dtype=torch.float32, device="cpu",
+                                  head_dim_v=dv)
+    padded = PagedKVCache(
+        k_pages=torch.zeros((num_pages, ps, hk, 256)),
+        v_pages=torch.zeros((num_pages, ps, hk, 256)),
+        page_table=torch.full((3, P), -1, dtype=torch.int32),
+        lengths=torch.zeros((3,), dtype=torch.int32),
+        head_dim=d, head_dim_v=dv,
+    )
+    jc = jpk.PagedKVCache.create(num_pages, ps, hk, d, 3, P, dtype=jnp.float32) if d == dv else None
+    free = list(rng.permutation(num_pages))
+    for s, n in enumerate(lengths):
+        if n == 0:
+            continue
+        pages, free = np.asarray(free[: -(-n // ps)], np.int32), free[-(-n // ps):]
+        k = rng.standard_normal((n, hk, d)).astype(np.float32)
+        v = rng.standard_normal((n, hk, dv)).astype(np.float32)
+        for cache in (logical, padded):
+            assign_pages(cache, s, pages)
+            append_kv(cache, s, torch.from_numpy(k), torch.from_numpy(v))
+        if jc is not None:
+            jc = jpk.assign_pages(jc, s, pages)
+            jc = jpk.append_kv(jc, s, jnp.asarray(k), jnp.asarray(v))
+    assert not padded.k_pages[..., d:].any() and not padded.v_pages[..., dv:].any()
+    q = rng.standard_normal((3, 2 * hk, d)).astype(np.float32)
+    got = tpd.paged_decode_plain(torch.from_numpy(q), padded, d ** -0.5)
+    want = tpd.paged_decode_plain(torch.from_numpy(q), logical, d ** -0.5)
+    assert got[0].shape[-1] == dv
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **TOL)
+    if jc is not None:
+        jout, jlse = jpd.paged_decode_attn(jnp.asarray(q), jc, softmax_scale=d ** -0.5,
+                                           interpret=True)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(jout), **TOL)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(jlse), **TOL)
+
+
+@pytest.mark.parametrize(
+    "guard, args, want",
+    [("fwd_pack_smem_bytes", (256, 1, 2), 132_112), ("fwd_pack_smem_bytes", (256, 2, 2), 164_896),
+     ("fwd_pack_smem_bytes", (256, 1, 4), 230_416), ("dq_pack_smem_bytes", (256, 1, 2), 197_632),
+     ("dq_pack_smem_bytes", (256, 1, 4), 155_648), ("dkv_smem_bytes", (256, 2), 198_656),
+     ("dkv_smem_bytes", (256, 4), 176_640), ("fused_bwd_smem_bytes", (256, 2), 206_848),
+     ("fwd_pack_heads", (8, 256, 256, 2), 2), ("fwd_pack_heads", (8, 256, 256, 4), 1),
+     ("dq_pack_heads", (8, 256, 256, 2), 1), ("dq_pack_heads", (8, 256, 256, 4), 1),
+     ("fused_bwd_feasible", (256, 256), True)],
+    ids=lambda x: str(x),
+)
+def test_256_guards(guard, args, want):
+    """The pack and mode guards at the 256 instances: each CTA's shared
+    memory as the kernels' ``*_smem_bytes`` exports report it (the column
+    split: v tiles of 128 columns in the bf16 forward, the float32 bodies'
+    128-wide chunks), packing where it fits, never raising."""
+    assert getattr(tffa, guard)(*args) == want
+
+
+def test_cost_model_prices_the_column_split():
+    """At 256 the backward cost model runs twice the CTAs, each doing its
+    half's products beside S and dP over the full width: a CTA's
+    per-(item, head) time is (2 * 256 + products * 128) / (128 * (2 +
+    products)) of its time at 128, so every modeled time exceeds the 128
+    instance's, and the grids hold twice the CTAs."""
+    from magiattention_tpu_torch.kernels import tile_policy as tp
+
+    assert tp.width_scale(128, (2, 1)) == 1.0 and tp.width_scale(64, (2, 4)) == 0.5
+    assert tp.width_scale(256, (2, 1)) == pytest.approx(640 / 384)
+    qr, kr, lo, hi, sq, sk = MASKS["causal"]
+    plan, _ = tffa.plan_params(qr, kr, None, lo, hi, sq, sk, 64, None, 0.0)
+    for isz in (2, 4):
+        t = {d: tp.kernel_ms(tffa.bwd_shape(plan, 4, 2, d, d, isz)) for d in (128, 256)}
+        assert all(t[256][k] > t[128][k] for k in ("dq", "dkv", "fused")), t
+    assert tp.column_halves(256) == 2 and tp.column_halves(128) == tp.column_halves(64) == 1

@@ -160,10 +160,11 @@ def test_masked_ce_ignores_negative_labels():
 
 @pytest.mark.parametrize("entry", ["loss_fn", "value_and_grad", "train_step"])
 def test_training_at_cp_above_one_raises(entry, monkeypatch):
-    """At cp > 1 each rank's gradients would be partial (no cp-group
-    all-reduce yet): the trainer refuses the key instead of letting the
-    ranks' weights drift apart."""
+    """At cp > 1 each rank's gradients are partial and the trainer sums
+    them over the key's cp group (tests/test_torch_llama_cp.py): a key
+    that claims cp > 1 without its group is refused, instead of letting
+    the ranks' weights drift apart."""
     cfg, params, tokens, labels = _port_inputs()
     key = dataclasses.replace(_key("split", monkeypatch), cp_size=2)
-    with pytest.raises(NotImplementedError, match="queue A9"):
+    with pytest.raises(ValueError, match="without its cp group"):
         getattr(llama, entry)(params, cfg, tokens, labels, key)

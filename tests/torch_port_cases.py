@@ -198,5 +198,149 @@ def cp_worker(rank: int, world: int, init_file: str, out_dir: str, cases: list) 
                 res[f"reduce{st}"] = group_reduce_rows(y, plan, group, shard).numpy()
                 res[f"grad{st}"] = xg.grad.numpy()
             np.savez(os.path.join(out_dir, f"comm_{rank}.npz"), x=x.numpy(), **res)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+# the re-keying cases (tests/test_torch_rekey.py): the JAX package's
+# test_rekey.py shapes
+REKEY_SEQ, REKEY_CHUNK, REKEY_HQ, REKEY_HK, REKEY_D = 256, 16, 2, 1, 32
+
+
+def rekey_inputs(seed: int):
+    """float32 q, k, v and dO of the re-keying cases, natural order."""
+    rng = np.random.default_rng(seed)
+    shapes = ((REKEY_SEQ, REKEY_HQ, REKEY_D), (REKEY_SEQ, REKEY_HK, REKEY_D),
+              (REKEY_SEQ, REKEY_HK, REKEY_D), (REKEY_SEQ, REKEY_HQ, REKEY_D))
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def rekey_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One rank of the gloo group: a causal dispatch key, then each new
+    mask re-keyed onto it (full by ``make_flex_key_for_new_mask_after_
+    dispatch``, a (32, 0) window by the varlen form), q/k/v dispatched by
+    the first key, ``calc_attn`` under the new one, undispatched, and the
+    backward of ``sum(out * dO)``; the keys' partitions and position ids,
+    the refused causal window, and the cross-attention args. Results to
+    ``out_dir/<case>_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.common.enum import AttnMaskType
+    from magiattention_tpu_torch.common.ranges import AttnRanges
+
+    group, s = dist.group.WORLD, REKEY_SEQ
+    try:
+        key1 = api.magi_attn_flex_key([[0, s]], [[0, s]], [1], s, s, cp_group=group, device="cpu",
+                                      chunk_size=REKEY_CHUNK)
+        new_keys = {
+            "full": api.make_flex_key_for_new_mask_after_dispatch([[0, s]], [[0, s]], [0], key1),
+            "window": api.make_varlen_key_for_new_mask_after_dispatch(
+                [0, s], [0, s], key1, causal=False, window_size=(32, 0)),
+        }
+        most_recent = api.get_most_recent_key() is new_keys["window"]
+        for i, (name, key2) in enumerate(new_keys.items()):
+            q, k, v, do = (torch.from_numpy(a) for a in rekey_inputs(i))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out_d, meta = api.calc_attn(
+                api.dispatch(leaves[0], key1), api.dispatch(leaves[1], key1, role="kv"),
+                api.dispatch(leaves[2], key1, role="kv"), key2,
+            )
+            out = api.undispatch(out_d, key2)
+            (out * do).sum().backward()
+            np.savez(
+                os.path.join(out_dir, f"{name}_{rank}.npz"),
+                out=out.detach().numpy(), lse=meta.lse.numpy(), dq=leaves[0].grad.numpy(),
+                dk=leaves[1].grad.numpy(), dv=leaves[2].grad.numpy(),
+                partitions=np.asarray(_mgr(key2).dispatch_meta_q.partitions),
+                fixed=np.asarray(key2.fixed_partitions),
+                position_ids=np.asarray(_mgr(key2).dispatch_meta_q.position_ids),
+                key1_position_ids=np.asarray(_mgr(key1).dispatch_meta_q.position_ids),
+                distinct=key1 != key2, most_recent=most_recent,
+            )
+        try:
+            api.make_varlen_key_for_new_mask_after_dispatch(
+                [0, s], [0, s], key1, causal=True, window_size=(32, 0))
+            refused = False
+        except ValueError:
+            refused = True
+        args = _mgr(key1).get_xattn_args(
+            AttnRanges.from_ranges([[0, 128], [128, s]]), AttnRanges.from_ranges([[0, 48], [48, 96]]),
+            AttnMaskType.FULL,
+        )
+        np.savez(
+            os.path.join(out_dir, f"xattn_{rank}.npz"), refused=refused,
+            position_ids=np.asarray(_mgr(key1).dispatch_meta_q.position_ids),
+            **{f"q{r}": a.q_ranges for r, a in enumerate(args)},
+            **{f"k{r}": a.k_ranges for r, a in enumerate(args)},
+        )
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+# the cp trainer's config (tests/test_torch_llama_cp.py): the JAX package's
+# tests/test_models/test_llama.py shapes
+LLAMA_CP_CFG = dict(
+    vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    head_dim=16, ffn_hidden=128, dtype="float32",
+)
+LLAMA_CP_SEQ, LLAMA_CP_CHUNK = 128, 16
+
+
+def llama_cp_data():
+    """Tokens and next-token labels, -100 at each document's end."""
+    s = LLAMA_CP_SEQ
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, LLAMA_CP_CFG["vocab_size"], s).astype(np.int32)
+    labels = np.roll(tokens, -1)
+    labels[s // 2 - 1 :: s // 2] = -100
+    return tokens, labels
+
+
+def llama_cp_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) -> None:
+    """One rank of the gloo group: the port's Llama ``value_and_grad`` at
+    cp = world over the JAX parameters ``tree`` (numpy), counting its
+    ``all_reduce`` calls; loss, gradients and count to
+    ``out_dir/llama_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.models import llama
+
+    s = LLAMA_CP_SEQ
+    try:
+        key = api.magi_attn_flex_key([[0, s // 2], [s // 2, s]], [[0, s // 2], [s // 2, s]], [1, 1],
+                                     s, s, cp_group=dist.group.WORLD, device="cpu",
+                                     chunk_size=LLAMA_CP_CHUNK)
+        params = llama.params_from_numpy(tree, "cpu")
+        tokens, labels = (torch.from_numpy(a) for a in llama_cp_data())
+        calls, all_reduce = [], dist.all_reduce
+
+        def counted(*args, **kwargs):
+            calls.append(1)
+            return all_reduce(*args, **kwargs)
+
+        dist.all_reduce = counted
+        try:
+            loss, grads = llama.value_and_grad(params, llama.LlamaConfig(**LLAMA_CP_CFG), tokens,
+                                               labels, key)
+        finally:
+            dist.all_reduce = all_reduce
+        np.savez(os.path.join(out_dir, f"llama_{rank}.npz"), loss=loss.numpy(),
+                 all_reduce_calls=len(calls), **{f"g{i}": g.numpy() for i, g in enumerate(grads)})
+        dist.barrier()  # leave together: no rank closes a peer's open connections
     finally:
         dist.destroy_process_group()
