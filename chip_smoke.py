@@ -2501,6 +2501,276 @@ def cp_stages_phase() -> dict:
     return res
 
 
+# the qo_comm phase's cp 4 mask: the JAX solver tests' shared prefix
+# (tests/test_solver/test_dynamic_attn_solver.py) scaled to 8192 tokens
+QO_CP, QO_CHUNK = 4, 512
+QO_MASK = (
+    [[0, 1024], [1024, 8192], [1024, 8192]],
+    [[0, 1024], [0, 1024], [1024, 8192]],
+    [1, 0, 1],
+)
+QO = {"MAGI_ATTENTION_QO_COMM": "1"}
+
+
+def _qo_api(inputs, do, key):
+    """(out, lse, dq, dk, dv) of the API path on one key, natural order."""
+    import torch
+
+    from magiattention_tpu_torch import api
+
+    q, k, v = (t.detach().requires_grad_(True) for t in inputs)
+    out_d, meta = api.calc_attn(
+        api.dispatch(q, key), api.dispatch(k, key, role="kv"), api.dispatch(v, key, role="kv"), key,
+    )
+    out = api.undispatch(out_d, key)
+    return (out, api.undispatch(meta.lse, key), *torch.autograd.grad(out, (q, k, v), do))
+
+
+def qo_comm_phase(cp_api: dict) -> dict:
+    """The dynamic (qo-comm) runtime on the card, at the train phase's
+    attention shape (bf16, Llama-3.1-8B heads).
+
+    (a) The user path under MAGI_ATTENTION_QO_COMM=1 at cp = 1 over
+    ``cp_api``'s two causal documents, unpinned and under the split pin:
+    out and lse against ``sdpa_attn``, out and the gradients against the
+    static path (``flex_flash_attn_func``); only kernels launch (B1, B7 and
+    the backward of the resolved mode); fwd+bwd ms beside ``cp_api``'s,
+    and one step of each path under ``torch.profiler`` (device busy time,
+    the top device kernels).
+
+    (b) A cp = 4 dynamic plan of a shared-prefix mask on this one card: for
+    each rank, its buffers gathered from the full tensors by the plan's send
+    indices (exactly the rows the casts deliver; the collectives are held on
+    the CPU by tests/test_torch_dynamic.py), the runtime's own forward step
+    (B1) and merge step over the partials the other ranks return, then its
+    backward steps (B7 on the owner's rows, the backward kernels over the
+    buffers) with the partial gradients added back by the same indices.
+    Every rank's out and lse, and the summed gradients, against the dense
+    plain reference (``sdpa_attn``, ``ffa_bwd_fused_plain`` with dO on every
+    row). Also the planning time of each algorithm at this size, the plan's
+    communicated rows and bytes beside the static plan's (overlap degree 1),
+    and per-rank kernel ms."""
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.common.enum import AttnMaskType, DynamicAttnAlgType
+    from magiattention_tpu_torch.common.ranges import AttnRanges
+    from magiattention_tpu_torch.config import DistAttnConfig, DynamicAttnConfig, OverlapConfig
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.functional import flex_flash_attn_func
+    from magiattention_tpu_torch.functional.dynamic_dist_attn import DynamicDistAttnRuntime
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_fused_plain, ffa_bwd_mode, ffa_delta, ffa_delta_plain, plan_params,
+    )
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+    from magiattention_tpu_torch.meta import (
+        make_attn_meta_from_dispatch_meta, make_dispatch_meta_from_qk_ranges,
+    )
+    from magiattention_tpu_torch.meta._make_attn_meta import make_dynamic_attn_plan
+
+    shapes = ((CP_SEQ, CP_HQ, CP_D), (CP_SEQ, CP_HK, CP_D), (CP_SEQ, CP_HK, CP_D))
+    total = {}
+
+    def add_counts(counts):
+        for k_, v_ in counts.items():
+            total[k_] = total.get(k_, 0) + v_
+
+    # ---- (a) the API at cp = 1 -------------------------------------------
+    docs = _docs(CP_SEQ, CP_DOC)
+    gen = torch.Generator(device="cuda").manual_seed(11)  # cp_api's inputs
+    inputs = [torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in shapes]
+    do = (torch.randn(shapes[0], generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    with scoped_env(QO):
+        key = api.magi_attn_flex_key(docs, docs, [1, 1], CP_SEQ, CP_SEQ)
+    runtime = _mgr(key).runtime
+    if not isinstance(runtime, DynamicDistAttnRuntime):
+        raise AssertionError(f"qo_comm: the key planned {type(runtime).__name__}")
+    a_res = {}
+    for pin, env in (("unpinned", {}), ("split", SPLIT)):
+        with scoped_env(env):
+            mode = ffa_bwd_mode(runtime.ffa_plan, runtime.params(CP_D), CP_D, CP_D, 2, CP_HQ, CP_HK)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = _qo_api(inputs, do, key)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            expected = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(mode))
+            others = set(FFA_KERNELS) - set(expected)
+            if (any(counts[k_] != 1 for k_ in expected) or any(counts[k_] for k_ in others)
+                    or any(counts[k_] for k_ in PLAIN_NAMES)):
+                raise AssertionError(f"qo_comm cp1 {pin}: launched {counts}, want one of each of {expected}")
+            add_counts(counts)
+            fwd_bwd_ms = time_ms(lambda: _qo_api(inputs, do, key), samples=5)
+        a_res[pin] = dict(resolved_bwd_mode=mode, launches={k_: v_ for k_, v_ in counts.items() if v_},
+                          fwd_bwd_ms=fwd_bwd_ms)
+    qf, kf_, vf = (t.detach().requires_grad_(True) for t in inputs)
+    want_out, want_lse = flex_flash_attn_func(qf, kf_, vf, np.array(docs), np.array(docs), np.array([1, 1]))
+    want = (want_out, *torch.autograd.grad(want_out, (qf, kf_, vf), do))
+    err = {
+        name: grad_check(f"qo_comm cp1 {name} vs static", a.float(), b.float(), "bfloat16")
+        for name, a, b in zip(("out", "dq", "dk", "dv"), (got[0], *got[2:]), want)
+    }
+    with torch.no_grad():
+        ref_out, ref_lse = sdpa_attn(*inputs, np.array(docs), np.array(docs), np.array([1, 1]))
+    err["out_vs_sdpa"] = grad_check("qo_comm cp1 out vs sdpa", got[0].float(), ref_out.float(), "bfloat16")
+    err["lse_vs_sdpa"] = grad_check("qo_comm cp1 lse vs sdpa", got[1], ref_lse, "bfloat16")
+    del ref_out, ref_lse, want, got
+    static_key = api.magi_attn_flex_key(docs, docs, [1, 1], CP_SEQ, CP_SEQ)  # cp_api's
+    for name, k_ in (("static", static_key), ("qo_comm", key)):
+        _qo_api(inputs, do, k_)  # warm
+        prof = profile_run(lambda k_=k_: _qo_api(inputs, do, k_))
+        a_res[f"{name}_profile"] = {
+            key_: prof[key_] for key_ in ("wall_s", "device_busy_s", "top_kernels")
+        }
+    a_res.update(
+        shape=f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, two causal documents", cp=1,
+        errors=err, cp_api_fwd_bwd_ms=cp_api["fwd_bwd_ms"],
+        plan_rows={"q_buf": runtime.plan.q_buf_len, "k_buf": runtime.plan.k_buf_len},
+    )
+
+    # ---- (b) a cp = 4 plan, every rank on this card ------------------------
+    qr_, kr_, types_ = QO_MASK
+    mtypes = [AttnMaskType.from_int_type(t) for t in types_]
+    q_rng, k_rng = AttnRanges.from_ranges(qr_), AttnRanges.from_ranges(kr_)
+    config = DistAttnConfig()
+    mq, mkv, bucket = make_dispatch_meta_from_qk_ranges(
+        q_rng, k_rng, mtypes, CP_SEQ, CP_SEQ, QO_CHUNK, QO_CP, config.dispatch_config,
+    )
+    plan_s, plans = {}, {}
+    for alg in DynamicAttnAlgType:
+        t0 = time.perf_counter()
+        plans[alg] = make_dynamic_attn_plan(
+            q_rng, k_rng, mtypes, mq, DistAttnConfig(dynamic_config=DynamicAttnConfig(alg=alg)),
+            dispatch_meta_kv=mkv,
+        )
+        plan_s[alg.value] = time.perf_counter() - t0
+    plan = plans[config.dynamic_config.alg]
+    comm, _ = make_attn_meta_from_dispatch_meta(
+        bucket, mq, DistAttnConfig(overlap_config=OverlapConfig(degree=1)), dispatch_meta_kv=mkv,
+    )
+    row_bytes = {"q": CP_HQ * CP_D * 2, "kv": CP_HK * CP_D * 2, "out_lse": CP_HQ * (CP_D * 2 + 4) / 2}
+    comm_rows = {alg.value: p.comm_rows() for alg, p in plans.items()}
+    comm_bytes = {
+        a_: sum(rows[s] * row_bytes[s] for s in rows) for a_, rows in comm_rows.items()
+    }
+    static_kv_rows = 2 * sum(s.payload_rows() for s in comm.kv_stages)  # k and v, as comm_rows counts
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in shapes)
+    do = (torch.randn(shapes[0], generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    qr, kr, types = (np.array(x) for x in QO_MASK)
+    with torch.no_grad():
+        out_ref, lse_ref = sdpa_attn(q, k, v, qr, kr, types)
+    gplan, gparams = plan_params(qr, kr, types, None, None, CP_SEQ, CP_SEQ, CP_D, None, 0.0)
+    delta_ref = ffa_delta_plain(out_ref, do)
+    dq_ref, dk_ref, dv_ref = ffa_bwd_fused_plain(q, k, v, do, lse_ref, delta_ref, gplan, gparams)
+    del delta_ref
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64, device="cuda")
+
+    pos_q = [idx(p) for p in mq.position_ids]
+    pos_kv = [idx(p) for p in mkv.position_ids]
+
+    def fetched(stage, pos, r):
+        """Global rows of rank r's receive buffer for one cast."""
+        return torch.cat([
+            pos[s][idx(stage.send_idx[s, r, : stage.send_counts[s, r]])] for s in range(QO_CP)
+        ])
+
+    def gather(x, rows, buf_len, fill=0.0):
+        out = x.new_full((buf_len, *x.shape[1:]), fill)
+        out[: len(rows)] = x[rows]
+        return out
+
+    rts = [DynamicDistAttnRuntime(plan, cp_rank=r) for r in range(QO_CP)]
+    q_rows = [torch.cat([pos_q[r], fetched(plan.q_cast, pos_q, r)]) for r in range(QO_CP)]
+    kv_rows = [torch.cat([pos_kv[r], fetched(plan.kv_cast, pos_kv, r)]) for r in range(QO_CP)]
+    bufs = [
+        (gather(q, q_rows[r], plan.q_buf_len), gather(k, kv_rows[r], plan.k_buf_len),
+         gather(v, kv_rows[r], plan.k_buf_len))
+        for r in range(QO_CP)
+    ]
+    params = rts[0].params(CP_D)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fwd = [rts[r].fwd_step(*bufs[r], params) for r in range(QO_CP)]
+    out_full = torch.empty_like(q)
+    lse_full = torch.empty_like(lse_ref)
+    deltas = []
+    for r in range(QO_CP):
+        ret = plan.ret
+        ret_out = torch.zeros((ret.r_max, CP_HQ, CP_D), dtype=q.dtype, device="cuda")
+        ret_lse = torch.zeros((ret.r_max, CP_HQ), device="cuda")
+        n = 0
+        for s in range(QO_CP):  # the partials each compute rank returns to owner r
+            rows = idx(ret.send_idx[s, r, : ret.send_counts[s, r]])
+            ret_out[n: n + len(rows)] = fwd[s][0][rows]
+            ret_lse[n: n + len(rows)] = fwd[s][1][rows]
+            n += len(rows)
+        out_r, lse_r = rts[r].merge_step(fwd[r][0], fwd[r][1], ret_out, ret_lse)
+        out_r = out_r.to(q.dtype)
+        out_full[pos_q[r]], lse_full[pos_q[r]] = out_r, lse_r
+        deltas.append(ffa_delta(out_r, do[pos_q[r]]))  # B7, on the owner's rows
+    delta_full = torch.empty_like(lse_ref)
+    for r in range(QO_CP):
+        delta_full[pos_q[r]] = deltas[r]
+    dq = torch.zeros(shapes[0], device="cuda")
+    dk = torch.zeros(shapes[1], device="cuda")
+    dv = torch.zeros(shapes[2], device="cuda")
+    modes = []
+    for r in range(QO_CP):
+        nq, nk = len(q_rows[r]), len(kv_rows[r])
+        do_buf = gather(do, q_rows[r], plan.q_buf_len)
+        lse_buf = gather(lse_full, q_rows[r], plan.q_buf_len, float("-inf"))
+        delta_buf = gather(delta_full, q_rows[r], plan.q_buf_len)
+        dq_b, dk_b, dv_b = rts[r].bwd_step(*bufs[r], do_buf, lse_buf, delta_buf, params)
+        dq.index_add_(0, q_rows[r], dq_b[:nq].to(q.dtype).float())
+        dk.index_add_(0, kv_rows[r], dk_b[:nk].to(k.dtype).float())
+        dv.index_add_(0, kv_rows[r], dv_b[:nk].to(v.dtype).float())
+        modes.append(ffa_bwd_mode(rts[r].ffa_plan, params, CP_D, CP_D, 2, CP_HQ, CP_HK))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_counts(counts)
+    want_launch = {"ffa_fwd": QO_CP, "ffa_bwd_delta": QO_CP}
+    for m in modes:
+        for k_ in _bwd_kernels(m):
+            want_launch[k_] = want_launch.get(k_, 0) + 1
+    if (any(counts[k_] != n_ for k_, n_ in want_launch.items())
+            or any(counts[k_] for k_ in set(FFA_KERNELS) - set(want_launch))
+            or any(counts[k_] for k_ in PLAIN_NAMES)):
+        raise AssertionError(f"qo_comm cp{QO_CP}: launched {counts}, want {want_launch}")
+    ranks = []
+    for r in range(QO_CP):
+        e_out = grad_check(f"qo_comm r{r} out", out_full[pos_q[r]].float(), out_ref[pos_q[r]].float(), "bfloat16")
+        e_lse = grad_check(f"qo_comm r{r} lse", lse_full[pos_q[r]], lse_ref[pos_q[r]], "bfloat16")
+        ranks.append(dict(
+            rank=r, q_buf_rows=len(q_rows[r]), k_buf_rows=len(kv_rows[r]),
+            area=int(plan.attn_args[r].area()), bwd_mode=modes[r],
+            fwd_ms=time_ms(lambda r=r: rts[r].fwd_step(*bufs[r], params), samples=3),
+            out_max_abs_err=e_out["max_abs_err"], lse_max_abs_err=e_lse["max_abs_err"],
+        ))
+    grads = {
+        name: grad_check(f"qo_comm summed {name}", got, want_, "bfloat16")
+        for name, got, want_ in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))
+    }
+    b_res = dict(
+        mask=f"shared prefix: q {qr_}, k {kr_}, types {types_} (1 causal, 0 full)",
+        cp=QO_CP, chunk_size=QO_CHUNK, alg=config.dynamic_config.alg.value,
+        plan_s=plan_s, comm_rows=comm_rows, comm_bytes=comm_bytes,
+        static_kv_rows=static_kv_rows, static_kv_bytes=static_kv_rows * row_bytes["kv"],
+        launches={k_: v_ for k_, v_ in counts.items() if v_}, ranks=ranks, summed_grads=grads,
+        q_buf_len=plan.q_buf_len, k_buf_len=plan.k_buf_len, ret_len=plan.ret_len,
+    )
+    del dq_ref, dk_ref, dv_ref, fwd, bufs
+    torch.cuda.empty_cache()
+    res = dict(cp1=a_res, cp4=b_res, launches=total, atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"])
+    emit({"phase": "qo_comm", **res})
+    return res
+
+
 # meta-llama/Llama-3.1-8B config.json widths; depth cut from 32 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_DOC, TRAIN_STEPS, TRAIN_LR = 2, 8192, 4096, 3, 1e-4
 CHECK_SEQ, CHECK_DOC = 2048, 1024
@@ -3725,9 +3995,10 @@ def main() -> int:
     serve_int8 = serve_int8_phase(serve_ctx)
     serve_pinned_phase(serve_ctx)
     del serve_ctx
-    cp_api_phase()
+    cp_api = cp_api_phase()
     deterministic_phase()
     cp_stages_phase()
+    qo = qo_comm_phase(cp_api)["launches"]
     train = train_phase()
     train_padded_phase(train)
     d256_phase(peaks)
@@ -3736,10 +4007,12 @@ def main() -> int:
     nsa = nsa_phase()
 
     t = bwd["d_train_docs_8192_bf16"]
+    # the launches of each kernel on the main paths (serving, train) plus
+    # those of the qo-comm path (qo_comm phase)
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body
             "ffa_fwd", "ffa_fwd_tf32.cuh", "magiattention_tpu/kernels/ffa.py:251",
-            serve["kernel_launches"]["ffa_fwd"], ffa[0],
+            serve["kernel_launches"]["ffa_fwd"] + qo.get("ffa_fwd", 0), ffa[0],
         ),
         kernel_entry(
             "paged_decode", "paged_decode.cu",
@@ -3749,38 +4022,42 @@ def main() -> int:
         kernel_entry(
             "ffa_bwd_delta", "ffa_bwd_delta.cu",
             "magiattention_tpu/kernels/ffa.py:1722",
-            train["launches"]["ffa_bwd_delta"], t["ffa_bwd_delta"],
+            train["launches"]["ffa_bwd_delta"] + qo.get("ffa_bwd_delta", 0), t["ffa_bwd_delta"],
         ),
         # the train shape's rows are bf16: their sources are the
         # tensor-core bodies (entries ffa_bwd_dq.cu, ffa_bwd_dkv.cu,
         # ffa_bwd_fused.cu, ffa_fwd_gqa.cu, ffa_bwd_dq_gqa.cu)
         kernel_entry(
             "ffa_bwd_dq", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:751",
-            train["split_launches"]["ffa_bwd_dq"], t["ffa_bwd_dq"],
+            train["split_launches"]["ffa_bwd_dq"] + qo.get("ffa_bwd_dq", 0), t["ffa_bwd_dq"],
         ),
         kernel_entry(
             "ffa_bwd_dkv", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1208",
-            train["split_launches"]["ffa_bwd_dkv"], t["ffa_bwd_dkv"],
+            train["split_launches"]["ffa_bwd_dkv"] + qo.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B6)
             "ffa_bwd_dkv (gqa)", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1451",
-            train["split_launches"]["ffa_bwd_dkv"], t["ffa_bwd_dkv"],
+            train["split_launches"]["ffa_bwd_dkv"] + qo.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
         ),
         kernel_entry(
             "ffa_bwd_fused", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1780",
-            train["launches"]["ffa_bwd_fused"], fused["d_train_docs_8192_bf16"],
+            train["launches"]["ffa_bwd_fused"] + qo.get("ffa_bwd_fused", 0),
+            fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B9)
             "ffa_bwd_fused (gqa)", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:2082",
-            train["launches"]["ffa_bwd_fused"], fused["d_train_docs_8192_bf16"],
+            train["launches"]["ffa_bwd_fused"] + qo.get("ffa_bwd_fused", 0),
+            fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(
             "ffa_fwd_gqa", "ffa_fwd_tc.cuh", "magiattention_tpu/kernels/ffa.py:490",
-            train["packed_launches"]["ffa_fwd_gqa"], fwd_gqa["a_docs_bf16_d128_g4"],
+            train["packed_launches"]["ffa_fwd_gqa"] + qo.get("ffa_fwd_gqa", 0),
+            fwd_gqa["a_docs_bf16_d128_g4"],
         ),
         kernel_entry(
             "ffa_bwd_dq_gqa", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:944",
-            train["packed_launches"]["ffa_bwd_dq_gqa"], dq_gqa["a_docs_bf16_d128_g4"],
+            train["packed_launches"]["ffa_bwd_dq_gqa"] + qo.get("ffa_bwd_dq_gqa", 0),
+            dq_gqa["a_docs_bf16_d128_g4"],
         ),
         kernel_entry(  # serve_spec's shape: float32, 4 draft rows x g 4
             "paged_decode_spec", "paged_decode_spec.cu",

@@ -6,7 +6,9 @@ attention: ``flex_flash_attn_func`` (FFA forward and backward as a
 ``torch.autograd.Function``). Context parallelism, the main path:
 ``magi_attn_flex_key -> dispatch -> calc_attn -> undispatch`` (the
 dispatch and CP planners, GroupCast/GroupReduce over
-``torch.distributed``, the multi-stage runtime), under a Llama trainer.
+``torch.distributed``, the multi-stage runtime, or under
+MAGI_ATTENTION_QO_COMM=1 the dynamic qo-comm planner and runtime) and
+``roll``, under a Llama trainer.
 NSA attention on one device: ``parallel.nsa_attn``, its selected branch
 over block-sparse kernels. Their kernels are written by hand in CUDA C++ (``csrc/``) and built with
 ``nvcc`` at first use; each has a plain PyTorch version beside it, which
@@ -26,6 +28,8 @@ from .api import (  # noqa: F401
     magi_attn_flex_key,
     magi_attn_varlen_dispatch,
     magi_attn_varlen_key,
+    roll,
+    roll_simple,
     undispatch,
 )
 from .common import AttnForwardMeta, AttnMaskType  # noqa: F401
@@ -56,5 +60,7 @@ __all__ = [
     "magi_attn_varlen_key",
     "paged_attn",
     "paged_decode_attn",
+    "roll",
+    "roll_simple",
     "undispatch",
 ]

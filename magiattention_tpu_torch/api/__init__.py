@@ -38,5 +38,7 @@ from .magi_attn_interface import (  # noqa: F401
     magi_attn_varlen_key,
     make_flex_key_for_new_mask_after_dispatch,
     make_varlen_key_for_new_mask_after_dispatch,
+    roll,
+    roll_simple,
     undispatch,
 )

@@ -9,8 +9,10 @@ cp 1, no collectives) and a device (None = the current card; pass
 ``device="cpu"`` to run the kernels' plain versions on the CPU). Each
 process holds its own rank: ``dispatch`` returns this rank's rows,
 ``calc_attn`` takes and returns them, ``undispatch`` gives every rank the
-whole natural-order tensor. Tensor parallelism over heads (``head_axis``)
-is not ported yet.
+whole natural-order tensor; ``roll`` rolls the global sequence in the
+dispatched layout. Under MAGI_ATTENTION_QO_COMM=1 the key plans the
+dynamic (qo-comm) runtime instead of the static one. Tensor parallelism
+over heads (``head_axis``) is not ported yet.
 
 Hybrid-attention models (e.g. sliding-window layers beside global ones)
 plan one mask for the dispatch and re-key the others onto its layout
@@ -323,6 +325,20 @@ def calc_attn(
     entry)."""
     out, lse, *ml = _mgr(key).calc_attn(q, k, v, return_max_logits)
     return out, AttnForwardMeta(lse=lse, max_logits=ml[0] if ml else None)
+
+
+def roll(x: torch.Tensor, key: DistAttnRuntimeKey, shifts: int = 1) -> torch.Tensor:
+    """Global roll on dispatched tensors (for the label shift of
+    multi-token prediction, ref :965): this rank's rows of the global
+    sequence rolled by ``shifts``, in the same dispatch. Differentiable.
+    The JAX package's argument order ``(x, key, shifts)``."""
+    return _mgr(key).roll(x, shifts)
+
+
+def roll_simple(x: torch.Tensor, key: DistAttnRuntimeKey, shifts: int = 1) -> torch.Tensor:
+    """Alias of :func:`roll` under the reference's ``roll_simple`` name,
+    with the JAX package's argument order ``(x, key, shifts)``."""
+    return roll(x, key, shifts)
 
 
 def get_position_ids(key: DistAttnRuntimeKey) -> torch.Tensor:

@@ -5,15 +5,20 @@ The port's counterpart of ``magiattention_tpu/dist_attn_runtime_mgr.py``:
 group, device, chunking, config, env-flag snapshot); a
 ``DistAttnRuntimeMgr`` owns one rank's planning output (dispatch metas ->
 comm and calc metas -> :class:`~.functional.dist_attn.DistAttnRuntime`)
-and the dispatch/undispatch/calc_attn methods; ``DistAttnRuntimeDict`` is
-the LRU of managers by key. Below it, ``_PlanCache`` keeps the solved host
-plans by mask signature (the memory tier of the JAX plan cache), so a key
-that differs only in its group or device reuses them without a solve.
+and the dispatch/undispatch/calc_attn/roll methods; under
+MAGI_ATTENTION_QO_COMM=1 the planning output is a dynamic plan run by
+:class:`~.functional.dynamic_dist_attn.DynamicDistAttnRuntime` instead.
+``DistAttnRuntimeDict`` is the LRU of managers by key. Below it,
+``_PlanCache`` keeps the solved host plans by mask signature (the memory
+tier of the JAX plan cache), so a key that differs only in its group or
+device reuses them without a solve, and each mask family's latest dynamic
+solve state, which seeds the next dynamic solve of the family (the
+incremental re-solve).
 
 The JAX mesh becomes a ``torch.distributed`` process group (``cp_group``;
 None = cp 1, no collectives) plus a device. Not ported yet: the disk and
-broadcast plan tiers and plan verification (ROADMAP queue A10), the
-dynamic qo-comm runtime and two-level comm (A6), which raise here.
+broadcast plan tiers and plan verification (ROADMAP queue A10) and
+two-level comm (A6), which raises here.
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ from .env import comm as env_comm
 from .env import general as env_general
 from .functional.dispatch import dispatch_func, undispatch_func
 from .functional.dist_attn import DistAttnRuntime
+from .functional.dynamic_dist_attn import DynamicDistAttnRuntime
 from .meta import make_attn_meta_from_dispatch_meta, make_dispatch_meta_from_qk_ranges
+from .meta._make_attn_meta import make_dynamic_attn_plan
 
 
 @dataclass(frozen=True)
@@ -77,13 +84,22 @@ def _plan_signature(key: DistAttnRuntimeKey) -> tuple:
     return sig
 
 
+def _mask_family(sig: tuple) -> tuple:
+    """The signature minus the mask itself (q/k ranges and types): the
+    dynamic-mask steps of one workload share a family, so a new signature
+    seeds its incremental re-solve from the family's previous solve."""
+    return sig[3:]
+
+
 class _PlanCache:
-    """Mask-signature-keyed LRU of solved plans (dispatch metas and the
-    static comm/calc metas), one level below the runtime LRU. A hit
-    returns the very objects a cold solve produced."""
+    """Mask-signature-keyed LRU of solved plans (dispatch metas, and the
+    static comm/calc metas or the dynamic plan), one level below the
+    runtime LRU. A hit returns the very objects a cold solve produced. It
+    also keeps each mask family's latest dynamic solve state."""
 
     def __init__(self) -> None:
         self._d: OrderedDict[tuple, dict] = OrderedDict()
+        self._prev_dyn: dict[tuple, object] = {}
 
     def lookup(self, sig: tuple) -> dict | None:
         if sig in self._d:
@@ -97,8 +113,16 @@ class _PlanCache:
         while len(self._d) > env_general.plan_cache_size():
             self._d.popitem(last=False)
 
+    def prev_dyn_state(self, family: tuple):
+        return self._prev_dyn.get(family)
+
+    def set_dyn_state(self, family: tuple, state) -> None:
+        if state is not None:
+            self._prev_dyn[family] = state
+
     def clear(self) -> None:
         self._d.clear()
+        self._prev_dyn.clear()
 
 
 # plans outlive any one runtime dict
@@ -106,12 +130,18 @@ _PLAN_CACHE = _PlanCache()
 
 
 def _check_ported() -> None:
-    for on, name in (
-        (env_comm.is_qo_comm_enable(), "MAGI_ATTENTION_QO_COMM=1 (the dynamic qo-comm runtime)"),
-        (env_comm.is_hierarchical_comm_enable(), "MAGI_ATTENTION_HIERARCHICAL_COMM=1 (two-level comm)"),
-    ):
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet: ROADMAP queue A6")
+    if not env_comm.is_hierarchical_comm_enable():
+        return
+    if env_comm.is_qo_comm_enable():
+        # as the JAX package refuses it (magiattention_tpu/dist_attn_runtime_mgr.py:517-521)
+        raise NotImplementedError(
+            "MAGI_ATTENTION_QO_COMM=1 does not support "
+            "MAGI_ATTENTION_HIERARCHICAL_COMM=1 yet; unset one"
+        )
+    raise NotImplementedError(
+        "MAGI_ATTENTION_HIERARCHICAL_COMM=1 (two-level comm) is not ported "
+        "yet: ROADMAP queue A6"
+    )
 
 
 class DistAttnRuntimeMgr:
@@ -142,25 +172,53 @@ class DistAttnRuntimeMgr:
                 ),
                 capacities=list(key.capacities) if key.capacities is not None else None,
             )
-            comm_meta, calc_meta = make_attn_meta_from_dispatch_meta(
-                bucket, meta_q, key.config, dispatch_meta_kv=meta_kv
-            )
-            entry = {"dispatch": (meta_q, meta_kv, bucket), "static": (comm_meta, calc_meta)}
-            if cache_on:
-                _PLAN_CACHE.store(sig, entry)
+            entry = {"dispatch": (meta_q, meta_kv, bucket)}
         self.dispatch_meta_q, self.dispatch_meta_kv, self.bucket = entry["dispatch"]
-        self.comm_meta, self.calc_meta = entry["static"]
-        overlap_cfg = key.config.overlap_config
-        self.runtime = DistAttnRuntime(
-            comm_meta=self.comm_meta,
-            calc_meta=self.calc_meta,
-            cp_rank=key.cp_rank,
-            cp_group=key.cp_group,
-            use_overlap=None if overlap_cfg.enable else False,
-            # the key's env snapshot holds the backend flag, so a key is
-            # built under the backend it runs
-            backend=env_general.kernel_backend(),
-        )
+        backend = env_general.kernel_backend()  # a key is built under the backend it runs
+        if env_comm.is_qo_comm_enable():
+            # the dynamic (qo-comm) planner: q/o rows move too, one stage
+            if "dynamic" not in entry:
+                entry = {
+                    "dispatch": entry["dispatch"],
+                    "dynamic": make_dynamic_attn_plan(
+                        AttnRanges.from_ranges(key.q_ranges),
+                        AttnRanges.from_ranges(key.k_ranges),
+                        [AttnMaskType.from_int_type(t) for t in key.attn_mask_type],
+                        self.dispatch_meta_q, key.config,
+                        dispatch_meta_kv=self.dispatch_meta_kv,
+                        prev_state=_PLAN_CACHE.prev_dyn_state(_mask_family(sig)) if cache_on else None,
+                    ),
+                }
+                if cache_on:
+                    _PLAN_CACHE.store(sig, entry)
+                    _PLAN_CACHE.set_dyn_state(_mask_family(sig), entry["dynamic"].solver_state)
+            self.dynamic_plan = entry["dynamic"]
+            self.comm_meta = self.calc_meta = None
+            self.runtime = DynamicDistAttnRuntime(
+                self.dynamic_plan, cp_rank=key.cp_rank, cp_group=key.cp_group, backend=backend,
+            )
+        else:
+            if "static" not in entry:
+                entry = {
+                    "dispatch": entry["dispatch"],
+                    "static": make_attn_meta_from_dispatch_meta(
+                        self.bucket, self.dispatch_meta_q, key.config,
+                        dispatch_meta_kv=self.dispatch_meta_kv,
+                    ),
+                }
+                if cache_on:
+                    _PLAN_CACHE.store(sig, entry)
+            self.dynamic_plan = None
+            self.comm_meta, self.calc_meta = entry["static"]
+            overlap_cfg = key.config.overlap_config
+            self.runtime = DistAttnRuntime(
+                comm_meta=self.comm_meta,
+                calc_meta=self.calc_meta,
+                cp_rank=key.cp_rank,
+                cp_group=key.cp_group,
+                use_overlap=None if overlap_cfg.enable else False,
+                backend=backend,
+            )
         self._index = {}
 
     def _indices(self, role: str) -> tuple[torch.Tensor, int, torch.Tensor]:
@@ -192,6 +250,13 @@ class DistAttnRuntimeMgr:
         if env_general.precision() == "bf16":
             q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         return self.runtime.calc_attn(q, k, v, return_max_logits)
+
+    def roll(self, x: torch.Tensor, shifts: int) -> torch.Tensor:
+        """This rank's rows of the global sequence rolled by ``shifts``
+        (:func:`~.functional.roll.roll_func`)."""
+        from .functional.roll import roll_func
+
+        return roll_func(x, self.dispatch_meta_q, shifts, self.key.cp_rank, self.key.cp_group)
 
     def get_position_ids(self) -> torch.Tensor:
         """The global position of each of this rank's dispatched rows."""

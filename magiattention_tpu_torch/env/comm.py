@@ -1,10 +1,9 @@
 """Communication toggles.
 
 The port's copy of the getters of ``magiattention_tpu/env/comm.py`` that the
-CP planners and runtime read; the flag names are the same. Two of them name
-paths the port does not have yet: qo-comm (the dynamic runtime) and
-two-level (hierarchical) comm raise ``NotImplementedError`` where a runtime
-is built (ROADMAP queue A6).
+CP planners and runtime read; the flag names are the same. Two-level
+(hierarchical) comm is not ported yet and raises ``NotImplementedError``
+where a runtime is built (ROADMAP queue A6).
 """
 
 from __future__ import annotations
@@ -24,11 +23,20 @@ def is_qo_comm_enable() -> bool:
     return _get_bool("MAGI_ATTENTION_QO_COMM")
 
 
+def is_fwd_high_precision_reduce_enable() -> bool:
+    """Return partial out rows to their owner ranks in float32 instead of
+    the compute dtype (default off, as in the reference). Only the qo-comm
+    runtime sends partial out (functional/dynamic_dist_attn.py); the
+    static runtime never does, so it is a no-op there. Doubles that wire
+    volume for a more precise lse merge."""
+    return _get_bool("MAGI_ATTENTION_FWD_HIGH_PRECISION_REDUCE")
+
+
 def is_bwd_high_precision_reduce_enable() -> bool:
-    """Send partial dk/dv back to their owner ranks in float32 instead of
-    the compute dtype (default off, as in the reference). Doubles the
-    backward's GroupReduce bytes; the partials are summed in float32
-    either way (the kernels emit float32)."""
+    """Send partial dk/dv (and, on the qo-comm runtime, dq) back to their
+    owner ranks in float32 instead of the compute dtype (default off, as in
+    the reference). Doubles the backward's GroupReduce bytes; the partials
+    are summed in float32 either way (the kernels emit float32)."""
     return _get_bool("MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE")
 
 

@@ -76,6 +76,15 @@ def is_range_merge_enable() -> bool:
     return _get_bool("MAGI_ATTENTION_RANGE_MERGE", default=True)
 
 
+def is_incremental_solve_enable() -> bool:
+    """Dynamic-solver incremental re-solve: diff the mask's rectangles
+    against the previous solve's state (same mask family) and re-run the
+    assignment algorithm only on changed rectangles
+    (meta/solver/dynamic_attn_solver.py). It can give another plan than a
+    cold solve, so it is part of the runtime cache key."""
+    return _get_bool("MAGI_ATTENTION_INCREMENTAL_SOLVE", default=True)
+
+
 # flags that change numerics, planning output or the kernels a runtime runs,
 # and so belong to every runtime cache key (the port's subset of the JAX
 # package's ENV_KEYS_AFFECTING_RUNTIME)
@@ -84,6 +93,8 @@ ENV_KEYS_AFFECTING_RUNTIME: tuple[str, ...] = (
     "MAGI_ATTENTION_PRECISION",
     "MAGI_ATTENTION_RANGE_MERGE",
     "MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE",
+    "MAGI_ATTENTION_FWD_HIGH_PRECISION_REDUCE",
+    "MAGI_ATTENTION_INCREMENTAL_SOLVE",
     "MAGI_ATTENTION_MIN_CHUNKS_PER_RANK",
     "MAGI_ATTENTION_QO_COMM",
     "MAGI_ATTENTION_HIERARCHICAL_COMM",

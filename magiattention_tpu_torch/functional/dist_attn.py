@@ -24,9 +24,10 @@ slices with the dense ``sdpa_attn`` instead of FFA, differentiated by
 autograd: the plain path the kernels are checked against, on the card
 too. With ``return_max_logits`` the per-head max logit is the max over
 the parts, then ``all_reduce(MAX)`` over the cp group (the JAX package's
-``reduce_max_logits``). The ``sdpa_online`` backend, auto-tile, TP head
-sharding and the qo-comm/two-level paths are not ported yet (ROADMAP
-queues A5-A6).
+``reduce_max_logits``). The qo-comm runtime is
+:mod:`.dynamic_dist_attn`. The ``sdpa_online`` backend, auto-tile, TP
+head sharding and two-level comm are not ported yet (ROADMAP queues
+A5-A6).
 """
 
 from __future__ import annotations

@@ -74,6 +74,13 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.kernels.block_sparse",
         "magiattention_tpu_torch.parallel",
         "magiattention_tpu_torch.parallel.nsa",
+        "magiattention_tpu_torch.functional.dynamic_dist_attn",
+        "magiattention_tpu_torch.functional.roll",
+        "magiattention_tpu_torch.common.range_op",
+        "magiattention_tpu_torch.meta.collection.dynamic_meta",
+        "magiattention_tpu_torch.meta.solver.dynamic_attn_solver",
+        "magiattention_tpu_torch.meta.solver.algorithms.binary_greedy",
+        "magiattention_tpu_torch.meta.solver.algorithms.snf",
         "chip_smoke",
     ):
         assert module in loaded, module

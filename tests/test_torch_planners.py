@@ -28,9 +28,16 @@ from magiattention_tpu_torch.common.ranges import AttnRanges
 from magiattention_tpu_torch.config import DistAttnConfig, OverlapConfig
 
 from tests.test_solver.golden_plan_lib import CHUNK, SEQ, canonical_masks
-from tests.torch_port_cases import assert_same_fields
+from tests.torch_port_cases import assert_same_fields, warm_jax_native
 
 MASKS = canonical_masks()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _warm_jax_native():
+    """The JAX planners need the JAX package's native library; recover it
+    where another process won the race to build it."""
+    warm_jax_native()
 
 
 def _plans(name, cp, degree=1, capacities=None):
@@ -135,17 +142,69 @@ def test_plan_cache_reuses_a_solved_mask():
 @pytest.mark.parametrize(
     "env,kwargs",
     [
-        ({"MAGI_ATTENTION_QO_COMM": "1"}, {}),
         ({"MAGI_ATTENTION_HIERARCHICAL_COMM": "1"}, {}),
         ({}, {"head_axis": "tp"}),
     ],
 )
 def test_paths_not_ported_yet_raise(env, kwargs, monkeypatch):
-    """qo-comm, two-level comm and TP head sharding raise instead of
-    running something else."""
+    """Two-level comm and TP head sharding raise instead of running
+    something else."""
     from magiattention_tpu_torch import api
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError):
         api.magi_attn_flex_key([[0, 64]], [[0, 64]], [1], 64, 64, device="cpu", **kwargs)
+
+
+def test_planner_recovers_a_lost_native_build_race(tmp_path):
+    """A process whose native build lost the race to another (its
+    ``get_lib`` memoized ``FileNotFoundError`` while the library exists)
+    fails every JAX planner call; ``warm_jax_native`` recovers it, and the
+    JAX planner then returns a plan. Run in a subprocess over a fresh
+    cache directory (one build, by the import of ``torch_port_cases``)."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = textwrap.dedent(
+        """
+        import os
+        from tests import torch_port_cases as c
+        from magiattention_tpu import meta
+        from magiattention_tpu.common.enum import AttnMaskType
+        from magiattention_tpu.common.ranges import AttnRanges
+
+        build, so = c._native_so()
+        assert so.exists() and str(so).startswith(os.environ["MAGI_ATTENTION_JIT_CACHE_DIR"])
+        tmp = so.with_suffix(".so.tmp")
+        build._LIB = None  # this process lost the race: the rename found no tmp file
+        build._LIB_ERR = ImportError(
+            f"native build failed: {FileNotFoundError(2, 'No such file or directory', str(tmp))}"
+        )
+
+        def plan():
+            r = AttnRanges.from_ranges([[0, 256]])
+            mq, mkv, bucket = meta.make_dispatch_meta_from_qk_ranges(
+                r, r, [AttnMaskType.CAUSAL], 256, 256, 32, 2)
+            return meta.make_attn_meta_from_dispatch_meta(bucket, mq, dispatch_meta_kv=mkv)
+
+        try:
+            plan()
+            print("planned before the repair")
+        except ImportError:
+            print("failed before the repair")
+        c.warm_jax_native()
+        comm, calc = plan()
+        print("stages", len(comm.kv_stages), "ranks", len(calc.host_args))
+        """
+    )
+    env = dict(os.environ, MAGI_ATTENTION_JIT_CACHE_DIR=str(tmp_path / "jit"),
+               PYTHONPATH=repo, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:2] == ["failed before the repair", "stages 1 ranks 2"]
+    assert len(list((tmp_path / "jit").glob("magi_host_*.so"))) == 1

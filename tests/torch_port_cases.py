@@ -26,6 +26,70 @@ torch.set_num_threads(TORCH_THREADS)
 BAND_INF = 1 << 30
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's native host library, which its planners need
+# ---------------------------------------------------------------------------
+
+
+def _native_so():
+    """(the JAX build module, the path its ``get_lib`` builds and loads)."""
+    import hashlib
+
+    from magiattention_tpu.csrc_backend import build
+
+    digest = hashlib.sha256(build._SRC.read_bytes()).hexdigest()[:16]
+    return build, build._cache_dir() / f"magi_host_{digest}.so"
+
+
+def warm_jax_native():
+    """Load the JAX package's native host library (``csrc_backend/build.py``
+    ``get_lib``), recovering from a build race another process won.
+
+    The JAX planners call the library with no Python fallback
+    (``meta/container/slice.py:69-78``), and ``get_lib`` memoizes a failed
+    build. Two processes that build it at once into the same cache write
+    one fixed ``magi_host_<hash>.so.tmp`` (``build.py:33-39``): the one that
+    renames second gets ``FileNotFoundError``, and every planner call of
+    that process then raises. So: the first build runs under an exclusive
+    lock on the cache directory (processes that build through this helper
+    take turns); and where ``get_lib`` raises but the library exists, the
+    memoized failure is dropped and the library loaded once more. It is the
+    very library the JAX package built; nothing of the package changes.
+    Where the library does not exist, the error is raised."""
+    import fcntl
+    import os
+
+    build, so = _native_so()
+    if build._LIB is None and build._LIB_ERR is None and not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        fd = os.open(so.parent, os.O_RDONLY)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            try:
+                return build.get_lib()
+            except ImportError:
+                pass  # recovered below where another process built it
+        finally:
+            os.close(fd)  # releases the lock
+    try:
+        return build.get_lib()
+    except ImportError:
+        if not so.exists():
+            raise
+        build._LIB_ERR = None
+        return build.get_lib()
+
+
+# Every xdist worker imports this module while it collects, before any
+# worker runs a test: the build happens here, once, under the lock, so no
+# test of any worker races another to build it.
+try:
+    warm_jax_native()
+except ImportError:
+    pass  # the port's fixtures raise it where a test needs the library
+
+
+
 def _bands(qr, kr, types):
     """(d_lo, d_hi) of typed slices (0 full, 1 causal, 2 inv, 3 bi)."""
     qr, kr, t = np.asarray(qr), np.asarray(kr), np.asarray(types)
@@ -81,7 +145,8 @@ def meta_fields(obj, name: str = "") -> dict:
     or a list of them) as a flat dict of field path -> numpy array or plain
     value, so the two packages' plans compare field by field. Walks
     dataclasses (public fields), lists and tuples; range lists become
-    (n, 2) int64 arrays and enums their values. A DispatchMeta adds its
+    (n, 2) int64 arrays, a single range its (start, end), and enums their
+    values. A DispatchMeta adds its
     derived position_ids, unpermute_index and per-rank host ranges."""
     import dataclasses
     import enum
@@ -89,6 +154,8 @@ def meta_fields(obj, name: str = "") -> dict:
     out: dict = {}
     if hasattr(obj, "to_naive_ranges"):
         out[name] = np.asarray(obj.to_naive_ranges(), np.int64).reshape(-1, 2)
+    elif type(obj).__name__ == "AttnRange":
+        out[name] = np.asarray([obj.start, obj.end], np.int64)
     elif isinstance(obj, enum.Enum):
         out[name] = obj.value
     elif isinstance(obj, np.ndarray):
@@ -198,6 +265,95 @@ def cp_worker(rank: int, world: int, init_file: str, out_dir: str, cases: list) 
                 res[f"reduce{st}"] = group_reduce_rows(y, plan, group, shard).numpy()
                 res[f"grad{st}"] = xg.grad.numpy()
             np.savez(os.path.join(out_dir, f"comm_{rank}.npz"), x=x.numpy(), **res)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+def dyn_worker(rank: int, world: int, init_file: str, out_dir: str, cases: list) -> None:
+    """One rank of the gloo group for the qo-comm cross-check
+    (tests/test_torch_dynamic.py): every case (name, q/k ranges, types,
+    env) through the port's key -> dispatch -> calc_attn -> undispatch
+    with max-logits under MAGI_ATTENTION_QO_COMM=1, forward and the
+    backward of ``sum(out * dO)``; results and the plan's comm rows to
+    ``out_dir/<name>_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank, world_size=world
+    )
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+
+    try:
+        for name, qr, kr, types, env in cases:
+            env = {"MAGI_ATTENTION_QO_COMM": "1", **env}
+            os.environ.update(env)
+            key = api.magi_attn_flex_key(
+                qr, kr, types, CP_SEQ, CP_SEQ, cp_group=dist.group.WORLD, device="cpu",
+                chunk_size=CP_CHUNK,
+            )
+            q, k, v, do = (torch.from_numpy(a) for a in cp_inputs(len(name)))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out_d, meta = api.calc_attn(
+                api.dispatch(leaves[0], key), api.dispatch(leaves[1], key, role="kv"),
+                api.dispatch(leaves[2], key, role="kv"), key, return_max_logits=True,
+            )
+            out = api.undispatch(out_d, key)
+            (out * do).sum().backward()
+            mgr = _mgr(key)
+            np.savez(
+                os.path.join(out_dir, f"{name}_{rank}.npz"),
+                out=out.detach().numpy(), lse=meta.lse.numpy(),
+                dq=leaves[0].grad.numpy(), dk=leaves[1].grad.numpy(),
+                dv=leaves[2].grad.numpy(), ml=meta.max_logits.numpy(),
+                runtime=type(mgr.runtime).__name__,
+                comm_rows=np.asarray(list(mgr.dynamic_plan.comm_rows().values())),
+            )
+            for key_ in env:
+                os.environ.pop(key_)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+# the roll cases (tests/test_torch_roll.py): the CP shapes, narrow rows
+ROLL_WIDTH = 8
+
+
+def roll_inputs(seed: int):
+    """float32 x ``[CP_SEQ, 2, ROLL_WIDTH]`` and the cotangent g."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((CP_SEQ, 2, ROLL_WIDTH)).astype(np.float32) for _ in range(2)]
+
+
+def roll_worker(rank: int, world: int, init_file: str, out_dir: str, shifts: list) -> None:
+    """One rank of the gloo group: for each shift, the port's ``roll`` of
+    the dispatched x (a causal key), undispatched, and the gradient of
+    ``sum(rolled * g)``; results to ``out_dir/roll<shift>_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api
+
+    try:
+        key = api.magi_attn_flex_key([[0, CP_SEQ]], [[0, CP_SEQ]], [1], CP_SEQ, CP_SEQ,
+                                     cp_group=dist.group.WORLD, device="cpu", chunk_size=CP_CHUNK)
+        for shift in shifts:
+            x, g = (torch.from_numpy(a) for a in roll_inputs(abs(shift)))
+            x = x.requires_grad_(True)
+            out = api.undispatch(api.roll(api.dispatch(x, key), key, shift), key)
+            (out * g).sum().backward()
+            np.savez(os.path.join(out_dir, f"roll{shift}_{rank}.npz"),
+                     out=out.detach().numpy(), grad=x.grad.numpy())
         dist.barrier()  # leave together: no rank closes a peer's open connections
     finally:
         dist.destroy_process_group()
