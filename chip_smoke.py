@@ -45,10 +45,10 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    float32 and bf16, causal, varlen and train-docs masks (the guard's
    heads per CTA printed). ``max_logits``: the forward's max-logits output
    against ``dense_max_logits``, softcap off and on, and its cost.
-   ``bwd_mode``: the unpinned backward mode against the measured fused and
-   split times at the four shapes and a sink-window mask (fails where the
-   model picks the slower by more than 5%), and the model's constants from
-   this run.
+   ``bwd_mode``: the unpinned backward mode against the fused and split
+   times, taken together in interleaved rounds, at the four shapes and a
+   sink-window mask (fails where the model picks the slower by more than
+   5%), and the model's constants from this run.
 5. ``paged_decode``: the paged-decode kernel against ``paged_decode_plain``
    on 8 ragged slots, in float32 and bfloat16, with the split plan it
    launched (``splits``, ``split_len``). ``paged_decode_spec``: the
@@ -103,6 +103,13 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 9. ``cp_stages``: the multi-stage compute (``multi_ffa`` over the host and
    remote kv parts, lse merge, per-part backward) of every rank of a
    cp = 4, overlap-degree-2 plan, against the plain dense reference.
+   ``qo_comm``: the dynamic runtime at cp 1 through the API and a cp 4
+   dynamic plan's steps on this card. ``cp_baselines``: every rank's body
+   of each CP baseline of ``parallel/`` (ring P2P contig and zigzag, ring
+   all-gather, all-gather, Ulysses, USP, two LoongTrain meshes, HybridCP)
+   at a world of 4 on this card, with MagiAttention's own cp 4 plan
+   beside them, on two masks: out, lse and the summed gradients against
+   the plain dense reference, empty parts, per-rank ms.
 10. ``train``: ``models.llama.train_step`` through the API at
     Llama-3.1-8B widths, depth cut to 2 layers, bf16 over float32 master
     weights, 8192 packed tokens in two causal documents: 3 SGD steps
@@ -133,13 +140,23 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     documents with the NSA paper's sparse settings: the kernel route (B13,
     B14's two walks, B1, B7, the resolved backward; launch counts) against
     the gathered route on equal selections, in bf16 and at 2048 tokens in
-    float32.
+    float32. ``usp_nsa``: ``usp_nsa_attn``'s per-rank body at (ring 2,
+    ulysses 2) against ``nsa_attn`` on the whole, the gradients (the
+    parameters' all-reduced) summed, per-rank ms.
 13. ``kernels``: one line per-kernel summary (launches from the serve,
-    train or nsa phase, error, kernel / plain / library time and the
-    card's bound).
+    train or nsa phase plus qo_comm, cp_baselines and usp_nsa, error,
+    kernel / plain / library time and the card's bound).
 
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --cp4`` needs four cards of one host and runs
+``cp4`` alone: every baseline of ``cp_baselines`` (and LoongTrain's
+context-first placement) and MagiAttention's API at cp 4 through their
+entry points, one process per card, the collectives over NCCL; each
+rank's shard of out, lse and the gradients against the single-device
+``ffa_attn`` (bf16 gates) and every rank's fwd+bwd ms, then the four
+cards' ``name, power.limit`` lines and the same last line.
 
 Bounds use the card's data-sheet peaks (H100 SXM: 989 TFLOP/s bf16 and
 494.7 TFLOP/s TF32 dense tensor cores, 67 TFLOP/s float32 CUDA cores,
@@ -1075,18 +1092,34 @@ def max_logits_phase() -> dict[str, dict]:
     return results
 
 
+def paired_ms(fns: dict, rounds: int = 9, samples: int = 5) -> dict[str, list[float]]:
+    """Each function's :func:`time_ms` in every round, the functions timed
+    in turn within a round and their order rotated from round to round, so
+    a drift of the card's clock or heat falls on all of them alike. Kernels
+    that a rule compares are timed so, not in phases minutes apart."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for r in range(rounds):
+        for n in names[r % len(names):] + names[:r % len(names)]:
+            times[n].append(time_ms(fns[n], warmup=1, samples=samples))
+    return times
+
+
 def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
     """The unpinned backward mode against the card: at the four backward
-    shapes (their kernel times from the ``ffa_bwd`` and ``ffa_bwd_fused``
-    phases) and the sink-window mask (timed here, fused checked against
-    split), the cost model's choice beside the measured fused and split
-    (dq + dk/dv) times. Fails where the model picks the slower mode by more
-    than 5% (after printing the constants). Also the constants the model would take from this run
-    (``tile_policy.calibrate_tc`` over the four bf16 masks for each
-    tensor-core kernel: dq, dk/dv, fused, and the packed dq over the train
-    shape and the sink window) beside the ones in the code; the CUDA-core
-    kernels run only the float32 serving prefill here (their constants
-    came from a run where bf16 took them too, at the train shape)."""
+    shapes and the sink-window mask (fused checked against split there),
+    the cost model's choice beside the fused and split (dq + dk/dv) times,
+    taken here in interleaved rounds (:func:`paired_ms`; split is each
+    round's dq + dk/dv, the medians over rounds compared). The ``ffa_bwd``
+    and ``ffa_bwd_fused`` phases' times of the same kernels are printed
+    beside them. Fails where the model picks the slower mode by more than
+    5% (after printing the constants). Also the constants the model would
+    take from this run (``tile_policy.calibrate_tc`` over the four bf16
+    masks for each tensor-core kernel: dq, dk/dv, fused, and the packed dq
+    over the train shape and the sink window) beside the ones in the code;
+    the CUDA-core kernels run only the float32 serving prefill here (their
+    constants came from a run where bf16 took them too, at the train
+    shape)."""
     import torch
 
     from magiattention_tpu_torch.kernels import tile_policy
@@ -1097,10 +1130,10 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
 
     gen = torch.Generator(device="cuda").manual_seed(27)
     all_cases = mask_cases()
-    measured = {
+    phase_ms = {
         key: dict(
-            dq=bwd[name]["ffa_bwd_dq"]["ms"], dkv=bwd[name]["ffa_bwd_dkv"]["ms"],
             fused=fused[name]["ms"],
+            split=bwd[name]["ffa_bwd_dq"]["ms"] + bwd[name]["ffa_bwd_dkv"]["ms"],
         )
         for key, name in (
             ("causal_8192_bf16", "a_causal_8192_bf16"),
@@ -1109,31 +1142,44 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
             ("train_docs_8192_bf16", "d_train_docs_8192_bf16"),
         )
     }
-    c = all_cases["sink_window_8192_bf16"]
-    (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
-    out, lse = ffa_fwd_kernel(q, k, v, plan, params)
-    args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
-    dq_f, dk_f, dv_f = ffa_bwd_fused_kernel(*args)
-    for gname, a, b in zip(("dq", "dk", "dv"), (dq_f, dk_f, dv_f), (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args))):
-        grad_check(f"sink_window fused vs split {gname}", a, b, "bfloat16")
-    del dq_f, dk_f, dv_f
-    measured["sink_window_8192_bf16"] = dict(
-        dq=time_ms(lambda: ffa_bwd_dq_kernel(*args)),
-        dkv=time_ms(lambda: ffa_bwd_dkv_kernel(*args)),
-        fused=time_ms(lambda: ffa_bwd_fused_kernel(*args)),
-        dq_gqa=time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args)),
-    )
+    measured, shapes = {}, {}
+    for key in (*phase_ms, "sink_window_8192_bf16"):
+        c = all_cases[key]
+        isz = 4 if c["dtype"] == torch.float32 else 2
+        (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
+        out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+        args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
+        if key == "sink_window_8192_bf16":
+            dq_f, dk_f, dv_f = ffa_bwd_fused_kernel(*args)
+            split = (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args))
+            for gname, a, b in zip(("dq", "dk", "dv"), (dq_f, dk_f, dv_f), split):
+                grad_check(f"sink_window fused vs split {gname}", a, b, "bfloat16")
+            del dq_f, dk_f, dv_f, split
+        t = paired_ms(dict(
+            fused=lambda: ffa_bwd_fused_kernel(*args),
+            dq=lambda: ffa_bwd_dq_kernel(*args),
+            dkv=lambda: ffa_bwd_dkv_kernel(*args),
+        ))
+        measured[key] = dict(
+            fused=statistics.median(t["fused"]), dq=statistics.median(t["dq"]),
+            dkv=statistics.median(t["dkv"]),
+            split=statistics.median([a + b for a, b in zip(t["dq"], t["dkv"])]),
+        )
+        if key == "sink_window_8192_bf16":
+            measured[key]["dq_gqa"] = time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args))
+        shapes[key] = (
+            ffa_bwd_mode(plan, params, 128, 128, isz, c["hq"], c["hk"]),
+            bwd_shape(plan, c["hq"], c["hk"], 128, 128, isz), isz,
+        )
+        del q, k, v, do, out, lse, args
+        torch.cuda.empty_cache()
 
     rows, tc_shapes = [], {}
     for key, ms in measured.items():
-        c = all_cases[key]
-        isz = 4 if c["dtype"] == torch.float32 else 2
-        (q, k, _), _, plan, params = case_inputs(c, gen)
-        mode = ffa_bwd_mode(plan, params, 128, 128, isz, c["hq"], c["hk"])
-        shape = bwd_shape(plan, c["hq"], c["hk"], 128, 128, isz)
+        mode, shape, isz = shapes[key]
         if isz == 2:  # the tensor-core bodies' shapes, for their fit
             tc_shapes[key] = shape
-        split_ms = ms["dq"] + ms["dkv"]
+        split_ms = ms["split"]
         faster = "fused" if ms["fused"] <= split_ms else "split"
         gap = abs(ms["fused"] - split_ms) / min(ms["fused"], split_ms)
         row = dict(
@@ -1145,6 +1191,8 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
         )
         if "dq_gqa" in ms:
             row["dq_gqa_ms"] = ms["dq_gqa"]
+        if key in phase_ms:
+            row.update(phases_fused_ms=phase_ms[key]["fused"], phases_split_ms=phase_ms[key]["split"])
         emit({"phase": "bwd_mode", **row})
         rows.append(row)
     # the packed dq (its guard's heads per CTA) at the two bf16 masks that
@@ -1157,11 +1205,7 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
             kern, [tc_shapes[key] for key in keys], [measured[key][kern] for key in keys],
             dq_heads_per_cta=dq_gqa["a_docs_bf16_d128_g4"]["heads_per_cta"],
         )
-    c = all_cases["serving_prefill_f32"]
-    (q, k, _), _, plan, params = case_inputs(c, gen)
-    f32 = tile_policy.calibrate(
-        bwd_shape(plan, c["hq"], c["hk"], 128, 128, 4), measured["serving_prefill_f32"]
-    )
+    f32 = tile_policy.calibrate(shapes["serving_prefill_f32"][1], measured["serving_prefill_f32"])
     emit({
         "phase": "bwd_mode_constants",
         "from_this_run": dict(tensor_cores=tc, cuda_cores_at_serving_prefill=f32),
@@ -2084,18 +2128,35 @@ def profile_run(fn) -> dict:
     """``fn()`` under ``torch.profiler``: device time by kernel, device
     busy time against the wall (the profiler's own cost inflates the wall,
     so the idle share is an upper bound), and the paged-decode kernels'
-    device time and launches (``magi::decode::``: the walk and the merge)."""
+    device time and launches (``magi::decode::``: the walk and the merge).
+
+    The trace is held against the port's launch counters: late in a full
+    run the profiler drops a short call's first kernel records (forwards
+    the counters saw, missing from the trace; PERF.md §6), so ``complete``
+    says whether the trace holds every forward launch of the call
+    (``forward_launches_counted``); a busy time is read only from a
+    complete trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from magiattention_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    after = launch_counts()
+    counted = sum(after[k] - before[k] for k in ("ffa_fwd", "ffa_fwd_gqa"))
+    res = _profile_summary(prof.key_averages(), wall)
+    return dict(res, forward_launches_counted=counted, complete=res["forward_launches"] == counted)
+
+
+def _profile_summary(events, wall: float) -> dict:
     kernels = []
-    for e in prof.key_averages():
+    for e in events:
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
@@ -2377,6 +2438,17 @@ def cp_api_phase() -> dict:
     return res
 
 
+def _stage_rows(stage, pos_kv, r: int, cp: int):
+    """Global rows of rank r's receive buffer for one GroupCast stage."""
+    import torch
+
+    return torch.cat([
+        pos_kv[s][torch.as_tensor(stage.send_idx[s, r, : stage.send_counts[s, r]],
+                                  dtype=torch.int64, device="cuda")]
+        for s in range(cp)
+    ])
+
+
 def cp_stages_phase() -> dict:
     """The multi-stage compute of a cp = 4, overlap-degree-2 plan at the
     train phase's attention shape (bf16), for each rank, on this one card:
@@ -2431,13 +2503,7 @@ def cp_stages_phase() -> dict:
         runtime = DistAttnRuntime(comm, calc, cp_rank=r, use_overlap=True)
         parts_k, parts_v, rows = [k[pos_kv[r]]], [v[pos_kv[r]]], [pos_kv[r]]
         for stage, cast in zip(comm.kv_stages, runtime.cast_plans):
-            src_rows = torch.cat([
-                pos_kv[s][torch.as_tensor(
-                    stage.send_idx[s, r, : stage.send_counts[s, r]], dtype=torch.int64,
-                    device="cuda",
-                )]
-                for s in range(cp)
-            ])
+            src_rows = _stage_rows(stage, pos_kv, r, cp)
             bk_, bv_ = (t.new_zeros((cast.buf_len, CP_HK, CP_D)) for t in (k, v))
             bk_[: len(src_rows)], bv_[: len(src_rows)] = k[src_rows], v[src_rows]
             parts_k.append(bk_)
@@ -2622,7 +2688,10 @@ def qo_comm_phase(cp_api: dict) -> dict:
         _qo_api(inputs, do, k_)  # warm
         prof = profile_run(lambda k_=k_: _qo_api(inputs, do, k_))
         a_res[f"{name}_profile"] = {
-            key_: prof[key_] for key_ in ("wall_s", "device_busy_s", "top_kernels")
+            key_: prof[key_] for key_ in (
+                "wall_s", "device_busy_s", "forward_launches", "forward_launches_counted",
+                "complete", "top_kernels",
+            )
         }
     a_res.update(
         shape=f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, two causal documents", cp=1,
@@ -2768,6 +2837,321 @@ def qo_comm_phase(cp_api: dict) -> dict:
     torch.cuda.empty_cache()
     res = dict(cp1=a_res, cp4=b_res, launches=total, atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"])
     emit({"phase": "qo_comm", **res})
+    return res
+
+
+# the cp_baselines phase: the train attention shape, a world of four ranks
+# on this one card; cp_api's two causal documents and one causal mask
+CPB_WORLD = 4
+CPB_MASKS = {
+    "two_docs": (_docs(CP_SEQ, CP_DOC), [1, 1]),
+    "causal": ([[0, CP_SEQ]], [1]),
+}
+CPB_RUNS = (
+    "ring_contig", "ring_zigzag", "ring_allgather_zigzag", "allgather", "ulysses", "usp_r2u2",
+    "loongtrain_o2i2_zigzag", "loongtrain_o1i2u2_head_first", "hybrid_o2i2",
+)
+
+
+@dataclasses.dataclass
+class RankJob:
+    """One rank's body of a CP baseline as its collectives leave it: its q
+    rows (global, natural order) and q heads, per kv part the global rows
+    the part holds (zero rows past them up to ``kv_lens``) and the kv
+    heads, and per part a plan and its params; ``plans`` None is Ulysses
+    (one ``ffa_attn`` over the global metadata)."""
+
+    rank: str
+    q_rows: np.ndarray
+    heads: slice
+    kv_heads: slice
+    kv_rows: list
+    plans: list | None
+    params: list | None = None
+    kv_lens: list | None = None
+
+
+def plan_area(plan) -> int:
+    """The (query, key) pairs a plan's work items cover (each item's
+    slice band within its tile; dummy items cover none)."""
+    from magiattention_tpu_torch.kernels.ffa_plan import DHI, DLO, KE, KS, QE, QS
+    from magiattention_tpu_torch.meta.container.slice import band_area_batch
+
+    m = plan.meta.astype(np.int64)
+    qb = plan.work_qt.astype(np.int64) * plan.block_q
+    kb = plan.work_kt.astype(np.int64) * plan.block_k
+    i0 = np.maximum(m[:, QS], qb)
+    i1 = np.maximum(np.minimum(m[:, QE], qb + plan.block_q), i0)
+    j0 = np.maximum(m[:, KS], kb)
+    j1 = np.maximum(np.minimum(m[:, KE], kb + plan.block_k), j0)
+    return int(band_area_batch(i0, i1, j0, j1, m[:, DLO], m[:, DHI]).sum())
+
+
+def baseline_jobs(name: str, qr, types) -> list[RankJob]:
+    """Every rank's body of the run ``name`` (``CPB_RUNS``) at cp 4 on the
+    mask: the plans the port's entry point builds for that rank
+    (``parallel.ring``, ``loongtrain``, ``hybrid``) and the rows its
+    collectives deliver."""
+    from magiattention_tpu_torch.parallel._utils import baseline_params, zigzag_perm
+    from magiattention_tpu_torch.parallel.hybrid import hybrid_rank_plans
+    from magiattention_tpu_torch.parallel.loongtrain import loongtrain_rank_plans, src_of
+    from magiattention_tpu_torch.parallel.ring import allgather_rank_plan, ring_rank_plans
+
+    S, nat = CP_SEQ, np.arange(CP_SEQ)
+    allq, allkv = slice(0, CP_HQ), slice(0, CP_HK)
+
+    def blocks(order, n):
+        return [order[i * (S // n):(i + 1) * (S // n)] for i in range(n)]
+
+    def halves(u):  # head subset u of 2 (Ulysses size 2)
+        return slice(u * CP_HQ // 2, (u + 1) * CP_HQ // 2), slice(u * CP_HK // 2, (u + 1) * CP_HK // 2)
+
+    jobs = []
+    if name in ("ring_contig", "ring_zigzag"):
+        sharding = name.split("_")[1]
+        b = blocks(nat if sharding == "contig" else zigzag_perm(S, 4), 4)
+        for r in range(4):
+            jobs.append(RankJob(str(r), b[r], allq, allkv, [b[(r - s) % 4] for s in range(4)],
+                                ring_rank_plans(qr, qr, types, S, 4, r, sharding)))
+    elif name in ("ring_allgather_zigzag", "allgather"):
+        sharding = "zigzag" if name.startswith("ring") else "contig"
+        b = blocks(nat if sharding == "contig" else zigzag_perm(S, 4), 4)
+        for r in range(4):
+            jobs.append(RankJob(str(r), b[r], allq, allkv, [nat],
+                                [allgather_rank_plan(qr, qr, types, S, 4, r, sharding)]))
+    elif name == "ulysses":
+        for j in range(4):
+            jobs.append(RankJob(str(j), nat, slice(j * CP_HQ // 4, (j + 1) * CP_HQ // 4),
+                                slice(j * CP_HK // 4, (j + 1) * CP_HK // 4), [nat], None))
+    elif name == "usp_r2u2":
+        b = blocks(nat, 2)
+        for r in range(2):
+            for u in range(2):
+                jobs.append(RankJob(f"r{r}u{u}", b[r], *halves(u), [b[(r - s) % 2] for s in range(2)],
+                                    ring_rank_plans(qr, qr, types, S, 2, r, "contig")))
+    elif name == "loongtrain_o2i2_zigzag":
+        b, src = blocks(zigzag_perm(S, 4), 4), src_of(2, 2)
+        for rb in range(4):
+            jobs.append(RankJob(f"b{rb}", b[rb], allq, allkv, [b[src(rb, t)] for t in range(4)],
+                                loongtrain_rank_plans(qr, qr, types, S, 2, 2, rb, "zigzag")))
+    elif name == "loongtrain_o1i2u2_head_first":  # the placement moves ranks, not work
+        b, src = blocks(zigzag_perm(S, 2), 2), src_of(1, 2)
+        for rb in range(2):
+            for u in range(2):
+                jobs.append(RankJob(f"b{rb}u{u}", b[rb], *halves(u), [b[src(rb, t)] for t in range(2)],
+                                    loongtrain_rank_plans(qr, qr, types, S, 1, 2, rb, "zigzag")))
+    elif name == "hybrid_o2i2":
+        b, sup = blocks(nat, 4), blocks(nat, 2)
+        for rb in range(4):
+            jobs.append(RankJob(f"b{rb}", b[rb], allq, allkv, [sup[(rb // 2 - o) % 2] for o in range(2)],
+                                hybrid_rank_plans(qr, qr, types, S, 2, 2, rb)))
+    else:
+        raise ValueError(f"unknown baseline run {name!r}")
+    scale = CP_D ** -0.5
+    for job in jobs:
+        if job.plans is not None:
+            job.params = [baseline_params(p, scale) for p in job.plans]
+    return jobs
+
+
+def magi_jobs(qr, types, chunk: int = 512) -> list[RankJob]:
+    """Every rank's parts of MagiAttention's own cp 4 plan on the mask
+    (the API's default config): its dispatched q rows, its kv shard and
+    each stage's receive buffer (``cp_stages``'s gathers)."""
+    import torch
+
+    from magiattention_tpu_torch.common.enum import AttnMaskType
+    from magiattention_tpu_torch.common.ranges import AttnRanges
+    from magiattention_tpu_torch.config import DistAttnConfig
+    from magiattention_tpu_torch.functional.dist_attn import DistAttnRuntime
+    from magiattention_tpu_torch.meta import (
+        make_attn_meta_from_dispatch_meta, make_dispatch_meta_from_qk_ranges,
+    )
+
+    config = DistAttnConfig()
+    mq, mkv, bucket = make_dispatch_meta_from_qk_ranges(
+        AttnRanges.from_ranges(qr), AttnRanges.from_ranges(qr),
+        [AttnMaskType.from_int_type(t) for t in types], CP_SEQ, CP_SEQ, chunk, CPB_WORLD,
+        config.dispatch_config,
+    )
+    comm, calc = make_attn_meta_from_dispatch_meta(bucket, mq, config, dispatch_meta_kv=mkv)
+    pos_kv = [torch.as_tensor(p, dtype=torch.int64, device="cuda") for p in mkv.position_ids]
+    jobs = []
+    for r in range(CPB_WORLD):
+        runtime = DistAttnRuntime(comm, calc, cp_rank=r, use_overlap=True)
+        rows = [pos_kv[r]] + [_stage_rows(st, pos_kv, r, CPB_WORLD) for st in comm.kv_stages]
+        lens = [len(pos_kv[r])] + [c.buf_len for c in runtime.cast_plans]
+        jobs.append(RankJob(str(r), np.asarray(mq.position_ids[r]), slice(0, CP_HQ), slice(0, CP_HK),
+                            [x.cpu().numpy() for x in rows], runtime.plans, runtime._params(CP_D), lens))
+    return jobs
+
+
+def job_tensors(job: RankJob, q, k, v, do):
+    """(q, kv parts of k, of v, dO) of a job, gathered from the whole
+    tensors by its rows and heads (what the collectives deliver)."""
+    import torch
+
+    def rows(x, r, heads, n=None):
+        part = x[torch.as_tensor(r, dtype=torch.int64, device="cuda")][:, heads]
+        if n is None or n == len(r):
+            return part.contiguous()
+        return torch.cat([part, part.new_zeros((n - len(r), *part.shape[1:]))])
+
+    lens = job.kv_lens or [None] * len(job.kv_rows)
+    ks = [rows(k, r, job.kv_heads, n) for r, n in zip(job.kv_rows, lens)]
+    vs = [rows(v, r, job.kv_heads, n) for r, n in zip(job.kv_rows, lens)]
+    return rows(q, job.q_rows, job.heads), ks, vs, rows(do, job.q_rows, job.heads)
+
+
+def job_fwd_bwd(job: RankJob, qj, ks, vs, do_j, qr, types):
+    """The job's body, forward and backward: (out, lse, dq, dks, dvs)."""
+    import torch
+
+    from magiattention_tpu_torch.functional.dist_attn import multi_ffa
+    from magiattention_tpu_torch.kernels.ffa import ffa_attn
+
+    n = len(ks)
+    leaves = [t.detach().requires_grad_(True) for t in (qj, *ks, *vs)]
+    if job.plans is None:
+        out, lse = ffa_attn(leaves[0], leaves[1], leaves[2], qr, qr, types)
+    else:
+        out, lse = multi_ffa(leaves[0], leaves[1:1 + n], leaves[1 + n:], job.plans, job.params)
+    grads = torch.autograd.grad(out, leaves, do_j)
+    return out, lse, grads[0], grads[1:1 + n], grads[1 + n:]
+
+
+def run_jobs(what: str, jobs: list, inputs, refs, qr, types, total: dict) -> dict:
+    """Every rank's body of one run on the card: out and lse against the
+    dense reference on its rows, the gradients summed as the collectives'
+    adjoints would sum them against the reference gradients (bf16 gates),
+    parts with no work item giving out 0, lse -inf and zero gradients;
+    only kernels launch (counts zeroed just before each rank's body, read
+    just after, added to ``total``); per-rank fwd+bwd ms."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.kernels.ffa import ffa_fwd_dispatch, plan_params
+    from magiattention_tpu_torch.parallel._utils import live_items
+
+    q, k, v, do = inputs
+    out_ref, lse_ref, dq_ref, dk_ref, dv_ref = refs
+    dq, dk, dv = (torch.zeros(t.shape, device="cuda") for t in (q, k, v))
+    unit = (CP_SEQ // CPB_WORLD) ** 2
+    ranks = []
+    for job in jobs:
+        qj, ks, vs, do_j = job_tensors(job, q, k, v, do)
+        rows = torch.as_tensor(job.q_rows, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, lse, g_q, g_ks, g_vs = job_fwd_bwd(job, qj, ks, vs, do_j, qr, types)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        n = len(ks)
+        if (any(counts[p] for p in PLAIN_NAMES) or counts["ffa_fwd"] + counts["ffa_fwd_gqa"] != n
+                or counts["ffa_bwd_delta"] != 1 or counts["ffa_bwd_fused"] + counts["ffa_bwd_dkv"] != n):
+            raise AssertionError(f"{what} rank {job.rank}: launched {counts} for {n} parts")
+        for k_, v_ in counts.items():
+            total[k_] = total.get(k_, 0) + v_
+        e_out = grad_check(f"{what} r{job.rank} out", out.float(),
+                           out_ref[rows][:, job.heads].float(), "bfloat16")
+        e_lse = grad_check(f"{what} r{job.rank} lse", lse, lse_ref[rows][:, job.heads], "bfloat16")
+        dq[rows, job.heads] += g_q.float()
+        for r_, gk, gv in zip(job.kv_rows, g_ks, g_vs):
+            idx = torch.as_tensor(r_, dtype=torch.int64, device="cuda")
+            dk[idx, job.kv_heads] += gk[: len(r_)].float()
+            dv[idx, job.kv_heads] += gv[: len(r_)].float()
+        if job.plans is None:  # Ulysses: ffa_attn's own plan of the global mask
+            plan, params = plan_params(qr, qr, types, None, None, CP_SEQ, CP_SEQ, CP_D, None, 0.0)
+            plans, params = [plan], [params]
+        else:
+            plans, params = job.plans, job.params
+        empty = [i for i, p in enumerate(plans) if live_items(p) == 0]
+        for i in empty:  # a part with no work: out 0, lse -inf, no gradient
+            o_e, l_e = ffa_fwd_dispatch(qj, ks[i], vs[i], plans[i], params[i])
+            if not (torch.all(o_e == 0) and torch.all(torch.isneginf(l_e))
+                    and torch.all(g_ks[i] == 0) and torch.all(g_vs[i] == 0)):
+                raise AssertionError(f"{what} rank {job.rank}: empty part {i} is not 0 / -inf / 0")
+        heads = (job.heads.stop - job.heads.start) / CP_HQ
+        ranks.append(dict(
+            rank=job.rank, parts=n, empty_parts=len(empty),
+            area_units=sum(plan_area(p) for p in plans) * heads / unit,
+            fwd_bwd_ms=time_ms(lambda: job_fwd_bwd(job, qj, ks, vs, do_j, qr, types), samples=5),
+            out_max_abs_err=e_out["max_abs_err"], lse_max_abs_err=e_lse["max_abs_err"],
+        ))
+        del out, lse, g_q, g_ks, g_vs, qj, ks, vs, do_j
+    grads = {
+        name: grad_check(f"{what} summed {name}", got, want, "bfloat16")
+        for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))
+    }
+    ms = [r["fwd_bwd_ms"] for r in ranks]
+    return dict(ranks=ranks, summed_grads=grads, fwd_bwd_ms_min=min(ms), fwd_bwd_ms_max=max(ms))
+
+
+def cp_baselines_phase() -> dict:
+    """The CP baselines of ``parallel/`` on the card, at the train phase's
+    attention shape (bf16, Llama-3.1-8B heads), a world of 4 on this one
+    card over ``cp_api``'s two causal documents and one causal mask: for
+    each run (``CPB_RUNS``) every rank's body as its entry point calls it
+    after its collectives, its buffers gathered from the whole tensors by
+    index (the collectives are held on the CPU by
+    tests/test_torch_baselines.py). Each rank's out and lse against
+    ``sdpa_attn`` on its rows, the gradients summed as the collectives'
+    adjoints sum them against ``ffa_bwd_fused_plain`` (dO on every row),
+    in the bf16 gates; parts with no work checked; only kernels launch.
+    Per-rank fwd+bwd ms (min / max over ranks: the slowest sets a CP
+    step's pace), each rank's area in units of (S/4)^2 (heads-weighted),
+    MagiAttention's own cp 4 plan on the same mask timed the same way, the
+    single-device ``ffa_attn`` fwd+bwd, and one profiled rank step each of
+    the zigzag ring and Ulysses."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_attn, ffa_bwd_fused_plain, ffa_delta_plain, plan_params,
+    )
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+
+    shapes = ((CP_SEQ, CP_HQ, CP_D), (CP_SEQ, CP_HK, CP_D), (CP_SEQ, CP_HK, CP_D))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in shapes)
+    do = (torch.randn(shapes[0], generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    total: dict = {}
+    res = dict(shape=f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}", world=CPB_WORLD)
+    for mask, (docs, types_) in CPB_MASKS.items():
+        qr, types = np.array(docs), np.array(types_)
+        with torch.no_grad():
+            out_ref, lse_ref = sdpa_attn(q, k, v, qr, qr, types)
+        gplan, gparams = plan_params(qr, qr, types, None, None, CP_SEQ, CP_SEQ, CP_D, None, 0.0)
+        delta = ffa_delta_plain(out_ref, do)
+        refs = (out_ref, lse_ref, *ffa_bwd_fused_plain(q, k, v, do, lse_ref, delta, gplan, gparams))
+        del delta
+        runs = {}
+        for name in CPB_RUNS:
+            jobs = baseline_jobs(name, qr, types)
+            runs[name] = run_jobs(f"cp_baselines {mask} {name}", jobs, (q, k, v, do), refs, qr, types, total)
+        runs["magi_cp4"] = run_jobs(f"cp_baselines {mask} magi", magi_jobs(qr, types), (q, k, v, do),
+                                    refs, qr, types, total)
+
+        def single():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out, _ = ffa_attn(*leaves, qr, qr, types)
+            return torch.autograd.grad(out, leaves, do)
+
+        profiles = {}
+        for name in ("ring_zigzag", "ulysses") if mask == "two_docs" else ():
+            job = baseline_jobs(name, qr, types)[0]
+            tensors = job_tensors(job, q, k, v, do)
+            prof = profile_run(lambda: job_fwd_bwd(job, *tensors, qr, types))
+            profiles[name] = {key: prof[key] for key in (
+                "wall_s", "device_busy_s", "forward_device_ms", "forward_launches",
+                "forward_launches_counted", "complete", "top_kernels")}
+        res[mask] = dict(
+            mask=f"q = k ranges {docs}, types {types_} (1 causal)", runs=runs,
+            single_device_fwd_bwd_ms=time_ms(single, samples=5), rank0_profiles=profiles,
+        )
+        del refs, out_ref, lse_ref
+        torch.cuda.empty_cache()
+    res.update(launches=total, atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"])
+    emit({"phase": "cp_baselines", **res})
     return res
 
 
@@ -3449,6 +3833,105 @@ def nsa_phase() -> dict:
     return res
 
 
+USP_NSA_R, USP_NSA_U = 2, 2
+# b_cmp_k shifts every compressed key of a query's softmax alike: its true
+# gradient is 0, so a sum of partials and the whole differ in noise only
+NSA_ZERO_GRADS = ("b_cmp_k",)
+
+
+def usp_nsa_phase() -> dict:
+    """``usp_nsa_attn``'s per-rank body on the card at the ``nsa`` phase's
+    configuration, (ring 2, ulysses 2) on this one card: for each rank
+    (r, u), ``nsa_attn`` over its head subset (16 q / 4 kv heads) and the
+    whole sequence (what the all-to-all and the ring all-gather deliver),
+    sliced to ring block r, forward and backward. Each rank's rows against
+    ``nsa_attn`` on the whole (``sum_check``, bf16), its selection against
+    the whole's on its kv heads, and the gradients summed as the
+    collectives' adjoints and the trainer's all-reduce sum them (q, k, v
+    over ring ranks, the parameters over all four) against the whole's;
+    only kernels launch (counts per rank body). Per-rank fwd+bwd ms beside
+    the single-device fwd+bwd: every ring rank computes every query of
+    its heads (the reference's USPAllGatherNSA), R-fold redundant."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.parallel.nsa import PARAM_NAMES, init_nsa_params, nsa_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q = torch.randn((NSA_SEQ, NSA_HQ, NSA_D), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((NSA_SEQ, NSA_HK, NSA_D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((NSA_SEQ, NSA_HK, NSA_D), generator=gen, device="cuda").to(torch.bfloat16)
+    params = init_nsa_params(gen, NSA_D, NSA_KW["l_cmp"], device="cuda")
+    do = torch.randn((NSA_SEQ, NSA_HQ, NSA_D), generator=gen, device="cuda").to(torch.bfloat16)
+    cu = list(range(0, NSA_SEQ + 1, NSA_DOC))
+    blk, hq_u, hk_u = NSA_SEQ // USP_NSA_R, NSA_HQ // USP_NSA_U, NSA_HK // USP_NSA_U
+
+    def fwd_bwd(heads, kv_heads, rows):
+        leaves = [x[:, h].detach().contiguous().requires_grad_(True)
+                  for x, h in ((q, heads), (k, kv_heads), (v, kv_heads))]
+        ps = {n: params[n].detach().requires_grad_(True) for n in PARAM_NAMES}
+        out, idx = nsa_attn(*leaves, ps, cu, return_selection=True, **NSA_KW)
+        grads = torch.autograd.grad(out[rows], [*leaves, *ps.values()], do[rows][:, heads])
+        return out[rows], idx, grads
+
+    whole = slice(0, NSA_SEQ)
+    want = fwd_bwd(slice(0, NSA_HQ), slice(0, NSA_HK), whole)
+    sums = [torch.zeros(t.shape, device="cuda") for t in (q, k, v)]
+    sums += [torch.zeros_like(params[n], dtype=torch.float32) for n in PARAM_NAMES]
+    total, ranks = {}, []
+    for r in range(USP_NSA_R):
+        for u in range(USP_NSA_U):
+            heads = slice(u * hq_u, (u + 1) * hq_u)
+            kv_heads = slice(u * hk_u, (u + 1) * hk_u)
+            rows = slice(r * blk, (r + 1) * blk)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out, idx, grads = fwd_bwd(heads, kv_heads, rows)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if (any(counts[p] for p in PLAIN_NAMES) or counts["ffa_fwd"] != 1
+                    or any(counts[b] != 1 for b in ("block_sparse_fwd", "block_sparse_bwd_dq",
+                                                    "block_sparse_bwd_dkv"))):
+                raise AssertionError(f"usp_nsa r{r}u{u}: launched {counts}")
+            for k_, v_ in counts.items():
+                total[k_] = total.get(k_, 0) + v_
+            err = sum_check(f"usp_nsa r{r}u{u} out", out, want[0][rows][:, heads], "bfloat16")
+            sums[0][:, heads] += grads[0].float()
+            sums[1][:, kv_heads] += grads[1].float()
+            sums[2][:, kv_heads] += grads[2].float()
+            for i in range(len(PARAM_NAMES)):
+                sums[3 + i] += grads[3 + i].float()
+            ranks.append(dict(
+                rank=f"r{r}u{u}", out_max_abs_err=err["max_abs_err"],
+                out_rel_norm_err=err["rel_norm_err"],
+                selection_rows_differing=int((idx != want[1][kv_heads]).any(-1).sum().item()),
+                fwd_bwd_ms=time_ms(lambda: fwd_bwd(heads, kv_heads, rows), warmup=1, samples=3),
+            ))
+            del out, idx, grads
+    names = ("dq", "dk", "dv", *PARAM_NAMES)
+    summed = {}
+    for n, got, w in zip(names, sums, want[2]):
+        if n in NSA_ZERO_GRADS:  # rounding residue on both sides: held absolutely
+            summed[n] = {"max_abs": max(got.abs().max().item(), w.abs().max().item())}
+            if summed[n]["max_abs"] > ATOL["bfloat16"]:
+                raise AssertionError(f"usp_nsa summed {n}: {summed[n]} beyond {ATOL['bfloat16']}")
+        else:
+            summed[n] = sum_check(f"usp_nsa summed {n}", got, w.float(), "bfloat16")
+    ms = [x["fwd_bwd_ms"] for x in ranks]
+    res = dict(
+        shape=(f"bf16 q [{NSA_SEQ}, {NSA_HQ}, {NSA_D}], k/v [{NSA_SEQ}, {NSA_HK}, {NSA_D}], "
+               f"documents of {NSA_DOC}; float32 parameters"),
+        settings=NSA_KW, ring=USP_NSA_R, ulysses=USP_NSA_U, ranks=ranks, summed_grads=summed,
+        fwd_bwd_ms_min=min(ms), fwd_bwd_ms_max=max(ms),
+        single_device_fwd_bwd_ms=time_ms(lambda: fwd_bwd(slice(0, NSA_HQ), slice(0, NSA_HK), whole),
+                                         warmup=1, samples=3),
+        launches=total, atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"],
+    )
+    emit({"phase": "usp_nsa", **res})
+    torch.cuda.empty_cache()
+    return res
+
+
 def deterministic_phase() -> dict:
     """ROADMAP C1: the backward is bitwise reproducible when asked. Two
     forward + backward runs at the train phase's attention shape through
@@ -3929,6 +4412,201 @@ def train_padded_phase(train: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --cp4: the CP baselines and MagiAttention's API end
+# to end on four cards of one host, the collectives over NCCL
+# ---------------------------------------------------------------------------
+
+LT_AXES = ("rp_out", "rp_in", "sp")
+# name -> (function of magiattention_tpu_torch.parallel, mesh, the data's
+# sharding axes, the ring dispatch (ring size, sharding) or None, kwargs);
+# a mesh is (axis names, shape), or ("loongtrain", (U, O, I), placement)
+CP4_RUNS = {
+    "ring_contig": ("ring_attn", (("cp",), (4,)), ("cp",), (4, "contig"), {"sharding": "contig"}),
+    "ring_zigzag": ("ring_attn", (("cp",), (4,)), ("cp",), (4, "zigzag"), {"sharding": "zigzag"}),
+    "ring_allgather_zigzag": ("ring_attn_allgather", (("cp",), (4,)), ("cp",), (4, "zigzag"),
+                              {"sharding": "zigzag"}),
+    "allgather": ("allgather_attn", (("cp",), (4,)), ("cp",), None, {}),
+    "ulysses": ("ulysses_attn", (("cp",), (4,)), ("cp",), None, {}),
+    "usp_r2u2": ("usp_attn", (("rp", "sp"), (2, 2)), ("rp", "sp"), None, {}),
+    "loongtrain_o2i2_zigzag": ("loongtrain_attn", (LT_AXES[:2], (2, 2)), LT_AXES[:2], (4, "zigzag"),
+                               {"sharding": "zigzag"}),
+    "loongtrain_o1i2u2_head_first": ("loongtrain_attn", ("loongtrain", (2, 1, 2), "head_first"),
+                                     LT_AXES, (2, "zigzag"), {"ulysses_axis": "sp"}),
+    "loongtrain_o1i2u2_context_first": ("loongtrain_attn", ("loongtrain", (2, 1, 2), "context_first"),
+                                        LT_AXES, (2, "zigzag"), {"ulysses_axis": "sp"}),
+    "hybrid_o2i2": ("hybrid_cp_attn", (("cp_inter", "cp_intra"), (2, 2)), ("cp_inter", "cp_intra"),
+                    None, {}),
+}
+
+
+def _cp4_mesh(spec):
+    from magiattention_tpu_torch.parallel import ProcessMesh, make_loongtrain_mesh
+
+    if spec[0] == "loongtrain":
+        (u, o, i), placement = spec[1], spec[2]
+        return make_loongtrain_mesh(None, u, o, i, placement)
+    names, shape = spec
+    return ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape), names)
+
+
+def _world_ms(step, on_card: bool, warmup: int = 3, samples: int = 10) -> list[float]:
+    """Every rank's median ms of ``step()`` (CUDA events on the card), the
+    ranks leaving a barrier together before each sample."""
+    import torch
+    import torch.distributed as dist
+
+    if not on_card:  # a rehearsal on the CPU measures nothing
+        step()
+        return [0.0] * dist.get_world_size()
+    for _ in range(warmup):
+        step()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(samples):
+        dist.barrier()
+        torch.cuda.synchronize()
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    mine = torch.tensor([statistics.median(times)], device="cuda")
+    every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return [t.item() for t in every]
+
+
+def cp4_run(device: str, seq: int) -> dict:
+    """One rank's part of ``--cp4``: each baseline of ``CP4_RUNS`` and
+    MagiAttention's API at cp 4 on both of ``cp_baselines``' masks, fwd+bwd
+    on this rank's shard through the distributed entry point; out, lse and
+    the gradients of its shard against the single-device ``ffa_attn`` on
+    the whole (bf16 gates), and every rank's step ms."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api, parallel
+    from magiattention_tpu_torch.kernels.ffa import ffa_attn
+    from magiattention_tpu_torch.parallel._utils import zigzag_perm
+
+    on_card = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(29)
+    shapes = ((seq, CP_HQ, CP_D), (seq, CP_HK, CP_D), (seq, CP_HK, CP_D))
+    q, k, v = (torch.randn(sh, generator=gen, device=device).to(torch.bfloat16) for sh in shapes)
+    do = (torch.randn(shapes[0], generator=gen, device=device) / 4).to(torch.bfloat16)
+    meshes, res = {}, {}
+    for mask, (docs, types_) in CPB_MASKS.items():
+        docs = [[a * seq // CP_SEQ, b * seq // CP_SEQ] for a, b in docs]
+        qr, types = np.array(docs), np.array(types_)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out_ref, lse_ref = ffa_attn(*leaves, qr, qr, types)
+        want_full = (out_ref.detach(), lse_ref, *torch.autograd.grad(out_ref, leaves, do))
+        runs = {}
+        for name, (fn, spec, axes, dispatch, kw) in CP4_RUNS.items():
+            if repr(spec) not in meshes:
+                meshes[repr(spec)] = _cp4_mesh(spec)
+            mesh = meshes[repr(spec)]
+            perm = torch.as_tensor(
+                zigzag_perm(seq, dispatch[0]) if dispatch and dispatch[1] == "zigzag" else np.arange(seq),
+                device=device,
+            )
+
+            def shard(x, mesh=mesh, axes=axes, perm=perm):
+                return parallel.local_shard(x[perm], mesh, axes)
+
+            q_s, k_s, v_s, do_s = (shard(t) for t in (q, k, v, do))
+
+            def step(fn=fn, mesh=mesh, kw=kw, q_s=q_s, k_s=k_s, v_s=v_s, do_s=do_s):
+                ls = [t.detach().requires_grad_(True) for t in (q_s, k_s, v_s)]
+                out, lse = getattr(parallel, fn)(*ls, qr, qr, types, mesh, **kw)
+                return (out, lse, *torch.autograd.grad(out, ls, do_s))
+
+            got = step()
+            err = {n: grad_check(f"cp4 {mask} {name} {n}", a.float(), shard(b).float(), "bfloat16")
+                   for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want_full)}
+            runs[name] = dict(errors=err, fwd_bwd_ms=_world_ms(step, on_card))
+            del got
+        # MagiAttention's own: the API at cp 4 (default config, chunks of 512)
+        key = api.magi_attn_flex_key(docs, docs, list(types_), seq, seq, cp_group=dist.group.WORLD,
+                                     device=device, chunk_size=min(512, seq // 8))
+        q_d, do_d = api.dispatch(q, key), api.dispatch(do, key)
+        k_d, v_d = api.dispatch(k, key, role="kv"), api.dispatch(v, key, role="kv")
+
+        def magi_step():
+            ls = [t.detach().requires_grad_(True) for t in (q_d, k_d, v_d)]
+            out, meta = api.calc_attn(*ls, key)
+            return (out, meta.lse, *torch.autograd.grad(out, ls, do_d))
+
+        got = magi_step()
+        want = (api.dispatch(want_full[0], key), api.dispatch(want_full[1], key),
+                api.dispatch(want_full[2], key), api.dispatch(want_full[3], key, role="kv"),
+                api.dispatch(want_full[4], key, role="kv"))
+        err = {n: grad_check(f"cp4 {mask} magi {n}", a.float(), b.float(), "bfloat16")
+               for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want)}
+        runs["magi_api"] = dict(errors=err, fwd_bwd_ms=_world_ms(magi_step, on_card))
+        res[mask] = dict(runs=runs, single_device_fwd_bwd_ms=_world_ms(
+            lambda: torch.autograd.grad(ffa_attn(*leaves, qr, qr, types)[0], leaves, do), on_card))
+        del want_full, out_ref, leaves
+    return res
+
+
+def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
+    """One process of ``--cp4`` (NCCL on card ``rank``; gloo on the CPU in
+    a rehearsal): rank 0 prints the results."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl" if on_card else "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=CPB_WORLD, timeout=datetime.timedelta(seconds=300),
+        **({"device_id": torch.device("cuda", rank)} if on_card else {}),
+    )
+    try:
+        res = cp4_run(device, seq)
+        if rank == 0:
+            emit({"phase": "cp4", "world": CPB_WORLD, "backend": dist.get_backend(),
+                  "shape": f"bf16 q [{seq}, {CP_HQ}, {CP_D}], k/v [{seq}, {CP_HK}, {CP_D}]",
+                  **res, "atol": ATOL["bfloat16"], "rnorm": RNORM["bfloat16"]})
+        dist.barrier()  # leave together
+    finally:
+        dist.destroy_process_group()
+
+
+def cp4_main(device: str = "cuda", seq: int = CP_SEQ) -> int:
+    """Spawn the four processes of ``--cp4`` on a free local port."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    if device == "cuda":
+        if torch.cuda.device_count() < CPB_WORLD:
+            print(f"chip_smoke --cp4: needs {CPB_WORLD} cards", file=sys.stderr)
+            return 1
+        from magiattention_tpu_torch.kernels import _build
+
+        _build.build_all(_build.SOURCES)  # once, before the ranks load them
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(cp4_worker, args=(port, device, seq), nprocs=CPB_WORLD,
+                       start_method="spawn", join=True)
+    if device == "cuda":
+        for i in range(CPB_WORLD):
+            print(subprocess.run(
+                ["nvidia-smi", "-i", str(i), "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                check=True, capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+    return 0
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
     return {
         "name": name, "route": "cuda",
@@ -3941,6 +4619,8 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, r: dict) 
 
 
 def main() -> int:
+    if "--cp4" in sys.argv[1:]:
+        return cp4_main()
     try:
         import torch
     except ImportError:
@@ -3999,20 +4679,24 @@ def main() -> int:
     deterministic_phase()
     cp_stages_phase()
     qo = qo_comm_phase(cp_api)["launches"]
+    cpb = cp_baselines_phase()["launches"]
     train = train_phase()
     train_padded_phase(train)
     d256_phase(peaks)
     hybrid_d256_phase(peaks)
     bsp = block_sparse_phase(peaks)["slice_g4_d128_bf16_ds16"]
     nsa = nsa_phase()
+    usp = usp_nsa_phase()["launches"]
 
     t = bwd["d_train_docs_8192_bf16"]
-    # the launches of each kernel on the main paths (serving, train) plus
-    # those of the qo-comm path (qo_comm phase)
+    # the launches of each kernel on the main paths (serving, train, nsa)
+    # plus those of the qo-comm path (qo_comm phase), the CP baselines'
+    # rank bodies (cp_baselines) and usp_nsa_attn's (usp_nsa)
+    extra = {k_: qo.get(k_, 0) + cpb.get(k_, 0) + usp.get(k_, 0) for k_ in {*qo, *cpb, *usp}}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body
             "ffa_fwd", "ffa_fwd_tf32.cuh", "magiattention_tpu/kernels/ffa.py:251",
-            serve["kernel_launches"]["ffa_fwd"] + qo.get("ffa_fwd", 0), ffa[0],
+            serve["kernel_launches"]["ffa_fwd"] + extra.get("ffa_fwd", 0), ffa[0],
         ),
         kernel_entry(
             "paged_decode", "paged_decode.cu",
@@ -4022,41 +4706,41 @@ def main() -> int:
         kernel_entry(
             "ffa_bwd_delta", "ffa_bwd_delta.cu",
             "magiattention_tpu/kernels/ffa.py:1722",
-            train["launches"]["ffa_bwd_delta"] + qo.get("ffa_bwd_delta", 0), t["ffa_bwd_delta"],
+            train["launches"]["ffa_bwd_delta"] + extra.get("ffa_bwd_delta", 0), t["ffa_bwd_delta"],
         ),
         # the train shape's rows are bf16: their sources are the
         # tensor-core bodies (entries ffa_bwd_dq.cu, ffa_bwd_dkv.cu,
         # ffa_bwd_fused.cu, ffa_fwd_gqa.cu, ffa_bwd_dq_gqa.cu)
         kernel_entry(
             "ffa_bwd_dq", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:751",
-            train["split_launches"]["ffa_bwd_dq"] + qo.get("ffa_bwd_dq", 0), t["ffa_bwd_dq"],
+            train["split_launches"]["ffa_bwd_dq"] + extra.get("ffa_bwd_dq", 0), t["ffa_bwd_dq"],
         ),
         kernel_entry(
             "ffa_bwd_dkv", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1208",
-            train["split_launches"]["ffa_bwd_dkv"] + qo.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
+            train["split_launches"]["ffa_bwd_dkv"] + extra.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B6)
             "ffa_bwd_dkv (gqa)", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1451",
-            train["split_launches"]["ffa_bwd_dkv"] + qo.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
+            train["split_launches"]["ffa_bwd_dkv"] + extra.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
         ),
         kernel_entry(
             "ffa_bwd_fused", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1780",
-            train["launches"]["ffa_bwd_fused"] + qo.get("ffa_bwd_fused", 0),
+            train["launches"]["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
             fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B9)
             "ffa_bwd_fused (gqa)", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:2082",
-            train["launches"]["ffa_bwd_fused"] + qo.get("ffa_bwd_fused", 0),
+            train["launches"]["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
             fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(
             "ffa_fwd_gqa", "ffa_fwd_tc.cuh", "magiattention_tpu/kernels/ffa.py:490",
-            train["packed_launches"]["ffa_fwd_gqa"] + qo.get("ffa_fwd_gqa", 0),
+            train["packed_launches"]["ffa_fwd_gqa"] + extra.get("ffa_fwd_gqa", 0),
             fwd_gqa["a_docs_bf16_d128_g4"],
         ),
         kernel_entry(
             "ffa_bwd_dq_gqa", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:944",
-            train["packed_launches"]["ffa_bwd_dq_gqa"] + qo.get("ffa_bwd_dq_gqa", 0),
+            train["packed_launches"]["ffa_bwd_dq_gqa"] + extra.get("ffa_bwd_dq_gqa", 0),
             dq_gqa["a_docs_bf16_d128_g4"],
         ),
         kernel_entry(  # serve_spec's shape: float32, 4 draft rows x g 4
@@ -4074,12 +4758,13 @@ def main() -> int:
         kernel_entry(
             "block_sparse_fwd", "block_sparse_tc.cuh",
             "magiattention_tpu/kernels/block_sparse.py:76",
-            nsa["launches"]["block_sparse_fwd"], bsp["block_sparse_fwd"],
+            nsa["launches"]["block_sparse_fwd"] + extra.get("block_sparse_fwd", 0), bsp["block_sparse_fwd"],
         ),
         kernel_entry(  # B14's two launches (dq walk, dk/dv walk), summed
             "block_sparse_bwd", "block_sparse_tc.cuh",
             "magiattention_tpu/kernels/block_sparse.py:210",
-            nsa["launches"]["block_sparse_bwd_dq"] + nsa["launches"]["block_sparse_bwd_dkv"],
+            nsa["launches"]["block_sparse_bwd_dq"] + nsa["launches"]["block_sparse_bwd_dkv"]
+            + extra.get("block_sparse_bwd_dq", 0) + extra.get("block_sparse_bwd_dkv", 0),
             bsp["block_sparse_bwd"],
         ),
     ]})

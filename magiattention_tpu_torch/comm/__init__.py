@@ -1,4 +1,6 @@
-"""Group collectives over ``torch.distributed``."""
+"""Group collectives over ``torch.distributed``: the CP runtime's
+GroupCast/GroupReduce (:mod:`.primitives`) and the baselines'
+differentiable subgroup collectives (:mod:`.functional`)."""
 
 from .primitives import (  # noqa: F401
     CastPlan,

@@ -19,8 +19,8 @@ the geometry is feasible, unless MAGI_ATTENTION_BACKEND_NSA_SLC pins
 ``gathered_dense`` (the take-and-dense-softmax reference, under autograd);
 the win branch is the FFA kernels (``kernels.ffa.ffa_attn`` over diagonal
 bands: B1, B7 and the fused or split backward). CPU tensors take every
-kernel's plain version. The distributed ``usp_nsa_attn`` is not ported
-(ROADMAP queue A).
+kernel's plain version. :func:`usp_nsa_attn` is the USP-sharded NSA over
+a :class:`._mesh.ProcessMesh`.
 """
 
 from __future__ import annotations
@@ -31,11 +31,13 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..comm.functional import all_gather, all_to_all
 from ..device import resolve_device
 from ..env import backend as env_backend
 from ..kernels.block_sparse import NUM_LANES, block_sparse_attn, modeled_slc_bytes
 from ..kernels.ffa import ffa_attn
 from ..kernels.mask_utils import BAND_INF
+from ._mesh import ProcessMesh
 
 NEG_INF = float("-inf")
 PARAM_NAMES = ("w_cmp_k", "b_cmp_k", "w_cmp_v", "b_cmp_v", "w_gate", "b_gate")
@@ -298,3 +300,44 @@ def nsa_attn(
         + gate[..., 2:3] * out_win
     )
     return (out, idx) if return_selection else out
+
+
+def usp_nsa_attn(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    params: dict,
+    cu_seqlens: list[int],
+    mesh: ProcessMesh,
+    ring_axis: str = "rp",
+    ulysses_axis: str = "sp",
+    **nsa_kwargs,
+) -> torch.Tensor:
+    """USP-sharded NSA (ref usp_nsa.py:747 USPAllGatherNSA).
+
+    q/k/v: this process's ``(S / (R * U), h, dh)`` shard of the natural
+    order under ``P((ring_axis, ulysses_axis))``. The ulysses all-to-all
+    turns it into head shards, a ring all-gather makes the whole sequence
+    of them, and every rank computes :func:`nsa_attn` for its head subset
+    over the whole sequence, then keeps its ring block's rows and returns
+    them to sequence shards by the inverse all-to-all. Like the reference,
+    every ring rank computes every query of its heads: R-fold redundant.
+
+    ``params`` are replicated (the gate and compressors act per head
+    dimension). Each process's parameter gradients are its partial: their
+    ``all_reduce(SUM)`` over the mesh equals the single-device gradient, as
+    the trainer sums its gradients. q/k/v's gradients come back to their
+    shards through the collectives' adjoints (reduce-scatter, inverse
+    all-to-all). Returns this process's ``(S / (R * U), hq, dh)`` rows.
+    """
+    hq, hk = q.shape[1], k.shape[1]
+    U = mesh.shape[ulysses_axis]
+    if hq % U or hk % U:
+        raise ValueError(f"usp_nsa needs heads divisible by U ({hq}, {hk}, {U})")
+    ug, rg = mesh.group(ulysses_axis), mesh.group(ring_axis)
+    # (S / (R * U), h) -> (S / R, h / U) -> the whole sequence, h / U
+    full = [all_gather(all_to_all(t, ug, 1, 0), rg) for t in (q, k, v)]
+    out = nsa_attn(*full, params, cu_seqlens, **nsa_kwargs)
+    blk = out.shape[0] // mesh.shape[ring_axis]
+    r = mesh.coord(ring_axis)
+    return all_to_all(out[r * blk:(r + 1) * blk], ug, 0, 1)

@@ -74,6 +74,14 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.kernels.block_sparse",
         "magiattention_tpu_torch.parallel",
         "magiattention_tpu_torch.parallel.nsa",
+        "magiattention_tpu_torch.parallel._mesh",
+        "magiattention_tpu_torch.parallel._utils",
+        "magiattention_tpu_torch.parallel.ring",
+        "magiattention_tpu_torch.parallel.ulysses",
+        "magiattention_tpu_torch.parallel.usp",
+        "magiattention_tpu_torch.parallel.loongtrain",
+        "magiattention_tpu_torch.parallel.hybrid",
+        "magiattention_tpu_torch.comm.functional",
         "magiattention_tpu_torch.functional.dynamic_dist_attn",
         "magiattention_tpu_torch.functional.roll",
         "magiattention_tpu_torch.common.range_op",

@@ -500,3 +500,211 @@ def llama_cp_worker(rank: int, world: int, init_file: str, out_dir: str, tree: d
         dist.barrier()  # leave together: no rank closes a peer's open connections
     finally:
         dist.destroy_process_group()
+
+
+# the CP baselines (tests/test_torch_baselines.py): the JAX package's
+# tests/test_parallel/test_baselines.py shapes, with GQA 2 and 8 q heads
+# so that every head split keeps whole groups
+BASE_SEQ, BASE_HQ, BASE_HK, BASE_D = 256, 8, 4, 32
+BASE_MASKS = {
+    "full": ([[0, BASE_SEQ]], [[0, BASE_SEQ]], [0]),
+    "causal": ([[0, BASE_SEQ]], [[0, BASE_SEQ]], [1]),
+    "varlen_causal": ([[0, 96], [96, 160], [160, BASE_SEQ]],) * 2 + ([1, 1, 1],),
+}
+# name -> (function of magiattention_tpu_torch.parallel, mesh, the data's
+# sharding axes, the ring dispatch (ring size, sharding) or None, kwargs);
+# a mesh is (axis names, shape), or ("loongtrain", (U, O, I), placement)
+LT_AXES = ("rp_out", "rp_in", "sp")
+BASELINES = {
+    "ring_zigzag": ("ring_attn", (("cp",), (4,)), ("cp",), (4, "zigzag"), {"sharding": "zigzag"}),
+    "ring_contig": ("ring_attn", (("cp",), (4,)), ("cp",), (4, "contig"), {"sharding": "contig"}),
+    "ring_ag_zigzag": ("ring_attn_allgather", (("cp",), (4,)), ("cp",), (4, "zigzag"),
+                       {"sharding": "zigzag"}),
+    "ring_ag_contig": ("ring_attn_allgather", (("cp",), (4,)), ("cp",), (4, "contig"),
+                       {"sharding": "contig"}),
+    "ulysses": ("ulysses_attn", (("cp",), (4,)), ("cp",), None, {}),
+    "usp": ("usp_attn", (("rp", "sp"), (2, 2)), ("rp", "sp"), None, {}),
+    "loongtrain_zigzag": ("loongtrain_attn", (LT_AXES[:2], (2, 2)), LT_AXES[:2], (4, "zigzag"),
+                          {"sharding": "zigzag"}),
+    "loongtrain_contig": ("loongtrain_attn", (LT_AXES[:2], (2, 2)), LT_AXES[:2], (4, "contig"),
+                          {"sharding": "contig"}),
+    "loongtrain_2d_head_first": ("loongtrain_attn", ("loongtrain", (2, 1, 2), "head_first"), LT_AXES,
+                                 (2, "zigzag"), {"ulysses_axis": "sp"}),
+    "loongtrain_2d_context_first": ("loongtrain_attn", ("loongtrain", (2, 1, 2), "context_first"),
+                                    LT_AXES, (2, "zigzag"), {"ulysses_axis": "sp"}),
+    "hybrid": ("hybrid_cp_attn", (("cp_inter", "cp_intra"), (2, 2)), ("cp_inter", "cp_intra"), None, {}),
+    "allgather": ("allgather_attn", (("cp",), (4,)), ("cp",), None, {}),
+}
+
+
+def base_inputs(seed: int):
+    """float32 q, k, v and dO of the baseline cases, natural order."""
+    q, k, v = qkv(np.random.default_rng(seed), BASE_SEQ, BASE_SEQ, BASE_HQ, BASE_HK, BASE_D)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    return q, k, v, do
+
+
+def dispatch_perm(dispatch) -> np.ndarray:
+    """The natural rows of the dispatched layout (``ring_dispatch``'s)."""
+    if dispatch is None or dispatch[1] == "contig":
+        return np.arange(BASE_SEQ)
+    from magiattention_tpu_torch.parallel._utils import zigzag_perm
+
+    return zigzag_perm(BASE_SEQ, dispatch[0])
+
+
+def port_mesh(spec, cache: dict):
+    """The port's mesh of a case's spec over the world, made once."""
+    from magiattention_tpu_torch.parallel import ProcessMesh, make_loongtrain_mesh
+
+    key = repr(spec)
+    if key not in cache:
+        if spec[0] == "loongtrain":
+            (u, o, i), placement = spec[1], spec[2]
+            cache[key] = make_loongtrain_mesh(None, u, o, i, placement)
+        else:
+            names, shape = spec
+            cache[key] = ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape), names)
+    return cache[key]
+
+
+def baselines_worker(rank: int, world: int, init_file: str, out_dir: str, cases: list) -> None:
+    """One rank of the gloo group: each (baseline, mask) case through the
+    port's function on this process's shard, forward and the backward of
+    ``sum(out * dO)``; its shard index, out, lse, dq, dk, dv to
+    ``out_dir/<baseline>_<mask>_<rank>.npz``. Then the collectives'
+    adjoint checks over two subgroups to ``out_dir/adjoint_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import parallel
+
+    meshes: dict = {}
+    try:
+        for name, mask in cases:
+            fn, spec, axes, dispatch, kw = BASELINES[name]
+            mesh = port_mesh(spec, meshes)
+            perm = torch.from_numpy(dispatch_perm(dispatch))
+            q, k, v, do = (
+                parallel.local_shard(torch.from_numpy(a)[perm], mesh, axes)
+                for a in base_inputs(len(mask))
+            )
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out, lse = getattr(parallel, fn)(*leaves, *BASE_MASKS[mask], mesh, **kw)
+            (out * do).sum().backward()
+            np.savez(
+                os.path.join(out_dir, f"{name}_{mask}_{rank}.npz"), index=mesh.index(axes),
+                out=out.detach().numpy(), lse=lse.numpy(), dq=leaves[0].grad.numpy(),
+                dk=leaves[1].grad.numpy(), dv=leaves[2].grad.numpy(),
+            )
+        np.savez(os.path.join(out_dir, f"adjoint_{rank}.npz"), **adjoint_checks(rank))
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+def adjoint_checks(rank: int) -> dict:
+    """<op(x), y> and <x, op^T(y)> of every collective of
+    ``comm.functional`` (op^T by autograd: the grad of <op(x), y> in x),
+    each summed over the world, on a (2, 2) mesh: over the fast axis
+    (subgroups {0, 1}, {2, 3}) and the slow one ({0, 2}, {1, 3})."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch.comm import functional as F
+    from magiattention_tpu_torch.parallel import ProcessMesh
+
+    mesh = ProcessMesh(np.arange(4).reshape(2, 2), ("a", "b"))
+    rng = np.random.default_rng(100 + rank)
+    res = {}
+
+    def pair(name, op, x):
+        xg = torch.from_numpy(x).requires_grad_(True)
+        y_shape = op(xg.detach())
+        y = torch.from_numpy(rng.standard_normal(tuple(y_shape.shape)).astype(np.float64))
+        fwd = (op(xg) * y).sum()
+        fwd.backward()
+        both = torch.stack([fwd.detach(), (xg * xg.grad).sum().detach()])
+        dist.all_reduce(both)
+        res[name] = both.numpy()
+
+    for axis in ("a", "b"):
+        g, line, c = mesh.group(axis), mesh.line(axis), mesh.coord(axis)
+        x = rng.standard_normal((8, 4, 3))
+        pair(f"a2a_10_{axis}", lambda t: F.all_to_all(t, g, 1, 0), x)
+        pair(f"a2a_01_{axis}", lambda t: F.all_to_all(t, g, 0, 1), x)
+        pair(f"gather_{axis}", lambda t: F.all_gather(t, g), x)
+
+        def ring(t, g=g, line=line, c=c):
+            bufs, waits = F.ring_pass((t, 2 * t), F.ring_hops(2, line, c, g))
+            for w in waits[1:]:
+                w()
+            return torch.cat([b for bs in bufs for b in bs])
+
+        pair(f"ring_{axis}", ring, x)
+
+    def double_ring(t):  # LoongTrain's double ring on the (2, 2) mesh
+        from magiattention_tpu_torch.parallel.loongtrain import double_ring_hops
+
+        (bufs,), waits = F.ring_pass((t,), double_ring_hops(mesh, "a", "b"))
+        for w in waits[1:]:
+            w()
+        return torch.cat(bufs)
+
+    pair("double_ring", double_ring, rng.standard_normal((8, 4, 3)))
+    return res
+
+
+# usp_nsa_attn (tests/test_torch_usp_nsa.py): the JAX package's
+# tests/test_parallel/test_nsa.py shapes on a (ring 2, ulysses 2) mesh
+NSA_SEQ, NSA_HQ, NSA_HK, NSA_D = 256, 4, 2, 32
+NSA_CU = [0, 128, 256]
+NSA_KW = dict(l_cmp=16, l_slc=32, d_stride=16, block_size_q=16, slc_top_k=2, window=(32, 0),
+              causal=True)
+
+
+def nsa_inputs(seed: int = 0):
+    """float32 q, k, v and dO of the usp_nsa case, natural order."""
+    q, k, v = qkv(np.random.default_rng(seed), NSA_SEQ, NSA_SEQ, NSA_HQ, NSA_HK, NSA_D)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    return q, k, v, do
+
+
+def usp_nsa_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) -> None:
+    """One rank of the gloo group: ``usp_nsa_attn`` on a (rp 2, sp 2)
+    mesh over the JAX parameters ``tree`` (numpy), forward and the
+    backward of ``sum(out * dO)``, the parameter gradients all-reduced
+    (SUM) over the world; shard index, out and every gradient to
+    ``out_dir/usp_nsa_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch.parallel import ProcessMesh, local_shard, params_from_numpy, usp_nsa_attn
+
+    try:
+        mesh = ProcessMesh(np.arange(4).reshape(2, 2), ("rp", "sp"))
+        axes = ("rp", "sp")
+        q, k, v, do = (local_shard(torch.from_numpy(a), mesh, axes) for a in nsa_inputs())
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        params = {n: p.requires_grad_(True) for n, p in params_from_numpy(tree, "cpu").items()}
+        out = usp_nsa_attn(*leaves, params, NSA_CU, mesh, **NSA_KW)
+        (out * do).sum().backward()
+        grads = {f"g_{n}": p.grad for n, p in params.items()}
+        for g in grads.values():
+            dist.all_reduce(g)
+        np.savez(
+            os.path.join(out_dir, f"usp_nsa_{rank}.npz"), index=mesh.index(axes),
+            out=out.detach().numpy(), dq=leaves[0].grad.numpy(), dk=leaves[1].grad.numpy(),
+            dv=leaves[2].grad.numpy(), **{n: g.numpy() for n, g in grads.items()},
+        )
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
