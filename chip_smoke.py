@@ -109,7 +109,19 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    all-gather, all-gather, Ulysses, USP, two LoongTrain meshes, HybridCP)
    at a world of 4 on this card, with MagiAttention's own cp 4 plan
    beside them, on two masks: out, lse and the summed gradients against
-   the plain dense reference, empty parts, per-rank ms.
+   the plain dense reference, empty parts, per-rank ms. ``cp_hier_tp``:
+   four processes on this card over gloo run the API at the train
+   attention shape on the same masks: (dcn 2, ici 2) under
+   MAGI_ATTENTION_HIERARCHICAL_COMM=1 against the flat cast (every
+   stage's receive buffer, out and lse equal to the bit; gradients in the
+   bf16 gates of the flat run and of the single-device ``ffa_attn``;
+   ``dcn_rows`` beside the flat cast's cross-node rows), both casts under
+   MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE=1 (the forward sends bf16,
+   out unchanged to the bit), and (cp 2, tp 2) with ``head_axis`` (16 q
+   and 4 kv heads a process against ``ffa_attn`` on those heads, one
+   solve a process); then ``fa3_func_with_sink`` and
+   ``fa3_varlen_func_with_sink`` (causal, a 4096-token window, a sink)
+   against their ``sdpa`` versions; launch counts, the slowest rank's ms.
 10. ``train``: ``models.llama.train_step`` through the API at
     Llama-3.1-8B widths, depth cut to 2 layers, bf16 over float32 master
     weights, 8192 packed tokens in two causal documents: 3 SGD steps
@@ -123,7 +135,8 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     the pad rows' attention 0.
 11. ``d256_kernels``: each family's 256 instance (the column split) timed
     against its plain version and bound: B1 bf16 at Gemma-2-9B's attention
-    against SDPA, B1 float32 at the serving prefill shape, B3 + B5 and B8
+    against SDPA with B2 (packed, 2 heads a CTA) on the same inputs, B1
+    float32 at the serving prefill shape, B3 + B5 and B8
     against SDPA's backward alone (``bwd_mode``'s rule held at d 256), B10
     on 8 slots in both dtypes. ``hybrid_d256``: Gemma-2-9B attention
     (softcap 50) through the API, the global causal dispatch key and its
@@ -145,7 +158,8 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     parameters' all-reduced) summed, per-rank ms.
 13. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase plus qo_comm, cp_baselines and usp_nsa, error,
-    kernel / plain / library time and the card's bound).
+    kernel / plain / library time and the card's bound; launches also
+    from cp_hier_tp).
 
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -153,7 +167,9 @@ the last line is ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --cp4`` needs four cards of one host and runs
 ``cp4`` alone: every baseline of ``cp_baselines`` (and LoongTrain's
 context-first placement) and MagiAttention's API at cp 4 through their
-entry points, one process per card, the collectives over NCCL; each
+entry points, with the API's two-level run at (dcn 2, ici 2) and TP run
+at (cp 2, tp 2) beside the flat one, one process per card, the
+collectives over NCCL; each
 rank's shard of out, lse and the gradients against the single-device
 ``ffa_attn`` (bf16 gates) and every rank's fwd+bwd ms, then the four
 cards' ``name, power.limit`` lines and the same last line.
@@ -3155,6 +3171,425 @@ def cp_baselines_phase() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# cp_hier_tp: two-level comm, TP over heads and the high-precision reduce
+# through the API, four processes on this one card over gloo (gloo stages
+# CUDA tensors through the host; NCCL puts no two ranks on one card); the
+# sink drop-ins of extensions/ in this process
+# ---------------------------------------------------------------------------
+
+HT_WORLD, HT_CHUNK = 4, 512
+HIER_ENV = {"MAGI_ATTENTION_HIERARCHICAL_COMM": "1"}
+HP_ENV = {"MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE": "1"}
+PAIR = ("dcn", "ici")
+
+
+def ht_meshes():
+    """The (dcn 2, ici 2) mesh and the (cp 2, tp 2) mesh over ranks 0-3
+    (every process builds both, in this order: ``new_group`` is
+    collective)."""
+    from magiattention_tpu_torch.parallel import ProcessMesh
+
+    return (ProcessMesh(np.arange(4).reshape(2, 2), PAIR),
+            ProcessMesh(np.arange(4).reshape(2, 2), ("cp", "tp")))
+
+
+def ht_key(docs, types, env: dict, device: str = "cuda", **kw):
+    """A key of the mask built under ``env`` (the key reads the flags)."""
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.env.general import scoped_env
+
+    seq = docs[-1][1]
+    with scoped_env(env):
+        return api.magi_attn_flex_key(docs, docs, list(types), seq, seq, device=device,
+                                      chunk_size=min(HT_CHUNK, seq // 8), **kw)
+
+
+class HTCase:
+    """One key's run on this rank: its dispatched rows of the heads given,
+    ``step()`` (calc_attn forward and backward under ``env``: out, lse,
+    dq, dk, dv), ``forward()`` (out alone) and ``want``, the
+    single-device result in the same rows and heads."""
+
+    def __init__(self, key, env: dict, inputs, want_full, heads=slice(None), kv_heads=slice(None)):
+        from magiattention_tpu_torch import api
+
+        q, k, v, do = (x[:, h] for x, h in zip(inputs, (heads, kv_heads, kv_heads, heads)))
+        self.key, self.env = key, env
+        self.q, self.do = api.dispatch(q, key), api.dispatch(do, key)
+        self.k, self.v = api.dispatch(k, key, role="kv"), api.dispatch(v, key, role="kv")
+        o, lse, dq, dk, dv = want_full
+        self.want = (api.dispatch(o[:, heads], key), api.dispatch(lse[:, heads], key),
+                     api.dispatch(dq[:, heads], key), api.dispatch(dk[:, kv_heads], key, role="kv"),
+                     api.dispatch(dv[:, kv_heads], key, role="kv"))
+
+    def step(self):
+        import torch
+
+        from magiattention_tpu_torch import api
+        from magiattention_tpu_torch.env.general import scoped_env
+
+        with scoped_env(self.env):
+            ls = [t.detach().requires_grad_(True) for t in (self.q, self.k, self.v)]
+            out, meta = api.calc_attn(*ls, self.key)
+            return (out, meta.lse, *torch.autograd.grad(out, ls, self.do))
+
+    def forward(self):
+        import torch
+
+        from magiattention_tpu_torch import api
+        from magiattention_tpu_torch.env.general import scoped_env
+
+        with scoped_env(self.env), torch.no_grad():
+            return api.calc_attn(self.q, self.k, self.v, self.key)[0]
+
+
+def ht_check(what: str, got, want) -> dict:
+    return {n: grad_check(f"{what} {n}", a.float(), b.float(), "bfloat16")
+            for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want)}
+
+
+def ht_reference(inputs, qr, types):
+    """The single-device ``ffa_attn`` on the whole problem: out, lse and
+    the gradients of sum(out * dO)."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import ffa_attn
+
+    q, k, v, do = inputs
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out, lse = ffa_attn(*leaves, qr, qr, types)
+    return (out.detach(), lse, *torch.autograd.grad(out, leaves, do))
+
+
+def ht_inputs(seed: int, seq: int = CP_SEQ, device: str = "cuda"):
+    """bf16 q, k, v and dO at the train attention shape (float32 in a CPU
+    rehearsal, whose plain versions are float32 references)."""
+    import torch
+
+    dt = torch.bfloat16 if device == "cuda" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = ((seq, CP_HQ, CP_D), (seq, CP_HK, CP_D), (seq, CP_HK, CP_D))
+    q, k, v = (torch.randn(sh, generator=gen, device=device).to(dt) for sh in shapes)
+    do = (torch.randn(shapes[0], generator=gen, device=device) / 4).to(dt)
+    return q, k, v, do
+
+
+def wire_dtypes(fn) -> tuple[list[str], object]:
+    """``fn()`` with every ``all_to_all_single`` input's dtype logged."""
+    import torch.distributed as dist
+
+    log, a2a = [], dist.all_to_all_single
+
+    def rec(out, inp, *args, **kwargs):
+        log.append(str(inp.dtype).removeprefix("torch."))
+        return a2a(out, inp, *args, **kwargs)
+
+    dist.all_to_all_single = rec
+    try:
+        res = fn()
+    finally:
+        dist.all_to_all_single = a2a
+    return log, res
+
+
+def counted(fn, on_card: bool = True) -> tuple[dict, object]:
+    """``fn()`` with the launch counts zeroed just before and read just
+    after; on the card no plain version may run."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+
+    if on_card:
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    res = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    if on_card and any(counts[p] for p in PLAIN_NAMES):
+        raise AssertionError(f"a plain version ran: {counts}")
+    return {k: c for k, c in counts.items() if c}, res
+
+
+def cross_node_rows(stages, n_inner: int) -> list[int]:
+    """Per stage, the rows the flat cast sends between ranks of different
+    nodes (each once per destination rank)."""
+    cp = len(stages[0].transfer_table) if stages else 0
+    return [sum(s.transfer_table[d][src].total_seqlen for d in range(cp) for src in range(cp)
+                if d // n_inner != src // n_inner) for s in stages]
+
+
+def cp_hier_tp_rank(rank: int, device: str = "cuda", seq: int = CP_SEQ) -> dict:
+    """One rank of ``cp_hier_tp`` on both of ``cp_baselines``' masks:
+    (a) the flat and the two-level cast at (dcn 2, ici 2): every stage's
+    receive buffer equal to the bit, out and lse equal to the bit, the
+    gradients within the bf16 gates of the flat run's and of the
+    single-device ``ffa_attn``'s, ``dcn_rows`` beside the flat cast's
+    cross-node rows; (b) the high-precision reduce on both: the forward
+    sends bf16 and out is the run's without it, to the bit; (c) (cp 2,
+    tp 2): 16 q and 4 kv heads a process against ``ffa_attn`` on those
+    heads, the solves this process ran (one; a key without ``head_axis``
+    reuses it). Launch counts of the two-level and the TP run, fwd+bwd
+    ms of every rank. ``device="cpu"`` rehearses it (the plain versions,
+    nothing timed)."""
+    import torch
+
+    from magiattention_tpu_torch import dist_attn_runtime_mgr
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.comm.primitives import group_cast_all
+
+    solves, solve = [], dist_attn_runtime_mgr.make_attn_meta_from_dispatch_meta
+
+    def counted_solve(*args, **kwargs):
+        solves.append(1)
+        return solve(*args, **kwargs)
+
+    dist_attn_runtime_mgr.make_attn_meta_from_dispatch_meta = counted_solve
+    try:
+        on_card = device == "cuda"
+        mesh_h, mesh_t = ht_meshes()
+        inputs = ht_inputs(31, seq, device)
+        res = {}
+        for mask, (docs, types) in CPB_MASKS.items():
+            docs = [[a * seq // CP_SEQ, b * seq // CP_SEQ] for a, b in docs]
+            want_full = ht_reference(inputs, np.array(docs), np.array(types))
+            flat = HTCase(ht_key(docs, types, {}, device, mesh=mesh_h, cp_axis=PAIR), {}, inputs,
+                          want_full)
+            hier = HTCase(ht_key(docs, types, HIER_ENV, device, mesh=mesh_h, cp_axis=PAIR), HIER_ENV,
+                          inputs, want_full)
+            rt_f, rt_h = _mgr(flat.key).runtime, _mgr(hier.key).runtime
+            if rt_f.hier or not rt_h.hier:
+                raise AssertionError(f"cp_hier_tp {mask}: the runtimes did not take their paths")
+            # (a) the receive buffers, out and lse to the bit; gradients in the gates
+            kv = torch.cat([flat.k, flat.v], dim=-1)
+            bufs_equal = []
+            for p_f, p_h in zip(rt_f.cast_plans, rt_h.cast_plans):
+                (_, b_f), w_f = group_cast_all(kv, [p_f], rt_f.cast_group)
+                (_, b_h), w_h = group_cast_all(kv, [p_h], rt_h.cast_group)
+                w_f[0]()
+                w_h[0]()
+                bufs_equal.append(bool(torch.equal(b_f, b_h)))
+            if not bufs_equal or not all(bufs_equal):
+                raise AssertionError(f"cp_hier_tp {mask} rank {rank}: receive buffers {bufs_equal}")
+            got_f = flat.step()
+            launches_h, got_h = counted(hier.step, on_card)
+            if not (torch.equal(got_h[0], got_f[0]) and torch.equal(got_h[1], got_f[1])):
+                raise AssertionError(f"cp_hier_tp {mask} rank {rank}: two-level out/lse differ from flat")
+            err_h = ht_check(f"cp_hier_tp {mask} two-level vs dense", got_h, hier.want)
+            err_hf = ht_check(f"cp_hier_tp {mask} two-level vs flat", got_h, got_f)
+            stages = _mgr(hier.key).comm_meta.kv_stages
+            # (b) the high-precision reduce: bf16 on the forward's wire, out unchanged
+            hp = {}
+            for name, env, ref_out in (("flat", HP_ENV, got_f[0]), ("two_level", {**HIER_ENV, **HP_ENV},
+                                                                     got_h[0])):
+                case = HTCase(ht_key(docs, types, env, device, mesh=mesh_h, cp_axis=PAIR), env, inputs,
+                              want_full)
+                wires, out_hp = wire_dtypes(case.forward)
+                if set(wires) != {str(inputs[1].dtype).removeprefix("torch.")} or not torch.equal(
+                        out_hp, ref_out):
+                    raise AssertionError(f"cp_hier_tp {mask} hp {name} rank {rank}: wire {set(wires)}, "
+                                         f"out equal {torch.equal(out_hp, ref_out)}")
+                hp[name] = dict(forward_wire=sorted(set(wires)), transfers=len(wires), out_bitwise=True)
+                del case, out_hp
+            # (c) TP over heads at (cp 2, tp 2)
+            t = mesh_t.coord("tp")
+            heads = slice(t * CP_HQ // 2, (t + 1) * CP_HQ // 2)
+            kv_heads = slice(t * CP_HK // 2, (t + 1) * CP_HK // 2)
+            before = len(solves)
+            tp = HTCase(ht_key(docs, types, {}, device, mesh=mesh_t, cp_axis="cp", head_axis="tp"), {},
+                        inputs, want_full, heads, kv_heads)
+            reuse = _mgr(ht_key(docs, types, {}, device, mesh=mesh_t, cp_axis="cp")).plan_source
+            tp_solves = len(solves) - before
+            if tp_solves != 1 or reuse != "memory":
+                raise AssertionError(f"cp_hier_tp {mask} rank {rank}: {tp_solves} solves, reuse {reuse}")
+            launches_t, got_t = counted(tp.step, on_card)
+            err_t = ht_check(f"cp_hier_tp {mask} tp", got_t, tp.want)
+            del got_f, got_h, got_t, want_full
+            res[mask] = dict(
+                two_level=dict(
+                    errors_vs_dense=err_h, errors_vs_flat=err_hf, buffers_bitwise=bufs_equal,
+                    out_lse_bitwise=True, launches=launches_h,
+                    dcn_rows=[s.hier_plan.dcn_rows() for s in stages],
+                    flat_cross_node_rows=cross_node_rows(stages, 2),
+                    fwd_bwd_ms=_world_ms(hier.step, on_card, warmup=2, samples=5),
+                    flat_fwd_bwd_ms=_world_ms(flat.step, on_card, warmup=2, samples=5),
+                ),
+                hp=hp,
+                tp=dict(tp_rank=t, q_heads=[heads.start, heads.stop],
+                        kv_heads=[kv_heads.start, kv_heads.stop], errors=err_t, solves=tp_solves,
+                        no_head_axis_key=reuse, launches=launches_t,
+                        fwd_bwd_ms=_world_ms(tp.step, on_card, warmup=2, samples=5)),
+            )
+            del flat, hier, tp
+            torch.cuda.empty_cache()
+        res["gloo_a2a_32mb_ms"] = gloo_a2a_ms(device)
+        return res
+    finally:
+        dist_attn_runtime_mgr.make_attn_meta_from_dispatch_meta = solve
+
+
+def gloo_a2a_ms(device: str, rows: int = 8192, samples: int = 5) -> float:
+    """The host-clock ms of one ``all_to_all_single`` of 32 MB a rank
+    (8 MB to each of four ranks, bf16 rows of k|v at 8 heads), what the
+    phase's collectives cost on this setup."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.zeros((rows, CP_HK, 2 * CP_D), dtype=torch.bfloat16, device=device)
+    y = torch.empty_like(x)
+    dist.all_to_all_single(y, x)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(samples):
+        dist.all_to_all_single(y, x)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / samples * 1e3
+
+
+def cp_hier_tp_worker(rank: int, init_file: str, out_dir: str, device: str, seq: int) -> None:
+    """One process of ``cp_hier_tp`` (gloo, on card 0); its results to
+    ``out_dir/rank<r>.json``."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=HT_WORLD,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        res = cp_hier_tp_rank(rank, device, seq)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()  # leave together
+    finally:
+        dist.destroy_process_group()
+
+
+SINK_WINDOW, SINK_SLOTS = (4096, -1), 4
+
+
+def sink_dropins(device: str = "cuda", seq: int = CP_SEQ) -> dict:
+    """``fa3_func_with_sink`` (batch 1) and ``fa3_varlen_func_with_sink``
+    (two documents of 4096) at the train attention shape, bf16, causal
+    with a 4096-token window and an ``sh`` sink of 4 slots: out, lse and
+    the gradients (q, k, v, sink) against the same entries on the plain
+    ``sdpa`` backend (run 8 q heads at a time: the dense logits of all 32
+    would take 35 GB), bf16 gates; launch counts and fwd+bwd ms."""
+    import torch
+
+    from magiattention_tpu_torch.extensions import fa3_func_with_sink, fa3_varlen_func_with_sink
+
+    q, k, v, do = ht_inputs(37, seq, device)
+    gen = torch.Generator(device=device).manual_seed(38)
+    sink = torch.randn((SINK_SLOTS, CP_HQ), generator=gen, device=device)
+    cu = [0, seq // 2, seq]
+    entries = {
+        "fa3_func_with_sink": lambda q, k, v, s, **kw: (lambda o, l: (o[0], l[0].transpose(0, 1)))(
+            *fa3_func_with_sink(q[None], k[None], v[None], s, causal=True, window_size=SINK_WINDOW,
+                                return_attn_probs=True, **kw)),
+        "fa3_varlen_func_with_sink": lambda q, k, v, s, **kw: fa3_varlen_func_with_sink(
+            q, k, v, cu, cu, sink=s, causal=True, window_size=SINK_WINDOW, return_attn_probs=True, **kw),
+    }
+    res = {}
+    g = CP_HQ // CP_HK
+    for name, fn in entries.items():
+        def run(q=q, k=k, v=v, s=sink, do=do, fn=fn, **kw):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v, s)]
+            out, lse = fn(*leaves, **kw)
+            return (out, lse, *torch.autograd.grad(out, leaves, do))
+
+        launches, got = counted(run, device == "cuda")
+        parts = [run(q[:, h:h + 8], k[:, h // g:(h + 8) // g], v[:, h // g:(h + 8) // g],
+                     sink[:, h:h + 8], do[:, h:h + 8], backend="sdpa") for h in range(0, CP_HQ, 8)]
+        want = [torch.cat([p[i] for p in parts], dim=1) for i in range(6)]
+        del parts
+        err = {n: grad_check(f"sink {name} {n}", a.float(), b.float(), "bfloat16")
+               for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want)}
+        # dsink sums over every row: held as the repo holds such sums
+        err["dsink"] = sum_check(f"sink {name} dsink", got[5], want[5], "bfloat16")
+        del want, got
+        res[name] = dict(errors=err, launches=launches,
+                         fwd_bwd_ms=time_ms(run, samples=5) if device == "cuda" else None)
+        torch.cuda.empty_cache()
+    return res
+
+
+def cp_hier_tp_phase(device: str = "cuda", seq: int = CP_SEQ) -> dict:
+    """Two-level comm at (dcn 2, ici 2), TP over heads at (cp 2, tp 2) and
+    the high-precision reduce through the API at the train attention
+    shape (bf16, Llama-3.1-8B heads) on ``cp_baselines``' masks: four
+    processes on this one card over gloo (the kernels built here first:
+    four builds into one cache would race), each running
+    :func:`cp_hier_tp_rank`; then the sink drop-ins in this process. The
+    slowest rank's fwd+bwd ms per case and the summed launch counts. Four
+    processes on one card share it, and gloo moves the rows through the
+    host: the times say what the phase costs here, not what a
+    deployment's step does (``--cp4`` times the NCCL runs).
+    ``cp_hier_tp_phase("cpu", 512)`` rehearses it on the CPU."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the four processes share this card
+    out_dir = tempfile.mkdtemp(prefix="cp_hier_tp_")
+    t0 = time.perf_counter()
+    mp.start_processes(cp_hier_tp_worker, args=(os.path.join(out_dir, "init"), out_dir, device, seq),
+                       nprocs=HT_WORLD, start_method="spawn", join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(HT_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches: dict = {}
+    res = dict(world=HT_WORLD, backend="gloo (one card)", wall_s=spawn_s,
+               gloo_a2a_32mb_ms=[rk["gloo_a2a_32mb_ms"] for rk in ranks],
+               shape=f"bf16 q [{seq}, {CP_HQ}, {CP_D}], k/v [{seq}, {CP_HK}, {CP_D}]")
+    for mask in CPB_MASKS:
+        per = [rk[mask] for rk in ranks]
+        for p in per:
+            for part in ("two_level", "tp"):
+                for k_, c in p[part]["launches"].items():
+                    launches[k_] = launches.get(k_, 0) + c
+        two, tp = [p["two_level"] for p in per], [p["tp"] for p in per]
+        res[mask] = dict(
+            two_level=dict(
+                fwd_bwd_ms_max=max(max(p["fwd_bwd_ms"]) for p in two),
+                flat_fwd_bwd_ms_max=max(max(p["flat_fwd_bwd_ms"]) for p in two),
+                dcn_rows=two[0]["dcn_rows"], flat_cross_node_rows=two[0]["flat_cross_node_rows"],
+                buffers_bitwise=all(all(p["buffers_bitwise"]) for p in two), out_lse_bitwise=True,
+                max_err_vs_dense={n: max(p["errors_vs_dense"][n]["max_abs_err"] for p in two)
+                                  for n in two[0]["errors_vs_dense"]},
+                max_rel_norm_vs_flat={n: max(p["errors_vs_flat"][n]["rel_norm_err"] for p in two)
+                                      for n in two[0]["errors_vs_flat"]},
+                launches_per_rank=[p["launches"] for p in two],
+            ),
+            hp=per[0]["hp"],
+            tp=dict(
+                fwd_bwd_ms_max=max(max(p["fwd_bwd_ms"]) for p in tp),
+                solves_per_process=[p["solves"] for p in tp],
+                max_err={n: max(p["errors"][n]["max_abs_err"] for p in tp) for n in tp[0]["errors"]},
+                launches_per_rank=[p["launches"] for p in tp],
+            ),
+        )
+    sink = sink_dropins(device, seq)
+    for s in sink.values():
+        for k_, c in s["launches"].items():
+            launches[k_] = launches.get(k_, 0) + c
+    res.update(sink_dropins=sink, launches=launches, atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"])
+    emit({"phase": "cp_hier_tp", **res})
+    return res
+
+
 # meta-llama/Llama-3.1-8B config.json widths; depth cut from 32 layers
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_DOC, TRAIN_STEPS, TRAIN_LR = 2, 8192, 4096, 3, 1e-4
 CHECK_SEQ, CHECK_DOC = 2048, 1024
@@ -4111,7 +4546,8 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
     """Every kernel family's 256 instance timed at a main-path shape,
     against its plain version, with its bound: B1 bf16 at Gemma-2-9B's
     attention (q 8192 x 16 x 256, k/v 8192 x 8 x 256, causal, no softcap)
-    against SDPA (``is_causal``, ``enable_gqa``); B1 float32 at the
+    against SDPA (``is_causal``, ``enable_gqa``), with B2's 256 instance
+    (2 heads a CTA) on the same inputs, bit for bit B1's; B1 float32 at the
     serving prefill shape at d 256; the backward at the bf16 shape: B3 (dq)
     + B5 (dk/dv) and B8 (fused), against SDPA's backward alone, and the
     unpinned mode held to ``bwd_mode``'s rule (the faster where the two
@@ -4126,7 +4562,7 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
     from magiattention_tpu_torch.kernels.ffa import (
         ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, ffa_bwd_dq_kernel, ffa_bwd_dq_plain,
         ffa_bwd_fused_kernel, ffa_bwd_fused_plain, ffa_bwd_mode, ffa_delta_plain,
-        ffa_fwd_kernel,
+        ffa_fwd_gqa_kernel, ffa_fwd_kernel, fwd_pack_heads,
     )
     from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band
     from magiattention_tpu_torch.kernels.paged_decode import paged_decode_kernel, paged_decode_plain
@@ -4163,6 +4599,23 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)) if causal else None,
         )}
+        if causal:  # B2's 256 instance on the same inputs, beside B1
+            heads = fwd_pack_heads(hq // c["hk"], d, d, isz)
+            if heads < 2:
+                raise AssertionError(f"d256: the packed forward's guard refuses g {hq // c['hk']}")
+            gqa = lambda: ffa_fwd_gqa_kernel(q, k, v, plan, params)  # noqa: E731
+            out_g, lse_g = gqa()
+            if not (torch.equal(out_g, out) and torch.equal(lse_g, lse)):
+                raise AssertionError("d256: the packed forward is not bit-identical to B1")
+            ms_g = time_ms(gqa)
+            res["ffa_fwd_gqa"] = dict(
+                **err, heads_per_cta=heads, bit_identical_to_unpacked=True, ms=ms_g,
+                unpacked_ms=time_ms(lambda: ffa_fwd_kernel(q, k, v, plan, params)),
+                plain_ms=res["ffa_fwd"]["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                share=b_ms / ms_g, tflops=flops / (ms_g * 1e-3) / 1e12,
+                library_ms=res["ffa_fwd"]["library_ms"],
+            )
+            del out_g, lse_g
         if causal:  # the backward's 256 instances, both modes
             delta = ffa_delta_plain(out, do)
             args = (q, k, v, do, lse, delta, plan, params)
@@ -4479,10 +4932,11 @@ def _world_ms(step, on_card: bool, warmup: int = 3, samples: int = 10) -> list[f
 
 def cp4_run(device: str, seq: int) -> dict:
     """One rank's part of ``--cp4``: each baseline of ``CP4_RUNS`` and
-    MagiAttention's API at cp 4 on both of ``cp_baselines``' masks, fwd+bwd
-    on this rank's shard through the distributed entry point; out, lse and
-    the gradients of its shard against the single-device ``ffa_attn`` on
-    the whole (bf16 gates), and every rank's step ms."""
+    MagiAttention's API at cp 4 on both of ``cp_baselines``' masks, then
+    the API's two-level run at (dcn 2, ici 2) and its TP run at (cp 2, tp
+    2), fwd+bwd on this rank's shard through the distributed entry point;
+    out, lse and the gradients of its shard against the single-device
+    ``ffa_attn`` on the whole (bf16 gates), and every rank's step ms."""
     import torch
     import torch.distributed as dist
 
@@ -4545,6 +4999,24 @@ def cp4_run(device: str, seq: int) -> dict:
         err = {n: grad_check(f"cp4 {mask} magi {n}", a.float(), b.float(), "bfloat16")
                for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want)}
         runs["magi_api"] = dict(errors=err, fwd_bwd_ms=_world_ms(magi_step, on_card))
+        # two-level comm at (dcn 2, ici 2) and TP over heads at (cp 2, tp 2)
+        if "ht" not in meshes:
+            meshes["ht"] = ht_meshes()
+        mesh_h, mesh_t = meshes["ht"]
+        t = mesh_t.coord("tp")
+        cases = {
+            "magi_two_level_dcn2_ici2": HTCase(
+                ht_key(docs, types_, HIER_ENV, device, mesh=mesh_h, cp_axis=PAIR), HIER_ENV,
+                (q, k, v, do), want_full),
+            "magi_tp_cp2_tp2": HTCase(
+                ht_key(docs, types_, {}, device, mesh=mesh_t, cp_axis="cp", head_axis="tp"), {},
+                (q, k, v, do), want_full, slice(t * CP_HQ // 2, (t + 1) * CP_HQ // 2),
+                slice(t * CP_HK // 2, (t + 1) * CP_HK // 2)),
+        }
+        for name, case in cases.items():
+            err = ht_check(f"cp4 {mask} {name}", case.step(), case.want)
+            runs[name] = dict(errors=err, fwd_bwd_ms=_world_ms(case.step, on_card))
+        del cases
         res[mask] = dict(runs=runs, single_device_fwd_bwd_ms=_world_ms(
             lambda: torch.autograd.grad(ffa_attn(*leaves, qr, qr, types)[0], leaves, do), on_card))
         del want_full, out_ref, leaves
@@ -4680,6 +5152,7 @@ def main() -> int:
     cp_stages_phase()
     qo = qo_comm_phase(cp_api)["launches"]
     cpb = cp_baselines_phase()["launches"]
+    ht = cp_hier_tp_phase()["launches"]
     train = train_phase()
     train_padded_phase(train)
     d256_phase(peaks)
@@ -4691,8 +5164,10 @@ def main() -> int:
     t = bwd["d_train_docs_8192_bf16"]
     # the launches of each kernel on the main paths (serving, train, nsa)
     # plus those of the qo-comm path (qo_comm phase), the CP baselines'
-    # rank bodies (cp_baselines) and usp_nsa_attn's (usp_nsa)
-    extra = {k_: qo.get(k_, 0) + cpb.get(k_, 0) + usp.get(k_, 0) for k_ in {*qo, *cpb, *usp}}
+    # rank bodies (cp_baselines), the two-level, TP and sink runs
+    # (cp_hier_tp) and usp_nsa_attn's (usp_nsa)
+    extra = {k_: qo.get(k_, 0) + cpb.get(k_, 0) + ht.get(k_, 0) + usp.get(k_, 0)
+             for k_ in {*qo, *cpb, *ht, *usp}}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body
             "ffa_fwd", "ffa_fwd_tf32.cuh", "magiattention_tpu/kernels/ffa.py:251",

@@ -11,8 +11,17 @@ process holds its own rank: ``dispatch`` returns this rank's rows,
 ``calc_attn`` takes and returns them, ``undispatch`` gives every rank the
 whole natural-order tensor; ``roll`` rolls the global sequence in the
 dispatched layout. Under MAGI_ATTENTION_QO_COMM=1 the key plans the
-dynamic (qo-comm) runtime instead of the static one. Tensor parallelism
-over heads (``head_axis``) is not ported yet.
+dynamic (qo-comm) runtime instead of the static one.
+
+A key can also take a :class:`~..parallel._mesh.ProcessMesh` with JAX's
+``cp_axis`` and ``head_axis`` in place of ``cp_group``: the cp group is
+this process's line along ``cp_axis``; a pair ``(outer, inner)`` is one
+cp group over both axes (group rank ``o * n_inner + i``), whose
+GroupCasts run in two phases (over the outer line, then the inner one)
+under MAGI_ATTENTION_HIERARCHICAL_COMM=1. ``head_axis`` is tensor
+parallelism over heads: each process passes its own ``hq / tp`` and
+``hk / tp`` heads to ``calc_attn``, as Megatron hands attention its
+heads; ``dispatch`` and ``undispatch`` do not touch heads.
 
 Hybrid-attention models (e.g. sliding-window layers beside global ones)
 plan one mask for the dispatch and re-key the others onto its layout
@@ -135,6 +144,8 @@ def magi_attn_flex_key(
     total_seqlen_k: int,
     *,
     cp_group=None,
+    mesh=None,
+    cp_axis: str | tuple[str, str] = "cp",
     device: torch.device | str | None = None,
     head_axis: str | None = None,
     chunk_size: int | None = None,
@@ -144,15 +155,14 @@ def magi_attn_flex_key(
 
     The mask is ``(q_ranges, k_ranges, attn_mask_type)`` slice metadata in
     global coordinates. ``cp_group`` is the context-parallel process group
-    (None: cp 1); every rank of it calls this with the same mask.
-    ``total_seqlen_q`` must divide into ``cp_size * chunk_size`` (pad the
-    sequence first).
+    (None: cp 1); every rank of it calls this with the same mask. Or
+    ``mesh`` (a ``ProcessMesh``, built by every process) with ``cp_axis``
+    (an axis name, or an ``(outer, inner)`` pair for two-level comm) and
+    ``head_axis`` (an axis to shard the heads over, or None); every
+    process of the mesh calls this. ``total_seqlen_q`` must divide into
+    ``cp_size * chunk_size`` (pad the sequence first).
     """
     global _most_recent_key
-    if head_axis is not None:
-        raise NotImplementedError(
-            "head_axis (tensor parallelism over heads) is not ported yet"
-        )
     if not isinstance(q_ranges, AttnRanges):
         q_ranges = AttnRanges.from_ranges(q_ranges)
     if not isinstance(k_ranges, AttnRanges):
@@ -162,7 +172,15 @@ def magi_attn_flex_key(
     if env_general.is_sanity_check_enable():
         _check_no_overlapping_slices(q_ranges, k_ranges, mask_ints)
     device = resolve_device(device)
-    if cp_group is None:
+    if mesh is not None:
+        if cp_group is not None:
+            raise ValueError("pass cp_group or mesh, not both")
+        if isinstance(cp_axis, (tuple, list)):
+            cp_axis = tuple(cp_axis)
+        axes = cp_axis if isinstance(cp_axis, tuple) else (cp_axis,)
+        cp_size, cp_rank = mesh.count(axes), mesh.index(axes)
+        cp_group = mesh.group(cp_axis)
+    elif cp_group is None:
         cp_size, cp_rank = 1, 0
     else:
         cp_size, cp_rank = dist.get_world_size(cp_group), dist.get_rank(cp_group)
@@ -186,6 +204,9 @@ def magi_attn_flex_key(
         device=str(device),
         config=dist_attn_config or DistAttnConfig(),
         env_snapshot=env_general.snapshot_env(),
+        mesh=mesh,
+        cp_axis=cp_axis,
+        head_axis=head_axis,
     )
     _runtime_dict.get_or_create(key)
     _most_recent_key = key
@@ -200,6 +221,8 @@ def magi_attn_varlen_key(
     window_size: tuple[int, int] = (-1, -1),
     global_window_size: int = 0,
     cp_group=None,
+    mesh=None,
+    cp_axis: str | tuple[str, str] = "cp",
     device: torch.device | str | None = None,
     head_axis: str | None = None,
     chunk_size: int | None = None,
@@ -215,8 +238,8 @@ def magi_attn_varlen_key(
     return magi_attn_flex_key(
         q_ranges, k_ranges, types,
         total_seqlen_q=q_ranges.end, total_seqlen_k=k_ranges.end,
-        cp_group=cp_group, device=device, head_axis=head_axis,
-        chunk_size=chunk_size, dist_attn_config=dist_attn_config,
+        cp_group=cp_group, mesh=mesh, cp_axis=cp_axis, device=device,
+        head_axis=head_axis, chunk_size=chunk_size, dist_attn_config=dist_attn_config,
     )
 
 
@@ -262,6 +285,9 @@ def make_flex_key_for_new_mask_after_dispatch(
         env_snapshot=env_general.snapshot_env(),
         fixed_partitions=tuple(tuple(p) for p in mgr0.dispatch_meta_q.partitions),
         capacities=old.capacities,
+        mesh=old.mesh,
+        cp_axis=old.cp_axis,
+        head_axis=old.head_axis,
     )
     _runtime_dict.get_or_create(key)
     _most_recent_key = key
@@ -387,6 +413,8 @@ def init_dist_attn_runtime_key(
     chunk_size: int,
     *,
     cp_group=None,
+    mesh=None,
+    cp_axis: str | tuple[str, str] = "cp",
     device: torch.device | str | None = None,
     head_axis: str | None = None,
     pad_size: int = 0,
@@ -411,8 +439,8 @@ def init_dist_attn_runtime_key(
         total_seqlen_k += pad_size
     return magi_attn_flex_key(
         q_ranges, k_ranges, mask_types, total_seqlen_q, total_seqlen_k,
-        cp_group=cp_group, device=device, head_axis=head_axis,
-        chunk_size=chunk_size, dist_attn_config=dist_attn_config,
+        cp_group=cp_group, mesh=mesh, cp_axis=cp_axis, device=device,
+        head_axis=head_axis, chunk_size=chunk_size, dist_attn_config=dist_attn_config,
     )
 
 
@@ -425,6 +453,8 @@ def init_dist_attn_runtime_mgr(
     chunk_size: int,
     *,
     cp_group=None,
+    mesh=None,
+    cp_axis: str | tuple[str, str] = "cp",
     device: torch.device | str | None = None,
     head_axis: str | None = None,
     pad_size: int = 0,
@@ -435,8 +465,8 @@ def init_dist_attn_runtime_mgr(
     the manager itself (from the same cache as the key API)."""
     key = init_dist_attn_runtime_key(
         q_ranges, k_ranges, attn_mask_type, total_seqlen_q, total_seqlen_k, chunk_size,
-        cp_group=cp_group, device=device, head_axis=head_axis, pad_size=pad_size,
-        dist_attn_config=dist_attn_config,
+        cp_group=cp_group, mesh=mesh, cp_axis=cp_axis, device=device, head_axis=head_axis,
+        pad_size=pad_size, dist_attn_config=dist_attn_config,
     )
     return _mgr(key)
 

@@ -18,8 +18,9 @@ ppermute rounds, ragged all_to_all) because XLA's collectives want static
 shapes; ``all_to_all_single`` takes true splits, so the port runs every
 stage one way and reads only the plan's send indices and counts. The
 JAX package's ``cast_rows``/``reduce_rows`` lowering dispatchers and the
-ppermute and ragged lowerings have no counterpart here (ROADMAP queue A6
-ports the two-level plans).
+ppermute and ragged lowerings have no counterpart here. The two-level
+cast (:mod:`.hier`) runs through the same :class:`_GroupCast`: a stage's
+plan carries ``cast_start`` / ``reduce_start`` / ``reduce_finish``.
 """
 
 from __future__ import annotations
@@ -84,6 +85,30 @@ class CastPlan:
             self._rows[device] = t
         return t
 
+    def cast_start(self, x: torch.Tensor, group, out_dtype: torch.dtype):
+        """Issue the GroupCast of ``x``'s rows, sent in x's dtype; returns
+        the receive buffer in ``out_dtype`` and the wait (see
+        :func:`_cast_start`). A wider ``out_dtype`` is filled from the
+        arrived rows by the wait."""
+        arrived, work, send = _cast_start(x, self, group)
+        if out_dtype == x.dtype:
+            return arrived, lambda work=work, send=send: work.wait()  # send lives until done
+        buf = x.new_zeros((self.buf_len, *x.shape[1:]), dtype=out_dtype)
+
+        def wait(work=work, send=send):
+            work.wait()
+            with torch.no_grad():  # the buffer is an autograd output: fill it in place
+                buf[: self.recv_len] = arrived[: self.recv_len]
+
+        return buf, wait
+
+    def reduce_start(self, y: torch.Tensor, group, dtype: torch.dtype):
+        return _reduce_start(y, self, group, dtype)
+
+    def reduce_finish(self, total, handle, group, shard_len: int) -> torch.Tensor:
+        back, work, _ = handle
+        return _reduce_finish(total, self, back, work, shard_len)
+
 
 def _all_to_all(out, inp, out_splits, in_splits, group, async_op):
     return dist.all_to_all_single(
@@ -92,13 +117,13 @@ def _all_to_all(out, inp, out_splits, in_splits, group, async_op):
     )
 
 
-def _cast_start(x: torch.Tensor, plan: CastPlan, group, dtype: torch.dtype):
-    """Issue one stage's GroupCast of ``x``'s rows in ``dtype``; returns
-    the receive buffer (``plan.buf_len`` rows, those past ``recv_len``
-    zero) and the async work. Read the buffer only after ``work.wait()``.
-    On CUDA, NCCL runs the collective on its own stream; ``wait`` makes the
-    current stream wait for it."""
-    send = x.index_select(0, plan.rows(x.device)).to(dtype)
+def _cast_start(x: torch.Tensor, plan: CastPlan, group):
+    """Issue one stage's GroupCast of ``x``'s rows; returns the receive
+    buffer (``plan.buf_len`` rows, those past ``recv_len`` zero) and the
+    async work. Read the buffer only after ``work.wait()``. On CUDA, NCCL
+    runs the collective on its own stream; ``wait`` makes the current
+    stream wait for it."""
+    send = x.index_select(0, plan.rows(x.device))
     buf = send.new_zeros((plan.buf_len, *x.shape[1:]))
     work = _all_to_all(
         buf[: plan.recv_len], send, plan.recv_splits, plan.send_splits,
@@ -148,20 +173,22 @@ class _GroupCast(torch.autograd.Function):
     GroupReduce of every stage, summed in float32 and cast to ``x``'s dtype
     once. The forward only issues the transfers: ``waits`` (a list the
     caller passes) receives one ``wait`` per stage, to call before the
-    stage's buffer is read. With ``hp`` the wire and the buffers are
-    float32 and a float32 copy of ``x`` comes first among the outputs, so
-    that the local part's gradient joins the float32 sum too (the high-
-    precision reduce, MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE)."""
+    stage's buffer is read. The rows travel in x's dtype. With ``hp`` the
+    buffers are float32 (each upcast from the arrived rows), the backward's
+    transfers float32, and a float32 copy of ``x`` comes first among the
+    outputs, so that the local part's gradient joins the float32 sum too
+    (the high-precision reduce, MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE).
+    ``plans`` are :class:`CastPlan` over the cp group or
+    :class:`~.hier.HierCastPlan` over the pair of its lines."""
 
     @staticmethod
     def forward(ctx, x, plans, group, hp, waits):
-        wire = torch.float32 if hp else x.dtype
+        out_dtype = torch.float32 if hp else x.dtype
         bufs = []
         for plan in plans:
-            buf, work, send = _cast_start(x, plan, group, wire)
+            buf, wait = plan.cast_start(x, group, out_dtype)
             bufs.append(buf)
-            # keep the send rows alive until the transfer is done
-            waits.append(lambda work=work, send=send: work.wait())
+            waits.append(wait)
         ctx.plans, ctx.group, ctx.hp = plans, group, hp
         ctx.shard_len, ctx.x_dtype = x.shape[0], x.dtype
         return (x.float(), *bufs) if hp else tuple(bufs)
@@ -172,11 +199,11 @@ class _GroupCast(torch.autograd.Function):
         stage_grads = grads[1:] if ctx.hp else grads
         wire = torch.float32 if ctx.hp else ctx.x_dtype
         pending = [
-            (plan, *_reduce_start(g, plan, ctx.group, wire))
+            (plan, plan.reduce_start(g, ctx.group, wire))
             for plan, g in zip(ctx.plans, stage_grads)
         ]
-        for plan, back, work, _ in pending:
-            total = _reduce_finish(total, plan, back, work, ctx.shard_len)
+        for plan, handle in pending:
+            total = plan.reduce_finish(total, handle, ctx.group, ctx.shard_len)
         return total.to(ctx.x_dtype), None, None, None, None
 
 

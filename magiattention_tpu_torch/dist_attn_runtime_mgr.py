@@ -16,9 +16,14 @@ solve state, which seeds the next dynamic solve of the family (the
 incremental re-solve).
 
 The JAX mesh becomes a ``torch.distributed`` process group (``cp_group``;
-None = cp 1, no collectives) plus a device. Not ported yet: the disk and
-broadcast plan tiers and plan verification (ROADMAP queue A10) and
-two-level comm (A6), which raises here.
+None = cp 1, no collectives) plus a device, or a
+:class:`~.parallel._mesh.ProcessMesh` with JAX's ``cp_axis`` and
+``head_axis``: the cp group is then this process's line along
+``cp_axis`` (for a pair of axes, the flat group over both, outer-major),
+two-level comm runs over the pair's two lines when
+MAGI_ATTENTION_HIERARCHICAL_COMM=1, and ``head_axis`` names the TP line.
+Not ported yet: the disk and broadcast plan tiers and plan verification
+(ROADMAP queue A10).
 """
 
 from __future__ import annotations
@@ -60,13 +65,33 @@ class DistAttnRuntimeKey:
     fixed_partitions: tuple[tuple[int, ...], ...] | None = None
     # per-rank capacity vector of the weighted dispatch; None = uniform
     capacities: tuple[float, ...] | None = None
+    # the process mesh (ProcessMesh) the groups come from; None: cp_group
+    mesh: object = None
+    cp_axis: str | tuple[str, str] = "cp"
+    head_axis: str | None = None
+
+
+def _mesh_shape_for(key: DistAttnRuntimeKey) -> tuple[int, int] | None:
+    """(n_outer, n_inner) for two-level planning, or None: exactly when
+    the runtime will run two-level comm (a pair ``cp_axis`` of a mesh and
+    MAGI_ATTENTION_HIERARCHICAL_COMM=1)."""
+    if (
+        key.mesh is not None
+        and isinstance(key.cp_axis, tuple)
+        and env_comm.is_hierarchical_comm_enable()
+    ):
+        outer, inner = key.cp_axis
+        return (key.mesh.shape[outer], key.mesh.shape[inner])
+    return None
 
 
 def _plan_signature(key: DistAttnRuntimeKey) -> tuple:
     """Everything the solved host plan depends on: the key minus the
-    process group, this process's rank and the device (every rank of a
-    group solves the same plan). The capacity vector is appended only when
-    set, as in the JAX package."""
+    process group, this process's rank, the device and ``head_axis``
+    (every rank of a group solves the same plan; TP shards the heads of
+    an already-solved plan). The capacity vector and, under two-level
+    planning, the mesh shape are appended only when set, as in the JAX
+    package, so that a flat and a two-level plan never share an entry."""
     sig = (
         key.q_ranges,
         key.k_ranges,
@@ -81,6 +106,9 @@ def _plan_signature(key: DistAttnRuntimeKey) -> tuple:
     )
     if key.capacities is not None:
         sig = sig + (("capacities", key.capacities),)
+    mesh_shape = _mesh_shape_for(key)
+    if mesh_shape is not None:
+        sig = sig + (("mesh_shape", mesh_shape),)
     return sig
 
 
@@ -129,26 +157,33 @@ class _PlanCache:
 _PLAN_CACHE = _PlanCache()
 
 
-def _check_ported() -> None:
-    if not env_comm.is_hierarchical_comm_enable():
-        return
+def _check_supported(key: DistAttnRuntimeKey) -> None:
+    """The JAX manager's refusals under qo-comm
+    (``magiattention_tpu/dist_attn_runtime_mgr.py:512-521``), and a
+    ``head_axis`` that names no axis of the key's mesh."""
     if env_comm.is_qo_comm_enable():
-        # as the JAX package refuses it (magiattention_tpu/dist_attn_runtime_mgr.py:517-521)
-        raise NotImplementedError(
-            "MAGI_ATTENTION_QO_COMM=1 does not support "
-            "MAGI_ATTENTION_HIERARCHICAL_COMM=1 yet; unset one"
+        if key.head_axis is not None:
+            raise NotImplementedError(
+                "MAGI_ATTENTION_QO_COMM=1 does not support head_axis "
+                "(TP head sharding) yet; unset one of the two"
+            )
+        if env_comm.is_hierarchical_comm_enable():
+            raise NotImplementedError(
+                "MAGI_ATTENTION_QO_COMM=1 does not support "
+                "MAGI_ATTENTION_HIERARCHICAL_COMM=1 yet; unset one"
+            )
+    if key.head_axis is not None and (key.mesh is None or key.head_axis not in key.mesh.shape):
+        raise ValueError(
+            f"head_axis={key.head_axis!r} names no axis of the key's mesh: "
+            "pass mesh=ProcessMesh(...) with that axis"
         )
-    raise NotImplementedError(
-        "MAGI_ATTENTION_HIERARCHICAL_COMM=1 (two-level comm) is not ported "
-        "yet: ROADMAP queue A6"
-    )
 
 
 class DistAttnRuntimeMgr:
     """Owns one rank's metas and runtime for one key."""
 
     def __init__(self, key: DistAttnRuntimeKey) -> None:
-        _check_ported()
+        _check_supported(key)
         self.key = key
         self.device = torch.device(key.device)
         cache_on = env_general.is_plan_cache_enable()
@@ -204,6 +239,7 @@ class DistAttnRuntimeMgr:
                     "static": make_attn_meta_from_dispatch_meta(
                         self.bucket, self.dispatch_meta_q, key.config,
                         dispatch_meta_kv=self.dispatch_meta_kv,
+                        mesh_shape=_mesh_shape_for(key),
                     ),
                 }
                 if cache_on:
@@ -211,6 +247,7 @@ class DistAttnRuntimeMgr:
             self.dynamic_plan = None
             self.comm_meta, self.calc_meta = entry["static"]
             overlap_cfg = key.config.overlap_config
+            mesh_shape = _mesh_shape_for(key)
             self.runtime = DistAttnRuntime(
                 comm_meta=self.comm_meta,
                 calc_meta=self.calc_meta,
@@ -218,6 +255,12 @@ class DistAttnRuntimeMgr:
                 cp_group=key.cp_group,
                 use_overlap=None if overlap_cfg.enable else False,
                 backend=backend,
+                hier=None if mesh_shape is None else (
+                    mesh_shape, tuple(key.mesh.group(axis) for axis in key.cp_axis)
+                ),
+                tp=None if key.head_axis is None else (
+                    key.head_axis, key.mesh.group(key.head_axis), key.mesh.shape[key.head_axis]
+                ),
             )
         self._index = {}
 

@@ -1,9 +1,7 @@
 """Communication toggles.
 
 The port's copy of the getters of ``magiattention_tpu/env/comm.py`` that the
-CP planners and runtime read; the flag names are the same. Two-level
-(hierarchical) comm is not ported yet and raises ``NotImplementedError``
-where a runtime is built (ROADMAP queue A6).
+CP planners and runtime read; the flag names are the same.
 """
 
 from __future__ import annotations
@@ -14,7 +12,9 @@ from .general import _get_bool, _get_int
 
 
 def is_hierarchical_comm_enable() -> bool:
-    """Two-level (inter-node x intra-node) group-collective planning."""
+    """Two-level (inter-node x intra-node) group-collective planning: a
+    key over a pair ``cp_axis`` of a mesh plans and runs each GroupCast in
+    two phases (``comm/hier.py``); a flat cp group is unaffected."""
     return _get_bool("MAGI_ATTENTION_HIERARCHICAL_COMM")
 
 

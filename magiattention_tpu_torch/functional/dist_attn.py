@@ -22,12 +22,20 @@ transfer (v in k's dtype), as the JAX runtime fuses them.
 ``backend="sdpa"`` (MAGI_ATTENTION_KERNEL_BACKEND=sdpa) replays the merged
 slices with the dense ``sdpa_attn`` instead of FFA, differentiated by
 autograd: the plain path the kernels are checked against, on the card
-too. With ``return_max_logits`` the per-head max logit is the max over
-the parts, then ``all_reduce(MAX)`` over the cp group (the JAX package's
-``reduce_max_logits``). The qo-comm runtime is
-:mod:`.dynamic_dist_attn`. The ``sdpa_online`` backend, auto-tile, TP
-head sharding and two-level comm are not ported yet (ROADMAP queues
-A5-A6).
+too; ``"sdpa_online"`` replays them with the blockwise online-softmax
+``sdpa_online_attn`` (a float32 test backend). With ``return_max_logits``
+the per-head max logit is the max over the parts, then
+``all_reduce(MAX)`` over the cp group (the JAX package's
+``reduce_max_logits``). The qo-comm runtime is :mod:`.dynamic_dist_attn`.
+
+Two-level comm (``hier``: the cp group laid out as (n_outer, n_inner)
+ranks, outer-major, under MAGI_ATTENTION_HIERARCHICAL_COMM=1) runs each
+stage's GroupCast in two phases over the rank's outer and inner lines
+(:mod:`..comm.hier`); the buffers are the flat cast's, bit for bit.
+Tensor parallelism over heads (``tp_group``): each rank holds its own
+``hq / tp`` and ``hk / tp`` heads, and attention runs on them; only
+max-logits crosses the cp group. Auto-tile is not ported (ROADMAP queue
+A3).
 """
 
 from __future__ import annotations
@@ -35,11 +43,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..comm.hier import HierCastPlan, make_hier_group_cast_plan
 from ..comm.primitives import CastPlan, group_cast_all
 from ..env import comm as env_comm
 from ..kernels.ffa import FFAParams, default_blocks, ffa_bwd, ffa_delta, ffa_fwd_dispatch
 from ..kernels.ffa_plan import FFAPlan, get_ffa_plan
 from ..kernels.sdpa import dense_max_logits, sdpa_attn
+from ..kernels.sdpa_online import sdpa_online_attn
 from ..meta.collection.calc_meta import AttnArg, CalcMeta
 from ..meta.collection.comm_meta import CommMeta
 from .utils import lse_weighted_reduce
@@ -123,7 +133,13 @@ def _plan(arg: AttnArg, sq: int, sk: int) -> FFAPlan:
 class DistAttnRuntime:
     """One rank's runtime for one (mask, cp group, config): its FFA plans
     and GroupCast plans, built once from the solver's CommMeta and
-    CalcMeta."""
+    CalcMeta.
+
+    ``hier`` is ``((n_outer, n_inner), (outer_group, inner_group))`` for
+    two-level comm: each stage takes the solver's ``hier_plan``, re-planned
+    from its transfer table where the solver planned another shape (or
+    none). ``tp`` is ``(head_axis, tp_group, tp_size)`` under tensor
+    parallelism over heads."""
 
     def __init__(
         self,
@@ -135,12 +151,11 @@ class DistAttnRuntime:
         softcap: float = 0.0,
         use_overlap: bool | None = None,
         backend: str = "ffa",
+        hier=None,
+        tp=None,
     ) -> None:
-        if backend not in ("ffa", "sdpa"):
-            raise NotImplementedError(
-                f"kernel backend {backend!r} of the CP runtime is not ported "
-                "yet (ROADMAP queue A5)"
-            )
+        if backend not in ("ffa", "sdpa", "sdpa_online"):
+            raise ValueError(f"unknown kernel backend {backend!r} (ffa | sdpa | sdpa_online)")
         self.backend = backend
         self.comm_meta, self.calc_meta = comm_meta, calc_meta
         self.cp_size = len(calc_meta.host_args)
@@ -148,12 +163,61 @@ class DistAttnRuntime:
         self.softmax_scale, self.softcap = softmax_scale, softcap
         self.num_stages = len(comm_meta.kv_stages)
         # overlap iff the solver produced more than one stage, unless off;
-        # the dense backend replays the merged slices
+        # the dense backends replay the merged slices
         self.use_overlap = (
             self.num_stages > 1 if use_overlap is None else use_overlap
         ) and backend == "ffa"
-        self.cast_plans = [CastPlan.from_stage(s, cp_rank) for s in comm_meta.kv_stages]
+        self.hier = hier is not None and comm_meta.kv_host_ranges is not None
+        if self.hier:
+            (n_outer, n_inner), self.cast_group = hier
+            self.cast_plans = [
+                HierCastPlan.from_plan(self._hier_plan(s, n_outer, n_inner), cp_rank)
+                for s in comm_meta.kv_stages
+            ]
+        else:
+            self.cast_group = cp_group
+            self.cast_plans = [CastPlan.from_stage(s, cp_rank) for s in comm_meta.kv_stages]
+        self.head_axis, self.tp_group, self.tp_size = tp if tp is not None else (None, None, 1)
+        self._heads_checked = False
         self._build_plans()
+
+    def _hier_plan(self, stage, n_outer: int, n_inner: int):
+        """The stage's two-level plan: the solver's, or (where it planned
+        none or another shape) one built here from the transfer table, as
+        the JAX runtime does."""
+        plan = stage.hier_plan
+        if plan is None or (plan.n_outer, plan.n_inner) != (n_outer, n_inner):
+            plan = make_hier_group_cast_plan(
+                stage.transfer_table, self.comm_meta.kv_host_ranges, n_outer, n_inner,
+                alignment=128, r_max=stage.r_max, shard_len=self.calc_meta.kv_shard_len,
+            )
+        return plan
+
+    def _check_heads(self, hq: int, hk: int, device) -> None:
+        """Under TP, at the first call: the heads of the whole TP group
+        (the sum of its ranks' local heads, one all-reduce) must split
+        evenly over it, as the JAX runtime requires of the global heads.
+        Every rank of the group checks at the same call, so none waits in
+        the all-reduce while another has gone on."""
+        if self.tp_size == 1 or self._heads_checked:
+            return
+        self._heads_checked = True
+        counts = torch.tensor([hq, hk], dtype=torch.int64, device=device)
+        dist.all_reduce(counts, group=self.tp_group)
+        hq_all, hk_all = counts.tolist()
+        tp = self.tp_size
+        if hq_all % tp or hk_all % tp:
+            raise ValueError(
+                f"head_axis={self.head_axis!r} (size {tp}) must divide "
+                f"both num_heads_q ({hq_all}) and num_heads_kv ({hk_all}) — "
+                f"GQA kv heads shard over TP too"
+            )
+        if (hq * tp, hk * tp) != (hq_all, hk_all):
+            raise ValueError(
+                f"head_axis={self.head_axis!r} (size {tp}): this rank holds "
+                f"{hq} q and {hk} kv heads of {hq_all} and {hk_all}; each "
+                "rank takes num_heads / tp of both"
+            )
 
     def _build_plans(self) -> None:
         km, r = self.calc_meta, self.cp_rank
@@ -186,7 +250,7 @@ class DistAttnRuntime:
 
         Args:
             q: ``[shard, hq, d]``, k/v ``[kv_shard, hk, d|dv]``: this rank's
-                dispatched rows.
+                dispatched rows (under TP, of its own heads).
             return_max_logits: also return the per-head max logit ``[hq]``
                 float32, the max over this rank's parts all-reduced (MAX)
                 over the cp group, so every rank holds the global one.
@@ -198,12 +262,13 @@ class DistAttnRuntime:
         """
         if k.shape[:2] != v.shape[:2]:
             raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ in rows or heads")
+        self._check_heads(q.shape[1], k.shape[1], q.device)
         k_parts, v_parts, waits = [k], [v], []
         if self.cast_plans:  # cp > 1: the remote kv of every stage
             d = k.shape[-1]
             hp = env_comm.is_bwd_high_precision_reduce_enable()
             kv_parts, waits = group_cast_all(
-                torch.cat([k, v.to(k.dtype)], dim=-1), self.cast_plans, self.cp_group, hp
+                torch.cat([k, v.to(k.dtype)], dim=-1), self.cast_plans, self.cast_group, hp
             )
             k_parts = [p[..., :d] for p in kv_parts]
             v_parts = [p[..., d:] for p in kv_parts]
@@ -212,14 +277,15 @@ class DistAttnRuntime:
                 wait()
             k_parts, v_parts = [torch.cat(k_parts)], [torch.cat(v_parts)]
             waits = []
-        if self.backend == "sdpa":
+        if self.backend != "ffa":
             arg = self.calc_meta.merged_args[self.cp_rank]
             kv = (k_parts[0].to(q.dtype), v_parts[0].to(q.dtype))
             kw = dict(
                 softmax_scale=self.softmax_scale, softcap=self.softcap,
                 d_lo=arg.d_lo, d_hi=arg.d_hi,
             )
-            out, lse = sdpa_attn(q, *kv, arg.q_ranges, arg.k_ranges, **kw)
+            dense = sdpa_attn if self.backend == "sdpa" else sdpa_online_attn
+            out, lse = dense(q, *kv, arg.q_ranges, arg.k_ranges, **kw)
             res = (out, lse.detach())  # lse carries no gradient, as on ffa
             if return_max_logits:
                 res += (dense_max_logits(q, kv[0], arg.q_ranges, arg.k_ranges, **kw).detach(),)

@@ -17,6 +17,11 @@ case on one card.
 Under ``P(axes)`` sharding of dim 0 the rows a process holds are shard
 :meth:`ProcessMesh.index` of ``axes`` (row-major over the named axes, in
 the order given); :func:`local_shard` cuts them from a global tensor.
+
+A group over several axes (the flat cp group of a two-level ``cp_axis``)
+is made at its first :meth:`ProcessMesh.group` call, again for every
+line, so every process makes that call, in the same order: the key
+entries of the API do, as they are collective.
 """
 
 from __future__ import annotations
@@ -74,15 +79,35 @@ class ProcessMesh:
         """This process's coordinate on ``axis``."""
         return self.coords[axis]
 
-    def group(self, axis: str):
+    def group(self, axis):
         """The subgroup of this process's line along ``axis`` (None when
-        the axis has size 1: nothing to communicate)."""
+        the axis has size 1: nothing to communicate). A tuple of axes
+        names the line over all of them, the first slowest (made here at
+        the first call, collectively)."""
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
+        if axis not in self._groups:
+            self._make_line(axis)
         return self._groups[axis]
 
     def line(self, axis: str) -> list[int]:
         """The global ranks of this process's line along ``axis``, in
         coordinate order (equal to their group-rank order)."""
         return self._lines[axis]
+
+    def _make_line(self, axes: tuple) -> None:
+        """Create the group of every line over ``axes`` (collective) and
+        keep this process's."""
+        dims = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(self.ranks.ndim) if i not in dims]
+        n = int(np.prod([self.ranks.shape[i] for i in dims]))
+        me = _this_rank()
+        for line in self.ranks.transpose(rest + dims).reshape(-1, n):
+            if np.any(np.diff(line) <= 0):
+                raise ValueError(f"ranks must increase along the axes {axes}, got {line.tolist()}")
+            group = dist.new_group(line.tolist()) if line.size > 1 else None
+            if me in line:
+                self._groups[axes], self._lines[axes] = group, line.tolist()
 
     def index(self, axes) -> int:
         """This process's shard under ``P(axes)``: its coordinates over

@@ -147,14 +147,23 @@ def test_plan_cache_reuses_a_solved_mask():
     ],
 )
 def test_paths_not_ported_yet_raise(env, kwargs, monkeypatch):
-    """Two-level comm and TP head sharding raise instead of running
-    something else."""
+    """Two-level comm and TP head sharding, once refused here, are ported
+    (tests/test_torch_hier.py, tests/test_torch_tp_cp.py). Without a mesh
+    neither runs something else: the flag leaves a key over a flat cp
+    group (here cp 1) flat, and a ``head_axis`` that names no axis of a
+    mesh raises."""
     from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError):
-        api.magi_attn_flex_key([[0, 64]], [[0, 64]], [1], 64, 64, device="cpu", **kwargs)
+    if "head_axis" in kwargs:
+        with pytest.raises(ValueError, match="names no axis of the key's mesh"):
+            api.magi_attn_flex_key([[0, 64]], [[0, 64]], [1], 64, 64, device="cpu", **kwargs)
+        return
+    key = api.magi_attn_flex_key([[0, 64]], [[0, 64]], [1], 64, 64, device="cpu", **kwargs)
+    assert not _mgr(key).runtime.hier
+    assert all(s.hier_plan is None for s in _mgr(key).comm_meta.kv_stages)
 
 
 def test_planner_recovers_a_lost_native_build_race(tmp_path):

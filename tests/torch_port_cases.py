@@ -708,3 +708,275 @@ def usp_nsa_worker(rank: int, world: int, init_file: str, out_dir: str, tree: di
         dist.barrier()  # leave together: no rank closes a peer's open connections
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# two-level comm (tests/test_torch_hier.py): the JAX package's
+# tests/test_comm/test_hier_pipeline.py shapes on a (dcn 2, ici 2) mesh
+# ---------------------------------------------------------------------------
+
+HIER_SEQ, HIER_HQ, HIER_HK, HIER_D, HIER_CHUNK = 256, 2, 1, 32, 16
+HIER_MASKS = {
+    "causal": ([[0, HIER_SEQ]], [[0, HIER_SEQ]], [1]),
+    "shared_prefix": ([[0, 128], [128, HIER_SEQ], [128, HIER_SEQ]],
+                      [[0, 128], [0, 128], [128, HIER_SEQ]], [0, 0, 1]),
+}
+HIER_FLAG = {"MAGI_ATTENTION_HIERARCHICAL_COMM": "1"}
+HP_FLAG = {"MAGI_ATTENTION_BWD_HIGH_PRECISION_REDUCE": "1"}
+
+
+def hier_inputs(seed: int = 11):
+    """float32 q, k, v and dO of the two-level cases, natural order."""
+    q, k, v = qkv(np.random.default_rng(seed), HIER_SEQ, HIER_SEQ, HIER_HQ, HIER_HK, HIER_D)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    return q, k, v, do
+
+
+class _env:
+    """Set flags for a block, then unset them."""
+
+    def __init__(self, env: dict) -> None:
+        self.env = env
+
+    def __enter__(self):
+        import os
+
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        import os
+
+        for k in self.env:
+            os.environ.pop(k, None)
+
+
+def _api_fwd_bwd(key, arrays, heads=slice(None), kv_heads=slice(None), max_logits=False):
+    """``dispatch -> calc_attn -> undispatch`` of the natural-order numpy
+    ``arrays`` (q, k, v, dO; the heads given) and the backward of
+    ``sum(out * dO)``: out, this rank's lse, dq, dk, dv (natural order,
+    every rank's the whole gradients) and max-logits or None."""
+    import torch
+
+    from magiattention_tpu_torch import api
+
+    q, k, v, do = arrays
+    leaves = [torch.from_numpy(np.ascontiguousarray(a[:, h])).requires_grad_(True)
+              for a, h in ((q, heads), (k, kv_heads), (v, kv_heads))]
+    out_d, meta = api.calc_attn(
+        api.dispatch(leaves[0], key), api.dispatch(leaves[1], key, role="kv"),
+        api.dispatch(leaves[2], key, role="kv"), key, return_max_logits=max_logits,
+    )
+    out = api.undispatch(out_d, key)
+    (out * torch.from_numpy(np.ascontiguousarray(do[:, heads]))).sum().backward()
+    ml = meta.max_logits.numpy() if max_logits else None
+    return [out.detach().numpy(), meta.lse.numpy(), *(t.grad.numpy() for t in leaves)], ml
+
+
+def _recording_all_to_all(log: list):
+    """``dist.all_to_all_single`` that logs each call's input dtype."""
+    import torch.distributed as dist
+
+    a2a = dist.all_to_all_single
+
+    def rec(out, inp, *args, **kwargs):
+        log.append(str(inp.dtype))
+        return a2a(out, inp, *args, **kwargs)
+
+    return a2a, rec
+
+
+def hier_worker(rank: int, world: int, init_file: str, out_dir: str, masks: list) -> None:
+    """One rank of a (dcn 2, ici 2) gloo world: for each mask, the API over
+    ``mesh, cp_axis=("dcn", "ici")`` flat (flag unset), two-level
+    (MAGI_ATTENTION_HIERARCHICAL_COMM=1) and two-level under the
+    high-precision reduce, forward and backward; then each stage's cast on
+    its own, two-level against flat (float32, and bf16 under hp with the
+    wire dtypes logged), forward buffers and the backward's gradients; the
+    plan cache's entries; qo-comm refused. Results to
+    ``out_dir/<case>_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.comm.primitives import group_cast_all
+    from magiattention_tpu_torch.parallel import ProcessMesh
+
+    try:
+        mesh = ProcessMesh(np.arange(4).reshape(2, 2), ("dcn", "ici"))
+        pair = ("dcn", "ici")
+
+        def key_of(mask, **kw):
+            qr, kr, tm = HIER_MASKS[mask]
+            return api.magi_attn_flex_key(qr, kr, tm, HIER_SEQ, HIER_SEQ, device="cpu",
+                                          chunk_size=HIER_CHUNK, **kw)
+
+        arrays = hier_inputs()
+        for mask in masks:
+            res = {}
+            key_f = key_of(mask, mesh=mesh, cp_axis=pair)
+            res["flat"], _ = _api_fwd_bwd(key_f, arrays)
+            with _env(HIER_FLAG):
+                key_h = key_of(mask, mesh=mesh, cp_axis=pair)
+                res["hier"], _ = _api_fwd_bwd(key_h, arrays)
+                with _env(HP_FLAG):
+                    res["hier_hp"], _ = _api_fwd_bwd(key_of(mask, mesh=mesh, cp_axis=pair), arrays)
+            rt_f, rt_h = _mgr(key_f).runtime, _mgr(key_h).runtime
+            stages = _mgr(key_h).comm_meta.kv_stages
+            extra = dict(
+                hier_runtime=rt_h.hier, flat_runtime=rt_f.hier,
+                dcn_rows=np.asarray([s.telemetry_dict()["dcn_rows"] for s in stages]),
+                flat_dcn_rows=np.asarray([
+                    sum(s.transfer_table[d][src].total_seqlen for d in range(4) for src in range(4)
+                        if d // 2 != src // 2) for s in stages]),
+            )
+            # each stage's cast alone: float32, then bf16 under hp
+            rng = np.random.default_rng(100 + rank)
+            shard = rt_h.calc_meta.kv_shard_len
+            for st, (p_f, p_h) in enumerate(zip(rt_f.cast_plans, rt_h.cast_plans)):
+                x = torch.from_numpy(rng.standard_normal((shard, 3)).astype(np.float32))
+                y = torch.from_numpy(rng.standard_normal((p_f.buf_len, 3)).astype(np.float32))
+                for name, plan, group in (("f", p_f, rt_f.cast_group), ("h", p_h, rt_h.cast_group)):
+                    for dt, hp in ((torch.float32, False), (torch.bfloat16, True)):
+                        xg = x.to(dt).clone().requires_grad_(True)
+                        log: list = []
+                        a2a, rec = _recording_all_to_all(log)
+                        dist.all_to_all_single = rec
+                        try:
+                            parts, waits = group_cast_all(xg, [plan], group, hp)
+                            waits[0]()
+                            fwd_log = list(log)
+                            (parts[1] * y).sum().backward()
+                        finally:
+                            dist.all_to_all_single = a2a
+                        tag = f"{name}{st}_{'hp' if hp else 'f32'}"
+                        extra[f"buf_{tag}"] = parts[1].detach().float().numpy()
+                        extra[f"grad_{tag}"] = xg.grad.float().numpy()
+                        extra[f"fwd_wire_{tag}"] = np.asarray(fwd_log)
+                        extra[f"bwd_wire_{tag}"] = np.asarray(log[len(fwd_log):])
+            np.savez(os.path.join(out_dir, f"{mask}_{rank}.npz"),
+                     **{f"{k}_{n}": a for k, v in res.items()
+                        for n, a in zip(("out", "lse", "dq", "dk", "dv"), v)}, **extra)
+        # the plan cache: a two-level key and a flat key of the same cp
+        # group and mask under the flag never share a plan
+        mask = masks[0]
+        with _env(HIER_FLAG):
+            api.clear_cache()
+            mgrs = [_mgr(key_of(mask, mesh=mesh, cp_axis=pair))]
+            mgrs.append(_mgr(key_of(mask, cp_group=mesh.group(pair))))
+            api.clear_cache()
+            mgrs.append(_mgr(key_of(mask, mesh=mesh, cp_axis=pair)))
+        cache = dict(
+            sources=np.asarray([m.plan_source for m in mgrs]),
+            hier_plans=np.asarray([all(s.hier_plan is not None for s in m.comm_meta.kv_stages)
+                                   for m in mgrs]),
+            runtimes=np.asarray([m.runtime.hier for m in mgrs]),
+            same_metas=mgrs[0].comm_meta is mgrs[2].comm_meta,
+        )
+        with _env({**HIER_FLAG, "MAGI_ATTENTION_QO_COMM": "1"}):
+            try:
+                key_of(mask, mesh=mesh, cp_axis=pair)
+                cache["qo_refusal"] = ""
+            except NotImplementedError as e:
+                cache["qo_refusal"] = str(e)
+        np.savez(os.path.join(out_dir, f"cache_{rank}.npz"), **cache)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# TP x CP (tests/test_torch_tp_cp.py): the JAX package's
+# tests/test_parallel/test_tp_cp.py widths on a (cp 2, tp 2) mesh
+# ---------------------------------------------------------------------------
+
+TP_SEQ, TP_HQ, TP_HK, TP_D, TP_CHUNK = 256, 4, 2, 32, 16
+TP_MASKS = {
+    "causal": ([[0, TP_SEQ]], [[0, TP_SEQ]], [1]),
+    "shared_prefix": ([[0, 128], [128, TP_SEQ], [128, TP_SEQ]],
+                      [[0, 128], [0, 128], [128, TP_SEQ]], [0, 0, 1]),
+}
+
+
+def tp_inputs(seed: int = 0, hk: int = TP_HK):
+    """float32 q, k, v and dO of the TP x CP cases, natural order."""
+    q, k, v = qkv(np.random.default_rng(seed), TP_SEQ, TP_SEQ, TP_HQ, hk, TP_D)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    return q, k, v, do
+
+
+def tp_heads(t: int, tp: int, n: int) -> slice:
+    """TP rank t's heads of n, as Megatron splits them."""
+    return slice(t * n // tp, (t + 1) * n // tp)
+
+
+def tp_worker(rank: int, world: int, init_file: str, out_dir: str, masks: list) -> None:
+    """One rank of a (cp 2, tp 2) gloo world: for each mask, the API with
+    ``mesh, cp_axis="cp", head_axis="tp"`` on this rank's heads (q heads
+    ``hq / 2``, kv heads ``hk / 2``), forward with max-logits and backward;
+    the solves this process ran (a key without ``head_axis`` must reuse the
+    plan); then kv heads that do not split over TP, and ``head_axis`` under
+    qo-comm. Results to ``out_dir/<case>_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api, dist_attn_runtime_mgr
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.parallel import ProcessMesh
+
+    solves = []
+    solve = dist_attn_runtime_mgr.make_attn_meta_from_dispatch_meta
+
+    def counted(*args, **kwargs):
+        solves.append(1)
+        return solve(*args, **kwargs)
+
+    dist_attn_runtime_mgr.make_attn_meta_from_dispatch_meta = counted
+    try:
+        mesh = ProcessMesh(np.arange(4).reshape(2, 2), ("cp", "tp"))
+        t = mesh.coord("tp")
+        heads, kv_heads = tp_heads(t, 2, TP_HQ), tp_heads(t, 2, TP_HK)
+
+        def key_of(mask, **kw):
+            qr, kr, tm = TP_MASKS[mask]
+            return api.magi_attn_flex_key(qr, kr, tm, TP_SEQ, TP_SEQ, mesh=mesh, cp_axis="cp",
+                                          device="cpu", chunk_size=TP_CHUNK, **kw)
+
+        for mask in masks:
+            before = len(solves)
+            key = key_of(mask, head_axis="tp")
+            got, ml = _api_fwd_bwd(key, tp_inputs(), heads, kv_heads, max_logits=True)
+            plain = _mgr(key_of(mask))  # the same cp line without head_axis
+            np.savez(
+                os.path.join(out_dir, f"{mask}_{rank}.npz"), tp=t, cp=mesh.coord("cp"), ml=ml,
+                **dict(zip(("out", "lse", "dq", "dk", "dv"), got)),
+                solves=len(solves) - before, reuse=plain.plan_source,
+                send_idx=np.concatenate([s.send_idx.ravel() for s in plain.comm_meta.kv_stages]),
+            )
+        res = {}
+        api.clear_cache()  # a new runtime checks the heads at its first call
+        key = key_of(masks[0], head_axis="tp")
+        try:  # three kv heads: 2 on tp rank 0, 1 on tp rank 1
+            _api_fwd_bwd(key, tp_inputs(hk=3), heads, tp_heads(t, 2, 3))
+            res["uneven"] = ""
+        except ValueError as e:
+            res["uneven"] = str(e)
+        with _env({"MAGI_ATTENTION_QO_COMM": "1"}):
+            try:
+                key_of(masks[0], head_axis="tp")
+                res["qo"] = ""
+            except NotImplementedError as e:
+                res["qo"] = str(e)
+        np.savez(os.path.join(out_dir, f"raises_{rank}.npz"), **res)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist_attn_runtime_mgr.make_attn_meta_from_dispatch_meta = solve
+        dist.destroy_process_group()
