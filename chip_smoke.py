@@ -928,7 +928,7 @@ def ffa_fwd_gqa_phase(peaks: dict) -> dict[str, dict]:
         if heads < 2:
             emit({"phase": "ffa_fwd_gqa", **decision, "route": "unpacked (guard)"})
             continue
-        lib_smem = kffa._lib("ffa_fwd_gqa").ffa_fwd_gqa_smem_bytes(d, heads, int(isz == 2))
+        lib_smem = kffa._lib("ffa_fwd_gqa").ffa_fwd_gqa_smem_bytes(d, heads, 64, 64, int(isz == 2))
         if lib_smem != fwd_pack_smem_bytes(d, heads, isz):
             raise AssertionError(
                 f"{name}: kernel smem {lib_smem} != guard's {fwd_pack_smem_bytes(d, heads, isz)}"
@@ -1009,7 +1009,7 @@ def ffa_bwd_gqa_phase(peaks: dict) -> dict[str, dict]:
         if heads < 2:
             emit({"phase": "ffa_bwd_dq_gqa", **decision, "route": "unpacked (guard)"})
             continue
-        lib_smem = kffa._lib("ffa_bwd_dq_gqa").ffa_bwd_dq_gqa_smem_bytes(d, heads, int(isz == 2))
+        lib_smem = kffa._lib("ffa_bwd_dq_gqa").ffa_bwd_dq_gqa_smem_bytes(d, heads, 64, 64, int(isz == 2))
         if lib_smem != dq_pack_smem_bytes(d, heads, isz):
             raise AssertionError(
                 f"{name}: kernel smem {lib_smem} != guard's {dq_pack_smem_bytes(d, heads, isz)}"
@@ -1237,6 +1237,741 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
                 f"{row['faster']} is {row['gap']:.1%} faster"
             )
     return rows
+
+
+# the tiled libraries and the compiled-set kernel of each (utils/mem_budget.py)
+TILE_LIBS = {"ffa_fwd": "fwd", "ffa_bwd_dq": "dq", "ffa_bwd_dkv": "dkv", "ffa_bwd_fused": "fused"}
+PACKED_LIBS = {"ffa_fwd_gqa": "fwd_gqa", "ffa_bwd_dq_gqa": "dq_gqa"}
+# the ragged mask of the instance sweep: two causal documents, a band, rows
+# [640, 700) no slice covers and k rows [600, 700) no slice reaches, at a
+# length that is no multiple of 64 or 128
+TILE_SWEEP_S = 700
+
+
+def tiles_smem_check() -> dict:
+    """Every library's ``<name>_smem_bytes`` for every (dtype, d, bq, bk[,
+    heads]) against the host formula (``utils/mem_budget.py``): equal where
+    the instance is compiled, 0 where it is not; and the card's per-CTA
+    opt-in limit against the budget the formula is held to."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import ffa as kffa
+    from magiattention_tpu_torch.utils import mem_budget as mb
+
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    checked, compiled = 0, {}
+    for lib, kernel in {**TILE_LIBS, **PACKED_LIBS}.items():
+        query = getattr(kffa._lib(lib), f"{lib}_smem_bytes")
+        for isz in (2, 4):
+            for d in (64, 128, 256):
+                for heads in ((2, 4) if lib in PACKED_LIBS else (1,)):
+                    for bq, bk in mb.TILE_PAIRS:
+                        args = (d, heads, bq, bk) if lib in PACKED_LIBS else (d, bq, bk)
+                        got = query(*args, int(isz == 2))
+                        on = mb.is_compiled(kernel, isz, d, bq, bk, heads)
+                        want = mb.ffa_smem_bytes(kernel, d, bq, bk, isz, heads) if on else 0
+                        if got != want:
+                            raise AssertionError(
+                                f"{lib} {args} itemsize {isz}: library smem {got} != formula {want}"
+                            )
+                        checked += 1
+                        if on:
+                            tag = f"{'bf16' if isz == 2 else 'f32'} d{d}" + (
+                                f" g{heads}" if lib in PACKED_LIBS else "")
+                            compiled.setdefault(lib, {}).setdefault(tag, []).append(f"{bq}x{bk}")
+    row = dict(
+        device_smem_per_block_optin=optin, budget=mb.SMEM_PER_CTA, checked=checked,
+        compiled=compiled, instances=sum(len(v) for t in compiled.values() for v in t.values()),
+    )
+    emit({"phase": "tiles_smem", **row})
+    if optin is not None and optin != mb.SMEM_PER_CTA:
+        raise AssertionError(f"the card's opt-in limit {optin} != the budget {mb.SMEM_PER_CTA}")
+    return row
+
+
+def sweep_grad_check(name: str, got, want, dtype: str) -> dict:
+    """:func:`grad_check` for the instance sweep's gradients: bf16 at its
+    gates; float32 within 1e-5 of the larger of 1 and the plain version's
+    largest magnitude (dk/dv sum up to 600 products a key row here, values
+    of a few units, where float32 sums in two orders differ by more than
+    1e-5 absolute), and rel-norm 1e-5."""
+    import torch
+
+    if dtype == "bfloat16":
+        return grad_check(name, got, want, dtype)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel result is not finite")
+    a, b = got.double(), want.double()
+    scale = max(1.0, b.abs().max().item())
+    err = {
+        "max_abs_err": (a - b).abs().max().item(),
+        "rel_norm_err": ((a - b).norm() / b.norm().clamp_min(1e-30)).item(),
+        "scale": scale,
+    }
+    if not (err["max_abs_err"] <= ATOL[dtype] * scale and err["rel_norm_err"] <= RNORM[dtype]):
+        raise AssertionError(
+            f"{name}: kernel vs plain {err} beyond atol {ATOL[dtype]} x {scale}, "
+            f"rel-norm {RNORM[dtype]}"
+        )
+    return err
+
+
+def tiles_sweep_mask():
+    from magiattention_tpu_torch.kernels.mask_utils import BAND_INF
+
+    qr = np.array([[0, 256], [256, 448], [448, 640]], np.int32)
+    kr = np.array([[0, 256], [256, 448], [300, 600]], np.int32)
+    lo = np.array([-BAND_INF, -BAND_INF, -260], np.int32)
+    hi = np.array([0, 0, -60], np.int32)
+    return qr, kr, lo, hi
+
+
+def tiles_instances_phase() -> dict:
+    """Every compiled (kernel, dtype, d, bq, bk) instance against its plain
+    version on the ragged mask (:func:`tiles_sweep_mask`; uncovered rows
+    (0, -inf) and zero dq, unreached k rows zero dk/dv), and each packed
+    instance bit for bit against the unpacked kernel at its tiles. The
+    forward at the dtype's gates, the gradients at
+    :func:`sweep_grad_check`'s."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import ffa as kffa
+    from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
+    from magiattention_tpu_torch.kernels.sdpa import dense_max_logits, sdpa_attn
+    from magiattention_tpu_torch.utils import mem_budget as mb
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    S = TILE_SWEEP_S
+    qr, kr, lo, hi = tiles_sweep_mask()
+    worst, n, ml_worst = {}, 0, {}
+
+    def note(key, err):
+        w = worst.setdefault(key, 0.0)
+        worst[key] = max(w, err["max_abs_err"])
+
+    for dt in (torch.bfloat16, torch.float32):
+        dname, isz = str(dt).removeprefix("torch."), 2 if dt == torch.bfloat16 else 4
+        for d in (64, 128, 256):
+            for hq, hk in ((4, 2), (8, 2)):
+                q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").to(dt) for sh in (
+                    (S, hq, d), (S, hk, d), (S, hk, d), (S, hq, d)))
+                scale = d ** -0.5
+                out_p, lse_p = sdpa_attn(q, k, v, qr, kr, softmax_scale=scale, d_lo=lo, d_hi=hi)
+                ml_p = dense_max_logits(q, k, qr, kr, softmax_scale=scale, d_lo=lo, d_hi=hi).double()
+                delta = kffa.ffa_delta_plain(out_p, do)
+                for bq, bk in mb.TILE_PAIRS:
+                    plan = get_ffa_plan(qr, kr, lo, hi, S, S, bq, bk)
+                    params = kffa.FFAParams(
+                        num_q_tiles=plan.num_q_tiles, num_k_tiles=plan.num_k_tiles,
+                        block_q=bq, block_k=bk, softmax_scale=scale, softcap=0.0,
+                    )
+                    tag = f"{dname} d{d} g{hq // hk} {bq}x{bk}"
+                    if mb.is_compiled("fwd", isz, d, bq, bk):
+                        out_k, lse_k = kffa.ffa_fwd_kernel(q, k, v, plan, params)
+                        err = errors(out_k, lse_k, out_p, lse_p)
+                        check(f"tiles fwd {tag}", err, dname)
+                        if out_k[640:].any() or not torch.isneginf(lse_k[640:]).all():
+                            raise AssertionError(f"tiles fwd {tag}: uncovered rows are not (0, -inf)")
+                        note(f"fwd {dname}", err)
+                        # max-logits: reduced over the tile's warpgroups
+                        out_m, lse_m, ml = kffa.ffa_fwd_kernel(q, k, v, plan, params, return_max_logits=True)
+                        if not (torch.equal(out_m, out_k) and torch.equal(lse_m, lse_k)):
+                            raise AssertionError(f"tiles fwd {tag}: out/lse change when max-logits is asked for")
+                        rel = ((ml.double() - ml_p).abs() / ml_p.abs()).max().item()
+                        if not torch.isfinite(ml).all() or not rel <= ML_RTOL:
+                            raise AssertionError(f"tiles fwd {tag}: max-logits rel err {rel:.3e} > {ML_RTOL}")
+                        ml_worst[dname] = max(ml_worst.get(dname, 0.0), rel)
+                        n += 1
+                        heads = kffa.fwd_pack_heads(hq // hk, d, d, isz, bq, bk)
+                        if heads > 1:
+                            out_g, lse_g = kffa.ffa_fwd_gqa_kernel(q, k, v, plan, params)
+                            if not (torch.equal(out_g, out_k) and torch.equal(lse_g, lse_k)):
+                                raise AssertionError(f"tiles fwd_gqa {tag} g{heads}: not bitwise the unpacked")
+                            n += 1
+                    args = (q, k, v, do, lse_p, delta, plan, params)
+                    if mb.is_compiled("dq", isz, d, bq, bk):
+                        dq = kffa.ffa_bwd_dq_kernel(*args)
+                        dq_p = kffa.ffa_bwd_dq_plain(*args)
+                        note(f"dq {dname}", sweep_grad_check(f"tiles dq {tag}", dq, dq_p, dname))
+                        if dq[640:].any():
+                            raise AssertionError(f"tiles dq {tag}: dq of uncovered rows is not 0")
+                        n += 1
+                        heads = kffa.dq_pack_heads(hq // hk, d, d, isz, bq, bk)
+                        if heads > 1:
+                            if not torch.equal(kffa.ffa_bwd_dq_gqa_kernel(*args), dq):
+                                raise AssertionError(f"tiles dq_gqa {tag} g{heads}: not bitwise the unpacked")
+                            n += 1
+                        del dq_p
+                    if mb.is_compiled("dkv", isz, d, bq, bk):
+                        (dk, dv), (dk_p, dv_p) = kffa.ffa_bwd_dkv_kernel(*args), kffa.ffa_bwd_dkv_plain(*args)
+                        note(f"dkv {dname}", sweep_grad_check(f"tiles dk {tag}", dk, dk_p, dname))
+                        note(f"dkv {dname}", sweep_grad_check(f"tiles dv {tag}", dv, dv_p, dname))
+                        if dk[600:].any() or dv[600:].any():
+                            raise AssertionError(f"tiles dkv {tag}: unreached k rows are not 0")
+                        n += 1
+                    if mb.is_compiled("fused", isz, d, bq, bk):
+                        dq_f, dk_f, dv_f = kffa.ffa_bwd_fused_kernel(*args)
+                        dq_p, dk_p, dv_p = kffa.ffa_bwd_fused_plain(*args)
+                        for gname, a, b in zip(("dq", "dk", "dv"), (dq_f, dk_f, dv_f), (dq_p, dk_p, dv_p)):
+                            note(f"fused {dname}", sweep_grad_check(f"tiles fused {gname} {tag}", a, b, dname))
+                        n += 1
+                torch.cuda.synchronize()
+    row = dict(instances_checked=n, worst_max_abs_err=worst, seq=S,
+               atol=ATOL, rnorm=RNORM, max_logits_worst_rel_err=ml_worst, max_logits_rtol=ML_RTOL)
+    emit({"phase": "tiles_instances", **row})
+    return row
+
+
+def _fit_overhead(rows: list[dict]) -> dict:
+    """Least squares of ``ms / hq = a * padded + b * items`` over the
+    forward's (B1) times at every tile pair and mask: ``a`` the ms of one
+    padded score element of a head, ``b`` one work item's fixed cost;
+    ``b / a`` in score-element units (``overhead_elems_fit``) and, held at
+    >= 0 (a per-item cost is not negative), the tile policy's constant
+    ``overhead_elems`` with ``a`` refitted alone where it binds; each row's
+    relative residual."""
+    A = np.array([[r["padded_elems"], r["items"]] for r in rows], dtype=np.float64)
+    t = np.array([r["ms"] / r["hq"] for r in rows], dtype=np.float64)
+    (a, b), *_ = np.linalg.lstsq(A, t, rcond=None)
+    fit = dict(ms_per_elem_fit=float(a), ms_per_item_fit=float(b), overhead_elems_fit=float(b / a))
+    if b < 0:
+        a, b = float(np.dot(A[:, 0], t) / np.dot(A[:, 0], A[:, 0])), 0.0
+    resid = (A @ np.array([a, b]) - t) / t
+    return dict(fit, ms_per_elem=float(a), ms_per_item=float(b), overhead_elems=float(b / a),
+                max_rel_residual=float(np.abs(resid).max()))
+
+
+def tiles_phase(peaks: dict) -> dict:
+    """The tile instances and the tile policy on the card (ROADMAP A3).
+
+    1. ``tiles_smem``: every library's shared memory against the host
+       formula, and the card's per-CTA limit (:func:`tiles_smem_check`);
+    2. ``tiles_instances``: every compiled instance against its plain
+       version (:func:`tiles_instances_phase`);
+    3. ``tiles_time``: each kernel's instances at d 128, bf16, timed in
+       interleaved rounds (:func:`paired_ms`) at the headline shape (bench.py:
+       causal 8192, hq 16, hk 8) and the train shape, each held against its
+       plain version on the same inputs, with its bound; the forward also
+       at the varlen and sink-window masks, from which OVERHEAD_ELEMS is
+       fitted (:func:`_fit_overhead`), and the lse merge timed for
+       MERGE_OVERHEAD_PER_ROW; the float32 forward's instances at the
+       serving prefill;
+    4. ``tiles_path``: ``ffa_attn`` forward and backward through the entry
+       point at the headline shape under every tile pin
+       (MAGI_ATTENTION_FFA_BLOCK_Q/K), per-pass pins (..._DQ / _DKV), the
+       pack flags at a 128-row k tile and MAGI_ATTENTION_FFA_AUTO_TILE=1,
+       each against the default 64 x 64 plan (bf16 gates), with the
+       launches of each instance in those runs (counts reset just before);
+    5. ``tiles_policy``: the policy's per-pass pick and the default's fwd +
+       bwd timed in interleaved rounds at the headline and train shapes;
+       the mixed dispatch against the single plan on a fragmented varlen
+       mask (the registry's pin), timed likewise.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from magiattention_tpu_torch.kernels import ffa as kffa
+    from magiattention_tpu_torch.kernels import tile_policy
+    from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
+    from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+    from magiattention_tpu_torch.utils import mem_budget as mb
+
+    out = {"smem": tiles_smem_check(), "instances": tiles_instances_phase()}
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    cases = mask_cases()
+    d = 128
+    pairs = mb.compiled_tiles("fwd", 2, d)
+    timing, fit_rows = {}, []
+    flops_per = {"ffa_fwd": 4.0, "ffa_bwd_dq": 6.0, "ffa_bwd_dkv": 8.0, "ffa_bwd_fused": 10.0}
+    for key in ("causal_8192_bf16", "train_docs_8192_bf16", "varlen_8192_bf16", "sink_window_8192_bf16"):
+        c = cases[key]
+        (q, k, v, do), (qr, kr, lo, hi), plan64, params64 = case_inputs(c, gen, with_do=True)
+        mask = build_dense_mask_band(qr, kr, lo, hi, c["sq"], c["sk"], device="cuda")
+        live = int(mask.sum().item())
+        hq, isz = c["hq"], 2
+        plans = {p: get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], *p) for p in pairs}
+        prm = {p: dataclasses.replace(params64, num_q_tiles=plans[p].num_q_tiles,
+                                      num_k_tiles=plans[p].num_k_tiles, block_q=p[0], block_k=p[1])
+               for p in pairs}
+        fwd_t = paired_ms({f"{p[0]}x{p[1]}": (lambda p=p: kffa.ffa_fwd_kernel(q, k, v, plans[p], prm[p]))
+                           for p in pairs}, rounds=5, samples=3)
+        for p in pairs:
+            real = kffa._run_items(plans[p].meta, plans[p].run_ptr).sum()
+            fit_rows.append(dict(mask=key, tiles=f"{p[0]}x{p[1]}", hq=hq,
+                                 ms=statistics.median(fwd_t[f"{p[0]}x{p[1]}"]),
+                                 padded_elems=int(real) * p[0] * p[1], items=plans[p].num_work))
+        if key not in ("causal_8192_bf16", "train_docs_8192_bf16"):
+            del q, k, v, do, mask
+            torch.cuda.empty_cache()
+            continue
+        scale = params64.softmax_scale
+        out_p, lse_p = sdpa_attn(q, k, v, qr, kr, softmax_scale=scale, d_lo=lo, d_hi=hi)
+        delta = kffa.ffa_delta_plain(out_p, do)
+        n_q, n_kv = q.numel(), k.numel()
+        in_bytes = (2 * n_q + 2 * n_kv) * isz + 2 * c["sq"] * hq * 4
+        nbytes = {
+            "ffa_fwd": (2 * n_q + 2 * n_kv) * isz + c["sq"] * hq * 4,
+            "ffa_bwd_dq": in_bytes + n_q * 4, "ffa_bwd_dkv": in_bytes + 2 * n_kv * 4,
+            "ffa_bwd_fused": in_bytes + (n_q + 2 * n_kv) * 4,
+        }
+        plain = {
+            "ffa_fwd": lambda: sdpa_attn(q, k, v, qr, kr, softmax_scale=scale, d_lo=lo, d_hi=hi),
+            "ffa_bwd_dq": lambda: kffa.ffa_bwd_dq_plain(q, k, v, do, lse_p, delta, plan64, params64),
+            "ffa_bwd_dkv": lambda: kffa.ffa_bwd_dkv_plain(q, k, v, do, lse_p, delta, plan64, params64),
+            "ffa_bwd_fused": lambda: kffa.ffa_bwd_fused_plain(q, k, v, do, lse_p, delta, plan64, params64),
+        }
+        qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
+        sdpa_kw = dict(is_causal=True) if c.get("library") == "causal" else dict(attn_mask=mask)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw))
+        # the fused backward's library call: SDPA's backward alone (its
+        # forward's graph kept), as in phase ffa_bwd_fused
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True, **sdpa_kw)
+        do_t = do.transpose(0, 1)[None]
+        library_bwd_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do_t, retain_graph=True),
+                                 samples=5)
+        del qg, kg, vg, o_lib, do_t
+        lib_ms = {"ffa_fwd": library_ms, "ffa_bwd_fused": library_bwd_ms}
+        res = {}
+        for lib, kernel in TILE_LIBS.items():
+            lib_pairs = mb.compiled_tiles(kernel, 2, d)
+            fn = {
+                "ffa_fwd": lambda p: kffa.ffa_fwd_kernel(q, k, v, plans[p], prm[p]),
+                "ffa_bwd_dq": lambda p: kffa.ffa_bwd_dq_kernel(q, k, v, do, lse_p, delta, plans[p], prm[p]),
+                "ffa_bwd_dkv": lambda p: kffa.ffa_bwd_dkv_kernel(q, k, v, do, lse_p, delta, plans[p], prm[p]),
+                "ffa_bwd_fused": lambda p: kffa.ffa_bwd_fused_kernel(q, k, v, do, lse_p, delta, plans[p], prm[p]),
+            }[lib]
+            want = plain[lib]()
+            want = want if isinstance(want, tuple) else (want,)
+            errs = {}
+            for p in lib_pairs:
+                got = fn(p)
+                got = got if isinstance(got, tuple) else (got,)
+                if lib == "ffa_fwd":
+                    e = errors(got[0], got[1], want[0], want[1])
+                    check(f"tiles_time {key} {lib} {p}", e, "bfloat16")
+                else:
+                    es = [grad_check(f"tiles_time {key} {lib} {p}", a, b, "bfloat16")
+                          for a, b in zip(got, want)]
+                    e = {m: max(x[m] for x in es) for m in es[0]}
+                errs[p] = e
+                del got
+            del want
+            t = fwd_t if lib == "ffa_fwd" else paired_ms(
+                {f"{p[0]}x{p[1]}": (lambda p=p: fn(p)) for p in lib_pairs}, rounds=5, samples=3)
+            b_ms, b_by = bound(flops_per[lib] * hq * d * live, nbytes[lib], "bfloat16", peaks)
+            plain_ms = time_ms(plain[lib], warmup=1, samples=3)
+            res[lib] = {
+                f"{p[0]}x{p[1]}": dict(
+                    ms=statistics.median(t[f"{p[0]}x{p[1]}"]), rounds_ms=t[f"{p[0]}x{p[1]}"],
+                    max_abs_err=errs[p]["max_abs_err"], rel_norm_err=errs[p]["rel_norm_err"],
+                    items=plans[p].num_work if lib in ("ffa_fwd", "ffa_bwd_dq") else plans[p].num_work_t,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms.get(lib),
+                    smem_bytes=mb.ffa_smem_bytes(kernel, d, *p, 2),
+                )
+                for p in lib_pairs
+            }
+        if key == "causal_8192_bf16":  # the packed instances (group 2: 2 heads a CTA)
+            packed = {
+                "ffa_fwd_gqa": (lambda p: kffa.ffa_fwd_gqa_kernel(q, k, v, plans[p], prm[p]),
+                                "fwd", plain["ffa_fwd"]),
+                "ffa_bwd_dq_gqa": (lambda p: kffa.ffa_bwd_dq_gqa_kernel(
+                    q, k, v, do, lse_p, delta, plans[p], prm[p]), "dq", plain["ffa_bwd_dq"]),
+            }
+            for lib, (fn, base_lib, plain_fn) in packed.items():
+                lib_pairs = mb.compiled_tiles(PACKED_LIBS[lib], 2, d, heads=2)
+                want = plain_fn()
+                errs = {}
+                for p in lib_pairs:
+                    got = fn(p)
+                    if lib == "ffa_fwd_gqa":
+                        e = errors(got[0], got[1], want[0], want[1])
+                        check(f"tiles_time {key} {lib} {p}", e, "bfloat16")
+                    else:
+                        e = grad_check(f"tiles_time {key} {lib} {p}", got, want, "bfloat16")
+                    errs[p] = e
+                    del got
+                del want
+                t = paired_ms({f"{p[0]}x{p[1]}": (lambda p=p: fn(p)) for p in lib_pairs},
+                              rounds=5, samples=3)
+                base_row = res[f"ffa_{'fwd' if base_lib == 'fwd' else 'bwd_dq'}"]["64x64"]
+                res[lib] = {
+                    f"{p[0]}x{p[1]}": dict(
+                        ms=statistics.median(t[f"{p[0]}x{p[1]}"]), rounds_ms=t[f"{p[0]}x{p[1]}"],
+                        max_abs_err=errs[p]["max_abs_err"], plain_ms=base_row["plain_ms"],
+                        bound_ms=base_row["bound_ms"], bound_by=base_row["bound_by"],
+                        library_ms=base_row["library_ms"], heads_per_cta=2,
+                        smem_bytes=mb.ffa_smem_bytes(PACKED_LIBS[lib], d, *p, 2, 2),
+                    )
+                    for p in lib_pairs
+                }
+        timing[key] = res
+        emit({"phase": "tiles_time", "case": key, "q": list(q.shape), "kv": list(k.shape),
+              "live_pairs": live, **res})
+        del q, k, v, do, out_p, lse_p, delta, mask, qt, kt, vt
+        torch.cuda.empty_cache()
+    # the float32 (3xTF32) forward's fit rows: the serving prefill and the
+    # varlen mask
+    f32_rows = []
+    for key in ("serving_prefill_f32", "varlen_8192_bf16"):
+        c = dict(cases[key], dtype=torch.float32)
+        (q, k, v), (qr, kr, lo, hi), _, params64 = case_inputs(c, gen)
+        f32_pairs = mb.compiled_tiles("fwd", 4, d)
+        plans = {p: get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], *p) for p in f32_pairs}
+        prm = {p: dataclasses.replace(params64, num_q_tiles=plans[p].num_q_tiles,
+                                      num_k_tiles=plans[p].num_k_tiles, block_q=p[0], block_k=p[1])
+               for p in f32_pairs}
+        t = paired_ms({f"{p[0]}x{p[1]}": (lambda p=p: kffa.ffa_fwd_kernel(q, k, v, plans[p], prm[p]))
+                       for p in f32_pairs}, rounds=5, samples=3)
+        for p in f32_pairs:
+            real = kffa._run_items(plans[p].meta, plans[p].run_ptr).sum()
+            f32_rows.append(dict(mask=key.replace("bf16", "f32"), tiles=f"{p[0]}x{p[1]}", hq=c["hq"],
+                                 ms=statistics.median(t[f"{p[0]}x{p[1]}"]),
+                                 padded_elems=int(real) * p[0] * p[1], items=plans[p].num_work))
+        del q, k, v
+    fit = {}
+    S, hq = 8192, 16
+    for isz, rows in ((2, fit_rows), (4, f32_rows)):
+        f = _fit_overhead(rows)
+        # the lse merge of a mixed dispatch at the headline shape, per row
+        # and head in score-element units of the fit
+        dt = torch.bfloat16 if isz == 2 else torch.float32
+        o1, o2 = (torch.randn((S, hq, d), generator=gen, device="cuda").to(dt) for _ in range(2))
+        l1, l2 = (torch.randn((S, hq), generator=gen, device="cuda") for _ in range(2))
+        f["merge_ms"] = time_ms(lambda: kffa._merge_out_lse(o1, l1, o2, l2))
+        f["merge_per_row_elems"] = f["merge_ms"] / (S * hq) / f["ms_per_elem"]
+        f["rows"] = rows
+        fit[isz] = f
+        del o1, o2, l1, l2
+    emit({"phase": "tiles_fit", "itemsize_2": fit[2], "itemsize_4": fit[4], "in_code": dict(
+        OVERHEAD_ELEMS=tile_policy.OVERHEAD_ELEMS,
+        MERGE_OVERHEAD_PER_ROW=tile_policy.MERGE_OVERHEAD_PER_ROW)})
+
+    # the float32 (3xTF32) forward's instances at the serving prefill
+    c = cases["serving_prefill_f32"]
+    (q, k, v), (qr, kr, lo, hi), plan64, params64 = case_inputs(c, gen)
+    want = sdpa_attn(q, k, v, qr, kr, softmax_scale=params64.softmax_scale, d_lo=lo, d_hi=hi)
+    f32 = {}
+    f32_pairs = mb.compiled_tiles("fwd", 4, d)
+    f32_fn = {}
+    for p in f32_pairs:
+        pl = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], *p)
+        pr = dataclasses.replace(params64, num_q_tiles=pl.num_q_tiles, num_k_tiles=pl.num_k_tiles,
+                                 block_q=p[0], block_k=p[1])
+        f32_fn[p] = lambda pl=pl, pr=pr: kffa.ffa_fwd_kernel(q, k, v, pl, pr)
+        e = errors(*f32_fn[p](), *want)
+        check(f"tiles f32 fwd {p}", e, "float32")
+        f32[p] = e
+    t = paired_ms({f"{p[0]}x{p[1]}": f32_fn[p] for p in f32_pairs}, rounds=5, samples=3)
+    mask = build_dense_mask_band(qr, kr, lo, hi, c["sq"], c["sk"], device="cuda")
+    live = int(mask.sum().item())
+    b_ms, b_by = fwd_bound(4.0 * c["hq"] * d * live,
+                           (2 * q.numel() + 2 * k.numel()) * 4 + c["sq"] * c["hq"] * 4, "float32", peaks)
+    plain_ms = time_ms(lambda: sdpa_attn(q, k, v, qr, kr, softmax_scale=params64.softmax_scale,
+                                         d_lo=lo, d_hi=hi), warmup=1, samples=3)
+    # SDPA with the band mask, as in phase ffa_fwd (every row is covered)
+    qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    timing["serving_prefill_f32"] = {"ffa_fwd": {
+        f"{p[0]}x{p[1]}": dict(ms=statistics.median(t[f"{p[0]}x{p[1]}"]), rounds_ms=t[f"{p[0]}x{p[1]}"],
+                               max_abs_err=f32[p]["max_abs_err"], plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=library_ms)
+        for p in f32_pairs
+    }}
+    emit({"phase": "tiles_time", "case": "serving_prefill_f32", **timing["serving_prefill_f32"]})
+    del q, k, v, want, mask, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    out["path"] = tiles_path_phase()
+    out["policy"] = tiles_policy_phase()
+    out["timing"], out["fit"] = timing, fit
+    return out
+
+
+def _fwd_bwd(q, k, v, do, qr, kr, lo, hi):
+    """One ``ffa_attn`` forward and backward through the entry point: (out,
+    lse, dq, dk, dv)."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import ffa_attn
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o, lse = ffa_attn(qg, kg, vg, qr, kr, d_lo=lo, d_hi=hi)
+    return (o, lse, *torch.autograd.grad(o, (qg, kg, vg), do))
+
+
+def _same_attn(what: str, got, want) -> dict:
+    """out/lse in the forward's bf16 gates, gradients in the backward's."""
+    err = errors(got[0], got[1], want[0], want[1])
+    check(what, err, "bfloat16")
+    for gname, a, b in zip(("dq", "dk", "dv"), got[2:], want[2:]):
+        e = grad_check(f"{what} {gname}", a, b, "bfloat16")
+        err[f"{gname}_max_abs_err"] = e["max_abs_err"]
+    return err
+
+
+# the tile pins of the tiles path: env -> what it pins
+TILE_PINS = (
+    {"MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
+    {"MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q": "128", "MAGI_ATTENTION_FFA_BLOCK_K": "64"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q": "64", "MAGI_ATTENTION_FFA_BLOCK_K": "128"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q": "128", "MAGI_ATTENTION_FFA_BLOCK_K": "128"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q_DQ": "128", "MAGI_ATTENTION_FFA_BLOCK_K_DQ": "128",
+     "MAGI_ATTENTION_FFA_BLOCK_Q_DKV": "128", "MAGI_ATTENTION_FFA_BLOCK_K_DKV": "128",
+     "MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q_DKV": "128", "MAGI_ATTENTION_FFA_BLOCK_K_DKV": "64",
+     "MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q_DKV": "64", "MAGI_ATTENTION_FFA_BLOCK_K_DKV": "128",
+     "MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q_DKV": "128", "MAGI_ATTENTION_FFA_BLOCK_K_DKV": "128",
+     "MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q_DQ": "128", "MAGI_ATTENTION_FFA_BLOCK_K_DQ": "64",
+     "MAGI_ATTENTION_FFA_BLOCK_Q_DKV": "64", "MAGI_ATTENTION_FFA_BLOCK_K_DKV": "128",
+     "MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q_DQ": "64", "MAGI_ATTENTION_FFA_BLOCK_K_DQ": "128",
+     "MAGI_ATTENTION_FFA_BLOCK_Q_DKV": "128", "MAGI_ATTENTION_FFA_BLOCK_K_DKV": "64",
+     "MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
+    {"MAGI_ATTENTION_FFA_BLOCK_K": "128", "MAGI_ATTENTION_FFA_GQA_PACK": "1",
+     "MAGI_ATTENTION_FFA_GQA_PACK_DQ": "1", "MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
+    {"MAGI_ATTENTION_FFA_AUTO_TILE": "1"},
+)
+
+
+def tiles_path_phase() -> dict:
+    """``ffa_attn`` forward and backward through the entry point at the
+    headline shape under every pin of :data:`TILE_PINS`, against the
+    default 64 x 64 plan: the tiles path. The launch counts are reset just
+    before and read just after; every compiled bf16 d-128 instance of the
+    forward, dq, dk/dv and fused kernels (and the packed 64 x 128 ones) must
+    have run at least once, and no plain version."""
+    import torch
+
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts, tile_launch_counts
+    from magiattention_tpu_torch.kernels.ffa import ffa_attn
+    from magiattention_tpu_torch.utils import mem_budget as mb
+
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    c = mask_cases()["causal_8192_bf16"]
+    (q, k, v, do), (qr, kr, lo, hi), _, _ = case_inputs(c, gen, with_do=True)
+    base = _fwd_bwd(q, k, v, do, qr, kr, lo, hi)
+    torch.cuda.synchronize()
+    # the float32 forward (the serving prefill's) at every fwd pin
+    cf = mask_cases()["serving_prefill_f32"]
+    (qf, kf, vf), (qrf, krf, lof, hif), _, _ = case_inputs(cf, gen)
+    with torch.no_grad():
+        base_f = ffa_attn(qf, kf, vf, qrf, krf, d_lo=lof, d_hi=hif)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rows = []
+    for pins in TILE_PINS:
+        with scoped_env(pins):
+            got = _fwd_bwd(q, k, v, do, qr, kr, lo, hi)
+        rows.append(dict(pins=pins, **_same_attn(f"tiles_path {pins}", got, base)))
+        del got
+    for bq, bk in mb.compiled_tiles("fwd", 4, 128):
+        pins = {"MAGI_ATTENTION_FFA_BLOCK_Q": str(bq), "MAGI_ATTENTION_FFA_BLOCK_K": str(bk)}
+        with scoped_env(pins), torch.no_grad():
+            got = ffa_attn(qf, kf, vf, qrf, krf, d_lo=lof, d_hi=hif)
+        err = errors(got[0], got[1], base_f[0], base_f[1])
+        check(f"tiles_path float32 {pins}", err, "float32")
+        rows.append(dict(pins=pins, dtype="float32", **err))
+    torch.cuda.synchronize()
+    counts, tiles = launch_counts(), tile_launch_counts()
+    missing = [
+        f"{lib} {p[0]}x{p[1]}" for lib, kernel in TILE_LIBS.items()
+        for p in mb.compiled_tiles(kernel, 2, 128)
+        if tiles[lib].get(f"bfloat16 {p[0]}x{p[1]}", 0) == 0
+    ] + [
+        f"ffa_fwd float32 {p[0]}x{p[1]}" for p in mb.compiled_tiles("fwd", 4, 128)
+        if tiles["ffa_fwd"].get(f"float32 {p[0]}x{p[1]}", 0) == 0
+    ] + [f"{lib} 64x128" for lib in PACKED_LIBS if tiles[lib].get("bfloat16 64x128", 0) == 0]
+    plains = {n: counts[n] for n in ("sdpa_attn", "ffa_bwd_dq_plain", "ffa_bwd_dkv_plain",
+                                     "ffa_bwd_fused_plain", "ffa_delta_plain") if counts[n]}
+    emit({"phase": "tiles_path", "runs": rows, "tile_launches": tiles, "missing": missing,
+          "plain_calls": plains})
+    if missing or plains:
+        raise AssertionError(f"tiles path: instances never launched {missing}, plain calls {plains}")
+    # a pair the float32 backward is not compiled for raises, nothing falls back
+    qg = qf.detach().requires_grad_(True)
+    with scoped_env({"MAGI_ATTENTION_FFA_BLOCK_Q": "128", "MAGI_ATTENTION_FFA_BLOCK_K": "128"}):
+        o, _ = ffa_attn(qg, kf, vf, qrf, krf, d_lo=lof, d_hi=hif)
+        try:
+            o.sum().backward()
+        except ValueError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("a float32 backward at 128 x 128 ran: it is not compiled")
+    emit({"phase": "tiles_uncompiled", "raised": raised})
+    del q, k, v, do, base, qf, kf, vf, qg, o
+    torch.cuda.empty_cache()
+    return {"tile_launches": tiles}
+
+
+def fragmented_mask(S: int = 8192):
+    """A varlen mask with dense and fragmented slices: two causal documents
+    of 2048, then 2048 rows in 128 documents of 16 (each a causal triangle
+    far smaller than a tile), and a 16-key sliding band over the last 2048
+    rows."""
+    from magiattention_tpu_torch.kernels.mask_utils import BAND_INF
+
+    qr, kr, lo, hi = [[0, 2048], [2048, 4096]], [[0, 2048], [2048, 4096]], [-BAND_INF] * 2, [0, 0]
+    for s in range(4096, 6144, 16):
+        qr.append([s, s + 16])
+        kr.append([s, s + 16])
+        lo.append(-BAND_INF)
+        hi.append(0)
+    qr.append([6144, S])
+    kr.append([6144, S])
+    lo.append(-15)
+    hi.append(0)
+    return (np.array(qr, np.int32), np.array(kr, np.int32), np.array(lo, np.int32),
+            np.array(hi, np.int32))
+
+
+def tiles_policy_phase() -> dict:
+    """The policy on the card: at the headline and train shapes, the
+    per-pass pick under MAGI_ATTENTION_FFA_AUTO_TILE=1 and the default
+    (64 x 64) fwd + bwd of ``ffa_attn``, timed in interleaved rounds; on
+    :func:`fragmented_mask` (headline heads) the mixed dispatch under the
+    registry's mixed pin against the single plan (pinned single), timed
+    likewise, its gradients against the single plan's. Where the pin finds
+    no finer tiling than the default (no mixed split on this card's
+    candidates), the split is run at the coarse pair (128, 128) with the
+    fragmented slices at 64 x 64 through the same merge
+    (``kernels/ffa.py:_FFAMixed``), and reported so."""
+    import torch
+
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.kernels import ffa as kffa
+    from magiattention_tpu_torch.kernels import tile_policy
+    from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    cases = mask_cases()
+    auto = {"MAGI_ATTENTION_FFA_AUTO_TILE": "1"}
+    res = {}
+    for key in ("causal_8192_bf16", "train_docs_8192_bf16"):
+        c = cases[key]
+        (q, k, v, do), (qr, kr, lo, hi), _, _ = case_inputs(c, gen, with_do=True)
+        pick = tile_policy.choose_blocks_per_pass(qr, kr, lo, hi, c["sq"], c["sk"], 128, 128, 2)
+        t = paired_ms({
+            "default_64x64": lambda: _fwd_bwd(q, k, v, do, qr, kr, lo, hi),
+            "auto": lambda: _with_env(auto, lambda: _fwd_bwd(q, k, v, do, qr, kr, lo, hi)),
+        }, rounds=7, samples=3)
+        row = dict(case=key, pick=dict(fwd=pick[0], dq=pick[1], dkv=pick[2]),
+                   default_ms=statistics.median(t["default_64x64"]), auto_ms=statistics.median(t["auto"]),
+                   rounds=t)
+        emit({"phase": "tiles_policy", **row})
+        res[key] = row
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # the float32 serving prefill, forward alone (what serving runs)
+    c = cases["serving_prefill_f32"]
+    (q, k, v), (qr, kr, lo, hi), _, _ = case_inputs(c, gen)
+    pick = tile_policy.choose_blocks_per_pass(qr, kr, lo, hi, c["sq"], c["sk"], 128, 128, 4)
+
+    def fwd():
+        with torch.no_grad():
+            return kffa.ffa_attn(q, k, v, qr, kr, d_lo=lo, d_hi=hi)
+
+    t = paired_ms({"default_64x64": fwd, "auto": lambda: _with_env(auto, fwd)}, rounds=7, samples=3)
+    row = dict(case="serving_prefill_f32_fwd", pick=dict(fwd=pick[0], dq=pick[1], dkv=pick[2]),
+               default_ms=statistics.median(t["default_64x64"]), auto_ms=statistics.median(t["auto"]),
+               rounds=t)
+    emit({"phase": "tiles_policy", **row})
+    res["serving_prefill_f32_fwd"] = row
+    del q, k, v
+
+    S, hq, hk, d = 8192, 16, 8, 128
+    qr, kr, lo, hi = fragmented_mask(S)
+    q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in (
+        (S, hq, d), (S, hk, d), (S, hk, d), (S, hq, d)))
+    single = {"MAGI_ATTENTION_BACKEND_MIXED_BLOCKS": "single"}
+    mixed = {"MAGI_ATTENTION_BACKEND_MIXED_BLOCKS": "mixed"}
+    with scoped_env(mixed):
+        mix = tile_policy.choose_mixed_dispatch(qr, kr, lo, hi, S, S, d, d, 2)
+    with scoped_env({"MAGI_ATTENTION_BACKEND_MIXED_BLOCKS": None}):
+        unpinned = tile_policy.choose_mixed_dispatch(qr, kr, lo, hi, S, S, d, d, 2)
+    base = _with_env(single, lambda: _fwd_bwd(q, k, v, do, qr, kr, lo, hi))
+    scale = d ** -0.5
+    if mix is not None:
+        how = "policy (mixed pin)"
+        run_mixed = lambda: _with_env(mixed, lambda: _fwd_bwd(q, k, v, do, qr, kr, lo, hi))  # noqa: E731
+        coarse, fine = mix.coarse_blocks, mix.fine_blocks
+        n_dense, n_frag = len(mix.dense_idx), len(mix.frag_idx)
+    else:
+        how = "forced split: coarse (128, 128), fragmented slices at (64, 64)"
+        coarse, fine = (128, 128), (64, 64)
+        ratios = tile_policy.slice_cover_ratios(qr, kr, lo, hi, *coarse)
+        fi, di = np.nonzero(ratios >= tile_policy.FRAG_THRESHOLD)[0], np.nonzero(ratios < tile_policy.FRAG_THRESHOLD)[0]
+        n_dense, n_frag = len(di), len(fi)
+        pa = get_ffa_plan(qr[di], kr[di], lo[di], hi[di], S, S, *coarse)
+        pb = get_ffa_plan(qr[fi], kr[fi], lo[fi], hi[fi], S, S, *fine)
+        prm_a, prm_b = kffa._mixed_params(pa, scale, 0.0), kffa._mixed_params(pb, scale, 0.0)
+
+        def run_mixed():
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o, lse = kffa._FFAMixed.apply(qg, kg, vg, pa, pb, prm_a, prm_b)
+            return (o, lse, *torch.autograd.grad(o, (qg, kg, vg), do))
+    err = _same_attn("tiles mixed vs single", run_mixed(), base)
+    t = paired_ms({
+        "single": lambda: _with_env(single, lambda: _fwd_bwd(q, k, v, do, qr, kr, lo, hi)),
+        "mixed": run_mixed,
+    }, rounds=7, samples=3)
+    row = dict(case="fragmented_8192_bf16", how=how, coarse=coarse, fine=fine, dense_slices=n_dense,
+               fragmented_slices=n_frag, unpinned_decision="mixed" if unpinned is not None else "single",
+               single_ms=statistics.median(t["single"]), mixed_ms=statistics.median(t["mixed"]),
+               rounds=t, **err)
+    emit({"phase": "tiles_mixed", **row})
+    res["mixed"] = row
+    del q, k, v, do, base
+    torch.cuda.empty_cache()
+    res["gate_host"] = tiles_gate_host()
+    return res
+
+
+def tiles_gate_host(n_steps: int = 16, S: int = 8192) -> dict:
+    """The host time of ``ffa_attn``'s tile flow (``resolve_dispatch``:
+    the mixed gate, then the default tiles) on packings whose document
+    boundaries change every step, as a trainer's do: each step a new
+    causal document set of 8192 tokens (documents of 256-2048 tokens), so
+    every call misses the per-geometry memo. bf16 (the gate declines
+    before scoring) and float32 (the gate scores), ms per call."""
+    from magiattention_tpu_torch.kernels import ffa as kffa
+    from magiattention_tpu_torch.kernels.mask_utils import types_to_bands
+
+    rng = np.random.default_rng(79)
+    geoms = []
+    for _ in range(n_steps):
+        cuts = [0]
+        while cuts[-1] < S:
+            cuts.append(min(S, cuts[-1] + int(rng.integers(256, 2049))))
+        qr = np.array([[a, b] for a, b in zip(cuts[:-1], cuts[1:])], np.int32)
+        geoms.append((qr, qr.copy(), *types_to_bands(qr, qr, np.ones(len(qr), np.int32))))
+    row = {}
+    for dname, isz in (("bfloat16", 2), ("float32", 4)):
+        ms = []
+        for qr, kr, lo, hi in geoms:
+            t0 = time.perf_counter()
+            kffa.resolve_dispatch(qr, kr, lo, hi, S, S, 128, 128, isz)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        row[dname] = dict(median_ms=statistics.median(ms), max_ms=max(ms), ms=ms)
+    row.update(steps=n_steps, docs_per_step=[len(g[0]) for g in geoms])
+    emit({"phase": "tiles_gate_host", **row})
+    return row
+
+
+def _with_env(env: dict, fn):
+    from magiattention_tpu_torch.env.general import scoped_env
+
+    with scoped_env(env):
+        return fn()
 
 
 DECODE_LENGTHS = [0, 1, 15, 16, 17, 1000, 4095, 4096]
@@ -1849,6 +2584,29 @@ def edge_phase() -> None:
         err = errors(*paged_decode_kernel(q, cache, d ** -0.5),
                      *paged_decode_plain(q, cache, d ** -0.5))
         check(name, err, dname)
+        worst[name] = err["max_abs_err"]
+    # ROADMAP C7: paged_attn with a softcap and with the causal band off (the
+    # JAX package's arguments), float32, against the plain version over the
+    # gathered rows
+    from magiattention_tpu_torch.kernels.mask_utils import BAND_INF
+    from magiattention_tpu_torch.kernels.paged_kv import gather_kv, paged_attn
+
+    d, hq, hk, ps, N, P, t, q_start = 128, 8, 2, 16, 64, 16, 40, 160
+    cache = PagedKVCache.create(N, ps, hk, d, 2, P, dtype=torch.float32, device="cuda")
+    cache.k_pages.copy_(torch.randn(cache.k_pages.shape, generator=gen, device="cuda"))
+    cache.v_pages.copy_(torch.randn(cache.v_pages.shape, generator=gen, device="cuda"))
+    assign_pages(cache, 0, np.random.default_rng(7).permutation(N)[: -(-(q_start + t) // ps)])
+    q = torch.randn((t, hq, d), generator=gen, device="cuda")
+    k_rows, v_rows = gather_kv(cache, 0, P)
+    for causal in (True, False):
+        got = paged_attn(q, cache, 0, q_start, P, softcap=30.0, causal=causal)
+        want = sdpa_attn(
+            q, k_rows, v_rows, np.array([[0, t]]), np.array([[0, q_start + t]]), softcap=30.0,
+            d_lo=np.array([-BAND_INF]), d_hi=np.array([q_start if causal else BAND_INF]),
+        )
+        name = f"paged_attn_cap30_causal{int(causal)}_float32"
+        err = errors(*got, *want)
+        check(name, err, "float32")
         worst[name] = err["max_abs_err"]
     packed = head_dim_cases(gen, worst)
     emit({"phase": "edge_cases", "max_abs_err": worst, "head_dim_packed_fwd_launches": packed})
@@ -3952,13 +4710,13 @@ def tensor_core_phase() -> dict[str, dict]:
 
     from magiattention_tpu_torch.kernels import ffa as kffa
 
-    guards = {  # library -> the guard's figure of (d, heads, itemsize)
-        "ffa_fwd": lambda d, g, isz: kffa.fwd_pack_smem_bytes(d, 1, isz),
-        "ffa_fwd_gqa": lambda d, g, isz: kffa.fwd_pack_smem_bytes(d, g, isz),
-        "ffa_bwd_dq": lambda d, g, isz: kffa.dq_pack_smem_bytes(d, 1, isz),
-        "ffa_bwd_dq_gqa": lambda d, g, isz: kffa.dq_pack_smem_bytes(d, g, isz),
-        "ffa_bwd_dkv": lambda d, g, isz: kffa.dkv_smem_bytes(d, isz),
-        "ffa_bwd_fused": lambda d, g, isz: kffa.fused_bwd_smem_bytes(d, isz),
+    guards = {  # library -> the guard's figure of (d, heads, itemsize, bq, bk)
+        "ffa_fwd": lambda d, g, isz, bq, bk: kffa.fwd_pack_smem_bytes(d, 1, isz, bq, bk),
+        "ffa_fwd_gqa": lambda d, g, isz, bq, bk: kffa.fwd_pack_smem_bytes(d, g, isz, bq, bk),
+        "ffa_bwd_dq": lambda d, g, isz, bq, bk: kffa.dq_pack_smem_bytes(d, 1, isz, bq, bk),
+        "ffa_bwd_dq_gqa": lambda d, g, isz, bq, bk: kffa.dq_pack_smem_bytes(d, g, isz, bq, bk),
+        "ffa_bwd_dkv": lambda d, g, isz, bq, bk: kffa.dkv_smem_bytes(d, isz, bq, bk),
+        "ffa_bwd_fused": lambda d, g, isz, bq, bk: kffa.fused_bwd_smem_bytes(d, isz, bq, bk),
     }
     results = {}
     for lib in TC_LIBRARIES:
@@ -3968,11 +4726,13 @@ def tensor_core_phase() -> dict[str, dict]:
         for fn, n in sass.items():
             if TC_TAG not in fn and TF32_TAG not in fn:
                 continue
-            dims = [int(x) for x in re.findall(r"\d+", fn.split("<")[1])]
+            # template <D, G (heads a CTA) or FUSED, BQ, BK>
+            d_, g_, bq_, bk_ = [int(x) for x in re.findall(r"\d+", fn.split("<")[1])]
             bf16 = TC_TAG in fn
-            packed = lib.endswith("_gqa")  # template <D, G>: G heads a CTA
-            smem = query(dims[0], dims[1], int(bf16)) if packed else query(dims[0], int(bf16))
-            want = guards[lib](dims[0], dims[1] if packed else 1, 2 if bf16 else 4)
+            packed = lib.endswith("_gqa")
+            smem = (query(d_, g_, bq_, bk_, int(bf16)) if packed
+                    else query(d_, bq_, bk_, int(bf16)))
+            want = guards[lib](d_, g_ if packed else 1, 2 if bf16 else 4, bq_, bk_)
             if smem != want:
                 raise AssertionError(f"{lib}: {fn} shared memory {smem} != guard's {want}")
             tc[fn] = dict(**n, **ptxas.get(fn, {}), smem_bytes=smem)
@@ -5079,6 +5839,38 @@ def cp4_main(device: str = "cuda", seq: int = CP_SEQ) -> int:
     return 0
 
 
+# each tiled library's tensor-core body and the TPU kernel it replaces
+TILE_ENTRY = {
+    "ffa_fwd": ("ffa_fwd_tc.cuh", "magiattention_tpu/kernels/ffa.py:251"),
+    "ffa_fwd_gqa": ("ffa_fwd_tc.cuh", "magiattention_tpu/kernels/ffa.py:490"),
+    "ffa_bwd_dq": ("ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:751"),
+    "ffa_bwd_dq_gqa": ("ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:944"),
+    "ffa_bwd_dkv": ("bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1208"),
+    "ffa_bwd_fused": ("bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1780"),
+}
+
+
+def tile_entries(tiles: dict) -> list[dict]:
+    """The ``kernels`` line's rows of the tile instances other than 64 x 64
+    (bf16 at the headline shape, the float32 forward at the serving
+    prefill), launches from the tiles path (``tiles_path``)."""
+    launches = tiles["path"]["tile_launches"]
+    rows = []
+    for case, dname in (("causal_8192_bf16", "bfloat16"), ("serving_prefill_f32", "float32")):
+        for lib, by_tile in tiles["timing"][case].items():
+            source, replaces = TILE_ENTRY[lib]
+            if dname == "float32":
+                source = "ffa_fwd_tf32.cuh"
+            for tile, r in by_tile.items():
+                if tile == "64x64":
+                    continue
+                rows.append(kernel_entry(
+                    f"{lib} {dname} d128 {tile}", source, replaces,
+                    launches[lib].get(f"{dname} {tile}", 0), r,
+                ))
+    return rows
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
     return {
         "name": name, "route": "cuda",
@@ -5135,6 +5927,7 @@ def main() -> int:
     dq_gqa = ffa_bwd_gqa_phase(peaks)
     max_logits_phase()
     bwd_mode_phase(bwd, fused, dq_gqa)
+    tiles = tiles_phase(peaks)
     dec = decode_phase(peaks)
     spec = decode_spec_phase(peaks)
     int8 = decode_int8_phase(peaks)
@@ -5242,6 +6035,7 @@ def main() -> int:
             + extra.get("block_sparse_bwd_dq", 0) + extra.get("block_sparse_bwd_dkv", 0),
             bsp["block_sparse_bwd"],
         ),
+        *tile_entries(tiles),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

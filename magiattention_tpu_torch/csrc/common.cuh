@@ -148,6 +148,19 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
+// The dynamic shared memory one CTA may opt into on an H100 (sm_90): 227
+// KB. A tile instance is compiled only where its CTA fits.
+constexpr size_t SMEM_LIMIT = 232448;
+
+// The (head dim, q tile rows, k tile rows) instances of the FFA kernels
+// (kernels/ffa.py, utils/mem_budget.py): X(D, BQ, BK) for each; a
+// library's entry compiles those whose CTA fits SMEM_LIMIT (and whose
+// body takes the pair) and returns cudaErrorInvalidValue for the rest.
+#define MAGI_FFA_TILES(X)                                               \
+  X(64, 64, 64) X(64, 128, 64) X(64, 64, 128) X(64, 128, 128)           \
+  X(128, 64, 64) X(128, 128, 64) X(128, 64, 128) X(128, 128, 128)       \
+  X(256, 64, 64) X(256, 128, 64) X(256, 64, 128) X(256, 128, 128)
+
 // Opt a kernel into more than 48 KB of dynamic shared memory, once. Static:
 // kernels of one signature in two libraries must each reach their own
 // library's CUDA runtime.

@@ -24,17 +24,23 @@
 #include "bwd_kv.cuh"
 #include "bwd_kv_tc.cuh"
 
+// Tiles: the bf16 body takes (bq, bk) in {64, 128}^2 wherever the CTA
+// fits (csrc/common.cuh MAGI_FFA_TILES; at D = 256 only 64 x 64); the
+// float32 CUDA-core body 64 x 64 only. ffa_bwd_dkv_smem_bytes says which (0
+// where not compiled).
+
 // q/do [sq, hq, d], k/v [sk, hk, d] are contiguous rows of one dtype;
 // lse/delta [sq, hq] float32; dk/dv [sk, hk, d] float32, every row written.
 // work_qt_t (W_t,), meta_t (W_t, 15) and run_ptr_t (num_k_tiles + 1,) are
-// the plan's k-major int32 arrays on the device.
+// the plan's k-major int32 arrays on the device, at the launch's tiles.
 extern "C" int ffa_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* delta, float* dk, float* dv,
                                const int* work_qt_t, const int* meta_t,
                                const int* run_ptr_t, int sq, int sk, int hq,
-                               int hk, int d, int num_k_tiles, float scale,
-                               float softcap, void* stream) {
+                               int hk, int d, int bq, int bk, int num_k_tiles,
+                               float scale, float softcap, void* stream) {
+  if (bq != 64 || bk != 64) return (int)cudaErrorInvalidValue;
   return dispatch<float, false>(d, q, k, v, dout, lse, delta, dk, dv, nullptr,
                                 work_qt_t, meta_t, run_ptr_t, sq, sk, hq, hk,
                                 num_k_tiles, scale, softcap, stream);
@@ -45,41 +51,36 @@ extern "C" int ffa_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                 const float* delta, float* dk, float* dv,
                                 const int* work_qt_t, const int* meta_t,
                                 const int* run_ptr_t, int sq, int sk, int hq,
-                                int hk, int d, int num_k_tiles, float scale,
-                                float softcap, void* stream) {
-  switch (d) {
-    case 64:
-      return kv_tc::launch<64, false>(q, k, v, dout, lse, delta, dk, dv,
-                                      nullptr, work_qt_t, meta_t, run_ptr_t,
-                                      sq, sk, hq, hk, num_k_tiles, scale,
-                                      softcap, stream);
-    case 128:
-      return kv_tc::launch<128, false>(q, k, v, dout, lse, delta, dk, dv,
-                                       nullptr, work_qt_t, meta_t, run_ptr_t,
-                                       sq, sk, hq, hk, num_k_tiles, scale,
-                                       softcap, stream);
-    case 256:
-      return kv_tc::launch<256, false>(q, k, v, dout, lse, delta, dk, dv,
-                                       nullptr, work_qt_t, meta_t, run_ptr_t,
-                                       sq, sk, hq, hk, num_k_tiles, scale,
-                                       softcap, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                int hk, int d, int bq, int bk,
+                                int num_k_tiles, float scale, float softcap,
+                                void* stream) {
+#define X(D, BQ, BK)                                                        \
+  if (d == D && bq == BQ && bk == BK)                                       \
+    return kv_tc::launch<D, false, BQ, BK>(q, k, v, dout, lse, delta, dk,   \
+                                           dv, nullptr, work_qt_t, meta_t,  \
+                                           run_ptr_t, sq, sk, hq, hk,       \
+                                           num_k_tiles, scale, softcap,     \
+                                           stream);
+  MAGI_FFA_TILES(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
-// The shared memory one CTA takes (bf16: the tensor-core body, else the
-// float32 one), for the wrapper's figure to be checked against: 0 for a
-// head dim this library has no kernel for.
-extern "C" long ffa_bwd_dkv_smem_bytes(int d, int bf16) {
-  if (d == 64)
-    return bf16 ? (long)kv_tc::Smem<64, false>::bytes
-                : (long)DkvSmem<64>::bytes;
-  if (d == 128)
-    return bf16 ? (long)kv_tc::Smem<128, false>::bytes
-                : (long)DkvSmem<128>::bytes;
-  if (d == 256)
-    return bf16 ? (long)kv_tc::Smem<256, false>::bytes
-                : (long)DkvSmem<256>::bytes;
+// The shared memory one CTA of an instance takes (bf16: the tensor-core
+// body, else the float32 one), for the wrapper's figure to be checked
+// against: 0 for an instance this library does not compile.
+extern "C" long ffa_bwd_dkv_smem_bytes(int d, int bq, int bk, int bf16) {
+  if (!bf16) {
+    if (bq != 64 || bk != 64) return 0;
+    if (d == 64) return (long)DkvSmem<64>::bytes;
+    if (d == 128) return (long)DkvSmem<128>::bytes;
+    if (d == 256) return (long)DkvSmem<256>::bytes;
+    return 0;
+  }
+#define X(D, BQ, BK)                   \
+  if (d == D && bq == BQ && bk == BK) \
+    return kv_tc::smem_bytes<D, false, BQ, BK>();
+  MAGI_FFA_TILES(X)
+#undef X
   return 0;
 }

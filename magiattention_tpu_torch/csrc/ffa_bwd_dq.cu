@@ -21,17 +21,23 @@
 #include "ffa_bwd_dq.cuh"
 #include "ffa_bwd_dq_tc.cuh"
 
+// Tiles: the bf16 body takes (bq, bk) in {64, 128}^2 wherever the CTA
+// fits (csrc/common.cuh MAGI_FFA_TILES; at D = 256 only 64 x 64); the
+// float32 CUDA-core body 64 x 64 only. ffa_bwd_dq_smem_bytes says which
+// (0 where not compiled).
+
 // q/do [sq, hq, d], k/v [sk, hk, d] are contiguous rows of one dtype;
 // lse/delta [sq, hq] and dq [sq, hq, d] float32. work_kt (W,), meta
 // (W, 15) and run_ptr (num_q_tiles + 1,) are the plan's q-major int32
-// arrays on the device, the forward's own.
+// arrays on the device, at the launch's tiles.
 extern "C" int ffa_bwd_dq_f32(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, float* dq,
                               const int* work_kt, const int* meta,
                               const int* run_ptr, int sq, int sk, int hq,
-                              int hk, int d, int num_q_tiles, float scale,
-                              float softcap, void* stream) {
+                              int hk, int d, int bq, int bk, int num_q_tiles,
+                              float scale, float softcap, void* stream) {
+  if (bq != 64 || bk != 64) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64:
       return launch<float, 64, 1>(q, k, v, dout, lse, delta, dq, work_kt,
@@ -55,37 +61,33 @@ extern "C" int ffa_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                const float* delta, float* dq,
                                const int* work_kt, const int* meta,
                                const int* run_ptr, int sq, int sk, int hq,
-                               int hk, int d, int num_q_tiles, float scale,
-                               float softcap, void* stream) {
-  switch (d) {
-    case 64:
-      return dq_tc::launch<64, 1>(q, k, v, dout, lse, delta, dq, work_kt,
-                                  meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                  scale, softcap, stream);
-    case 128:
-      return dq_tc::launch<128, 1>(q, k, v, dout, lse, delta, dq, work_kt,
-                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                   scale, softcap, stream);
-    case 256:
-      return dq_tc::launch<256, 1>(q, k, v, dout, lse, delta, dq, work_kt,
-                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                   scale, softcap, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                               int hk, int d, int bq, int bk, int num_q_tiles,
+                               float scale, float softcap, void* stream) {
+#define X(D, BQ, BK)                                                       \
+  if (d == D && bq == BQ && bk == BK)                                      \
+    return dq_tc::launch<D, 1, BQ, BK>(q, k, v, dout, lse, delta, dq,      \
+                                       work_kt, meta, run_ptr, sq, sk, hq, \
+                                       hk, num_q_tiles, scale, softcap,    \
+                                       stream);
+  MAGI_FFA_TILES(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
-// The shared memory one CTA takes (bf16: the tensor-core body, else the
-// float32 one), for the wrapper's figure to be checked against: 0 for a
-// head dim this library has no kernel for.
-extern "C" long ffa_bwd_dq_smem_bytes(int d, int bf16) {
-  if (d == 64)
-    return bf16 ? (long)dq_tc::Smem<64, 1>::bytes : (long)DqSmem<64, 1>::bytes;
-  if (d == 128)
-    return bf16 ? (long)dq_tc::Smem<128, 1>::bytes
-                : (long)DqSmem<128, 1>::bytes;
-  if (d == 256)
-    return bf16 ? (long)dq_tc::Smem<256, 1>::bytes
-                : (long)DqSmem<256, 1>::bytes;
+// The shared memory one CTA of an instance takes (bf16: the tensor-core
+// body, else the float32 one), for the wrapper's figure to be checked
+// against: 0 for an instance this library does not compile.
+extern "C" long ffa_bwd_dq_smem_bytes(int d, int bq, int bk, int bf16) {
+  if (!bf16) {
+    if (bq != 64 || bk != 64) return 0;
+    if (d == 64) return (long)DqSmem<64, 1>::bytes;
+    if (d == 128) return (long)DqSmem<128, 1>::bytes;
+    if (d == 256) return (long)DqSmem<256, 1>::bytes;
+    return 0;
+  }
+#define X(D, BQ, BK) \
+  if (d == D && bq == BQ && bk == BK) return dq_tc::smem_bytes<D, 1, BQ, BK>();
+  MAGI_FFA_TILES(X)
+#undef X
   return 0;
 }

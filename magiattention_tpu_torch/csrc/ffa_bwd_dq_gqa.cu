@@ -58,6 +58,11 @@ int dispatch_f32(int g, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// The packed bf16 instances: G = 2 at D = 64 and 128, 64-row q tiles (a
+// 128-row tile's two warpgroups are its halves) and 64- or 128-row k tiles;
+// the float32 CUDA-core body 64 x 64 only.
+#define MAGI_DQ_GQA(X) X(64, 64) X(64, 128) X(128, 64) X(128, 128)
+
 // As ffa_bwd_dq_f32/_bf16 (csrc/ffa_bwd_dq.cu), plus heads_per_cta: G,
 // which must divide hq / hk.
 extern "C" int ffa_bwd_dq_gqa_f32(const void* q, const void* k,
@@ -66,10 +71,12 @@ extern "C" int ffa_bwd_dq_gqa_f32(const void* q, const void* k,
                                   float* dq, const int* work_kt,
                                   const int* meta, const int* run_ptr, int sq,
                                   int sk, int hq, int hk, int d,
-                                  int heads_per_cta, int num_q_tiles,
-                                  float scale, float softcap, void* stream) {
+                                  int heads_per_cta, int bq, int bk,
+                                  int num_q_tiles, float scale, float softcap,
+                                  void* stream) {
   const int g = heads_per_cta;
-  if (g < 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
+  if (g < 2 || (hq / hk) % g || bq != 64 || bk != 64)
+    return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64:
       return dispatch_f32<64>(g, q, k, v, dout, lse, delta, dq, work_kt, meta,
@@ -90,33 +97,37 @@ extern "C" int ffa_bwd_dq_gqa_bf16(const void* q, const void* k,
                                    float* dq, const int* work_kt,
                                    const int* meta, const int* run_ptr,
                                    int sq, int sk, int hq, int hk, int d,
-                                   int heads_per_cta, int num_q_tiles,
-                                   float scale, float softcap, void* stream) {
+                                   int heads_per_cta, int bq, int bk,
+                                   int num_q_tiles, float scale,
+                                   float softcap, void* stream) {
   const int g = heads_per_cta;
-  if (g != 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
-  switch (d) {
-    case 64:
-      return dq_tc::launch<64, 2>(q, k, v, dout, lse, delta, dq, work_kt,
-                                  meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                  scale, softcap, stream);
-    case 128:
-      return dq_tc::launch<128, 2>(q, k, v, dout, lse, delta, dq, work_kt,
-                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                   scale, softcap, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (g != 2 || (hq / hk) % g || bq != 64) return (int)cudaErrorInvalidValue;
+#define X(D, BK)                                                            \
+  if (d == D && bk == BK)                                                   \
+    return dq_tc::launch<D, 2, 64, BK>(q, k, v, dout, lse, delta, dq,       \
+                                       work_kt, meta, run_ptr, sq, sk, hq,  \
+                                       hk, num_q_tiles, scale, softcap,     \
+                                       stream);
+  MAGI_DQ_GQA(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
 // The shared memory one CTA takes (bf16: the tensor-core body, else the
 // float32 one), for the wrapper's guard to check its own figure against:
 // 0 for a geometry this library has no kernel for.
-extern "C" long ffa_bwd_dq_gqa_smem_bytes(int d, int g, int bf16) {
+extern "C" long ffa_bwd_dq_gqa_smem_bytes(int d, int g, int bq, int bk,
+                                          int bf16) {
+  if (bq != 64) return 0;
   if (bf16) {
-    if (d == 64 && g == 2) return (long)dq_tc::Smem<64, 2>::bytes;
-    if (d == 128 && g == 2) return (long)dq_tc::Smem<128, 2>::bytes;
+    if (g != 2) return 0;
+#define X(D, BK) \
+  if (d == D && bk == BK) return dq_tc::smem_bytes<D, 2, 64, BK>();
+    MAGI_DQ_GQA(X)
+#undef X
     return 0;
   }
+  if (bk != 64) return 0;
   if (d == 64 && g == 2) return (long)DqSmem<64, 2>::bytes;
   if (d == 64 && g == 4) return (long)DqSmem<64, 4>::bytes;
   if (d == 128 && g == 2) return (long)DqSmem<128, 2>::bytes;

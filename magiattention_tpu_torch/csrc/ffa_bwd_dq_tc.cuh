@@ -39,13 +39,22 @@
 // run over the full width from shared memory, so each half recomputes
 // them, and dQ += dS K reads the half's two 64-column panels of K.
 //
+// Tiles (BQ, BK) of 64 or 128 rows. A 128-row q tile is two warpgroups,
+// each owning a 64-row half (its Q, dO, lse, delta and dQ), that share
+// every K/V stage; it packs no heads (G = 1). A 128-row k tile is loaded
+// whole (its rows contiguous in each 64-column panel) and walked as two
+// 64-key blocks inside the item, S, dP and dQ += dS K per block: the
+// register plan stays the 64 x 64 one (S and dP of n = 128 beside a
+// 64-float dQ would leave no room at D = 128).
+//
 // What bounds it on this card: operations, 6 * D flops per live pair and
 // head on the bf16 tensor cores (989 TFLOP/s on an H100 SXM). Shared
-// memory: G Q and G dO tiles and two stages of K and V, (2 G + 4) * 64 *
-// D * 2 + 1024 bytes (99,328 at D = 128, G = 1: two CTAs per SM; 132,096
-// at G = 2: one; 197,632 at D = 256, G = 1). Registers: the dQ
-// accumulator (DV / 2 floats a thread, DV = min(D, 128)), S and dP (32
-// each), dS's A fragments (16).
+// memory: the warpgroups' Q and dO tiles and two stages of K and V,
+// 2 * warpgroups * 64 * D * 2 + 2 * 2 * BK * D * 2 + 1024 bytes (99,328
+// at D = 128, 64 x 64, G = 1: two CTAs per SM; 132,096 at G = 2: one;
+// 197,632 at 128 x 128; 197,632 at D = 256, 64 x 64, the one pair that
+// fits there). Registers: the dQ accumulator (DV / 2 floats a thread,
+// DV = min(D, 128)), S and dP (32 each), dS's A fragments (16).
 #pragma once
 
 #include "tc.cuh"
@@ -57,9 +66,6 @@ using namespace magi::tc;
 using magi::LOG2E;
 using magi::META_DIM;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-
 // the dq columns one CTA computes (a 128-column half at D = 256) and the
 // halves of a row
 template <int D>
@@ -67,17 +73,24 @@ constexpr int DV = D > 128 ? 128 : D;
 template <int D>
 constexpr int NCH = D / DV<D>;
 
-template <int D, int G>
+// G heads of one kv head, or (G = 1) the BQ / 64 row halves of one head:
+// one warpgroup each
+template <int G, int BQ>
+constexpr int NWG = G * (BQ / 64);
+
+template <int D, int G, int BQ = 64, int BK = 64>
 struct Smem {
+  static constexpr int WG = NWG<G, BQ>;
   static constexpr uint32_t TILE = 64 * D * 2;
-  static constexpr uint32_t DO = G * TILE;      // G dO tiles after G Q tiles
-  static constexpr uint32_t KV = 2 * G * TILE;  // [2 stages][K, V]
+  static constexpr uint32_t KT = BK * D * 2;     // K (or V) of a stage
+  static constexpr uint32_t DO = WG * TILE;      // dO tiles after Q tiles
+  static constexpr uint32_t KV = 2 * WG * TILE;  // [2 stages][K, V]
   // + 1024: the dynamic window is rounded up to a 1024-byte boundary
-  static constexpr size_t bytes = KV + 4 * TILE + 1024;
+  static constexpr size_t bytes = KV + 4 * KT + 1024;
 };
 
-template <int D, int G>
-__global__ void __launch_bounds__(128 * G, 1)
+template <int D, int G, int BQ, int BK>
+__global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
     ffa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
@@ -90,8 +103,9 @@ __global__ void __launch_bounds__(128 * G, 1)
                          const int* __restrict__ run_ptr, int sq, int sk,
                          int hq, int hk, int num_q_tiles, float scale,
                          float softcap) {
-  using S = Smem<D, G>;
-  constexpr int NT = 128 * G;
+  static_assert(G == 1 || BQ == 64, "a 128-row q tile packs no heads");
+  using S = Smem<D, G, BQ, BK>;
+  constexpr int NT = 128 * NWG<G, BQ>;
   constexpr int W = DV<D>;  // dq columns of this CTA
   constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -104,17 +118,17 @@ __global__ void __launch_bounds__(128 * G, 1)
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
   const int c0 = 2 * (lane & 3);  // columns c0, c0 + 1 of each 8-col chunk
   const int qt = num_q_tiles - 1 - (int)blockIdx.x;
-  const int h = blockIdx.y * G + wg;
+  const int h = blockIdx.y * G + wg % G;
   const int hkv = (int)(blockIdx.y * G) / (hq / hk);
-  const int q0 = qt * BQ;
+  const int q0 = qt * BQ + (wg / G) * 64;  // this warpgroup's first row
   const long q_rs = (long)hq * D, kv_rs = (long)hk * D;
   const uint32_t Qs = base + wg * S::TILE;
   const uint32_t dOs = base + S::DO + wg * S::TILE;
 
   load_tile_async<D, 128>(Qs, q + ((long)q0 * hq + h) * D, q_rs,
-                          min(BQ, sq - q0), t);
+                          min(64, sq - q0), t);
   load_tile_async<D, 128>(dOs, dout + ((long)q0 * hq + h) * D, q_rs,
-                          min(BQ, sq - q0), t);
+                          min(64, sq - q0), t);
   cp_async_commit();
 
   const int w_end = run_ptr[qt + 1];
@@ -124,11 +138,11 @@ __global__ void __launch_bounds__(128 * G, 1)
   };
   auto load_kv = [&](int w, int stage) {
     const int k0 = work_kt[w] * BK;
-    const uint32_t Ks = base + S::KV + 2 * stage * S::TILE;
+    const uint32_t Ks = base + S::KV + 2 * stage * S::KT;
     const long off = ((long)k0 * hk + hkv) * D;
-    load_tile_async<D, NT>(Ks, k + off, kv_rs, min(BK, sk - k0), tid);
-    load_tile_async<D, NT>(Ks + S::TILE, v + off, kv_rs, min(BK, sk - k0),
-                           tid);
+    load_tile_async<D, NT, BK>(Ks, k + off, kv_rs, min(BK, sk - k0), tid);
+    load_tile_async<D, NT, BK>(Ks + S::KT, v + off, kv_rs, min(BK, sk - k0),
+                               tid);
   };
 
   int w = next_real(run_ptr[qt]);
@@ -164,59 +178,63 @@ __global__ void __launch_bounds__(128 * G, 1)
     __syncthreads();
 
     const magi::Item item(meta + (long)w * META_DIM);
-    const int k0 = work_kt[w] * BK;
-    const uint32_t Ks = base + S::KV + 2 * stage * S::TILE;
-    const uint32_t Vs = Ks + S::TILE;
+#pragma unroll 1
+    for (int j = 0; j < BK / 64; ++j) {  // the tile's 64-key blocks
+      const int k0 = work_kt[w] * BK + 64 * j;
+      // block j: rows 64 j .. of the tiles, 64 j * 128 bytes into a panel
+      const uint32_t Ks = base + S::KV + 2 * stage * S::KT + j * 8192;
+      const uint32_t Vs = Ks + S::KT;
 
-    float s[32], dp[32];
+      float s[32], dp[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    fence_regs(s);
-    fence_regs(dp);
-    wgmma_fence();
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64_t00(s, desc_k(Qs, kk), desc_k(Ks, kk), 1);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64_t00(s, desc_k(Qs, kk), desc_k<BK>(Ks, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64_t00(dp, desc_k(dOs, kk), desc_k(Vs, kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64_t00(dp, desc_k(dOs, kk), desc_k<BK>(Vs, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
 
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int hh = (i >> 1) & 1;
-      const int row = r0 + hh * 8;                  // q row of the tile
-      const int col = (i >> 2) * 8 + c0 + (i & 1);  // k row of the tile
-      float x = s[i] * qk_scale, dcap = 1.f;
-      if (capped) {
-        const float th = tanhf(x / softcap);
-        x = softcap * th;
-        dcap = 1.f - th * th;
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        const int row = r0 + hh * 8;                  // q row of the tile
+        const int col = (i >> 2) * 8 + c0 + (i & 1);  // k row of the block
+        float x = s[i] * qk_scale, dcap = 1.f;
+        if (capped) {
+          const float th = tanhf(x / softcap);
+          x = softcap * th;
+          dcap = 1.f - th * th;
+        }
+        const bool live = row_lse[hh] != -INFINITY &&
+                          (item.full || item.live(q0 + row, k0 + col));
+        const float p =
+            live ? (capped ? expf(x - row_lse[hh]) : exp2f(x - row_lse[hh]))
+                 : 0.f;
+        dp[i] = p * (dp[i] - row_delta[hh]) * dcap;
       }
-      const bool live = row_lse[hh] != -INFINITY &&
-                        (item.full || item.live(q0 + row, k0 + col));
-      const float p =
-          live ? (capped ? expf(x - row_lse[hh]) : exp2f(x - row_lse[hh]))
-               : 0.f;
-      dp[i] = p * (dp[i] - row_delta[hh]) * dcap;
-    }
 
-    uint32_t da[4][4];
-    to_a_frags(da, dp);
-    fence_regs(da);
-    fence_regs(acc);
-    wgmma_fence();
+      uint32_t da[4][4];
+      to_a_frags(da, dp);
+      fence_regs(da);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_t1<W>(acc, da[kk],
-                     desc_mn(Ks + ch * (W / 64) * PANEL_BYTES, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(da);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_t1<W>(acc, da[kk],
+                       desc_mn<BK>(Ks + ch * (W / 64) * (BK * 128), kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(da);
+    }
     __syncthreads();  // every warpgroup is done with this stage's K and V
     w = wn;
     stage ^= 1;
@@ -236,24 +254,42 @@ __global__ void __launch_bounds__(128 * G, 1)
   }
 }
 
-template <int D, int G>
+// A pair is compiled where the CTA fits; a 128-row q tile packs no heads.
+template <int D, int G, int BQ, int BK>
+constexpr bool compiled() {
+  return Smem<D, G, BQ, BK>::bytes <= magi::SMEM_LIMIT && (G == 1 || BQ == 64);
+}
+
+template <int D, int G, int BQ = 64, int BK = 64>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, float* dq,
            const int* work_kt, const int* meta, const int* run_ptr, int sq,
            int sk, int hq, int hk, int num_q_tiles, float scale,
            float softcap, void* stream) {
-  static bool smem_ok = false;
-  const size_t smem = Smem<D, G>::bytes;
-  cudaError_t e = magi::allow_smem(ffa_bwd_dq_tc_kernel<D, G>, smem, &smem_ok);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_q_tiles, hq / G, NCH<D>);
-  ffa_bwd_dq_tc_kernel<D, G><<<grid, 128 * G, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta, dq, work_kt, meta,
-      run_ptr, sq, sk, hq, hk, num_q_tiles, scale, softcap);
-  return (int)cudaGetLastError();
+  if constexpr (!compiled<D, G, BQ, BK>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    static bool smem_ok = false;
+    const size_t smem = Smem<D, G, BQ, BK>::bytes;
+    cudaError_t e =
+        magi::allow_smem(ffa_bwd_dq_tc_kernel<D, G, BQ, BK>, smem, &smem_ok);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(num_q_tiles, hq / G, NCH<D>);
+    ffa_bwd_dq_tc_kernel<D, G, BQ, BK>
+        <<<grid, 128 * NWG<G, BQ>, smem, (cudaStream_t)stream>>>(
+            static_cast<const __nv_bfloat16*>(q),
+            static_cast<const __nv_bfloat16*>(k),
+            static_cast<const __nv_bfloat16*>(v),
+            static_cast<const __nv_bfloat16*>(dout), lse, delta, dq, work_kt,
+            meta, run_ptr, sq, sk, hq, hk, num_q_tiles, scale, softcap);
+    return (int)cudaGetLastError();
+  }
+}
+
+// The shared memory of an instance, 0 where it is not compiled.
+template <int D, int G, int BQ, int BK>
+constexpr long smem_bytes() {
+  return compiled<D, G, BQ, BK>() ? (long)Smem<D, G, BQ, BK>::bytes : 0;
 }
 
 }  // namespace dq_tc

@@ -27,6 +27,11 @@
 #include "ffa_fwd_tc.cuh"
 #include "ffa_fwd_tf32.cuh"
 
+// Tiles: (bq, bk) in {64, 128}^2 wherever the CTA fits (csrc/common.cuh
+// MAGI_FFA_TILES; ffa_fwd_smem_bytes says which: 0 where not compiled).
+// The plan's tiles must be the launch's: the kernel reads work_kt * bk and
+// its q tile t as rows [t * bq, t * bq + bq).
+
 // q [sq, hq, d], k/v [sk, hk, d] and out [sq, hq, d] are contiguous rows of
 // one dtype; lse [sq, hq] float32; max_logits [num_q_tiles, hq] float32 or
 // nullptr. work_kt (W,), meta (W, 15) and run_ptr (num_q_tiles + 1,) are the
@@ -35,62 +40,45 @@ extern "C" int ffa_fwd_f32(const void* q, const void* k, const void* v,
                            void* out, float* lse, float* max_logits,
                            const int* work_kt, const int* meta,
                            const int* run_ptr, int sq, int sk, int hq, int hk,
-                           int d, int num_q_tiles, float scale, float softcap,
-                           void* stream) {
-  switch (d) {
-    case 64:
-      return fwd_tf32::launch<64, 1>(q, k, v, out, lse, max_logits, work_kt,
-                                     meta, run_ptr, sq, sk, hq, hk,
-                                     num_q_tiles, scale, softcap, stream);
-    case 128:
-      return fwd_tf32::launch<128, 1>(q, k, v, out, lse, max_logits, work_kt,
-                                      meta, run_ptr, sq, sk, hq, hk,
-                                      num_q_tiles, scale, softcap, stream);
-    case 256:
-      return fwd_tf32::launch<256, 1>(q, k, v, out, lse, max_logits, work_kt,
-                                      meta, run_ptr, sq, sk, hq, hk,
-                                      num_q_tiles, scale, softcap, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                           int d, int bq, int bk, int num_q_tiles,
+                           float scale, float softcap, void* stream) {
+#define X(D, BQ, BK)                                                        \
+  if (d == D && bq == BQ && bk == BK)                                       \
+    return fwd_tf32::launch<D, 1, BQ, BK>(q, k, v, out, lse, max_logits,    \
+                                          work_kt, meta, run_ptr, sq, sk,   \
+                                          hq, hk, num_q_tiles, scale,       \
+                                          softcap, stream);
+  MAGI_FFA_TILES(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ffa_fwd_bf16(const void* q, const void* k, const void* v,
                             void* out, float* lse, float* max_logits,
                             const int* work_kt, const int* meta,
                             const int* run_ptr, int sq, int sk, int hq, int hk,
-                            int d, int num_q_tiles, float scale,
-                            float softcap, void* stream) {
-  switch (d) {
-    case 64:
-      return fwd_tc::launch<64, 1>(q, k, v, out, lse, max_logits, work_kt,
-                                   meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                   scale, softcap, stream);
-    case 128:
-      return fwd_tc::launch<128, 1>(q, k, v, out, lse, max_logits, work_kt,
-                                    meta, run_ptr, sq, sk, hq, hk,
-                                    num_q_tiles, scale, softcap, stream);
-    case 256:
-      return fwd_tc::launch<256, 1>(q, k, v, out, lse, max_logits, work_kt,
-                                    meta, run_ptr, sq, sk, hq, hk,
-                                    num_q_tiles, scale, softcap, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                            int d, int bq, int bk, int num_q_tiles,
+                            float scale, float softcap, void* stream) {
+#define X(D, BQ, BK)                                                        \
+  if (d == D && bq == BQ && bk == BK)                                       \
+    return fwd_tc::launch<D, 1, BQ, BK>(q, k, v, out, lse, max_logits,      \
+                                        work_kt, meta, run_ptr, sq, sk, hq, \
+                                        hk, num_q_tiles, scale, softcap,    \
+                                        stream);
+  MAGI_FFA_TILES(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
-// The shared memory one CTA takes (bf16: csrc/ffa_fwd_tc.cuh, else
-// csrc/ffa_fwd_tf32.cuh), for the wrapper's figure to be checked against: 0
-// for a head dim this library has no kernel for.
-extern "C" long ffa_fwd_smem_bytes(int d, int bf16) {
-  if (d == 64)
-    return bf16 ? (long)fwd_tc::Smem<64, 1>::bytes
-                : (long)fwd_tf32::Smem<64, 1>::bytes;
-  if (d == 128)
-    return bf16 ? (long)fwd_tc::Smem<128, 1>::bytes
-                : (long)fwd_tf32::Smem<128, 1>::bytes;
-  if (d == 256)
-    return bf16 ? (long)fwd_tc::Smem<256, 1>::bytes
-                : (long)fwd_tf32::Smem<256, 1>::bytes;
+// The shared memory one CTA of an instance takes (bf16: csrc/ffa_fwd_tc.cuh,
+// else csrc/ffa_fwd_tf32.cuh), for the wrapper's figure to be checked
+// against: 0 for an instance this library does not compile.
+extern "C" long ffa_fwd_smem_bytes(int d, int bq, int bk, int bf16) {
+#define X(D, BQ, BK)                                                  \
+  if (d == D && bq == BQ && bk == BK)                                 \
+    return bf16 ? fwd_tc::smem_bytes<D, 1, BQ, BK>()                  \
+                : fwd_tf32::smem_bytes<D, 1, BQ, BK>();
+  MAGI_FFA_TILES(X)
+#undef X
   return 0;
 }

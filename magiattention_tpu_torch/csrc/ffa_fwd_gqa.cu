@@ -35,24 +35,37 @@
 #include "ffa_fwd_tc.cuh"
 #include "ffa_fwd_tf32.cuh"
 
+// The packed instances: 64-row q tiles (a 128-row tile's two warpgroups
+// are its halves, which leaves no room for heads) and 64- or 128-row k
+// tiles, wherever the CTA fits; ffa_fwd_gqa_smem_bytes says which.
+// (four warpgroups at 128 keys would hold S and P in 96 of their 128
+// registers a thread: no G = 4 there).
+#define MAGI_FWD_GQA(X)                                                 \
+  X(64, 2, 64) X(64, 2, 128) X(64, 4, 64) X(128, 2, 64) X(128, 2, 128)  \
+  X(256, 2, 64) X(256, 2, 128)
+// float32 (3xTF32) packs two heads at D = 64 and 128 only
+#define MAGI_FWD_GQA_F32(X) \
+  X(64, 2, 64) X(64, 2, 128) X(128, 2, 64) X(128, 2, 128)
+
 // As ffa_fwd_f32/_bf16 (csrc/ffa_fwd.cu) without max_logits, plus
 // heads_per_cta: G, which must divide hq / hk.
 extern "C" int ffa_fwd_gqa_f32(const void* q, const void* k, const void* v,
                                void* out, float* lse, const int* work_kt,
                                const int* meta, const int* run_ptr, int sq,
                                int sk, int hq, int hk, int d,
-                               int heads_per_cta, int num_q_tiles,
-                               float scale, float softcap, void* stream) {
+                               int heads_per_cta, int bq, int bk,
+                               int num_q_tiles, float scale, float softcap,
+                               void* stream) {
   const int g = heads_per_cta;
-  if (g != 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
-  if (d == 128)
-    return fwd_tf32::launch<128, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
-                                    run_ptr, sq, sk, hq, hk, num_q_tiles,
-                                    scale, softcap, stream);
-  if (d == 64)
-    return fwd_tf32::launch<64, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
-                                   run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                                   softcap, stream);
+  if ((hq / hk) % g || bq != 64) return (int)cudaErrorInvalidValue;
+#define X(D, G, BK)                                                          \
+  if (d == D && g == G && bk == BK)                                          \
+    return fwd_tf32::launch<D, G, 64, BK>(q, k, v, out, lse, nullptr,        \
+                                          work_kt, meta, run_ptr, sq, sk,    \
+                                          hq, hk, num_q_tiles, scale,        \
+                                          softcap, stream);
+  MAGI_FWD_GQA_F32(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 
@@ -60,41 +73,35 @@ extern "C" int ffa_fwd_gqa_bf16(const void* q, const void* k, const void* v,
                                 void* out, float* lse, const int* work_kt,
                                 const int* meta, const int* run_ptr, int sq,
                                 int sk, int hq, int hk, int d,
-                                int heads_per_cta, int num_q_tiles,
-                                float scale, float softcap, void* stream) {
+                                int heads_per_cta, int bq, int bk,
+                                int num_q_tiles, float scale, float softcap,
+                                void* stream) {
   const int g = heads_per_cta;
-  if (g < 2 || (hq / hk) % g) return (int)cudaErrorInvalidValue;
-  if (d == 128 && g == 2)
-    return fwd_tc::launch<128, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
-                                  run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                                  softcap, stream);
-  if (d == 64 && g == 2)
-    return fwd_tc::launch<64, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
-                                 run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                                 softcap, stream);
-  if (d == 64 && g == 4)
-    return fwd_tc::launch<64, 4>(q, k, v, out, lse, nullptr, work_kt, meta,
-                                 run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                                 softcap, stream);
-  if (d == 256 && g == 2)
-    return fwd_tc::launch<256, 2>(q, k, v, out, lse, nullptr, work_kt, meta,
-                                  run_ptr, sq, sk, hq, hk, num_q_tiles, scale,
-                                  softcap, stream);
+  if (g < 2 || (hq / hk) % g || bq != 64) return (int)cudaErrorInvalidValue;
+#define X(D, G, BK)                                                          \
+  if (d == D && g == G && bk == BK)                                          \
+    return fwd_tc::launch<D, G, 64, BK>(q, k, v, out, lse, nullptr, work_kt, \
+                                        meta, run_ptr, sq, sk, hq, hk,       \
+                                        num_q_tiles, scale, softcap, stream);
+  MAGI_FWD_GQA(X)
+#undef X
   return (int)cudaErrorInvalidValue;
 }
 
 // The shared memory one CTA takes (bf16: csrc/ffa_fwd_tc.cuh, else
 // csrc/ffa_fwd_tf32.cuh), for the wrapper's guard to check its own figure
-// against: 0 for a geometry this library has no kernel for.
-extern "C" long ffa_fwd_gqa_smem_bytes(int d, int g, int bf16) {
-  if (bf16) {
-    if (d == 64 && g == 2) return (long)fwd_tc::Smem<64, 2>::bytes;
-    if (d == 64 && g == 4) return (long)fwd_tc::Smem<64, 4>::bytes;
-    if (d == 128 && g == 2) return (long)fwd_tc::Smem<128, 2>::bytes;
-    if (d == 256 && g == 2) return (long)fwd_tc::Smem<256, 2>::bytes;
-    return 0;
-  }
-  if (d == 64 && g == 2) return (long)fwd_tf32::Smem<64, 2>::bytes;
-  if (d == 128 && g == 2) return (long)fwd_tf32::Smem<128, 2>::bytes;
+// against: 0 for a geometry this library has no kernel for (float32 packs
+// two heads at D = 64 and 128 only).
+extern "C" long ffa_fwd_gqa_smem_bytes(int d, int g, int bq, int bk,
+                                       int bf16) {
+  if (bq != 64) return 0;
+#define X(D, G, BK) \
+  if (bf16 && d == D && g == G && bk == BK) return fwd_tc::smem_bytes<D, G, 64, BK>();
+  MAGI_FWD_GQA(X)
+#undef X
+#define X(D, G, BK) \
+  if (!bf16 && d == D && g == G && bk == BK) return fwd_tf32::smem_bytes<D, G, 64, BK>();
+  MAGI_FWD_GQA_F32(X)
+#undef X
   return 0;
 }

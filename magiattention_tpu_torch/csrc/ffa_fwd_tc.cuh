@@ -31,13 +31,24 @@
 // recomputes S: about 1.5x the flops of one pass at d = dv = 256. lse and
 // the max logits are written by half 0 only.
 //
+// Tiles (BQ, BK) of 64 or 128 rows each (kernels/ffa.py picks the pair
+// from the plan; csrc/common.cuh MAGI_FFA_TILES lists the instances). A
+// 128-row q tile is two consumer warpgroups, each owning a 64-row half of
+// it, that share every K/V stage (so each K/V tile is loaded once for 128
+// q rows); it packs no heads (G = 1). A 128-row k tile is one m64n128k16
+// product a k-step for S (wgmma's n = 128) and eight k-steps of P V; its
+// K and V tiles keep the 128 rows contiguous in each 64-column panel
+// (tc.cuh: a tile of ROWS rows).
+//
 // What bounds it on this card: operations, 4 * D flops per live pair and
 // head on the bf16 tensor cores (989 TFLOP/s on an H100 SXM). Shared
-// memory: G q tiles and two stages of K and V, (G + 4) * 64 * D * 2 bytes
-// (80 KB at D = 128, G = 1: two CTAs per SM; at D = 256 the V tiles are
-// the 128-column half, 129 KB at G = 1, one CTA per SM). Registers: the O
-// accumulator (DV / 2 floats a thread, DV = min(D, 128)), S (32) and P
-// (16).
+// memory (Smem below): the warpgroups' q tiles and two stages of K and V,
+// 64 * D * 2 * (warpgroups) + 2 * BK * (D + DV) * 2 + 16 * warpgroups +
+// 1024 bytes (80 KB at D = 128 and 64 x 64, G = 1: two CTAs per SM;
+// 160 KB at 128 x 128; at D = 256 the V tiles are the 128-column half,
+// 129 KB at 64 x 64, one CTA per SM; 128 x 128 does not fit there).
+// Registers: the O accumulator (DV / 2 floats a thread, DV = min(D,
+// 128)), S (BK / 2) and P (BK / 4).
 #pragma once
 
 #include "tc.cuh"
@@ -50,9 +61,6 @@ using magi::LN2;
 using magi::LOG2E;
 using magi::META_DIM;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-
 // the output columns one CTA computes (a 128-column half at D = 256) and
 // the halves of a row
 template <int D>
@@ -60,18 +68,25 @@ constexpr int DV = D > 128 ? 128 : D;
 template <int D>
 constexpr int NCH = D / DV<D>;
 
-template <int D, int G>
+// G heads of one kv head, or (G = 1) the BQ / 64 row halves of one head:
+// one consumer warpgroup each
+template <int G, int BQ>
+constexpr int NWG = G * (BQ / 64);
+
+template <int D, int G, int BQ = 64, int BK = 64>
 struct Smem {
-  static constexpr uint32_t TILE = 64 * D * 2;        // Q or K
-  static constexpr uint32_t STAGE = TILE + 64 * DV<D> * 2;  // K, V
-  static constexpr uint32_t KV = G * TILE;        // [2 stages][K, V]
+  static constexpr int WG = NWG<G, BQ>;
+  static constexpr uint32_t TILE = 64 * D * 2;  // one warpgroup's q tile
+  static constexpr uint32_t KT = BK * D * 2;    // K of a stage
+  static constexpr uint32_t STAGE = KT + BK * DV<D> * 2;  // K, V
+  static constexpr uint32_t KV = WG * TILE;       // [2 stages][K, V]
   static constexpr uint32_t RED = KV + 2 * STAGE;  // 4 floats a warpgroup
   // + 1024: the dynamic window is rounded up to a 1024-byte boundary
-  static constexpr size_t bytes = RED + 16 * G + 1024;
+  static constexpr size_t bytes = RED + 16 * WG + 1024;
 };
 
-template <int D, int G>
-__global__ void __launch_bounds__(128 * G, 1)
+template <int D, int G, int BQ, int BK>
+__global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
     ffa_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -81,10 +96,13 @@ __global__ void __launch_bounds__(128 * G, 1)
                       const int* __restrict__ meta,
                       const int* __restrict__ run_ptr, int sq, int sk, int hq,
                       int hk, int num_q_tiles, float scale, float softcap) {
-  using S = Smem<D, G>;
-  constexpr int NT = 128 * G;
+  static_assert(G == 1 || BQ == 64, "a 128-row q tile packs no heads");
+  using S = Smem<D, G, BQ, BK>;
+  constexpr int NT = 128 * NWG<G, BQ>;
   constexpr int W = DV<D>;  // output columns of this CTA
   constexpr int NACC = W / 2;
+  constexpr int NS = BK / 2;   // S floats a thread
+  constexpr int KS = BK / 16;  // k-steps of P V
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -96,14 +114,14 @@ __global__ void __launch_bounds__(128 * G, 1)
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
   const int c0 = 2 * (lane & 3);  // columns c0, c0 + 1 of each 8-col chunk
   const int qt = num_q_tiles - 1 - (int)blockIdx.x;
-  const int h = blockIdx.y * G + wg;
+  const int h = blockIdx.y * G + wg % G;
   const int hkv = (int)(blockIdx.y * G) / (hq / hk);
-  const int q0 = qt * BQ;
+  const int q0 = qt * BQ + (wg / G) * 64;  // this warpgroup's first row
   const long q_rs = (long)hq * D, kv_rs = (long)hk * D;
   const uint32_t Qs = base + wg * S::TILE;
 
   load_tile_async<D, 128>(Qs, q + ((long)q0 * hq + h) * D, q_rs,
-                          min(BQ, sq - q0), t);
+                          min(64, sq - q0), t);
   cp_async_commit();
 
   const int w_end = run_ptr[qt + 1];
@@ -115,9 +133,9 @@ __global__ void __launch_bounds__(128 * G, 1)
     const int k0 = work_kt[w] * BK;
     const uint32_t Ks = base + S::KV + stage * S::STAGE;
     const long off = ((long)k0 * hk + hkv) * D;
-    load_tile_async<D, NT>(Ks, k + off, kv_rs, min(BK, sk - k0), tid);
-    load_tile_async<W, NT>(Ks + S::TILE, v + off + ch * W, kv_rs,
-                           min(BK, sk - k0), tid);
+    load_tile_async<D, NT, BK>(Ks, k + off, kv_rs, min(BK, sk - k0), tid);
+    load_tile_async<W, NT, BK>(Ks + S::KT, v + off + ch * W, kv_rs,
+                               min(BK, sk - k0), tid);
   };
 
   int w = next_real(run_ptr[qt]);
@@ -144,23 +162,23 @@ __global__ void __launch_bounds__(128 * G, 1)
     const magi::Item item(meta + (long)w * META_DIM);
     const int k0 = work_kt[w] * BK;
     const uint32_t Ks = base + S::KV + stage * S::STAGE;
-    const uint32_t Vs = Ks + S::TILE;
+    const uint32_t Vs = Ks + S::KT;
 
-    float s[32];
+    float s[NS];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64_t00(s, desc_k(Qs, kk), desc_k(Ks, kk), 1);
+      wgmma_ss_t00<BK>(s, desc_k(Qs, kk), desc_k<BK>(Ks, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
 
     float rmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int row = r0 + ((i >> 1) & 1) * 8;
       const int col = (i >> 2) * 8 + c0 + (i & 1);
       float x = s[i] * qk_scale;
@@ -182,7 +200,7 @@ __global__ void __launch_bounds__(128 * G, 1)
       l[hh] *= alpha[hh];
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const float p = exp2f(s[i] - m_use[(i >> 1) & 1]);
       s[i] = p;
       l[(i >> 1) & 1] += p;
@@ -190,13 +208,14 @@ __global__ void __launch_bounds__(128 * G, 1)
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    uint32_t pa[4][4];
+    uint32_t pa[KS][4];
     to_a_frags(pa, s);
     fence_regs(pa);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t1<W>(acc, pa[kk], desc_mn(Vs, kk));
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs_t1<W>(acc, pa[kk], desc_mn<BK>(Vs, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -227,38 +246,58 @@ __global__ void __launch_bounds__(128 * G, 1)
           empty ? -INFINITY : (m[hh] + log2f(l[hh])) * LN2;
   }
   if (max_logits != nullptr && ch == 0) {
-    // the tile's max logit of this head: the row maxima of its 4 warps
+    // the tile's max logit of each head: the row maxima of the 4 warps of
+    // each warpgroup of that head
     float mx = fmaxf(m[0], m[1]);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-    float* red = reinterpret_cast<float*>(smem + S::RED) + 4 * wg;
-    if (lane == 0) red[warp] = mx;
+    float* red = reinterpret_cast<float*>(smem + S::RED);
+    if (lane == 0) red[4 * wg + warp] = mx;
     __syncthreads();
-    if (t == 0) {
-      const float mm = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-      max_logits[(long)qt * hq + h] = mm == -INFINITY ? -INFINITY : mm * LN2;
+    if (tid < G) {  // head blockIdx.y * G + tid: warpgroups tid, tid + G, ..
+      float mm = -INFINITY;
+      for (int x = tid; x < S::WG; x += G)
+        mm = fmaxf(mm, fmaxf(fmaxf(red[4 * x], red[4 * x + 1]),
+                             fmaxf(red[4 * x + 2], red[4 * x + 3])));
+      max_logits[(long)qt * hq + blockIdx.y * G + tid] =
+          mm == -INFINITY ? -INFINITY : mm * LN2;
     }
   }
 }
 
-template <int D, int G>
+template <int D, int G, int BQ = 64, int BK = 64>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            float* max_logits, const int* work_kt, const int* meta,
            const int* run_ptr, int sq, int sk, int hq, int hk,
            int num_q_tiles, float scale, float softcap, void* stream) {
-  static bool smem_ok = false;
-  const size_t smem = Smem<D, G>::bytes;
-  cudaError_t e = magi::allow_smem(ffa_fwd_tc_kernel<D, G>, smem, &smem_ok);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_q_tiles, hq / G, NCH<D>);
-  ffa_fwd_tc_kernel<D, G><<<grid, 128 * G, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), lse, max_logits, work_kt, meta,
-      run_ptr, sq, sk, hq, hk, num_q_tiles, scale, softcap);
-  return (int)cudaGetLastError();
+  if constexpr (Smem<D, G, BQ, BK>::bytes > magi::SMEM_LIMIT ||
+                (G > 1 && BQ != 64)) {
+    return (int)cudaErrorInvalidValue;  // not compiled: the CTA does not fit
+  } else {
+    static bool smem_ok = false;
+    const size_t smem = Smem<D, G, BQ, BK>::bytes;
+    cudaError_t e =
+        magi::allow_smem(ffa_fwd_tc_kernel<D, G, BQ, BK>, smem, &smem_ok);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(num_q_tiles, hq / G, NCH<D>);
+    ffa_fwd_tc_kernel<D, G, BQ, BK>
+        <<<grid, 128 * NWG<G, BQ>, smem, (cudaStream_t)stream>>>(
+            static_cast<const __nv_bfloat16*>(q),
+            static_cast<const __nv_bfloat16*>(k),
+            static_cast<const __nv_bfloat16*>(v),
+            static_cast<__nv_bfloat16*>(out), lse, max_logits, work_kt, meta,
+            run_ptr, sq, sk, hq, hk, num_q_tiles, scale, softcap);
+    return (int)cudaGetLastError();
+  }
+}
+
+// The shared memory of an instance, 0 where it is not compiled.
+template <int D, int G, int BQ, int BK>
+constexpr long smem_bytes() {
+  return Smem<D, G, BQ, BK>::bytes > magi::SMEM_LIMIT || (G > 1 && BQ != 64)
+             ? 0
+             : (long)Smem<D, G, BQ, BK>::bytes;
 }
 
 }  // namespace fwd_tc

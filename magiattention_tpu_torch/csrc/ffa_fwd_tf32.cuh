@@ -58,6 +58,14 @@
 // Registers: O and the chunk's P V (DV / 2 floats a thread each, DV =
 // min(D, 128)), S in three accumulators (48) and P's hi and lo (32).
 //
+// Tiles (BQ, BK) of 64 or 128 rows: a 128-row q tile is two consumer
+// warpgroups, each owning a 64-row half with its own hi and lo q tiles
+// (the packed structure, here for the halves of one head, G = 1); a
+// 128-row k tile is four 32-key chunks of its items instead of two. Shared
+// memory does not depend on BK; a 128-row q tile takes what two packed
+// heads take (145 KB at D = 64, 225 KB at D = 128 with one stage; it does
+// not fit at D = 256).
+//
 // Head dim 256: a column split, as csrc/ffa_fwd_tc.cuh's. The CTA takes one
 // 128-column half of out (grid z) and keeps the width-128 register plan;
 // S runs over all 256 columns (32 k-steps), so each half recomputes it.
@@ -77,8 +85,6 @@ using magi::LN2;
 using magi::LOG2E;
 using magi::META_DIM;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;  // keys of a work item
 constexpr int KC = 32;  // keys of a chunk
 
 // the output columns one CTA computes (a 128-column half at D = 256), the
@@ -91,22 +97,28 @@ constexpr int NCH = D / DV<D>;
 template <int D>
 constexpr bool RAW = D <= 128;
 
-template <int D, int G>
+// G heads of one kv head, or (G = 1) the BQ / 64 row halves of one head:
+// one consumer warpgroup each
+template <int G, int BQ>
+constexpr int NWG = G * (BQ / 64);
+
+template <int D, int G, int BQ = 64>
 struct Smem {
-  static constexpr uint32_t QT = BQ * D * 4;  // one q tile, hi or lo
+  static constexpr int WG = NWG<G, BQ>;
+  static constexpr uint32_t QT = 64 * D * 4;  // one 64-row q tile, hi or lo
   static constexpr uint32_t CT = KC * D * 4;  // one K chunk tile
   static constexpr uint32_t CV = KC * DV<D> * 4;  // one V chunk tile
-  static constexpr uint32_t QH = 0;           // [G][hi, lo] q tiles
-  static constexpr uint32_t KR = 2 * G * QT;  // raw K chunk, row-major
+  static constexpr uint32_t QH = 0;            // [WG][hi, lo] q tiles
+  static constexpr uint32_t KR = 2 * WG * QT;  // raw K chunk, row-major
   static constexpr uint32_t VR = KR + (RAW<D> ? CT : 0);  // raw V chunk
   // [NST stages][K hi and lo stacked (64 rows: hi, then lo), V^T hi, lo]
   static constexpr uint32_t ST = VR + (RAW<D> ? CV : 0);
   static constexpr uint32_t STAGE = 2 * CT + 2 * CV;
   // two stages where they fit the opt-in limit (+ 1024: the dynamic
   // window is rounded up to a 1024-byte boundary), else one
-  static constexpr int NST = ST + 2 * STAGE + 16 * G + 1024 <= 232448 ? 2 : 1;
+  static constexpr int NST = ST + 2 * STAGE + 16 * WG + 1024 <= 232448 ? 2 : 1;
   static constexpr uint32_t RED = ST + NST * STAGE;  // 4 floats a warpgroup
-  static constexpr size_t bytes = RED + 16 * G + 1024;
+  static constexpr size_t bytes = RED + 16 * WG + 1024;
 };
 
 // The raw K and V rows [k0, k0 + KC) of kv head hkv by cp.async, row-major
@@ -217,8 +229,8 @@ __device__ __forceinline__ void split_chunk_global(uint8_t* stage,
   }
 }
 
-template <int D, int G>
-__global__ void __launch_bounds__(128 * G, 1)
+template <int D, int G, int BQ, int BK>
+__global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
     ffa_fwd_tf32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ out,
@@ -229,10 +241,12 @@ __global__ void __launch_bounds__(128 * G, 1)
                         const int* __restrict__ run_ptr, int sq, int sk,
                         int hq, int hk, int num_q_tiles, float scale,
                         float softcap) {
-  using S = Smem<D, G>;
-  constexpr int NT = 128 * G;
+  static_assert(G == 1 || BQ == 64, "a 128-row q tile packs no heads");
+  using S = Smem<D, G, BQ>;
+  constexpr int NT = 128 * NWG<G, BQ>;
   constexpr int W = DV<D>;  // output columns of this CTA
   constexpr int NACC = W / 2;
+  constexpr int NSUB = BK / KC;  // chunks of an item
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -244,29 +258,30 @@ __global__ void __launch_bounds__(128 * G, 1)
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
   const int c0 = 2 * (lane & 3);  // columns c0, c0 + 1 of each 8-col chunk
   const int qt = num_q_tiles - 1 - (int)blockIdx.x;
-  const int h = blockIdx.y * G + wg;
+  const int h = blockIdx.y * G + wg % G;
   const int hkv = (int)(blockIdx.y * G) / (hq / hk);
-  const int q0 = qt * BQ;
+  const int qtile0 = qt * BQ;              // the CTA's first q row
+  const int q0 = qtile0 + (wg / G) * 64;   // this warpgroup's first row
   const uint32_t Qh = base + S::QH + 2 * wg * S::QT, Ql = Qh + S::QT;
   const float* kraw = reinterpret_cast<const float*>(smem + S::KR);
   const float* vraw = reinterpret_cast<const float*>(smem + S::VR);
 
-  // the run's chunks in order, (item w, half sub), skipping those no live
+  // the run's chunks in order, (item w, chunk sub), skipping those no live
   // pair of this q tile reaches: a dummy item (an uncovered tile's
   // placeholder), keys past sk, keys outside the item's rectangle or band
   const int w_end = run_ptr[qt + 1];
   auto live_chunk = [&](int w, int sub) {
     const magi::Item it(meta + (long)w * META_DIM);
     const int a = work_kt[w] * BK + sub * KC, b = min(a + KC, sk);
-    const int qa = max(q0, it.qs), qb = min(q0 + BQ, it.qe);
+    const int qa = max(qtile0, it.qs), qb = min(qtile0 + BQ, it.qe);
     const int ka = max(max(a, it.ks), qa + it.lo);
     const int kb = min(min(b, it.ke), qb + it.hi);  // qb - 1 + hi, exclusive
     return qa < qb && ka < kb;
   };
   auto next_chunk = [&](int& w, int& sub) {
     do {
-      if (sub == 0) {
-        sub = 1;
+      if (sub + 1 < NSUB) {
+        ++sub;
       } else {
         ++w;
         sub = 0;
@@ -293,11 +308,12 @@ __global__ void __launch_bounds__(128 * G, 1)
   if (w < w_end && !live_chunk(w, sub)) next_chunk(w, sub);
   load(w, sub);
 
-  // each head's q tile, split into its hi and lo tiles (rows past sq zero)
+  // each warpgroup's q tile, split into its hi and lo tiles (rows past sq
+  // zero)
   {
     const float* qh = q + ((long)q0 * hq + h) * D;
 #pragma unroll 4
-    for (int i = t; i < BQ * D / 4; i += 128) {
+    for (int i = t; i < 64 * D / 4; i += 128) {
       const int r = i / (D / 4), c = (i % (D / 4)) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (q0 + r < sq)
@@ -307,7 +323,7 @@ __global__ void __launch_bounds__(128 * G, 1)
       split_tf32(x.y, hi.y, lo.y);
       split_tf32(x.z, hi.z, lo.z);
       split_tf32(x.w, hi.w, lo.w);
-      const uint32_t o = tile_offset32<BQ>(r, c);
+      const uint32_t o = tile_offset32<64>(r, c);
       *reinterpret_cast<float4*>(smem + (Qh - base) + o) = hi;
       *reinterpret_cast<float4*>(smem + (Ql - base) + o) = lo;
     }
@@ -366,8 +382,8 @@ __global__ void __launch_bounds__(128 * G, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
-      wgmma_tf32_ss_n64(sd, desc_k32<BQ>(Qh, kk), desc_k32<2 * KC>(Kst, kk));
-      wgmma_tf32_ss_n32(se, desc_k32<BQ>(Ql, kk), desc_k32<2 * KC>(Kst, kk));
+      wgmma_tf32_ss_n64(sd, desc_k32<64>(Qh, kk), desc_k32<2 * KC>(Kst, kk));
+      wgmma_tf32_ss_n32(se, desc_k32<64>(Ql, kk), desc_k32<2 * KC>(Kst, kk));
     }
     wgmma_commit();
 
@@ -468,36 +484,62 @@ __global__ void __launch_bounds__(128 * G, 1)
           empty ? -INFINITY : (m[hh] + log2f(l[hh])) * LN2;
   }
   if (max_logits != nullptr && ch == 0) {
-    // the tile's max logit of this head: the row maxima of its 4 warps
+    // the tile's max logit of each head: the row maxima of the 4 warps of
+    // each warpgroup of that head
     float mx = fmaxf(m[0], m[1]);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-    float* red = reinterpret_cast<float*>(smem + S::RED) + 4 * wg;
-    if (lane == 0) red[warp] = mx;
+    float* red = reinterpret_cast<float*>(smem + S::RED);
+    if (lane == 0) red[4 * wg + warp] = mx;
     __syncthreads();
-    if (t == 0) {
-      const float mm = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
-      max_logits[(long)qt * hq + h] = mm == -INFINITY ? -INFINITY : mm * LN2;
+    if (tid < G) {  // head blockIdx.y * G + tid: warpgroups tid, tid + G, ..
+      float mm = -INFINITY;
+      for (int x = tid; x < S::WG; x += G)
+        mm = fmaxf(mm, fmaxf(fmaxf(red[4 * x], red[4 * x + 1]),
+                             fmaxf(red[4 * x + 2], red[4 * x + 3])));
+      max_logits[(long)qt * hq + blockIdx.y * G + tid] =
+          mm == -INFINITY ? -INFINITY : mm * LN2;
     }
   }
 }
 
-template <int D, int G>
+// A pair is compiled where the CTA fits and the body takes it: a 128-row q
+// tile packs no heads. BK is any multiple of KC (64 or 128 here).
+template <int D, int G, int BQ, int BK>
+constexpr bool compiled() {
+  return Smem<D, G, BQ>::bytes <= magi::SMEM_LIMIT && (G == 1 || BQ == 64) &&
+         BK % KC == 0;
+}
+
+template <int D, int G, int BQ = 64, int BK = 64>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            float* max_logits, const int* work_kt, const int* meta,
            const int* run_ptr, int sq, int sk, int hq, int hk,
            int num_q_tiles, float scale, float softcap, void* stream) {
-  static bool smem_ok = false;
-  const size_t smem = Smem<D, G>::bytes;
-  cudaError_t e = magi::allow_smem(ffa_fwd_tf32_kernel<D, G>, smem, &smem_ok);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(num_q_tiles, hq / G, NCH<D>);
-  ffa_fwd_tf32_kernel<D, G><<<grid, 128 * G, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, max_logits,
-      work_kt, meta, run_ptr, sq, sk, hq, hk, num_q_tiles, scale, softcap);
-  return (int)cudaGetLastError();
+  if constexpr (!compiled<D, G, BQ, BK>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    static bool smem_ok = false;
+    const size_t smem = Smem<D, G, BQ>::bytes;
+    cudaError_t e =
+        magi::allow_smem(ffa_fwd_tf32_kernel<D, G, BQ, BK>, smem, &smem_ok);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(num_q_tiles, hq / G, NCH<D>);
+    ffa_fwd_tf32_kernel<D, G, BQ, BK>
+        <<<grid, 128 * NWG<G, BQ>, smem, (cudaStream_t)stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<float*>(out), lse,
+            max_logits, work_kt, meta, run_ptr, sq, sk, hq, hk, num_q_tiles,
+            scale, softcap);
+    return (int)cudaGetLastError();
+  }
+}
+
+// The shared memory of an instance, 0 where it is not compiled.
+template <int D, int G, int BQ, int BK>
+constexpr long smem_bytes() {
+  return compiled<D, G, BQ, BK>() ? (long)Smem<D, G, BQ>::bytes : 0;
 }
 
 }  // namespace fwd_tf32

@@ -44,9 +44,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// byte offset of element (r, c) of a swizzled tile
+// byte offset of element (r, c) of a swizzled tile of ROWS rows (its
+// 64-column panels ROWS * 128 bytes apart)
+template <int ROWS = 64>
 __device__ __forceinline__ uint32_t tile_offset(int r, int c) {
-  return (c >> 6) * PANEL_BYTES + r * 128 +
+  return (c >> 6) * (ROWS * 128) + r * 128 +
          ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
 }
 
@@ -81,24 +83,34 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// 64 rows of D bf16 values (row r at src + r * row_stride) into the
-// swizzled tile at dst by cp.async; rows at or past n_valid (>= 1) are
-// zero. The NT threads t = 0 .. NT - 1 each copy 64 * D / 8 / NT chunks.
-template <int D, int NT>
+// ROWS rows of D bf16 values (row r at src + r * row_stride) into the
+// swizzled tile of ROWS rows at dst by cp.async; rows at or past n_valid
+// are zero (src is then not read). The NT threads t = 0 .. NT - 1 each
+// copy ROWS * D / 8 / NT chunks. A 128-row tile keeps its rows contiguous
+// in each 64-column panel, so a 64-row block of it, or the whole, is read
+// by the descriptors below with the same panel stride.
+template <int D, int NT, int ROWS = 64>
 __device__ __forceinline__ void load_tile_async(uint32_t dst,
                                                 const __nv_bfloat16* src,
                                                 long row_stride, int n_valid,
                                                 int t) {
   constexpr int CPR = D / 8;  // 16-byte chunks a row
-  static_assert((64 * CPR) % NT == 0, "chunks must divide among threads");
-#pragma unroll
-  for (int it = 0; it < 64 * CPR / NT; ++it) {
+  static_assert((ROWS * CPR) % NT == 0, "chunks must divide among threads");
+  auto copy = [&](int it) {
     const int i = t + it * NT;
     const int r = i / CPR, cc = i % CPR;
     const bool ok = r < n_valid;
-    cp_async16(dst + (cc >> 3) * PANEL_BYTES + r * 128 +
+    cp_async16(dst + (cc >> 3) * (ROWS * 128) + r * 128 +
                    (((cc & 7) ^ (r & 7)) << 4),
                ok ? src + (long)r * row_stride + cc * 8 : src, ok);
+  };
+  if constexpr (ROWS > 64) {  // a 128-row tile: 4 copies in flight per
+                              // step, so their addresses are not all kept
+#pragma unroll 4
+    for (int it = 0; it < ROWS * CPR / NT; ++it) copy(it);
+  } else {
+#pragma unroll
+    for (int it = 0; it < ROWS * CPR / NT; ++it) copy(it);
   }
 }
 
@@ -118,14 +130,17 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// k-step kk (16 columns) of a tile read K-major
+// k-step kk (16 columns) of a tile of ROWS rows read K-major (as wgmma's
+// B operand of N = ROWS, or any 64-row block of it as A or B)
+template <int ROWS = 64>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return make_desc(tile + (kk >> 2) * PANEL_BYTES + (kk & 3) * 32, 16, 1024);
+  return make_desc(tile + (kk >> 2) * (ROWS * 128) + (kk & 3) * 32, 16, 1024);
 }
 
-// k-step kk (16 rows) of a tile read MN-major
+// k-step kk (16 rows) of a tile of ROWS rows read MN-major
+template <int ROWS = 64>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 2048, PANEL_BYTES, 1024);
+  return make_desc(tile + kk * 2048, ROWS * 128, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -161,12 +176,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The bf16 A fragments of one m64n64 accumulator: k-step kk of 16 columns
-// (chunks 2 kk, 2 kk + 1) as the 4 registers wgmma takes from registers.
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
-                                           const float (&d)[32]) {
+// The bf16 A fragments of one m64nN accumulator (N = 16 KS): k-step kk of
+// 16 columns (chunks 2 kk, 2 kk + 1) as the 4 registers wgmma takes from
+// registers.
+template <int KS>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[KS][4],
+                                           const float (&d)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       a[kk][e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
@@ -197,6 +214,57 @@ __device__ __forceinline__ void wgmma_ss_n64_t00(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A and B from shared memory
+// (transposed: A 0, B 0), float32 accumulate: S = Q K^T over a 128-row K
+// tile.
+__device__ __forceinline__ void wgmma_ss_n128_t00(float (&d)[64], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S[64 x N] += A B^T, both K-major from shared memory: N = 64 or 128 (the
+// key rows of the tile).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_t00(float (&d)[N / 2], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (N == 128)
+    wgmma_ss_n128_t00(d, da, db, 1);
+  else
+    wgmma_ss_n64_t00(d, da, db, 1);
 }
 
 // D[64 x 64] += A[64 x 16] B[16 x 64], A and B from shared memory

@@ -41,6 +41,7 @@ from .env import general as env_general
 from .functional.dispatch import dispatch_func, undispatch_func
 from .functional.dist_attn import DistAttnRuntime
 from .functional.dynamic_dist_attn import DynamicDistAttnRuntime
+from .kernels import registry as kernel_registry
 from .meta import make_attn_meta_from_dispatch_meta, make_dispatch_meta_from_qk_ranges
 from .meta._make_attn_meta import make_dynamic_attn_plan
 
@@ -209,7 +210,9 @@ class DistAttnRuntimeMgr:
             )
             entry = {"dispatch": (meta_q, meta_kv, bucket)}
         self.dispatch_meta_q, self.dispatch_meta_kv, self.bucket = entry["dispatch"]
-        backend = env_general.kernel_backend()  # a key is built under the backend it runs
+        # a key is built under the backend it runs: the registry's calc_attn
+        # decision (MAGI_ATTENTION_KERNEL_BACKEND pins it, else ffa)
+        backend = kernel_registry.calc_attn_backend()
         if env_comm.is_qo_comm_enable():
             # the dynamic (qo-comm) planner: q/o rows move too, one stage
             if "dynamic" not in entry:

@@ -2,7 +2,11 @@
 
 The port's copy of the pins its slices read from
 ``magiattention_tpu/env/backend.py``; the flag names and values are the
-same. A pin is an explicit backend name, ``None`` when unset.
+same. A pin is an explicit backend name, ``None`` when unset; the backend
+registry (``kernels/registry.py``) resolves every decision as pin >
+in-process memo > heuristic. The JAX package's store and drift knobs
+(MAGI_ATTENTION_BACKEND_STORE, _STORE_DIR, _DRIFT_THRESHOLD,
+_CALIBRATION) configure its telemetry store, which the port does not have.
 """
 
 from __future__ import annotations
@@ -42,6 +46,36 @@ def ffa_bwd_pin() -> str | None:
         _warn_legacy_once(
             "MAGI_ATTENTION_FFA_FUSED_BWD", "MAGI_ATTENTION_BACKEND_FFA_BWD",
             mapped,
+        )
+        return mapped
+    return None
+
+
+def kernel_backend_pin() -> str | None:
+    """The MAGI_ATTENTION_KERNEL_BACKEND value as a registry pin: the
+    explicit value when set, None when unset (the registry's heuristic
+    supplies the default 'ffa')."""
+    val = os.environ.get("MAGI_ATTENTION_KERNEL_BACKEND")
+    return val.lower() if val else None
+
+
+def mixed_blocks_pin() -> str | None:
+    """Pin for mixed-granularity dispatch: 'mixed' | 'single' | None.
+
+    MAGI_ATTENTION_BACKEND_MIXED_BLOCKS wins; legacy
+    MAGI_ATTENTION_FFA_MIXED_BLOCKS maps 1->mixed (skip the profitability
+    gate), 0->single, auto->None. A 'mixed' pin still degrades to single
+    when the mask yields a trivial partition (``kernels/tile_policy.py:
+    choose_mixed_dispatch``)."""
+    val = _get_str("MAGI_ATTENTION_BACKEND_MIXED_BLOCKS", "").lower()
+    if val in ("mixed", "single"):
+        return val
+    legacy = os.environ.get("MAGI_ATTENTION_FFA_MIXED_BLOCKS")
+    if legacy in ("0", "1"):
+        mapped = "mixed" if legacy == "1" else "single"
+        _warn_legacy_once(
+            "MAGI_ATTENTION_FFA_MIXED_BLOCKS",
+            "MAGI_ATTENTION_BACKEND_MIXED_BLOCKS", mapped,
         )
         return mapped
     return None

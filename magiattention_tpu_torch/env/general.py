@@ -100,6 +100,11 @@ ENV_KEYS_AFFECTING_RUNTIME: tuple[str, ...] = (
     "MAGI_ATTENTION_HIERARCHICAL_COMM",
     "MAGI_ATTENTION_FFA_BLOCK_Q",
     "MAGI_ATTENTION_FFA_BLOCK_K",
+    "MAGI_ATTENTION_FFA_BLOCK_Q_DQ",
+    "MAGI_ATTENTION_FFA_BLOCK_K_DQ",
+    "MAGI_ATTENTION_FFA_BLOCK_Q_DKV",
+    "MAGI_ATTENTION_FFA_BLOCK_K_DKV",
+    "MAGI_ATTENTION_FFA_AUTO_TILE",
     "MAGI_ATTENTION_FFA_FUSED_BWD",
     "MAGI_ATTENTION_BACKEND_FFA_BWD",
     "MAGI_ATTENTION_RAGGED_GRPCOLL",

@@ -1,14 +1,17 @@
 """FFA kernel tile and GQA-packing flags.
 
 Same names as ``magiattention_tpu/env/kernel.py``; the tile defaults are
-Hopper's, the packing defaults the JAX package's. The TPU package defaults to 256 x 512 tiles because a TPU core has
-megabytes of VMEM. The port's forward kernel keeps its q tile, k tile and v
-tile in shared memory as float32 (3 x 64 x 128 x 4 B = 96 KB at head_dim
-128, plus a 64 x 68 probability tile), so two CTAs fit in the 227 KB an SM
-offers; 64 x 64 is the one tile shape the kernel is compiled for.
+Hopper's, the packing defaults the JAX package's. The TPU package defaults
+to 256 x 512 tiles because a TPU core has megabytes of VMEM; a Hopper CTA
+has 227 KB of shared memory, and the port's FFA kernels are compiled for
+q and k tiles of 64 or 128 rows wherever a CTA fits
+(``utils/mem_budget.py:compiled_tiles``). The default pair is 64 x 64, the
+one every kernel and dtype has.
 """
 
 from __future__ import annotations
+
+import os
 
 from .general import _get_int
 
@@ -21,6 +24,40 @@ def ffa_block_q() -> int:
 def ffa_block_k() -> int:
     """K tile rows per work item."""
     return _get_int("MAGI_ATTENTION_FFA_BLOCK_K", 64)
+
+
+def ffa_block_q_dq() -> int:
+    """Q tile rows of the dq backward kernel; 0 = inherit FFA_BLOCK_Q. A
+    pair the dq kernel is not compiled for (for the dtype and head dim)
+    silently inherits the forward's tiles (``kernels/ffa.py:
+    resolve_bwd_overrides``)."""
+    return _get_int("MAGI_ATTENTION_FFA_BLOCK_Q_DQ", 0)
+
+
+def ffa_block_k_dq() -> int:
+    """K tile rows of the dq backward kernel; 0 = inherit FFA_BLOCK_K."""
+    return _get_int("MAGI_ATTENTION_FFA_BLOCK_K_DQ", 0)
+
+
+def ffa_block_q_dkv() -> int:
+    """Q tile rows of the dk/dv (and fused) backward kernel; 0 = inherit
+    FFA_BLOCK_Q."""
+    return _get_int("MAGI_ATTENTION_FFA_BLOCK_Q_DKV", 0)
+
+
+def ffa_block_k_dkv() -> int:
+    """K tile rows of the dk/dv (and fused) backward kernel; 0 = inherit
+    FFA_BLOCK_K."""
+    return _get_int("MAGI_ATTENTION_FFA_BLOCK_K_DKV", 0)
+
+
+def ffa_blocks_pinned() -> bool:
+    """True when the forward tiles are pinned by env: explicit settings
+    always beat MAGI_ATTENTION_FFA_AUTO_TILE and mixed dispatch."""
+    return (
+        "MAGI_ATTENTION_FFA_BLOCK_Q" in os.environ
+        or "MAGI_ATTENTION_FFA_BLOCK_K" in os.environ
+    )
 
 
 def ffa_gqa_pack() -> bool:

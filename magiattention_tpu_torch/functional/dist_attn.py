@@ -34,8 +34,12 @@ stage's GroupCast in two phases over the rank's outer and inner lines
 (:mod:`..comm.hier`); the buffers are the flat cast's, bit for bit.
 Tensor parallelism over heads (``tp_group``): each rank holds its own
 ``hq / tp`` and ``hk / tp`` heads, and attention runs on them; only
-max-logits crosses the cp group. Auto-tile is not ported (ROADMAP queue
-A3).
+max-logits crosses the cp group. Tiles: under
+MAGI_ATTENTION_FFA_AUTO_TILE=1 (no env tile pin) :class:`DeferredTilePolicy`
+picks per-pass tiles over every rank's slice set at the first call, when
+the head dims and dtype are known, and builds the plans then; the backward's
+per-pass tiles (env, else the policy's) ride on each plan's
+:class:`~..kernels.ffa.FFAParams`.
 """
 
 from __future__ import annotations
@@ -46,8 +50,13 @@ import torch.distributed as dist
 from ..comm.hier import HierCastPlan, make_hier_group_cast_plan
 from ..comm.primitives import CastPlan, group_cast_all
 from ..env import comm as env_comm
-from ..kernels.ffa import FFAParams, default_blocks, ffa_bwd, ffa_delta, ffa_fwd_dispatch
+from ..kernels import registry as kernel_registry
+from ..kernels.ffa import (
+    FFAParams, apply_bwd_overrides, default_blocks, ffa_bwd, ffa_delta, ffa_fwd_dispatch,
+)
 from ..kernels.ffa_plan import FFAPlan, get_ffa_plan
+from ..kernels.head_dims import kernel_head_dim
+from ..kernels.tile_policy import auto_tile_enabled, choose_blocks_per_pass_multi
 from ..kernels.sdpa import dense_max_logits, sdpa_attn
 from ..kernels.sdpa_online import sdpa_online_attn
 from ..meta.collection.calc_meta import AttnArg, CalcMeta
@@ -125,12 +134,61 @@ def multi_ffa(q, ks, vs, plans, params, waits=None, return_max_logits=False):
     )
 
 
-def _plan(arg: AttnArg, sq: int, sk: int) -> FFAPlan:
-    bq, bk = default_blocks(sq, sk)
+def _plan(arg: AttnArg, sq: int, sk: int, block_q: int | None = None,
+          block_k: int | None = None) -> FFAPlan:
+    bq, bk = default_blocks(sq, sk, block_q, block_k)
     return get_ffa_plan(arg.q_ranges, arg.k_ranges, arg.d_lo, arg.d_hi, sq, sk, bq, bk)
 
 
-class DistAttnRuntime:
+class DeferredTilePolicy:
+    """Deferred auto-tile state shared by the CP runtimes (the JAX
+    package's ``DeferredTilePolicy``).
+
+    The policy scores its shared-memory guard (the compiled set) at the
+    real head dims and dtype, known only at the first ``calc_attn``, so
+    under MAGI_ATTENTION_FFA_AUTO_TILE=1 (no tile argument, no env tile
+    pin) plan building waits for it: :meth:`_ensure_auto_plans` picks
+    per-pass tiles over every rank's slice set
+    (:func:`~..kernels.tile_policy.choose_blocks_per_pass_multi`; each
+    rank runs its own plans, and the pick is the one for the slowest
+    rank) and rebuilds when the signature changes. Subclasses provide
+    ``_build_plans(block_q, block_k)`` and ``_tile_geoms() -> (geoms, sq,
+    sk)``; :meth:`_bwd_params` adds the backward's per-pass tiles to a
+    plan's params."""
+
+    def _init_tile_policy(self, block_q: int | None = None, block_k: int | None = None) -> None:
+        self._plan_sig = None
+        # the policy's per-pass picks (dq, dk/dv); env settings win over them
+        self._policy_bwd: tuple = (None, None)
+        self._auto_tile_pending = (
+            block_q is None and block_k is None
+            and not kernel_registry.tiles_pinned() and auto_tile_enabled()
+        )
+        if not self._auto_tile_pending:
+            self._build_plans(block_q, block_k)
+
+    def _ensure_auto_plans(self, d: int, dv: int, itemsize: int) -> None:
+        """Choose tiles with the real data signature; rebuild on change."""
+        if not self._auto_tile_pending:
+            return
+        sig = (d, dv, itemsize)
+        if self._plan_sig == sig:
+            return
+        geoms, sq, sk = self._tile_geoms()
+        (blk_q, blk_k), pol_dq, pol_dkv = choose_blocks_per_pass_multi(
+            geoms, sq, sk, d, dv, itemsize,
+        )
+        self._policy_bwd = (pol_dq, pol_dkv)
+        self._build_plans(blk_q, blk_k)
+        self._plan_sig = sig
+
+    def _bwd_params(self, params: FFAParams, d: int, dv: int, itemsize: int) -> FFAParams:
+        """``params`` with the backward's per-pass tiles (env, else the
+        policy's), gated by what is compiled at the kernels' width."""
+        return apply_bwd_overrides(params, kernel_head_dim(d, dv), itemsize, *self._policy_bwd)
+
+
+class DistAttnRuntime(DeferredTilePolicy):
     """One rank's runtime for one (mask, cp group, config): its FFA plans
     and GroupCast plans, built once from the solver's CommMeta and
     CalcMeta.
@@ -179,7 +237,7 @@ class DistAttnRuntime:
             self.cast_plans = [CastPlan.from_stage(s, cp_rank) for s in comm_meta.kv_stages]
         self.head_axis, self.tp_group, self.tp_size = tp if tp is not None else (None, None, 1)
         self._heads_checked = False
-        self._build_plans()
+        self._init_tile_policy()
 
     def _hier_plan(self, stage, n_outer: int, n_inner: int):
         """The stage's two-level plan: the solver's, or (where it planned
@@ -219,26 +277,37 @@ class DistAttnRuntime:
                 "rank takes num_heads / tp of both"
             )
 
-    def _build_plans(self) -> None:
+    def _build_plans(self, block_q: int | None = None, block_k: int | None = None) -> None:
         km, r = self.calc_meta, self.cp_rank
         shard, kv_shard = km.shard_len, km.kv_shard_len
         if self.use_overlap:
-            self.plans = [_plan(km.host_args[r], shard, kv_shard)] + [
-                _plan(km.remote_args_per_stage[st][r], shard, rl)
+            self.plans = [_plan(km.host_args[r], shard, kv_shard, block_q, block_k)] + [
+                _plan(km.remote_args_per_stage[st][r], shard, rl, block_q, block_k)
                 for st, rl in enumerate(km.recv_len_per_stage)
             ]
         else:
             total = kv_shard + sum(km.recv_len_per_stage)
-            self.plans = [_plan(km.merged_args[r], shard, total)]
+            self.plans = [_plan(km.merged_args[r], shard, total, block_q, block_k)]
 
-    def _params(self, d: int) -> list[FFAParams]:
+    def _tile_geoms(self):
+        """Every rank's merged slice set and the merged buffer's lengths:
+        what the tile policy scores (its pick is the slowest rank's)."""
+        km = self.calc_meta
+        geoms = [(a.q_ranges, a.k_ranges, a.d_lo, a.d_hi) for a in km.merged_args]
+        return geoms, km.shard_len, km.kv_shard_len + sum(km.recv_len_per_stage)
+
+    def _params(self, d: int, itemsize: int = 2, dv: int | None = None) -> list[FFAParams]:
+        """Each plan's params at head dims ``d`` (``dv``, default ``d``) and
+        dtype ``itemsize``, with the backward's per-pass tiles."""
+        dv = d if dv is None else dv
+        self._ensure_auto_plans(d, dv, itemsize)
         scale = float(d) ** -0.5 if self.softmax_scale is None else self.softmax_scale
         return [
-            FFAParams(
+            self._bwd_params(FFAParams(
                 num_q_tiles=p.num_q_tiles, num_k_tiles=p.num_k_tiles,
                 block_q=p.block_q, block_k=p.block_k,
                 softmax_scale=scale, softcap=float(self.softcap),
-            )
+            ), d, dv, itemsize)
             for p in self.plans
         ]
 
@@ -290,9 +359,9 @@ class DistAttnRuntime:
             if return_max_logits:
                 res += (dense_max_logits(q, kv[0], arg.q_ranges, arg.k_ranges, **kw).detach(),)
         else:
+            params = self._params(q.shape[-1], q.element_size(), v.shape[-1])
             res = multi_ffa(
-                q, k_parts, v_parts, self.plans, self._params(q.shape[-1]),
-                [None, *waits], return_max_logits,
+                q, k_parts, v_parts, self.plans, params, [None, *waits], return_max_logits,
             )
         if return_max_logits and self.cp_size > 1:
             dist.all_reduce(res[2], op=dist.ReduceOp.MAX, group=self.cp_group)

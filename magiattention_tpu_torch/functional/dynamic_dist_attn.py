@@ -48,7 +48,7 @@ from ..env import comm as env_comm
 from ..kernels.ffa import FFAParams, ffa_bwd, ffa_delta, ffa_fwd_dispatch
 from ..kernels.sdpa import dense_max_logits, sdpa_attn
 from ..meta.collection.dynamic_meta import DynamicAttnPlan
-from .dist_attn import _plan
+from .dist_attn import DeferredTilePolicy, _plan
 from .utils import lse_weighted_reduce
 
 NEG_INF = float("-inf")
@@ -112,9 +112,11 @@ class _DynAttn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-class DynamicDistAttnRuntime:
+class DynamicDistAttnRuntime(DeferredTilePolicy):
     """One rank's runtime for one DynamicAttnPlan: its three GroupCast
-    plans, its FFA plan over the buffers and its merge index, built once."""
+    plans, its FFA plan over the buffers and its merge index, built once
+    (under auto-tile the FFA plan at the first call:
+    :class:`~.dist_attn.DeferredTilePolicy`)."""
 
     def __init__(
         self,
@@ -137,8 +139,18 @@ class DynamicDistAttnRuntime:
         self.kv_cast = CastPlan.from_stage(plan.kv_cast, cp_rank)
         self.ret_cast = CastPlan.from_stage(plan.ret, cp_rank)
         self.attn_arg = plan.attn_args[cp_rank]
-        self.ffa_plan = _plan(self.attn_arg, plan.q_buf_len, plan.k_buf_len)
         self._merge_idx: dict = {}
+        self._init_tile_policy()
+
+    def _build_plans(self, block_q: int | None = None, block_k: int | None = None) -> None:
+        p = self.plan
+        self.ffa_plan = _plan(self.attn_arg, p.q_buf_len, p.k_buf_len, block_q, block_k)
+
+    def _tile_geoms(self):
+        """Every rank's slice set over its buffers and the buffers' lengths."""
+        p = self.plan
+        geoms = [(a.q_ranges, a.k_ranges, a.d_lo, a.d_hi) for a in p.attn_args]
+        return geoms, p.q_buf_len, p.k_buf_len
 
     # -- the collectives ----------------------------------------------------
 
@@ -157,15 +169,19 @@ class DynamicDistAttnRuntime:
 
     # -- the local steps and the transfers between them ---------------------
 
-    def params(self, d: int) -> FFAParams:
-        """The FFA params of this rank's buffers at head dim ``d``."""
+    def params(self, d: int, itemsize: int = 2, dv: int | None = None) -> FFAParams:
+        """The FFA params of this rank's buffers at head dims ``d`` (``dv``,
+        default ``d``) and dtype ``itemsize``, with the backward's per-pass
+        tiles."""
+        dv = d if dv is None else dv
+        self._ensure_auto_plans(d, dv, itemsize)
         p = self.ffa_plan
         scale = float(d) ** -0.5 if self.softmax_scale is None else self.softmax_scale
-        return FFAParams(
+        return self._bwd_params(FFAParams(
             num_q_tiles=p.num_q_tiles, num_k_tiles=p.num_k_tiles,
             block_q=p.block_q, block_k=p.block_k,
             softmax_scale=scale, softcap=float(self.softcap),
-        )
+        ), d, dv, itemsize)
 
     def merge_index(self, device: torch.device) -> torch.Tensor:
         """This rank's ``merge_idx`` ``[shard, M]`` as int64 on ``device``
@@ -265,7 +281,8 @@ class DynamicDistAttnRuntime:
         if self.backend == "sdpa":
             res = self._calc_attn_sdpa(q, k, v, return_max_logits)
         else:
-            res = _DynAttn.apply(q, k, v, self, self.params(q.shape[-1]), return_max_logits)
+            params = self.params(q.shape[-1], q.element_size(), v.shape[-1])
+            res = _DynAttn.apply(q, k, v, self, params, return_max_logits)
         if return_max_logits and self.cp_size > 1:
             dist.all_reduce(res[2], op=dist.ReduceOp.MAX, group=self.cp_group)
         return res

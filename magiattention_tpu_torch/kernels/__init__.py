@@ -90,8 +90,22 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "tile_launches"):
+            fn.tile_launches.clear()
     for fn in _PLAINS.values():
         fn.calls = 0
+
+
+def tile_launch_counts() -> dict[str, dict[str, int]]:
+    """Launches of each tiled FFA kernel so far, by dtype and tiles
+    (``"bfloat16 BQxBK"``)."""
+    return {
+        name: {
+            f"{str(dt).removeprefix('torch.')} {bq}x{bk}": n
+            for (dt, bq, bk), n in sorted(fn.tile_launches.items(), key=str)
+        }
+        for name, fn in _KERNELS.items() if hasattr(fn, "tile_launches")
+    }
 
 
 __all__ = [
@@ -135,5 +149,6 @@ __all__ = [
     "paged_decode_spec_plain",
     "reset_launch_counts",
     "sdpa_attn",
+    "tile_launch_counts",
     "sdpa_online_attn",
 ]

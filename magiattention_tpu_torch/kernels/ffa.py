@@ -45,6 +45,21 @@ and kernel feasibility, a fused pin, and the cost model
 (:func:`.tile_policy.choose_bwd_mode`, derived for these kernels and
 measured on the H100).
 
+Tiles. The forward and backward kernels are compiled for q and k tiles of
+64 or 128 rows wherever a CTA fits (``utils/mem_budget.py:
+compiled_tiles``; the float32 backward bodies 64 x 64 only); a launch
+takes its plan's tiles and raises for a pair not compiled for its kernel,
+dtype and head dim. :func:`ffa_attn` resolves them in the JAX package's
+order: the mixed-granularity gate (no tile argument, no env tile pin, no
+max-logits; :func:`.tile_policy.choose_mixed_dispatch`, on by default),
+then under MAGI_ATTENTION_FFA_AUTO_TILE=1 the policy's per-pass picks
+(:func:`.tile_policy.choose_blocks_per_pass`), then :func:`default_blocks`,
+then the backward's per-pass overrides (:func:`resolve_bwd_overrides`:
+env MAGI_ATTENTION_FFA_BLOCK_{Q,K}_{DQ,DKV}, else the policy's). The
+backward builds its q-major (dq) and k-major (dk/dv, fused) plans at the
+tiles :class:`FFAParams` carries. A mixed dispatch runs two plans and
+merges them (:class:`_FFAMixed`).
+
 Each kernel has a plain PyTorch version beside it (``sdpa_attn`` for the
 forward, ``ffa_*_plain`` for the backward), which CPU tensors take. A CUDA
 tensor launches the kernel or raises: a kernel that fails to build or
@@ -54,15 +69,17 @@ fused to split).
 :class:`_FFACore` pairs the forward with the backward kernels as a
 ``torch.autograd.Function``; ``ffa_attn``/``ffa_attn_with_plan`` go
 through it on CUDA, and stay the autograd-differentiable ``sdpa_attn`` on
-the CPU. As in the JAX package, lse carries no gradient on either route
-(the backward ignores its cotangent; the CPU route detaches it), nor
-does max-logits. The TPU package's mixed-granularity dispatch and auto-tile
-policy are not ported yet (ROADMAP).
+the CPU (a mixed dispatch runs :class:`_FFAMixed` on both, over the plain
+versions on the CPU). As in the JAX package, lse carries no gradient on
+either route (the backward ignores its cotangent; the CPU route detaches
+it), nor does max-logits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -72,8 +89,11 @@ import torch
 from ..env import backend as env_backend
 from ..env import general as env_general
 from ..env import kernel as env_kernel
+from ..utils import mem_budget
+from ..utils.mem_budget import SMEM_PER_CTA, compiled_tiles
 from . import _build
-from .ffa_plan import DHI, DLO, KE, KS, QE, QS, QVL, FFAPlan, get_ffa_plan
+from . import registry as _registry
+from .ffa_plan import KE, KS, QE, QS, QVL, FFAPlan, get_ffa_plan
 from .head_dims import (
     KERNEL_HEAD_DIMS, SPLIT_WIDTH, cta_width, is_kernel_width, kernel_head_dim, pad_head_dim,
     pad_to_kernel_width,
@@ -81,9 +101,6 @@ from .head_dims import (
 from .mask_utils import build_dense_mask_band, types_to_bands
 from .sdpa import dense_max_logits, sdpa_attn
 from .tile_policy import BwdShape, choose_bwd_mode
-
-# the one tile shape the csrc/ffa_*.cu kernels are compiled for
-KERNEL_BLOCKS = (64, 64)
 
 
 @dataclass(frozen=True)
@@ -98,6 +115,18 @@ class FFAParams:
     softcap: float
     # the backward must be bitwise reproducible (ffa_bwd_mode: split)
     deterministic: bool = False
+    # the backward's per-pass tiles (0: the forward's): the dq kernel's
+    # q-major plan and the dk/dv (and fused) kernels' k-major plan
+    block_q_dq: int = 0
+    block_k_dq: int = 0
+    block_q_dkv: int = 0
+    block_k_dkv: int = 0
+
+    def dq_blocks(self) -> tuple[int, int]:
+        return self.block_q_dq or self.block_q, self.block_k_dq or self.block_k
+
+    def dkv_blocks(self) -> tuple[int, int]:
+        return self.block_q_dkv or self.block_q, self.block_k_dkv or self.block_k
 
 
 def default_blocks(sq: int, sk: int, block_q=None, block_k=None) -> tuple[int, int]:
@@ -108,15 +137,83 @@ def default_blocks(sq: int, sk: int, block_q=None, block_k=None) -> tuple[int, i
     return block_q or env_kernel.ffa_block_q(), block_k or env_kernel.ffa_block_k()
 
 
+def resolve_bwd_overrides(
+    bq: int, bk: int, d: int, itemsize: int,
+    policy_dq: tuple[int, int] | None = None,
+    policy_dkv: tuple[int, int] | None = None,
+) -> tuple[tuple[int, int] | None, tuple[int, int] | None]:
+    """The backward's per-pass tiles against a forward at (bq, bk):
+    ``(dq_blocks, dkv_blocks)``, an entry None when unset or when the pass's
+    kernel is not compiled for the pair at this dtype (``itemsize``) and
+    head dim ``d`` (it then inherits the forward's tiles, as the JAX
+    package's gate does for a pair its kernels cannot index). Explicit env
+    settings (MAGI_ATTENTION_FFA_BLOCK_{Q,K}_{DQ,DKV}) win over the
+    auto-tile policy's picks (``policy_dq``/``policy_dkv``), component-wise.
+    The JAX package also asks the pair to divide the forward's padded
+    geometry; each pass here has its own plan and masks its ragged edge."""
+
+    def gate(env_bq: int, env_bk: int, policy, kernel: str):
+        pol_bq, pol_bk = policy or (0, 0)
+        obq, obk = env_bq or pol_bq or bq, env_bk or pol_bk or bk
+        if (obq, obk) == (bq, bk) or not mem_budget.is_compiled(kernel, itemsize, d, obq, obk):
+            return None
+        return obq, obk
+
+    return (
+        gate(env_kernel.ffa_block_q_dq(), env_kernel.ffa_block_k_dq(), policy_dq, "dq"),
+        gate(env_kernel.ffa_block_q_dkv(), env_kernel.ffa_block_k_dkv(), policy_dkv, "dkv"),
+    )
+
+
+def assemble_bwd_overrides(
+    bq: int, bk: int, d: int, itemsize: int,
+    policy_dq: tuple[int, int] | None = None,
+    policy_dkv: tuple[int, int] | None = None,
+) -> dict:
+    """The :class:`FFAParams` fields of the resolved per-pass tiles (one
+    place for single-device and CP plans): empty when both passes inherit.
+    The backward builds each pass's plan from the forward plan's slices
+    (:func:`bwd_plans`)."""
+    dq_blocks, dkv_blocks = resolve_bwd_overrides(bq, bk, d, itemsize, policy_dq, policy_dkv)
+    overrides: dict = {}
+    if dq_blocks:
+        overrides.update(block_q_dq=dq_blocks[0], block_k_dq=dq_blocks[1])
+    if dkv_blocks:
+        overrides.update(block_q_dkv=dkv_blocks[0], block_k_dkv=dkv_blocks[1])
+    return overrides
+
+
+def apply_bwd_overrides(
+    params: FFAParams, d: int, itemsize: int,
+    policy_dq: tuple[int, int] | None = None,
+    policy_dkv: tuple[int, int] | None = None,
+) -> FFAParams:
+    """``params`` with the resolved per-pass tiles (:func:`assemble_bwd_overrides`)."""
+    overrides = assemble_bwd_overrides(
+        params.block_q, params.block_k, d, itemsize, policy_dq, policy_dkv,
+    )
+    return dataclasses.replace(params, **overrides) if overrides else params
+
+
+def bwd_plans(plan: FFAPlan, params: FFAParams, sq: int, sk: int) -> tuple[FFAPlan, FFAPlan]:
+    """(dq plan, dk/dv plan): the forward plan re-tiled at the pass tiles
+    of ``params`` (itself where a pass inherits the forward's)."""
+    return (
+        plan.retiled(*params.dq_blocks(), sq, sk),
+        plan.retiled(*params.dkv_blocks(), sq, sk),
+    )
+
+
 def plan_params(
     q_ranges, k_ranges, attn_type_map, d_lo, d_hi, sq: int, sk: int, d: int,
     softmax_scale: float | None, softcap: float,
     block_q: int | None = None, block_k: int | None = None,
-    deterministic: bool = False,
+    deterministic: bool = False, bwd_overrides: dict | None = None,
 ) -> tuple[FFAPlan, FFAParams]:
-    """The (cached) plan of host slice metadata, and its kernel params.
-    Slices are mask types (``attn_type_map``, None = all FULL) unless
-    explicit bands ``d_lo``/``d_hi`` are given."""
+    """The (cached) plan of host slice metadata, and its kernel params
+    (with the backward's per-pass tiles ``bwd_overrides``, FFAParams
+    fields). Slices are mask types (``attn_type_map``, None = all FULL)
+    unless explicit bands ``d_lo``/``d_hi`` are given."""
     qr = np.asarray(q_ranges, dtype=np.int32).reshape(-1, 2)
     kr = np.asarray(k_ranges, dtype=np.int32).reshape(-1, 2)
     if d_lo is None or d_hi is None:
@@ -136,6 +233,7 @@ def plan_params(
         softmax_scale=float(d) ** -0.5 if softmax_scale is None else float(softmax_scale),
         softcap=float(softcap),
         deterministic=bool(deterministic),
+        **(bwd_overrides or {}),
     )
     return plan, params
 
@@ -146,29 +244,38 @@ def plan_params(
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
 _ARGTYPES = {
-    # q k v out lse max_logits | work_kt meta run_ptr | sq sk hq hk d nqt |
-    # scale cap | stream
-    "ffa_fwd": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
-    # q k v out lse | work_kt meta run_ptr | sq sk hq hk d heads nqt | ...
-    "ffa_fwd_gqa": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
+    # q k v out lse max_logits | work_kt meta run_ptr | sq sk hq hk d bq bk
+    # nqt | scale cap | stream
+    "ffa_fwd": [_P] * 9 + [_I] * 8 + [_F, _F, _P],
+    # q k v out lse | work_kt meta run_ptr | sq sk hq hk d heads bq bk nqt |
+    # ...
+    "ffa_fwd_gqa": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
     # out do delta | rows d | stream
     "ffa_bwd_delta": [_P] * 3 + [_L, _I, _P],
-    # q k v do lse delta dq | work_kt meta run_ptr | sq sk hq hk d nqt | ...
-    "ffa_bwd_dq": [_P] * 10 + [_I] * 6 + [_F, _F, _P],
-    # q k v do lse delta dq | work_kt meta run_ptr | ... d heads nqt | ...
-    "ffa_bwd_dq_gqa": [_P] * 10 + [_I] * 7 + [_F, _F, _P],
-    # q k v do lse delta dk dv | work_qt_t meta_t run_ptr_t | ... nkt | ...
-    "ffa_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    # q k v do lse delta dq | work_kt meta run_ptr | sq sk hq hk d bq bk nqt
+    # | ...
+    "ffa_bwd_dq": [_P] * 10 + [_I] * 8 + [_F, _F, _P],
+    # q k v do lse delta dq | work_kt meta run_ptr | ... d heads bq bk nqt |
+    # ...
+    "ffa_bwd_dq_gqa": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
+    # q k v do lse delta dk dv | work_qt_t meta_t run_ptr_t | ... bq bk nkt
+    # | ...
+    "ffa_bwd_dkv": [_P] * 11 + [_I] * 8 + [_F, _F, _P],
     # q k v do lse delta dq dk dv | work_qt_t meta_t run_ptr_t | ... nkt | ...
-    "ffa_bwd_fused": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
+    "ffa_bwd_fused": [_P] * 12 + [_I] * 8 + [_F, _F, _P],
 }
 
 # the libraries that report one CTA's shared memory in bytes, with the int
 # arguments of their <name>_smem_bytes: d, then heads_per_cta (packed),
-# then a bf16 flag
+# then the q and k tiles, then a bf16 flag (0 for an instance not compiled)
 _SMEM_ARGS = {
-    "ffa_fwd": 2, "ffa_fwd_gqa": 3, "ffa_bwd_dq": 2, "ffa_bwd_dq_gqa": 3,
-    "ffa_bwd_dkv": 2, "ffa_bwd_fused": 2,
+    "ffa_fwd": 4, "ffa_fwd_gqa": 5, "ffa_bwd_dq": 4, "ffa_bwd_dq_gqa": 5,
+    "ffa_bwd_dkv": 4, "ffa_bwd_fused": 4,
+}
+# library -> the kernel name of its compiled set (utils/mem_budget.py)
+LIBRARY_KERNEL = {
+    "ffa_fwd": "fwd", "ffa_fwd_gqa": "fwd_gqa", "ffa_bwd_dq": "dq",
+    "ffa_bwd_dq_gqa": "dq_gqa", "ffa_bwd_dkv": "dkv", "ffa_bwd_fused": "fused",
 }
 
 
@@ -197,27 +304,37 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
     _build.check(lib, code, f"{name}_kernel")
 
 
-def _kernel_inputs(name, params: FFAParams, q, k, v, *rest) -> list[torch.Tensor]:
-    """Check what the FFA kernels take and return ``[q, k, v, *rest]``
-    contiguous in q's dtype (``rest``: tensors shaped like q, e.g. dO)."""
-    sq, hq, d = q.shape
-    sk, hk, dv = v.shape
-    if not (q.is_cuda and all(t.device == q.device for t in (k, v, *rest))):
+def _require_cuda(name: str, q, *others) -> None:
+    if not (q.is_cuda and all(t.device == q.device for t in others)):
         raise ValueError(f"{name} takes CUDA tensors on one device")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype {q.dtype} not supported")
-    if (params.block_q, params.block_k) != KERNEL_BLOCKS:
-        raise ValueError(
-            f"{name} is compiled for blocks {KERNEL_BLOCKS}, "
-            f"plan has ({params.block_q}, {params.block_k})"
-        )
+
+
+def _kernel_inputs(name, plan: FFAPlan, q, k, v, *rest, heads: int = 1) -> list[torch.Tensor]:
+    """Check what the FFA kernels take and return ``[q, k, v, *rest]``
+    contiguous in q's dtype (``rest``: tensors shaped like q, e.g. dO). The
+    plan's tiles must be compiled for the kernel ``name``
+    (:data:`LIBRARY_KERNEL`), the dtype and the head dim (``heads``: a
+    packed kernel's heads a CTA): an uncompiled pair raises, nothing falls
+    back."""
+    sq, hq, d = q.shape
+    sk, hk, dv = v.shape
+    _require_cuda(name, q, k, v, *rest)
     if not is_kernel_width(d, dv) or hq % hk:
         raise ValueError(
             f"{name}: head dims d={d}, dv={dv} (need equal, one of "
             f"{KERNEL_HEAD_DIMS}: the dispatchers pad other dims) and "
             f"hq={hq} a multiple of hk={hk}"
         )
-    if params.num_q_tiles * params.block_q < sq or params.num_k_tiles * params.block_k < sk:
+    kernel = LIBRARY_KERNEL[name.removesuffix("_kernel")]
+    tiles = compiled_tiles(kernel, q.element_size(), d, heads)
+    if (plan.block_q, plan.block_k) not in tiles:
+        raise ValueError(
+            f"{name} ({q.dtype}, d={d}) is compiled for tiles {tiles}, "
+            f"plan has ({plan.block_q}, {plan.block_k})"
+        )
+    if plan.num_q_tiles * plan.block_q < sq or plan.num_k_tiles * plan.block_k < sk:
         raise ValueError("plan tiles do not cover the sequences")
     if any(t.shape != q.shape for t in rest):
         raise ValueError(f"{name}: dO must have q's shape {tuple(q.shape)}")
@@ -249,15 +366,15 @@ def ffa_fwd_kernel(
     (out ``[sq, hq, d]`` in q's dtype, lse ``[sq, hq]`` float32), plus the
     per-head max logit ``[hq]`` float32 (scaled, softcapped, natural units;
     -inf for a head with no attended entry) when ``return_max_logits``: the
-    kernel writes one per (q tile, head), reduced here. Adds one to
-    ``ffa_fwd_kernel.launches`` per launch."""
-    q, k, v = _kernel_inputs("ffa_fwd_kernel", params, q, k, v)
+    kernel writes one per (q tile, head), reduced here. Runs at the plan's
+    tiles. Adds one to ``ffa_fwd_kernel.launches`` per launch."""
+    q, k, v = _kernel_inputs("ffa_fwd_kernel", plan, q, k, v)
     sq, hq, d = q.shape
     sk, hk, _ = k.shape
     out = torch.empty_like(q)
     lse = torch.empty((sq, hq), dtype=torch.float32, device=q.device)
     tiles_ml = (
-        torch.empty((params.num_q_tiles, hq), dtype=torch.float32, device=q.device)
+        torch.empty((plan.num_q_tiles, hq), dtype=torch.float32, device=q.device)
         if return_max_logits else None
     )
     work_kt, meta, run_ptr = plan.device_arrays(q.device)
@@ -266,10 +383,11 @@ def ffa_fwd_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), 0 if tiles_ml is None else tiles_ml.data_ptr(),
         work_kt.data_ptr(), meta.data_ptr(), run_ptr.data_ptr(),
-        sq, sk, hq, hk, d, params.num_q_tiles,
+        sq, sk, hq, hk, d, plan.block_q, plan.block_k, plan.num_q_tiles,
         params.softmax_scale, params.softcap,
     )
     ffa_fwd_kernel.launches += 1
+    ffa_fwd_kernel.tile_launches[(q.dtype, plan.block_q, plan.block_k)] += 1
     if tiles_ml is None:
         return out, lse
     return out, lse, tiles_ml.amax(dim=0)
@@ -287,12 +405,16 @@ def ffa_fwd_gqa_kernel(
     :func:`fwd_pack_heads` query heads of one kv head). Raises on a
     geometry the packed kernel does not take. Adds one to
     ``ffa_fwd_gqa_kernel.launches`` per launch."""
-    q, k, v = _kernel_inputs("ffa_fwd_gqa_kernel", params, q, k, v)
-    sq, hq, d = q.shape
-    sk, hk, _ = k.shape
-    heads = fwd_pack_heads(hq // hk, d, v.shape[-1], q.element_size())
+    _require_cuda("ffa_fwd_gqa_kernel", q, k, v)
+    hq, hk, d = q.shape[1], k.shape[1], q.shape[-1]
+    heads = fwd_pack_heads(hq // hk, d, v.shape[-1], q.element_size(), plan.block_q, plan.block_k)
     if heads < 2:
-        raise ValueError(f"ffa_fwd_gqa_kernel: group {hq // hk} at d={d} does not pack")
+        raise ValueError(
+            f"ffa_fwd_gqa_kernel: group {hq // hk} at d={d}, tiles "
+            f"({plan.block_q}, {plan.block_k}) does not pack"
+        )
+    q, k, v = _kernel_inputs("ffa_fwd_gqa_kernel", plan, q, k, v, heads=heads)
+    sq, sk = q.shape[0], k.shape[0]
     out = torch.empty_like(q)
     lse = torch.empty((sq, hq), dtype=torch.float32, device=q.device)
     work_kt, meta, run_ptr = plan.device_arrays(q.device)
@@ -300,10 +422,11 @@ def ffa_fwd_gqa_kernel(
         "ffa_fwd_gqa", q.dtype, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), work_kt.data_ptr(), meta.data_ptr(),
-        run_ptr.data_ptr(), sq, sk, hq, hk, d, heads, params.num_q_tiles,
-        params.softmax_scale, params.softcap,
+        run_ptr.data_ptr(), sq, sk, hq, hk, d, heads, plan.block_q,
+        plan.block_k, plan.num_q_tiles, params.softmax_scale, params.softcap,
     )
     ffa_fwd_gqa_kernel.launches += 1
+    ffa_fwd_gqa_kernel.tile_launches[(q.dtype, plan.block_q, plan.block_k)] += 1
     return out, lse
 
 
@@ -367,8 +490,9 @@ def ffa_bwd_dq_kernel(
     """Launch ``csrc/ffa_bwd_dq.cu`` over the plan's q-major runs. Takes the
     forward's inputs, dO ``[sq, hq, d]``, lse and delta ``[sq, hq]``;
     returns dq ``[sq, hq, d]`` float32. Adds one to
-    ``ffa_bwd_dq_kernel.launches`` per launch."""
-    q, k, v, do = _kernel_inputs("ffa_bwd_dq_kernel", params, q, k, v, do)
+    ``ffa_bwd_dq_kernel.launches`` per launch. ``plan`` is the dq pass's
+    (:func:`bwd_plans`): the kernel runs at its tiles."""
+    q, k, v, do = _kernel_inputs("ffa_bwd_dq_kernel", plan, q, k, v, do)
     lse, delta = _row_stats(q, lse, delta)
     sq, hq, d = q.shape
     sk, hk, _ = k.shape
@@ -379,10 +503,11 @@ def ffa_bwd_dq_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         work_kt.data_ptr(), meta.data_ptr(), run_ptr.data_ptr(),
-        sq, sk, hq, hk, d, params.num_q_tiles,
+        sq, sk, hq, hk, d, plan.block_q, plan.block_k, plan.num_q_tiles,
         params.softmax_scale, params.softcap,
     )
     ffa_bwd_dq_kernel.launches += 1
+    ffa_bwd_dq_kernel.tile_launches[(q.dtype, plan.block_q, plan.block_k)] += 1
     return dq
 
 
@@ -394,13 +519,17 @@ def ffa_bwd_dq_gqa_kernel(
     :func:`dq_pack_heads` query heads of one kv head). Raises on a
     geometry the packed kernel does not take. Adds one to
     ``ffa_bwd_dq_gqa_kernel.launches`` per launch."""
-    q, k, v, do = _kernel_inputs("ffa_bwd_dq_gqa_kernel", params, q, k, v, do)
-    lse, delta = _row_stats(q, lse, delta)
-    sq, hq, d = q.shape
-    sk, hk, _ = k.shape
-    heads = dq_pack_heads(hq // hk, d, v.shape[-1], q.element_size())
+    _require_cuda("ffa_bwd_dq_gqa_kernel", q, k, v, do)
+    hq, hk, d = q.shape[1], k.shape[1], q.shape[-1]
+    heads = dq_pack_heads(hq // hk, d, v.shape[-1], q.element_size(), plan.block_q, plan.block_k)
     if heads < 2:
-        raise ValueError(f"ffa_bwd_dq_gqa_kernel: group {hq // hk} at d={d} does not pack")
+        raise ValueError(
+            f"ffa_bwd_dq_gqa_kernel: group {hq // hk} at d={d}, tiles "
+            f"({plan.block_q}, {plan.block_k}) does not pack"
+        )
+    q, k, v, do = _kernel_inputs("ffa_bwd_dq_gqa_kernel", plan, q, k, v, do, heads=heads)
+    lse, delta = _row_stats(q, lse, delta)
+    sq, sk = q.shape[0], k.shape[0]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     work_kt, meta, run_ptr = plan.device_arrays(q.device)
     _launch(
@@ -408,10 +537,11 @@ def ffa_bwd_dq_gqa_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         work_kt.data_ptr(), meta.data_ptr(), run_ptr.data_ptr(),
-        sq, sk, hq, hk, d, heads, params.num_q_tiles,
+        sq, sk, hq, hk, d, heads, plan.block_q, plan.block_k, plan.num_q_tiles,
         params.softmax_scale, params.softcap,
     )
     ffa_bwd_dq_gqa_kernel.launches += 1
+    ffa_bwd_dq_gqa_kernel.tile_launches[(q.dtype, plan.block_q, plan.block_k)] += 1
     return dq
 
 
@@ -421,8 +551,9 @@ def ffa_bwd_dkv_kernel(
     """Launch ``csrc/ffa_bwd_dkv.cu`` over the plan's k-major runs, one CTA
     per (k tile, kv head) looping the GQA group. Returns (dk, dv)
     ``[sk, hk, d]`` float32, per kv head. Adds one to
-    ``ffa_bwd_dkv_kernel.launches`` per launch."""
-    q, k, v, do = _kernel_inputs("ffa_bwd_dkv_kernel", params, q, k, v, do)
+    ``ffa_bwd_dkv_kernel.launches`` per launch. ``plan`` is the dk/dv
+    pass's (:func:`bwd_plans`): the kernel runs at its tiles."""
+    q, k, v, do = _kernel_inputs("ffa_bwd_dkv_kernel", plan, q, k, v, do)
     lse, delta = _row_stats(q, lse, delta)
     sq, hq, d = q.shape
     sk, hk, _ = k.shape
@@ -434,10 +565,11 @@ def ffa_bwd_dkv_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         work_qt_t.data_ptr(), meta_t.data_ptr(), run_ptr_t.data_ptr(),
-        sq, sk, hq, hk, d, params.num_k_tiles,
+        sq, sk, hq, hk, d, plan.block_q, plan.block_k, plan.num_k_tiles,
         params.softmax_scale, params.softcap,
     )
     ffa_bwd_dkv_kernel.launches += 1
+    ffa_bwd_dkv_kernel.tile_launches[(q.dtype, plan.block_q, plan.block_k)] += 1
     return dk, dv
 
 
@@ -465,8 +597,9 @@ def ffa_bwd_fused_kernel(
     atomics into a zeroed workspace, then the convert pass (scale).
     Returns (dq ``[sq, hq, d]``, dk, dv ``[sk, hk, d]``), float32. dq is
     not bitwise reproducible (atomics); dk and dv are. Adds one to
-    ``ffa_bwd_fused_kernel.launches`` per launch."""
-    q, k, v, do = _kernel_inputs("ffa_bwd_fused_kernel", params, q, k, v, do)
+    ``ffa_bwd_fused_kernel.launches`` per launch. ``plan`` is the k-major
+    pass's (:func:`bwd_plans`): the kernel runs at its tiles."""
+    q, k, v, do = _kernel_inputs("ffa_bwd_fused_kernel", plan, q, k, v, do)
     lse, delta = _row_stats(q, lse, delta)
     sq, hq, d = q.shape
     sk, hk, _ = k.shape
@@ -479,11 +612,12 @@ def ffa_bwd_fused_kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), work_qt_t.data_ptr(), meta_t.data_ptr(),
-        run_ptr_t.data_ptr(), sq, sk, hq, hk, d, params.num_k_tiles,
-        params.softmax_scale, params.softcap,
+        run_ptr_t.data_ptr(), sq, sk, hq, hk, d, plan.block_q, plan.block_k,
+        plan.num_k_tiles, params.softmax_scale, params.softcap,
     )
     ffa_bwd_fused_convert(dq, params.softmax_scale)
     ffa_bwd_fused_kernel.launches += 1
+    ffa_bwd_fused_kernel.tile_launches[(q.dtype, plan.block_q, plan.block_k)] += 1
     return dq, dk, dv
 
 
@@ -492,19 +626,19 @@ for _kernel in (
     ffa_bwd_dq_gqa_kernel, ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel,
 ):
     _kernel.launches = 0
+# the tiled kernels' launches split by (dtype, q tile, k tile) of the
+# launch: the same launches as ``launches``, counted at the same place
+TILED_KERNELS = (
+    ffa_fwd_kernel, ffa_fwd_gqa_kernel, ffa_bwd_dq_kernel, ffa_bwd_dq_gqa_kernel,
+    ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel,
+)
+for _kernel in TILED_KERNELS:
+    _kernel.tile_launches = Counter()
 
 
 # ---------------------------------------------------------------------------
 # plain versions of the backward kernels (dense, float32)
 # ---------------------------------------------------------------------------
-
-
-def _plan_slices(plan: FFAPlan):
-    """The (merged) band slices a plan covers, read back from its items."""
-    meta = plan.meta
-    real = meta[meta[:, QE] > meta[:, QS]]
-    cols = np.unique(real[:, [QS, QE, KS, KE, DLO, DHI]], axis=0)
-    return cols[:, 0:2], cols[:, 2:4], cols[:, 4], cols[:, 5]
 
 
 def ffa_delta_plain(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -521,7 +655,7 @@ def _bwd_dense(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     sq, hq, _ = q.shape
     sk, hk, _ = k.shape
     g = hq // hk
-    qr, kr, lo, hi = _plan_slices(plan)
+    qr, kr, lo, hi = plan.slices()
     mask = build_dense_mask_band(qr, kr, lo, hi, sq, sk, device=q.device)
     kf = k.float().repeat_interleave(g, dim=1)
     s = torch.einsum("qhd,khd->hqk", q.float(), kf).mul_(params.softmax_scale)
@@ -597,7 +731,7 @@ def ffa_fwd(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logits: bool =
     over the plan's slices."""
     if q.is_cuda:
         return ffa_fwd_kernel(q, k, v, plan, params, return_max_logits)
-    qr, kr, lo, hi = _plan_slices(plan)
+    qr, kr, lo, hi = plan.slices()
     kw = dict(softmax_scale=params.softmax_scale, softcap=params.softcap, d_lo=lo, d_hi=hi)
     out, lse = sdpa_attn(q, k, v, qr, kr, **kw)
     if not return_max_logits:
@@ -645,21 +779,16 @@ def ffa_bwd_fused(q, k, v, do, lse, delta, plan, params):
     return fn(q, k, v, do, lse, delta, plan, params)
 
 
-# the shared-memory and register budget of one CTA on an H100 (sm_90)
-SMEM_PER_CTA = 232_448  # 227 KB opt-in dynamic shared memory
+# the register budget of one CTA's thread on an H100 (sm_90); the shared
+# memory figures are utils/mem_budget.py's (SMEM_PER_CTA: 227 KB)
 REGS_PER_THREAD = 255
 # head blocks the packed kernels are compiled for, largest first
 PACK_HEADS = (4, 2)
-P_TILE_FLOATS = 64 * 80  # the 64 x 64 P / dS tile at row stride 80
 
 
-def _tile_floats(d: int) -> int:
-    """One 64-row float32 operand tile at row stride d + 4."""
-    return 64 * (d + 4)
-
-
-def fwd_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
-    """Shared memory of one packed-forward CTA. float32
+def fwd_pack_smem_bytes(d: int, heads: int, itemsize: int = 4, bq: int = 64, bk: int = 64) -> int:
+    """Shared memory of one forward CTA of ``heads`` heads at tiles (bq,
+    bk) (:func:`..utils.mem_budget.fwd_smem_bytes`). float32
     (csrc/ffa_fwd_tf32.cuh ``Smem``): the heads' q tiles in tf32 hi and lo,
     the raw k and v chunk of 32 rows and the hi and lo tiles of K and of
     V^T split from it, two stages of those where they fit, else one.
@@ -669,26 +798,18 @@ def fwd_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
     swizzle. At d = 256 (the column split) the v tiles are the 128-column
     half, and float32 splits each chunk straight from global memory (no
     raw chunk)."""
-    w = cta_width(d)
-    if itemsize == 2:
-        return heads * 64 * d * 2 + 2 * 64 * (d + w) * 2 + 16 * heads + 1024
-    raw = 128 * (d + w) if d <= SPLIT_WIDTH else 0
-    fixed = 512 * heads * d + raw + 16 * heads + 1024
-    stage = 256 * (d + w)
-    two_stages = fixed + 2 * stage
-    return two_stages if two_stages <= SMEM_PER_CTA else fixed + stage
+    return mem_budget.fwd_smem_bytes(d, bq, bk, itemsize, heads)
 
 
-def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4) -> int:
-    """Shared memory of one dq CTA of ``heads`` heads. float32
+def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4, bq: int = 64, bk: int = 64) -> int:
+    """Shared memory of one dq CTA of ``heads`` heads at tiles (bq, bk)
+    (:func:`..utils.mem_budget.dq_smem_bytes`). float32
     (csrc/ffa_bwd_dq.cuh ``DqSmem``): the heads' q and dO tiles, the k and
     v tiles, the dS tile. bfloat16 (csrc/ffa_bwd_dq_tc.cuh ``Smem``): the
     heads' q and dO tiles and two stages of k and v tiles in bf16, and 1024
     bytes to align the window for the swizzle. At d = 256 the float32
     tiles are the contraction's 128-column chunks."""
-    if itemsize == 2:
-        return (2 * heads + 4) * 64 * d * 2 + 1024
-    return 4 * ((2 * heads + 2) * _tile_floats(cta_width(d)) + P_TILE_FLOATS)
+    return mem_budget.dq_smem_bytes(d, bq, bk, itemsize, heads)
 
 
 def _pack_heads(group: int, d: int, dv: int, smem_bytes, regs_per_head: int, regs_shared: int) -> int:
@@ -707,18 +828,23 @@ def _pack_heads(group: int, d: int, dv: int, smem_bytes, regs_per_head: int, reg
 # the register file of one SM; a packed tensor-core CTA runs one warpgroup
 # (128 threads) per head
 REGS_PER_SM = 65_536
-# what a thread of a tensor-core forward warpgroup holds beside its O
-# accumulator (d / 2 floats): S (32), P in bf16 (16), and addresses,
-# indices and the softmax state (40)
-TC_FWD_REGS_SHARED = 88
 # the float32 (3xTF32) forward's thread holds beside its O accumulator the
 # chunk's P V (d / 2 floats more), P's tf32 hi and lo (32) and addresses,
 # indices and the softmax state (40)
 TF32_FWD_REGS_SHARED = 72
 # what a thread of a tensor-core dq warpgroup holds beside its dQ
 # accumulator (d / 2 floats): S and dP (32 each), dS in bf16 (16), and
-# addresses, indices and the row statistics (40)
+# addresses, indices and the row statistics (40); a 128-row k tile is
+# walked as two 64-key blocks, so the same
 TC_DQ_REGS_SHARED = 120
+
+
+def tc_fwd_regs_shared(bk: int = 64) -> int:
+    """What a thread of a tensor-core forward warpgroup holds beside its O
+    accumulator (d / 2 floats) at a k tile of ``bk`` rows: S (bk / 2), P
+    in bf16 (bk / 4), and addresses, indices and the softmax state (40);
+    88 at 64 rows."""
+    return bk // 2 + bk // 4 + 40
 
 
 def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_needed: int,
@@ -742,76 +868,80 @@ def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_needed: int,
     return 1
 
 
-def fwd_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
-    """Query heads per CTA of the packed forward at this geometry, 1 where
-    it does not pack: the largest of :data:`PACK_HEADS` that divides the
-    group and fits, by :func:`_tc_pack_heads` (both bodies run on the
-    tensor cores, one warpgroup a head). bfloat16: d / 2 + 88 registers a
-    thread, 2 heads at head_dim 128 and 4 at 64. float32 (3xTF32): d + 72
-    registers a thread and :func:`fwd_pack_smem_bytes`, 2 heads at head_dim
-    64 and 128 (four warpgroups would leave 128 registers a thread). At
-    d = 256 bf16 packs 2 heads and float32 none (one head's tiles take
-    225 KB). A group larger than the block runs in several blocks per kv
-    head."""
+def fwd_pack_heads(group: int, d: int, dv: int, itemsize: int = 4, bq: int = 64, bk: int = 64) -> int:
+    """Query heads per CTA of the packed forward at this geometry and tile
+    pair, 1 where it does not pack: the largest of :data:`PACK_HEADS` that
+    divides the group and fits, by :func:`_tc_pack_heads` (both bodies run
+    on the tensor cores, one warpgroup a head). bfloat16: d / 2 + 88
+    registers a thread at a 64-row k tile (:func:`tc_fwd_regs_shared`), 2
+    heads at head_dim 128 and 4 at 64; at a 128-row k tile 2. float32
+    (3xTF32): d + 72 registers a thread and :func:`fwd_pack_smem_bytes`, 2
+    heads at head_dim 64 and 128 (four warpgroups would leave 128 registers
+    a thread). At d = 256 bf16 packs 2 heads (64-row k tiles) and float32
+    none (one head's tiles take 225 KB). A 128-row q tile packs none (its
+    two warpgroups are the tile's halves). A group larger than the block
+    runs in several blocks per kv head."""
+    if bq != 64:
+        return 1
+    smem = lambda d_, h, isz: fwd_pack_smem_bytes(d_, h, isz, bq, bk)  # noqa: E731
     if itemsize == 2:
-        return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, cta_width(d) // 2 + TC_FWD_REGS_SHARED)
-    return _tc_pack_heads(group, d, dv, fwd_pack_smem_bytes, cta_width(d) + TF32_FWD_REGS_SHARED, 4)
+        return _tc_pack_heads(group, d, dv, smem, cta_width(d) // 2 + tc_fwd_regs_shared(bk))
+    return _tc_pack_heads(group, d, dv, smem, cta_width(d) + TF32_FWD_REGS_SHARED, 4)
 
 
-def dq_pack_heads(group: int, d: int, dv: int, itemsize: int = 4) -> int:
+def dq_pack_heads(group: int, d: int, dv: int, itemsize: int = 4, bq: int = 64, bk: int = 64) -> int:
     """Query heads per CTA of the packed dq kernel, as
-    :func:`fwd_pack_heads`. float32: shared memory
+    :func:`fwd_pack_heads`. float32 (64 x 64 only): shared memory
     :func:`dq_pack_smem_bytes` (two tiles per head, so 2 heads at head_dim
     128), registers per head 4 rows x d/16 dq columns and 4 lse and delta
     values, the 4 x 4 score and dP blocks. bfloat16 (the tensor-core body):
     :func:`_tc_pack_heads` with d / 2 + 120 registers a thread, so 2 heads
-    at head_dim 64 and 128 (four warpgroups would leave 128 a thread). At
-    d = 256 neither packs: bf16's two heads take 263,168 bytes, and the
-    float32 instance chunks its contraction for one head a CTA."""
+    at head_dim 64 and 128 (four warpgroups would leave 128 a thread), at
+    64- and 128-row k tiles. At d = 256 neither packs: bf16's two heads
+    take 263,168 bytes, and the float32 instance chunks its contraction for
+    one head a CTA. A 128-row q tile packs none."""
+    if bq != 64:
+        return 1
     if itemsize == 2:
-        return _tc_pack_heads(group, d, dv, dq_pack_smem_bytes, cta_width(d) // 2 + TC_DQ_REGS_SHARED)
-    if d > SPLIT_WIDTH:
+        smem = lambda d_, h, isz: dq_pack_smem_bytes(d_, h, isz, bq, bk)  # noqa: E731
+        return _tc_pack_heads(group, d, dv, smem, cta_width(d) // 2 + TC_DQ_REGS_SHARED)
+    if d > SPLIT_WIDTH or bk != 64:
         return 1
     return _pack_heads(group, d, dv, dq_pack_smem_bytes, d // 4 + 8, 32)
 
 
 def gqa_pack_variant(kind: str) -> str:
-    """'gqa_packed' | 'plain' for the fwd / dq / dkv kernels: the pin the
-    JAX package's registry resolves from the pack flags
-    (``kernels/registry.py:gqa_pack_variant``); the call site's budget
-    guard applies on top. "dkv" reads its flag, but the port has one dk/dv
+    """'gqa_packed' | 'plain' for the fwd / dq / dkv kernels, resolved by
+    the backend registry from the pack flags (always a pin:
+    :func:`.registry.gqa_pack_variant`); the call site's budget guard
+    applies on top. "dkv" reads its flag, but the port has one dk/dv
     kernel (packed semantics), which either value selects."""
-    flags = {
-        "fwd": env_kernel.ffa_gqa_pack,
-        "dq": env_kernel.ffa_gqa_pack_dq,
-        "dkv": env_kernel.ffa_gqa_pack_dkv,
-    }
-    if kind not in flags:
-        raise ValueError(f"unknown gqa pack kind: {kind!r}")
-    return "gqa_packed" if flags[kind]() else "plain"
+    return _registry.gqa_pack_variant(kind)
 
 
 def _use_gqa_pack(
-    group: int, d: int, dv: int, return_max_logits: bool = False, itemsize: int = 4
+    group: int, d: int, dv: int, return_max_logits: bool = False, itemsize: int = 4,
+    bq: int = 64, bk: int = 64,
 ) -> int:
     """Heads per CTA of the forward (the JAX package's ``_use_gqa_pack``
     for Hopper): the packed kernel's (:func:`fwd_pack_heads` for the input
-    dtype's ``itemsize``) when the flag is on, the group is > 1 and no
-    max-logits is asked for (the packed kernel emits none, as in the JAX
-    package); 1, the unpacked kernel, otherwise. Decided before any
-    launch: a failed launch raises."""
+    dtype's ``itemsize`` and the plan's tiles) when the flag is on, the
+    group is > 1 and no max-logits is asked for (the packed kernel emits
+    none, as in the JAX package); 1, the unpacked kernel, otherwise.
+    Decided before any launch: a failed launch raises."""
     if gqa_pack_variant("fwd") != "gqa_packed" or group <= 1 or return_max_logits:
         return 1
-    return fwd_pack_heads(group, d, dv, itemsize)
+    return fwd_pack_heads(group, d, dv, itemsize, bq, bk)
 
 
-def _use_gqa_pack_dq(group: int, d: int, dv: int, itemsize: int = 4) -> int:
+def _use_gqa_pack_dq(group: int, d: int, dv: int, itemsize: int = 4, bq: int = 64, bk: int = 64) -> int:
     """Heads per CTA of the dq kernel (the JAX package's
     ``_use_gqa_pack_dq``): :func:`dq_pack_heads` for the input dtype's
-    ``itemsize`` when the flag is on and the group is > 1, else 1."""
+    ``itemsize`` and the dq plan's tiles when the flag is on and the group
+    is > 1, else 1."""
     if gqa_pack_variant("dq") != "gqa_packed" or group <= 1:
         return 1
-    return dq_pack_heads(group, d, dv, itemsize)
+    return dq_pack_heads(group, d, dv, itemsize, bq, bk)
 
 
 def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logits: bool = False):
@@ -826,7 +956,10 @@ def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logit
     if q.is_cuda:
         q, k, v = pad_to_kernel_width(q, k, v)
     group, itemsize = q.shape[1] // k.shape[1], q.element_size()
-    if _use_gqa_pack(group, q.shape[-1], v.shape[-1], return_max_logits, itemsize) > 1:
+    heads = _use_gqa_pack(
+        group, q.shape[-1], v.shape[-1], return_max_logits, itemsize, plan.block_q, plan.block_k,
+    )
+    if heads > 1:
         res = ffa_fwd_gqa(q, k, v, plan, params)
     else:
         res = ffa_fwd(q, k, v, plan, params, return_max_logits)
@@ -838,31 +971,33 @@ def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logit
 def ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     """dq of the split backward with the GQA-packing dispatch applied (the
     JAX package's ``ffa_bwd_dq_pallas_dispatch``): the one entry of every
-    split-dq caller."""
+    split-dq caller. ``plan`` is the dq pass's."""
     group, itemsize = q.shape[1] // k.shape[1], q.element_size()
-    packed = _use_gqa_pack_dq(group, q.shape[-1], v.shape[-1], itemsize) > 1
+    packed = _use_gqa_pack_dq(
+        group, q.shape[-1], v.shape[-1], itemsize, plan.block_q, plan.block_k,
+    ) > 1
     fn = ffa_bwd_dq_gqa if packed else ffa_bwd_dq
     return fn(q, k, v, do, lse, delta, plan, params)
 
 
-def dkv_smem_bytes(d: int, itemsize: int = 4) -> int:
-    """Shared memory of one dk/dv CTA. float32 (csrc/bwd_kv.cuh
+def dkv_smem_bytes(d: int, itemsize: int = 4, bq: int = 64, bk: int = 64) -> int:
+    """Shared memory of one dk/dv CTA at tiles (bq, bk)
+    (:func:`..utils.mem_budget.dkv_smem_bytes`). float32 (csrc/bwd_kv.cuh
     ``DkvSmem``): K, V, Q and dO tiles at row stride d + 4, the P^T and
     dS^T tiles at row stride 80, the q tile's lse and delta, float32.
-    bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``): K, V and two stages of Q and dO
-    in bf16, two stages of lse and delta, and 1024 bytes to align the
-    window for the swizzle. At d = 256 the float32 tiles are the
-    contraction's 128-column chunks."""
-    if itemsize == 2:
-        return 6 * 64 * d * 2 + 2 * 2 * 64 * 4 + 1024
-    return 4 * (4 * _tile_floats(cta_width(d)) + 2 * P_TILE_FLOATS + 2 * 64)
+    bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``): K and V of each warpgroup and
+    two stages of Q and dO in bf16, two stages of lse and delta, and 1024
+    bytes to align the window for the swizzle. At d = 256 the float32 tiles
+    are the contraction's 128-column chunks."""
+    return mem_budget.dkv_smem_bytes(d, bq, bk, itemsize)
 
 
-def fused_bwd_smem_bytes(d: int, itemsize: int = 4) -> int:
+def fused_bwd_smem_bytes(d: int, itemsize: int = 4, bq: int = 64, bk: int = 64) -> int:
     """Shared memory of one fused-backward CTA: the dk/dv CTA's
     (:func:`dkv_smem_bytes`; float32 keeps its dS^T tile for dq already),
-    plus in bf16 the 64 x 64 bf16 dS^T tile that dQ = dS K reads."""
-    return dkv_smem_bytes(d, itemsize) + (64 * 64 * 2 if itemsize == 2 else 0)
+    plus in bf16 a 64 x 64 bf16 dS^T tile per warpgroup that dQ = dS K
+    reads."""
+    return mem_budget.dkv_smem_bytes(d, bq, bk, itemsize, fused=True)
 
 
 def fused_bwd_feasible(d: int, dv: int) -> bool:
@@ -892,23 +1027,39 @@ def _run_items(meta: np.ndarray, run_ptr: np.ndarray) -> np.ndarray:
     return np.add.reduceat(real, run_ptr[:-1])
 
 
-def bwd_shape(plan: FFAPlan, hq: int, hk: int, d: int, dv: int, itemsize: int) -> BwdShape:
-    """What the backward-mode model reads of a plan and its heads."""
+def bwd_shape(
+    plan: FFAPlan, hq: int, hk: int, d: int, dv: int, itemsize: int,
+    plan_dkv: FFAPlan | None = None,
+) -> BwdShape:
+    """What the backward-mode model reads of a plan and its heads: the dq
+    pass's q-major runs of ``plan`` and the k-major runs of ``plan_dkv``
+    (default ``plan``), each at its own tiles."""
+    kv = plan if plan_dkv is None else plan_dkv
     return BwdShape(
         items_q=_run_items(plan.meta, plan.run_ptr),
-        items_k=_run_items(plan.meta_t, plan.run_ptr_t),
+        items_k=_run_items(kv.meta_t, kv.run_ptr_t),
         block_q=plan.block_q, block_k=plan.block_k, hq=hq, hk=hk, d=d, dv=dv,
-        itemsize=itemsize,
+        itemsize=itemsize, block_q_dkv=kv.block_q, block_k_dkv=kv.block_k,
     )
 
 
-@lru_cache(maxsize=256)
-def _modeled_mode(plan: FFAPlan, hq: int, hk: int, d: int, dv: int, itemsize: int, dq_heads: int) -> str:
-    return choose_bwd_mode(bwd_shape(plan, hq, hk, d, dv, itemsize), dq_heads)
+def bwd_mode_key(
+    plan_dq: FFAPlan, plan_dkv: FFAPlan, hq: int, hk: int, d: int, dv: int, itemsize: int,
+    dq_heads: int,
+) -> tuple:
+    """The registry key of one backward-mode decision: the quantities the
+    cost model reads (each pass's runs, as a digest, and tiles; heads, head
+    dims, dtype, dq heads a CTA)."""
+    return (
+        plan_dq.runs_digest("q"), plan_dkv.runs_digest("k"),
+        plan_dq.block_q, plan_dq.block_k, plan_dkv.block_q, plan_dkv.block_k,
+        hq, hk, d, dv, itemsize, dq_heads,
+    )
 
 
 def ffa_bwd_mode(
-    plan: FFAPlan, params: FFAParams, d: int, dv: int, itemsize: int, hq: int, hk: int
+    plan: FFAPlan, params: FFAParams, d: int, dv: int, itemsize: int, hq: int, hk: int,
+    sq: int | None = None, sk: int | None = None,
 ) -> str:
     """The backward's execution mode for one plan, "split" or "fused".
 
@@ -922,40 +1073,53 @@ def ffa_bwd_mode(
     MAGI_ATTENTION_FFA_FUSED_BWD=0) wins; a plan without the visit-flag
     columns, or a head geometry the fused kernel cannot hold
     (:func:`fused_bwd_feasible`), runs split; then a fused pin wins;
-    otherwise the cost model :func:`.tile_policy.choose_bwd_mode` decides
-    from the plan's runs, the heads and the dq kernel the split mode would
-    run (cached per plan)."""
+    otherwise the backend registry's ``ffa_bwd`` decision, whose heuristic
+    is the cost model :func:`.tile_policy.choose_bwd_mode` over the pass
+    plans at ``params``' tiles (:func:`bwd_plans`; ``sq``/``sk`` default to
+    the plan's padded lengths), the heads and the dq kernel the split mode
+    would run (memoized per key)."""
     if params.deterministic or env_general.is_deterministic_mode_enable():
         return "split"
     pin = env_backend.ffa_bwd_pin()
     if pin == "split":
-        return "split"
+        return _registry.resolve("ffa_bwd", (), lambda: "split", pin=pin).name
     if plan.meta.shape[1] <= QVL or not fused_bwd_feasible(d, dv):
         return "split"
     if pin == "fused":
-        return "fused"
-    dq_heads = _use_gqa_pack_dq(hq // hk, d, dv, itemsize)
-    return _modeled_mode(plan, hq, hk, d, dv, itemsize, dq_heads)
+        return _registry.resolve("ffa_bwd", (), lambda: "fused", pin=pin).name
+    sq = plan.num_q_tiles * plan.block_q if sq is None else sq
+    sk = plan.num_k_tiles * plan.block_k if sk is None else sk
+    plan_dq, plan_dkv = bwd_plans(plan, params, sq, sk)
+    dq_heads = _use_gqa_pack_dq(hq // hk, d, dv, itemsize, plan_dq.block_q, plan_dq.block_k)
+    key = bwd_mode_key(plan_dq, plan_dkv, hq, hk, d, dv, itemsize, dq_heads)
+    return _registry.resolve(
+        "ffa_bwd", key,
+        lambda: choose_bwd_mode(bwd_shape(plan_dq, hq, hk, d, dv, itemsize, plan_dkv), dq_heads),
+    ).name
 
 
 def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     """(dq, dk, dv) float32 of one plan under :func:`ffa_bwd_mode`: the
     fused kernel, or the dq (:func:`ffa_bwd_dq_dispatch`) then dk/dv
-    kernels (their plain versions on the CPU). On CUDA, head dims other
+    kernels (their plain versions on the CPU), each over its pass plan at
+    the tiles ``params`` carries (:func:`bwd_plans`: the fused kernel and
+    dk/dv run the k-major plan, dq the q-major one). On CUDA, head dims other
     than d == dv in (64, 128, 256) run padded to the kernels' width
     (:func:`.head_dims.pad_to_kernel_width`), which the mode and packing
     guards see; the gradients come back at their inputs' widths."""
     d, d_v = q.shape[-1], v.shape[-1]
     if q.is_cuda:
         q, k, v, do = pad_to_kernel_width(q, k, v, do)
+    sq, sk = q.shape[0], k.shape[0]
     mode = ffa_bwd_mode(
-        plan, params, q.shape[-1], v.shape[-1], q.element_size(), q.shape[1], k.shape[1],
+        plan, params, q.shape[-1], v.shape[-1], q.element_size(), q.shape[1], k.shape[1], sq, sk,
     )
+    plan_dq, plan_dkv = bwd_plans(plan, params, sq, sk)
     if mode == "fused":
-        dq, dk, dv = ffa_bwd_fused(q, k, v, do, lse, delta, plan, params)
+        dq, dk, dv = ffa_bwd_fused(q, k, v, do, lse, delta, plan_dkv, params)
     else:
-        dq = ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan, params)
-        dk, dv = ffa_bwd_dkv(q, k, v, do, lse, delta, plan, params)
+        dq = ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan_dq, params)
+        dk, dv = ffa_bwd_dkv(q, k, v, do, lse, delta, plan_dkv, params)
     if dq.shape[-1] == d and dv.shape[-1] == d_v:
         return dq, dk, dv
     return dq[..., :d].contiguous(), dk[..., :d].contiguous(), dv[..., :d_v].contiguous()
@@ -1011,6 +1175,135 @@ def ffa_attn_with_plan(
     return (out, *(t.detach() for t in aux))
 
 
+# ---------------------------------------------------------------------------
+# mixed-granularity dispatch: a coarse-tile plan over the dense slices and a
+# fine-tile plan over the fragmented ones, merged by lse
+# (tile_policy.choose_mixed_dispatch decides when the split pays)
+# ---------------------------------------------------------------------------
+
+
+def _merge_out_lse(o1, l1, o2, l2):
+    """Exact two-way online-softmax merge of (out, lse) pairs, seq-major
+    (the JAX package's ``_merge_out_lse``): lse natural-log, -inf on
+    uncovered rows. The two passes partition the slice set, so the merged
+    out is sum_i exp(lse_i - lse) out_i and the merged lse log(sum_i
+    exp(lse_i)): the single-pass results up to rounding."""
+    m = torch.maximum(l1, l2)
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    w1 = torch.where(torch.isneginf(l1), 0.0, torch.exp(l1 - m_safe))
+    w2 = torch.where(torch.isneginf(l2), 0.0, torch.exp(l2 - m_safe))
+    tot = w1 + w2
+    covered = tot > 0.0
+    lse = torch.where(covered, m_safe + torch.log(torch.where(covered, tot, 1.0)), float("-inf"))
+    tot_safe = torch.where(covered, tot, 1.0)[..., None]
+    out = (o1.float() * w1[..., None] + o2.float() * w2[..., None]) / tot_safe
+    return out.to(o1.dtype), lse
+
+
+def _mixed_branch_fwd(q, k, v, plan: FFAPlan, params: FFAParams):
+    """One forward pass of the mixed dispatch: (out, lse) of its plan (the
+    dispatcher, so the packed kernel where the flag and its guard admit)."""
+    return ffa_fwd_dispatch(q, k.to(q.dtype), v.to(q.dtype), plan, params)
+
+
+class _FFAMixed(torch.autograd.Function):
+    """The mixed dispatch as one differentiable function (the JAX
+    package's ``_ffa_mixed``, a custom VJP there). Autodiff through the
+    merge would be wrong: each branch's backward ignores its lse
+    cotangent, so the coupling between the branches' softmax normalizers
+    would be dropped. Instead one delta = rowsum(dO * out) is computed on
+    the MERGED out, each branch's backward runs against the MERGED lse and
+    that delta (so P = exp(s - lse) is the global probability of every
+    pair a branch covers), and the branch gradients, which partition the
+    mask, are summed: the single-pass gradients exactly. lse's cotangent is
+    ignored, as in :class:`_FFACore`. On the CPU the kernels' plain
+    versions run under the same function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plan_a: FFAPlan, plan_b: FFAPlan, params_a: FFAParams,
+                params_b: FFAParams):
+        o1, l1 = _mixed_branch_fwd(q, k, v, plan_a, params_a)
+        o2, l2 = _mixed_branch_fwd(q, k, v, plan_b, params_b)
+        out, lse = _merge_out_lse(o1, l1, o2, l2)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.plans, ctx.params = (plan_a, plan_b), (params_a, params_b)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype)
+        delta = ffa_delta(out, dout)  # once, on the merged out
+        kc, vc = k.to(q.dtype), v.to(q.dtype)
+        grads = [
+            ffa_bwd(q, kc, vc, dout, lse, delta, plan, params)
+            for plan, params in zip(ctx.plans, ctx.params)
+        ]
+        (dq1, dk1, dv1), (dq2, dk2, dv2) = grads
+        return (
+            (dq1 + dq2).to(q.dtype), (dk1 + dk2).to(k.dtype), (dv1 + dv2).to(v.dtype),
+            None, None, None, None,
+        )
+
+
+def _mixed_params(plan: FFAPlan, softmax_scale: float, softcap: float,
+                  deterministic: bool = False) -> FFAParams:
+    """Branch params of the mixed dispatch: the branch plan's tiles, no
+    backward overrides, no max-logits (the dispatch gate excludes it)."""
+    return FFAParams(
+        num_q_tiles=plan.num_q_tiles, num_k_tiles=plan.num_k_tiles,
+        block_q=plan.block_q, block_k=plan.block_k,
+        softmax_scale=softmax_scale, softcap=softcap, deterministic=deterministic,
+    )
+
+
+@dataclass(frozen=True)
+class Dispatch:
+    """How :func:`ffa_attn` runs one call: ``mixed`` (two plans and their
+    params, merged) or one plan at ``blocks`` with the backward's per-pass
+    ``overrides``."""
+
+    mixed: "object | None"  # tile_policy.MixedDispatch
+    blocks: tuple[int, int]
+    overrides: dict
+
+
+def resolve_dispatch(
+    qr: np.ndarray, kr: np.ndarray, d_lo: np.ndarray, d_hi: np.ndarray, sq: int, sk: int,
+    d: int, dv: int, itemsize: int, block_q: int | None = None, block_k: int | None = None,
+    return_max_logits: bool = False,
+) -> Dispatch:
+    """:func:`ffa_attn`'s tile flow, the JAX package's order: with no tile
+    argument, no env tile pin (:func:`.registry.tiles_pinned`) and no
+    max-logits, the mixed gate (:func:`.tile_policy.choose_mixed_dispatch`
+    at the default coarse tiles); then, with no tile argument or pin and
+    MAGI_ATTENTION_FFA_AUTO_TILE=1, the policy's per-pass picks
+    (:func:`.tile_policy.choose_blocks_per_pass`); then
+    :func:`default_blocks`; then the backward's per-pass overrides (env,
+    else the policy's; :func:`assemble_bwd_overrides`). ``d``/``dv`` are
+    the logical head dims; the kernels' width decides what is compiled."""
+    from . import tile_policy
+
+    width = kernel_head_dim(d, dv)
+    unpinned = block_q is None and block_k is None and not _registry.tiles_pinned()
+    if unpinned and not return_max_logits:
+        mix = tile_policy.choose_mixed_dispatch(
+            qr, kr, d_lo, d_hi, sq, sk, d, dv, itemsize=itemsize,
+            coarse_blocks=default_blocks(sq, sk),
+        )
+        if mix is not None:
+            return Dispatch(mixed=mix, blocks=mix.coarse_blocks, overrides={})
+    policy_dq = policy_dkv = None
+    if unpinned and tile_policy.auto_tile_enabled():
+        (block_q, block_k), policy_dq, policy_dkv = tile_policy.choose_blocks_per_pass(
+            qr, kr, d_lo, d_hi, sq, sk, d, dv, itemsize=itemsize,
+        )
+    bq, bk = default_blocks(sq, sk, block_q, block_k)
+    overrides = assemble_bwd_overrides(bq, bk, width, itemsize, policy_dq, policy_dkv)
+    return Dispatch(mixed=None, blocks=(bq, bk), overrides=overrides)
+
+
 def ffa_attn(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -1033,9 +1326,12 @@ def ffa_attn(
 
     Slices may be given as mask types (``attn_type_map``) or directly as
     diagonal bands (``d_lo``/``d_hi``). The metadata must be host values —
-    it builds the plan. CUDA tensors run the kernels through
-    :class:`_FFACore`; CPU tensors run :func:`~.sdpa.sdpa_attn` (autograd).
-    lse carries no gradient on either route, as in the JAX package.
+    it builds the plan. The tiles follow :func:`resolve_dispatch`: a mixed
+    dispatch runs :class:`_FFAMixed` (on the CPU over the kernels' plain
+    versions); otherwise CUDA tensors run the kernels through
+    :class:`_FFACore` at the resolved tiles, and CPU tensors run
+    :func:`~.sdpa.sdpa_attn` (autograd), which no tiling changes. lse
+    carries no gradient on either route, as in the JAX package.
 
     Returns (out ``[sq,hq,dv]`` in q's dtype, lse ``[sq,hq]`` float32,
     natural log, ``-inf`` on rows no slice covers, whose out is 0), plus
@@ -1043,17 +1339,42 @@ def ffa_attn(
     (``-inf`` for a head with no attended entry) when
     ``return_max_logits``.
     """
+    qr = np.asarray(q_ranges, dtype=np.int32).reshape(-1, 2)
+    kr = np.asarray(k_ranges, dtype=np.int32).reshape(-1, 2)
+    if d_lo is None or d_hi is None:
+        tm = (
+            np.zeros(len(qr), dtype=np.int32)
+            if attn_type_map is None
+            else np.asarray(attn_type_map, dtype=np.int32)
+        )
+        lo, hi = types_to_bands(qr, kr, tm)
+    else:
+        lo = np.asarray(d_lo, dtype=np.int32).reshape(-1)
+        hi = np.asarray(d_hi, dtype=np.int32).reshape(-1)
+    sq, sk, d, dv = q.shape[0], k.shape[0], q.shape[-1], v.shape[-1]
+    scale = float(d) ** -0.5 if softmax_scale is None else float(softmax_scale)
+    how = resolve_dispatch(
+        qr, kr, lo, hi, sq, sk, d, dv, q.element_size(), block_q, block_k, return_max_logits,
+    )
+    if how.mixed is not None:
+        mix = how.mixed
+        di, fi = mix.dense_idx, mix.frag_idx
+        plan_a = get_ffa_plan(qr[di], kr[di], lo[di], hi[di], sq, sk, *mix.coarse_blocks)
+        plan_b = get_ffa_plan(qr[fi], kr[fi], lo[fi], hi[fi], sq, sk, *mix.fine_blocks)
+        det = bool(deterministic)
+        return _FFAMixed.apply(
+            q, k, v, plan_a, plan_b,
+            _mixed_params(plan_a, scale, float(softcap), det),
+            _mixed_params(plan_b, scale, float(softcap), det),
+        )
     if not q.is_cuda:
-        qr = np.asarray(q_ranges, dtype=np.int32).reshape(-1, 2)
-        kr = np.asarray(k_ranges, dtype=np.int32).reshape(-1, 2)
-        kw = dict(softmax_scale=softmax_scale, softcap=softcap, d_lo=d_lo, d_hi=d_hi)
-        out, lse = sdpa_attn(q, k, v, qr, kr, attn_type_map, **kw)
+        kw = dict(softmax_scale=softmax_scale, softcap=softcap, d_lo=lo, d_hi=hi)
+        out, lse = sdpa_attn(q, k, v, qr, kr, None, **kw)
         if not return_max_logits:
             return out, lse.detach()
-        return out, lse.detach(), dense_max_logits(q, k, qr, kr, attn_type_map, **kw).detach()
+        return out, lse.detach(), dense_max_logits(q, k, qr, kr, None, **kw).detach()
     plan, params = plan_params(
-        q_ranges, k_ranges, attn_type_map, d_lo, d_hi, q.shape[0],
-        k.shape[0], q.shape[-1], softmax_scale, softcap, block_q, block_k,
-        deterministic,
+        qr, kr, None, lo, hi, sq, sk, d, softmax_scale, softcap, *how.blocks,
+        deterministic, how.overrides,
     )
     return _FFACore.apply(q, k, v, plan, params, return_max_logits)

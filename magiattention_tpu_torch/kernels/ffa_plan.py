@@ -23,6 +23,7 @@ GPU kernel of the port reads them yet.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field
 from functools import lru_cache
 
@@ -60,6 +61,7 @@ class FFAPlan:
     run_ptr: np.ndarray  # (num_q_tiles + 1,) int32 CSR over q-major runs
     run_ptr_t: np.ndarray  # (num_k_tiles + 1,) int32 CSR over k-major runs
     _device: dict = field(default_factory=dict, init=False, repr=False)
+    _memo: dict = field(default_factory=dict, init=False, repr=False)
 
     @property
     def num_work(self) -> int:
@@ -82,6 +84,42 @@ class FFAPlan:
             device, "k", (self.work_qt_t, self.meta_t, self.run_ptr_t)
         )
 
+    def slices(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """The (merged) band slices the plan covers, read back from its real
+        items: ``(q_ranges, k_ranges, d_lo, d_hi)``."""
+        got = self._memo.get("slices")
+        if got is None:
+            real = self.meta[self.meta[:, QE] > self.meta[:, QS]]
+            cols = np.unique(real[:, [QS, QE, KS, KE, DLO, DHI]], axis=0)
+            got = (cols[:, 0:2], cols[:, 2:4], cols[:, 4], cols[:, 5])
+            self._memo["slices"] = got
+        return got
+
+    def retiled(self, block_q: int, block_k: int, seqlen_q: int, seqlen_k: int) -> "FFAPlan":
+        """The plan of the same slices at tiles (block_q, block_k): itself
+        at its own tiles, else built once (the backward's per-pass plans)."""
+        if (block_q, block_k) == (self.block_q, self.block_k):
+            return self
+        key = ("tiles", block_q, block_k, seqlen_q, seqlen_k)
+        got = self._memo.get(key)
+        if got is None:
+            got = get_ffa_plan(*self.slices(), seqlen_q, seqlen_k, block_q, block_k)
+            self._memo[key] = got
+        return got
+
+    def runs_digest(self, major: str) -> str:
+        """A digest of the real items of each q-major (``"q"``) or k-major
+        (``"k"``) run: what the backward-mode model reads of the plan."""
+        key = ("digest", major)
+        got = self._memo.get(key)
+        if got is None:
+            meta, ptr = (self.meta, self.run_ptr) if major == "q" else (self.meta_t, self.run_ptr_t)
+            real = ((meta[:, QE] > meta[:, QS]) & (meta[:, KE] > meta[:, KS])).astype(np.int64)
+            items = np.add.reduceat(real, ptr[:-1]) if len(meta) else real
+            got = hashlib.md5(np.ascontiguousarray(items).tobytes()).hexdigest()[:16]
+            self._memo[key] = got
+        return got
+
     def _on_device(self, device, major: str, host: tuple) -> tuple[torch.Tensor, ...]:
         key = (str(device), major)
         arrays = self._device.get(key)
@@ -91,6 +129,48 @@ class FFAPlan:
             )
             self._device[key] = arrays
         return arrays
+
+
+def plan_extent_stats(plan: FFAPlan) -> dict:
+    """Executed-vs-padded element accounting from the extent columns (the
+    JAX package's ``plan_extent_stats``): real items are rows with a
+    non-empty q range; padded elements are real items x bq x bk, executed
+    ones the live extents' areas (at the port's exact extents, quanta 1,
+    the live sub-rectangles)."""
+    meta = plan.meta.astype(np.int64)
+    real = meta[:, QE] > meta[:, QS]
+    n_real = int(real.sum())
+    executed = int(
+        ((meta[real, EQ1] - meta[real, EQ0]) * (meta[real, EK1] - meta[real, EK0])).sum()
+    )
+    return {
+        "num_real_work": n_real,
+        "padded_elems": n_real * plan.block_q * plan.block_k,
+        "executed_elems": executed,
+    }
+
+
+# per-slice padded/band cover-ratio buckets of the fragmentation histogram
+FRAG_BUCKETS: tuple[tuple[str, float], ...] = (
+    ("lt_1.2", 1.2),
+    ("lt_2", 2.0),
+    ("lt_4", 4.0),
+    ("lt_8", 8.0),
+    ("ge_8", float("inf")),
+)
+
+
+def fragmentation_histogram(ratios: np.ndarray) -> dict[str, int]:
+    """Per-slice cover ratios (``tile_policy.slice_cover_ratios``) in the
+    :data:`FRAG_BUCKETS` histogram (the JAX package's
+    ``fragmentation_histogram``)."""
+    hist = {name: 0 for name, _ in FRAG_BUCKETS}
+    for r in np.asarray(ratios, dtype=np.float64).ravel():
+        for name, ub in FRAG_BUCKETS:
+            if r < ub:
+                hist[name] += 1
+                break
+    return hist
 
 
 def _extend_meta_extents(

@@ -267,9 +267,14 @@ def paged_attn(
     q_start: int,
     max_pages: int,
     softmax_scale: float | None = None,
+    softcap: float = 0.0,
+    causal: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Attention of ``q`` (``(t, hq, d)`` at positions ``q_start..+t``)
-    against a sequence's paged KV.
+    against a sequence's paged KV, with an optional ``softcap`` (passed to
+    FFA) and, under ``causal`` (the default), the causal band; ``causal``
+    False lets every row see the sequence's ``kv_len`` tokens (the JAX
+    package's ``paged_attn``).
 
     The valid-length mask is FFA slice metadata (band with ``ke =
     kv_len``), so the kernel computes only real rows; ``kv_len`` is
@@ -281,14 +286,16 @@ def paged_attn(
     t = q.shape[0]
     kv_len = int(q_start) + t  # tokens stored so far incl. this chunk
     k, v = gather_kv(cache, seq_id, max_pages)
-    # one causal slice: q rows [0,t) at global positions [q_start,
-    # q_start+t) attending k rows [0, kv_len); in local coords the causal
-    # diagonal sits at offset q_start
+    # one slice: q rows [0,t) at global positions [q_start, q_start+t)
+    # attending k rows [0, kv_len) with an optional causal band; in local
+    # coords the causal diagonal sits at offset q_start
+    d_hi = int(q_start) if causal else BAND_INF
     return ffa_attn(
         q, k, v,
         q_ranges=[[0, t]],
         k_ranges=[[0, kv_len]],
         softmax_scale=softmax_scale,
+        softcap=softcap,
         d_lo=np.array([-BAND_INF], np.int32),
-        d_hi=np.array([q_start], np.int32),
+        d_hi=np.array([d_hi], np.int32),
     )

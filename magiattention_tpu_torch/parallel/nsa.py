@@ -33,7 +33,7 @@ import torch
 from .. import telemetry
 from ..comm.functional import all_gather, all_to_all
 from ..device import resolve_device
-from ..env import backend as env_backend
+from ..kernels import registry as _registry
 from ..kernels.block_sparse import NUM_LANES, block_sparse_attn, modeled_slc_bytes
 from ..kernels.ffa import ffa_attn
 from ..kernels.mask_utils import BAND_INF
@@ -140,7 +140,7 @@ def slc_route(S: int, l_slc: int, d_stride: int, slc_starts: np.ndarray) -> str:
     )
     if not feasible:
         return "gathered_dense"
-    return env_backend.nsa_slc_pin() or "block_sparse_pallas"
+    return _registry.nsa_slc_backend()
 
 
 def _einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,11 @@
 The port's counterpart of ``magiattention_tpu/serving/decode.py``. The TPU
 package descends a registry ladder (sharded / spec / int8 / base Pallas
 kernels -> gather+FFA -> dense) with fault injection and fallback. The port
-has no registry and no fallback: one route per call, the first rung of
-JAX's ladder that is feasible for the cache (JAX's ``_feasibility``),
-starting at the caller's pin (:func:`..env.backend.serve_decode_pin`) or,
-unpinned, at the top. That route launches its CUDA kernel for CUDA tensors
+has no fallback: one route per call, the first rung of the backend
+registry's ``serve_decode`` ladder (``kernels/registry.py``: JAX's rungs
+below the sharded one) that is feasible for the cache (JAX's
+``_feasibility``), starting at the registry's start rung (the caller's pin,
+:func:`..env.backend.serve_decode_pin`, or, unpinned, the top). That route launches its CUDA kernel for CUDA tensors
 or raises.
 
 - :func:`decode_attn_step`: unpinned, a float cache takes the paged-decode
@@ -27,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..env import backend as env_backend
+from ..kernels import registry as _registry
 from ..kernels.paged_decode import (
     paged_decode_attn,
     paged_decode_attn_int8,
@@ -58,8 +60,8 @@ def decode_route(cache: PagedKVCache, multi_row: bool) -> str:
         "gather_ffa": True,
         "dense": True,
     }
-    start = RUNGS.index(pin) if pin else 0
-    return next(r for r in RUNGS[start:] if feasible[r])
+    start = _registry.resolve("serve_decode", (), lambda: RUNGS[0], pin=pin).name
+    return next(r for r in _registry.ladder("serve_decode", start) if feasible[r])
 
 
 def _host_lengths(cache: PagedKVCache, host_lengths) -> tuple[int, ...]:

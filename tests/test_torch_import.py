@@ -66,6 +66,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.meta.solver.overlap_solver",
         "magiattention_tpu_torch.meta.collection.comm_meta",
         "magiattention_tpu_torch.kernels.tile_policy",
+        "magiattention_tpu_torch.kernels.registry",
+        "magiattention_tpu_torch.utils.mem_budget",
+        "magiattention_tpu_torch.kernels.ffa_plan",
         "magiattention_tpu_torch.kernels.paged_decode",
         "magiattention_tpu_torch.kernels.paged_kv",
         "magiattention_tpu_torch.serving.decode",

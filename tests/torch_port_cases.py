@@ -980,3 +980,60 @@ def tp_worker(rank: int, world: int, init_file: str, out_dir: str, masks: list) 
     finally:
         dist_attn_runtime_mgr.make_attn_meta_from_dispatch_meta = solve
         dist.destroy_process_group()
+
+
+def tile_cp_worker(rank: int, world: int, init_file: str, out_dir: str, cases: list) -> None:
+    """One rank of the gloo group for the auto-tile cross-check
+    (tests/test_torch_ffa_mixed.py): every case (name, q/k ranges, types,
+    overlap degree, seed, env) through key -> dispatch -> calc_attn ->
+    undispatch under its env, forward and backward, with the runtime's
+    tiles: its plans' (bq, bk), the policy's per-pass picks and what the
+    policy picks over every rank's slice set; to ``out_dir/<name>_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.config import DistAttnConfig, OverlapConfig
+    from magiattention_tpu_torch.kernels.tile_policy import choose_blocks_per_pass_multi
+
+    try:
+        for name, qr, kr, types, degree, seed, env in cases:
+            os.environ.update(env)
+            config = DistAttnConfig(overlap_config=OverlapConfig(degree=degree, min_chunk_size=32))
+            key = api.magi_attn_flex_key(
+                qr, kr, types, CP_SEQ, CP_SEQ, cp_group=dist.group.WORLD, device="cpu",
+                chunk_size=CP_CHUNK, dist_attn_config=config,
+            )
+            q, k, v, do = (torch.from_numpy(a) for a in cp_inputs(seed))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out_d, meta = api.calc_attn(
+                api.dispatch(leaves[0], key), api.dispatch(leaves[1], key, role="kv"),
+                api.dispatch(leaves[2], key, role="kv"), key,
+            )
+            out = api.undispatch(out_d, key)
+            (out * do).sum().backward()
+            rt = _mgr(key).runtime
+            geoms, sq, sk = rt._tile_geoms()
+            pick = choose_blocks_per_pass_multi(geoms, sq, sk, CP_D, CP_D, 4)
+            none = (0, 0)
+            np.savez(
+                os.path.join(out_dir, f"{name}_{rank}.npz"),
+                out=out.detach().numpy(), lse=meta.lse.numpy(), dq=leaves[0].grad.numpy(),
+                dk=leaves[1].grad.numpy(), dv=leaves[2].grad.numpy(),
+                pending=rt._auto_tile_pending,
+                plan_tiles=np.array([(p.block_q, p.block_k) for p in rt.plans]),
+                policy_bwd=np.array([t or none for t in rt._policy_bwd]),
+                pick=np.array([pick[0], pick[1] or none, pick[2] or none]),
+                params_dq=np.array([p.dq_blocks() for p in rt._params(CP_D, 4)]),
+                params_dkv=np.array([p.dkv_blocks() for p in rt._params(CP_D, 4)]),
+            )
+            for key_ in env:
+                os.environ.pop(key_)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
