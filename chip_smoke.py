@@ -86,10 +86,16 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    accept rate reported), held against the same replay. ``serve_int8``: the
    same requests on an int8 cache, held against the int8 replay, the CPU
    int8 engine and (within the quantization bound) the float32 rows.
+   ``serve_int8`` also runs at ``spec_tokens = 4`` (verify through the
+   dequantized gather + B1, held to the int8 bound of the int8 replays).
    ``serve_pinned``: ``serve``, ``serve_spec`` (greedy and oracle drafts)
    and ``serve_int8`` under MAGI_ATTENTION_BACKEND_SERVE_DECODE=gather_ffa,
    every row equal to its replay's to the bit, the oracle draft's accept
    rate, and whether B1's multi-row call equals its single-row calls.
+   ``decode_sharded``: the head-sharded step (B10 once per kv-head shard)
+   at the decode phase's shape with 2, 4 and 8 shards on this card, equal
+   to the unsharded step to the bit, ms beside it; ``ServeEngine`` with
+   ``decode_shards=2`` on one card takes the next feasible rung.
    ``serve_profile``, ``serve_spec_profile`` and ``serve_int8_profile``
    give the paged-decode kernels' device time (``decode_device_ms``) and
    the FFA forward's (``forward_device_ms``).
@@ -159,7 +165,7 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 13. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase plus qo_comm, cp_baselines and usp_nsa, error,
     kernel / plain / library time and the card's bound; launches also
-    from cp_hier_tp).
+    from cp_hier_tp, decode_sharded and serve_int8's spec pass).
 
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -171,8 +177,16 @@ entry points, with the API's two-level run at (dcn 2, ici 2) and TP run
 at (cp 2, tp 2) beside the flat one, one process per card, the
 collectives over NCCL; each
 rank's shard of out, lse and the gradients against the single-device
-``ffa_attn`` (bf16 gates) and every rank's fwd+bwd ms, then the four
-cards' ``name, power.limit`` lines and the same last line.
+``ffa_attn`` (bf16 gates) and every rank's fwd+bwd ms; the API's
+runtime at overlap degree 1 (merged), 1 with overlap forced, 2 and 4
+(``overlap``: the staged backward bitwise against the unstaged order
+under deterministic mode, ``assert_overlap_safe``, both orders' ms);
+each collective of a degree-2 plan alone per stage (``collectives``:
+GroupCast, GroupReduce bf16 and float32, the two-level phases A and B);
+then, in the parent process, ``ServeEngine`` at ``decode_shards`` 2 and
+4 over the cards, equal to the one-card engine's rows to the bit
+(``cp4_sharded_engine``); the four cards' ``name, power.limit`` lines
+and the same last line.
 
 Bounds use the card's data-sheet peaks (H100 SXM: 989 TFLOP/s bf16 and
 494.7 TFLOP/s TF32 dense tensor cores, 67 TFLOP/s float32 CUDA cores,
@@ -2809,30 +2823,42 @@ def rows_err(what: str, reqs, want: dict, atol: float = SERVE_ATOL,
     return worst_abs, worst_rn
 
 
-def serve_phase() -> tuple[dict, dict]:
-    import torch
+def serve_model(device):
+    """The serve phases' model (``ToyModel`` at Llama-3.1-8B attention
+    widths, seed 0) on ``device`` and their engine config."""
+    from magiattention_tpu_torch.serving import ServeConfig, ToyModel
 
-    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from magiattention_tpu_torch.serving import (
-        ServeConfig, ServeEngine, ServeRequest, ToyModel, run_reference,
-    )
-
-    t0 = time.perf_counter()
     model = ToyModel.create(
-        d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128, seed=0,
-        device="cuda",
+        d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128, seed=0, device=device,
     )
     config = ServeConfig(
         page_size=16, num_pages=2048, max_slots=8, max_pages_per_seq=256,
         prefill_chunk=512,
     )
+    return model, config
 
-    def requests(m):
-        return [
-            ServeRequest(i, m.prompt(length, seed=1000 + i), new)
-            for i, (length, new) in enumerate(SERVE_REQUESTS)
-        ]
 
+def serve_requests(model) -> list:
+    """``SERVE_REQUESTS`` as requests of ``model``'s prompts."""
+    from magiattention_tpu_torch.serving import ServeRequest
+
+    return [
+        ServeRequest(i, model.prompt(length, seed=1000 + i), new)
+        for i, (length, new) in enumerate(SERVE_REQUESTS)
+    ]
+
+
+def serve_phase() -> tuple[dict, dict]:
+    import torch
+
+    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.serving import (
+        ServeConfig, ServeEngine, ToyModel, run_reference,
+    )
+
+    t0 = time.perf_counter()
+    model, config = serve_model("cuda")
+    requests = serve_requests
     reqs = requests(model)
     engine = ServeEngine(model, config)
     setup_s = time.perf_counter() - t0
@@ -3074,9 +3100,9 @@ def serve_int8_phase(ctx: dict) -> dict:
         r.req_id: generate_reference(model, r, config, forced=r.generated) for r in reqs
     }
     worst_abs, worst_rn = rows_err("serve_int8: engine vs int8 replay oracle", reqs, forced)
+    int8_reference = run_reference(model, reqs, config)
     free_abs, free_rn = rows_err(
-        "serve_int8: engine vs free-running int8 replay", reqs,
-        run_reference(model, reqs, config),
+        "serve_int8: engine vs free-running int8 replay", reqs, int8_reference,
         atol=INT8_VS_F32_ATOL, rnorm=INT8_VS_F32_RNORM,
     )
     f32_abs, f32_rn = rows_err(
@@ -3120,9 +3146,126 @@ def serve_int8_phase(ctx: dict) -> dict:
         device_memory_bytes=budget, pages_per_slot=config.max_pages_per_seq,
         accounting=accounting,
     )
+    res["spec"] = serve_int8_spec(ctx, config, int8_reference)
     emit({"phase": "serve_int8", **res})
     emit({"phase": "serve_int8_profile", **serve_profile(model, config, ctx["requests"])})
     return res
+
+
+def serve_int8_spec(ctx: dict, config, int8_reference: dict) -> dict:
+    """``serve_int8`` at spec_tokens = 4: verify on int8 pages through the
+    dequantized gather + FFA (B1; the spec kernel is infeasible there, as
+    in the JAX package); B1 launched, no plain version; real rollbacks;
+    every committed row within the int8 bound of the int8 replay fed the
+    engine's rows and of the free-running one (a rejected row's raised
+    scale stays in the page it shares with committed rows, as in the JAX
+    package, so the codes differ by re-quantization)."""
+    from magiattention_tpu_torch.serving import ServeEngine, generate_reference
+
+    model, reqs = ctx["model"], ctx["requests"](ctx["model"])
+    spec_config = dataclasses.replace(config, spec_tokens=4)
+    stats, wall, counts = serve_run(ServeEngine(model, spec_config), reqs)
+    check_launches("serve_int8 spec", counts, ("ffa_fwd",))
+    if counts["paged_decode_spec"] or counts["paged_decode_int8"]:
+        raise AssertionError(f"serve_int8 spec: a decode kernel ran on int8 verify: {counts}")
+    attempted = sum(s["draft_attempted"] for s in stats)
+    accepted = sum(s["draft_accepted"] for s in stats)
+    if not accepted < attempted:
+        raise AssertionError("serve_int8 spec: every draft accepted, rollback not exercised")
+    forced = {
+        r.req_id: generate_reference(model, r, config, forced=r.generated) for r in reqs
+    }
+    forced_err = rows_err("serve_int8 spec: engine vs int8 replay fed its rows", reqs, forced,
+                          atol=INT8_VS_F32_ATOL, rnorm=INT8_VS_F32_RNORM)
+    free_err = rows_err("serve_int8 spec: engine vs free-running int8 replay", reqs,
+                        int8_reference, atol=INT8_VS_F32_ATOL, rnorm=INT8_VS_F32_RNORM)
+    gen_tokens = sum(len(r.generated) for r in reqs)
+    return dict(
+        spec_tokens=4, ticks=len(stats), wall_s=wall, generated_tokens=gen_tokens,
+        generated_tokens_per_s=gen_tokens / wall, draft_attempted=attempted,
+        draft_accepted=accepted, accept_rate=accepted / attempted,
+        kernel_launches={"ffa_fwd": counts["ffa_fwd"]},
+        forced_max_abs_err=forced_err[0], forced_rel_norm_err=forced_err[1],
+        free_max_abs_err=free_err[0], free_rel_norm_err=free_err[1],
+        atol=INT8_VS_F32_ATOL, rnorm=INT8_VS_F32_RNORM,
+    )
+
+
+SHARD_COUNTS = (2, 4, 8)  # kv-head shards of decode_sharded (hk 8)
+
+
+def decode_sharded_phase(ctx: dict, peaks: dict) -> dict:
+    """The head-sharded decode step (``paged_decode_attn_sharded``: B10
+    once per kv-head shard) at the decode phase's shape (8 slots of
+    0..4096 tokens, hq 32, hk 8, d 128), float32 and bf16, with 2, 4 and 8
+    shards all on this card (``devices=[cuda:0] * n``): out and lse equal
+    to the unsharded ``paged_decode_attn``'s to the bit, ms per call (host
+    and each shard's page copy included) beside the unsharded call's;
+    launches counted on the first call of each. Then ``ServeEngine`` with
+    ``decode_shards=2`` on this one card: by the JAX package's feasibility
+    rule (at least 2 devices) it decodes on the next feasible rung, B10
+    unsharded, its rows within the serve gates of the replay oracle."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.paged_decode import (
+        paged_decode_attn, paged_decode_attn_sharded, paged_decode_kernel,
+    )
+    from magiattention_tpu_torch.serving import ServeEngine
+    from magiattention_tpu_torch.serving.decode import decode_route
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    hq, hk, d = 32, 8, 128
+    res, launches = {}, 0
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).removeprefix("torch.")
+        cache = decode_pages(dt, hk, seed=27)
+        q = torch.randn((8, hq, d), generator=gen, device="cuda").to(dt)
+        want = paged_decode_attn(q, cache)
+        nbytes = decode_bytes(q, want[1], DECODE_LENGTHS, hk, 16)
+        b_ms, b_by = bound(4.0 * hq * d * sum(DECODE_LENGTHS), nbytes, dname, peaks)
+        by_n = {}
+        for n in SHARD_COUNTS:
+            call = lambda n=n: paged_decode_attn_sharded(  # noqa: E731
+                q, cache, n, devices=[torch.device("cuda", 0)] * n)
+            before = paged_decode_kernel.launches
+            got = call()
+            torch.cuda.synchronize()
+            launched = paged_decode_kernel.launches - before
+            if launched != n:
+                raise AssertionError(f"decode_sharded {dname} n={n}: {launched} launches")
+            launches += launched
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"decode_sharded {dname} n={n}: not the unsharded bits")
+            by_n[str(n)] = dict(bitwise=True, launches=launched, ms=time_ms(call))
+        res[dname] = dict(
+            shards=by_n, unsharded_ms=time_ms(lambda: paged_decode_attn(q, cache)),
+            bound_ms=b_ms, bound_by=b_by, **split_of(cache),
+            page_copy_bytes_per_call=2 * cache.k_pages.numel() * cache.k_pages.element_size(),
+        )
+        del cache
+        torch.cuda.empty_cache()
+    model, reqs = ctx["model"], ctx["requests"](ctx["model"])
+    config = dataclasses.replace(ctx["config"], decode_shards=2)
+    engine = ServeEngine(model, config)
+    stats, wall, counts = serve_run(engine, reqs)
+    rung = decode_route(engine.cache, multi_row=False, shards=2)
+    if rung != "paged_decode" or any(s["shards"] != 2 for s in stats):
+        raise AssertionError(f"decode_sharded: one card with decode_shards=2 took {rung}")
+    check_launches("decode_sharded engine", counts, ("ffa_fwd", "paged_decode"))
+    err = rows_err("decode_sharded: engine vs replay oracle", reqs, ctx["reference"])
+    same = all(np.array_equal(np.stack(r.generated), np.stack(ctx["rows"][r.req_id]))
+               for r in reqs)
+    out = dict(
+        shape=f"8 slots {DECODE_LENGTHS}, hq {hq}, hk {hk}, d {d}", kernels=res,
+        launches=launches, engine=dict(
+            decode_shards=2, cards=torch.cuda.device_count(), rung=rung, wall_s=wall,
+            kernel_launches={k: counts[k] for k in ("ffa_fwd", "paged_decode")},
+            oracle_max_abs_err=err[0], oracle_rel_norm_err=err[1],
+            rows_equal_serve_rows=same,
+        ),
+    )
+    emit({"phase": "decode_sharded", **out})
+    return out
 
 
 # the train phase's attention: Llama-3.1-8B heads, two causal documents
@@ -5351,13 +5494,11 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + lse.numel() * 4
         b_ms, b_by = fwd_bound(flops, nbytes, dname, peaks)
         ms = time_ms(lambda: ffa_fwd_kernel(q, k, v, plan, params))
-        qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
         causal = c.get("library") == "causal"
         res = {"ffa_fwd": dict(
             **err, ms=ms, plain_ms=time_ms(plain, warmup=1, samples=3), bound_ms=b_ms,
             bound_by=b_by, share=b_ms / ms, tflops=flops / (ms * 1e-3) / 1e12,
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)) if causal else None,
+            library_ms=sdpa_ms(c, q, k, v, mask)[0],
         )}
         if causal:  # B2's 256 instance on the same inputs, beside B1
             heads = fwd_pack_heads(hq // c["hk"], d, d, isz)
@@ -5777,9 +5918,214 @@ def cp4_run(device: str, seq: int) -> dict:
             err = ht_check(f"cp4 {mask} {name}", case.step(), case.want)
             runs[name] = dict(errors=err, fwd_bwd_ms=_world_ms(case.step, on_card))
         del cases
-        res[mask] = dict(runs=runs, single_device_fwd_bwd_ms=_world_ms(
-            lambda: torch.autograd.grad(ffa_attn(*leaves, qr, qr, types)[0], leaves, do), on_card))
+        res[mask] = dict(
+            runs=runs, overlap=cp4_overlap(docs, types_, seq, (q, k, v, do), want_full, on_card),
+            collectives=cp4_collectives(docs, types_, seq, (q, k, v, do), mesh_h, on_card),
+            single_device_fwd_bwd_ms=_world_ms(
+                lambda: torch.autograd.grad(ffa_attn(*leaves, qr, qr, types)[0], leaves, do),
+                on_card),
+        )
         del want_full, out_ref, leaves
+    return res
+
+
+# the API's overlap settings at cp 4: name -> (overlap degree, use_overlap
+# forced on, or None for the API's own choice: on iff the plan has more
+# than one stage)
+OVERLAP_RUNS = (("degree1", 1, None), ("degree1_overlap", 1, True), ("degree2", 2, None),
+                ("degree4", 4, None))
+DETERMINISTIC_ENV = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+
+
+def _runtime_step(rt, q_d, k_d, v_d, do_d):
+    """fwd+bwd of this rank's dispatched rows through ``rt``: out, lse,
+    dq, dk, dv."""
+    import torch
+
+    ls = [t.detach().requires_grad_(True) for t in (q_d, k_d, v_d)]
+    out, lse = rt.calc_attn(*ls)
+    return (out, lse, *torch.autograd.grad(out, ls, do_d))
+
+
+def cp4_overlap(docs, types_, seq: int, inputs, want_full, on_card: bool) -> dict:
+    """The API's runtime at each of ``OVERLAP_RUNS`` on this mask: its
+    stages, whether it overlaps, out, lse and gradients against the
+    single-device ``ffa_attn`` (bf16 gates) and every rank's fwd+bwd ms;
+    where it overlaps at degree >= 2, the staged backward under
+    MAGI_ATTENTION_DETERMINISTIC_MODE=1 equal to the bit to the same
+    stages with every reduce after every part's backward (that order's
+    fwd+bwd ms too, then the staged one's again), and
+    ``assert_overlap_safe`` (bf16 tolerance)."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.config import DistAttnConfig, OverlapConfig
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.functional.dist_attn import DistAttnRuntime
+    from magiattention_tpu_torch.testing import assert_overlap_safe
+
+    q, k, v, do = inputs
+    group = dist.group.WORLD
+    runs = {}
+    for name, degree, force in OVERLAP_RUNS:
+        key = api.magi_attn_flex_key(
+            docs, docs, list(types_), seq, seq, cp_group=group, device=q.device.type,
+            chunk_size=min(512, seq // 8),
+            dist_attn_config=DistAttnConfig(overlap_config=OverlapConfig(degree=degree)),
+        )
+        mgr = _mgr(key)
+        rt = mgr.runtime if force is None else DistAttnRuntime(
+            mgr.comm_meta, mgr.calc_meta, dist.get_rank(group), group, use_overlap=force)
+        q_d, do_d = api.dispatch(q, key), api.dispatch(do, key)
+        k_d, v_d = api.dispatch(k, key, role="kv"), api.dispatch(v, key, role="kv")
+        want = (api.dispatch(want_full[0], key), api.dispatch(want_full[1], key),
+                api.dispatch(want_full[2], key), api.dispatch(want_full[3], key, role="kv"),
+                api.dispatch(want_full[4], key, role="kv"))
+
+        def step(rt=rt, args=(q_d, k_d, v_d, do_d)):
+            return _runtime_step(rt, *args)
+
+        res = dict(degree=degree, stages=rt.num_stages, overlapped=rt.use_overlap,
+                   errors=ht_check(f"cp4 overlap {name}", step(), want),
+                   fwd_bwd_ms=_world_ms(step, on_card))
+        if degree >= 2 and rt.use_overlap:
+            with scoped_env(DETERMINISTIC_ENV):
+                staged = step()
+                rt.staged_backward = False
+                unstaged = step()
+                rt.staged_backward = True
+            same = [bool(torch.equal(a, b)) for a, b in zip(staged, unstaged)]
+            if not all(same):
+                raise AssertionError(f"cp4 overlap {name}: the staged backward under "
+                                     f"deterministic mode is not the unstaged one's bits: {same}")
+            assert_overlap_safe(mgr.comm_meta, mgr.calc_meta, group, q_d, k_d, v_d, do=do_d,
+                                atol=ATOL["bfloat16"], rtol=RNORM["bfloat16"], iters=2)
+            rt.staged_backward = False  # every reduce after every part, timed alike
+            unstaged_ms = _world_ms(step, on_card)
+            rt.staged_backward = True
+            res.update(deterministic_bitwise=True, overlap_safe=True,
+                       unstaged_fwd_bwd_ms=unstaged_ms,
+                       staged_again_fwd_bwd_ms=_world_ms(step, on_card))
+        runs[name] = res
+    return runs
+
+
+def _a2a_step(out, inp, out_splits, in_splits, group):
+    """One ``all_to_all_single`` of ``inp``'s rows, waited for."""
+    import torch.distributed as dist
+
+    def step():
+        dist.all_to_all_single(out, inp, list(out_splits), list(in_splits), group=group)
+    return step
+
+
+def cp4_collectives(docs, types_, seq: int, inputs, mesh_h, on_card: bool) -> dict:
+    """Each collective of a degree-2 plan alone, per stage: every rank's
+    ms (median of CUDA-event samples after a barrier) and the bytes it
+    sent, for the GroupCast of K|V (bf16), the GroupReduce of dK|dV in
+    bf16 and under the high-precision reduce in float32 (cast and reduce
+    as the runtime issues them, waits and sums included), and the
+    two-level cast's phase A (over the outer line) and phase B (over the
+    inner line) at (dcn 2, ici 2) over ``mesh_h``, each one
+    ``all_to_all_single`` of the plan's rows. ``gb_s`` is the bytes every rank sent over the slowest
+    rank's time."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.config import DistAttnConfig, OverlapConfig
+
+    q, k, v, _ = inputs
+    config = DistAttnConfig(overlap_config=OverlapConfig(degree=2))
+    group = dist.group.WORLD
+    key = api.magi_attn_flex_key(docs, docs, list(types_), seq, seq, cp_group=group,
+                                 device=q.device.type, chunk_size=min(512, seq // 8),
+                                 dist_attn_config=config)
+    rt = _mgr(key).runtime
+    key_h = ht_key(docs, types_, HIER_ENV, q.device.type, mesh=mesh_h, cp_axis=PAIR,
+                   dist_attn_config=config)
+    rt_h = _mgr(key_h).runtime
+    kv = torch.cat([api.dispatch(k, key, role="kv"), api.dispatch(v, key, role="kv")], dim=-1)
+    row = kv[0].numel()
+    gen = torch.Generator(device=q.device.type).manual_seed(31)
+
+    def timed(step, sent_rows: int, itemsize: int) -> dict:
+        ms = _world_ms(step, on_card)
+        sent = torch.tensor([float(sent_rows * row * itemsize)], device=kv.device)
+        every = [torch.zeros_like(sent) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, sent)
+        total = sum(t.item() for t in every)
+        return dict(ms=ms, bytes_sent=[t.item() for t in every],
+                    gb_s=total / (max(ms) * 1e-3) / 1e9 if on_card else None)
+
+    stages = []
+    for st, (plan, hplan) in enumerate(zip(rt.cast_plans, rt_h.cast_plans)):
+        n_send = len(plan.send_rows)
+
+        def cast(plan=plan):
+            plan.cast_start(kv, group, kv.dtype)[1]()
+
+        res = dict(stage=st, recv_rows=plan.recv_len, send_rows=n_send,
+                   group_cast_bf16=timed(cast, n_send, 2))
+        for tag, dt in (("group_reduce_bf16", torch.bfloat16),
+                        ("group_reduce_hp_f32", torch.float32)):
+            y = torch.randn((plan.buf_len, *kv.shape[1:]), generator=gen, device=kv.device).to(dt)
+
+            def reduce(plan=plan, y=y, dt=dt):
+                plan.reduce_finish(None, plan.reduce_start(y, group, dt), group, kv.shape[0])
+
+            res[tag] = timed(reduce, plan.recv_len, dt.itemsize)
+        outer, inner = rt_h.cast_group
+        send_a = kv.index_select(0, hplan.rows(kv.device))
+        recv_a = kv.new_empty((hplan.recv_a_len, *kv.shape[1:]))
+        res["two_level_phase_a_bf16"] = timed(
+            _a2a_step(recv_a, send_a, hplan.a_recv_splits, hplan.a_send_splits, outer),
+            len(hplan.a_send_rows), 2)
+        held = torch.cat([kv, recv_a])
+        send_b = held.index_select(0, hplan._index("b_send_rows", kv.device))
+        recv_b = kv.new_empty((hplan.recv_len, *kv.shape[1:]))
+        res["two_level_phase_b_bf16"] = timed(
+            _a2a_step(recv_b, send_b, hplan.b_recv_splits, hplan.b_send_splits, inner),
+            len(hplan.b_send_rows), 2)
+        stages.append(res)
+    return dict(row_bytes_bf16=row * 2, kv_shard=list(kv.shape), stages=stages)
+
+
+def cp4_sharded_engine() -> dict:
+    """The head-sharded serve engine on this host's cards, in the parent
+    process after the four ranks have left: ``ServeEngine`` at
+    ``decode_shards`` 2 and 4 (B10 once per shard, shard s on card s) on
+    the serve phase's model and requests, every generated row equal to
+    the one-card engine's (``decode_shards=1``) to the bit; the rung,
+    launches and wall."""
+    import torch
+
+    from magiattention_tpu_torch.serving import ServeEngine
+    from magiattention_tpu_torch.serving.decode import decode_route
+
+    model, config = serve_model("cuda")
+    base = serve_requests(model)
+    _, base_wall, _ = serve_run(ServeEngine(model, config), base)
+    res = dict(one_card_wall_s=base_wall, cards=torch.cuda.device_count())
+    for n in (2, 4):
+        reqs = serve_requests(model)
+        engine = ServeEngine(model, dataclasses.replace(config, decode_shards=n))
+        stats, wall, counts = serve_run(engine, reqs)
+        rung = decode_route(engine.cache, multi_row=False, shards=n)
+        if rung != "paged_decode_sharded":
+            raise AssertionError(f"cp4 sharded engine: decode_shards={n} took {rung}")
+        check_launches(f"cp4 sharded engine n={n}", counts, ("ffa_fwd", "paged_decode"))
+        for a, b in zip(base, reqs):
+            if not np.array_equal(np.stack(a.generated), np.stack(b.generated)):
+                raise AssertionError(f"cp4 sharded engine n={n}: request {a.req_id} differs "
+                                     "from the one-card engine's rows")
+        res[f"decode_shards_{n}"] = dict(
+            rung=rung, wall_s=wall, bitwise=True, ticks=len(stats),
+            kernel_launches={k: counts[k] for k in ("ffa_fwd", "paged_decode")},
+        )
     return res
 
 
@@ -5830,6 +6176,7 @@ def cp4_main(device: str = "cuda", seq: int = CP_SEQ) -> int:
     mp.start_processes(cp4_worker, args=(port, device, seq), nprocs=CPB_WORLD,
                        start_method="spawn", join=True)
     if device == "cuda":
+        emit({"phase": "cp4_sharded_engine", **cp4_sharded_engine()})
         for i in range(CPB_WORLD):
             print(subprocess.run(
                 ["nvidia-smi", "-i", str(i), "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5939,6 +6286,7 @@ def main() -> int:
     serve_spec = serve_spec_phase(serve_ctx)
     serve_int8 = serve_int8_phase(serve_ctx)
     serve_pinned_phase(serve_ctx)
+    sharded = decode_sharded_phase(serve_ctx, peaks)
     del serve_ctx
     cp_api = cp_api_phase()
     deterministic_phase()
@@ -5962,14 +6310,15 @@ def main() -> int:
     extra = {k_: qo.get(k_, 0) + cpb.get(k_, 0) + ht.get(k_, 0) + usp.get(k_, 0)
              for k_ in {*qo, *cpb, *ht, *usp}}
     emit({"kernels": [
-        kernel_entry(  # serve's shape: float32, the 3xTF32 body
+        kernel_entry(  # serve's shape: float32, the 3xTF32 body; int8 spec verify's too
             "ffa_fwd", "ffa_fwd_tf32.cuh", "magiattention_tpu/kernels/ffa.py:251",
-            serve["kernel_launches"]["ffa_fwd"] + extra.get("ffa_fwd", 0), ffa[0],
+            serve["kernel_launches"]["ffa_fwd"] + serve_int8["spec"]["kernel_launches"]["ffa_fwd"]
+            + extra.get("ffa_fwd", 0), ffa[0],
         ),
-        kernel_entry(
+        kernel_entry(  # serve's launches and the head-sharded step's
             "paged_decode", "paged_decode.cu",
             "magiattention_tpu/kernels/paged_decode.py:71",
-            serve["kernel_launches"]["paged_decode"], dec[0],
+            serve["kernel_launches"]["paged_decode"] + sharded["launches"], dec[0],
         ),
         kernel_entry(
             "ffa_bwd_delta", "ffa_bwd_delta.cu",

@@ -21,6 +21,7 @@ from . import api, comm, common, env, functional, kernels, meta, models, paralle
 from .api import (  # noqa: F401
     calc_attn,
     dispatch,
+    get_mesh,
     get_position_ids,
     init_dist_attn_runtime_key,
     init_dist_attn_runtime_mgr,
@@ -51,6 +52,7 @@ __all__ = [
     "dispatch",
     "ffa_attn",
     "flex_flash_attn_func",
+    "get_mesh",
     "get_position_ids",
     "init_dist_attn_runtime_key",
     "init_dist_attn_runtime_mgr",

@@ -28,6 +28,7 @@ from .magi_attn_interface import (  # noqa: F401
     calc_attn,
     clear_cache,
     dispatch,
+    get_mesh,
     get_most_recent_key,
     get_position_ids,
     init_dist_attn_runtime_key,

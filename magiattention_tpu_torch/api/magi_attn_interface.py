@@ -373,6 +373,15 @@ def get_position_ids(key: DistAttnRuntimeKey) -> torch.Tensor:
     return _mgr(key).get_position_ids()
 
 
+def get_mesh(key: DistAttnRuntimeKey):
+    """The ``ProcessMesh`` the key's runtime was planned on (model code
+    that composes further parallelism, e.g. expert-parallel maps, needs
+    the mesh back from the key). For a key built from a bare
+    ``cp_group`` (or at cp 1), a one-axis ``"cp"`` mesh over that
+    group's ranks, whose ``group("cp")`` is the group itself."""
+    return _mgr(key).mesh
+
+
 def magi_attn_flex_dispatch(
     x: torch.Tensor,
     q_ranges,

@@ -27,10 +27,18 @@ rank's outer and inner lines). XLA gives the JAX package the reverse
 (GroupReduce) as the transpose; here it is written out: phase B reversed,
 scatter-adding into ``[shard | recvA]``, then phase A reversed,
 scatter-adding recvA's part into the shard, every sum in float32.
+
+Each phase is issued when the one before it lands, off the compute
+stream: on CUDA, phase B (and, in the reverse, phase A after phase B's
+reverse) runs on a side stream of the plan's that waits for the earlier
+phase's NCCL work, and the compute stream waits for the side stream's
+event only where the buffer (or the summed shard) is read. On the CPU
+(gloo) there is no stream: the same code runs each phase in place.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -39,7 +47,7 @@ import torch
 from .. import telemetry
 from ..common.range import AttnRange, RangeError
 from ..common.ranges import AttnRanges
-from .primitives import _all_to_all
+from .primitives import _all_to_all, scatter_add_rows
 
 
 def _round_up(x: int, m: int) -> int:
@@ -326,6 +334,39 @@ def _exchange(out, inp, out_splits, in_splits, group, async_op):
     return _all_to_all(out, inp, out_splits, in_splits, group, async_op)
 
 
+def _wait(work) -> None:
+    if work is not None:
+        work.wait()
+
+
+@contextlib.contextmanager
+def _issued_on(side):
+    """Run the block on the ``side`` stream, after all the current stream
+    has issued (nothing to do for None: the CPU)."""
+    if side is None:
+        yield
+        return
+    side.wait_stream(torch.cuda.current_stream(side.device))
+    with torch.cuda.stream(side):
+        yield
+
+
+def _landed(side, used: tuple):
+    """The event the compute stream waits on for what ``side`` issued
+    (None on the CPU); ``used`` are tensors of the compute stream that
+    ``side`` reads or writes, kept from early reuse."""
+    if side is None:
+        return None
+    for t in used:
+        t.record_stream(side)
+    return side.record_event()
+
+
+def _await(done, device) -> None:
+    if done is not None:
+        torch.cuda.current_stream(device).wait_event(done)
+
+
 @dataclass(frozen=True, eq=False)
 class HierCastPlan:
     """One two-level GroupCast stage as one rank sees it: the rows it
@@ -344,6 +385,7 @@ class HierCastPlan:
     shard_len: int
     buf_len: int  # receive-buffer rows (the stage's padded length)
     _rows: dict = field(default_factory=dict, init=False, repr=False)
+    _sides: dict = field(default_factory=dict, init=False, repr=False)
 
     @property
     def recv_len(self) -> int:
@@ -403,62 +445,80 @@ class HierCastPlan:
             self._rows[(name, device)] = t
         return t
 
+    def _side(self, device: torch.device):
+        """This plan's side stream on a CUDA ``device`` (None on the CPU)."""
+        if device.type != "cuda":
+            return None
+        s = self._sides.get(device)
+        if s is None:
+            s = self._sides[device] = torch.cuda.Stream(device)
+        return s
+
     def rows(self, device: torch.device) -> torch.Tensor:
         """Phase A's send rows (the shard rows this rank sends out of its
         node) as an int64 tensor on ``device`` (cached)."""
         return self._index("a_send_rows", device)
 
     def cast_start(self, x: torch.Tensor, groups, out_dtype: torch.dtype):
-        """Issue phase A of ``x``'s rows (in x's dtype); returns the
-        ``[buf_len, ...]`` receive buffer in ``out_dtype`` (zero past
-        ``recv_len``) and the wait, which finishes phase A, runs phase B
-        and writes the buffer. Read the buffer only after the wait."""
+        """Issue phase A of ``x``'s rows (in x's dtype) and, when it lands,
+        phase B, off the compute stream; returns the ``[buf_len, ...]``
+        receive buffer in ``out_dtype`` (zero past ``recv_len``) and the
+        wait, after which the buffer may be read."""
         outer, inner = groups
         dev = x.device
         send_a = x.index_select(0, self.rows(dev))
         recv_a = x.new_empty((self.recv_a_len, *x.shape[1:]))
         work_a = _exchange(recv_a, send_a, self.a_recv_splits, self.a_send_splits, outer, True)
         buf = x.new_zeros((self.buf_len, *x.shape[1:]), dtype=out_dtype)
-
-        def wait(x=x, send_a=send_a):
-            if work_a is not None:
-                work_a.wait()
+        side = self._side(dev)
+        with _issued_on(side):
+            _wait(work_a)
             held = torch.cat([x, recv_a])
             send_b = held.index_select(0, self._index("b_send_rows", dev))
             recv_b = x.new_empty((self.recv_len, *x.shape[1:]))
-            _exchange(recv_b, send_b, self.b_recv_splits, self.b_send_splits, inner, False)
+            work_b = _exchange(recv_b, send_b, self.b_recv_splits, self.b_send_splits, inner, True)
+            _wait(work_b)
             with torch.no_grad():  # the buffer is an autograd output: fill it in place
                 buf[: self.recv_len] = recv_b.index_select(0, self._index("b_order", dev))
+        done = _landed(side, (x, recv_a, buf))
+
+        def wait(send_a=send_a, held=held, send_b=send_b, recv_b=recv_b):
+            _await(done, dev)  # the transfers' buffers live until here
 
         return buf, wait
 
     def reduce_start(self, y: torch.Tensor, groups, dtype: torch.dtype):
         """Issue phase B's reverse of the partials ``y`` (against the
-        receive buffer) in ``dtype``; returns the handle for
+        receive buffer) in ``dtype`` and, when it lands, its sum into
+        ``[shard | recvA]`` and phase A's reverse of recvA's part (in
+        ``dtype``), off the compute stream; returns the handle for
         :meth:`reduce_finish`."""
-        _, inner = groups
+        outer, inner = groups
         dev = y.device
         arrived = y.new_zeros((self.recv_len, *y.shape[1:]), dtype=dtype)
         arrived.index_copy_(0, self._index("b_order", dev), y[: self.recv_len].to(dtype))
         back = arrived.new_empty((len(self.b_send_rows), *y.shape[1:]))
-        work = _exchange(back, arrived, self.b_send_splits, self.b_recv_splits, inner, True)
-        return back, work, arrived
+        work_b = _exchange(back, arrived, self.b_send_splits, self.b_recv_splits, inner, True)
+        held = back.new_zeros((self.shard_len + self.recv_a_len, *back.shape[1:]),
+                              dtype=torch.float32)
+        back_a = back.new_empty((len(self.a_send_rows), *back.shape[1:]))
+        side = self._side(dev)
+        with _issued_on(side):
+            _wait(work_b)
+            scatter_add_rows(held, self._index("b_send_rows", dev), back.float(),
+                             self.b_send_splits)
+            send_a = held[self.shard_len:].to(back.dtype)
+            work_a = _exchange(back_a, send_a, self.a_send_splits, self.a_recv_splits, outer, True)
+            _wait(work_a)
+        done = _landed(side, (arrived, back, held, back_a))
+        return held, back_a, done, send_a
 
     def reduce_finish(self, total, handle, groups, shard_len: int) -> torch.Tensor:
-        """Finish one stage's GroupReduce: phase B's rows summed into
-        ``[shard | recvA]`` (float32), recvA's part sent back over phase
-        A's reverse (in the transfer's dtype) and summed into ``total``
+        """Finish one stage's GroupReduce: the shard part of phase B's sum
+        and phase A's returned rows (float32) summed into ``total``
         (float32 ``[shard_len, ...]``; made on first use, when None)."""
-        outer, _ = groups
-        back, work, _ = handle
-        if work is not None:
-            work.wait()
-        dev = back.device
-        held = back.new_zeros((shard_len + self.recv_a_len, *back.shape[1:]), dtype=torch.float32)
-        held.index_add_(0, self._index("b_send_rows", dev), back.float())
-        send = held[shard_len:].to(back.dtype)
-        back_a = send.new_empty((len(self.a_send_rows), *back.shape[1:]))
-        _exchange(back_a, send, self.a_send_splits, self.a_recv_splits, outer, False)
+        held, back_a, done, _ = handle
+        _await(done, held.device)
         local = held[:shard_len]
         total = local if total is None else total.add_(local)
-        return total.index_add_(0, self.rows(dev), back_a.float())
+        return scatter_add_rows(total, self.rows(held.device), back_a.float(), self.a_send_splits)

@@ -20,7 +20,14 @@ stage one way and reads only the plan's send indices and counts. The
 JAX package's ``cast_rows``/``reduce_rows`` lowering dispatchers and the
 ppermute and ragged lowerings have no counterpart here. The two-level
 cast (:mod:`.hier`) runs through the same :class:`_GroupCast`: a stage's
-plan carries ``cast_start`` / ``reduce_start`` / ``reduce_finish``.
+plan carries ``cast_start`` / ``reduce_start`` / ``reduce_finish``, and
+the CP runtime's overlapped path calls them itself, issuing each stage's
+GroupReduce as soon as its partials exist
+(:class:`~..functional.dist_attn._StagedAttn`).
+
+A row sent to several ranks comes back from each; the GroupReduce sums
+them into its owner in destination order (:func:`scatter_add_rows`), so
+the sum has the same bits on every run, on the card too.
 """
 
 from __future__ import annotations
@@ -143,6 +150,22 @@ def _reduce_start(y: torch.Tensor, plan: CastPlan, group, dtype: torch.dtype):
     return back, work, inp
 
 
+def scatter_add_rows(total: torch.Tensor, rows: torch.Tensor, src: torch.Tensor,
+                     splits) -> torch.Tensor:
+    """``total[rows] += src`` for ``rows`` grouped by destination
+    (``splits`` rows each, no row twice within one), one destination at a
+    time: a row that went to several ranks is summed in destination
+    order. That is the order a single ``index_add_`` takes on the CPU; on
+    CUDA a single call adds repeated rows atomically, in no fixed order.
+    Returns ``total``."""
+    start = 0
+    for n in splits:
+        if n:
+            total.index_add_(0, rows[start:start + n], src[start:start + n])
+        start += n
+    return total
+
+
 def _reduce_finish(total, plan: CastPlan, back, work, shard_len: int) -> torch.Tensor:
     """Wait for one stage's GroupReduce transfer and sum its rows into
     ``total`` (float32 ``[shard_len, ...]``; made on first use, when
@@ -150,7 +173,7 @@ def _reduce_finish(total, plan: CastPlan, back, work, shard_len: int) -> torch.T
     work.wait()
     if total is None:
         total = back.new_zeros((shard_len, *back.shape[1:]), dtype=torch.float32)
-    return total.index_add_(0, plan.rows(back.device), back.float())
+    return scatter_add_rows(total, plan.rows(back.device), back.float(), plan.send_splits)
 
 
 def group_reduce_rows(

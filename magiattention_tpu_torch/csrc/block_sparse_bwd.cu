@@ -474,7 +474,7 @@ int dq_launch(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const int* tbl, float* dq,
               int hq, int hk, int bq, int n_qb, int C, int ds, float scale,
               void* stream) {
-  static bool smem_ok = false;
+  static magi::SmemAllowed smem_ok;
   constexpr bool TC = !std::is_same<T, float>::value;
   const size_t smem = TC ? bsp_tc::DqSmem<D>::bytes : DqSmemF32<D>::bytes;
   const int r_total = bq * (hq / hk);
@@ -507,7 +507,7 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
                const int* vptr, const int* vq, const int* vmult, float* dk,
                float* dv, int hq, int hk, int bq, int S, int ds, int M,
                int n_tiles, float scale, void* stream) {
-  static bool smem_ok = false;
+  static magi::SmemAllowed smem_ok;
   constexpr bool TC = !std::is_same<T, float>::value;
   const size_t smem = TC ? bsp_tc::DkvSmem<D>::bytes : DkvSmemF32<D>::bytes;
   const dim3 grid(hk * n_tiles, BSP_NCH<D>);

@@ -138,7 +138,7 @@ template <typename T, int D>
 int bsp_launch(const void* q, const void* k, const void* v, const int* tbl,
                void* out, float* lse, int hq, int hk, int bq, int n_qb, int C,
                int ds, float scale, void* stream) {
-  static bool smem_ok = false;
+  static magi::SmemAllowed smem_ok;
   constexpr bool TC = !std::is_same<T, float>::value;
   const size_t smem = TC ? bsp_tc::FwdSmem<D>::bytes : BspFwdSmem<D>::bytes;
   const int r_total = bq * (hq / hk);

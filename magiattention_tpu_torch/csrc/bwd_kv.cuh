@@ -360,7 +360,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            float* dq_acc, const int* work_qt_t, const int* meta_t,
            const int* run_ptr_t, int sq, int sk, int hq, int hk,
            int num_k_tiles, float scale, float softcap, void* stream) {
-  static bool smem_ok = false;
+  static magi::SmemAllowed smem_ok;
   const size_t smem = DkvSmem<D>::bytes;
   cudaError_t e =
       magi::allow_smem(ffa_bwd_kv_kernel<T, D, FUSED>, smem, &smem_ok);

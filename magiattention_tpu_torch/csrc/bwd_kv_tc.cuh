@@ -369,7 +369,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if constexpr (Smem<D, FUSED, BQ, BK>::bytes > magi::SMEM_LIMIT) {
     return (int)cudaErrorInvalidValue;  // not compiled: the CTA does not fit
   } else {
-    static bool smem_ok = false;
+    static magi::SmemAllowed smem_ok;
     const size_t smem = Smem<D, FUSED, BQ, BK>::bytes;
     cudaError_t e = magi::allow_smem(ffa_bwd_kv_tc_kernel<D, FUSED, BQ, BK>,
                                      smem, &smem_ok);

@@ -161,15 +161,25 @@ constexpr size_t SMEM_LIMIT = 232448;
   X(128, 64, 64) X(128, 128, 64) X(128, 64, 128) X(128, 128, 128)       \
   X(256, 64, 64) X(256, 128, 64) X(256, 64, 128) X(256, 128, 128)
 
-// Opt a kernel into more than 48 KB of dynamic shared memory, once. Static:
-// kernels of one signature in two libraries must each reach their own
-// library's CUDA runtime.
+// The devices on which a kernel's dynamic shared-memory limit is raised:
+// cudaFuncSetAttribute sets it for the current device only, and one
+// process may launch a kernel on several (the head-sharded decode step).
+constexpr int SMEM_DEVICES = 64;
+struct SmemAllowed {
+  bool on[SMEM_DEVICES] = {};
+};
+
+// Opt a kernel into more than 48 KB of dynamic shared memory, once per
+// device. Static: kernels of one signature in two libraries must each
+// reach their own library's CUDA runtime.
 template <typename Kernel>
-static inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) *done = true;
+static inline cudaError_t allow_smem(Kernel kernel, size_t bytes, SmemAllowed* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < SMEM_DEVICES && done->on[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess && dev < SMEM_DEVICES) done->on[dev] = true;
   return e;
 }
 

@@ -354,7 +354,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            const int* work_kt, const int* meta, const int* run_ptr, int sq,
            int sk, int hq, int hk, int num_q_tiles, float scale,
            float softcap, void* stream) {
-  static bool smem_ok = false;
+  static magi::SmemAllowed smem_ok;
   const size_t smem = DqSmem<D, G>::bytes;
   cudaError_t e =
       magi::allow_smem(ffa_bwd_dq_kernel<T, D, G>, smem, &smem_ok);

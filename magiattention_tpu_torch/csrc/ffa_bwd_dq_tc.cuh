@@ -269,7 +269,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if constexpr (!compiled<D, G, BQ, BK>()) {
     return (int)cudaErrorInvalidValue;
   } else {
-    static bool smem_ok = false;
+    static magi::SmemAllowed smem_ok;
     const size_t smem = Smem<D, G, BQ, BK>::bytes;
     cudaError_t e =
         magi::allow_smem(ffa_bwd_dq_tc_kernel<D, G, BQ, BK>, smem, &smem_ok);

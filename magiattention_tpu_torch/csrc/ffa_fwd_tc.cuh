@@ -275,7 +275,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
                 (G > 1 && BQ != 64)) {
     return (int)cudaErrorInvalidValue;  // not compiled: the CTA does not fit
   } else {
-    static bool smem_ok = false;
+    static magi::SmemAllowed smem_ok;
     const size_t smem = Smem<D, G, BQ, BK>::bytes;
     cudaError_t e =
         magi::allow_smem(ffa_fwd_tc_kernel<D, G, BQ, BK>, smem, &smem_ok);

@@ -520,7 +520,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   if constexpr (!compiled<D, G, BQ, BK>()) {
     return (int)cudaErrorInvalidValue;
   } else {
-    static bool smem_ok = false;
+    static magi::SmemAllowed smem_ok;
     const size_t smem = Smem<D, G, BQ>::bytes;
     cudaError_t e =
         magi::allow_smem(ffa_fwd_tf32_kernel<D, G, BQ, BK>, smem, &smem_ok);

@@ -589,7 +589,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* lengths, void* out, float* lse, float* part, int S,
            int hq, int hk, int ps, int P, int spec_k, int splits,
            int split_len, float softmax_scale, void* stream) {
-  static bool smem_ok = false;
+  static magi::SmemAllowed smem_ok;
   const size_t smem = Smem<TP, D, RMAX>::bytes;
   auto* kernel = decode_kernel<TQ, TP, D, RMAX>;
   cudaError_t e = allow_smem(kernel, smem, &smem_ok);

@@ -39,7 +39,7 @@ from .config import DistAttnConfig
 from .env import comm as env_comm
 from .env import general as env_general
 from .functional.dispatch import dispatch_func, undispatch_func
-from .functional.dist_attn import DistAttnRuntime
+from .functional.dist_attn import DistAttnRuntime, dist_attn_func
 from .functional.dynamic_dist_attn import DynamicDistAttnRuntime
 from .kernels import registry as kernel_registry
 from .meta import make_attn_meta_from_dispatch_meta, make_dispatch_meta_from_qk_ranges
@@ -266,6 +266,7 @@ class DistAttnRuntimeMgr:
                 ),
             )
         self._index = {}
+        self._mesh = None
 
     def _indices(self, role: str) -> tuple[torch.Tensor, int, torch.Tensor]:
         """(this rank's global rows, its real row count, the unpermute
@@ -293,9 +294,21 @@ class DistAttnRuntimeMgr:
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return_max_logits: bool = False,
     ):
-        if env_general.precision() == "bf16":
-            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        return self.runtime.calc_attn(q, k, v, return_max_logits)
+        return dist_attn_func(q, k, v, self.runtime, return_max_logits)
+
+    @property
+    def mesh(self):
+        """The :class:`~.parallel._mesh.ProcessMesh` the key was planned
+        on: the key's own, or, for a key built from a bare ``cp_group``
+        (or none, at cp 1), a one-axis ``"cp"`` mesh over that group's
+        ranks whose line is the group itself (made once, no new group)."""
+        if self.key.mesh is not None:
+            return self.key.mesh
+        if self._mesh is None:
+            from .parallel._mesh import ProcessMesh
+
+            self._mesh = ProcessMesh.of_group(self.key.cp_group)
+        return self._mesh
 
     def roll(self, x: torch.Tensor, shifts: int) -> torch.Tensor:
         """This rank's rows of the global sequence rolled by ``shifts``

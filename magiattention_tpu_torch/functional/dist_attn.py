@@ -10,9 +10,12 @@ scheduler. Here every process runs its own rank and builds its own plans
 - the forward issues every stage's GroupCast up front (asynchronous
   ``all_to_all_single``; on CUDA, NCCL's own stream), runs the host part,
   then each stage's part after waiting for that stage's transfer only;
-- the backward of the parts is :class:`_MultiFFA`'s, and the GroupReduce
-  of the remote parts' dk/dv is the backward of the GroupCast
-  (:mod:`..comm.primitives`).
+- the backward (:class:`_StagedAttn`) runs the remote parts' backward
+  first, issuing each stage's GroupReduce of dk/dv (the reverse
+  transfer) the moment that stage's partials exist, then the host part's
+  under the last one, and finishes the reduces in stage order: JAX gets
+  this overlap from XLA's scheduler, which runs each stage's collective
+  beside the other stages' compute.
 
 With overlap off, or a plan of one stage, the runtime waits for every
 stage and runs one FFA over the merged buffer ``[kv shard | stage 0 |
@@ -27,6 +30,7 @@ too; ``"sdpa_online"`` replays them with the blockwise online-softmax
 the per-head max logit is the max over the parts, then
 ``all_reduce(MAX)`` over the cp group (the JAX package's
 ``reduce_max_logits``). The qo-comm runtime is :mod:`.dynamic_dist_attn`.
+:func:`dist_attn_func` is the functional entry over a runtime.
 
 Two-level comm (``hier``: the cp group laid out as (n_outer, n_inner)
 ranks, outer-major, under MAGI_ATTENTION_HIERARCHICAL_COMM=1) runs each
@@ -50,6 +54,7 @@ import torch.distributed as dist
 from ..comm.hier import HierCastPlan, make_hier_group_cast_plan
 from ..comm.primitives import CastPlan, group_cast_all
 from ..env import comm as env_comm
+from ..env import general as env_general
 from ..kernels import registry as kernel_registry
 from ..kernels.ffa import (
     FFAParams, apply_bwd_overrides, default_blocks, ffa_bwd, ffa_delta, ffa_fwd_dispatch,
@@ -62,6 +67,35 @@ from ..kernels.sdpa_online import sdpa_online_attn
 from ..meta.collection.calc_meta import AttnArg, CalcMeta
 from ..meta.collection.comm_meta import CommMeta
 from .utils import lse_weighted_reduce
+
+
+def _parts_fwd(q, ks, vs, plans, params, waits, return_max_logits):
+    """(out, lse, max_logits or None) of q against the kv parts: part i
+    after ``waits[i]`` (when not None), in q's dtype, lse-merged."""
+    outs, lses, mls = [], [], []
+    for i, (k, v) in enumerate(zip(ks, vs)):
+        if waits[i] is not None:
+            waits[i]()
+        out_i, lse_i, *ml_i = ffa_fwd_dispatch(
+            q, k.to(q.dtype), v.to(q.dtype), plans[i], params[i], return_max_logits,
+        )
+        outs.append(out_i)
+        lses.append(lse_i)
+        mls += ml_i
+    if len(outs) == 1:
+        out, lse = outs[0], lses[0]
+    else:
+        out, lse = lse_weighted_reduce(torch.stack(outs), torch.stack(lses))
+    return out, lse, (torch.stack(mls).amax(dim=0) if return_max_logits else None)
+
+
+def _fwd_outputs(ctx, out, lse, ml):
+    """The forward's outputs, lse and max-logits marked auxiliary."""
+    if ml is None:
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+    ctx.mark_non_differentiable(lse, ml)
+    return out, lse, ml
 
 
 class _MultiFFA(torch.autograd.Function):
@@ -83,29 +117,10 @@ class _MultiFFA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, plans, params, waits, return_max_logits, *kvs):
         n = len(plans)
-        outs, lses, mls = [], [], []
-        for i in range(n):
-            if waits[i] is not None:
-                waits[i]()
-            out_i, lse_i, *ml_i = ffa_fwd_dispatch(
-                q, kvs[i].to(q.dtype), kvs[n + i].to(q.dtype), plans[i], params[i],
-                return_max_logits,
-            )
-            outs.append(out_i)
-            lses.append(lse_i)
-            mls += ml_i
-        if n == 1:
-            out, lse = outs[0], lses[0]
-        else:
-            out, lse = lse_weighted_reduce(torch.stack(outs), torch.stack(lses))
+        out, lse, ml = _parts_fwd(q, kvs[:n], kvs[n:], plans, params, waits, return_max_logits)
         ctx.save_for_backward(q, out, lse, *kvs)
         ctx.plans, ctx.params = plans, params
-        if not return_max_logits:
-            ctx.mark_non_differentiable(lse)
-            return out, lse
-        ml = torch.stack(mls).amax(dim=0)
-        ctx.mark_non_differentiable(lse, ml)
-        return out, lse, ml
+        return _fwd_outputs(ctx, out, lse, ml)
 
     @staticmethod
     def backward(ctx, do, *_aux):
@@ -123,6 +138,71 @@ class _MultiFFA(torch.autograd.Function):
             dks.append(dk_i.to(k.dtype))
             dvs.append(dv_i.to(v.dtype))
         return (dq.to(q.dtype), None, None, None, None, *dks, *dvs)
+
+
+class _StagedAttn(torch.autograd.Function):
+    """The overlapped path whole: every stage's GroupCast of ``kv`` (this
+    rank's ``[k | v]`` rows), the multi-part FFA over ``[kv | stage 0 |
+    ...]`` (:class:`_MultiFFA`'s forward), and a backward that overlaps
+    each stage's GroupReduce with the next part's compute.
+
+    The backward runs the remote parts first, in stage order, and issues
+    stage i's GroupReduce (``reduce_start``) the moment its dk/dv exist;
+    the host part runs last, under the last reduce; then the reduces are
+    finished in stage order. The arithmetic is that of :class:`_MultiFFA`
+    under :class:`~..comm.primitives._GroupCast`, in another time order
+    only: dq summed over the parts in part order, the partials sent in
+    kv's dtype (float32 under ``hp``, where the local part joins the
+    float32 sum first), summed into the shard stage by stage. So the
+    gradients are those of that pair to the bit (deterministic kernels
+    assumed)."""
+
+    @staticmethod
+    def forward(ctx, q, kv, d, cast_plans, group, hp, plans, params, return_max_logits):
+        parts, waits = [kv.float() if hp else kv], [None]
+        for plan in cast_plans:
+            buf, wait = plan.cast_start(kv, group, parts[0].dtype)
+            parts.append(buf)
+            waits.append(wait)
+        out, lse, ml = _parts_fwd(
+            q, [p[..., :d] for p in parts], [p[..., d:] for p in parts], plans, params, waits,
+            return_max_logits,
+        )
+        ctx.save_for_backward(q, out, lse, *parts)
+        ctx.d, ctx.cast_plans, ctx.group, ctx.hp = d, cast_plans, group, hp
+        ctx.plans, ctx.params, ctx.kv_dtype = plans, params, kv.dtype
+        return _fwd_outputs(ctx, out, lse, ml)
+
+    @staticmethod
+    def backward(ctx, do, *_aux):
+        q, out, lse, *parts = ctx.saved_tensors
+        d, group = ctx.d, ctx.group
+        delta = ffa_delta(out, do)
+
+        def part_bwd(i):
+            p = parts[i]
+            dq_i, dk_i, dv_i = ffa_bwd(
+                q, p[..., :d].to(q.dtype), p[..., d:].to(q.dtype), do, lse, delta,
+                ctx.plans[i], ctx.params[i],
+            )
+            return dq_i, torch.cat([dk_i.to(p.dtype), dv_i.to(p.dtype)], dim=-1)
+
+        wire = torch.float32 if ctx.hp else ctx.kv_dtype
+        dqs, pending = [None] * len(parts), []
+        for i, plan in enumerate(ctx.cast_plans, start=1):
+            dqs[i], g = part_bwd(i)
+            pending.append((plan, plan.reduce_start(g, group, wire)))
+        dqs[0], local = part_bwd(0)
+        dq = dqs[0]
+        for dq_i in dqs[1:]:
+            dq = dq.add_(dq_i)
+        total = local if ctx.hp else None
+        for plan, handle in pending:
+            total = plan.reduce_finish(total, handle, group, local.shape[0])
+        dkv = total.to(ctx.kv_dtype)
+        if not ctx.hp:
+            dkv = local + dkv
+        return dq.to(q.dtype), dkv, None, None, None, None, None, None, None
 
 
 def multi_ffa(q, ks, vs, plans, params, waits=None, return_max_logits=False):
@@ -237,6 +317,11 @@ class DistAttnRuntime(DeferredTilePolicy):
             self.cast_plans = [CastPlan.from_stage(s, cp_rank) for s in comm_meta.kv_stages]
         self.head_axis, self.tp_group, self.tp_size = tp if tp is not None else (None, None, 1)
         self._heads_checked = False
+        # the overlapped path's backward issues each stage's GroupReduce
+        # under the next part's compute (_StagedAttn); False runs the same
+        # parts with every reduce after every part's backward (_MultiFFA
+        # under _GroupCast), the order the staged one is tested against
+        self.staged_backward = True
         self._init_tile_policy()
 
     def _hier_plan(self, stage, n_outer: int, n_inner: int):
@@ -332,10 +417,18 @@ class DistAttnRuntime(DeferredTilePolicy):
         if k.shape[:2] != v.shape[:2]:
             raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ in rows or heads")
         self._check_heads(q.shape[1], k.shape[1], q.device)
+        hp = env_comm.is_bwd_high_precision_reduce_enable()
+        if self.use_overlap and self.cast_plans and self.staged_backward:
+            d = k.shape[-1]
+            params = self._params(d, q.element_size(), v.shape[-1])
+            res = _StagedAttn.apply(
+                q, torch.cat([k, v.to(k.dtype)], dim=-1), d, tuple(self.cast_plans),
+                self.cast_group, hp, tuple(self.plans), tuple(params), return_max_logits,
+            )
+            return self._reduce_max_logits(res, return_max_logits)
         k_parts, v_parts, waits = [k], [v], []
         if self.cast_plans:  # cp > 1: the remote kv of every stage
             d = k.shape[-1]
-            hp = env_comm.is_bwd_high_precision_reduce_enable()
             kv_parts, waits = group_cast_all(
                 torch.cat([k, v.to(k.dtype)], dim=-1), self.cast_plans, self.cast_group, hp
             )
@@ -363,6 +456,21 @@ class DistAttnRuntime(DeferredTilePolicy):
             res = multi_ffa(
                 q, k_parts, v_parts, self.plans, params, [None, *waits], return_max_logits,
             )
+        return self._reduce_max_logits(res, return_max_logits)
+
+    def _reduce_max_logits(self, res, return_max_logits: bool):
+        """``res`` with its max-logits all-reduced (MAX) over the cp group."""
         if return_max_logits and self.cp_size > 1:
             dist.all_reduce(res[2], op=dist.ReduceOp.MAX, group=self.cp_group)
         return res
+
+
+def dist_attn_func(q, k, v, runtime, return_max_logits: bool = False):
+    """The functional entry (the JAX package's ``dist_attn_func``):
+    (out, lse[, max_logits]) of this rank's dispatched rows through
+    ``runtime`` (a :class:`DistAttnRuntime` or the qo-comm runtime).
+    Under MAGI_ATTENTION_PRECISION=bf16, q, k and v are cast to bfloat16
+    first."""
+    if env_general.precision() == "bf16":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    return runtime.calc_attn(q, k, v, return_max_logits=return_max_logits)

@@ -33,9 +33,9 @@ Each step is a method that takes and returns this rank's tensors, joined
 only by the collectives in :meth:`~DynamicDistAttnRuntime.calc_attn`, so
 the steps of several ranks can run on one device with index gathers in
 place of the transfers. ``backend="sdpa"`` replays the rank's slices with
-the dense ``sdpa_attn``, differentiated by autograd through the casts (the
-JAX package's ``_calc_attn_sdpa``); ``sdpa_online`` is not ported (ROADMAP
-queue A5).
+the dense ``sdpa_attn``, and ``"sdpa_online"`` with the blockwise
+online-softmax ``sdpa_online_attn``, differentiated by autograd through
+the casts (the JAX package's ``_calc_attn_sdpa``).
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from ..comm.primitives import CastPlan, group_cast_rows, group_reduce_rows
 from ..env import comm as env_comm
 from ..kernels.ffa import FFAParams, ffa_bwd, ffa_delta, ffa_fwd_dispatch
 from ..kernels.sdpa import dense_max_logits, sdpa_attn
+from ..kernels.sdpa_online import sdpa_online_attn
 from ..meta.collection.dynamic_meta import DynamicAttnPlan
 from .dist_attn import DeferredTilePolicy, _plan
 from .utils import lse_weighted_reduce
@@ -127,11 +128,8 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
         softcap: float = 0.0,
         backend: str = "ffa",
     ) -> None:
-        if backend not in ("ffa", "sdpa"):
-            raise NotImplementedError(
-                f"kernel backend {backend!r} of the CP runtime is not ported "
-                "yet (ROADMAP queue A5)"
-            )
+        if backend not in ("ffa", "sdpa", "sdpa_online"):
+            raise ValueError(f"unknown kernel backend {backend!r} (ffa | sdpa | sdpa_online)")
         self.plan, self.backend = plan, backend
         self.cp_size, self.cp_rank, self.cp_group = plan.cp_size, cp_rank, cp_group
         self.softmax_scale, self.softcap = softmax_scale, softcap
@@ -278,7 +276,7 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
         """
         if k.shape[:2] != v.shape[:2]:
             raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ in rows or heads")
-        if self.backend == "sdpa":
+        if self.backend != "ffa":
             res = self._calc_attn_sdpa(q, k, v, return_max_logits)
         else:
             params = self.params(q.shape[-1], q.element_size(), v.shape[-1])
@@ -289,15 +287,16 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
 
     def _calc_attn_sdpa(self, q, k, v, return_max_logits):
         """The dense path: the same casts and merge around ``sdpa_attn``
-        over this rank's slices, differentiated by autograd (the casts'
-        backward is the GroupReduce)."""
+        (or ``sdpa_online_attn``) over this rank's slices, differentiated
+        by autograd (the casts' backward is the GroupReduce)."""
         q_buf, k_buf, v_buf = self.buffers(q, k, v)
         a = self.attn_arg
         kw = dict(
             softmax_scale=self.softmax_scale, softcap=self.softcap, d_lo=a.d_lo, d_hi=a.d_hi,
         )
         kv = (k_buf.to(q.dtype), v_buf.to(q.dtype))
-        out_buf, lse_buf = sdpa_attn(q_buf, *kv, a.q_ranges, a.k_ranges, **kw)
+        dense = sdpa_attn if self.backend == "sdpa" else sdpa_online_attn
+        out_buf, lse_buf = dense(q_buf, *kv, a.q_ranges, a.k_ranges, **kw)
         out, lse = self.merge_step(out_buf, lse_buf, *self.ret_step(out_buf, lse_buf))
         res = (out.to(q.dtype), lse.detach())  # lse carries no gradient, as on ffa
         if return_max_logits:

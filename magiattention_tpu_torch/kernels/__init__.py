@@ -29,6 +29,7 @@ from .ffa import (  # noqa: F401
 from .paged_decode import (  # noqa: F401
     paged_decode_attn,
     paged_decode_attn_int8,
+    paged_decode_attn_sharded,
     paged_decode_attn_spec,
     paged_decode_int8_kernel,
     paged_decode_int8_plain,
@@ -140,6 +141,7 @@ __all__ = [
     "paged_attn",
     "paged_decode_attn",
     "paged_decode_attn_int8",
+    "paged_decode_attn_sharded",
     "paged_decode_attn_spec",
     "paged_decode_int8_kernel",
     "paged_decode_int8_plain",

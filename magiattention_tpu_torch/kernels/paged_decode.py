@@ -26,7 +26,11 @@ holds its pages at that width already (``PagedKVCache.create``), so a call
 with other logical dims pads only q (small, per tick) and slices out back
 to ``head_dim_v``.
 
-The head-sharded variant of the TPU module is not ported (ROADMAP).
+:func:`paged_decode_attn_sharded` is the head-sharded step: B10 once per
+shard of the kv heads, each on its own device (or several on one), every
+shard launched with the unsharded cache's split plan, so each (head,
+slot) accumulates as it does unsharded and the gathered rows are the
+unsharded call's to the bit.
 """
 
 from __future__ import annotations
@@ -159,12 +163,14 @@ def _stream(q: torch.Tensor) -> int:
 
 
 def paged_decode_kernel(
-    q: torch.Tensor, cache: PagedKVCache, softmax_scale: float
+    q: torch.Tensor, cache: PagedKVCache, softmax_scale: float,
+    split_plan: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/paged_decode.cu``: ``q (S, hq, d)`` CUDA tensor of the
-    pages' dtype (float32 or bfloat16), split by :func:`split_plan_of`.
-    Adds one to ``paged_decode_kernel.launches`` per launch (the split walk
-    and its merge)."""
+    pages' dtype (float32 or bfloat16), split by ``split_plan`` (``(splits,
+    split_len)``; default :func:`split_plan_of` the cache). Adds one to
+    ``paged_decode_kernel.launches`` per launch (the split walk and its
+    merge)."""
     q = q.contiguous()
     num_pages, ps, hk, width = cache.v_pages.shape
     _check_launch("paged_decode_kernel", q, cache, q.shape[1] // hk, q.dtype,
@@ -173,7 +179,9 @@ def paged_decode_kernel(
     S, hq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((S, hq), dtype=torch.float32, device=q.device)
-    splits, split_len = split_plan_of(cache, _sm_count(q.device))
+    splits, split_len = split_plan or split_plan_of(cache, _sm_count(q.device))
+    if splits * split_len < cache.page_table.shape[1] * ps:
+        raise ValueError(f"split plan {splits} x {split_len} does not cover the page table")
     part = split_workspace(splits, S * hq, d, q.device)
     lib = _lib("paged_decode")
     fn = lib.paged_decode_f32 if q.dtype == torch.float32 else lib.paged_decode_bf16
@@ -289,23 +297,27 @@ def _plain_attend(q, k, v, limits, softmax_scale):
     """Softmax attention in float32 of ``q (S, T, hq, d)`` over ``k/v (S, L,
     hk, d)``, row (s, t) over columns ``< limits[s, t]``; empty rows give
     (0, -inf). Returns out ``(S, T, hq, dv)`` in q's dtype, lse ``(S, T,
-    hq)``."""
+    hq)``. Each kv head is computed alone, on contiguous copies of its
+    rows, so its results do not depend on the other heads: the
+    head-sharded step's plain version gives the unsharded one's bits."""
     S, T, hq, d = q.shape
     L, hk, dv = v.shape[1:]
     g = hq // hk
-    qf = q.float().reshape(S, T, hk, g, d)
-    scores = torch.einsum("sthgd,slhd->sthgl", qf, k) * softmax_scale
-    cols = torch.arange(L, device=q.device)
-    live = cols[None, None, :] < limits[:, :, None]  # (S, T, L)
-    scores = scores.masked_fill(~live[:, :, None, None, :], float("-inf"))
-    m = scores.amax(dim=-1, keepdim=True)
-    m_safe = torch.where(m.isfinite(), m, 0.0)
-    p = torch.exp(scores - m_safe)  # exactly 0 on masked rows
-    l = p.sum(dim=-1, keepdim=True)
-    empty = l == 0.0
-    out = torch.einsum("sthgl,slhd->sthgd", p, v) / torch.where(empty, 1.0, l)
-    lse = torch.where(empty, float("-inf"), m_safe + torch.log(l))
-    return out.reshape(S, T, hq, dv).to(q.dtype), lse.reshape(S, T, hq)
+    live = torch.arange(L, device=q.device)[None, None, :] < limits[:, :, None]  # (S, T, L)
+    outs, lses = [], []
+    for h in range(hk):
+        qh = q[:, :, h * g:(h + 1) * g].float().contiguous()  # (S, T, g, d)
+        kh, vh = k[:, :, h].contiguous(), v[:, :, h].contiguous()  # (S, L, d)
+        scores = torch.einsum("stgd,sld->stgl", qh, kh) * softmax_scale
+        scores = scores.masked_fill(~live[:, :, None, :], float("-inf"))
+        m = scores.amax(dim=-1, keepdim=True)
+        m_safe = torch.where(m.isfinite(), m, 0.0)
+        p = torch.exp(scores - m_safe)  # exactly 0 on masked rows
+        l = p.sum(dim=-1, keepdim=True)
+        empty = l == 0.0
+        outs.append(torch.einsum("stgl,sld->stgd", p, vh) / torch.where(empty, 1.0, l))
+        lses.append(torch.where(empty, float("-inf"), m_safe + torch.log(l))[..., 0])
+    return torch.cat(outs, dim=2).to(q.dtype), torch.cat(lses, dim=2)
 
 
 def paged_decode_plain(
@@ -388,6 +400,94 @@ def paged_decode_attn(
     if q.is_cuda:
         return paged_decode_kernel(q, cache, float(softmax_scale))
     return paged_decode_plain(q, cache, softmax_scale)
+
+
+def _shard_devices(q: torch.Tensor, num_shards: int, devices) -> list[torch.device]:
+    """The shards' devices: ``devices``, else the CPU n times for a CPU
+    ``q``, else ``cuda:0 .. cuda:n-1``; raises where there are too few."""
+    if devices is None:
+        if q.is_cuda:
+            if torch.cuda.device_count() < num_shards:
+                raise ValueError(
+                    f"need {num_shards} devices for the kv shards, have "
+                    f"{torch.cuda.device_count()}"
+                )
+            devices = [torch.device("cuda", i) for i in range(num_shards)]
+        else:
+            devices = [q.device] * num_shards
+    devices = [torch.device(dev) for dev in devices]
+    if len(devices) < num_shards:
+        raise ValueError(f"need {num_shards} devices for the kv shards, have {len(devices)}")
+    if any(dev.type != q.device.type for dev in devices[:num_shards]):
+        raise ValueError(f"kv shards on {devices[:num_shards]} for q on {q.device}")
+    return devices[:num_shards]
+
+
+def _head_shard(cache: PagedKVCache, heads: slice, device: torch.device) -> PagedKVCache:
+    """The kv heads ``heads`` of the cache on ``device`` (a copy of their
+    pages; the page table and lengths replicated)."""
+    return PagedKVCache(
+        k_pages=cache.k_pages[:, :, heads].to(device).contiguous(),
+        v_pages=cache.v_pages[:, :, heads].to(device).contiguous(),
+        page_table=cache.page_table.to(device),
+        lengths=cache.lengths.to(device),
+        head_dim=cache.head_dim,
+        head_dim_v=cache.head_dim_v,
+    )
+
+
+def paged_decode_attn_sharded(
+    q: torch.Tensor,
+    cache: PagedKVCache,
+    num_shards: int,
+    softmax_scale: float | None = None,
+    devices=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One batched decode step with the kv heads split into ``num_shards``
+    shards (the JAX package's ``shard_map`` over the kv-head axis).
+
+    Shard ``s`` takes kv heads ``[s * hk / n, (s + 1) * hk / n)`` and their
+    query heads, and runs :func:`paged_decode_attn` (B10 on the card) on
+    ``devices[s]`` over a copy of those heads' pages (default devices:
+    ``cuda:0 .. cuda:n-1`` for a CUDA ``q``, the CPU for a CPU one; a
+    device may be named more than once). The page table and lengths are
+    replicated. Every shard is launched with the unsharded cache's split
+    plan (which reads ``hk``), so each (head, slot) accumulates exactly as
+    it does unsharded; the outputs are gathered back to q's device, equal
+    to :func:`paged_decode_attn`'s to the bit.
+
+    Returns (out ``(max_seqs, hq, dv)``, lse ``(max_seqs, hq)``).
+    """
+    S, hq, d = q.shape
+    hk = cache.v_pages.shape[2]
+    if hq % hk:
+        raise ValueError(f"hq={hq} not a multiple of kv heads hk={hk}")
+    if num_shards < 1 or hk % num_shards:
+        raise ValueError(
+            f"hk={hk} not divisible by num_shards={num_shards}; the kv-head "
+            "axis is the shard axis"
+        )
+    if cache.quantized:
+        raise ValueError("paged_decode_attn_sharded takes a float cache")
+    devices = _shard_devices(q, num_shards, devices)
+    if softmax_scale is None:
+        softmax_scale = float(d) ** -0.5
+    g, per = hq // hk, hk // num_shards
+    plan = split_plan_of(cache, _sm_count(q.device)) if q.is_cuda else None
+    outs, lses = [], []
+    for s, dev in enumerate(devices):
+        heads = slice(s * per, (s + 1) * per)
+        q_s = q[:, heads.start * g:heads.stop * g].to(dev).contiguous()
+        cache_s = _head_shard(cache, heads, dev)
+        if q.is_cuda:
+            with torch.cuda.device(dev):
+                out_s, lse_s = paged_decode_kernel(q_s, cache_s, float(softmax_scale), plan)
+        else:
+            out_s, lse_s = paged_decode_plain(q_s, cache_s, softmax_scale)
+        outs.append(out_s)
+        lses.append(lse_s)
+    return (torch.cat([o.to(q.device) for o in outs], dim=1),
+            torch.cat([x.to(q.device) for x in lses], dim=1))
 
 
 def paged_decode_attn_spec(

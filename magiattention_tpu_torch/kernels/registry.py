@@ -235,6 +235,7 @@ register_backend("ffa_bwd_dkv", "gqa_packed", 0, "the group looped in the CTA (c
 register_backend("ffa_bwd_dkv", "plain", 1, "the same kernel")
 register_backend("ffa_dispatch", "mixed", 0, "coarse + fine plans, lse-merged")
 register_backend("ffa_dispatch", "single", 1, "one plan, one tiling")
+register_backend("serve_decode", "paged_decode_sharded", 0, "B10 once per kv-head shard (csrc/paged_decode.cu)")
 register_backend("serve_decode", "paged_decode_spec", 1, "multi-row verify (csrc/paged_decode_spec.cu)")
 register_backend("serve_decode", "paged_decode_int8", 2, "int8 pages (csrc/paged_decode_int8.cu)")
 register_backend("serve_decode", "paged_decode", 3, "split page walk (csrc/paged_decode.cu)")

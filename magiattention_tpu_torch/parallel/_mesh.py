@@ -75,6 +75,22 @@ class ProcessMesh:
             raise ValueError(f"rank {me} is not in the mesh {ranks.tolist()}")
         self.coords = dict(zip(axis_names, (int(c) for c in where[0])))
 
+    @classmethod
+    def of_group(cls, group, axis_name: str = "cp") -> "ProcessMesh":
+        """A one-axis mesh over ``group``'s ranks (None: this process
+        alone) whose line is ``group`` itself. It makes no group, so it
+        is not collective: any process of the group may build it alone."""
+        me = _this_rank()
+        line = [me] if group is None else [int(r) for r in dist.get_process_group_ranks(group)]
+        mesh = cls.__new__(cls)
+        mesh.ranks = np.asarray(line, dtype=np.int64)
+        mesh.axis_names = (axis_name,)
+        mesh.shape = {axis_name: len(line)}
+        mesh._groups = {axis_name: group}
+        mesh._lines = {axis_name: line}
+        mesh.coords = {axis_name: line.index(me)}
+        return mesh
+
     def coord(self, axis: str) -> int:
         """This process's coordinate on ``axis``."""
         return self.coords[axis]

@@ -50,11 +50,11 @@ def kv_page_bytes(
 
 
 def slot_residency(
-    budget_bytes: int, page_bytes: int, pages_per_slot: int
+    hbm_budget_bytes: int, page_bytes: int, pages_per_slot: int
 ) -> int:
     """How many full slots (``pages_per_slot`` pages each) fit in a device
-    memory budget."""
-    return budget_bytes // (page_bytes * pages_per_slot)
+    memory (HBM) budget of ``hbm_budget_bytes``."""
+    return hbm_budget_bytes // (page_bytes * pages_per_slot)
 
 
 class PagePool:

@@ -4,14 +4,17 @@ The port's counterpart of ``magiattention_tpu/serving/decode.py``. The TPU
 package descends a registry ladder (sharded / spec / int8 / base Pallas
 kernels -> gather+FFA -> dense) with fault injection and fallback. The port
 has no fallback: one route per call, the first rung of the backend
-registry's ``serve_decode`` ladder (``kernels/registry.py``: JAX's rungs
-below the sharded one) that is feasible for the cache (JAX's
-``_feasibility``), starting at the registry's start rung (the caller's pin,
-:func:`..env.backend.serve_decode_pin`, or, unpinned, the top). That route launches its CUDA kernel for CUDA tensors
-or raises.
+registry's ``serve_decode`` ladder (``kernels/registry.py``: JAX's six
+rungs) that is feasible for the cache and the shard count (JAX's
+``_feasibility``), starting at the registry's start rung (the caller's
+pin, :func:`..env.backend.serve_decode_pin`, or, unpinned, JAX's default).
+That route launches its CUDA kernel for CUDA tensors or raises.
 
-- :func:`decode_attn_step`: unpinned, a float cache takes the paged-decode
-  kernel (B10), an int8 cache the int8 kernel (B12).
+- :func:`decode_attn_step`: unpinned, ``shards > 1`` takes the
+  head-sharded step (B10 once per shard,
+  :func:`~..kernels.paged_decode.paged_decode_attn_sharded`) where it is
+  feasible, else a float cache takes the paged-decode kernel (B10), an
+  int8 cache the int8 kernel (B12).
 - :func:`verify_attn_step`: unpinned, a float cache takes the spec kernel
   (B11); an int8 cache never does (JAX's spec rung is infeasible there) and
   verifies through :func:`_gather_ffa_verify`, the dequantized gather + FFA
@@ -19,8 +22,7 @@ or raises.
 - ``gather_ffa`` pinned: :func:`_gather_ffa_decode` /
   :func:`_gather_ffa_verify`, the replay oracle's own call (one query row
   per FFA call); ``dense`` pinned: :func:`_dense_decode` /
-  :func:`_dense_verify`. ``paged_decode_sharded`` raises (ROADMAP queue A
-  item 8), as ``decode_shards > 1`` does.
+  :func:`_dense_verify`.
 """
 
 from __future__ import annotations
@@ -32,35 +34,48 @@ from ..kernels import registry as _registry
 from ..kernels.paged_decode import (
     paged_decode_attn,
     paged_decode_attn_int8,
+    paged_decode_attn_sharded,
     paged_decode_attn_spec,
 )
 from ..kernels.paged_kv import PagedKVCache, gather_kv, paged_attn
 
 
-# JAX's serve_decode ladder below the sharded rung, in rank order
-RUNGS = ("paged_decode_spec", "paged_decode_int8", "paged_decode", "gather_ffa", "dense")
+# JAX's serve_decode ladder, in rank order
+RUNGS = (
+    "paged_decode_sharded", "paged_decode_spec", "paged_decode_int8", "paged_decode",
+    "gather_ffa", "dense",
+)
 
 
-def decode_route(cache: PagedKVCache, multi_row: bool) -> str:
+def decode_route(cache: PagedKVCache, multi_row: bool, shards: int = 1) -> str:
     """The rung a decode (``multi_row`` False) or verify step runs: the
-    first rung at or below the pin (unpinned: the top) that is feasible
-    for the cache, JAX's ``_feasibility`` rules. A ``paged_decode_sharded``
-    pin raises: the head-sharded rung is not ported."""
-    pin = env_backend.serve_decode_pin()
-    if pin == "paged_decode_sharded":
-        raise NotImplementedError(
-            "MAGI_ATTENTION_BACKEND_SERVE_DECODE=paged_decode_sharded needs "
-            "the head-sharded decode rung (ROADMAP queue A item 8), not ported yet"
-        )
+    first rung at or below the start (the pin, else JAX's default: the
+    sharded rung for ``shards > 1``, the int8 kernel on an int8 cache, the
+    spec kernel for a verify, else the paged-decode kernel) that is
+    feasible for the cache and ``shards``, JAX's ``_feasibility`` rules."""
+    hk = cache.k_pages.shape[2]
     quantized = cache.quantized
     feasible = {
+        "paged_decode_sharded": (  # enough devices of the cache's kind: the CPU is any number
+            not multi_row and not quantized and shards > 1 and hk % shards == 0
+            and (cache.device.type == "cpu" or torch.cuda.device_count() >= shards)
+        ),
         "paged_decode_spec": multi_row and not quantized,
         "paged_decode_int8": not multi_row and quantized,
         "paged_decode": not multi_row and not quantized,
         "gather_ffa": True,
         "dense": True,
     }
-    start = _registry.resolve("serve_decode", (), lambda: RUNGS[0], pin=pin).name
+    if multi_row:
+        default = "paged_decode_spec"
+    elif quantized:
+        default = "paged_decode_int8"
+    else:
+        default = "paged_decode_sharded" if shards > 1 else "paged_decode"
+    start = _registry.resolve(
+        "serve_decode", (hk, quantized, multi_row, shards), lambda: default,
+        pin=env_backend.serve_decode_pin(),
+    ).name
     return next(r for r in _registry.ladder("serve_decode", start) if feasible[r])
 
 
@@ -73,6 +88,7 @@ def decode_attn_step(
     cache: PagedKVCache,
     softmax_scale: float | None = None,
     host_lengths: tuple[int, ...] | None = None,
+    shards: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step for every slot, on :func:`decode_route`'s rung.
 
@@ -83,10 +99,14 @@ def decode_attn_step(
         host_lengths: per-slot counts as host ints (0 = inactive), which
             the gather and dense rungs need; None reads ``cache.lengths``
             (a device-to-host copy) when they do.
+        shards: kv-head shards the engine asks for; 1 rules out the
+            sharded rung.
 
     Returns (out ``(max_seqs, hq, dv)``, lse ``(max_seqs, hq)``).
     """
-    route = decode_route(cache, multi_row=False)
+    route = decode_route(cache, multi_row=False, shards=shards)
+    if route == "paged_decode_sharded":
+        return paged_decode_attn_sharded(q_batch, cache, shards, softmax_scale=softmax_scale)
     if route == "paged_decode_int8":
         return paged_decode_attn_int8(q_batch, cache, softmax_scale=softmax_scale)
     if route == "paged_decode":

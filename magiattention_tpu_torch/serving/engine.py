@@ -21,9 +21,12 @@ requests for more than a tick.
 The engine runs where its model's weights are: on a card, through the
 hand-written kernels (FFA forward for prefill, the paged-decode, spec or
 int8 kernel for decode); on the CPU, through their plain versions.
-``decode_shards > 1`` (the head-sharded decode) is not ported and raises
-``NotImplementedError``. Telemetry is left out; ``step()`` still returns
-the tick's stats dict.
+``decode_shards > 1`` runs the decode step head-sharded (B10 once per
+kv-head shard, one card per shard) where the sharded rung is feasible,
+and on the next feasible rung where it is not (too few cards, an int8
+cache, a verify step), as the JAX engine does; ``pool_shards``
+partitions the page pool. Telemetry is left out; ``step()`` still
+returns the tick's stats dict.
 
 Under MAGI_ATTENTION_BACKEND_SERVE_DECODE=gather_ffa the decode tick runs
 the replay oracle's own calls: attention through the gather + FFA rung,
@@ -108,11 +111,6 @@ def _check_supported(config: ServeConfig) -> None:
         )
     if config.spec_tokens < 1:
         raise ValueError(f"spec_tokens={config.spec_tokens} must be >= 1")
-    if config.decode_shards > 1:
-        raise NotImplementedError(
-            "decode_shards > 1 needs the head-sharded decode rung "
-            "(ROADMAP queue A item 8), not ported yet"
-        )
 
 
 class ServeEngine:
@@ -230,7 +228,8 @@ class ServeEngine:
             )
             if spec_k == 1:
                 out, _ = decode_attn_step(
-                    q_batch[:, 0], self.cache, cfg.softmax_scale, host_lengths
+                    q_batch[:, 0], self.cache, cfg.softmax_scale, host_lengths,
+                    shards=cfg.decode_shards,
                 )
                 out = out[:, None]
             else:

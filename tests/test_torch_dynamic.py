@@ -17,9 +17,10 @@ file-store ``init_method``) runs ``magi_attn_flex_key -> dispatch ->
 calc_attn -> undispatch`` and the backward of ``sum(out * dO)`` under
 MAGI_ATTENTION_QO_COMM=1 on the CPU (the kernels' plain versions), for
 causal, varlen causal and shared-prefix masks over 512 tokens, one case
-under each high-precision reduce flag, and at cp 2 the ``sdpa`` backend.
+under each high-precision reduce flag, at cp 2 the ``sdpa`` backend and
+at cp 2 and 4 the ``sdpa_online`` backend (at cp 1 too, without a spawn).
 The JAX package runs the same mask and flags on a cp-device CPU mesh with
-its ``sdpa`` backend, jitted. Held at float32 atol/rtol/rel-norm 1e-5: the
+its ``sdpa`` backend (``sdpa_online`` for that case), jitted. Held at float32 atol/rtol/rel-norm 1e-5: the
 natural-order out, dq, dk and dv, every rank's lse rows and max-logits;
 the plans' communicated rows must be equal.
 
@@ -286,10 +287,46 @@ def test_qo_comm_with_unported_paths_raises(env, kwargs, monkeypatch):
 
 
 def test_qo_comm_sdpa_online_backend_raises(monkeypatch):
-    monkeypatch.setenv("MAGI_ATTENTION_QO_COMM", "1")
-    monkeypatch.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "sdpa_online")
-    with pytest.raises(NotImplementedError, match="A5"):
-        api.magi_attn_flex_key([[0, 64]], [[0, 64]], [1], 64, 64, device="cpu", chunk_size=16)
+    """qo-comm on the ``sdpa_online`` backend (it raised before it was
+    ported; the name is kept): at cp 1 through the API, out, lse and the
+    gradients against the JAX package's dynamic runtime on the same
+    backend, float32 1e-5."""
+    env = {**QO, "MAGI_ATTENTION_KERNEL_BACKEND": "sdpa_online"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    qr, kr, types = MASKS["shared_prefix"]
+    q, k, v, do = cp_inputs(3)
+    key = api.magi_attn_flex_key(qr, kr, types, CP_SEQ, CP_SEQ, device="cpu", chunk_size=CP_CHUNK)
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+
+    rt = _mgr(key).runtime
+    assert type(rt).__name__ == "DynamicDistAttnRuntime" and rt.backend == "sdpa_online"
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out_d, meta = api.calc_attn(
+        api.dispatch(leaves[0], key), api.dispatch(leaves[1], key, role="kv"),
+        api.dispatch(leaves[2], key, role="kv"), key,
+    )
+    out = api.undispatch(out_d, key)
+    (out * torch.from_numpy(do)).sum().backward()
+    mesh = Mesh(np.array(jax.devices("cpu")[:1]), axis_names=("cp",))
+    jkey = jax_api.magi_attn_flex_key(qr, kr, types, CP_SEQ, CP_SEQ, mesh=mesh, chunk_size=CP_CHUNK)
+
+    def loss(q, k, v):
+        o_d, m = jax_api.calc_attn(
+            jax_api.dispatch(q, jkey), jax_api.dispatch(k, jkey, role="kv"),
+            jax_api.dispatch(v, jkey, role="kv"), jkey,
+        )
+        o = jax_api.undispatch(o_d, jkey)
+        return jnp.sum(o * do), (o, m.lse)
+
+    (_, (jout, jlse)), jgrads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    assert_close(out.detach().numpy(), np.asarray(jout), msg="out", **TOL)
+    jlse = np.asarray(jlse)
+    np.testing.assert_array_equal(np.isneginf(meta.lse.numpy()), np.isneginf(jlse))
+    assert_close(meta.lse.numpy(), jlse, msg="lse", **TOL)
+    for name, t, g in zip(("dq", "dk", "dv"), leaves, jgrads):
+        assert_close(t.grad.numpy(), np.asarray(g), msg=name, **TOL)
 
 
 def test_uncovered_rows_at_cp1_both_passes(monkeypatch):
@@ -340,8 +377,9 @@ CASES = {
     "shared_prefix_fwd_hp": ("shared_prefix", FWD_HP),
     "varlen_causal_bwd_hp": ("varlen_causal", BWD_HP),
     "causal_sdpa": ("causal", SDPA),
+    "shared_prefix_sdpa_online": ("shared_prefix", {"MAGI_ATTENTION_KERNEL_BACKEND": "sdpa_online"}),
 }
-CP_CASES = [(cp, name) for cp in (2, 4) for name in CASES if cp == 2 or "sdpa" not in name]
+CP_CASES = [(cp, name) for cp in (2, 4) for name in CASES if cp == 2 or name != "causal_sdpa"]
 
 
 @lru_cache(maxsize=None)
@@ -363,7 +401,7 @@ def _jax_run(cp: int, name: str):
     mask, env = CASES[name]
     qr, kr, types = MASKS[mask]
     with pytest.MonkeyPatch.context() as mpatch:
-        for k, v in {**QO, **env, **SDPA}.items():
+        for k, v in {**QO, **SDPA, **env}.items():  # a case's own backend wins
             mpatch.setenv(k, v)
         mesh = Mesh(np.array(jax.devices("cpu")[:cp]), axis_names=("cp",))
         key = jax_api.magi_attn_flex_key(qr, kr, types, CP_SEQ, CP_SEQ, mesh=mesh, chunk_size=CP_CHUNK)

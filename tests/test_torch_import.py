@@ -92,6 +92,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.meta.solver.dynamic_attn_solver",
         "magiattention_tpu_torch.meta.solver.algorithms.binary_greedy",
         "magiattention_tpu_torch.meta.solver.algorithms.snf",
+        "magiattention_tpu_torch.testing.template",
         "chip_smoke",
     ):
         assert module in loaded, module

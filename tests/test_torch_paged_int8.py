@@ -187,3 +187,12 @@ def test_page_accounting_equals_jax():
                 assert tcache.slot_residency(budget, got, per_slot) == (
                     jcache.slot_residency(budget, got, per_slot)
                 )
+
+
+def test_slot_residency_by_keyword():
+    """``slot_residency`` called with the JAX package's keywords
+    (``hbm_budget_bytes``, ``page_bytes``, ``pages_per_slot``) gives JAX's
+    count."""
+    kw = dict(hbm_budget_bytes=80 << 30, page_bytes=tcache.kv_page_bytes(
+        kv_dtype="int8", page_size=16, n_kv_heads=8, head_dim=128), pages_per_slot=256)
+    assert tcache.slot_residency(**kw) == jcache.slot_residency(**kw) > 0

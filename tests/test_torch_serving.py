@@ -230,8 +230,25 @@ def test_unservable_request_raises_typed(port_model):
     [("decode_shards", 2, "sharded")],
 )
 def test_unported_options_raise(port_model, field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ServeEngine(port_model, ServeConfig(**{field: value}))
+    """``decode_shards=2`` (it raised before the head-sharded rung was
+    ported; the name is kept): the smoke workload decodes on the sharded
+    rung, one plain launch per shard, and every generated row equals the
+    single-device engine's to the bit."""
+    from magiattention_tpu_torch.kernels.paged_decode import paged_decode_plain
+    from magiattention_tpu_torch.serving.decode import decode_route
+
+    single = _port_requests(port_model, WORKLOAD, seed=100)
+    ServeEngine(port_model, ServeConfig(**SMOKE_CONFIG)).run(single)
+    sharded = _port_requests(port_model, WORKLOAD, seed=100)
+    engine = ServeEngine(port_model, ServeConfig(**SMOKE_CONFIG, **{field: value}))
+    calls = paged_decode_plain.calls
+    engine.run(sharded)
+    assert decode_route(engine.cache, False, value) == f"paged_decode_{item}"
+    assert paged_decode_plain.calls > calls and (paged_decode_plain.calls - calls) % value == 0
+    for a, b in zip(single, sharded):
+        assert len(a.generated) == len(b.generated)
+        for x, y in zip(a.generated, b.generated):
+            np.testing.assert_array_equal(x, y, err_msg=str(a.req_id))
 
 
 @pytest.mark.parametrize(

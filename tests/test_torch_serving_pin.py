@@ -74,9 +74,18 @@ def test_decode_route(monkeypatch, pin):
 
 
 def test_sharded_pin_raises(monkeypatch):
+    """The ``paged_decode_sharded`` pin (it raised before the rung was
+    ported; the name is kept) routes by JAX's feasibility: the sharded
+    rung for a float one-row step with shards that split the kv heads,
+    the first feasible rung below it otherwise."""
+    monkeypatch.delenv(LEGACY, raising=False)
     monkeypatch.setenv(NEW, "paged_decode_sharded")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        decode_route(_cache(False), False)
+    assert decode_route(_cache(False), False, 2) == "paged_decode_sharded"
+    got = tuple(
+        decode_route(_cache(quantized), multi_row)
+        for quantized in (False, True) for multi_row in (False, True)
+    )
+    assert got == _ROUTES[None]
 
 
 _REQUESTS = [(5, 8), (17, 12), (40, 4), (1, 8)]  # (prompt, new tokens): multiples of 4

@@ -301,15 +301,13 @@ def test_registry_decisions_equal_jax(env, monkeypatch):
 
 def test_ladders_name_the_ports_routes():
     """Every decision the two registries share ranks its backends alike;
-    the serve-decode ladder is the JAX package's below its sharded rung
-    (not ported), which the port's decode route walks."""
+    the serve-decode ladder is the JAX package's whole ladder, sharded rung
+    on top, which the port's decode route walks."""
     from magiattention_tpu_torch.serving.decode import RUNGS
 
     for decision in port_registry.decisions():
-        want = jax_registry.ladder(decision)
-        if decision == "serve_decode":
-            want = tuple(n for n in want if n != "paged_decode_sharded")
-        assert port_registry.ladder(decision) == want, decision
+        assert port_registry.ladder(decision) == jax_registry.ladder(decision), decision
+    assert port_registry.ladder("serve_decode")[0] == "paged_decode_sharded"
     assert port_registry.ladder("serve_decode") == RUNGS
     assert set(port_registry.decisions()) == set(jax_registry.decisions()) - {"ffa_lowering"}
     for decision, keys in port_registry.PIN_KEYS.items():

@@ -1037,3 +1037,146 @@ def tile_cp_worker(rank: int, world: int, init_file: str, out_dir: str, cases: l
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the staged (overlapped) backward (tests/test_torch_overlap.py): the JAX
+# package's tests/test_support/test_template_mla.py widths at cp 4
+# ---------------------------------------------------------------------------
+
+OVERLAP_DEGREE = 2
+OVERLAP_NAMES = ("out", "lse", "dq", "dk", "dv")
+PRECISION_BF16 = {"MAGI_ATTENTION_PRECISION": "bf16"}
+
+
+def overlap_config(pkg):
+    """The overlap config of the staged cases (degree 2, chunks of 16), of
+    the port (``pkg`` its ``config`` module) or of the JAX package."""
+    return pkg.DistAttnConfig(
+        overlap_config=pkg.OverlapConfig(degree=OVERLAP_DEGREE, min_chunk_size=HIER_CHUNK)
+    )
+
+
+def _runtime_fwd_bwd(rt, arrays, dist_attn_func=None):
+    """(out, lse, dq, dk, dv) of this rank's dispatched numpy ``arrays``
+    (q, k, v, dO rows) through ``rt.calc_attn`` (or ``dist_attn_func``
+    over ``rt``), the backward of ``sum(out * dO)``."""
+    import torch
+
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays[:3]]
+    if dist_attn_func is None:
+        out, lse = rt.calc_attn(*leaves)
+    else:
+        out, lse = dist_attn_func(*leaves, rt)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(arrays[3]).to(out.dtype))
+    return [t.detach().float().numpy() for t in (out, lse, *grads)]
+
+
+class _SkippedWait:
+    """A stage's cast whose receive buffer is read as it was before the
+    rows landed (zeros): the transfer runs to its end, into another
+    buffer, and the wait the runtime calls does nothing."""
+
+    def __init__(self, plan) -> None:
+        self.plan = plan
+
+    def __getattr__(self, name):
+        return getattr(self.plan, name)
+
+    def cast_start(self, x, group, out_dtype):
+        buf, wait = self.plan.cast_start(x, group, out_dtype)
+        wait()
+        return buf.new_zeros(buf.shape), lambda: None
+
+
+def overlap_worker(rank: int, world: int, init_file: str, out_dir: str, masks: list) -> None:
+    """One rank of a gloo world of 4: for each mask, the runtime of a
+    degree-2 plan run with the staged backward and with every reduce after
+    every part's backward (``staged_backward=False``), flat and two-level
+    at (dcn 2, ici 2), each with and without the high-precision reduce;
+    ``dist_attn_func`` with MAGI_ATTENTION_PRECISION unset and bf16;
+    ``assert_overlap_safe`` on the plan and with one stage's wait skipped;
+    ``get_mesh`` of a mesh key and of a ``cp_group`` key. Results (this
+    rank's dispatched rows) to ``out_dir/<mask>_<rank>.npz``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api, config
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.functional.dist_attn import dist_attn_func
+    from magiattention_tpu_torch.parallel import ProcessMesh
+    from magiattention_tpu_torch.testing import template
+
+    try:
+        mesh = ProcessMesh(np.arange(4).reshape(2, 2), ("dcn", "ici"))
+        pair = ("dcn", "ici")
+        for mask in masks:
+            qr, kr, tm = HIER_MASKS[mask]
+
+            def key_of(**kw):
+                return api.magi_attn_flex_key(qr, kr, tm, HIER_SEQ, HIER_SEQ, device="cpu",
+                                              chunk_size=HIER_CHUNK,
+                                              dist_attn_config=overlap_config(config), **kw)
+
+            key_f = key_of(cp_group=dist.group.WORLD)
+            with _env(HIER_FLAG):
+                key_h = key_of(mesh=mesh, cp_axis=pair)
+            arrays = [api.dispatch(torch.from_numpy(a), key_f, role=role).numpy()
+                      for a, role in zip(hier_inputs(), ("qo", "kv", "kv", "qo"))]
+            res = {}
+            for comm, key in (("flat", key_f), ("hier", key_h)):
+                rt = _mgr(key).runtime
+                assert rt.use_overlap and rt.num_stages == OVERLAP_DEGREE and rt.hier == (comm == "hier")
+                for hp, env in (("", {}), ("_hp", HP_FLAG)):
+                    with _env(env):
+                        for staged in (True, False):
+                            rt.staged_backward = staged
+                            got = _runtime_fwd_bwd(rt, arrays)
+                            tag = f"{comm}{hp}_{'staged' if staged else 'unstaged'}"
+                            res.update({f"{tag}_{n}": a for n, a in zip(OVERLAP_NAMES, got)})
+                rt.staged_backward = True
+            rt = _mgr(key_f).runtime
+            for tag, env in (("func", {}), ("func_bf16", PRECISION_BF16)):
+                with _env(env):
+                    got = _runtime_fwd_bwd(rt, arrays, dist_attn_func)
+                res.update({f"{tag}_{n}": a for n, a in zip(OVERLAP_NAMES, got)})
+            # the overlap-safety check: on the plan, then with the last
+            # stage's wait skipped in the overlapped runtime alone
+            mgr = _mgr(key_f)
+            q, k, v, do = (torch.from_numpy(a) for a in arrays)
+            template.assert_overlap_safe(mgr.comm_meta, mgr.calc_meta, dist.group.WORLD, q, k, v,
+                                         do=do)
+            real = template.DistAttnRuntime
+
+            def skipping(*args, use_overlap=None, **kw):
+                runtime = real(*args, use_overlap=use_overlap, **kw)
+                if use_overlap:
+                    runtime.cast_plans[-1] = _SkippedWait(runtime.cast_plans[-1])
+                return runtime
+
+            template.DistAttnRuntime = skipping
+            try:
+                template.assert_overlap_safe(mgr.comm_meta, mgr.calc_meta, dist.group.WORLD,
+                                             q, k, v, do=do, iters=1)
+                res["skipped_wait_error"] = ""
+            except AssertionError as e:
+                res["skipped_wait_error"] = str(e)
+            finally:
+                template.DistAttnRuntime = real
+            # get_mesh: a mesh key's own mesh; a one-axis mesh over a
+            # cp_group key's group
+            m_h, m_f = api.get_mesh(key_h), api.get_mesh(key_f)
+            res.update(
+                mesh_is_keys=m_h is mesh, group_mesh_shape=np.asarray(m_f.shape["cp"]),
+                group_mesh_line=np.asarray(m_f.line("cp")), group_mesh_coord=m_f.coord("cp"),
+                group_mesh_group=m_f.group("cp") is dist.group.WORLD,
+                group_mesh_cached=api.get_mesh(key_f) is m_f,
+            )
+            np.savez(os.path.join(out_dir, f"{mask}_{rank}.npz"), **res)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
