@@ -133,12 +133,24 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     weights, 8192 packed tokens in two causal documents: 3 SGD steps
     unpinned (the model resolves fused), one under the split pin, one
     under the GQA pack flags with the split pin and one under the pack
-    flags unpinned; launch counts per step, one step under
-    ``torch.profiler``, and a kernel-vs-plain check of loss and gradients
+    flags unpinned; one step's loss and gradients with ``remat=True``
+    against the same without (B1 twice a layer, each run's peak memory);
+    launch counts per step, one step under ``torch.profiler`` (device ms
+    by kernel family), and a kernel-vs-plain check of loss and gradients
     at 2048 tokens. ``train_padded``: the same model on 8000 tokens in two
     documents padded to 8192 (``compute_pad_size``, ``apply_padding``,
     ``pad_at_dim``), one step, its loss against the unpadded step's and
-    the pad rows' attention 0.
+    the pad rows' attention 0. ``moe``: ``models.moe`` at Mixtral-8x7B's
+    widths (2 of 32 layers, 8 experts top-2, capacity factor 1.25) on the
+    same 8192 tokens at cp 1: three ``moe_train_step``s (B1, B7, B8/B9 a
+    layer a step), step ms, tokens/s, a profiled step; the routed FFN
+    against ``moe_ffn_reference`` at capacity 8 in both dtypes, and loss
+    and gradients against the plain attention path at 2048 tokens in
+    float32 (bf16 reported). ``video_dit``: ``models.video_dit`` at
+    DiT-XL's widths (head dim 72, padded to the 128-wide instances), 32
+    frames of 256 tokens under the block-causal video mask: three AdamW
+    steps, step ms, tokens/s, a profiled step, and loss and gradients
+    against the dense float32 twin at 8 frames.
 11. ``d256_kernels``: each family's 256 instance (the column split) timed
     against its plain version and bound: B1 bf16 at Gemma-2-9B's attention
     against SDPA with B2 (packed, 2 heads a CTA) on the same inputs, B1
@@ -165,7 +177,8 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 13. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase plus qo_comm, cp_baselines and usp_nsa, error,
     kernel / plain / library time and the card's bound; launches also
-    from cp_hier_tp, decode_sharded and serve_int8's spec pass).
+    from cp_hier_tp, decode_sharded, serve_int8's spec pass, the remat
+    step, moe and video_dit).
 
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -183,10 +196,15 @@ runtime at overlap degree 1 (merged), 1 with overlap forced, 2 and 4
 under deterministic mode, ``assert_overlap_safe``, both orders' ms);
 each collective of a degree-2 plan alone per stage (``collectives``:
 GroupCast, GroupReduce bf16 and float32, the two-level phases A and B);
-then, in the parent process, ``ServeEngine`` at ``decode_shards`` 2 and
-4 over the cards, equal to the one-card engine's rows to the bit
-(``cp4_sharded_engine``); the four cards' ``name, power.limit`` lines
-and the same last line.
+then ``cp4_moe_ep``: the ``moe`` phase's model at cp 4 = ep 4 (two
+experts a card; one layer, float32, capacity factor 8, held against a
+cp 1 run of the same weights; then bf16 at the default capacity: three
+steps, each loss the sum of the ranks' shares, step ms, one slot
+exchange's ms) and ``cp4_video_dit`` (the ``video_dit`` phase's model at
+cp 4 against cp 1, step ms); then, in the parent process,
+``ServeEngine`` at ``decode_shards`` 2 and 4 over the cards, equal to the
+one-card engine's rows to the bit (``cp4_sharded_engine``); the four
+cards' ``name, power.limit`` lines and the same last line.
 
 Bounds use the card's data-sheet peaks (H100 SXM: 989 TFLOP/s bf16 and
 494.7 TFLOP/s TF32 dense tensor cores, 67 TFLOP/s float32 CUDA cores,
@@ -1307,13 +1325,19 @@ def tiles_smem_check() -> dict:
 def sweep_grad_check(name: str, got, want, dtype: str) -> dict:
     """:func:`grad_check` for the instance sweep's gradients: bf16 at its
     gates; float32 within 1e-5 of the larger of 1 and the plain version's
-    largest magnitude (dk/dv sum up to 600 products a key row here, values
-    of a few units, where float32 sums in two orders differ by more than
-    1e-5 absolute), and rel-norm 1e-5."""
-    import torch
-
+    largest magnitude (:func:`scaled_check`: dk/dv sum up to 600 products
+    a key row here, values of a few units, where float32 sums in two
+    orders differ by more than 1e-5 absolute), and rel-norm 1e-5."""
     if dtype == "bfloat16":
         return grad_check(name, got, want, dtype)
+    return scaled_check(name, got, want, dtype)
+
+
+def scaled_check(name: str, got, want, dtype: str) -> dict:
+    """:func:`grad_check` with the absolute gate taken of the larger of 1
+    and the reference's largest magnitude, rel-norm as is."""
+    import torch
+
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel result is not finite")
     a, b = got.double(), want.double()
@@ -1325,8 +1349,7 @@ def sweep_grad_check(name: str, got, want, dtype: str) -> dict:
     }
     if not (err["max_abs_err"] <= ATOL[dtype] * scale and err["rel_norm_err"] <= RNORM[dtype]):
         raise AssertionError(
-            f"{name}: kernel vs plain {err} beyond atol {ATOL[dtype]} x {scale}, "
-            f"rel-norm {RNORM[dtype]}"
+            f"{name}: {err} beyond atol {ATOL[dtype]} x {scale}, rel-norm {RNORM[dtype]}"
         )
     return err
 
@@ -2969,6 +2992,7 @@ def _profile_summary(events, wall: float) -> dict:
     return dict(
         wall_s=wall, device_busy_s=busy_s,
         idle_share=1.0 - busy_s / wall if wall > 0 else None,
+        device_ms_by_family=device_ms_by_family(events, busy_s * 1e3),
         decode_device_ms=sum(us for us, _ in decode) / 1e3,
         decode_launches=sum(c for _, c in decode),
         forward_device_ms=sum(us for us, _ in forward) / 1e3,
@@ -2978,6 +3002,42 @@ def _profile_summary(events, wall: float) -> dict:
             for k, us, c in kernels[:12]
         ],
     )
+
+
+# the host ops whose own kernels make up a family of ``device_ms_by_family``
+BMM_OPS = ("aten::bmm",)
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::linear")
+INDEX_OPS = (
+    "aten::sort", "aten::topk", "aten::cumsum", "aten::one_hot", "aten::scatter",
+    "aten::scatter_", "aten::gather", "aten::index", "aten::index_select", "aten::index_add_",
+    "aten::index_put_", "aten::_index_put_impl_", "aten::scatter_add_", "aten::embedding",
+)
+
+
+def device_ms_by_family(events, busy_ms: float) -> dict:
+    """Device ms of a profile by kernel family: the port's FFA kernels (by
+    kernel name), the kernels that ``aten::bmm`` launched itself (the MoE's
+    expert products, forward and backward), the other matrix products
+    (``aten::mm``/``addmm``), the routing and index ops (sort, cumsum,
+    one_hot, scatter, gather, index and their backward) and the rest
+    (elementwise, norms, softmax, the loss, collectives). A host op's own
+    (self) device time holds the kernels it launched and not its children's."""
+    fam = dict(ffa=0.0, expert_gemm=0.0, other_gemm=0.0, routing_index=0.0)
+    for e in events:
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if not us:
+            continue
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            if "ffa_" in e.key or "scale_kernel" in e.key:  # scale_kernel: B8/B9's dq epilogue
+                fam["ffa"] += us / 1e3
+        elif e.key in BMM_OPS:
+            fam["expert_gemm"] += us / 1e3
+        elif e.key in GEMM_OPS:
+            fam["other_gemm"] += us / 1e3
+        elif e.key in INDEX_OPS:
+            fam["routing_index"] += us / 1e3
+    fam["rest"] = busy_ms - sum(fam.values())
+    return fam
 
 
 def serve_profile(model, config, make_requests) -> dict:
@@ -4541,18 +4601,12 @@ def train_phase() -> dict:
         0, cfg.vocab_size, (TRAIN_SEQ,), generator=gen, device="cuda"
     )
 
-    def labels_of(tok, doc):
-        """Next token; -100 (ignored) at each document's end."""
-        labels = torch.roll(tok, -1).clone()
-        labels[doc - 1 :: doc] = -100
-        return labels
-
     def key_of(seq, doc, **env):
         docs = _docs(seq, doc)
         with scoped_env(env):
             return api.magi_attn_flex_key(docs, docs, [1] * len(docs), seq, seq)
 
-    labels = labels_of(tokens, TRAIN_DOC)
+    labels = next_token_labels(tokens, TRAIN_DOC)
     key = key_of(TRAIN_SEQ, TRAIN_DOC)
     runtime = _mgr(key).runtime
     model_mode = ffa_bwd_mode(
@@ -4608,12 +4662,13 @@ def train_phase() -> dict:
         step(TRAIN_STEPS + 2, PACK, ("ffa_fwd_gqa", "ffa_bwd_delta", "ffa_bwd_fused")),
     ]
     packed_counts = launch_counts()
+    remat = remat_check(params, cfg, tokens, labels, key)
 
     prof = profile_run(lambda: train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR))
 
     # kernels against the plain path, same weights and tokens
     tok2 = tokens[:CHECK_SEQ]
-    lab2 = labels_of(tok2, CHECK_DOC)
+    lab2 = next_token_labels(tok2, CHECK_DOC)
     loss_k, g_k = value_and_grad(params, cfg, tok2, lab2, key_of(CHECK_SEQ, CHECK_DOC))
     plain_env = {"MAGI_ATTENTION_KERNEL_BACKEND": "sdpa"}
     with scoped_env(plain_env):
@@ -4621,15 +4676,11 @@ def train_phase() -> dict:
             params, cfg, tok2, lab2, key_of(CHECK_SEQ, CHECK_DOC, **plain_env)
         )
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    grad_rn = {
-        n: ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
-        for n, a, b in zip(param_names(params), g_k, g_p)
-    }
-    worst = max(grad_rn, key=grad_rn.get)
-    if loss_rel > TRAIN_LOSS_RTOL or grad_rn[worst] > TRAIN_GRAD_RNORM:
+    worst, worst_rn, _ = grads_rel_norm(param_names(params), g_k, g_p)
+    if loss_rel > TRAIN_LOSS_RTOL or worst_rn > TRAIN_GRAD_RNORM:
         raise AssertionError(
             f"train: kernels vs plain loss rel {loss_rel:.3e}, worst gradient "
-            f"{worst} rel-norm {grad_rn[worst]:.3e} beyond {TRAIN_LOSS_RTOL}, "
+            f"{worst} rel-norm {worst_rn:.3e} beyond {TRAIN_LOSS_RTOL}, "
             f"{TRAIN_GRAD_RNORM}"
         )
     del g_k, g_p
@@ -4650,16 +4701,383 @@ def train_phase() -> dict:
         split_launches={k: split_counts[k] for k in FFA_KERNELS},
         packed_launches={k: packed_counts[k] for k in FFA_KERNELS},
         plain_calls={k: fused_counts[k] for k in PLAIN_NAMES},
-        peak_memory_gb=peak_gb, profile_step=prof,
+        peak_memory_gb=peak_gb, remat=remat, profile_step=prof,
         check=dict(
             tokens=CHECK_SEQ, documents=CHECK_SEQ // CHECK_DOC,
             loss_kernels=loss_k.item(), loss_plain=loss_p.item(),
             loss_rel_err=loss_rel, worst_grad=worst,
-            worst_grad_rel_norm_err=grad_rn[worst],
+            worst_grad_rel_norm_err=worst_rn,
             loss_rtol=TRAIN_LOSS_RTOL, grad_rnorm=TRAIN_GRAD_RNORM,
         ),
     )
     emit({"phase": "train", **res})
+    return res
+
+
+def remat_check(params, cfg, tokens, labels, key) -> dict:
+    """One step's loss and gradients (``value_and_grad``) with
+    ``cfg.remat`` (each layer recomputed in the backward) against the same
+    without it: loss rel and every gradient's rel-norm within the bf16
+    gate, B1 twice per layer (the recompute), and each run's peak memory
+    above what was allocated when it started and its ms (host clock
+    around a synchronize, one sample each)."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import launch_counts
+    from magiattention_tpu_torch.models.llama import param_names, value_and_grad
+
+    runs = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        t1 = time.perf_counter()
+        runs[remat] = value_and_grad(params, dataclasses.replace(cfg, remat=remat), tokens,
+                                     labels, key)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        after = launch_counts()
+        runs[remat] += ((torch.cuda.max_memory_allocated() - start) / 1e9, ms,
+                        {k: after[k] - before[k] for k in after if after[k] != before[k]})
+    (loss_a, g_a, mem_a, ms_a, _), (loss_r, g_r, mem_r, ms_r, launches) = runs[False], runs[True]
+    loss_rel = abs(loss_r.item() - loss_a.item()) / abs(loss_a.item())
+    worst, worst_rn, _ = grads_rel_norm(param_names(params), g_r, g_a)
+    max_diff = max((a.double() - b.double()).abs().max().item() for a, b in zip(g_r, g_a))
+    if launches.get("ffa_fwd") != 2 * cfg.n_layers:
+        raise AssertionError(f"train remat: B1 launched {launches}, want twice per layer")
+    if loss_rel > RNORM["bfloat16"] or worst_rn > RNORM["bfloat16"]:
+        raise AssertionError(
+            f"train remat: loss rel {loss_rel:.3e}, gradient {worst} rel-norm "
+            f"{worst_rn:.3e} beyond {RNORM['bfloat16']}")
+    del g_a, g_r
+    torch.cuda.empty_cache()
+    return dict(loss=loss_r.item(), loss_no_remat=loss_a.item(), loss_rel_err=loss_rel,
+                worst_grad=worst, worst_grad_rel_norm_err=worst_rn,
+                max_abs_grad_diff=max_diff, launches=launches,
+                peak_gb_above_start=mem_r, peak_gb_above_start_no_remat=mem_a,
+                ms=ms_r, ms_no_remat=ms_a)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and video DiT families on one card
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1 config.json: hidden 4096, 32 heads, 8 kv
+# heads (head dim 128), intermediate 14336, 8 local experts, 2 a token,
+# vocab 32000, rope_theta 1e6, rms_norm_eps 1e-5; depth cut to 2 of 32
+MOE_WIDTHS = dict(vocab_size=32000, dim=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+                  ffn_hidden=14336, rope_theta=1e6, norm_eps=1e-5, n_experts=8, top_k=2)
+# DiT-XL (arXiv:2212.09748, Table 1): hidden 1152, 16 heads (head dim 72),
+# MLP 4 x 1152 (the family's SwiGLU hidden), 2 of 28 layers; latents of
+# 256 x 256 frames at patch 2: 4 channels x 2 x 2 = in_dim 16, 256 tokens
+# a frame; 32 frames = 8192 tokens, every frame seeing all earlier ones
+DIT_WIDTHS = dict(dim=1152, n_heads=16, n_kv_heads=16, head_dim=72, ffn_hidden=4608, in_dim=16,
+                  tokens_per_frame=256, num_frames=32, window_frames=32)
+DIT_CHECK_FRAMES = 8  # the dense twin's (seqlen, seqlen) mask at 2048 tokens
+# the small widths of ``cp4_main("cpu")``, the four ranks' rehearsal over gloo
+MOE_SMALL = dict(vocab_size=256, dim=64, n_heads=4, n_kv_heads=2, head_dim=16, ffn_hidden=96,
+                 n_experts=8, top_k=2)
+DIT_SMALL = dict(dim=64, n_heads=2, n_kv_heads=2, head_dim=24, ffn_hidden=128, in_dim=8,
+                 tokens_per_frame=64, num_frames=8, window_frames=8)
+DIT_TS = (0.25, 0.5, 0.75)  # diffusion times of the three steps
+# float32 model-level gates (the MoE through the kernels against the plain
+# attention path, and at cp 4 = ep 4 against cp 1): loss rel, gradients
+# rel-norm; an H100 reads 0-9e-8 and 5e-6-8e-6 there
+F32_LOSS_RTOL, F32_GRAD_RNORM = 1e-5, 1e-4
+
+
+def moe_config(on_card: bool, **kw):
+    from magiattention_tpu_torch.models.moe import MoEConfig
+
+    widths = MOE_WIDTHS if on_card else MOE_SMALL
+    return MoEConfig(**{**widths, "n_layers": TRAIN_LAYERS, "dtype": "bfloat16", **kw})
+
+
+def dit_config(on_card: bool, **kw):
+    from magiattention_tpu_torch.models.video_dit import VideoDiTConfig
+
+    widths = DIT_WIDTHS if on_card else DIT_SMALL
+    return VideoDiTConfig(**{**widths, "n_layers": TRAIN_LAYERS, "dtype": "bfloat16", **kw})
+
+
+def next_token_labels(tok, doc: int):
+    """Next token; -100 (ignored) at each document's end."""
+    import torch
+
+    labels = torch.roll(tok, -1).clone()
+    labels[doc - 1 :: doc] = -100
+    return labels
+
+
+def grads_rel_norm(names, got, want) -> tuple[str, float, dict]:
+    """(the worst name, its rel-norm error, every rel-norm error)."""
+    rn = {
+        n: ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+        for n, a, b in zip(names, got, want)
+    }
+    worst = max(rn, key=rn.get)
+    return worst, rn[worst], rn
+
+
+def step_launches(what: str, launches: dict, n_layers: int) -> str:
+    """The FFA launches of one training step: B1 and B7 once per layer, and
+    one backward mode's kernels once per layer (fused B8/B9, or split B3 +
+    B5/B6), no packed kernel and no plain version. Returns the mode."""
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES
+
+    mode = "fused" if launches.get("ffa_bwd_fused") else "split"
+    want = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(mode))
+    others = set(FFA_KERNELS) - set(want)
+    if any(launches.get(k, 0) != n_layers for k in want) or any(launches.get(k) for k in others):
+        raise AssertionError(f"{what}: launched {launches}, want {n_layers} of each of {want}")
+    if any(launches.get(k) for k in PLAIN_NAMES):
+        raise AssertionError(f"{what}: a plain version ran on the card: {launches}")
+    return mode
+
+
+def timed_steps(what: str, step, n: int, tokens: int, n_layers: int):
+    """``n`` calls of ``step(i)`` (returning a loss tensor), each timed on
+    the host clock around a synchronize, its FFA launches asserted
+    (:func:`step_launches`). Returns (records, launches summed, mode)."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import launch_counts
+
+    recs, total, mode = [], {}, None
+    for i in range(n):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = step(i).item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        after = launch_counts()
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if not np.isfinite(loss):
+            raise AssertionError(f"{what}: step {i} loss {loss} is not finite")
+        mode = step_launches(f"{what} step {i}", launches, n_layers)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        recs.append(dict(step=i, loss=loss, ms=ms, tokens_per_s=tokens / (ms * 1e-3)))
+        emit({"phase": f"{what}_step", **recs[-1], "launches": launches})
+    return recs, total, mode
+
+
+def route_picks(fn):
+    """``fn()``'s result and the top-k expert picks of each ``moe._route``
+    call it made (one ``(S, K)`` tensor a layer, in call order)."""
+    from magiattention_tpu_torch.models import moe
+
+    picks, route = [], moe._route
+
+    def recording(h32, router_w, cfg):
+        picks.append(moe._top_k(h32 @ router_w, cfg.top_k)[1])
+        return route(h32, router_w, cfg)
+
+    moe._route = recording
+    try:
+        return fn(), picks
+    finally:
+        moe._route = route
+
+
+def moe_phase() -> dict:
+    """``models.moe`` at Mixtral-8x7B's widths (2 of 32 layers, bf16 over
+    float32 masters, seed 0) on ``TRAIN_SEQ`` tokens in two causal
+    documents at cp 1, no EP, capacity factor 1.25: three
+    ``moe_train_step``s (finite losses; one B1, B7 and B8/B9 a layer a
+    step, no plain version), step ms and tokens/s after the first, one step
+    under ``torch.profiler`` (device ms by kernel family). Gates, on the
+    seed-0 weights before the steps (whose dq atomics would move the
+    weights, and so near-tied picks, from run to run): the routed FFN of
+    one full-width layer against ``moe_ffn_reference`` at capacity factor
+    8 on ``CHECK_SEQ`` rows in float32 and bf16; and the model's loss and
+    gradients through the kernels against the plain attention path
+    (``MAGI_ATTENTION_KERNEL_BACKEND=sdpa``) at ``CHECK_SEQ`` tokens, each
+    layer's count of (token, choice) expert picks that differ between the
+    two runs reported: in float32 no pick may move, loss and gradients at
+    ``F32_LOSS_RTOL`` and ``F32_GRAD_RNORM``; in bf16 the loss at the
+    train gate, the gradients at the train gates only where no pick moved
+    (routing is a step function of the hidden state, and a pick moved by
+    the two attention paths' bf16 roundings changes the gradients by more
+    than a rounding)."""
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.kernels import reset_launch_counts
+    from magiattention_tpu_torch.models import moe
+
+    device, seq, check_seq = "cuda", TRAIN_SEQ, CHECK_SEQ
+    cfg = moe_config(True)
+    t0 = time.perf_counter()
+    params = moe.init_moe_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (seq,), generator=gen, device=device)
+    labels = next_token_labels(tokens, seq // 2)
+    docs = _docs(seq, seq // 2)
+    key = api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, device=device)
+    n_params = sum(p.numel() for p in moe.LAYOUT.leaves(params))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the routed FFN of one full-width layer against the dense reference
+    lyr = params["layers"][0]
+    h = torch.randn((check_seq, cfg.dim), generator=gen, device=device)
+    ffn = {}
+    for dname in ("float32", "bfloat16"):
+        c8 = dataclasses.replace(cfg, capacity_factor=8.0, dtype=dname)
+        hd = h.to(getattr(torch, dname))
+        with torch.no_grad():
+            y, _ = moe.moe_ffn(hd, lyr, c8)
+            ref = moe.moe_ffn_reference(hd, lyr, c8)
+        ffn[dname] = scaled_check(f"moe ffn {dname}", y.float(), ref.float(), dname)
+    del h, y, ref
+
+    # the model through the kernels against the plain attention path
+    tok2 = tokens[:check_seq]
+    lab2 = next_token_labels(tok2, check_seq // 2)
+    docs2 = _docs(check_seq, check_seq // 2)
+    names = moe.LAYOUT.names(params)
+    gates = {"float32": (F32_LOSS_RTOL, F32_GRAD_RNORM),
+             "bfloat16": (TRAIN_LOSS_RTOL, TRAIN_GRAD_RNORM)}
+    check = {}
+    for dname, (loss_gate, grad_gate) in gates.items():
+        c = dataclasses.replace(cfg, dtype=dname)
+        key_k = api.magi_attn_flex_key(docs2, docs2, [1, 1], check_seq, check_seq, device=device)
+        (loss_k, g_k), picks_k = route_picks(
+            lambda: moe.moe_value_and_grad(params, c, tok2, lab2, key_k))
+        with scoped_env({"MAGI_ATTENTION_KERNEL_BACKEND": "sdpa"}):
+            key_p = api.magi_attn_flex_key(docs2, docs2, [1, 1], check_seq, check_seq,
+                                           device=device)
+            (loss_p, g_p), picks_p = route_picks(
+                lambda: moe.moe_value_and_grad(params, c, tok2, lab2, key_p))
+        moved = [int((a != b).sum().item()) for a, b in zip(picks_k, picks_p)]
+        loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        worst, worst_rn, rn = grads_rel_norm(names, g_k, g_p)
+        grads_gated = dname == "float32" or not any(moved)
+        ok = loss_rel <= loss_gate and (worst_rn <= grad_gate or not grads_gated)
+        check[dname] = dict(loss_kernels=loss_k.item(), loss_plain=loss_p.item(),
+                            loss_rel_err=loss_rel, loss_gate=loss_gate, worst_grad=worst,
+                            worst_grad_rel_norm_err=worst_rn, grad_gate=grad_gate,
+                            grads_beyond_gate=sum(v > grad_gate for v in rn.values()),
+                            picks_moved_by_layer=moved, picks_a_layer=picks_k[0].numel(),
+                            grads_gated=grads_gated)
+        if not ok or (dname == "float32" and any(moved)):
+            raise AssertionError(
+                f"moe {dname}: kernels vs plain loss rel {loss_rel:.3e}, worst gradient {worst} "
+                f"rel-norm {worst_rn:.3e} beyond {loss_gate}, {grad_gate} "
+                f"(expert picks moved by layer {moved})")
+        del g_k, g_p
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step(i):
+        return moe.moe_train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR)[1]
+
+    reset_launch_counts()
+    steps, launches, mode = timed_steps("moe", step, TRAIN_STEPS, seq, cfg.n_layers)
+    if mode != "fused":
+        raise AssertionError(f"moe: the unpinned backward resolved {mode}, want fused")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_run(lambda: step(0))
+
+    res = dict(
+        model=("Mixtral-8x7B widths (mistralai/Mixtral-8x7B-v0.1 config.json: hidden 4096, "
+               "32/8 heads, head_dim 128, intermediate 14336, 8 experts top-2, vocab 32000, "
+               f"rope_theta 1e6), {cfg.n_layers} of 32 layers, bf16 over float32 masters, "
+               "seed 0, aux_loss_coef 0.01"),
+        params=n_params, tokens=seq, documents=2, capacity_factor=cfg.capacity_factor,
+        attention="api: magi_attn_flex_key (cp 1) -> dispatch -> calc_attn per layer",
+        bwd_mode=mode, setup_s=setup_s, steps=steps, losses=[r["loss"] for r in steps],
+        step_ms_after_first=[r["ms"] for r in steps[1:]],
+        tokens_per_s_after_first=[r["tokens_per_s"] for r in steps[1:]],
+        launches=launches, peak_memory_gb=peak_gb, profile_step=prof,
+        ffn_vs_reference=dict(tokens=check_seq, capacity_factor=8.0, **ffn),
+        check=dict(tokens=check_seq, **check),
+    )
+    emit({"phase": "moe", **res})
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def video_dit_phase() -> dict:
+    """``models.video_dit`` at DiT-XL's transformer widths (2 of 28
+    layers, head dim 72 through ``kernels/head_dims.py``'s padding to the
+    128-wide instances, bf16 over float32 masters, seed 0) on 32 frames of
+    256 tokens under the Magi-1 block-causal mask (``window_frames`` 32)
+    at cp 1: three AdamW steps through ``make_optim_train_step`` (finite
+    losses; B1, B7 and one backward mode a layer a step), step ms,
+    tokens/s, one step under ``torch.profiler``; loss and gradients
+    against ``loss_fn_dense`` (dense float32 attention over the boolean
+    mask) at 8 frames, in the train gates."""
+    import torch
+
+    from magiattention_tpu_torch.kernels import reset_launch_counts
+    from magiattention_tpu_torch.kernels.head_dims import kernel_head_dim
+    from magiattention_tpu_torch.models import video_dit
+    from magiattention_tpu_torch.models.llama import tree_value_and_grad
+
+    device = "cuda"
+    cfg = dit_config(True)
+    width = kernel_head_dim(cfg.head_dim)
+    if width != 128:
+        raise AssertionError(f"video_dit: head dim {cfg.head_dim} runs at {width}, want 128")
+    t0 = time.perf_counter()
+    params = video_dit.init_params(cfg, seed=0, device=device)
+    key = video_dit.make_video_attn_key(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    clean, noise = (torch.randn((cfg.seqlen, cfg.in_dim), generator=gen, device=device)
+                    for _ in range(2))
+    optim = torch.optim.AdamW(video_dit.param_list(params), lr=TRAIN_LR)
+    step_fn = video_dit.make_optim_train_step(cfg, key, optim)
+    setup_s = time.perf_counter() - t0
+
+    def step(i):
+        return step_fn(params, clean, noise, DIT_TS[i % len(DIT_TS)])[1]
+
+    reset_launch_counts()
+    steps, launches, mode = timed_steps("video_dit", step, TRAIN_STEPS, cfg.seqlen, cfg.n_layers)
+    prof = profile_run(lambda: step(0))
+
+    # against the dense twin at fewer frames
+    c8 = dataclasses.replace(cfg, num_frames=DIT_CHECK_FRAMES)
+    p8 = video_dit.init_params(c8, seed=1, device=device)
+    clean8, noise8 = clean[:c8.seqlen], noise[:c8.seqlen]
+    key8 = video_dit.make_video_attn_key(c8, device=device)
+    loss_k, g_k = video_dit.value_and_grad(p8, c8, clean8, noise8, DIT_TS[0], key8)
+    mask = torch.from_numpy(video_dit.dense_video_mask(c8)).to(device)
+    loss_d, g_d = tree_value_and_grad(
+        lambda live: video_dit.loss_fn_dense(live, c8, clean8, noise8, DIT_TS[0], mask), p8,
+        video_dit.LAYOUT)
+    loss_rel = abs(loss_k.item() - loss_d.item()) / abs(loss_d.item())
+    worst, worst_rn, _ = grads_rel_norm(video_dit.param_names(p8), g_k, g_d)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst_rn <= TRAIN_GRAD_RNORM):
+        raise AssertionError(
+            f"video_dit: CP vs dense loss rel {loss_rel:.3e}, worst gradient {worst} rel-norm "
+            f"{worst_rn:.3e} beyond {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_RNORM}")
+    del g_k, g_d, p8, mask
+    res = dict(
+        model=("DiT-XL transformer widths (arXiv:2212.09748 Table 1: hidden 1152, 16 heads, "
+               "head_dim 72, MLP 4608 as the SwiGLU hidden), 2 of 28 layers, bf16 over float32 "
+               "masters, seed 0"),
+        frames=cfg.num_frames, tokens_per_frame=cfg.tokens_per_frame, tokens=cfg.seqlen,
+        window_frames=cfg.window_frames, head_dim=cfg.head_dim, kernel_head_dim=width,
+        optimizer="torch.optim.AdamW lr 1e-4", bwd_mode=mode, setup_s=setup_s, steps=steps,
+        losses=[r["loss"] for r in steps],
+        step_ms_after_first=[r["ms"] for r in steps[1:]],
+        tokens_per_s_after_first=[r["tokens_per_s"] for r in steps[1:]],
+        launches=launches, profile_step=prof,
+        check=dict(frames=c8.num_frames, tokens=c8.seqlen, loss_cp=loss_k.item(),
+                   loss_dense=loss_d.item(), loss_rel_err=loss_rel, worst_grad=worst,
+                   worst_grad_rel_norm_err=worst_rn, loss_rtol=TRAIN_LOSS_RTOL,
+                   grad_rnorm=TRAIN_GRAD_RNORM),
+    )
+    emit({"phase": "video_dit", **res})
+    del params, optim
+    torch.cuda.empty_cache()
     return res
 
 
@@ -6129,6 +6547,245 @@ def cp4_sharded_engine() -> dict:
     return res
 
 
+def moe_ep_reference(params, cfg, tokens, labels, key1, keys) -> tuple[list, float]:
+    """What the one-layer MoE at cp = ep should give under each key of
+    ``keys`` (one cp group, experts over its cp axis), from one cp 1 pass
+    of the model on this card. Under a key, each rank's aux is the Switch
+    aux of the rows of cp 1's MoE input that the key dispatches to it: the
+    loss is cp 1's cross entropy plus ``aux_loss_coef`` x the group mean
+    of the ranks' aux, the gradients cp 1's cross entropy's plus
+    ``aux_loss_coef / cp`` x the group sum of the ranks' aux gradients.
+    Returns ([(loss, gradients in ``LAYOUT.leaves`` order, aux) a key],
+    the first key's aux term's direct router gradient, summed over the
+    group, as a rel-norm of its whole router gradient: how much of that
+    gradient the aux path holds)."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.models import moe
+    from magiattention_tpu_torch.models.llama import _rms_norm, attn_block, masked_ce
+
+    group, cp, coef = keys[0].cp_group, keys[0].cp_size, cfg.aux_loss_coef
+    leaves = [p.detach().requires_grad_(True) for p in moe.LAYOUT.leaves(params)]
+    live = moe.LAYOUT.rebuild(leaves, 1)
+    lyr = live["layers"][0]
+    x = live["embed"][api.dispatch(tokens, key1).long()]
+    x = attn_block(x, lyr, cfg, api.get_position_ids(key1), key1)
+    h = _rms_norm(x, lyr["mlp_norm"], cfg.norm_eps)
+    y, _ = moe.moe_ffn(h, lyr, cfg)
+    logits = _rms_norm(x + y, live["final_norm"], cfg.norm_eps) @ live["lm_head"]
+    ce = masked_ce(logits, api.dispatch(labels, key1))
+    h_nat = api.undispatch(h, key1)
+    shards = []
+    for key in keys:
+        mine = h_nat.index_select(
+            0, api.dispatch(torch.arange(tokens.shape[0], device=tokens.device), key))
+        aux = moe._route(mine, lyr["router"], cfg)[2]
+        g_aux = torch.autograd.grad(aux, leaves, allow_unused=True, retain_graph=True)
+        aux = aux.detach().clone()
+        for g in (aux, *(g for g in g_aux if g is not None)):
+            dist.all_reduce(g, group=group)
+        shards.append((mine.detach(), aux / cp, g_aux))
+    g_ce = torch.autograd.grad(ce, leaves)
+    refs = [(ce.detach() + coef * aux, [gc if ga is None else gc + coef / cp * ga
+                                        for gc, ga in zip(g_ce, g_aux)], aux)
+            for _, aux, g_aux in shards]
+    router = lyr["router"].detach().requires_grad_(True)
+    direct = torch.autograd.grad(coef * moe._route(shards[0][0], router, cfg)[2] / cp, router)[0]
+    dist.all_reduce(direct, group=group)
+    g_router = refs[0][1][moe.LAYOUT.names(params).index("layers.0.router")]
+    return refs, (direct.norm() / g_router.norm()).item()
+
+
+def cp4_moe_ep(device: str, seq: int) -> dict:
+    """``--cp4``'s MoE at Mixtral-8x7B's widths on ``seq`` tokens in two
+    causal documents at cp 4 = ep 4 (two experts a card): (a) float32,
+    capacity factor 8 (no drop at cp 1 or cp 4), one layer (a float32
+    cp 1 run at capacity 8 takes ~60 GB), aux_loss_coef at its default:
+    this rank's undispatched logits against a cp 1 run of the same weights
+    on this card, and the loss, the aux, its expert block's gradients and
+    every replicated gradient against :func:`moe_ep_reference` (cp 1's
+    model with each rank's aux share taken of its own cp 4 rows), at
+    ``F32_LOSS_RTOL`` and ``F32_GRAD_RNORM`` (float32 so that no near-tied
+    token changes expert between the runs); then the loss and gradients
+    again under a key of overlap degree 2 (the staged runtime's
+    collectives beside the MoE exchanges); (b) bf16, the default capacity,
+    two layers: three ``moe_train_step``s, finite, each loss equal to the
+    sum of the ranks' shares (``moe_loss_fn`` at the same weights, rel
+    1e-5), every rank's step ms, and one slot exchange (``all_to_all`` of
+    this rank's ``(E, C, dim)`` slots) alone, every rank's ms."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.comm.functional import all_to_all
+    from magiattention_tpu_torch.config import DistAttnConfig, OverlapConfig
+    from magiattention_tpu_torch.models import moe
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    group, rank, cp = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
+    docs = _docs(seq, seq // 2)
+
+    def key_of(cp_group):
+        return api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, cp_group=cp_group,
+                                      device=device)
+
+    def blockwise(names, grads, n_experts):
+        """This rank's block of the expert stacks' gradients."""
+        return [g[rank * n_experts // cp:(rank + 1) * n_experts // cp]
+                if n.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down") else g
+                for n, g in zip(names, grads)]
+
+    def f32_check(what, got, want):
+        worst, worst_rn, rn = grads_rel_norm(names, got, want)
+        if not (all(torch.isfinite(g).all() for g in got) and worst_rn <= F32_GRAD_RNORM):
+            raise AssertionError(f"cp4 moe{what}: gradient {worst} rel-norm {worst_rn:.3e} "
+                                 f"against the reference, gate {F32_GRAD_RNORM}")
+        return worst, rn
+
+    def rel(a, b):
+        return abs(a.item() - b.item()) / abs(b.item())
+
+    cfg = moe_config(on_card, n_layers=1, dtype="float32", capacity_factor=8.0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (seq,), generator=gen, device=device)
+    labels = next_token_labels(tokens, seq // 2)
+    params = moe.init_moe_params(cfg, seed=0, device=device)
+    names = moe.LAYOUT.names(params)
+    key1, key4 = key_of(None), key_of(group)
+    # overlap degree 2: the staged GroupCasts (async) and GroupReduces and
+    # the MoE exchanges on one communicator. Chunks of 512 at 8192 tokens,
+    # as ``cp4_overlap``'s (two stages): another dispatch, other aux shards
+    key_o = api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, cp_group=group, device=device,
+                                   chunk_size=min(512, seq // 16), dist_attn_config=DistAttnConfig(
+                                       overlap_config=OverlapConfig(degree=2)))
+    rt = _mgr(key_o).runtime
+    if not (rt.use_overlap and rt.num_stages >= 2):
+        raise AssertionError(f"cp4 moe: the degree-2 key planned {rt.num_stages} stage(s)")
+    with torch.no_grad():
+        logits1, aux1 = moe.moe_forward(params, cfg, tokens, key1)
+        logits1 = api.undispatch(logits1, key1)
+    ((loss_r, g_r, aux_r), (loss_ro, g_ro, _)), router_aux = moe_ep_reference(
+        params, cfg, tokens, labels, key1, (key4, key_o))
+    g_r, g_ro = blockwise(names, g_r, cfg.n_experts), blockwise(names, g_ro, cfg.n_experts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    sharded = moe.shard_moe_params(params, api.get_mesh(key4), ep_axis="cp")
+    with torch.no_grad():
+        logits4, aux4 = moe.moe_forward(sharded, cfg, tokens, key4, "cp")
+        logits4 = api.undispatch(logits4, key4)
+    loss4, g4 = moe.moe_value_and_grad(sharded, cfg, tokens, labels, key4, "cp")
+    logits_rn = ((logits4.double() - logits1.double()).norm() / logits1.double().norm()).item()
+    loss_rel, aux_rel = rel(loss4, loss_r), rel(aux4, aux_r)
+    if not (loss_rel <= F32_LOSS_RTOL and aux_rel <= F32_LOSS_RTOL
+            and logits_rn <= F32_GRAD_RNORM):
+        raise AssertionError(
+            f"cp4 moe: loss {loss4.item()} vs {loss_r.item()}, aux {aux4.item()} vs "
+            f"{aux_r.item()} (rel gate {F32_LOSS_RTOL}), logits rel-norm {logits_rn:.3e}")
+    worst, err = f32_check("", g4, g_r)
+    del g4, g_r, logits1, logits4
+    loss_o, g_o = moe.moe_value_and_grad(sharded, cfg, tokens, labels, key_o, "cp")
+    if not rel(loss_o, loss_ro) <= F32_LOSS_RTOL:
+        raise AssertionError(f"cp4 moe degree 2: loss {loss_o.item()} vs {loss_ro.item()}")
+    worst_o, err_o = f32_check(" degree 2", g_o, g_ro)
+    degree2 = dict(stages=rt.num_stages, overlapped=rt.use_overlap, loss=loss_o.item(),
+                   loss_reference=loss_ro.item(), worst_grad=worst_o,
+                   worst_grad_rel_norm_err=err_o[worst_o])
+    del params, sharded, g_o, g_ro
+    if on_card:
+        torch.cuda.empty_cache()
+
+    cfg_b = moe_config(on_card)
+    params = moe.shard_moe_params(moe.init_moe_params(cfg_b, seed=0, device=device),
+                                  api.get_mesh(key4), ep_axis="cp")
+    losses, shares = [], []
+    for _ in range(TRAIN_STEPS):
+        with torch.no_grad():
+            share = moe.moe_loss_fn(params, cfg_b, tokens, labels, key4, "cp").reshape(1)
+        every = [torch.zeros_like(share) for _ in range(cp)]
+        dist.all_gather(every, share)
+        params, loss = moe.moe_train_step(params, cfg_b, tokens, labels, key4, "cp", lr=TRAIN_LR)
+        total = sum(t.item() for t in every)
+        if not np.isfinite(loss.item()) or abs(loss.item() - total) > 1e-5 * abs(total):
+            raise AssertionError(f"cp4 moe: loss {loss.item()} is not the sum of the shares "
+                                 f"{[t.item() for t in every]}")
+        losses.append(loss.item())
+        shares.append([t.item() for t in every])
+    step_ms = _world_ms(
+        lambda: moe.moe_train_step(params, cfg_b, tokens, labels, key4, "cp", lr=TRAIN_LR),
+        on_card, warmup=1, samples=5)
+    cap = int(np.ceil(cfg_b.top_k * (seq // cp) / cfg_b.n_experts * cfg_b.capacity_factor))
+    slots = torch.randn((cfg_b.n_experts, cap, cfg_b.dim), generator=gen, device=device).to(
+        cfg_b.tdtype)
+    with torch.no_grad():
+        exchange_ms = _world_ms(lambda: all_to_all(slots, group, 0, 0), on_card)
+    res = dict(
+        check=dict(dtype="float32", layers=cfg.n_layers, capacity_factor=cfg.capacity_factor,
+                   tokens=seq, aux_loss_coef=cfg.aux_loss_coef, aux_cp4=aux4.item(),
+                   aux_reference=aux_r.item(), aux_rel_err=aux_rel,
+                   aux_cp1_whole_batch=aux1.item(),
+                   router_grad_aux_share=router_aux, loss_cp4=loss4.item(),
+                   loss_reference=loss_r.item(), loss_rel_err=loss_rel,
+                   logits_rel_norm_err=logits_rn, worst_grad=worst, grad_rel_norm_errs=err,
+                   cp1_peak_memory_gb=peak_gb,
+                   gates=dict(loss_aux_rtol=F32_LOSS_RTOL, rel_norm=F32_GRAD_RNORM),
+                   overlap_degree2=degree2),
+        train=dict(dtype="bfloat16", layers=cfg_b.n_layers, capacity_factor=cfg_b.capacity_factor,
+                   tokens=seq, losses=losses, rank_shares=shares, step_ms=step_ms),
+        exchange=dict(slots=[cfg_b.n_experts, cap, cfg_b.dim], bytes_a_rank=slots.numel() * 2,
+                      exchanges_a_step=4 * cfg_b.n_layers, ms=exchange_ms),
+    )
+    del params, slots
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def cp4_video_dit(device: str) -> dict:
+    """``--cp4``'s video DiT at DiT-XL's widths (the ``video_dit`` phase's
+    configuration) at cp 4: loss and gradients against a cp 1 run of the
+    same weights on this card (bf16; loss rel 1e-2, gradients rel-norm
+    2e-2, the train gates), then every rank's ms of an AdamW step
+    (``make_optim_train_step``)."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch.models import video_dit
+
+    on_card = device == "cuda"
+    cfg = dit_config(on_card)
+    params = video_dit.init_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    clean, noise = (torch.randn((cfg.seqlen, cfg.in_dim), generator=gen, device=device)
+                    for _ in range(2))
+    key1 = video_dit.make_video_attn_key(cfg, device=device)
+    key4 = video_dit.make_video_attn_key(cfg, cp_group=dist.group.WORLD, device=device)
+    loss1, g1 = video_dit.value_and_grad(params, cfg, clean, noise, DIT_TS[0], key1)
+    loss4, g4 = video_dit.value_and_grad(params, cfg, clean, noise, DIT_TS[0], key4)
+    loss_rel = abs(loss4.item() - loss1.item()) / abs(loss1.item())
+    worst, worst_rn, _ = grads_rel_norm(video_dit.param_names(params), g4, g1)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst_rn <= TRAIN_GRAD_RNORM):
+        raise AssertionError(f"cp4 video_dit: loss rel {loss_rel:.3e}, worst gradient {worst} "
+                             f"rel-norm {worst_rn:.3e} against cp 1")
+    del g1, g4
+    optim = torch.optim.AdamW(video_dit.param_list(params), lr=TRAIN_LR)
+    step = video_dit.make_optim_train_step(cfg, key4, optim)
+    step_ms = _world_ms(lambda: step(params, clean, noise, DIT_TS[1]), on_card, warmup=1,
+                        samples=5)
+    res = dict(tokens=cfg.seqlen, frames=cfg.num_frames, loss_cp4=loss4.item(),
+               loss_cp1=loss1.item(), loss_rel_err=loss_rel, worst_grad=worst,
+               worst_grad_rel_norm_err=worst_rn, loss_rtol=TRAIN_LOSS_RTOL,
+               grad_rnorm=TRAIN_GRAD_RNORM, step_ms=step_ms)
+    del params, optim
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
 def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
     """One process of ``--cp4`` (NCCL on card ``rank``; gloo on the CPU in
     a rehearsal): rank 0 prints the results."""
@@ -6151,6 +6808,12 @@ def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
             emit({"phase": "cp4", "world": CPB_WORLD, "backend": dist.get_backend(),
                   "shape": f"bf16 q [{seq}, {CP_HQ}, {CP_D}], k/v [{seq}, {CP_HK}, {CP_D}]",
                   **res, "atol": ATOL["bfloat16"], "rnorm": RNORM["bfloat16"]})
+        del res
+        for name, run in (("cp4_moe_ep", lambda: cp4_moe_ep(device, seq)),
+                          ("cp4_video_dit", lambda: cp4_video_dit(device))):
+            out = run()
+            if rank == 0:
+                emit({"phase": name, "world": CPB_WORLD, **out})
         dist.barrier()  # leave together
     finally:
         dist.destroy_process_group()
@@ -6296,6 +6959,8 @@ def main() -> int:
     ht = cp_hier_tp_phase()["launches"]
     train = train_phase()
     train_padded_phase(train)
+    moe_launches = moe_phase()["launches"]
+    dit_launches = video_dit_phase()["launches"]
     d256_phase(peaks)
     hybrid_d256_phase(peaks)
     bsp = block_sparse_phase(peaks)["slice_g4_d128_bf16_ds16"]
@@ -6306,9 +6971,10 @@ def main() -> int:
     # the launches of each kernel on the main paths (serving, train, nsa)
     # plus those of the qo-comm path (qo_comm phase), the CP baselines'
     # rank bodies (cp_baselines), the two-level, TP and sink runs
-    # (cp_hier_tp) and usp_nsa_attn's (usp_nsa)
-    extra = {k_: qo.get(k_, 0) + cpb.get(k_, 0) + ht.get(k_, 0) + usp.get(k_, 0)
-             for k_ in {*qo, *cpb, *ht, *usp}}
+    # (cp_hier_tp), usp_nsa_attn's (usp_nsa), the train phase's remat
+    # step and the MoE and video DiT steps (moe, video_dit)
+    paths = (qo, cpb, ht, usp, train["remat"]["launches"], moe_launches, dit_launches)
+    extra = {k_: sum(p.get(k_, 0) for p in paths) for k_ in set().union(*paths)}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body; int8 spec verify's too
             "ffa_fwd", "ffa_fwd_tf32.cuh", "magiattention_tpu/kernels/ffa.py:251",

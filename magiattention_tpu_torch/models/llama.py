@@ -26,16 +26,30 @@ already return to their owners through GroupReduce), and
 issued.
 
 ``train_step`` updates the parameters in place (JAX donates them).
+``make_optim_train_step`` is the optimizer twin (a ``torch.optim``
+optimizer in place of optax), and ``forward_dense`` / ``loss_fn_dense``
+the single-device float32 twin over a boolean mask, as in JAX.
+``LlamaConfig.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, JAX's ``jax.checkpoint``).
+
+The parameter trees of the three families (this one, ``moe``,
+``video_dit``) are dicts of top-level tensors and a list ``layers`` of
+dicts; :class:`Layout` names each family's keys in their fixed order, so
+the helpers that flatten, name, rebuild and carry JAX trees over serve
+all three. ``shard_params`` (ZeRO-3, Megatron TP) is not ported yet: the
+parameters are replicated on every rank (ROADMAP queue A item 4).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..api import calc_attn, dispatch, get_position_ids
 from ..device import resolve_device
@@ -44,6 +58,49 @@ from ..dist_attn_runtime_mgr import DistAttnRuntimeKey
 _LAYER_KEYS = (
     "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down",
 )
+
+
+@dataclass(frozen=True)
+class Layout:
+    """A family's parameter tree: the top-level tensors ``top``, then a
+    list ``"layers"`` of dicts of ``layer``'s tensors, in this order (the
+    order of :meth:`leaves`, the gradients and the optimizer's list)."""
+
+    top: tuple[str, ...]
+    layer: tuple[str, ...]
+
+    def leaves(self, params: dict) -> list[torch.Tensor]:
+        out = [params[key] for key in self.top]
+        for lyr in params["layers"]:
+            out += [lyr[key] for key in self.layer]
+        return out
+
+    def names(self, params: dict) -> list[str]:
+        out = list(self.top)
+        for i, _ in enumerate(params["layers"]):
+            out += [f"layers.{i}.{key}" for key in self.layer]
+        return out
+
+    def rebuild(self, leaves: Sequence[torch.Tensor], n_layers: int) -> dict:
+        """The tree of ``leaves`` (in :meth:`leaves` order)."""
+        it = iter(leaves)
+        tree = {key: next(it) for key in self.top}
+        tree["layers"] = [{key: next(it) for key in self.layer} for _ in range(n_layers)]
+        return tree
+
+    def from_numpy(self, tree: dict, device: torch.device | str | None = None) -> dict:
+        """The JAX package's pytree of this family, as numpy arrays
+        (``jax.tree.map(np.asarray, ...)``), as float32 tensors on
+        ``device`` (None = the card)."""
+        device = resolve_device(device)
+        leaves = [
+            torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+            for a in self.leaves(tree)
+        ]
+        return self.rebuild(leaves, len(tree["layers"]))
+
+
+LAYOUT = Layout(("embed", "final_norm", "lm_head"), _LAYER_KEYS)
 
 
 @dataclass(frozen=True)
@@ -58,6 +115,9 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+    # recompute each layer in the backward (torch.utils.checkpoint): FLOPs
+    # for activation memory, the standard long-context training setting
+    remat: bool = False
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -109,34 +169,30 @@ def params_from_numpy(tree: dict, device: torch.device | str | None = None) -> d
     """The JAX package's parameter pytree, as numpy arrays
     (``jax.tree.map(np.asarray, init_params(...))``), as the port's
     float32 parameters on ``device`` (None = the card)."""
-    device = resolve_device(device)
-
-    def t(a):
-        return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
-
-    return {
-        "embed": t(tree["embed"]),
-        "final_norm": t(tree["final_norm"]),
-        "lm_head": t(tree["lm_head"]),
-        "layers": [{key: t(lyr[key]) for key in _LAYER_KEYS} for lyr in tree["layers"]],
-    }
+    return LAYOUT.from_numpy(tree, device)
 
 
 def param_list(params: dict) -> list[torch.Tensor]:
     """The parameters in a fixed order (embed, final_norm, lm_head, then
     each layer's in ``_LAYER_KEYS`` order)."""
-    out = [params["embed"], params["final_norm"], params["lm_head"]]
-    for lyr in params["layers"]:
-        out += [lyr[key] for key in _LAYER_KEYS]
-    return out
+    return LAYOUT.leaves(params)
 
 
 def param_names(params: dict) -> list[str]:
     """Names matching :func:`param_list`."""
-    out = ["embed", "final_norm", "lm_head"]
-    for i, _ in enumerate(params["layers"]):
-        out += [f"layers.{i}.{key}" for key in _LAYER_KEYS]
-    return out
+    return LAYOUT.names(params)
+
+
+def shard_params(params: dict, mesh, axis: str = "cp", tp_axis: str | None = None) -> dict:
+    """JAX's ZeRO-3 first-dim sharding over ``axis`` with optional
+    Megatron TP over ``tp_axis``: in per-rank processes every gather,
+    reduce-scatter and TP all-reduce that XLA inserts for it is a
+    collective to write out with its backward, not ported yet (ROADMAP
+    queue A item 4). The replicated parameters compute the same."""
+    raise NotImplementedError(
+        f"shard_params (ZeRO-3 over {axis!r}, TP over {tp_axis!r}) waits for ROADMAP "
+        "queue A item 4; the replicated parameters compute the same"
+    )
 
 
 def _rms_norm(x, w, eps):
@@ -186,6 +242,52 @@ def masked_ce(logits, labels):
     return total / count.clamp(min=1)
 
 
+def check_cp_group(attn_key: DistAttnRuntimeKey) -> None:
+    """A key of cp_size > 1 must carry its group: the trainers sum the
+    ranks' gradients over it."""
+    if attn_key.cp_size > 1 and attn_key.cp_group is None:
+        raise ValueError(
+            f"a key of cp_size {attn_key.cp_size} without its cp group: the ranks' "
+            "gradients could not be summed"
+        )
+
+
+def ce_share(logits, labels_d, attn_key: DistAttnRuntimeKey):
+    """This rank's share of the global masked mean cross entropy over the
+    dispatched labels: at cp 1 the mean; at cp > 1 its rows' summed NLL
+    over the count of valid labels of every rank (one ``all_reduce`` over
+    the key's cp group)."""
+    if attn_key.cp_size == 1:
+        return masked_ce(logits, labels_d)
+    total, count = _nll_sum(logits, labels_d)
+    dist.all_reduce(count, group=attn_key.cp_group)
+    return total / count.clamp(min=1)
+
+
+def run_layers(layer: Callable, x, layers: list, remat: bool):
+    """``x = layer(x, lyr)`` over ``layers``; with ``remat`` each call is a
+    ``torch.utils.checkpoint`` region, its activations recomputed in the
+    backward (the layer's collectives issued again there, in the same
+    order on every rank). A layer that returns ``(x, aux)`` gets the auxes
+    back as a list."""
+    auxes = []
+    for lyr in layers:
+        out = checkpoint(layer, x, lyr, use_reentrant=False) if remat else layer(x, lyr)
+        if isinstance(out, tuple):
+            out, aux = out
+            auxes.append(aux)
+        x = out
+    return x, auxes
+
+
+def _mlp(x, lyr, cfg: LlamaConfig):
+    dt = x.dtype
+    h = _rms_norm(x, lyr["mlp_norm"], cfg.norm_eps)
+    gate = F.silu(h @ lyr["w_gate"].to(dt))
+    up = h @ lyr["w_up"].to(dt)
+    return x + (gate * up) @ lyr["w_down"].to(dt)
+
+
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: DistAttnRuntimeKey):
     """Logits of ``tokens`` ``(S,)`` int, natural order, for this rank's
     dispatched rows: ``(shard, vocab)`` float32 in DISPATCHED order (the
@@ -195,12 +297,11 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: Dist
     # is this rank's share, as every other parameter's
     x = params["embed"][dispatch(tokens, attn_key).long()].to(dt)  # (shard, dim)
     pos = get_position_ids(attn_key)
-    for lyr in params["layers"]:
-        x = attn_block(x, lyr, cfg, pos, attn_key)
-        h = _rms_norm(x, lyr["mlp_norm"], cfg.norm_eps)
-        gate = F.silu(h @ lyr["w_gate"].to(dt))
-        up = h @ lyr["w_up"].to(dt)
-        x = x + (gate * up) @ lyr["w_down"].to(dt)
+
+    def layer(x, lyr):
+        return _mlp(attn_block(x, lyr, cfg, pos, attn_key), lyr, cfg)
+
+    x, _ = run_layers(layer, x, params["layers"], cfg.remat)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"].to(dt)).float()
 
@@ -208,46 +309,52 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: Dist
 def loss_fn(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeKey):
     """Next-token cross entropy over the dispatched rows (labels < 0 are
     ignored; labels are dispatched with the same permutation). At cp > 1
-    this rank's share of the global mean: its rows' summed NLL over the
-    count of valid labels of every rank (one ``all_reduce`` over the key's
-    cp group)."""
-    if attn_key.cp_size > 1 and attn_key.cp_group is None:
-        raise ValueError(
-            f"a key of cp_size {attn_key.cp_size} without its cp group: the ranks' "
-            "gradients could not be summed"
-        )
+    this rank's share of the global mean (:func:`ce_share`)."""
+    check_cp_group(attn_key)
     logits = forward(params, cfg, tokens, attn_key)
-    labels_d = dispatch(labels, attn_key)
-    if attn_key.cp_size == 1:
-        return masked_ce(logits, labels_d)
-    total, count = _nll_sum(logits, labels_d)
-    dist.all_reduce(count, group=attn_key.cp_group)
-    return total / count.clamp(min=1)
+    return ce_share(logits, dispatch(labels, attn_key), attn_key)
+
+
+def tree_value_and_grad(
+    loss_of: Callable, params: dict, layout: Layout, attn_key: DistAttnRuntimeKey | None = None,
+    local: Sequence[bool] | None = None,
+):
+    """(loss, grads in ``layout.leaves`` order) of ``loss_of(tree)`` by
+    autograd. At cp > 1 (``attn_key``'s cp group) the ranks' losses and
+    the gradients are added over the group by one flat ``all_reduce``:
+    every rank gets the global loss and gradients. A leaf flagged in
+    ``local`` is this rank's own block (an expert stack under expert
+    parallelism): its gradient is already complete and is not summed."""
+    leaves = [p.detach().requires_grad_(True) for p in layout.leaves(params)]
+    loss = loss_of(layout.rebuild(leaves, len(params["layers"])))
+    grads = list(torch.autograd.grad(loss, leaves))
+    loss = loss.detach()
+    if attn_key is not None and attn_key.cp_size > 1:
+        local = local or [False] * len(grads)
+        summed = [i for i, own in enumerate(local) if not own]
+        flat = torch.cat([loss.reshape(1).float()] + [grads[i].reshape(-1).float() for i in summed])
+        dist.all_reduce(flat, group=attn_key.cp_group)
+        loss = flat[0].to(loss.dtype)
+        parts = flat[1:].split([grads[i].numel() for i in summed])
+        for i, part in zip(summed, parts):
+            grads[i] = part.view_as(grads[i]).to(grads[i].dtype)
+    return loss, grads
 
 
 def value_and_grad(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeKey):
     """(loss, grads in :func:`param_list` order), by autograd. At cp > 1
     the ranks' losses and gradients are added over the cp group by one
     flat ``all_reduce``: every rank gets the global loss and gradients."""
-    leaves = [p.detach().requires_grad_(True) for p in param_list(params)]
-    it = iter(leaves)
-    live = {
-        "embed": next(it), "final_norm": next(it), "lm_head": next(it),
-        "layers": [{key: next(it) for key in _LAYER_KEYS} for _ in params["layers"]],
-    }
-    loss = loss_fn(live, cfg, tokens, labels, attn_key)
-    grads = list(torch.autograd.grad(loss, leaves))
-    loss = loss.detach()
-    if attn_key.cp_size > 1:
-        flat = torch.cat([loss.reshape(1).float()] + [g.reshape(-1).float() for g in grads])
-        dist.all_reduce(flat, group=attn_key.cp_group)
-        loss = flat[0].to(loss.dtype)
-        sizes = [g.numel() for g in grads]
-        grads = [
-            part.view_as(g).to(g.dtype)
-            for part, g in zip(flat[1:].split(sizes), grads)
-        ]
-    return loss, grads
+    return tree_value_and_grad(
+        lambda live: loss_fn(live, cfg, tokens, labels, attn_key), params, LAYOUT, attn_key
+    )
+
+
+def sgd_(params: list[torch.Tensor], grads: list[torch.Tensor], lr: float) -> None:
+    """``p -= lr * g`` in place for each pair."""
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.sub_(g.to(p.dtype), alpha=lr)
 
 
 def train_step(
@@ -255,7 +362,87 @@ def train_step(
 ):
     """One SGD step ``p -= lr * g``, in place. Returns (params, loss)."""
     loss, grads = value_and_grad(params, cfg, tokens, labels, attn_key)
-    with torch.no_grad():
-        for p, g in zip(param_list(params), grads):
-            p.sub_(g.to(p.dtype), alpha=lr)
+    sgd_(param_list(params), grads, lr)
     return params, loss
+
+
+def optimizer_step_(optimizer: torch.optim.Optimizer, params: list[torch.Tensor], grads) -> None:
+    """Write ``grads`` into the parameters' ``.grad`` and take one
+    ``optimizer.step()``."""
+    for p, g in zip(params, grads):
+        p.grad = g.to(p.dtype)
+    optimizer.step()
+
+
+# ---------------------------------------------------------------------------
+# dense (non-CP) twin + optimizer integration, as in JAX
+# ---------------------------------------------------------------------------
+
+
+def dense_attn(q, k, v, mask, head_dim: int):
+    """Replicated float32 masked-softmax attention of ``q (S, hq, d)``
+    over ``k, v (S, hk, d)`` under a boolean ``mask (S, S)``, in q's dtype
+    (the dense twins' attention, as JAX's ``einsum`` pair)."""
+    g = q.shape[1] // k.shape[1]
+    kf = k.repeat_interleave(g, dim=1).float()
+    vf = v.repeat_interleave(g, dim=1).float()
+    logits = torch.einsum("shd,thd->hst", q.float(), kf) * (head_dim ** -0.5)
+    logits = logits.masked_fill(~mask[None], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("hst,thd->shd", p, vf).to(q.dtype)
+
+
+def forward_dense(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, mask: torch.Tensor):
+    """Same network, replicated dense attention over an explicit boolean
+    ``mask (S, S)`` (True: attend) — the single-device twin used to check
+    CP convergence parity (JAX ``forward_dense``). Natural order."""
+    dt = cfg.tdtype
+    x = params["embed"][tokens.long()].to(dt)
+    pos = torch.arange(tokens.shape[0], device=x.device)
+    for lyr in params["layers"]:
+        h = _rms_norm(x, lyr["attn_norm"], cfg.norm_eps)
+        q = (h @ lyr["wq"].to(dt)).reshape(-1, cfg.n_heads, cfg.head_dim)
+        k = (h @ lyr["wk"].to(dt)).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        v = (h @ lyr["wv"].to(dt)).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        q = _rope(q, pos, cfg.rope_theta)
+        k = _rope(k, pos, cfg.rope_theta)
+        attn_out = dense_attn(q, k, v, mask, cfg.head_dim).reshape(-1, cfg.n_heads * cfg.head_dim)
+        x = _mlp(x + attn_out @ lyr["wo"].to(dt), lyr, cfg)
+    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"].to(dt)).float()
+
+
+def loss_fn_dense(params, cfg: LlamaConfig, tokens, labels, mask):
+    """Masked mean cross entropy of :func:`forward_dense` (JAX
+    ``loss_fn_dense``)."""
+    return masked_ce(forward_dense(params, cfg, tokens, mask), labels)
+
+
+def make_optim_train_step(cfg: LlamaConfig, attn_key: DistAttnRuntimeKey, optimizer):
+    """The optimizer step of the CP model (JAX ``make_optax_train_step``).
+    ``optimizer`` is a ``torch.optim.Optimizer`` over
+    ``param_list(params)``; the returned ``step(params, tokens, labels)``
+    runs :func:`value_and_grad` (at cp > 1 the summed gradients), writes
+    the gradients into ``.grad``, calls ``optimizer.step()`` and returns
+    ``(params, loss)``."""
+
+    def step(params, tokens, labels):
+        loss, grads = value_and_grad(params, cfg, tokens, labels, attn_key)
+        optimizer_step_(optimizer, param_list(params), grads)
+        return params, loss
+
+    return step
+
+
+def make_optim_train_step_dense(cfg: LlamaConfig, mask: torch.Tensor, optimizer):
+    """The dense twin of :func:`make_optim_train_step` (JAX
+    ``make_optax_train_step_dense``), same optimizer contract."""
+
+    def step(params, tokens, labels):
+        loss, grads = tree_value_and_grad(
+            lambda live: loss_fn_dense(live, cfg, tokens, labels, mask), params, LAYOUT
+        )
+        optimizer_step_(optimizer, param_list(params), grads)
+        return params, loss
+
+    return step

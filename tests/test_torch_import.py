@@ -93,10 +93,15 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.meta.solver.algorithms.binary_greedy",
         "magiattention_tpu_torch.meta.solver.algorithms.snf",
         "magiattention_tpu_torch.testing.template",
+        "magiattention_tpu_torch.models.moe",
+        "magiattention_tpu_torch.models.video_dit",
+        "magiattention_tpu_torch.models.convert",
+        "magiattention_tpu_torch.utils.sparse_utils",
         "chip_smoke",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _is_jax_side(m)] == []
+    assert [m for m in loaded if m.split(".")[0] == "transformers"] == []
 
 
 def test_chip_smoke_names_no_jax_module():

@@ -12,6 +12,17 @@ under a split or a fused backward pin.
 Tolerances: loss rel 1e-5; every gradient atol 1e-5, rtol 1e-4, rel-norm
 1e-4 (float32 through two layers of products summed in different orders);
 three SGD steps at lr 1e-2: losses rel 1e-5, parameters atol 1e-5.
+
+Also: ``remat=True`` within 1e-6 of no remat (the FFA plain versions run
+twice per layer); the dense twin ``loss_fn_dense`` against JAX's (the
+gradient gates above); three AdamW steps of ``make_optim_train_step``
+(``torch.optim.AdamW``) against JAX ``make_optax_train_step`` with
+``optax.adamw`` at the same hyperparameters, JAX's key on its ``sdpa``
+backend: losses rel 1e-5, parameters rel-norm 1e-4 and atol 1e-5 on all
+but 1e-3 of the elements (Adam divides each gradient by its own scale,
+so an element whose gradient is within float32 rounding of 0 can step
+the other way, by up to 2 lr a step); the dense twin's step within the
+same of the CP step.
 """
 
 import dataclasses
@@ -27,6 +38,8 @@ from jax.sharding import Mesh
 from magiattention_tpu.api import magi_attn_flex_key
 from magiattention_tpu.models import llama as jax_llama
 from magiattention_tpu_torch import api as port_api
+import optax
+
 from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
 from magiattention_tpu_torch.models import llama
 from magiattention_tpu_torch.testing import assert_close
@@ -168,3 +181,95 @@ def test_training_at_cp_above_one_raises(entry, monkeypatch):
     key = dataclasses.replace(_key("split", monkeypatch), cp_size=2)
     with pytest.raises(ValueError, match="without its cp group"):
         getattr(llama, entry)(params, cfg, tokens, labels, key)
+
+
+def _causal_docs_mask() -> np.ndarray:
+    mask = np.zeros((S, S), dtype=bool)
+    for a, b in RANGES:
+        mask[a:b, a:b] = np.tril(np.ones((b - a, b - a), dtype=bool))
+    return mask
+
+
+@pytest.mark.parametrize("path", ["split", "fused"])
+def test_remat_equals_no_remat(path, monkeypatch):
+    cfg, params, tokens, labels = _port_inputs()
+    key = _key(path, monkeypatch)
+    loss, grads = llama.value_and_grad(params, cfg, tokens, labels, key)
+    reset_launch_counts()
+    loss_r, grads_r = llama.value_and_grad(params, dataclasses.replace(cfg, remat=True), tokens,
+                                           labels, key)
+    assert launch_counts()["sdpa_attn"] == 2 * cfg.n_layers  # the recompute's forward too
+    np.testing.assert_allclose(loss_r.item(), loss.item(), rtol=1e-6)
+    for g, g_r in zip(grads, grads_r):
+        np.testing.assert_allclose(g_r.numpy(), g.numpy(), rtol=1e-6, atol=1e-6)
+    assert abs(loss_r.item() - _jax_run()["loss"]) <= 1e-5 * abs(_jax_run()["loss"])
+
+
+def test_dense_twin_matches_jax():
+    cfg, params, tokens, labels = _port_inputs()
+    mask = _causal_docs_mask()
+    loss_j, grads_j = jax.jit(jax.value_and_grad(jax_llama.loss_fn_dense), static_argnums=(1,))(
+        jax.tree.map(jnp.asarray, _jax_run()["tree"]), jax_llama.LlamaConfig(**CFG),
+        *(jnp.asarray(a) for a in _data()), jnp.asarray(mask))
+    loss, grads = llama.tree_value_and_grad(
+        lambda live: llama.loss_fn_dense(live, cfg, tokens, labels, torch.from_numpy(mask)),
+        params, llama.LAYOUT)
+    assert abs(loss.item() - float(loss_j)) <= 1e-5 * abs(float(loss_j))
+    for name, g, want in zip(llama.param_names(params), grads, _jax_tree_leaves(grads_j)):
+        assert_close(g, want, msg=f"dense grad {name}", **GRAD_TOL)
+    # the CP loss on the same mask is the dense twin's
+    assert abs(loss.item() - _jax_run()["loss"]) <= 1e-5 * abs(_jax_run()["loss"])
+
+
+ADAMW = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+
+
+def test_adamw_steps_match_optax(monkeypatch):
+    opt = optax.adamw(ADAMW["lr"], b1=ADAMW["b1"], b2=ADAMW["b2"], eps=ADAMW["eps"],
+                      weight_decay=ADAMW["weight_decay"])
+    mesh = Mesh(np.array(jax.devices("cpu")[:1]), axis_names=("cp",))
+    jkey = magi_attn_flex_key(RANGES, RANGES, [1, 1], S, S, mesh=mesh)
+    tokens, labels = (jnp.asarray(a) for a in _data())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MAGI_ATTENTION_KERNEL_BACKEND", "sdpa")
+        step = jax_llama.make_optax_train_step(jax_llama.LlamaConfig(**CFG), jkey, opt)
+        params = jax.tree.map(jnp.asarray, _jax_run()["tree"])
+        state = opt.init(params)
+        losses = []
+        for _ in range(STEPS):
+            params, state, loss = step(params, state, tokens, labels)
+            losses.append(float(loss))
+    final = _jax_tree_leaves(params)
+
+    def run(make, arg):
+        cfg, p, tok, lab = _port_inputs()
+        optim = torch.optim.AdamW(llama.param_list(p), lr=ADAMW["lr"],
+                                  betas=(ADAMW["b1"], ADAMW["b2"]), eps=ADAMW["eps"],
+                                  weight_decay=ADAMW["weight_decay"])
+        step_p = make(cfg, arg, optim)
+        out = []
+        for _ in range(STEPS):
+            p, loss = step_p(p, tok, lab)
+            out.append(loss.item())
+        return out, llama.param_list(p)
+
+    got, p_cp = run(llama.make_optim_train_step, _key("split", monkeypatch))
+    np.testing.assert_allclose(got, losses, rtol=1e-5)
+    assert got[-1] < got[0]
+    tol = dict(atol=1e-5, rtol=1e-5, norm_rtol=1e-4, mismatch_thres=1e-3)
+    for name, p, want in zip(llama.param_names(_port_inputs()[1]), p_cp, final):
+        assert_close(p, want, msg=f"adamw {name}", **tol)
+    got_d, p_d = run(llama.make_optim_train_step_dense, torch.from_numpy(_causal_docs_mask()))
+    np.testing.assert_allclose(got_d, got, rtol=1e-5)
+    for p, q in zip(p_d, p_cp):
+        assert_close(p, q, msg="dense step", **tol)
+
+
+def test_shard_params_names_its_roadmap_item():
+    """ZeRO-3 / Megatron TP sharding is not ported yet: the entry (and the
+    video DiT's re-export of it, as in JAX) raises naming its item."""
+    from magiattention_tpu_torch.models import video_dit
+
+    assert video_dit.shard_params is llama.shard_params
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
+        llama.shard_params(_port_inputs()[1], mesh=None)

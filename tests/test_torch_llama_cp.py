@@ -12,7 +12,9 @@ one flat ``all_reduce`` adds the losses and the parameter gradients over
 the group. The JAX package runs ``jax.value_and_grad(loss_fn)`` on a
 cp-device CPU mesh with its ``sdpa`` backend. Held on every rank: the loss
 and every parameter gradient within float32 1e-5 of JAX's, and exactly two
-``all_reduce`` calls. At cp 1 the step issues none.
+``all_reduce`` calls; the same step with ``remat=True`` (every layer
+recomputed in the backward, its GroupCasts issued again) within 1e-6 of
+it. At cp 1 the step issues none.
 """
 
 import os
@@ -91,6 +93,9 @@ def test_cp_loss_and_grads_match_jax(cp):
         np.testing.assert_allclose(float(got["loss"]), loss, rtol=1e-5)
         for i, (name, want) in enumerate(zip(names, grads)):
             assert_close(got[f"g{i}"], want, msg=f"cp {cp} rank {r} {name}", **TOL)
+            # remat: each layer recomputed in the backward, GroupCasts issued again
+            np.testing.assert_allclose(got[f"remat_g{i}"], got[f"g{i}"], rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(float(got["loss_remat"]), float(got["loss"]), rtol=1e-6)
 
 
 def test_cp1_step_issues_no_collective(monkeypatch):

@@ -495,8 +495,14 @@ def llama_cp_worker(rank: int, world: int, init_file: str, out_dir: str, tree: d
                                                labels, key)
         finally:
             dist.all_reduce = all_reduce
+        # the same step with each layer recomputed in the backward: every
+        # rank issues the recompute's GroupCasts in the same order
+        loss_r, grads_r = llama.value_and_grad(
+            params, llama.LlamaConfig(**LLAMA_CP_CFG, remat=True), tokens, labels, key)
         np.savez(os.path.join(out_dir, f"llama_{rank}.npz"), loss=loss.numpy(),
-                 all_reduce_calls=len(calls), **{f"g{i}": g.numpy() for i, g in enumerate(grads)})
+                 all_reduce_calls=len(calls), loss_remat=loss_r.numpy(),
+                 **{f"g{i}": g.numpy() for i, g in enumerate(grads)},
+                 **{f"remat_g{i}": g.numpy() for i, g in enumerate(grads_r)})
         dist.barrier()  # leave together: no rank closes a peer's open connections
     finally:
         dist.destroy_process_group()
@@ -1177,6 +1183,190 @@ def overlap_worker(rank: int, world: int, init_file: str, out_dir: str, masks: l
                 group_mesh_cached=api.get_mesh(key_f) is m_f,
             )
             np.savez(os.path.join(out_dir, f"{mask}_{rank}.npz"), **res)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+# the MoE family (tests/test_torch_moe.py): the JAX package's
+# tests/test_models/test_moe.py shapes, two causal documents, chunk 16
+MOE_CFG = dict(
+    vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    head_dim=16, ffn_hidden=96, dtype="float32", n_experts=8, top_k=2,
+)
+MOE_SEQ, MOE_CHUNK, MOE_LR, MOE_STEPS = 128, 16, 1e-2, 3
+MOE_CFS = (8.0, 1.25)  # ample capacity (no drop), the default
+
+
+def moe_data():
+    """Tokens, next-token labels (-1 at the end), and the FFN input h."""
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, MOE_CFG["vocab_size"], MOE_SEQ).astype(np.int32)
+    labels = np.concatenate([tokens[1:], [-1]]).astype(np.int32)
+    h = np.random.default_rng(1).standard_normal((MOE_SEQ, MOE_CFG["dim"])).astype(np.float32)
+    return tokens, labels, h
+
+
+def moe_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) -> None:
+    """One rank of a gloo world of 4 over the JAX MoE parameters ``tree``
+    (numpy): the MoE FFN expert-parallel at ep 2 (the ``ep`` lines of a
+    (dp 2, ep 2) mesh) and ep 4 (output, aux, the layer's gradients of
+    ``sum(y * y) + aux``), then the full model at cp 4 with
+    ``ep_axis="cp"`` at each of ``MOE_CFS`` (undispatched logits, aux,
+    loss, gradients; with remat; the all_reduce count), loss and
+    gradients under one causal document at overlap degree 1 and 2 (the
+    staged runtime), three SGD steps,
+    the model without EP, and the divisibility error; all to
+    ``out_dir/moe_<rank>.npz``."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.models import moe
+    from magiattention_tpu_torch.parallel import ProcessMesh
+
+    s = MOE_SEQ
+    res = {}
+    try:
+        cfg = moe.MoEConfig(**MOE_CFG)
+        params = moe.moe_params_from_numpy(tree, "cpu")
+        lyr = params["layers"][0]
+        tokens, labels, h = (torch.from_numpy(a) for a in moe_data())
+        # the FFN at ep 2: each ep line of the (dp, ep) mesh routes h
+        mesh2 = ProcessMesh(np.arange(4).reshape(2, 2), ("dp", "ep"))
+        c = mesh2.coord("ep")
+        y, aux = moe.moe_ffn(h[c * s // 2:(c + 1) * s // 2], lyr, cfg, mesh=mesh2, ep_axis="ep")
+        res.update(ep2_y=y.numpy(), ep2_aux=aux.numpy())
+        # ep 4, the expert stacks as this rank's block; the gradients of
+        # JAX's sum(y * y) + aux: this rank's share sum(y_r * y_r) + aux / 4
+        mesh4 = ProcessMesh(np.arange(4), ("ep",))
+        block = moe.shard_moe_params({"layers": [lyr]}, mesh4, ep_axis="ep")["layers"][0]
+        live = {k: v.detach().requires_grad_(True) for k, v in block.items()}
+        y, aux = moe.moe_ffn(h[rank * s // 4:(rank + 1) * s // 4], live, cfg, mesh=mesh4,
+                             ep_axis="ep")
+        keys = ("router", "w_gate", "w_up", "w_down")
+        grads = torch.autograd.grad((y * y).sum() + aux / 4, [live[k] for k in keys])
+        dist.all_reduce(grads[0])  # the replicated router's shares
+        res.update(ep4_y=y.detach().numpy(), ep4_aux=aux.detach().numpy(),
+                   **{f"ep4_g_{k}": g.numpy() for k, g in zip(keys, grads)})
+        # the full model at cp 4, EP over the cp axis
+        key = api.magi_attn_flex_key([[0, s // 2], [s // 2, s]], [[0, s // 2], [s // 2, s]], [1, 1],
+                                     s, s, cp_group=dist.group.WORLD, device="cpu",
+                                     chunk_size=MOE_CHUNK)
+        sharded = moe.shard_moe_params(params, api.get_mesh(key), ep_axis="cp")
+        calls, all_reduce = [], dist.all_reduce
+
+        def counted(*args, **kwargs):
+            calls.append(1)
+            return all_reduce(*args, **kwargs)
+
+        for i, cf in enumerate(MOE_CFS):
+            c_cf = dataclasses.replace(cfg, capacity_factor=cf)
+            logits, aux = moe.moe_forward(sharded, c_cf, tokens, key, ep_axis="cp")
+            res.update({f"cf{i}_logits": api.undispatch(logits, key).numpy(),
+                        f"cf{i}_aux": aux.numpy()})
+            dist.all_reduce = counted
+            try:
+                loss, grads = moe.moe_value_and_grad(sharded, c_cf, tokens, labels, key, "cp")
+            finally:
+                dist.all_reduce = all_reduce
+            res.update({f"cf{i}_loss": loss.numpy(), f"cf{i}_all_reduce_calls": len(calls)})
+            res.update({f"cf{i}_g{j}": g.numpy() for j, g in enumerate(grads)})
+            calls.clear()
+            c_r = dataclasses.replace(c_cf, remat=True)
+            logits_r, _ = moe.moe_forward(sharded, c_r, tokens, key, ep_axis="cp")
+            loss_r, grads_r = moe.moe_value_and_grad(sharded, c_r, tokens, labels, key, "cp")
+            res.update({f"cf{i}_remat_logits": api.undispatch(logits_r, key).numpy(),
+                        f"cf{i}_remat_loss": loss_r.numpy()})
+            res.update({f"cf{i}_remat_g{j}": g.numpy() for j, g in enumerate(grads_r)})
+        # one causal document at overlap degree 1 and 2 (two stages): the
+        # staged GroupCasts and GroupReduces and the MoE exchanges share
+        # the group, issued in one order on every rank
+        from magiattention_tpu_torch import config
+        from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+
+        for degree, cfg_o in ((1, None), (2, overlap_config(config))):
+            key_o = api.magi_attn_flex_key([[0, s]], [[0, s]], [1], s, s,
+                                           cp_group=dist.group.WORLD, device="cpu",
+                                           chunk_size=MOE_CHUNK, dist_attn_config=cfg_o)
+            rt = _mgr(key_o).runtime
+            res[f"degree{degree}_stages"] = rt.num_stages if rt.use_overlap else 1
+            loss, grads = moe.moe_value_and_grad(sharded, cfg, tokens, labels, key_o, "cp")
+            res[f"degree{degree}_loss"] = loss.numpy()
+            res.update({f"degree{degree}_g{j}": g.numpy() for j, g in enumerate(grads)})
+        # three SGD steps at the default capacity
+        steps = moe.shard_moe_params(moe.moe_params_from_numpy(tree, "cpu"), api.get_mesh(key),
+                                     ep_axis="cp")  # updated in place
+        losses = []
+        for _ in range(MOE_STEPS):
+            steps, loss = moe.moe_train_step(steps, cfg, tokens, labels, key, "cp", lr=MOE_LR)
+            losses.append(loss.item())
+        res["train_losses"] = np.asarray(losses)
+        res.update({f"train_p{j}": p.numpy() for j, p in enumerate(moe.LAYOUT.leaves(steps))})
+        # without EP: every rank routes the gathered rows on the full stacks
+        loss, grads = moe.moe_value_and_grad(params, cfg, tokens, labels, key)
+        res["noep_loss"] = loss.numpy()
+        res.update({f"noep_g{j}": g.numpy() for j, g in enumerate(grads)})
+        try:
+            bad = {"layers": [{k: torch.zeros((6, 1, 1)) for k in ("w_gate", "w_up", "w_down")}]}
+            moe.shard_moe_params(bad, api.get_mesh(key), ep_axis="cp")
+            res["divisibility_error"] = ""
+        except ValueError as e:
+            res["divisibility_error"] = str(e)
+        np.savez(os.path.join(out_dir, f"moe_{rank}.npz"), **res)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+# the video DiT (tests/test_torch_video_dit.py): the JAX package's
+# tests/test_models/test_video_dit.py config
+DIT_CFG = dict(
+    num_frames=4, tokens_per_frame=64, in_dim=8, dim=64, n_layers=2, n_heads=2,
+    n_kv_heads=1, head_dim=32, ffn_hidden=128, window_frames=2, dtype="float32",
+)
+DIT_T = 0.3
+
+
+def dit_data():
+    """Clean latents and noise, natural order (JAX's test's draws)."""
+    rng = np.random.default_rng(1)
+    n = DIT_CFG["num_frames"] * DIT_CFG["tokens_per_frame"]
+    clean = rng.standard_normal((n, DIT_CFG["in_dim"])).astype(np.float32)
+    noise = rng.standard_normal((n, DIT_CFG["in_dim"])).astype(np.float32)
+    return clean, noise
+
+
+def dit_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) -> None:
+    """One rank of a gloo world: the port's DiT ``value_and_grad`` at cp =
+    world over the JAX parameters ``tree`` (numpy), with and without
+    remat; loss and gradients to ``out_dir/dit_<rank>.npz``."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch.models import video_dit
+
+    try:
+        cfg = video_dit.VideoDiTConfig(**DIT_CFG)
+        key = video_dit.make_video_attn_key(cfg, cp_group=dist.group.WORLD, device="cpu")
+        params = video_dit.params_from_numpy(tree, "cpu")
+        clean, noise = (torch.from_numpy(a) for a in dit_data())
+        res = {}
+        for tag, c in (("", cfg), ("remat_", dataclasses.replace(cfg, remat=True))):
+            loss, grads = video_dit.value_and_grad(params, c, clean, noise, DIT_T, key)
+            res[f"{tag}loss"] = loss.numpy()
+            res.update({f"{tag}g{i}": g.numpy() for i, g in enumerate(grads)})
+        np.savez(os.path.join(out_dir, f"dit_{rank}.npz"), **res)
         dist.barrier()  # leave together: no rank closes a peer's open connections
     finally:
         dist.destroy_process_group()
