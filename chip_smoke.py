@@ -2980,7 +2980,9 @@ def profile_run(fn) -> dict:
 def _profile_summary(events, wall: float) -> dict:
     kernels = []
     for e in events:
-        if "CUDA" not in str(getattr(e, "device_type", "")):
+        # "nccl:<op>" is the host annotation of an NCCL kernel that the
+        # trace lists again under the kernel's own name
+        if "CUDA" not in str(getattr(e, "device_type", "")) or e.key.startswith("nccl:"):
             continue
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         if us > 0:
@@ -2997,6 +2999,9 @@ def _profile_summary(events, wall: float) -> dict:
         decode_launches=sum(c for _, c in decode),
         forward_device_ms=sum(us for us, _ in forward) / 1e3,
         forward_launches=sum(c for _, c in forward),
+        # NCCL's kernels (on their own stream, beside the compute; a rank
+        # waiting for its peers counts here too)
+        collective_device_ms=sum(us for k, us, _ in kernels if k.startswith("nccl")) / 1e3,
         top_kernels=[
             {"name": k[:90], "device_ms": us / 1e3, "count": c}
             for k, us, c in kernels[:12]
@@ -4714,6 +4719,118 @@ def train_phase() -> dict:
     return res
 
 
+# meta-llama/Llama-3.1-8B config.json: hidden 4096, 32 heads, 8 kv heads
+# (head dim 128), intermediate 14336, vocab 128256, rope_theta 500000,
+# rms_norm_eps 1e-5, 32 layers (the train phase's widths)
+LLAMA_WIDTHS = dict(vocab_size=128256, dim=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+                    ffn_hidden=14336, rope_theta=500000.0, norm_eps=1e-5)
+LLAMA_LAYERS = 32
+# ``cp4_main("cpu")``'s rehearsal widths (heads split over tp 2)
+LLAMA_SMALL = dict(vocab_size=256, dim=64, n_heads=4, n_kv_heads=2, head_dim=16, ffn_hidden=128)
+
+
+def llama_config(on_card: bool, **kw):
+    from magiattention_tpu_torch.models.llama import LlamaConfig
+
+    widths = LLAMA_WIDTHS if on_card else LLAMA_SMALL
+    return LlamaConfig(**{**widths, "n_layers": TRAIN_LAYERS, "dtype": "bfloat16", **kw})
+
+
+def llama_param_count(cfg) -> int:
+    """The parameters of ``init_params(cfg)``, counted on the host."""
+    attn = cfg.dim * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    layer = 2 * cfg.dim + attn + 3 * cfg.dim * cfg.ffn_hidden
+    return 2 * cfg.vocab_size * cfg.dim + cfg.dim + cfg.n_layers * layer
+
+
+def sharded_llama_init(cfg, seed: int, mesh, device: str, **shard_kw) -> dict:
+    """``shard_params(init_params(cfg, seed), mesh, **shard_kw)`` without
+    the whole tree on the card: each layer's leaves are drawn in
+    ``init_params``' order (layers first, then embed and lm_head) from the
+    same generator and sharded at once, so at most one layer or one
+    embedding table is whole at a time; the shards are those of the whole
+    tree's to the bit."""
+    import dataclasses
+
+    import torch
+
+    from magiattention_tpu_torch.models.llama import shard_params
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dh, hq, hk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def dense(shape):
+        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return w.mul_(shape[0] ** -0.5)
+
+    def ones():
+        return torch.ones((cfg.dim,), device=device, dtype=torch.float32)
+
+    layers, layer_specs = [], None
+    for _ in range(cfg.n_layers):
+        one = {"attn_norm": ones(), "wq": dense((cfg.dim, hq * dh)),
+               "wk": dense((cfg.dim, hk * dh)), "wv": dense((cfg.dim, hk * dh)),
+               "wo": dense((hq * dh, cfg.dim)), "mlp_norm": ones(),
+               "w_gate": dense((cfg.dim, cfg.ffn_hidden)), "w_up": dense((cfg.dim, cfg.ffn_hidden)),
+               "w_down": dense((cfg.ffn_hidden, cfg.dim))}
+        tree = shard_params({"layers": [one]}, mesh, **shard_kw)
+        layers.append(tree["layers"][0])
+        layer_specs = tree["sharding"].layer
+        del one, tree
+    top = shard_params({"embed": dense((cfg.vocab_size, cfg.dim)), "final_norm": ones(),
+                        "lm_head": dense((cfg.dim, cfg.vocab_size)), "layers": []},
+                       mesh, **shard_kw)
+    top["layers"] = layers
+    top["sharding"] = dataclasses.replace(top.pop("sharding"), layer=layer_specs)
+    return top
+
+
+def shard_cp1_phase() -> dict:
+    """``shard_params`` on a one-rank mesh at the train phase's model and
+    tokens: every block is the whole leaf and every gather the identity,
+    so under MAGI_ATTENTION_DETERMINISTIC_MODE=1 the sharded tree's loss
+    and gradients equal the unsharded tree's to the bit; then one unpinned
+    ``train_step`` on the sharded tree (B1, B7, B8/B9 once a layer, no
+    plain version). Its launches join the ``kernels`` line; the sharded
+    paths across cards run in ``--cp4``."""
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.models.llama import (
+        init_params, shard_params, train_step, value_and_grad,
+    )
+    from magiattention_tpu_torch.parallel import ProcessMesh
+
+    cfg = llama_config(True)
+    params = init_params(cfg, seed=0, device="cuda")
+    sharded = shard_params(params, ProcessMesh(np.arange(1), ("cp",)))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_SEQ,), generator=gen, device="cuda")
+    labels = next_token_labels(tokens, TRAIN_DOC)
+    docs = _docs(TRAIN_SEQ, TRAIN_DOC)
+    with scoped_env(DETERMINISTIC_ENV):
+        key = api.magi_attn_flex_key(docs, docs, [1, 1], TRAIN_SEQ, TRAIN_SEQ)
+        loss, grads = value_and_grad(params, cfg, tokens, labels, key)
+        loss_s, grads_s = value_and_grad(sharded, cfg, tokens, labels, key)
+    differ = [i for i, (a, b) in enumerate(zip(grads, grads_s)) if not torch.equal(a, b)]
+    if not torch.equal(loss, loss_s) or differ:
+        raise AssertionError(f"shard_cp1: the sharded tree's step differs (gradients {differ})")
+    del params, grads, grads_s
+    key = api.magi_attn_flex_key(docs, docs, [1, 1], TRAIN_SEQ, TRAIN_SEQ)
+    reset_launch_counts()
+    sharded, loss = train_step(sharded, cfg, tokens, labels, key, lr=TRAIN_LR)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    mode = step_launches("shard_cp1", launches, cfg.n_layers)
+    res = dict(layers=cfg.n_layers, tokens=TRAIN_SEQ, deterministic_bitwise=True,
+               loss=loss.item(), bwd_mode=mode, launches=launches)
+    del sharded
+    torch.cuda.empty_cache()
+    emit({"phase": "shard_cp1", **res})
+    return res
+
+
 def remat_check(params, cfg, tokens, labels, key) -> dict:
     """One step's loss and gradients (``value_and_grad``) with
     ``cfg.remat`` (each layer recomputed in the backward) against the same
@@ -6243,10 +6360,7 @@ def _world_ms(step, on_card: bool, warmup: int = 3, samples: int = 10) -> list[f
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    mine = torch.tensor([statistics.median(times)], device="cuda")
-    every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
-    dist.all_gather(every, mine)
-    return [t.item() for t in every]
+    return _every_rank(statistics.median(times))
 
 
 def cp4_run(device: str, seq: int) -> dict:
@@ -6547,18 +6661,22 @@ def cp4_sharded_engine() -> dict:
     return res
 
 
-def moe_ep_reference(params, cfg, tokens, labels, key1, keys) -> tuple[list, float]:
+def moe_ep_reference(params, cfg, tokens, labels, key1, keys) -> tuple[list, tuple, float]:
     """What the one-layer MoE at cp = ep should give under each key of
-    ``keys`` (one cp group, experts over its cp axis), from one cp 1 pass
-    of the model on this card. Under a key, each rank's aux is the Switch
-    aux of the rows of cp 1's MoE input that the key dispatches to it: the
-    loss is cp 1's cross entropy plus ``aux_loss_coef`` x the group mean
+    ``keys`` (experts over as many ranks as the key's cp group, each EP
+    rank routing the rows its cp rank holds), from one cp 1 pass of the
+    model on this card. Under a key, each rank's aux is the Switch aux of
+    the rows of cp 1's MoE input that the key dispatches to it: the loss
+    is cp 1's cross entropy plus ``aux_loss_coef`` x the key's group mean
     of the ranks' aux, the gradients cp 1's cross entropy's plus
     ``aux_loss_coef / cp`` x the group sum of the ranks' aux gradients.
-    Returns ([(loss, gradients in ``LAYOUT.leaves`` order, aux) a key],
-    the first key's aux term's direct router gradient, summed over the
-    group, as a rel-norm of its whole router gradient: how much of that
-    gradient the aux path holds)."""
+    Without EP every rank routes the whole batch: cp 1's loss and
+    gradients, aux of all rows (at a capacity with no drop, the same in
+    any row order). Returns ([(loss, gradients in ``LAYOUT.leaves`` order,
+    aux) a key], that of the whole batch, the first key's aux term's
+    direct router gradient, summed over its group, as a rel-norm of its
+    whole router gradient: how much of that gradient the aux path
+    holds)."""
     import torch
     import torch.distributed as dist
 
@@ -6566,19 +6684,20 @@ def moe_ep_reference(params, cfg, tokens, labels, key1, keys) -> tuple[list, flo
     from magiattention_tpu_torch.models import moe
     from magiattention_tpu_torch.models.llama import _rms_norm, attn_block, masked_ce
 
-    group, cp, coef = keys[0].cp_group, keys[0].cp_size, cfg.aux_loss_coef
+    coef = cfg.aux_loss_coef
     leaves = [p.detach().requires_grad_(True) for p in moe.LAYOUT.leaves(params)]
     live = moe.LAYOUT.rebuild(leaves, 1)
     lyr = live["layers"][0]
     x = live["embed"][api.dispatch(tokens, key1).long()]
     x = attn_block(x, lyr, cfg, api.get_position_ids(key1), key1)
     h = _rms_norm(x, lyr["mlp_norm"], cfg.norm_eps)
-    y, _ = moe.moe_ffn(h, lyr, cfg)
+    y, aux_all = moe.moe_ffn(h, lyr, cfg)
     logits = _rms_norm(x + y, live["final_norm"], cfg.norm_eps) @ live["lm_head"]
     ce = masked_ce(logits, api.dispatch(labels, key1))
     h_nat = api.undispatch(h, key1)
     shards = []
     for key in keys:
+        group, cp = key.cp_group, key.cp_size
         mine = h_nat.index_select(
             0, api.dispatch(torch.arange(tokens.shape[0], device=tokens.device), key))
         aux = moe._route(mine, lyr["router"], cfg)[2]
@@ -6586,16 +6705,22 @@ def moe_ep_reference(params, cfg, tokens, labels, key1, keys) -> tuple[list, flo
         aux = aux.detach().clone()
         for g in (aux, *(g for g in g_aux if g is not None)):
             dist.all_reduce(g, group=group)
-        shards.append((mine.detach(), aux / cp, g_aux))
+        shards.append((mine.detach(), aux / cp, [g if g is None else g / cp for g in g_aux]))
+    g_all = torch.autograd.grad(aux_all, leaves, allow_unused=True, retain_graph=True)
     g_ce = torch.autograd.grad(ce, leaves)
-    refs = [(ce.detach() + coef * aux, [gc if ga is None else gc + coef / cp * ga
-                                        for gc, ga in zip(g_ce, g_aux)], aux)
-            for _, aux, g_aux in shards]
+
+    def ref(aux, g_aux):
+        return (ce.detach() + coef * aux,
+                [gc if ga is None else gc + coef * ga for gc, ga in zip(g_ce, g_aux)], aux)
+
+    refs = [ref(aux, g_aux) for _, aux, g_aux in shards]
+    whole = ref(aux_all.detach(), g_all)
     router = lyr["router"].detach().requires_grad_(True)
-    direct = torch.autograd.grad(coef * moe._route(shards[0][0], router, cfg)[2] / cp, router)[0]
-    dist.all_reduce(direct, group=group)
+    direct = torch.autograd.grad(
+        coef * moe._route(shards[0][0], router, cfg)[2] / keys[0].cp_size, router)[0]
+    dist.all_reduce(direct, group=keys[0].cp_group)
     g_router = refs[0][1][moe.LAYOUT.names(params).index("layers.0.router")]
-    return refs, (direct.norm() / g_router.norm()).item()
+    return refs, whole, (direct.norm() / g_router.norm()).item()
 
 
 def cp4_moe_ep(device: str, seq: int) -> dict:
@@ -6603,14 +6728,19 @@ def cp4_moe_ep(device: str, seq: int) -> dict:
     causal documents at cp 4 = ep 4 (two experts a card): (a) float32,
     capacity factor 8 (no drop at cp 1 or cp 4), one layer (a float32
     cp 1 run at capacity 8 takes ~60 GB), aux_loss_coef at its default:
-    this rank's undispatched logits against a cp 1 run of the same weights
-    on this card, and the loss, the aux, its expert block's gradients and
-    every replicated gradient against :func:`moe_ep_reference` (cp 1's
-    model with each rank's aux share taken of its own cp 4 rows), at
+    the tree of ``shard_moe_params(..., ep_axis="cp")`` (expert blocks,
+    ZeRO-3 elsewhere): this rank's undispatched logits against a cp 1 run
+    of the same weights on this card, and the loss, the aux and every
+    gradient (gathered) against :func:`moe_ep_reference` (cp 1's model
+    with each rank's aux share taken of its own cp 4 rows), at
     ``F32_LOSS_RTOL`` and ``F32_GRAD_RNORM`` (float32 so that no near-tied
     token changes expert between the runs); then the loss and gradients
     again under a key of overlap degree 2 (the staged runtime's
-    collectives beside the MoE exchanges); (b) bf16, the default capacity,
+    collectives beside the MoE exchanges); the ZeRO-3 tree without EP
+    (expert stacks over cp, gathered each layer; every rank routes the
+    whole batch) against the whole batch's reference; and EP over
+    ``"tp"`` of a (cp 2, tp 2) mesh against its key's reference, at the
+    same gates; (b) bf16, the default capacity,
     two layers: three ``moe_train_step``s, finite, each loss equal to the
     sum of the ranks' shares (``moe_loss_fn`` at the same weights, rel
     1e-5), every rank's step ms, and one slot exchange (``all_to_all`` of
@@ -6623,26 +6753,22 @@ def cp4_moe_ep(device: str, seq: int) -> dict:
     from magiattention_tpu_torch.comm.functional import all_to_all
     from magiattention_tpu_torch.config import DistAttnConfig, OverlapConfig
     from magiattention_tpu_torch.models import moe
+    from magiattention_tpu_torch.models.shard import gather_leaves
+    from magiattention_tpu_torch.parallel import ProcessMesh
 
     on_card = device == "cuda"
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    group, rank, cp = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
+    group, cp = dist.group.WORLD, dist.get_world_size()
     docs = _docs(seq, seq // 2)
 
     def key_of(cp_group):
         return api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, cp_group=cp_group,
                                       device=device)
 
-    def blockwise(names, grads, n_experts):
-        """This rank's block of the expert stacks' gradients."""
-        return [g[rank * n_experts // cp:(rank + 1) * n_experts // cp]
-                if n.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down") else g
-                for n, g in zip(names, grads)]
-
-    def f32_check(what, got, want):
-        worst, worst_rn, rn = grads_rel_norm(names, got, want)
+    def f32_check(what, got, want, tree):
+        worst, worst_rn, rn = grads_rel_norm(names, gather_leaves(got, tree, moe.LAYOUT), want)
         if not (all(torch.isfinite(g).all() for g in got) and worst_rn <= F32_GRAD_RNORM):
             raise AssertionError(f"cp4 moe{what}: gradient {worst} rel-norm {worst_rn:.3e} "
                                  f"against the reference, gate {F32_GRAD_RNORM}")
@@ -6667,12 +6793,18 @@ def cp4_moe_ep(device: str, seq: int) -> dict:
     rt = _mgr(key_o).runtime
     if not (rt.use_overlap and rt.num_stages >= 2):
         raise AssertionError(f"cp4 moe: the degree-2 key planned {rt.num_stages} stage(s)")
+    # EP over "tp" of (cp 2, tp 2): EP rank t routes block t of the global
+    # dispatched rows, the rows cp rank t holds
+    mesh22 = ProcessMesh(np.arange(4).reshape(2, 2), ("cp", "tp"))
+    key22 = api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, mesh=mesh22, cp_axis="cp",
+                                   device=device)
     with torch.no_grad():
         logits1, aux1 = moe.moe_forward(params, cfg, tokens, key1)
         logits1 = api.undispatch(logits1, key1)
-    ((loss_r, g_r, aux_r), (loss_ro, g_ro, _)), router_aux = moe_ep_reference(
-        params, cfg, tokens, labels, key1, (key4, key_o))
-    g_r, g_ro = blockwise(names, g_r, cfg.n_experts), blockwise(names, g_ro, cfg.n_experts)
+    refs, ref_all, router_aux = moe_ep_reference(params, cfg, tokens, labels, key1,
+                                                 (key4, key_o, key22))
+    (loss_r, g_r, aux_r), (loss_ro, g_ro, _), ref22 = refs
+    del refs  # each reference's gradients are freed once checked
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
     sharded = moe.shard_moe_params(params, api.get_mesh(key4), ep_axis="cp")
     with torch.no_grad():
@@ -6686,16 +6818,42 @@ def cp4_moe_ep(device: str, seq: int) -> dict:
         raise AssertionError(
             f"cp4 moe: loss {loss4.item()} vs {loss_r.item()}, aux {aux4.item()} vs "
             f"{aux_r.item()} (rel gate {F32_LOSS_RTOL}), logits rel-norm {logits_rn:.3e}")
-    worst, err = f32_check("", g4, g_r)
+    worst, err = f32_check("", g4, g_r, sharded)
     del g4, g_r, logits1, logits4
     loss_o, g_o = moe.moe_value_and_grad(sharded, cfg, tokens, labels, key_o, "cp")
     if not rel(loss_o, loss_ro) <= F32_LOSS_RTOL:
         raise AssertionError(f"cp4 moe degree 2: loss {loss_o.item()} vs {loss_ro.item()}")
-    worst_o, err_o = f32_check(" degree 2", g_o, g_ro)
+    worst_o, err_o = f32_check(" degree 2", g_o, g_ro, sharded)
     degree2 = dict(stages=rt.num_stages, overlapped=rt.use_overlap, loss=loss_o.item(),
                    loss_reference=loss_ro.item(), worst_grad=worst_o,
                    worst_grad_rel_norm_err=err_o[worst_o])
-    del params, sharded, g_o, g_ro
+    del sharded, g_o, g_ro
+
+    def sharded_check(what, tree, key, ep_axis, ref):
+        loss_w, g_w, aux_w = ref
+        with torch.no_grad():
+            aux_s = moe.moe_forward(tree, cfg, tokens, key, ep_axis)[1]
+        loss_s, g_s = moe.moe_value_and_grad(tree, cfg, tokens, labels, key, ep_axis)
+        if not (rel(loss_s, loss_w) <= F32_LOSS_RTOL and rel(aux_s, aux_w) <= F32_LOSS_RTOL):
+            raise AssertionError(f"cp4 moe {what}: loss {loss_s.item()} vs {loss_w.item()}, aux "
+                                 f"{aux_s.item()} vs {aux_w.item()} (rel gate {F32_LOSS_RTOL})")
+        w, e = f32_check(f" {what}", g_s, g_w, tree)
+        return dict(loss=loss_s.item(), loss_reference=loss_w.item(),
+                    loss_rel_err=rel(loss_s, loss_w), aux=aux_s.item(), aux_reference=aux_w.item(),
+                    worst_grad=w, worst_grad_rel_norm_err=e[w])
+
+    # the whole float32 tree goes before the no-EP run (cp 1's peak again)
+    tree_tp = moe.shard_moe_params(params, mesh22, ep_axis="tp")
+    tree_no_ep = moe.shard_moe_params(params, api.get_mesh(key4))
+    del params
+    if on_card:  # NCCL allocates the (cp 2, tp 2) lines' buffers at their first use
+        torch.cuda.empty_cache()
+    others = {"ep_over_tp_cp2_tp2": sharded_check("ep over tp", tree_tp, key22, "tp", ref22)}
+    del tree_tp, ref22
+    if on_card:
+        torch.cuda.empty_cache()
+    others["zero3_no_ep"] = sharded_check("zero3 no ep", tree_no_ep, key4, None, ref_all)
+    del tree_no_ep, ref_all
     if on_card:
         torch.cuda.empty_cache()
 
@@ -6733,7 +6891,7 @@ def cp4_moe_ep(device: str, seq: int) -> dict:
                    logits_rel_norm_err=logits_rn, worst_grad=worst, grad_rel_norm_errs=err,
                    cp1_peak_memory_gb=peak_gb,
                    gates=dict(loss_aux_rtol=F32_LOSS_RTOL, rel_norm=F32_GRAD_RNORM),
-                   overlap_degree2=degree2),
+                   overlap_degree2=degree2, **others),
         train=dict(dtype="bfloat16", layers=cfg_b.n_layers, capacity_factor=cfg_b.capacity_factor,
                    tokens=seq, losses=losses, rank_shares=shares, step_ms=step_ms),
         exchange=dict(slots=[cfg_b.n_experts, cap, cfg_b.dim], bytes_a_rank=slots.numel() * 2,
@@ -6750,10 +6908,13 @@ def cp4_video_dit(device: str) -> dict:
     configuration) at cp 4: loss and gradients against a cp 1 run of the
     same weights on this card (bf16; loss rel 1e-2, gradients rel-norm
     2e-2, the train gates), then every rank's ms of an AdamW step
-    (``make_optim_train_step``)."""
+    (``make_optim_train_step``); then in float32 the ZeRO-3 tree
+    (``shard_params``) at cp 4 against the replicated tree at cp 4
+    (:func:`_f32_step_check`)."""
     import torch
     import torch.distributed as dist
 
+    from magiattention_tpu_torch import api
     from magiattention_tpu_torch.models import video_dit
 
     on_card = device == "cuda"
@@ -6776,14 +6937,303 @@ def cp4_video_dit(device: str) -> dict:
     step = video_dit.make_optim_train_step(cfg, key4, optim)
     step_ms = _world_ms(lambda: step(params, clean, noise, DIT_TS[1]), on_card, warmup=1,
                         samples=5)
+    del params, optim
+    cfg32 = dit_config(on_card, dtype="float32")
+    whole = video_dit.init_params(cfg32, seed=0, device=device)
+    zero3 = _f32_step_check(
+        "cp4_video_dit zero3", whole, video_dit.shard_params(whole, api.get_mesh(key4)),
+        lambda t, _: video_dit.value_and_grad(t, cfg32, clean, noise, DIT_TS[0], key4),
+        video_dit.LAYOUT)
+    del whole
     res = dict(tokens=cfg.seqlen, frames=cfg.num_frames, loss_cp4=loss4.item(),
                loss_cp1=loss1.item(), loss_rel_err=loss_rel, worst_grad=worst,
                worst_grad_rel_norm_err=worst_rn, loss_rtol=TRAIN_LOSS_RTOL,
-               grad_rnorm=TRAIN_GRAD_RNORM, step_ms=step_ms)
-    del params, optim
+               grad_rnorm=TRAIN_GRAD_RNORM, step_ms=step_ms, zero3_float32=zero3)
     if on_card:
         torch.cuda.empty_cache()
     return res
+
+
+def _every_rank(x: float) -> list[float]:
+    """``x`` of every rank, in rank order."""
+    import torch
+    import torch.distributed as dist
+
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    mine = torch.tensor([float(x)], dtype=torch.float64, device=device)
+    every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return [t.item() for t in every]
+
+
+def _peak_gb(on_card: bool) -> list[float] | None:
+    import torch
+
+    return _every_rank(torch.cuda.max_memory_allocated() / 1e9) if on_card else None
+
+
+def world_train_steps(what: str, step, n: int, seq: int, n_layers: int, on_card: bool) -> dict:
+    """``n`` calls of ``step()`` (a train step returning its loss), the
+    ranks leaving a barrier together before each: every rank's ms (host
+    clock around a synchronize), the slowest rank's, global tokens/s, the
+    FFA launches of each step (on the card: one forward, one delta and one
+    backward mode's kernels a layer, :func:`step_launches`) and the
+    ``comm.functional`` collectives of each step."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch.comm.functional import (
+        collective_counts, reset_collective_counts,
+    )
+    from magiattention_tpu_torch.kernels import launch_counts
+
+    recs, total, mode = [], {}, None
+    for i in range(n):
+        before = launch_counts()
+        reset_collective_counts()
+        dist.barrier()
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = step().item()
+        if on_card:
+            torch.cuda.synchronize()
+        ms = _every_rank((time.perf_counter() - t1) * 1e3)
+        after = launch_counts()
+        launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if not np.isfinite(loss):
+            raise AssertionError(f"{what}: step {i} loss {loss} is not finite")
+        if on_card:
+            mode = step_launches(f"{what} step {i}", launches, n_layers)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        recs.append(dict(step=i, loss=loss, rank_ms=ms, slowest_ms=max(ms),
+                         tokens_per_s=seq / (max(ms) * 1e-3), collectives=collective_counts()))
+    return dict(steps=recs, losses=[r["loss"] for r in recs], launches=total, bwd_mode=mode,
+                slowest_ms=statistics.median(r["slowest_ms"] for r in recs))
+
+
+def cp4_zero3(device: str, seq: int) -> dict:
+    """Llama-3.1-8B at its widths and all 32 layers (on the CPU rehearsal
+    4 small layers) under ZeRO-3 at cp 4: bf16 compute over float32
+    masters, ``seq`` tokens in two causal documents, the tree from
+    :func:`sharded_llama_init` (``shard_params`` over the key's mesh, no
+    rank ever holding the whole tree). One warm step, then TRAIN_STEPS
+    timed ``train_step``s (:func:`world_train_steps`): finite losses that
+    fall, the launches of B1, B7 and the backward once a layer, one
+    all-gather and one reduce-scatter a sharded leaf a step (embed,
+    lm_head, seven a layer); every rank's peak memory after the warm step
+    against the card's total, and the replicated tree's float32 masters
+    and gradients counted on the host (never allocated); then one step
+    under ``torch.profiler`` (:func:`profile_run`)."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.models.llama import param_list, train_step
+
+    on_card = device == "cuda"
+    cfg = llama_config(on_card, n_layers=LLAMA_LAYERS if on_card else 4)
+    docs = _docs(seq, seq // 2)
+    key = api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, cp_group=dist.group.WORLD,
+                                 device=device)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sharded_llama_init(cfg, 0, api.get_mesh(key), device)
+    init_s = time.perf_counter() - t0
+    init_peak = _peak_gb(on_card)
+    gen = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (seq,), generator=gen, device=device)
+    labels = next_token_labels(tokens, seq // 2)
+
+    def step():
+        nonlocal params
+        params, loss = train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR)
+        return loss
+
+    t0 = time.perf_counter()
+    warm = step().item()
+    warm_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    run = world_train_steps("cp4_zero3", step, TRAIN_STEPS, seq, cfg.n_layers, on_card)
+    peak = _peak_gb(on_card)
+    losses = [warm] + run["losses"]
+    # one more step under the profiler on every rank (rank 0's is printed)
+    prof = profile_run(step) if on_card else None
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"cp4_zero3: the loss does not fall: {losses}")
+    sharded_leaves = 2 + 7 * cfg.n_layers
+    for rec in run["steps"]:
+        c = rec["collectives"]
+        if (c.get("all_gather"), c.get("reduce_scatter")) != (sharded_leaves, sharded_leaves):
+            raise AssertionError(f"cp4_zero3: step collectives {c}, want {sharded_leaves} "
+                                 "all-gathers and reduce-scatters")
+    n = llama_param_count(cfg)
+    held = sum(p.numel() * p.element_size() for p in param_list(params))
+    res = dict(
+        model=(f"Llama-3.1-8B widths, {cfg.n_layers} of {LLAMA_LAYERS} layers, bf16 over "
+               "float32 masters, seed 0" if on_card else f"small widths, {cfg.n_layers} layers"),
+        tokens=seq, documents=2, cp=dist.get_world_size(), parameters=n,
+        replicated_masters_and_grads_bytes=8 * n, rank_master_bytes=_every_rank(held),
+        init_s=init_s, init_peak_gb=init_peak, warm_step_s=warm_s, warm_loss=warm,
+        step_peak_gb=peak, profile_step=prof,
+        card_total_gb=torch.cuda.get_device_properties(0).total_memory / 1e9 if on_card else None,
+        gathers_a_step=sharded_leaves, reduce_scatters_a_step=sharded_leaves, **run,
+    )
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def _f32_step_check(what: str, whole: dict, sharded: dict, grads_of, layout) -> dict:
+    """One step of the replicated tree ``whole`` and of ``sharded``
+    (``grads_of(tree, sharded: bool)`` returns (loss, grads)): loss rel
+    F32_LOSS_RTOL, every gradient (gathered) and every parameter after
+    one SGD step at TRAIN_LR (gathered) rel-norm F32_GRAD_RNORM."""
+    from magiattention_tpu_torch.models.llama import sgd_
+    from magiattention_tpu_torch.models.shard import gather_leaves, gather_params
+
+    loss_r, g_r = grads_of(whole, False)
+    loss_s, g_s = grads_of(sharded, True)
+    names = layout.names(whole)
+    worst, worst_rn, _ = grads_rel_norm(names, gather_leaves(g_s, sharded, layout), g_r)
+    loss_rel = abs(loss_s.item() - loss_r.item()) / abs(loss_r.item())
+    sgd_(layout.leaves(whole), g_r, TRAIN_LR)
+    sgd_(layout.leaves(sharded), g_s, TRAIN_LR)
+    p_worst, p_rn, _ = grads_rel_norm(names, layout.leaves(gather_params(sharded)),
+                                      layout.leaves(whole))
+    if not (loss_rel <= F32_LOSS_RTOL and worst_rn <= F32_GRAD_RNORM and p_rn <= F32_GRAD_RNORM):
+        raise AssertionError(
+            f"{what}: loss rel {loss_rel:.3e} (gate {F32_LOSS_RTOL}), gradient {worst} "
+            f"rel-norm {worst_rn:.3e}, parameter {p_worst} rel-norm {p_rn:.3e} (gate "
+            f"{F32_GRAD_RNORM}) against the replicated tree")
+    return dict(loss_sharded=loss_s.item(), loss_replicated=loss_r.item(), loss_rel_err=loss_rel,
+                worst_grad=worst, worst_grad_rel_norm_err=worst_rn, worst_param=p_worst,
+                worst_param_rel_norm_err=p_rn,
+                gates=dict(loss_rtol=F32_LOSS_RTOL, rel_norm=F32_GRAD_RNORM))
+
+
+def cp4_zero3_check(device: str, seq: int) -> dict:
+    """The ZeRO-3 step in float32 at the same widths and 2 layers at cp 4
+    against the replicated trainer's step on the same seed-0 weights and
+    tokens (:func:`_f32_step_check`), after :func:`sharded_llama_init`'s
+    shards are held equal to ``shard_params(init_params(...))``'s to the
+    bit."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.models.llama import (
+        LAYOUT, init_params, param_list, shard_params, value_and_grad,
+    )
+
+    on_card = device == "cuda"
+    cfg = llama_config(on_card, dtype="float32")
+    docs = _docs(seq, seq // 2)
+    key = api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, cp_group=dist.group.WORLD,
+                                 device=device)
+    mesh = api.get_mesh(key)
+    whole = init_params(cfg, seed=0, device=device)
+    sharded = shard_params(whole, mesh)
+    lean = sharded_llama_init(cfg, 0, mesh, device)
+    if not all(torch.equal(a, b) for a, b in zip(param_list(lean), param_list(sharded))):
+        raise AssertionError("cp4_zero3_check: sharded_llama_init's shards are not shard_params'")
+    del lean
+    gen = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (seq,), generator=gen, device=device)
+    labels = next_token_labels(tokens, seq // 2)
+    res = _f32_step_check("cp4_zero3_check", whole, sharded,
+                          lambda t, _: value_and_grad(t, cfg, tokens, labels, key), LAYOUT)
+    res.update(dtype="float32", layers=cfg.n_layers, tokens=seq, init_bitwise=True)
+    del whole, sharded
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def cp4_tp_train(device: str, seq: int) -> dict:
+    """Megatron TP x ZeRO-3 at (cp 2, tp 2), the same widths and 2 layers:
+    ``shard_params(..., tp_axis="tp")`` and a ``head_axis="tp"`` key.
+    bf16: one warm step (each rank's q and kv heads in ``calc_attn``),
+    then TRAIN_STEPS timed steps; the same model's ZeRO-3 step at cp 4
+    timed the same way beside it. float32: one step against the
+    replicated trainer on the same mesh's cp line under a key without
+    ``head_axis`` (:func:`_f32_step_check`). Every rank's peak memory of
+    the bf16 steps."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.models import llama
+    from magiattention_tpu_torch.parallel import ProcessMesh
+
+    on_card = device == "cuda"
+    mesh = ProcessMesh(np.arange(4).reshape(2, 2), ("cp", "tp"))
+    docs = _docs(seq, seq // 2)
+
+    def key_of(**kw):
+        return api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, mesh=mesh, cp_axis="cp",
+                                      device=device, **kw)
+
+    key_tp = key_of(head_axis="tp")
+    cfg = llama_config(on_card)
+    gen = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (seq,), generator=gen, device=device)
+    labels = next_token_labels(tokens, seq // 2)
+    runs = {}
+    for name, shard_mesh, key, kw in (
+        ("tp_cp2_tp2", mesh, key_tp, {"tp_axis": "tp"}),
+        ("zero3_cp4", None, None, {}),
+    ):
+        if key is None:
+            key = api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq,
+                                         cp_group=dist.group.WORLD, device=device)
+            shard_mesh = api.get_mesh(key)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = sharded_llama_init(cfg, 0, shard_mesh, device, **kw)
+        heads, calc = [], llama.calc_attn
+
+        def recording(q, k, v, attn_key):
+            heads.append([q.shape[1], k.shape[1]])
+            return calc(q, k, v, attn_key)
+
+        def step(key=key):
+            nonlocal params
+            params, loss = llama.train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR)
+            return loss
+
+        llama.calc_attn = recording
+        try:
+            warm = step().item()
+        finally:
+            llama.calc_attn = calc
+        run = world_train_steps(f"cp4_tp_train {name}", step, TRAIN_STEPS, seq, cfg.n_layers,
+                                on_card)
+        runs[name] = dict(warm_loss=warm, heads_a_layer=heads, peak_gb=_peak_gb(on_card), **run)
+        del params
+    want = [[cfg.n_heads // 2, cfg.n_kv_heads // 2]] * cfg.n_layers
+    if runs["tp_cp2_tp2"]["heads_a_layer"] != want:
+        raise AssertionError(f"cp4_tp_train: calc_attn saw heads {runs['tp_cp2_tp2']['heads_a_layer']}"
+                             f", want {want}")
+    cfg32 = llama_config(on_card, dtype="float32")
+    whole = llama.init_params(cfg32, seed=0, device=device)
+    sharded = llama.shard_params(whole, mesh, tp_axis="tp")
+    key_cp = key_of()  # the cp line without head_axis: every head on every rank
+    check = _f32_step_check(
+        "cp4_tp_train", whole, sharded,
+        lambda t, tp: llama.value_and_grad(t, cfg32, tokens, labels, key_tp if tp else key_cp),
+        llama.LAYOUT)
+    del whole, sharded
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(mesh="(cp 2, tp 2)", tokens=seq, layers=cfg.n_layers, runs=runs,
+                check=dict(dtype="float32", **check))
 
 
 def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
@@ -6809,8 +7259,14 @@ def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
                   "shape": f"bf16 q [{seq}, {CP_HQ}, {CP_D}], k/v [{seq}, {CP_HK}, {CP_D}]",
                   **res, "atol": ATOL["bfloat16"], "rnorm": RNORM["bfloat16"]})
         del res
+        # cp4_zero3 last: its profiled step slows every later step in the
+        # process (on four H100s the DiT's cp 4 step went from 24.0 to 32.1
+        # ms after one)
         for name, run in (("cp4_moe_ep", lambda: cp4_moe_ep(device, seq)),
-                          ("cp4_video_dit", lambda: cp4_video_dit(device))):
+                          ("cp4_video_dit", lambda: cp4_video_dit(device)),
+                          ("cp4_tp_train", lambda: cp4_tp_train(device, seq)),
+                          ("cp4_zero3_check", lambda: cp4_zero3_check(device, seq)),
+                          ("cp4_zero3", lambda: cp4_zero3(device, seq))):
             out = run()
             if rank == 0:
                 emit({"phase": name, "world": CPB_WORLD, **out})
@@ -6959,6 +7415,7 @@ def main() -> int:
     ht = cp_hier_tp_phase()["launches"]
     train = train_phase()
     train_padded_phase(train)
+    shard = shard_cp1_phase()["launches"]
     moe_launches = moe_phase()["launches"]
     dit_launches = video_dit_phase()["launches"]
     d256_phase(peaks)
@@ -6972,8 +7429,9 @@ def main() -> int:
     # plus those of the qo-comm path (qo_comm phase), the CP baselines'
     # rank bodies (cp_baselines), the two-level, TP and sink runs
     # (cp_hier_tp), usp_nsa_attn's (usp_nsa), the train phase's remat
-    # step and the MoE and video DiT steps (moe, video_dit)
-    paths = (qo, cpb, ht, usp, train["remat"]["launches"], moe_launches, dit_launches)
+    # step, the MoE and video DiT steps (moe, video_dit) and the sharded
+    # tree's step (shard_cp1)
+    paths = (qo, cpb, ht, usp, train["remat"]["launches"], moe_launches, dit_launches, shard)
     extra = {k_: sum(p.get(k_, 0) for p in paths) for k_ in set().union(*paths)}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body; int8 spec verify's too

@@ -1,4 +1,5 @@
-"""Differentiable collectives over a subgroup, for the CP baselines.
+"""Differentiable collectives over a subgroup, for the CP baselines and the
+sharded trainers.
 
 The JAX baselines get these from XLA inside ``shard_map`` and their
 backward from AD; here each is a ``torch.autograd.Function`` whose
@@ -19,7 +20,22 @@ backward is the forward's adjoint, written out:
   gradient back along its hop, last hop first, adding it to its source's:
   one reverse hop per forward hop.
 - :func:`all_gather` along dim 0 (``all_gather_into_tensor``), whose
-  adjoint is the reduce-scatter (``reduce_scatter_tensor``, sum).
+  adjoint is the reduce-scatter (``reduce_scatter_tensor``, sum): the
+  group's ranks each hold a share of the gradient (their own rows'), as
+  a ZeRO-3 parameter gather over the data (cp) line needs.
+- Megatron's region primitives over a group whose ranks compute the same
+  rows (a tensor-parallel line): :func:`copy_to_region` (identity; the
+  adjoint all-reduces), :func:`reduce_from_region` (all-reduce; the
+  adjoint is the identity), :func:`scatter_to_region` (this rank's chunk
+  of dim 0; the adjoint all-gathers) and :func:`gather_from_region`
+  (all-gather along dim 0; the adjoint takes this rank's chunk). A value
+  outside a region is equal on every rank of the group and so is its
+  gradient, which the adjoints keep.
+
+Each collective issued here adds one to :func:`collective_counts`
+(``all_gather``, ``reduce_scatter``, ``all_reduce``): the trainers' count
+of a step's collectives. The CP runtime's GroupCast and GroupReduce and
+the trainers' own ``all_reduce`` calls are not counted here.
 
 Each takes the subgroup and, where peers are named, the global ranks of
 the subgroup in group-rank order (``ProcessMesh.line``): point-to-point
@@ -29,10 +45,22 @@ subgroup of one rank: every collective is then the identity.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+
+_COUNTS: Counter = Counter()
+
+
+def collective_counts() -> dict[str, int]:
+    """The collectives issued here since the last reset, by kind."""
+    return dict(_COUNTS)
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.clear()
 
 
 def _group_size(group) -> int:
@@ -171,6 +199,23 @@ def ring_pass(xs: tuple, hops: list[Hop]) -> tuple[list[list[torch.Tensor]], lis
 def _gather(x: torch.Tensor, group) -> torch.Tensor:
     out = x.new_empty((_group_size(group) * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    _COUNTS["all_gather"] += 1
+    return out
+
+
+def _chunk(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's chunk of dim 0 of ``x`` (group-rank order)."""
+    n = _group_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of size {x.shape[0]} does not split in {n}")
+    rows = x.shape[0] // n
+    return x.narrow(0, dist.get_rank(group) * rows, rows)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    _COUNTS["all_reduce"] += 1
     return out
 
 
@@ -184,6 +229,7 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         out = g.new_empty((g.shape[0] // _group_size(ctx.group), *g.shape[1:]))
         dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
+        _COUNTS["reduce_scatter"] += 1
         return out, None
 
 
@@ -194,3 +240,77 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     if _group_size(group) == 1:
         return x
     return _AllGather.apply(x, group)
+
+
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _chunk(x, group).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group), None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk(g, ctx.group).contiguous(), None
+
+
+def _region(fn, x: torch.Tensor, group) -> torch.Tensor:
+    return x if _group_size(group) == 1 else fn.apply(x, group)
+
+
+def copy_to_region(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a region of ``group`` (Megatron's copy): the
+    identity; the backward all-reduces the gradient over the group."""
+    return _region(_CopyToRegion, x, group)
+
+
+def reduce_from_region(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the group's partial ``x`` leaving a region (Megatron's
+    reduce): ``all_reduce``; the backward is the identity."""
+    return _region(_ReduceFromRegion, x, group)
+
+
+def scatter_to_region(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's chunk of dim 0 of a value equal on every rank of
+    ``group`` (Megatron's scatter); the backward all-gathers the chunks'
+    gradients."""
+    return _region(_ScatterToRegion, x, group)
+
+
+def gather_from_region(x: torch.Tensor, group) -> torch.Tensor:
+    """Every group rank's ``x`` along dim 0 in group-rank order, for a
+    computation that each rank of ``group`` then runs alike (Megatron's
+    gather); the backward takes this rank's chunk of the gradient, which
+    every rank holds whole."""
+    return _region(_GatherFromRegion, x, group)

@@ -36,8 +36,32 @@ The parameter trees of the three families (this one, ``moe``,
 ``video_dit``) are dicts of top-level tensors and a list ``layers`` of
 dicts; :class:`Layout` names each family's keys in their fixed order, so
 the helpers that flatten, name, rebuild and carry JAX trees over serve
-all three. ``shard_params`` (ZeRO-3, Megatron TP) is not ported yet: the
-parameters are replicated on every rank (ROADMAP queue A item 4).
+all three.
+
+:func:`shard_params` is JAX's placement rule (ZeRO-3 over the cp axis,
+Megatron TP over ``tp_axis``) with each rank keeping its block of every
+leaf (``models/shard.py``: the tree keeps ``LAYOUT`` and carries its
+specs under ``"sharding"``; :func:`gather_params` is the inverse). The
+forward, the trainers and ``remat`` take either tree. The collectives of
+one step at cp > 1, besides the attention runtime's own:
+
+- replicated: two ``all_reduce`` calls (the label count; the flat sum of
+  the loss and every gradient).
+- ZeRO-3: one ``all_gather`` over the cp line per sharded leaf where the
+  forward uses it (embed, lm_head and each layer's seven projections;
+  the norms stay replicated), again in the recompute under ``remat``; one
+  ``reduce_scatter`` per sharded leaf in the backward (its gradient
+  arrives summed and cut to the block); the same two ``all_reduce``
+  calls, the flat one now carrying the loss and the replicated leaves.
+- ZeRO-3 + TP (the key's ``head_axis`` is ``tp_axis``): the same gathers
+  (each rank gathers its TP block over the cp line), plus four
+  ``all_reduce`` calls over the TP line a layer: the attention's and the
+  MLP's outputs leave the TP region (forward), and their inputs' gradients
+  (backward); two more a layer in the recompute under ``remat``. Each
+  rank computes ``n_heads / tp`` q and ``n_kv_heads / tp`` kv heads. The
+  loss's and the flat ``all_reduce`` run over the cp line only: the TP
+  ranks hold the same rows, and a replicated leaf's gradient is equal
+  across a TP line.
 """
 
 from __future__ import annotations
@@ -52,8 +76,19 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..api import calc_attn, dispatch, get_position_ids
+from ..comm.functional import copy_to_region, reduce_from_region
 from ..device import resolve_device
 from ..dist_attn_runtime_mgr import DistAttnRuntimeKey
+from .shard import (  # noqa: F401  (gather_params re-exported)
+    COLUMN,
+    ROW,
+    SHARDING,
+    ShardSpec,
+    gather_params,
+    gatherer,
+    shard_tree,
+    tp_region,
+)
 
 _LAYER_KEYS = (
     "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down",
@@ -184,15 +219,36 @@ def param_names(params: dict) -> list[str]:
 
 
 def shard_params(params: dict, mesh, axis: str = "cp", tp_axis: str | None = None) -> dict:
-    """JAX's ZeRO-3 first-dim sharding over ``axis`` with optional
-    Megatron TP over ``tp_axis``: in per-rank processes every gather,
-    reduce-scatter and TP all-reduce that XLA inserts for it is a
-    collective to write out with its backward, not ported yet (ROADMAP
-    queue A item 4). The replicated parameters compute the same."""
-    raise NotImplementedError(
-        f"shard_params (ZeRO-3 over {axis!r}, TP over {tp_axis!r}) waits for ROADMAP "
-        "queue A item 4; the replicated parameters compute the same"
-    )
+    """This rank's blocks of ``params`` under JAX's rule, leaf by leaf, on
+    the ``ProcessMesh`` ``mesh`` (``api.get_mesh(key)``): a leaf of two
+    dims or more whose first dim ``axis`` divides is ZeRO-3-sharded on dim
+    0 over ``axis``; with ``tp_axis``, the 2-D wq/wk/wv/w_gate/w_up whose
+    columns tp divides are column-parallel (dim 1 over ``tp_axis``, dim 0
+    over ``axis`` where it divides), and wo/w_down are row-parallel over
+    ``(tp_axis, axis)`` where cp * tp divides the rows (else over
+    ``tp_axis`` alone where the first dim does not divide by cp); the
+    norms stay replicated.
+
+    A row-parallel leaf's layout is the port's own: TP rank ``t`` and cp
+    rank ``c`` hold row block ``t * cp + c`` (JAX's ``P((cp, tp))``
+    order is ``c * tp + t``), so one gather over the cp line gives TP
+    rank ``t`` its rows. :func:`gather_params` gives back JAX's whole
+    tensors. The tree keeps :data:`LAYOUT` and carries its specs under
+    ``"sharding"``."""
+    cp = mesh.shape[axis]
+    tp = mesh.shape[tp_axis] if tp_axis else 1
+
+    def spec_of(name, shape):
+        dp_ok = len(shape) >= 2 and shape[0] % cp == 0
+        d0 = (axis,) if dp_ok else ()
+        if tp_axis and len(shape) == 2:
+            if name in COLUMN and shape[1] % tp == 0:
+                return ShardSpec(d0, (tp_axis,))
+            if name in ROW and shape[0] % (cp * tp if dp_ok else tp) == 0:
+                return ShardSpec((tp_axis, axis) if dp_ok else (tp_axis,))
+        return ShardSpec(d0)
+
+    return shard_tree(params, mesh, spec_of, axis, tp_axis)
 
 
 def _rms_norm(x, w, eps):
@@ -213,17 +269,20 @@ def _rope(x, pos, theta):
 
 def attn_block(x, lyr, cfg: LlamaConfig, pos, attn_key: DistAttnRuntimeKey):
     """Pre-norm attention sub-block on the dispatched rows: qkv, rope, CP
-    attention, wo, residual."""
+    attention, wo, residual. Under Megatron TP (``lyr`` a view whose
+    projections are this rank's TP blocks) the normed rows enter the TP
+    region, q/k/v hold this rank's heads, and wo's partial products leave
+    it summed."""
     dt = x.dtype
-    h = _rms_norm(x, lyr["attn_norm"], cfg.norm_eps)
-    q = (h @ lyr["wq"].to(dt)).reshape(-1, cfg.n_heads, cfg.head_dim)
-    k = (h @ lyr["wk"].to(dt)).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lyr["wv"].to(dt)).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+    group = tp_region(lyr)
+    h = copy_to_region(_rms_norm(x, lyr["attn_norm"], cfg.norm_eps), group)
+    q = (h @ lyr["wq"].to(dt)).unflatten(-1, (-1, cfg.head_dim))
+    k = (h @ lyr["wk"].to(dt)).unflatten(-1, (-1, cfg.head_dim))
+    v = (h @ lyr["wv"].to(dt)).unflatten(-1, (-1, cfg.head_dim))
     q = _rope(q, pos, cfg.rope_theta)
     k = _rope(k, pos, cfg.rope_theta)
     attn_out, _ = calc_attn(q, k, v, attn_key)
-    attn_out = attn_out.reshape(-1, cfg.n_heads * cfg.head_dim)
-    return x + attn_out @ lyr["wo"].to(dt)
+    return x + reduce_from_region(attn_out.flatten(1) @ lyr["wo"].to(dt), group)
 
 
 def _nll_sum(logits, labels):
@@ -282,10 +341,11 @@ def run_layers(layer: Callable, x, layers: list, remat: bool):
 
 def _mlp(x, lyr, cfg: LlamaConfig):
     dt = x.dtype
-    h = _rms_norm(x, lyr["mlp_norm"], cfg.norm_eps)
+    group = tp_region(lyr)
+    h = copy_to_region(_rms_norm(x, lyr["mlp_norm"], cfg.norm_eps), group)
     gate = F.silu(h @ lyr["w_gate"].to(dt))
     up = h @ lyr["w_up"].to(dt)
-    return x + (gate * up) @ lyr["w_down"].to(dt)
+    return x + reduce_from_region((gate * up) @ lyr["w_down"].to(dt), group)
 
 
 def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: DistAttnRuntimeKey):
@@ -293,17 +353,20 @@ def forward(params: dict, cfg: LlamaConfig, tokens: torch.Tensor, attn_key: Dist
     dispatched rows: ``(shard, vocab)`` float32 in DISPATCHED order (the
     loss dispatches the labels instead of undispatching the logits)."""
     dt = cfg.tdtype
+    use = gatherer(params, attn_key)
+    top = use.top(params)
     # this rank's tokens, then their embeddings: the embedding's gradient
     # is this rank's share, as every other parameter's
-    x = params["embed"][dispatch(tokens, attn_key).long()].to(dt)  # (shard, dim)
+    x = top["embed"][dispatch(tokens, attn_key).long()].to(dt)  # (shard, dim)
     pos = get_position_ids(attn_key)
 
     def layer(x, lyr):
+        lyr = use.layer(lyr)
         return _mlp(attn_block(x, lyr, cfg, pos, attn_key), lyr, cfg)
 
     x, _ = run_layers(layer, x, params["layers"], cfg.remat)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"].to(dt)).float()
+    x = _rms_norm(x, top["final_norm"], cfg.norm_eps)
+    return (x @ top["lm_head"].to(dt)).float()
 
 
 def loss_fn(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeKey):
@@ -317,20 +380,25 @@ def loss_fn(params, cfg: LlamaConfig, tokens, labels, attn_key: DistAttnRuntimeK
 
 def tree_value_and_grad(
     loss_of: Callable, params: dict, layout: Layout, attn_key: DistAttnRuntimeKey | None = None,
-    local: Sequence[bool] | None = None,
 ):
     """(loss, grads in ``layout.leaves`` order) of ``loss_of(tree)`` by
     autograd. At cp > 1 (``attn_key``'s cp group) the ranks' losses and
     the gradients are added over the group by one flat ``all_reduce``:
-    every rank gets the global loss and gradients. A leaf flagged in
-    ``local`` is this rank's own block (an expert stack under expert
-    parallelism): its gradient is already complete and is not summed."""
+    every rank gets the global loss and gradients. On a sharded tree a
+    leaf split over the cp axis (a ZeRO-3 leaf, an expert block under
+    expert parallelism over it) is this rank's block, its gradient
+    already complete: it is not summed."""
+    n_layers = len(params["layers"])
     leaves = [p.detach().requires_grad_(True) for p in layout.leaves(params)]
-    loss = loss_of(layout.rebuild(leaves, len(params["layers"])))
+    live = layout.rebuild(leaves, n_layers)
+    sharding = params.get(SHARDING)
+    if sharding is not None:
+        live[SHARDING] = sharding
+    loss = loss_of(live)
     grads = list(torch.autograd.grad(loss, leaves))
     loss = loss.detach()
     if attn_key is not None and attn_key.cp_size > 1:
-        local = local or [False] * len(grads)
+        local = sharding.complete(layout, n_layers) if sharding else [False] * len(grads)
         summed = [i for i, own in enumerate(local) if not own]
         flat = torch.cat([loss.reshape(1).float()] + [grads[i].reshape(-1).float() for i in summed])
         dist.all_reduce(flat, group=attn_key.cp_group)

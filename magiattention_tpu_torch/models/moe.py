@@ -27,23 +27,37 @@ group, laid out as JAX's ``(ep, E/ep, C, d)`` exchange
 the inverse exchange). ``aux`` is the group mean (JAX's ``pmean``).
 
 Per-rank processes: at cp > 1 each rank holds its dispatched rows. With
-``ep_axis`` (the key's cp axis, JAX's layout of EP group == CP group)
+``ep_axis`` the key's cp axis (JAX's layout of EP group == CP group)
 each rank routes its own rows, as each shard of JAX's ``shard_map``
-does. Without EP, JAX's layer routes the global dispatched array; here
-each rank gathers every rank's rows (``all_gather``, whose backward
-reduce-scatters), routes all of them on the replicated experts and keeps
-its own rows' outputs, so capacity and drops are JAX's. Every rank then
-runs the expert FFN over all ``cp * S`` rows, cp times one shard's work
-(JAX's global array pays it once across the devices): at cp > 1, pass
-``ep_axis``.
+does. With ``ep_axis`` another axis of the key's mesh (``"tp"`` of a
+(cp, tp) mesh), JAX's ``shard_map`` gives EP rank ``t`` the rows
+``[t * S / ep, (t + 1) * S / ep)`` of the global dispatched array,
+replicated over the cp axis: here each rank gathers the cp line's rows
+(``all_gather``), takes its EP block (``scatter_to_region`` over the EP
+line, whose ranks run alike), routes it, and gathers the EP line's
+outputs back (``gather_from_region``) to keep its own rows; the router
+enters the EP region (``copy_to_region``: its gradient summed over the
+EP line) and aux is the EP line's mean (``reduce_from_region``), so aux
+and the drops are JAX's per shard. Without EP, JAX's layer routes the
+global dispatched array; here each rank gathers every rank's rows
+(``all_gather``, whose backward reduce-scatters), routes all of them on
+the whole expert stacks and keeps its own rows' outputs, so capacity and
+drops are JAX's. Every rank then runs the expert FFN over all ``cp * S``
+rows, cp times one shard's work (JAX's global array pays it once across
+the devices): at cp > 1, pass ``ep_axis``.
+
+:func:`shard_moe_params` is JAX's: the expert stacks split by expert
+over ``ep_axis`` (each rank's block, used as held), or without it
+ZeRO-3-sharded over ``dp_axis`` (gathered each layer before the FFN);
+every other leaf follows llama's ZeRO-3 rule over ``dp_axis``.
 
 Gradients at cp > 1 follow Llama's convention: each rank's loss is its
 share of the global loss (the CE share ``nll_sum_r / global_count``, the
 aux share ``aux_coef * aux / cp``), and one flat ``all_reduce`` sums the
-replicated parameters' gradients. The expert stacks that
-:func:`shard_moe_params` cut to this rank's block are not summed: under
-EP their gradients are already complete, every rank's contribution
-brought home by the exchange's backward.
+gradients of the leaves not split over the cp axis. A ZeRO-3 leaf's
+gradient arrives summed by its gather's backward, and an expert block's
+under EP over the cp axis is complete: every rank's contribution brought
+home by the exchange's backward.
 """
 
 from __future__ import annotations
@@ -56,7 +70,14 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..api import dispatch, get_mesh, get_position_ids
-from ..comm.functional import all_gather, all_to_all
+from ..comm.functional import (
+    all_gather,
+    all_to_all,
+    copy_to_region,
+    gather_from_region,
+    reduce_from_region,
+    scatter_to_region,
+)
 from ..device import resolve_device
 from ..dist_attn_runtime_mgr import DistAttnRuntimeKey
 from .llama import (
@@ -70,6 +91,7 @@ from .llama import (
     sgd_,
     tree_value_and_grad,
 )
+from .shard import ShardSpec, gatherer, shard_tree, zero3_spec
 
 _EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 LAYOUT = Layout(
@@ -148,30 +170,26 @@ def _check_experts_divisible(n_experts: int, ep: int, ep_axis) -> None:
 
 
 def shard_moe_params(params: dict, mesh, dp_axis: str = "cp", ep_axis: str | None = None) -> dict:
-    """Expert sharding over ``ep_axis`` of the ``ProcessMesh``: each rank
-    keeps only its block ``[r * E/ep, (r + 1) * E/ep)`` of the expert
-    stacks (``r`` its coordinate on ``ep_axis``); every other tensor stays
-    replicated (JAX also ZeRO-3-shards them over ``dp_axis``, which is a
-    layout, not a change of what is computed). Without ``ep_axis`` JAX
-    ZeRO-3-shards the expert stacks over ``dp_axis``: that is
-    ``shard_params``' work, not ported yet (ROADMAP queue A item 4)."""
-    if ep_axis is None:
-        raise NotImplementedError(
-            "shard_moe_params without ep_axis is ZeRO-3 sharding over "
-            f"{dp_axis!r}, which waits with shard_params (ROADMAP queue A item 4); "
-            "the replicated parameters compute the same"
-        )
-    ep = mesh.shape[ep_axis]
-    r = mesh.coord(ep_axis)
-    layers = []
-    for lyr in params["layers"]:
-        new = dict(lyr)
-        for key in _EXPERT_KEYS:
-            _check_experts_divisible(lyr[key].shape[0], ep, ep_axis)
-            n = lyr[key].shape[0] // ep
-            new[key] = lyr[key][r * n:(r + 1) * n].clone()
-        layers.append(new)
-    return {**params, "layers": layers}
+    """This rank's blocks of ``params`` under JAX's rule on the
+    ``ProcessMesh`` ``mesh``: the expert stacks (3-D ``w_gate``, ``w_up``,
+    ``w_down``) split by expert over ``ep_axis`` (block ``[r * E/ep, (r +
+    1) * E/ep)`` for coordinate ``r``), or without it ZeRO-3-sharded over
+    ``dp_axis`` where it divides the expert count, else replicated; every
+    other leaf follows llama's ZeRO-3 rule over ``dp_axis``. ``ep_axis``
+    may equal ``dp_axis``. The tree keeps :data:`LAYOUT` and carries its
+    specs under ``"sharding"``."""
+    dp = mesh.shape[dp_axis]
+    ep = mesh.shape[ep_axis] if ep_axis else 1
+
+    def spec_of(name, shape):
+        if name in _EXPERT_KEYS and len(shape) == 3:
+            if ep_axis:
+                _check_experts_divisible(shape[0], ep, ep_axis)
+                return ShardSpec((ep_axis,), ep=True)
+            return ShardSpec((dp_axis,) if shape[0] % dp == 0 else ())
+        return zero3_spec(shape, mesh, dp_axis)
+
+    return shard_tree(params, mesh, spec_of, dp_axis, None)
 
 
 # ---------------------------------------------------------------------------
@@ -216,17 +234,23 @@ def _route(h32: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig):
 
 
 def _moe_ffn_local(h, router, w_gate, w_up, w_down, cfg: MoEConfig, group=None, ep: int = 1,
-                   rank: int = 0):
+                   rank: int = 0, replicas: bool = False):
     """MoE FFN on one shard's tokens ``h (S_local, dim)``: ``(y, aux)``.
 
     With ``ep > 1`` the token slots go to the expert shards of ``group``
     and back (this process is group rank ``rank``) and ``aux`` is the
     group mean. The expert stacks are either the whole stack (this rank
     computes its block of it) or already its block ``(E/ep, ...)``.
+    ``replicas``: the group's ranks hold the same rows outside the layer
+    (EP over an axis other than cp), so the router and whole stacks enter
+    the group's region and aux leaves it as a mean; otherwise the group
+    is the cp line, whose ranks' losses add.
     """
     dt = h.dtype
     S, d = h.shape
     E = cfg.n_experts
+    if replicas:
+        router = copy_to_region(router, group)
     slot, gates, aux, C = _route(h.float(), router, cfg)
 
     # fill the (E, C) slots by a gather: slot -> its token, else a zero row.
@@ -242,17 +266,21 @@ def _moe_ffn_local(h, router, w_gate, w_up, w_down, cfg: MoEConfig, group=None, 
     n_local = E // ep
     if w_gate.shape[0] != n_local:  # the whole stacks: this rank's block
         lo, hi = rank * n_local, (rank + 1) * n_local
-        w_gate, w_up, w_down = w_gate[lo:hi], w_up[lo:hi], w_down[lo:hi]
+        w_gate, w_up, w_down = (
+            (copy_to_region(w, group) if replicas else w)[lo:hi] for w in (w_gate, w_up, w_down))
     if ep > 1:
         # send each peer its expert block's slots, receive this block's
         # slots from every peer: (ep = source, E/ep, C, d), then source
         # peers stacked into the slot axis (E/ep, ep*C, d)
         recv = all_to_all(slots, group, 0, 0).view(ep, n_local, C, d)
         slots = recv.transpose(0, 1).reshape(n_local, ep * C, d)
-        mean = aux.detach().clone()
-        dist.all_reduce(mean, group=group)
-        # the group mean's value; the gradient flows to this rank's aux
-        aux = aux + (mean / ep - aux).detach()
+        if replicas:
+            aux = reduce_from_region(aux, group) / ep
+        else:
+            mean = aux.detach().clone()
+            dist.all_reduce(mean, group=group)
+            # the group mean's value; the gradient flows to this rank's aux
+            aux = aux + (mean / ep - aux).detach()
 
     # batched expert FFN: one bmm per projection over the local experts
     g = F.silu(torch.bmm(slots, w_gate.to(dt)))
@@ -305,38 +333,47 @@ def moe_forward(params: dict, cfg: MoEConfig, tokens: torch.Tensor, attn_key: Di
     """Forward of ``tokens (S,)`` (natural order) on this rank's
     dispatched rows: ``(logits (shard, vocab) float32 in DISPATCHED order,
     aux)``, aux the mean over layers. ``ep_axis`` runs the experts
-    expert-parallel over that axis of the key's mesh (``api.get_mesh``),
-    which must be the key's cp axis."""
+    expert-parallel over that axis of the key's mesh (``api.get_mesh``):
+    the key's cp axis (each rank routes its own rows), or another axis
+    (each EP rank routes its block of the global dispatched rows)."""
     dt = cfg.tdtype
-    x = params["embed"][dispatch(tokens, attn_key).long()].to(dt)
+    use = gatherer(params, attn_key)
+    top = use.top(params)
+    x = top["embed"][dispatch(tokens, attn_key).long()].to(dt)
     pos = get_position_ids(attn_key)
-    mesh = gather = None
-    if ep_axis is not None:
-        if ep_axis != attn_key.cp_axis:
-            raise ValueError(
-                f"ep_axis {ep_axis!r} is not the key's cp axis {attn_key.cp_axis!r}: "
-                "EP over another axis waits with shard_params (ROADMAP queue A item 4)"
-            )
-        mesh = get_mesh(attn_key)
-    elif attn_key.cp_size > 1:
+    mesh = get_mesh(attn_key) if ep_axis is not None else None
+    if mesh is not None and ep_axis not in mesh.axis_names:
+        raise ValueError(f"ep_axis {ep_axis!r} is not an axis of the key's mesh {mesh.axis_names}")
+    if ep_axis != attn_key.cp_axis and attn_key.cp_size > 1:
         check_cp_group(attn_key)
-        gather = attn_key.cp_group
+    s_cp = attn_key.cp_rank
+
+    def ffn(h, lyr):
+        if ep_axis == attn_key.cp_axis:
+            return moe_ffn(h, lyr, cfg, mesh=mesh, ep_axis=ep_axis)
+        s = h.shape[0]
+        rows = all_gather(h, attn_key.cp_group)  # the global dispatched rows
+        if ep_axis is None:  # route them all, as JAX's layer does
+            y, aux = moe_ffn(rows, lyr, cfg)
+        else:  # EP rank t routes block t of them, as JAX's shard_map
+            ep, group = mesh.shape[ep_axis], mesh.group(ep_axis)
+            _check_experts_divisible(cfg.n_experts, ep, ep_axis)
+            y, aux = _moe_ffn_local(
+                scatter_to_region(rows, group), lyr["router"], lyr["w_gate"], lyr["w_up"],
+                lyr["w_down"], cfg, group=group, ep=ep, rank=mesh.coord(ep_axis), replicas=True)
+            y = gather_from_region(y, group)
+        return y[s_cp * s:(s_cp + 1) * s], aux
 
     def layer(x, lyr):
+        lyr = use.layer(lyr)
         x = attn_block(x, lyr, cfg, pos, attn_key)
-        h = _rms_norm(x, lyr["mlp_norm"], cfg.norm_eps)
-        if gather is None:
-            y, aux = moe_ffn(h, lyr, cfg, mesh=mesh, ep_axis=ep_axis)
-        else:  # route the global dispatched rows, as JAX's layer does
-            y, aux = moe_ffn(all_gather(h, gather), lyr, cfg)
-            s = h.shape[0]
-            y = y[attn_key.cp_rank * s:(attn_key.cp_rank + 1) * s]
+        y, aux = ffn(_rms_norm(x, lyr["mlp_norm"], cfg.norm_eps), lyr)
         return x + y, aux
 
     x, auxes = run_layers(layer, x, params["layers"], cfg.remat)
     aux = torch.stack(auxes).sum() if auxes else torch.zeros((), device=x.device)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"].to(dt)).float()
+    x = _rms_norm(x, top["final_norm"], cfg.norm_eps)
+    logits = (x @ top["lm_head"].to(dt)).float()
     return logits, aux / max(cfg.n_layers, 1)
 
 
@@ -355,15 +392,11 @@ def moe_loss_fn(params, cfg: MoEConfig, tokens, labels, attn_key: DistAttnRuntim
 def moe_value_and_grad(params, cfg: MoEConfig, tokens, labels, attn_key: DistAttnRuntimeKey,
                        ep_axis: str | None = None):
     """(loss, grads in ``LAYOUT.leaves`` order). At cp > 1 one flat
-    ``all_reduce`` sums the loss shares and every gradient but those of
-    expert stacks held as this rank's block (``shard_moe_params``)."""
-    local = [
-        name.rsplit(".", 1)[-1] in _EXPERT_KEYS and p.shape[0] != cfg.n_experts
-        for name, p in zip(LAYOUT.names(params), LAYOUT.leaves(params))
-    ]
+    ``all_reduce`` sums the loss shares and the gradients of the leaves
+    not split over the cp axis (``llama.tree_value_and_grad``)."""
     return tree_value_and_grad(
         lambda live: moe_loss_fn(live, cfg, tokens, labels, attn_key, ep_axis),
-        params, LAYOUT, attn_key, local,
+        params, LAYOUT, attn_key,
     )
 
 

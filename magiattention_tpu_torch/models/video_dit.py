@@ -16,7 +16,10 @@ are dispatched before the input projection, so every parameter's
 gradient on a rank is its rows' share. At cp > 1 the loss is the share of
 JAX's global mean: the rank's squared-error sum over ``seqlen * in_dim``,
 and ``value_and_grad``'s one flat ``all_reduce`` sums loss and gradients.
-``shard_params`` is not ported yet (ROADMAP queue A item 4).
+Projection weights reuse llama's names, so ``llama.shard_params``
+(ZeRO-3, Megatron TP) applies unchanged, as in JAX (re-exported here):
+the AdaLN, patch-embedding and output leaves follow its ZeRO-3 rule, and
+the forward gathers through llama's helper (``models/shard.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..utils.sparse_utils import (
     block_mask_to_ranges,
     make_video_block_mask,
 )
+from ..comm.functional import copy_to_region, reduce_from_region
 from .llama import (  # noqa: F401  (shard_params re-exported, as in JAX)
     Layout,
     _rms_norm,
@@ -45,6 +49,7 @@ from .llama import (  # noqa: F401  (shard_params re-exported, as in JAX)
     shard_params,
     tree_value_and_grad,
 )
+from .shard import gatherer, tp_region
 
 LAYOUT = Layout(
     ("w_in", "frame_emb", "spatial_emb", "w_t1", "w_t2", "final_norm", "w_out"),
@@ -214,21 +219,26 @@ def _cond(params: dict, cfg: VideoDiTConfig, t, device) -> torch.Tensor:
 
 
 def _block(x, lyr, cfg: VideoDiTConfig, cond, attend):
-    """One AdaLN transformer block; ``attend(q, k, v)`` is the attention."""
+    """One AdaLN transformer block; ``attend(q, k, v)`` is the attention.
+    Under Megatron TP the projections are this rank's blocks, as in
+    llama's ``attn_block`` and ``_mlp``."""
     dt = x.dtype
+    group = tp_region(lyr)
     mods = (cond @ lyr["w_mod"] + lyr["b_mod"]).reshape(6, cfg.dim)
     h = _rms_norm(x, lyr["attn_norm"], cfg.norm_eps)
     h, gate_a = _modulate(h, mods[0:3], dt)
-    q = (h @ lyr["wq"].to(dt)).reshape(-1, cfg.n_heads, cfg.head_dim)
-    k = (h @ lyr["wk"].to(dt)).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lyr["wv"].to(dt)).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
-    attn_out = attend(q, k, v).reshape(-1, cfg.n_heads * cfg.head_dim)
-    x = x + gate_a.to(dt) * (attn_out @ lyr["wo"].to(dt))
+    h = copy_to_region(h, group)
+    q = (h @ lyr["wq"].to(dt)).unflatten(-1, (-1, cfg.head_dim))
+    k = (h @ lyr["wk"].to(dt)).unflatten(-1, (-1, cfg.head_dim))
+    v = (h @ lyr["wv"].to(dt)).unflatten(-1, (-1, cfg.head_dim))
+    attn_out = attend(q, k, v).flatten(1)
+    x = x + gate_a.to(dt) * reduce_from_region(attn_out @ lyr["wo"].to(dt), group)
 
     h = _rms_norm(x, lyr["mlp_norm"], cfg.norm_eps)
     h, gate_m = _modulate(h, mods[3:6], dt)
+    h = copy_to_region(h, group)
     up = F.silu(h @ lyr["w_gate"].to(dt)) * (h @ lyr["w_up"].to(dt))
-    return x + gate_m.to(dt) * (up @ lyr["w_down"].to(dt))
+    return x + gate_m.to(dt) * reduce_from_region(up @ lyr["w_down"].to(dt), group)
 
 
 def _embed(params, cfg: VideoDiTConfig, latents, pos):
@@ -245,19 +255,21 @@ def forward(params: dict, cfg: VideoDiTConfig, latents: torch.Tensor, t,
     natural order) at diffusion time ``t`` (a scalar in [0, 1]): this
     rank's ``(shard, in_dim)`` float32 in DISPATCHED order (the loss
     dispatches the target instead of undispatching the prediction)."""
+    use = gatherer(params, attn_key)
+    top = use.top(params)
     pos = get_position_ids(attn_key)
-    x = _embed(params, cfg, dispatch(latents, attn_key), pos)
-    cond = _cond(params, cfg, t, x.device)
+    x = _embed(top, cfg, dispatch(latents, attn_key), pos)
+    cond = _cond(top, cfg, t, x.device)
 
     def attend(q, k, v):
         return calc_attn(q, k, v, attn_key)[0]
 
     def layer(x, lyr):
-        return _block(x, lyr, cfg, cond, attend)
+        return _block(x, use.layer(lyr), cfg, cond, attend)
 
     x, _ = run_layers(layer, x, params["layers"], cfg.remat)
-    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x.float() @ params["w_out"]
+    x = _rms_norm(x, top["final_norm"], cfg.norm_eps)
+    return x.float() @ top["w_out"]
 
 
 def _flow(clean, noise, t):

@@ -96,6 +96,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.models.moe",
         "magiattention_tpu_torch.models.video_dit",
         "magiattention_tpu_torch.models.convert",
+        "magiattention_tpu_torch.models.shard",
         "magiattention_tpu_torch.utils.sparse_utils",
         "chip_smoke",
     ):

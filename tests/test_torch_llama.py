@@ -266,10 +266,23 @@ def test_adamw_steps_match_optax(monkeypatch):
 
 
 def test_shard_params_names_its_roadmap_item():
-    """ZeRO-3 / Megatron TP sharding is not ported yet: the entry (and the
-    video DiT's re-export of it, as in JAX) raises naming its item."""
+    """``shard_params`` (ZeRO-3 / Megatron TP, the video DiT's re-export
+    of it, as in JAX) no longer raises: on a one-rank mesh every block is
+    the whole leaf, the tree keeps its layout, gathers back bitwise, and
+    its step is the unsharded step bitwise (one gloo world of 4 holds the
+    sharded steps against JAX's: tests/test_torch_shard.py)."""
     from magiattention_tpu_torch.models import video_dit
+    from magiattention_tpu_torch.parallel import ProcessMesh
 
     assert video_dit.shard_params is llama.shard_params
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        llama.shard_params(_port_inputs()[1], mesh=None)
+    cfg, params, tokens, labels = _port_inputs()
+    mesh = ProcessMesh(np.arange(1), ("cp",))
+    sharded = llama.shard_params(params, mesh)
+    assert [k for k in sharded if k != "sharding"] == list(params)
+    assert llama.param_names(sharded) == llama.param_names(params)
+    back = llama.gather_params(sharded)
+    assert all(torch.equal(a, b) for a, b in zip(llama.param_list(back), llama.param_list(params)))
+    key = port_api.magi_attn_flex_key(RANGES, RANGES, [1, 1], S, S, device="cpu", chunk_size=64)
+    loss, grads = llama.value_and_grad(params, cfg, tokens, labels, key)
+    loss_s, grads_s = llama.value_and_grad(sharded, cfg, tokens, labels, key)
+    assert torch.equal(loss_s, loss) and all(torch.equal(a, b) for a, b in zip(grads_s, grads))

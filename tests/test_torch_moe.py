@@ -17,10 +17,11 @@ over by ``moe_params_from_numpy``.
   ``jax.grad`` (1e-5 of max(1, the largest |gradient|): the loss
   ``sum(y * y)`` puts them in the hundreds); the full model at cp 4 with ``ep_axis="cp"``
   against JAX's ``moe_forward`` / ``value_and_grad(moe_loss_fn)`` at the
-  same key (JAX's ``sdpa`` backend), at capacity 8 and the default:
-  logits, aux, loss and every gradient within 1e-5, the expert stacks'
-  gradients per rank block (not summed across ranks), ``remat`` within
-  1e-6 of no remat; under one causal document, the step at overlap
+  same key (JAX's ``sdpa`` backend), at capacity 8 and the default, on
+  the tree of ``shard_moe_params(..., ep_axis="cp")`` (expert blocks,
+  ZeRO-3 elsewhere): logits, aux, loss and every gradient (gathered by
+  ``models.shard.gather_leaves``) within 1e-5, ``remat`` within 1e-6 of
+  no remat; under one causal document, the step at overlap
   degree 2 (two stages) within 1e-5 of degree 1; three
   ``moe_train_step``s against JAX's trajectory
   (losses rel 1e-5, parameters 1e-5); the model without EP against
@@ -47,7 +48,6 @@ from jax.sharding import Mesh
 from magiattention_tpu.api import magi_attn_flex_key, undispatch
 from magiattention_tpu.models import moe as jax_moe
 from magiattention_tpu_torch.models import moe
-from magiattention_tpu_torch.parallel import ProcessMesh
 from magiattention_tpu_torch.testing import assert_close
 from tests.torch_port_cases import (
     MOE_CFG,
@@ -170,19 +170,27 @@ def test_moe_ffn_local_matches_jax(cf, top_k):
 
 
 def test_entries_refuse_what_a_per_rank_process_cannot_do():
+    """JAX's in-``shard_map`` form of ``moe_ffn`` has no per-rank
+    counterpart, and EP over an axis the key's mesh lacks raises (JAX: a
+    ``KeyError`` of the mesh). ``shard_moe_params`` without ``ep_axis``
+    is JAX's ZeRO-3 of the expert stacks over dp: on a one-rank mesh every
+    block is the whole leaf, and the step is the unsharded one bitwise."""
     cfg, lyr = PCFG, _port_layer(_tree()["layers"][0])
     h = torch.from_numpy(moe_data()[2])
     with pytest.raises(ValueError, match="no counterpart in a per-rank process"):
         moe.moe_ffn(h, lyr, cfg, mesh=None, ep_axis="ep")
-    mesh = ProcessMesh(np.arange(1), ("cp",))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 4"):
-        moe.shard_moe_params({"layers": [lyr]}, mesh)
     from magiattention_tpu_torch import api
 
     key = api.magi_attn_flex_key([[0, S]], [[0, S]], [1], S, S, device="cpu", chunk_size=MOE_CHUNK)
-    tokens = torch.from_numpy(moe_data()[0])
-    with pytest.raises(ValueError, match="not the key's cp axis"):
-        moe.moe_forward(moe.moe_params_from_numpy(_tree(), "cpu"), cfg, tokens, key, ep_axis="ep")
+    tokens, labels, _ = (torch.from_numpy(a) for a in moe_data())
+    params = moe.moe_params_from_numpy(_tree(), "cpu")
+    with pytest.raises(ValueError, match="not an axis of the key's mesh"):
+        moe.moe_forward(params, cfg, tokens, key, ep_axis="ep")
+    sharded = moe.shard_moe_params(params, api.get_mesh(key))
+    assert sharded["sharding"].layer["w_gate"].rows == ("cp",)
+    loss, grads = moe.moe_value_and_grad(params, cfg, tokens, labels, key)
+    loss_s, grads_s = moe.moe_value_and_grad(sharded, cfg, tokens, labels, key)
+    assert torch.equal(loss_s, loss) and all(torch.equal(a, b) for a, b in zip(grads_s, grads))
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +273,9 @@ def _jax_model(cf: float, ep_axis):
             _leaves(jax.tree.map(np.asarray, grads)))
 
 
-def _check_grads(tag: str, got, want: list, rank: int, ep: bool) -> None:
+def _check_grads(tag: str, got, want: list, rank: int) -> None:
     names = moe.LAYOUT.names(_tree())
     for j, (name, w) in enumerate(zip(names, want)):
-        if ep and name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down"):
-            w = _block(w, rank)  # this rank's experts: complete, not summed
         assert_close(got[f"{tag}g{j}"], w, msg=f"rank {rank} {tag}{name}", **_tol(w))
 
 
@@ -283,7 +289,7 @@ def test_model_at_cp4_with_ep_matches_jax(i):
         np.testing.assert_allclose(float(got[f"cf{i}_loss"]), loss, rtol=1e-5)
         # the label count, each layer's aux mean, the flat sum
         assert int(got[f"cf{i}_all_reduce_calls"]) == 2 + PCFG.n_layers
-        _check_grads(f"cf{i}_", got, grads, r, ep=True)
+        _check_grads(f"cf{i}_", got, grads, r)
         # remat: the same step, each layer recomputed in the backward
         for name in ("logits", "loss"):
             np.testing.assert_allclose(got[f"cf{i}_remat_{name}"], got[f"cf{i}_{name}"],
@@ -326,8 +332,6 @@ def test_train_steps_match_jax():
         got = _got(r)
         np.testing.assert_allclose(got["train_losses"], losses, rtol=1e-5)
         for j, (name, w) in enumerate(zip(names, final)):
-            if name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down"):
-                w = _block(w, r)
             assert_close(got[f"train_p{j}"], w, msg=f"rank {r} {name}", atol=1e-5, rtol=1e-5,
                          norm_rtol=1e-5)
     assert losses[-1] < losses[0]
@@ -340,7 +344,7 @@ def test_model_at_cp4_without_ep_matches_jax():
     for r in range(CP):
         got = _got(r)
         np.testing.assert_allclose(float(got["noep_loss"]), loss, rtol=1e-5)
-        _check_grads("noep_", got, grads, r, ep=False)
+        _check_grads("noep_", got, grads, r)
 
 
 def test_shard_moe_params_divisibility_message_is_jax():

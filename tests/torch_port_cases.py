@@ -1215,7 +1215,8 @@ def moe_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) 
     ``ep_axis="cp"`` at each of ``MOE_CFS`` (undispatched logits, aux,
     loss, gradients; with remat; the all_reduce count), loss and
     gradients under one causal document at overlap degree 1 and 2 (the
-    staged runtime), three SGD steps,
+    staged runtime), three SGD steps (the EP trees from
+    ``shard_moe_params``: gradients and parameters saved gathered),
     the model without EP, and the divisibility error; all to
     ``out_dir/moe_<rank>.npz``."""
     import dataclasses
@@ -1228,6 +1229,7 @@ def moe_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) 
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
     from magiattention_tpu_torch import api
     from magiattention_tpu_torch.models import moe
+    from magiattention_tpu_torch.models.shard import gather_leaves, gather_params
     from magiattention_tpu_torch.parallel import ProcessMesh
 
     s = MOE_SEQ
@@ -1245,7 +1247,9 @@ def moe_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) 
         # ep 4, the expert stacks as this rank's block; the gradients of
         # JAX's sum(y * y) + aux: this rank's share sum(y_r * y_r) + aux / 4
         mesh4 = ProcessMesh(np.arange(4), ("ep",))
-        block = moe.shard_moe_params({"layers": [lyr]}, mesh4, ep_axis="ep")["layers"][0]
+        n = cfg.n_experts // 4
+        block = {**lyr, **{k: lyr[k][rank * n:(rank + 1) * n].clone()
+                           for k in ("w_gate", "w_up", "w_down")}}
         live = {k: v.detach().requires_grad_(True) for k, v in block.items()}
         y, aux = moe.moe_ffn(h[rank * s // 4:(rank + 1) * s // 4], live, cfg, mesh=mesh4,
                              ep_axis="ep")
@@ -1259,6 +1263,10 @@ def moe_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) 
                                      s, s, cp_group=dist.group.WORLD, device="cpu",
                                      chunk_size=MOE_CHUNK)
         sharded = moe.shard_moe_params(params, api.get_mesh(key), ep_axis="cp")
+
+        def whole(grads):  # the sharded tree's gradients, gathered
+            return gather_leaves(grads, sharded, moe.LAYOUT)
+
         calls, all_reduce = [], dist.all_reduce
 
         def counted(*args, **kwargs):
@@ -1276,14 +1284,14 @@ def moe_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) 
             finally:
                 dist.all_reduce = all_reduce
             res.update({f"cf{i}_loss": loss.numpy(), f"cf{i}_all_reduce_calls": len(calls)})
-            res.update({f"cf{i}_g{j}": g.numpy() for j, g in enumerate(grads)})
+            res.update({f"cf{i}_g{j}": g.numpy() for j, g in enumerate(whole(grads))})
             calls.clear()
             c_r = dataclasses.replace(c_cf, remat=True)
             logits_r, _ = moe.moe_forward(sharded, c_r, tokens, key, ep_axis="cp")
             loss_r, grads_r = moe.moe_value_and_grad(sharded, c_r, tokens, labels, key, "cp")
             res.update({f"cf{i}_remat_logits": api.undispatch(logits_r, key).numpy(),
                         f"cf{i}_remat_loss": loss_r.numpy()})
-            res.update({f"cf{i}_remat_g{j}": g.numpy() for j, g in enumerate(grads_r)})
+            res.update({f"cf{i}_remat_g{j}": g.numpy() for j, g in enumerate(whole(grads_r))})
         # one causal document at overlap degree 1 and 2 (two stages): the
         # staged GroupCasts and GroupReduces and the MoE exchanges share
         # the group, issued in one order on every rank
@@ -1298,7 +1306,7 @@ def moe_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) 
             res[f"degree{degree}_stages"] = rt.num_stages if rt.use_overlap else 1
             loss, grads = moe.moe_value_and_grad(sharded, cfg, tokens, labels, key_o, "cp")
             res[f"degree{degree}_loss"] = loss.numpy()
-            res.update({f"degree{degree}_g{j}": g.numpy() for j, g in enumerate(grads)})
+            res.update({f"degree{degree}_g{j}": g.numpy() for j, g in enumerate(whole(grads))})
         # three SGD steps at the default capacity
         steps = moe.shard_moe_params(moe.moe_params_from_numpy(tree, "cpu"), api.get_mesh(key),
                                      ep_axis="cp")  # updated in place
@@ -1307,7 +1315,8 @@ def moe_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) 
             steps, loss = moe.moe_train_step(steps, cfg, tokens, labels, key, "cp", lr=MOE_LR)
             losses.append(loss.item())
         res["train_losses"] = np.asarray(losses)
-        res.update({f"train_p{j}": p.numpy() for j, p in enumerate(moe.LAYOUT.leaves(steps))})
+        res.update({f"train_p{j}": p.numpy() for j, p in enumerate(moe.LAYOUT.leaves(
+            gather_params(steps)))})
         # without EP: every rank routes the gathered rows on the full stacks
         loss, grads = moe.moe_value_and_grad(params, cfg, tokens, labels, key)
         res["noep_loss"] = loss.numpy()
@@ -1367,6 +1376,230 @@ def dit_worker(rank: int, world: int, init_file: str, out_dir: str, tree: dict) 
             res[f"{tag}loss"] = loss.numpy()
             res.update({f"{tag}g{i}": g.numpy() for i, g in enumerate(grads)})
         np.savez(os.path.join(out_dir, f"dit_{rank}.npz"), **res)
+        dist.barrier()  # leave together: no rank closes a peer's open connections
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# sharded trees (tests/test_torch_shard.py): ZeRO-3 and Megatron TP over
+# one gloo world of 4, the families at their JAX tests' shapes
+# ---------------------------------------------------------------------------
+
+SHARD_LR, SHARD_STEPS = 1e-2, 3
+ADAMW = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+# name -> (family, mesh axes, shard kwargs, key kwargs, ep_axis)
+SHARD_CASES = {
+    "llama_z3": ("llama", ("cp",), {}, {}, None),
+    "llama_tp": ("llama", ("cp", "tp"), {"tp_axis": "tp"}, {"head_axis": "tp"}, None),
+    "dit_z3": ("dit", ("cp",), {}, {}, None),
+    "moe_noep": ("moe", ("cp",), {}, {}, None),
+    "moe_ep4": ("moe", ("cp",), {"ep_axis": "cp"}, {}, "cp"),
+    "moe_ep_tp": ("moe", ("cp", "tp"), {"ep_axis": "tp"}, {}, "tp"),
+}
+
+
+def shard_mesh_shape(axes) -> tuple[int, ...]:
+    return (4,) if len(axes) == 1 else (2, 2)
+
+
+def _counting(calls: list):
+    """``dist.all_reduce`` wrapped to count its calls into ``calls``."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    return real, counted
+
+
+def shard_worker(rank: int, world: int, init_file: str, out_dir: str, trees: dict) -> None:
+    """One rank of a gloo world of 4 over the JAX trees ``trees``
+    (``{"llama", "moe", "dit"}``, numpy): for each case of
+    ``SHARD_CASES`` the family's tree sharded on its mesh, its shards, the
+    tree gathered back, ``SHARD_STEPS`` SGD steps (losses; the tree after
+    steps 1 and 3, gathered; the collectives of step 2); for ``llama_z3``
+    also the remat step and ``SHARD_STEPS`` AdamW steps; for
+    ``llama_tp`` each rank's heads in ``calc_attn`` and the step under a
+    key without ``head_axis``; the DiT at (cp 2, tp 2) under a
+    ``head_axis`` key and under the video key; for ``moe_ep_tp`` the step
+    with EP over the cp axis of the same mesh and on the whole tree. To ``out_dir/shard_<rank>.npz``."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.comm.functional import (
+        collective_counts,
+        reset_collective_counts,
+    )
+    from magiattention_tpu_torch.models import llama, moe, video_dit
+    from magiattention_tpu_torch.models.shard import gather_leaves
+    from magiattention_tpu_torch.parallel import ProcessMesh
+
+    fam = {
+        "llama": (llama.LlamaConfig(**LLAMA_CP_CFG), llama.LAYOUT, llama.shard_params),
+        "moe": (moe.MoEConfig(**MOE_CFG), moe.LAYOUT, moe.shard_moe_params),
+        "dit": (video_dit.VideoDiTConfig(**DIT_CFG), video_dit.LAYOUT, video_dit.shard_params),
+    }
+    tokens, labels = (torch.from_numpy(a) for a in llama_cp_data())
+    m_tokens, m_labels, _ = (torch.from_numpy(a) for a in moe_data())
+    clean, noise = (torch.from_numpy(a) for a in dit_data())
+    s = LLAMA_CP_SEQ
+    docs = [[0, s // 2], [s // 2, s]]
+    res = {}
+    meshes = {}
+
+    def key_of(family, mesh, **kw):
+        if family == "dit":
+            cfg = fam["dit"][0]
+            return video_dit.make_video_attn_key(cfg, mesh=mesh, device="cpu", **kw)
+        return api.magi_attn_flex_key(docs, docs, [1, 1], s, s, mesh=mesh, cp_axis="cp",
+                                      device="cpu", chunk_size=16, **kw)
+
+    def step_fn(family, cfg, key, ep_axis):
+        if family == "llama":
+            return lambda p: llama.train_step(p, cfg, tokens, labels, key, lr=SHARD_LR)
+        if family == "moe":
+            return lambda p: moe.moe_train_step(p, cfg, m_tokens, m_labels, key, ep_axis,
+                                                lr=SHARD_LR)
+        step = video_dit.make_optim_train_step(cfg, key, torch.optim.SGD(
+            video_dit.param_list(p_dit[0]), lr=SHARD_LR))
+        return lambda p: step(p, clean, noise, DIT_T)
+
+    def gathered(tag, params, layout):
+        full = gather_leaves(layout.leaves(params), params, layout)
+        res.update({f"{tag}p{j}": x.numpy() for j, x in enumerate(full)})
+
+    p_dit = [None]
+    try:
+        for case, (family, axes, shard_kw, key_kw, ep_axis) in SHARD_CASES.items():
+            cfg, layout, shard = fam[family]
+            if axes not in meshes:
+                meshes[axes] = ProcessMesh(np.arange(4).reshape(shard_mesh_shape(axes)), axes)
+            mesh = meshes[axes]
+            key = key_of(family, mesh, **key_kw)
+            whole = layout.from_numpy(trees[family], "cpu")
+            params = shard(whole, mesh, **shard_kw)
+            p_dit[0] = params
+            # the family's layout, each shard, and the whole tree back bitwise
+            res[f"{case}_layout"] = [k for k in params if k != "sharding"] == list(whole)
+            # copies: the steps below update the shards in place
+            res.update({f"{case}_s{j}": x.numpy().copy()
+                        for j, x in enumerate(layout.leaves(params))})
+            back = llama.gather_params(params)
+            res[f"{case}_roundtrip"] = all(
+                torch.equal(a, b) for a, b in zip(layout.leaves(back), layout.leaves(whole)))
+            step = step_fn(family, cfg, key, ep_axis)
+            losses, calls = [], []
+            for i in range(SHARD_STEPS):
+                reset_collective_counts()
+                real, counted = _counting(calls)
+                if i == 1:
+                    dist.all_reduce = counted
+                try:
+                    params, loss = step(params)
+                finally:
+                    dist.all_reduce = real
+                losses.append(float(loss))
+                if i == 1:
+                    res.update({f"{case}_count_{k}": v for k, v in collective_counts().items()})
+                    res[f"{case}_all_reduce_calls"] = len(calls)
+                if i in (0, SHARD_STEPS - 1):
+                    gathered(f"{case}_step{i + 1}_", params, layout)
+            res[f"{case}_losses"] = np.asarray(losses)
+
+        # llama at cp 4: remat, and AdamW
+        cfg, layout, _ = fam["llama"]
+        key = key_of("llama", meshes[("cp",)])
+        whole = llama.params_from_numpy(trees["llama"], "cpu")
+        params = llama.shard_params(whole, meshes[("cp",)])
+        loss, grads = llama.value_and_grad(params, cfg, tokens, labels, key)
+        loss_r, grads_r = llama.value_and_grad(params, dataclasses.replace(cfg, remat=True),
+                                               tokens, labels, key)
+        res["remat_loss_diff"] = abs(float(loss_r) - float(loss))
+        res["remat_grad_diff"] = max(float((a - b).abs().max()) for a, b in zip(grads, grads_r))
+        optim = torch.optim.AdamW(llama.param_list(params), lr=ADAMW["lr"],
+                                  betas=(ADAMW["b1"], ADAMW["b2"]), eps=ADAMW["eps"],
+                                  weight_decay=ADAMW["weight_decay"])
+        step = llama.make_optim_train_step(cfg, key, optim)
+        losses = []
+        for i in range(SHARD_STEPS):
+            params, loss = step(params, tokens, labels)
+            losses.append(float(loss))
+            if i in (0, SHARD_STEPS - 1):
+                gathered(f"adamw_step{i + 1}_", params, layout)
+        res["adamw_losses"] = np.asarray(losses)
+
+        # llama at (cp 2, tp 2): each rank's heads, and the TP-sharded tree
+        # under a key without head_axis (every leaf gathered, TP ranks alike)
+        mesh = meshes[("cp", "tp")]
+        heads, calc = [], llama.calc_attn
+
+        def recording(q, k, v, attn_key):
+            heads.append((q.shape[1], k.shape[1]))
+            return calc(q, k, v, attn_key)
+
+        tp_params = llama.shard_params(whole, mesh, tp_axis="tp")
+        llama.calc_attn = recording
+        try:
+            _, g_tp = llama.value_and_grad(tp_params, cfg, tokens, labels,
+                                           key_of("llama", mesh, head_axis="tp"))
+            res["tp_heads"] = np.asarray(heads)
+            heads.clear()
+            loss_f, g_f = llama.value_and_grad(tp_params, cfg, tokens, labels,
+                                               key_of("llama", mesh))
+            res["tpfull_heads"] = np.asarray(heads)
+        finally:
+            llama.calc_attn = calc
+        res["tpfull_loss"] = float(loss_f)
+        for tag, g in (("tp_g", g_tp), ("tpfull_g", g_f)):
+            res.update({f"{tag}{j}": x.numpy()
+                        for j, x in enumerate(gather_leaves(g, tp_params, layout))})
+
+        # the DiT at (cp 2, tp 2) (two kv heads, so that they split): the
+        # TP-sharded tree under a head_axis key (Megatron) and under the
+        # video key (every leaf gathered)
+        cfg = dataclasses.replace(fam["dit"][0], n_kv_heads=2)
+        whole = video_dit.init_params(cfg, seed=0, device="cpu")
+        params = video_dit.shard_params(whole, mesh, tp_axis="tp")
+        res["dit_tp_layout"] = [k for k in params if k != "sharding"] == list(whole)
+        res["dit_tp_roundtrip"] = all(torch.equal(a, b) for a, b in zip(
+            video_dit.param_list(llama.gather_params(params)), video_dit.param_list(whole)))
+        qr, kr, tm, _ = video_dit.video_mask_ranges(cfg)
+        keys = {"dit_tp": api.magi_attn_flex_key(
+                    qr, kr, tm, cfg.seqlen, cfg.seqlen, mesh=mesh, cp_axis="cp", head_axis="tp",
+                    device="cpu", chunk_size=cfg.tokens_per_frame // 2),
+                "dit_tpfull": video_dit.make_video_attn_key(cfg, mesh=mesh, device="cpu")}
+        for tag, key in keys.items():
+            loss, g = video_dit.value_and_grad(params, cfg, clean, noise, DIT_T, key)
+            res[f"{tag}_loss"] = float(loss)
+            res.update({f"{tag}_g{j}": x.numpy() for j, x in enumerate(
+                gather_leaves(g, params, video_dit.LAYOUT))})
+
+        # the MoE at (cp 2, tp 2) with EP over the cp axis: the same row
+        # blocks per EP rank as EP over tp
+        cfg, layout, _ = fam["moe"]
+        key = key_of("moe", mesh)
+        params = moe.shard_moe_params(moe.moe_params_from_numpy(trees["moe"], "cpu"), mesh,
+                                      ep_axis="cp")
+        params, loss = moe.moe_train_step(params, cfg, m_tokens, m_labels, key, "cp", lr=SHARD_LR)
+        res["moe_ep_cp22_loss"] = float(loss)
+        gathered("moe_ep_cp22_", params, layout)
+        # EP over tp on the whole (unsharded) tree: each rank's block of the
+        # whole stacks, their gradients summed over the EP line
+        params = moe.moe_params_from_numpy(trees["moe"], "cpu")
+        params, loss = moe.moe_train_step(params, cfg, m_tokens, m_labels, key, "tp", lr=SHARD_LR)
+        res["moe_ep_tp_whole_loss"] = float(loss)
+        gathered("moe_ep_tp_whole_", params, layout)
+        np.savez(os.path.join(out_dir, f"shard_{rank}.npz"), **res)
         dist.barrier()  # leave together: no rank closes a peer's open connections
     finally:
         dist.destroy_process_group()
