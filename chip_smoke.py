@@ -174,11 +174,40 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     float32. ``usp_nsa``: ``usp_nsa_attn``'s per-rank body at (ring 2,
     ulysses 2) against ``nsa_attn`` on the whole, the gradients (the
     parameters' all-reduced) summed, per-rank ms.
-13. ``kernels``: one line per-kernel summary (launches from the serve,
+13. ``observability``: the cp 1 API path at the train attention shape
+    with MAGI_ATTENTION_TELEMETRY on against off (``paired_ms``, and a
+    loop of 20 steps that runs ahead, no sync between them), the
+    JSONL of a freshly planned step (``plan_solve``, ``ffa_plan``,
+    ``attn_step``: host-exact fields against this phase's recomputation,
+    ``device_ms`` within 0.5-2x of the phase's own CUDA events,
+    ``bwd_device_ms`` within 0.5-1x of its pair around the whole
+    backward), a step
+    under MAGI_ATTENTION_PROFILE_MODE=1 and ``torch.profiler`` (every scope
+    the path reaches; B1 launched inside ``ffa_fwd_stage0``, B7 inside
+    ``ffa_bwd_delta``, B8/B9 inside ``ffa_bwd``), and a registry decision
+    persisted, reset and resolved again from the store (source
+    ``policy``, no heuristic run). ``resilience``: on the same shape,
+    ``kernel_lowering`` without MAGI_ATTENTION_FALLBACK raises; with it,
+    one ladder hop from 128 x 128 to 128 x 64 bitwise the run pinned
+    there; every FFA attempt failing walks the tile ladder and raises
+    ``FallbackExhaustedError`` (no plain rung on the card); a failed fused
+    backward falls to split bitwise the split pin; the numeric guard
+    raising and recording; the step watchdog re-running ``ffa`` bitwise the
+    unfaulted step; a ``serve_decode`` fault on the serve engine (one
+    token a tick, and spec verify) descending to ``gather_ffa`` within the
+    serve tolerance of the replay; the guard's cost a step.
+    ``resilience_elsewhere``: the resilience layer's action counts
+    (telemetry's ``resilience.*`` counters, kept with telemetry off too)
+    before those two phases and after them, which must be zero.
+14. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase plus qo_comm, cp_baselines and usp_nsa, error,
     kernel / plain / library time and the card's bound; launches also
     from cp_hier_tp, decode_sharded, serve_int8's spec pass, the remat
-    step, moe and video_dit).
+    step, moe, video_dit, observability and resilience).
+
+It refuses to start when MAGI_ATTENTION_FALLBACK, _FAULT_INJECT,
+_NUMERIC_GUARD, _STEP_RETRIES or _STRAGGLER_DETECT is set: its resilience
+phases set them themselves, and no other phase may run under them.
 
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -201,7 +230,14 @@ experts a card; one layer, float32, capacity factor 8, held against a
 cp 1 run of the same weights; then bf16 at the default capacity: three
 steps, each loss the sum of the ranks' shares, step ms, one slot
 exchange's ms) and ``cp4_video_dit`` (the ``video_dit`` phase's model at
-cp 4 against cp 1, step ms); then, in the parent process,
+cp 4 against cp 1, step ms), ``cp4_resilience`` (every rank under the
+same ``kernel_lowering:count=1`` spec with MAGI_ATTENTION_FALLBACK=1 takes
+the same one hop, no rank hangs, each rank's out and gradients bitwise its
+run pinned at the rung) and ``cp4_straggler`` (rank 3 slowed each step,
+every rank fed the all-gathered step ms, identical capacity vectors on
+every rank, one weighted re-solve, the weighted output within bf16 limits
+of the unweighted, the slowest rank's ms before and after); then, in the
+parent process,
 ``ServeEngine`` at ``decode_shards`` 2 and 4 over the cards, equal to the
 one-card engine's rows to the bit (``cp4_sharded_engine``); the four
 cards' ``name, power.limit`` lines and the same last line.
@@ -7236,6 +7272,748 @@ def cp4_tp_train(device: str, seq: int) -> dict:
                 check=dict(dtype="float32", **check))
 
 
+# ---------------------------------------------------------------------------
+# the observability and resilience planes
+# ---------------------------------------------------------------------------
+
+# the resilience flags: set only inside the phases below (through _with_env)
+RESILIENCE_FLAGS = (
+    "MAGI_ATTENTION_FALLBACK", "MAGI_ATTENTION_FAULT_INJECT", "MAGI_ATTENTION_NUMERIC_GUARD",
+    "MAGI_ATTENTION_STEP_RETRIES", "MAGI_ATTENTION_STRAGGLER_DETECT",
+)
+
+
+def resilience_flags_set() -> list[str]:
+    import os
+
+    return [name for name in RESILIENCE_FLAGS if os.environ.get(name)]
+
+
+def resilience_counts() -> dict[str, int]:
+    """The resilience actions since telemetry's last reset (the
+    ``resilience.*`` counters, kept with telemetry off too)."""
+    from magiattention_tpu_torch import telemetry
+
+    return telemetry.counters("resilience.")
+
+
+def _counts_delta(before: dict, after: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+def _cp_inputs(device: str = "cuda", seq: int = CP_SEQ, seed: int = 11):
+    """bf16 q, k, v and dO at the train attention shape."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = ((seq, CP_HQ, CP_D), (seq, CP_HK, CP_D), (seq, CP_HK, CP_D))
+    inputs = [torch.randn(sh, generator=gen, device=device).to(torch.bfloat16) for sh in shapes]
+    return inputs, (torch.randn(shapes[0], generator=gen, device=device) / 4).to(torch.bfloat16)
+
+
+def _cp1_key(seq: int = CP_SEQ, device: str = "cuda"):
+    from magiattention_tpu_torch import api
+
+    docs = _docs(seq, seq // 2)
+    return api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, device=device)
+
+
+def _key_step(key, inputs, do, grads: bool = True):
+    """out (natural order), then dq, dk, dv with ``grads``, of one step
+    through ``key``'s API path."""
+    import torch
+
+    from magiattention_tpu_torch import api
+
+    q, k, v = (t.detach().requires_grad_(grads) for t in inputs)
+    with torch.set_grad_enabled(grads):
+        out_d, _ = api.calc_attn(
+            api.dispatch(q, key), api.dispatch(k, key, role="kv"), api.dispatch(v, key, role="kv"), key,
+        )
+        out = api.undispatch(out_d, key)
+    if not grads:
+        return (out,)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), do))
+
+
+def _fresh_planning() -> None:
+    """Forget every planned runtime and solved plan (the next key plans)."""
+    from magiattention_tpu_torch.api.magi_attn_interface import clear_cache
+    from magiattention_tpu_torch.dist_attn_runtime_mgr import _PLAN_CACHE
+    from magiattention_tpu_torch.kernels.ffa_plan import _cached_plan
+
+    clear_cache()
+    _PLAN_CACHE.clear()
+    _cached_plan.cache_clear()
+
+
+def _records(directory: str) -> list[dict]:
+    import glob
+    import os
+
+    rows = []
+    for path in glob.glob(os.path.join(directory, "*.jsonl")):
+        with open(path) as f:
+            rows += [json.loads(line) for line in f]
+    return sorted(rows, key=lambda r: r["seq"])
+
+
+def _trace_events(path: str) -> list[dict]:
+    with open(path) as f:
+        trace = json.load(f)
+    return trace["traceEvents"] if isinstance(trace, dict) else trace
+
+
+def _launches_in_scope(events: list[dict], kernel: str, scope: str) -> tuple[int, int]:
+    """(kernels whose name holds ``kernel``, those launched inside a
+    ``scope`` range): the launch (the CUDA runtime or driver call with the
+    kernel's correlation id) within one of the scope's host ranges on its
+    thread, or the kernel within one of the scope's device projections."""
+    kernels = [e for e in events if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    launches = {
+        e["args"]["correlation"]: e for e in events
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+    }
+    host = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == scope]
+    dev = [e for e in events if e.get("cat") == "gpu_user_annotation" and e.get("name") == scope]
+
+    def within(e, ranges, same_tid: bool) -> bool:
+        return any(
+            r["ts"] <= e["ts"] and e["ts"] + e.get("dur", 0) <= r["ts"] + r.get("dur", 0)
+            and (not same_tid or r.get("tid") == e.get("tid"))
+            for r in ranges
+        )
+
+    inside = 0
+    for k in kernels:
+        launch = launches.get(k.get("args", {}).get("correlation"))
+        if (launch is not None and within(launch, host, True)) or within(k, dev, False):
+            inside += 1
+    return len(kernels), inside
+
+
+# steps in one profiler window, and windows tried
+OBS_PROFILED_STEPS, OBS_PROFILE_ATTEMPTS = 3, 3
+# steps a loop that runs ahead, and its rounds (off and on each)
+OBS_AHEAD_STEPS, OBS_AHEAD_ROUNDS = 20, 4
+# ~20 ms of device sleep on an H100 (1.98 GHz): longer than the host's
+# part of a warm call
+OBS_SLEEP_CYCLES = 40_000_000
+# every scope the cp 1 path reaches (forward, backward, dispatch)
+OBS_SCOPES = (
+    "DistAttnRuntime.calc_attn", "ffa_fwd_stage0", "ffa_bwd_delta", "ffa_bwd",
+    "dispatch_func", "undispatch_func",
+)
+# kernel name (a substring of the CUDA symbol) -> the scope its launches sit in
+OBS_KERNEL_SCOPES = (
+    ("B1", "ffa_fwd_tc_kernel", "ffa_fwd_stage0"),
+    ("B7", "ffa_bwd_delta_kernel", "ffa_bwd_delta"),
+    ("B8/B9", "ffa_bwd_kv_tc_kernel", "ffa_bwd"),
+)
+
+
+def observability_phase() -> dict:
+    """Telemetry and profiling on the cp 1 API path at the train attention
+    shape (``cp_api``'s): the step's cost with MAGI_ATTENTION_TELEMETRY on
+    against off (``paired_ms``, which syncs every step, and a loop of
+    ``OBS_AHEAD_STEPS`` steps that runs ahead); the JSONL of a freshly
+    planned step (``plan_solve``, ``ffa_plan``, ``attn_step``; its
+    host-exact fields against this phase's recomputation, ``device_ms``
+    within 0.5-2x of the phase's own CUDA events around the same call,
+    ``bwd_device_ms`` within 0.5-1x of the phase's pair around the whole
+    backward, of which the attention's is the most); a step under
+    MAGI_ATTENTION_PROFILE_MODE=1 and ``torch.profiler`` (every scope the
+    path reaches, B1 launched inside ``ffa_fwd_stage0``, B7 inside
+    ``ffa_bwd_delta``, B8/B9 inside ``ffa_bwd``); a registry decision
+    persisted to a store, the in-process state reset, and resolved again
+    from source ``policy`` with no heuristic run."""
+    import os
+    import tempfile
+
+    import torch
+
+    from magiattention_tpu_torch import telemetry
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.kernels import registry as kreg
+    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
+    from magiattention_tpu_torch.kernels.ffa_plan import QE, QS
+    from magiattention_tpu_torch.telemetry import store as tstore
+    from magiattention_tpu_torch.utils.profiling import switch_profile
+
+    inputs, do = _cp_inputs()
+    res: dict = {"shape": f"bf16 q [{CP_SEQ}, {CP_HQ}, {CP_D}], k/v [{CP_SEQ}, {CP_HK}, {CP_D}], "
+                          "two causal documents, cp 1"}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = {"MAGI_ATTENTION_TELEMETRY": "1",
+               "MAGI_ATTENTION_TELEMETRY_DIR": os.path.join(tmp, "overhead"),
+               "MAGI_ATTENTION_STORE_DIR": os.path.join(tmp, "store")}
+        telemetry.reset()
+        key = _cp1_key()
+
+        def step():
+            return _key_step(key, inputs, do)
+
+        times = paired_ms({"off": step, "on": lambda: _with_env(tel, step)}, rounds=7, samples=5)
+        _with_env(tel, telemetry.flush)
+        off, on = statistics.median(times["off"]), statistics.median(times["on"])
+        res["fwd_bwd_ms"] = dict(telemetry_off=times["off"], telemetry_on=times["on"],
+                                 median_off=off, median_on=on, overhead_ms=on - off,
+                                 overhead_share=(on - off) / off)
+
+        # the same step in a loop that runs ahead: OBS_AHEAD_STEPS steps
+        # launched back to back under one event pair (no sync between
+        # them), off and on alternating, their order turned each round
+        def ahead():
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(OBS_AHEAD_STEPS):
+                step()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / OBS_AHEAD_STEPS
+
+        loops = {"off": [], "on": []}
+        for r in range(OBS_AHEAD_ROUNDS):
+            for name in (("off", "on") if r % 2 == 0 else ("on", "off")):
+                loops[name].append(_with_env(tel, ahead) if name == "on" else ahead())
+        _with_env(tel, telemetry.flush)
+        off, on = statistics.median(loops["off"]), statistics.median(loops["on"])
+        res["run_ahead_ms"] = dict(steps_a_loop=OBS_AHEAD_STEPS, telemetry_off=loops["off"],
+                                   telemetry_on=loops["on"], median_off=off, median_on=on,
+                                   overhead_ms=on - off, overhead_share=(on - off) / off)
+
+        # (b) the records of a step planned with telemetry on
+        _fresh_planning()
+        telemetry.reset()
+        rec_dir = os.path.join(tmp, "records")
+
+        def recorded():
+            from magiattention_tpu_torch import api
+
+            k_ = _cp1_key()
+            _key_step(k_, inputs, do)  # the cold step: planning's records
+            q, kk, v = (t.detach().requires_grad_(True) for t in inputs)
+            args = (api.dispatch(q, k_), api.dispatch(kk, k_, role="kv"), api.dispatch(v, k_, role="kv"))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            # a warm step (its plans on the card): the device sleeps while
+            # the host runs the call (the record's payload too), so both
+            # event pairs time the forward's kernels back to back, not the
+            # host between them
+            torch.cuda._sleep(OBS_SLEEP_CYCLES)
+            start.record()
+            out_d, _ = api.calc_attn(*args, k_)
+            end.record()
+            # the backward likewise, its pair around the whole autograd
+            # pass (the record's pair holds the attention's part of it)
+            out = api.undispatch(out_d, k_)
+            b_start, b_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(OBS_SLEEP_CYCLES)
+            b_start.record()
+            torch.autograd.grad(out, (q, kk, v), do)
+            b_end.record()
+            telemetry.flush()
+            b_end.synchronize()
+            return k_, start.elapsed_time(end), b_start.elapsed_time(b_end)
+
+        key2, own_ms, own_bwd_ms = _with_env({**tel, "MAGI_ATTENTION_TELEMETRY_DIR": rec_dir}, recorded)
+        recs = _records(rec_dir)
+        kinds = [r["kind"] for r in recs]
+        for kind in ("plan_solve", "ffa_plan", "attn_step"):
+            if kind not in kinds:
+                raise AssertionError(f"observability: no {kind} record in {sorted(set(kinds))}")
+        step_rec = [r for r in recs if r["kind"] == "attn_step"][-1]
+        rt = _mgr(key2).runtime
+        band = sum(n * (n + 1) // 2 for n in (CP_SEQ // 2, CP_SEQ // 2))  # two causal documents
+        padded = sum(p.num_work * p.block_q * p.block_k for p in rt.plans)
+        real = [int((p.meta[:, QE] > p.meta[:, QS]).sum()) * p.block_q * p.block_k for p in rt.plans]
+        plan_recs = [r for r in recs if r["kind"] == "ffa_plan"]
+        recompute = dict(band_elems=band, padded_elems=padded, payload_bytes_total=0,
+                         wire_bytes_total=0, est_flops_fwd=4 * band * CP_D * CP_HQ)
+        got = {f: step_rec[f] for f in recompute}
+        if got != recompute or step_rec["stages"] != [] or not set(real) <= {
+                r["padded_elems"] for r in plan_recs if r["band_elems"] == band}:
+            raise AssertionError(f"observability: records {got} against {recompute}, plans "
+                                 f"{[r['padded_elems'] for r in plan_recs]} against {real}")
+        ratio = step_rec["device_ms"] / own_ms
+        if not 0.5 <= ratio <= 2.0:
+            raise AssertionError(f"observability: device_ms {step_rec['device_ms']:.4f} against the "
+                                 f"phase's {own_ms:.4f} ms (ratio {ratio:.3f})")
+        bwd_ratio = step_rec.get("bwd_device_ms", 0.0) / own_bwd_ms
+        if not 0.5 <= bwd_ratio <= 1.0:
+            raise AssertionError(f"observability: bwd_device_ms {step_rec.get('bwd_device_ms')} against "
+                                 f"the phase's {own_bwd_ms:.4f} ms (ratio {bwd_ratio:.3f})")
+        res["records"] = dict(kinds={k: kinds.count(k) for k in sorted(set(kinds))},
+                              attn_step_fields=got, ffa_plan_padded=[r["padded_elems"] for r in plan_recs],
+                              device_ms=step_rec["device_ms"], phase_event_ms=own_ms,
+                              wall_ms=step_rec["wall_ms"], device_over_phase=ratio,
+                              bwd_device_ms=step_rec["bwd_device_ms"], phase_bwd_event_ms=own_bwd_ms,
+                              bwd_device_over_phase=bwd_ratio)
+
+        # (c) the profiler's view
+        prof_env = {"MAGI_ATTENTION_PROFILE_MODE": "1", "MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"}
+
+        def profiled(attempt: int):
+            k_ = _cp1_key()
+            _key_step(k_, inputs, do)  # warm
+            torch.cuda.synchronize()
+            with switch_profile(log_dir=os.path.join(tmp, f"trace{attempt}")) as sp:
+                for _ in range(OBS_PROFILED_STEPS):
+                    _key_step(k_, inputs, do)
+                torch.cuda.synchronize()
+            return sp.trace_path
+
+        # late in a long process the profiler can drop a window's first
+        # kernel records (PERF.md §6): a window of several steps, and a
+        # new window where a kernel of the path shows no record at all
+        for attempt in range(OBS_PROFILE_ATTEMPTS):
+            events = _trace_events(_with_env(prof_env, lambda: profiled(attempt)))
+            found = {label: _launches_in_scope(events, kernel, scope)
+                     for label, kernel, scope in OBS_KERNEL_SCOPES}
+            if all(n for n, _ in found.values()):
+                break
+        names = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+        missing = [s_ for s_ in OBS_SCOPES if s_ not in names]
+        if missing:
+            raise AssertionError(f"observability: scopes {missing} not in the trace")
+        inside = {}
+        for label, kernel, scope in OBS_KERNEL_SCOPES:
+            n, n_in = found[label]
+            if n == 0 or n_in != n:
+                kernels = sum(e.get("cat") == "kernel" for e in events)
+                raise AssertionError(f"observability: {n_in} of {n} {label} launches inside {scope} "
+                                     f"({kernels} kernel records in the trace, {attempt + 1} windows)")
+            inside[label] = dict(scope=scope, kernel_records=n, inside=n_in)
+        inside["windows"] = attempt + 1
+        res["profile"] = dict(scopes=sorted(s for s in names if s), kernels_in_scopes=inside)
+
+        # (d) a persisted registry decision comes back from the store
+        def persist():
+            rt_ = _mgr(key).runtime
+            plan, params = rt_.plans[0], rt_._params(CP_D, 2)[0]
+            kreg.reset_registry()
+            tstore.reset()
+            first = ffa_bwd_mode(plan, params, CP_D, CP_D, 2, CP_HQ, CP_HK)
+            heuristic = kreg.stats()["heuristic_calls"]
+            tstore.get_store().compact()
+            kreg.reset_registry()
+            tstore.reset()
+            again = ffa_bwd_mode(plan, params, CP_D, CP_D, 2, CP_HQ, CP_HK)
+            return first, heuristic, again, kreg.stats(), kreg.get_registry().last("ffa_bwd")
+
+        first, heuristic, again, st, _ = _with_env(tel, persist)
+        kreg.reset_registry()
+        tstore.reset()
+        telemetry.reset()
+        if not (heuristic == 1 and again == first and st["store_hits"] == 1 and st["heuristic_calls"] == 0):
+            raise AssertionError(f"observability: persisted {first!r}, resolved {again!r}, {st}")
+        res["registry_policy"] = dict(decision="ffa_bwd", choice=first, first_heuristic_calls=heuristic,
+                                      after_reset=st)
+    torch.cuda.synchronize()
+    res["launches"] = {k: n for k, n in launch_counts().items() if n}
+    check_launches("observability", launch_counts(), ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_fused"))
+    emit({"phase": "observability", **res})
+    return res
+
+
+FFA_128 = {"MAGI_ATTENTION_FFA_BLOCK_Q": "128", "MAGI_ATTENTION_FFA_BLOCK_K": "128"}
+FFA_128x64 = {"MAGI_ATTENTION_FFA_BLOCK_Q": "128", "MAGI_ATTENTION_FFA_BLOCK_K": "64"}
+
+
+def _same_bits(what: str, got, want) -> None:
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: not equal to the bit")
+
+
+def resilience_phase(ctx: dict) -> dict:
+    """The resilience plane on the card, on ``cp_api``'s shape, each case
+    under its own flags: ``kernel_lowering:count=1`` without
+    MAGI_ATTENTION_FALLBACK raises ``InjectedFault``; with it, tiles pinned
+    128 x 128, exactly one ladder hop (to 128 x 64, recorded), out and
+    gradients bitwise the run pinned there (deterministic mode both); at
+    ``p=1.0`` the tile ladder is walked and the chain raises
+    ``FallbackExhaustedError``, twice, nothing pinned, no plain version
+    run (on the card the layer moves only from kernel to kernel); a fused
+    backward that fails falls to split, bitwise the split pin;
+    ``nan_output`` under MAGI_ATTENTION_NUMERIC_GUARD=raise raises naming
+    the stage, under ``record`` only the counter moves;
+    MAGI_ATTENTION_STEP_RETRIES=1 re-runs ``ffa`` (the last kernel rung,
+    never quarantined) bitwise the unfaulted step, and a lasting fault
+    re-raises; a ``serve_decode`` fault on the serve phase's engine (one
+    token a tick, then spec_tokens 4) descends a rung to ``gather_ffa``,
+    rows within the serve tolerance of the replay oracle; the guard's cost
+    in ms a step."""
+    import os
+    import tempfile
+
+    import torch
+
+    from magiattention_tpu_torch import telemetry
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.resilience import inject, watchdog
+    from magiattention_tpu_torch.resilience.errors import (
+        FallbackExhaustedError, InjectedFault, NumericGuardError,
+    )
+    from magiattention_tpu_torch.serving import ServeEngine
+
+    inputs, do = _cp_inputs()
+    res: dict = {"shape": f"bf16 q [{CP_SEQ}, {CP_HQ}, {CP_D}], k/v [{CP_SEQ}, {CP_HK}, {CP_D}], "
+                          "two causal documents, cp 1"}
+    det = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+    fault = "MAGI_ATTENTION_FAULT_INJECT"
+    fb = {"MAGI_ATTENTION_FALLBACK": "1"}
+    launches: dict = {}
+    own: dict = {}  # the resilience actions of the phase's cases
+
+    def case(env: dict, fn, tmp: str | None = None):
+        """``fn()`` under ``env`` (and telemetry into ``tmp``), fresh
+        injector and telemetry state; returns (result, telemetry summary,
+        resilience counts of the case, launches of the case)."""
+        inject.reset()
+        telemetry.reset()
+        if tmp is not None:
+            env = {**env, "MAGI_ATTENTION_TELEMETRY": "1", "MAGI_ATTENTION_TELEMETRY_DIR": tmp}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        before = resilience_counts()
+
+        def run():
+            out = fn()
+            return out, telemetry.summary()
+
+        out, summary = _with_env(env, run)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for k_, n in counts.items():
+            launches[k_] = launches.get(k_, 0) + n
+        acted = _counts_delta(before, resilience_counts())
+        for k_, n in acted.items():
+            own[k_] = own.get(k_, 0) + n
+        telemetry.reset()
+        return out, summary, acted, counts
+
+    def step():
+        return _key_step(_cp1_key(), inputs, do)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) no fallback: the fault propagates, typed
+        try:
+            case({fault: "kernel_lowering:count=1"}, step)
+        except InjectedFault as e:
+            res["no_fallback"] = dict(raised=type(e).__name__, site=e.site)
+        else:
+            raise AssertionError("resilience: kernel_lowering without fallback did not raise")
+
+        # (b) one ladder hop from 128 x 128
+        pinned, *_ = case({**det, **FFA_128x64}, step)
+
+        def hop():
+            k_ = _cp1_key()
+            rt = _mgr(k_).runtime
+            tiles = (rt._bq, rt._bk)
+            return _key_step(k_, inputs, do), tiles, (rt._bq, rt._bk)
+
+        (got, start, end), summ, counts, _ = case(
+            {**det, **FFA_128, fault: "kernel_lowering:count=1", **fb}, hop, os.path.join(tmp, "hop"))
+        last = summ["last"]["resilience"]
+        if (start, end) != ((128, 128), (128, 64)) or counts.get("resilience.recovered") != 1 \
+                or (last["action_detail"], last["blocks"]) != ("ladder_hop", [128, 64]):
+            raise AssertionError(f"resilience: ladder {start} -> {end}, {counts}, {last}")
+        _same_bits("resilience: the hop against the 128 x 64 pin", got, pinned)
+        res["ladder_hop"] = dict(start=list(start), rung=list(end), counts=counts,
+                                 recovered=dict(action_detail=last["action_detail"], blocks=last["blocks"]),
+                                 bitwise_vs_pinned_rung=True)
+        del got, pinned
+
+        # (c) every FFA attempt fails: the tile ladder is walked, then the
+        # chain raises (no plain rung in a kernel's place on the card), and
+        # nothing is pinned: the next step fails the same way
+        def exhausted():
+            k_ = _cp1_key()
+            causes = []
+            for _ in range(2):
+                try:
+                    _key_step(k_, inputs, do, grads=False)
+                except FallbackExhaustedError as e:
+                    causes.append(type(e.__cause__).__name__)
+            rt = _mgr(k_).runtime
+            return causes, rt.backend, (rt._bq, rt._bk)
+
+        (causes, backend, tiles), _, counts, lc = case(
+            {**FFA_128, fault: "kernel_lowering:p=1.0", **fb}, exhausted)
+        plain = {k_: lc[k_] for k_ in PLAIN_NAMES if lc[k_]}
+        if causes != ["InjectedFault"] * 2 or backend != "ffa" or plain \
+                or counts.get("resilience.recovered") or counts.get("resilience.injected") != 5:
+            raise AssertionError(f"resilience: exhausted chain {causes}, {backend}, {counts}, plain {plain}")
+        res["exhausted_chain"] = dict(raised="FallbackExhaustedError", causes=causes, backend=backend,
+                                      tiles_after=list(tiles), counts=counts, plain_calls=plain)
+
+        # (d) the fused backward fails: split, bitwise the split pin
+        split, *_ = case({"MAGI_ATTENTION_BACKEND_FFA_BWD": "split"}, step)
+        got, summ, counts, lc = case(
+            {"MAGI_ATTENTION_BACKEND_FFA_BWD": "fused", fault: "kernel_lowering:step=2", **fb}, step,
+            os.path.join(tmp, "fused"))
+        if summ["last"]["resilience"]["action_detail"] != "fused_bwd_to_split" or lc["ffa_bwd_fused"]:
+            raise AssertionError(f"resilience: fused fallback {summ['last']['resilience']}, {lc}")
+        _same_bits("resilience: fused-to-split against the split pin", got, split)
+        res["fused_to_split"] = dict(counts=counts, bitwise_vs_split_pin=True,
+                                     launches={k: lc[k] for k in ("ffa_bwd_dq", "ffa_bwd_dkv", "ffa_bwd_fused")})
+        del got, split
+
+        # (e) the numeric guard
+        try:
+            case({fault: "nan_output", "MAGI_ATTENTION_NUMERIC_GUARD": "raise"}, step)
+        except NumericGuardError as e:
+            if e.stage != "DistAttnRuntime.calc_attn":
+                raise AssertionError(f"resilience: guard names {e.stage}")
+            raised = dict(stage=e.stage, detail=e.detail)
+        else:
+            raise AssertionError("resilience: nan_output under the raising guard passed")
+        (out,), _, counts, _ = case(
+            {fault: "nan_output:step=1", "MAGI_ATTENTION_NUMERIC_GUARD": "record"},
+            lambda: _key_step(_cp1_key(), inputs, do, grads=False))
+        if counts != {"resilience.injected": 1, "resilience.guard_trip": 1} or not torch.isnan(out).any():
+            raise AssertionError(f"resilience: record policy {counts}")
+        res["numeric_guard"] = dict(raise_policy=raised, record_policy_counts=counts)
+        del out
+
+        # (f) the step watchdog on the card: the retry re-runs ``ffa`` (the
+        # last kernel rung, never quarantined), bitwise the unfaulted step;
+        # a lasting fault re-raises; no plain rung
+        ffa_ref, *_ = case(det, lambda: _key_step(_cp1_key(), inputs, do, grads=False))
+
+        def watched():
+            k_ = _cp1_key()
+            out = _key_step(k_, inputs, do, grads=False)[0]
+            rt = _mgr(k_).runtime
+            return out, rt.backend, watchdog.is_quarantined(watchdog._decision_key(rt), "ffa")
+
+        (out, backend, quarantined), summ, counts, lc = case(
+            {**det, "MAGI_ATTENTION_STEP_RETRIES": "1", fault: "kernel_lowering:count=1"}, watched,
+            os.path.join(tmp, "watchdog"))
+        plain = {k_: lc[k_] for k_ in PLAIN_NAMES if lc[k_]}
+        if backend != "ffa" or quarantined or plain or counts != {
+                "resilience.injected": 1, "resilience.retry": 1, "resilience.recovered": 1}:
+            raise AssertionError(f"resilience: watchdog {backend}, quarantined {quarantined}, {counts}, "
+                                 f"plain {plain}")
+        _same_bits("resilience: the watchdog's retry against the unfaulted step", (out,), ffa_ref)
+
+        def lasting():
+            try:
+                _key_step(_cp1_key(), inputs, do, grads=False)
+            except InjectedFault as e:
+                return type(e).__name__
+            return None
+
+        raised, _, lasting_counts, lc = case(
+            {"MAGI_ATTENTION_STEP_RETRIES": "1", fault: "kernel_lowering:p=1.0"}, lasting)
+        plain = {k_: lc[k_] for k_ in PLAIN_NAMES if lc[k_]}
+        if raised != "InjectedFault" or plain:
+            raise AssertionError(f"resilience: a lasting fault under the watchdog {raised}, plain {plain}")
+        res["watchdog"] = dict(rung=backend, quarantined_ffa=quarantined, counts=counts,
+                               bitwise_vs_unfaulted=True, lasting_fault=dict(raised=raised,
+                                                                            counts=lasting_counts))
+        del out, ffa_ref
+        torch.cuda.empty_cache()
+
+        # (g) the serve ladder: one token a tick (B10), then spec verify (B11)
+        model = ctx["model"]
+        serve = {}
+        for name, config, kernel in (
+            ("decode", ctx["config"], "paged_decode"),
+            ("spec4", dataclasses.replace(ctx["config"], spec_tokens=4), "paged_decode_spec"),
+        ):
+            reqs = ctx["requests"](model)
+            _, summ, counts, lc = case({fault: "serve_decode:count=2", **fb},
+                                       lambda: ServeEngine(model, config).run(reqs),
+                                       os.path.join(tmp, f"serve_{name}"))
+            worst = rows_err(f"resilience serve_decode {name}", reqs, ctx["reference"])
+            detail = summ["last"]["resilience"]["action_detail"]
+            if counts.get("resilience.fallback") != 2 or detail != f"{kernel}_to_gather_ffa" or not lc[kernel]:
+                raise AssertionError(f"resilience: serve {name} {counts}, {detail}, {lc}")
+            serve[name] = dict(counts=counts, hop=detail, launches={kernel: lc[kernel]},
+                               oracle_max_abs_err=worst[0], oracle_rel_norm_err=worst[1])
+        res["serve_decode"] = dict(serve, atol=SERVE_ATOL, rnorm=SERVE_RNORM)
+
+        # (h) the guard's cost a step
+        key = _cp1_key()
+
+        def plain():
+            return _key_step(key, inputs, do)
+
+        times = paired_ms({"off": plain, "guard": lambda: _with_env(
+            {"MAGI_ATTENTION_NUMERIC_GUARD": "raise"}, plain)}, rounds=7, samples=5)
+        off, on = statistics.median(times["off"]), statistics.median(times["guard"])
+        res["guard_cost"] = dict(off=times["off"], guard=times["guard"], median_off=off,
+                                 median_guard=on, ms_per_step=on - off)
+    res["launches"] = {k: n for k, n in launches.items() if n}
+    res["counts"] = own
+    if any(launches.get(k) for k in PLAIN_NAMES):
+        raise AssertionError(f"resilience: a plain version ran on the card: {res['launches']}")
+    # B1, B7, the fused-to-split rung's B3 and B5/B6, B10 and B11 (B8/B9:
+    # the observability phase)
+    for k in ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv", "paged_decode",
+              "paged_decode_spec"):
+        if not launches.get(k):
+            raise AssertionError(f"resilience: {k} never launched: {res['launches']}")
+    emit({"phase": "resilience", **res})
+    return res
+
+
+def _cp4_key(device: str, seq: int, **kw):
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+
+    docs = _docs(seq, seq // 2)
+    return api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, cp_group=dist.group.WORLD,
+                                  device=device, chunk_size=min(512, seq // 8), **kw)
+
+
+def _rank_step(key, inputs, do):
+    """out, dq, dk, dv of this rank's dispatched rows through ``key``."""
+    import torch
+
+    from magiattention_tpu_torch import api
+
+    ls = [api.dispatch(inputs[0], key), api.dispatch(inputs[1], key, role="kv"),
+          api.dispatch(inputs[2], key, role="kv")]
+    ls = [t.detach().requires_grad_(True) for t in ls]
+    out, _ = api.calc_attn(*ls, key)
+    return (out.detach(), *torch.autograd.grad(out, ls, api.dispatch(do, key)))
+
+
+def cp4_resilience(device: str, seq: int) -> dict:
+    """cp 4: every rank carries the same ``kernel_lowering:count=1`` spec
+    with MAGI_ATTENTION_FALLBACK=1 at tiles 128 x 128 (deterministic
+    mode): every rank takes the one hop to 128 x 64 at the same call, no
+    rank hangs (the group's timeout bounds it), and every rank's out and
+    gradients equal its run pinned at 128 x 64 to the bit."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.resilience import inject
+
+    inputs, do = _cp_inputs(device, seq, seed=31)
+    det = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+    pinned = _with_env({**det, **FFA_128x64}, lambda: _rank_step(_cp4_key(device, seq), inputs, do))
+    inject.reset()
+    before = resilience_counts()
+    t0 = time.perf_counter()
+
+    def faulted():
+        key = _cp4_key(device, seq)
+        got = _rank_step(key, inputs, do)
+        rt = _mgr(key).runtime
+        return got, (rt._bq, rt._bk), rt.num_stages
+
+    got, tiles, stages = _with_env(
+        {**det, **FFA_128, "MAGI_ATTENTION_FAULT_INJECT": "kernel_lowering:count=1",
+         "MAGI_ATTENTION_FALLBACK": "1"}, faulted)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts_delta(before, resilience_counts())
+    same = all(torch.equal(a, b) for a, b in zip(got, pinned))
+    hops = torch.tensor([counts.get("resilience.recovered", 0), int(same)], device=device)
+    every = [torch.zeros_like(hops) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, hops)
+    every = [t.tolist() for t in every]
+    if any(h != [1, 1] for h in every) or tiles != (128, 64):
+        raise AssertionError(f"cp4_resilience: ranks' (hops, bitwise) {every}, tiles {tiles}")
+    return dict(spec="kernel_lowering:count=1", start=[128, 128], rung=list(tiles), stages=stages,
+                ranks_hops_bitwise=every, faulted_step_wall_s=_every_rank(wall), counts=counts)
+
+
+# rank 3's extra work a step (torch.cuda._sleep cycles, ~10 ms on an H100)
+STRAGGLER_CYCLES = 20_000_000
+STRAGGLER_STEPS = 14
+STRAGGLER_ENV = {"MAGI_ATTENTION_STRAGGLER_DETECT": "1", "MAGI_ATTENTION_STRAGGLER_MIN_STEPS": "4"}
+
+
+def cp4_straggler(device: str, seq: int) -> dict:
+    """cp 4 under MAGI_ATTENTION_STRAGGLER_DETECT=1 with rank 3 slowed
+    each step (``torch.cuda._sleep``): every rank all-gathers the step ms
+    and feeds the four to its monitor (``observe_step``), so the capacity
+    vectors are identical on every rank (checked, and by the key's own
+    all-reduce); exactly one re-solve after MAGI_ATTENTION_STRAGGLER_MIN
+    _STEPS, no flapping; the weighted plan's output within bf16 limits of
+    the unweighted one; the slowest rank's ms before and after."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.telemetry import health
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    on_card = device == "cuda"
+    inputs, do = _cp_inputs(device, seq, seed=37)
+    health.reset()
+
+    def run():
+        keys, caps_seq, step_ms, outs = [], [], [], []
+        _rank_step(_cp4_key(device, seq), inputs, do)  # warm, not observed
+        for _ in range(STRAGGLER_STEPS):
+            key = _cp4_key(device, seq)  # carries the monitor's current vector
+            if not keys or key != keys[-1]:
+                keys.append(key)
+            caps_seq.append(key.capacities)
+            dist.barrier()
+            t0 = time.perf_counter()
+            if on_card:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            out = _rank_step(key, inputs, do)[0]
+            if rank == 3:  # the straggler's extra work
+                if on_card:
+                    torch.cuda._sleep(STRAGGLER_CYCLES)
+                else:
+                    time.sleep(0.02)
+            if on_card:
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end)
+            else:
+                ms = (time.perf_counter() - t0) * 1e3
+            every = _every_rank(ms)
+            step_ms.append(every)
+            for r, m in enumerate(every):
+                health.observe_step(r, m)
+            outs.append(api.undispatch(out, key))
+        return keys, caps_seq, step_ms, outs
+
+    keys, caps_seq, step_ms, outs = _with_env(STRAGGLER_ENV, run)
+    health.reset()
+    # the vectors of every rank: equal (the key's all-reduce checked each)
+    mine = torch.tensor([c for caps in caps_seq for c in (caps or (1.0,) * world)],
+                        dtype=torch.float64, device=device)
+    every = [torch.zeros_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine)
+    if any(not torch.equal(t, mine) for t in every):
+        raise AssertionError("cp4_straggler: capacity vectors differ across ranks")
+    changes = [i for i in range(1, len(caps_seq)) if caps_seq[i] != caps_seq[i - 1]]
+    if len(keys) != 2 or len(changes) != 1 or caps_seq[0] is not None:
+        raise AssertionError(f"cp4_straggler: re-solves at steps {changes}, vectors {caps_seq}")
+    err = grad_check("cp4_straggler weighted vs unweighted", outs[-1].float(), outs[0].float(), "bfloat16")
+    before = [max(ms) for ms in step_ms[:changes[0]]]
+    after = [max(ms) for ms in step_ms[changes[0]:]]
+    return dict(
+        slowed_rank=3, sleep_cycles=STRAGGLER_CYCLES, steps=STRAGGLER_STEPS,
+        min_steps=int(STRAGGLER_ENV["MAGI_ATTENTION_STRAGGLER_MIN_STEPS"]),
+        resolve_at_step=changes[0], capacities=list(caps_seq[-1]),
+        slowest_rank_ms_before=before, slowest_rank_ms_after=after,
+        median_slowest_before=statistics.median(before), median_slowest_after=statistics.median(after),
+        step_ms_every_rank=step_ms, weighted_vs_unweighted=err,
+    )
+
+
 def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
     """One process of ``--cp4`` (NCCL on card ``rank``; gloo on the CPU in
     a rehearsal): rank 0 prints the results."""
@@ -7262,7 +8040,9 @@ def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
         # cp4_zero3 last: its profiled step slows every later step in the
         # process (on four H100s the DiT's cp 4 step went from 24.0 to 32.1
         # ms after one)
-        for name, run in (("cp4_moe_ep", lambda: cp4_moe_ep(device, seq)),
+        for name, run in (("cp4_resilience", lambda: cp4_resilience(device, seq)),
+                          ("cp4_straggler", lambda: cp4_straggler(device, seq)),
+                          ("cp4_moe_ep", lambda: cp4_moe_ep(device, seq)),
                           ("cp4_video_dit", lambda: cp4_video_dit(device)),
                           ("cp4_tp_train", lambda: cp4_tp_train(device, seq)),
                           ("cp4_zero3_check", lambda: cp4_zero3_check(device, seq)),
@@ -7282,6 +8062,10 @@ def cp4_main(device: str = "cuda", seq: int = CP_SEQ) -> int:
     import torch
     import torch.multiprocessing as mp
 
+    if resilience_flags_set():
+        print(f"chip_smoke --cp4: unset {resilience_flags_set()} (its phases set them themselves)",
+              file=sys.stderr)
+        return 1
     if device == "cuda":
         if torch.cuda.device_count() < CPB_WORLD:
             print(f"chip_smoke --cp4: needs {CPB_WORLD} cards", file=sys.stderr)
@@ -7349,6 +8133,12 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, r: dict) 
 
 
 def main() -> int:
+    if resilience_flags_set():
+        # a fallback flag in the environment could carry a phase onto the
+        # plain path unseen: the resilience phases set them themselves
+        print(f"chip_smoke: unset {resilience_flags_set()} (its phases set them themselves)",
+              file=sys.stderr)
+        return 1
     if "--cp4" in sys.argv[1:]:
         return cp4_main()
     try:
@@ -7406,6 +8196,14 @@ def main() -> int:
     serve_int8 = serve_int8_phase(serve_ctx)
     serve_pinned_phase(serve_ctx)
     sharded = decode_sharded_phase(serve_ctx, peaks)
+    # the resilience layer acts in its own phases only: nothing before them
+    # (the counters start at zero), and, cleared after them, nothing after
+    before_own = resilience_counts()
+    obs = observability_phase()
+    resil = resilience_phase(serve_ctx)
+    from magiattention_tpu_torch import telemetry
+
+    telemetry.reset()
     del serve_ctx
     cp_api = cp_api_phase()
     deterministic_phase()
@@ -7424,6 +8222,15 @@ def main() -> int:
     nsa = nsa_phase()
     usp = usp_nsa_phase()["launches"]
 
+    # the resilience layer acted in its own phases only (its counts are
+    # kept with telemetry off too)
+    after_own = resilience_counts()
+    if before_own or after_own:
+        raise AssertionError(f"resilience actions outside the resilience phases: before them "
+                             f"{before_own}, after them {after_own}")
+    emit({"phase": "resilience_elsewhere", "before_own_phases": before_own,
+          "after_own_phases": after_own, "own_phases": resil["counts"]})
+
     t = bwd["d_train_docs_8192_bf16"]
     # the launches of each kernel on the main paths (serving, train, nsa)
     # plus those of the qo-comm path (qo_comm phase), the CP baselines'
@@ -7431,7 +8238,8 @@ def main() -> int:
     # (cp_hier_tp), usp_nsa_attn's (usp_nsa), the train phase's remat
     # step, the MoE and video DiT steps (moe, video_dit) and the sharded
     # tree's step (shard_cp1)
-    paths = (qo, cpb, ht, usp, train["remat"]["launches"], moe_launches, dit_launches, shard)
+    paths = (qo, cpb, ht, usp, train["remat"]["launches"], moe_launches, dit_launches, shard,
+             obs["launches"], resil["launches"])
     extra = {k_: sum(p.get(k_, 0) for p in paths) for k_ in set().union(*paths)}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body; int8 spec verify's too

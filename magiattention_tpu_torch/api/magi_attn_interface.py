@@ -53,6 +53,7 @@ from ..dist_attn_runtime_mgr import (
 )
 from ..env import general as env_general
 from ..kernels.mask_utils import types_to_bands
+from ..telemetry import health as telemetry_health
 from .functools import apply_padding, infer_attn_mask_from_cu_seqlens
 
 
@@ -136,6 +137,25 @@ def _validate_mask_inputs(
         )
 
 
+def _check_capacities(caps: tuple[float, ...] | None, cp_group, device) -> None:
+    """At cp > 1, every rank of the group must carry the same capacity
+    vector (each rank runs its own health monitor; different vectors plan
+    differently and then hang): one small all_reduce of the vector's MIN
+    and (as -x) MAX over the group."""
+    if caps is None or cp_group is None or dist.get_world_size(cp_group) == 1:
+        return
+    t = torch.tensor(caps, dtype=torch.float64, device=device)
+    both = torch.cat([t, -t])
+    dist.all_reduce(both, op=dist.ReduceOp.MIN, group=cp_group)
+    lo, hi = both[: len(caps)], -both[len(caps):]
+    if not (torch.equal(lo, t) and torch.equal(hi, t)):
+        raise ValueError(
+            f"capacity vectors differ across the cp group (this rank's {list(caps)}): "
+            "feed every rank's health monitor the same step times (an all_gather "
+            "of them), so that every rank derives the same vector"
+        )
+
+
 def magi_attn_flex_key(
     q_ranges: AttnRanges | Sequence[Sequence[int]],
     k_ranges: AttnRanges | Sequence[Sequence[int]],
@@ -161,6 +181,12 @@ def magi_attn_flex_key(
     ``head_axis`` (an axis to shard the heads over, or None); every
     process of the mesh calls this. ``total_seqlen_q`` must divide into
     ``cp_size * chunk_size`` (pad the sequence first).
+
+    Under MAGI_ATTENTION_STRAGGLER_DETECT=1 the key carries the health
+    monitor's capacity vector (``telemetry.health.active_capacities``;
+    None when every rank is healthy), so the plan is re-solved, weighted,
+    exactly when the vector changes; at cp > 1 the group must agree on it
+    (checked here; ``ValueError`` otherwise).
     """
     global _most_recent_key
     if not isinstance(q_ranges, AttnRanges):
@@ -191,6 +217,9 @@ def magi_attn_flex_key(
             if dist_attn_config and dist_attn_config.dispatch_config.chunk_size
             else _auto_chunk_size(total_seqlen_q, cp_size, uneven)
         )
+    # straggler-aware dispatch: the active capacity vector rides the key
+    capacities = telemetry_health.active_capacities(cp_size)
+    _check_capacities(capacities, cp_group, device)
     key = DistAttnRuntimeKey(
         q_ranges=tuple(q_ranges.to_naive_ranges()),
         k_ranges=tuple(k_ranges.to_naive_ranges()),
@@ -204,6 +233,7 @@ def magi_attn_flex_key(
         device=str(device),
         config=dist_attn_config or DistAttnConfig(),
         env_snapshot=env_general.snapshot_env(),
+        capacities=capacities,
         mesh=mesh,
         cp_axis=cp_axis,
         head_axis=head_axis,

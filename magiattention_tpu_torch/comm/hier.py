@@ -375,6 +375,8 @@ class HierCastPlan:
     layout. Used as :class:`~.primitives.CastPlan` is, with the pair of
     groups ``(outer line, inner line)`` in place of the cp group."""
 
+    lowering = "hier"  # names the group_reduce_hier profiler scope
+
     a_send_rows: np.ndarray  # local rows, grouped by destination node
     a_send_splits: tuple[int, ...]  # rows to each node's aligned peer
     a_recv_splits: tuple[int, ...]  # rows from each node's aligned peer

@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from ..meta.collection.comm_meta import GroupCollectiveArg
+from ..utils.profiling import profile_scope
 
 
 @dataclass(frozen=True, eq=False)
@@ -91,6 +92,10 @@ class CastPlan:
             t = torch.from_numpy(self.send_rows).to(device)
             self._rows[device] = t
         return t
+
+    # the lowering a stage runs (the JAX package's ``kind[0]``, which names
+    # the ``group_reduce_<lowering>`` profiler scope)
+    lowering = "a2a"
 
     def cast_start(self, x: torch.Tensor, group, out_dtype: torch.dtype):
         """Issue the GroupCast of ``x``'s rows, sent in x's dtype; returns
@@ -187,8 +192,9 @@ def group_reduce_rows(
     against this rank's receive buffer) into ``[shard_len, ...]`` float32:
     the rows of every rank's partials that this rank owns, summed. The
     transfer runs in ``dtype`` (default y's)."""
-    back, work, _ = _reduce_start(y, plan, group, dtype or y.dtype)
-    return _reduce_finish(None, plan, back, work, shard_len)
+    with profile_scope(f"group_reduce_{plan.lowering}"):
+        back, work, _ = _reduce_start(y, plan, group, dtype or y.dtype)
+        return _reduce_finish(None, plan, back, work, shard_len)
 
 
 class _GroupCast(torch.autograd.Function):
@@ -208,8 +214,9 @@ class _GroupCast(torch.autograd.Function):
     def forward(ctx, x, plans, group, hp, waits):
         out_dtype = torch.float32 if hp else x.dtype
         bufs = []
-        for plan in plans:
-            buf, wait = plan.cast_start(x, group, out_dtype)
+        for i, plan in enumerate(plans):
+            with profile_scope(f"group_cast_stage{i}"):
+                buf, wait = plan.cast_start(x, group, out_dtype)
             bufs.append(buf)
             waits.append(wait)
         ctx.plans, ctx.group, ctx.hp = plans, group, hp
@@ -221,12 +228,13 @@ class _GroupCast(torch.autograd.Function):
         total = grads[0].float() if ctx.hp else None
         stage_grads = grads[1:] if ctx.hp else grads
         wire = torch.float32 if ctx.hp else ctx.x_dtype
-        pending = [
-            (plan, plan.reduce_start(g, ctx.group, wire))
-            for plan, g in zip(ctx.plans, stage_grads)
-        ]
+        pending = []
+        for plan, g in zip(ctx.plans, stage_grads):
+            with profile_scope(f"group_reduce_{plan.lowering}"):
+                pending.append((plan, plan.reduce_start(g, ctx.group, wire)))
         for plan, handle in pending:
-            total = plan.reduce_finish(total, handle, ctx.group, ctx.shard_len)
+            with profile_scope(f"group_reduce_{plan.lowering}"):
+                total = plan.reduce_finish(total, handle, ctx.group, ctx.shard_len)
         return total.to(ctx.x_dtype), None, None, None, None
 
 

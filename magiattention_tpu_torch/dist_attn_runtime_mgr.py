@@ -22,8 +22,15 @@ None = cp 1, no collectives) plus a device, or a
 ``cp_axis`` (for a pair of axes, the flat group over both, outer-major),
 two-level comm runs over the pair's two lines when
 MAGI_ATTENTION_HIERARCHICAL_COMM=1, and ``head_axis`` names the TP line.
-Not ported yet: the disk and broadcast plan tiers and plan verification
-(ROADMAP queue A10).
+
+Observability and resilience, as in the JAX package: the plan cache and
+the runtime LRU count their hits and misses (and mirror them into
+telemetry), cache hits emit ``plan_solve`` records, every static build a
+``plan_build`` record; under MAGI_ATTENTION_FALLBACK=1 a failed dynamic
+solve falls back to the static plan (degradation chain 2) and a failed
+build is retried once, a build that still fails never being cached
+(chain 3). Not ported yet: the disk and broadcast plan tiers and plan
+verification (ROADMAP queue A item 5b).
 """
 
 from __future__ import annotations
@@ -33,15 +40,16 @@ from dataclasses import dataclass
 
 import torch
 
+from . import telemetry
 from .common.enum import AttnMaskType
 from .common.ranges import AttnRanges
 from .config import DistAttnConfig
 from .env import comm as env_comm
 from .env import general as env_general
+from .env import resilience as env_resilience
 from .functional.dispatch import dispatch_func, undispatch_func
 from .functional.dist_attn import DistAttnRuntime, dist_attn_func
 from .functional.dynamic_dist_attn import DynamicDistAttnRuntime
-from .kernels import registry as kernel_registry
 from .meta import make_attn_meta_from_dispatch_meta, make_dispatch_meta_from_qk_ranges
 from .meta._make_attn_meta import make_dynamic_attn_plan
 
@@ -129,11 +137,17 @@ class _PlanCache:
     def __init__(self) -> None:
         self._d: OrderedDict[tuple, dict] = OrderedDict()
         self._prev_dyn: dict[tuple, object] = {}
+        self._hits = 0
+        self._misses = 0
 
     def lookup(self, sig: tuple) -> dict | None:
         if sig in self._d:
             self._d.move_to_end(sig)
+            self._hits += 1
+            telemetry.inc("plan_solve.cache_hit")
             return self._d[sig]
+        self._misses += 1
+        telemetry.inc("plan_solve.cache_miss")
         return None
 
     def store(self, sig: tuple, entry: dict) -> None:
@@ -149,9 +163,14 @@ class _PlanCache:
         if state is not None:
             self._prev_dyn[family] = state
 
+    def get_stats(self) -> dict[str, int]:
+        return {"hits": self._hits, "misses": self._misses, "size": len(self._d)}
+
     def clear(self) -> None:
         self._d.clear()
         self._prev_dyn.clear()
+        self._hits = 0
+        self._misses = 0
 
 
 # plans outlive any one runtime dict
@@ -210,63 +229,128 @@ class DistAttnRuntimeMgr:
             )
             entry = {"dispatch": (meta_q, meta_kv, bucket)}
         self.dispatch_meta_q, self.dispatch_meta_kv, self.bucket = entry["dispatch"]
-        # a key is built under the backend it runs: the registry's calc_attn
-        # decision (MAGI_ATTENTION_KERNEL_BACKEND pins it, else ffa)
-        backend = kernel_registry.calc_attn_backend()
+        self._index = {}
+        self._mesh = None
+        # the observatory's mesh signature (the JAX package's form)
+        shape = key.mesh.shape if key.mesh is not None else {"cp": key.cp_size}
+        mesh_sig = repr((tuple(sorted(shape.items())), key.cp_axis, key.head_axis))
+        self.dynamic_plan = None
         if env_comm.is_qo_comm_enable():
             # the dynamic (qo-comm) planner: q/o rows move too, one stage
-            if "dynamic" not in entry:
-                entry = {
-                    "dispatch": entry["dispatch"],
-                    "dynamic": make_dynamic_attn_plan(
+            if "dynamic" in entry:
+                self._record_cache_hit("dynamic")
+            else:
+                try:
+                    plan = make_dynamic_attn_plan(
                         AttnRanges.from_ranges(key.q_ranges),
                         AttnRanges.from_ranges(key.k_ranges),
                         [AttnMaskType.from_int_type(t) for t in key.attn_mask_type],
                         self.dispatch_meta_q, key.config,
                         dispatch_meta_kv=self.dispatch_meta_kv,
                         prev_state=_PLAN_CACHE.prev_dyn_state(_mask_family(sig)) if cache_on else None,
-                    ),
-                }
-                if cache_on:
-                    _PLAN_CACHE.store(sig, entry)
-                    _PLAN_CACHE.set_dyn_state(_mask_family(sig), entry["dynamic"].solver_state)
-            self.dynamic_plan = entry["dynamic"]
-            self.comm_meta = self.calc_meta = None
-            self.runtime = DynamicDistAttnRuntime(
-                self.dynamic_plan, cp_rank=key.cp_rank, cp_group=key.cp_group, backend=backend,
-            )
+                    )
+                except Exception as e:
+                    # degradation chain 2: a failed dynamic solve falls back
+                    # to the static solver plan (same mask, kv-comm execution)
+                    if not env_resilience.is_fallback_enable():
+                        raise
+                    from .resilience.fallback import record_resilience_event
+
+                    record_resilience_event(
+                        "fallback", "dynamic_plan_solve",
+                        action_detail="static_plan", error=type(e).__name__,
+                    )
+                else:
+                    entry = {**entry, "dynamic": plan}
+                    if cache_on:
+                        _PLAN_CACHE.store(sig, entry)
+                        _PLAN_CACHE.set_dyn_state(_mask_family(sig), plan.solver_state)
+            if "dynamic" in entry:
+                self.dynamic_plan = entry["dynamic"]
+                self.comm_meta = self.calc_meta = None
+                self.runtime = DynamicDistAttnRuntime(
+                    self.dynamic_plan, cp_rank=key.cp_rank, cp_group=key.cp_group,
+                    backend=None, mesh_sig=mesh_sig,
+                )
+                if telemetry.enabled():
+                    p = self.dynamic_plan
+                    telemetry.record_event(
+                        "plan_build",
+                        planner="dynamic",
+                        cp_size=key.cp_size,
+                        overlap_degree=1,
+                        stages=[
+                            {"name": name, **cast.telemetry_dict()}
+                            for name, cast in (
+                                ("q_cast", p.q_cast), ("kv_cast", p.kv_cast), ("ret", p.ret),
+                            )
+                        ],
+                    )
+                return
+        if "static" in entry:
+            self._record_cache_hit("static")
         else:
-            if "static" not in entry:
-                entry = {
-                    "dispatch": entry["dispatch"],
-                    "static": make_attn_meta_from_dispatch_meta(
-                        self.bucket, self.dispatch_meta_q, key.config,
-                        dispatch_meta_kv=self.dispatch_meta_kv,
-                        mesh_shape=_mesh_shape_for(key),
-                    ),
-                }
-                if cache_on:
-                    _PLAN_CACHE.store(sig, entry)
-            self.dynamic_plan = None
-            self.comm_meta, self.calc_meta = entry["static"]
-            overlap_cfg = key.config.overlap_config
-            mesh_shape = _mesh_shape_for(key)
-            self.runtime = DistAttnRuntime(
-                comm_meta=self.comm_meta,
-                calc_meta=self.calc_meta,
-                cp_rank=key.cp_rank,
-                cp_group=key.cp_group,
-                use_overlap=None if overlap_cfg.enable else False,
-                backend=backend,
-                hier=None if mesh_shape is None else (
-                    mesh_shape, tuple(key.mesh.group(axis) for axis in key.cp_axis)
+            entry = {
+                **entry,
+                "static": make_attn_meta_from_dispatch_meta(
+                    self.bucket, self.dispatch_meta_q, key.config,
+                    dispatch_meta_kv=self.dispatch_meta_kv,
+                    mesh_shape=_mesh_shape_for(key),
                 ),
-                tp=None if key.head_axis is None else (
-                    key.head_axis, key.mesh.group(key.head_axis), key.mesh.shape[key.head_axis]
-                ),
+            }
+            if cache_on:
+                _PLAN_CACHE.store(sig, entry)
+        self.comm_meta, self.calc_meta = entry["static"]
+        overlap_cfg = key.config.overlap_config
+        mesh_shape = _mesh_shape_for(key)
+        self.runtime = DistAttnRuntime(
+            comm_meta=self.comm_meta,
+            calc_meta=self.calc_meta,
+            cp_rank=key.cp_rank,
+            cp_group=key.cp_group,
+            use_overlap=None if overlap_cfg.enable else False,
+            # the registry's calc_attn decision under the runtime's policy
+            # key (MAGI_ATTENTION_KERNEL_BACKEND pins it, else the store or ffa)
+            backend=None,
+            hier=None if mesh_shape is None else (
+                mesh_shape, tuple(key.mesh.group(axis) for axis in key.cp_axis)
+            ),
+            tp=None if key.head_axis is None else (
+                key.head_axis, key.mesh.group(key.head_axis), key.mesh.shape[key.head_axis]
+            ),
+            mesh_sig=mesh_sig,
+        )
+        self._record_comm_plan()
+
+    def _record_cache_hit(self, planner: str) -> None:
+        if telemetry.enabled():
+            telemetry.record_event(
+                "plan_solve", planner=planner, event="cache_hit",
+                source=self.plan_source, incremental=False,
+                wall_ms=0.0, rows_resolved=0,
             )
-        self._index = {}
-        self._mesh = None
+
+    def _record_comm_plan(self) -> None:
+        """The static plan's ``plan_build`` record: per-stage payload rows,
+        wire rows, padding, lowering (the JAX package's fields; the port's
+        flat stages run one all-to-all, two-level stages the two phases)."""
+        if not telemetry.enabled():
+            return
+        executed = "hier" if self.runtime.hier else "a2a"
+        telemetry.record_event(
+            "plan_build",
+            planner="static",
+            cp_size=self.key.cp_size,
+            overlap_degree=self.comm_meta.overlap_degree,
+            stages=[
+                {
+                    "stage": st,
+                    "xprof_scope": f"group_cast_stage{st}",
+                    **s.telemetry_dict(executed=executed),
+                }
+                for st, s in enumerate(self.comm_meta.kv_stages)
+            ],
+        )
 
     def _indices(self, role: str) -> tuple[torch.Tensor, int, torch.Tensor]:
         """(this rank's global rows, its real row count, the unpermute
@@ -360,24 +444,74 @@ class DistAttnRuntimeMgr:
 
 
 class DistAttnRuntimeDict:
-    """LRU cache of managers by key."""
+    """LRU cache of managers by key. Its hit/miss/eviction counts are plain
+    ints, always kept (no clock, no file), mirrored into telemetry when it
+    is on."""
 
     def __init__(self, maxsize: int | None = None) -> None:
         self.maxsize = maxsize or env_general.runtime_dict_size()
         self._d: OrderedDict[DistAttnRuntimeKey, DistAttnRuntimeMgr] = OrderedDict()
+        self._hits = 0
+        self._misses = 0
+        self._evictions = 0
 
     def get_or_create(self, key: DistAttnRuntimeKey) -> DistAttnRuntimeMgr:
         if key in self._d:
             self._d.move_to_end(key)
+            self._hits += 1
+            telemetry.inc("runtime_cache.hit")
             return self._d[key]
-        mgr = DistAttnRuntimeMgr(key)
+        self._misses += 1
+        telemetry.inc("runtime_cache.miss")
+        with telemetry.stage_timer("runtime_mgr_init"):
+            # a build that raised never leaves an entry behind: the next
+            # get_or_create rebuilds
+            mgr = self._build_mgr(key)
         self._d[key] = mgr
         while len(self._d) > self.maxsize:
             self._d.popitem(last=False)
+            self._evictions += 1
+            telemetry.inc("runtime_cache.evict")
+        if telemetry.enabled():
+            telemetry.record_event("runtime_cache", **self.get_stats())
         return mgr
+
+    def _build_mgr(self, key: DistAttnRuntimeKey) -> DistAttnRuntimeMgr:
+        """One manager build, with the resilience layer's bounded retry
+        (MAGI_ATTENTION_FALLBACK=1: one extra attempt, degradation chain
+        3). A retry re-solves on the host only; every rank of a group
+        builds the same plan, so at cp > 1 they retry alike."""
+        from .resilience.fallback import PLAN_BUILD_RETRIES, record_resilience_event
+
+        retries = PLAN_BUILD_RETRIES if env_resilience.is_fallback_enable() else 0
+        for attempt in range(retries + 1):
+            try:
+                mgr = DistAttnRuntimeMgr(key)
+            except Exception as e:
+                if attempt >= retries:
+                    raise
+                record_resilience_event(
+                    "retry", "plan_build", attempt=attempt + 1, error=type(e).__name__,
+                )
+                continue
+            if attempt:
+                record_resilience_event("recovered", "plan_build", attempt=attempt)
+            return mgr
 
     def get(self, key: DistAttnRuntimeKey) -> DistAttnRuntimeMgr | None:
         return self._d.get(key)
+
+    def get_stats(self) -> dict[str, int]:
+        """Cache behavior counters (the cache is keyed on mask + group +
+        config + env snapshot, so a surprise miss rate usually means env
+        flags are churning between steps)."""
+        return {
+            "hits": self._hits,
+            "misses": self._misses,
+            "evictions": self._evictions,
+            "size": len(self._d),
+            "maxsize": self.maxsize,
+        }
 
     def clear(self) -> None:
         self._d.clear()

@@ -4,9 +4,12 @@ The port's copy of the pins its slices read from
 ``magiattention_tpu/env/backend.py``; the flag names and values are the
 same. A pin is an explicit backend name, ``None`` when unset; the backend
 registry (``kernels/registry.py``) resolves every decision as pin >
-in-process memo > heuristic. The JAX package's store and drift knobs
-(MAGI_ATTENTION_BACKEND_STORE, _STORE_DIR, _DRIFT_THRESHOLD,
-_CALIBRATION) configure its telemetry store, which the port does not have.
+in-process memo > persisted policy / measured history > heuristic.
+
+The store and drift knobs (MAGI_ATTENTION_BACKEND_STORE, _STORE_DIR,
+_DRIFT_THRESHOLD, _CALIBRATION) configure the persistent telemetry store
+(``telemetry/store.py``) and the measured-vs-modeled drift layer
+(``telemetry/drift.py``).
 """
 
 from __future__ import annotations
@@ -120,3 +123,37 @@ def nsa_slc_pin() -> str | None:
     if val in ("block_sparse_pallas", "gathered_dense"):
         return val
     return None
+
+
+def backend_store_mode() -> str:
+    """Persistent policy/measurement store mode: auto | 1 | 0.
+
+    auto (default): active whenever MAGI_ATTENTION_TELEMETRY is on.
+    0: telemetry records still flow to JSONL but nothing is persisted to,
+    or read back from, the store (the registry keeps its heuristics).
+    1: behaves like auto (the store still requires telemetry)."""
+    val = _get_str("MAGI_ATTENTION_BACKEND_STORE", "auto").lower()
+    return val if val in ("auto", "1", "0") else "auto"
+
+
+def store_dir() -> str:
+    """Directory of the persistent telemetry store (history JSONL files +
+    compacted store.json). Empty default = '<telemetry_dir>/store'."""
+    return _get_str("MAGI_ATTENTION_STORE_DIR", "")
+
+
+def drift_threshold() -> float:
+    """Relative prediction error above which ``telemetry/drift.py`` emits a
+    ``model_drift`` record for a cost-model observation (default 0.5 =
+    50% off after global scale fitting)."""
+    try:
+        return float(_get_str("MAGI_ATTENTION_DRIFT_THRESHOLD", "0.5"))
+    except ValueError:
+        return 0.5
+
+
+def calibration_enabled() -> bool:
+    """Let the tile policy consume store-fitted constants (its per-dtype
+    OVERHEAD_ELEMS) instead of the built-in ones. Requires an active
+    store; with telemetry off this flag is inert."""
+    return _get_str("MAGI_ATTENTION_CALIBRATION", "1") == "1"

@@ -18,6 +18,10 @@ def _get_int(name: str, default: int) -> int:
     return int(os.environ.get(name, str(default)))
 
 
+def _get_float(name: str, default: float) -> float:
+    return float(os.environ.get(name, str(default)))
+
+
 def _get_str(name: str, default: str) -> str:
     return os.environ.get(name, default)
 
@@ -30,6 +34,27 @@ def kernel_backend() -> str:
 def precision() -> str:
     """Precision override for attention compute: default | fp32 | bf16."""
     return _get_str("MAGI_ATTENTION_PRECISION", "default").lower()
+
+
+def is_profile_mode_enable() -> bool:
+    """Wrap hot-path functions and regions in profiler ranges
+    (``utils/profiling.py``: ``torch.profiler.record_function``, plus an
+    NVTX range on a card)."""
+    return _get_bool("MAGI_ATTENTION_PROFILE_MODE")
+
+
+def is_telemetry_enable() -> bool:
+    """Record runtime telemetry (the ``telemetry`` package): dispatch
+    balance, per-stage comm volumes, plan/step timings, cache stats,
+    exported as JSONL. Off by default: the hot path reads no clock and
+    writes no file."""
+    return _get_bool("MAGI_ATTENTION_TELEMETRY")
+
+
+def telemetry_dir() -> str:
+    """Directory for telemetry JSONL files (one per writer,
+    ``magiattention-<host>-<pid>-<token>.jsonl``)."""
+    return _get_str("MAGI_ATTENTION_TELEMETRY_DIR", "telemetry")
 
 
 def is_deterministic_mode_enable() -> bool:
@@ -107,8 +132,19 @@ ENV_KEYS_AFFECTING_RUNTIME: tuple[str, ...] = (
     "MAGI_ATTENTION_FFA_AUTO_TILE",
     "MAGI_ATTENTION_FFA_FUSED_BWD",
     "MAGI_ATTENTION_BACKEND_FFA_BWD",
+    # the store and calibration let measured history steer kernel choice
+    # and the tile policy's constants
+    "MAGI_ATTENTION_BACKEND_STORE",
+    "MAGI_ATTENTION_CALIBRATION",
     "MAGI_ATTENTION_RAGGED_GRPCOLL",
     "MAGI_ATTENTION_SPLIT_ALIGNMENT",
+    # injection, fallback and the step watchdog change which plans and
+    # kernels run, so a (possibly degraded) runtime is never shared across
+    # their flips; NUMERIC_GUARD only reads, STRAGGLER_DETECT acts through
+    # the capacity vector, which keys on its own
+    "MAGI_ATTENTION_FAULT_INJECT",
+    "MAGI_ATTENTION_FALLBACK",
+    "MAGI_ATTENTION_STEP_RETRIES",
 )
 
 

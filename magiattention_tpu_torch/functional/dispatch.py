@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..comm.primitives import all_gather_v
+from ..utils.profiling import instrument_scope
 
 
 def _gather_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -54,6 +55,7 @@ class _Undispatch(torch.autograd.Function):
         return out, None, None, None, None
 
 
+@instrument_scope
 def dispatch_func(
     x: torch.Tensor, rows: torch.Tensor, unpermute: torch.Tensor, group
 ) -> torch.Tensor:
@@ -70,6 +72,7 @@ def dispatch_func(
     return _Dispatch.apply(x, rows, unpermute, group)
 
 
+@instrument_scope
 def undispatch_func(
     y: torch.Tensor,
     rows: torch.Tensor,

@@ -44,28 +44,46 @@ picks per-pass tiles over every rank's slice set at the first call, when
 the head dims and dtype are known, and builds the plans then; the backward's
 per-pass tiles (env, else the policy's) ride on each plan's
 :class:`~..kernels.ffa.FFAParams`.
+
+``calc_attn`` is JAX's entry: with a resilience flag set it runs through
+``resilience/fallback.py:run_calc_attn`` (the tile ladder, the reference
+rung, the guards, the watchdog), with MAGI_ATTENTION_TELEMETRY=1 it is
+timed and recorded (``attn_step``: JAX's fields, plus ``device_ms`` from a
+CUDA event pair on a card), and with neither it is one call of
+``_calc_attn_impl``, the step itself. Under MAGI_ATTENTION_PROFILE_MODE=1
+the parts carry JAX's profiler scopes (``ffa_fwd_stage{i}``,
+``lse_merge``, ``ffa_bwd_delta``, ``ffa_bwd``, ``group_cast_stage{i}``,
+``group_reduce_<lowering>``).
 """
 
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..comm.hier import HierCastPlan, make_hier_group_cast_plan
 from ..comm.primitives import CastPlan, group_cast_all
 from ..env import comm as env_comm
 from ..env import general as env_general
+from ..env import resilience as env_resilience
 from ..kernels import registry as kernel_registry
 from ..kernels.ffa import (
-    FFAParams, apply_bwd_overrides, default_blocks, ffa_bwd, ffa_delta, ffa_fwd_dispatch,
+    FFAParams, apply_bwd_overrides, bwd_mode_key, bwd_plans, bwd_shape, default_blocks, ffa_bwd,
+    ffa_bwd_mode, ffa_delta, ffa_fwd_dispatch, _use_gqa_pack_dq,
 )
 from ..kernels.ffa_plan import FFAPlan, get_ffa_plan
 from ..kernels.head_dims import kernel_head_dim
 from ..kernels.tile_policy import auto_tile_enabled, choose_blocks_per_pass_multi
 from ..kernels.sdpa import dense_max_logits, sdpa_attn
 from ..kernels.sdpa_online import sdpa_online_attn
+from ..kernels.tile_policy import bwd_mode_ms
 from ..meta.collection.calc_meta import AttnArg, CalcMeta
 from ..meta.collection.comm_meta import CommMeta
+from ..utils.profiling import instrument_scope, profile_scope
 from .utils import lse_weighted_reduce
 
 
@@ -76,16 +94,18 @@ def _parts_fwd(q, ks, vs, plans, params, waits, return_max_logits):
     for i, (k, v) in enumerate(zip(ks, vs)):
         if waits[i] is not None:
             waits[i]()
-        out_i, lse_i, *ml_i = ffa_fwd_dispatch(
-            q, k.to(q.dtype), v.to(q.dtype), plans[i], params[i], return_max_logits,
-        )
+        with profile_scope(f"ffa_fwd_stage{i}"):
+            out_i, lse_i, *ml_i = ffa_fwd_dispatch(
+                q, k.to(q.dtype), v.to(q.dtype), plans[i], params[i], return_max_logits,
+            )
         outs.append(out_i)
         lses.append(lse_i)
         mls += ml_i
     if len(outs) == 1:
         out, lse = outs[0], lses[0]
     else:
-        out, lse = lse_weighted_reduce(torch.stack(outs), torch.stack(lses))
+        with profile_scope("lse_merge"):
+            out, lse = lse_weighted_reduce(torch.stack(outs), torch.stack(lses))
     return out, lse, (torch.stack(mls).amax(dim=0) if return_max_logits else None)
 
 
@@ -126,14 +146,16 @@ class _MultiFFA(torch.autograd.Function):
     def backward(ctx, do, *_aux):
         q, out, lse, *kvs = ctx.saved_tensors
         n = len(ctx.plans)
-        delta = ffa_delta(out, do)
+        with profile_scope("ffa_bwd_delta"):
+            delta = ffa_delta(out, do)
         dq, dks, dvs = None, [], []
         for i in range(n):
             k, v = kvs[i], kvs[n + i]
-            dq_i, dk_i, dv_i = ffa_bwd(
-                q, k.to(q.dtype), v.to(q.dtype), do, lse, delta,
-                ctx.plans[i], ctx.params[i],
-            )
+            with profile_scope("ffa_bwd"):
+                dq_i, dk_i, dv_i = ffa_bwd(
+                    q, k.to(q.dtype), v.to(q.dtype), do, lse, delta,
+                    ctx.plans[i], ctx.params[i],
+                )
             dq = dq_i if dq is None else dq.add_(dq_i)
             dks.append(dk_i.to(k.dtype))
             dvs.append(dv_i.to(v.dtype))
@@ -160,8 +182,9 @@ class _StagedAttn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, kv, d, cast_plans, group, hp, plans, params, return_max_logits):
         parts, waits = [kv.float() if hp else kv], [None]
-        for plan in cast_plans:
-            buf, wait = plan.cast_start(kv, group, parts[0].dtype)
+        for i, plan in enumerate(cast_plans):
+            with profile_scope(f"group_cast_stage{i}"):
+                buf, wait = plan.cast_start(kv, group, parts[0].dtype)
             parts.append(buf)
             waits.append(wait)
         out, lse, ml = _parts_fwd(
@@ -177,28 +200,32 @@ class _StagedAttn(torch.autograd.Function):
     def backward(ctx, do, *_aux):
         q, out, lse, *parts = ctx.saved_tensors
         d, group = ctx.d, ctx.group
-        delta = ffa_delta(out, do)
+        with profile_scope("ffa_bwd_delta"):
+            delta = ffa_delta(out, do)
 
         def part_bwd(i):
             p = parts[i]
-            dq_i, dk_i, dv_i = ffa_bwd(
-                q, p[..., :d].to(q.dtype), p[..., d:].to(q.dtype), do, lse, delta,
-                ctx.plans[i], ctx.params[i],
-            )
+            with profile_scope("ffa_bwd"):
+                dq_i, dk_i, dv_i = ffa_bwd(
+                    q, p[..., :d].to(q.dtype), p[..., d:].to(q.dtype), do, lse, delta,
+                    ctx.plans[i], ctx.params[i],
+                )
             return dq_i, torch.cat([dk_i.to(p.dtype), dv_i.to(p.dtype)], dim=-1)
 
         wire = torch.float32 if ctx.hp else ctx.kv_dtype
         dqs, pending = [None] * len(parts), []
         for i, plan in enumerate(ctx.cast_plans, start=1):
             dqs[i], g = part_bwd(i)
-            pending.append((plan, plan.reduce_start(g, group, wire)))
+            with profile_scope(f"group_reduce_{plan.lowering}"):
+                pending.append((plan, plan.reduce_start(g, group, wire)))
         dqs[0], local = part_bwd(0)
         dq = dqs[0]
         for dq_i in dqs[1:]:
             dq = dq.add_(dq_i)
         total = local if ctx.hp else None
         for plan, handle in pending:
-            total = plan.reduce_finish(total, handle, group, local.shape[0])
+            with profile_scope(f"group_reduce_{plan.lowering}"):
+                total = plan.reduce_finish(total, handle, group, local.shape[0])
         dkv = total.to(ctx.kv_dtype)
         if not ctx.hp:
             dkv = local + dkv
@@ -222,7 +249,8 @@ def _plan(arg: AttnArg, sq: int, sk: int, block_q: int | None = None,
 
 class DeferredTilePolicy:
     """Deferred auto-tile state shared by the CP runtimes (the JAX
-    package's ``DeferredTilePolicy``).
+    package's ``DeferredTilePolicy``), with the observatory's signatures
+    and the backend the runtime runs.
 
     The policy scores its shared-memory guard (the compiled set) at the
     real head dims and dtype, known only at the first ``calc_attn``, so
@@ -234,7 +262,13 @@ class DeferredTilePolicy:
     rank) and rebuilds when the signature changes. Subclasses provide
     ``_build_plans(block_q, block_k)`` and ``_tile_geoms() -> (geoms, sq,
     sk)``; :meth:`_bwd_params` adds the backward's per-pass tiles to a
-    plan's params."""
+    plan's params.
+
+    :attr:`backend` is the constructor's backend when one was given, else
+    the registry's ``calc_attn`` decision under :meth:`_policy_key` (a pin,
+    the memo, the store's policy or measured best, or 'ffa') at
+    construction; a resilience override (``_backend_override``, sticky
+    degradation to the reference path) wins over it."""
 
     def _init_tile_policy(self, block_q: int | None = None, block_k: int | None = None) -> None:
         self._plan_sig = None
@@ -255,9 +289,22 @@ class DeferredTilePolicy:
         if self._plan_sig == sig:
             return
         geoms, sq, sk = self._tile_geoms()
-        (blk_q, blk_k), pol_dq, pol_dkv = choose_blocks_per_pass_multi(
-            geoms, sq, sk, d, dv, itemsize,
-        )
+        try:
+            (blk_q, blk_k), pol_dq, pol_dkv = choose_blocks_per_pass_multi(
+                geoms, sq, sk, d, dv, itemsize,
+            )
+        except Exception as e:
+            # a failed shared-memory scoring pass must not kill the step:
+            # the default tiles are compiled for every kernel and dtype
+            if not env_resilience.is_fallback_enable():
+                raise
+            from ..resilience.fallback import record_resilience_event
+
+            record_resilience_event(
+                "recovered", "vmem_check",
+                action_detail="default_blocks", error=type(e).__name__,
+            )
+            (blk_q, blk_k), pol_dq, pol_dkv = (None, None), None, None
         self._policy_bwd = (pol_dq, pol_dkv)
         self._build_plans(blk_q, blk_k)
         self._plan_sig = sig
@@ -266,6 +313,135 @@ class DeferredTilePolicy:
         """``params`` with the backward's per-pass tiles (env, else the
         policy's), gated by what is compiled at the kernels' width."""
         return apply_bwd_overrides(params, kernel_head_dim(d, dv), itemsize, *self._policy_bwd)
+
+    # -- observatory signatures (telemetry/store.py join keys) ----------
+
+    def _policy_key(self) -> dict:
+        """The calc_attn registry/measurement key: mask-class signature x
+        mesh x env snapshot, keyed exactly like the store's calc_attn
+        measurement rows, so the registry's measured-history lookup joins
+        against this runtime's own recorded steps."""
+        return {
+            "mask_sig": self._mask_signature(),
+            "mesh_sig": self._mesh_signature(),
+            "env_sig": self._env_signature(),
+        }
+
+    def _mask_signature(self) -> str:
+        """Digest of the mask-class geometry (every rank's slice arrays and
+        the buffer lengths, the JAX package's digest); plan-stable, so
+        computed once per runtime."""
+        sig = self._tel_mask_sig
+        if sig is None:
+            geoms, sq, sk = self._tile_geoms()
+            h = hashlib.md5(repr((sq, sk, len(geoms))).encode())
+            for g in geoms:
+                for a in g:
+                    h.update(np.ascontiguousarray(a).tobytes())
+            sig = h.hexdigest()[:16]
+            self._tel_mask_sig = sig
+        return sig
+
+    def _mesh_signature(self) -> str:
+        """repr((mesh axes and sizes, cp_axis, head_axis)), the JAX
+        package's form; the manager sets ``mesh_sig`` from the key's mesh,
+        a bare runtime is a one-axis "cp" mesh."""
+        if self.mesh_sig is not None:
+            return self.mesh_sig
+        return repr(((("cp", self.cp_size),), "cp", None))
+
+    def _env_signature(self) -> str:
+        """Digest of the behavior-affecting env snapshot (memoized per
+        snapshot value — flips mid-life re-key the policy lookups)."""
+        snap = env_general.snapshot_env()
+        cached = self._tel_env_sig
+        if cached is not None and cached[0] == snap:
+            return cached[1]
+        sig = hashlib.md5(repr(snap).encode()).hexdigest()[:16]
+        self._tel_env_sig = (snap, sig)
+        return sig
+
+    def _resolve_backend(self, backend: str | None) -> None:
+        """Fix the runtime's backend at construction: ``backend``, or (None)
+        the registry's ``calc_attn`` decision under :meth:`_policy_key`."""
+        self._backend_override = None
+        self._tel_mask_sig = self._tel_env_sig = None
+        self._tel_bwd_cost: dict = {}
+        if backend is None:
+            backend = kernel_registry.calc_attn_backend(self._policy_key())
+        self._backend = backend
+
+    @property
+    def backend(self) -> str:
+        if self._backend_override is not None:
+            return self._backend_override
+        return self._backend
+
+    def _guarded_calc_attn(self, q, k, v, return_max_logits: bool):
+        """``calc_attn``'s entry for both runtimes: the plain
+        ``_calc_attn_impl``, or, with a resilience flag set, the guarded
+        path (``resilience/fallback.py:run_calc_attn``); with telemetry on,
+        timed (host wall and, on a card, a CUDA event pair around the
+        forward and one around its backward, resolved later) and recorded
+        as an ``attn_step``. With every flag off this is one call of
+        ``_calc_attn_impl``: no clock, no file, no CUDA event."""
+        impl = self._calc_attn_impl
+        if env_resilience.is_resilience_active():
+            from ..resilience.fallback import run_calc_attn
+
+            def impl(q, k, v, return_max_logits):
+                return run_calc_attn(self, q, k, v, return_max_logits)
+
+        if not telemetry.enabled():
+            return impl(q, k, v, return_max_logits)
+        timer = telemetry.device_timer_start(q.device)
+        bwd = telemetry.backward_timer(q, k, v)
+        if bwd is not None:
+            q, k, v = bwd.mark_end(q, k, v)
+        with telemetry.stage_timer("calc_attn"):
+            result = impl(q, k, v, return_max_logits)
+        telemetry.device_timer_stop(timer)
+        if bwd is not None:
+            result = (bwd.mark_start(result[0]), *result[1:])
+        wall_ms = telemetry.get_collector().gauges.get("time.calc_attn.last_ms")
+        telemetry.record_timed_event(
+            "attn_step", timer, bwd,
+            xprof_scope=f"{type(self).__name__}.calc_attn",
+            wall_ms=wall_ms,
+            **self._step_payload(q, k, v),
+        )
+        return result
+
+    def _step_payload(self, q, k, v) -> dict:
+        """:meth:`_attn_step_payload`, built once per plan build and step
+        signature (backend, env, shapes, dtypes): every field of it is
+        fixed while the plans are, so a step only stamps its times."""
+        sig = (self.backend, self._env_signature(), q.shape, k.shape, v.shape,
+               q.dtype, k.dtype, v.dtype)
+        cached = getattr(self, "_tel_payload", None)
+        if cached is None or cached[0] != sig:
+            cached = self._tel_payload = (sig, self._attn_step_payload(q, k, v))
+        return cached[1]
+
+    def _bwd_mode_fields(self, plan: FFAPlan, params: FFAParams, q, k, v) -> dict:
+        """The backward mode the dispatch picks for a plan, its registry
+        key and the cost model's modeled ms for that mode (the drift
+        layer's ``bwd_cost`` observation). The modeled ms is kept per
+        (key, mode): the model's CTA-scheduling simulation takes ~7 ms of
+        host time at the train attention shape, and a plan's key does not
+        change between steps."""
+        d, dv, itemsize = q.shape[-1], v.shape[-1], q.element_size()
+        hq, hk = q.shape[1], k.shape[1]
+        mode = ffa_bwd_mode(plan, params, d, dv, itemsize, hq, hk)
+        sq, sk = plan.num_q_tiles * plan.block_q, plan.num_k_tiles * plan.block_k
+        plan_dq, plan_dkv = bwd_plans(plan, params, sq, sk)
+        dq_heads = _use_gqa_pack_dq(hq // hk, d, dv, itemsize, plan_dq.block_q, plan_dq.block_k)
+        key = bwd_mode_key(plan_dq, plan_dkv, hq, hk, d, dv, itemsize, dq_heads)
+        costs = self._tel_bwd_cost
+        if (key, mode) not in costs:
+            shape = bwd_shape(plan_dq, hq, hk, d, dv, itemsize, plan_dkv)
+            costs[(key, mode)] = bwd_mode_ms(shape, dq_heads)[mode]
+        return dict(bwd_mode=mode, bwd_key=list(key), bwd_cost=costs[(key, mode)])
 
 
 class DistAttnRuntime(DeferredTilePolicy):
@@ -277,7 +453,9 @@ class DistAttnRuntime(DeferredTilePolicy):
     two-level comm: each stage takes the solver's ``hier_plan``, re-planned
     from its transfer table where the solver planned another shape (or
     none). ``tp`` is ``(head_axis, tp_group, tp_size)`` under tensor
-    parallelism over heads."""
+    parallelism over heads. ``backend`` None resolves through the
+    registry (see :class:`DeferredTilePolicy`); ``mesh_sig`` is the
+    observatory's mesh signature (the manager's, from the key's mesh)."""
 
     def __init__(
         self,
@@ -288,23 +466,25 @@ class DistAttnRuntime(DeferredTilePolicy):
         softmax_scale: float | None = None,
         softcap: float = 0.0,
         use_overlap: bool | None = None,
-        backend: str = "ffa",
+        backend: str | None = "ffa",
         hier=None,
         tp=None,
+        mesh_sig: str | None = None,
     ) -> None:
-        if backend not in ("ffa", "sdpa", "sdpa_online"):
+        if backend not in (None, "ffa", "sdpa", "sdpa_online"):
             raise ValueError(f"unknown kernel backend {backend!r} (ffa | sdpa | sdpa_online)")
-        self.backend = backend
         self.comm_meta, self.calc_meta = comm_meta, calc_meta
         self.cp_size = len(calc_meta.host_args)
         self.cp_rank, self.cp_group = cp_rank, cp_group
         self.softmax_scale, self.softcap = softmax_scale, softcap
+        self.mesh_sig = mesh_sig
+        self._resolve_backend(backend)
         self.num_stages = len(comm_meta.kv_stages)
         # overlap iff the solver produced more than one stage, unless off;
         # the dense backends replay the merged slices
         self.use_overlap = (
             self.num_stages > 1 if use_overlap is None else use_overlap
-        ) and backend == "ffa"
+        ) and self.backend == "ffa"
         self.hier = hier is not None and comm_meta.kv_host_ranges is not None
         if self.hier:
             (n_outer, n_inner), self.cast_group = hier
@@ -363,6 +543,10 @@ class DistAttnRuntime(DeferredTilePolicy):
             )
 
     def _build_plans(self, block_q: int | None = None, block_k: int | None = None) -> None:
+        with telemetry.stage_timer("build_plans"):
+            self._build_plans_impl(block_q, block_k)
+
+    def _build_plans_impl(self, block_q: int | None, block_k: int | None) -> None:
         km, r = self.calc_meta, self.cp_rank
         shard, kv_shard = km.shard_len, km.kv_shard_len
         if self.use_overlap:
@@ -373,6 +557,94 @@ class DistAttnRuntime(DeferredTilePolicy):
         else:
             total = kv_shard + sum(km.recv_len_per_stage)
             self.plans = [_plan(km.merged_args[r], shard, total, block_q, block_k)]
+        # the tiles the ladder descends from (the first plan's: every part
+        # takes the same request)
+        self._bq, self._bk = self.plans[0].block_q, self.plans[0].block_k
+        self._tel_plan_groups = self._tel_payload = None  # recomputed per plan build
+        if telemetry.enabled():
+            self._plan_group_stats()
+
+    def _plan_group_stats(self) -> list[dict]:
+        """Padded-grid work per executed kernel group, cached for the
+        attn_step record (the JAX package's groups: "host" and "stage<i>"
+        with overlap, else "merged"). Each rank runs its own plans (no
+        padding to a common count), so the figures are this rank's, and
+        the band this rank's merged slices'; at cp 1 they are the JAX
+        package's."""
+        names = ["host", *(f"stage{i}" for i in range(len(self.plans) - 1))] \
+            if self.use_overlap else ["merged"]
+        self._tel_plan_groups = [
+            {
+                "name": name, "block_q": p.block_q, "block_k": p.block_k,
+                "num_work": p.num_work, "padded_elems": p.num_work * p.block_q * p.block_k,
+            }
+            for name, p in zip(names, self.plans)
+        ]
+        a = self.calc_meta.merged_args[self.cp_rank]
+        self._tel_band_elems = telemetry.band_area(a.q_ranges, a.k_ranges, a.d_lo, a.d_hi)
+        return self._tel_plan_groups
+
+    def _attn_step_payload(self, q, k, v) -> dict:
+        """One attention step's telemetry payload (the JAX package's
+        fields; callers gate on ``telemetry.enabled()``). Shapes, heads and
+        bytes are the step's whole (JAX's arrays are global): rows times
+        cp, this rank's heads times tp. Comm rows were planned dtype-blind;
+        bytes resolve here — k and v rows ride one fused transfer, so a
+        wire row carries both."""
+        sq, hq, dh = q.shape
+        _, hk, dv = v.shape
+        sq, hq, hk = sq * self.cp_size, hq * self.tp_size, hk * self.tp_size
+        row_bytes = hk * dh * k.element_size() + hk * dv * v.element_size()
+        executed = "hier" if self.hier else "a2a"
+        stages = []
+        payload_total = wire_total = 0
+        for st, s in enumerate(self.comm_meta.kv_stages):
+            d = s.telemetry_dict(executed=executed)
+            d["stage"] = st
+            d["xprof_scope"] = f"group_cast_stage{st}"
+            d["payload_bytes"] = d["payload_rows"] * row_bytes
+            d["wire_bytes"] = d["wire_rows"] * row_bytes
+            d["padding_bytes"] = d["padding_rows"] * row_bytes
+            payload_total += d["payload_bytes"]
+            wire_total += d["wire_bytes"]
+            stages.append(d)
+        payload = {
+            "backend": self.backend,
+            # observatory join keys (telemetry/store.py _ATTN_KEY_FIELDS)
+            "mask_sig": self._mask_signature(),
+            "mesh_sig": self._mesh_signature(),
+            "env_sig": self._env_signature(),
+            "q_shape": [sq, hq, dh],
+            "kv_shape": [v.shape[0] * self.cp_size, hk, dv],
+            "cp_size": self.cp_size,
+            "overlap_degree": self.num_stages,
+            "use_overlap": self.use_overlap,
+            "seqlen_q_shard": sq,
+            "heads_q": hq, "head_dim": dh, "heads_kv": hk, "head_dim_v": dv,
+            "dtype": str(q.dtype).removeprefix("torch."),
+            "row_bytes": row_bytes,
+            "stages": stages,
+            "payload_bytes_total": payload_total,
+            "wire_bytes_total": wire_total,
+            "padding_bytes_total": wire_total - payload_total,
+        }
+        if self.backend == "ffa":
+            if self._tel_plan_groups is None:
+                self._plan_group_stats()  # telemetry enabled after build
+            band = self._tel_band_elems
+            padded = sum(g["padded_elems"] for g in self._tel_plan_groups)
+            params = self._params(q.shape[-1], q.element_size(), v.shape[-1])
+            payload.update(
+                block_q=self._bq, block_k=self._bk,
+                plan_groups=self._tel_plan_groups,
+                band_elems=band,
+                padded_elems=padded,
+                # fwd FLOPs, FlashAttention-2 convention
+                est_flops_fwd=4 * band * dh * hq,
+                padded_flops_fwd=4 * padded * dh * hq,
+                **self._bwd_mode_fields(self.plans[0], params[0], q, k, v),
+            )
+        return payload
 
     def _tile_geoms(self):
         """Every rank's merged slice set and the merged buffer's lengths:
@@ -396,11 +668,13 @@ class DistAttnRuntime(DeferredTilePolicy):
             for p in self.plans
         ]
 
+    @instrument_scope(name="DistAttnRuntime.calc_attn")
     def calc_attn(
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return_max_logits: bool = False,
     ):
-        """Attention of this rank's dispatched rows.
+        """Attention of this rank's dispatched rows (through the guarded
+        and recorded entry when a resilience or telemetry flag is set).
 
         Args:
             q: ``[shard, hq, d]``, k/v ``[kv_shard, hk, d|dv]``: this rank's
@@ -416,9 +690,15 @@ class DistAttnRuntime(DeferredTilePolicy):
         """
         if k.shape[:2] != v.shape[:2]:
             raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ in rows or heads")
+        return self._guarded_calc_attn(q, k, v, return_max_logits)
+
+    def _calc_attn_impl(self, q, k, v, return_max_logits: bool = False):
+        """One step, unguarded (the resilience layer's retry unit)."""
         self._check_heads(q.shape[1], k.shape[1], q.device)
         hp = env_comm.is_bwd_high_precision_reduce_enable()
-        if self.use_overlap and self.cast_plans and self.staged_backward:
+        backend = self.backend
+        overlap = self.use_overlap and backend == "ffa"
+        if overlap and self.cast_plans and self.staged_backward:
             d = k.shape[-1]
             params = self._params(d, q.element_size(), v.shape[-1])
             res = _StagedAttn.apply(
@@ -434,19 +714,19 @@ class DistAttnRuntime(DeferredTilePolicy):
             )
             k_parts = [p[..., :d] for p in kv_parts]
             v_parts = [p[..., d:] for p in kv_parts]
-        if not self.use_overlap and len(k_parts) > 1:
+        if not overlap and len(k_parts) > 1:
             for wait in waits:
                 wait()
             k_parts, v_parts = [torch.cat(k_parts)], [torch.cat(v_parts)]
             waits = []
-        if self.backend != "ffa":
+        if backend != "ffa":
             arg = self.calc_meta.merged_args[self.cp_rank]
             kv = (k_parts[0].to(q.dtype), v_parts[0].to(q.dtype))
             kw = dict(
                 softmax_scale=self.softmax_scale, softcap=self.softcap,
                 d_lo=arg.d_lo, d_hi=arg.d_hi,
             )
-            dense = sdpa_attn if self.backend == "sdpa" else sdpa_online_attn
+            dense = sdpa_attn if backend == "sdpa" else sdpa_online_attn
             out, lse = dense(q, *kv, arg.q_ranges, arg.k_ranges, **kw)
             res = (out, lse.detach())  # lse carries no gradient, as on ffa
             if return_max_logits:

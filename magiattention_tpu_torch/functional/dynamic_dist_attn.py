@@ -35,7 +35,10 @@ the steps of several ranks can run on one device with index gathers in
 place of the transfers. ``backend="sdpa"`` replays the rank's slices with
 the dense ``sdpa_attn``, and ``"sdpa_online"`` with the blockwise
 online-softmax ``sdpa_online_attn``, differentiated by autograd through
-the casts (the JAX package's ``_calc_attn_sdpa``).
+the casts (the JAX package's ``_calc_attn_sdpa``). ``calc_attn`` takes the
+static runtime's guarded and recorded entry
+(:meth:`~.dist_attn.DeferredTilePolicy._guarded_calc_attn`); its scopes are
+``qo_comm_cast`` and ``ffa_fwd_dyn``.
 """
 
 from __future__ import annotations
@@ -43,12 +46,14 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..comm.primitives import CastPlan, group_cast_rows, group_reduce_rows
 from ..env import comm as env_comm
 from ..kernels.ffa import FFAParams, ffa_bwd, ffa_delta, ffa_fwd_dispatch
 from ..kernels.sdpa import dense_max_logits, sdpa_attn
 from ..kernels.sdpa_online import sdpa_online_attn
 from ..meta.collection.dynamic_meta import DynamicAttnPlan
+from ..utils.profiling import instrument_scope, profile_scope
 from .dist_attn import DeferredTilePolicy, _plan
 from .utils import lse_weighted_reduce
 
@@ -91,8 +96,10 @@ class _DynAttn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, rt, params, return_max_logits):
-        q_buf, k_buf, v_buf = rt.buffers(q, k, v)
-        out_buf, lse_buf, *ml = rt.fwd_step(q_buf, k_buf, v_buf, params, return_max_logits)
+        with profile_scope("qo_comm_cast"):
+            q_buf, k_buf, v_buf = rt.buffers(q, k, v)
+        with profile_scope("ffa_fwd_dyn"):
+            out_buf, lse_buf, *ml = rt.fwd_step(q_buf, k_buf, v_buf, params, return_max_logits)
         ret_out, ret_lse = rt.ret_step(out_buf, lse_buf)
         out, lse = rt.merge_step(out_buf, lse_buf, ret_out, ret_lse)
         out = out.to(q.dtype)
@@ -105,10 +112,12 @@ class _DynAttn(torch.autograd.Function):
     def backward(ctx, do, *_aux):
         q_buf, k_buf, v_buf, out, lse = ctx.saved_tensors
         rt = ctx.rt
-        do_buf, lse_buf, delta_buf = rt.spread_step(out, lse, do.contiguous())
-        dq_buf, dk_buf, dv_buf = rt.bwd_step(
-            q_buf, k_buf, v_buf, do_buf, lse_buf, delta_buf, ctx.params
-        )
+        with profile_scope("ffa_bwd_delta"):
+            do_buf, lse_buf, delta_buf = rt.spread_step(out, lse, do.contiguous())
+        with profile_scope("ffa_bwd"):
+            dq_buf, dk_buf, dv_buf = rt.bwd_step(
+                q_buf, k_buf, v_buf, do_buf, lse_buf, delta_buf, ctx.params
+            )
         dq, dk, dv = rt.reduce_step(dq_buf, dk_buf, dv_buf, *ctx.dtypes)
         return dq, dk, dv, None, None, None
 
@@ -126,12 +135,14 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
         cp_group=None,
         softmax_scale: float | None = None,
         softcap: float = 0.0,
-        backend: str = "ffa",
+        backend: str | None = "ffa",
+        mesh_sig: str | None = None,
     ) -> None:
-        if backend not in ("ffa", "sdpa", "sdpa_online"):
+        if backend not in (None, "ffa", "sdpa", "sdpa_online"):
             raise ValueError(f"unknown kernel backend {backend!r} (ffa | sdpa | sdpa_online)")
-        self.plan, self.backend = plan, backend
+        self.plan, self.mesh_sig = plan, mesh_sig
         self.cp_size, self.cp_rank, self.cp_group = plan.cp_size, cp_rank, cp_group
+        self._resolve_backend(backend)
         self.softmax_scale, self.softcap = softmax_scale, softcap
         self.q_cast = CastPlan.from_stage(plan.q_cast, cp_rank)
         self.kv_cast = CastPlan.from_stage(plan.kv_cast, cp_rank)
@@ -141,8 +152,76 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
         self._init_tile_policy()
 
     def _build_plans(self, block_q: int | None = None, block_k: int | None = None) -> None:
+        with telemetry.stage_timer("build_plans"):
+            p = self.plan
+            self.ffa_plan = _plan(self.attn_arg, p.q_buf_len, p.k_buf_len, block_q, block_k)
+            self._bq, self._bk = self.ffa_plan.block_q, self.ffa_plan.block_k
+            self._tel_payload = None  # the step payload follows the plan
+
+    def _attn_step_payload(self, q, k, v) -> dict:
+        """One qo-comm step's telemetry payload (the JAX package's fields;
+        callers gate on ``telemetry.enabled()``). Per-stage row bytes
+        differ: q rows, fused k|v rows, and returned partial out+lse rows
+        each have their own width. Shapes are the step's whole (rows times
+        cp); the plan figures are this rank's (no padding to a common
+        count; at cp 1, the JAX package's)."""
         p = self.plan
-        self.ffa_plan = _plan(self.attn_arg, p.q_buf_len, p.k_buf_len, block_q, block_k)
+        sq, hq, dh = q.shape
+        _, hk, dv = v.shape
+        # partial out rows ride the ret cast in float32 under the fwd HP reduce
+        out_itemsize = 4 if env_comm.is_fwd_high_precision_reduce_enable() else q.element_size()
+        stage_defs = (
+            ("q_cast", p.q_cast, "qo_comm_cast", hq * dh * q.element_size()),
+            ("kv_cast", p.kv_cast, "qo_comm_cast",
+             hk * dh * k.element_size() + hk * dv * v.element_size()),
+            ("ret", p.ret, "ffa_fwd_dyn", hq * dv * out_itemsize + hq * 4),  # + float32 lse
+        )
+        stages = []
+        payload_total = wire_total = 0
+        for name, cast, scope, row_bytes in stage_defs:
+            d = cast.telemetry_dict(executed="a2a")
+            d["stage"] = name
+            d["xprof_scope"] = scope
+            d["row_bytes"] = row_bytes
+            d["payload_bytes"] = d["payload_rows"] * row_bytes
+            d["wire_bytes"] = d["wire_rows"] * row_bytes
+            d["padding_bytes"] = d["padding_rows"] * row_bytes
+            payload_total += d["payload_bytes"]
+            wire_total += d["wire_bytes"]
+            stages.append(d)
+        payload = {
+            "planner": "dynamic",
+            "backend": self.backend,
+            "mask_sig": self._mask_signature(),
+            "mesh_sig": self._mesh_signature(),
+            "env_sig": self._env_signature(),
+            "q_shape": [sq * self.cp_size, hq, dh],
+            "kv_shape": [v.shape[0] * self.cp_size, hk, dv],
+            "cp_size": self.cp_size,
+            "overlap_degree": 1,  # qo-comm runs one compute stage
+            "seqlen_q_shard": sq * self.cp_size,
+            "heads_q": hq, "head_dim": dh, "heads_kv": hk, "head_dim_v": dv,
+            "dtype": str(q.dtype).removeprefix("torch."),
+            "stages": stages,
+            "payload_bytes_total": payload_total,
+            "wire_bytes_total": wire_total,
+            "padding_bytes_total": wire_total - payload_total,
+        }
+        if self.backend == "ffa":
+            fp = self.ffa_plan
+            padded = fp.num_work * fp.block_q * fp.block_k
+            a = self.attn_arg
+            band = telemetry.band_area(a.q_ranges, a.k_ranges, a.d_lo, a.d_hi)
+            params = self.params(dh, q.element_size(), dv)
+            payload.update(
+                block_q=self._bq, block_k=self._bk,
+                band_elems=band,
+                padded_elems=padded,
+                est_flops_fwd=4 * band * dh * hq,
+                padded_flops_fwd=4 * padded * dh * hq,
+                **self._bwd_mode_fields(fp, params, q, k, v),
+            )
+        return payload
 
     def _tile_geoms(self):
         """Every rank's slice set over its buffers and the buffers' lengths."""
@@ -256,6 +335,7 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
 
     # -- the entry ----------------------------------------------------------
 
+    @instrument_scope(name="DynamicDistAttnRuntime.calc_attn")
     def calc_attn(
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return_max_logits: bool = False,
@@ -276,6 +356,10 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
         """
         if k.shape[:2] != v.shape[:2]:
             raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ in rows or heads")
+        return self._guarded_calc_attn(q, k, v, return_max_logits)
+
+    def _calc_attn_impl(self, q, k, v, return_max_logits: bool = False):
+        """One step, unguarded (the resilience layer's retry unit)."""
         if self.backend != "ffa":
             res = self._calc_attn_sdpa(q, k, v, return_max_logits)
         else:

@@ -66,6 +66,7 @@ _KERNELS = {
 }
 _PLAINS = {
     "sdpa_attn": sdpa_attn,
+    "sdpa_online_attn": sdpa_online_attn,
     "paged_decode_plain": paged_decode_plain,
     "ffa_delta_plain": ffa_delta_plain,
     "ffa_bwd_dq_plain": ffa_bwd_dq_plain,

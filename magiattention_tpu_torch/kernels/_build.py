@@ -9,6 +9,11 @@ and flags, so an edited source rebuilds and an unchanged one is reused.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on a machine without ``nvcc``.
+
+Failures are typed, both ``RuntimeError`` subclasses: :class:`KernelBuildError`
+(no ``nvcc``, or a source that does not compile), which no fallback ever
+recovers, and :class:`KernelLaunchError` (a CUDA error a launch returned),
+which the resilience layer's kernel ladder may.
 """
 
 from __future__ import annotations
@@ -35,6 +40,21 @@ NVCC_FLAGS = (
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel could not be built: ``nvcc`` is missing, or a source does
+    not compile. Never recovered (a machine whose toolchain or sources are
+    broken must fail loudly, not run the plain path)."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error (a refused launch never runs).
+    Carries the launch's ``code``."""
+
+    def __init__(self, message: str, code: int) -> None:
+        self.code = code
+        super().__init__(message)
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -42,7 +62,7 @@ def _nvcc() -> str:
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
             return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the port's CUDA "
         "kernels cannot be built"
     )
@@ -89,7 +109,7 @@ def build_all(names: tuple[str, ...] = SOURCES) -> None:
                 + final.with_suffix(".log").read_text()
             )
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -105,8 +125,9 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error (a refused launch never runs,
-    and a later synchronize would not report it)."""
+    """Raise :class:`KernelLaunchError` if a launch returned a CUDA error (a
+    refused launch never runs, and a later synchronize would not report
+    it)."""
     if code != 0:
         msg = lib.magi_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise KernelLaunchError(f"{what}: CUDA error {code} ({msg})", code)

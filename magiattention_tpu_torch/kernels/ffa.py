@@ -89,6 +89,7 @@ import torch
 from ..env import backend as env_backend
 from ..env import general as env_general
 from ..env import kernel as env_kernel
+from ..resilience.inject import maybe_inject
 from ..utils import mem_budget
 from ..utils.mem_budget import SMEM_PER_CTA, compiled_tiles
 from . import _build
@@ -951,7 +952,9 @@ def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logit
     max_logits ``[hq]`` when asked for (always by the unpacked kernel). On
     CUDA, head dims other than d == dv in (64, 128, 256) run padded to the
     kernels' width (:func:`.head_dims.pad_to_kernel_width`), which the
-    packing guard sees; out comes back at v's width."""
+    packing guard sees; out comes back at v's width. Arms the
+    ``kernel_lowering`` injection site first."""
+    maybe_inject("kernel_lowering")
     dv = v.shape[-1]
     if q.is_cuda:
         q, k, v = pad_to_kernel_width(q, k, v)
@@ -1106,7 +1109,13 @@ def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     dk/dv run the k-major plan, dq the q-major one). On CUDA, head dims other
     than d == dv in (64, 128, 256) run padded to the kernels' width
     (:func:`.head_dims.pad_to_kernel_width`), which the mode and packing
-    guards see; the gradients come back at their inputs' widths."""
+    guards see; the gradients come back at their inputs' widths.
+
+    A fused-kernel failure (the ``kernel_lowering`` site, armed before it,
+    or a failed launch) is one resilience rung above the split path: with
+    MAGI_ATTENTION_FALLBACK=1 it degrades to split, recorded as a
+    ``resilience`` event (local to the rank: the backward's collectives do
+    not change, so an out-of-memory counts at any cp)."""
     d, d_v = q.shape[-1], v.shape[-1]
     if q.is_cuda:
         q, k, v, do = pad_to_kernel_width(q, k, v, do)
@@ -1116,8 +1125,22 @@ def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     )
     plan_dq, plan_dkv = bwd_plans(plan, params, sq, sk)
     if mode == "fused":
-        dq, dk, dv = ffa_bwd_fused(q, k, v, do, lse, delta, plan_dkv, params)
-    else:
+        from ..resilience import fallback as _fallback
+
+        try:
+            maybe_inject("kernel_lowering")
+            dq, dk, dv = ffa_bwd_fused(q, k, v, do, lse, delta, plan_dkv, params)
+        except _fallback.kernel_failure_types() as e:
+            from ..env import resilience as env_resilience
+
+            if not env_resilience.is_fallback_enable():
+                raise
+            _fallback.record_resilience_event(
+                "fallback", "kernel_lowering",
+                action_detail="fused_bwd_to_split", error=type(e).__name__,
+            )
+            mode = "split"
+    if mode != "fused":
         dq = ffa_bwd_dq_dispatch(q, k, v, do, lse, delta, plan_dq, params)
         dk, dv = ffa_bwd_dkv(q, k, v, do, lse, delta, plan_dkv, params)
     if dq.shape[-1] == d and dv.shape[-1] == d_v:

@@ -30,7 +30,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..env.general import is_range_merge_enable
+from ..utils.profiling import instrument_host
 from .mask_utils import BAND_INF, merge_band_slices
 
 # meta columns per work item (same layout as the reference)
@@ -264,6 +266,39 @@ def _band_tile_interaction(
     return nonempty, full
 
 
+def _record_plan_telemetry(plan: FFAPlan, qr, kr, d_lo, d_hi) -> FFAPlan:
+    """Gated per-build ``ffa_plan`` record (the JAX package's fields): the
+    padded grid work, the elements executed and the true band area it
+    needed. The port's kernels compute every listed tile whole (no clamp
+    to the live extents), so ``executed_elems`` is the padded work and
+    ``extent_clamp`` False."""
+    if telemetry.enabled():
+        from .tile_policy import slice_cover_ratios
+
+        padded = executed = plan_extent_stats(plan)["padded_elems"]
+        band = telemetry.band_area(qr, kr, d_lo, d_hi)
+        ratios = slice_cover_ratios(qr, kr, d_lo, d_hi, plan.block_q, plan.block_k)
+        telemetry.record_event(
+            "ffa_plan",
+            num_slices=len(qr),
+            block_q=plan.block_q,
+            block_k=plan.block_k,
+            num_q_tiles=plan.num_q_tiles,
+            num_k_tiles=plan.num_k_tiles,
+            num_work=plan.num_work,
+            num_work_t=plan.num_work_t,
+            padded_elems=padded,
+            band_elems=band,
+            executed_elems=executed,
+            padding_ratio=padded / band if band else 1.0,
+            executed_ratio=executed / band if band else 1.0,
+            extent_clamp=False,
+            frag_histogram=fragmentation_histogram(ratios),
+        )
+    return plan
+
+
+@instrument_host
 def build_ffa_plan(
     q_ranges: np.ndarray,
     k_ranges: np.ndarray,
@@ -365,7 +400,7 @@ def build_ffa_plan(
     work_qt, work_kt, meta = flatten(q_items, major_is_q=True)
     work_qt_t, work_kt_t, meta_t = flatten(k_items, major_is_q=False)
 
-    return FFAPlan(
+    return _record_plan_telemetry(FFAPlan(
         work_qt=work_qt,
         work_kt=work_kt,
         meta=meta,
@@ -378,7 +413,7 @@ def build_ffa_plan(
         block_k=block_k,
         run_ptr=_run_offsets(meta),
         run_ptr_t=_run_offsets(meta_t),
-    )
+    ), q_ranges, k_ranges, d_lo, d_hi)
 
 
 @lru_cache(maxsize=256)

@@ -14,21 +14,29 @@ order of precedence:
    ``MAGI_ATTENTION_BACKEND_*`` keys and the legacy flags to pins),
    re-read on every call and subject only to the call site's feasibility
    guards (shared memory, compiled tiles, plan layout);
-2. **memo**: the in-process resolution of the same (decision, key),
-   the :data:`MEMO_SIZE` most recently used keys of each decision;
+2. **cached decision**: the in-process resolution of the same (decision,
+   key), the :data:`MEMO_SIZE` most recently used keys of each decision;
+   then the persistent policy store (``telemetry/store.py``): a prior
+   resolution persisted across restarts (source ``policy``), or the
+   fastest backend with enough ``ok`` measurements in history (source
+   ``measured``). Both store sources are gated on ``store_active()`` at
+   use time (MAGI_ATTENTION_TELEMETRY on, MAGI_ATTENTION_BACKEND_STORE not
+   0), so with the observatory off resolution is exactly the heuristics';
 3. **heuristic**: the call site's default (a cost model or a constant),
-   run at most once per key (``stats()["heuristic_calls"]``).
+   run at most once per key (``stats()["heuristic_calls"]``), persisted
+   to the store when it is active.
 
-The JAX package's persistent policy store (its telemetry observatory,
-sources ``policy`` and ``measured``) is not ported: those sources never
-apply, which is the JAX package's own behaviour with the observatory off,
-so every decision here is what that package resolves with it off. Nor is
-the ``ffa_lowering`` decision: the port's kernels have one body per
-dtype (no extent-clamped variant).
+With telemetry on, each (decision, key, choice) is announced once as a
+``backend_select`` record. The JAX package's ``ffa_lowering`` decision is
+not ported: the port's kernels have one body per dtype (no
+extent-clamped variant).
 
 The rank-ordered registrations are the ladders, naming the port's
 Hopper routes: ``ladder("serve_decode")`` is the order
-``serving/decode.py:decode_route`` walks from its start rung.
+``serving/decode.py`` descends from its start rung, and
+``ladder("calc_attn")[-1]`` is the reference rung the resilience layer
+falls to on CPU tensors (``resilience/fallback.py``; on the card it never
+takes the plain rungs, ``fallback.PLAIN_RUNGS``).
 """
 
 from __future__ import annotations
@@ -38,14 +46,42 @@ from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable
 
+from .. import telemetry
 from ..env import backend as env_backend
 from ..env import kernel as env_kernel
+
+# sources a resolution can come from; STORE_SOURCES only apply while the
+# store is active (checked on every memo hit, so a stale store-sourced memo
+# can never leak into a telemetry-off run)
+STORE_SOURCES = ("policy", "measured")
 
 
 @dataclass(frozen=True)
 class BackendChoice:
     name: str
-    source: str  # "pin" | "heuristic"
+    source: str  # "pin" | "policy" | "measured" | "heuristic"
+
+
+def _memo_key(key: Any) -> Any:
+    """Hashable form of a decision key. Dict keys (the calc_attn policy
+    key) canonicalize to their sorted-JSON string; the ORIGINAL key is
+    still what store lookups join on, so the on-disk form matches what
+    the store's ingest writes."""
+    try:
+        hash(key)
+        return key
+    except TypeError:
+        from ..telemetry.store import canonical_key
+
+        return canonical_key(key)
+
+
+def _store_gate() -> bool:
+    """Is the persistent policy store allowed to influence resolution
+    right now?"""
+    from ..telemetry import store as _tstore
+
+    return _tstore.store_active()
 
 
 # decision -> [(rank, name, description)], rank order = ladder order
@@ -92,35 +128,85 @@ class BackendRegistry:
         self._lock = threading.Lock()
         self._memo: dict[str, OrderedDict[Any, BackendChoice]] = {}
         self._last: dict[str, tuple[Any, str]] = {}
+        self._announced: set[tuple[str, Any, str]] = set()
         self.stats: dict[str, int] = {
-            "resolves": 0, "pins": 0, "memo_hits": 0, "heuristic_calls": 0,
+            "resolves": 0, "pins": 0, "memo_hits": 0, "store_hits": 0,
+            "heuristic_calls": 0,
         }
+
+    def _announce(self, decision: str, key: Any, choice: BackendChoice) -> None:
+        """One ``backend_select`` telemetry record per (decision, key,
+        choice) — selection provenance without per-step record spam."""
+        if not telemetry.enabled():
+            return
+        tag = (decision, _memo_key(key), choice.name)
+        with self._lock:
+            if tag in self._announced:
+                return
+            self._announced.add(tag)
+        telemetry.record_event(
+            "backend_select",
+            decision=decision,
+            key=list(key) if isinstance(key, tuple) else key,
+            choice=choice.name,
+            source=choice.source,
+        )
 
     def resolve(
         self, decision: str, key: Any, heuristic: Callable[[], str], pin: str | None = None,
     ) -> BackendChoice:
         with self._lock:
             self.stats["resolves"] += 1
-            if pin is not None:
+        if pin is not None:
+            choice = BackendChoice(pin, "pin")
+            with self._lock:
                 self.stats["pins"] += 1
                 self._last[decision] = (key, pin)
-                return BackendChoice(pin, "pin")
+            self._announce(decision, key, choice)
+            return choice
+        mk = _memo_key(key)
+        with self._lock:
             memo = self._memo.setdefault(decision, OrderedDict())
-            hit = memo.get(key)
-            if hit is not None:
-                memo.move_to_end(key)
+            hit = memo.get(mk)
+        if hit is not None and (hit.source not in STORE_SOURCES or _store_gate()):
+            with self._lock:
+                if mk in memo:
+                    memo.move_to_end(mk)
                 self.stats["memo_hits"] += 1
                 self._last[decision] = (key, hit.name)
-                return hit
-        choice = BackendChoice(heuristic(), "heuristic")
+            return hit
+        choice = None
+        if _store_gate():
+            from ..telemetry import store as _tstore
+
+            known = backends_for(decision)
+            persisted = _tstore.policy_lookup(decision, key)
+            if persisted is not None and (not known or persisted["choice"] in known):
+                choice = BackendChoice(persisted["choice"], "policy")
+            else:
+                best = _tstore.measured_best(decision, key)
+                if best is not None and (not known or best in known):
+                    choice = BackendChoice(best, "measured")
+                    _tstore.policy_record(decision, key, best, "measured")
+            if choice is not None:
+                with self._lock:
+                    self.stats["store_hits"] += 1
+        if choice is None:
+            choice = BackendChoice(heuristic(), "heuristic")
+            with self._lock:
+                self.stats["heuristic_calls"] += 1
+            if _store_gate():
+                from ..telemetry import store as _tstore
+
+                _tstore.policy_record(decision, key, choice.name, "heuristic")
         with self._lock:
-            self.stats["heuristic_calls"] += 1
             memo = self._memo.setdefault(decision, OrderedDict())
-            memo[key] = choice
-            memo.move_to_end(key)
+            memo[mk] = choice
+            memo.move_to_end(mk)
             while len(memo) > MEMO_SIZE:
                 memo.popitem(last=False)
             self._last[decision] = (key, choice.name)
+        self._announce(decision, key, choice)
         return choice
 
     def memo_size(self, decision: str) -> int:
@@ -154,8 +240,9 @@ def reset_registry() -> None:
 def resolve(
     decision: str, key: Any, heuristic: Callable[[], str], pin: str | None = None,
 ) -> BackendChoice:
-    """Resolve one decision for a hashable ``key``: the pin, else the memo,
-    else ``heuristic()`` (memoized)."""
+    """Resolve one decision for ``key``: the pin, else the memo, else the
+    store's policy or measured best (store active), else ``heuristic()``
+    (memoized, and persisted when the store is active)."""
     return get_registry().resolve(decision, key, heuristic, pin=pin)
 
 
@@ -183,7 +270,8 @@ def last_key(decision: str) -> Any | None:
 
 def calc_attn_backend(key: Any = ()) -> str:
     """The CP runtime's attention backend: MAGI_ATTENTION_KERNEL_BACKEND
-    pins it, otherwise 'ffa'."""
+    pins it; otherwise the memo / persisted policy / measured history /
+    the 'ffa' default decide (the runtime keys it by its ``_policy_key``)."""
     return resolve("calc_attn", key, lambda: "ffa", pin=env_backend.kernel_backend_pin()).name
 
 

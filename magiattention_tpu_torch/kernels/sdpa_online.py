@@ -4,7 +4,8 @@ The port's copy of ``magiattention_tpu/kernels/sdpa_online.py``: the same
 contract as :func:`~.sdpa.sdpa_attn`, computed with an online softmax over
 blocks of ``block_k`` keys, so the logits of only one block exist at a
 time. It is plain PyTorch, differentiable by autograd, and runs on any
-device; it is a reference, no kernel.
+device; it is a reference, no kernel. ``sdpa_online_attn.calls`` counts
+its calls so a run can show that the card's path never took it.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ def sdpa_online_attn(
     so it is taken without autograd: the gradients stay exact, and no
     ``-inf - -inf`` enters the backward on rows no slice covers.
     """
+    sdpa_online_attn.calls += 1
     sq, hq, d = q.shape
     sk, hk, dv = v.shape
     g = hq // hk
@@ -77,3 +79,6 @@ def sdpa_online_attn(
     lse = torch.where(empty, float("-inf"), m_safe + torch.log(l_safe))
     out = (acc / l_safe.T[..., None]).masked_fill(empty.T[..., None], 0.0)
     return out.to(q.dtype), lse.T.contiguous().float()
+
+
+sdpa_online_attn.calls = 0

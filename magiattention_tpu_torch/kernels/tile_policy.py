@@ -79,8 +79,10 @@ from typing import Callable
 
 import numpy as np
 
+from .. import telemetry
 from ..env.general import _get_int
 from ..env import backend as env_backend
+from ..resilience.inject import maybe_inject
 from ..utils import mem_budget
 from . import registry as _registry
 from .head_dims import SPLIT_WIDTH, column_halves, kernel_head_dim
@@ -114,6 +116,25 @@ OVERHEAD_ELEMS = {2: 0, 4: 2109}
 MERGE_OVERHEAD_PER_ROW = {2: 1846, 4: 387}
 # a slice is "fragmented" when its tile cover runs >= 2x its band area
 FRAG_THRESHOLD = 2.0
+# the card's tile pairs (every compiled (bq, bk)); the resilience layer's
+# tile ladder descends them (``resilience/fallback.py:tile_ladder``)
+CANDIDATES = mem_budget.TILE_PAIRS
+
+
+def overhead_elems() -> dict[int, float]:
+    """:data:`OVERHEAD_ELEMS`, each dtype's constant replaced by the
+    store-fitted ``overhead_elems.<itemsize>`` where the observatory's
+    calibration loop is on (``telemetry/drift.fit_constants`` writes it;
+    ``store.calibrated`` gates on telemetry and MAGI_ATTENTION_CALIBRATION,
+    so with the observatory off these are exactly the constants)."""
+    if not env_backend.calibration_enabled():
+        return OVERHEAD_ELEMS
+    from ..telemetry import store as _tstore
+
+    return {
+        itemsize: _tstore.calibrated(f"overhead_elems.{itemsize}", value)
+        for itemsize, value in OVERHEAD_ELEMS.items()
+    }
 
 
 def auto_tile_enabled() -> bool:
@@ -137,7 +158,7 @@ def _memo(name: str, arrays, args: tuple, compute):
     h = hashlib.md5()
     for a in arrays:
         h.update(np.ascontiguousarray(a).tobytes())
-    consts = tuple(sorted(OVERHEAD_ELEMS.items())), tuple(sorted(MERGE_OVERHEAD_PER_ROW.items()))
+    consts = tuple(sorted(overhead_elems().items())), tuple(sorted(MERGE_OVERHEAD_PER_ROW.items()))
     key = (name, h.hexdigest(), args, consts)
     if key not in _MEMO:
         if len(_MEMO) >= _MEMO_SIZE:
@@ -193,7 +214,7 @@ def hopper_space() -> TileSpace:
     return TileSpace(
         candidates=mem_budget.TILE_PAIRS, quantum_q=NUM_LANES, quantum_k=NUM_LANES,
         band_q=(64, 128), band_k_max=128, fallback=mem_budget.DEFAULT_TILES,
-        overhead=OVERHEAD_ELEMS, merge_per_row=MERGE_OVERHEAD_PER_ROW, fits=hopper_fits,
+        overhead=overhead_elems(), merge_per_row=MERGE_OVERHEAD_PER_ROW, fits=hopper_fits,
     )
 
 
@@ -270,7 +291,9 @@ def choose_blocks_multi(
     """The forward (bq, bk) minimizing ``max_rank(W) * (bq * bk +
     overhead)`` over a group of per-rank slice sets ``(qr, kr, d_lo,
     d_hi)``, each candidate clamped to the problem and guarded by the
-    space's budget; the clamped fallback if every candidate is excluded."""
+    space's budget; the clamped fallback if every candidate is excluded.
+    Arms the ``vmem_check`` injection site (the budget guard)."""
+    maybe_inject("vmem_check")
     space = space or hopper_space()
     seen: set[tuple[int, int]] = set()
     best = best_score = None
@@ -285,7 +308,18 @@ def choose_blocks_multi(
         score = w * (bq * bk + space.overhead_for(itemsize))
         if best_score is None or score < best_score:
             best, best_score = (bq, bk), score
-    return best or _clamp(space, *space.fallback, sq, sk)
+    chosen = best or _clamp(space, *space.fallback, sq, sk)
+    if telemetry.enabled():
+        telemetry.record_event(
+            "tile_policy",
+            mode="fwd_only",
+            sq=sq, sk=sk, d=d, dv=dv, itemsize=itemsize,
+            num_geoms=len(rank_geoms),
+            candidates_scored=len(seen),
+            fwd_blocks=list(chosen),
+            fallback=best is None,
+        )
+    return chosen
 
 
 def choose_blocks(qr, kr, d_lo, d_hi, sq: int, sk: int, d: int, dv: int, itemsize: int = 2,
@@ -324,7 +358,9 @@ def choose_blocks_per_pass_multi(
     against its own kernel's budget (compiled set); a backward entry is
     None where the forward's pick is that pass's best too (it inherits).
     Under ``space.bwd_divides`` backward candidates must divide the
-    forward's padded geometry (the JAX package's gate)."""
+    forward's padded geometry (the JAX package's gate). Arms the
+    ``vmem_check`` injection site (the budget guard)."""
+    maybe_inject("vmem_check")
     space = space or hopper_space()
     cands = _band_candidates(rank_geoms, sq, sk, space)
 
@@ -354,7 +390,20 @@ def choose_blocks_per_pass_multi(
         allowed = lambda bq, bk: sqp % bq == 0 and skp % bk == 0  # noqa: E731
     dq = score_pass("dq", allowed)
     dkv = score_pass("dkv", allowed)
-    return fwd, (None if dq == fwd else dq), (None if dkv == fwd else dkv)
+    dq, dkv = (None if dq == fwd else dq), (None if dkv == fwd else dkv)
+    if telemetry.enabled():
+        telemetry.record_event(
+            "tile_policy",
+            mode="per_pass",
+            sq=sq, sk=sk, d=d, dv=dv, itemsize=itemsize,
+            num_geoms=len(rank_geoms),
+            candidates_scored=len(cands),
+            fwd_blocks=list(fwd),
+            # None = inherit fwd
+            dq_blocks=list(dq) if dq else None,
+            dkv_blocks=list(dkv) if dkv else None,
+        )
+    return fwd, dq, dkv
 
 
 def choose_blocks_per_pass(qr, kr, d_lo, d_hi, sq: int, sk: int, d: int, dv: int,
@@ -537,10 +586,23 @@ def _choose_mixed(qr, kr, d_lo, d_hi, sq, sk, d, dv, itemsize, coarse_blocks, sp
         ).name
     if choice != "mixed":
         return None
-    return MixedDispatch(
+    result = MixedDispatch(
         dense_idx=dense_idx, frag_idx=frag_idx, coarse_blocks=coarse, fine_blocks=fine,
         single_score=single, split_score=split,
     )
+    if telemetry.enabled():
+        telemetry.record_event(
+            "mixed_dispatch",
+            num_slices=len(qr),
+            num_dense=len(dense_idx),
+            num_frag=len(frag_idx),
+            coarse_blocks=list(coarse),
+            fine_blocks=list(fine),
+            single_score=single,
+            split_score=split,
+            forced=not split < single,
+        )
+    return result
 
 
 def _mixed_dispatch_key(qr, kr, d_lo, d_hi, sq, sk, d, dv, itemsize, coarse) -> tuple:

@@ -108,11 +108,30 @@ def _solve_weighted_partitions(
     caps: tuple[float, ...],
 ) -> DispatchSolution | None:
     """Capacity-weighted solve. Always the weighted LPT — it bypasses AUTO,
-    which solves the equal-count uniform problem. (The JAX package's
-    ``weighted_solve`` chaos site here is inert in the port.)"""
+    which solves the equal-count uniform problem. The ``weighted_solve``
+    chaos site covers this path: an injected fault degrades to the uniform
+    all-ones solve (returns None) when fallback is enabled, else propagates
+    typed."""
     from ..resilience.inject import maybe_inject
 
-    maybe_inject("weighted_solve")
+    try:
+        maybe_inject("weighted_solve")
+    except Exception as e:
+        from ..resilience.errors import InjectedFault
+
+        if not isinstance(e, InjectedFault):
+            raise
+        from ..env import resilience as env_resilience
+
+        if not env_resilience.is_fallback_enable():
+            raise
+        from ..resilience.fallback import record_resilience_event
+
+        record_resilience_event(
+            "fallback", "weighted_solve",
+            action_detail="uniform_solve", error=type(e).__name__,
+        )
+        return None
     solver = DispatchSolver(alg=dispatch_config.alg, config=dispatch_config)
     return solver.solve(areas, cp_size, capacities=caps)
 

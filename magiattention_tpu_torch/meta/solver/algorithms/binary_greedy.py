@@ -18,7 +18,7 @@ csrc/extensions/dyn_solver_alg.cpp:644). Scheme:
 BinaryGreedyParallel is the same algorithm with the inner candidate-rank scan
 vectorized (numpy). The JAX package first tries its C++ host backend's
 ``binary_greedy_solve``; the port has no native host backend (ROADMAP queue
-A10), so it runs the numpy path, ``_solve_numpy``, always.
+A item 5b), so it runs the numpy path, ``_solve_numpy``, always.
 """
 
 from __future__ import annotations

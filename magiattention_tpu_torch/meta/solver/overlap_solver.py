@@ -38,9 +38,15 @@ DCN_PER_ROW = 8.0
 
 
 def _calibrated_dcn_per_row() -> float:
-    """DCN_PER_ROW. The JAX package may override it with a constant fitted
-    by its telemetry store; the port has no store yet (no history)."""
-    return DCN_PER_ROW
+    """DCN_PER_ROW, or the telemetry store's fitted ``dcn_per_row`` when
+    calibration is on and a two_level_makespan fit has converged."""
+    from ...env import backend as env_backend
+
+    if not env_backend.calibration_enabled():
+        return DCN_PER_ROW
+    from ...telemetry import store as _store
+
+    return float(_store.calibrated("dcn_per_row", DCN_PER_ROW))
 
 
 @dataclass

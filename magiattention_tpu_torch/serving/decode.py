@@ -1,14 +1,24 @@
 """Batched decode and speculative-verify attention for the serving engine.
 
-The port's counterpart of ``magiattention_tpu/serving/decode.py``. The TPU
-package descends a registry ladder (sharded / spec / int8 / base Pallas
-kernels -> gather+FFA -> dense) with fault injection and fallback. The port
-has no fallback: one route per call, the first rung of the backend
-registry's ``serve_decode`` ladder (``kernels/registry.py``: JAX's six
-rungs) that is feasible for the cache and the shard count (JAX's
-``_feasibility``), starting at the registry's start rung (the caller's
-pin, :func:`..env.backend.serve_decode_pin`, or, unpinned, JAX's default).
-That route launches its CUDA kernel for CUDA tensors or raises.
+The port's counterpart of ``magiattention_tpu/serving/decode.py``: each
+step descends the backend registry's ``serve_decode`` ladder
+(``kernels/registry.py``: JAX's six rungs, sharded / spec / int8 / base
+kernels -> gather+FFA -> dense), filtered to the rungs feasible for the
+cache and the shard count (JAX's ``_feasibility``,
+:func:`decode_rungs`), from the registry's start rung (the caller's pin,
+:func:`..env.backend.serve_decode_pin`, or, unpinned, JAX's default). The
+first rung (:func:`decode_route`) launches its CUDA kernel for CUDA
+tensors or raises.
+
+Each kernel rung arms the ``serve_decode`` injection site (not the FFA
+``kernel_lowering`` site, which prefill's FFA calls also arm). A rung that
+fails with a recoverable type (``resilience/fallback.kernel_failure_types``:
+an injected fault, a CUDA error a launch returned, an out-of-memory)
+descends to the next rung under MAGI_ATTENTION_FALLBACK=1, one
+``resilience`` record per hop; without the flag the failure propagates.
+On CUDA tensors the descent ends at ``gather_ffa`` (B1): the plain
+``dense`` rung is taken only for CPU tensors, and a card step that would
+need it raises ``FallbackExhaustedError``.
 
 - :func:`decode_attn_step`: unpinned, ``shards > 1`` takes the
   head-sharded step (B10 once per shard,
@@ -38,6 +48,10 @@ from ..kernels.paged_decode import (
     paged_decode_attn_spec,
 )
 from ..kernels.paged_kv import PagedKVCache, gather_kv, paged_attn
+from ..env import resilience as env_resilience
+from ..resilience import fallback as _fallback
+from ..resilience.errors import FallbackExhaustedError
+from ..resilience.inject import maybe_inject
 
 
 # JAX's serve_decode ladder, in rank order
@@ -45,14 +59,17 @@ RUNGS = (
     "paged_decode_sharded", "paged_decode_spec", "paged_decode_int8", "paged_decode",
     "gather_ffa", "dense",
 )
+# the rungs that launch a decode kernel (they arm the serve_decode site)
+KERNEL_RUNGS = RUNGS[:4]
 
 
-def decode_route(cache: PagedKVCache, multi_row: bool, shards: int = 1) -> str:
-    """The rung a decode (``multi_row`` False) or verify step runs: the
-    first rung at or below the start (the pin, else JAX's default: the
+def decode_rungs(cache: PagedKVCache, multi_row: bool, shards: int = 1) -> list[str]:
+    """The rungs a decode (``multi_row`` False) or verify step may run, in
+    descent order: from the start (the pin, else JAX's default: the
     sharded rung for ``shards > 1``, the int8 kernel on an int8 cache, the
-    spec kernel for a verify, else the paged-decode kernel) that is
-    feasible for the cache and ``shards``, JAX's ``_feasibility`` rules."""
+    spec kernel for a verify, else the paged-decode kernel) down the
+    ladder, keeping those feasible for the cache and ``shards`` (JAX's
+    ``_feasibility`` rules)."""
     hk = cache.k_pages.shape[2]
     quantized = cache.quantized
     feasible = {
@@ -76,11 +93,44 @@ def decode_route(cache: PagedKVCache, multi_row: bool, shards: int = 1) -> str:
         "serve_decode", (hk, quantized, multi_row, shards), lambda: default,
         pin=env_backend.serve_decode_pin(),
     ).name
-    return next(r for r in _registry.ladder("serve_decode", start) if feasible[r])
+    return [r for r in _registry.ladder("serve_decode", start) if feasible[r]]
+
+
+def decode_route(cache: PagedKVCache, multi_row: bool, shards: int = 1) -> str:
+    """The rung a decode or verify step runs first (:func:`decode_rungs`)."""
+    return decode_rungs(cache, multi_row, shards)[0]
 
 
 def _host_lengths(cache: PagedKVCache, host_lengths) -> tuple[int, ...]:
     return tuple(cache.lengths.tolist()) if host_lengths is None else tuple(host_lengths)
+
+
+def _descend(rungs: list[str], run, card: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """``run(rung)`` on the first rung that succeeds: a kernel rung arms
+    the ``serve_decode`` site first; a recoverable failure descends to the
+    next rung under MAGI_ATTENTION_FALLBACK=1, else propagates. On the card
+    (``card``) the descent stops before the plain ``dense`` rung: a failure
+    with only that left raises ``FallbackExhaustedError``."""
+    failures = _fallback.kernel_failure_types()
+    for i, rung in enumerate(rungs):
+        try:
+            if rung in KERNEL_RUNGS:
+                maybe_inject("serve_decode")
+            return run(rung)
+        except failures as e:
+            if i + 1 >= len(rungs) or not env_resilience.is_fallback_enable():
+                raise
+            if not _fallback.card_rungs("serve_decode", rungs[i + 1:i + 2], card):
+                raise FallbackExhaustedError(
+                    f"serve_decode ladder exhausted: {rung} failed, and {rungs[i + 1]} is plain "
+                    "PyTorch, never run in a kernel's place on the card"
+                ) from e
+            _fallback.record_resilience_event(
+                "fallback", "serve_decode",
+                action_detail=f"{rung}_to_{rungs[i + 1]}",
+                error=type(e).__name__,
+            )
+    raise AssertionError("serve_decode ladder is empty")  # the last rung returns or raises
 
 
 def decode_attn_step(
@@ -90,7 +140,7 @@ def decode_attn_step(
     host_lengths: tuple[int, ...] | None = None,
     shards: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One decode step for every slot, on :func:`decode_route`'s rung.
+    """One decode step for every slot, down :func:`decode_rungs`.
 
     Args:
         q_batch: ``(max_seqs, hq, d)`` — one query row per slot (zeros on
@@ -104,17 +154,21 @@ def decode_attn_step(
 
     Returns (out ``(max_seqs, hq, dv)``, lse ``(max_seqs, hq)``).
     """
-    route = decode_route(cache, multi_row=False, shards=shards)
-    if route == "paged_decode_sharded":
-        return paged_decode_attn_sharded(q_batch, cache, shards, softmax_scale=softmax_scale)
-    if route == "paged_decode_int8":
-        return paged_decode_attn_int8(q_batch, cache, softmax_scale=softmax_scale)
-    if route == "paged_decode":
-        return paged_decode_attn(q_batch, cache, softmax_scale=softmax_scale)
-    lengths = _host_lengths(cache, host_lengths)
-    if route == "gather_ffa":
-        return _gather_ffa_decode(q_batch, cache, lengths, softmax_scale)
-    return _dense_decode(q_batch, cache, lengths, softmax_scale)
+
+    def run(rung: str):
+        if rung == "paged_decode_sharded":
+            return paged_decode_attn_sharded(q_batch, cache, shards, softmax_scale=softmax_scale)
+        if rung == "paged_decode_int8":
+            return paged_decode_attn_int8(q_batch, cache, softmax_scale=softmax_scale)
+        if rung == "paged_decode":
+            return paged_decode_attn(q_batch, cache, softmax_scale=softmax_scale)
+        lengths = _host_lengths(cache, host_lengths)
+        if rung == "gather_ffa":
+            return _gather_ffa_decode(q_batch, cache, lengths, softmax_scale)
+        return _dense_decode(q_batch, cache, lengths, softmax_scale)
+
+    return _descend(decode_rungs(cache, multi_row=False, shards=shards), run,
+                    _fallback.on_card(q_batch))
 
 
 def verify_attn_step(
@@ -134,14 +188,17 @@ def verify_attn_step(
             gather and dense rungs need them on the host.
 
     Returns (out ``(max_seqs, spec_k, hq, dv)``,
-    lse ``(max_seqs, spec_k, hq)``), on :func:`decode_route`'s rung.
+    lse ``(max_seqs, spec_k, hq)``), down :func:`decode_rungs`.
     """
-    route = decode_route(cache, multi_row=True)
-    if route == "paged_decode_spec":
-        return paged_decode_attn_spec(q_spec, cache, softmax_scale=softmax_scale)
-    if route == "gather_ffa":
-        return _gather_ffa_verify(q_spec, cache, host_lengths, softmax_scale)
-    return _dense_verify(q_spec, cache, host_lengths, softmax_scale)
+
+    def run(rung: str):
+        if rung == "paged_decode_spec":
+            return paged_decode_attn_spec(q_spec, cache, softmax_scale=softmax_scale)
+        if rung == "gather_ffa":
+            return _gather_ffa_verify(q_spec, cache, host_lengths, softmax_scale)
+        return _dense_verify(q_spec, cache, host_lengths, softmax_scale)
+
+    return _descend(decode_rungs(cache, multi_row=True), run, _fallback.on_card(q_spec))
 
 
 def _gather_ffa_decode(q_batch, cache, host_lengths, softmax_scale=None):

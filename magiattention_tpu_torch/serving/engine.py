@@ -25,8 +25,9 @@ int8 kernel for decode); on the CPU, through their plain versions.
 kv-head shard, one card per shard) where the sharded rung is feasible,
 and on the next feasible rung where it is not (too few cards, an int8
 cache, a verify step), as the JAX engine does; ``pool_shards``
-partitions the page pool. Telemetry is left out; ``step()`` still
-returns the tick's stats dict.
+partitions the page pool. ``step()`` returns the tick's stats dict, which
+under MAGI_ATTENTION_TELEMETRY=1 is also the tick's ``serve_step`` record
+(the JAX package's fields; ``wall_ms`` is the host's time for the tick).
 
 Under MAGI_ATTENTION_BACKEND_SERVE_DECODE=gather_ffa the decode tick runs
 the replay oracle's own calls: attention through the gather + FFA rung,
@@ -44,6 +45,7 @@ from typing import Callable
 
 import torch
 
+from .. import telemetry
 from ..env import backend as env_backend
 from ..env import serve as env_serve
 from ..kernels.paged_kv import PagedKVCache, append_kv, rollback_kv
@@ -278,7 +280,7 @@ class ServeEngine:
                 completed += 1
 
         self.step_count += 1
-        return dict(
+        stats = dict(
             step=self.step_count,
             wall_ms=(time.perf_counter() - t0) * 1e3,
             occupancy=len(sched.active) / cfg.max_slots,
@@ -298,6 +300,10 @@ class ServeEngine:
                 draft_accepted / draft_attempted if draft_attempted else 0.0
             ),
         )
+        if telemetry.enabled():
+            telemetry.record_event("serve_step", **stats)
+            telemetry.inc("serve.steps")
+        return stats
 
     # -- full drain -------------------------------------------------------
     def run(

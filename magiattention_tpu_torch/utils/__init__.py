@@ -1,1 +1,3 @@
 """Host-side helpers."""
+
+from .profiling import add_profile_event, instrument_scope, switch_profile  # noqa: F401

@@ -98,6 +98,21 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.models.convert",
         "magiattention_tpu_torch.models.shard",
         "magiattention_tpu_torch.utils.sparse_utils",
+        "magiattention_tpu_torch.utils.profiling",
+        "magiattention_tpu_torch.env.health",
+        "magiattention_tpu_torch.env.resilience",
+        "magiattention_tpu_torch.telemetry",
+        "magiattention_tpu_torch.telemetry.export",
+        "magiattention_tpu_torch.telemetry.stats",
+        "magiattention_tpu_torch.telemetry.registry",
+        "magiattention_tpu_torch.telemetry.store",
+        "magiattention_tpu_torch.telemetry.drift",
+        "magiattention_tpu_torch.telemetry.health",
+        "magiattention_tpu_torch.resilience.errors",
+        "magiattention_tpu_torch.resilience.inject",
+        "magiattention_tpu_torch.resilience.guards",
+        "magiattention_tpu_torch.resilience.fallback",
+        "magiattention_tpu_torch.resilience.watchdog",
         "chip_smoke",
     ):
         assert module in loaded, module

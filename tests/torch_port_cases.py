@@ -1603,3 +1603,77 @@ def shard_worker(rank: int, world: int, init_file: str, out_dir: str, trees: dic
         dist.barrier()  # leave together: no rank closes a peer's open connections
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the resilience plane at cp 2 (tests/test_torch_resilience.py, slow)
+# ---------------------------------------------------------------------------
+
+
+def resilience_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One rank of a gloo group: the API at tiles pinned 128 x 64, then at
+    128 x 128 with ``kernel_lowering:count=1`` and MAGI_ATTENTION_FALLBACK=1
+    (every rank arms the same spec, so every rank takes the same hop);
+    forward and backward of each, with the ladder's recovered hops, to
+    ``out_dir/rank<r>.npz``; then a forward under the step watchdog with a
+    NaN on rank 0 alone, and the name of what each rank raised ("ok" for
+    none)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
+    from magiattention_tpu_torch import api, telemetry
+    from magiattention_tpu_torch.env.general import scoped_env
+
+    def step(env: dict):
+        with scoped_env(env):
+            key = api.magi_attn_flex_key(
+                [(0, CP_SEQ)], [(0, CP_SEQ)], [1], CP_SEQ, CP_SEQ, cp_group=dist.group.WORLD,
+                device="cpu", chunk_size=CP_CHUNK,
+            )
+            q, k, v, do = (torch.from_numpy(a) for a in cp_inputs(5))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out_d, _ = api.calc_attn(
+                api.dispatch(leaves[0], key), api.dispatch(leaves[1], key, role="kv"),
+                api.dispatch(leaves[2], key, role="kv"), key,
+            )
+            out = api.undispatch(out_d, key)
+            (out * do).sum().backward()
+            return np.concatenate([out.detach().numpy().ravel(), leaves[0].grad.numpy().ravel()])
+
+    try:
+        tiles = {"MAGI_ATTENTION_FFA_BLOCK_Q": "128", "MAGI_ATTENTION_FFA_BLOCK_K": "64"}
+        pinned = step(tiles)
+        faulted = step({
+            **tiles, "MAGI_ATTENTION_FFA_BLOCK_K": "128",
+            "MAGI_ATTENTION_FAULT_INJECT": "kernel_lowering:count=1", "MAGI_ATTENTION_FALLBACK": "1",
+            "MAGI_ATTENTION_TELEMETRY": "1", "MAGI_ATTENTION_TELEMETRY_DIR": os.path.join(out_dir, f"tel{rank}"),
+        })
+        with scoped_env({"MAGI_ATTENTION_TELEMETRY": "1",
+                         "MAGI_ATTENTION_TELEMETRY_DIR": os.path.join(out_dir, f"tel{rank}")}):
+            hops = telemetry.summary()["counters"].get("resilience.recovered", 0)
+        # a NaN on rank 0 alone under the step watchdog (forward only: the
+        # raising rank runs no backward)
+        nan_env = {"MAGI_ATTENTION_STEP_RETRIES": "1", "MAGI_ATTENTION_NUMERIC_GUARD": "raise"}
+        if rank == 0:
+            nan_env["MAGI_ATTENTION_FAULT_INJECT"] = "nan_output:count=1"
+        try:
+            with torch.no_grad(), scoped_env(nan_env):
+                key = api.magi_attn_flex_key(
+                    [(0, CP_SEQ)], [(0, CP_SEQ)], [1], CP_SEQ, CP_SEQ, cp_group=dist.group.WORLD,
+                    device="cpu", chunk_size=CP_CHUNK,
+                )
+                q, k, v, _ = (torch.from_numpy(a) for a in cp_inputs(5))
+                api.calc_attn(api.dispatch(q, key), api.dispatch(k, key, role="kv"),
+                              api.dispatch(v, key, role="kv"), key)
+            nan_step = "ok"
+        except Exception as e:  # noqa: BLE001  (the rank's outcome is the result)
+            nan_step = type(e).__name__
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), pinned=pinned, faulted=faulted, hops=hops,
+                 nan_step=nan_step)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
