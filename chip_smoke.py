@@ -199,15 +199,26 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     ``resilience_elsewhere``: the resilience layer's action counts
     (telemetry's ``resilience.*`` counters, kept with telemetry off too)
     before those two phases and after them, which must be zero.
-14. ``kernels``: one line per-kernel summary (launches from the serve,
+14. ``plan_tiers`` (after ``deterministic``): the plan control plane at
+    the train attention shape over a fresh store directory, three ways
+    (cold under MAGI_ATTENTION_VERIFY_PLANS=1; loaded from the store; the
+    store file with one flipped byte, rejected, cold-solved and healed),
+    each a step unpinned (B1, B7, B8/B9) and one under deterministic mode,
+    bitwise the cold way (the unpinned dq, summed by the fused backward's
+    atomics, within the bf16 gates); each key's ``plan_s``, the load
+    (decode + verify) and the verify alone, the blob's bytes.
+15. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase plus qo_comm, cp_baselines and usp_nsa, error,
     kernel / plain / library time and the card's bound; launches also
     from cp_hier_tp, decode_sharded, serve_int8's spec pass, the remat
-    step, moe, video_dit, observability and resilience).
+    step, moe, video_dit, observability, resilience and plan_tiers).
 
 It refuses to start when MAGI_ATTENTION_FALLBACK, _FAULT_INJECT,
 _NUMERIC_GUARD, _STEP_RETRIES or _STRAGGLER_DETECT is set: its resilience
-phases set them themselves, and no other phase may run under them.
+phases set them themselves, and no other phase may run under them; nor
+with MAGI_ATTENTION_VERIFY_PLANS, _PLAN_STORE or _PLAN_BROADCAST set: the
+plan phases set them over a fresh temporary directory, and a stale store
+must not feed any other phase.
 
 Before the last line it prints ``nvidia-smi``'s ``name, power.limit`` line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -233,7 +244,15 @@ exchange's ms) and ``cp4_video_dit`` (the ``video_dit`` phase's model at
 cp 4 against cp 1, step ms), ``cp4_resilience`` (every rank under the
 same ``kernel_lowering:count=1`` spec with MAGI_ATTENTION_FALLBACK=1 takes
 the same one hop, no rank hangs, each rank's out and gradients bitwise its
-run pinned at the rung) and ``cp4_straggler`` (rank 3 slowed each step,
+run pinned at the rung; then a NaN on rank 0 alone under
+MAGI_ATTENTION_STEP_RETRIES=1: every rank agrees on it and hops once,
+bitwise its unfaulted step, and the agreement's cost a step, watchdog on
+against off), ``cp4_plan_tiers`` (the API at cp 4 on a group with a 60 s
+timeout: rank 0 solves, ranks 1-3 receive the plan over NCCL, verify and
+run, every rank bitwise its cold step, each rank's ``plan_s`` cold
+against received and its load alone; a ``plan_broadcast`` fault under
+MAGI_ATTENTION_FALLBACK=1, the followers solving locally, bitwise too)
+and ``cp4_straggler`` (rank 3 slowed each step,
 every rank fed the all-gathered step ms, identical capacity vectors on
 every rank, one weighted re-solve, the weighted output within bf16 limits
 of the unweighted, the slowest rank's ms before and after); then, in the
@@ -7281,12 +7300,19 @@ RESILIENCE_FLAGS = (
     "MAGI_ATTENTION_FALLBACK", "MAGI_ATTENTION_FAULT_INJECT", "MAGI_ATTENTION_NUMERIC_GUARD",
     "MAGI_ATTENTION_STEP_RETRIES", "MAGI_ATTENTION_STRAGGLER_DETECT",
 )
+# the plan tiers' flags: set only inside their own phases, over a fresh
+# temporary directory (a stale store directory must not feed any phase)
+PLAN_FLAGS = (
+    "MAGI_ATTENTION_VERIFY_PLANS", "MAGI_ATTENTION_PLAN_STORE", "MAGI_ATTENTION_PLAN_BROADCAST",
+)
 
 
 def resilience_flags_set() -> list[str]:
+    """The resilience and plan-tier flags set in the environment: the
+    script refuses to start with any, its phases set them themselves."""
     import os
 
-    return [name for name in RESILIENCE_FLAGS if os.environ.get(name)]
+    return [name for name in RESILIENCE_FLAGS + PLAN_FLAGS if os.environ.get(name)]
 
 
 def resilience_counts() -> dict[str, int]:
@@ -7894,7 +7920,12 @@ def cp4_resilience(device: str, seq: int) -> dict:
     with MAGI_ATTENTION_FALLBACK=1 at tiles 128 x 128 (deterministic
     mode): every rank takes the one hop to 128 x 64 at the same call, no
     rank hangs (the group's timeout bounds it), and every rank's out and
-    gradients equal its run pinned at 128 x 64 to the bit."""
+    gradients equal its run pinned at 128 x 64 to the bit. Then the agreed
+    retry (ROADMAP C9): a NaN on rank 0 alone under
+    MAGI_ATTENTION_STEP_RETRIES=1 and the guard, every rank hops once (on
+    the card the rung is the ``ffa`` kernels again), each bitwise its
+    unfaulted step; and the agreement's cost, a step with the watchdog on
+    against off (alternating rounds) and the flag's all-reduce alone."""
     import torch
     import torch.distributed as dist
 
@@ -7929,7 +7960,286 @@ def cp4_resilience(device: str, seq: int) -> dict:
     if any(h != [1, 1] for h in every) or tiles != (128, 64):
         raise AssertionError(f"cp4_resilience: ranks' (hops, bitwise) {every}, tiles {tiles}")
     return dict(spec="kernel_lowering:count=1", start=[128, 128], rung=list(tiles), stages=stages,
-                ranks_hops_bitwise=every, faulted_step_wall_s=_every_rank(wall), counts=counts)
+                ranks_hops_bitwise=every, faulted_step_wall_s=_every_rank(wall), counts=counts,
+                agreed_retry=cp4_agreed_retry(device, seq, inputs, do))
+
+
+def cp4_agreed_retry(device: str, seq: int, inputs, do) -> dict:
+    """The step watchdog's agreed retry at cp 4 (see :func:`cp4_resilience`)."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.resilience import inject, watchdog
+
+    on_card = device == "cuda"
+    det = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+    on = {**det, "MAGI_ATTENTION_STEP_RETRIES": "1"}
+    # the rung the hop lands on: the ffa kernels again on the card (no plain
+    # rung there), sdpa in a rehearsal on the CPU
+    rung = {"MAGI_ATTENTION_KERNEL_BACKEND": "ffa" if on_card else "sdpa"}
+    base = _with_env({**det, **rung}, lambda: _rank_step(_cp4_key(device, seq), inputs, do))
+    nan_env = {**on, "MAGI_ATTENTION_NUMERIC_GUARD": "raise"}
+    if dist.get_rank() == 0:
+        nan_env["MAGI_ATTENTION_FAULT_INJECT"] = "nan_output:count=1"
+    inject.reset()
+    watchdog.reset()
+    before = resilience_counts()
+    got = _with_env(nan_env, lambda: _rank_step(_cp4_key(device, seq), inputs, do))
+    counts = _counts_delta(before, resilience_counts())
+    inject.reset()
+    watchdog.reset()
+    same = all(torch.equal(a, b) for a, b in zip(got, base))
+    mine = torch.tensor([counts.get("resilience.recovered", 0), counts.get("resilience.retry", 0),
+                         int(same)], device=device)
+    every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    every = [t.tolist() for t in every]
+    if any(h != [1, 1, 1] for h in every):
+        raise AssertionError(f"cp4_resilience agreed retry: ranks' (hops, retries, bitwise) {every}")
+    # the agreement's cost: a step with the watchdog on (one flag reduced)
+    # against off, in alternating rounds, and the flag's all-reduce alone
+    keys = {"off": _with_env(det, lambda: _cp4_key(device, seq)),
+            "on": _with_env(on, lambda: _cp4_key(device, seq))}
+    rounds: dict = {"off": [], "on": []}
+    for _ in range(2):
+        for name, env in (("off", det), ("on", on)):
+            rounds[name].append(_with_env(env, lambda: _world_ms(
+                lambda: _rank_step(keys[name], inputs, do), on_card, samples=10)))
+    runtime = _mgr(keys["on"]).runtime
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        runtime.agree_step_failure(False, torch.device(device))
+    agree_ms = (time.perf_counter() - t0) * 1e3 / 20
+    return dict(
+        fault="nan_output:count=1 on rank 0 alone", rung=rung["MAGI_ATTENTION_KERNEL_BACKEND"],
+        ranks_hops_retries_bitwise=every,
+        counts=counts, step_ms_watchdog_off=rounds["off"], step_ms_watchdog_on=rounds["on"],
+        agreement_ms_every_rank=_every_rank(agree_ms),
+        median_slowest_off=statistics.median(max(r) for r in rounds["off"]),
+        median_slowest_on=statistics.median(max(r) for r in rounds["on"]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the plan control plane: the verifier, the disk tier, the broadcast tier
+# ---------------------------------------------------------------------------
+
+TIER_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
+PLAN_SOURCES = ("memory", "disk", "broadcast", "cold")
+
+
+def _tier_step(key, inputs, do):
+    """out, lse, dq, dk, dv of this rank's dispatched rows through ``key``."""
+    import torch
+
+    from magiattention_tpu_torch import api
+
+    ls = [api.dispatch(inputs[0], key), api.dispatch(inputs[1], key, role="kv"),
+          api.dispatch(inputs[2], key, role="kv")]
+    ls = [t.detach().requires_grad_(True) for t in ls]
+    out, meta = api.calc_attn(*ls, key)
+    return (out.detach(), meta.lse, *torch.autograd.grad(out, ls, api.dispatch(do, key)))
+
+
+def _differing(got, want) -> list[str]:
+    """The outputs of two tier steps that are not equal to the bit."""
+    import torch
+
+    return [n for n, a, b in zip(TIER_OUTPUTS, got, want) if not torch.equal(a, b)]
+
+
+def _best_s(fn, n: int = 5) -> float:
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def plan_tiers_phase(device: str = "cuda", seq: int = CP_SEQ) -> dict:
+    """The plan control plane on one card at the train attention shape
+    (bf16, q 8192 x 32 x 128, k/v 8192 x 8 x 128, two causal documents),
+    through ``magi_attn_flex_key -> dispatch -> calc_attn`` and the
+    backward, over a fresh store directory, three ways: (a) cold, under
+    MAGI_ATTENTION_VERIFY_PLANS=1 (the hook verifies the fresh build);
+    (b) the memory tiers dropped, loaded from the store (decoded, verified
+    again); (c) the store file with one flipped byte: rejected, cold-solved,
+    and the write-through heals the file. Each way runs one step unpinned
+    (B1, B7 and the resolved backward, B8/B9 here) and one under
+    deterministic mode (the split B3, B5/B6): (b) and (c) equal (a) to the
+    bit in out, lse and every gradient, but for the unpinned dq, which the
+    fused backward sums with float32 atomics in no fixed order (held to
+    the bf16 gates, its bitwise agreement reported). Reports ``plan_s`` of
+    each way's key, the load alone (decode + verify) and the verify alone,
+    the blob's bytes, and each way's launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.analysis.verifier import verify_runtime_mgr
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.dist_attn_runtime_mgr import _plan_signature, _verify_loaded_entry
+    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
+    from magiattention_tpu_torch.meta import plan_io, plan_store
+
+    on_card = device == "cuda"
+    inputs, do = _cp_inputs(device, seq, seed=41)
+    docs = _docs(seq, seq // 2)
+    det = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store_env = {"MAGI_ATTENTION_PLAN_STORE": "1", "MAGI_ATTENTION_PLAN_STORE_DIR": tmp}
+
+        def way(extra: dict):
+            def run():
+                _fresh_planning()
+                plan_store.reset()
+                t0 = time.perf_counter()
+                key = api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, device=device)
+                plan_s = time.perf_counter() - t0
+                fast_n, fast = counted(lambda: _tier_step(key, inputs, do), on_card)
+                det_n, pinned = _with_env(
+                    det, lambda: counted(lambda: _tier_step(key, inputs, do), on_card))
+                for counts in (fast_n, det_n):
+                    for k_, n in counts.items():
+                        launches[k_] = launches.get(k_, 0) + n
+                info = dict(plan_source=_mgr(key).plan_source, plan_s=plan_s, launches=fast_n,
+                            deterministic_launches=det_n)
+                return key, info, fast, pinned
+            return _with_env({**store_env, **extra}, run)
+
+        key, cold, want, want_det = way({"MAGI_ATTENTION_VERIFY_PLANS": "1"})
+        mgr = _mgr(key)
+        rt = mgr.runtime
+        mode = ffa_bwd_mode(rt.plans[0], rt._params(CP_D)[0], CP_D, CP_D, 2, CP_HQ, CP_HK)
+        for what, counts, kernels in (("unpinned", cold["launches"], _bwd_kernels(mode)),
+                                      ("deterministic", cold["deterministic_launches"],
+                                       _bwd_kernels("split"))):
+            expected = ("ffa_fwd", "ffa_bwd_delta", *kernels)
+            if on_card and any(counts.get(k_) != 1 for k_ in expected):
+                raise AssertionError(f"plan_tiers {what}: launched {counts}, want one of {expected}")
+        digest = plan_io.plan_signature_digest(_plan_signature(key))
+        path = os.path.join(tmp, f"plan-{digest}.bin")
+        with open(path, "rb") as f:
+            blob = f.read()
+        verify_s = _best_s(lambda: verify_runtime_mgr(mgr))
+
+        def load():
+            entry = plan_io.decode_plan(blob, env_sig=key.env_snapshot, expect_digest=digest)
+            if not _verify_loaded_entry(entry, key):
+                raise AssertionError("plan_tiers: the stored plan does not verify")
+
+        load_s = _best_s(load)
+        ways = {"cold": cold}
+        for name in ("disk", "corrupt"):
+            if name == "corrupt":
+                bad = bytearray(blob)
+                bad[len(bad) // 2] ^= 0x01
+                with open(path, "wb") as f:
+                    f.write(bytes(bad))
+            _, info, got, got_det = way({})
+            want_source = "disk" if name == "disk" else "cold"
+            if info["plan_source"] != want_source:
+                raise AssertionError(f"plan_tiers {name}: plan from {info['plan_source']}, want {want_source}")
+            fast_diff, det_diff = _differing(got, want), _differing(got_det, want_det)
+            if det_diff or set(fast_diff) - {"dq"}:
+                raise AssertionError(f"plan_tiers {name}: not bitwise the cold step: "
+                                     f"unpinned {fast_diff}, deterministic {det_diff}")
+            info["unpinned_dq_bitwise"] = "dq" not in fast_diff
+            info["unpinned_dq"] = grad_check(f"plan_tiers {name} dq", got[2].float(), want[2].float(),
+                                             "bfloat16")
+            ways[name] = info
+        with open(path, "rb") as f:
+            healed = f.read() == blob
+        if not healed:
+            raise AssertionError("plan_tiers: the write-through did not heal the flipped store file")
+    res = dict(
+        shape=f"bf16 q [{seq}, {CP_HQ}, {CP_D}], k/v [{seq}, {CP_HK}, {CP_D}], two causal "
+              "documents, cp 1",
+        resolved_bwd_mode=mode, ways=ways, verify_alone_s=verify_s, load_decode_verify_s=load_s,
+        blob_bytes=len(blob), store_healed=healed, launches=launches,
+    )
+    emit({"phase": "plan_tiers", **res})
+    return res
+
+
+def cp4_plan_tiers(device: str, seq: int) -> dict:
+    """cp 4 over the API at the train attention shape (NCCL on the card),
+    on a group of its own with a 60 s timeout (a broken pairing of the
+    broadcast's collectives fails the phase instead of stalling it), under
+    deterministic mode: a cold solve on every rank, then, the in-process
+    tiers dropped, the broadcast tier (rank 0 solves and sends the blob by
+    ``DistTransport``; ranks 1-3 receive, verify and run), then a
+    ``plan_broadcast`` fault on every rank under MAGI_ATTENTION_FALLBACK=1
+    (the followers solve locally). Every rank's shard of out, lse and the
+    gradients equals its cold step to the bit; each rank's ``plan_s``, cold
+    against received."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.api.magi_attn_interface import get_most_recent_key as _last_key
+    from magiattention_tpu_torch.dist_attn_runtime_mgr import (
+        _PLAN_CACHE, _plan_signature, _verify_loaded_entry,
+    )
+    from magiattention_tpu_torch.meta import plan_io
+    from magiattention_tpu_torch.resilience import inject
+
+    on_card = device == "cuda"
+    group = dist.new_group(list(range(dist.get_world_size())), timeout=datetime.timedelta(seconds=60))
+    inputs, do = _cp_inputs(device, seq, seed=43)
+    docs = _docs(seq, seq // 2)
+    bcast = {"MAGI_ATTENTION_PLAN_BROADCAST": "1"}
+
+    def resolve(env: dict):
+        def run():
+            _fresh_planning()
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            key = api.magi_attn_flex_key(docs, docs, [1, 1], seq, seq, cp_group=group, device=device,
+                                         chunk_size=min(512, seq // 8))
+            plan_s = time.perf_counter() - t0
+            counts, got = counted(lambda: _tier_step(key, inputs, do), on_card)
+            return _mgr(key).plan_source, plan_s, counts, got
+        return _with_env({"MAGI_ATTENTION_DETERMINISTIC_MODE": "1", **env}, run)
+
+    cold_src, cold_s, counts, want = resolve({})
+    src, recv_s, bcast_counts, got = resolve(bcast)
+    # what a follower's receive costs besides the wait: the blob's decode and
+    # the verification of the plan it carries (each rank, its own entry)
+    sig = _plan_signature(_last_key())
+    blob = plan_io.encode_plan(
+        {k: v for k, v in _PLAN_CACHE.lookup(sig).items() if k in ("dispatch", "static")})
+    load_s = _best_s(lambda: _verify_loaded_entry(plan_io.decode_plan(blob), _last_key()))
+    inject.reset()
+    f_src, f_s, _, faulted = resolve({**bcast, "MAGI_ATTENTION_FAULT_INJECT": "plan_broadcast:count=1",
+                                      "MAGI_ATTENTION_FALLBACK": "1"})
+    inject.reset()
+    sources = {name: [PLAN_SOURCES[int(c)] for c in _every_rank(PLAN_SOURCES.index(s_))]
+               for name, s_ in (("cold", cold_src), ("broadcast", src), ("fault", f_src))}
+    diffs = {"broadcast": _differing(got, want), "fault": _differing(faulted, want)}
+    bitwise = _every_rank(float(not any(diffs.values())))
+    want_sources = {"cold": ["cold"] * 4, "broadcast": ["cold"] + ["broadcast"] * 3, "fault": ["cold"] * 4}
+    if sources != want_sources or bitwise != [1.0] * 4:
+        raise AssertionError(f"cp4_plan_tiers: sources {sources}, bitwise a rank {bitwise}, this rank {diffs}")
+    for what, n in (("cold", counts), ("broadcast", bcast_counts)):
+        if on_card and not (n.get("ffa_fwd") and n.get("ffa_bwd_delta")):
+            raise AssertionError(f"cp4_plan_tiers {what}: launched {n}")
+    return dict(
+        shape=f"bf16 q [{seq}, {CP_HQ}, {CP_D}], k/v [{seq}, {CP_HK}, {CP_D}], two causal documents, "
+              "cp 4, deterministic mode",
+        sources=sources, bitwise_every_rank=bitwise, launches_rank0=bcast_counts,
+        plan_s_cold=_every_rank(cold_s), plan_s_received=_every_rank(recv_s),
+        plan_s_fault=_every_rank(f_s), load_decode_verify_s=_every_rank(load_s),
+        blob_bytes=len(blob),
+    )
 
 
 # rank 3's extra work a step (torch.cuda._sleep cycles, ~10 ms on an H100)
@@ -8041,6 +8351,7 @@ def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
         # process (on four H100s the DiT's cp 4 step went from 24.0 to 32.1
         # ms after one)
         for name, run in (("cp4_resilience", lambda: cp4_resilience(device, seq)),
+                          ("cp4_plan_tiers", lambda: cp4_plan_tiers(device, seq)),
                           ("cp4_straggler", lambda: cp4_straggler(device, seq)),
                           ("cp4_moe_ep", lambda: cp4_moe_ep(device, seq)),
                           ("cp4_video_dit", lambda: cp4_video_dit(device)),
@@ -8207,6 +8518,7 @@ def main() -> int:
     del serve_ctx
     cp_api = cp_api_phase()
     deterministic_phase()
+    tiers = plan_tiers_phase()
     cp_stages_phase()
     qo = qo_comm_phase(cp_api)["launches"]
     cpb = cp_baselines_phase()["launches"]
@@ -8236,10 +8548,10 @@ def main() -> int:
     # plus those of the qo-comm path (qo_comm phase), the CP baselines'
     # rank bodies (cp_baselines), the two-level, TP and sink runs
     # (cp_hier_tp), usp_nsa_attn's (usp_nsa), the train phase's remat
-    # step, the MoE and video DiT steps (moe, video_dit) and the sharded
-    # tree's step (shard_cp1)
+    # step, the MoE and video DiT steps (moe, video_dit), the sharded
+    # tree's step (shard_cp1) and the plan tiers' steps (plan_tiers)
     paths = (qo, cpb, ht, usp, train["remat"]["launches"], moe_launches, dit_launches, shard,
-             obs["launches"], resil["launches"])
+             obs["launches"], resil["launches"], tiers["launches"])
     extra = {k_: sum(p.get(k_, 0) for p in paths) for k_ in set().union(*paths)}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body; int8 spec verify's too

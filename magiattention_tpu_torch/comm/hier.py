@@ -89,6 +89,33 @@ class HierGroupCastPlan:
         return int(self.a_recv_len.sum())
 
 
+def pair_rows_from_indices(
+    plan: HierGroupCastPlan, recv_len: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """The true per-pair row counts ``(a_pair_rows, b_pair_rows)`` of a
+    plan read back from its receive selections: rank ``(o_s, i)`` sent node
+    ``o`` as many phase-A rows as rank ``(o, i)`` selects from buffer block
+    ``o_s``, and holder ``(o, h)`` sent rank ``(o, i_d)`` as many phase-B
+    rows as that rank's first ``recv_len[(o, i_d)]`` selections (the flat
+    stage's receive lengths) take from block ``h``. A plan decoded from
+    the wire (``meta/plan_io.py``, whose format is the JAX package's nine
+    fields) gets its counts back this way."""
+    n_outer, n_inner = plan.n_outer, plan.n_inner
+    cp = n_outer * n_inner
+    a_cap, b_cap = plan.a_send_idx.shape[2], plan.b_send_idx.shape[2]
+    a_pair_rows = np.zeros((cp, n_outer), dtype=np.int64)
+    b_pair_rows = np.zeros((cp, n_inner), dtype=np.int64)
+    for r in range(cp):
+        o, i = divmod(r, n_inner)
+        a_src = np.asarray(plan.a_recv_sel[r, : int(plan.a_recv_len[r])]) // a_cap
+        for o_s, n in zip(*np.unique(a_src, return_counts=True)):
+            a_pair_rows[int(o_s) * n_inner + i, o] = n
+        b_src = np.asarray(plan.b_recv_sel[r, : int(recv_len[r])]) // b_cap
+        for h, n in zip(*np.unique(b_src, return_counts=True)):
+            b_pair_rows[o * n_inner + int(h), i] = n
+    return a_pair_rows, b_pair_rows
+
+
 def make_hier_group_cast_plan(
     requests: list[list[AttnRanges]],
     host_ranges: list[AttnRanges],

@@ -29,8 +29,21 @@ telemetry), cache hits emit ``plan_solve`` records, every static build a
 ``plan_build`` record; under MAGI_ATTENTION_FALLBACK=1 a failed dynamic
 solve falls back to the static plan (degradation chain 2) and a failed
 build is retried once, a build that still fails never being cached
-(chain 3). Not ported yet: the disk and broadcast plan tiers and plan
-verification (ROADMAP queue A item 5b).
+(chain 3).
+
+The plan control plane, as in the JAX package: the memory tier
+(``_PlanCache``), then the disk tier (``meta/plan_store.py``,
+MAGI_ATTENTION_PLAN_STORE=1), then the broadcast tier
+(``meta/plan_broadcast.py``, MAGI_ATTENTION_PLAN_BROADCAST=1: rank 0 of
+the key's cp group solves, the others receive), then a cold solve; every
+solve is written through to the lower tiers (``plan_io``'s self-checking
+blob, bound to the plan signature's digest and the env snapshot). Every
+entry loaded from disk or the wire is verified again (R1-R5,
+``analysis/verifier.py``) before its first use, and rejected back to a
+cold solve when it fails; ``plan_source`` says where a manager's plan came
+from (``memory`` | ``disk`` | ``broadcast`` | ``cold``). Under
+MAGI_ATTENTION_VERIFY_PLANS=1 a freshly built manager is verified too, and
+an error-severity violation raises ``PlanVerificationError``.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from .functional.dispatch import dispatch_func, undispatch_func
 from .functional.dist_attn import DistAttnRuntime, dist_attn_func
 from .functional.dynamic_dist_attn import DynamicDistAttnRuntime
 from .meta import make_attn_meta_from_dispatch_meta, make_dispatch_meta_from_qk_ranges
+from .meta import plan_broadcast, plan_io, plan_store
 from .meta._make_attn_meta import make_dynamic_attn_plan
 
 
@@ -177,6 +191,249 @@ class _PlanCache:
 _PLAN_CACHE = _PlanCache()
 
 
+# ---------------------------------------------------------------------------
+# the plan control plane: memory LRU -> disk store -> broadcast -> cold
+# solve (the JAX package's dist_attn_runtime_mgr.py:204-436). Every tier
+# below memory is byte-serialized (meta/plan_io.py), so every loaded entry is
+# integrity-checked at decode and verified by R1-R5 before first use. Every
+# failure on the way down is a recorded miss, never a crash: the cold solver
+# is always reachable.
+# ---------------------------------------------------------------------------
+
+
+def _chaos_miss(site: str, err: Exception) -> None:
+    """Recover-or-typed-raise for an InjectedFault at a control-plane site:
+    with MAGI_ATTENTION_FALLBACK=1 the fault becomes a recorded miss, else
+    it propagates typed (the standard chaos contract)."""
+    if not env_resilience.is_fallback_enable():
+        raise err
+    from .resilience.fallback import record_resilience_event
+
+    record_resilience_event(
+        "fallback", getattr(err, "site", site),
+        action_detail="cold_solve", error=type(err).__name__,
+    )
+
+
+def _verify_loaded_entry(entry: dict, key: DistAttnRuntimeKey) -> bool:
+    """R1-R4 (and check_hier_plan for two-level stages) over a disk- or
+    wire-loaded entry — unconditional, unlike MAGI_ATTENTION_VERIFY_PLANS:
+    a deserialized plan is trusted only after it verifies exactly like a
+    cold-solved one. Any verifier error (or a malformed entry) rejects the
+    entry back to a miss."""
+    from .analysis.verifier import verify_dynamic_plan, verify_plan
+
+    align = key.config.grpcoll_config.split_alignment
+    try:
+        meta_q, meta_kv, bucket = entry["dispatch"]
+        dynamic = entry.get("dynamic")
+        if dynamic is not None and not verify_dynamic_plan(
+            dynamic, split_alignment=align
+        ).ok():
+            return False
+        static = entry.get("static")
+        comm_meta, calc_meta = static if static is not None else (None, None)
+        report = verify_plan(
+            dispatch_meta=meta_q,
+            bucket=bucket,
+            comm_meta=comm_meta,
+            calc_meta=calc_meta,
+            dispatch_meta_kv=(meta_kv if meta_kv is not meta_q else None),
+            split_alignment=align,
+        )
+        return report.ok()
+    except Exception:
+        return False
+
+
+def _reject_loaded_entry(site: str, reason: str) -> None:
+    from .resilience.fallback import record_resilience_event
+
+    record_resilience_event("reject", site, reason=reason)
+
+
+def _control_plane_lookup(
+    sig: tuple, key: DistAttnRuntimeKey, entry: dict | None, source: str
+) -> tuple[dict | None, str, dict, bool]:
+    """Run the disk and broadcast tiers for one plan resolution.
+
+    ``entry``/``source`` are the memory tier's result; returns the
+    (possibly upgraded) ``(entry, source, telemetry_extra, exchanged)``,
+    where ``exchanged`` records that this resolution's one collective
+    exchange already happened (so ``_persist_entry`` must not publish
+    again: the ranks pair the transport's collectives one to one, and a
+    second exchange on the leader would leave it waiting for followers that
+    never come — on NCCL, a hang). Loaded entries are verified here; a
+    received entry is written through to the disk store so that later
+    processes start warm."""
+    env_sig = key.env_snapshot
+    digest: str | None = None
+    extra: dict = {}
+
+    store = plan_store.get_store()
+    if entry is None and store is not None:
+        digest = plan_io.plan_signature_digest(sig)
+        try:
+            candidate, _miss = store.read(digest, env_sig=env_sig)
+        except Exception as e:
+            from .resilience.errors import InjectedFault
+
+            if not isinstance(e, InjectedFault):
+                raise
+            _chaos_miss("plan_cache_read", e)
+            candidate = None
+        if candidate is not None:
+            if _verify_loaded_entry(candidate, key):
+                entry, source = candidate, "disk"
+            else:
+                _reject_loaded_entry("plan_cache_read", plan_store.MISS_VERIFY)
+
+    transport = plan_broadcast.get_transport(key.cp_group)
+    if transport is None:
+        return entry, source, extra, False
+    leader = plan_broadcast.is_leader(key.cp_group)
+    if digest is None:
+        digest = plan_io.plan_signature_digest(sig)
+    if leader:
+        exchanged = False
+        if transport.collective and entry is not None:
+            # the transport is collective: the leader exchanges on EVERY
+            # resolution (hits included) so the followers' receives pair
+            # with it. This publish IS the resolution's one exchange: the
+            # flag makes a later _persist_entry (a dynamic re-solve over a
+            # static-fallback hit) skip its publish.
+            exchanged = _persist_entry(sig, key, entry, store=None)
+        elif (
+            entry is not None
+            and not transport.collective
+            and not transport.published_ok(digest, env_sig)
+        ):
+            # warm leader, file transport: the published blob is missing or
+            # corrupt (a crash raced the publish): heal it so followers stop
+            # burning the whole retry path on this digest
+            _persist_entry(sig, key, entry, store=None)
+        return entry, source, extra, exchanged
+    if entry is not None and not transport.collective:
+        return entry, source, extra, False
+    try:
+        result = plan_broadcast.exchange_plan(transport, digest, None)
+    except Exception as e:
+        from .resilience.errors import InjectedFault
+
+        if not isinstance(e, InjectedFault):
+            raise
+        _chaos_miss("plan_broadcast", e)
+        return entry, source, extra, False
+    if result.attempts > 1:
+        extra["attempts"] = result.attempts
+        extra["backoff_ms"] = result.backoff_ms
+    if entry is not None or result.blob is None:
+        if result.blob is None:
+            from .resilience.fallback import record_resilience_event
+
+            record_resilience_event(
+                "exhausted", "plan_broadcast",
+                action_detail="cold_solve", attempts=result.attempts,
+            )
+        return entry, source, extra, False
+    try:
+        candidate = plan_io.decode_plan(
+            result.blob, env_sig=env_sig, expect_digest=digest
+        )
+    except plan_io.PlanDecodeError as e:
+        _reject_loaded_entry("plan_broadcast", type(e).__name__)
+        return entry, source, extra, False
+    if not _verify_loaded_entry(candidate, key):
+        _reject_loaded_entry("plan_broadcast", plan_store.MISS_VERIFY)
+        return entry, source, extra, False
+    if store is not None:  # write-through: later processes start warm
+        store.write(digest, result.blob)
+    return candidate, "broadcast", extra, False
+
+
+def _persist_failure(site: str, err: Exception, collective_transport, digest: str) -> None:
+    """Failure tail of ``_persist_entry``: an InjectedFault follows the
+    chaos contract (recover under fallback, typed raise without), any
+    other error is a recorded degradation (persisting is write-through and
+    must never cost the step). Either way, when a collective transport is
+    mid-resolution (followers already waiting in their receive), the
+    exchange is completed with a zero-length blob so that they go on to a
+    local solve instead of hanging."""
+    from .resilience.errors import InjectedFault
+
+    try:
+        if isinstance(err, InjectedFault):
+            _chaos_miss(site, err)
+        else:
+            from .resilience.fallback import record_resilience_event
+
+            record_resilience_event(
+                "fallback", site, action_detail="skip_persist",
+                error=type(err).__name__,
+            )
+    finally:
+        if collective_transport is not None:
+            try:
+                collective_transport.exchange(digest, b"")
+            except Exception:
+                pass
+
+
+def _persist_entry(
+    sig: tuple,
+    key: DistAttnRuntimeKey,
+    entry: dict,
+    store: plan_store.PlanStore | None = ...,
+    exchanged: bool = False,
+) -> bool:
+    """Write-through after a solve: serialize once, land in the disk
+    store, and (as broadcast leader) publish to the other ranks — unless
+    ``exchanged`` says this resolution's one collective exchange already
+    happened. Never costs the step: every failure is a recorded
+    degradation except the chaos contract's typed raise, and on a
+    collective transport the failure paths complete the exchange too
+    (``exchange_plan`` itself where the ``plan_broadcast`` site fires, a
+    zero-length blob where encoding failed) so followers never hang.
+    Returns True when this call performed (or completed) the resolution's
+    collective exchange."""
+    if store is ...:
+        store = plan_store.get_store()
+    transport = plan_broadcast.get_transport(key.cp_group)
+    collective = transport is not None and transport.collective
+    publish = (
+        transport is not None
+        and plan_broadcast.is_leader(key.cp_group)
+        and not exchanged
+    )
+    if store is None and not publish:
+        return False
+    digest = plan_io.plan_signature_digest(sig)
+    wire_entry = {
+        k: v for k, v in entry.items() if k in ("dispatch", "static", "dynamic")
+    }
+    try:
+        blob = plan_io.encode_plan(
+            wire_entry, env_sig=key.env_snapshot, sig_digest=digest
+        )
+    except Exception as e:
+        _persist_failure(
+            "plan_serialize", e,
+            transport if (publish and collective) else None, digest,
+        )
+        return publish and collective
+    if store is not None:
+        store.write(digest, blob)
+    if not publish:
+        return False
+    try:
+        plan_broadcast.exchange_plan(transport, digest, blob)
+    except Exception as e:
+        # exchange_plan completed this side of the exchange where its own
+        # site fired; any other failure leaves the collective to its error
+        _persist_failure("plan_broadcast", e, None, digest)
+    return True
+
+
 def _check_supported(key: DistAttnRuntimeKey) -> None:
     """The JAX manager's refusals under qo-comm
     (``magiattention_tpu/dist_attn_runtime_mgr.py:512-521``), and a
@@ -209,7 +466,22 @@ class DistAttnRuntimeMgr:
         cache_on = env_general.is_plan_cache_enable()
         sig = _plan_signature(key) if cache_on else None
         entry = _PLAN_CACHE.lookup(sig) if cache_on else None
+        # where this manager's solved plan came from:
+        # memory | disk | broadcast | cold
         self.plan_source = "memory" if entry is not None else "cold"
+        self._plan_meta: dict = {}
+        # True once this resolution's one collective broadcast exchange
+        # happened (the leader's publish on a hit): a later persist must not
+        # exchange again
+        exchanged = False
+        if cache_on:
+            fetched, src, extra, exchanged = _control_plane_lookup(
+                sig, key, entry, self.plan_source
+            )
+            if entry is None and fetched is not None:
+                entry, self.plan_source, self._plan_meta = fetched, src, extra
+                # into the memory tier: the next resolution is an LRU hit
+                _PLAN_CACHE.store(sig, entry)
         if entry is None:
             meta_q, meta_kv, bucket = make_dispatch_meta_from_qk_ranges(
                 AttnRanges.from_ranges(key.q_ranges),
@@ -265,6 +537,7 @@ class DistAttnRuntimeMgr:
                     if cache_on:
                         _PLAN_CACHE.store(sig, entry)
                         _PLAN_CACHE.set_dyn_state(_mask_family(sig), plan.solver_state)
+                        _persist_entry(sig, key, entry, exchanged=exchanged)
             if "dynamic" in entry:
                 self.dynamic_plan = entry["dynamic"]
                 self.comm_meta = self.calc_meta = None
@@ -286,6 +559,7 @@ class DistAttnRuntimeMgr:
                             )
                         ],
                     )
+                self._maybe_verify()
                 return
         if "static" in entry:
             self._record_cache_hit("static")
@@ -300,6 +574,7 @@ class DistAttnRuntimeMgr:
             }
             if cache_on:
                 _PLAN_CACHE.store(sig, entry)
+                _persist_entry(sig, key, entry, exchanged=exchanged)
         self.comm_meta, self.calc_meta = entry["static"]
         overlap_cfg = key.config.overlap_config
         mesh_shape = _mesh_shape_for(key)
@@ -321,13 +596,24 @@ class DistAttnRuntimeMgr:
             mesh_sig=mesh_sig,
         )
         self._record_comm_plan()
+        self._maybe_verify()
+
+    def _maybe_verify(self) -> None:
+        """Opt-in verification of the freshly built plan
+        (MAGI_ATTENTION_VERIFY_PLANS=1, ``analysis/verifier.py``): raises
+        ``PlanVerificationError`` on an error-severity violation, so that a
+        malformed plan fails at build time instead of as a wrong loss, and
+        records a ``plan_verify`` telemetry record with telemetry on."""
+        from .analysis import maybe_verify_runtime
+
+        maybe_verify_runtime(self)
 
     def _record_cache_hit(self, planner: str) -> None:
         if telemetry.enabled():
             telemetry.record_event(
                 "plan_solve", planner=planner, event="cache_hit",
                 source=self.plan_source, incremental=False,
-                wall_ms=0.0, rows_resolved=0,
+                wall_ms=0.0, rows_resolved=0, **self._plan_meta,
             )
 
     def _record_comm_plan(self) -> None:

@@ -89,6 +89,28 @@ def plan_cache_size() -> int:
     return _get_int("MAGI_ATTENTION_PLAN_CACHE_SIZE", 100)
 
 
+def is_verify_plans_enable() -> bool:
+    """Run the static plan verifier (``analysis/verifier.py``, R1-R5) at
+    plan-build time and raise ``PlanVerificationError`` on error-severity
+    violations. Plan time only, never on the step; it does not change
+    which plan is built, so it is not a runtime-key flag."""
+    return _get_bool("MAGI_ATTENTION_VERIFY_PLANS")
+
+
+def is_plan_store_enable() -> bool:
+    """The on-disk tier of the solved-plan cache (``meta/plan_store.py``):
+    plans persist across processes and restarts in a shared directory,
+    keyed by the plan signature's digest. Reuse is byte-exact (every load
+    is checksum-checked and verified again, R1-R5), so like
+    MAGI_ATTENTION_PLAN_CACHE this is not a runtime-key flag."""
+    return _get_bool("MAGI_ATTENTION_PLAN_STORE")
+
+
+def plan_store_dir() -> str:
+    """Directory of the on-disk plan store (shared across processes)."""
+    return _get_str("MAGI_ATTENTION_PLAN_STORE_DIR", "plan_store")
+
+
 def min_chunks_per_rank() -> int:
     """Lower bound on dispatch chunks per rank when the chunk size is
     derived (api/magi_attn_interface.py ``_auto_chunk_size``)."""
@@ -130,8 +152,22 @@ ENV_KEYS_AFFECTING_RUNTIME: tuple[str, ...] = (
     "MAGI_ATTENTION_FFA_BLOCK_Q_DKV",
     "MAGI_ATTENTION_FFA_BLOCK_K_DKV",
     "MAGI_ATTENTION_FFA_AUTO_TILE",
+    # the pack flags pick the packed forward and dq kernels (B2, B4;
+    # registry.gqa_pack_variant); the dk/dv one selects the same kernel
+    # either way in the port, but JAX's key carries it and a stored plan
+    # binds to this snapshot, so the three flip keys and plans alike
+    "MAGI_ATTENTION_FFA_GQA_PACK",
+    "MAGI_ATTENTION_FFA_GQA_PACK_DQ",
+    "MAGI_ATTENTION_FFA_GQA_PACK_DKV",
+    # mixed dispatch (the legacy flag and the registry pin) changes which
+    # plans and kernels a mask runs through ffa_attn (kernels/tile_policy.py)
+    "MAGI_ATTENTION_FFA_MIXED_BLOCKS",
     "MAGI_ATTENTION_FFA_FUSED_BWD",
     "MAGI_ATTENTION_BACKEND_FFA_BWD",
+    "MAGI_ATTENTION_BACKEND_MIXED_BLOCKS",
+    # NSA's selected branch: the block-sparse kernels or the gathered dense
+    # reference (parallel/nsa.py through registry.nsa_slc_backend)
+    "MAGI_ATTENTION_BACKEND_NSA_SLC",
     # the store and calibration let measured history steer kernel choice
     # and the tile policy's constants
     "MAGI_ATTENTION_BACKEND_STORE",

@@ -180,13 +180,14 @@ class _StagedAttn(torch.autograd.Function):
     assumed)."""
 
     @staticmethod
-    def forward(ctx, q, kv, d, cast_plans, group, hp, plans, params, return_max_logits):
+    def forward(ctx, q, kv, d, cast_plans, group, hp, plans, params, return_max_logits, issued):
         parts, waits = [kv.float() if hp else kv], [None]
         for i, plan in enumerate(cast_plans):
             with profile_scope(f"group_cast_stage{i}"):
                 buf, wait = plan.cast_start(kv, group, parts[0].dtype)
             parts.append(buf)
             waits.append(wait)
+        issued()
         out, lse, ml = _parts_fwd(
             q, [p[..., :d] for p in parts], [p[..., d:] for p in parts], plans, params, waits,
             return_max_logits,
@@ -229,7 +230,7 @@ class _StagedAttn(torch.autograd.Function):
         dkv = total.to(ctx.kv_dtype)
         if not ctx.hp:
             dkv = local + dkv
-        return dq.to(q.dtype), dkv, None, None, None, None, None, None, None
+        return dq.to(q.dtype), dkv, None, None, None, None, None, None, None, None
 
 
 def multi_ffa(q, ks, vs, plans, params, waits=None, return_max_logits=False):
@@ -308,6 +309,32 @@ class DeferredTilePolicy:
         self._policy_bwd = (pol_dq, pol_dkv)
         self._build_plans(blk_q, blk_k)
         self._plan_sig = sig
+
+    # -- the step watchdog's agreement at cp > 1 (resilience/watchdog.py) --
+
+    # True once this step's last forward collective is issued on this rank:
+    # a failure after it leaves no peer waiting inside a collective
+    _fwd_comm_done = True
+    _ml_reduce_pending = False
+
+    def _fwd_comm_begin(self, return_max_logits: bool) -> None:
+        """A step's forward starts: at cp > 1 its collectives are still to
+        be issued; the last is the casts, or the max-logits all-reduce."""
+        self._ml_reduce_pending = return_max_logits and self.cp_size > 1
+        self._fwd_comm_done = self.cp_size == 1
+
+    def _fwd_casts_issued(self) -> None:
+        """Every forward cast of the step is issued on this rank."""
+        self._fwd_comm_done = not self._ml_reduce_pending
+
+    def agree_step_failure(self, failed: bool, device: torch.device) -> bool:
+        """Whether the step failed on any rank of the cp group: one
+        ``all_reduce(MAX)`` of a one-element flag (on the step's card under
+        NCCL, on the CPU otherwise)."""
+        nccl = dist.get_backend(self.cp_group) == "nccl"
+        flag = torch.tensor([int(failed)], dtype=torch.int32, device=device if nccl else "cpu")
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.cp_group)
+        return bool(flag.item())
 
     def _bwd_params(self, params: FFAParams, d: int, dv: int, itemsize: int) -> FFAParams:
         """``params`` with the backward's per-pass tiles (env, else the
@@ -694,6 +721,7 @@ class DistAttnRuntime(DeferredTilePolicy):
 
     def _calc_attn_impl(self, q, k, v, return_max_logits: bool = False):
         """One step, unguarded (the resilience layer's retry unit)."""
+        self._fwd_comm_begin(return_max_logits)
         self._check_heads(q.shape[1], k.shape[1], q.device)
         hp = env_comm.is_bwd_high_precision_reduce_enable()
         backend = self.backend
@@ -704,6 +732,7 @@ class DistAttnRuntime(DeferredTilePolicy):
             res = _StagedAttn.apply(
                 q, torch.cat([k, v.to(k.dtype)], dim=-1), d, tuple(self.cast_plans),
                 self.cast_group, hp, tuple(self.plans), tuple(params), return_max_logits,
+                self._fwd_casts_issued,
             )
             return self._reduce_max_logits(res, return_max_logits)
         k_parts, v_parts, waits = [k], [v], []
@@ -714,6 +743,7 @@ class DistAttnRuntime(DeferredTilePolicy):
             )
             k_parts = [p[..., :d] for p in kv_parts]
             v_parts = [p[..., d:] for p in kv_parts]
+        self._fwd_casts_issued()
         if not overlap and len(k_parts) > 1:
             for wait in waits:
                 wait()
@@ -742,6 +772,7 @@ class DistAttnRuntime(DeferredTilePolicy):
         """``res`` with its max-logits all-reduced (MAX) over the cp group."""
         if return_max_logits and self.cp_size > 1:
             dist.all_reduce(res[2], op=dist.ReduceOp.MAX, group=self.cp_group)
+            self._fwd_comm_done = True
         return res
 
 

@@ -292,7 +292,9 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
         rank's q, out in float32 under the forward high-precision flag."""
         if env_comm.is_fwd_high_precision_reduce_enable():
             out_buf = out_buf.float()
-        return self._cast(out_buf, self.ret_cast), self._cast(lse_buf, self.ret_cast)
+        ret = self._cast(out_buf, self.ret_cast), self._cast(lse_buf, self.ret_cast)
+        self._fwd_casts_issued()  # the forward's last cast
+        return ret
 
     def merge_step(self, out_buf, lse_buf, ret_out, ret_lse):
         """(out, lse) of this rank's rows (:func:`merge_rows`)."""
@@ -360,6 +362,7 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
 
     def _calc_attn_impl(self, q, k, v, return_max_logits: bool = False):
         """One step, unguarded (the resilience layer's retry unit)."""
+        self._fwd_comm_begin(return_max_logits)
         if self.backend != "ffa":
             res = self._calc_attn_sdpa(q, k, v, return_max_logits)
         else:
@@ -367,6 +370,7 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
             res = _DynAttn.apply(q, k, v, self, params, return_max_logits)
         if return_max_logits and self.cp_size > 1:
             dist.all_reduce(res[2], op=dist.ReduceOp.MAX, group=self.cp_group)
+            self._fwd_comm_done = True
         return res
 
     def _calc_attn_sdpa(self, q, k, v, return_max_logits):

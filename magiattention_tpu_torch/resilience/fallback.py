@@ -36,9 +36,11 @@ retry re-issues the step's collectives, which is safe only when every rank
 takes the same hop at the same call: an injected fault does (one spec, one
 seeded stream on every rank), a launch-configuration error does (it
 follows from the shapes), and a retry rebuilds only rank-local plans. A
-failure on one rank alone, such as an out-of-memory on one card, cannot
-be agreed on in the middle of a step, so at cp > 1 it is not recoverable
-and raises on that rank.
+failure on one rank alone, such as an out-of-memory on one card, is not
+recoverable by this ladder at cp > 1 and raises on that rank; the step
+watchdog (MAGI_ATTENTION_STEP_RETRIES, resilience/watchdog.py) agrees on
+it over the cp group instead, where the failure came after the step's
+last forward collective.
 
 On the card the layer only ever moves from one hand-written kernel to
 another: the tile ladder, the fused backward to the split one, and the
@@ -95,15 +97,19 @@ def reference_backend() -> str:
     return rungs[-1] if rungs else REFERENCE_BACKEND
 
 
-def kernel_failure_types(cp_size: int = 1) -> tuple[type[BaseException], ...]:
-    """Exception types the kernel ladder treats as recoverable: injected
-    faults and CUDA errors a launch returned, plus, at cp 1 only, CUDA
-    out-of-memory (a one-rank failure that a cp > 1 group cannot agree on
-    mid-step). A kernel build failure is never among them."""
+def kernel_failure_types(
+    cp_size: int = 1, agreed: bool = False
+) -> tuple[type[BaseException], ...]:
+    """Exception types treated as recoverable: injected faults and CUDA
+    errors a launch returned, plus CUDA out-of-memory at cp 1, or at
+    cp > 1 where the outcome is ``agreed`` over the cp group (the step
+    watchdog's all-reduced failure flag): unagreed, an out-of-memory on one
+    rank alone would send that rank to a rung its peers never take. A
+    kernel build failure is never among them."""
     from ..kernels._build import KernelLaunchError
 
     types: tuple[type[BaseException], ...] = (InjectedFault, KernelLaunchError)
-    return types + (_OOM,) if cp_size == 1 else types
+    return types + (_OOM,) if cp_size == 1 or agreed else types
 
 
 def record_resilience_event(action: str, site: str, **extra) -> None:

@@ -44,8 +44,7 @@ from ..env import resilience as env_resilience
 from .errors import FaultSpecError, InjectedFault
 
 # every named failure point of the JAX package (the same tuple, so one
-# spec parses alike in both); the plan-tier sites (plan_serialize,
-# plan_cache_read, plan_broadcast) are not armed in the port yet
+# spec parses alike in both), each armed where the JAX package arms it
 INJECTION_SITES: tuple[str, ...] = (
     "kernel_lowering",    # FFA kernel dispatch (kernels/ffa.py)
     "vmem_check",         # tile-policy shared-memory scoring (kernels/tile_policy.py)
@@ -55,7 +54,7 @@ INJECTION_SITES: tuple[str, ...] = (
     "serve_decode",       # paged-decode serving rung (serving/decode.py)
     "plan_serialize",     # plan wire encoding (meta/plan_io.py)
     "plan_cache_read",    # on-disk plan store read (meta/plan_store.py)
-    "plan_broadcast",     # cross-host plan broadcast (meta/plan_broadcast.py)
+    "plan_broadcast",     # plan broadcast over the cp group (meta/plan_broadcast.py)
     "rank_health_read",   # capacity-vector read at key planning (telemetry/health.py)
     "weighted_solve",     # capacity-weighted dispatch solve (meta/_make_dispatch_meta.py)
     "step_retry",         # step-watchdog backend retry (resilience/watchdog.py)

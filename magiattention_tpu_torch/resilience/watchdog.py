@@ -24,10 +24,31 @@ The port's departures. On the card the ladder's plain PyTorch rungs
 (``sdpa``, ``sdpa_online``; ``fallback.PLAIN_RUNGS``) are left out, so
 the kernel rung (``ffa``) is the last and is never quarantined, and each
 retry runs it again: a transient fault burns one retry, a lasting one
-re-raises. At cp > 1 only an injected fault is retried: its seeded stream
-fires on every rank at the same call, so every rank retries together,
-while a NaN, a launch error or an out-of-memory may strike one rank alone,
-whose retry would re-issue its collectives out of step with its peers.
+re-raises.
+
+At cp > 1 every rank runs its own process, so a failure may strike one
+rank alone, and a retry on that rank alone would re-issue its collectives
+out of step with its peers. The JAX package lowers one SPMD program, whose
+failures are symmetric. The port agrees instead: after each attempt every
+rank makes one ``all_reduce(MAX)`` of a one-element failure flag over the
+cp group (the runtime's ``agree_step_failure``), and when any rank failed,
+every rank, the ones that succeeded included, counts the trip and moves
+to the same next rung. Agreed are the failures raised after the
+attempt's last forward collective was issued on the failing rank (the
+runtime's ``_fwd_comm_done``; its peers then reach the flag's all-reduce
+too): a ``NumericGuardError`` (the guard runs after the step), and a
+``KernelLaunchError`` or CUDA out-of-memory surfaced at or after that
+point. An injected fault fires on every rank at the same arming call, so
+it is agreed wherever it fires.
+
+Still not recovered at cp > 1: a launch error or out-of-memory raised on
+one rank before its last forward collective, while a peer waits inside
+that collective (in the static runtime before the casts are issued, or
+before the max-logits all-reduce; in the qo-comm runtime anywhere before
+its return cast, which follows its forward kernel). It raises, typed, on
+that rank. A failure in the backward is outside the watchdog at any cp.
+With the watchdog off no flag is reduced: the step has no added
+collective.
 """
 
 from __future__ import annotations
@@ -107,6 +128,13 @@ def note_trip(key: Any, backend: str, allow_quarantine: bool) -> bool:
     return True
 
 
+def _agreeable(runtime, err: BaseException) -> bool:
+    """Whether a failure on this rank can be agreed on at cp > 1: an
+    injected fault (it fires on every rank alike), or any failure raised
+    once the attempt's last forward collective was issued here."""
+    return isinstance(err, InjectedFault) or getattr(runtime, "_fwd_comm_done", True)
+
+
 def run_with_watchdog(runtime, q, k, v, return_max_logits: bool = False):
     """Bounded-retry execution of one calc_attn step (both CP runtimes).
 
@@ -115,7 +143,10 @@ def run_with_watchdog(runtime, q, k, v, return_max_logits: bool = False):
     quarantined rungs (the final rung always stays eligible); on the card
     past the plain rungs, re-running the last kernel rung instead. Success
     on a retry pins the surviving backend (sticky, like the FALLBACK
-    ladder).
+    ladder). At cp > 1 each attempt's outcome is agreed over the cp group
+    first (see the module's docstring): a rank moves on when any rank
+    failed, and a rank whose every attempt succeeded while a peer's failed
+    raises ``FallbackExhaustedError`` with it.
     """
     from .fallback import (
         _corrupt_output,
@@ -127,10 +158,8 @@ def run_with_watchdog(runtime, q, k, v, return_max_logits: bool = False):
     from ..kernels import registry as kernel_registry
 
     stage = f"{type(runtime).__name__}.calc_attn"
-    if getattr(runtime, "cp_size", 1) > 1:
-        failures: tuple[type[BaseException], ...] = (InjectedFault,)
-    else:
-        failures = kernel_failure_types(1) + (NumericGuardError,)
+    cp = getattr(runtime, "cp_size", 1)
+    failures = kernel_failure_types(cp, agreed=True) + (NumericGuardError,)
     retries = env_resilience.step_retries()
     key = _decision_key(runtime)
     start = runtime.backend
@@ -168,29 +197,41 @@ def run_with_watchdog(runtime, q, k, v, return_max_logits: bool = False):
             # also covers attempt 0 when the start rung is quarantined
             runtime._backend_override = backend
             runtime._auto_tile_pending = False
+        err: BaseException | None = None
         try:
             result = runtime._calc_attn_impl(q, k, v, return_max_logits)
             if should_fire("nan_output"):
                 result = (_corrupt_output(result[0]), *result[1:])
             check_outputs(stage, result[0], result[1])
         except failures as e:
-            last_err = e
+            if cp > 1 and not _agreeable(runtime, e):
+                # a peer may be waiting inside a collective this rank never
+                # issued: no agreement can reach it
+                runtime._backend_override = prev_override
+                raise
+            err = e
+        failed = err is not None
+        if cp > 1:
+            failed = runtime.agree_step_failure(failed, q.device)
+        if failed:
+            last_err = err
             nxt = attempts[idx + 1] if idx + 1 < len(attempts) else None
             quarantined_now = note_trip(
                 key, backend, allow_quarantine=backend != rungs[-1]
             )
+            error = type(err).__name__ if err is not None else "peer_failure"
             telemetry.record_event(
                 "step_retry",
                 stage=stage,
                 attempt=idx,
                 from_backend=backend,
                 to_backend=nxt,
-                error=type(e).__name__,
+                error=error,
                 quarantined=quarantined_now,
             )
             record_resilience_event(
                 "retry", "step_retry",
-                attempt=idx, backend=backend, error=type(e).__name__,
+                attempt=idx, backend=backend, error=error,
             )
             continue
         if idx > 0:
@@ -203,6 +244,10 @@ def run_with_watchdog(runtime, q, k, v, return_max_logits: bool = False):
     runtime._backend_override = prev_override
     if last_err is not None:
         raise last_err
+    if attempts:
+        raise FallbackExhaustedError(
+            f"step watchdog: {stage} failed on a peer rank on every attempted rung"
+        )
     raise FallbackExhaustedError(
         f"step watchdog found no eligible backend rung for {stage}"
     )

@@ -17,7 +17,8 @@
   MAGI_ATTENTION_FALLBACK=1; a ``KernelLaunchError`` is recovered; the
   typed errors themselves.
 - (slow) a gloo cp 2 world in which both ranks take the same hop, and in
-  which a NaN on one rank alone under the step watchdog raises there.
+  which a NaN on one rank alone under the step watchdog makes both ranks
+  hop once (the agreed retry), each bitwise its run pinned at that rung.
 - On the card (``fallback.on_card`` faked on the CPU) a failing kernel
   never hands its step to a plain rung.
 """
@@ -543,13 +544,19 @@ def test_card_serve_ladder_stops_before_dense(monkeypatch, card):
 
 class _WatchedRuntime:
     """A runtime whose first step fails with ``fail`` (an error, or "nan":
-    a NaN output), logging the backend of every attempt."""
+    a NaN output), logging the backend of every attempt. At cp > 1 its
+    agreement hook logs the flag this rank sends and answers with the
+    group's MAX, the peer's outcomes taken from ``peer`` (one a call,
+    False when it runs out); ``comm_done`` False: the failure comes before
+    the step's last forward collective."""
 
-    def __init__(self, cp_size: int, fail) -> None:
+    def __init__(self, cp_size: int, fail, peer=(), comm_done: bool = True) -> None:
         self.cp_size, self._fail = cp_size, [fail]
         self._backend, self._backend_override = "ffa", None
         self._auto_tile_pending = False
+        self._peer, self._comm_done = list(peer), comm_done
         self.backends: list[str] = []
+        self.sent: list[bool] = []
 
     @property
     def backend(self) -> str:
@@ -557,32 +564,74 @@ class _WatchedRuntime:
 
     def _calc_attn_impl(self, q, k, v, return_max_logits):
         self.backends.append(self.backend)
+        self._fwd_comm_done = True
         fail = self._fail.pop() if self._fail else None
         if fail == "nan":
             return torch.full((2,), float("nan")), torch.zeros(2)
         if fail is not None:
+            self._fwd_comm_done = self._comm_done
             raise fail
         return torch.zeros(2), torch.zeros(2)
+
+    def agree_step_failure(self, failed: bool, device) -> bool:
+        self.sent.append(failed)
+        return failed or (self._peer.pop(0) if self._peer else False)
 
 
 @pytest.mark.parametrize("fail", ["nan", "launch", "injected"])
 @pytest.mark.parametrize("cp_size", [1, 2])
 def test_watchdog_at_cp2_retries_only_injected_faults(monkeypatch, cp_size, fail):
-    """At cp > 1 a NaN or a launch error may strike one rank alone, whose
-    retry would re-issue its collectives out of step: it raises. An
-    injected fault fires on every rank at the same call and is retried."""
+    """A NaN, a launch error and an injected fault raised after the step's
+    last forward collective are retried at cp 1 and at cp 2 alike; at cp 2
+    the outcome is agreed first (one flag a step through the runtime's
+    hook: this rank's failure, then its success on the next rung)."""
     monkeypatch.setenv("MAGI_ATTENTION_STEP_RETRIES", "1")
     monkeypatch.setenv("MAGI_ATTENTION_NUMERIC_GUARD", "raise")
     err = {"nan": "nan", "launch": _build.KernelLaunchError("x", 9),
            "injected": perr.InjectedFault("kernel_lowering", 1)}[fail]
     rt = _WatchedRuntime(cp_size, err)
-    if cp_size == 1 or fail == "injected":
+    run_calc_attn(rt, _Q, None, None)
+    assert rt.backends == ["ffa", "sdpa"]
+    assert rt.sent == ([] if cp_size == 1 else [True, False])
+
+
+@pytest.mark.parametrize("peer", [[True], [True, True]])
+def test_watchdog_at_cp2_follows_a_peer(monkeypatch, peer):
+    """A rank whose step succeeded moves to the next rung with its peer
+    when the peer failed, and counts the trip as the peer does; when the
+    peer fails every rung, the rank raises with it."""
+    monkeypatch.setenv("MAGI_ATTENTION_STEP_RETRIES", "1")
+    rt = _WatchedRuntime(2, None, peer=peer)
+    if len(peer) == 1:
         run_calc_attn(rt, _Q, None, None)
-        assert rt.backends == ["ffa", "sdpa"]
+        assert rt._backend_override == "sdpa"
     else:
-        with pytest.raises((perr.NumericGuardError, _build.KernelLaunchError)):
+        with pytest.raises(perr.FallbackExhaustedError, match="peer"):
             run_calc_attn(rt, _Q, None, None)
-        assert rt.backends == ["ffa"] and rt._backend_override is None
+        assert rt._backend_override is None
+    assert rt.backends == ["ffa", "sdpa"] and rt.sent == [False, False]
+    assert watchdog._trips[(watchdog._canonical(watchdog._decision_key(rt)), "ffa")] == 1
+
+
+@pytest.mark.parametrize("err", [_build.KernelLaunchError("x", 9), torch.cuda.OutOfMemoryError("oom")])
+def test_watchdog_at_cp2_raises_before_the_last_collective(monkeypatch, err):
+    """A launch error or an out-of-memory raised before the step's last
+    forward collective may leave a peer waiting inside it: no agreement
+    can reach that peer, so it raises, typed, with no flag sent."""
+    monkeypatch.setenv("MAGI_ATTENTION_STEP_RETRIES", "1")
+    rt = _WatchedRuntime(2, err, comm_done=False)
+    with pytest.raises(type(err)):
+        run_calc_attn(rt, _Q, None, None)
+    assert rt.backends == ["ffa"] and rt.sent == [] and rt._backend_override is None
+
+
+def test_watchdog_off_adds_no_collective(monkeypatch):
+    """With MAGI_ATTENTION_STEP_RETRIES unset no failure flag is reduced:
+    the guarded step at cp 2 never calls the agreement hook."""
+    monkeypatch.setenv("MAGI_ATTENTION_NUMERIC_GUARD", "raise")
+    rt = _WatchedRuntime(2, None)
+    run_calc_attn(rt, _Q, None, None)
+    assert rt.backends == ["ffa"] and rt.sent == []
 
 
 def test_step_retries_keys_the_runtime(monkeypatch):
@@ -613,9 +662,13 @@ def test_cp2_symmetric_hop():
         assert np.array_equal(o["faulted"], o["pinned"])
         assert int(o["hops"]) == 1
     assert np.array_equal(outs[0]["faulted"], outs[1]["faulted"])
-    # a NaN on rank 0 alone under the watchdog: rank 0 raises, no retry
-    # (its collectives stay in step), rank 1 finishes its step
-    assert [str(o["nan_step"]) for o in outs] == ["NumericGuardError", "ok"]
+    # a NaN on rank 0 alone under the watchdog: the ranks agree on the
+    # failure, both hop once to the next rung (sdpa), and each rank's
+    # output equals its run pinned there to the bit
+    assert [str(o["nan_step"]) for o in outs] == ["ok", "ok"]
+    for o in outs:
+        assert int(o["nan_hops"]) == 1
+        assert np.array_equal(o["nan_out"], o["nan_pinned"])
 
 
 def test_chip_smoke_refuses_a_resilience_flag():

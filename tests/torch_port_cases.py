@@ -1616,8 +1616,8 @@ def resilience_worker(rank: int, world: int, init_file: str, out_dir: str) -> No
     (every rank arms the same spec, so every rank takes the same hop);
     forward and backward of each, with the ladder's recovered hops, to
     ``out_dir/rank<r>.npz``; then a forward under the step watchdog with a
-    NaN on rank 0 alone, and the name of what each rank raised ("ok" for
-    none)."""
+    NaN on rank 0 alone (what each rank raised, "ok" for none, its hops
+    and its output) beside the forward pinned at the next rung, sdpa."""
     import os
 
     import torch
@@ -1655,25 +1655,182 @@ def resilience_worker(rank: int, world: int, init_file: str, out_dir: str) -> No
         with scoped_env({"MAGI_ATTENTION_TELEMETRY": "1",
                          "MAGI_ATTENTION_TELEMETRY_DIR": os.path.join(out_dir, f"tel{rank}")}):
             hops = telemetry.summary()["counters"].get("resilience.recovered", 0)
-        # a NaN on rank 0 alone under the step watchdog (forward only: the
-        # raising rank runs no backward)
-        nan_env = {"MAGI_ATTENTION_STEP_RETRIES": "1", "MAGI_ATTENTION_NUMERIC_GUARD": "raise"}
-        if rank == 0:
-            nan_env["MAGI_ATTENTION_FAULT_INJECT"] = "nan_output:count=1"
-        try:
-            with torch.no_grad(), scoped_env(nan_env):
+        # a NaN on rank 0 alone under the step watchdog (forward only): the
+        # ranks agree on it and both hop to the next rung, held against
+        # each rank's run pinned there
+        def fwd(env: dict) -> np.ndarray:
+            with torch.no_grad(), scoped_env(env):
                 key = api.magi_attn_flex_key(
                     [(0, CP_SEQ)], [(0, CP_SEQ)], [1], CP_SEQ, CP_SEQ, cp_group=dist.group.WORLD,
                     device="cpu", chunk_size=CP_CHUNK,
                 )
                 q, k, v, _ = (torch.from_numpy(a) for a in cp_inputs(5))
-                api.calc_attn(api.dispatch(q, key), api.dispatch(k, key, role="kv"),
-                              api.dispatch(v, key, role="kv"), key)
+                out, _ = api.calc_attn(api.dispatch(q, key), api.dispatch(k, key, role="kv"),
+                                       api.dispatch(v, key, role="kv"), key)
+            return out.numpy()
+
+        nan_pinned = fwd({"MAGI_ATTENTION_KERNEL_BACKEND": "sdpa"})
+        nan_env = {"MAGI_ATTENTION_STEP_RETRIES": "1", "MAGI_ATTENTION_NUMERIC_GUARD": "raise"}
+        if rank == 0:
+            nan_env["MAGI_ATTENTION_FAULT_INJECT"] = "nan_output:count=1"
+        before = telemetry.counters("resilience.").get("resilience.recovered", 0)
+        nan_out = np.zeros(0, np.float32)
+        try:
+            nan_out = fwd(nan_env)
             nan_step = "ok"
         except Exception as e:  # noqa: BLE001  (the rank's outcome is the result)
             nan_step = type(e).__name__
+        nan_hops = telemetry.counters("resilience.").get("resilience.recovered", 0) - before
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), pinned=pinned, faulted=faulted, hops=hops,
-                 nan_step=nan_step)
+                 nan_step=nan_step, nan_out=nan_out, nan_pinned=nan_pinned, nan_hops=nan_hops)
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the plan tiers (tests/test_torch_plan_store.py): a cp 2 gloo world over the
+# broadcast tier, and the file transport across two processes
+# ---------------------------------------------------------------------------
+
+PLAN_DOCS = [(0, CP_SEQ // 2), (CP_SEQ // 2, CP_SEQ)]
+PLAN_TIER_ENV = (
+    "MAGI_ATTENTION_PLAN_STORE", "MAGI_ATTENTION_PLAN_STORE_DIR", "MAGI_ATTENTION_PLAN_BROADCAST",
+    "MAGI_ATTENTION_PLAN_BROADCAST_TRANSPORT", "MAGI_ATTENTION_PLAN_BROADCAST_DIR",
+    "MAGI_ATTENTION_PLAN_BROADCAST_ROLE", "MAGI_ATTENTION_FAULT_INJECT", "MAGI_ATTENTION_FALLBACK",
+)
+
+
+def plan_key(cp_group=None):
+    """The plan tiers' key: two causal documents of ``CP_SEQ`` tokens."""
+    from magiattention_tpu_torch import api
+
+    return api.magi_attn_flex_key(
+        PLAN_DOCS, PLAN_DOCS, [1, 1], CP_SEQ, CP_SEQ, cp_group=cp_group, device="cpu",
+        chunk_size=CP_CHUNK,
+    )
+
+
+def plan_step(key, seed: int = 7) -> np.ndarray:
+    """out and dq, dk, dv of one fwd+bwd through ``key``'s API path, flat."""
+    from magiattention_tpu_torch import api
+
+    q, k, v, do = (torch.from_numpy(a) for a in cp_inputs(seed))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out_d, _ = api.calc_attn(
+        api.dispatch(leaves[0], key), api.dispatch(leaves[1], key, role="kv"),
+        api.dispatch(leaves[2], key, role="kv"), key,
+    )
+    out = api.undispatch(out_d, key)
+    (out * do).sum().backward()
+    return np.concatenate([out.detach().numpy().ravel()] + [t.grad.numpy().ravel() for t in leaves])
+
+
+def forget_plans() -> None:
+    """Drop the in-process tiers: the manager LRU and the plan memory LRU."""
+    from magiattention_tpu_torch.api.magi_attn_interface import clear_cache
+    from magiattention_tpu_torch.dist_attn_runtime_mgr import _PLAN_CACHE
+    from magiattention_tpu_torch.meta import plan_store
+
+    clear_cache()
+    _PLAN_CACHE.clear()
+    plan_store.reset()
+
+
+def count_solves(mgr_mod, patch=setattr) -> dict:
+    """Wrap the solver entry points the manager calls (through ``patch``,
+    e.g. a test's ``monkeypatch.setattr``); returns the live counts."""
+    calls = {"dispatch": 0, "static": 0}
+    for name, attr in (("dispatch", "make_dispatch_meta_from_qk_ranges"),
+                       ("static", "make_attn_meta_from_dispatch_meta")):
+        real = getattr(mgr_mod, attr)
+
+        def wrapped(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        patch(mgr_mod, attr, wrapped)
+    return calls
+
+
+def plan_bcast_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One rank of a gloo group (a 60 s timeout: a broken pairing of the
+    broadcast's collectives fails instead of hanging): a cold solve and its
+    step; then, with the tiers forgotten, the broadcast tier (rank 0
+    solves, rank 1 receives): its sources, its solves and its step; a
+    memory-hit resolution under the broadcast (every rank exchanges once);
+    a ``plan_broadcast`` fault on every rank under MAGI_ATTENTION_FALLBACK=1
+    (rank 1 solves locally). To ``out_dir/rank<r>.npz``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    from magiattention_tpu_torch import dist_attn_runtime_mgr as mgr_mod
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr, clear_cache
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.resilience import inject
+
+    try:
+        with scoped_env({k: None for k in PLAN_TIER_ENV}):
+            cold_key = plan_key(dist.group.WORLD)
+            cold_source = _mgr(cold_key).plan_source
+            cold = plan_step(cold_key)
+            forget_plans()
+            calls = count_solves(mgr_mod)
+            with scoped_env({"MAGI_ATTENTION_PLAN_BROADCAST": "1"}):
+                key = plan_key(dist.group.WORLD)
+                source = _mgr(key).plan_source
+                solves = dict(calls)
+                bcast = plan_step(key)
+                clear_cache()  # the plan memory tier stays warm: a hit
+                hit_source = _mgr(plan_key(dist.group.WORLD)).plan_source
+                forget_plans()
+                inject.reset()
+                with scoped_env({"MAGI_ATTENTION_FAULT_INJECT": "plan_broadcast:count=1",
+                                 "MAGI_ATTENTION_FALLBACK": "1"}):
+                    fkey = plan_key(dist.group.WORLD)
+                    fault_source = _mgr(fkey).plan_source
+                    faulted = plan_step(fkey)
+                inject.reset()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), cold=cold, bcast=bcast, faulted=faulted,
+                 sources=np.array([cold_source, source, hit_source, fault_source]),
+                 solves=np.array([solves["dispatch"], solves["static"]]))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def plan_file_worker(role: str, directory: str, out_dir: str) -> None:
+    """One process of the file transport: the leader cold-solves and
+    publishes, then finds its published blob corrupted, and a warm
+    resolution heals it; the follower (a later process) receives it."""
+    import os
+
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr, clear_cache
+    from magiattention_tpu_torch.env.general import scoped_env
+
+    torch.set_num_threads(1)
+    env = {k: None for k in PLAN_TIER_ENV}
+    env.update({"MAGI_ATTENTION_PLAN_BROADCAST": "1", "MAGI_ATTENTION_PLAN_BROADCAST_TRANSPORT": "file",
+                "MAGI_ATTENTION_PLAN_BROADCAST_DIR": directory, "MAGI_ATTENTION_PLAN_BROADCAST_ROLE": role})
+    with scoped_env(env):
+        key = plan_key()
+        sources = [_mgr(key).plan_source]
+        out = plan_step(key)
+        healed = False
+        if role == "leader":
+            (name,) = os.listdir(directory)
+            path = os.path.join(directory, name)
+            with open(path, "rb") as f:
+                pristine = f.read()
+            with open(path, "wb") as f:
+                f.write(pristine[: len(pristine) // 2])  # a torn publish
+            clear_cache()  # the plan memory tier stays warm: the heal probe runs
+            sources.append(_mgr(plan_key()).plan_source)
+            with open(path, "rb") as f:
+                healed = f.read() == pristine
+    np.savez(os.path.join(out_dir, f"{role}.npz"), out=out, sources=np.array(sources), healed=healed)
