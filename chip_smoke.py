@@ -11,7 +11,10 @@ c.ffa_bwd_phase(c.card_peaks(torch.cuda.get_device_name(0)))"``.
 Phases, each printing JSON lines (any failure raises, exit code != 0):
 
 1. ``device``: the card's name, power limit and NVIDIA driver version,
-   and the build time. ``tensor_cores``: per library of the tensor-core
+   and the build time (``testing/precompile.py:precompile_kernels``: every
+   library, one ``nvcc`` a source at once, and the host library);
+   ``precompile``: that time, a second call's and the headline
+   configuration's warm-up (``precompile_ffa``). ``tensor_cores``: per library of the tensor-core
    kernels (``ffa_fwd``, ``ffa_fwd_gqa``: bf16 and the float32 3xTF32
    body; ``ffa_bwd_dq``, ``ffa_bwd_dq_gqa``, ``ffa_bwd_dkv``,
    ``ffa_bwd_fused``: bf16), the HGMMA, HMMA and atomic (RED/ATOM) counts
@@ -48,7 +51,11 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    ``bwd_mode``: the unpinned backward mode against the fused and split
    times, taken together in interleaved rounds, at the four shapes and a
    sink-window mask (fails where the model picks the slower by more than
-   5%), and the model's constants from this run.
+   5%), and the model's constants from this run. ``kernel_audit`` (after
+   ``tiles``): ``analysis/kernel_check.py``'s K1 over every library (FFA,
+   decode, block-sparse: each ``<name>_smem_bytes`` against the host
+   model, 0 where not compiled, within the card's opt-in limit), then K3
+   and K5 over the corpus.
 5. ``paged_decode``: the paged-decode kernel against ``paged_decode_plain``
    on 8 ragged slots, in float32 and bfloat16, with the split plan it
    launched (``splits``, ``split_len``). ``paged_decode_spec``: the
@@ -207,11 +214,18 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     bitwise the cold way (the unpinned dq, summed by the fused backward's
     atomics, within the bf16 gates); each key's ``plan_s``, the load
     (decode + verify) and the verify alone, the blob's bytes.
+    ``native_host`` (after it): the headline shape through the API at
+    cp 1 planned by the native host backend (MAGI_ATTENTION_NATIVE_FFA_PLAN=1,
+    MAGI_ATTENTION_CPP_BACKEND=1, its calls counted) against the Python
+    planners (0/0): plans array-equal, the deterministic step's out, lse
+    and gradients bitwise (the unpinned step's too but for the fused dq),
+    each way's ``plan_s``.
 15. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase plus qo_comm, cp_baselines and usp_nsa, error,
     kernel / plain / library time and the card's bound; launches also
     from cp_hier_tp, decode_sharded, serve_int8's spec pass, the remat
-    step, moe, video_dit, observability, resilience and plan_tiers).
+    step, moe, video_dit, observability, resilience, plan_tiers and
+    native_host).
 
 It refuses to start when MAGI_ATTENTION_FALLBACK, _FAULT_INJECT,
 _NUMERIC_GUARD, _STEP_RETRIES or _STRAGGLER_DETECT is set: its resilience
@@ -252,6 +266,13 @@ timeout: rank 0 solves, ranks 1-3 receive the plan over NCCL, verify and
 run, every rank bitwise its cold step, each rank's ``plan_s`` cold
 against received and its load alone; a ``plan_broadcast`` fault under
 MAGI_ATTENTION_FALLBACK=1, the followers solving locally, bitwise too)
+and ``cp4_c9`` (rank 1 alone raising ``KernelLaunchError`` before the
+static runtime's casts, between its casts and the max-logits all-reduce,
+and in the qo-comm runtime before its return cast, under
+MAGI_ATTENTION_STEP_RETRIES=1: it issues the collectives it did not
+reach, every rank hops once, each bitwise its unfaulted step) and
+``cp4_native_solve`` (every rank's plans from the native host backend
+field-equal to the Python planners', ``plan_s`` of each)
 and ``cp4_straggler`` (rank 3 slowed each step,
 every rank fed the all-gathered step ms, identical capacity vectors on
 every rank, one weighted re-solve, the weighted output within bf16 limits
@@ -1336,40 +1357,29 @@ TILE_SWEEP_S = 700
 
 
 def tiles_smem_check() -> dict:
-    """Every library's ``<name>_smem_bytes`` for every (dtype, d, bq, bk[,
-    heads]) against the host formula (``utils/mem_budget.py``): equal where
-    the instance is compiled, 0 where it is not; and the card's per-CTA
-    opt-in limit against the budget the formula is held to."""
+    """K1 over the FFA libraries (``analysis/kernel_check.py``): every
+    library's ``<name>_smem_bytes`` for every (dtype, d, bq, bk[, heads])
+    against the host formula (``utils/mem_budget.py``): equal where the
+    instance is compiled, 0 where it is not; and the card's per-CTA opt-in
+    limit against the budget the formula is held to."""
     import torch
 
+    from magiattention_tpu_torch.analysis import kernel_check
+    from magiattention_tpu_torch.analysis.violation import VerifyReport
     from magiattention_tpu_torch.kernels import ffa as kffa
     from magiattention_tpu_torch.utils import mem_budget as mb
 
     props = torch.cuda.get_device_properties(0)
     optin = getattr(props, "shared_memory_per_block_optin", None)
-    checked, compiled = 0, {}
-    for lib, kernel in {**TILE_LIBS, **PACKED_LIBS}.items():
-        query = getattr(kffa._lib(lib), f"{lib}_smem_bytes")
-        for isz in (2, 4):
-            for d in (64, 128, 256):
-                for heads in ((2, 4) if lib in PACKED_LIBS else (1,)):
-                    for bq, bk in mb.TILE_PAIRS:
-                        args = (d, heads, bq, bk) if lib in PACKED_LIBS else (d, bq, bk)
-                        got = query(*args, int(isz == 2))
-                        on = mb.is_compiled(kernel, isz, d, bq, bk, heads)
-                        want = mb.ffa_smem_bytes(kernel, d, bq, bk, isz, heads) if on else 0
-                        if got != want:
-                            raise AssertionError(
-                                f"{lib} {args} itemsize {isz}: library smem {got} != formula {want}"
-                            )
-                        checked += 1
-                        if on:
-                            tag = f"{'bf16' if isz == 2 else 'f32'} d{d}" + (
-                                f" g{heads}" if lib in PACKED_LIBS else "")
-                            compiled.setdefault(lib, {}).setdefault(tag, []).append(f"{bq}x{bk}")
+    report = VerifyReport()
+    summary = kernel_check.check_k1_libraries(
+        report, libraries={**TILE_LIBS, **PACKED_LIBS},
+        query=lambda lib: getattr(kffa._lib(lib), f"{lib}_smem_bytes"), limit=optin)
+    report.raise_if_errors()
     row = dict(
-        device_smem_per_block_optin=optin, budget=mb.SMEM_PER_CTA, checked=checked,
-        compiled=compiled, instances=sum(len(v) for t in compiled.values() for v in t.values()),
+        device_smem_per_block_optin=optin, budget=mb.SMEM_PER_CTA, checked=summary["checked"],
+        compiled=summary["compiled"], largest=summary["largest"],
+        instances=sum(summary["compiled"].values()),
     )
     emit({"phase": "tiles_smem", **row})
     if optin is not None and optin != mb.SMEM_PER_CTA:
@@ -8324,6 +8334,340 @@ def cp4_straggler(device: str, seq: int) -> dict:
     )
 
 
+# ---------------------------------------------------------------------------
+# the host plan builder, the kernel checker, precompile (one card), and
+# C9's forward half and the native dispatch solve at cp 4
+# ---------------------------------------------------------------------------
+
+# the headline shape (bench.py:5-6): bf16, causal, seq 8192, hq 16, hk 8, d 128
+HEAD_SEQ, HEAD_HQ, HEAD_HK, HEAD_D = 8192, 16, 8, 128
+NATIVE_ON = {"MAGI_ATTENTION_NATIVE_FFA_PLAN": "1", "MAGI_ATTENTION_CPP_BACKEND": "1"}
+NATIVE_OFF = {"MAGI_ATTENTION_NATIVE_FFA_PLAN": "0", "MAGI_ATTENTION_CPP_BACKEND": "0"}
+PLAN_ARRAYS = ("work_qt", "work_kt", "meta", "work_qt_t", "work_kt_t", "meta_t", "run_ptr", "run_ptr_t")
+
+
+def _plan_fields(obj, name: str = "") -> dict:
+    """A planner output (dataclasses, dicts, lists, ranges, arrays, enums)
+    as a flat dict of field path -> numpy array or plain value."""
+    import dataclasses
+    import enum
+
+    out: dict = {}
+    if hasattr(obj, "to_naive_ranges"):
+        out[name] = np.asarray(obj.to_naive_ranges(), np.int64).reshape(-1, 2)
+    elif hasattr(obj, "start") and hasattr(obj, "end") and hasattr(obj, "seqlen"):
+        out[name] = np.asarray([obj.start, obj.end], np.int64)
+    elif isinstance(obj, enum.Enum):
+        out[name] = obj.value
+    elif isinstance(obj, np.ndarray):
+        out[name] = obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            if not f.name.startswith("_"):
+                out.update(_plan_fields(getattr(obj, f.name), f"{name}.{f.name}"))
+    elif isinstance(obj, dict):
+        for k_, x in obj.items():
+            out.update(_plan_fields(x, f"{name}.{k_}"))
+    elif isinstance(obj, (list, tuple)):
+        out[f"{name}#len"] = len(obj)
+        for i, x in enumerate(obj):
+            out.update(_plan_fields(x, f"{name}[{i}]"))
+    else:
+        out[name] = obj
+    return out
+
+
+def _differing_fields(a, b) -> list[str]:
+    """The field paths where two planner outputs differ."""
+    fa, fb = _plan_fields(a), _plan_fields(b)
+    bad = sorted(set(fa) ^ set(fb))
+    for k_ in set(fa) & set(fb):
+        x, y = fa[k_], fb[k_]
+        same = (isinstance(x, np.ndarray) and isinstance(y, np.ndarray) and x.dtype == y.dtype
+                and np.array_equal(x, y)) if isinstance(x, np.ndarray) else x == y
+        if not same:
+            bad.append(k_)
+    return sorted(bad)
+
+
+def _runtime_plans(mgr) -> list:
+    """Every FFA plan of a manager's runtime, as arrays."""
+    rt = mgr.runtime
+    plans = rt.plans if hasattr(rt, "plans") else [rt.ffa_plan]
+    return [{f: getattr(p, f) for f in PLAN_ARRAYS} for p in plans]
+
+
+def _headline_inputs(device: str, seq: int = HEAD_SEQ, seed: int = 51):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = ((seq, HEAD_HQ, HEAD_D), (seq, HEAD_HK, HEAD_D), (seq, HEAD_HK, HEAD_D))
+    inputs = [torch.randn(sh, generator=gen, device=device).to(torch.bfloat16) for sh in shapes]
+    return inputs, (torch.randn(shapes[0], generator=gen, device=device) / 4).to(torch.bfloat16)
+
+
+def native_host_phase(device: str = "cuda", seq: int = HEAD_SEQ) -> dict:
+    """The native host plan builder on the main path at cp 1: the headline
+    shape through ``magi_attn_flex_key -> dispatch -> calc_attn`` and the
+    backward, planned with MAGI_ATTENTION_NATIVE_FFA_PLAN=1 and
+    MAGI_ATTENTION_CPP_BACKEND=1 (the library built, its path taken: native
+    calls counted) against 0/0 (none). The dispatch and attention plans
+    and every FFA plan must be array-equal; each way runs one step unpinned
+    (B1, B7, B8/B9) and one under deterministic mode (B3, B5/B6): the
+    deterministic steps' out, lse, dq, dk, dv bitwise, the unpinned ones'
+    too but for dq (the fused backward's float32 atomics sum in no fixed
+    order; held to the bf16 gates). Reports ``plan_s`` of each way's key
+    (best of 3, every plan cache dropped before each) and the launches."""
+    import torch
+
+    from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.csrc_backend import build as host_build
+    from magiattention_tpu_torch.csrc_backend import ops as host_ops
+
+    if not host_build.available():
+        raise AssertionError(f"native_host: the host library did not build: {host_build._LIB_ERR}")
+    on_card = device == "cuda"
+    inputs, do = _headline_inputs(device, seq)
+    det = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+    launches: dict = {}
+    ways: dict = {}
+    for name, env in (("python", NATIVE_OFF), ("native", NATIVE_ON)):
+        def run():
+            times, calls = [], {}
+            for _ in range(3):
+                _fresh_planning()
+                host_ops.CALLS.clear()
+                t0 = time.perf_counter()
+                key = api.magi_attn_flex_key([[0, seq]], [[0, seq]], [1], seq, seq, device=device)
+                times.append(time.perf_counter() - t0)
+                calls = dict(host_ops.CALLS)
+            mgr = _mgr(key)
+            fast_n, fast = counted(lambda: _tier_step(key, inputs, do), on_card)
+            det_n, pinned = _with_env(det, lambda: counted(lambda: _tier_step(key, inputs, do), on_card))
+            for counts in (fast_n, det_n):
+                for k_, n in counts.items():
+                    launches[k_] = launches.get(k_, 0) + n
+            meta = (mgr.dispatch_meta_q, mgr.dispatch_meta_kv, mgr.comm_meta, mgr.calc_meta)
+            return dict(plan_s=min(times), plan_s_all=times, native_calls=calls, launches=fast_n,
+                        deterministic_launches=det_n), meta, _runtime_plans(mgr), fast, pinned
+        ways[name] = _with_env(env, run)
+    (py, py_meta, py_plans, py_fast, py_det) = ways["python"]
+    (nat, nat_meta, nat_plans, nat_fast, nat_det) = ways["native"]
+    if not nat["native_calls"].get("ffa_plan_native") or py["native_calls"]:
+        raise AssertionError(f"native_host: native calls {nat['native_calls']} (on), "
+                             f"{py['native_calls']} (off)")
+    meta_diff = _differing_fields(nat_meta, py_meta)
+    plan_diff = _differing_fields(nat_plans, py_plans)
+    if meta_diff or plan_diff:
+        raise AssertionError(f"native_host: plans differ: {meta_diff[:5]} {plan_diff[:5]}")
+    det_diff, fast_diff = _differing(nat_det, py_det), _differing(nat_fast, py_fast)
+    if det_diff or set(fast_diff) - {"dq"}:
+        raise AssertionError(f"native_host: not bitwise the Python-planned step: "
+                             f"deterministic {det_diff}, unpinned {fast_diff}")
+    dq = grad_check("native_host dq", nat_fast[2].float(), py_fast[2].float(), "bfloat16")
+    for what, counts in (("unpinned", nat["launches"]), ("deterministic", nat["deterministic_launches"])):
+        want = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels("split" if what == "deterministic" else "fused"))
+        if on_card and any(counts.get(k_) != 1 for k_ in want):
+            raise AssertionError(f"native_host {what}: launched {counts}, want one of {want}")
+    row = dict(shape=f"bf16 causal q [{seq}, {HEAD_HQ}, {HEAD_D}], k/v [{seq}, {HEAD_HK}, {HEAD_D}]",
+               python=py, native=nat, plan_speedup=py["plan_s"] / nat["plan_s"],
+               ffa_plans=len(nat_plans), plan_fields_equal=True, deterministic_bitwise=True,
+               unpinned_bitwise="dq" not in fast_diff, unpinned_dq=dq, launches=launches)
+    emit({"phase": "native_host", **row})
+    return row
+
+
+def precompile_phase(build_s: float) -> dict:
+    """``testing/precompile.py``: the seconds ``precompile_kernels`` took to
+    build every kernel library (all ``nvcc`` processes at once) and the
+    host library at the start of the run; then, with every library built,
+    a second call (nothing to build) and the warm-up of the headline
+    configuration's FFA plans and forward (``precompile_ffa``)."""
+    import torch
+
+    from magiattention_tpu_torch.csrc_backend import build as host_build
+    from magiattention_tpu_torch.kernels import _build
+    from magiattention_tpu_torch.testing import precompile_ffa, precompile_kernels
+
+    again_s = precompile_kernels(_build.SOURCES + ("tf32_probe",))
+    cfg = dict(q_ranges=[[0, HEAD_SEQ]], k_ranges=[[0, HEAD_SEQ]], attn_type_map=[1],
+               seqlen_q=HEAD_SEQ, seqlen_k=HEAD_SEQ, num_heads_q=HEAD_HQ, num_heads_kv=HEAD_HK,
+               head_dim=HEAD_D)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    precompile_ffa([cfg], torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    row = dict(build_s=build_s, libraries=len(_build.SOURCES) + 1, host_library=host_build.available(),
+               rebuild_s=again_s, warm_headline_s=time.perf_counter() - t0)
+    if not row["host_library"]:
+        raise AssertionError(f"precompile: the host library did not build: {host_build._LIB_ERR}")
+    emit({"phase": "precompile", **row})
+    return row
+
+
+def kernel_audit_phase(ffa_smem: dict) -> dict:
+    """The kernel checker (``analysis/kernel_check.py``): K1 over the
+    decode and block-sparse libraries against the card's per-CTA opt-in
+    limit (the FFA ones were checked by ``tiles_smem_check``, whose row
+    ``ffa_smem`` is carried here so the line covers every library), then
+    K3 and K5 over the corpus (host)."""
+    import torch
+
+    from magiattention_tpu_torch.analysis import kernel_check
+    from magiattention_tpu_torch.analysis.violation import VerifyReport
+
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", None)
+    report = VerifyReport()
+    k1 = kernel_check.check_k1_libraries(
+        report, libraries=(*kernel_check.DECODE_LIBRARIES, *kernel_check.BSP_LIBRARIES), limit=optin)
+    t0 = time.perf_counter()
+    kernel_check.run_kernel_audit(report=report)
+    host_s = time.perf_counter() - t0
+    report.raise_if_errors()
+    row = dict(device_smem_per_block_optin=optin,
+               k1_checked=k1["checked"] + ffa_smem["checked"],
+               k1_compiled={**ffa_smem["compiled"], **k1["compiled"]},
+               k1_largest={**ffa_smem["largest"], **k1["largest"]}, rules=report.rules_run,
+               violations=len(report.violations), k3_k5_host_s=host_s)
+    emit({"phase": "kernel_audit", **row})
+    return row
+
+
+C9_POINTS = ("before_casts", "before_max_logits", "qo_before_return_cast")
+
+
+def _fail_once(owner, attr: str, err: BaseException, armed: list):
+    """``owner.attr`` raising ``err`` at its first call while ``armed[0]``
+    (then disarmed); returns the original, to put back."""
+    orig = getattr(owner, attr)
+
+    def wrapper(*args, **kwargs):
+        if armed[0]:
+            armed[0] = False
+            raise err
+        return orig(*args, **kwargs)
+
+    setattr(owner, attr, wrapper)
+    return orig
+
+
+def _ml_step(key, inputs, do):
+    """out, max-logits, dq, dk, dv of this rank's dispatched rows through
+    ``key`` (max-logits asked for: its all-reduce is the last forward
+    collective)."""
+    import torch
+
+    from magiattention_tpu_torch import api
+
+    ls = [api.dispatch(inputs[0], key), api.dispatch(inputs[1], key, role="kv"),
+          api.dispatch(inputs[2], key, role="kv")]
+    ls = [t.detach().requires_grad_(True) for t in ls]
+    out, meta = api.calc_attn(*ls, key, return_max_logits=True)
+    return (out.detach(), meta.max_logits, *torch.autograd.grad(out, ls, api.dispatch(do, key)))
+
+
+def cp4_c9(device: str, seq: int) -> dict:
+    """C9's forward half at cp 4: rank 1 alone raises ``KernelLaunchError``
+    once under MAGI_ATTENTION_STEP_RETRIES=1 (deterministic mode), before
+    the static runtime's casts (its head check), between its casts and the
+    max-logits all-reduce (the parts' forward), and in the qo-comm runtime
+    before its return cast (its forward step). Rank 1 issues the forward
+    collectives it did not reach with placeholders, every rank agrees and
+    hops once (on the card to the ``ffa`` kernels again), and each rank's
+    out, max-logits and gradients equal its unfaulted step to the bit (in
+    a rehearsal on the CPU: its step pinned at ``sdpa``, the rung taken).
+    The group's timeout bounds a hang."""
+    import torch
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch.functional import dist_attn, dynamic_dist_attn
+    from magiattention_tpu_torch.kernels._build import KernelLaunchError
+    from magiattention_tpu_torch.resilience import inject, watchdog
+
+    on_card = device == "cuda"
+    rung = {"MAGI_ATTENTION_KERNEL_BACKEND": "ffa" if on_card else "sdpa"}
+    det = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+    inputs, do = _cp_inputs(device, seq, seed=61)
+    sites = {"before_casts": (dist_attn.DistAttnRuntime, "_check_heads"),
+             "before_max_logits": (dist_attn, "_parts_fwd"),
+             "qo_before_return_cast": (dynamic_dist_attn.DynamicDistAttnRuntime, "fwd_step")}
+    out = {}
+    for point in C9_POINTS:
+        qo = {"MAGI_ATTENTION_QO_COMM": "1"} if point.startswith("qo") else {}
+        base = _with_env({**det, **qo, **rung}, lambda: _ml_step(_cp4_key(device, seq), inputs, do))
+        armed = [dist.get_rank() == 1]
+        orig = _fail_once(*sites[point], KernelLaunchError("injected launch failure", 719), armed)
+        _fresh_planning()  # no runtime a hop pinned at an earlier point
+        inject.reset()
+        watchdog.reset()
+        before = resilience_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        try:
+            got = _with_env({**det, **qo, "MAGI_ATTENTION_STEP_RETRIES": "1",
+                             "MAGI_ATTENTION_KERNEL_BACKEND": "ffa"},
+                            lambda: _ml_step(_cp4_key(device, seq), inputs, do))
+        finally:
+            setattr(*sites[point], orig)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts_delta(before, resilience_counts())
+        watchdog.reset()
+        same = all(torch.equal(a, b) for a, b in zip(got, base))
+        mine = torch.tensor([counts.get("resilience.recovered", 0), counts.get("resilience.retry", 0),
+                             counts.get("resilience.fwd_comm_completed", 0), int(same),
+                             int(not armed[0])], device=device)
+        every = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        every = [t.tolist() for t in every]
+        want = [[1, 1, int(r == 1), 1, 1] for r in range(dist.get_world_size())]
+        if every != want:
+            raise AssertionError(f"cp4_c9 {point}: ranks' (hops, retries, completions, bitwise, "
+                                 f"fired) {every}, want {want}")
+        out[point] = dict(ranks_hops_retries_completions_bitwise_fired=every,
+                          faulted_step_wall_s=_every_rank(wall))
+    return dict(fault="KernelLaunchError on rank 1 alone", rung=rung["MAGI_ATTENTION_KERNEL_BACKEND"],
+                points=out)
+
+
+def cp4_native_solve(device: str, seq: int) -> dict:
+    """The native host backend at cp 4: every rank plans the train
+    attention key (two causal documents) with the native dispatch solve and
+    FFA plans (MAGI_ATTENTION_CPP_BACKEND=1, MAGI_ATTENTION_NATIVE_FFA_PLAN=1)
+    and in Python (0/0): field-equal dispatch, comm and attention meta and
+    array-equal FFA plans on every rank; ``plan_s`` of each (best of 3,
+    caches dropped before each)."""
+    import torch.distributed as dist
+
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.csrc_backend import ops as host_ops
+
+    ways = {}
+    for name, env in (("python", NATIVE_OFF), ("native", NATIVE_ON)):
+        def run():
+            times = []
+            for _ in range(3):
+                _fresh_planning()
+                host_ops.CALLS.clear()
+                dist.barrier()
+                t0 = time.perf_counter()
+                key = _cp4_key(device, seq)
+                times.append(time.perf_counter() - t0)
+            mgr = _mgr(key)
+            meta = (mgr.dispatch_meta_q, mgr.dispatch_meta_kv, mgr.comm_meta, mgr.calc_meta)
+            return min(times), dict(host_ops.CALLS), meta, _runtime_plans(mgr)
+        ways[name] = _with_env(env, run)
+    diff = _differing_fields(ways["native"][2], ways["python"][2])
+    diff += _differing_fields(ways["native"][3], ways["python"][3])
+    if diff or not ways["native"][1] or ways["python"][1]:
+        raise AssertionError(f"cp4_native_solve: fields differ {diff[:5]}, native calls "
+                             f"{ways['native'][1]} (on) {ways['python'][1]} (off)")
+    return dict(plan_s_python=_every_rank(ways["python"][0]), plan_s_native=_every_rank(ways["native"][0]),
+                native_calls=ways["native"][1], fields_equal=True)
+
+
 def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
     """One process of ``--cp4`` (NCCL on card ``rank``; gloo on the CPU in
     a rehearsal): rank 0 prints the results."""
@@ -8351,6 +8695,8 @@ def cp4_worker(rank: int, port: int, device: str, seq: int) -> None:
         # process (on four H100s the DiT's cp 4 step went from 24.0 to 32.1
         # ms after one)
         for name, run in (("cp4_resilience", lambda: cp4_resilience(device, seq)),
+                          ("cp4_c9", lambda: cp4_c9(device, seq)),
+                          ("cp4_native_solve", lambda: cp4_native_solve(device, seq)),
                           ("cp4_plan_tiers", lambda: cp4_plan_tiers(device, seq)),
                           ("cp4_straggler", lambda: cp4_straggler(device, seq)),
                           ("cp4_moe_ep", lambda: cp4_moe_ep(device, seq)),
@@ -8469,9 +8815,10 @@ def main() -> int:
     smi = nvidia_smi("name,power.limit")
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
-    t0 = time.perf_counter()
-    _build.build_all(_build.SOURCES + ("tf32_probe",))
-    build_s = time.perf_counter() - t0
+    from magiattention_tpu_torch.testing import precompile_kernels
+
+    # every library at once (one nvcc a source) and the host library
+    build_s = precompile_kernels(_build.SOURCES + ("tf32_probe",))
     for src in _build.SOURCES:
         for line in build_report(src):
             print(f"[{src}] {line}", file=sys.stderr)
@@ -8484,6 +8831,7 @@ def main() -> int:
         "peak_tf32_tflops": peaks["tfloat32"] / 1e12,
         "peak_tb_s": peaks["bytes_s"] / 1e12, "build_s": build_s,
     })
+    precompile_phase(build_s)
 
     tensor_core_phase()
     tf32_probe_phase()
@@ -8495,6 +8843,7 @@ def main() -> int:
     max_logits_phase()
     bwd_mode_phase(bwd, fused, dq_gqa)
     tiles = tiles_phase(peaks)
+    kernel_audit_phase(tiles["smem"])
     dec = decode_phase(peaks)
     spec = decode_spec_phase(peaks)
     int8 = decode_int8_phase(peaks)
@@ -8519,6 +8868,7 @@ def main() -> int:
     cp_api = cp_api_phase()
     deterministic_phase()
     tiers = plan_tiers_phase()
+    native = native_host_phase()
     cp_stages_phase()
     qo = qo_comm_phase(cp_api)["launches"]
     cpb = cp_baselines_phase()["launches"]
@@ -8549,9 +8899,10 @@ def main() -> int:
     # rank bodies (cp_baselines), the two-level, TP and sink runs
     # (cp_hier_tp), usp_nsa_attn's (usp_nsa), the train phase's remat
     # step, the MoE and video DiT steps (moe, video_dit), the sharded
-    # tree's step (shard_cp1) and the plan tiers' steps (plan_tiers)
+    # tree's step (shard_cp1), the plan tiers' steps (plan_tiers) and the
+    # headline steps planned natively and in Python (native_host)
     paths = (qo, cpb, ht, usp, train["remat"]["launches"], moe_launches, dit_launches, shard,
-             obs["launches"], resil["launches"], tiers["launches"])
+             obs["launches"], resil["launches"], tiers["launches"], native["launches"])
     extra = {k_: sum(p.get(k_, 0) for p in paths) for k_ in set().union(*paths)}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body; int8 spec verify's too

@@ -9,10 +9,12 @@ runtime hook ``MAGI_ATTENTION_VERIFY_PLANS=1`` (``dist_attn_runtime_mgr``
 -> :func:`maybe_verify_runtime`), and the plan tiers, which verify every
 plan loaded from disk or received from the leader before its first use.
 
-Not ported yet: the JAX package's kernel contract checker
-(``kernel_check``, rules K1-K5; its Hopper counterpart is ROADMAP Queue A
-item 4, where its exports would join these) and its linter (``lint``,
-Queue A item 3).
+:mod:`kernel_check` is the Hopper counterpart of the JAX package's kernel
+contract checker: K1 (each library's shared memory against the host model),
+K3 (work-list, page-table and key-table bounds over host plans) and K5 (the
+env keys the kernels' code reads). :mod:`lint` is the repo linter
+(MAGI-L001 to L006) over the port's tree,
+``python -m magiattention_tpu_torch.analysis.lint``.
 """
 
 from .violation import (  # noqa: F401
@@ -26,4 +28,14 @@ from .verifier import (  # noqa: F401
     maybe_verify_runtime,
     verify_dynamic_plan,
     verify_plan,
+)
+from .kernel_check import (  # noqa: F401
+    K5_ALLOWLIST,
+    check_env_keys,
+    check_k1,
+    check_k1_libraries,
+    check_k3_decode,
+    check_k3_ffa_plan,
+    check_k3_key_table,
+    run_kernel_audit,
 )

@@ -16,9 +16,8 @@ WARNING = "warning"
 
 # The named rule set (one-line rationale each). R5 is the port's own: the
 # Hopper kernels' compiled tile instances and shared memory in place of
-# the TPU lane quanta and VMEM. The kernel contract rules K1-K5 belong to
-# the JAX package's kernel checker, whose Hopper counterpart is not
-# ported yet (ROADMAP Queue A item 4).
+# the TPU lane quanta and VMEM. The kernel contract rules K1, K3 and K5
+# are the kernel checker's (kernel_check.py).
 RULES: dict[str, str] = {
     "R1": "slice well-formedness: non-negative, in-bounds, "
           "mask-type/band-consistent q/k ranges",

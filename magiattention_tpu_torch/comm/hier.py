@@ -488,6 +488,16 @@ class HierCastPlan:
         node) as an int64 tensor on ``device`` (cached)."""
         return self._index("a_send_rows", device)
 
+    def exchanges(self, groups) -> list[tuple]:
+        """Phases A and B in issue order (a group of one is a local copy,
+        no exchange), as :meth:`~.primitives.CastPlan.exchanges`."""
+        outer, inner = groups
+        phases = (
+            (self.recv_a_len, len(self.a_send_rows), self.a_recv_splits, self.a_send_splits, outer),
+            (self.recv_len, len(self.b_send_rows), self.b_recv_splits, self.b_send_splits, inner),
+        )
+        return [p for p in phases if p[-1] is not None]
+
     def cast_start(self, x: torch.Tensor, groups, out_dtype: torch.dtype):
         """Issue phase A of ``x``'s rows (in x's dtype) and, when it lands,
         phase B, off the compute stream; returns the ``[buf_len, ...]``

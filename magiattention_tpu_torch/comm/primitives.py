@@ -28,10 +28,17 @@ GroupReduce as soon as its partials exist
 A row sent to several ranks comes back from each; the GroupReduce sums
 them into its owner in destination order (:func:`scatter_add_rows`), so
 the sum has the same bits on every run, on the card too.
+
+Every exchange issued is counted per thread (:func:`exchanges_issued`): the
+step watchdog reads how far a failed forward got, and
+:func:`issue_placeholders` issues the exchanges it did not reach, so that
+no peer is left waiting inside one (ROADMAP C9).
 """
 
 from __future__ import annotations
 
+import math
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -97,6 +104,11 @@ class CastPlan:
     # the ``group_reduce_<lowering>`` profiler scope)
     lowering = "a2a"
 
+    def exchanges(self, group) -> list[tuple]:
+        """The cast's exchanges in issue order, each ``(rows out, rows in,
+        out splits, in splits, group)`` (see :func:`issue_placeholders`)."""
+        return [(self.recv_len, len(self.send_rows), self.recv_splits, self.send_splits, group)]
+
     def cast_start(self, x: torch.Tensor, group, out_dtype: torch.dtype):
         """Issue the GroupCast of ``x``'s rows, sent in x's dtype; returns
         the receive buffer in ``out_dtype`` and the wait (see
@@ -122,11 +134,66 @@ class CastPlan:
         return _reduce_finish(total, self, back, work, shard_len)
 
 
+_issued = threading.local()
+
+
+def exchanges_issued() -> int:
+    """How many row exchanges (``all_to_all_single``) this thread has
+    issued so far."""
+    return getattr(_issued, "n", 0)
+
+
 def _all_to_all(out, inp, out_splits, in_splits, group, async_op):
-    return dist.all_to_all_single(
+    work = dist.all_to_all_single(
         out, inp, list(out_splits), list(in_splits), group=group,
         async_op=async_op,
     )
+    _issued.n = exchanges_issued() + 1
+    return work
+
+
+def _held_bytes(nbytes: int, device: torch.device, held) -> torch.Tensor | None:
+    """The first ``nbytes`` bytes of a contiguous tensor of ``held`` on
+    ``device`` that has them, as a uint8 view (None where none has)."""
+    for t in held:
+        if t is not None and t.device == device and t.is_contiguous() \
+                and t.numel() * t.element_size() >= nbytes:
+            return t.detach().reshape(-1).view(torch.uint8)[:nbytes]
+    return None
+
+
+def _typed(raw: torch.Tensor, n: int, row_shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """``raw``'s first bytes as an ``[n, *row_shape]`` tensor of ``dtype``."""
+    nbytes = n * math.prod(row_shape) * dtype.itemsize
+    return raw[:nbytes].view(dtype).view(n, *row_shape)
+
+
+def issue_placeholders(exchanges, device: torch.device, held=()) -> None:
+    """Issue ``exchanges`` with placeholder buffers, in order, each waited
+    for: ``(exchange, row_shape, dtype)`` with ``exchange`` as a plan's
+    :meth:`CastPlan.exchanges` gives it. The peers receive whatever the
+    placeholders hold. One receive buffer serves every exchange; the sends
+    read the bytes of a tensor of ``held`` (storage the caller already
+    holds, never written) where one is large enough, else one zeroed
+    buffer."""
+    if not exchanges:
+        return
+
+    def nbytes(n, row_shape, dtype):
+        return n * math.prod(row_shape) * dtype.itemsize
+
+    recv = torch.empty(max(nbytes(e[0], r, t) for e, r, t in exchanges),
+                       dtype=torch.uint8, device=device)
+    n_send = max(nbytes(e[1], r, t) for e, r, t in exchanges)
+    send = _held_bytes(n_send, device, held)
+    for (n_out, n_in, out_splits, in_splits, group), row_shape, dtype in exchanges:
+        try:
+            inp = _typed(send, n_in, row_shape, dtype)
+        except (RuntimeError, TypeError):  # no held storage, or misaligned for dtype
+            send = torch.zeros(n_send, dtype=torch.uint8, device=device)
+            inp = _typed(send, n_in, row_shape, dtype)
+        _all_to_all(_typed(recv, n_out, row_shape, dtype), inp, out_splits, in_splits,
+                    group, False)
 
 
 def _cast_start(x: torch.Tensor, plan: CastPlan, group):

@@ -583,6 +583,12 @@ int dkv_dispatch(int d, const void* q, const void* k, const void* v,
   }
 }
 
+template <int D>
+long smem_of(bool dkv, bool tc) {
+  if (dkv) return (long)(tc ? bsp_tc::DkvSmem<D>::bytes : DkvSmemF32<D>::bytes);
+  return (long)(tc ? bsp_tc::DqSmem<D>::bytes : DqSmemF32<D>::bytes);
+}
+
 }  // namespace
 
 // The dq walk. q/dout [S, hq, d], k/v [S, hk, d]: contiguous rows of one
@@ -634,4 +640,21 @@ extern "C" int block_sparse_bwd_dkv_bf16(
   return dkv_dispatch<__nv_bfloat16>(d, q, k, v, dout, lse, delta, order,
                                      vptr, vq, vmult, dk, dv, hq, hk, bq, S,
                                      ds, M, n_tiles, scale, stream);
+}
+
+// The dynamic shared memory one CTA of the dq walk (dkv 0) or the dk/dv
+// walk (dkv 1) takes at head dim d (bf16 1: the tensor-core bodies,
+// float32 0); 0 where no instance is compiled.
+// utils/mem_budget.py:block_sparse_smem_bytes is its host model.
+extern "C" long block_sparse_bwd_smem_bytes(int d, int dkv, int bf16) {
+  switch (d) {
+    case 64:
+      return smem_of<64>(dkv != 0, bf16 != 0);
+    case 128:
+      return smem_of<128>(dkv != 0, bf16 != 0);
+    case 256:
+      return smem_of<256>(dkv != 0, bf16 != 0);
+    default:
+      return 0;
+  }
 }

@@ -164,6 +164,11 @@ int bsp_launch(const void* q, const void* k, const void* v, const int* tbl,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+long smem_of(bool tc) {
+  return (long)(tc ? bsp_tc::FwdSmem<D>::bytes : BspFwdSmem<D>::bytes);
+}
+
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v,
              const int* tbl, void* out, float* lse, int hq, int hk, int bq,
@@ -206,4 +211,20 @@ extern "C" int block_sparse_fwd_bf16(const void* q, const void* k,
                                      float scale, void* stream) {
   return dispatch<__nv_bfloat16>(d, q, k, v, tbl, out, lse, hq, hk, bq, n_qb,
                                  C, ds, scale, stream);
+}
+
+// The dynamic shared memory one CTA takes at head dim d (bf16 1: the
+// tensor-core body, float32 0); 0 where no instance is compiled.
+// utils/mem_budget.py:block_sparse_smem_bytes is its host model.
+extern "C" long block_sparse_fwd_smem_bytes(int d, int bf16) {
+  switch (d) {
+    case 64:
+      return smem_of<64>(bf16 != 0);
+    case 128:
+      return smem_of<128>(bf16 != 0);
+    case 256:
+      return smem_of<256>(bf16 != 0);
+    default:
+      return 0;
+  }
 }

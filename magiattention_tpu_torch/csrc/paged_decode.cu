@@ -71,3 +71,11 @@ extern "C" int paged_decode_bf16(const void* q, const void* k_pages,
                             part, S, hq, hk, d, ps, P, splits, split_len,
                             softmax_scale, stream);
 }
+
+// The dynamic shared memory one walk CTA takes at head dim d with pages of
+// q's dtype (bf16 1, float32 0); 0 where no instance is compiled.
+// utils/mem_budget.py:decode_smem_bytes is its host model.
+extern "C" long paged_decode_smem_bytes(int d, int bf16) {
+  return bf16 ? magi::decode::smem_bytes<__nv_bfloat16, GMAX>(d)
+              : magi::decode::smem_bytes<float, GMAX>(d);
+}

@@ -649,6 +649,22 @@ int dispatch(int d, const void* q, const void* k_pages, const void* v_pages,
   }
 }
 
+// The dynamic shared memory of one walk CTA at head dim d (Smem::bytes);
+// 0 for a head dim with no instance.
+template <typename TP, int RMAX>
+long smem_bytes(int d) {
+  switch (d) {
+    case 64:
+      return (long)Smem<TP, 64, RMAX>::bytes;
+    case 128:
+      return (long)Smem<TP, 128, RMAX>::bytes;
+    case 256:
+      return (long)Smem<TP, 256, RMAX>::bytes;
+    default:
+      return 0;
+  }
+}
+
 }  // namespace
 }  // namespace decode
 }  // namespace magi

@@ -76,3 +76,12 @@ extern "C" int paged_decode_int8_bf16(const void* q, const void* k_pages,
                             lengths, out, lse, part, S, hq, hk, d, ps, P,
                             splits, split_len, softmax_scale, stream);
 }
+
+// The dynamic shared memory one walk CTA takes at head dim d over int8
+// pages (q's dtype, bf16 1 or float32 0, does not change it); 0 where no
+// instance is compiled. utils/mem_budget.py:decode_smem_bytes is its host
+// model.
+extern "C" long paged_decode_int8_smem_bytes(int d, int bf16) {
+  (void)bf16;
+  return magi::decode::smem_bytes<int8_t, GMAX>(d);
+}

@@ -91,3 +91,19 @@ extern "C" int paged_decode_spec_bf16(const void* q, const void* k_pages,
                             part, S, spec_k, hq, hk, d, ps, P, splits,
                             split_len, softmax_scale, stream);
 }
+
+// The dynamic shared memory one walk CTA takes at head dim d for rows =
+// spec_k * hq / hk query rows (the instance the launch picks: RMAX 8, 16 or
+// 32) with pages of q's dtype (bf16 1, float32 0); 0 where no instance is
+// compiled. utils/mem_budget.py:decode_smem_bytes is its host model.
+extern "C" long paged_decode_spec_smem_bytes(int d, int rows, int bf16) {
+  if (rows < 1 || rows > 32) return 0;
+  if (rows <= 8)
+    return bf16 ? magi::decode::smem_bytes<__nv_bfloat16, 8>(d)
+                : magi::decode::smem_bytes<float, 8>(d);
+  if (rows <= 16)
+    return bf16 ? magi::decode::smem_bytes<__nv_bfloat16, 16>(d)
+                : magi::decode::smem_bytes<float, 16>(d);
+  return bf16 ? magi::decode::smem_bytes<__nv_bfloat16, 32>(d)
+              : magi::decode::smem_bytes<float, 32>(d);
+}

@@ -132,6 +132,31 @@ def is_incremental_solve_enable() -> bool:
     return _get_bool("MAGI_ATTENTION_INCREMENTAL_SOLVE", default=True)
 
 
+def is_cpp_backend_enable() -> bool:
+    """Use the native (C++) host backend (``csrc_backend/``: range algebra,
+    band areas, the dispatch min-heap and binary-greedy solves) where it
+    builds; Python where ``g++`` is missing. On by default, as in the JAX
+    package."""
+    return _get_bool("MAGI_ATTENTION_CPP_BACKEND", default=True)
+
+
+def jit_cache_dir() -> str:
+    """Where the native host backend's library is built
+    (``csrc_backend/build.py``, keyed by a hash of its source): default
+    ``build/host/`` at the root of the checkout."""
+    default = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+        "build", "host",
+    )
+    return _get_str("MAGI_ATTENTION_JIT_CACHE_DIR", default)
+
+
+def cuda_home() -> str | None:
+    """The CUDA toolkit's root named by ``CUDA_HOME`` (where ``nvcc`` is
+    looked for after PATH), or None. Not a MAGI_ key."""
+    return os.environ.get("CUDA_HOME")
+
+
 # flags that change numerics, planning output or the kernels a runtime runs,
 # and so belong to every runtime cache key (the port's subset of the JAX
 # package's ENV_KEYS_AFFECTING_RUNTIME)
@@ -143,6 +168,10 @@ ENV_KEYS_AFFECTING_RUNTIME: tuple[str, ...] = (
     "MAGI_ATTENTION_FWD_HIGH_PRECISION_REDUCE",
     "MAGI_ATTENTION_INCREMENTAL_SOLVE",
     "MAGI_ATTENTION_MIN_CHUNKS_PER_RANK",
+    # the native host backend's band area, min-heap solve and FFA work lists
+    # are array-equal to Python's, but its binary-greedy solve places tiles
+    # by another cost (csrc/magi_host.cpp:bg_greedy), so dynamic plans differ
+    "MAGI_ATTENTION_CPP_BACKEND",
     "MAGI_ATTENTION_QO_COMM",
     "MAGI_ATTENTION_HIERARCHICAL_COMM",
     "MAGI_ATTENTION_FFA_BLOCK_Q",
@@ -164,6 +193,10 @@ ENV_KEYS_AFFECTING_RUNTIME: tuple[str, ...] = (
     "MAGI_ATTENTION_FFA_MIXED_BLOCKS",
     "MAGI_ATTENTION_FFA_FUSED_BWD",
     "MAGI_ATTENTION_BACKEND_FFA_BWD",
+    # the deterministic mode runs the split backward in place of the fused
+    # one (kernels/ffa.py:ffa_bwd_mode): other kernels and other dq bits,
+    # and a step payload's bwd_mode re-keys on a flip
+    "MAGI_ATTENTION_DETERMINISTIC_MODE",
     "MAGI_ATTENTION_BACKEND_MIXED_BLOCKS",
     # NSA's selected branch: the block-sparse kernels or the gathered dense
     # reference (parallel/nsa.py through registry.nsa_slc_backend)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import os
 
-from .general import _get_int
+from .general import _get_int, _get_str
 
 
 def ffa_block_q() -> int:
@@ -58,6 +58,15 @@ def ffa_blocks_pinned() -> bool:
         "MAGI_ATTENTION_FFA_BLOCK_Q" in os.environ
         or "MAGI_ATTENTION_FFA_BLOCK_K" in os.environ
     )
+
+
+def ffa_native_plan() -> str:
+    """The native (C) FFA work-list builder (``csrc_backend/ops.py``
+    through ``kernels/ffa_plan.py:build_ffa_plan``): 'auto' (use it where
+    MAGI_ATTENTION_CPP_BACKEND is on and the library builds, else Python),
+    '1' (require it), '0' (Python). The plans are the same arrays either
+    way."""
+    return _get_str("MAGI_ATTENTION_NATIVE_FFA_PLAN", "auto").lower()
 
 
 def ffa_gqa_pack() -> bool:

@@ -66,7 +66,7 @@ import torch.distributed as dist
 
 from .. import telemetry
 from ..comm.hier import HierCastPlan, make_hier_group_cast_plan
-from ..comm.primitives import CastPlan, group_cast_all
+from ..comm.primitives import CastPlan, exchanges_issued, group_cast_all, issue_placeholders
 from ..env import comm as env_comm
 from ..env import general as env_general
 from ..env import resilience as env_resilience
@@ -316,16 +316,45 @@ class DeferredTilePolicy:
     # a failure after it leaves no peer waiting inside a collective
     _fwd_comm_done = True
     _ml_reduce_pending = False
+    _fwd_mark = 0
 
     def _fwd_comm_begin(self, return_max_logits: bool) -> None:
         """A step's forward starts: at cp > 1 its collectives are still to
         be issued; the last is the casts, or the max-logits all-reduce."""
         self._ml_reduce_pending = return_max_logits and self.cp_size > 1
         self._fwd_comm_done = self.cp_size == 1
+        self._fwd_mark = exchanges_issued()
 
     def _fwd_casts_issued(self) -> None:
         """Every forward cast of the step is issued on this rank."""
         self._fwd_comm_done = not self._ml_reduce_pending
+
+    def _fwd_exchanges(self, q, k, v) -> list[tuple]:
+        """The step's forward exchanges in issue order, each ``(exchange,
+        row shape, wire dtype)`` (:func:`~..comm.primitives.issue_placeholders`)."""
+        raise NotImplementedError
+
+    def _fwd_pending_checks(self, q, k) -> None:
+        """Issue a first call's collective checks not yet issued (none here)."""
+
+    def complete_fwd_comm(self, q, k, v) -> None:
+        """After a failed attempt on this rank: issue every forward
+        collective of the step it did not reach, in the step's order, with
+        placeholder buffers of the plan's sizes in the step's wire dtypes
+        (the exchanges past :func:`~..comm.primitives.exchanges_issued`'s
+        mark, then the max-logits all-reduce), so that no peer is left
+        waiting inside one. The sends read ``q``, ``k`` or ``v``'s bytes
+        where they suffice. The step watchdog then agrees on the failure
+        (ROADMAP C9)."""
+        if self._fwd_comm_done:
+            return
+        self._fwd_pending_checks(q, k)
+        done = exchanges_issued() - self._fwd_mark
+        issue_placeholders(self._fwd_exchanges(q, k, v)[done:], q.device, (k, v, q))
+        if self._ml_reduce_pending:
+            ml = torch.zeros(q.shape[1], dtype=torch.float32, device=q.device)
+            dist.all_reduce(ml, op=dist.ReduceOp.MAX, group=self.cp_group)
+        self._fwd_comm_done = True
 
     def agree_step_failure(self, failed: bool, device: torch.device) -> bool:
         """Whether the step failed on any rank of the cp group: one
@@ -551,9 +580,9 @@ class DistAttnRuntime(DeferredTilePolicy):
         the all-reduce while another has gone on."""
         if self.tp_size == 1 or self._heads_checked:
             return
-        self._heads_checked = True
         counts = torch.tensor([hq, hk], dtype=torch.int64, device=device)
         dist.all_reduce(counts, group=self.tp_group)
+        self._heads_checked = True
         hq_all, hk_all = counts.tolist()
         tp = self.tp_size
         if hq_all % tp or hk_all % tp:
@@ -568,6 +597,16 @@ class DistAttnRuntime(DeferredTilePolicy):
                 f"{hq} q and {hk} kv heads of {hq_all} and {hk_all}; each "
                 "rank takes num_heads / tp of both"
             )
+
+    def _fwd_pending_checks(self, q, k) -> None:
+        """The first call's head check under TP, with this rank's true
+        head counts (its peers read them), where it was not reached."""
+        self._check_heads(q.shape[1], k.shape[1], q.device)
+
+    def _fwd_exchanges(self, q, k, v) -> list[tuple]:
+        """Every stage's GroupCast of ``[k | v]`` rows, in k's dtype."""
+        row = (k.shape[1], k.shape[-1] + v.shape[-1])
+        return [(e, row, k.dtype) for p in self.cast_plans for e in p.exchanges(self.cast_group)]
 
     def _build_plans(self, block_q: int | None = None, block_k: int | None = None) -> None:
         with telemetry.stage_timer("build_plans"):

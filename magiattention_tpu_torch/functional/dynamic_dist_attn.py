@@ -231,6 +231,22 @@ class DynamicDistAttnRuntime(DeferredTilePolicy):
 
     # -- the collectives ----------------------------------------------------
 
+    def _fwd_exchanges(self, q, k, v) -> list[tuple]:
+        """The forward's casts in issue order: ``[k | v]`` rows in k's
+        dtype, q rows, then the partial out rows (float32 under the forward
+        high-precision flag) and their float32 lse."""
+        if self.cp_size == 1:
+            return []
+        hq, d, hk, dv = q.shape[1], q.shape[-1], k.shape[1], v.shape[-1]
+        out_dtype = torch.float32 if env_comm.is_fwd_high_precision_reduce_enable() else q.dtype
+        g = self.cp_group
+        return (
+            [(e, (hk, d + dv), k.dtype) for e in self.kv_cast.exchanges(g)]
+            + [(e, (hq, d), q.dtype) for e in self.q_cast.exchanges(g)]
+            + [(e, (hq, dv), out_dtype) for e in self.ret_cast.exchanges(g)]
+            + [(e, (hq,), torch.float32) for e in self.ret_cast.exchanges(g)]
+        )
+
     def _cast(self, x: torch.Tensor, plan: CastPlan) -> torch.Tensor:
         """GroupCast of ``x``'s rows: the ``[buf_len, ...]`` receive buffer
         (zero past the received rows). Differentiable (its backward is the

@@ -25,6 +25,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..env import general as env_general
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
@@ -59,7 +61,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+    for root in (env_general.cuda_home(), "/usr/local/cuda"):
         if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
             return os.path.join(root, "bin", "nvcc")
     raise KernelBuildError(

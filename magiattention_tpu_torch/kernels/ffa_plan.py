@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from .. import telemetry
-from ..env.general import is_range_merge_enable
+from ..env.general import is_cpp_backend_enable, is_range_merge_enable
+from ..env.kernel import ffa_native_plan
 from ..utils.profiling import instrument_host
 from .mask_utils import BAND_INF, merge_band_slices
 
@@ -314,7 +315,12 @@ def build_ffa_plan(
 
     When ``MAGI_ATTENTION_RANGE_MERGE`` is on (default), band-compatible
     adjacent slices are merged first (exact: bands are global-coordinate,
-    so the merged cover is identical).
+    so the merged cover is identical). The native host backend lists the
+    items (``csrc_backend/ops.py:ffa_plan_native``) under
+    ``MAGI_ATTENTION_NATIVE_FFA_PLAN=1`` (required), and under 'auto' (the
+    default) where ``MAGI_ATTENTION_CPP_BACKEND`` is on and the library
+    builds; '0', or 'auto' with the backend off, builds them here. The
+    arrays are the same either way.
     """
     if is_range_merge_enable():
         q_ranges, k_ranges, d_lo, d_hi = merge_band_slices(
@@ -322,6 +328,37 @@ def build_ffa_plan(
         )
     num_q_tiles = max(1, -(-seqlen_q // block_q))
     num_k_tiles = max(1, -(-seqlen_k // block_k))
+
+    mode = ffa_native_plan()
+    if mode == "1" or (mode != "0" and is_cpp_backend_enable()):
+        try:
+            from ..csrc_backend.ops import ffa_plan_native
+
+            arrays = ffa_plan_native(
+                q_ranges, k_ranges, d_lo, d_hi,
+                num_q_tiles, num_k_tiles, block_q, block_k, BAND_INF,
+            )
+        except ImportError:
+            if mode == "1":
+                raise
+            arrays = None  # auto: the library cannot be built here
+        if arrays is not None:
+            # the C fill writes the first 9 columns; the extent and q-visit
+            # columns are appended here, so native and Python plans are the
+            # same arrays
+            metas = [
+                _extend_meta_visits(
+                    _extend_meta_extents(m, wa, wb, block_q, block_k, quanta), wa
+                )
+                for m, wa, wb in ((arrays[2], arrays[0], arrays[1]), (arrays[5], arrays[3], arrays[4]))
+            ]
+            return _record_plan_telemetry(FFAPlan(
+                work_qt=arrays[0], work_kt=arrays[1], meta=metas[0],
+                work_qt_t=arrays[3], work_kt_t=arrays[4], meta_t=metas[1],
+                num_q_tiles=num_q_tiles, num_k_tiles=num_k_tiles,
+                block_q=block_q, block_k=block_k,
+                run_ptr=_run_offsets(metas[0]), run_ptr_t=_run_offsets(metas[1]),
+            ), q_ranges, k_ranges, d_lo, d_hi)
 
     n = len(q_ranges)
     q_items: list[list[tuple[int, ...]]] = [[] for _ in range(num_q_tiles)]

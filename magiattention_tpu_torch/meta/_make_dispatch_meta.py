@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import logging
 
+import numpy as np
+
 from .. import telemetry
 from ..common.enum import AttnMaskType, AttnType, DispatchAlgType
 from ..common.range import AttnRange
@@ -25,6 +27,7 @@ from .solver.dispatch_solver import (
     DispatchSolver,
     normalize_capacities,
 )
+from ..env.general import is_cpp_backend_enable
 from ..utils.profiling import instrument_host
 
 _logger = logging.getLogger("magiattention_tpu.dispatch")
@@ -76,7 +79,26 @@ def _solve_partitions_with_alg(
     dispatch_config: DispatchConfig,
     alg: DispatchAlgType,
 ) -> list[list[int]]:
-    """Chunk->rank partitions under one concrete algorithm."""
+    """Chunk->rank partitions under one concrete algorithm (the equal-count
+    min-heap solve in the native host backend under
+    MAGI_ATTENTION_CPP_BACKEND=1 where it builds, as the JAX package
+    solves it; the same partitions)."""
+    if (
+        alg == DispatchAlgType.MIN_HEAP
+        and not dispatch_config.uneven_shard
+        and is_cpp_backend_enable()
+    ):
+        try:  # csrc/magi_host.cpp magi_minheap_solve
+            from ..csrc_backend.ops import minheap_solve_native
+
+            return [
+                sorted(p)
+                for p in minheap_solve_native(
+                    np.asarray(areas, dtype=np.int64), cp_size, num_chunks // cp_size,
+                )
+            ]
+        except ImportError:
+            pass
     solver = DispatchSolver(alg=alg, config=dispatch_config)
     affinities = None
     if alg in (

@@ -16,17 +16,23 @@ import numpy as np
 
 from ...common.enum import AttnMaskType
 from ...common.range import AttnRange
+from ...csrc_backend import build as native_build
+from ...csrc_backend.ops import band_area_native
+from ...env.general import is_cpp_backend_enable
 from ...kernels.mask_utils import BAND_INF
 
 
 def band_area(
     i0: int, i1: int, j0: int, j1: int, lo: int, hi: int
 ) -> int:
-    """Unmasked pairs of band [lo, hi] on rect [i0,i1) x [j0,j1) — O(rows)
-    vectorized (the C++ backend provides the closed-form O(1) hot loop,
-    csrc/magi_host.cpp magi_band_area)."""
+    """Unmasked pairs of band [lo, hi] on rect [i0,i1) x [j0,j1): the
+    native host backend's closed form (``csrc/magi_host.cpp``
+    ``magi_band_area``) under MAGI_ATTENTION_CPP_BACKEND=1 where it builds,
+    else O(rows) vectorized here (the same integer)."""
     if i0 >= i1 or j0 >= j1 or lo > hi:
         return 0
+    if is_cpp_backend_enable() and native_build.available():
+        return band_area_native(i0, i1, j0, j1, lo, hi)
     rows = np.arange(i0, i1, dtype=np.int64)
     lo_j = np.maximum(j0, rows + lo)
     hi_j = np.minimum(j1 - 1, rows + hi)

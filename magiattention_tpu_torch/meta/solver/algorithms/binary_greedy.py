@@ -2,7 +2,7 @@
 search on the balance cap.
 
 The port's copy of ``magiattention_tpu/meta/solver/algorithms/binary_greedy.py``
-(numpy only, imports rewired; no native path).
+(imports rewired).
 
 Ref: magi_attention/meta/algorithms (BinaryGreedy, BinaryGreedyParallel — the
 reference's default, with its hot loop in C++
@@ -16,9 +16,12 @@ csrc/extensions/dyn_solver_alg.cpp:644). Scheme:
    (total/cp, max tile) and the NCQ worst case.
 
 BinaryGreedyParallel is the same algorithm with the inner candidate-rank scan
-vectorized (numpy). The JAX package first tries its C++ host backend's
-``binary_greedy_solve``; the port has no native host backend (ROADMAP queue
-A item 5b), so it runs the numpy path, ``_solve_numpy``, always.
+vectorized (numpy). As in the JAX package, it first tries the native host
+backend's ``binary_greedy_solve`` (``csrc_backend/ops.py``, under
+MAGI_ATTENTION_CPP_BACKEND=1), and runs the numpy path, ``_solve_numpy``,
+where the library cannot be built or finds no assignment. Both order the
+tiles stably and give the same assignment (the JAX package's library
+sorts unstably, so its native and numpy paths can differ on tied areas).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 
 from ....common.rectangle import AttnRectangles
+from ....env.general import is_cpp_backend_enable
 from .base import (
     DynamicAttnAlgorithm,
     DynSolveContext,
@@ -96,8 +100,9 @@ class BinaryGreedyAlg(DynamicAttnAlgorithm):
 
 
 class BinaryGreedyParallelAlg(DynamicAttnAlgorithm):
-    """Vectorized variant: same placement rule, the candidate scan is a
-    numpy batch op over ranks."""
+    """Vectorized/native variant: same placement rule, the candidate scan is
+    a numpy batch op over ranks (and the native host backend when
+    enabled)."""
 
     def __init__(self, slack: float = 0.02, max_iters: int = 16) -> None:
         self.slack = slack
@@ -109,7 +114,30 @@ class BinaryGreedyParallelAlg(DynamicAttnAlgorithm):
         tiles = cut_to_tiles(rects, ctx)
         if not tiles:
             return [AttnRectangles() for _ in range(ctx.cp_size)]
+        if is_cpp_backend_enable():
+            try:
+                assign = self._solve_native(tiles, ctx)
+            except ImportError:
+                assign = None
+            if assign is not None:
+                return buckets_from_assignment(tiles, assign, ctx.cp_size)
         return self._solve_numpy(tiles, ctx)
+
+    # -- native (C++) path -------------------------------------------------
+
+    def _solve_native(self, tiles, ctx: DynSolveContext):
+        from ....csrc_backend.ops import binary_greedy_solve
+
+        qs = np.array([t.rect.q_range.start for t in tiles], dtype=np.int64)
+        qe = np.array([t.rect.q_range.end for t in tiles], dtype=np.int64)
+        ks = np.array([t.rect.k_range.start for t in tiles], dtype=np.int64)
+        ke = np.array([t.rect.k_range.end for t in tiles], dtype=np.int64)
+        area = np.array([t.area for t in tiles], dtype=np.int64)
+        qo = np.array([t.q_owner for t in tiles], dtype=np.int32)
+        ko = np.array([t.k_owner for t in tiles], dtype=np.int32)
+        out = binary_greedy_solve(qs, qe, ks, ke, area, qo, ko, ctx.cp_size,
+                                  float(self.slack), int(self.max_iters))
+        return None if out is None else [int(r) for r in out]
 
     # -- numpy path --------------------------------------------------------
 

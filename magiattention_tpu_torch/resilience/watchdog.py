@@ -33,27 +33,31 @@ failures are symmetric. The port agrees instead: after each attempt every
 rank makes one ``all_reduce(MAX)`` of a one-element failure flag over the
 cp group (the runtime's ``agree_step_failure``), and when any rank failed,
 every rank, the ones that succeeded included, counts the trip and moves
-to the same next rung. Agreed are the failures raised after the
-attempt's last forward collective was issued on the failing rank (the
-runtime's ``_fwd_comm_done``; its peers then reach the flag's all-reduce
-too): a ``NumericGuardError`` (the guard runs after the step), and a
-``KernelLaunchError`` or CUDA out-of-memory surfaced at or after that
-point. An injected fault fires on every rank at the same arming call, so
-it is agreed wherever it fires.
+to the same next rung. Agreed are a ``NumericGuardError`` (the guard
+runs after the step), an injected fault (it fires on every rank at the
+same arming call), and a ``KernelLaunchError`` or CUDA out-of-memory
+wherever it is raised in the forward.
 
-Still not recovered at cp > 1: a launch error or out-of-memory raised on
-one rank before its last forward collective, while a peer waits inside
-that collective (in the static runtime before the casts are issued, or
-before the max-logits all-reduce; in the qo-comm runtime anywhere before
-its return cast, which follows its forward kernel). It raises, typed, on
-that rank. A failure in the backward is outside the watchdog at any cp.
-With the watchdog off no flag is reduced: the step has no added
-collective.
+A launch error or out-of-memory raised on one rank before its last
+forward collective (the runtime's ``_fwd_comm_done`` still False) would
+leave a peer waiting inside that collective, where no agreement reaches
+it. So that rank first completes its forward's collectives: it drops
+what the failed attempt held (the exception's traceback frames' locals),
+then issues every collective of the step it had not reached, with
+placeholder buffers of the plan's sizes in the step's wire dtypes (the
+runtime's ``complete_fwd_comm``: the GroupCasts of each stage, the
+qo-comm runtime's q/kv casts and return cast, the max-logits
+all-reduce), and joins the agreement. Where that completion itself
+fails, the rank raises the attempt's error, unagreed. A failure in the
+backward is outside the watchdog at any cp. With the watchdog off no
+flag is reduced and, on a step that does not fail, nothing is
+completed: the step has no added collective or allocation.
 """
 
 from __future__ import annotations
 
 import threading
+import traceback
 from typing import Any
 
 from .. import telemetry
@@ -128,11 +132,25 @@ def note_trip(key: Any, backend: str, allow_quarantine: bool) -> bool:
     return True
 
 
-def _agreeable(runtime, err: BaseException) -> bool:
-    """Whether a failure on this rank can be agreed on at cp > 1: an
-    injected fault (it fires on every rank alike), or any failure raised
-    once the attempt's last forward collective was issued here."""
-    return isinstance(err, InjectedFault) or getattr(runtime, "_fwd_comm_done", True)
+def _ready_to_agree(runtime, err: BaseException, q, k, v) -> bool:
+    """Make a failure on this rank agreeable at cp > 1, or say it cannot
+    be: an injected fault (it fires on every rank alike) and a failure
+    raised once the attempt's last forward collective was issued here
+    are; one raised before it is once this rank has dropped the failed
+    attempt's frames' locals and issued the rest (``complete_fwd_comm``).
+    False where that completion itself fails."""
+    if isinstance(err, InjectedFault) or getattr(runtime, "_fwd_comm_done", True):
+        return True
+    e: BaseException | None = err
+    while e is not None:  # the attempt's tensors live in its frames
+        traceback.clear_frames(e.__traceback__)
+        e = e.__cause__ or e.__context__
+    try:
+        runtime.complete_fwd_comm(q, k, v)
+    except Exception:  # noqa: BLE001  (the attempt's own error is raised)
+        return False
+    telemetry.inc("resilience.fwd_comm_completed", always=True)
+    return True
 
 
 def run_with_watchdog(runtime, q, k, v, return_max_logits: bool = False):
@@ -204,9 +222,9 @@ def run_with_watchdog(runtime, q, k, v, return_max_logits: bool = False):
                 result = (_corrupt_output(result[0]), *result[1:])
             check_outputs(stage, result[0], result[1])
         except failures as e:
-            if cp > 1 and not _agreeable(runtime, e):
-                # a peer may be waiting inside a collective this rank never
-                # issued: no agreement can reach it
+            if cp > 1 and not _ready_to_agree(runtime, e, q, k, v):
+                # a peer may be waiting inside a collective this rank could
+                # not issue: no agreement can reach it
                 runtime._backend_override = prev_override
                 raise
             err = e

@@ -156,3 +156,74 @@ def ctas_per_sm(kernel: str, d: int, bq: int = 64, bk: int = 64, heads: int = 1)
     when the CTA runs two warpgroups or more."""
     by_smem = SMEM_PER_SM // (ffa_smem_bytes(kernel, d, bq, bk, 2, heads) + 1024)
     return max(1, min(by_smem, 2 // warpgroups(kernel, bq, bk, heads)))
+
+
+# -- the decode (B10-B12) and block-sparse (B13/B14) libraries ---------------
+
+# the decode walk's constants (csrc/paged_decode.cuh): threads, tokens a
+# chunk, chunk stages; its row instances (RMAX) a library takes
+DECODE_THREADS, DECODE_CHUNK, DECODE_STAGES = 256, 32, 2
+DECODE_ROWS = {"paged_decode": (8,), "paged_decode_int8": (8,), "paged_decode_spec": (8, 16, 32)}
+# the block-sparse tile (csrc/block_sparse.cuh): query rows, gathered keys
+BSP_ROWS = BSP_KEYS = 64
+
+
+def decode_smem_bytes(d: int, page_itemsize: int, rmax: int = 8) -> int:
+    """One decode walk CTA (csrc/paged_decode.cuh ``Smem<TP, D, RMAX>``):
+    the q rows (float32) and four arrays a row, then the larger of the
+    walk (two stages of a 32-token K chunk at row stride d + 16 bytes and a
+    V chunk, raw pages of ``page_itemsize`` bytes; the scores; with int8
+    pages each stage's K and V scales) and the token-group reduction that
+    reuses it. 0 for a head dim with no instance."""
+    if d not in KERNEL_HEAD_DIMS:
+        return 0
+    quant = page_itemsize == 1
+    ds = d + 16 // page_itemsize
+    kch, vch = DECODE_CHUNK * ds, DECODE_CHUNK * d
+    nsl = 8 if d > 128 else 4
+    scr = max(nsl * rmax * DECODE_CHUNK, DECODE_CHUNK * (rmax + 4))
+    scales = 2 * DECODE_STAGES * DECODE_CHUNK if quant else 0
+    cpt = 1 if rmax >= 32 else 2
+    groups = DECODE_THREADS // (d // cpt)
+    walk = page_itemsize * DECODE_STAGES * (kch + vch) + 4 * (scr + scales)
+    red = 4 * (groups // 2) * rmax * d
+    return 4 * (rmax * d + 4 * rmax) + max(walk, red)
+
+
+def decode_rmax(rows: int) -> int:
+    """The row instance the spec library launches for ``rows`` query rows
+    (0 above 32: no instance)."""
+    return next((r for r in (8, 16, 32) if rows <= r), 0)
+
+
+def block_sparse_smem_bytes(kind: str, d: int, itemsize: int) -> int:
+    """One block-sparse CTA: ``kind`` "fwd" (B13), "dq" or "dkv" (B14's two
+    walks). bfloat16 (csrc/block_sparse_tc.cuh ``FwdSmem`` / ``DqSmem`` /
+    ``DkvSmem``): 64-row bf16 tiles (V and the outputs a 128-column half at
+    d = 256) in two stages, the walks' float32 row statistics, 1024 bytes
+    to align the window. float32 (``BspFwdSmem``, csrc/block_sparse_bwd.cu
+    ``DqSmemF32`` / ``DkvSmemF32``): tiles at row stride (width + 4), the
+    probability / dS tiles at row stride 80, row statistics and the
+    gathered key rows' indices. 0 for a head dim with no instance."""
+    if d not in KERNEL_HEAD_DIMS:
+        return 0
+    dv = min(d, SPLIT_WIDTH)
+    rows, keys, pstr = BSP_ROWS, BSP_KEYS, BSP_ROWS + 16
+    if itemsize == 2:
+        tile = 64 * d * 2
+        if kind == "fwd":
+            return tile + 2 * (tile + 64 * dv * 2) + 1024
+        if kind == "dq":
+            return 6 * tile + 1024
+        if kind == "dkv":
+            return 6 * tile + 2 * 3 * 64 * 4 + 1024
+    else:
+        if kind == "fwd":
+            ds = d + 4
+            return 4 * (rows * ds + keys * ds + rows * pstr) + 4 * keys
+        ds = dv + 4
+        if kind == "dq":
+            return 4 * (2 * rows * ds + 2 * keys * ds + keys * pstr + 2 * rows) + 4 * keys
+        if kind == "dkv":
+            return 4 * (2 * keys * ds + 2 * rows * ds + 2 * keys * pstr + 2 * rows + keys)
+    raise ValueError(f"unknown block-sparse kernel {kind!r} (fwd | dq | dkv)")

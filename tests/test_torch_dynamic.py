@@ -6,11 +6,12 @@ Plans, host only: for the JAX package's own solver masks
 a shared prefix over 128 tokens, chunks of 16) at cp 2 and 4, the port's
 ``make_dynamic_attn_plan`` equals the JAX package's field by field (the
 three casts, every rank's band slices, the merge index, the lengths and
-the solver state) for every algorithm but ``BINARY_GREEDY_PARALLEL``,
-whose JAX plan comes from its native solver when that builds: the port's
-assignment of that one is held against the JAX package's numpy path
-(``_solve_numpy``) on the same tiles. Two successive masks of one family
-go through the incremental re-solve in both packages.
+the solver state) for every algorithm. ``BINARY_GREEDY_PARALLEL`` solves
+in the port's native host backend, whose stable tile order places tiles as
+its numpy path does; the JAX package's native solver orders equal-area
+tiles otherwise (``std::sort``), so the port is held against the JAX
+package's numpy path (``_solve_numpy``). Two successive masks of one
+family go through the incremental re-solve in both packages.
 
 The pipeline over gloo: for cp 2 and 4, one process per rank (spawned, a
 file-store ``init_method``) runs ``magi_attn_flex_key -> dispatch ->
@@ -86,7 +87,7 @@ PLAN_MASKS = {
     "varlen_full": ([[0, 48], [48, S]], [[0, 48], [48, S]], [0, 0]),
     "shared_prefix": ([[0, 64], [64, S], [64, S]], [[0, 64], [0, 64], [64, S]], [1, 0, 1]),
 }
-WHOLE_PLAN_ALGS = [a for a in DynamicAttnAlgType if a != DynamicAttnAlgType.BINARY_GREEDY_PARALLEL]
+WHOLE_PLAN_ALGS = list(DynamicAttnAlgType)
 
 PORT = (AttnRanges, AttnMaskType, DistAttnConfig, DynamicAttnConfig, DynamicAttnAlgType,
         port_meta, make_dynamic_attn_plan)
@@ -107,7 +108,11 @@ def _plan(pkg, mask, cp, alg=DynamicAttnAlgType.BINARY_GREEDY, prev_state=None):
 @pytest.mark.parametrize("cp", [2, 4])
 @pytest.mark.parametrize("alg", WHOLE_PLAN_ALGS, ids=lambda a: a.value)
 @pytest.mark.parametrize("name", sorted(PLAN_MASKS))
-def test_dynamic_plans_equal_jax(name, alg, cp):
+def test_dynamic_plans_equal_jax(name, alg, cp, monkeypatch):
+    from magiattention_tpu.meta.solver import algorithms as jax_algs
+
+    # the JAX package's numpy path (its native one orders tied tiles otherwise)
+    monkeypatch.setattr(jax_algs.BinaryGreedyParallelAlg, "_solve_native", lambda *a: None)
     port = _plan(PORT, PLAN_MASKS[name], cp, alg)
     ref = _plan(JAX, PLAN_MASKS[name], cp, alg)
     assert_same_fields(port, ref, f"{name} {alg.value} cp{cp}")
@@ -140,20 +145,26 @@ def _bucket_rows(buckets) -> list[list[tuple]]:
 @pytest.mark.parametrize("cp", [2, 4])
 @pytest.mark.parametrize("name", sorted(PLAN_MASKS))
 def test_binary_greedy_parallel_matches_jax_numpy_path(name, cp):
-    """The port's BinaryGreedyParallel (numpy only) assigns every tile as
-    the JAX package's numpy path does on the same tiles."""
+    """The port's BinaryGreedyParallel (its native solve) assigns every
+    tile as its own numpy path and the JAX package's numpy path do on the
+    same tiles."""
     from magiattention_tpu.common import rectangle as jax_rect
     from magiattention_tpu.meta.solver import algorithms as jax_algs
     from magiattention_tpu_torch.common import rectangle as port_rect
+    from magiattention_tpu_torch.csrc_backend import ops as host_ops
     from magiattention_tpu_torch.meta.solver import algorithms as port_algs
+    from magiattention_tpu_torch.meta.solver.algorithms.base import cut_to_tiles
 
     mask = PLAN_MASKS[name]
     rects, ctx = _tiles_and_ctx(port_algs, AttnRanges, AttnMaskType, port_rect, port_meta, mask, cp)
+    host_ops.CALLS.clear()
     got = port_algs.BinaryGreedyParallelAlg().solve(rects, ctx)
+    assert host_ops.CALLS.get("binary_greedy_solve") == 1
+    numpy_path = port_algs.BinaryGreedyParallelAlg()._solve_numpy(cut_to_tiles(rects, ctx), ctx)
     j_rects, j_ctx = _tiles_and_ctx(jax_algs, JaxRanges, JaxMaskType, jax_rect, jax_meta, mask, cp)
     tiles = jax_algs.cut_to_tiles(j_rects, j_ctx)
     want = jax_algs.BinaryGreedyParallelAlg()._solve_numpy(tiles, j_ctx)
-    assert _bucket_rows(got) == _bucket_rows(want)
+    assert _bucket_rows(got) == _bucket_rows(numpy_path) == _bucket_rows(want)
     assert sum(b.area() for b in got) == rects.area()
 
 

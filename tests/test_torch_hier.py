@@ -390,7 +390,10 @@ def test_hier_cast_matches_flat(mask):
     """Each stage's two-phase cast alone: buffers bitwise equal to the flat
     cast's, the backward within float32 1e-6 of the flat GroupReduce; under
     the high-precision reduce on bf16 rows, both forwards send bf16, both
-    backwards float32, and the float32 buffers are the bf16 ones upcast."""
+    backwards float32, and the float32 buffers are the bf16 ones upcast.
+    Each plan lists the exchanges its cast issues (``exchanges``, what a
+    failed rank's completion issues: two phases two-level, one flat), with
+    rows matching the splits."""
     got = [_port(mask, r) for r in range(4)]
     stages = sorted({k.split("_")[1] for k in got[0].files if k.startswith("buf_f")})
     assert stages
@@ -407,6 +410,12 @@ def test_hier_cast_matches_flat(mask):
                 assert set(g[f"bwd_wire_{name}{st}_hp"]) == {"torch.float32"}
                 assert set(g[f"fwd_wire_{name}{st}_f32"]) == {"torch.float32"}
             assert len(g[f"fwd_wire_h{st}_hp"]) == 2  # phase A, phase B
+            for name in ("f", "h"):
+                for tag in ("f32", "hp"):
+                    listed = g[f"listed_{name}{st}_{tag}"]
+                    assert len(listed) == int(g[f"issued_{name}{st}_{tag}"]) == (2 if name == "h" else 1)
+                    assert np.array_equal(listed[:, 0], listed[:, 2])
+                    assert np.array_equal(listed[:, 1], listed[:, 3])
 
 
 def test_plan_cache_never_mixes_flat_and_two_level():

@@ -113,6 +113,17 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.resilience.guards",
         "magiattention_tpu_torch.resilience.fallback",
         "magiattention_tpu_torch.resilience.watchdog",
+        "magiattention_tpu_torch.analysis.lint",
+        "magiattention_tpu_torch.analysis.kernel_check",
+        "magiattention_tpu_torch.testing.ref_attn",
+        "magiattention_tpu_torch.testing.gt_dispatcher",
+        "magiattention_tpu_torch.testing.flag_generator",
+        "magiattention_tpu_torch.testing.precompile",
+        "magiattention_tpu_torch.common.protocols",
+        "magiattention_tpu_torch.csrc_backend",
+        "magiattention_tpu_torch.csrc_backend.build",
+        "magiattention_tpu_torch.csrc_backend.ops",
+        "magiattention_tpu_torch.csrc_backend.ranges",
         "chip_smoke",
     ):
         assert module in loaded, module

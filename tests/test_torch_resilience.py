@@ -21,6 +21,15 @@
   hop once (the agreed retry), each bitwise its run pinned at that rung.
 - On the card (``fallback.on_card`` faked on the CPU) a failing kernel
   never hands its step to a plain rung.
+- The ``step_retry`` site: the retry hop's own fault, recovered under
+  MAGI_ATTENTION_FALLBACK=1 like JAX's, typed without it; so the
+  ``rank_health_read`` and ``weighted_solve`` sites (every site of
+  ``INJECTION_SITES`` has a recover-or-raise test here or in
+  ``test_torch_plan_store.py``: the linter's L005 corpus).
+- C9's forward half: a gloo cp 2 world in which rank 1 alone fails before
+  its last forward collective (three points, two errors), recovered by the
+  agreed retry on both ranks, bitwise the unfaulted step
+  (``torch_port_cases.c9_worker``).
 """
 
 import os
@@ -340,6 +349,33 @@ def test_nan_output_guard(monkeypatch):
     assert np.isfinite(_port_step(_port_mgr())).all()
 
 
+STEP_RETRY_ENV = {"MAGI_ATTENTION_STEP_RETRIES": "1", "MAGI_ATTENTION_NUMERIC_GUARD": "raise",
+                  "MAGI_ATTENTION_FAULT_INJECT": "nan_output:count=1,step_retry:p=1.0"}
+
+
+def test_step_retry_hop_fault_recovers(monkeypatch):
+    """The ``step_retry`` site (JAX's ``test_straggler_chaos.py``
+    ``TestStepRetry``): the watchdog's retry hop itself faults, and under
+    MAGI_ATTENTION_FALLBACK=1 the hop goes on; the step's output is within
+    float32 1e-5 of JAX's for the same scenario and of the unfaulted step."""
+    base = _port_step(_port_mgr())
+    _both(monkeypatch, {**STEP_RETRY_ENV, "MAGI_ATTENTION_FALLBACK": "1"})
+    got, want = _port_step(_port_mgr()), _jax_step(_jax_mgr())
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, base, **TOL)
+    assert telemetry.counters("resilience.").get("resilience.fallback", 0) == 1
+
+
+def test_step_retry_raises_typed_without_fallback(monkeypatch):
+    """Without MAGI_ATTENTION_FALLBACK the retry hop's fault raises JAX's
+    typed ``InjectedFault`` naming the site, in both packages."""
+    _both(monkeypatch, STEP_RETRY_ENV)
+    with pytest.raises(jerr.InjectedFault, match="step_retry"):
+        _jax_step(_jax_mgr())
+    with pytest.raises(perr.InjectedFault, match="step_retry"):
+        _port_step(_port_mgr())
+
+
 def test_watchdog_retries_the_next_rung_and_quarantines(monkeypatch):
     base = _port_step(_port_mgr())
     _both(monkeypatch, {"MAGI_ATTENTION_STEP_RETRIES": "1",
@@ -548,15 +584,25 @@ class _WatchedRuntime:
     agreement hook logs the flag this rank sends and answers with the
     group's MAX, the peer's outcomes taken from ``peer`` (one a call,
     False when it runs out); ``comm_done`` False: the failure comes before
-    the step's last forward collective."""
+    the step's last forward collective, and ``complete_fwd_comm`` (logged
+    in ``completed``) issues the rest, or fails where ``complete_fails``."""
 
-    def __init__(self, cp_size: int, fail, peer=(), comm_done: bool = True) -> None:
+    def __init__(self, cp_size: int, fail, peer=(), comm_done: bool = True,
+                 complete_fails: bool = False) -> None:
         self.cp_size, self._fail = cp_size, [fail]
         self._backend, self._backend_override = "ffa", None
         self._auto_tile_pending = False
         self._peer, self._comm_done = list(peer), comm_done
+        self._complete_fails = complete_fails
         self.backends: list[str] = []
         self.sent: list[bool] = []
+        self.completed: list[str] = []
+
+    def complete_fwd_comm(self, q, k, v) -> None:
+        self.completed.append(self.backend)
+        if self._complete_fails:
+            raise RuntimeError("the completion's own exchange failed")
+        self._fwd_comm_done = True
 
     @property
     def backend(self) -> str:
@@ -613,16 +659,28 @@ def test_watchdog_at_cp2_follows_a_peer(monkeypatch, peer):
     assert watchdog._trips[(watchdog._canonical(watchdog._decision_key(rt)), "ffa")] == 1
 
 
+@pytest.mark.parametrize("complete_fails", [False, True])
 @pytest.mark.parametrize("err", [_build.KernelLaunchError("x", 9), torch.cuda.OutOfMemoryError("oom")])
-def test_watchdog_at_cp2_raises_before_the_last_collective(monkeypatch, err):
+def test_watchdog_at_cp2_raises_before_the_last_collective(monkeypatch, err, complete_fails):
     """A launch error or an out-of-memory raised before the step's last
-    forward collective may leave a peer waiting inside it: no agreement
-    can reach that peer, so it raises, typed, with no flag sent."""
+    forward collective: the rank first issues the collectives it did not
+    reach (``complete_fwd_comm``, once), then agrees on the failure and
+    moves to the next rung with its peers. Where the completion itself
+    fails, no agreement can reach a waiting peer: it raises the attempt's
+    error, typed, with no flag sent."""
     monkeypatch.setenv("MAGI_ATTENTION_STEP_RETRIES", "1")
-    rt = _WatchedRuntime(2, err, comm_done=False)
-    with pytest.raises(type(err)):
+    rt = _WatchedRuntime(2, err, comm_done=False, complete_fails=complete_fails)
+    before = telemetry.counters("resilience.").get("resilience.fwd_comm_completed", 0)
+    if complete_fails:
+        with pytest.raises(type(err)):
+            run_calc_attn(rt, _Q, None, None)
+        assert rt.backends == ["ffa"] and rt.sent == [] and rt._backend_override is None
+    else:
         run_calc_attn(rt, _Q, None, None)
-    assert rt.backends == ["ffa"] and rt.sent == [] and rt._backend_override is None
+        assert rt.backends == ["ffa", "sdpa"] and rt.sent == [True, False]
+    assert rt.completed == ["ffa"]
+    after = telemetry.counters("resilience.").get("resilience.fwd_comm_completed", 0)
+    assert after - before == int(not complete_fails)
 
 
 def test_watchdog_off_adds_no_collective(monkeypatch):
@@ -632,6 +690,20 @@ def test_watchdog_off_adds_no_collective(monkeypatch):
     rt = _WatchedRuntime(2, None)
     run_calc_attn(rt, _Q, None, None)
     assert rt.backends == ["ffa"] and rt.sent == []
+
+
+@pytest.mark.parametrize("retries", ["0", "1"])
+def test_clean_step_completes_nothing(monkeypatch, retries):
+    """A step that does not fail completes no collective and issues no
+    exchange, with the watchdog on or off."""
+    from magiattention_tpu_torch.comm import primitives
+
+    monkeypatch.setenv("MAGI_ATTENTION_STEP_RETRIES", retries)
+    rt = _WatchedRuntime(2, None)
+    mark = primitives.exchanges_issued()
+    run_calc_attn(rt, _Q, None, None)
+    assert rt.completed == [] and primitives.exchanges_issued() == mark
+    assert rt.sent == ([False] if retries == "1" else [])
 
 
 def test_step_retries_keys_the_runtime(monkeypatch):
@@ -684,3 +756,119 @@ def test_chip_smoke_refuses_a_resilience_flag():
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 1 and flag in proc.stderr, proc.stderr
         assert proc.stdout == ""
+
+
+# ---------------------------------------------------------------------------
+# C9's forward half at cp 2 over gloo: rank 1 alone fails before its last
+# forward collective
+# ---------------------------------------------------------------------------
+
+
+def test_cp2_failure_before_the_last_forward_collective_is_recovered():
+    """Rank 1 alone raises a launch error or an out-of-memory before the
+    static runtime's casts, between its casts and the max-logits
+    all-reduce, and in the qo-comm runtime before its return cast. It
+    issues the collectives it did not reach, both ranks agree and retry
+    once (the card's rungs: ``ffa`` again), and every rank's out, lse,
+    gradients and max-logits are bitwise its unfaulted step. The group's
+    timeout and the join's bound a regression to a failure, not a hang."""
+    import time
+
+    from tests.torch_port_cases import C9_ERRORS, C9_POINTS, c9_worker
+
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(c9_worker, args=(2, os.path.join(d, "init"), d), nprocs=2,
+                                 start_method="spawn", join=False)
+        deadline = time.monotonic() + 240
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                pytest.fail("the cp 2 world hung")
+        rows = [np.load(os.path.join(d, f"rank{r}.npz"))["rows"] for r in range(2)]
+    n = len(C9_POINTS) * len(C9_ERRORS)
+    for r in range(2):
+        assert rows[r].shape == (n, 5)
+        # bitwise, the fault fired (disarmed), completions, retries, recoveries
+        want = [1, 0, int(r == 1), 1, 1]
+        assert all(list(row) == want for row in rows[r]), (r, rows[r])
+
+
+# ---------------------------------------------------------------------------
+# the straggler sites: rank_health_read and weighted_solve, recover-or-raise
+# as in JAX's tests/test_resilience/test_straggler_chaos.py
+# ---------------------------------------------------------------------------
+
+
+def _degraded_health(mod, cp=4):
+    """A persistent straggler on the last rank of ``cp`` (fake clock)."""
+    mod.reset()
+    for _ in range(8):
+        for r in range(cp - 1):
+            mod.observe_step(r, 10.0)
+        mod.observe_step(cp - 1, 40.0)
+
+
+@pytest.mark.parametrize("fallback", [True, False])
+def test_rank_health_read_recovers_or_raises_like_jax(monkeypatch, fallback):
+    """A faulted capacity read degrades to the uniform vector (None) under
+    MAGI_ATTENTION_FALLBACK=1, else raises the typed ``InjectedFault``, as
+    in the JAX package; unfaulted, both read the same degraded vector."""
+    from magiattention_tpu.telemetry import health as jhealth
+    from magiattention_tpu_torch.telemetry import health as phealth
+
+    monkeypatch.setenv("MAGI_ATTENTION_STRAGGLER_DETECT", "1")
+    try:
+        for mod in (jhealth, phealth):
+            _degraded_health(mod)
+        assert phealth.active_capacities(4) == jhealth.active_capacities(4) is not None
+        _both(monkeypatch, {"MAGI_ATTENTION_FAULT_INJECT": "rank_health_read:p=1.0",
+                            **({"MAGI_ATTENTION_FALLBACK": "1"} if fallback else {})})
+        if fallback:
+            assert phealth.active_capacities(4) is None and jhealth.active_capacities(4) is None
+        else:
+            with pytest.raises(jerr.InjectedFault, match="rank_health_read"):
+                jhealth.active_capacities(4)
+            with pytest.raises(perr.InjectedFault, match="rank_health_read"):
+                phealth.active_capacities(4)
+    finally:
+        jhealth.reset()
+        phealth.reset()
+
+
+@pytest.mark.parametrize("fallback", [True, False])
+def test_weighted_solve_recovers_or_raises_like_jax(monkeypatch, fallback):
+    """A faulted weighted solve degrades to the uniform partitions under
+    MAGI_ATTENTION_FALLBACK=1 (the port's equal the JAX package's and the
+    unweighted solve's), else raises the typed ``InjectedFault``."""
+    from magiattention_tpu.common.enum import AttnMaskType as JType
+    from magiattention_tpu.common.enum import DispatchAlgType as JAlg
+    from magiattention_tpu.common.ranges import AttnRanges as JRanges
+    from magiattention_tpu.config import DispatchConfig as JConfig
+    from magiattention_tpu.meta import make_dispatch_meta_from_qk_ranges as j_meta
+    from magiattention_tpu_torch.common.enum import AttnMaskType, DispatchAlgType
+    from magiattention_tpu_torch.common.ranges import AttnRanges
+    from magiattention_tpu_torch.config import DispatchConfig
+    from magiattention_tpu_torch.meta import make_dispatch_meta_from_qk_ranges as p_meta
+
+    def solve(pkg, caps=None):
+        ranges, mtype, alg, config, meta = pkg
+        mq, _, _ = meta(ranges.from_ranges([[0, S]]), ranges.from_ranges([[0, S]]), [mtype.CAUSAL],
+                        S, S, CHUNK, 4, dispatch_config=config(alg=alg.MIN_HEAP), capacities=caps)
+        return [list(p) for p in mq.partitions]
+
+    port = (AttnRanges, AttnMaskType, DispatchAlgType, DispatchConfig, p_meta)
+    jax_ = (JRanges, JType, JAlg, JConfig, j_meta)
+    torch_port_cases.warm_jax_native()
+    base = solve(port)
+    assert base == solve(jax_)
+    caps = [1.0, 1.0, 1.0, 0.25]
+    _both(monkeypatch, {"MAGI_ATTENTION_FAULT_INJECT": "weighted_solve:p=1.0",
+                        **({"MAGI_ATTENTION_FALLBACK": "1"} if fallback else {})})
+    if fallback:
+        assert solve(port, caps) == solve(jax_, caps) == base
+    else:
+        with pytest.raises(jerr.InjectedFault, match="weighted_solve"):
+            solve(jax_, caps)
+        with pytest.raises(perr.InjectedFault, match="weighted_solve"):
+            solve(port, caps)

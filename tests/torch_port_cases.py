@@ -809,7 +809,7 @@ def hier_worker(rank: int, world: int, init_file: str, out_dir: str, masks: list
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world)
     from magiattention_tpu_torch import api
     from magiattention_tpu_torch.api.magi_attn_interface import _mgr
-    from magiattention_tpu_torch.comm.primitives import group_cast_all
+    from magiattention_tpu_torch.comm.primitives import exchanges_issued, group_cast_all
     from magiattention_tpu_torch.parallel import ProcessMesh
 
     try:
@@ -853,9 +853,11 @@ def hier_worker(rank: int, world: int, init_file: str, out_dir: str, masks: list
                         a2a, rec = _recording_all_to_all(log)
                         dist.all_to_all_single = rec
                         try:
+                            mark = exchanges_issued()
                             parts, waits = group_cast_all(xg, [plan], group, hp)
                             waits[0]()
                             fwd_log = list(log)
+                            issued = exchanges_issued() - mark
                             (parts[1] * y).sum().backward()
                         finally:
                             dist.all_to_all_single = a2a
@@ -863,6 +865,12 @@ def hier_worker(rank: int, world: int, init_file: str, out_dir: str, masks: list
                         extra[f"buf_{tag}"] = parts[1].detach().float().numpy()
                         extra[f"grad_{tag}"] = xg.grad.float().numpy()
                         extra[f"fwd_wire_{tag}"] = np.asarray(fwd_log)
+                        # the exchanges the plan lists for a completion
+                        # (rows out, rows in, their splits' sums) and the
+                        # count the cast issued
+                        extra[f"listed_{tag}"] = np.asarray(
+                            [(o, i, sum(os_), sum(is_)) for o, i, os_, is_, _ in plan.exchanges(group)])
+                        extra[f"issued_{tag}"] = issued
                         extra[f"bwd_wire_{tag}"] = np.asarray(log[len(fwd_log):])
             np.savez(os.path.join(out_dir, f"{mask}_{rank}.npz"),
                      **{f"{k}_{n}": a for k, v in res.items()
@@ -1834,3 +1842,95 @@ def plan_file_worker(role: str, directory: str, out_dir: str) -> None:
             with open(path, "rb") as f:
                 healed = f.read() == pristine
     np.savez(os.path.join(out_dir, f"{role}.npz"), out=out, sources=np.array(sources), healed=healed)
+
+
+# ---------------------------------------------------------------------------
+# C9's forward half (tests/test_torch_resilience.py): a cp 2 gloo world in
+# which rank 1 alone fails before its last forward collective
+# ---------------------------------------------------------------------------
+
+C9_POINTS = ("before_casts", "before_max_logits", "qo_before_return_cast")
+C9_ERRORS = ("launch", "oom")
+
+
+def _fail_once(owner, name: str, err: BaseException, armed: list) -> None:
+    """Make ``owner.name`` raise ``err`` at its first call while ``armed``
+    holds True (then disarm); every other call runs the original."""
+    orig = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        if armed and armed[0]:
+            armed[0] = False
+            raise err
+        return orig(*args, **kwargs)
+
+    setattr(owner, name, wrapper)
+
+
+def c9_worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One rank of a gloo group (a 60 s timeout: an unissued collective
+    fails the run instead of hanging it) under MAGI_ATTENTION_STEP_RETRIES=1
+    with the card's rungs (``fallback.on_card`` True: the retry runs ``ffa``
+    again). For each point of ``C9_POINTS`` and error of ``C9_ERRORS``:
+    the unfaulted step, then the same step with rank 1 alone raising the
+    error there (a ``KernelLaunchError`` or a CUDA out-of-memory): before
+    the static runtime's casts (at its head check), between its casts and
+    the max-logits all-reduce (the parts' forward), and in the qo-comm
+    runtime between its q/kv casts and its return cast (its forward step).
+    Writes whether out, lse, dq, dk, dv and max-logits are bitwise the
+    unfaulted step's, and the rank's completions, retries and recoveries,
+    to ``out_dir/rank<r>.npz``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    from magiattention_tpu_torch import api, telemetry
+    from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.functional import dist_attn, dynamic_dist_attn
+    from magiattention_tpu_torch.kernels._build import KernelLaunchError
+    from magiattention_tpu_torch.resilience import fallback, watchdog
+
+    fallback.on_card = lambda t: True
+    armed = [False]
+    errors = {"launch": KernelLaunchError("injected launch failure", 9),
+              "oom": torch.cuda.OutOfMemoryError("injected out of memory")}
+    sites = {"before_casts": (dist_attn.DistAttnRuntime, "_check_heads"),
+             "before_max_logits": (dist_attn, "_parts_fwd"),
+             "qo_before_return_cast": (dynamic_dist_attn.DynamicDistAttnRuntime, "fwd_step")}
+    originals = {p: getattr(*s) for p, s in sites.items()}
+    arrays = cp_inputs(9)
+    rows = []
+    try:
+        for point in C9_POINTS:
+            env = {"MAGI_ATTENTION_STEP_RETRIES": "1", "MAGI_ATTENTION_QO_COMM":
+                   "1" if point.startswith("qo") else None}
+            ml = point != "before_casts"
+            with scoped_env(env):
+                key = api.magi_attn_flex_key(
+                    [(0, CP_SEQ)], [(0, CP_SEQ)], [1], CP_SEQ, CP_SEQ, cp_group=dist.group.WORLD,
+                    device="cpu", chunk_size=CP_CHUNK,
+                )
+                clean, clean_ml = _api_fwd_bwd(key, arrays, max_logits=ml)
+                for name in C9_ERRORS:
+                    owner, attr = sites[point]
+                    setattr(owner, attr, originals[point])
+                    _fail_once(owner, attr, errors[name], armed)
+                    watchdog.reset()
+                    armed[0] = rank == 1
+                    before = telemetry.counters("resilience.")
+                    got, got_ml = _api_fwd_bwd(key, arrays, max_logits=ml)
+                    after = telemetry.counters("resilience.")
+                    setattr(owner, attr, originals[point])
+                    same = all(np.array_equal(a, b) for a, b in zip(got, clean)) and (
+                        not ml or np.array_equal(got_ml, clean_ml))
+                    rows.append([int(same), int(armed[0])] + [
+                        after.get(f"resilience.{c}", 0) - before.get(f"resilience.{c}", 0)
+                        for c in ("fwd_comm_completed", "retry", "recovered")])
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), rows=np.array(rows))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
