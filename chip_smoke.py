@@ -5,8 +5,9 @@ paths on one NVIDIA H100.
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and ``nvcc``; it builds the port's kernels from ``csrc/`` first.
 To iterate on one kernel, call its phase alone (kernels build at first
-use), e.g. ``python3 -c "import torch, chip_smoke as c;
-c.ffa_bwd_phase(c.card_peaks(torch.cuda.get_device_name(0)))"``.
+use), e.g. ``python3 -c "import torch, chip_smoke as c; from
+magiattention_tpu_torch.benchmarking.perf_report import card_peaks;
+c.ffa_bwd_phase(card_peaks(torch.cuda.get_device_name(0)))"``.
 
 Phases, each printing JSON lines (any failure raises, exit code != 0):
 
@@ -220,12 +221,27 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     planners (0/0): plans array-equal, the deterministic step's out, lse
     and gradients bitwise (the unpinned step's too but for the fused dq),
     each way's ``plan_s``.
+    ``benchmarking`` (after ``native_host``): the port's harness
+    (``benchmarking/``) on the card. A body with a host sync must refuse
+    capture; a replay's fixed cost; the bf16 matmul ceiling (a chained
+    8192^3 ``torch.matmul`` through ``do_bench_scan_slope``, at most the
+    data-sheet peak and ``MEASURED_CEILING_TFLOPS`` x 1.05); the headline
+    forward (``flex_flash_attn_func``) by ``do_bench`` (:func:`time_ms`
+    beside it; the event pairs within 15% of the host clock on the same
+    calls) and by the slope within 15% of :func:`graph_ms`; the headline
+    forward + backward's slope within 15% of its ``graph_ms``, the
+    backward mode and both rates; no slope under its floor (the noise
+    guard reported); a ``perf_report`` sweep over seqlen 4096 / 8192,
+    causal / full at Llama-3.1-8B attention widths (every cell finite,
+    the causal 8192 cell within 15% of a direct ``do_bench`` of it)
+    written through ``append_row`` / ``history_report`` into a scratch
+    history.
 15. ``kernels``: one line per-kernel summary (launches from the serve,
     train or nsa phase plus qo_comm, cp_baselines and usp_nsa, error,
     kernel / plain / library time and the card's bound; launches also
     from cp_hier_tp, decode_sharded, serve_int8's spec pass, the remat
-    step, moe, video_dit, observability, resilience, plan_tiers and
-    native_host).
+    step, moe, video_dit, observability, resilience, plan_tiers,
+    native_host and benchmarking).
 
 It refuses to start when MAGI_ATTENTION_FALLBACK, _FAULT_INJECT,
 _NUMERIC_GUARD, _STEP_RETRIES or _STRAGGLER_DETECT is set: its resilience
@@ -304,13 +320,6 @@ ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RNORM = {"float32": 1e-5, "bfloat16": 1e-2}
 SERVE_ATOL, SERVE_RNORM = 1e-4, 1e-5
 
-# (name substring, bf16 dense TFLOP/s, fp32 CUDA-core TFLOP/s, TF32 dense
-# TFLOP/s, HBM TB/s)
-PEAKS = (
-    ("H100 NVL", 835e12, 60e12, 417.5e12, 3.9e12),
-    ("H100 PCIe", 756e12, 51e12, 378e12, 2.0e12),
-    ("H100", 989e12, 67e12, 494.7e12, 3.35e12),  # SXM5 (HBM3)
-)
 # tf32 products a pair of the float32 forward (csrc/ffa_fwd_tf32.cuh)
 TF32_PRODUCTS = 3
 
@@ -324,14 +333,6 @@ def nvidia_smi(fields: str) -> str:
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-
-
-def card_peaks(name: str) -> dict:
-    for key, bf16, f32, tf32, bw in PEAKS:
-        if key in name:
-            return {"form": key, "bfloat16": bf16, "float32": f32, "tfloat32": tf32,
-                    "bytes_s": bw}
-    raise RuntimeError(f"no peak figures for card {name!r}")
 
 
 def time_ms(fn, warmup: int = 3, samples: int = 10) -> float:
@@ -8478,6 +8479,234 @@ def native_host_phase(device: str = "cuda", seq: int = HEAD_SEQ) -> dict:
     return row
 
 
+BENCH_LENGTHS = (24, 96)  # the slope's two chain lengths
+BENCH_SLACK = 0.15  # the harness against chip_smoke's own timers, same call
+CEILING_N = 8192  # the matmul ceiling's square operands
+SWEEP_HQ = 32  # Llama-3.1-8B's q heads (kv heads 8, head dim 128)
+
+
+def _near(what: str, got: float, want: float, failures: list) -> float:
+    """``got / want - 1``; a failure noted where it is beyond
+    :data:`BENCH_SLACK`."""
+    rel = got / want - 1.0
+    if not abs(rel) <= BENCH_SLACK:
+        failures.append(f"{what}: {got:.4f} against {want:.4f} ({rel:+.1%})")
+    return rel
+
+
+def benchmarking_phase(device: str = "cuda", seq: int = HEAD_SEQ, mm_n: int = CEILING_N) -> dict:
+    """The port's benchmark harness (``benchmarking/``) on the card, at the
+    headline shape (bench.py:5-6: bf16, causal, ``seq`` tokens, hq 16, hk
+    8, d 128) through ``flex_flash_attn_func`` (B1, B7, B8/B9; B3, B5/B6
+    where the backward resolves split):
+
+    0. a body with a host sync refuses capture; the fixed cost of one
+       replay (the slope of a chained one-element add, and each rep's
+       implied fixed cost);
+    1. the bf16 matmul ceiling: ``c -> c @ w`` on ``mm_n``-square operands
+       through ``do_bench_scan_slope`` at :data:`BENCH_LENGTHS`, at most
+       ``PEAK_TFLOPS`` and ``MEASURED_CEILING_TFLOPS`` x 1.05;
+    2. the forward by ``do_bench_flops`` (an event pair a call, synchronized
+       after it: host included), :func:`time_ms` beside it (a batch of
+       calls: the host's launches overlap the device, so it is the larger
+       of the two, not their sum; the host clock drifts between the two
+       runs); ``do_bench`` of the call wrapped in a host clock and a
+       synchronize against that clock on the same calls; the slope of
+       ``make_fwd_kv_body`` (graph replays, device only; floor
+       ``credible_floor_ms`` of its flops) against :func:`graph_ms`;
+    3. the forward + backward's slope (``make_consume_all_grads_kv_body``
+       over ``torch.autograd.grad``, floor from the executed flops of the
+       mode that ran: 3.5x the forward fused, 4.5x split) against its
+       ``graph_ms``; the carry and the touch term finite;
+    4. a ``perf_report`` sweep (seqlen ``seq`` / 2 and ``seq``, causal
+       and full, Llama-3.1-8B attention widths, ``do_bench_flops``
+       TFLOP/s) saved as CSV, two ``append_row`` into a scratch
+       ``HISTORY_DIR`` and its ``history_report``.
+
+    Each comparison is held to :data:`BENCH_SLACK`, and no slope may fall
+    under its floor. The noise guard's outcome is reported with each rep's
+    totals and implied fixed cost, not gated: a replay's fixed cost is far
+    below the run-to-run spread of a long chain, so the guard fires on
+    genuine pairs, and its fallback, the long chain's per-step time, is
+    held to :func:`graph_ms` all the same. The FFA kernels' launches are
+    counted from step 2 on (graph replays run no wrapper and are not
+    counted). On the CPU (a rehearsal) the harness takes its host path
+    and the card's timers are not run."""
+    import csv
+    import importlib
+    import os
+    import tempfile
+
+    import torch
+
+    from magiattention_tpu_torch.benchmarking import bench
+    from magiattention_tpu_torch.benchmarking.bench import Benchmark, do_bench_flops, perf_report
+    from magiattention_tpu_torch.functional import flex_flash_attn_func
+    from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
+
+    # the module: the package exports the decorator under the same name
+    pr = importlib.import_module("magiattention_tpu_torch.benchmarking.perf_report")
+    on_card = device == "cuda"
+    failures: list[str] = []
+    bf16 = torch.bfloat16
+
+    def slope(body, carry, flops_floor=None) -> tuple[float, dict]:
+        detail: dict = {}
+        ms = bench.do_bench_scan_slope(
+            body, carry, lengths=BENCH_LENGTHS, device=device, detail=detail,
+            min_credible_ms=None if flops_floor is None else pr.credible_floor_ms(flops_floor),
+        )
+        if on_card:
+            # each rep's implied fixed cost: what the noise guard tests
+            detail["fixed_ms"] = [tl - BENCH_LENGTHS[1] * s_
+                                  for tl, s_ in zip(detail["long_ms"], detail["slopes"])]
+            if detail["guard"] == "floor":
+                failures.append(f"slope under its credibility floor: {detail}")
+        return ms, detail
+
+    # 0. first: a refused capture must leave the process able to run the rest
+    x = torch.ones(8, device=device)
+    try:
+        bench._make_scan_runner(lambda c: c + c.sum().item(), x, 2, torch.device(device))
+        refused = False
+    except RuntimeError as e:
+        refused = "cannot be captured" in str(e)
+    if on_card and not refused:
+        failures.append("a body with a host sync was captured")
+
+    # the fixed cost of one replay: a one-element add chained
+    tiny_ms, tiny_detail = slope(lambda t: t + 1.0, torch.zeros(1, device=device))
+
+    # 1. the ceiling
+    gen = torch.Generator(device=device).manual_seed(61)
+    w = (torch.randn((mm_n, mm_n), generator=gen, device=device) / mm_n ** 0.5).to(bf16)
+    c0 = torch.randn((mm_n, mm_n), generator=gen, device=device).to(bf16)
+    mm_ms, mm_detail = slope(lambda c: c @ w, c0)
+    ceiling = 2 * mm_n ** 3 / (mm_ms * 1e-3) / 1e12
+    for what, limit in (("PEAK_TFLOPS", pr.PEAK_TFLOPS), ("MEASURED_CEILING_TFLOPS", pr.MEASURED_CEILING_TFLOPS)):
+        if ceiling > limit * 1.05:
+            failures.append(f"matmul ceiling {ceiling:.1f} TFLOP/s above {what} {limit} x 1.05")
+    del w, c0
+
+    # 2. the headline forward
+    if on_card:
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    (q, k, v), do = _headline_inputs(device, seq)
+    ranges, types = [[0, seq]], [1]
+    fwd_flops = 4 * (seq * (seq + 1) // 2) * HEAD_D * HEAD_HQ
+
+    def fwd(q, k, v):
+        return flex_flash_attn_func(q, k, v, ranges, ranges, types)[0]
+
+    ev_ms, ev_tflops = do_bench_flops(lambda: fwd(q, k, v), fwd_flops, device=device)
+    f_slope, f_detail = slope(bench.make_fwd_kv_body(fwd, bf16), (q, k, v), fwd_flops)
+    forward = dict(do_bench_ms=ev_ms, do_bench_tflops=ev_tflops, slope_ms=f_slope,
+                   slope_tflops=fwd_flops / (f_slope * 1e-3) / 1e12, slope=f_detail,
+                   floor_ms=pr.credible_floor_ms(fwd_flops))
+    if on_card:
+        walls: list[float] = []
+
+        def clocked():  # the same calls timed by the events and the host clock
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd(q, k, v)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+        forward["clocked_do_bench_ms"] = bench.do_bench(clocked, device=device)[0]
+        forward["clocked_wall_ms"] = statistics.median(walls[3:])  # after do_bench's warm-up
+        forward["clocked_vs_wall"] = _near("forward do_bench vs the host clock, same calls",
+                                           forward["clocked_do_bench_ms"], forward["clocked_wall_ms"], failures)
+        forward.update(time_ms=time_ms(lambda: fwd(q, k, v)), graph_ms=graph_ms(lambda: fwd(q, k, v)))
+        forward["do_bench_vs_time_ms"] = ev_ms / forward["time_ms"] - 1.0
+        forward["slope_vs_graph_ms"] = _near("forward slope vs graph_ms", f_slope, forward["graph_ms"], failures)
+
+    # 3. the headline forward + backward
+    def grads(q, k, v, do):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fwd(*leaves), leaves, do)
+
+    before = launch_counts()
+    dq, dk, dv = grads(q, k, v, do)
+    step_n = {k_: n - before[k_] for k_, n in launch_counts().items() if n > before[k_]}
+    mode = "fused" if step_n.get("ffa_bwd_fused") else "split"
+    exec_flops = fwd_flops * (3.5 if mode == "fused" else 3.5 * pr.HW_FWD_BWD_RATIO)
+    body = bench.make_consume_all_grads_kv_body(grads, bf16)
+    touch = (dk.sum() + dv.sum()) * 1e-30
+    carry = body((q, k, v, do))
+    if not (torch.isfinite(touch) and torch.isfinite(carry[0]).all()):
+        failures.append(f"fwd+bwd body not finite: touch {touch.item()}")
+    del dq, dk, dv, carry
+    b_slope, b_detail = slope(body, (q, k, v, do), exec_flops)
+    fwd_bwd = dict(mode=mode, launches_a_step=step_n, slope_ms=b_slope, slope=b_detail,
+                   floor_ms=pr.credible_floor_ms(exec_flops),
+                   tflops_reference=fwd_flops * 3.5 / (b_slope * 1e-3) / 1e12,
+                   tflops_executed=exec_flops / (b_slope * 1e-3) / 1e12)
+    if on_card:
+        fwd_bwd["graph_ms"] = graph_ms(lambda: grads(q, k, v, do))
+        fwd_bwd["slope_vs_graph_ms"] = _near("fwd+bwd slope vs graph_ms", b_slope, fwd_bwd["graph_ms"], failures)
+    del q, k, v, do
+
+    # 4. the perf_report sweep at Llama-3.1-8B attention widths
+    gen = torch.Generator(device=device).manual_seed(62)
+    seqlens = [seq // 2, seq]
+    sweep_in = {
+        s: [torch.randn((s, h, HEAD_D), generator=gen, device=device).to(bf16)
+            for h in (SWEEP_HQ, HEAD_HK, HEAD_HK)]
+        for s in seqlens
+    }
+
+    def sweep_point(seqlen: int, mask: str) -> tuple:
+        area = seqlen * (seqlen + 1) // 2 if mask == "causal" else seqlen * seqlen
+        r = [[0, seqlen]]
+        return (lambda: flex_flash_attn_func(*sweep_in[seqlen], r, r, [int(mask == "causal")])[0],
+                4 * area * HEAD_D * SWEEP_HQ)
+
+    @perf_report(Benchmark(x_names=["seqlen"], x_vals=seqlens, line_arg="mask",
+                           line_vals=["causal", "full"], line_names=["causal", "full"],
+                           plot_name="ffa_fwd_llama8b", args={}))
+    def sweep(seqlen: int, mask: str) -> float:
+        return do_bench_flops(*sweep_point(seqlen, mask), device=device)[1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "sweep.csv")
+        rows = sweep.run(print_data=False, save_path=csv_path)
+        with open(csv_path, newline="") as f:
+            csv_rows = len(list(csv.DictReader(f)))
+        direct = do_bench_flops(*sweep_point(seq, "causal"), device=device)[1]
+        cell = rows[-1]["causal"]
+        saved, pr.HISTORY_DIR = pr.HISTORY_DIR, os.path.join(tmp, "history")
+        try:
+            paths = [pr.append_row("ffa_fwd_llama8b", {"mask": "causal", "seqlen": seq, "fwd_tflops": t})
+                     for t in (cell, direct)]
+            report = pr.history_report("ffa_fwd_llama8b", ["mask", "seqlen"], "fwd_tflops")
+        finally:
+            pr.HISTORY_DIR = saved
+    if not all(isinstance(r[n], float) and np.isfinite(r[n]) for r in rows for n in ("causal", "full")):
+        failures.append(f"sweep cells not all finite: {rows}")
+    if csv_rows != len(seqlens) or not all(paths) or f"causal/{seq}" not in report:
+        failures.append(f"sweep history: csv rows {csv_rows}, append paths {paths}, report {report!r}")
+    sweep_row = dict(rows=rows, direct_causal_tflops=direct, report=report)
+    if on_card:
+        sweep_row["cell_vs_direct"] = _near(f"sweep causal {seq} vs do_bench", cell, direct, failures)
+        torch.cuda.synchronize()
+    launches = {k_: n for k_, n in launch_counts().items() if n}
+    if on_card and any(launches.get(p) for p in PLAIN_NAMES):
+        failures.append(f"a plain version ran: {launches}")
+
+    row = dict(shape=f"bf16 causal q [{seq}, {HEAD_HQ}, {HEAD_D}], k/v [{seq}, {HEAD_HK}, {HEAD_D}]",
+               lengths=list(BENCH_LENGTHS), capture_refused=refused,
+               replay_fixed=dict(step_ms=tiny_ms, slope=tiny_detail),
+               ceiling=dict(tflops=ceiling, slope_ms=mm_ms, slope=mm_detail, n=mm_n,
+                            peak_tflops=pr.PEAK_TFLOPS, measured_ceiling_tflops=pr.MEASURED_CEILING_TFLOPS),
+               forward=forward, fwd_bwd=fwd_bwd, sweep=sweep_row, launches=launches, failures=failures)
+    emit({"phase": "benchmarking", **row})
+    if failures:
+        raise AssertionError(f"benchmarking: {failures}")
+    return row
+
+
 def precompile_phase(build_s: float) -> dict:
     """``testing/precompile.py``: the seconds ``precompile_kernels`` took to
     build every kernel library (all ``nvcc`` processes at once) and the
@@ -8807,6 +9036,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
+        from magiattention_tpu_torch.benchmarking.perf_report import card_peaks
         from magiattention_tpu_torch.kernels import _build
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -8869,6 +9099,7 @@ def main() -> int:
     deterministic_phase()
     tiers = plan_tiers_phase()
     native = native_host_phase()
+    harness = benchmarking_phase()
     cp_stages_phase()
     qo = qo_comm_phase(cp_api)["launches"]
     cpb = cp_baselines_phase()["launches"]
@@ -8900,9 +9131,11 @@ def main() -> int:
     # (cp_hier_tp), usp_nsa_attn's (usp_nsa), the train phase's remat
     # step, the MoE and video DiT steps (moe, video_dit), the sharded
     # tree's step (shard_cp1), the plan tiers' steps (plan_tiers) and the
-    # headline steps planned natively and in Python (native_host)
+    # headline steps planned natively and in Python (native_host) and the
+    # harness's calls at the headline shape and the sweep's (benchmarking)
     paths = (qo, cpb, ht, usp, train["remat"]["launches"], moe_launches, dit_launches, shard,
-             obs["launches"], resil["launches"], tiers["launches"], native["launches"])
+             obs["launches"], resil["launches"], tiers["launches"], native["launches"],
+             harness["launches"])
     extra = {k_: sum(p.get(k_, 0) for p in paths) for k_ in set().union(*paths)}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body; int8 spec verify's too

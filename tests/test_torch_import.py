@@ -124,6 +124,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "magiattention_tpu_torch.csrc_backend.build",
         "magiattention_tpu_torch.csrc_backend.ops",
         "magiattention_tpu_torch.csrc_backend.ranges",
+        "magiattention_tpu_torch.benchmarking",
+        "magiattention_tpu_torch.benchmarking.bench",
+        "magiattention_tpu_torch.benchmarking.perf_report",
         "chip_smoke",
     ):
         assert module in loaded, module
