@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving, training, context-parallel and NSA
 paths on one NVIDIA H100.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-CUDA card and ``nvcc``; it builds the port's kernels from ``csrc/`` first.
+Run from the root of a checkout: ``python3 chip_smoke.py`` (``--parent
+DIR``: see phase 11). It needs one CUDA card and ``nvcc``; it builds the
+port's kernels from ``csrc/`` first.
 To iterate on one kernel, call its phase alone (kernels build at first
 use), e.g. ``python3 -c "import torch, chip_smoke as c; from
 magiattention_tpu_torch.benchmarking.perf_report import card_peaks;
@@ -159,15 +160,27 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     frames of 256 tokens under the block-causal video mask: three AdamW
     steps, step ms, tokens/s, a profiled step, and loss and gradients
     against the dense float32 twin at 8 frames.
-11. ``d256_kernels``: each family's 256 instance (the column split) timed
-    against its plain version and bound: B1 bf16 at Gemma-2-9B's attention
-    against SDPA with B2 (packed, 2 heads a CTA) on the same inputs, B1
-    float32 at the serving prefill shape, B3 + B5 and B8
-    against SDPA's backward alone (``bwd_mode``'s rule held at d 256), B10
-    on 8 slots in both dtypes. ``hybrid_d256``: Gemma-2-9B attention
-    (softcap 50) through the API, the global causal dispatch key and its
-    4096-token sliding window re-keyed onto it, fwd+bwd against the plain
-    versions, ms, bound and share per key.
+11. ``d256_kernels``: each family's 256 instance timed against its
+    plain version and bound. The bf16 forward and k-major backward write
+    all 256 columns from one CTA (no column split; the bf16 dq pass and
+    the float32 bodies keep it): B1 bf16 at Gemma-2-9B's attention at 64 x
+    64 (one warpgroup, two CTAs an SM) and 128 x 64 (two warpgroups), its
+    max logits, against SDPA, with B2 (packed, 2 heads a CTA) on the same
+    inputs bit for bit B1's; B1 float32 at the serving prefill shape; B3 +
+    B5 and B8 against SDPA's backward alone (``bwd_mode``'s rule held at d
+    256), the split dk/dv bit for bit the fused kernel's, B1 and B5 run
+    twice to the bit; the empty-row contract on the varlen mask (out 0,
+    lse -inf, unreached dk/dv and uncovered fused dq exactly 0); B10 on 8
+    slots in both dtypes. ``hybrid_d256``: Gemma-2-9B attention (softcap
+    50) through the API, the global causal dispatch key and its 4096-token
+    sliding window re-keyed onto it, fwd+bwd against the plain versions,
+    ms, bound and share per key. With ``--parent DIR`` (a parent commit's
+    ``magiattention_tpu_torch/csrc``, e.g. ``git archive <commit>
+    magiattention_tpu_torch/csrc | tar -x -C build/parent``) the
+    redesigned libraries are also built from it (``build/parent_kernels``)
+    and each redesigned instance, and each key's fwd+bwd, is timed beside
+    the parent's in turns on the same inputs (``paired_ms``), and the d-128
+    instances at the train shape are held bit for bit to the parent's.
 12. ``block_sparse``: the NSA selected-branch kernels B13 and B14 (its
     dq and dk/dv walks) against their plain versions over chunk tables
     with duplicate chunks: g 1, 2, 4, 8, head_dim 64, 128 and 256, float32
@@ -2722,8 +2735,9 @@ C4_DIMS = ((32, 32), (96, 96), (64, 128), (256, 256), (192, 128), (256, 128))
 
 def head_dim_cases(gen, worst: dict) -> dict[str, int]:
     """ROADMAP C4 and C4b: head dims other than 64 and 128 run padded with
-    zero columns to 64, 128 or 256 (``kernels/head_dims.py``; the 256
-    instances split the columns they write in two halves), within the
+    zero columns to 64, 128 or 256 (``kernels/head_dims.py``; at 256 the
+    bf16 dq pass and the float32 bodies split the columns they write in
+    two halves, the bf16 forward and k-major backward do not), within the
     float32 / bf16 tolerances of the plain versions on the unpadded
     tensors: d 32, d 96, d 64 with dv 128, d 256, d 192 with dv 128 and
     d 256 with dv 128, float32 and bf16, through FFA forward (and the
@@ -6044,22 +6058,93 @@ def serve_pinned_phase(ctx: dict) -> dict:
 # attn_logit_softcapping 50, sliding_window 4096, query_pre_attn_scalar 256
 GEMMA_SEQ, GEMMA_HQ, GEMMA_HK, GEMMA_D, GEMMA_SOFTCAP, GEMMA_WINDOW = 8192, 16, 8, 256, 50.0, 4096
 BWD_MODE_SLACK = 1.05  # bwd_mode's rule: the model's pick within 5% of the faster
+# the libraries whose d-256 bf16 instances were redesigned (no column
+# split): ``--parent DIR`` builds them from a parent's sources to time them
+# beside this tree's in one call
+PARENT_LIBRARIES = ("ffa_fwd", "ffa_fwd_gqa", "ffa_bwd_dkv", "ffa_bwd_fused")
 
 
-def d256_phase(peaks: dict) -> dict[str, dict]:
-    """Every kernel family's 256 instance timed at a main-path shape,
-    against its plain version, with its bound: B1 bf16 at Gemma-2-9B's
-    attention (q 8192 x 16 x 256, k/v 8192 x 8 x 256, causal, no softcap)
-    against SDPA (``is_causal``, ``enable_gqa``), with B2's 256 instance
-    (2 heads a CTA) on the same inputs, bit for bit B1's; B1 float32 at the
-    serving prefill shape at d 256; the backward at the bf16 shape: B3 (dq)
-    + B5 (dk/dv) and B8 (fused), against SDPA's backward alone, and the
-    unpinned mode held to ``bwd_mode``'s rule (the faster where the two
-    differ by more than 5%); B10 on the decode phase's 8 slots at hq 16,
-    hk 8, d 256, float32 and bf16. B13/B14 at d 256 run in the
-    block_sparse phase. Bounds count the true work (forward 4, dq 6, dk/dv
-    8, fused 10 flops per live pair, head and d), not the halves'
-    recompute of S and dP."""
+def parent_libraries(csrc: str) -> dict:
+    """:data:`PARENT_LIBRARIES` built from another tree's kernel sources
+    (``csrc``: its ``magiattention_tpu_torch/csrc``, e.g. unpacked by ``git
+    archive <commit> magiattention_tpu_torch/csrc | tar -x -C
+    build/parent``), one ``nvcc`` a source at once with this tree's flags,
+    into ``build/parent_kernels/``; loaded and bound as this tree's
+    (``kernels/ffa.py:bind_library``). Their C entries are this tree's."""
+    import ctypes
+    from pathlib import Path
+
+    from magiattention_tpu_torch.kernels import _build
+    from magiattention_tpu_torch.kernels.ffa import bind_library
+
+    out = Path(__file__).resolve().parent / "build" / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in PARENT_LIBRARIES:
+        so = out / f"{name}.so"
+        log = open(so.with_suffix(".log"), "w")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(Path(csrc) / f"{name}.cu")]
+        procs[name] = (so, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (so, log, proc) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc:
+            raise AssertionError(f"parent {name}: nvcc exit {rc}\n{so.with_suffix('.log').read_text()}")
+        lib = ctypes.CDLL(str(so))
+        lib.magi_error_string.argtypes = [ctypes.c_int]
+        lib.magi_error_string.restype = ctypes.c_char_p
+        libs[name] = bind_library(lib, name)
+    return libs
+
+
+def with_libraries(libs: dict, fn):
+    """``fn()`` with the FFA wrappers launching ``libs`` (name -> library:
+    a parent's builds) in place of this tree's."""
+    from magiattention_tpu_torch.kernels import ffa as kffa
+
+    own = kffa._lib
+    kffa._lib = lambda name: libs[name] if name in libs else own(name)
+    try:
+        return fn()
+    finally:
+        kffa._lib = own
+
+
+def parent_pair(parent: dict | None, fn, rounds: int = 5, samples: int = 5) -> dict:
+    """``fn``'s ms beside the parent's on the same inputs, one card, in
+    turns (:func:`paired_ms`): each one's median and every round's times;
+    ``{}`` without a parent."""
+    if not parent:
+        return {}
+    t = paired_ms({"parent": lambda: with_libraries(parent, fn), "change": fn},
+                  rounds=rounds, samples=samples)
+    return dict(parent_ms=statistics.median(t["parent"]), change_ms=statistics.median(t["change"]),
+                parent_rounds=t["parent"], change_rounds=t["change"],
+                speedup=statistics.median(t["parent"]) / statistics.median(t["change"]))
+
+
+def d256_phase(peaks: dict, parent: dict | None = None) -> dict[str, dict]:
+    """Every kernel family's 256 instance at a main-path shape, against its
+    plain version, with its bound. B1 bf16 at Gemma-2-9B's attention (q 8192
+    x 16 x 256, k/v 8192 x 8 x 256, causal, no softcap) at 64 x 64 and 128
+    x 64 (the two warpgroups of a CTA), its max logits against
+    ``dense_max_logits``, against SDPA (``is_causal``, ``enable_gqa``);
+    B2's 256 instance (2 heads a CTA) on the same inputs, bit for bit B1's;
+    the backward at the bf16 shape: B3 (dq) + B5 (dk/dv) and B8 (fused),
+    the split dk/dv bit for bit the fused kernel's, against SDPA's backward
+    alone, and the unpinned mode held to ``bwd_mode``'s rule (the faster
+    where the two differ by more than 5%); B1, B5 twice, equal to the bit;
+    the empty-row contract at d 256 on the varlen mask (out 0 and lse -inf
+    on uncovered rows, dk = dv = 0 on k rows no slice reaches, the fused dq
+    0 on uncovered rows); B1 float32 at the serving prefill shape; B10 on
+    the decode phase's 8 slots at hq 16, hk 8, d 256, float32 and bf16.
+    With ``parent`` (:func:`parent_libraries`): each redesigned instance
+    timed beside the parent's build in one call (``paired_ms``), and the
+    d-128 instances at the train shape bit for bit the parent's. B13/B14
+    at d 256 run in the block_sparse phase. Bounds count the true work
+    (forward 4, dq 6, dk/dv 8, fused 10 flops per live pair, head and
+    d)."""
     import torch
     import torch.nn.functional as F
 
@@ -6068,9 +6153,18 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
         ffa_bwd_fused_kernel, ffa_bwd_fused_plain, ffa_bwd_mode, ffa_delta_plain,
         ffa_fwd_gqa_kernel, ffa_fwd_kernel, fwd_pack_heads,
     )
+    from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
     from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band
     from magiattention_tpu_torch.kernels.paged_decode import paged_decode_kernel, paged_decode_plain
-    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+    from magiattention_tpu_torch.kernels.sdpa import dense_max_logits, sdpa_attn
+
+    def retile(c, bq, bk):
+        qr, kr = np.asarray(c["qr"], np.int32), np.asarray(c["kr"], np.int32)
+        lo, hi = np.asarray(c["lo"], np.int32), np.asarray(c["hi"], np.int32)
+        plan = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], bq, bk)
+        return plan, dataclasses.replace(
+            params, num_q_tiles=plan.num_q_tiles, num_k_tiles=plan.num_k_tiles,
+            block_q=bq, block_k=bk)
 
     gen = torch.Generator(device="cuda").manual_seed(25)
     cases = mask_cases()
@@ -6084,51 +6178,70 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
         (q, k, v, do), (qr, kr, lo, hi), plan, params = case_inputs(c, gen, with_do=True)
         do = (do / 4).to(q.dtype)
         scale = params.softmax_scale
-        out, lse = ffa_fwd_kernel(q, k, v, plan, params)
         plain = lambda: sdpa_attn(q, k, v, qr, kr, softmax_scale=scale, d_lo=lo, d_hi=hi)  # noqa: E731
-        err = errors(out, lse, *plain())
-        check(f"d256 {key} fwd", err, dname)
+        want = plain()
         mask = build_dense_mask_band(qr, kr, lo, hi, c["sq"], c["sk"], device="cuda")
         live = int(mask.sum().item())
         hq, isz = c["hq"], q.element_size()
         flops = 4.0 * hq * d * live
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + lse.numel() * 4
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * isz + hq * c["sq"] * 4
         b_ms, b_by = fwd_bound(flops, nbytes, dname, peaks)
-        ms = time_ms(lambda: ffa_fwd_kernel(q, k, v, plan, params))
         causal = c.get("library") == "causal"
-        res = {"ffa_fwd": dict(
-            **err, ms=ms, plain_ms=time_ms(plain, warmup=1, samples=3), bound_ms=b_ms,
-            bound_by=b_by, share=b_ms / ms, tflops=flops / (ms * 1e-3) / 1e12,
-            library_ms=sdpa_ms(c, q, k, v, mask)[0],
-        )}
+        library_ms = sdpa_ms(c, q, k, v, mask)[0]
+        plain_ms = time_ms(plain, warmup=1, samples=3)
+        res = {}
+        # B1 at each compiled tile pair (float32: the default only)
+        for tiles in ((64, 64), (128, 64)) if causal else ((64, 64),):
+            pl, pr = retile(c, *tiles) if tiles != (64, 64) else (plan, params)
+            fwd = lambda pl=pl, pr=pr: ffa_fwd_kernel(q, k, v, pl, pr)  # noqa: E731
+            out, lse = fwd()
+            err = errors(out, lse, *want)
+            check(f"d256 {key} fwd {tiles}", err, dname)
+            _same_bits(f"d256 {key} fwd {tiles} run twice", fwd(), (out, lse))
+            ms = time_ms(fwd)
+            name = "ffa_fwd" if tiles == (64, 64) else f"ffa_fwd_{tiles[0]}x{tiles[1]}"
+            res[name] = dict(
+                **err, tiles=list(tiles), ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                share=b_ms / ms, tflops=flops / (ms * 1e-3) / 1e12, library_ms=library_ms,
+                **(parent_pair(parent, fwd) if causal else {}),
+            )
+            if causal and tiles == (128, 64):  # every warpgroup writes its max logits
+                ml = ffa_fwd_kernel(q, k, v, pl, pr, return_max_logits=True)[2]
+                ml_want = dense_max_logits(q, k, qr, kr, None, softmax_scale=scale, d_lo=lo, d_hi=hi)
+                ml_err = (ml.double() - ml_want.double()).abs().max().item()
+                if ml_err > ATOL[dname]:
+                    raise AssertionError(f"d256 max logits {tiles}: {ml_err} beyond {ATOL[dname]}")
+                res[name]["max_logits_max_abs_err"] = ml_err
+            del out, lse
         if causal:  # B2's 256 instance on the same inputs, beside B1
             heads = fwd_pack_heads(hq // c["hk"], d, d, isz)
             if heads < 2:
                 raise AssertionError(f"d256: the packed forward's guard refuses g {hq // c['hk']}")
             gqa = lambda: ffa_fwd_gqa_kernel(q, k, v, plan, params)  # noqa: E731
-            out_g, lse_g = gqa()
-            if not (torch.equal(out_g, out) and torch.equal(lse_g, lse)):
-                raise AssertionError("d256: the packed forward is not bit-identical to B1")
+            _same_bits("d256: the packed forward against B1", gqa(), ffa_fwd_kernel(q, k, v, plan, params))
             ms_g = time_ms(gqa)
             res["ffa_fwd_gqa"] = dict(
-                **err, heads_per_cta=heads, bit_identical_to_unpacked=True, ms=ms_g,
+                **{n: res["ffa_fwd"][n] for n in ("max_abs_err", "rel_norm_err", "lse_max_abs_err")},
+                heads_per_cta=heads, bit_identical_to_unpacked=True, ms=ms_g,
                 unpacked_ms=time_ms(lambda: ffa_fwd_kernel(q, k, v, plan, params)),
-                plain_ms=res["ffa_fwd"]["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                share=b_ms / ms_g, tflops=flops / (ms_g * 1e-3) / 1e12,
-                library_ms=res["ffa_fwd"]["library_ms"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / ms_g,
+                tflops=flops / (ms_g * 1e-3) / 1e12, library_ms=library_ms,
+                **parent_pair(parent, gqa),
             )
-            del out_g, lse_g
         if causal:  # the backward's 256 instances, both modes
+            out, lse = ffa_fwd_kernel(q, k, v, plan, params)
             delta = ffa_delta_plain(out, do)
             args = (q, k, v, do, lse, delta, plan, params)
             dq, (dk, dv) = ffa_bwd_dq_kernel(*args), ffa_bwd_dkv_kernel(*args)
-            want = (ffa_bwd_dq_plain(*args), *ffa_bwd_dkv_plain(*args))
+            _same_bits("d256: dk/dv run twice", ffa_bwd_dkv_kernel(*args), (dk, dv))
+            want_b = (ffa_bwd_dq_plain(*args), *ffa_bwd_dkv_plain(*args))
             errs = {n: grad_check(f"d256 split {n}", a, b, dname)
-                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want_b)}
             fused = ffa_bwd_fused_kernel(*args)
             errs.update({f"fused_{n}": grad_check(f"d256 fused {n}", a, b, dname)
-                         for n, a, b in zip(("dq", "dk", "dv"), fused, want)})
-            del dq, dk, dv, fused, want
+                         for n, a, b in zip(("dq", "dk", "dv"), fused, want_b)})
+            _same_bits("d256: the split dk/dv against the fused kernel's", (dk, dv), fused[1:])
+            del dq, dk, dv, fused, want_b
             n_q, n_kv, rows = q.numel(), k.numel(), c["sq"] * hq
             in_bytes = (2 * n_q + 2 * n_kv) * isz + 2 * rows * 4
             for kname, kern, plain_fn, fl, nb in (
@@ -6137,12 +6250,14 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
                 ("ffa_bwd_fused", ffa_bwd_fused_kernel, ffa_bwd_fused_plain, 10.0,
                  in_bytes + (n_q + 2 * n_kv) * 4),
             ):
-                b_ms, b_by = bound(fl * hq * d * live, nb, dname, peaks)
-                ms = time_ms(lambda kern=kern: kern(*args), samples=5)
+                bb_ms, bb_by = bound(fl * hq * d * live, nb, dname, peaks)
+                run = lambda kern=kern: kern(*args)  # noqa: E731
+                ms = time_ms(run, samples=5)
                 res[kname] = dict(
                     ms=ms, plain_ms=time_ms(lambda p=plain_fn: p(*args), warmup=1, samples=3),
-                    bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
+                    bound_ms=bb_ms, bound_by=bb_by, share=bb_ms / ms,
                     tflops=fl * hq * d * live / (ms * 1e-3) / 1e12, library_ms=None,
+                    **(parent_pair(parent, run) if kname != "ffa_bwd_dq" else {}),
                 )
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
             o = F.scaled_dot_product_attention(*(t.transpose(0, 1)[None] for t in (qg, kg, vg)),
@@ -6167,13 +6282,17 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
                 split_library_ms=sdpa_bwd,
             )
             res["ffa_bwd_fused"]["library_ms"] = sdpa_bwd
-            del qg, kg, vg, delta, args
+            del qg, kg, vg, delta, args, out, lse
         res.update(case=f"{key}_d{d}", dtype=dname, q=list(q.shape), kv=list(k.shape),
                    live_pairs=live, atol=ATOL[dname], rnorm=RNORM[dname])
         emit({"phase": "d256_kernels", **res})
         results[key] = res
-        del q, k, v, do, out, lse, mask
+        del q, k, v, do, mask, want
         torch.cuda.empty_cache()
+
+    results["empty_rows"] = d256_empty_rows(gen)
+    if parent:
+        results["d128_bitwise_parent"] = d128_against_parent(parent, gen)
 
     dec = {}
     for dt in (torch.float32, torch.bfloat16):  # B10
@@ -6199,7 +6318,98 @@ def d256_phase(peaks: dict) -> dict[str, dict]:
     return results
 
 
-def hybrid_d256_phase(peaks: dict) -> dict:
+def d256_empty_rows(gen) -> dict:
+    """The empty-row contract of the redesigned 256 instances on the varlen
+    mask at Gemma-2-9B's heads (uncovered q rows [7680, 8192), k rows of
+    that range reached by no slice): B1 at 64 x 64 and 128 x 64 and B2 give
+    out 0 and lse -inf there and agree with the plain version elsewhere;
+    the split dk/dv and the fused kernel give dk = dv = 0 on the unreached
+    k rows and the fused dq 0 on the uncovered q rows, each within the bf16
+    gates of the plain backward, the split dk/dv bit for bit the fused's."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, ffa_bwd_dq_plain, ffa_bwd_fused_kernel,
+        ffa_delta_plain, ffa_fwd_gqa_kernel, ffa_fwd_kernel,
+    )
+    from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+
+    c = dict(mask_cases()["varlen_8192_bf16"], d=GEMMA_D, hq=GEMMA_HQ, hk=GEMMA_HK)
+    (q, k, v, do), (qr, kr, lo, hi), plan, params = case_inputs(c, gen, with_do=True)
+    do = (do / 4).to(q.dtype)
+    u0, u1 = c["uncovered"]
+    want = sdpa_attn(q, k, v, qr, kr, softmax_scale=params.softmax_scale, d_lo=lo, d_hi=hi)
+    plan128 = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], 128, 64)
+    params128 = dataclasses.replace(params, num_q_tiles=plan128.num_q_tiles,
+                                    num_k_tiles=plan128.num_k_tiles, block_q=128)
+    res = {}
+    for name, run in (
+        ("ffa_fwd", lambda: ffa_fwd_kernel(q, k, v, plan, params)),
+        ("ffa_fwd_128x64", lambda: ffa_fwd_kernel(q, k, v, plan128, params128)),
+        ("ffa_fwd_gqa", lambda: ffa_fwd_gqa_kernel(q, k, v, plan, params)),
+    ):
+        out, lse = run()
+        err = errors(out, lse, *want)
+        check(f"d256 empty rows {name}", err, "bfloat16")
+        if out[u0:u1].any() or not torch.isneginf(lse[u0:u1]).all():
+            raise AssertionError(f"d256 empty rows {name}: uncovered rows not out 0, lse -inf")
+        res[name] = err
+    out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+    delta = ffa_delta_plain(out, do)
+    args = (q, k, v, do, lse, delta, plan, params)
+    dk, dv = ffa_bwd_dkv_kernel(*args)
+    fdq, fdk, fdv = ffa_bwd_fused_kernel(*args)
+    _same_bits("d256 empty rows: split dk/dv against the fused kernel's", (dk, dv), (fdk, fdv))
+    want_b = (ffa_bwd_dq_plain(*args), *ffa_bwd_dkv_plain(*args))
+    res["bwd"] = {n: grad_check(f"d256 empty rows {n}", a, b, "bfloat16")
+                  for n, a, b in zip(("fused_dq", "dk", "dv"), (fdq, dk, dv), want_b)}
+    reached = int(np.asarray(c["kr"]).max())
+    if dk[reached:].any() or dv[reached:].any() or fdq[u0:u1].any():
+        raise AssertionError("d256 empty rows: unreached k rows or uncovered dq rows not 0")
+    res.update(uncovered_q_rows=[u0, u1], unreached_k_rows=[reached, c["sk"]])
+    emit({"phase": "d256_kernels", "case": "empty_rows_varlen_8192_bf16_d256", **res})
+    return res
+
+
+def d128_against_parent(parent: dict, gen) -> dict:
+    """The d-128 instances of the redesigned libraries at the train shape
+    (bf16, q 8192 x 32 x 128, k/v 8192 x 8 x 128, two causal documents):
+    B1 at 64 x 64 and 128 x 64, B2, the split dk/dv and the fused dk/dv
+    equal to the bit to the parent's builds on the same inputs (the fused
+    dq adds with atomics in no fixed order, so it is held to the bf16
+    gates of the parent's instead)."""
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel, ffa_delta_plain, ffa_fwd_gqa_kernel,
+        ffa_fwd_kernel, fwd_pack_heads,
+    )
+    from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
+
+    c = mask_cases()["train_docs_8192_bf16"]
+    (q, k, v, do), (qr, kr, lo, hi), plan, params = case_inputs(c, gen, with_do=True)
+    do = (do / 4).to(q.dtype)
+    plan128 = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], 128, 64)
+    params128 = dataclasses.replace(params, num_q_tiles=plan128.num_q_tiles,
+                                    num_k_tiles=plan128.num_k_tiles, block_q=128)
+    out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+    args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
+    runs = {
+        "ffa_fwd": lambda: ffa_fwd_kernel(q, k, v, plan, params),
+        "ffa_fwd_128x64": lambda: ffa_fwd_kernel(q, k, v, plan128, params128),
+        "ffa_bwd_dkv": lambda: ffa_bwd_dkv_kernel(*args),
+        "ffa_bwd_fused_dk_dv": lambda: ffa_bwd_fused_kernel(*args)[1:],
+    }
+    if fwd_pack_heads(c["hq"] // c["hk"], 128, 128, 2) > 1:
+        runs["ffa_fwd_gqa"] = lambda: ffa_fwd_gqa_kernel(q, k, v, plan, params)
+    for name, run in runs.items():
+        _same_bits(f"d128 {name} against the parent's", run(), with_libraries(parent, run))
+    fused, fused_p = ffa_bwd_fused_kernel(*args)[0], with_libraries(parent, lambda: ffa_bwd_fused_kernel(*args))[0]
+    res = dict(bitwise=sorted(runs), fused_dq_vs_parent=grad_check("d128 fused dq vs parent", fused, fused_p, "bfloat16"))
+    emit({"phase": "d256_kernels", "case": "d128_train_shape_against_parent", **res})
+    return res
+
+
+def hybrid_d256_phase(peaks: dict, parent: dict | None = None) -> dict:
     """Gemma-2-9B attention through the API at cp 1, at full width (bf16,
     hq 16, hk 8, d 256, softcap 50, scale 256^-0.5) over 8192 tokens in one
     causal document: the dispatch key is the global causal mask
@@ -6211,8 +6421,11 @@ def hybrid_d256_phase(peaks: dict) -> dict:
     version) on the key's own mask under autograd, at the bf16 gates;
     fwd+bwd ms, the bound (4 + 10 flops per live pair, head and d; the split
     mode 4 + 14) and the share for each key, and the launches of the
-    resolved kernels (counts reset just before each run). The API takes
-    no softcap (as the JAX package's), so each key's runtime gets it."""
+    resolved kernels (counts reset just before each run). With ``parent``
+    (:func:`parent_libraries`) the fwd+bwd ms also with the parent's
+    builds of the redesigned libraries, in turns on the same inputs. The
+    API takes no softcap (as the JAX package's), so each key's runtime gets
+    it."""
     import torch
 
     from magiattention_tpu_torch import api
@@ -6285,7 +6498,7 @@ def hybrid_d256_phase(peaks: dict) -> dict:
         res[name] = dict(
             resolved_bwd_mode=mode, live_pairs=live, launches={k: v for k, v in counts.items() if v},
             vs_plain=err, fwd_bwd_ms=ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
-            tflops=flops / (ms * 1e-3) / 1e12,
+            tflops=flops / (ms * 1e-3) / 1e12, **parent_pair(parent, api_path, samples=3),
         )
         torch.cuda.empty_cache()
     res.update(atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"])
@@ -9027,6 +9240,13 @@ def main() -> int:
         return 1
     if "--cp4" in sys.argv[1:]:
         return cp4_main()
+    parent_csrc = None
+    if "--parent" in sys.argv[1:]:
+        at = sys.argv.index("--parent")
+        if at + 1 >= len(sys.argv):
+            print("chip_smoke: --parent takes a kernel source directory", file=sys.stderr)
+            return 1
+        parent_csrc = sys.argv[at + 1]
     try:
         import torch
     except ImportError:
@@ -9109,8 +9329,9 @@ def main() -> int:
     shard = shard_cp1_phase()["launches"]
     moe_launches = moe_phase()["launches"]
     dit_launches = video_dit_phase()["launches"]
-    d256_phase(peaks)
-    hybrid_d256_phase(peaks)
+    parent = parent_libraries(parent_csrc) if parent_csrc else None
+    d256_phase(peaks, parent)
+    hybrid_d256_phase(peaks, parent)
     bsp = block_sparse_phase(peaks)["slice_g4_d128_bf16_ds16"]
     nsa = nsa_phase()
     usp = usp_nsa_phase()["launches"]

@@ -40,11 +40,30 @@
 // next step's Q, dO, lse and delta are double-buffered by cp.async and
 // land while this step's products run.
 //
-// Head dim 256: a column split. The CTA takes one 128-column half of dk and
-// dv (grid z), and with FUSED the same half of dq's atomics, and keeps the
-// width-128 register plan; S^T and dP^T run over the full width from
-// shared memory, so each half recomputes them, and the dV, dK and dQ
-// products read the half's two 64-column panels of dO, Q and K.
+// Head dim 256: no column split. Full-width dk and dv (2 x 128 floats a
+// thread) do not fit one warpgroup, so a CTA runs two consumer warpgroups
+// on one 64-row k tile, each owning one 128-column half of dk and dv (64 +
+// 64 floats a thread) and, with FUSED, the same half of dq's atomics. Per
+// step S^T and dP^T are computed once, split between the warpgroups along
+// the q rows: each runs m64n32k16 over the full 256 depth (16 k-steps) for
+// its 32 q rows. Each writes its columns of P^T and dS^T, hi and lo (the
+// to_a_frags_split scheme, the same rounding), as four bf16 64 x 64
+// swizzled tiles in shared memory; one barrier; then both read the whole
+// tiles as wgmma's A operand from shared memory (m64n128k16, A K-major):
+// dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half] (hi,
+// then lo), and with FUSED dQ[:, half] = dS K[:, half] from the dS^T hi
+// tile (read transposed), in two 64-column pieces. Both instances still
+// run the dk/dv products in the same order on the same tiles (the split
+// dk/dv equals the fused kernel's to the bit), still write dk and dv once
+// (no atomics), and k rows no live pair touches still get exact zeros.
+// Shared memory: K and V 64 KB, two stages of Q and dO 128 KB, the four
+// P/dS tiles 32 KB, two stages of lse and delta 1 KB and 1 KB to align
+// the window: 231,424 bytes of the 232,448 a CTA may take (common.cuh
+// SMEM_LIMIT), one CTA of 256 threads an SM, 64 x 64 tiles only (a
+// 128-row q or k tile would double a term that has no room). Registers:
+// dk and dv (128) beside S^T and dP^T (16 + 16), then (FUSED) a 64-column
+// dq piece (32): the products read their A operands from shared memory,
+// so no fragments are held, and __launch_bounds__(256, 1) gives 255.
 //
 // Tiles (BQ, BK) of 64 or 128 rows. A 128-row k tile is two warpgroups,
 // each owning 64 of its key rows (its K and V tiles, dk and dv, and with
@@ -62,11 +81,11 @@
 // per (item, q head). Shared memory: K and V of every warpgroup, two
 // stages of Q and dO and of lse and delta (100,352 bytes at D = 128, 64 x
 // 64), with FUSED also each warpgroup's dS^T tile (108,544 bytes): two CTAs
-// per SM either way (at D = 256, 198,656 and 206,848 bytes: one, and no
-// other pair fits there; 216,064 with FUSED at D = 128, 128 x 128). Registers: dk and dv (2 * DV / 2, DV = min(D,
-// 128)) beside at most two 64 x 64 blocks: S^T and dP^T, then P^T's
-// hi and lo fragments and dP^T, then dS^T's, then (FUSED) a dq half (dV's
-// products finish before dK's fragments are formed).
+// per SM either way (216,064 with FUSED at D = 128, 128 x 128; D = 256
+// above). Registers at D <= 128: dk and dv (2 * D / 2) beside at most two
+// 64 x 64 blocks: S^T and dP^T, then P^T's hi and lo fragments and dP^T,
+// then dS^T's, then (FUSED) a dq half (dV's products finish before dK's
+// fragments are formed).
 #pragma once
 
 #include "tc.cuh"
@@ -78,30 +97,31 @@ using namespace magi::tc;
 using magi::LOG2E;
 using magi::META_DIM;
 
-// the dk / dv columns one CTA computes (a 128-column half at D = 256) and
-// the halves of a row
+// D = 256: two warpgroups on one 64-row k tile, one a column half
 template <int D>
-constexpr int DV = D > 128 ? 128 : D;
-template <int D>
-constexpr int NCH = D / DV<D>;
+constexpr bool WIDE = D > 128;
 
-// the BK / 64 warpgroups, each owning 64 key rows
-template <int BK>
-constexpr int NWG = BK / 64;
+// the warpgroups: BK / 64, each owning 64 key rows; at D = 256 the two
+// column halves
+template <int D, int BK>
+constexpr int NWG = WIDE<D> ? 2 : BK / 64;
 
 template <int D, bool FUSED, int BQ = 64, int BK = 64>
 struct Smem {
-  static constexpr uint32_t TILE = 64 * D * 2;   // K or V of a warpgroup
+  static constexpr uint32_t TILE = 64 * D * 2;   // K or V of 64 key rows
   static constexpr uint32_t QT = BQ * D * 2;     // Q or dO of a stage
-  static constexpr uint32_t QDO = NWG<BK> * 2 * TILE;  // [2 stages][Q, dO]
-  static constexpr uint32_t DS = QDO + 4 * QT;   // [WG] dS^T, 64 x 64 bf16
-  // [2 stages][lse, delta]
-  static constexpr uint32_t STATS = DS + (FUSED ? NWG<BK> * 64 * 128 : 0);
+  static constexpr uint32_t QDO = (BK / 64) * 2 * TILE;  // [2 stages][Q, dO]
+  // D = 256: [P^T hi, P^T lo, dS^T hi, dS^T lo], BK x BQ bf16 each; else
+  // with FUSED [WG] dS^T, 64 x 64 bf16
+  static constexpr uint32_t DS = QDO + 4 * QT;
+  static constexpr uint32_t DS_BYTES =
+      WIDE<D> ? 4 * BK * BQ * 2 : (FUSED ? NWG<D, BK> * 64 * 128 : 0);
+  static constexpr uint32_t STATS = DS + DS_BYTES;  // [2 stages][lse, delta]
   static constexpr size_t bytes = STATS + 2 * 2 * BQ * 4 + 1024;
 };
 
 template <int D, bool FUSED, int BQ, int BK>
-__global__ void __launch_bounds__(128 * NWG<BK>, 1)
+__global__ void __launch_bounds__(128 * NWG<D, BK>, 1)
     ffa_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
@@ -115,36 +135,45 @@ __global__ void __launch_bounds__(128 * NWG<BK>, 1)
                             const int* __restrict__ run_ptr_t, int sq, int sk,
                             int hq, int hk, float scale, float softcap) {
   using S = Smem<D, FUSED, BQ, BK>;
-  constexpr int NT = 128 * NWG<BK>;
-  constexpr int W = DV<D>;  // dk / dv columns of this CTA
+  constexpr bool WD = WIDE<D>;
+  static_assert(!WD || (BQ == 64 && BK == 64), "D = 256 takes 64 x 64 tiles");
+  constexpr int NT = 128 * NWG<D, BK>;
+  constexpr int W = WD ? D / 2 : D;  // dk / dv columns of a warpgroup
   constexpr int NACC = W / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
-  // the column half, and its first panel's offset in a D-wide tile of 64
-  // rows (K) and of BQ rows (Q, dO)
-  const int ch = NCH<D> > 1 ? (int)blockIdx.z : 0;
-  const uint32_t chp = ch * (W / 64) * PANEL_BYTES;
-  const uint32_t chq = ch * (W / 64) * (BQ * 128);
-
   // one warpgroup (a 64-row k tile): warpgroup 0, known at compile time
   const int tid = threadIdx.x;
-  const int wg = NWG<BK> > 1 ? tid >> 7 : 0;
-  const int t = NWG<BK> > 1 ? tid & 127 : tid;
+  const int wg = NWG<D, BK> > 1 ? tid >> 7 : 0;
+  const int t = NWG<D, BK> > 1 ? tid & 127 : tid;
+  // the warpgroup's column half at D = 256, and its first panel's offset
+  // in a D-wide tile of 64 rows (K) and of BQ rows (Q, dO)
+  const int ch = WD ? wg : 0;
+  const uint32_t chp = ch * (W / 64) * PANEL_BYTES;
+  const uint32_t chq = ch * (W / 64) * (BQ * 128);
   const int warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // k rows r0 and r0 + 8
   const int c0 = 2 * (lane & 3);  // q columns c0, c0 + 1 of each chunk
   const int kt = blockIdx.x, hkv = blockIdx.y, g = hq / hk;
-  const int k0 = kt * BK + wg * 64;  // this warpgroup's first key row
+  // this warpgroup's first key row, and its K and V (D = 256: the CTA's)
+  const int k0 = kt * BK + (WD ? 0 : wg * 64);
   const long q_rs = (long)hq * D, kv_rs = (long)hk * D;
-  const uint32_t Kw = base + wg * 2 * S::TILE;  // this warpgroup's K, V
+  const uint32_t Kw = base + (WD ? 0 : wg * 2 * S::TILE);
 
   // K at Kw, V at Kw + TILE, for the whole run
-  load_tile_async<D, 128>(Kw, k + ((long)k0 * hk + hkv) * D, kv_rs,
-                          min(64, sk - k0), t);
-  load_tile_async<D, 128>(Kw + S::TILE, v + ((long)k0 * hk + hkv) * D,
-                          kv_rs, min(64, sk - k0), t);
+  if constexpr (WD) {
+    load_tile_async<D, NT>(Kw, k + ((long)k0 * hk + hkv) * D, kv_rs,
+                           min(64, sk - k0), tid);
+    load_tile_async<D, NT>(Kw + S::TILE, v + ((long)k0 * hk + hkv) * D,
+                           kv_rs, min(64, sk - k0), tid);
+  } else {
+    load_tile_async<D, 128>(Kw, k + ((long)k0 * hk + hkv) * D, kv_rs,
+                            min(64, sk - k0), t);
+    load_tile_async<D, 128>(Kw + S::TILE, v + ((long)k0 * hk + hkv) * D,
+                            kv_rs, min(64, sk - k0), t);
+  }
   cp_async_commit();
 
   const int w_end = run_ptr_t[kt + 1];
@@ -206,106 +235,193 @@ __global__ void __launch_bounds__(128 * NWG<BK>, 1)
                             smem + S::STATS + stage * (8 * BQ)) + 64 * blk;
       const float* Dls = Ls + BQ;
 
-      float st[32], dpt[32];
-  #pragma unroll
-      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
-      fence_regs(st);
-      fence_regs(dpt);
-      wgmma_fence();
-  #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64_t00(st, desc_k(Ks, kk), desc_k<BQ>(Qs, kk), 1);
-  #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64_t00(dpt, desc_k(Vs, kk), desc_k<BQ>(dOs, kk), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
+      if constexpr (WD) {
+        // S^T and dP^T once a step: this warpgroup's 32 q rows (columns
+        // 32 wg .. of the tile), k rows r0, r0 + 8 of the 64
+        const uint32_t Pt = base + S::DS;  // P^T hi, lo, dS^T hi, lo: 8 KB
+        float st[16], dpt[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) st[i] = dpt[i] = 0.f;
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n32_t00(st, desc_k(Ks, kk), desc_k<BQ>(Qs + wg * 4096, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n32_t00(dpt, desc_k(Vs, kk), desc_k<BQ>(dOs + wg * 4096, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
 
-  #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int row = r0 + ((i >> 1) & 1) * 8;        // k row of the tile
-        const int col = (i >> 2) * 8 + c0 + (i & 1);    // q row of the tile
-        const float lv = Ls[col];
-        float x = st[i] * qk_scale, dcap = 1.f;
-        if (capped) {
-          const float th = tanhf(x / softcap);
-          x = softcap * th;
-          dcap = 1.f - th * th;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int row = r0 + ((i >> 1) & 1) * 8;              // k row
+          const int col = 32 * wg + (i >> 2) * 8 + c0 + (i & 1);  // q row
+          const float lv = Ls[col];
+          float x = st[i] * qk_scale, dcap = 1.f;
+          if (capped) {
+            const float th = tanhf(x / softcap);
+            x = softcap * th;
+            dcap = 1.f - th * th;
+          }
+          const bool live = lv != -INFINITY &&
+                            (item.full || item.live(q0 + col, k0 + row));
+          const float p =
+              live ? (capped ? expf(x - lv) : exp2f(x - lv * LOG2E)) : 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - Dls[col]) * dcap;
         }
-        const bool live = lv != -INFINITY &&
-                          (item.full || item.live(q0 + col, k0 + row));
-        const float p =
-            live ? (capped ? expf(x - lv) : exp2f(x - lv * LOG2E)) : 0.f;
-        st[i] = p;
-        dpt[i] = p * (dpt[i] - Dls[col]) * dcap;
-      }
-      // dV += P^T dO (hi, lo), then dK += dS^T Q (hi, lo): one pair of
-      // fragment sets at a time keeps dk, dv and two 64 x 64 blocks the most
-      // a thread holds
-      uint32_t fh[4][4], fl[4][4];
-      to_a_frags_split(fh, fl, st);
-      fence_regs(fh);
-      fence_regs(fl);
-      fence_regs(dv_acc);
-      wgmma_fence();
-  #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t1<W>(dv_acc, fh[kk], desc_mn<BQ>(dOs + chq, kk));
-  #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t1<W>(dv_acc, fl[kk], desc_mn<BQ>(dOs + chq, kk));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(fh);
-      fence_regs(fl);
+        // P^T and dS^T, each as hi = bf16(x) and lo = bf16(x - hi), into
+        // this warpgroup's 32 columns of the four tiles
+        const int rr = (int)opaque(r0), cc = 32 * wg + (int)opaque(c0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const uint32_t off = tile_offset(rr + 8 * hh, cc + 8 * j);
+            const int i = 4 * j + 2 * hh;
+            const float x[4] = {st[i], st[i + 1], dpt[i], dpt[i + 1]};
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              __nv_bfloat162 hb = __floats2bfloat162_rn(x[2 * m], x[2 * m + 1]);
+              const float2 hf = __bfloat1622float2(hb);
+              uint8_t* tile = smem + S::DS + m * 16384 + off;
+              *reinterpret_cast<uint32_t*>(tile) =
+                  *reinterpret_cast<uint32_t*>(&hb);
+              *reinterpret_cast<uint32_t*>(tile + 8192) =
+                  pack_bf16(x[2 * m] - hf.x, x[2 * m + 1] - hf.y);
+            }
+          }
+        fence_async_smem();  // the tiles are visible to wgmma
+        __syncthreads();     // both warpgroups' columns are in
 
-      to_a_frags_split(fh, fl, dpt);
-      // dS^T (hi) to shared memory, the A operand of dQ = dS K (read
-      // transposed)
-      if constexpr (FUSED) {
-        const int rr = (int)opaque(r0), cc = (int)opaque(c0);
-  #pragma unroll
+        // dV[:, half] += P^T dO[:, half], dK[:, half] += dS^T Q[:, half],
+        // each hi then lo, A K-major from the tiles
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int lo = 0; lo < 2; ++lo)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n128_t01(dv_acc, desc_k(Pt + lo * 8192, kk),
+                              desc_mn<BQ>(dOs + chq, kk), 1);
+#pragma unroll
+        for (int lo = 0; lo < 2; ++lo)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss_n128_t01(dk_acc, desc_k(Pt + 16384 + lo * 8192, kk),
+                              desc_mn<BQ>(Qs + chq, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+      } else {
+        float st[32], dpt[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64_t00(st, desc_k(Ks, kk), desc_k<BQ>(Qs, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64_t00(dpt, desc_k(Vs, kk), desc_k<BQ>(dOs, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int row = r0 + ((i >> 1) & 1) * 8;        // k row of the tile
+          const int col = (i >> 2) * 8 + c0 + (i & 1);    // q row of the tile
+          const float lv = Ls[col];
+          float x = st[i] * qk_scale, dcap = 1.f;
+          if (capped) {
+            const float th = tanhf(x / softcap);
+            x = softcap * th;
+            dcap = 1.f - th * th;
+          }
+          const bool live = lv != -INFINITY &&
+                            (item.full || item.live(q0 + col, k0 + row));
+          const float p =
+              live ? (capped ? expf(x - lv) : exp2f(x - lv * LOG2E)) : 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - Dls[col]) * dcap;
+        }
+        // dV += P^T dO (hi, lo), then dK += dS^T Q (hi, lo): one pair of
+        // fragment sets at a time keeps dk, dv and two 64 x 64 blocks the most
+        // a thread holds
+        uint32_t fh[4][4], fl[4][4];
+        to_a_frags_split(fh, fl, st);
+        fence_regs(fh);
+        fence_regs(fl);
+        fence_regs(dv_acc);
+        wgmma_fence();
+#pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-  #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            *reinterpret_cast<uint32_t*>(
-                smem + S::DS + wg * 8192 +
-                tile_offset(rr + 8 * (e & 1), 16 * kk + 8 * (e >> 1) + cc)) =
-                fh[kk][e];
-      }
-      fence_regs(fh);
-      fence_regs(fl);
-      fence_regs(dk_acc);
-      wgmma_fence();
-  #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t1<W>(dk_acc, fh[kk], desc_mn<BQ>(Qs + chq, kk));
-  #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_t1<W>(dk_acc, fl[kk], desc_mn<BQ>(Qs + chq, kk));
-      wgmma_commit();
-      if constexpr (FUSED) {
-        fence_async_smem();  // the dS^T tile is visible to wgmma
-        __syncthreads();
-      }
-      wgmma_wait<0>();
-      fence_regs(dk_acc);
-      fence_regs(fh);
-      fence_regs(fl);
+          wgmma_rs_t1<W>(dv_acc, fh[kk], desc_mn<BQ>(dOs + chq, kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_t1<W>(dv_acc, fl[kk], desc_mn<BQ>(dOs + chq, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(fh);
+        fence_regs(fl);
 
+        to_a_frags_split(fh, fl, dpt);
+        // dS^T (hi) to shared memory, the A operand of dQ = dS K (read
+        // transposed)
+        if constexpr (FUSED) {
+          const int rr = (int)opaque(r0), cc = (int)opaque(c0);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              *reinterpret_cast<uint32_t*>(
+                  smem + S::DS + wg * 8192 +
+                  tile_offset(rr + 8 * (e & 1), 16 * kk + 8 * (e >> 1) + cc)) =
+                  fh[kk][e];
+        }
+        fence_regs(fh);
+        fence_regs(fl);
+        fence_regs(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_t1<W>(dk_acc, fh[kk], desc_mn<BQ>(Qs + chq, kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_t1<W>(dk_acc, fl[kk], desc_mn<BQ>(Qs + chq, kk));
+        wgmma_commit();
+        if constexpr (FUSED) {
+          fence_async_smem();  // the dS^T tile is visible to wgmma
+          __syncthreads();
+        }
+        wgmma_wait<0>();
+        fence_regs(dk_acc);
+        fence_regs(fh);
+        fence_regs(fl);
+
+      }
       if constexpr (FUSED) {  // dQ = dS K, added to the workspace
-        const uint32_t dSs = base + S::DS + wg * 8192;
-  #pragma unroll
+        // dS^T (hi): D = 256 the shared tile, else this warpgroup's
+        const uint32_t dSs = base + S::DS + (WD ? 16384 : wg * 8192);
+#pragma unroll
         for (int half = 0; half < W / 64; ++half) {
           float dq[32];
-  #pragma unroll
+#pragma unroll
           for (int i = 0; i < 32; ++i) dq[i] = 0.f;
           fence_regs(dq);
           wgmma_fence();
-  #pragma unroll
+#pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             wgmma_ss_n64_t11(dq, desc_mn(dSs, kk),
                              desc_mn(Ks + chp + half * PANEL_BYTES, kk), 1);
@@ -319,7 +435,7 @@ __global__ void __launch_bounds__(128 * NWG<BK>, 1)
           const bool add = row < sq && row >= item.qs && row < item.qe;
           float* dst = dq_acc + ((long)row * hq + h) * D + ch * W + half * 64 +
                        2 * (lane & 2);
-  #pragma unroll
+#pragma unroll
           for (int j = 0; j < 8; ++j) {
             const float s0 = odd ? dq[4 * j] : dq[4 * j + 2];
             const float s1 = odd ? dq[4 * j + 1] : dq[4 * j + 3];
@@ -374,9 +490,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     cudaError_t e = magi::allow_smem(ffa_bwd_kv_tc_kernel<D, FUSED, BQ, BK>,
                                      smem, &smem_ok);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(num_k_tiles, hk, NCH<D>);
+    const dim3 grid(num_k_tiles, hk);
     ffa_bwd_kv_tc_kernel<D, FUSED, BQ, BK>
-        <<<grid, 128 * NWG<BK>, smem, (cudaStream_t)stream>>>(
+        <<<grid, 128 * NWG<D, BK>, smem, (cudaStream_t)stream>>>(
             static_cast<const __nv_bfloat16*>(q),
             static_cast<const __nv_bfloat16*>(k),
             static_cast<const __nv_bfloat16*>(v),

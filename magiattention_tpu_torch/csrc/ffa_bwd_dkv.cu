@@ -17,10 +17,12 @@
 // bit. float32: csrc/bwd_kv.cuh (FUSED false), float32 FMA on the CUDA
 // cores (67 TFLOP/s peak): the float32 gate of 1e-5 against the plain
 // version needs float32 products; 173 KB of shared memory at D = 128, one
-// CTA per SM. Head dims 64, 128 and 256; at 256 both bodies split dk's and
-// dv's columns in two halves across the grid's z (each half recomputes
-// S^T and dP^T over the full width; the float32 body chunks that
-// contraction 128 columns at a time).
+// CTA per SM. Head dims 64, 128 and 256; at 256 the bf16 body runs two
+// warpgroups on one 64-row k tile, one a column half of dk and dv, with
+// S^T and dP^T computed once (231,424 bytes, one CTA an SM), and the
+// float32 body splits dk's and dv's columns in two halves across the
+// grid's z (each half recomputes S^T and dP^T over the full width,
+// chunking that contraction 128 columns at a time).
 #include "bwd_kv.cuh"
 #include "bwd_kv_tc.cuh"
 

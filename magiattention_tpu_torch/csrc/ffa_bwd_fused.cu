@@ -38,9 +38,10 @@
 // atomics. What bounds both: operations, 10 * D flops per live (row, col)
 // pair and q head (S, dP, P^T dO, dS^T Q, dS K); then atomic traffic, one
 // 64 x D float32 block per (item, q head), a read-modify-write of
-// 64 * D * 4 bytes in L2 each. Head dims 64, 128 and 256: at 256 each
-// body takes one 128-column half of dk, dv and the dq atomics per CTA
-// (grid z), as csrc/ffa_bwd_dkv.cu's.
+// 64 * D * 4 bytes in L2 each. Head dims 64, 128 and 256: at 256 the bf16
+// body's two warpgroups each take one 128-column half of dk, dv and the
+// dq atomics in one CTA, and the float32 body one half per CTA (grid z),
+// as csrc/ffa_bwd_dkv.cu's.
 #include "bwd_kv.cuh"
 #include "bwd_kv_tc.cuh"
 

@@ -12,10 +12,11 @@
 // 3xTF32 (each operand split into tf32 hi and lo, three products a pair, so
 // the serving replay tolerance holds; one TF32 product would not), each
 // chunk's split under the previous chunk's products; 225 KB at D = 128,
-// one CTA per SM. Head dims 64, 128 and 256; at 256 both bodies split the
-// output columns in two halves across the grid's z (each half recomputes
-// S over the full width). Their designs and what bounds them are in the
-// headers.
+// one CTA per SM. Head dims 64, 128 and 256; at 256 the bf16 body writes
+// all 256 columns from one CTA (two warpgroups at a 128-row q tile; one, two
+// CTAs an SM, at 64 x 64) and the float32 body splits the output columns in
+// two halves across the grid's z (each half recomputes S over the full
+// width). Their designs and what bounds them are in the headers.
 //
 // Max-logits: the TPU kernel keeps a per-(head, q tile) running max of the
 // scaled, softcapped logits and reduces it on the host. Here the running

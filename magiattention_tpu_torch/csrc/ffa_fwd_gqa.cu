@@ -18,8 +18,9 @@
 // head; G q tiles and two stages of K and V, (G + 4) * 64 * D * 2 bytes of
 // shared memory, and a thread holds its head's O accumulator (D / 2
 // floats), S (32) and P (16): G is 2 at D = 128 (four warpgroups would
-// leave 128 registers a thread) and 2 or 4 at D = 64; at D = 256 (the
-// column split: V tiles of 128 columns, O of 64 floats) G is 2, 161 KB.
+// leave 128 registers a thread) and 2 or 4 at D = 64; at D = 256 (all 256
+// columns: O of 128 floats, V tiles at full width) G is 2 at 64-row k
+// tiles, 197,664 bytes (a 128-row k tile does not fit).
 // float32 (csrc/ffa_fwd_tf32.cuh, 3xTF32 on the tensor cores): one consumer
 // warpgroup per head; G q tiles in hi and lo, the raw K/V chunk and two
 // stages of split K and V^T tiles where they fit (one at D = 128),

@@ -22,14 +22,29 @@
 //   it; the running sum stays per lane until the end);
 // - P rounded to bf16 in registers and fed as wgmma's A operand to
 //   O += P V (m64nDk16, V read MN-major: transposed B).
-// The item's K and V tiles are double-buffered: cp.async loads of the next
-// real item are issued before this item's products, so they overlap.
+// The item's K and V tiles are double-buffered (but at 64 x 64 and D =
+// 256, below): cp.async loads of the next real item are issued before this
+// item's products, so they overlap.
 //
-// Head dim 256: a column split. The CTA keeps the width-128 register plan
-// and takes one 128-column half of out (grid z); S = Q K^T still runs over
-// the full 256 columns from shared memory (16 k-steps), so each half
-// recomputes S: about 1.5x the flops of one pass at d = dv = 256. lse and
-// the max logits are written by half 0 only.
+// Head dim 256: no column split. A consumer warpgroup owns its 64 q rows
+// at all 256 output columns: S = Q K^T once per item (16 k-steps of
+// m64n64k16), O += P V as one m64n256k16 chain a k-step (V read MN-major
+// at full width), O 128 floats a thread, and every warpgroup writes its
+// rows' lse and max logits. Two consumer warpgroups a CTA share every K/V
+// stage: B1 at a 128-row q tile, B2 at G = 2 heads (the per-warpgroup code
+// is the same, so B2 stays bit-identical to B1). Shared memory at 128 x 64
+// (or G = 2): two 64 x 256 q tiles (64 KB) and two stages of the 64-row K
+// and V at full width (128 KB), 197,664 bytes, one CTA of 256 threads an
+// SM. Registers: O (128) beside S (32) and P (16) and the softmax state,
+// under __launch_bounds__(256, 1)'s 255; a 128-row k tile would add 48
+// (S and P of n = 128) and does not fit the shared memory either, so the
+// 256 instances take 64-row k tiles only. At 64 x 64 B1 is one warpgroup
+// a CTA: with two stages (164,880 bytes) one CTA, one warpgroup, an SM;
+// it keeps one K/V stage instead (99,344 bytes, __launch_bounds__(128, 2)),
+// so two CTAs share an SM and each one's loads run under the other's
+// products (the next item's K and V are loaded once the item's products
+// are done): 1.35x faster than two stages at Gemma-2-9B's attention on an
+// H100 SXM at 700 W, bitwise the same.
 //
 // Tiles (BQ, BK) of 64 or 128 rows each (kernels/ffa.py picks the pair
 // from the plan; csrc/common.cuh MAGI_FFA_TILES lists the instances). A
@@ -43,12 +58,10 @@
 // What bounds it on this card: operations, 4 * D flops per live pair and
 // head on the bf16 tensor cores (989 TFLOP/s on an H100 SXM). Shared
 // memory (Smem below): the warpgroups' q tiles and two stages of K and V,
-// 64 * D * 2 * (warpgroups) + 2 * BK * (D + DV) * 2 + 16 * warpgroups +
-// 1024 bytes (80 KB at D = 128 and 64 x 64, G = 1: two CTAs per SM;
-// 160 KB at 128 x 128; at D = 256 the V tiles are the 128-column half,
-// 129 KB at 64 x 64, one CTA per SM; 128 x 128 does not fit there).
-// Registers: the O accumulator (DV / 2 floats a thread, DV = min(D,
-// 128)), S (BK / 2) and P (BK / 4).
+// 64 * D * 2 * (warpgroups) + 2 * BK * 2 * D * 2 + 16 * warpgroups + 1024
+// bytes (80 KB at D = 128 and 64 x 64, G = 1: two CTAs per SM; 160 KB at
+// 128 x 128; at D = 256 see above). Registers: the O accumulator (D / 2
+// floats a thread), S (BK / 2) and P (BK / 4).
 #pragma once
 
 #include "tc.cuh"
@@ -61,13 +74,6 @@ using magi::LN2;
 using magi::LOG2E;
 using magi::META_DIM;
 
-// the output columns one CTA computes (a 128-column half at D = 256) and
-// the halves of a row
-template <int D>
-constexpr int DV = D > 128 ? 128 : D;
-template <int D>
-constexpr int NCH = D / DV<D>;
-
 // G heads of one kv head, or (G = 1) the BQ / 64 row halves of one head:
 // one consumer warpgroup each
 template <int G, int BQ>
@@ -76,17 +82,21 @@ constexpr int NWG = G * (BQ / 64);
 template <int D, int G, int BQ = 64, int BK = 64>
 struct Smem {
   static constexpr int WG = NWG<G, BQ>;
+  // one K/V stage for the one-warpgroup CTA at D = 256 and a 64-row k
+  // tile: two CTAs an SM
+  static constexpr int STAGES = D > 128 && WG == 1 && BK == 64 ? 1 : 2;
   static constexpr uint32_t TILE = 64 * D * 2;  // one warpgroup's q tile
   static constexpr uint32_t KT = BK * D * 2;    // K of a stage
-  static constexpr uint32_t STAGE = KT + BK * DV<D> * 2;  // K, V
+  static constexpr uint32_t STAGE = 2 * KT;     // K, V
   static constexpr uint32_t KV = WG * TILE;       // [2 stages][K, V]
-  static constexpr uint32_t RED = KV + 2 * STAGE;  // 4 floats a warpgroup
+  static constexpr uint32_t RED = KV + STAGES * STAGE;  // 4 floats a warpgroup
   // + 1024: the dynamic window is rounded up to a 1024-byte boundary
   static constexpr size_t bytes = RED + 16 * WG + 1024;
 };
 
 template <int D, int G, int BQ, int BK>
-__global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
+__global__ void __launch_bounds__(128 * NWG<G, BQ>,
+                                  Smem<D, G, BQ, BK>::STAGES == 1 ? 2 : 1)
     ffa_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -99,8 +109,7 @@ __global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
   static_assert(G == 1 || BQ == 64, "a 128-row q tile packs no heads");
   using S = Smem<D, G, BQ, BK>;
   constexpr int NT = 128 * NWG<G, BQ>;
-  constexpr int W = DV<D>;  // output columns of this CTA
-  constexpr int NACC = W / 2;
+  constexpr int NACC = D / 2;  // O floats a thread
   constexpr int NS = BK / 2;   // S floats a thread
   constexpr int KS = BK / 16;  // k-steps of P V
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -108,7 +117,6 @@ __global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - raw);
 
-  const int ch = NCH<D> > 1 ? (int)blockIdx.z : 0;  // the column half
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = t & 31;
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
@@ -133,9 +141,12 @@ __global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
     const int k0 = work_kt[w] * BK;
     const uint32_t Ks = base + S::KV + stage * S::STAGE;
     const long off = ((long)k0 * hk + hkv) * D;
-    load_tile_async<D, NT, BK>(Ks, k + off, kv_rs, min(BK, sk - k0), tid);
-    load_tile_async<W, NT, BK>(Ks + S::KT, v + off + ch * W, kv_rs,
-                               min(BK, sk - k0), tid);
+    // one warpgroup at D = 256: 16 copies a thread and tile, whose
+    // addresses are not kept beside O (they pushed it into spills)
+    const int tt = D > 128 && NT == 128 ? (int)opaque(tid) : tid;
+    load_tile_async<D, NT, BK>(Ks, k + off, kv_rs, min(BK, sk - k0), tt);
+    load_tile_async<D, NT, BK>(Ks + S::KT, v + off, kv_rs, min(BK, sk - k0),
+                               tt);
   };
 
   int w = next_real(run_ptr[qt]);
@@ -153,9 +164,13 @@ __global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
   int stage = 0;
   while (w < w_end) {
     const int wn = next_real(w + 1);
-    if (wn < w_end) load_kv(wn, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // q and this item's K, V have landed
+    if constexpr (S::STAGES == 2) {
+      if (wn < w_end) load_kv(wn, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // q and this item's K, V have landed
+    } else {
+      cp_async_wait<0>();
+    }
     fence_async_smem();
     __syncthreads();
 
@@ -215,14 +230,18 @@ __global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      wgmma_rs_t1<W>(acc, pa[kk], desc_mn<BK>(Vs, kk));
+      wgmma_rs_t1<D>(acc, pa[kk], desc_mn<BK>(Vs, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pa);
     __syncthreads();  // every warpgroup is done with this stage's K and V
+    if constexpr (S::STAGES == 1) {  // the next item's K, V into the stage
+      if (wn < w_end) load_kv(wn, 0);
+      cp_async_commit();
+    }
     w = wn;
-    stage ^= 1;
+    stage ^= S::STAGES - 1;
   }
   cp_async_wait<0>();  // an uncovered tile loaded q and nothing else
 
@@ -233,19 +252,19 @@ __global__ void __launch_bounds__(128 * NWG<G, BQ>, 1)
     const int row = q0 + r0 + 8 * hh;
     if (row >= sq) continue;
     const bool empty = l[hh] == 0.f;  // no slice covers this row
-    __nv_bfloat16* o = out + ((long)row * hq + h) * D + ch * W;
+    __nv_bfloat16* o = out + ((long)row * hq + h) * D;
 #pragma unroll
-    for (int j = 0; j < W / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const float a0 = empty ? 0.f : acc[4 * j + 2 * hh] / l[hh];
       const float a1 = empty ? 0.f : acc[4 * j + 2 * hh + 1] / l[hh];
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + c0) =
           __floats2bfloat162_rn(a0, a1);
     }
-    if ((lane & 3) == 0 && ch == 0)
+    if ((lane & 3) == 0)
       lse[(long)row * hq + h] =
           empty ? -INFINITY : (m[hh] + log2f(l[hh])) * LN2;
   }
-  if (max_logits != nullptr && ch == 0) {
+  if (max_logits != nullptr) {
     // the tile's max logit of each head: the row maxima of the 4 warps of
     // each warpgroup of that head
     float mx = fmaxf(m[0], m[1]);
@@ -280,7 +299,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
     cudaError_t e =
         magi::allow_smem(ffa_fwd_tc_kernel<D, G, BQ, BK>, smem, &smem_ok);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(num_q_tiles, hq / G, NCH<D>);
+    const dim3 grid(num_q_tiles, hq / G);
     ffa_fwd_tc_kernel<D, G, BQ, BK>
         <<<grid, 128 * NWG<G, BQ>, smem, (cudaStream_t)stream>>>(
             static_cast<const __nv_bfloat16*>(q),

@@ -280,9 +280,9 @@ LIBRARY_KERNEL = {
 }
 
 
-@lru_cache(maxsize=None)
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.library(name)
+def bind_library(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """``lib``, a loaded build of ``csrc/<name>.cu``, with the argument and
+    result types of its C entries set."""
     for suffix in ("f32", "bf16"):
         fn = getattr(lib, f"{name}_{suffix}")
         fn.argtypes = _ARGTYPES[name]
@@ -296,6 +296,11 @@ def _lib(name: str) -> ctypes.CDLL:
         smem.argtypes = [_I] * _SMEM_ARGS[name]
         smem.restype = ctypes.c_long
     return lib
+
+
+@lru_cache(maxsize=None)
+def _lib(name: str) -> ctypes.CDLL:
+    return bind_library(_build.library(name), name)
 
 
 def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
@@ -796,9 +801,9 @@ def fwd_pack_smem_bytes(d: int, heads: int, itemsize: int = 4, bq: int = 64, bk:
     bfloat16 (csrc/ffa_fwd_tc.cuh ``Smem``): the heads' q tiles and two
     stages of k and v tiles in bf16. Both: 16 bytes a head for the
     max-logits reduction, and 1024 bytes to align the window for the
-    swizzle. At d = 256 (the column split) the v tiles are the 128-column
-    half, and float32 splits each chunk straight from global memory (no
-    raw chunk)."""
+    swizzle. At d = 256 the bf16 v tiles stay full width (no column split),
+    float32's are the 128-column half (its column split) and float32 splits
+    each chunk straight from global memory (no raw chunk)."""
     return mem_budget.fwd_smem_bytes(d, bq, bk, itemsize, heads)
 
 
@@ -855,7 +860,8 @@ def _tc_pack_heads(group: int, d: int, dv: int, smem_bytes, regs_needed: int,
     limit (``smem_bytes(d, heads, itemsize)``) and whose warpgroups (128
     threads a head) each find the registers a thread needs
     (``regs_needed``, from the accumulators of one CTA's columns: a
-    128-column half at d = 256) in the SM's file."""
+    128-column half where the kernel splits its columns at d = 256:
+    :func:`.head_dims.cta_width`) in the SM's file."""
     if not is_kernel_width(d, dv):
         return 1
     for heads in PACK_HEADS:
@@ -878,15 +884,16 @@ def fwd_pack_heads(group: int, d: int, dv: int, itemsize: int = 4, bq: int = 64,
     heads at head_dim 128 and 4 at 64; at a 128-row k tile 2. float32
     (3xTF32): d + 72 registers a thread and :func:`fwd_pack_smem_bytes`, 2
     heads at head_dim 64 and 128 (four warpgroups would leave 128 registers
-    a thread). At d = 256 bf16 packs 2 heads (64-row k tiles) and float32
-    none (one head's tiles take 225 KB). A 128-row q tile packs none (its
+    a thread). At d = 256 bf16 packs 2 heads (64-row k tiles; the full
+    256-column O, 216 registers a thread) and float32 none (one head's
+    tiles take 225 KB). A 128-row q tile packs none (its
     two warpgroups are the tile's halves). A group larger than the block
     runs in several blocks per kv head."""
     if bq != 64:
         return 1
     smem = lambda d_, h, isz: fwd_pack_smem_bytes(d_, h, isz, bq, bk)  # noqa: E731
     if itemsize == 2:
-        return _tc_pack_heads(group, d, dv, smem, cta_width(d) // 2 + tc_fwd_regs_shared(bk))
+        return _tc_pack_heads(group, d, dv, smem, cta_width(d, "fwd_gqa", 2) // 2 + tc_fwd_regs_shared(bk))
     return _tc_pack_heads(group, d, dv, smem, cta_width(d) + TF32_FWD_REGS_SHARED, 4)
 
 
@@ -1011,8 +1018,8 @@ def fused_bwd_feasible(d: int, dv: int) -> bool:
     addresses and operands (64) within the register limit. These are the
     float32 body's figures (at d = 256 those of one 128-column half); the
     bf16 tensor-core body takes less shared memory at head dims 64 and 128
-    (:func:`fused_bwd_smem_bytes`) and fits its registers at each width
-    without a spill (chip_smoke.py's ``tensor_cores``
+    (:func:`fused_bwd_smem_bytes`; at 256 its two column warpgroups take
+    231,424 bytes) and fits its registers at each width without a spill (chip_smoke.py's ``tensor_cores``
     phase reports both from the build). The JAX package's
     guard is its VMEM residency (``ffa.fused_bwd_feasible``)."""
     if d != dv or d % 64:

@@ -61,13 +61,17 @@ kernel's (that body is the dk/dv body plus one tile product, dS K, and the
 atomics). The tensor-core bodies (:func:`calibrate_tc`): each kernel's
 per-(item, head) time fitted by least squares to its times at the bf16
 masks of the phase. Head dims up to 128 scale the per-item times by
-d / 128. At 256 (:func:`width_scale`) every kernel splits the columns it
-writes in two 128-column halves across the grid, so it runs twice the
-CTAs, and each CTA does its 128-wide output products beside S and dP over
-the full 256 (the recompute: :data:`TC_PRODUCTS`, :data:`FMA_PRODUCTS`);
-the tensor-core bodies then run one CTA an SM (shared memory). Which
-bodies a backward runs follows its dtype (``BwdShape.itemsize``: 2 is
-bf16, the tensor-core bodies; :func:`dtype_body`).
+d / 128. At 256 (:func:`width_scale`) the bf16 dk/dv and fused kernels
+write all 256 columns from one CTA of two warpgroups that split every
+product between them, so each warpgroup runs the width-128 instance's
+products and no product is recomputed; the bf16 dq kernel and every
+float32 body split the columns they write in two 128-column halves
+across the grid (:func:`_halves`), so they run twice the CTAs, and each
+CTA does its 128-wide output products beside S and dP over the full 256
+(the recompute: :data:`TC_PRODUCTS`, :data:`FMA_PRODUCTS`). Every
+tensor-core body runs one CTA an SM at 256 (shared memory). Which bodies
+a backward runs follows its dtype (``BwdShape.itemsize``: 2 is bf16, the
+tensor-core bodies; :func:`dtype_body`).
 """
 
 from __future__ import annotations
@@ -645,18 +649,28 @@ TC_ITEM_US = {"dq": 0.9092, "dq_gqa": 1.0122, "dkv": 2.8878, "fused": 5.121}
 # a CTA's while it shares the SM. A lone long run (the sink window's 516
 # steps) is slower than that pace: the model is 4-23% under it there.
 TC_CTAS_PER_SM = {"dq": 2, "dq_gqa": 1, "dkv": 2, "fused": 2}
-# The 256-wide instances: per (item, head) each body's products over the
-# full head dim (S, dP: recomputed by both column halves) and over its half
-# (the outputs; the tensor-core dk/dv products are hi + lo pairs), for
-# :func:`width_scale`.
-TC_PRODUCTS = {"dq": (2, 1), "dq_gqa": (2, 1), "dkv": (2, 4), "fused": (2, 5)}
+# The 256-wide instances, for :func:`width_scale`: per (item, head) the
+# products a warpgroup runs over the full head dim and over a 128-column
+# half (or half the q rows). Bodies that split their columns across the
+# grid (the bf16 dq; every float32 one): S and dP over the full width,
+# recomputed by both halves, the outputs over the half (the tensor-core
+# dk/dv products are hi + lo pairs). The bf16 dk/dv and fused bodies
+# (csrc/bwd_kv_tc.cuh): two warpgroups a CTA split every product, S^T and
+# dP^T along the q rows, dV, dK (hi + lo) and dQ by column half, so each
+# runs the width-128 instance's six (seven) and none is recomputed. The
+# bf16 forward (csrc/ffa_fwd_tc.cuh, which the mode model does not price):
+# a warpgroup's S and P V both over the full 256.
+TC_PRODUCTS = {
+    "fwd": (2, 0), "fwd_gqa": (2, 0), "dq": (2, 1), "dq_gqa": (2, 1), "dkv": (0, 6), "fused": (0, 7),
+}
 FMA_PRODUCTS = {"dq": (2, 1), "dq_gqa": (2, 1), "dkv": (2, 2), "fused": (2, 3)}
 
 
 def width_scale(d: int, products: tuple[int, int]) -> float:
     """One CTA's per-(item, head) time at head dim d over its time at 128:
-    d / 128 up to 128; above, its (full-width, half-width) ``products``
-    at d and at the 128-column half, over all of them at 128."""
+    d / 128 up to 128; above, its warpgroup's (full-width, half-width)
+    ``products`` at d and at the 128-column half, over all of them at 128
+    (1.0 where no product runs at full width: no recompute)."""
     if d <= SPLIT_WIDTH:
         return d / 128.0
     full, half = products
@@ -713,8 +727,11 @@ def _ctas(items: np.ndarray, heads: int, heads_per_cta: int, reverse: bool) -> n
     return np.tile(runs * heads_per_cta, heads // heads_per_cta)
 
 
-def _halves(s: "BwdShape") -> int:
-    return column_halves(max(s.d, s.dv))
+def _halves(s: "BwdShape", kernel: str) -> int:
+    """The column halves (grid z) of ``kernel`` ("dq" or "dkv", whose
+    grid the fused kernel shares) at the shape's width, in the body of its
+    dtype: 2 at 256 for the bf16 dq and every float32 body, else 1."""
+    return column_halves(max(s.d, s.dv), kernel, s.itemsize)
 
 
 def kernel_units(
@@ -726,10 +743,10 @@ def kernel_units(
     first, on ``dq_slots`` slots) and the k-major kernels (dk/dv and fused:
     one CTA per (run, kv head) looping the group, first run first, on
     ``kv_slots`` slots)."""
-    g, n = s.hq // s.hk, _halves(s)  # grid z: the column halves
+    g, n_q, n_kv = s.hq // s.hk, _halves(s, "dq"), _halves(s, "dkv")  # grid z
     return {
-        "dq": makespan(np.tile(_ctas(s.items_q, s.hq, dq_heads_per_cta, True), n), dq_slots),
-        "kv": makespan(np.tile(_ctas(s.items_k, s.hk, 1, False) * g, n), kv_slots),
+        "dq": makespan(np.tile(_ctas(s.items_q, s.hq, dq_heads_per_cta, True), n_q), dq_slots),
+        "kv": makespan(np.tile(_ctas(s.items_k, s.hk, 1, False) * g, n_kv), kv_slots),
     }
 
 
@@ -742,7 +759,7 @@ def _tc_units(s: BwdShape, kernel: str, dq_heads_per_cta: int = 1) -> float:
     "dq_gqa", "dkv" or "fused"), its CTAs dealt to its
     :data:`TC_CTAS_PER_SM` slots per SM (one at 256)."""
     bq, bk = (s.block_q, s.block_k) if kernel in ("dq", "dq_gqa") else s.dkv_blocks()
-    if _halves(s) > 1:
+    if max(s.d, s.dv) > SPLIT_WIDTH:
         per_sm = 1
     elif (bq, bk) == mem_budget.DEFAULT_TILES:
         per_sm = TC_CTAS_PER_SM[kernel]
@@ -762,14 +779,15 @@ def dram_bytes(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
     per pass (zeroed, written back, read and written by the convert)."""
     isz, bq, bk, d, dv = s.itemsize, s.block_q, s.block_k, s.d, s.dv
     bq_kv, bk_kv = s.dkv_blocks()
-    n_q, n_k, n = len(s.items_q), len(s.items_k), _halves(s)  # each half reads all
+    n_q, n_k = len(s.items_q), len(s.items_k)
+    h_q, h_kv = _halves(s, "dq"), _halves(s, "dkv")  # each half reads all
     kv = (
-        n_k * s.hk * bk_kv * (d + dv) * (n * isz + 4)  # K, V in; dk, dv out
-        + n * float(s.items_k.sum()) * s.hq * bq_kv * ((d + dv) * isz + 2 * 4)  # Q, dO, lse, delta
+        n_k * s.hk * bk_kv * (d + dv) * (h_kv * isz + 4)  # K, V in; dk, dv out
+        + h_kv * float(s.items_k.sum()) * s.hq * bq_kv * ((d + dv) * isz + 2 * 4)  # Q, dO, lse, delta
     )
     return {
-        "dq": n_q * s.hq * bq * ((d + dv) * n * isz + 2 * 4 * n + d * 4)  # Q, dO, stats; dq
-        + n * float(s.items_q.sum()) * (s.hq // dq_heads_per_cta) * bk * (d + dv) * isz,  # K, V
+        "dq": n_q * s.hq * bq * ((d + dv) * h_q * isz + 2 * 4 * h_q + d * 4)  # Q, dO, stats; dq
+        + h_q * float(s.items_q.sum()) * (s.hq // dq_heads_per_cta) * bk * (d + dv) * isz,  # K, V
         "dkv": kv,
         "fused": kv + 4 * n_q * bq * s.hq * d * 4,  # the dq workspace
     }

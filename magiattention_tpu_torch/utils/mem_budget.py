@@ -49,27 +49,30 @@ def _tile_floats(d: int) -> int:
     return 64 * (d + 4)
 
 
-def warpgroups(kernel: str, bq: int = 64, bk: int = 64, heads: int = 1) -> int:
+def warpgroups(kernel: str, bq: int = 64, bk: int = 64, heads: int = 1, d: int = 128) -> int:
     """Consumer warpgroups of one tensor-core CTA: one a head (packed) or a
     64-row half of the q tile (q-major kernels), one a 64-row block of the
-    k tile (k-major kernels)."""
+    k tile (k-major kernels); at d = 256 the k-major kernels run two on
+    one 64-row k tile, one a column half."""
     if kernel in ("dkv", "fused"):
-        return bk // 64
+        return 2 * (bk // 64) if d > SPLIT_WIDTH else bk // 64
     return heads * (bq // 64)
 
 
 def fwd_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads: int = 1) -> int:
     """One forward CTA (B1, or B2 with ``heads``). bfloat16
     (csrc/ffa_fwd_tc.cuh ``Smem``): a 64-row q tile per warpgroup and two
-    stages of the k tile's K and V (V the 128-column half at d = 256), 16
-    bytes a warpgroup for the max-logits reduction and 1024 to align the
-    window. float32 (csrc/ffa_fwd_tf32.cuh ``Smem``): a q tile per
+    stages of the k tile's K and V (full width at every d; one stage for a
+    one-warpgroup CTA at d = 256 and 64-row k tiles, so two share an SM), 16 bytes a warpgroup
+    for the max-logits reduction and 1024 to align the window.
+    float32 (csrc/ffa_fwd_tf32.cuh ``Smem``): a q tile per
     warpgroup in tf32 hi and lo, the raw 32-key K and V chunk (none at d =
     256) and two stages of its split tiles where they fit, else one; it
     does not depend on the k tile (an item is walked in 32-key chunks)."""
     wg, w = warpgroups("fwd", bq, bk, heads), cta_width(d)
     if itemsize == 2:
-        return wg * 64 * d * 2 + 2 * bk * (d + w) * 2 + 16 * wg + 1024
+        stages = 1 if d > SPLIT_WIDTH and wg == 1 and bk == 64 else 2
+        return wg * 64 * d * 2 + stages * bk * 2 * d * 2 + 16 * wg + 1024
     raw = 128 * (d + w) if d <= SPLIT_WIDTH else 0
     fixed = 512 * wg * d + raw + 16 * wg + 1024
     stage = 256 * (d + w)
@@ -92,17 +95,21 @@ def dq_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads: 
 
 def dkv_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, fused: bool = False) -> int:
     """One dk/dv CTA (B5/B6), or with ``fused`` one fused-backward CTA
-    (B8/B9). bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``): K and V per
-    warpgroup (64 key rows each), two stages of the q tile's Q and dO and
-    of its lse and delta, with ``fused`` a 64 x 64 bf16 dS^T tile per
-    warpgroup, and 1024 bytes to align the window. float32
+    (B8/B9). bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``): K and V of the k
+    tile, two stages of the q tile's Q and dO and of its lse and delta,
+    with ``fused`` a 64 x 64 bf16 dS^T tile per warpgroup (64 key rows
+    each), and 1024 bytes to align the window; at d = 256, in either mode,
+    the four bk x bq bf16 P^T and dS^T tiles (hi and lo) the two column
+    warpgroups share instead (231,424 bytes at 64 x 64). float32
     (csrc/bwd_kv.cuh ``DkvSmem``, 64 x 64, the same with fused): K, V, Q
     and dO at row stride d + 4, the P^T and dS^T tiles, the q tile's lse and
     delta."""
     if itemsize == 2:
-        wg = warpgroups("dkv", bq, bk)
-        ds = wg * 64 * 64 * 2 if fused else 0
-        return wg * 2 * 64 * d * 2 + 4 * bq * d * 2 + ds + 2 * 2 * bq * 4 + 1024
+        if d > SPLIT_WIDTH:
+            ds = 4 * bk * bq * 2
+        else:
+            ds = warpgroups("dkv", bq, bk) * 64 * 64 * 2 if fused else 0
+        return bk * 2 * d * 2 + 4 * bq * d * 2 + ds + 2 * 2 * bq * 4 + 1024
     return 4 * (4 * _tile_floats(cta_width(d)) + 2 * P_TILE_FLOATS + 2 * 64)
 
 
@@ -155,7 +162,7 @@ def ctas_per_sm(kernel: str, d: int, bq: int = 64, bk: int = 64, heads: int = 1)
     register file: a warpgroup's thread keeps up to 255 registers), one
     when the CTA runs two warpgroups or more."""
     by_smem = SMEM_PER_SM // (ffa_smem_bytes(kernel, d, bq, bk, 2, heads) + 1024)
-    return max(1, min(by_smem, 2 // warpgroups(kernel, bq, bk, heads)))
+    return max(1, min(by_smem, 2 // warpgroups(kernel, bq, bk, heads, d)))
 
 
 # -- the decode (B10-B12) and block-sparse (B13/B14) libraries ---------------

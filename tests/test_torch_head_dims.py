@@ -319,10 +319,10 @@ def test_paged_decode_padded_256_cache(d, dv):
 
 @pytest.mark.parametrize(
     "guard, args, want",
-    [("fwd_pack_smem_bytes", (256, 1, 2), 132_112), ("fwd_pack_smem_bytes", (256, 2, 2), 164_896),
+    [("fwd_pack_smem_bytes", (256, 1, 2), 99_344), ("fwd_pack_smem_bytes", (256, 2, 2), 197_664),
      ("fwd_pack_smem_bytes", (256, 1, 4), 230_416), ("dq_pack_smem_bytes", (256, 1, 2), 197_632),
-     ("dq_pack_smem_bytes", (256, 1, 4), 155_648), ("dkv_smem_bytes", (256, 2), 198_656),
-     ("dkv_smem_bytes", (256, 4), 176_640), ("fused_bwd_smem_bytes", (256, 2), 206_848),
+     ("dq_pack_smem_bytes", (256, 1, 4), 155_648), ("dkv_smem_bytes", (256, 2), 231_424),
+     ("dkv_smem_bytes", (256, 4), 176_640), ("fused_bwd_smem_bytes", (256, 2), 231_424),
      ("fwd_pack_heads", (8, 256, 256, 2), 2), ("fwd_pack_heads", (8, 256, 256, 4), 1),
      ("dq_pack_heads", (8, 256, 256, 2), 1), ("dq_pack_heads", (8, 256, 256, 4), 1),
      ("fused_bwd_feasible", (256, 256), True)],
@@ -330,18 +330,21 @@ def test_paged_decode_padded_256_cache(d, dv):
 )
 def test_256_guards(guard, args, want):
     """The pack and mode guards at the 256 instances: each CTA's shared
-    memory as the kernels' ``*_smem_bytes`` exports report it (the column
-    split: v tiles of 128 columns in the bf16 forward, the float32 bodies'
-    128-wide chunks), packing where it fits, never raising."""
+    memory as the kernels' ``*_smem_bytes`` exports report it (the bf16
+    forward's full-width v tiles, the bf16 k-major backward's four P^T /
+    dS^T tiles, the float32 bodies' 128-wide chunks), packing where it
+    fits, never raising."""
     assert getattr(tffa, guard)(*args) == want
 
 
 def test_cost_model_prices_the_column_split():
-    """At 256 the backward cost model runs twice the CTAs, each doing its
-    half's products beside S and dP over the full width: a CTA's
-    per-(item, head) time is (2 * 256 + products * 128) / (128 * (2 +
-    products)) of its time at 128, so every modeled time exceeds the 128
-    instance's, and the grids hold twice the CTAs."""
+    """At 256 a kernel that splits its columns (the bf16 dq pass, every
+    float32 body) runs twice the CTAs, each doing its half's products
+    beside S and dP over the full width: a CTA's per-(item, head) time is
+    (2 * 256 + products * 128) / (128 * (2 + products)) of its time at 128;
+    the bf16 dk/dv and fused kernels run one CTA an SM. Every modeled time
+    exceeds the 128 instance's, and ``column_halves`` without a family is
+    the splitting kernels' (tests/test_torch_d256.py: per family)."""
     from magiattention_tpu_torch.kernels import tile_policy as tp
 
     assert tp.width_scale(128, (2, 1)) == 1.0 and tp.width_scale(64, (2, 4)) == 0.5
