@@ -161,20 +161,24 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     steps, step ms, tokens/s, a profiled step, and loss and gradients
     against the dense float32 twin at 8 frames.
 11. ``d256_kernels``: each family's 256 instance timed against its
-    plain version and bound. The bf16 forward and k-major backward write
-    all 256 columns from one CTA (no column split; the bf16 dq pass and
-    the float32 bodies keep it): B1 bf16 at Gemma-2-9B's attention at 64 x
+    plain version and bound. The bf16 forward, dq pass and k-major
+    backward write all 256 columns from one CTA (no column split; the
+    float32 bodies keep it): B1 bf16 at Gemma-2-9B's attention at 64 x
     64 (one warpgroup, two CTAs an SM) and 128 x 64 (two warpgroups), its
     max logits, against SDPA, with B2 (packed, 2 heads a CTA) on the same
     inputs bit for bit B1's; B1 float32 at the serving prefill shape; B3 +
     B5 and B8 against SDPA's backward alone (``bwd_mode``'s rule held at d
-    256), the split dk/dv bit for bit the fused kernel's, B1 and B5 run
+    256), the split dk/dv bit for bit the fused kernel's, B4 (packed, 2
+    heads a CTA) bit for bit B3 and timed beside it, B1, B3, B4 and B5 run
     twice to the bit; the empty-row contract on the varlen mask (out 0,
-    lse -inf, unreached dk/dv and uncovered fused dq exactly 0); B10 on 8
-    slots in both dtypes. ``hybrid_d256``: Gemma-2-9B attention (softcap
-    50) through the API, the global causal dispatch key and its 4096-token
-    sliding window re-keyed onto it, fwd+bwd against the plain versions,
-    ms, bound and share per key. With ``--parent DIR`` (a parent commit's
+    lse -inf, unreached dk/dv and uncovered split and fused dq exactly 0);
+    B10 on 8 slots in both dtypes. ``hybrid_d256``: Gemma-2-9B attention
+    (softcap 50) through the API, the global causal dispatch key and its
+    4096-token sliding window re-keyed onto it, unpinned and under
+    MAGI_ATTENTION_DETERMINISTIC_MODE=1 (B1, B7, B3, B5/B6 once each, two
+    runs to the bit; with the packed dq flag B4 in place of B3, bit for
+    bit), fwd+bwd against the plain versions, ms, bound and
+    share per key. With ``--parent DIR`` (a parent commit's
     ``magiattention_tpu_torch/csrc``, e.g. ``git archive <commit>
     magiattention_tpu_torch/csrc | tar -x -C build/parent``) the
     redesigned libraries are also built from it (``build/parent_kernels``)
@@ -2736,8 +2740,8 @@ C4_DIMS = ((32, 32), (96, 96), (64, 128), (256, 256), (192, 128), (256, 128))
 def head_dim_cases(gen, worst: dict) -> dict[str, int]:
     """ROADMAP C4 and C4b: head dims other than 64 and 128 run padded with
     zero columns to 64, 128 or 256 (``kernels/head_dims.py``; at 256 the
-    bf16 dq pass and the float32 bodies split the columns they write in
-    two halves, the bf16 forward and k-major backward do not), within the
+    float32 bodies split the columns they write in two halves, the bf16
+    bodies do not), within the
     float32 / bf16 tolerances of the plain versions on the unpadded
     tensors: d 32, d 96, d 64 with dv 128, d 256, d 192 with dv 128 and
     d 256 with dv 128, float32 and bf16, through FFA forward (and the
@@ -6061,7 +6065,7 @@ BWD_MODE_SLACK = 1.05  # bwd_mode's rule: the model's pick within 5% of the fast
 # the libraries whose d-256 bf16 instances were redesigned (no column
 # split): ``--parent DIR`` builds them from a parent's sources to time them
 # beside this tree's in one call
-PARENT_LIBRARIES = ("ffa_fwd", "ffa_fwd_gqa", "ffa_bwd_dkv", "ffa_bwd_fused")
+PARENT_LIBRARIES = ("ffa_fwd", "ffa_fwd_gqa", "ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv", "ffa_bwd_fused")
 
 
 def parent_libraries(csrc: str) -> dict:
@@ -6134,7 +6138,9 @@ def d256_phase(peaks: dict, parent: dict | None = None) -> dict[str, dict]:
     the backward at the bf16 shape: B3 (dq) + B5 (dk/dv) and B8 (fused),
     the split dk/dv bit for bit the fused kernel's, against SDPA's backward
     alone, and the unpinned mode held to ``bwd_mode``'s rule (the faster
-    where the two differ by more than 5%); B1, B5 twice, equal to the bit;
+    where the two differ by more than 5%); B4's 256 instance (2 heads a
+    CTA) on the same inputs, bit for bit B3 and timed beside it in turns;
+    B1, B3, B4, B5 twice, equal to the bit;
     the empty-row contract at d 256 on the varlen mask (out 0 and lse -inf
     on uncovered rows, dk = dv = 0 on k rows no slice reaches, the fused dq
     0 on uncovered rows); B1 float32 at the serving prefill shape; B10 on
@@ -6149,9 +6155,9 @@ def d256_phase(peaks: dict, parent: dict | None = None) -> dict[str, dict]:
     import torch.nn.functional as F
 
     from magiattention_tpu_torch.kernels.ffa import (
-        ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, ffa_bwd_dq_kernel, ffa_bwd_dq_plain,
-        ffa_bwd_fused_kernel, ffa_bwd_fused_plain, ffa_bwd_mode, ffa_delta_plain,
-        ffa_fwd_gqa_kernel, ffa_fwd_kernel, fwd_pack_heads,
+        dq_pack_heads, ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, ffa_bwd_dq_gqa_kernel,
+        ffa_bwd_dq_kernel, ffa_bwd_dq_plain, ffa_bwd_fused_kernel, ffa_bwd_fused_plain,
+        ffa_bwd_mode, ffa_delta_plain, ffa_fwd_gqa_kernel, ffa_fwd_kernel, fwd_pack_heads,
     )
     from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
     from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band
@@ -6234,6 +6240,13 @@ def d256_phase(peaks: dict, parent: dict | None = None) -> dict[str, dict]:
             args = (q, k, v, do, lse, delta, plan, params)
             dq, (dk, dv) = ffa_bwd_dq_kernel(*args), ffa_bwd_dkv_kernel(*args)
             _same_bits("d256: dk/dv run twice", ffa_bwd_dkv_kernel(*args), (dk, dv))
+            _same_bits("d256: dq run twice", (ffa_bwd_dq_kernel(*args),), (dq,))
+            dq_heads = dq_pack_heads(hq // c["hk"], d, d, isz)
+            if dq_heads != 2:
+                raise AssertionError(f"d256: the packed dq's guard gives {dq_heads} heads at g {hq // c['hk']}")
+            dq4 = ffa_bwd_dq_gqa_kernel(*args)
+            _same_bits("d256: the packed dq against B3", (dq4,), (dq,))
+            _same_bits("d256: the packed dq run twice", (ffa_bwd_dq_gqa_kernel(*args),), (dq4,))
             want_b = (ffa_bwd_dq_plain(*args), *ffa_bwd_dkv_plain(*args))
             errs = {n: grad_check(f"d256 split {n}", a, b, dname)
                     for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want_b)}
@@ -6241,7 +6254,7 @@ def d256_phase(peaks: dict, parent: dict | None = None) -> dict[str, dict]:
             errs.update({f"fused_{n}": grad_check(f"d256 fused {n}", a, b, dname)
                          for n, a, b in zip(("dq", "dk", "dv"), fused, want_b)})
             _same_bits("d256: the split dk/dv against the fused kernel's", (dk, dv), fused[1:])
-            del dq, dk, dv, fused, want_b
+            del dq, dq4, dk, dv, fused, want_b
             n_q, n_kv, rows = q.numel(), k.numel(), c["sq"] * hq
             in_bytes = (2 * n_q + 2 * n_kv) * isz + 2 * rows * 4
             for kname, kern, plain_fn, fl, nb in (
@@ -6257,8 +6270,23 @@ def d256_phase(peaks: dict, parent: dict | None = None) -> dict[str, dict]:
                     ms=ms, plain_ms=time_ms(lambda p=plain_fn: p(*args), warmup=1, samples=3),
                     bound_ms=bb_ms, bound_by=bb_by, share=bb_ms / ms,
                     tflops=fl * hq * d * live / (ms * 1e-3) / 1e12, library_ms=None,
-                    **(parent_pair(parent, run) if kname != "ffa_bwd_dq" else {}),
+                    **parent_pair(parent, run),
                 )
+            # B4 beside B3 on the same inputs, in turns (the parent has no
+            # 256 instance of B4)
+            dq_fns = {"ffa_bwd_dq": lambda: ffa_bwd_dq_kernel(*args),
+                      "ffa_bwd_dq_gqa": lambda: ffa_bwd_dq_gqa_kernel(*args)}
+            turns = paired_ms(dq_fns, rounds=5, samples=5)
+            b3 = res["ffa_bwd_dq"]
+            ms4 = time_ms(dq_fns["ffa_bwd_dq_gqa"], samples=5)
+            res["ffa_bwd_dq_gqa"] = dict(
+                **errs["dq"], heads_per_cta=dq_heads, bit_identical_to_unpacked=True, ms=ms4,
+                paired_ms=statistics.median(turns["ffa_bwd_dq_gqa"]),
+                unpacked_paired_ms=statistics.median(turns["ffa_bwd_dq"]),
+                paired_rounds=turns, plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
+                bound_by=b3["bound_by"], share=b3["bound_ms"] / ms4,
+                tflops=b3["tflops"] * b3["ms"] / ms4, library_ms=None,
+            )
             qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
             o = F.scaled_dot_product_attention(*(t.transpose(0, 1)[None] for t in (qg, kg, vg)),
                                                is_causal=True, enable_gqa=True)
@@ -6325,12 +6353,15 @@ def d256_empty_rows(gen) -> dict:
     out 0 and lse -inf there and agree with the plain version elsewhere;
     the split dk/dv and the fused kernel give dk = dv = 0 on the unreached
     k rows and the fused dq 0 on the uncovered q rows, each within the bf16
-    gates of the plain backward, the split dk/dv bit for bit the fused's."""
+    gates of the plain backward, the split dk/dv bit for bit the fused's;
+    the split dq (B3, and B4 bit for bit B3) exactly 0 on the uncovered q
+    rows and within the gates elsewhere."""
     import torch
 
     from magiattention_tpu_torch.kernels.ffa import (
-        ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, ffa_bwd_dq_plain, ffa_bwd_fused_kernel,
-        ffa_delta_plain, ffa_fwd_gqa_kernel, ffa_fwd_kernel,
+        ffa_bwd_dkv_kernel, ffa_bwd_dkv_plain, ffa_bwd_dq_gqa_kernel, ffa_bwd_dq_kernel,
+        ffa_bwd_dq_plain, ffa_bwd_fused_kernel, ffa_delta_plain, ffa_fwd_gqa_kernel,
+        ffa_fwd_kernel,
     )
     from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
     from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
@@ -6361,11 +6392,14 @@ def d256_empty_rows(gen) -> dict:
     dk, dv = ffa_bwd_dkv_kernel(*args)
     fdq, fdk, fdv = ffa_bwd_fused_kernel(*args)
     _same_bits("d256 empty rows: split dk/dv against the fused kernel's", (dk, dv), (fdk, fdv))
+    dq = ffa_bwd_dq_kernel(*args)
+    _same_bits("d256 empty rows: the packed dq against B3", (ffa_bwd_dq_gqa_kernel(*args),), (dq,))
     want_b = (ffa_bwd_dq_plain(*args), *ffa_bwd_dkv_plain(*args))
     res["bwd"] = {n: grad_check(f"d256 empty rows {n}", a, b, "bfloat16")
                   for n, a, b in zip(("fused_dq", "dk", "dv"), (fdq, dk, dv), want_b)}
+    res["bwd"]["dq"] = grad_check("d256 empty rows dq", dq, want_b[0], "bfloat16")
     reached = int(np.asarray(c["kr"]).max())
-    if dk[reached:].any() or dv[reached:].any() or fdq[u0:u1].any():
+    if dk[reached:].any() or dv[reached:].any() or fdq[u0:u1].any() or dq[u0:u1].any():
         raise AssertionError("d256 empty rows: unreached k rows or uncovered dq rows not 0")
     res.update(uncovered_q_rows=[u0, u1], unreached_k_rows=[reached, c["sk"]])
     emit({"phase": "d256_kernels", "case": "empty_rows_varlen_8192_bf16_d256", **res})
@@ -6375,13 +6409,14 @@ def d256_empty_rows(gen) -> dict:
 def d128_against_parent(parent: dict, gen) -> dict:
     """The d-128 instances of the redesigned libraries at the train shape
     (bf16, q 8192 x 32 x 128, k/v 8192 x 8 x 128, two causal documents):
-    B1 at 64 x 64 and 128 x 64, B2, the split dk/dv and the fused dk/dv
-    equal to the bit to the parent's builds on the same inputs (the fused
-    dq adds with atomics in no fixed order, so it is held to the bf16
-    gates of the parent's instead)."""
+    B1 at 64 x 64 and 128 x 64, B2, B3 at 64 x 64 and 128 x 64, B4, the
+    split dk/dv and the fused dk/dv equal to the bit to the parent's builds
+    on the same inputs (the fused dq adds with atomics in no fixed order,
+    so it is held to the bf16 gates of the parent's instead)."""
     from magiattention_tpu_torch.kernels.ffa import (
-        ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel, ffa_delta_plain, ffa_fwd_gqa_kernel,
-        ffa_fwd_kernel, fwd_pack_heads,
+        dq_pack_heads, ffa_bwd_dkv_kernel, ffa_bwd_dq_gqa_kernel, ffa_bwd_dq_kernel,
+        ffa_bwd_fused_kernel, ffa_delta_plain, ffa_fwd_gqa_kernel, ffa_fwd_kernel,
+        fwd_pack_heads,
     )
     from magiattention_tpu_torch.kernels.ffa_plan import get_ffa_plan
 
@@ -6393,14 +6428,19 @@ def d128_against_parent(parent: dict, gen) -> dict:
                                     num_k_tiles=plan128.num_k_tiles, block_q=128)
     out, lse = ffa_fwd_kernel(q, k, v, plan, params)
     args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
+    args128 = (*args[:6], plan128, params128)
     runs = {
         "ffa_fwd": lambda: ffa_fwd_kernel(q, k, v, plan, params),
         "ffa_fwd_128x64": lambda: ffa_fwd_kernel(q, k, v, plan128, params128),
+        "ffa_bwd_dq": lambda: (ffa_bwd_dq_kernel(*args),),
+        "ffa_bwd_dq_128x64": lambda: (ffa_bwd_dq_kernel(*args128),),
         "ffa_bwd_dkv": lambda: ffa_bwd_dkv_kernel(*args),
         "ffa_bwd_fused_dk_dv": lambda: ffa_bwd_fused_kernel(*args)[1:],
     }
     if fwd_pack_heads(c["hq"] // c["hk"], 128, 128, 2) > 1:
         runs["ffa_fwd_gqa"] = lambda: ffa_fwd_gqa_kernel(q, k, v, plan, params)
+    if dq_pack_heads(c["hq"] // c["hk"], 128, 128, 2) > 1:
+        runs["ffa_bwd_dq_gqa"] = lambda: (ffa_bwd_dq_gqa_kernel(*args),)
     for name, run in runs.items():
         _same_bits(f"d128 {name} against the parent's", run(), with_libraries(parent, run))
     fused, fused_p = ffa_bwd_fused_kernel(*args)[0], with_libraries(parent, lambda: ffa_bwd_fused_kernel(*args))[0]
@@ -6421,15 +6461,22 @@ def hybrid_d256_phase(peaks: dict, parent: dict | None = None) -> dict:
     version) on the key's own mask under autograd, at the bf16 gates;
     fwd+bwd ms, the bound (4 + 10 flops per live pair, head and d; the split
     mode 4 + 14) and the share for each key, and the launches of the
-    resolved kernels (counts reset just before each run). With ``parent``
-    (:func:`parent_libraries`) the fwd+bwd ms also with the parent's
-    builds of the redesigned libraries, in turns on the same inputs. The
-    API takes no softcap (as the JAX package's), so each key's runtime gets
-    it."""
+    resolved kernels (counts reset just before each run). Each key runs
+    unpinned and again under MAGI_ATTENTION_DETERMINISTIC_MODE=1 (keys of
+    their own, built under it): there the launches are B1, B7, B3 and
+    B5/B6 once each and no plain version, and two runs are equal to the
+    bit; the global key once more with MAGI_ATTENTION_FFA_GQA_PACK_DQ=1
+    beside it, B4 in place of B3, every output equal to the bit to the
+    unpacked run's. With ``parent`` (:func:`parent_libraries`) the fwd+bwd ms also
+    with the parent's builds of the redesigned libraries, in turns on the
+    same inputs (but for the packed run: the parent has no 256 instance of
+    B4). The API takes no softcap (as the JAX package's), so each
+    key's runtime gets it."""
     import torch
 
     from magiattention_tpu_torch import api
     from magiattention_tpu_torch.api.magi_attn_interface import _mgr
+    from magiattention_tpu_torch.env.general import scoped_env
     from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
     from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
     from magiattention_tpu_torch.kernels.mask_utils import build_dense_mask_band, types_to_bands
@@ -6440,32 +6487,52 @@ def hybrid_d256_phase(peaks: dict, parent: dict | None = None) -> dict:
     shapes = ((s, hq, d), (s, hk, d), (s, hk, d))
     inputs = [torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16) for sh in shapes]
     do = (torch.randn(shapes[0], generator=gen, device="cuda") / 4).to(torch.bfloat16)
+
+    def make_keys():
+        key_g = api.magi_attn_varlen_key([0, s], causal=True)
+        return key_g, api.make_varlen_key_for_new_mask_after_dispatch(
+            [0, s], [0, s], key_g, causal=False, window_size=(GEMMA_WINDOW - 1, 0))
+
     t0 = time.perf_counter()
-    key_g = api.magi_attn_varlen_key([0, s], causal=True)
-    key_w = api.make_varlen_key_for_new_mask_after_dispatch(
-        [0, s], [0, s], key_g, causal=False, window_size=(GEMMA_WINDOW - 1, 0))
+    key_g, key_w = make_keys()
     plan_s = time.perf_counter() - t0
+    with scoped_env(DETERMINISTIC_ENV):
+        det_g, det_w = make_keys()
+    with scoped_env(PACKED_DQ_ENV):
+        pack_g = make_keys()[0]
     parts = [list(p) for p in _mgr(key_g).dispatch_meta_q.partitions]
-    if [list(p) for p in key_w.fixed_partitions] != parts or (
-            [list(p) for p in _mgr(key_w).dispatch_meta_q.partitions] != parts):
-        raise AssertionError("hybrid_d256: the re-keyed partitions differ from the dispatch key's")
+    for kw in (key_w, det_w):
+        if [list(p) for p in kw.fixed_partitions] != parts or (
+                [list(p) for p in _mgr(kw).dispatch_meta_q.partitions] != parts):
+            raise AssertionError("hybrid_d256: the re-keyed partitions differ from the dispatch key's")
     res = dict(
         model="google/gemma-2-9b attention: 16/8 heads, head_dim 256, softcap 50, "
               "scale 256^-0.5, sliding window 4096 beside global causal",
         shape=f"bf16 q {list(shapes[0])}, k/v {list(shapes[1])}, one causal document",
         cp=1, plan_s=plan_s, partitions=len(parts),
     )
-    for name, key in (("global", key_g), ("window", key_w)):
+    wants, det_grads = {}, None
+    for name, key, key_d, env in (
+        ("global", key_g, key_g, {}), ("window", key_w, key_g, {}),
+        ("global_deterministic", det_g, det_g, DETERMINISTIC_ENV),
+        ("window_deterministic", det_w, det_g, DETERMINISTIC_ENV),
+        ("global_deterministic_packed_dq", pack_g, pack_g, PACKED_DQ_ENV),
+    ):
         runtime = _mgr(key).runtime
         runtime.softcap = GEMMA_SOFTCAP  # the API takes none: the runtime's field
-        mode = ffa_bwd_mode(runtime.plans[0], runtime._params(d)[0], d, d, 2, hq, hk)
+        deterministic, packed = bool(env), env is PACKED_DQ_ENV
+        with scoped_env(env):
+            mode = ffa_bwd_mode(runtime.plans[0], runtime._params(d)[0], d, d, 2, hq, hk)
+        if deterministic and mode != "split":
+            raise AssertionError(f"hybrid_d256 {name}: the deterministic mode resolved {mode}")
 
-        def api_path():
+        def api_path(key=key, key_d=key_d, env=env):
             q, k, v = (t.detach().requires_grad_(True) for t in inputs)
-            out_d, _ = api.calc_attn(api.dispatch(q, key_g), api.dispatch(k, key_g, role="kv"),
-                                     api.dispatch(v, key_g, role="kv"), key)
-            out = api.undispatch(out_d, key)
-            return (out, *torch.autograd.grad(out, (q, k, v), do))
+            with scoped_env(env):
+                out_d, _ = api.calc_attn(api.dispatch(q, key_d), api.dispatch(k, key_d, role="kv"),
+                                         api.dispatch(v, key_d, role="kv"), key)
+                out = api.undispatch(out_d, key)
+                return (out, *torch.autograd.grad(out, (q, k, v), do))
 
         qr, kr = np.array(key.q_ranges), np.array(key.k_ranges)
         types = np.array(key.attn_mask_type)
@@ -6481,12 +6548,24 @@ def hybrid_d256_phase(peaks: dict, parent: dict | None = None) -> dict:
         torch.cuda.synchronize()
         counts = launch_counts()
         expected = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(mode))
-        if any(counts[k] != 1 for k in expected) or any(counts[k] for k in PLAIN_NAMES):
+        if packed:
+            expected = ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")
+        launched = {k for k, v in counts.items() if v}
+        if any(counts[k] != 1 for k in expected) or any(counts[k] for k in PLAIN_NAMES) or (
+                deterministic and launched != set(expected)):
             raise AssertionError(f"hybrid_d256 {name}: launched {counts}, want one of {expected}")
-        want = plain_path()
+        mask_name = name.split("_")[0]
+        if mask_name not in wants:
+            wants[mask_name] = plain_path()
         err = {n: grad_check(f"hybrid_d256 {name} {n}", a.float(), b.float(), "bfloat16")
-               for n, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
-        del got, want
+               for n, a, b in zip(("out", "dq", "dk", "dv"), got, wants[mask_name])}
+        if deterministic:
+            _same_bits(f"hybrid_d256 {name}: two runs", api_path(), got)
+        if name == "global_deterministic":
+            det_grads = got
+        if packed:  # B4 is bit for bit B3
+            _same_bits(f"hybrid_d256 {name}: against the unpacked deterministic run", got, det_grads)
+        del got
         lo, hi = types_to_bands(qr.astype(np.int32), kr.astype(np.int32), types.astype(np.int32))
         mask = build_dense_mask_band(qr, kr, lo, hi, s, s, device="cuda")
         live = int(mask.sum().item())
@@ -6497,10 +6576,13 @@ def hybrid_d256_phase(peaks: dict, parent: dict | None = None) -> dict:
         ms = time_ms(api_path, samples=5)
         res[name] = dict(
             resolved_bwd_mode=mode, live_pairs=live, launches={k: v for k, v in counts.items() if v},
-            vs_plain=err, fwd_bwd_ms=ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
-            tflops=flops / (ms * 1e-3) / 1e12, **parent_pair(parent, api_path, samples=3),
+            vs_plain=err, bitwise_two_runs=deterministic or None, fwd_bwd_ms=ms, bound_ms=b_ms,
+            bound_by=b_by, share=b_ms / ms, tflops=flops / (ms * 1e-3) / 1e12,
+            # the parent has no 256 instance of B4
+            **(parent_pair(parent, api_path, samples=3) if not packed else {}),
         )
         torch.cuda.empty_cache()
+    del wants, det_grads
     res.update(atol=ATOL["bfloat16"], rnorm=RNORM["bfloat16"])
     emit({"phase": "hybrid_d256", **res})
     return res
@@ -6746,6 +6828,7 @@ def cp4_run(device: str, seq: int) -> dict:
 OVERLAP_RUNS = (("degree1", 1, None), ("degree1_overlap", 1, True), ("degree2", 2, None),
                 ("degree4", 4, None))
 DETERMINISTIC_ENV = {"MAGI_ATTENTION_DETERMINISTIC_MODE": "1"}
+PACKED_DQ_ENV = {**DETERMINISTIC_ENV, "MAGI_ATTENTION_FFA_GQA_PACK_DQ": "1"}
 
 
 def _runtime_step(rt, q_d, k_d, v_d, do_d):

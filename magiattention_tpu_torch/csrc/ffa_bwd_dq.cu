@@ -10,14 +10,17 @@
 // the three products S = Q K^T, dP = dO V^T and dQ += dS K on the tensor
 // cores (wgmma, one warpgroup per CTA, K/V double-buffered by cp.async),
 // bound by operations at 6 * D flops per live pair and head against 989
-// TFLOP/s; 99,328 bytes of shared memory at D = 128, two CTAs per SM.
-// float32: csrc/ffa_bwd_dq.cuh, float32 FMA on the CUDA cores (67 TFLOP/s
-// peak): the float32 gate of 1e-5 against the plain version needs float32
+// TFLOP/s; 99,328 bytes of shared memory at D = 128, two CTAs per SM; at
+// D = 256 two warpgroups a CTA, one a 128-column half of dq, S and dP run
+// once an item and split between them by keys, dS crossing once through
+// shared memory (205,824 bytes, one CTA per SM). float32:
+// csrc/ffa_bwd_dq.cuh, float32 FMA on the CUDA cores (67 TFLOP/s peak):
+// the float32 gate of 1e-5 against the plain version needs float32
 // products; Q, dO, K, V at stride D + 4 and the 64 x 80 dS tile, 152 KB at
-// D = 128, one CTA per SM. Head dims 64, 128 and 256; at 256 both bodies
-// split dq's columns in two halves across the grid's z (each half
-// recomputes S and dP over the full width; the float32 body chunks that
-// contraction 128 columns at a time). Their designs are in the headers.
+// D = 128, one CTA per SM; at 256 it splits dq's columns in two halves
+// across the grid's z (each half recomputes S and dP over the full width,
+// chunking that contraction 128 columns at a time). Head dims 64, 128 and
+// 256. Their designs are in the headers.
 #include "ffa_bwd_dq.cuh"
 #include "ffa_bwd_dq_tc.cuh"
 

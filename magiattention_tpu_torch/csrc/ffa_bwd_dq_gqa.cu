@@ -19,8 +19,10 @@
 // * D * 2 + 1024 bytes (G Q and dO tiles, two stages of K and V) and a
 // thread's registers (the dQ accumulator, D / 2, beside S, dP and dS's
 // fragments) make G 2 at D = 64 and 128 (132,096 bytes at D = 128; four
-// warpgroups would leave 128 registers a thread); at D = 256 two heads
-// would take 263,168 bytes, so the guard never packs there. float32:
+// warpgroups would leave 128 registers a thread). At D = 256 the CTA's two
+// column warpgroups walk the G = 2 heads in turn over one K/V stage, each
+// holding both heads' half of dQ (2 x 64 floats a thread): 214,016 bytes
+// (two heads' Q and dO, one stage of K and V, a dS tile a head). float32:
 // csrc/ffa_bwd_dq.cuh, float32 FMA on the CUDA cores (the 1e-5 gate needs
 // float32 products); shared memory 4 * (2 * G * 64 + 2 * 64) * (D + 4) +
 // 4 * 64 * 80 bytes, so G = 2 at D = 128 (223 KB; four heads' float32 Q and
@@ -59,9 +61,9 @@ int dispatch_f32(int g, const void* q, const void* k, const void* v,
 }  // namespace
 
 // The packed bf16 instances: G = 2 at D = 64 and 128, 64-row q tiles (a
-// 128-row tile's two warpgroups are its halves) and 64- or 128-row k tiles;
-// the float32 CUDA-core body 64 x 64 only.
-#define MAGI_DQ_GQA(X) X(64, 64) X(64, 128) X(128, 64) X(128, 128)
+// 128-row tile's two warpgroups are its halves) and 64- or 128-row k
+// tiles, and at D = 256 64 x 64; the float32 CUDA-core body 64 x 64 only.
+#define MAGI_DQ_GQA(X) X(64, 64) X(64, 128) X(128, 64) X(128, 128) X(256, 64)
 
 // As ffa_bwd_dq_f32/_bf16 (csrc/ffa_bwd_dq.cu), plus heads_per_cta: G,
 // which must divide hq / hk.

@@ -361,7 +361,8 @@ __device__ __forceinline__ void wgmma_rs_n128_t1(float (&d)[64],
 }
 // D[64 x 32] += A[64 x 16] B[16 x 32], A and B from shared memory
 // (transposed: A 0, B 0), float32 accumulate: S^T over 32 q rows (the
-// k-major backward at D = 256, csrc/bwd_kv_tc.cuh).
+// k-major backward at D = 256, csrc/bwd_kv_tc.cuh), or S over 32 keys (the
+// dq pass at D = 256, csrc/ffa_bwd_dq_tc.cuh).
 __device__ __forceinline__ void wgmma_ss_n32_t00(float (&d)[16], uint64_t da,
     uint64_t db, int scale_d) {
   asm volatile(

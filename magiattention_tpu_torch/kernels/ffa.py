@@ -813,8 +813,10 @@ def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4, bq: int = 64, bk: 
     (csrc/ffa_bwd_dq.cuh ``DqSmem``): the heads' q and dO tiles, the k and
     v tiles, the dS tile. bfloat16 (csrc/ffa_bwd_dq_tc.cuh ``Smem``): the
     heads' q and dO tiles and two stages of k and v tiles in bf16, and 1024
-    bytes to align the window for the swizzle. At d = 256 the float32
-    tiles are the contraction's 128-column chunks."""
+    bytes to align the window for the swizzle; at d = 256 also a bf16 dS
+    tile a head, and one stage of k and v where two heads pack (205,824
+    bytes at one head, 214,016 at two). At d = 256 the float32 tiles are
+    the contraction's 128-column chunks."""
     return mem_budget.dq_smem_bytes(d, bq, bk, itemsize, heads)
 
 
@@ -841,8 +843,13 @@ TF32_FWD_REGS_SHARED = 72
 # what a thread of a tensor-core dq warpgroup holds beside its dQ
 # accumulator (d / 2 floats): S and dP (32 each), dS in bf16 (16), and
 # addresses, indices and the row statistics (40); a 128-row k tile is
-# walked as two 64-key blocks, so the same
+# walked as two 64-key blocks, so the same. At d = 256 the CTA's two
+# column warpgroups walk its heads in turn: a thread holds, per head, its
+# half of dQ (d / 4) and its 32 keys' dP (16), and once S (16) and the
+# rest (40), 216 registers at two heads (csrc/ffa_bwd_dq_tc.cuh)
 TC_DQ_REGS_SHARED = 120
+TC_DQ_WIDE_REGS_PER_HEAD = 16
+TC_DQ_WIDE_REGS_SHARED = 56
 
 
 def tc_fwd_regs_shared(bk: int = 64) -> int:
@@ -905,14 +912,23 @@ def dq_pack_heads(group: int, d: int, dv: int, itemsize: int = 4, bq: int = 64, 
     values, the 4 x 4 score and dP blocks. bfloat16 (the tensor-core body):
     :func:`_tc_pack_heads` with d / 2 + 120 registers a thread, so 2 heads
     at head_dim 64 and 128 (four warpgroups would leave 128 a thread), at
-    64- and 128-row k tiles. At d = 256 neither packs: bf16's two heads
-    take 263,168 bytes, and the float32 instance chunks its contraction for
-    one head a CTA. A 128-row q tile packs none."""
+    64- and 128-row k tiles. At d = 256 bf16's two column warpgroups walk
+    the heads in turn (255 registers a thread, d / 4 + 16 a head and 56
+    besides): 2 heads at 64-row k tiles (214,016 bytes, one K/V stage;
+    four heads' q and dO tiles alone take 256 KB). float32's d-256
+    instance chunks its contraction for one head a CTA. A 128-row q tile
+    packs none."""
     if bq != 64:
         return 1
     if itemsize == 2:
         smem = lambda d_, h, isz: dq_pack_smem_bytes(d_, h, isz, bq, bk)  # noqa: E731
-        return _tc_pack_heads(group, d, dv, smem, cta_width(d) // 2 + TC_DQ_REGS_SHARED)
+        if d > SPLIT_WIDTH:
+            return next((
+                h for h in PACK_HEADS
+                if group % h == 0 and is_kernel_width(d, dv) and smem(d, h, 2) <= SMEM_PER_CTA
+                and h * (d // 4 + TC_DQ_WIDE_REGS_PER_HEAD) + TC_DQ_WIDE_REGS_SHARED <= REGS_PER_THREAD
+            ), 1)
+        return _tc_pack_heads(group, d, dv, smem, d // 2 + TC_DQ_REGS_SHARED)
     if d > SPLIT_WIDTH or bk != 64:
         return 1
     return _pack_heads(group, d, dv, dq_pack_smem_bytes, d // 4 + 8, 32)

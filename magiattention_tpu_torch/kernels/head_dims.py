@@ -10,11 +10,12 @@ zero columns in every output. The softmax scale stays the caller's (the
 true ``d``'s), fixed before any tensor is padded.
 
 At 256 the column split is per family (:func:`column_halves`). The bf16
-forward (B1/B2) and k-major backward (B5/B6, B8/B9) write all 256 columns
-from one CTA of two consumer warpgroups and compute S and dP once
-(:data:`FULL_WIDTH_KERNELS`). The bf16 dq pass (B3/B4), the float32 bodies
-and NSA's split the columns they write in two 128-column halves across
-the grid, each half recomputing S and dP over the full width. Above 256
+forward (B1/B2), dq pass (B3/B4) and k-major backward (B5/B6, B8/B9)
+write all 256 columns from one CTA and compute S and dP once
+(:data:`FULL_WIDTH_KERNELS`; the backward passes with two consumer
+warpgroups, one a 128-column half). The float32 bodies and NSA's split
+the columns they write in two 128-column halves across the grid, each
+half recomputing S and dP over the full width. Above 256
 the card has no kernel (ROADMAP C4c): at 512 the Q, K and V tiles take
 64 KB each in bf16, and no public model configuration of the repo's
 families is that wide.
@@ -31,16 +32,16 @@ MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 # kernel splits its output columns into halves of this width across the grid
 SPLIT_WIDTH = 128
 # the FFA kernels (utils/mem_budget.py names) whose bf16 (tensor-core) body
-# writes every column from one CTA at each width: csrc/ffa_fwd_tc.cuh and
-# csrc/bwd_kv_tc.cuh
-FULL_WIDTH_KERNELS = frozenset({"fwd", "fwd_gqa", "dkv", "fused"})
+# writes every column from one CTA at each width: csrc/ffa_fwd_tc.cuh,
+# csrc/ffa_bwd_dq_tc.cuh and csrc/bwd_kv_tc.cuh
+FULL_WIDTH_KERNELS = frozenset({"fwd", "fwd_gqa", "dq", "dq_gqa", "dkv", "fused"})
 
 
 def cta_width(d: int, kernel: str | None = None, itemsize: int = 4) -> int:
     """The output columns one CTA writes at compiled width ``d``: all of
     them in the bf16 (``itemsize`` 2) body of a :data:`FULL_WIDTH_KERNELS`
-    kernel, else at most :data:`SPLIT_WIDTH` (the bf16 dq pass, every
-    float32 body, NSA's kernels; ``kernel`` None)."""
+    kernel, else at most :data:`SPLIT_WIDTH` (every float32 body, NSA's
+    kernels; ``kernel`` None)."""
     if itemsize == 2 and kernel in FULL_WIDTH_KERNELS:
         return d
     return min(d, SPLIT_WIDTH)

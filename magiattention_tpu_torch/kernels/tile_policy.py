@@ -61,14 +61,14 @@ kernel's (that body is the dk/dv body plus one tile product, dS K, and the
 atomics). The tensor-core bodies (:func:`calibrate_tc`): each kernel's
 per-(item, head) time fitted by least squares to its times at the bf16
 masks of the phase. Head dims up to 128 scale the per-item times by
-d / 128. At 256 (:func:`width_scale`) the bf16 dk/dv and fused kernels
-write all 256 columns from one CTA of two warpgroups that split every
-product between them, so each warpgroup runs the width-128 instance's
-products and no product is recomputed; the bf16 dq kernel and every
-float32 body split the columns they write in two 128-column halves
-across the grid (:func:`_halves`), so they run twice the CTAs, and each
-CTA does its 128-wide output products beside S and dP over the full 256
-(the recompute: :data:`TC_PRODUCTS`, :data:`FMA_PRODUCTS`). Every
+d / 128. At 256 (:func:`width_scale`) the bf16 dq, dk/dv and fused
+kernels write all 256 columns from one CTA of two warpgroups that split
+every product between them, so each warpgroup runs the width-128
+instance's products and no product is recomputed; every float32 body
+splits the columns it writes in two 128-column halves across the grid
+(:func:`_halves`), so it runs twice the CTAs, and each CTA does its
+128-wide output products beside S and dP over the full 256 (the
+recompute: :data:`TC_PRODUCTS`, :data:`FMA_PRODUCTS`). Every
 tensor-core body runs one CTA an SM at 256 (shared memory). Which bodies
 a backward runs follows its dtype (``BwdShape.itemsize``: 2 is bf16, the
 tensor-core bodies; :func:`dtype_body`).
@@ -651,17 +651,18 @@ TC_ITEM_US = {"dq": 0.9092, "dq_gqa": 1.0122, "dkv": 2.8878, "fused": 5.121}
 TC_CTAS_PER_SM = {"dq": 2, "dq_gqa": 1, "dkv": 2, "fused": 2}
 # The 256-wide instances, for :func:`width_scale`: per (item, head) the
 # products a warpgroup runs over the full head dim and over a 128-column
-# half (or half the q rows). Bodies that split their columns across the
-# grid (the bf16 dq; every float32 one): S and dP over the full width,
-# recomputed by both halves, the outputs over the half (the tensor-core
-# dk/dv products are hi + lo pairs). The bf16 dk/dv and fused bodies
-# (csrc/bwd_kv_tc.cuh): two warpgroups a CTA split every product, S^T and
-# dP^T along the q rows, dV, dK (hi + lo) and dQ by column half, so each
-# runs the width-128 instance's six (seven) and none is recomputed. The
-# bf16 forward (csrc/ffa_fwd_tc.cuh, which the mode model does not price):
-# a warpgroup's S and P V both over the full 256.
+# half (or half the keys or q rows). Bodies that split their columns
+# across the grid (every float32 one): S and dP over the full width,
+# recomputed by both halves, the outputs over the half. The bf16 dq body
+# (csrc/ffa_bwd_dq_tc.cuh): two warpgroups a CTA split every product, S
+# and dP along the keys, dQ by column half, so each runs the width-128
+# instance's three and none is recomputed; the bf16 dk/dv and fused
+# bodies (csrc/bwd_kv_tc.cuh) likewise, S^T and dP^T along the q rows, dV,
+# dK (hi + lo pairs) and dQ by column half: six (seven). The bf16 forward
+# (csrc/ffa_fwd_tc.cuh, which the mode model does not price): a
+# warpgroup's S and P V both over the full 256.
 TC_PRODUCTS = {
-    "fwd": (2, 0), "fwd_gqa": (2, 0), "dq": (2, 1), "dq_gqa": (2, 1), "dkv": (0, 6), "fused": (0, 7),
+    "fwd": (2, 0), "fwd_gqa": (2, 0), "dq": (0, 3), "dq_gqa": (0, 3), "dkv": (0, 6), "fused": (0, 7),
 }
 FMA_PRODUCTS = {"dq": (2, 1), "dq_gqa": (2, 1), "dkv": (2, 2), "fused": (2, 3)}
 
@@ -730,7 +731,7 @@ def _ctas(items: np.ndarray, heads: int, heads_per_cta: int, reverse: bool) -> n
 def _halves(s: "BwdShape", kernel: str) -> int:
     """The column halves (grid z) of ``kernel`` ("dq" or "dkv", whose
     grid the fused kernel shares) at the shape's width, in the body of its
-    dtype: 2 at 256 for the bf16 dq and every float32 body, else 1."""
+    dtype: 2 at 256 for every float32 body, else 1."""
     return column_halves(max(s.d, s.dv), kernel, s.itemsize)
 
 

@@ -37,7 +37,7 @@ PACKED_INSTANCES = {
     ("fwd_gqa", 2): {(64, 2, 64), (64, 2, 128), (64, 4, 64), (128, 2, 64),
                      (128, 2, 128), (256, 2, 64), (256, 2, 128)},
     ("fwd_gqa", 4): {(64, 2, 64), (64, 2, 128), (128, 2, 64), (128, 2, 128)},
-    ("dq_gqa", 2): {(64, 2, 64), (64, 2, 128), (128, 2, 64), (128, 2, 128)},
+    ("dq_gqa", 2): {(64, 2, 64), (64, 2, 128), (128, 2, 64), (128, 2, 128), (256, 2, 64)},
     ("dq_gqa", 4): {(64, 2, 64), (64, 4, 64), (128, 2, 64)},
 }
 # one float32 64-row P / dS tile at row stride 80 (the CUDA-core bodies)
@@ -53,9 +53,12 @@ def warpgroups(kernel: str, bq: int = 64, bk: int = 64, heads: int = 1, d: int =
     """Consumer warpgroups of one tensor-core CTA: one a head (packed) or a
     64-row half of the q tile (q-major kernels), one a 64-row block of the
     k tile (k-major kernels); at d = 256 the k-major kernels run two on
-    one 64-row k tile, one a column half."""
+    one 64-row k tile and the dq kernels two on one 64-row q tile (walking
+    the packed heads in turn), one a column half."""
     if kernel in ("dkv", "fused"):
         return 2 * (bk // 64) if d > SPLIT_WIDTH else bk // 64
+    if kernel in ("dq", "dq_gqa") and d > SPLIT_WIDTH:
+        return 2
     return heads * (bq // 64)
 
 
@@ -82,14 +85,18 @@ def fwd_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads:
 
 def dq_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads: int = 1) -> int:
     """One dq CTA (B3, or B4 with ``heads``). bfloat16
-    (csrc/ffa_bwd_dq_tc.cuh ``Smem``): a Q and a dO tile per warpgroup and
-    two stages of the k tile's K and V, and 1024 bytes to align the window.
+    (csrc/ffa_bwd_dq_tc.cuh ``Smem``): the heads' Q and dO tiles of bq
+    rows, two stages of the k tile's K and V, and 1024 bytes to align the
+    window; at d = 256 also a bq x bk bf16 dS tile a head, and one K/V stage
+    where two heads pack (205,824 bytes at 64 x 64, 214,016 with two heads).
     float32 (csrc/ffa_bwd_dq.cuh ``DqSmem``, 64 x 64): the heads' q and dO
     tiles, the k and v tiles, the dS tile (at d = 256 the contraction's
     128-column chunks)."""
     if itemsize == 2:
-        wg = warpgroups("dq", bq, bk, heads)
-        return 2 * wg * 64 * d * 2 + 4 * bk * d * 2 + 1024
+        wide = d > SPLIT_WIDTH
+        stages = 1 if wide and heads > 1 else 2
+        ds = heads * bq * bk * 2 if wide else 0
+        return 2 * heads * bq * d * 2 + stages * 2 * bk * d * 2 + ds + 1024
     return 4 * ((2 * heads + 2) * _tile_floats(cta_width(d)) + P_TILE_FLOATS)
 
 

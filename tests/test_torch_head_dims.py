@@ -320,29 +320,30 @@ def test_paged_decode_padded_256_cache(d, dv):
 @pytest.mark.parametrize(
     "guard, args, want",
     [("fwd_pack_smem_bytes", (256, 1, 2), 99_344), ("fwd_pack_smem_bytes", (256, 2, 2), 197_664),
-     ("fwd_pack_smem_bytes", (256, 1, 4), 230_416), ("dq_pack_smem_bytes", (256, 1, 2), 197_632),
+     ("fwd_pack_smem_bytes", (256, 1, 4), 230_416), ("dq_pack_smem_bytes", (256, 1, 2), 205_824),
      ("dq_pack_smem_bytes", (256, 1, 4), 155_648), ("dkv_smem_bytes", (256, 2), 231_424),
      ("dkv_smem_bytes", (256, 4), 176_640), ("fused_bwd_smem_bytes", (256, 2), 231_424),
      ("fwd_pack_heads", (8, 256, 256, 2), 2), ("fwd_pack_heads", (8, 256, 256, 4), 1),
-     ("dq_pack_heads", (8, 256, 256, 2), 1), ("dq_pack_heads", (8, 256, 256, 4), 1),
+     ("dq_pack_heads", (8, 256, 256, 2), 2), ("dq_pack_heads", (8, 256, 256, 4), 1),
      ("fused_bwd_feasible", (256, 256), True)],
     ids=lambda x: str(x),
 )
 def test_256_guards(guard, args, want):
     """The pack and mode guards at the 256 instances: each CTA's shared
     memory as the kernels' ``*_smem_bytes`` exports report it (the bf16
-    forward's full-width v tiles, the bf16 k-major backward's four P^T /
-    dS^T tiles, the float32 bodies' 128-wide chunks), packing where it
-    fits, never raising."""
+    forward's full-width v tiles, the bf16 dq pass's dS tile, the bf16
+    k-major backward's four P^T / dS^T tiles, the float32 bodies' 128-wide
+    chunks), packing where it fits (bf16 two heads, forward and dq), never
+    raising."""
     assert getattr(tffa, guard)(*args) == want
 
 
 def test_cost_model_prices_the_column_split():
-    """At 256 a kernel that splits its columns (the bf16 dq pass, every
-    float32 body) runs twice the CTAs, each doing its half's products
-    beside S and dP over the full width: a CTA's per-(item, head) time is
+    """At 256 a kernel that splits its columns (every float32 body) runs
+    twice the CTAs, each doing its half's products beside S and dP over
+    the full width: a CTA's per-(item, head) time is
     (2 * 256 + products * 128) / (128 * (2 + products)) of its time at 128;
-    the bf16 dk/dv and fused kernels run one CTA an SM. Every modeled time
+    the bf16 dq, dk/dv and fused kernels run one CTA an SM. Every modeled time
     exceeds the 128 instance's, and ``column_halves`` without a family is
     the splitting kernels' (tests/test_torch_d256.py: per family)."""
     from magiattention_tpu_torch.kernels import tile_policy as tp
