@@ -24,7 +24,10 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    instance's registers, spills and shared memory; fails if one has no
    HGMMA, has HMMA or spills, if its shared memory is not the guard's, if
    a forward library has no float32 (tf32) instance, or if a split
-   (deterministic) kernel has an atomic. ``tf32_probe``: 3xTF32 on wgmma
+   (deterministic) kernel has an atomic; the warp-specialised k-major
+   instances (``csrc/bwd_kv_ws.cuh``, 64 x 128 at d 64 and 128) must show
+   TMA loads (UTMALDG) and setmaxnreg (USETMAXREG), the fused ones bulk
+   reduces (UTMAREDG), and B5/B6's no atomic and no reduce. ``tf32_probe``: 3xTF32 on wgmma
    (``csrc/tf32_probe.cu``) at the serving prefill shape, one
    accumulator against the forward body's accumulators, beside float32
    FMA, all against float64 (fails if the body's layout loses more than
@@ -184,7 +187,16 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
     redesigned libraries are also built from it (``build/parent_kernels``)
     and each redesigned instance, and each key's fwd+bwd, is timed beside
     the parent's in turns on the same inputs (``paired_ms``), and the d-128
-    instances at the train shape are held bit for bit to the parent's.
+    instances at the train shape are held bit for bit to the parent's
+    (the k-major pair at 64 x 64, 64 x 128 and 128 x 128 too). ``kmajor``:
+    B5/B6 and B8/B9 at the card's default k-major tile (64 x 128, the
+    warp-specialised body) at the headline and train shapes and at d 64,
+    split dk/dv bit for bit the fused kernel's, against the plain version,
+    timed beside this tree's 64 x 64; with ``--parent`` beside the
+    parent's same instance and its default too, dk/dv bit for bit the
+    parent's, failing under 1.4x (fused) / 1.2x (split dk/dv) of the
+    parent's default at the headline or where an instance is slower than
+    the parent's same instance by more than the pair's spread.
 12. ``block_sparse``: the NSA selected-branch kernels B13 and B14 (its
     dq and dk/dv walks) against their plain versions over chunk tables
     with duplicate chunks: g 1, 2, 4, 8, head_dim 64, 128 and 256, float32
@@ -553,6 +565,18 @@ def case_inputs(c: dict, gen, with_do: bool = False):
     return tensors, (qr, kr, lo, hi), plan, params
 
 
+def kmajor_args(args: tuple) -> tuple:
+    """Backward kernel ``args`` (q, k, v, dO, lse, delta, plan, params) with
+    the plan and params the k-major pass (dk/dv, fused) runs on the card:
+    bf16 at d 64 and 128 at 64 x 128, the warp-specialised body
+    (``kernels/ffa.py:card_bwd_params``); else ``args`` as given."""
+    from magiattention_tpu_torch.kernels.ffa import bwd_plans, card_bwd_params
+
+    q, k, v, plan, params = args[0], args[1], args[2], args[6], args[7]
+    p = card_bwd_params(params, q.shape[-1], v.shape[-1], q.element_size())
+    return (*args[:6], bwd_plans(plan, p, q.shape[0], k.shape[0])[1], p)
+
+
 def ffa_phase(peaks: dict) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -774,20 +798,21 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
         out, lse = ffa_fwd_kernel(q, k, v, plan, params)
         delta = ffa_delta_plain(out, do)
         args = (q, k, v, do, lse, delta, plan, params)
+        args_kv = kmajor_args(args)  # the k-major pass's tiles on the card
         err = {
             "ffa_bwd_delta": grad_check(
                 f"{name} delta", ffa_delta_kernel(out, do), delta, dname),
             "ffa_bwd_dq": grad_check(
                 f"{name} dq", ffa_bwd_dq_kernel(*args), ffa_bwd_dq_plain(*args), dname),
         }
-        (dk, dv), (dk_p, dv_p) = ffa_bwd_dkv_kernel(*args), ffa_bwd_dkv_plain(*args)
+        (dk, dv), (dk_p, dv_p) = ffa_bwd_dkv_kernel(*args_kv), ffa_bwd_dkv_plain(*args)
         ek = grad_check(f"{name} dk", dk, dk_p, dname)
         ev = grad_check(f"{name} dv", dv, dv_p, dname)
         err["ffa_bwd_dkv"] = {m: max(ek[m], ev[m]) for m in ek}
         del dk_p, dv_p
         # the split dk/dv run the fused kernel's dk/dv products in its order
         # (the same body in both dtypes): reported, not gated
-        _, dk_f, dv_f = ffa_bwd_fused_kernel(*args)
+        _, dk_f, dv_f = ffa_bwd_fused_kernel(*args_kv)
         dkv_equal_fused = bool(torch.equal(dk, dk_f) and torch.equal(dv, dv_f))
         del dk_f, dv_f
         if "uncovered" in c:
@@ -815,14 +840,15 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
                 6.0 * hq * d * live, in_bytes + n_q * 4,
             ),
             "ffa_bwd_dkv": (
-                lambda: ffa_bwd_dkv_kernel(*args), lambda: ffa_bwd_dkv_plain(*args),
+                lambda: ffa_bwd_dkv_kernel(*args_kv), lambda: ffa_bwd_dkv_plain(*args),
                 8.0 * hq * d * live, in_bytes + 2 * n_kv * 4,
             ),
         }
         res = dict(
             case=name, dtype=dname, q=list(q.shape), kv=list(k.shape),
             live_pairs=live, work_items=plan.num_work,
-            work_items_t=plan.num_work_t, atol=ATOL[dname], rnorm=RNORM[dname],
+            work_items_t=args_kv[6].num_work_t, kmajor_tiles=[args_kv[6].block_q, args_kv[6].block_k],
+            atol=ATOL[dname], rnorm=RNORM[dname],
             dkv_bitwise_equal_to_fused=dkv_equal_fused,
         )
         total_ms = 0.0
@@ -926,9 +952,11 @@ def ffa_bwd_fused_phase(peaks: dict, bwd: dict) -> dict[str, dict]:
         out, lse = ffa_fwd_kernel(q, k, v, plan, params)
         delta = ffa_delta_plain(out, do)
         args = (q, k, v, do, lse, delta, plan, params)
-        fused = ffa_bwd_fused_kernel(*args)
+        args_kv = kmajor_args(args)  # the k-major pass's tiles on the card
+        plan_kv, params_kv = args_kv[6:]
+        fused = ffa_bwd_fused_kernel(*args_kv)
         plain = ffa_bwd_fused_plain(*args)
-        split = (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args))
+        split = (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args_kv))
         torch.cuda.synchronize()
         err, err_split = {}, {}
         for i, g in enumerate(("dq", "dk", "dv")):
@@ -952,14 +980,15 @@ def ffa_bwd_fused_phase(peaks: dict, bwd: dict) -> dict[str, dict]:
         in_bytes = (2 * n_q + 2 * n_kv) * isz + 2 * rows * 4
         flops = 10.0 * hq * d * live
         b_ms, b_by = bound(flops, in_bytes + (n_q + 2 * n_kv) * 4, dname, peaks)
-        ms = time_ms(lambda: ffa_bwd_fused_kernel(*args))
+        ms = time_ms(lambda: ffa_bwd_fused_kernel(*args_kv))
         ws = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
         convert_ms = time_ms(lambda: ffa_bwd_fused_convert(ws, 1.0))
-        real_items = int((plan.meta_t[:, QE] > plan.meta_t[:, QS]).sum())
+        real_items = int((plan_kv.meta_t[:, QE] > plan_kv.meta_t[:, QS]).sum())
         res = dict(
             case=name, dtype=dname, q=list(q.shape), kv=list(k.shape),
-            live_pairs=live, work_items_t=plan.num_work_t,
-            cost_model_mode=ffa_bwd_mode(plan, params, d, d, isz, hq, c["hk"]),
+            live_pairs=live, work_items_t=plan_kv.num_work_t,
+            kmajor_tiles=[plan_kv.block_q, plan_kv.block_k],
+            cost_model_mode=ffa_bwd_mode(plan, params_kv, d, d, isz, hq, c["hk"]),
             vs_plain=err, vs_split=err_split,
             max_abs_err=max(e["max_abs_err"] for e in err.values()),
             ms=ms, convert_ms=convert_ms,
@@ -971,7 +1000,8 @@ def ffa_bwd_fused_phase(peaks: dict, bwd: dict) -> dict[str, dict]:
                 " backward alone" if bwd[name]["sdpa_bwd_ms"] else " forward + backward"
             ),
             tflops=flops / (ms * 1e-3) / 1e12,
-            atomic_rmw_bytes=real_items * hq * 64 * d * 4 * 2,
+            # each (real item, q head) adds one block_q x d float32 block
+            dq_add_bytes=real_items * hq * plan_kv.block_q * d * 4,
             atol=ATOL[dname], rnorm=RNORM[dname],
         )
         emit({"phase": "ffa_bwd_fused", **res})
@@ -1291,16 +1321,17 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
         (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
         out, lse = ffa_fwd_kernel(q, k, v, plan, params)
         args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
+        args_kv = kmajor_args(args)  # the k-major pass's tiles on the card
         if key == "sink_window_8192_bf16":
-            dq_f, dk_f, dv_f = ffa_bwd_fused_kernel(*args)
-            split = (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args))
+            dq_f, dk_f, dv_f = ffa_bwd_fused_kernel(*args_kv)
+            split = (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args_kv))
             for gname, a, b in zip(("dq", "dk", "dv"), (dq_f, dk_f, dv_f), split):
                 grad_check(f"sink_window fused vs split {gname}", a, b, "bfloat16")
             del dq_f, dk_f, dv_f, split
         t = paired_ms(dict(
-            fused=lambda: ffa_bwd_fused_kernel(*args),
+            fused=lambda: ffa_bwd_fused_kernel(*args_kv),
             dq=lambda: ffa_bwd_dq_kernel(*args),
-            dkv=lambda: ffa_bwd_dkv_kernel(*args),
+            dkv=lambda: ffa_bwd_dkv_kernel(*args_kv),
         ))
         measured[key] = dict(
             fused=statistics.median(t["fused"]), dq=statistics.median(t["dq"]),
@@ -1310,10 +1341,10 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
         if key == "sink_window_8192_bf16":
             measured[key]["dq_gqa"] = time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args))
         shapes[key] = (
-            ffa_bwd_mode(plan, params, 128, 128, isz, c["hq"], c["hk"]),
-            bwd_shape(plan, c["hq"], c["hk"], 128, 128, isz), isz,
+            ffa_bwd_mode(plan, args_kv[7], 128, 128, isz, c["hq"], c["hk"]),
+            bwd_shape(plan, c["hq"], c["hk"], 128, 128, isz, args_kv[6]), isz,
         )
-        del q, k, v, do, out, lse, args
+        del q, k, v, do, out, lse, args, args_kv
         torch.cuda.empty_cache()
 
     rows, tc_shapes = [], {}
@@ -1837,6 +1868,12 @@ def _same_attn(what: str, got, want) -> dict:
 TILE_PINS = (
     {"MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
     {"MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"},
+    # the k-major pass pinned to 64 x 64: on the card it runs 64 x 128
+    # unless a tile is pinned (kernels/ffa.py:card_bwd_params)
+    {"MAGI_ATTENTION_FFA_BLOCK_Q_DKV": "64", "MAGI_ATTENTION_FFA_BLOCK_K_DKV": "64",
+     "MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q_DKV": "64", "MAGI_ATTENTION_FFA_BLOCK_K_DKV": "64",
+     "MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"},
     {"MAGI_ATTENTION_FFA_BLOCK_Q": "128", "MAGI_ATTENTION_FFA_BLOCK_K": "64"},
     {"MAGI_ATTENTION_FFA_BLOCK_Q": "64", "MAGI_ATTENTION_FFA_BLOCK_K": "128"},
     {"MAGI_ATTENTION_FFA_BLOCK_Q": "128", "MAGI_ATTENTION_FFA_BLOCK_K": "128"},
@@ -5346,6 +5383,12 @@ TF32_TAG = "_tf32_kernel"
 SPLIT_LIBRARIES = ("ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")
 # SASS opcodes of global and shared-memory atomics and reductions
 ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
+# SASS opcodes of Hopper's asynchronous units in the warp-specialised
+# k-major instances (csrc/bwd_kv_ws.cuh): TMA tensor loads, bulk reduces
+# (tensor and plain), the register hand-over between warpgroups
+TMA_LOADS, BULK_REDUCES, SETMAXREG = ("UTMALDG",), ("UTMAREDG", "UBLKRED"), ("USETMAXREG",)
+# the warp-specialised kernels' name (csrc/bwd_kv_ws.cuh)
+WS_TAG = "_ws_tc_kernel"
 # the NSA libraries and their tensor-core (bf16) instances at d 64, 128 and
 # 256: B13's forward, B14's dq and dk/dv walks (csrc/block_sparse_tc.cuh);
 # their float32 instances run on the CUDA cores
@@ -5420,8 +5463,9 @@ def cuobjdump() -> str:
 
 def sass_counts(name: str) -> dict[str, dict]:
     """Per kernel of one library (by :func:`kernel_label`), its HGMMA
-    (wgmma), HMMA (mma.sync), atomic (:data:`ATOMIC_OPS`, by opcode) and
-    LDGSTS (cp.async) instructions in the SASS."""
+    (wgmma), HMMA (mma.sync), atomic (:data:`ATOMIC_OPS`, by opcode),
+    LDGSTS (cp.async), TMA load, bulk reduce and setmaxnreg instructions in
+    the SASS."""
     import re
 
     from magiattention_tpu_torch.kernels import _build
@@ -5437,7 +5481,8 @@ def sass_counts(name: str) -> dict[str, dict]:
     for line in out.splitlines():
         if "Function :" in line:
             fn = kernel_label(line.split("Function :")[1].strip())
-            counts[fn] = {"HGMMA": 0, "HMMA": 0, "atomics": 0, "LDGSTS": 0}
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "atomics": 0, "LDGSTS": 0,
+                          "tma_loads": 0, "bulk_reduces": 0, "setmaxnreg": 0}
             continue
         m = instr.search(line) if fn else None
         if not m:
@@ -5451,6 +5496,12 @@ def sass_counts(name: str) -> dict[str, dict]:
             counts[fn]["atomics"] += 1
         elif op == "LDGSTS":
             counts[fn]["LDGSTS"] += 1
+        elif op in TMA_LOADS:
+            counts[fn]["tma_loads"] += 1
+        elif op in BULK_REDUCES:
+            counts[fn]["bulk_reduces"] += 1
+        elif op in SETMAXREG:
+            counts[fn]["setmaxnreg"] += 1
     return counts
 
 
@@ -5465,9 +5516,13 @@ def tensor_core_phase() -> dict[str, dict]:
     tensor-core kernel, if one has no HGMMA or any HMMA, if one spills, if
     the two shared-memory figures differ, or if a bf16 instance of a split
     library (the deterministic mode) has an atomic; the fused kernel's bf16
-    instance must show its dq atomics, which proves the count reads the
-    SASS. The NSA libraries: every bf16 instance HGMMA and no HMMA, no
-    instance spills, and none of B14's (either dtype) has an atomic."""
+    instances must show their dq adds (atomics in bwd_kv_tc.cuh's body,
+    bulk reduces in the warp-specialised one), which proves the count reads
+    the SASS. The warp-specialised k-major instances (bwd_kv_ws.cuh: bf16
+    64 x 128 at d 64 and 128, two a library) must show TMA loads and
+    setmaxnreg, and B5/B6's no atomic and no reduce. The NSA libraries:
+    every bf16 instance HGMMA and no HMMA, no instance spills, and none of
+    B14's (either dtype) has an atomic."""
     import re
 
     from magiattention_tpu_torch.kernels import ffa as kffa
@@ -5514,10 +5569,16 @@ def tensor_core_phase() -> dict[str, dict]:
                 raise AssertionError(f"{lib}: {fn} has no HGMMA or has HMMA: {r}")
             if r.get("spill_stores", 1) or r.get("spill_loads", 1):
                 raise AssertionError(f"{lib}: {fn} spills (or has no ptxas report): {r}")
-            if lib in SPLIT_LIBRARIES and r["atomics"]:
+            if lib in SPLIT_LIBRARIES and (r["atomics"] or r["bulk_reduces"]):
                 raise AssertionError(f"{lib}: {fn} (deterministic mode) has atomics: {r}")
-            if lib == "ffa_bwd_fused" and not r["atomics"]:
-                raise AssertionError(f"{lib}: {fn} shows no atomics: the SASS count is wrong")
+            ws = WS_TAG in fn
+            if lib == "ffa_bwd_fused" and not r["bulk_reduces" if ws else "atomics"]:
+                raise AssertionError(f"{lib}: {fn} shows no dq adds: the SASS count is wrong")
+            if ws and not (r["tma_loads"] and r["setmaxnreg"]):
+                raise AssertionError(f"{lib}: {fn} has no TMA load or no setmaxnreg: {r}")
+        n_ws = sum(WS_TAG in fn for fn in tc)
+        if lib in ("ffa_bwd_dkv", "ffa_bwd_fused") and n_ws != 2:
+            raise AssertionError(f"{lib}: {n_ws} warp-specialised instances, want 2: {list(tc)}")
         if lib.startswith("ffa_fwd") and not any(TF32_TAG in fn for fn in tc):
             raise AssertionError(f"{lib}: no float32 (3xTF32) tensor-core kernel: {list(tc)}")
         results[lib] = row
@@ -6410,9 +6471,10 @@ def d128_against_parent(parent: dict, gen) -> dict:
     """The d-128 instances of the redesigned libraries at the train shape
     (bf16, q 8192 x 32 x 128, k/v 8192 x 8 x 128, two causal documents):
     B1 at 64 x 64 and 128 x 64, B2, B3 at 64 x 64 and 128 x 64, B4, the
-    split dk/dv and the fused dk/dv equal to the bit to the parent's builds
-    on the same inputs (the fused dq adds with atomics in no fixed order,
-    so it is held to the bf16 gates of the parent's instead)."""
+    split dk/dv and the fused dk/dv at 64 x 64, 64 x 128 (the
+    warp-specialised body) and 128 x 128 equal to the bit to the parent's
+    builds on the same inputs (the fused dq adds in no fixed order, so it
+    is held to the bf16 gates of the parent's instead)."""
     from magiattention_tpu_torch.kernels.ffa import (
         dq_pack_heads, ffa_bwd_dkv_kernel, ffa_bwd_dq_gqa_kernel, ffa_bwd_dq_kernel,
         ffa_bwd_fused_kernel, ffa_delta_plain, ffa_fwd_gqa_kernel, ffa_fwd_kernel,
@@ -6429,6 +6491,12 @@ def d128_against_parent(parent: dict, gen) -> dict:
     out, lse = ffa_fwd_kernel(q, k, v, plan, params)
     args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
     args128 = (*args[:6], plan128, params128)
+    # the k-major 64 x 128 (this tree's warp-specialised body) and 128 x 128
+    kv = {}
+    for bq, bk in ((64, 128), (128, 128)):
+        p_ = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], bq, bk)
+        kv[f"{bq}x{bk}"] = (*args[:6], p_, dataclasses.replace(
+            params, num_q_tiles=p_.num_q_tiles, num_k_tiles=p_.num_k_tiles, block_q=bq, block_k=bk))
     runs = {
         "ffa_fwd": lambda: ffa_fwd_kernel(q, k, v, plan, params),
         "ffa_fwd_128x64": lambda: ffa_fwd_kernel(q, k, v, plan128, params128),
@@ -6436,6 +6504,9 @@ def d128_against_parent(parent: dict, gen) -> dict:
         "ffa_bwd_dq_128x64": lambda: (ffa_bwd_dq_kernel(*args128),),
         "ffa_bwd_dkv": lambda: ffa_bwd_dkv_kernel(*args),
         "ffa_bwd_fused_dk_dv": lambda: ffa_bwd_fused_kernel(*args)[1:],
+        **{f"ffa_bwd_dkv_{t}": (lambda a=a: ffa_bwd_dkv_kernel(*a)) for t, a in kv.items()},
+        **{f"ffa_bwd_fused_dk_dv_{t}": (lambda a=a: ffa_bwd_fused_kernel(*a)[1:])
+           for t, a in kv.items()},
     }
     if fwd_pack_heads(c["hq"] // c["hk"], 128, 128, 2) > 1:
         runs["ffa_fwd_gqa"] = lambda: ffa_fwd_gqa_kernel(q, k, v, plan, params)
@@ -6447,6 +6518,119 @@ def d128_against_parent(parent: dict, gen) -> dict:
     res = dict(bitwise=sorted(runs), fused_dq_vs_parent=grad_check("d128 fused dq vs parent", fused, fused_p, "bfloat16"))
     emit({"phase": "d256_kernels", "case": "d128_train_shape_against_parent", **res})
     return res
+
+
+# the k-major pair's cases: (mask case, head dim, the ffa_bwd phase's case
+# that timed SDPA's backward on the same shape, or None)
+KMAJOR_CASES = (
+    ("causal_8192_bf16", 128, "a_causal_8192_bf16"),
+    ("train_docs_8192_bf16", 128, "d_train_docs_8192_bf16"),
+    ("causal_8192_bf16", 64, None),
+)
+
+
+def kmajor_phase(peaks: dict, bwd: dict, parent: dict | None = None) -> dict:
+    """B5/B6 and B8/B9 at d 128 (bench.py's headline shape, the train
+    shape) and d 64 (the headline mask): the card's default k-major
+    instance (64 x 128, the warp-specialised body csrc/bwd_kv_ws.cuh)
+    against this tree's 64 x 64 (bwd_kv_tc.cuh's body), timed in
+    interleaved rounds (:func:`paired_ms`). Every case: the split dk/dv
+    equal the fused kernel's to the bit, and the fused kernel is within
+    the bf16 gates of its plain version. With a parent (``--parent``): the
+    parent's 64 x 128 (its same instance) and 64 x 64 (its default) join
+    the rounds; dk and dv equal the parent's same instance to the bit,
+    split and fused; the fused dq is within the bf16 gates of the
+    parent's; fails if at the headline the new default is not 1.4x
+    (fused) and 1.2x (split dk/dv) faster than the parent's default, or if
+    an instance is slower than the parent's same instance by more than the
+    pair's spread (the larger of the two round ranges). Bound: 8 (dk/dv)
+    and 10 (fused) flops a live pair, q head and d against the bf16 peak;
+    library: SDPA's backward alone from the ``ffa_bwd`` phase."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_dkv_kernel, ffa_bwd_fused_kernel, ffa_bwd_fused_plain, ffa_delta_plain,
+        ffa_fwd_kernel,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    out_rows = {}
+    for key, d, bwd_case in KMAJOR_CASES:
+        c = dict(mask_cases()[key], d=d)
+        (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
+        do = (do / 4).to(q.dtype)
+        out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+        args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
+        ws = kmajor_args(args)
+        if (ws[6].block_q, ws[6].block_k) != (64, 128):
+            raise AssertionError(f"kmajor {key} d {d}: the card's k-major tiles are "
+                                 f"{ws[6].block_q}x{ws[6].block_k}, not 64x128")
+        fused, split = ffa_bwd_fused_kernel(*ws), ffa_bwd_dkv_kernel(*ws)
+        _same_bits(f"kmajor {key} d {d} split dk/dv against fused", split, fused[1:])
+        plain = ffa_bwd_fused_plain(*args)
+        err = {g: grad_check(f"kmajor {key} d {d} {g}", a, b, "bfloat16")
+               for g, a, b in zip(("dq", "dk", "dv"), fused, plain)}
+        del plain, split
+        runs = {
+            "fused": lambda: ffa_bwd_fused_kernel(*ws),
+            "fused_64x64": lambda: ffa_bwd_fused_kernel(*args),
+            "dkv": lambda: ffa_bwd_dkv_kernel(*ws),
+            "dkv_64x64": lambda: ffa_bwd_dkv_kernel(*args),
+        }
+        res = dict(case=key, d=d, q=list(q.shape), kv=list(k.shape), kmajor_tiles=[64, 128],
+                   vs_plain=err, max_abs_err=max(e["max_abs_err"] for e in err.values()))
+        if parent:
+            fp = with_libraries(parent, lambda: ffa_bwd_fused_kernel(*ws))
+            sp = with_libraries(parent, lambda: ffa_bwd_dkv_kernel(*ws))
+            _same_bits(f"kmajor {key} d {d} fused dk/dv against the parent's", fused[1:], fp[1:])
+            _same_bits(f"kmajor {key} d {d} split dk/dv against the parent's", sp, fused[1:])
+            res["fused_dq_vs_parent"] = grad_check(f"kmajor {key} d {d} dq vs parent",
+                                                   fused[0], fp[0], "bfloat16")
+            del fp, sp
+            for name in list(runs):
+                runs[f"parent_{name}"] = (
+                    lambda f=runs[name]: with_libraries(parent, f))
+        del fused
+        t = paired_ms(runs, rounds=5, samples=5)
+        med = {n: statistics.median(x) for n, x in t.items()}
+        spread = {n: max(x) - min(x) for n, x in t.items()}
+        mask = live_pairs(c)
+        live = mask[0]
+        del mask
+        hq = c["hq"]
+        for kern, per_pair in (("fused", 10.0), ("dkv", 8.0)):
+            b_ms, b_by = bound(per_pair * hq * d * live, 0.0, "bfloat16", peaks)
+            res[kern] = dict(
+                ms=med[kern], ms_64x64=med[f"{kern}_64x64"], bound_ms=b_ms, bound_by=b_by,
+                share=b_ms / med[kern], tflops=per_pair * hq * d * live / (med[kern] * 1e-3) / 1e12,
+                over_own_64x64=med[f"{kern}_64x64"] / med[kern],
+            )
+            if parent:
+                same, dflt = med[f"parent_{kern}"], med[f"parent_{kern}_64x64"]
+                res[kern].update(
+                    parent_same_ms=same, parent_default_ms=dflt, over_parent_default=dflt / med[kern],
+                    over_parent_same=same / med[kern],
+                    spread_ms=max(spread[kern], spread[f"parent_{kern}"]),
+                )
+        if bwd_case:
+            res["library_ms"] = bwd[bwd_case]["sdpa_bwd_ms"]
+            res["library_call"] = bwd[bwd_case]["sdpa_fwd_bwd_call"] + " backward alone"
+        res["rounds"] = t
+        emit({"phase": "kmajor", **res})
+        out_rows[f"{key}_d{d}"] = res
+        if parent:
+            for kern, least in (("fused", 1.4), ("dkv", 1.2)):
+                r = res[kern]
+                if r["ms"] - r["parent_same_ms"] > r["spread_ms"]:
+                    raise AssertionError(f"kmajor {key} d {d} {kern}: {r['ms']:.3f} ms, slower than the "
+                                         f"parent's same instance {r['parent_same_ms']:.3f} by more "
+                                         f"than the spread {r['spread_ms']:.3f}")
+                if key == "causal_8192_bf16" and d == 128 and r["over_parent_default"] < least:
+                    raise AssertionError(f"kmajor headline {kern}: {r['over_parent_default']:.2f}x the "
+                                         f"parent's default, under {least}x")
+        del q, k, v, do, out, lse, args, ws
+        torch.cuda.empty_cache()
+    return out_rows
 
 
 def hybrid_d256_phase(peaks: dict, parent: dict | None = None) -> dict:
@@ -7697,12 +7881,13 @@ def _trace_events(path: str) -> list[dict]:
     return trace["traceEvents"] if isinstance(trace, dict) else trace
 
 
-def _launches_in_scope(events: list[dict], kernel: str, scope: str) -> tuple[int, int]:
-    """(kernels whose name holds ``kernel``, those launched inside a
+def _launches_in_scope(events: list[dict], kernel: tuple[str, ...], scope: str) -> tuple[int, int]:
+    """(kernels whose name holds one of ``kernel``, those launched inside a
     ``scope`` range): the launch (the CUDA runtime or driver call with the
     kernel's correlation id) within one of the scope's host ranges on its
     thread, or the kernel within one of the scope's device projections."""
-    kernels = [e for e in events if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and any(k in e.get("name", "") for k in kernel)]
     launches = {
         e["args"]["correlation"]: e for e in events
         if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
@@ -7739,9 +7924,10 @@ OBS_SCOPES = (
 )
 # kernel name (a substring of the CUDA symbol) -> the scope its launches sit in
 OBS_KERNEL_SCOPES = (
-    ("B1", "ffa_fwd_tc_kernel", "ffa_fwd_stage0"),
-    ("B7", "ffa_bwd_delta_kernel", "ffa_bwd_delta"),
-    ("B8/B9", "ffa_bwd_kv_tc_kernel", "ffa_bwd"),
+    ("B1", ("ffa_fwd_tc_kernel",), "ffa_fwd_stage0"),
+    ("B7", ("ffa_bwd_delta_kernel",), "ffa_bwd_delta"),
+    # either k-major body: the card's default tile runs the warp-specialised one
+    ("B8/B9", ("ffa_bwd_kv_tc_kernel", "ffa_bwd_kv_ws_tc_kernel"), "ffa_bwd"),
 )
 
 
@@ -9280,12 +9466,17 @@ TILE_ENTRY = {
     "ffa_bwd_dkv": ("bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1208"),
     "ffa_bwd_fused": ("bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1780"),
 }
+# the bf16 d-128 instance each library runs by default on the card (its
+# row of the kernels line); the k-major pair's is the warp-specialised body
+DEFAULT_TILE = {"ffa_bwd_dkv": "64x128", "ffa_bwd_fused": "64x128"}
+WS_SOURCE = "bwd_kv_ws.cuh"
 
 
 def tile_entries(tiles: dict) -> list[dict]:
-    """The ``kernels`` line's rows of the tile instances other than 64 x 64
-    (bf16 at the headline shape, the float32 forward at the serving
-    prefill), launches from the tiles path (``tiles_path``)."""
+    """The ``kernels`` line's rows of the tile instances other than each
+    library's default on the card (:data:`DEFAULT_TILE`, else 64 x 64; bf16
+    at the headline shape, the float32 forward at the serving prefill),
+    launches from the tiles path (``tiles_path``)."""
     launches = tiles["path"]["tile_launches"]
     rows = []
     for case, dname in (("causal_8192_bf16", "bfloat16"), ("serving_prefill_f32", "float32")):
@@ -9293,11 +9484,13 @@ def tile_entries(tiles: dict) -> list[dict]:
             source, replaces = TILE_ENTRY[lib]
             if dname == "float32":
                 source = "ffa_fwd_tf32.cuh"
+            default = DEFAULT_TILE.get(lib, "64x64") if dname == "bfloat16" else "64x64"
             for tile, r in by_tile.items():
-                if tile == "64x64":
+                if tile == default:
                     continue
+                src = WS_SOURCE if lib in DEFAULT_TILE and tile == "64x128" else source
                 rows.append(kernel_entry(
-                    f"{lib} {dname} d128 {tile}", source, replaces,
+                    f"{lib} {dname} d128 {tile}", src, replaces,
                     launches[lib].get(f"{dname} {tile}", 0), r,
                 ))
     return rows
@@ -9415,6 +9608,7 @@ def main() -> int:
     parent = parent_libraries(parent_csrc) if parent_csrc else None
     d256_phase(peaks, parent)
     hybrid_d256_phase(peaks, parent)
+    kmajor_phase(peaks, bwd, parent)
     bsp = block_sparse_phase(peaks)["slice_g4_d128_bf16_ds16"]
     nsa = nsa_phase()
     usp = usp_nsa_phase()["launches"]
@@ -9465,20 +9659,20 @@ def main() -> int:
             train["split_launches"]["ffa_bwd_dq"] + extra.get("ffa_bwd_dq", 0), t["ffa_bwd_dq"],
         ),
         kernel_entry(
-            "ffa_bwd_dkv", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1208",
+            "ffa_bwd_dkv", WS_SOURCE, "magiattention_tpu/kernels/ffa.py:1208",
             train["split_launches"]["ffa_bwd_dkv"] + extra.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B6)
-            "ffa_bwd_dkv (gqa)", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1451",
+            "ffa_bwd_dkv (gqa)", WS_SOURCE, "magiattention_tpu/kernels/ffa.py:1451",
             train["split_launches"]["ffa_bwd_dkv"] + extra.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
         ),
         kernel_entry(
-            "ffa_bwd_fused", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1780",
+            "ffa_bwd_fused", WS_SOURCE, "magiattention_tpu/kernels/ffa.py:1780",
             train["launches"]["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
             fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B9)
-            "ffa_bwd_fused (gqa)", "bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:2082",
+            "ffa_bwd_fused (gqa)", WS_SOURCE, "magiattention_tpu/kernels/ffa.py:2082",
             train["launches"]["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
             fused["d_train_docs_8192_bf16"],
         ),

@@ -1,8 +1,11 @@
-// The bf16 k-major FFA backward on Hopper's tensor cores, shared by the
-// bf16 entries of csrc/ffa_bwd_dkv.cu (B5/B6: dk and dv, the split
-// backward's second pass, FUSED false) and csrc/ffa_bwd_fused.cu (B8/B9:
-// dk, dv and dq in one pass, FUSED true). The float32 entries of both keep
-// the CUDA-core body of csrc/bwd_kv.cuh: their 1e-5 gates need float32 FMA.
+// The bf16 k-major FFA backward on Hopper's tensor cores, cp.async body,
+// shared by the bf16 entries of csrc/ffa_bwd_dkv.cu (B5/B6: dk and dv, the
+// split backward's second pass, FUSED false) and csrc/ffa_bwd_fused.cu
+// (B8/B9: dk, dv and dq in one pass, FUSED true) for every instance but
+// the 64 x 128 ones at d 64 and 128, which run the warp-specialised body of
+// csrc/bwd_kv_ws.cuh (kv_bf16::launch routes them). The float32 entries
+// keep the CUDA-core body of csrc/bwd_kv.cuh: their 1e-5 gates need float32
+// FMA.
 //
 // What it computes is csrc/bwd_kv.cuh's function: for every kv head and k
 // row j, over the live q rows i and the g query heads h of that kv head,
@@ -14,31 +17,24 @@
 // reaches, and every k row no live pair touches, gets exact zeros; dq of
 // an uncovered q row is never added to.
 //
-// Design (building blocks in csrc/tc.cuh). One CTA (one warpgroup, 128
-// threads) owns one (k tile, kv head), keeps K and V in shared memory and
-// dk, dv in registers (float32, D / 2 each a thread) for its k-major run,
-// and writes them once: no atomics, so dk and dv do not depend on the
-// order CTAs run in. It loops the run's real items and, inside each, the
-// query group; per (item, q head) "step":
-// - S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 (64 k rows), K, V,
-//   Q and dO read K-major;
-// - P^T and dS^T in registers, each split into bf16 hi + lo A fragments
-//   (tc.cuh:to_a_frags_split);
-// - dV += P^T dO and dK += dS^T Q (m64nDk16, A from registers, dO and Q
-//   read MN-major), each as two products, hi then lo: dk and dv sum over
-//   every q row and head that sees a k row (all 32768 of them for a global
-//   token under a sink-window mask), where one bf16 rounding of P and dS
-//   alone leaves them 2^-9 relative, up to 2e-2 absolute, from float32;
-// - FUSED only: dS^T (hi) stored once to shared memory (bf16, swizzled),
-//   then dQ = dS K in 64-column halves (m64n64k16, both operands MN-major:
-//   dS is the transpose of the stored tile), each half added to the
-//   workspace with vector atomics (one 16-byte red.add per lane and
-//   8-column chunk: two lanes swap a row pair first), rows outside the
-//   item skipped.
-// Both instances run the dk/dv products in the same order on the same
-// fragments, so the split dk/dv equals the fused kernel's to the bit. The
-// next step's Q, dO, lse and delta are double-buffered by cp.async and
-// land while this step's products run.
+// Design at d <= 128 (building blocks in csrc/tc.cuh): one warpgroup a
+// 64-row block of the k tile (BK / 64 of them a CTA) owns its K and V in
+// shared memory and dk, dv in registers for the CTA's k-major run, and
+// writes them once: no atomics. Per (item, q head) step, and per 64-row
+// block of a 128-row q tile: S^T = K Q^T and dP^T = V dO^T by wgmma
+// m64n64k16; P^T and dS^T in registers, each split into bf16 hi + lo A
+// fragments (tc.cuh:to_a_frags_split); dV += P^T dO and dK += dS^T Q
+// (m64nDk16, A from registers), each as two products, hi then lo: dk and dv
+// sum over every q row and head that sees a k row (all 32768 of them for a
+// global token under a sink-window mask), where one bf16 rounding of P and
+// dS alone leaves them 2^-9 relative, up to 2e-2 absolute, from float32.
+// FUSED: dS^T (hi) stored once to shared memory, then dQ = dS K in
+// 64-column halves, each added to the workspace with vector atomics (one
+// 16-byte red.add per lane and 8-column chunk), rows outside the item
+// skipped. Both instances run the dk/dv products in the same order on the
+// same fragments, so the split dk/dv equals the fused kernel's to the bit,
+// and bwd_kv_ws.cuh keeps that order. The next step's Q, dO, lse and delta
+// are double-buffered by cp.async, which every thread issues and waits for.
 //
 // Head dim 256: no column split. Full-width dk and dv (2 x 128 floats a
 // thread) do not fit one warpgroup, so a CTA runs two consumer warpgroups
@@ -52,40 +48,18 @@
 // tiles as wgmma's A operand from shared memory (m64n128k16, A K-major):
 // dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half] (hi,
 // then lo), and with FUSED dQ[:, half] = dS K[:, half] from the dS^T hi
-// tile (read transposed), in two 64-column pieces. Both instances still
-// run the dk/dv products in the same order on the same tiles (the split
-// dk/dv equals the fused kernel's to the bit), still write dk and dv once
-// (no atomics), and k rows no live pair touches still get exact zeros.
-// Shared memory: K and V 64 KB, two stages of Q and dO 128 KB, the four
-// P/dS tiles 32 KB, two stages of lse and delta 1 KB and 1 KB to align
-// the window: 231,424 bytes of the 232,448 a CTA may take (common.cuh
-// SMEM_LIMIT), one CTA of 256 threads an SM, 64 x 64 tiles only (a
-// 128-row q or k tile would double a term that has no room). Registers:
-// dk and dv (128) beside S^T and dP^T (16 + 16), then (FUSED) a 64-column
-// dq piece (32): the products read their A operands from shared memory,
-// so no fragments are held, and __launch_bounds__(256, 1) gives 255.
-//
-// Tiles (BQ, BK) of 64 or 128 rows. A 128-row k tile is two warpgroups,
-// each owning 64 of its key rows (its K and V tiles, dk and dv, and with
-// FUSED its dS^T tile), that share every Q/dO stage and its lse and delta.
-// A 128-row q tile is loaded whole (its rows contiguous in each 64-column
-// panel) and walked as two 64-row blocks inside the step, S^T and dP^T
-// over each block in turn: the register plan stays the 64 x 64 one (S^T
-// and dP^T of n = 128 beside dk and dv would need 256 floats a thread at
-// D = 128).
+// tile (read transposed), in two 64-column pieces. Shared memory: K and V
+// 64 KB, two stages of Q and dO 128 KB, the four P/dS tiles 32 KB, two
+// stages of lse and delta 1 KB and 1 KB to align the window: 231,424
+// bytes, one CTA of 256 threads an SM, 64 x 64 tiles only.
 //
 // What bounds it on this card: operations on the bf16 tensor cores (989
 // TFLOP/s on an H100 SXM): 8 * D flops per live pair and q head for dk/dv
-// (S, dP, P^T dO, dS^T Q; the lo products make it 12 * D executed), 10 * D
-// with FUSED (14 * D executed), then the dq atomics, 64 * D float32 adds
-// per (item, q head). Shared memory: K and V of every warpgroup, two
-// stages of Q and dO and of lse and delta (100,352 bytes at D = 128, 64 x
-// 64), with FUSED also each warpgroup's dS^T tile (108,544 bytes): two CTAs
-// per SM either way (216,064 with FUSED at D = 128, 128 x 128; D = 256
-// above). Registers at D <= 128: dk and dv (2 * D / 2) beside at most two
-// 64 x 64 blocks: S^T and dP^T, then P^T's hi and lo fragments and dP^T,
-// then dS^T's, then (FUSED) a dq half (dV's products finish before dK's
-// fragments are formed).
+// (the lo products make it 12 * D executed), 10 * D with FUSED (14 * D
+// executed), then the dq atomics, 64 * D float32 adds per (item, q head).
+// Shared memory at d <= 128: K and V of every warpgroup, two stages of Q
+// and dO and of lse and delta, with FUSED each warpgroup's dS^T tile
+// (108,544 bytes at D = 128, 64 x 64: two CTAs an SM).
 #pragma once
 
 #include "tc.cuh"

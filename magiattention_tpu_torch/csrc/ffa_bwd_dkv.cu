@@ -9,12 +9,15 @@
 // ffa.py:1657). One kernel does both: it always loops the query group.
 //
 // Two bodies, each shared with the fused backward (csrc/ffa_bwd_fused.cu),
-// here without dq. bfloat16: csrc/bwd_kv_tc.cuh (FUSED false), the four
-// products S^T, dP^T, P^T dO and dS^T Q on the tensor cores (wgmma, the
-// last two as bf16 hi + lo pairs), bound by operations at 8 * D flops per
-// live pair and q head against 989 TFLOP/s; 100,352 bytes of shared memory
-// at D = 128, two CTAs per SM. Its dk and dv equal the fused kernel's to the
-// bit. float32: csrc/bwd_kv.cuh (FUSED false), float32 FMA on the CUDA
+// here without dq. bfloat16: the four products S^T, dP^T, P^T dO and dS^T Q
+// on the tensor cores (wgmma, the last two as bf16 hi + lo pairs), bound by
+// operations at 8 * D flops per live pair and q head against 989 TFLOP/s;
+// at 64 x 128 and D = 64 or 128 (the card's default k-major tile there)
+// csrc/bwd_kv_ws.cuh (FUSED false: a TMA producer warpgroup and two
+// consumer warpgroups, 133,184 bytes at D = 128, one CTA an SM), at every
+// other tile and at D = 256 csrc/bwd_kv_tc.cuh (cp.async; 100,352 bytes at
+// D = 128, 64 x 64, two CTAs per SM). Either body's dk and dv equal the
+// fused kernel's at the same tile to the bit. float32: csrc/bwd_kv.cuh (FUSED false), float32 FMA on the CUDA
 // cores (67 TFLOP/s peak): the float32 gate of 1e-5 against the plain
 // version needs float32 products; 173 KB of shared memory at D = 128, one
 // CTA per SM. Head dims 64, 128 and 256; at 256 the bf16 body runs two
@@ -24,7 +27,7 @@
 // grid's z (each half recomputes S^T and dP^T over the full width,
 // chunking that contraction 128 columns at a time).
 #include "bwd_kv.cuh"
-#include "bwd_kv_tc.cuh"
+#include "bwd_kv_ws.cuh"
 
 // Tiles: the bf16 body takes (bq, bk) in {64, 128}^2 wherever the CTA
 // fits (csrc/common.cuh MAGI_FFA_TILES; at D = 256 only 64 x 64); the
@@ -58,7 +61,7 @@ extern "C" int ffa_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                 void* stream) {
 #define X(D, BQ, BK)                                                        \
   if (d == D && bq == BQ && bk == BK)                                       \
-    return kv_tc::launch<D, false, BQ, BK>(q, k, v, dout, lse, delta, dk,   \
+    return kv_bf16::launch<D, false, BQ, BK>(q, k, v, dout, lse, delta, dk,   \
                                            dv, nullptr, work_qt_t, meta_t,  \
                                            run_ptr_t, sq, sk, hq, hk,       \
                                            num_k_tiles, scale, softcap,     \
@@ -81,7 +84,7 @@ extern "C" long ffa_bwd_dkv_smem_bytes(int d, int bq, int bk, int bf16) {
   }
 #define X(D, BQ, BK)                   \
   if (d == D && bq == BQ && bk == BK) \
-    return kv_tc::smem_bytes<D, false, BQ, BK>();
+    return kv_bf16::smem_bytes<D, false, BQ, BK>();
   MAGI_FFA_TILES(X)
 #undef X
   return 0;

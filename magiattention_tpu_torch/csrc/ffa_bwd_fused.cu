@@ -17,33 +17,37 @@
 // along a sequential grid under the plan's first/last-visit flags
 // (QVF/QVL). A GPU runs CTAs in no order, so here dq goes to a float32
 // workspace the wrapper zeroes: the kernel adds each (item, head)'s dS K
-// block to it with float32 atomics, and ffa_bwd_fused_convert then
-// multiplies it by softmax_scale in place. The
-// atomics make dq depend on the order of the additions, so it is not
+// block to it (float32 atomics, or a TMA bulk reduce), and
+// ffa_bwd_fused_convert then multiplies it by softmax_scale in place. The
+// adds make dq depend on the order of the additions, so it is not
 // bitwise reproducible; the split backward (dq and dkv kernels) stays the
 // deterministic mode. Scores are scaled in float32 inside the kernel, as in
 // the other backward kernels (the TPU kernel pre-scales q by scale * log2e
 // in the input type and divides ln 2 back out of dk); softcap keeps the
 // exp domain and the 1 - tanh^2 factor.
 //
-// Two bodies. bfloat16: csrc/bwd_kv_tc.cuh with FUSED (shared with the
-// split dk/dv kernel's bf16 entry), the products on the tensor cores
-// (wgmma, one warpgroup per CTA, the next step's Q and dO double-buffered
-// by cp.async, dq added by 16-byte vector atomics; 108,544 bytes of shared
-// memory at D = 128, two CTAs per SM).
+// Two bodies. bfloat16 (shared with the split dk/dv kernel's bf16 entry),
+// the products on the tensor cores: at 64 x 128 and D = 64 or 128 (the
+// card's default k-major tile there) csrc/bwd_kv_ws.cuh with FUSED (a TMA
+// producer warpgroup, two consumer warpgroups on the 128-row k tile, dQ one
+// depth-128 product added by one TMA bulk reduce a step; 231,488 bytes at
+// D = 128, one CTA an SM), at every other tile and at D = 256
+// csrc/bwd_kv_tc.cuh with FUSED (one warpgroup per 64 k rows, the next
+// step's Q and dO double-buffered by cp.async, dq added by 16-byte vector
+// atomics; 108,544 bytes at D = 128, 64 x 64, two CTAs per SM).
 // float32: csrc/bwd_kv.cuh with FUSED, float32 FMA on the CUDA cores (67
 // TFLOP/s peak on an H100 SXM), shared with the split dk/dv kernel; its
 // shared memory is the dk/dv kernel's (173 KB at D = 128): the dq block
 // reads the dS^T and K tiles already resident, and adds with scalar
 // atomics. What bounds both: operations, 10 * D flops per live (row, col)
-// pair and q head (S, dP, P^T dO, dS^T Q, dS K); then atomic traffic, one
-// 64 x D float32 block per (item, q head), a read-modify-write of
-// 64 * D * 4 bytes in L2 each. Head dims 64, 128 and 256: at 256 the bf16
+// pair and q head (S, dP, P^T dO, dS^T Q, dS K); then the adds, one
+// block_q x D float32 block per (item, q head), a read-modify-write of
+// block_q * D * 4 bytes in L2 each (half of them at 64 x 128 as at 64 x 64). Head dims 64, 128 and 256: at 256 the bf16
 // body's two warpgroups each take one 128-column half of dk, dv and the
 // dq atomics in one CTA, and the float32 body one half per CTA (grid z),
 // as csrc/ffa_bwd_dkv.cu's.
 #include "bwd_kv.cuh"
-#include "bwd_kv_tc.cuh"
+#include "bwd_kv_ws.cuh"
 
 namespace {
 
@@ -98,7 +102,7 @@ extern "C" int ffa_bwd_fused_bf16(const void* q, const void* k, const void* v,
                                   float scale, float softcap, void* stream) {
 #define X(D, BQ, BK)                                                       \
   if (d == D && bq == BQ && bk == BK)                                      \
-    return kv_tc::launch<D, true, BQ, BK>(q, k, v, dout, lse, delta, dk,   \
+    return kv_bf16::launch<D, true, BQ, BK>(q, k, v, dout, lse, delta, dk,   \
                                           dv, dq, work_qt_t, meta_t,       \
                                           run_ptr_t, sq, sk, hq, hk,       \
                                           num_k_tiles, scale, softcap,     \
@@ -121,7 +125,7 @@ extern "C" long ffa_bwd_fused_smem_bytes(int d, int bq, int bk, int bf16) {
   }
 #define X(D, BQ, BK)                   \
   if (d == D && bq == BQ && bk == BK) \
-    return kv_tc::smem_bytes<D, true, BQ, BK>();
+    return kv_bf16::smem_bytes<D, true, BQ, BK>();
   MAGI_FFA_TILES(X)
 #undef X
   return 0;

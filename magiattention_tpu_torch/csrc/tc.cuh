@@ -1,7 +1,9 @@
 // Tensor-core building blocks for the port's bf16 kernels on Hopper
-// (sm_90a): csrc/ffa_fwd_tc.cuh (B1/B2), csrc/ffa_bwd_dq_tc.cuh (B3/B4) and
-// csrc/bwd_kv_tc.cuh (B5/B6, B8/B9); and, below the bf16 ones, the tf32
-// blocks of the float32 forward (csrc/ffa_fwd_tf32.cuh, 3xTF32).
+// (sm_90a): csrc/ffa_fwd_tc.cuh (B1/B2), csrc/ffa_bwd_dq_tc.cuh (B3/B4),
+// csrc/bwd_kv_tc.cuh and csrc/bwd_kv_ws.cuh (B5/B6, B8/B9; the latter's
+// TMA, mbarrier and warpgroup blocks are in csrc/tma.cuh); and, below the
+// bf16 ones, the tf32 blocks of the float32 forward (csrc/ffa_fwd_tf32.cuh,
+// 3xTF32).
 //
 // Tiles. An operand tile is 64 rows of bf16 in shared memory, cut into
 // panels of 64 columns (128 bytes a row, 8 KB a panel, panels PANEL_BYTES
@@ -19,7 +21,8 @@
 //   apart.
 // Tiles are filled by cp.async (16 bytes a thread and copy, rows past the
 // valid count zero-filled), then fence.proxy.async makes the generic-proxy
-// writes visible to wgmma's async proxy.
+// writes visible to wgmma's async proxy; or by TMA (csrc/tma.cuh), which
+// writes the same layout.
 //
 // Products. wgmma.mma_async m64nNk16, bf16 in and float32 accumulate, one
 // warpgroup (128 threads) per 64-row product. The float32 accumulator of

@@ -72,8 +72,8 @@ from ..env import general as env_general
 from ..env import resilience as env_resilience
 from ..kernels import registry as kernel_registry
 from ..kernels.ffa import (
-    FFAParams, apply_bwd_overrides, bwd_mode_key, bwd_plans, bwd_shape, default_blocks, ffa_bwd,
-    ffa_bwd_mode, ffa_delta, ffa_fwd_dispatch, _use_gqa_pack_dq,
+    FFAParams, apply_bwd_overrides, bwd_mode_key, bwd_plans, bwd_shape, card_bwd_params,
+    default_blocks, ffa_bwd, ffa_bwd_mode, ffa_delta, ffa_fwd_dispatch, _use_gqa_pack_dq,
 )
 from ..kernels.ffa_plan import FFAPlan, get_ffa_plan
 from ..kernels.head_dims import kernel_head_dim
@@ -488,6 +488,8 @@ class DeferredTilePolicy:
         change between steps."""
         d, dv, itemsize = q.shape[-1], v.shape[-1], q.element_size()
         hq, hk = q.shape[1], k.shape[1]
+        if q.is_cuda:  # the k-major tiles the backward runs there
+            params = card_bwd_params(params, d, dv, itemsize)
         mode = ffa_bwd_mode(plan, params, d, dv, itemsize, hq, hk)
         sq, sk = plan.num_q_tiles * plan.block_q, plan.num_k_tiles * plan.block_k
         plan_dq, plan_dkv = bwd_plans(plan, params, sq, sk)

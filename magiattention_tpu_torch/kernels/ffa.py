@@ -20,12 +20,15 @@ for the forward and dq, k-major for dk/dv. Seven CUDA kernels walk them:
   looped inside the CTA (with dq, the split backward: atomic-free,
   deterministic);
 - ``csrc/ffa_bwd_fused.cu``: dq, dk and dv in one pass over the k-major
-  runs (the fused backward: dq by float32 atomics, then a scale pass).
+  runs (the fused backward: dq added in float32, by atomics or a bulk
+  reduce, then a scale pass).
 
 Every bf16 entry of the FFA kernels above (all but delta) runs on the
 tensor cores (wgmma, one warpgroup per head): ``csrc/ffa_fwd_tc.cuh``
 (forward), ``csrc/ffa_bwd_dq_tc.cuh`` (split dq) and ``csrc/bwd_kv_tc.cuh``
-(split dk/dv and the fused backward). The float32 forward runs on them too,
+(split dk/dv and the fused backward; at 64 x 128 and head dims 64 and 128,
+the card's default k-major tile there (:func:`card_bwd_params`),
+``csrc/bwd_kv_ws.cuh``: a TMA producer warpgroup and two consumers). The float32 forward runs on them too,
 as 3xTF32 (``csrc/ffa_fwd_tf32.cuh``: each operand split into tf32 hi and
 lo, three products a pair, within the float32 1e-5 gates); the float32
 backward entries run float32 FMA on the CUDA cores. So the packed guards
@@ -101,6 +104,7 @@ from .head_dims import (
 )
 from .mask_utils import build_dense_mask_band, types_to_bands
 from .sdpa import dense_max_logits, sdpa_attn
+from . import tile_policy
 from .tile_policy import BwdShape, choose_bwd_mode
 
 
@@ -203,6 +207,28 @@ def bwd_plans(plan: FFAPlan, params: FFAParams, sq: int, sk: int) -> tuple[FFAPl
         plan.retiled(*params.dq_blocks(), sq, sk),
         plan.retiled(*params.dkv_blocks(), sq, sk),
     )
+
+
+def card_bwd_params(params: FFAParams, d: int, dv: int, itemsize: int) -> FFAParams:
+    """``params`` for a backward that runs on the card: bf16 at head dims 64
+    and 128, the k-major pass (dk/dv and fused) of a forward at the default
+    64 x 64 tiles runs at 64 x 128, the warp-specialised body
+    (csrc/bwd_kv_ws.cuh), which the card times faster there for both
+    kernels (PERF.md §6). It ranks below every explicit choice: tiles
+    pinned by env (MAGI_ATTENTION_FFA_BLOCK_{Q,K}, ..._DKV), the auto-tile
+    policy, a per-pass tile already in ``params``. Only the card's path
+    calls it (``ffa_bwd`` on CUDA tensors), so CPU plans and params stay
+    field-equal to the JAX package's."""
+    if (
+        itemsize != 2 or d != dv or d not in mem_budget.WS_DKV_WIDTHS
+        or params.block_q_dkv or params.block_k_dkv
+        or (params.block_q, params.block_k) != mem_budget.DEFAULT_TILES
+        or env_kernel.ffa_blocks_pinned() or env_kernel.ffa_block_q_dkv()
+        or env_kernel.ffa_block_k_dkv() or tile_policy.auto_tile_enabled()
+    ):
+        return params
+    bq, bk = mem_budget.WS_DKV_TILES
+    return dataclasses.replace(params, block_q_dkv=bq, block_k_dkv=bk)
 
 
 def plan_params(
@@ -1011,10 +1037,12 @@ def dkv_smem_bytes(d: int, itemsize: int = 4, bq: int = 64, bk: int = 64) -> int
     (:func:`..utils.mem_budget.dkv_smem_bytes`). float32 (csrc/bwd_kv.cuh
     ``DkvSmem``): K, V, Q and dO tiles at row stride d + 4, the P^T and
     dS^T tiles at row stride 80, the q tile's lse and delta, float32.
-    bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``): K and V of each warpgroup and
-    two stages of Q and dO in bf16, two stages of lse and delta, and 1024
-    bytes to align the window for the swizzle. At d = 256 the float32 tiles
-    are the contraction's 128-column chunks."""
+    bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``, and csrc/bwd_kv_ws.cuh ``Smem``
+    at 64 x 128 and d 64 or 128): K and V of each warpgroup and two stages
+    of Q and dO in bf16, two stages of lse and delta, and 1024 bytes to
+    align the window for the swizzle (the warp-specialised body: 64 bytes
+    of mbarriers too). At d = 256 the float32 tiles are the contraction's
+    128-column chunks."""
     return mem_budget.dkv_smem_bytes(d, bq, bk, itemsize)
 
 
@@ -1022,22 +1050,28 @@ def fused_bwd_smem_bytes(d: int, itemsize: int = 4, bq: int = 64, bk: int = 64) 
     """Shared memory of one fused-backward CTA: the dk/dv CTA's
     (:func:`dkv_smem_bytes`; float32 keeps its dS^T tile for dq already),
     plus in bf16 a 64 x 64 bf16 dS^T tile per warpgroup that dQ = dS K
-    reads."""
+    reads (the warp-specialised body: two a step parity, and its dq
+    staging, two 64 x 64 float32 blocks a consumer warpgroup)."""
     return mem_budget.dkv_smem_bytes(d, bq, bk, itemsize, fused=True)
 
 
 def fused_bwd_feasible(d: int, dv: int) -> bool:
     """True when the fused kernel can run this head geometry: equal q/k and
-    v head dims in 64-column groups (the thread layout), its shared memory
-    within the opt-in limit, and the live accumulators of a thread (dk and
-    dv, d / 2; the dq block, 16; the S and dP blocks, 32) with room for
-    addresses and operands (64) within the register limit. These are the
-    float32 body's figures (at d = 256 those of one 128-column half); the
-    bf16 tensor-core body takes less shared memory at head dims 64 and 128
-    (:func:`fused_bwd_smem_bytes`; at 256 its two column warpgroups take
-    231,424 bytes) and fits its registers at each width without a spill (chip_smoke.py's ``tensor_cores``
-    phase reports both from the build). The JAX package's
-    guard is its VMEM residency (``ffa.fused_bwd_feasible``)."""
+    v head dims in 64-column groups (the thread layout), and the float32
+    body (csrc/bwd_kv.cuh, the larger of the two) within the card: its
+    shared memory (:func:`fused_bwd_smem_bytes` at 4 bytes, one
+    128-column half at d = 256) within the opt-in limit, and a thread's
+    live accumulators (dk and dv, d / 2; the dq block, 16; the S and dP
+    blocks, 32) with room for addresses and operands (64) within the
+    register limit. The bf16 bodies fit wherever that one does: the
+    warp-specialised one (csrc/bwd_kv_ws.cuh, the card's 64 x 128 at d 64
+    and 128) takes 231,488 bytes at d 128 and runs its consumer
+    warpgroups at 240 registers a thread (dk and dv, d; S^T and dP^T, 64;
+    one hi + lo fragment pair, 32; the dq block, 32), the cp.async one
+    (csrc/bwd_kv_tc.cuh) 108,544 bytes at 64 x 64 and 231,424 at d 256;
+    chip_smoke.py's ``tensor_cores`` phase fails on any spill in the build.
+    The JAX package's guard is its VMEM residency
+    (``ffa.fused_bwd_feasible``)."""
     if d != dv or d % 64:
         return False
     accumulators = cta_width(d) // 2 + 16 + 32
@@ -1142,6 +1176,7 @@ def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     d, d_v = q.shape[-1], v.shape[-1]
     if q.is_cuda:
         q, k, v, do = pad_to_kernel_width(q, k, v, do)
+        params = card_bwd_params(params, q.shape[-1], v.shape[-1], q.element_size())
     sq, sk = q.shape[0], k.shape[0]
     mode = ffa_bwd_mode(
         plan, params, q.shape[-1], v.shape[-1], q.element_size(), q.shape[1], k.shape[1], sq, sk,

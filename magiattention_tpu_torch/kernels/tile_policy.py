@@ -29,9 +29,10 @@ and charges the fused mode a float32 dq read-modify-write in HBM for
 every (k-major item, head). None of that describes the port's kernels:
 in float32 the split kernels (dq, dk/dv) and the fused kernel run float32
 FMA on the CUDA cores, in bf16 all three run their products on the tensor
-cores (csrc/ffa_bwd_dq_tc.cuh, csrc/bwd_kv_tc.cuh), all one CTA per run
-of a tile's items (operands of the run's tile resident, the other side
-streamed per item), and the fused kernel's dq atomics resolve in L2. So
+cores (csrc/ffa_bwd_dq_tc.cuh, csrc/bwd_kv_tc.cuh, csrc/bwd_kv_ws.cuh),
+all one CTA per run of a tile's items (operands of the run's tile
+resident, the other side streamed per item), and the fused kernel's dq
+adds resolve in L2. So
 this model prices what the card does:
 
 - **compute**: each kernel's CTAs, in launch order, dealt to the SMs'
@@ -636,19 +637,30 @@ ITEM_US = {"dq": 11.50, "dq_gqa": 11.73, "dkv": 15.27}
 FUSED_BODY_OVER_DKV = 1.25
 # float32 atomic adds per second the fused kernel's dq block sustains
 ATOMIC_ADDS_PER_S = 4.45e11
-# The tensor-core kernels (bf16: csrc/ffa_bwd_dq_tc.cuh for dq and
-# dq_gqa, csrc/bwd_kv_tc.cuh for dkv and fused), measured on NVIDIA H100
-# 80GB HBM3, 700.00 W (chip_smoke.py phase bwd_mode, calibrate_tc over the
-# four bf16 masks; dq_gqa over the two that time it): microseconds one CTA
-# spends per (work item, q head) at head_dim 128, the fused kernel's dq
-# atomics included (dq_gqa: per head of its block of 2).
-TC_ITEM_US = {"dq": 0.9092, "dq_gqa": 1.0122, "dkv": 2.8878, "fused": 5.121}
-# CTAs of each tensor-core kernel one SM runs at once, from its shared
-# memory at head_dim 128 (dq 99,328 bytes, dq_gqa 132,096, dkv 100,352,
-# fused 108,544; 227 KB a CTA at most, 228 KB an SM): its per-item time is
-# a CTA's while it shares the SM. A lone long run (the sink window's 516
-# steps) is slower than that pace: the model is 4-23% under it there.
-TC_CTAS_PER_SM = {"dq": 2, "dq_gqa": 1, "dkv": 2, "fused": 2}
+# The tensor-core kernels at their default tiles on the card (bf16:
+# csrc/ffa_bwd_dq_tc.cuh for dq and dq_gqa at 64 x 64, csrc/bwd_kv_ws.cuh
+# for dkv and fused at 64 x 128), measured on NVIDIA H100 80GB HBM3,
+# 700.00 W (chip_smoke.py phase bwd_mode, calibrate_tc over the four bf16
+# masks; dq_gqa over the two that time it): microseconds one CTA spends per
+# (work item, q head) at head_dim 128 and per 64 x 64 of the item's tile,
+# the fused kernel's dq adds included (dq_gqa: per head of its block of 2).
+TC_ITEM_US = {"dq": 0.9092, "dq_gqa": 1.0122, "dkv": 1.3201, "fused": 1.9112}
+# CTAs of each of them one SM runs at once: dq and the packed dq from their
+# shared memory at head_dim 128 (99,328 and 132,096 bytes; 227 KB a CTA at
+# most, 228 KB an SM), the k-major pair one (three warpgroups of 168
+# registers a thread fill the register file): a per-item time is a CTA's
+# while it shares the SM. A lone long run (the sink window's) is slower
+# than that pace.
+TC_CTAS_PER_SM = {"dq": 2, "dq_gqa": 1, "dkv": 1, "fused": 1}
+# the tiles at which each kernel's two constants above hold (the k-major
+# pair: kernels/ffa.py:card_bwd_params); other tiles take their CTAs an SM
+# from their shared memory and warpgroups
+TC_TILES = {"dq": (64, 64), "dq_gqa": (64, 64), "dkv": (64, 128), "fused": (64, 128)}
+# The k-major pair's other body (csrc/bwd_kv_tc.cuh: every tile but the
+# warp-specialised 64 x 128 at d 64 and 128, and d 256), fitted as above
+# in the run where it ran the card's default 64 x 64, two CTAs an SM at
+# 64 x 64.
+TC_CPASYNC_ITEM_US = {"dkv": 2.8878, "fused": 5.121}
 # The 256-wide instances, for :func:`width_scale`: per (item, head) the
 # products a warpgroup runs over the full head dim and over a 128-column
 # half (or half the keys or q rows). Bodies that split their columns
@@ -755,14 +767,30 @@ def _dq_key(dq_heads_per_cta: int) -> str:
     return "dq_gqa" if dq_heads_per_cta > 1 else "dq"
 
 
+def _ws_body(s: BwdShape, kernel: str) -> bool:
+    """True where a k-major kernel runs the warp-specialised body at the
+    shape's tiles and width (:func:`..utils.mem_budget.ws_dkv`)."""
+    return kernel in ("dkv", "fused") and s.d == s.dv and mem_budget.ws_dkv(s.d, *s.dkv_blocks())
+
+
+def _tc_item_us(s: BwdShape, kernel: str) -> float:
+    """The per-(item, head) microseconds of the body ``kernel`` runs at the
+    shape's tiles: :data:`TC_ITEM_US`, or for the k-major pair off its
+    warp-specialised instances :data:`TC_CPASYNC_ITEM_US`."""
+    if kernel in TC_CPASYNC_ITEM_US and not _ws_body(s, kernel):
+        return TC_CPASYNC_ITEM_US[kernel]
+    return TC_ITEM_US[kernel]
+
+
 def _tc_units(s: BwdShape, kernel: str, dq_heads_per_cta: int = 1) -> float:
     """A tensor-core kernel's makespan in (item, head) units ("dq",
     "dq_gqa", "dkv" or "fused"), its CTAs dealt to its
-    :data:`TC_CTAS_PER_SM` slots per SM (one at 256)."""
+    :data:`TC_CTAS_PER_SM` slots per SM at :data:`TC_TILES` (one at 256;
+    two for the k-major pair's other body at 64 x 64)."""
     bq, bk = (s.block_q, s.block_k) if kernel in ("dq", "dq_gqa") else s.dkv_blocks()
     if max(s.d, s.dv) > SPLIT_WIDTH:
         per_sm = 1
-    elif (bq, bk) == mem_budget.DEFAULT_TILES:
+    elif (bq, bk) == TC_TILES[kernel]:
         per_sm = TC_CTAS_PER_SM[kernel]
     else:  # other tiles: from their shared memory and warpgroups
         per_sm = mem_budget.ctas_per_sm(kernel, max(s.d, s.dv), bq, bk, dq_heads_per_cta)
@@ -831,8 +859,8 @@ def tc_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
     dq, d = _dq_key(dq_heads_per_cta), max(s.d, s.dv)
     units = {
         "dq": _tc_units(s, dq, dq_heads_per_cta) * TC_ITEM_US[dq],
-        "dkv": _tc_units(s, "dkv") * TC_ITEM_US["dkv"],
-        "fused": _tc_units(s, "fused") * TC_ITEM_US["fused"],
+        "dkv": _tc_units(s, "dkv") * _tc_item_us(s, "dkv"),
+        "fused": _tc_units(s, "fused") * _tc_item_us(s, "fused"),
     }
     kern = {"dq": dq, "dkv": "dkv", "fused": "fused"}
     return _with_dram(s, dq_heads_per_cta, {
@@ -880,13 +908,16 @@ def calibrate_tc(
     kernel: str, shapes: list[BwdShape], ms: list[float], dq_heads_per_cta: int = 1
 ) -> float:
     """A tensor-core kernel's ("dq", "dq_gqa", "dkv" or "fused")
-    per-(item, head) microseconds at head_dim 128 from its measured times
-    ``ms`` at several shapes: least squares of (time - DRAM time) over its
-    makespan in (item, head) units on its :data:`TC_CTAS_PER_SM` slots per
-    SM (dq_gqa: ``dq_heads_per_cta`` heads a CTA)."""
+    per-(item, head) microseconds at head_dim 128, per 64 x 64 of an item's
+    tile (:func:`tile_area`), from its measured times ``ms`` at several
+    shapes: least squares of (time - DRAM time) over its makespan in (item,
+    head) units on its :data:`TC_CTAS_PER_SM` slots per SM (dq_gqa:
+    ``dq_heads_per_cta`` heads a CTA)."""
     heads = dq_heads_per_cta if kernel == "dq_gqa" else 1
     dram = "dq" if kernel == "dq_gqa" else kernel
-    units = np.asarray([_tc_units(s, kernel, heads) * s.d / 128.0 * 1e-3 for s in shapes])
+    units = np.asarray([
+        _tc_units(s, kernel, heads) * s.d / 128.0 * tile_area(s, kernel) * 1e-3 for s in shapes
+    ])
     rest = np.asarray([
         t - dram_bytes(s, heads)[dram] / HBM_BYTES_PER_S * 1e3 for s, t in zip(shapes, ms)
     ])

@@ -11,7 +11,8 @@ equal to each library's ``<name>_smem_bytes`` export for every instance
 and prints the limit the device reports.
 
 Kernels: ``fwd`` (B1, ``csrc/ffa_fwd.cu``), ``fwd_gqa`` (B2), ``dq`` (B3),
-``dq_gqa`` (B4), ``dkv`` (B5/B6) and ``fused`` (B8/B9). ``itemsize`` 2 is
+``dq_gqa`` (B4), ``dkv`` (B5/B6) and ``fused`` (B8/B9; both at 64 x 128
+and d 64/128 in the warp-specialised body, :func:`ws_dkv`). ``itemsize`` 2 is
 bf16 (the tensor-core bodies), 4 float32 (the 3xTF32 forward; the
 CUDA-core backward bodies, compiled at 64 x 64 only).
 """
@@ -29,6 +30,10 @@ SMEM_PER_SM = 233_472
 TILE_PAIRS = ((64, 64), (128, 64), (64, 128), (128, 128))
 # the default pair, the one every kernel and dtype has
 DEFAULT_TILES = (64, 64)
+# the bf16 k-major instances of the warp-specialised body
+# (csrc/bwd_kv_ws.cuh): 64 x 128 at these head dims
+WS_DKV_TILES = (64, 128)
+WS_DKV_WIDTHS = (64, 128)
 KERNELS = ("fwd", "fwd_gqa", "dq", "dq_gqa", "dkv", "fused")
 # the packed kernels' (head dim, heads a CTA, k tile) instances
 # (csrc/ffa_fwd_gqa.cu MAGI_FWD_GQA / _F32, csrc/ffa_bwd_dq_gqa.cu), all at
@@ -52,9 +57,10 @@ def _tile_floats(d: int) -> int:
 def warpgroups(kernel: str, bq: int = 64, bk: int = 64, heads: int = 1, d: int = 128) -> int:
     """Consumer warpgroups of one tensor-core CTA: one a head (packed) or a
     64-row half of the q tile (q-major kernels), one a 64-row block of the
-    k tile (k-major kernels); at d = 256 the k-major kernels run two on
-    one 64-row k tile and the dq kernels two on one 64-row q tile (walking
-    the packed heads in turn), one a column half."""
+    k tile (k-major kernels; the warp-specialised 64 x 128 instances also
+    run a producer warpgroup beside their two); at d = 256 the k-major
+    kernels run two on one 64-row k tile and the dq kernels two on one
+    64-row q tile (walking the packed heads in turn), one a column half."""
     if kernel in ("dkv", "fused"):
         return 2 * (bk // 64) if d > SPLIT_WIDTH else bk // 64
     if kernel in ("dq", "dq_gqa") and d > SPLIT_WIDTH:
@@ -100,6 +106,13 @@ def dq_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads: 
     return 4 * ((2 * heads + 2) * _tile_floats(cta_width(d)) + P_TILE_FLOATS)
 
 
+def ws_dkv(d: int, bq: int, bk: int) -> bool:
+    """True where a bf16 k-major instance (dk/dv or fused) runs the
+    warp-specialised body (csrc/bwd_kv_ws.cuh: a TMA producer warpgroup and
+    two consumer warpgroups on a 128-row k tile): 64 x 128 at d 64 and 128."""
+    return d in WS_DKV_WIDTHS and (bq, bk) == WS_DKV_TILES
+
+
 def dkv_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, fused: bool = False) -> int:
     """One dk/dv CTA (B5/B6), or with ``fused`` one fused-backward CTA
     (B8/B9). bfloat16 (csrc/bwd_kv_tc.cuh ``Smem``): K and V of the k
@@ -107,11 +120,18 @@ def dkv_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, fused:
     with ``fused`` a 64 x 64 bf16 dS^T tile per warpgroup (64 key rows
     each), and 1024 bytes to align the window; at d = 256, in either mode,
     the four bk x bq bf16 P^T and dS^T tiles (hi and lo) the two column
-    warpgroups share instead (231,424 bytes at 64 x 64). float32
-    (csrc/bwd_kv.cuh ``DkvSmem``, 64 x 64, the same with fused): K, V, Q
-    and dO at row stride d + 4, the P^T and dS^T tiles, the q tile's lse and
-    delta."""
+    warpgroups share instead (231,424 bytes at 64 x 64). The
+    warp-specialised instances (:func:`ws_dkv`, csrc/bwd_kv_ws.cuh
+    ``Smem``) keep that layout without the dS^T tiles and add 64 bytes of
+    mbarriers; with ``fused`` two 64 x 64 bf16 dS^T tiles a step parity and
+    the float32 dq staging, two 64 x 64 blocks a consumer (231,488 bytes at
+    d 128). float32 (csrc/bwd_kv.cuh ``DkvSmem``,
+    64 x 64, the same with fused): K, V, Q and dO at row stride d + 4, the
+    P^T and dS^T tiles, the q tile's lse and delta."""
     if itemsize == 2:
+        if ws_dkv(d, bq, bk):
+            ds = 4 * 64 * 64 * 2 + 4 * 64 * 64 * 4 if fused else 0
+            return bk * 2 * d * 2 + 4 * bq * d * 2 + ds + 2 * 2 * bq * 4 + 64 + 1024
         if d > SPLIT_WIDTH:
             ds = 4 * bk * bq * 2
         else:

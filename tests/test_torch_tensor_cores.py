@@ -112,6 +112,38 @@ TENSOR_CORE_MS = {
 }
 
 
+# the same masks in the run where the k-major pair's bf16 instance on the
+# card is the warp-specialised body at 64 x 128 (csrc/bwd_kv_ws.cuh;
+# chip_smoke.py phase bwd_mode, NVIDIA H100 80GB HBM3, 700.00 W; dq and
+# the packed dq unchanged)
+WS_TENSOR_CORE_MS = {
+    "causal_8192_bf16": dict(
+        fused=2.6633920669555664, dq=1.8452160358428955, dkv=1.846560001373291,
+    ),
+    "varlen_8192_bf16": dict(
+        fused=1.1072319746017456, dq=0.6506666739781698, dkv=0.7099840044975281,
+    ),
+    "train_docs_8192_bf16": dict(
+        fused=2.976223945617676, dq=1.8040640354156494, dkv=1.9633920192718506,
+    ),
+    "sink_window_8192_bf16": dict(
+        fused=3.464992046356201, dq=0.25867199897766113, dkv=2.7542080879211426,
+        dq_gqa=0.28019200563430785,
+    ),
+}
+
+
+@lru_cache(maxsize=None)
+def _card_plan(name):
+    """As :func:`_bwd_mode_plan`, with the k-major pass at the tiles the
+    card runs (``card_bwd_params``: 64 x 128 for these bf16 masks)."""
+    plan, params, _ = _bwd_mode_plan(name)
+    *_, sq, sk, hq, hk, itemsize = BWD_MODE_MASKS[name]
+    card = port_ffa.card_bwd_params(params, 128, 128, itemsize)
+    plan_dq, plan_dkv = port_ffa.bwd_plans(plan, card, sq, sk)
+    return plan, card, bwd_shape(plan_dq, hq, hk, 128, 128, itemsize, plan_dkv)
+
+
 @lru_cache(maxsize=None)
 def _bwd_mode_plan(name):
     qr, kr, types, sq, sk, hq, hk, itemsize = BWD_MODE_MASKS[name]
@@ -179,25 +211,46 @@ def test_dtype_body_picks_the_faster_mode(name, monkeypatch):
     *_, hq, hk, itemsize = BWD_MODE_MASKS[name]
     assert tile_policy.dtype_body(shape) == ("tc" if itemsize == 2 else "fma")
     assert ffa_bwd_mode(plan, params, 128, 128, itemsize, hq, hk) in _accepted(*_tc_run(name))
+    if name in WS_TENSOR_CORE_MS:  # the k-major pair at the card's tiles
+        plan, card, _ = _card_plan(name)
+        t = WS_TENSOR_CORE_MS[name]
+        got = ffa_bwd_mode(plan, card, 128, 128, itemsize, hq, hk)
+        assert got in _accepted(t["fused"], t["dq"] + t["dkv"])
 
 
 _BF16_MASKS = [n for n in sorted(BWD_MODE_MASKS) if BWD_MODE_MASKS[n][-1] == 2]
 
 
 def test_tensor_core_constants_are_the_fit():
-    """The bf16 fused body's constant in the code is what ``calibrate_tc``
-    fits to the four bf16 fused times measured, and the model then lands
-    within 10% of each of them, the sink window's one long run included."""
+    """The bf16 fused bodies' constants in the code are what
+    ``calibrate_tc`` fits to the four bf16 fused times measured with each:
+    the cp.async body (csrc/bwd_kv_tc.cuh, at 64 x 64) to the run where it
+    was the card's default,
+    where the model lands within 10% of each, the sink window's one long
+    run included; the warp-specialised body (csrc/bwd_kv_ws.cuh, the
+    card's 64 x 128) to the run where it is, where the model lands within
+    35%: it
+    prices a masked item like a full one, and the sink window's one long
+    run is all masked items (30% under), the causal mask mostly full ones
+    (19% over)."""
     shapes = [_bwd_mode_plan(n)[2] for n in _BF16_MASKS]
     got = tile_policy.calibrate_tc("fused", shapes, [TENSOR_CORE_MS[n]["fused"] for n in _BF16_MASKS])
-    assert tile_policy.TC_ITEM_US["fused"] == pytest.approx(got, rel=2e-3)
+    assert tile_policy.TC_CPASYNC_ITEM_US["fused"] == pytest.approx(got, rel=2e-3)
     for n, s in zip(_BF16_MASKS, shapes):
         assert tile_policy.kernel_ms(s)["fused"] == pytest.approx(TENSOR_CORE_MS[n]["fused"], rel=0.1), n
+    shapes = [_card_plan(n)[2] for n in _BF16_MASKS]
+    times = [WS_TENSOR_CORE_MS[n]["fused"] for n in _BF16_MASKS]
+    got = tile_policy.calibrate_tc("fused", shapes, times)
+    assert tile_policy.TC_ITEM_US["fused"] == pytest.approx(got, rel=2e-3)
+    for n, s, t in zip(_BF16_MASKS, shapes, times):
+        assert tile_policy.kernel_ms(s)["fused"] == pytest.approx(t, rel=0.35), n
 
 
 # per split kernel: its dq heads per CTA, and how close the one-constant
-# model lands at each mask it was fitted to
+# model lands at each mask it was fitted to (dkv: the cp.async body at 64 x
+# 64; the warp-specialised one at the card's 64 x 128 within WS_DKV_FIT)
 SPLIT_FIT = {"dq": (1, 0.1), "dq_gqa": (2, 0.15), "dkv": (1, 0.25)}
+WS_DKV_FIT = 0.45
 
 
 @pytest.mark.parametrize("kernel", sorted(SPLIT_FIT))
@@ -213,10 +266,22 @@ def test_split_tensor_core_constants_are_the_fit(kernel):
     shapes = [_bwd_mode_plan(n)[2] for n in names]
     times = [TENSOR_CORE_MS[n][kernel] for n in names]
     got = tile_policy.calibrate_tc(kernel, shapes, times, dq_heads_per_cta=heads)
-    assert tile_policy.TC_ITEM_US[kernel] == pytest.approx(got, rel=2e-3)
+    consts = tile_policy.TC_CPASYNC_ITEM_US if kernel == "dkv" else tile_policy.TC_ITEM_US
+    assert consts[kernel] == pytest.approx(got, rel=2e-3)
     key = "dkv" if kernel == "dkv" else "dq"
     for n, s, t in zip(names, shapes, times):
         assert tile_policy.kernel_ms(s, heads)[key] == pytest.approx(t, rel=rel), n
+    if kernel == "dkv":
+        # the warp-specialised body at the card's tiles: the
+        # model prices masked items like full ones, so it lands 42% under
+        # the sink window's one long run of masked items, 16-27% over the
+        # others
+        shapes = [_card_plan(n)[2] for n in names]
+        times = [WS_TENSOR_CORE_MS[n][kernel] for n in names]
+        got = tile_policy.calibrate_tc(kernel, shapes, times)
+        assert tile_policy.TC_ITEM_US[kernel] == pytest.approx(got, rel=2e-3)
+        for n, s, t in zip(names, shapes, times):
+            assert tile_policy.kernel_ms(s)[key] == pytest.approx(t, rel=WS_DKV_FIT), n
 
 
 def test_precedence_holds_for_bf16(monkeypatch):
