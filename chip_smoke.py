@@ -1277,6 +1277,17 @@ def paired_ms(fns: dict, rounds: int = 9, samples: int = 5) -> dict[str, list[fl
     return times
 
 
+def paired_graph_ms(fns: dict, rounds: int = 5, reps: int = 20, samples: int = 3) -> dict[str, list[float]]:
+    """:func:`paired_ms` by :func:`graph_ms`: each function's device time
+    with a cold L2 and no host work between its launches, in turns."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for r in range(rounds):
+        for n in names[r % len(names):] + names[:r % len(names)]:
+            times[n].append(graph_ms(fns[n], reps=reps, samples=samples))
+    return times
+
+
 def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
     """The unpinned backward mode against the card: at the four backward
     shapes and the sink-window mask (fused checked against split there),
@@ -1866,6 +1877,12 @@ def _same_attn(what: str, got, want) -> dict:
 
 # the tile pins of the tiles path: env -> what it pins
 TILE_PINS = (
+    # the forward at 64 x 64, unpacked and packed: on the card an unpinned
+    # bf16 forward at d 64 and 128 runs 128 x 128, or packed 64 x 128
+    # (kernels/ffa.py:card_fwd_params)
+    {"MAGI_ATTENTION_FFA_BLOCK_Q": "64", "MAGI_ATTENTION_FFA_BLOCK_K": "64"},
+    {"MAGI_ATTENTION_FFA_BLOCK_Q": "64", "MAGI_ATTENTION_FFA_BLOCK_K": "64",
+     "MAGI_ATTENTION_FFA_GQA_PACK": "1"},
     {"MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
     {"MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"},
     # the k-major pass pinned to 64 x 64: on the card it runs 64 x 128
@@ -1903,8 +1920,9 @@ def tiles_path_phase() -> dict:
     headline shape under every pin of :data:`TILE_PINS`, against the
     default 64 x 64 plan: the tiles path. The launch counts are reset just
     before and read just after; every compiled bf16 d-128 instance of the
-    forward, dq, dk/dv and fused kernels (and the packed 64 x 128 ones) must
-    have run at least once, and no plain version."""
+    forward, dq, dk/dv and fused kernels (and the packed 64 x 128 ones, and
+    the packed forward's 64 x 64) must have run at least once, and no plain
+    version."""
     import torch
 
     from magiattention_tpu_torch.env.general import scoped_env
@@ -1946,7 +1964,10 @@ def tiles_path_phase() -> dict:
     ] + [
         f"ffa_fwd float32 {p[0]}x{p[1]}" for p in mb.compiled_tiles("fwd", 4, 128)
         if tiles["ffa_fwd"].get(f"float32 {p[0]}x{p[1]}", 0) == 0
-    ] + [f"{lib} 64x128" for lib in PACKED_LIBS if tiles[lib].get("bfloat16 64x128", 0) == 0]
+    ] + [f"{lib} 64x128" for lib in PACKED_LIBS if tiles[lib].get("bfloat16 64x128", 0) == 0] + [
+        f"ffa_fwd_gqa {p[0]}x{p[1]}" for p in mb.compiled_tiles("fwd_gqa", 2, 128, heads=2)
+        if tiles["ffa_fwd_gqa"].get(f"bfloat16 {p[0]}x{p[1]}", 0) == 0
+    ]
     plains = {n: counts[n] for n in ("sdpa_attn", "ffa_bwd_dq_plain", "ffa_bwd_dkv_plain",
                                      "ffa_bwd_fused_plain", "ffa_delta_plain") if counts[n]}
     emit({"phase": "tiles_path", "runs": rows, "tile_launches": tiles, "missing": missing,
@@ -3111,7 +3132,7 @@ def _profile_summary(events, wall: float) -> dict:
     kernels.sort(key=lambda r: -r[1])
     busy_s = sum(us for _, us, _ in kernels) / 1e6
     decode = [(us, c) for k, us, c in kernels if "magi::decode::" in k]
-    forward = [(us, c) for k, us, c in kernels if "ffa_fwd_t" in k]  # B1/B2's bodies
+    forward = [(us, c) for k, us, c in kernels if "ffa_fwd_t" in k or "ffa_fwd_ws" in k]  # B1/B2's bodies
     return dict(
         wall_s=wall, device_busy_s=busy_s,
         idle_share=1.0 - busy_s / wall if wall > 0 else None,
@@ -4708,12 +4729,13 @@ def train_phase() -> dict:
     from magiattention_tpu_torch.api.magi_attn_interface import _mgr
     from magiattention_tpu_torch.env.general import scoped_env
     from magiattention_tpu_torch.kernels import (
-        PLAIN_NAMES, launch_counts, reset_launch_counts,
+        PLAIN_NAMES, launch_counts, reset_launch_counts, tile_launch_counts,
     )
     from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
     from magiattention_tpu_torch.models.llama import (
         LlamaConfig, init_params, param_names, train_step, value_and_grad,
     )
+    from magiattention_tpu_torch.utils import mem_budget
 
     cfg = LlamaConfig(
         vocab_size=128256, dim=4096, n_layers=TRAIN_LAYERS, n_heads=32,
@@ -4776,7 +4798,7 @@ def train_phase() -> dict:
     fused_kernels = ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_fused")
     reset_launch_counts()
     steps = [step(i, {}, fused_kernels) for i in range(TRAIN_STEPS)]
-    fused_counts = launch_counts()
+    fused_counts, fused_tiles = launch_counts(), tile_launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reset_launch_counts()
     split_step = step(TRAIN_STEPS, SPLIT, ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv"))
@@ -4787,7 +4809,14 @@ def train_phase() -> dict:
              ("ffa_fwd_gqa", "ffa_bwd_delta", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")),
         step(TRAIN_STEPS + 2, PACK, ("ffa_fwd_gqa", "ffa_bwd_delta", "ffa_bwd_fused")),
     ]
-    packed_counts = launch_counts()
+    packed_counts, packed_tiles = launch_counts(), tile_launch_counts()
+    # the forward of the main path runs the card's tiles: B1 at
+    # WS_FWD_TILES, B2 at two heads of half its q rows (csrc/ffa_fwd_ws.cuh)
+    wq, wk = mem_budget.WS_FWD_TILES
+    fwd_tiles = {"ffa_fwd": fused_tiles["ffa_fwd"], "ffa_fwd_gqa": packed_tiles["ffa_fwd_gqa"]}
+    if (fwd_tiles["ffa_fwd"].get(f"bfloat16 {wq}x{wk}", 0) != fused_counts["ffa_fwd"]
+            or fwd_tiles["ffa_fwd_gqa"].get(f"bfloat16 {wq // 2}x{wk}", 0) != packed_counts["ffa_fwd_gqa"]):
+        raise AssertionError(f"train: the forward ran off the card's tiles: {fwd_tiles}")
     remat = remat_check(params, cfg, tokens, labels, key)
 
     prof = profile_run(lambda: train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR))
@@ -4826,6 +4855,7 @@ def train_phase() -> dict:
         launches={k: fused_counts[k] for k in FFA_KERNELS},
         split_launches={k: split_counts[k] for k in FFA_KERNELS},
         packed_launches={k: packed_counts[k] for k in FFA_KERNELS},
+        fwd_tile_launches=fwd_tiles,
         plain_calls={k: fused_counts[k] for k in PLAIN_NAMES},
         peak_memory_gb=peak_gb, remat=remat, profile_step=prof,
         check=dict(
@@ -5387,8 +5417,12 @@ ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
 # k-major instances (csrc/bwd_kv_ws.cuh): TMA tensor loads, bulk reduces
 # (tensor and plain), the register hand-over between warpgroups
 TMA_LOADS, BULK_REDUCES, SETMAXREG = ("UTMALDG",), ("UTMAREDG", "UBLKRED"), ("USETMAXREG",)
-# the warp-specialised kernels' name (csrc/bwd_kv_ws.cuh)
+# the warp-specialised kernels' name (csrc/bwd_kv_ws.cuh, csrc/ffa_fwd_ws.cuh)
 WS_TAG = "_ws_tc_kernel"
+# warp-specialised instances a library compiles: the k-major pair at 64 x
+# 128, the forward at 128 x 128 and the packed forward at two heads of 64 x
+# 128, each at d 64 and 128
+WS_INSTANCES = {"ffa_bwd_dkv": 2, "ffa_bwd_fused": 2, "ffa_fwd": 2, "ffa_fwd_gqa": 2}
 # the NSA libraries and their tensor-core (bf16) instances at d 64, 128 and
 # 256: B13's forward, B14's dq and dk/dv walks (csrc/block_sparse_tc.cuh);
 # their float32 instances run on the CUDA cores
@@ -5442,6 +5476,10 @@ def ptxas_report(name: str) -> dict[str, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             report[fn]["registers"] = int(m.group(1))
+        # ptxas C7514: the function's wgmma products wait for each other
+        m = re.search(r"wgmma.mma_async instructions are serialized.*function '(\S+)'", line)
+        if m:
+            report.setdefault(kernel_label(m.group(1)), {})["wgmma_serialized"] = True
     return report
 
 
@@ -5576,9 +5614,12 @@ def tensor_core_phase() -> dict[str, dict]:
                 raise AssertionError(f"{lib}: {fn} shows no dq adds: the SASS count is wrong")
             if ws and not (r["tma_loads"] and r["setmaxnreg"]):
                 raise AssertionError(f"{lib}: {fn} has no TMA load or no setmaxnreg: {r}")
+            if ws and r.get("wgmma_serialized"):
+                raise AssertionError(f"{lib}: {fn}'s wgmma products are serialized (ptxas C7514)")
         n_ws = sum(WS_TAG in fn for fn in tc)
-        if lib in ("ffa_bwd_dkv", "ffa_bwd_fused") and n_ws != 2:
-            raise AssertionError(f"{lib}: {n_ws} warp-specialised instances, want 2: {list(tc)}")
+        if n_ws != WS_INSTANCES.get(lib, 0):
+            raise AssertionError(f"{lib}: {n_ws} warp-specialised instances, want "
+                                 f"{WS_INSTANCES.get(lib, 0)}: {list(tc)}")
         if lib.startswith("ffa_fwd") and not any(TF32_TAG in fn for fn in tc):
             raise AssertionError(f"{lib}: no float32 (3xTF32) tensor-core kernel: {list(tc)}")
         results[lib] = row
@@ -6470,7 +6511,8 @@ def d256_empty_rows(gen) -> dict:
 def d128_against_parent(parent: dict, gen) -> dict:
     """The d-128 instances of the redesigned libraries at the train shape
     (bf16, q 8192 x 32 x 128, k/v 8192 x 8 x 128, two causal documents):
-    B1 at 64 x 64 and 128 x 64, B2, B3 at 64 x 64 and 128 x 64, B4, the
+    B1 at 64 x 64, 128 x 64 and 128 x 128 (the warp-specialised body), B2
+    at 64 x 64 and 64 x 128 (warp-specialised), B3 at 64 x 64 and 128 x 64, B4, the
     split dk/dv and the fused dk/dv at 64 x 64, 64 x 128 (the
     warp-specialised body) and 128 x 128 equal to the bit to the parent's
     builds on the same inputs (the fused dq adds in no fixed order, so it
@@ -6497,9 +6539,17 @@ def d128_against_parent(parent: dict, gen) -> dict:
         p_ = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], bq, bk)
         kv[f"{bq}x{bk}"] = (*args[:6], p_, dataclasses.replace(
             params, num_q_tiles=p_.num_q_tiles, num_k_tiles=p_.num_k_tiles, block_q=bq, block_k=bk))
+    # the forward's warp-specialised instances (B1 128 x 128, B2 64 x 128)
+    fw = {}
+    for bq, bk in ((128, 128), (64, 128)):
+        p_ = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], bq, bk)
+        fw[bq] = (p_, dataclasses.replace(params, num_q_tiles=p_.num_q_tiles,
+                                          num_k_tiles=p_.num_k_tiles, block_q=bq, block_k=bk))
     runs = {
         "ffa_fwd": lambda: ffa_fwd_kernel(q, k, v, plan, params),
         "ffa_fwd_128x64": lambda: ffa_fwd_kernel(q, k, v, plan128, params128),
+        "ffa_fwd_128x128": lambda: ffa_fwd_kernel(q, k, v, *fw[128]),
+        "ffa_fwd_gqa_64x128": lambda: ffa_fwd_gqa_kernel(q, k, v, *fw[64]),
         "ffa_bwd_dq": lambda: (ffa_bwd_dq_kernel(*args),),
         "ffa_bwd_dq_128x64": lambda: (ffa_bwd_dq_kernel(*args128),),
         "ffa_bwd_dkv": lambda: ffa_bwd_dkv_kernel(*args),
@@ -6631,6 +6681,209 @@ def kmajor_phase(peaks: dict, bwd: dict, parent: dict | None = None) -> dict:
         del q, k, v, do, out, lse, args, ws
         torch.cuda.empty_cache()
     return out_rows
+
+
+# the forward's cases: (mask case, head dim)
+FWD_WS_CASES = (
+    ("causal_8192_bf16", 128),
+    ("train_docs_8192_bf16", 128),
+    ("causal_8192_bf16", 64),
+)
+
+
+def fwd_args(q, k, v, plan, params, heads: int = 1) -> tuple:
+    """The (plan, params) a forward of ``heads`` heads a CTA (1: B1, 2: B2)
+    runs on the card at these inputs: bf16 at d 64 and 128 at the
+    warp-specialised body's tiles (``kernels/ffa.py:card_fwd_params``);
+    else as given."""
+    from magiattention_tpu_torch.kernels.ffa import card_fwd_params
+
+    return card_fwd_params(plan, params, q.shape[-1], v.shape[-1], q.element_size(), heads,
+                           q.shape[0], k.shape[0])
+
+
+def sdpa_fwd(key: str, q, k, v):
+    """One SDPA call computing a case's forward (``enable_gqa``), and its
+    description: ``is_causal`` over one causal document; over the train
+    shape's two causal documents of equal length, ``is_causal`` on them as
+    a batch of two."""
+    import torch.nn.functional as F
+
+    if key == "train_docs_8192_bf16":
+        n = q.shape[0] // 2
+        qt, kt, vt = (t.view(2, n, *t.shape[1:]).transpose(1, 2) for t in (q, k, v))
+        return (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+                "SDPA is_causal over the two documents as a batch of 2")
+    qt, kt, vt = (t.transpose(0, 1)[None] for t in (q, k, v))
+    return (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            "SDPA is_causal")
+
+
+def fwd_ws_phase(peaks: dict, parent: dict | None = None) -> dict:
+    """B1 and B2 at d 128 (bench.py's headline shape, the train shape) and
+    d 64 (the headline mask): the card's default forward (the
+    warp-specialised body csrc/ffa_fwd_ws.cuh: B1 at 128 x 128, B2 at two
+    heads of 64 x 128, ``fwd_args``) against this tree's 64 x 64
+    (ffa_fwd_tc.cuh's body), timed in interleaved rounds both by
+    :func:`time_ms` (host included, as every kernel line) and by
+    :func:`graph_ms` (CUDA-graph replays, cold L2: the device's time).
+    Every case: out within the bf16 gates of the plain version, B2 equal
+    to B1 at B2's tiles (ffa_fwd_tc.cuh's 64 x 128) and at the card's
+    (B1 128 x 128) to the bit, the max
+    logits within 1e-5 relative of ``dense_max_logits`` at softcap 0 and
+    30. With a parent (``--parent``): the parent's same instances (128 x
+    128, B2's 64 x 128) and its defaults (64 x 64, B2 at 64 x 64) join the
+    rounds; out, lse and the max logits equal the parent's same instances
+    to the bit; fails if the new default's device time is not below the
+    parent default's (the card's default moves only where it is faster),
+    or if an instance is slower than the parent's same instance by more
+    than the pair's spread. Then the empty-row contract (varlen mask,
+    uncovered rows out 0 and lse -inf) and ragged last tiles (8000 tokens)
+    at the card's tiles against the plain version. Bound: 4 flops a live
+    pair, q head and d against the bf16 peak, and the bytes of q, k, v,
+    out and lse; library: SDPA's forward (:func:`sdpa_fwd`)."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import ffa_fwd_gqa_kernel, ffa_fwd_kernel
+    from magiattention_tpu_torch.kernels.sdpa import dense_max_logits, sdpa_attn
+    from magiattention_tpu_torch.utils import mem_budget as mb
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    b1_tiles = tuple(mb.WS_FWD_TILES)
+    b2_tiles = (b1_tiles[0] // 2, b1_tiles[1])
+    out_rows = {}
+    for key, d in FWD_WS_CASES:
+        c = dict(mask_cases()[key], d=d)
+        (q, k, v), (qr, kr, lo, hi), plan, params = case_inputs(c, gen)
+        p1, r1 = fwd_args(q, k, v, plan, params)
+        p2, r2 = fwd_args(q, k, v, plan, params, heads=2)
+        if (p1.block_q, p1.block_k) != b1_tiles or (p2.block_q, p2.block_k) != b2_tiles:
+            raise AssertionError(f"fwd_ws {key} d {d}: the card's forward tiles are "
+                                 f"{p1.block_q}x{p1.block_k} / {p2.block_q}x{p2.block_k}")
+        runs = {
+            "b1": lambda: ffa_fwd_kernel(q, k, v, p1, r1),
+            "b2": lambda: ffa_fwd_gqa_kernel(q, k, v, p2, r2),
+            "b1_64x64": lambda: ffa_fwd_kernel(q, k, v, plan, params),
+        }
+        out, lse = runs["b1"]()
+        plain = lambda: sdpa_attn(q, k, v, qr, kr, softmax_scale=params.softmax_scale, d_lo=lo, d_hi=hi)  # noqa: E731
+        err = errors(out, lse, *plain())
+        check(f"fwd_ws {key} d {d}", err, "bfloat16")
+        _same_bits(f"fwd_ws {key} d {d} B2 against B1 at B2's tiles", runs["b2"](),
+                   ffa_fwd_kernel(q, k, v, p2, r2))
+        # the packed route (B2, 64-row q tiles) against the unpacked one (B1,
+        # 128 rows) at the card's tiles: every row walks the same k tiles
+        _same_bits(f"fwd_ws {key} d {d} B2 against B1 at the card's tiles", runs["b2"](),
+                   (out, lse))
+        res = dict(case=key, d=d, q=list(q.shape), kv=list(k.shape), b1_tiles=list(b1_tiles),
+                   b2_tiles=list(b2_tiles), vs_plain=err, max_abs_err=err["max_abs_err"])
+        ml_rel = {}
+        for cap in (0.0, 30.0):
+            rc = dataclasses.replace(r1, softcap=cap)
+            got = ffa_fwd_kernel(q, k, v, p1, rc, return_max_logits=True)
+            want = dense_max_logits(q, k, qr, kr, softmax_scale=rc.softmax_scale, softcap=cap,
+                                    d_lo=lo, d_hi=hi)
+            rel = ((got[2].double() - want.double()).abs() / want.double().abs()).max().item()
+            if not rel <= ML_RTOL:
+                raise AssertionError(f"fwd_ws {key} d {d} softcap {cap:g}: max-logits rel err "
+                                     f"{rel:.3e} > {ML_RTOL}")
+            ml_rel[f"cap{cap:g}"] = rel
+            if parent:
+                _same_bits(f"fwd_ws {key} d {d} softcap {cap:g} B1 (with max logits) against the "
+                           f"parent's same instance", got,
+                           with_libraries(parent, lambda: ffa_fwd_kernel(q, k, v, p1, rc, True)))
+            del got
+        res["max_logits_rel_err"] = ml_rel
+        if parent:
+            for name in ("b1", "b2"):
+                _same_bits(f"fwd_ws {key} d {d} {name} against the parent's same instance",
+                           runs[name](), with_libraries(parent, runs[name]))
+            runs["parent_b1"] = lambda: with_libraries(parent, lambda: ffa_fwd_kernel(q, k, v, p1, r1))
+            runs["parent_b2"] = lambda: with_libraries(parent, lambda: ffa_fwd_gqa_kernel(q, k, v, p2, r2))
+            runs["parent_b1_64x64"] = lambda: with_libraries(parent, lambda: ffa_fwd_kernel(q, k, v, plan, params))
+            runs["parent_b2_64x64"] = lambda: with_libraries(
+                parent, lambda: ffa_fwd_gqa_kernel(q, k, v, plan, params))
+        lib_fn, lib_call = sdpa_fwd(key, q, k, v)
+        runs["sdpa"] = lib_fn
+        t = paired_ms(runs, rounds=5, samples=5)
+        g = paired_graph_ms(runs, rounds=3)
+        med = {n: statistics.median(x) for n, x in t.items()}
+        dev = {n: statistics.median(x) for n, x in g.items()}
+        spread = {n: max(max(t[n]) - min(t[n]), max(g[n]) - min(g[n])) for n in runs}
+        live = live_pairs(c)[0]
+        flops = 4.0 * c["hq"] * d * live
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
+        b_ms, b_by = bound(flops, nbytes, "bfloat16", peaks)
+        res.update(bound_ms=b_ms, bound_by=b_by, library_ms=med["sdpa"], library_device_ms=dev["sdpa"],
+                   library_call=lib_call, plain_ms=time_ms(plain, warmup=1, samples=3))
+        for kern in ("b1", "b2"):
+            r = dict(ms=med[kern], device_ms=dev[kern], share=b_ms / dev[kern], share_event=b_ms / med[kern],
+                     tflops=flops / (dev[kern] * 1e-3) / 1e12, sdpa_over=dev[kern] / dev["sdpa"])
+            if kern == "b1":
+                r.update(ms_64x64=med["b1_64x64"], device_ms_64x64=dev["b1_64x64"],
+                         over_own_64x64=dev["b1_64x64"] / dev["b1"])
+            if parent:
+                same, dflt = f"parent_{kern}", f"parent_{kern}_64x64"
+                r.update(parent_same_ms=med[same], parent_default_ms=med[dflt],
+                         parent_same_device_ms=dev[same], parent_default_device_ms=dev[dflt],
+                         over_parent_default=med[dflt] / med[kern],
+                         over_parent_default_device=dev[dflt] / dev[kern],
+                         over_parent_same_device=dev[same] / dev[kern],
+                         spread_ms=max(spread[kern], spread[same]))
+            res[kern] = r
+        res["rounds_ms"], res["rounds_device_ms"] = t, g
+        emit({"phase": "fwd_ws", **res})
+        out_rows[f"{key}_d{d}"] = res
+        if parent:
+            for kern in ("b1", "b2"):
+                r = res[kern]
+                if r["device_ms"] - r["parent_same_device_ms"] > r["spread_ms"]:
+                    raise AssertionError(f"fwd_ws {key} d {d} {kern}: {r['device_ms']:.3f} ms, slower "
+                                         f"than the parent's same instance "
+                                         f"{r['parent_same_device_ms']:.3f} by more than the spread")
+                if r["over_parent_default_device"] <= 1.0:
+                    raise AssertionError(f"fwd_ws {key} d {d} {kern}: the card's default is "
+                                         f"{r['over_parent_default_device']:.2f}x the parent's default")
+        del q, k, v, out, lse, runs
+        torch.cuda.empty_cache()
+    out_rows["edges"] = fwd_ws_edges(gen)
+    return out_rows
+
+
+def fwd_ws_edges(gen) -> dict:
+    """The card's forward tiles on the varlen mask (uncovered q rows
+    [7680, 8192): out 0 and lse -inf there) and on a causal mask over 8000
+    tokens (ragged last q and k tiles), B1 and B2, against the plain
+    version within the bf16 gates, at d 128 and 64."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import ffa_fwd_gqa_kernel, ffa_fwd_kernel
+    from magiattention_tpu_torch.kernels.mask_utils import types_to_bands
+    from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
+
+    n = 8000
+    lo, hi = types_to_bands(np.array([[0, n]]), np.array([[0, n]]), np.array([1]))
+    ragged = dict(mask_cases()["causal_8192_bf16"], sq=n, sk=n, qr=[[0, n]], kr=[[0, n]], lo=lo, hi=hi)
+    res = {}
+    for name, base in (("varlen", mask_cases()["varlen_8192_bf16"]), ("ragged_8000", ragged)):
+        for d in (128, 64):
+            c = dict(base, d=d)
+            (q, k, v), (qr, kr, lo_, hi_), plan, params = case_inputs(c, gen)
+            want = sdpa_attn(q, k, v, qr, kr, softmax_scale=params.softmax_scale, d_lo=lo_, d_hi=hi_)
+            for kern, heads, fn in (("b1", 1, ffa_fwd_kernel), ("b2", 2, ffa_fwd_gqa_kernel)):
+                p, r = fwd_args(q, k, v, plan, params, heads)
+                out, lse = fn(q, k, v, p, r)
+                err = errors(out, lse, *want)
+                check(f"fwd_ws edges {name} d {d} {kern}", err, "bfloat16")
+                if "uncovered" in c:
+                    u0, u1 = c["uncovered"]
+                    if out[u0:u1].any() or not torch.isneginf(lse[u0:u1]).all():
+                        raise AssertionError(f"fwd_ws edges {name} d {d} {kern}: uncovered rows "
+                                             "are not out 0, lse -inf")
+                res[f"{name}_d{d}_{kern}"] = dict(tiles=[p.block_q, p.block_k], **err)
+            del q, k, v, want
+    emit({"phase": "fwd_ws", "case": "edges", **res})
+    return res
 
 
 def hybrid_d256_phase(peaks: dict, parent: dict | None = None) -> dict:
@@ -7924,7 +8177,8 @@ OBS_SCOPES = (
 )
 # kernel name (a substring of the CUDA symbol) -> the scope its launches sit in
 OBS_KERNEL_SCOPES = (
-    ("B1", ("ffa_fwd_tc_kernel",), "ffa_fwd_stage0"),
+    # either forward body: the card's default tile runs the warp-specialised one
+    ("B1", ("ffa_fwd_tc_kernel", "ffa_fwd_ws_tc_kernel"), "ffa_fwd_stage0"),
     ("B7", ("ffa_bwd_delta_kernel",), "ffa_bwd_delta"),
     # either k-major body: the card's default tile runs the warp-specialised one
     ("B8/B9", ("ffa_bwd_kv_tc_kernel", "ffa_bwd_kv_ws_tc_kernel"), "ffa_bwd"),
@@ -9457,7 +9711,7 @@ def cp4_main(device: str = "cuda", seq: int = CP_SEQ) -> int:
     return 0
 
 
-# each tiled library's tensor-core body and the TPU kernel it replaces
+# each tiled library's cp.async tensor-core body and the TPU kernel it replaces
 TILE_ENTRY = {
     "ffa_fwd": ("ffa_fwd_tc.cuh", "magiattention_tpu/kernels/ffa.py:251"),
     "ffa_fwd_gqa": ("ffa_fwd_tc.cuh", "magiattention_tpu/kernels/ffa.py:490"),
@@ -9467,16 +9721,19 @@ TILE_ENTRY = {
     "ffa_bwd_fused": ("bwd_kv_tc.cuh", "magiattention_tpu/kernels/ffa.py:1780"),
 }
 # the bf16 d-128 instance each library runs by default on the card (its
-# row of the kernels line); the k-major pair's is the warp-specialised body
-DEFAULT_TILE = {"ffa_bwd_dkv": "64x128", "ffa_bwd_fused": "64x128"}
-WS_SOURCE = "bwd_kv_ws.cuh"
+# row of the kernels line); these are the warp-specialised bodies
+DEFAULT_TILE = {"ffa_bwd_dkv": "64x128", "ffa_bwd_fused": "64x128", "ffa_fwd": "128x128",
+                "ffa_fwd_gqa": "64x128"}
+WS_SOURCE, FWD_WS_SOURCE = "bwd_kv_ws.cuh", "ffa_fwd_ws.cuh"
 
 
 def tile_entries(tiles: dict) -> list[dict]:
     """The ``kernels`` line's rows of the tile instances other than each
     library's default on the card (:data:`DEFAULT_TILE`, else 64 x 64; bf16
     at the headline shape, the float32 forward at the serving prefill),
-    launches from the tiles path (``tiles_path``)."""
+    launches from the tiles path (``tiles_path``). Each runs its library's
+    cp.async body (:data:`TILE_ENTRY`): the warp-specialised bodies run
+    the defaults only."""
     launches = tiles["path"]["tile_launches"]
     rows = []
     for case, dname in (("causal_8192_bf16", "bfloat16"), ("serving_prefill_f32", "float32")):
@@ -9488,12 +9745,18 @@ def tile_entries(tiles: dict) -> list[dict]:
             for tile, r in by_tile.items():
                 if tile == default:
                     continue
-                src = WS_SOURCE if lib in DEFAULT_TILE and tile == "64x128" else source
                 rows.append(kernel_entry(
-                    f"{lib} {dname} d128 {tile}", src, replaces,
+                    f"{lib} {dname} d128 {tile}", source, replaces,
                     launches[lib].get(f"{dname} {tile}", 0), r,
                 ))
     return rows
+
+
+def fwd_ws_row(res: dict, kern: str) -> dict:
+    """A ``fwd_ws`` case's B1 (``kern`` "b1") or B2 ("b2") as a kernel row:
+    its time by :func:`time_ms`, as every kernel line's."""
+    return dict(max_abs_err=res["max_abs_err"], ms=res[kern]["ms"], plain_ms=res["plain_ms"],
+                bound_ms=res["bound_ms"], bound_by=res["bound_by"], library_ms=res["library_ms"])
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, r: dict) -> dict:
@@ -9564,7 +9827,7 @@ def main() -> int:
     ffa = ffa_phase(peaks)
     bwd = ffa_bwd_phase(peaks)
     fused = ffa_bwd_fused_phase(peaks, bwd)
-    fwd_gqa = ffa_fwd_gqa_phase(peaks)
+    ffa_fwd_gqa_phase(peaks)
     dq_gqa = ffa_bwd_gqa_phase(peaks)
     max_logits_phase()
     bwd_mode_phase(bwd, fused, dq_gqa)
@@ -9609,6 +9872,7 @@ def main() -> int:
     d256_phase(peaks, parent)
     hybrid_d256_phase(peaks, parent)
     kmajor_phase(peaks, bwd, parent)
+    fwd_ws = fwd_ws_phase(peaks, parent)
     bsp = block_sparse_phase(peaks)["slice_g4_d128_bf16_ds16"]
     nsa = nsa_phase()
     usp = usp_nsa_phase()["launches"]
@@ -9640,6 +9904,10 @@ def main() -> int:
             "ffa_fwd", "ffa_fwd_tf32.cuh", "magiattention_tpu/kernels/ffa.py:251",
             serve["kernel_launches"]["ffa_fwd"] + serve_int8["spec"]["kernel_launches"]["ffa_fwd"]
             + extra.get("ffa_fwd", 0), ffa[0],
+        ),
+        kernel_entry(  # the train shape's bf16 forward: the card's default tiles
+            "ffa_fwd (bf16)", FWD_WS_SOURCE, "magiattention_tpu/kernels/ffa.py:251",
+            train["launches"]["ffa_fwd"], fwd_ws_row(fwd_ws["train_docs_8192_bf16_d128"], "b1"),
         ),
         kernel_entry(  # serve's launches and the head-sharded step's
             "paged_decode", "paged_decode.cu",
@@ -9676,10 +9944,10 @@ def main() -> int:
             train["launches"]["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
             fused["d_train_docs_8192_bf16"],
         ),
-        kernel_entry(
-            "ffa_fwd_gqa", "ffa_fwd_tc.cuh", "magiattention_tpu/kernels/ffa.py:490",
+        kernel_entry(  # the packed steps run the card's default: two heads of 64 x 128
+            "ffa_fwd_gqa", FWD_WS_SOURCE, "magiattention_tpu/kernels/ffa.py:490",
             train["packed_launches"]["ffa_fwd_gqa"] + extra.get("ffa_fwd_gqa", 0),
-            fwd_gqa["a_docs_bf16_d128_g4"],
+            fwd_ws_row(fwd_ws["train_docs_8192_bf16_d128"], "b2"),
         ),
         kernel_entry(
             "ffa_bwd_dq_gqa", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:944",

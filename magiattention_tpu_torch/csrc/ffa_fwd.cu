@@ -8,7 +8,10 @@
 // Two bodies, each shared with the GQA-packed variant (csrc/ffa_fwd_gqa.cu),
 // here at G = 1, both on the tensor cores (wgmma, one warpgroup per CTA).
 // bfloat16: csrc/ffa_fwd_tc.cuh (K/V double-buffered by cp.async; 80 KB of
-// shared memory at D = 128, two CTAs per SM). float32: csrc/ffa_fwd_tf32.cuh,
+// shared memory at D = 128, two CTAs per SM), and at 128 x 128 and D = 64
+// or 128, the card's default there, csrc/ffa_fwd_ws.cuh (a TMA producer
+// warpgroup, two consumer warpgroups; bit for bit the cp.async body).
+// float32: csrc/ffa_fwd_tf32.cuh,
 // 3xTF32 (each operand split into tf32 hi and lo, three products a pair, so
 // the serving replay tolerance holds; one TF32 product would not), each
 // chunk's split under the previous chunk's products; 225 KB at D = 128,
@@ -25,7 +28,7 @@
 // log2(e) after the tanh), so each CTA reduces its 64 rows' m, converts
 // with ln(2) and writes one float per (q tile, head); the wrapper takes the
 // max over q tiles. A nullptr skips it.
-#include "ffa_fwd_tc.cuh"
+#include "ffa_fwd_ws.cuh"
 #include "ffa_fwd_tf32.cuh"
 
 // Tiles: (bq, bk) in {64, 128}^2 wherever the CTA fits (csrc/common.cuh
@@ -62,7 +65,7 @@ extern "C" int ffa_fwd_bf16(const void* q, const void* k, const void* v,
                             float scale, float softcap, void* stream) {
 #define X(D, BQ, BK)                                                        \
   if (d == D && bq == BQ && bk == BK)                                       \
-    return fwd_tc::launch<D, 1, BQ, BK>(q, k, v, out, lse, max_logits,      \
+    return fwd_bf16::launch<D, 1, BQ, BK>(q, k, v, out, lse, max_logits,      \
                                         work_kt, meta, run_ptr, sq, sk, hq, \
                                         hk, num_q_tiles, scale, softcap,    \
                                         stream);
@@ -77,7 +80,7 @@ extern "C" int ffa_fwd_bf16(const void* q, const void* k, const void* v,
 extern "C" long ffa_fwd_smem_bytes(int d, int bq, int bk, int bf16) {
 #define X(D, BQ, BK)                                                  \
   if (d == D && bq == BQ && bk == BK)                                 \
-    return bf16 ? fwd_tc::smem_bytes<D, 1, BQ, BK>()                  \
+    return bf16 ? fwd_bf16::smem_bytes<D, 1, BQ, BK>()                  \
                 : fwd_tf32::smem_bytes<D, 1, BQ, BK>();
   MAGI_FFA_TILES(X)
 #undef X

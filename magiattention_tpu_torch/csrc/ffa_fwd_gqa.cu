@@ -14,7 +14,9 @@
 // bit-identical to csrc/ffa_fwd.cu on the same inputs; only the grid
 // differs.
 //
-// bfloat16 (csrc/ffa_fwd_tc.cuh, tensor cores): one consumer warpgroup per
+// bfloat16 (csrc/ffa_fwd_tc.cuh, tensor cores; at G = 2, 64 x 128 and D =
+// 64 or 128, the card's default there, csrc/ffa_fwd_ws.cuh, which adds a
+// TMA producer warpgroup and three K/V stages): one consumer warpgroup per
 // head; G q tiles and two stages of K and V, (G + 4) * 64 * D * 2 bytes of
 // shared memory, and a thread holds its head's O accumulator (D / 2
 // floats), S (32) and P (16): G is 2 at D = 128 (four warpgroups would
@@ -33,7 +35,7 @@
 // figures. A larger group runs in blocks of G heads (g = 8: several CTAs
 // per kv head). No max-logits output: the TPU's packed kernel emits none,
 // and the guard sends a max-logits request to the unpacked kernel.
-#include "ffa_fwd_tc.cuh"
+#include "ffa_fwd_ws.cuh"
 #include "ffa_fwd_tf32.cuh"
 
 // The packed instances: 64-row q tiles (a 128-row tile's two warpgroups
@@ -81,7 +83,7 @@ extern "C" int ffa_fwd_gqa_bf16(const void* q, const void* k, const void* v,
   if (g < 2 || (hq / hk) % g || bq != 64) return (int)cudaErrorInvalidValue;
 #define X(D, G, BK)                                                          \
   if (d == D && g == G && bk == BK)                                          \
-    return fwd_tc::launch<D, G, 64, BK>(q, k, v, out, lse, nullptr, work_kt, \
+    return fwd_bf16::launch<D, G, 64, BK>(q, k, v, out, lse, nullptr, work_kt, \
                                         meta, run_ptr, sq, sk, hq, hk,       \
                                         num_q_tiles, scale, softcap, stream);
   MAGI_FWD_GQA(X)
@@ -97,7 +99,7 @@ extern "C" long ffa_fwd_gqa_smem_bytes(int d, int g, int bq, int bk,
                                        int bf16) {
   if (bq != 64) return 0;
 #define X(D, G, BK) \
-  if (bf16 && d == D && g == G && bk == BK) return fwd_tc::smem_bytes<D, G, 64, BK>();
+  if (bf16 && d == D && g == G && bk == BK) return fwd_bf16::smem_bytes<D, G, 64, BK>();
   MAGI_FWD_GQA(X)
 #undef X
 #define X(D, G, BK) \

@@ -47,7 +47,9 @@
 // H100 SXM at 700 W, bitwise the same.
 //
 // Tiles (BQ, BK) of 64 or 128 rows each (kernels/ffa.py picks the pair
-// from the plan; csrc/common.cuh MAGI_FFA_TILES lists the instances). A
+// from the plan; csrc/common.cuh MAGI_FFA_TILES lists the instances; at
+// D = 64 and 128 the 128 x 128 instance and B2's two heads of 64 x 128
+// run csrc/ffa_fwd_ws.cuh instead, fwd_bf16::WS there). A
 // 128-row q tile is two consumer warpgroups, each owning a 64-row half of
 // it, that share every K/V stage (so each K/V tile is loaded once for 128
 // q rows); it packs no heads (G = 1). A 128-row k tile is one m64n128k16

@@ -259,15 +259,15 @@ __device__ __forceinline__ void wgmma_ss_n128_t00(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// S[64 x N] += A B^T, both K-major from shared memory: N = 64 or 128 (the
-// key rows of the tile).
+// S[64 x N] += A B^T (scale_d 0: S = A B^T), both K-major from shared
+// memory: N = 64 or 128 (the key rows of the tile).
 template <int N>
 __device__ __forceinline__ void wgmma_ss_t00(float (&d)[N / 2], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
   if constexpr (N == 128)
-    wgmma_ss_n128_t00(d, da, db, 1);
+    wgmma_ss_n128_t00(d, da, db, scale_d);
   else
-    wgmma_ss_n64_t00(d, da, db, 1);
+    wgmma_ss_n64_t00(d, da, db, scale_d);
 }
 
 // D[64 x 64] += A[64 x 16] B[16 x 64], A and B from shared memory

@@ -1,7 +1,7 @@
 // Hopper's asynchronous units for the port's warp-specialised bodies
-// (csrc/bwd_kv_ws.cuh): mbarriers, TMA tensor loads and bulk reduces, the
-// register hand-over between warpgroups and named barriers; and, on the
-// host, the tensor maps those loads and reduces read.
+// (csrc/bwd_kv_ws.cuh, csrc/ffa_fwd_ws.cuh): mbarriers, TMA tensor loads,
+// stores and bulk reduces, the register hand-over between warpgroups and
+// named barriers; and, on the host, the tensor maps those copies read.
 //
 // A CTA's producer warp issues TMA loads (cp.async.bulk.tensor) that
 // complete on an mbarrier with the bytes they carry (expect-tx, then
@@ -100,6 +100,17 @@ __device__ __forceinline__ void reduce_add_3d(const CUtensorMap* map, uint32_t s
       : "memory");
 }
 
+// the shared-memory box at src into global box (c0, c1, c2) of a tensor
+// map, rows past the end clipped
+__device__ __forceinline__ void store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -133,6 +144,11 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // named barrier `id` (1-15; 0 is __syncthreads) over `n` threads
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// this warp's arrival on named barrier `id` of `n` threads, not waiting
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- host: tensor maps ----

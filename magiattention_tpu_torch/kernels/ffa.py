@@ -25,7 +25,10 @@ for the forward and dq, k-major for dk/dv. Seven CUDA kernels walk them:
 
 Every bf16 entry of the FFA kernels above (all but delta) runs on the
 tensor cores (wgmma, one warpgroup per head): ``csrc/ffa_fwd_tc.cuh``
-(forward), ``csrc/ffa_bwd_dq_tc.cuh`` (split dq) and ``csrc/bwd_kv_tc.cuh``
+(forward; at 128 x 128, and two heads of 64 x 128, and head dims 64 and
+128, the card's default forward there (:func:`card_fwd_params`),
+``csrc/ffa_fwd_ws.cuh``: a TMA producer warpgroup and two consumers),
+``csrc/ffa_bwd_dq_tc.cuh`` (split dq) and ``csrc/bwd_kv_tc.cuh``
 (split dk/dv and the fused backward; at 64 x 128 and head dims 64 and 128,
 the card's default k-major tile there (:func:`card_bwd_params`),
 ``csrc/bwd_kv_ws.cuh``: a TMA producer warpgroup and two consumers). The float32 forward runs on them too,
@@ -229,6 +232,44 @@ def card_bwd_params(params: FFAParams, d: int, dv: int, itemsize: int) -> FFAPar
         return params
     bq, bk = mem_budget.WS_DKV_TILES
     return dataclasses.replace(params, block_q_dkv=bq, block_k_dkv=bk)
+
+
+def card_fwd_params(
+    plan: FFAPlan, params: FFAParams, d: int, dv: int, itemsize: int, heads: int, sq: int, sk: int,
+) -> tuple[FFAPlan, FFAParams]:
+    """The (plan, params) a forward on the card runs: bf16 at head dims 64
+    and 128, a forward planned at the default 64 x 64 tiles runs the
+    warp-specialised body (csrc/ffa_fwd_ws.cuh) at its tiles, which the
+    card times faster (PERF.md §6): the unpacked forward (``heads`` 1, the
+    heads a CTA at the plan's tiles) at
+    :data:`..utils.mem_budget.WS_FWD_TILES`, the packed one at a 64-row q
+    tile and that k tile, where it packs two heads. Both then walk every
+    row's live items in the same order over the same k tiles, so the
+    packed forward stays bit for bit the unpacked one. The plan is the same slices
+    re-tiled (``plan.retiled``, built once); the pair is kept on the plan,
+    so a call adds no host work. It ranks below every explicit choice:
+    tiles pinned by env (MAGI_ATTENTION_FFA_BLOCK_{Q,K}), the auto-tile
+    policy, tiles other than 64 x 64 in ``params``. Only the forward sees
+    it: the caller keeps ``params`` for the backward (whose per-pass tiles
+    :func:`card_bwd_params` takes from them), and only the card's path
+    calls it (``ffa_fwd_dispatch`` on CUDA tensors), so CPU plans and
+    params stay field-equal to the JAX package's."""
+    if (
+        itemsize != 2 or d != dv or d not in mem_budget.WS_FWD_WIDTHS
+        or (params.block_q, params.block_k) != mem_budget.DEFAULT_TILES
+        or env_kernel.ffa_blocks_pinned() or tile_policy.auto_tile_enabled()
+    ):
+        return plan, params
+    bq, bk = mem_budget.WS_FWD_TILES
+    bq = bq if heads == 1 else bq // 2
+    key = ("card_fwd", bq, bk, sq, sk, params)
+    got = plan._memo.get(key)
+    if got is None:
+        p = plan.retiled(bq, bk, sq, sk)
+        got = (p, dataclasses.replace(params, num_q_tiles=p.num_q_tiles,
+                                      num_k_tiles=p.num_k_tiles, block_q=bq, block_k=bk))
+        plan._memo[key] = got
+    return got
 
 
 def plan_params(
@@ -994,15 +1035,21 @@ def _use_gqa_pack_dq(group: int, d: int, dv: int, itemsize: int = 4, bq: int = 6
     return dq_pack_heads(group, d, dv, itemsize, bq, bk)
 
 
-def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logits: bool = False):
+def ffa_fwd_dispatch(
+    q, k, v, plan: FFAPlan, params: FFAParams, return_max_logits: bool = False,
+    card_tiles: bool = True,
+):
     """The forward with the GQA-packing dispatch applied (the JAX package's
     ``ffa_fwd_pallas_dispatch``): the one entry of every forward caller
     (``_FFACore``, the sink core, ``_MultiFFA``). Returns (out, lse), plus
     max_logits ``[hq]`` when asked for (always by the unpacked kernel). On
     CUDA, head dims other than d == dv in (64, 128, 256) run padded to the
     kernels' width (:func:`.head_dims.pad_to_kernel_width`), which the
-    packing guard sees; out comes back at v's width. Arms the
-    ``kernel_lowering`` injection site first."""
+    packing guard sees; out comes back at v's width; and, with
+    ``card_tiles`` (off for the mixed dispatch's branches, whose tiles the
+    tile policy chose), the card's forward tiles apply
+    (:func:`card_fwd_params`). Arms the ``kernel_lowering`` injection site
+    first."""
     maybe_inject("kernel_lowering")
     dv = v.shape[-1]
     if q.is_cuda:
@@ -1011,6 +1058,14 @@ def ffa_fwd_dispatch(q, k, v, plan: FFAPlan, params: FFAParams, return_max_logit
     heads = _use_gqa_pack(
         group, q.shape[-1], v.shape[-1], return_max_logits, itemsize, plan.block_q, plan.block_k,
     )
+    if q.is_cuda and card_tiles:
+        plan, params = card_fwd_params(
+            plan, params, q.shape[-1], v.shape[-1], itemsize, heads, q.shape[0], k.shape[0],
+        )
+        heads = _use_gqa_pack(
+            group, q.shape[-1], v.shape[-1], return_max_logits, itemsize, plan.block_q,
+            plan.block_k,
+        )
     if heads > 1:
         res = ffa_fwd_gqa(q, k, v, plan, params)
     else:
@@ -1284,7 +1339,7 @@ def _merge_out_lse(o1, l1, o2, l2):
 def _mixed_branch_fwd(q, k, v, plan: FFAPlan, params: FFAParams):
     """One forward pass of the mixed dispatch: (out, lse) of its plan (the
     dispatcher, so the packed kernel where the flag and its guard admit)."""
-    return ffa_fwd_dispatch(q, k.to(q.dtype), v.to(q.dtype), plan, params)
+    return ffa_fwd_dispatch(q, k.to(q.dtype), v.to(q.dtype), plan, params, card_tiles=False)
 
 
 class _FFAMixed(torch.autograd.Function):

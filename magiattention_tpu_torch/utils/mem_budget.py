@@ -12,7 +12,8 @@ and prints the limit the device reports.
 
 Kernels: ``fwd`` (B1, ``csrc/ffa_fwd.cu``), ``fwd_gqa`` (B2), ``dq`` (B3),
 ``dq_gqa`` (B4), ``dkv`` (B5/B6) and ``fused`` (B8/B9; both at 64 x 128
-and d 64/128 in the warp-specialised body, :func:`ws_dkv`). ``itemsize`` 2 is
+and d 64/128 in the warp-specialised body, :func:`ws_dkv`; the forward's
+warp-specialised instances: :func:`ws_fwd`). ``itemsize`` 2 is
 bf16 (the tensor-core bodies), 4 float32 (the 3xTF32 forward; the
 CUDA-core backward bodies, compiled at 64 x 64 only).
 """
@@ -34,6 +35,13 @@ DEFAULT_TILES = (64, 64)
 # (csrc/bwd_kv_ws.cuh): 64 x 128 at these head dims
 WS_DKV_TILES = (64, 128)
 WS_DKV_WIDTHS = (64, 128)
+# the bf16 forward instances of the warp-specialised body
+# (csrc/ffa_fwd_ws.cuh), the card's forward tiles at these head dims
+# (kernels/ffa.py:card_fwd_params): two consumer warpgroups a CTA, B1 at
+# this pair, B2 at two heads of a q tile of half its rows and the same k
+# tile
+WS_FWD_WIDTHS = (64, 128)
+WS_FWD_TILES = (128, 128)
 KERNELS = ("fwd", "fwd_gqa", "dq", "dq_gqa", "dkv", "fused")
 # the packed kernels' (head dim, heads a CTA, k tile) instances
 # (csrc/ffa_fwd_gqa.cu MAGI_FWD_GQA / _F32, csrc/ffa_bwd_dq_gqa.cu), all at
@@ -68,8 +76,22 @@ def warpgroups(kernel: str, bq: int = 64, bk: int = 64, heads: int = 1, d: int =
     return heads * (bq // 64)
 
 
+def ws_fwd(d: int, bq: int, bk: int, heads: int = 1) -> bool:
+    """True where a bf16 forward instance (B1, or B2 with ``heads``) runs
+    the warp-specialised body (csrc/ffa_fwd_ws.cuh: a TMA producer
+    warpgroup and two consumer warpgroups): at d 64 and 128, B1 at
+    :data:`WS_FWD_TILES`, B2 at two heads of half its q rows."""
+    wq, wk = WS_FWD_TILES
+    return d in WS_FWD_WIDTHS and bk == wk and (
+        (heads == 1 and bq == wq) or (heads == 2 and bq == wq // 2))
+
+
 def fwd_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads: int = 1) -> int:
-    """One forward CTA (B1, or B2 with ``heads``). bfloat16
+    """One forward CTA (B1, or B2 with ``heads``). The warp-specialised
+    instances (:func:`ws_fwd`, csrc/ffa_fwd_ws.cuh ``Smem``): the two
+    consumers' 64-row Q tiles, three stages of the k tile's K and V, 32
+    bytes for the max-logits reduction, 64 of mbarriers and 1024 to align
+    the window. Other bfloat16
     (csrc/ffa_fwd_tc.cuh ``Smem``): a 64-row q tile per warpgroup and two
     stages of the k tile's K and V (full width at every d; one stage for a
     one-warpgroup CTA at d = 256 and 64-row k tiles, so two share an SM), 16 bytes a warpgroup
@@ -79,6 +101,8 @@ def fwd_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads:
     256) and two stages of its split tiles where they fit, else one; it
     does not depend on the k tile (an item is walked in 32-key chunks)."""
     wg, w = warpgroups("fwd", bq, bk, heads), cta_width(d)
+    if itemsize == 2 and ws_fwd(d, bq, bk, heads):
+        return 2 * 64 * d * 2 + 3 * bk * d * 4 + 32 + 64 + 1024
     if itemsize == 2:
         stages = 1 if d > SPLIT_WIDTH and wg == 1 and bk == 64 else 2
         return wg * 64 * d * 2 + stages * bk * 2 * d * 2 + 16 * wg + 1024

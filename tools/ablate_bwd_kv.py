@@ -151,8 +151,9 @@ def variant_sources(csrc: Path, name: str, edits, header: str, tiles) -> Path:
     return out
 
 
-def build(jobs: dict) -> dict:
-    """(variant, kernel) -> bound library, one nvcc a library at once."""
+def build(jobs: dict, libraries: dict = LIBRARIES) -> dict:
+    """(variant, kernel) -> bound library (``libraries[kernel]``, a
+    ``csrc/<name>.cu``), one nvcc a library at once."""
     import ctypes
 
     from magiattention_tpu_torch.kernels import _build
@@ -160,7 +161,7 @@ def build(jobs: dict) -> dict:
 
     procs = {}
     for (variant, kernel), src in jobs.items():
-        lib = LIBRARIES[kernel]
+        lib = libraries[kernel]
         so = src / f"{lib}.so"
         log = open(so.with_suffix(".log"), "w")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src / f"{lib}.cu")]
@@ -173,7 +174,7 @@ def build(jobs: dict) -> dict:
         lib = ctypes.CDLL(str(so))
         lib.magi_error_string.argtypes = [ctypes.c_int]
         lib.magi_error_string.restype = ctypes.c_char_p
-        libs[key] = bind_library(lib, LIBRARIES[key[1]])
+        libs[key] = bind_library(lib, libraries[key[1]])
     return libs
 
 
