@@ -116,8 +116,8 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
    attention shape, against ``flex_flash_attn_func``, with max-logits.
    ``deterministic``: two forward + backward runs at that shape through
    ``calc_attn`` under MAGI_ATTENTION_DETERMINISTIC_MODE=1 and two through
-   ``flex_flash_attn_func(deterministic=True)``, equal to the bit; the
-   drift of two unpinned (fused) runs reported.
+   ``flex_flash_attn_func(deterministic=True)``, equal to the bit, the dq
+   pass at the card's tiles; the drift of two unpinned runs reported.
 9. ``cp_stages``: the multi-stage compute (``multi_ffa`` over the host and
    remote kv parts, lse merge, per-part backward) of every rank of a
    cp = 4, overlap-degree-2 plan, against the plain dense reference.
@@ -143,9 +143,10 @@ Phases, each printing JSON lines (any failure raises, exit code != 0):
 10. ``train``: ``models.llama.train_step`` through the API at
     Llama-3.1-8B widths, depth cut to 2 layers, bf16 over float32 master
     weights, 8192 packed tokens in two causal documents: 3 SGD steps
-    unpinned (the model resolves fused), one under the split pin, one
-    under the GQA pack flags with the split pin and one under the pack
-    flags unpinned; one step's loss and gradients with ``remat=True``
+    unpinned (the mode the cost model resolves over the card's pass tiles:
+    split since the dq pass's redesign), one under the split pin, one
+    under the fused pin, one under the GQA pack flags with the split pin
+    and one under the pack flags unpinned; one step's loss and gradients with ``remat=True``
     against the same without (B1 twice a layer, each run's peak memory);
     launch counts per step, one step under ``torch.profiler`` (device ms
     by kernel family), and a kernel-vs-plain check of loss and gradients
@@ -577,6 +578,32 @@ def kmajor_args(args: tuple) -> tuple:
     return (*args[:6], bwd_plans(plan, p, q.shape[0], k.shape[0])[1], p)
 
 
+def dq_args(args: tuple, heads: int = 1) -> tuple:
+    """Backward kernel ``args`` (q, k, v, dO, lse, delta, plan, params) with
+    the plan and params the dq pass runs on the card: bf16 at d 64 and 128
+    at the warp-specialised body's tiles (``kernels/ffa.py:card_bwd_params``:
+    B3 at 128 x 128; ``heads`` 2, the packed dq B4, at 64 x 128 where the
+    group packs); else ``args`` as given."""
+    from magiattention_tpu_torch.kernels.ffa import bwd_plans, card_bwd_params
+
+    q, k, v, plan, params = args[0], args[1], args[2], args[6], args[7]
+    pack = {"MAGI_ATTENTION_FFA_GQA_PACK_DQ": "1" if heads > 1 else "0"}
+    p = _with_env(pack, lambda: card_bwd_params(
+        params, q.shape[-1], v.shape[-1], q.element_size(), q.shape[1] // k.shape[1]))
+    return (*args[:6], bwd_plans(plan, p, q.shape[0], k.shape[0])[0], p)
+
+
+def card_bwd_mode(plan, params, d: int, hq: int, hk: int, itemsize: int = 2) -> str:
+    """The backward mode ``ffa_bwd`` resolves for a plan on the card: the
+    cost model over the pass tiles the card runs them at
+    (``kernels/ffa.py:card_bwd_params`` with the query group), as
+    ``ffa_bwd`` calls it on CUDA tensors."""
+    from magiattention_tpu_torch.kernels.ffa import card_bwd_params, ffa_bwd_mode
+
+    p = card_bwd_params(params, d, d, itemsize, hq // hk)
+    return ffa_bwd_mode(plan, p, d, d, itemsize, hq, hk)
+
+
 def ffa_phase(peaks: dict) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -769,7 +796,9 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
     """The backward kernels against their plain versions, on the same
     inputs (the forward kernel's out and lse, the plain delta). Bounds:
     delta is bytes; dq does 3 tile products (S, dP, dS K), 6 flops per live
-    pair per head and d; dk/dv 4 (S, dP, P^T dO, dS^T Q), 8 flops. The
+    pair per head and d; dk/dv 4 (S, dP, P^T dO, dS^T Q), 8 flops. Each
+    pass runs at the tiles the card runs it at (:func:`dq_args`,
+    :func:`kmajor_args`). The
     whole backward's bound is bench.py's count, 2.5/3.5 of its fwd + bwd
     4 * pairs * d * hq * 3.5, i.e. 10 flops per live pair per head and d."""
     import torch
@@ -799,11 +828,12 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
         delta = ffa_delta_plain(out, do)
         args = (q, k, v, do, lse, delta, plan, params)
         args_kv = kmajor_args(args)  # the k-major pass's tiles on the card
+        args_dq = dq_args(args)  # and the dq pass's
         err = {
             "ffa_bwd_delta": grad_check(
                 f"{name} delta", ffa_delta_kernel(out, do), delta, dname),
             "ffa_bwd_dq": grad_check(
-                f"{name} dq", ffa_bwd_dq_kernel(*args), ffa_bwd_dq_plain(*args), dname),
+                f"{name} dq", ffa_bwd_dq_kernel(*args_dq), ffa_bwd_dq_plain(*args), dname),
         }
         (dk, dv), (dk_p, dv_p) = ffa_bwd_dkv_kernel(*args_kv), ffa_bwd_dkv_plain(*args)
         ek = grad_check(f"{name} dk", dk, dk_p, dname)
@@ -817,7 +847,7 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
         del dk_f, dv_f
         if "uncovered" in c:
             r0, r1 = c["uncovered"]
-            if ffa_bwd_dq_kernel(*args)[r0:r1].any():
+            if ffa_bwd_dq_kernel(*args_dq)[r0:r1].any():
                 raise AssertionError(f"{name}: dq of uncovered rows is not 0")
         if "unreached_k" in c:
             r0, r1 = c["unreached_k"]
@@ -836,7 +866,7 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
                 2.0 * n_q, 2 * n_q * isz + rows * 4,
             ),
             "ffa_bwd_dq": (
-                lambda: ffa_bwd_dq_kernel(*args), lambda: ffa_bwd_dq_plain(*args),
+                lambda: ffa_bwd_dq_kernel(*args_dq), lambda: ffa_bwd_dq_plain(*args),
                 6.0 * hq * d * live, in_bytes + n_q * 4,
             ),
             "ffa_bwd_dkv": (
@@ -848,6 +878,7 @@ def ffa_bwd_phase(peaks: dict) -> dict[str, dict]:
             case=name, dtype=dname, q=list(q.shape), kv=list(k.shape),
             live_pairs=live, work_items=plan.num_work,
             work_items_t=args_kv[6].num_work_t, kmajor_tiles=[args_kv[6].block_q, args_kv[6].block_k],
+            dq_tiles=[args_dq[6].block_q, args_dq[6].block_k],
             atol=ATOL[dname], rnorm=RNORM[dname],
             dkv_bitwise_equal_to_fused=dkv_equal_fused,
         )
@@ -1140,11 +1171,14 @@ def ffa_fwd_gqa_phase(peaks: dict) -> dict[str, dict]:
 
 
 def ffa_bwd_gqa_phase(peaks: dict) -> dict[str, dict]:
-    """The packed dq kernel (B4) against its plain version
+    """The packed dq kernel (B4) at the card's packed dq tiles
+    (:func:`dq_args`: bf16 two heads of 64 x 128, the warp-specialised
+    body; float32 64 x 64) against its plain version
     (``ffa_bwd_dq_plain``) and against the unpacked dq kernel (B3) on the
     same inputs (B1's out and lse, the plain delta): dq must be
-    bit-identical to B3's, and 0 on uncovered rows. Bound: B3's, 6 flops
-    per live pair per head and d."""
+    bit-identical to B3's on the same plan (bf16: the cp.async body at 64
+    x 128) and at B3's card tiles, and 0 on uncovered rows. Bound: B3's, 6
+    flops per live pair per head and d."""
     import torch
 
     from magiattention_tpu_torch.kernels import ffa as kffa
@@ -1160,32 +1194,35 @@ def ffa_bwd_gqa_phase(peaks: dict) -> dict[str, dict]:
         name, d, hq, hk = c["name"], c["d"], c["hq"], c["hk"]
         dname = str(c["dtype"]).removeprefix("torch.")
         isz = c["dtype"].itemsize
-        heads = dq_pack_heads(hq // hk, d, d, isz)
-        decision = dict(case=name, group=hq // hk, head_dim=d, heads_per_cta=heads)
-        if heads < 2:
-            emit({"phase": "ffa_bwd_dq_gqa", **decision, "route": "unpacked (guard)"})
-            continue
-        lib_smem = kffa._lib("ffa_bwd_dq_gqa").ffa_bwd_dq_gqa_smem_bytes(d, heads, 64, 64, int(isz == 2))
-        if lib_smem != dq_pack_smem_bytes(d, heads, isz):
-            raise AssertionError(
-                f"{name}: kernel smem {lib_smem} != guard's {dq_pack_smem_bytes(d, heads, isz)}"
-            )
         (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
         out, lse = ffa_fwd_kernel(q, k, v, plan, params)
         delta = ffa_delta_plain(out, do)
         args = (q, k, v, do, lse, delta, plan, params)
-        dq_k = ffa_bwd_dq_gqa_kernel(*args)
-        dq_u = ffa_bwd_dq_kernel(*args)
+        packed, unpacked = dq_args(args, heads=2), dq_args(args)
+        bq, bk = packed[6].block_q, packed[6].block_k
+        heads = dq_pack_heads(hq // hk, d, d, isz, bq, bk)
+        decision = dict(case=name, group=hq // hk, head_dim=d, heads_per_cta=heads, tiles=[bq, bk])
+        if heads < 2:
+            emit({"phase": "ffa_bwd_dq_gqa", **decision, "route": "unpacked (guard)"})
+            continue
+        lib_smem = kffa._lib("ffa_bwd_dq_gqa").ffa_bwd_dq_gqa_smem_bytes(d, heads, bq, bk, int(isz == 2))
+        if lib_smem != dq_pack_smem_bytes(d, heads, isz, bq, bk):
+            raise AssertionError(
+                f"{name}: kernel smem {lib_smem} != guard's {dq_pack_smem_bytes(d, heads, isz, bq, bk)}"
+            )
+        dq_k = ffa_bwd_dq_gqa_kernel(*packed)
+        dq_u = ffa_bwd_dq_kernel(*packed)
+        dq_card = ffa_bwd_dq_kernel(*unpacked)
         torch.cuda.synchronize()
         err = grad_check(f"{name} dq", dq_k, ffa_bwd_dq_plain(*args), dname)
-        bitwise = bool(torch.equal(dq_k, dq_u))
+        bitwise = bool(torch.equal(dq_k, dq_u) and torch.equal(dq_k, dq_card))
         if not bitwise:
             raise AssertionError(f"{name}: packed dq is not bit-identical to the unpacked one")
         if "uncovered" in c:
             r0, r1 = c["uncovered"]
             if dq_k[r0:r1].any():
                 raise AssertionError(f"{name}: packed dq of uncovered rows is not 0")
-        del dq_u
+        del dq_u, dq_card
         live, mask = live_pairs(c)
         del mask
         n_q, n_kv, rows = q.numel(), k.numel(), c["sq"] * hq
@@ -1194,8 +1231,9 @@ def ffa_bwd_gqa_phase(peaks: dict) -> dict[str, dict]:
         res = dict(
             **decision, dtype=dname, q=list(q.shape), kv=list(k.shape), live_pairs=live,
             work_items=plan.num_work, **err, bit_identical_to_unpacked=bitwise,
-            smem_bytes=lib_smem, ms=time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args)),
-            unpacked_ms=time_ms(lambda: ffa_bwd_dq_kernel(*args)),
+            smem_bytes=lib_smem, ms=time_ms(lambda: ffa_bwd_dq_gqa_kernel(*packed)),
+            unpacked_ms=time_ms(lambda: ffa_bwd_dq_kernel(*unpacked)),
+            unpacked_tiles=[unpacked[6].block_q, unpacked[6].block_k],
             plain_ms=time_ms(lambda: ffa_bwd_dq_plain(*args), warmup=1, samples=5),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             atol=ATOL[dname], rnorm=RNORM[dname],
@@ -1293,13 +1331,15 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
     shapes and the sink-window mask (fused checked against split there),
     the cost model's choice beside the fused and split (dq + dk/dv) times,
     taken here in interleaved rounds (:func:`paired_ms`; split is each
-    round's dq + dk/dv, the medians over rounds compared). The ``ffa_bwd``
-    and ``ffa_bwd_fused`` phases' times of the same kernels are printed
-    beside them. Fails where the model picks the slower mode by more than
-    5% (after printing the constants). Also the constants the model would
-    take from this run (``tile_policy.calibrate_tc`` over the four bf16
-    masks for each tensor-core kernel: dq, dk/dv, fused, and the packed dq
-    over the train shape and the sink window) beside the ones in the code;
+    round's dq + dk/dv, the medians over rounds compared), each pass at
+    the tiles the card runs it at (:func:`dq_args`, :func:`kmajor_args`).
+    The ``ffa_bwd`` and ``ffa_bwd_fused`` phases' times of the same kernels
+    are printed beside them. Fails where the model picks the slower mode by
+    more than 5% (after printing the constants). Also the constants the
+    model would take from this run (``tile_policy.calibrate_tc`` over the
+    four bf16 masks for each tensor-core kernel: dq, dk/dv, fused, and the
+    packed dq, at its packed tiles, over the train shape and the sink
+    window) beside the ones in the code;
     the CUDA-core kernels run only the float32 serving prefill here (their
     constants came from a run where bf16 took them too, at the train
     shape)."""
@@ -1325,23 +1365,24 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
             ("train_docs_8192_bf16", "d_train_docs_8192_bf16"),
         )
     }
-    measured, shapes = {}, {}
+    measured, shapes, gqa_shapes = {}, {}, {}
     for key in (*phase_ms, "sink_window_8192_bf16"):
         c = all_cases[key]
         isz = 4 if c["dtype"] == torch.float32 else 2
         (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
         out, lse = ffa_fwd_kernel(q, k, v, plan, params)
         args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
-        args_kv = kmajor_args(args)  # the k-major pass's tiles on the card
+        # each pass at its tiles on the card (one params for both passes)
+        args_kv, args_dq = kmajor_args(args), dq_args(args)
         if key == "sink_window_8192_bf16":
             dq_f, dk_f, dv_f = ffa_bwd_fused_kernel(*args_kv)
-            split = (ffa_bwd_dq_kernel(*args), *ffa_bwd_dkv_kernel(*args_kv))
+            split = (ffa_bwd_dq_kernel(*args_dq), *ffa_bwd_dkv_kernel(*args_kv))
             for gname, a, b in zip(("dq", "dk", "dv"), (dq_f, dk_f, dv_f), split):
                 grad_check(f"sink_window fused vs split {gname}", a, b, "bfloat16")
             del dq_f, dk_f, dv_f, split
         t = paired_ms(dict(
             fused=lambda: ffa_bwd_fused_kernel(*args_kv),
-            dq=lambda: ffa_bwd_dq_kernel(*args),
+            dq=lambda: ffa_bwd_dq_kernel(*args_dq),
             dkv=lambda: ffa_bwd_dkv_kernel(*args_kv),
         ))
         measured[key] = dict(
@@ -1349,11 +1390,14 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
             dkv=statistics.median(t["dkv"]),
             split=statistics.median([a + b for a, b in zip(t["dq"], t["dkv"])]),
         )
-        if key == "sink_window_8192_bf16":
-            measured[key]["dq_gqa"] = time_ms(lambda: ffa_bwd_dq_gqa_kernel(*args))
+        if key in ("train_docs_8192_bf16", "sink_window_8192_bf16"):  # the packed dq's masks
+            packed = dq_args(args, heads=2)
+            gqa_shapes[key] = bwd_shape(packed[6], c["hq"], c["hk"], 128, 128, isz, args_kv[6])
+            if key == "sink_window_8192_bf16":
+                measured[key]["dq_gqa"] = time_ms(lambda: ffa_bwd_dq_gqa_kernel(*packed))
         shapes[key] = (
             ffa_bwd_mode(plan, args_kv[7], 128, 128, isz, c["hq"], c["hk"]),
-            bwd_shape(plan, c["hq"], c["hk"], 128, 128, isz, args_kv[6]), isz,
+            bwd_shape(args_dq[6], c["hq"], c["hk"], 128, 128, isz, args_kv[6]), isz,
         )
         del q, k, v, do, out, lse, args, args_kv
         torch.cuda.empty_cache()
@@ -1380,13 +1424,15 @@ def bwd_mode_phase(bwd: dict, fused: dict, dq_gqa: dict) -> list[dict]:
         emit({"phase": "bwd_mode", **row})
         rows.append(row)
     # the packed dq (its guard's heads per CTA) at the two bf16 masks that
-    # time it: the train shape (its own phase) and the sink window
+    # time it, each at its packed tiles: the train shape (its own phase)
+    # and the sink window
     measured["train_docs_8192_bf16"]["dq_gqa"] = dq_gqa["a_docs_bf16_d128_g4"]["ms"]
     tc = {}
     for kern in ("dq", "dkv", "fused", "dq_gqa"):
-        keys = [key for key in tc_shapes if kern in measured[key]]
+        of = gqa_shapes if kern == "dq_gqa" else tc_shapes
+        keys = [key for key in of if kern in measured[key]]
         tc[kern] = tile_policy.calibrate_tc(
-            kern, [tc_shapes[key] for key in keys], [measured[key][kern] for key in keys],
+            kern, [of[key] for key in keys], [measured[key][kern] for key in keys],
             dq_heads_per_cta=dq_gqa["a_docs_bf16_d128_g4"]["heads_per_cta"],
         )
     f32 = tile_policy.calibrate(shapes["serving_prefill_f32"][1], measured["serving_prefill_f32"])
@@ -1911,6 +1957,10 @@ TILE_PINS = (
      "MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
     {"MAGI_ATTENTION_FFA_BLOCK_K": "128", "MAGI_ATTENTION_FFA_GQA_PACK": "1",
      "MAGI_ATTENTION_FFA_GQA_PACK_DQ": "1", "MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
+    # the packed dq at 64 x 64: on the card an unpinned packed dq runs two
+    # heads of 64 x 128 (kernels/ffa.py:card_bwd_params)
+    {"MAGI_ATTENTION_FFA_BLOCK_Q": "64", "MAGI_ATTENTION_FFA_BLOCK_K": "64",
+     "MAGI_ATTENTION_FFA_GQA_PACK_DQ": "1", "MAGI_ATTENTION_BACKEND_FFA_BWD": "split"},
     {"MAGI_ATTENTION_FFA_AUTO_TILE": "1"},
 )
 
@@ -1920,9 +1970,8 @@ def tiles_path_phase() -> dict:
     headline shape under every pin of :data:`TILE_PINS`, against the
     default 64 x 64 plan: the tiles path. The launch counts are reset just
     before and read just after; every compiled bf16 d-128 instance of the
-    forward, dq, dk/dv and fused kernels (and the packed 64 x 128 ones, and
-    the packed forward's 64 x 64) must have run at least once, and no plain
-    version."""
+    forward, dq, dk/dv and fused kernels and of the packed forward and dq
+    (two heads a CTA) must have run at least once, and no plain version."""
     import torch
 
     from magiattention_tpu_torch.env.general import scoped_env
@@ -1964,9 +2013,10 @@ def tiles_path_phase() -> dict:
     ] + [
         f"ffa_fwd float32 {p[0]}x{p[1]}" for p in mb.compiled_tiles("fwd", 4, 128)
         if tiles["ffa_fwd"].get(f"float32 {p[0]}x{p[1]}", 0) == 0
-    ] + [f"{lib} 64x128" for lib in PACKED_LIBS if tiles[lib].get("bfloat16 64x128", 0) == 0] + [
-        f"ffa_fwd_gqa {p[0]}x{p[1]}" for p in mb.compiled_tiles("fwd_gqa", 2, 128, heads=2)
-        if tiles["ffa_fwd_gqa"].get(f"bfloat16 {p[0]}x{p[1]}", 0) == 0
+    ] + [
+        f"{lib} {p[0]}x{p[1]}" for lib, kernel in PACKED_LIBS.items()
+        for p in mb.compiled_tiles(kernel, 2, 128, heads=2)
+        if tiles[lib].get(f"bfloat16 {p[0]}x{p[1]}", 0) == 0
     ]
     plains = {n: counts[n] for n in ("sdpa_attn", "ffa_bwd_dq_plain", "ffa_bwd_dkv_plain",
                                      "ffa_bwd_fused_plain", "ffa_delta_plain") if counts[n]}
@@ -2660,15 +2710,18 @@ def edge_phase() -> None:
     """Kernel paths the main shapes do not reach, checked (not timed):
     head_dim 64, a ragged last q and k tile, softcap, g = 1 and g = 8, a k
     tile no slice reaches and uncovered rows (forward and gradients, the
-    GQA-packed kernels bit-identical to the unpacked ones there), a page
-    size below and above the 64-token chunk."""
+    GQA-packed kernels bit-identical to the unpacked ones there, bf16's
+    split dq at the card's tiles), a page size below and above the
+    64-token chunk."""
     import torch
 
     from magiattention_tpu_torch.env.general import scoped_env
+    from magiattention_tpu_torch.kernels import tile_launch_counts
     from magiattention_tpu_torch.kernels.ffa import ffa_attn
     from magiattention_tpu_torch.kernels.paged_decode import (
         paged_decode_kernel, paged_decode_plain,
     )
+    from magiattention_tpu_torch.utils import mem_budget as mb
     from magiattention_tpu_torch.kernels.paged_kv import PagedKVCache, assign_pages
     from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
 
@@ -2734,12 +2787,25 @@ def edge_phase() -> None:
             dq, dk, dv = got
             if dq[200:].any() or dk[203:].any() or dv[203:].any():
                 raise AssertionError(f"{name}: gradients of untouched rows are not 0")
-        # the GQA-packed forward and dq (split pin): bit-identical gradients
-        with scoped_env({**PACK, **SPLIT}):
-            packed = grads_of(ffa_attn)
-        with scoped_env(SPLIT):
-            unpacked = grads_of(ffa_attn)
-        if not all(torch.equal(a, b) for a, b in zip(packed, unpacked)):
+        # the GQA-packed forward and dq (split pin): bit-identical gradients,
+        # bf16's dq at the card's tiles (B3 at WS_DQ_TILES, B4 at two heads
+        # of half its q rows)
+        dq_runs = {}
+        for what, env in (("packed", {**PACK, **SPLIT}), ("unpacked", SPLIT)):
+            before = tile_launch_counts()
+            with scoped_env(env):
+                dq_runs[what] = grads_of(ffa_attn)
+            after = tile_launch_counts()
+            ran = {f"{lib} {t}": n - before[lib].get(t, 0) for lib in ("ffa_bwd_dq", "ffa_bwd_dq_gqa")
+                   for t, n in after[lib].items() if n > before[lib].get(t, 0)}
+            if dt == torch.bfloat16:
+                wq, wk = mb.WS_DQ_TILES
+                packs = what == "packed" and hq // hk > 1
+                want_ran = (f"ffa_bwd_dq_gqa bfloat16 {wq // 2}x{wk}" if packs
+                            else f"ffa_bwd_dq bfloat16 {wq}x{wk}")
+                if list(ran) != [want_ran]:
+                    raise AssertionError(f"grad_{what}_d{d}_g{hq // hk}: dq ran {ran}, want {want_ran}")
+        if not all(torch.equal(a, b) for a, b in zip(dq_runs["packed"], dq_runs["unpacked"])):
             raise AssertionError(f"grad_packed_d{d}_g{hq // hk}: not bit-identical to unpacked")
     for d, hq, hk, ps, dt in (
         (64, 8, 1, 8, torch.float32),
@@ -3500,7 +3566,6 @@ def cp_api_phase() -> dict:
     from magiattention_tpu_torch.api.magi_attn_interface import _mgr
     from magiattention_tpu_torch.functional import flex_flash_attn_func
     from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
-    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
     from magiattention_tpu_torch.kernels.sdpa import dense_max_logits
 
     docs = _docs(CP_SEQ, CP_DOC)
@@ -3513,7 +3578,7 @@ def cp_api_phase() -> dict:
     plan_s = time.perf_counter() - t0
     runtime = _mgr(key).runtime
     plan = runtime.plans[0]
-    mode = ffa_bwd_mode(plan, runtime._params(CP_D)[0], CP_D, CP_D, 2, CP_HQ, CP_HK)
+    mode = card_bwd_mode(plan, runtime._params(CP_D)[0], CP_D, CP_HQ, CP_HK)
 
     def api_path(max_logits=None):
         q, k, v = (t.detach().requires_grad_(True) for t in inputs)
@@ -3591,7 +3656,7 @@ def cp_stages_phase() -> dict:
     from magiattention_tpu_torch.functional.dist_attn import DistAttnRuntime, multi_ffa
     from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
     from magiattention_tpu_torch.kernels.ffa import (
-        ffa_bwd_fused_plain, ffa_bwd_mode, ffa_delta_plain, plan_params,
+        ffa_bwd_fused_plain, ffa_delta_plain, plan_params,
     )
     from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
     from magiattention_tpu_torch.meta import (
@@ -3674,7 +3739,7 @@ def cp_stages_phase() -> dict:
                 dict(valid=c.recv_len, buffer=c.buf_len) for c in runtime.cast_plans
             ],
             bwd_modes=[
-                ffa_bwd_mode(p, prm, CP_D, CP_D, 2, CP_HQ, CP_HK)
+                card_bwd_mode(p, prm, CP_D, CP_HQ, CP_HK)
                 for p, prm in zip(runtime.plans, runtime._params(CP_D))
             ],
             launches={k_: v_ for k_, v_ in counts.items() if v_},
@@ -3752,7 +3817,7 @@ def qo_comm_phase(cp_api: dict) -> dict:
     from magiattention_tpu_torch.functional.dynamic_dist_attn import DynamicDistAttnRuntime
     from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
     from magiattention_tpu_torch.kernels.ffa import (
-        ffa_bwd_fused_plain, ffa_bwd_mode, ffa_delta, ffa_delta_plain, plan_params,
+        ffa_bwd_fused_plain, ffa_delta, ffa_delta_plain, plan_params,
     )
     from magiattention_tpu_torch.kernels.sdpa import sdpa_attn
     from magiattention_tpu_torch.meta import (
@@ -3780,7 +3845,7 @@ def qo_comm_phase(cp_api: dict) -> dict:
     a_res = {}
     for pin, env in (("unpinned", {}), ("split", SPLIT)):
         with scoped_env(env):
-            mode = ffa_bwd_mode(runtime.ffa_plan, runtime.params(CP_D), CP_D, CP_D, 2, CP_HQ, CP_HK)
+            mode = card_bwd_mode(runtime.ffa_plan, runtime.params(CP_D), CP_D, CP_HQ, CP_HK)
             torch.cuda.synchronize()
             reset_launch_counts()
             got = _qo_api(inputs, do, key)
@@ -3923,7 +3988,7 @@ def qo_comm_phase(cp_api: dict) -> dict:
         dq.index_add_(0, q_rows[r], dq_b[:nq].to(q.dtype).float())
         dk.index_add_(0, kv_rows[r], dk_b[:nk].to(k.dtype).float())
         dv.index_add_(0, kv_rows[r], dv_b[:nk].to(v.dtype).float())
-        modes.append(ffa_bwd_mode(rts[r].ffa_plan, params, CP_D, CP_D, 2, CP_HQ, CP_HK))
+        modes.append(card_bwd_mode(rts[r].ffa_plan, params, CP_D, CP_HQ, CP_HK))
     torch.cuda.synchronize()
     counts = launch_counts()
     add_counts(counts)
@@ -4707,6 +4772,7 @@ FFA_KERNELS = (
     "ffa_bwd_dkv", "ffa_bwd_fused",
 )
 SPLIT = {"MAGI_ATTENTION_BACKEND_FFA_BWD": "split"}
+FUSED = {"MAGI_ATTENTION_BACKEND_FFA_BWD": "fused"}
 PACK = {"MAGI_ATTENTION_FFA_GQA_PACK": "1", "MAGI_ATTENTION_FFA_GQA_PACK_DQ": "1"}
 
 
@@ -4714,11 +4780,14 @@ def train_phase() -> dict:
     """``models.llama.train_step`` on the card, attention through the API
     (``magi_attn_flex_key`` at cp = 1, ``calc_attn`` per layer); asserts
     finite losses, one launch of each FFA kernel of the resolved path per
-    layer per step, no plain version on the path. The cost model must
-    resolve the fused backward unpinned here; TRAIN_STEPS steps run so.
-    Then one step under the split pin, one under both GQA pack flags with
-    the split pin (B2, B7, B4, B5/B6) and one under the pack flags unpinned
-    (B2, B7, B8/B9). Then the kernels' loss and gradients against the plain
+    layer per step, no plain version on the path. TRAIN_STEPS steps run
+    unpinned, the mode the cost model resolves over the card's pass tiles
+    (:func:`card_bwd_mode`; the ``bwd_mode`` phase holds it to the card).
+    Then one step under the split pin (B1, B7, B3, B5/B6), one under the
+    fused pin (B1, B7, B8/B9), one under both GQA pack flags with the split
+    pin (B2, B7, B4, B5/B6) and one under the pack flags unpinned (B2, B7
+    and the resolved mode's kernels); the forward and the split steps' dq
+    pass ran the card's tiles. Then the kernels' loss and gradients against the plain
     path's (``MAGI_ATTENTION_KERNEL_BACKEND=sdpa``: dense float32 attention
     under autograd) at CHECK_SEQ tokens: the plain path keeps float32 (32,
     S, S) tensors per layer for autograd, which at 8192 tokens do not fit
@@ -4731,7 +4800,6 @@ def train_phase() -> dict:
     from magiattention_tpu_torch.kernels import (
         PLAIN_NAMES, launch_counts, reset_launch_counts, tile_launch_counts,
     )
-    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
     from magiattention_tpu_torch.models.llama import (
         LlamaConfig, init_params, param_names, train_step, value_and_grad,
     )
@@ -4757,12 +4825,10 @@ def train_phase() -> dict:
     labels = next_token_labels(tokens, TRAIN_DOC)
     key = key_of(TRAIN_SEQ, TRAIN_DOC)
     runtime = _mgr(key).runtime
-    model_mode = ffa_bwd_mode(
-        runtime.plans[0], runtime._params(cfg.head_dim)[0], cfg.head_dim,
-        cfg.head_dim, 2, cfg.n_heads, cfg.n_kv_heads,
-    )
-    if model_mode != "fused":
-        raise AssertionError(f"train: the unpinned backward resolves {model_mode}, want fused")
+    attn = (runtime.plans[0], runtime._params(cfg.head_dim)[0], cfg.head_dim, cfg.n_heads,
+            cfg.n_kv_heads)
+    model_mode = card_bwd_mode(*attn)
+    packed_mode = _with_env(PACK, lambda: card_bwd_mode(*attn))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
@@ -4795,19 +4861,25 @@ def train_phase() -> dict:
             raise AssertionError(f"train: a plain version ran on the card: {launches}")
         return rec
 
-    fused_kernels = ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_fused")
     reset_launch_counts()
-    steps = [step(i, {}, fused_kernels) for i in range(TRAIN_STEPS)]
+    steps = [step(i, {}, ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels(model_mode)))
+             for i in range(TRAIN_STEPS)]
     fused_counts, fused_tiles = launch_counts(), tile_launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reset_launch_counts()
     split_step = step(TRAIN_STEPS, SPLIT, ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_dq", "ffa_bwd_dkv"))
-    split_counts = launch_counts()
+    split_counts, split_tiles = launch_counts(), tile_launch_counts()
+    # the fused backward pinned: B8/B9 on the path whichever mode the model picks
     reset_launch_counts()
+    fused_step = step(TRAIN_STEPS + 1, FUSED, ("ffa_fwd", "ffa_bwd_delta", "ffa_bwd_fused"))
+    pinned_fused_counts = launch_counts()
+    reset_launch_counts()
+    packed_bwd = (("ffa_bwd_fused",) if packed_mode == "fused"
+                  else ("ffa_bwd_dq_gqa", "ffa_bwd_dkv"))
     packed_steps = [
-        step(TRAIN_STEPS + 1, {**PACK, **SPLIT},
+        step(TRAIN_STEPS + 2, {**PACK, **SPLIT},
              ("ffa_fwd_gqa", "ffa_bwd_delta", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")),
-        step(TRAIN_STEPS + 2, PACK, ("ffa_fwd_gqa", "ffa_bwd_delta", "ffa_bwd_fused")),
+        step(TRAIN_STEPS + 3, PACK, ("ffa_fwd_gqa", "ffa_bwd_delta", *packed_bwd)),
     ]
     packed_counts, packed_tiles = launch_counts(), tile_launch_counts()
     # the forward of the main path runs the card's tiles: B1 at
@@ -4817,6 +4889,14 @@ def train_phase() -> dict:
     if (fwd_tiles["ffa_fwd"].get(f"bfloat16 {wq}x{wk}", 0) != fused_counts["ffa_fwd"]
             or fwd_tiles["ffa_fwd_gqa"].get(f"bfloat16 {wq // 2}x{wk}", 0) != packed_counts["ffa_fwd_gqa"]):
         raise AssertionError(f"train: the forward ran off the card's tiles: {fwd_tiles}")
+    # and the split steps' dq pass: B3 at WS_DQ_TILES, the packed B4 at two
+    # heads of half its q rows (csrc/ffa_bwd_dq_ws.cuh)
+    dq_q, dq_k = mem_budget.WS_DQ_TILES
+    dq_tiles = {"ffa_bwd_dq": split_tiles["ffa_bwd_dq"], "ffa_bwd_dq_gqa": packed_tiles["ffa_bwd_dq_gqa"]}
+    if (dq_tiles["ffa_bwd_dq"].get(f"bfloat16 {dq_q}x{dq_k}", 0) != split_counts["ffa_bwd_dq"]
+            or dq_tiles["ffa_bwd_dq_gqa"].get(f"bfloat16 {dq_q // 2}x{dq_k}", 0)
+            != packed_counts["ffa_bwd_dq_gqa"]):
+        raise AssertionError(f"train: the split steps' dq ran off the card's tiles: {dq_tiles}")
     remat = remat_check(params, cfg, tokens, labels, key)
 
     prof = profile_run(lambda: train_step(params, cfg, tokens, labels, key, lr=TRAIN_LR))
@@ -4849,13 +4929,14 @@ def train_phase() -> dict:
         ),
         attention="api: magi_attn_flex_key (cp 1) -> dispatch -> calc_attn per layer",
         tokens=TRAIN_SEQ, documents=TRAIN_SEQ // TRAIN_DOC, lr=TRAIN_LR,
-        cost_model_bwd_mode=model_mode, setup_s=setup_s, steps=steps,
-        losses=[s["loss"] for s in steps], split_step=split_step,
+        cost_model_bwd_mode=model_mode, packed_bwd_mode=packed_mode, setup_s=setup_s, steps=steps,
+        losses=[s["loss"] for s in steps], split_step=split_step, fused_step=fused_step,
         packed_steps=packed_steps,
         launches={k: fused_counts[k] for k in FFA_KERNELS},
         split_launches={k: split_counts[k] for k in FFA_KERNELS},
+        fused_launches={k: pinned_fused_counts[k] for k in FFA_KERNELS},
         packed_launches={k: packed_counts[k] for k in FFA_KERNELS},
-        fwd_tile_launches=fwd_tiles,
+        fwd_tile_launches=fwd_tiles, dq_tile_launches=dq_tiles,
         plain_calls={k: fused_counts[k] for k in PLAIN_NAMES},
         peak_memory_gb=peak_gb, remat=remat, profile_step=prof,
         check=dict(
@@ -5173,6 +5254,7 @@ def moe_phase() -> dict:
     import torch
 
     from magiattention_tpu_torch import api
+    from magiattention_tpu_torch.api.magi_attn_interface import _mgr
     from magiattention_tpu_torch.env.general import scoped_env
     from magiattention_tpu_torch.kernels import reset_launch_counts
     from magiattention_tpu_torch.models import moe
@@ -5246,8 +5328,11 @@ def moe_phase() -> dict:
 
     reset_launch_counts()
     steps, launches, mode = timed_steps("moe", step, TRAIN_STEPS, seq, cfg.n_layers)
-    if mode != "fused":
-        raise AssertionError(f"moe: the unpinned backward resolved {mode}, want fused")
+    rt = _mgr(key).runtime
+    want_mode = card_bwd_mode(rt.plans[0], rt._params(cfg.head_dim)[0], cfg.head_dim, cfg.n_heads,
+                              cfg.n_kv_heads)
+    if mode != want_mode:
+        raise AssertionError(f"moe: the unpinned backward ran {mode}, the cost model resolves {want_mode}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof = profile_run(lambda: step(0))
 
@@ -5414,15 +5499,18 @@ SPLIT_LIBRARIES = ("ffa_bwd_dq", "ffa_bwd_dq_gqa", "ffa_bwd_dkv")
 # SASS opcodes of global and shared-memory atomics and reductions
 ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
 # SASS opcodes of Hopper's asynchronous units in the warp-specialised
-# k-major instances (csrc/bwd_kv_ws.cuh): TMA tensor loads, bulk reduces
+# instances (csrc/bwd_kv_ws.cuh, csrc/ffa_fwd_ws.cuh,
+# csrc/ffa_bwd_dq_ws.cuh): TMA tensor loads, bulk reduces
 # (tensor and plain), the register hand-over between warpgroups
 TMA_LOADS, BULK_REDUCES, SETMAXREG = ("UTMALDG",), ("UTMAREDG", "UBLKRED"), ("USETMAXREG",)
-# the warp-specialised kernels' name (csrc/bwd_kv_ws.cuh, csrc/ffa_fwd_ws.cuh)
+# the warp-specialised kernels' name (csrc/bwd_kv_ws.cuh, csrc/ffa_fwd_ws.cuh,
+# csrc/ffa_bwd_dq_ws.cuh)
 WS_TAG = "_ws_tc_kernel"
 # warp-specialised instances a library compiles: the k-major pair at 64 x
-# 128, the forward at 128 x 128 and the packed forward at two heads of 64 x
-# 128, each at d 64 and 128
-WS_INSTANCES = {"ffa_bwd_dkv": 2, "ffa_bwd_fused": 2, "ffa_fwd": 2, "ffa_fwd_gqa": 2}
+# 128, the forward and the dq pass at 128 x 128 and their packed kernels at
+# two heads of 64 x 128, each at d 64 and 128
+WS_INSTANCES = {"ffa_bwd_dkv": 2, "ffa_bwd_fused": 2, "ffa_fwd": 2, "ffa_fwd_gqa": 2,
+                "ffa_bwd_dq": 2, "ffa_bwd_dq_gqa": 2}
 # the NSA libraries and their tensor-core (bf16) instances at d 64, 128 and
 # 256: B13's forward, B14's dq and dk/dv walks (csrc/block_sparse_tc.cuh);
 # their float32 instances run on the CUDA cores
@@ -5556,9 +5644,11 @@ def tensor_core_phase() -> dict[str, dict]:
     library (the deterministic mode) has an atomic; the fused kernel's bf16
     instances must show their dq adds (atomics in bwd_kv_tc.cuh's body,
     bulk reduces in the warp-specialised one), which proves the count reads
-    the SASS. The warp-specialised k-major instances (bwd_kv_ws.cuh: bf16
-    64 x 128 at d 64 and 128, two a library) must show TMA loads and
-    setmaxnreg, and B5/B6's no atomic and no reduce. The NSA libraries:
+    the SASS. The warp-specialised instances (bwd_kv_ws.cuh: bf16 64 x 128;
+    ffa_fwd_ws.cuh and ffa_bwd_dq_ws.cuh: 128 x 128 and the packed two
+    heads of 64 x 128; each at d 64 and 128, two a library) must show TMA
+    loads and setmaxnreg and no C7514, and B3/B4's and B5/B6's no atomic
+    and no reduce. The NSA libraries:
     every bf16 instance HGMMA and no HMMA, no instance spills, and none of
     B14's (either dtype) has an atomic."""
     import re
@@ -5808,7 +5898,7 @@ def nsa_phase() -> dict:
 
     from magiattention_tpu_torch.env.general import scoped_env
     from magiattention_tpu_torch.kernels import PLAIN_NAMES, launch_counts, reset_launch_counts
-    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode, plan_params
+    from magiattention_tpu_torch.kernels.ffa import plan_params
     from magiattention_tpu_torch.parallel.nsa import PARAM_NAMES, init_nsa_params, nsa_attn
 
     def case(seq, doc, dtype, seed):
@@ -5847,7 +5937,7 @@ def nsa_phase() -> dict:
         qr, qr, None, np.full(n_seg, -NSA_KW["window"][0], np.int32),
         np.zeros(n_seg, np.int32), NSA_SEQ, NSA_SEQ, NSA_D, None, 0.0,
     )
-    mode = ffa_bwd_mode(plan, params, NSA_D, NSA_D, 2, NSA_HQ, NSA_HK)
+    mode = card_bwd_mode(plan, params, NSA_D, NSA_HQ, NSA_HK)
     torch.cuda.synchronize()
     reset_launch_counts()
     got = fwd_bwd()
@@ -5997,7 +6087,8 @@ def deterministic_phase() -> dict:
     ``calc_attn`` at cp 1 under MAGI_ATTENTION_DETERMINISTIC_MODE=1, and
     two through ``flex_flash_attn_func(deterministic=True)``: out, lse,
     dq, dk and dv equal to the bit within each pair, the split kernels
-    launched and not the fused one. Reported, not gated: whether the two
+    launched and not the fused one, the dq pass at the card's tiles
+    (csrc/ffa_bwd_dq_ws.cuh). Reported, not gated: whether the two
     paths agree to the bit, the largest difference between two unpinned
     (fused) runs of ``flex_flash_attn_func``, and the forward + backward
     ms of ``flex_flash_attn_func`` deterministic and unpinned."""
@@ -6006,7 +6097,8 @@ def deterministic_phase() -> dict:
     from magiattention_tpu_torch import api
     from magiattention_tpu_torch.env.general import scoped_env
     from magiattention_tpu_torch.functional import flex_flash_attn_func
-    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from magiattention_tpu_torch.kernels import launch_counts, reset_launch_counts, tile_launch_counts
+    from magiattention_tpu_torch.utils import mem_budget
 
     docs = _docs(CP_SEQ, CP_DOC)
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -6044,13 +6136,18 @@ def deterministic_phase() -> dict:
         first = fn()
         torch.cuda.synchronize()
         counts = {k: v for k, v in launch_counts().items() if v}
+        dq_tiles = tile_launch_counts()["ffa_bwd_dq"]
         second = fn()
         differ = [n for n, a, b in zip(names, first, second) if not torch.equal(a, b)]
         if differ:
             raise AssertionError(f"deterministic {what}: two runs differ in {differ}")
         if counts.get("ffa_bwd_fused") or not (counts.get("ffa_bwd_dq") or counts.get("ffa_bwd_dq_gqa")):
             raise AssertionError(f"deterministic {what}: launched {counts}, want the split backward")
-        res[what] = dict(bitwise_equal=True, launches=counts)
+        # the split steps' dq ran the card's tiles (csrc/ffa_bwd_dq_ws.cuh)
+        ws = "bfloat16 {}x{}".format(*mem_budget.WS_DQ_TILES)
+        if dq_tiles.get(ws, 0) != counts.get("ffa_bwd_dq", 0) or not dq_tiles:
+            raise AssertionError(f"deterministic {what}: dq launched at {dq_tiles}, want {ws}")
+        res[what] = dict(bitwise_equal=True, launches=counts, dq_tile_launches=dq_tiles)
         res[f"{what}_outputs"] = first
     a, b = res.pop("calc_attn_env_outputs"), res.pop("flex_deterministic_outputs")
     # lse stays in the dispatched order on the calc_attn path
@@ -6512,7 +6609,9 @@ def d128_against_parent(parent: dict, gen) -> dict:
     """The d-128 instances of the redesigned libraries at the train shape
     (bf16, q 8192 x 32 x 128, k/v 8192 x 8 x 128, two causal documents):
     B1 at 64 x 64, 128 x 64 and 128 x 128 (the warp-specialised body), B2
-    at 64 x 64 and 64 x 128 (warp-specialised), B3 at 64 x 64 and 128 x 64, B4, the
+    at 64 x 64 and 64 x 128 (warp-specialised), B3 at 64 x 64, 128 x 64 and
+    128 x 128 (warp-specialised), B4 at 64 x 64 and 64 x 128
+    (warp-specialised), the
     split dk/dv and the fused dk/dv at 64 x 64, 64 x 128 (the
     warp-specialised body) and 128 x 128 equal to the bit to the parent's
     builds on the same inputs (the fused dq adds in no fixed order, so it
@@ -6545,6 +6644,12 @@ def d128_against_parent(parent: dict, gen) -> dict:
         p_ = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], bq, bk)
         fw[bq] = (p_, dataclasses.replace(params, num_q_tiles=p_.num_q_tiles,
                                           num_k_tiles=p_.num_k_tiles, block_q=bq, block_k=bk))
+    # the dq pass's warp-specialised instances (B3 128 x 128, B4 64 x 128)
+    dq_ws = {}
+    for bq in (128, 64):
+        p_ = get_ffa_plan(qr, kr, lo, hi, c["sq"], c["sk"], bq, 128)
+        dq_ws[bq] = (*args[:6], p_, dataclasses.replace(
+            params, num_q_tiles=p_.num_q_tiles, num_k_tiles=p_.num_k_tiles, block_q=bq, block_k=128))
     runs = {
         "ffa_fwd": lambda: ffa_fwd_kernel(q, k, v, plan, params),
         "ffa_fwd_128x64": lambda: ffa_fwd_kernel(q, k, v, plan128, params128),
@@ -6552,6 +6657,7 @@ def d128_against_parent(parent: dict, gen) -> dict:
         "ffa_fwd_gqa_64x128": lambda: ffa_fwd_gqa_kernel(q, k, v, *fw[64]),
         "ffa_bwd_dq": lambda: (ffa_bwd_dq_kernel(*args),),
         "ffa_bwd_dq_128x64": lambda: (ffa_bwd_dq_kernel(*args128),),
+        "ffa_bwd_dq_128x128": lambda: (ffa_bwd_dq_kernel(*dq_ws[128]),),
         "ffa_bwd_dkv": lambda: ffa_bwd_dkv_kernel(*args),
         "ffa_bwd_fused_dk_dv": lambda: ffa_bwd_fused_kernel(*args)[1:],
         **{f"ffa_bwd_dkv_{t}": (lambda a=a: ffa_bwd_dkv_kernel(*a)) for t, a in kv.items()},
@@ -6562,6 +6668,8 @@ def d128_against_parent(parent: dict, gen) -> dict:
         runs["ffa_fwd_gqa"] = lambda: ffa_fwd_gqa_kernel(q, k, v, plan, params)
     if dq_pack_heads(c["hq"] // c["hk"], 128, 128, 2) > 1:
         runs["ffa_bwd_dq_gqa"] = lambda: (ffa_bwd_dq_gqa_kernel(*args),)
+    if dq_pack_heads(c["hq"] // c["hk"], 128, 128, 2, 64, 128) > 1:
+        runs["ffa_bwd_dq_gqa_64x128"] = lambda: (ffa_bwd_dq_gqa_kernel(*dq_ws[64]),)
     for name, run in runs.items():
         _same_bits(f"d128 {name} against the parent's", run(), with_libraries(parent, run))
     fused, fused_p = ffa_bwd_fused_kernel(*args)[0], with_libraries(parent, lambda: ffa_bwd_fused_kernel(*args))[0]
@@ -6883,6 +6991,169 @@ def fwd_ws_edges(gen) -> dict:
                 res[f"{name}_d{d}_{kern}"] = dict(tiles=[p.block_q, p.block_k], **err)
             del q, k, v, want
     emit({"phase": "fwd_ws", "case": "edges", **res})
+    return res
+
+
+def dq_ws_phase(peaks: dict, kmajor: dict, parent: dict | None = None) -> dict:
+    """B3 and B4 at d 128 (bench.py's headline shape, the train shape) and
+    d 64 (the headline mask), :data:`FWD_WS_CASES`: the card's default dq
+    tiles (the warp-specialised body csrc/ffa_bwd_dq_ws.cuh: B3 at 128 x
+    128, B4 at two heads of 64 x 128, :func:`dq_args`) against this tree's
+    64 x 64 (ffa_bwd_dq_tc.cuh's body), timed in interleaved rounds both by
+    :func:`time_ms` (host included, as every kernel line) and by
+    :func:`graph_ms` (CUDA-graph replays, cold L2: the device's time).
+    Every case, at softcap 0 and 30 (each on its own forward's lse): dq
+    within the bf16 gates of ``ffa_bwd_dq_plain``, B4 equal to B3 to the
+    bit. With a parent (``--parent``): the parent's same instances and its
+    defaults (64 x 64, B4 at two heads of 64 x 64) join the rounds; dq
+    equals the parent's same instances to the bit at softcap 0 and 30;
+    fails if the headline B3 is not 1.3x faster than the parent's default
+    by device time, or if an instance is slower than the parent's same
+    instance by more than the pair's spread. Beside them the split pair
+    (this dq and the ``kmajor`` phase's dk/dv) against SDPA's backward
+    alone (the ``ffa_bwd`` phase's, via ``kmajor``). Then the empty-row
+    contract (varlen mask, uncovered rows dq exactly 0) and ragged last
+    tiles (8000 tokens) at the card's tiles against the plain version.
+    Bound: 6 flops a live pair, q head and d against the bf16 peak, and
+    the bytes of q, k, v, dO, lse, delta and dq."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_dq_gqa_kernel, ffa_bwd_dq_kernel, ffa_bwd_dq_plain, ffa_delta_plain, ffa_fwd_kernel,
+    )
+    from magiattention_tpu_torch.utils import mem_budget as mb
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    b3_tiles = tuple(mb.WS_DQ_TILES)
+    b4_tiles = (b3_tiles[0] // 2, b3_tiles[1])
+    out_rows = {}
+    for key, d in FWD_WS_CASES:
+        c = dict(mask_cases()[key], d=d)
+        (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
+        do = (do / 4).to(q.dtype)
+        res = dict(case=key, d=d, q=list(q.shape), kv=list(k.shape), b3_tiles=list(b3_tiles),
+                   b4_tiles=list(b4_tiles))
+        for cap in (30.0, 0.0):  # softcap 0 last: its inputs are the ones timed
+            pc = dataclasses.replace(params, softcap=cap)
+            out, lse = ffa_fwd_kernel(q, k, v, plan, pc)
+            args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, pc)
+            a3, a4 = dq_args(args), dq_args(args, heads=2)
+            if ((a3[6].block_q, a3[6].block_k) != b3_tiles
+                    or (a4[6].block_q, a4[6].block_k) != b4_tiles):
+                raise AssertionError(f"dq_ws {key} d {d}: the card's dq tiles are "
+                                     f"{a3[6].block_q}x{a3[6].block_k} / {a4[6].block_q}x{a4[6].block_k}")
+            runs = {
+                "b3": lambda a=a3: ffa_bwd_dq_kernel(*a),
+                "b4": lambda a=a4: ffa_bwd_dq_gqa_kernel(*a),
+                "b3_64x64": lambda a=args: ffa_bwd_dq_kernel(*a),
+            }
+            got = runs["b3"]()
+            plain = lambda a=args: ffa_bwd_dq_plain(*a)  # noqa: E731
+            err = grad_check(f"dq_ws {key} d {d} softcap {cap:g}", got, plain(), "bfloat16")
+            _same_bits(f"dq_ws {key} d {d} softcap {cap:g} B4 against B3", runs["b4"](), got)
+            res[f"vs_plain_cap{cap:g}"] = err
+            if parent:
+                for name in ("b3", "b4"):
+                    _same_bits(f"dq_ws {key} d {d} softcap {cap:g} {name} against the parent's "
+                               "same instance", runs[name](), with_libraries(parent, runs[name]))
+            del got, out
+        res["max_abs_err"] = max(res[f"vs_plain_cap{cap:g}"]["max_abs_err"] for cap in (0.0, 30.0))
+        if parent:
+            runs["parent_b3"] = lambda: with_libraries(parent, lambda: ffa_bwd_dq_kernel(*a3))
+            runs["parent_b4"] = lambda: with_libraries(parent, lambda: ffa_bwd_dq_gqa_kernel(*a4))
+            runs["parent_b3_64x64"] = lambda: with_libraries(parent, lambda: ffa_bwd_dq_kernel(*args))
+            runs["parent_b4_64x64"] = lambda: with_libraries(
+                parent, lambda: ffa_bwd_dq_gqa_kernel(*args))
+        t = paired_ms(runs, rounds=5, samples=5)
+        g = paired_graph_ms(runs, rounds=3)
+        med = {n: statistics.median(x) for n, x in t.items()}
+        dev = {n: statistics.median(x) for n, x in g.items()}
+        spread = {n: max(max(t[n]) - min(t[n]), max(g[n]) - min(g[n])) for n in runs}
+        live = live_pairs(c)[0]
+        flops = 6.0 * c["hq"] * d * live
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + q.numel() * 4 \
+            + 2 * lse.numel() * 4
+        b_ms, b_by = bound(flops, nbytes, "bfloat16", peaks)
+        res.update(bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   plain_ms=time_ms(plain, warmup=1, samples=3))
+        for kern in ("b3", "b4"):
+            r = dict(ms=med[kern], device_ms=dev[kern], share=b_ms / dev[kern], share_event=b_ms / med[kern],
+                     tflops=flops / (dev[kern] * 1e-3) / 1e12)
+            if kern == "b3":
+                r.update(ms_64x64=med["b3_64x64"], device_ms_64x64=dev["b3_64x64"],
+                         over_own_64x64=dev["b3_64x64"] / dev["b3"])
+            if parent:
+                same, dflt = f"parent_{kern}", f"parent_{kern}_64x64"
+                r.update(parent_same_ms=med[same], parent_default_ms=med[dflt],
+                         parent_same_device_ms=dev[same], parent_default_device_ms=dev[dflt],
+                         over_parent_default=med[dflt] / med[kern],
+                         over_parent_default_device=dev[dflt] / dev[kern],
+                         over_parent_same_device=dev[same] / dev[kern],
+                         spread_ms=max(spread[kern], spread[same]))
+            res[kern] = r
+        # the split pair: this dq and the k-major phase's dk/dv, against
+        # SDPA's backward alone where the ffa_bwd phase timed it
+        km = kmajor.get(f"{key}_d{d}", {})
+        res["split_pair_ms"] = med["b3"] + km["dkv"]["ms"] if km else None
+        res["sdpa_bwd_ms"] = km.get("library_ms")
+        if res["split_pair_ms"] and res["sdpa_bwd_ms"]:
+            res["split_over_sdpa_bwd"] = res["split_pair_ms"] / res["sdpa_bwd_ms"]
+        res["rounds_ms"], res["rounds_device_ms"] = t, g
+        emit({"phase": "dq_ws", **res})
+        out_rows[f"{key}_d{d}"] = res
+        if parent:
+            for kern in ("b3", "b4"):
+                r = res[kern]
+                if r["device_ms"] - r["parent_same_device_ms"] > r["spread_ms"]:
+                    raise AssertionError(f"dq_ws {key} d {d} {kern}: {r['device_ms']:.3f} ms, slower "
+                                         f"than the parent's same instance "
+                                         f"{r['parent_same_device_ms']:.3f} by more than the spread")
+            r = res["b3"]
+            if key == "causal_8192_bf16" and d == 128 and r["over_parent_default_device"] < 1.3:
+                raise AssertionError(f"dq_ws headline B3: {r['over_parent_default_device']:.2f}x the "
+                                     "parent's default by device time, under 1.3x")
+        del q, k, v, do, lse, args, a3, a4, runs
+        torch.cuda.empty_cache()
+    out_rows["edges"] = dq_ws_edges(gen)
+    return out_rows
+
+
+def dq_ws_edges(gen) -> dict:
+    """The card's dq tiles on the varlen mask (uncovered q rows [7680,
+    8192): dq exactly 0 there) and on a causal mask over 8000 tokens
+    (ragged last q and k tiles), B3 and B4, against the plain version
+    within the bf16 gates, at d 128 and 64."""
+    import torch
+
+    from magiattention_tpu_torch.kernels.ffa import (
+        ffa_bwd_dq_gqa_kernel, ffa_bwd_dq_kernel, ffa_bwd_dq_plain, ffa_delta_plain, ffa_fwd_kernel,
+    )
+    from magiattention_tpu_torch.kernels.mask_utils import types_to_bands
+
+    n = 8000
+    lo, hi = types_to_bands(np.array([[0, n]]), np.array([[0, n]]), np.array([1]))
+    ragged = dict(mask_cases()["causal_8192_bf16"], sq=n, sk=n, qr=[[0, n]], kr=[[0, n]], lo=lo, hi=hi)
+    res = {}
+    for name, base in (("varlen", mask_cases()["varlen_8192_bf16"]), ("ragged_8000", ragged)):
+        for d in (128, 64):
+            c = dict(base, d=d)
+            (q, k, v, do), _, plan, params = case_inputs(c, gen, with_do=True)
+            do = (do / 4).to(q.dtype)
+            out, lse = ffa_fwd_kernel(q, k, v, plan, params)
+            args = (q, k, v, do, lse, ffa_delta_plain(out, do), plan, params)
+            want = ffa_bwd_dq_plain(*args)
+            for kern, heads, fn in (("b3", 1, ffa_bwd_dq_kernel), ("b4", 2, ffa_bwd_dq_gqa_kernel)):
+                a = dq_args(args, heads)
+                got = fn(*a)
+                err = grad_check(f"dq_ws edges {name} d {d} {kern}", got, want, "bfloat16")
+                if "uncovered" in c:
+                    u0, u1 = c["uncovered"]
+                    if got[u0:u1].any():
+                        raise AssertionError(f"dq_ws edges {name} d {d} {kern}: dq of uncovered "
+                                             "rows is not 0")
+                res[f"{name}_d{d}_{kern}"] = dict(tiles=[a[6].block_q, a[6].block_k], **err)
+            del q, k, v, do, out, lse, args, want
+    emit({"phase": "dq_ws", "case": "edges", **res})
     return res
 
 
@@ -8831,7 +9102,6 @@ def plan_tiers_phase(device: str = "cuda", seq: int = CP_SEQ) -> dict:
     from magiattention_tpu_torch.analysis.verifier import verify_runtime_mgr
     from magiattention_tpu_torch.api.magi_attn_interface import _mgr
     from magiattention_tpu_torch.dist_attn_runtime_mgr import _plan_signature, _verify_loaded_entry
-    from magiattention_tpu_torch.kernels.ffa import ffa_bwd_mode
     from magiattention_tpu_torch.meta import plan_io, plan_store
 
     on_card = device == "cuda"
@@ -8863,7 +9133,7 @@ def plan_tiers_phase(device: str = "cuda", seq: int = CP_SEQ) -> dict:
         key, cold, want, want_det = way({"MAGI_ATTENTION_VERIFY_PLANS": "1"})
         mgr = _mgr(key)
         rt = mgr.runtime
-        mode = ffa_bwd_mode(rt.plans[0], rt._params(CP_D)[0], CP_D, CP_D, 2, CP_HQ, CP_HK)
+        mode = card_bwd_mode(rt.plans[0], rt._params(CP_D)[0], CP_D, CP_HQ, CP_HK)
         for what, counts, kernels in (("unpinned", cold["launches"], _bwd_kernels(mode)),
                                       ("deterministic", cold["deterministic_launches"],
                                        _bwd_kernels("split"))):
@@ -9150,10 +9420,11 @@ def native_host_phase(device: str = "cuda", seq: int = HEAD_SEQ) -> dict:
     MAGI_ATTENTION_CPP_BACKEND=1 (the library built, its path taken: native
     calls counted) against 0/0 (none). The dispatch and attention plans
     and every FFA plan must be array-equal; each way runs one step unpinned
-    (B1, B7, B8/B9) and one under deterministic mode (B3, B5/B6): the
-    deterministic steps' out, lse, dq, dk, dv bitwise, the unpinned ones'
-    too but for dq (the fused backward's float32 atomics sum in no fixed
-    order; held to the bf16 gates). Reports ``plan_s`` of each way's key
+    (B1, B7 and the resolved mode's backward, :func:`card_bwd_mode`) and one
+    under deterministic mode (B3, B5/B6): the deterministic steps' out,
+    lse, dq, dk, dv bitwise, the unpinned ones' too but for dq (the fused
+    backward's float32 atomics sum in no fixed order; held to the bf16
+    gates). Reports ``plan_s`` of each way's key
     (best of 3, every plan cache dropped before each) and the launches."""
     import torch
 
@@ -9186,8 +9457,10 @@ def native_host_phase(device: str = "cuda", seq: int = HEAD_SEQ) -> dict:
                 for k_, n in counts.items():
                     launches[k_] = launches.get(k_, 0) + n
             meta = (mgr.dispatch_meta_q, mgr.dispatch_meta_kv, mgr.comm_meta, mgr.calc_meta)
+            rt = mgr.runtime
+            mode = card_bwd_mode(rt.plans[0], rt._params(HEAD_D)[0], HEAD_D, HEAD_HQ, HEAD_HK)
             return dict(plan_s=min(times), plan_s_all=times, native_calls=calls, launches=fast_n,
-                        deterministic_launches=det_n), meta, _runtime_plans(mgr), fast, pinned
+                        deterministic_launches=det_n, bwd_mode=mode), meta, _runtime_plans(mgr), fast, pinned
         ways[name] = _with_env(env, run)
     (py, py_meta, py_plans, py_fast, py_det) = ways["python"]
     (nat, nat_meta, nat_plans, nat_fast, nat_det) = ways["native"]
@@ -9204,7 +9477,8 @@ def native_host_phase(device: str = "cuda", seq: int = HEAD_SEQ) -> dict:
                              f"deterministic {det_diff}, unpinned {fast_diff}")
     dq = grad_check("native_host dq", nat_fast[2].float(), py_fast[2].float(), "bfloat16")
     for what, counts in (("unpinned", nat["launches"]), ("deterministic", nat["deterministic_launches"])):
-        want = ("ffa_fwd", "ffa_bwd_delta", *_bwd_kernels("split" if what == "deterministic" else "fused"))
+        want = ("ffa_fwd", "ffa_bwd_delta",
+                *_bwd_kernels("split" if what == "deterministic" else nat["bwd_mode"]))
         if on_card and any(counts.get(k_) != 1 for k_ in want):
             raise AssertionError(f"native_host {what}: launched {counts}, want one of {want}")
     row = dict(shape=f"bf16 causal q [{seq}, {HEAD_HQ}, {HEAD_D}], k/v [{seq}, {HEAD_HK}, {HEAD_D}]",
@@ -9723,8 +9997,8 @@ TILE_ENTRY = {
 # the bf16 d-128 instance each library runs by default on the card (its
 # row of the kernels line); these are the warp-specialised bodies
 DEFAULT_TILE = {"ffa_bwd_dkv": "64x128", "ffa_bwd_fused": "64x128", "ffa_fwd": "128x128",
-                "ffa_fwd_gqa": "64x128"}
-WS_SOURCE, FWD_WS_SOURCE = "bwd_kv_ws.cuh", "ffa_fwd_ws.cuh"
+                "ffa_fwd_gqa": "64x128", "ffa_bwd_dq": "128x128", "ffa_bwd_dq_gqa": "64x128"}
+WS_SOURCE, FWD_WS_SOURCE, DQ_WS_SOURCE = "bwd_kv_ws.cuh", "ffa_fwd_ws.cuh", "ffa_bwd_dq_ws.cuh"
 
 
 def tile_entries(tiles: dict) -> list[dict]:
@@ -9871,8 +10145,9 @@ def main() -> int:
     parent = parent_libraries(parent_csrc) if parent_csrc else None
     d256_phase(peaks, parent)
     hybrid_d256_phase(peaks, parent)
-    kmajor_phase(peaks, bwd, parent)
+    kmajor = kmajor_phase(peaks, bwd, parent)
     fwd_ws = fwd_ws_phase(peaks, parent)
+    dq_ws_phase(peaks, kmajor, parent)
     bsp = block_sparse_phase(peaks)["slice_g4_d128_bf16_ds16"]
     nsa = nsa_phase()
     usp = usp_nsa_phase()["launches"]
@@ -9899,6 +10174,10 @@ def main() -> int:
              obs["launches"], resil["launches"], tiers["launches"], native["launches"],
              harness["launches"])
     extra = {k_: sum(p.get(k_, 0) for p in paths) for k_ in set().union(*paths)}
+    # the unpacked train steps' backward launches: unpinned (the resolved
+    # mode), split pin, fused pin
+    train_bwd = {k_: sum(train[w][k_] for w in ("launches", "split_launches", "fused_launches"))
+                 for k_ in ("ffa_bwd_dq", "ffa_bwd_dkv", "ffa_bwd_fused")}
     emit({"kernels": [
         kernel_entry(  # serve's shape: float32, the 3xTF32 body; int8 spec verify's too
             "ffa_fwd", "ffa_fwd_tf32.cuh", "magiattention_tpu/kernels/ffa.py:251",
@@ -9920,28 +10199,28 @@ def main() -> int:
             train["launches"]["ffa_bwd_delta"] + extra.get("ffa_bwd_delta", 0), t["ffa_bwd_delta"],
         ),
         # the train shape's rows are bf16: their sources are the
-        # tensor-core bodies (entries ffa_bwd_dq.cu, ffa_bwd_dkv.cu,
-        # ffa_bwd_fused.cu, ffa_fwd_gqa.cu, ffa_bwd_dq_gqa.cu)
+        # tensor-core bodies at the card's tiles (entries ffa_bwd_dq.cu,
+        # ffa_bwd_dkv.cu, ffa_bwd_fused.cu, ffa_fwd_gqa.cu, ffa_bwd_dq_gqa.cu)
         kernel_entry(
-            "ffa_bwd_dq", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:751",
-            train["split_launches"]["ffa_bwd_dq"] + extra.get("ffa_bwd_dq", 0), t["ffa_bwd_dq"],
+            "ffa_bwd_dq", DQ_WS_SOURCE, "magiattention_tpu/kernels/ffa.py:751",
+            train_bwd["ffa_bwd_dq"] + extra.get("ffa_bwd_dq", 0), t["ffa_bwd_dq"],
         ),
         kernel_entry(
             "ffa_bwd_dkv", WS_SOURCE, "magiattention_tpu/kernels/ffa.py:1208",
-            train["split_launches"]["ffa_bwd_dkv"] + extra.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
+            train_bwd["ffa_bwd_dkv"] + extra.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B6)
             "ffa_bwd_dkv (gqa)", WS_SOURCE, "magiattention_tpu/kernels/ffa.py:1451",
-            train["split_launches"]["ffa_bwd_dkv"] + extra.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
+            train_bwd["ffa_bwd_dkv"] + extra.get("ffa_bwd_dkv", 0), t["ffa_bwd_dkv"],
         ),
         kernel_entry(
             "ffa_bwd_fused", WS_SOURCE, "magiattention_tpu/kernels/ffa.py:1780",
-            train["launches"]["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
+            train_bwd["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
             fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(  # the same CUDA kernel loops the query group (B9)
             "ffa_bwd_fused (gqa)", WS_SOURCE, "magiattention_tpu/kernels/ffa.py:2082",
-            train["launches"]["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
+            train_bwd["ffa_bwd_fused"] + extra.get("ffa_bwd_fused", 0),
             fused["d_train_docs_8192_bf16"],
         ),
         kernel_entry(  # the packed steps run the card's default: two heads of 64 x 128
@@ -9949,8 +10228,8 @@ def main() -> int:
             train["packed_launches"]["ffa_fwd_gqa"] + extra.get("ffa_fwd_gqa", 0),
             fwd_ws_row(fwd_ws["train_docs_8192_bf16_d128"], "b2"),
         ),
-        kernel_entry(
-            "ffa_bwd_dq_gqa", "ffa_bwd_dq_tc.cuh", "magiattention_tpu/kernels/ffa.py:944",
+        kernel_entry(  # the packed split steps run the card's default: two heads of 64 x 128
+            "ffa_bwd_dq_gqa", DQ_WS_SOURCE, "magiattention_tpu/kernels/ffa.py:944",
             train["packed_launches"]["ffa_bwd_dq_gqa"] + extra.get("ffa_bwd_dq_gqa", 0),
             dq_gqa["a_docs_bf16_d128_g4"],
         ),

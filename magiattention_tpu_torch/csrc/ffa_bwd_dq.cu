@@ -6,11 +6,15 @@
 // _ffa_bwd_dq_pallas, pallas_call at ffa.py:931).
 //
 // Two bodies, each shared with the GQA-packed variant
-// (csrc/ffa_bwd_dq_gqa.cu), here at G = 1. bfloat16: csrc/ffa_bwd_dq_tc.cuh,
-// the three products S = Q K^T, dP = dO V^T and dQ += dS K on the tensor
-// cores (wgmma, one warpgroup per CTA, K/V double-buffered by cp.async),
-// bound by operations at 6 * D flops per live pair and head against 989
-// TFLOP/s; 99,328 bytes of shared memory at D = 128, two CTAs per SM; at
+// (csrc/ffa_bwd_dq_gqa.cu), here at G = 1. bfloat16: at d 64 and 128 and
+// 128 x 128, the card's default dq tiles there, csrc/ffa_bwd_dq_ws.cuh (a
+// TMA producer warpgroup and two consumer warpgroups, one a 64-row half of
+// the q tile; 197,696 bytes at D = 128, one CTA per SM); elsewhere
+// csrc/ffa_bwd_dq_tc.cuh, the three products S = Q K^T, dP = dO V^T and
+// dQ += dS K on the tensor cores (wgmma, one warpgroup per CTA, K/V
+// double-buffered by cp.async), bound by operations at 6 * D flops per
+// live pair and head against 989 TFLOP/s; 99,328 bytes of shared memory at
+// D = 128, 64 x 64, two CTAs per SM; at
 // D = 256 two warpgroups a CTA, one a 128-column half of dq, S and dP run
 // once an item and split between them by keys, dS crossing once through
 // shared memory (205,824 bytes, one CTA per SM). float32:
@@ -23,6 +27,7 @@
 // 256. Their designs are in the headers.
 #include "ffa_bwd_dq.cuh"
 #include "ffa_bwd_dq_tc.cuh"
+#include "ffa_bwd_dq_ws.cuh"
 
 // Tiles: the bf16 body takes (bq, bk) in {64, 128}^2 wherever the CTA
 // fits (csrc/common.cuh MAGI_FFA_TILES; at D = 256 only 64 x 64); the
@@ -68,10 +73,10 @@ extern "C" int ffa_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                float scale, float softcap, void* stream) {
 #define X(D, BQ, BK)                                                       \
   if (d == D && bq == BQ && bk == BK)                                      \
-    return dq_tc::launch<D, 1, BQ, BK>(q, k, v, dout, lse, delta, dq,      \
-                                       work_kt, meta, run_ptr, sq, sk, hq, \
-                                       hk, num_q_tiles, scale, softcap,    \
-                                       stream);
+    return dq_bf16::launch<D, 1, BQ, BK>(q, k, v, dout, lse, delta, dq,    \
+                                         work_kt, meta, run_ptr, sq, sk,   \
+                                         hq, hk, num_q_tiles, scale,       \
+                                         softcap, stream);
   MAGI_FFA_TILES(X)
 #undef X
   return (int)cudaErrorInvalidValue;
@@ -89,7 +94,7 @@ extern "C" long ffa_bwd_dq_smem_bytes(int d, int bq, int bk, int bf16) {
     return 0;
   }
 #define X(D, BQ, BK) \
-  if (d == D && bq == BQ && bk == BK) return dq_tc::smem_bytes<D, 1, BQ, BK>();
+  if (d == D && bq == BQ && bk == BK) return dq_bf16::smem_bytes<D, 1, BQ, BK>();
   MAGI_FFA_TILES(X)
 #undef X
   return 0;

@@ -14,10 +14,13 @@
 // so dq is bit-identical to csrc/ffa_bwd_dq.cu on the same inputs; only the
 // grid differs. No atomics: the deterministic mode may take this kernel.
 //
-// Two bodies, as in csrc/ffa_bwd_dq.cu. bfloat16: csrc/ffa_bwd_dq_tc.cuh,
-// one warpgroup per head on the tensor cores; shared memory (2 G + 4) * 64
-// * D * 2 + 1024 bytes (G Q and dO tiles, two stages of K and V) and a
-// thread's registers (the dQ accumulator, D / 2, beside S, dP and dS's
+// Two bodies, as in csrc/ffa_bwd_dq.cu. bfloat16: at d 64 and 128 and two
+// heads of 64 x 128, the card's default packed dq tiles there,
+// csrc/ffa_bwd_dq_ws.cuh (a TMA producer warpgroup and a consumer
+// warpgroup a head, 197,696 bytes at D = 128); elsewhere
+// csrc/ffa_bwd_dq_tc.cuh, one warpgroup per head on the tensor cores;
+// shared memory (2 G + 4) * 64 * D * 2 + 1024 bytes (G Q and dO tiles, two
+// stages of K and V) and a thread's registers (the dQ accumulator, D / 2, beside S, dP and dS's
 // fragments) make G 2 at D = 64 and 128 (132,096 bytes at D = 128; four
 // warpgroups would leave 128 registers a thread). At D = 256 the CTA's two
 // column warpgroups walk the G = 2 heads in turn over one K/V stage, each
@@ -31,6 +34,7 @@
 // same figures; a larger group runs in blocks of G heads.
 #include "ffa_bwd_dq.cuh"
 #include "ffa_bwd_dq_tc.cuh"
+#include "ffa_bwd_dq_ws.cuh"
 
 namespace {
 
@@ -106,10 +110,10 @@ extern "C" int ffa_bwd_dq_gqa_bf16(const void* q, const void* k,
   if (g != 2 || (hq / hk) % g || bq != 64) return (int)cudaErrorInvalidValue;
 #define X(D, BK)                                                            \
   if (d == D && bk == BK)                                                   \
-    return dq_tc::launch<D, 2, 64, BK>(q, k, v, dout, lse, delta, dq,       \
-                                       work_kt, meta, run_ptr, sq, sk, hq,  \
-                                       hk, num_q_tiles, scale, softcap,     \
-                                       stream);
+    return dq_bf16::launch<D, 2, 64, BK>(q, k, v, dout, lse, delta, dq,     \
+                                         work_kt, meta, run_ptr, sq, sk, hq, \
+                                         hk, num_q_tiles, scale, softcap,    \
+                                         stream);
   MAGI_DQ_GQA(X)
 #undef X
   return (int)cudaErrorInvalidValue;
@@ -124,7 +128,7 @@ extern "C" long ffa_bwd_dq_gqa_smem_bytes(int d, int g, int bq, int bk,
   if (bf16) {
     if (g != 2) return 0;
 #define X(D, BK) \
-  if (d == D && bk == BK) return dq_tc::smem_bytes<D, 2, 64, BK>();
+  if (d == D && bk == BK) return dq_bf16::smem_bytes<D, 2, 64, BK>();
     MAGI_DQ_GQA(X)
 #undef X
     return 0;

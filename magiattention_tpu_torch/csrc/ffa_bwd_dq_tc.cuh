@@ -1,8 +1,11 @@
 // The bf16 FFA dq backward on Hopper's tensor cores, shared by the bf16
 // entries of csrc/ffa_bwd_dq.cu (B3: one q head per CTA, G = 1) and
-// csrc/ffa_bwd_dq_gqa.cu (B4: G q heads of one GQA group per CTA). The
-// float32 entries keep the CUDA-core body of csrc/ffa_bwd_dq.cuh: their
-// 1e-5 gate against the plain version needs float32 FMA.
+// csrc/ffa_bwd_dq_gqa.cu (B4: G q heads of one GQA group per CTA); at d 64
+// and 128 their card-default instances (B3 at 128 x 128, B4 at two heads
+// of 64 x 128) run csrc/ffa_bwd_dq_ws.cuh instead, bit for bit this body's
+// at the same tiles. The float32 entries keep the CUDA-core body of
+// csrc/ffa_bwd_dq.cuh: their 1e-5 gate against the plain version needs
+// float32 FMA.
 //
 // What it computes is csrc/ffa_bwd_dq.cuh's function: for every q head h
 // and q row i, dq[i] = scale * sum_j dS[i, j] k[j] over the k rows j some

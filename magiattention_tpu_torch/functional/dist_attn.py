@@ -488,8 +488,8 @@ class DeferredTilePolicy:
         change between steps."""
         d, dv, itemsize = q.shape[-1], v.shape[-1], q.element_size()
         hq, hk = q.shape[1], k.shape[1]
-        if q.is_cuda:  # the k-major tiles the backward runs there
-            params = card_bwd_params(params, d, dv, itemsize)
+        if q.is_cuda:  # the pass tiles the backward runs there
+            params = card_bwd_params(params, d, dv, itemsize, hq // hk)
         mode = ffa_bwd_mode(plan, params, d, dv, itemsize, hq, hk)
         sq, sk = plan.num_q_tiles * plan.block_q, plan.num_k_tiles * plan.block_k
         plan_dq, plan_dkv = bwd_plans(plan, params, sq, sk)

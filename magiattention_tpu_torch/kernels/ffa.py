@@ -28,7 +28,10 @@ tensor cores (wgmma, one warpgroup per head): ``csrc/ffa_fwd_tc.cuh``
 (forward; at 128 x 128, and two heads of 64 x 128, and head dims 64 and
 128, the card's default forward there (:func:`card_fwd_params`),
 ``csrc/ffa_fwd_ws.cuh``: a TMA producer warpgroup and two consumers),
-``csrc/ffa_bwd_dq_tc.cuh`` (split dq) and ``csrc/bwd_kv_tc.cuh``
+``csrc/ffa_bwd_dq_tc.cuh`` (split dq; at 128 x 128, and two heads of
+64 x 128, and head dims 64 and 128, the card's default dq tiles there
+(:func:`card_bwd_params`), ``csrc/ffa_bwd_dq_ws.cuh``: a TMA producer
+warpgroup and two consumers) and ``csrc/bwd_kv_tc.cuh``
 (split dk/dv and the fused backward; at 64 x 128 and head dims 64 and 128,
 the card's default k-major tile there (:func:`card_bwd_params`),
 ``csrc/bwd_kv_ws.cuh``: a TMA producer warpgroup and two consumers). The float32 forward runs on them too,
@@ -212,26 +215,42 @@ def bwd_plans(plan: FFAPlan, params: FFAParams, sq: int, sk: int) -> tuple[FFAPl
     )
 
 
-def card_bwd_params(params: FFAParams, d: int, dv: int, itemsize: int) -> FFAParams:
+def card_bwd_params(
+    params: FFAParams, d: int, dv: int, itemsize: int, group: int = 1,
+) -> FFAParams:
     """``params`` for a backward that runs on the card: bf16 at head dims 64
-    and 128, the k-major pass (dk/dv and fused) of a forward at the default
-    64 x 64 tiles runs at 64 x 128, the warp-specialised body
-    (csrc/bwd_kv_ws.cuh), which the card times faster there for both
-    kernels (PERF.md §6). It ranks below every explicit choice: tiles
-    pinned by env (MAGI_ATTENTION_FFA_BLOCK_{Q,K}, ..._DKV), the auto-tile
-    policy, a per-pass tile already in ``params``. Only the card's path
-    calls it (``ffa_bwd`` on CUDA tensors), so CPU plans and params stay
-    field-equal to the JAX package's."""
+    and 128, a backward of a forward at the default 64 x 64 tiles runs its
+    passes on the warp-specialised bodies, which the card times faster
+    there (PERF.md §6): the k-major pass (dk/dv and fused) at
+    :data:`..utils.mem_budget.WS_DKV_TILES` (csrc/bwd_kv_ws.cuh), the dq
+    pass at :data:`..utils.mem_budget.WS_DQ_TILES` (csrc/ffa_bwd_dq_ws.cuh),
+    or, where the packed dq takes the query ``group`` (the pack flag, a
+    group that packs two heads), at a q tile of half those rows and the same
+    k tile: every row then walks the same k tiles, so the packed dq stays
+    bit for bit the unpacked one. It ranks below every explicit choice:
+    tiles pinned by env (MAGI_ATTENTION_FFA_BLOCK_{Q,K}, the ``_DQ`` and
+    ``_DKV`` pins), the auto-tile policy, a per-pass tile already in
+    ``params``. Only the card's path calls it (``ffa_bwd`` on CUDA
+    tensors), so CPU plans and params stay field-equal to the JAX
+    package's."""
     if (
-        itemsize != 2 or d != dv or d not in mem_budget.WS_DKV_WIDTHS
-        or params.block_q_dkv or params.block_k_dkv
+        itemsize != 2 or d != dv
+        or params.block_q_dkv or params.block_k_dkv or params.block_q_dq or params.block_k_dq
         or (params.block_q, params.block_k) != mem_budget.DEFAULT_TILES
         or env_kernel.ffa_blocks_pinned() or env_kernel.ffa_block_q_dkv()
-        or env_kernel.ffa_block_k_dkv() or tile_policy.auto_tile_enabled()
+        or env_kernel.ffa_block_k_dkv() or env_kernel.ffa_block_q_dq()
+        or env_kernel.ffa_block_k_dq() or tile_policy.auto_tile_enabled()
     ):
         return params
-    bq, bk = mem_budget.WS_DKV_TILES
-    return dataclasses.replace(params, block_q_dkv=bq, block_k_dkv=bk)
+    fields = {}
+    if d in mem_budget.WS_DKV_WIDTHS:
+        fields.update(zip(("block_q_dkv", "block_k_dkv"), mem_budget.WS_DKV_TILES))
+    if d in mem_budget.WS_DQ_WIDTHS:
+        bq, bk = mem_budget.WS_DQ_TILES
+        if _use_gqa_pack_dq(group, d, dv, itemsize, bq // 2, bk) > 1:
+            bq //= 2
+        fields.update(block_q_dq=bq, block_k_dq=bk)
+    return dataclasses.replace(params, **fields) if fields else params
 
 
 def card_fwd_params(
@@ -882,8 +901,10 @@ def dq_pack_smem_bytes(d: int, heads: int, itemsize: int = 4, bq: int = 64, bk: 
     heads' q and dO tiles and two stages of k and v tiles in bf16, and 1024
     bytes to align the window for the swizzle; at d = 256 also a bf16 dS
     tile a head, and one stage of k and v where two heads pack (205,824
-    bytes at one head, 214,016 at two). At d = 256 the float32 tiles are
-    the contraction's 128-column chunks."""
+    bytes at one head, 214,016 at two); the warp-specialised instances
+    (csrc/ffa_bwd_dq_ws.cuh ``Smem``, :func:`..utils.mem_budget.ws_dq`) add
+    64 bytes of mbarriers (197,696 at d 128). At d = 256 the float32 tiles
+    are the contraction's 128-column chunks."""
     return mem_budget.dq_smem_bytes(d, bq, bk, itemsize, heads)
 
 
@@ -1231,7 +1252,8 @@ def ffa_bwd(q, k, v, do, lse, delta, plan: FFAPlan, params: FFAParams):
     d, d_v = q.shape[-1], v.shape[-1]
     if q.is_cuda:
         q, k, v, do = pad_to_kernel_width(q, k, v, do)
-        params = card_bwd_params(params, q.shape[-1], v.shape[-1], q.element_size())
+        params = card_bwd_params(params, q.shape[-1], v.shape[-1], q.element_size(),
+                                 q.shape[1] // k.shape[1])
     sq, sk = q.shape[0], k.shape[0]
     mode = ffa_bwd_mode(
         plan, params, q.shape[-1], v.shape[-1], q.element_size(), q.shape[1], k.shape[1], sq, sk,

@@ -33,8 +33,8 @@ MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 SPLIT_WIDTH = 128
 # the FFA kernels (utils/mem_budget.py names) whose bf16 (tensor-core) body
 # writes every column from one CTA at each width: csrc/ffa_fwd_tc.cuh,
-# csrc/ffa_fwd_ws.cuh, csrc/ffa_bwd_dq_tc.cuh, csrc/bwd_kv_tc.cuh and
-# csrc/bwd_kv_ws.cuh
+# csrc/ffa_fwd_ws.cuh, csrc/ffa_bwd_dq_tc.cuh, csrc/ffa_bwd_dq_ws.cuh,
+# csrc/bwd_kv_tc.cuh and csrc/bwd_kv_ws.cuh
 FULL_WIDTH_KERNELS = frozenset({"fwd", "fwd_gqa", "dq", "dq_gqa", "dkv", "fused"})
 
 

@@ -29,8 +29,8 @@ and charges the fused mode a float32 dq read-modify-write in HBM for
 every (k-major item, head). None of that describes the port's kernels:
 in float32 the split kernels (dq, dk/dv) and the fused kernel run float32
 FMA on the CUDA cores, in bf16 all three run their products on the tensor
-cores (csrc/ffa_bwd_dq_tc.cuh, csrc/bwd_kv_tc.cuh, csrc/bwd_kv_ws.cuh),
-all one CTA per run of a tile's items (operands of the run's tile
+cores (csrc/ffa_bwd_dq_tc.cuh, csrc/ffa_bwd_dq_ws.cuh, csrc/bwd_kv_tc.cuh,
+csrc/bwd_kv_ws.cuh), all one CTA per run of a tile's items (operands of the run's tile
 resident, the other side streamed per item), and the fused kernel's dq
 adds resolve in L2. So
 this model prices what the card does:
@@ -637,30 +637,34 @@ ITEM_US = {"dq": 11.50, "dq_gqa": 11.73, "dkv": 15.27}
 FUSED_BODY_OVER_DKV = 1.25
 # float32 atomic adds per second the fused kernel's dq block sustains
 ATOMIC_ADDS_PER_S = 4.45e11
-# The tensor-core kernels at their default tiles on the card (bf16:
-# csrc/ffa_bwd_dq_tc.cuh for dq and dq_gqa at 64 x 64, csrc/bwd_kv_ws.cuh
-# for dkv and fused at 64 x 128), measured on NVIDIA H100 80GB HBM3,
-# 700.00 W (chip_smoke.py phase bwd_mode, calibrate_tc over the four bf16
-# masks; dq_gqa over the two that time it): microseconds one CTA spends per
-# (work item, q head) at head_dim 128 and per 64 x 64 of the item's tile,
-# the fused kernel's dq adds included (dq_gqa: per head of its block of 2).
-TC_ITEM_US = {"dq": 0.9092, "dq_gqa": 1.0122, "dkv": 1.3201, "fused": 1.9112}
-# CTAs of each of them one SM runs at once: dq and the packed dq from their
-# shared memory at head_dim 128 (99,328 and 132,096 bytes; 227 KB a CTA at
-# most, 228 KB an SM), the k-major pair one (three warpgroups of 168
+# The tensor-core kernels at their default tiles on the card (bf16, the
+# warp-specialised bodies: csrc/ffa_bwd_dq_ws.cuh for dq at 128 x 128 and
+# dq_gqa at two heads of 64 x 128, csrc/bwd_kv_ws.cuh for dkv and fused at
+# 64 x 128), measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py
+# phase bwd_mode, calibrate_tc over the four bf16 masks; dq_gqa over the
+# two that time it): microseconds one CTA spends per (work item, q head) at
+# head_dim 128 and per 64 x 64 of the item's tile, the fused kernel's dq
+# adds included (dq_gqa: per head of its block of 2). The dq pass is priced
+# mostly by its K/V stream (:func:`dram_bytes`, which charges every item
+# and head a reload the L2 mostly serves): the fit leaves its compute a
+# small remainder, and with it the model lands within 7% of the dq times
+# at three of the four masks and 31% under the sink window's
+# (tests/test_torch_dq_ws.py).
+TC_ITEM_US = {"dq": 0.06102, "dq_gqa": 0.04057, "dkv": 1.3201, "fused": 1.9112}
+# CTAs of each of them one SM runs at once: one (three warpgroups of 168
 # registers a thread fill the register file): a per-item time is a CTA's
-# while it shares the SM. A lone long run (the sink window's) is slower
+# while it holds the SM. A lone long run (the sink window's) is slower
 # than that pace.
-TC_CTAS_PER_SM = {"dq": 2, "dq_gqa": 1, "dkv": 1, "fused": 1}
-# the tiles at which each kernel's two constants above hold (the k-major
-# pair: kernels/ffa.py:card_bwd_params); other tiles take their CTAs an SM
-# from their shared memory and warpgroups
-TC_TILES = {"dq": (64, 64), "dq_gqa": (64, 64), "dkv": (64, 128), "fused": (64, 128)}
-# The k-major pair's other body (csrc/bwd_kv_tc.cuh: every tile but the
-# warp-specialised 64 x 128 at d 64 and 128, and d 256), fitted as above
-# in the run where it ran the card's default 64 x 64, two CTAs an SM at
-# 64 x 64.
-TC_CPASYNC_ITEM_US = {"dkv": 2.8878, "fused": 5.121}
+TC_CTAS_PER_SM = {"dq": 1, "dq_gqa": 1, "dkv": 1, "fused": 1}
+# the tiles at which each kernel's two constants above hold
+# (kernels/ffa.py:card_bwd_params); other tiles take their CTAs an SM from
+# their shared memory and warpgroups
+TC_TILES = {"dq": (128, 128), "dq_gqa": (64, 128), "dkv": (64, 128), "fused": (64, 128)}
+# The other bodies (csrc/ffa_bwd_dq_tc.cuh and csrc/bwd_kv_tc.cuh: every
+# tile but the warp-specialised ones at d 64 and 128, and d 256), fitted as
+# above in the runs where they ran the card's default 64 x 64 (dq: two CTAs
+# an SM; dq_gqa at two heads: one; the k-major pair: two).
+TC_CPASYNC_ITEM_US = {"dq": 0.9092, "dq_gqa": 1.0122, "dkv": 2.8878, "fused": 5.121}
 # The 256-wide instances, for :func:`width_scale`: per (item, head) the
 # products a warpgroup runs over the full head dim and over a 128-column
 # half (or half the keys or q rows). Bodies that split their columns
@@ -768,15 +772,20 @@ def _dq_key(dq_heads_per_cta: int) -> str:
 
 
 def _ws_body(s: BwdShape, kernel: str) -> bool:
-    """True where a k-major kernel runs the warp-specialised body at the
-    shape's tiles and width (:func:`..utils.mem_budget.ws_dkv`)."""
-    return kernel in ("dkv", "fused") and s.d == s.dv and mem_budget.ws_dkv(s.d, *s.dkv_blocks())
+    """True where a kernel runs the warp-specialised body at the shape's
+    tiles and width (:func:`..utils.mem_budget.ws_dkv`,
+    :func:`..utils.mem_budget.ws_dq`; "dq_gqa" at two heads a CTA)."""
+    if s.d != s.dv:
+        return False
+    if kernel in ("dq", "dq_gqa"):
+        return mem_budget.ws_dq(s.d, s.block_q, s.block_k, 2 if kernel == "dq_gqa" else 1)
+    return mem_budget.ws_dkv(s.d, *s.dkv_blocks())
 
 
 def _tc_item_us(s: BwdShape, kernel: str) -> float:
     """The per-(item, head) microseconds of the body ``kernel`` runs at the
-    shape's tiles: :data:`TC_ITEM_US`, or for the k-major pair off its
-    warp-specialised instances :data:`TC_CPASYNC_ITEM_US`."""
+    shape's tiles: :data:`TC_ITEM_US`, or off its warp-specialised
+    instances :data:`TC_CPASYNC_ITEM_US`."""
     if kernel in TC_CPASYNC_ITEM_US and not _ws_body(s, kernel):
         return TC_CPASYNC_ITEM_US[kernel]
     return TC_ITEM_US[kernel]
@@ -858,7 +867,7 @@ def tc_ms(s: BwdShape, dq_heads_per_cta: int = 1) -> dict[str, float]:
     (the one bf16 runs)."""
     dq, d = _dq_key(dq_heads_per_cta), max(s.d, s.dv)
     units = {
-        "dq": _tc_units(s, dq, dq_heads_per_cta) * TC_ITEM_US[dq],
+        "dq": _tc_units(s, dq, dq_heads_per_cta) * _tc_item_us(s, dq),
         "dkv": _tc_units(s, "dkv") * _tc_item_us(s, "dkv"),
         "fused": _tc_units(s, "fused") * _tc_item_us(s, "fused"),
     }

@@ -13,9 +13,9 @@ and prints the limit the device reports.
 Kernels: ``fwd`` (B1, ``csrc/ffa_fwd.cu``), ``fwd_gqa`` (B2), ``dq`` (B3),
 ``dq_gqa`` (B4), ``dkv`` (B5/B6) and ``fused`` (B8/B9; both at 64 x 128
 and d 64/128 in the warp-specialised body, :func:`ws_dkv`; the forward's
-warp-specialised instances: :func:`ws_fwd`). ``itemsize`` 2 is
-bf16 (the tensor-core bodies), 4 float32 (the 3xTF32 forward; the
-CUDA-core backward bodies, compiled at 64 x 64 only).
+warp-specialised instances: :func:`ws_fwd`; the dq pass's: :func:`ws_dq`).
+``itemsize`` 2 is bf16 (the tensor-core bodies), 4 float32 (the 3xTF32
+forward; the CUDA-core backward bodies, compiled at 64 x 64 only).
 """
 
 from __future__ import annotations
@@ -42,6 +42,13 @@ WS_DKV_WIDTHS = (64, 128)
 # tile
 WS_FWD_WIDTHS = (64, 128)
 WS_FWD_TILES = (128, 128)
+# the bf16 dq instances of the warp-specialised body
+# (csrc/ffa_bwd_dq_ws.cuh), the card's dq tiles at these head dims
+# (kernels/ffa.py:card_bwd_params): two consumer warpgroups a CTA, B3 at
+# this pair, B4 at two heads of a q tile of half its rows and the same k
+# tile
+WS_DQ_WIDTHS = (64, 128)
+WS_DQ_TILES = (128, 128)
 KERNELS = ("fwd", "fwd_gqa", "dq", "dq_gqa", "dkv", "fused")
 # the packed kernels' (head dim, heads a CTA, k tile) instances
 # (csrc/ffa_fwd_gqa.cu MAGI_FWD_GQA / _F32, csrc/ffa_bwd_dq_gqa.cu), all at
@@ -113,8 +120,22 @@ def fwd_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads:
     return two_stages if two_stages <= SMEM_PER_CTA else fixed + stage
 
 
+def ws_dq(d: int, bq: int, bk: int, heads: int = 1) -> bool:
+    """True where a bf16 dq instance (B3, or B4 with ``heads``) runs the
+    warp-specialised body (csrc/ffa_bwd_dq_ws.cuh: a TMA producer warpgroup
+    and two consumer warpgroups): at d 64 and 128, B3 at
+    :data:`WS_DQ_TILES`, B4 at two heads of half its q rows."""
+    wq, wk = WS_DQ_TILES
+    return d in WS_DQ_WIDTHS and bk == wk and (
+        (heads == 1 and bq == wq) or (heads == 2 and bq == wq // 2))
+
+
 def dq_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads: int = 1) -> int:
-    """One dq CTA (B3, or B4 with ``heads``). bfloat16
+    """One dq CTA (B3, or B4 with ``heads``). The warp-specialised
+    instances (:func:`ws_dq`, csrc/ffa_bwd_dq_ws.cuh ``Smem``): the two
+    consumers' 64-row Q and dO tiles, two stages of the k tile's K and V,
+    64 bytes of mbarriers and 1024 to align the window (197,696 bytes at d
+    128). Other bfloat16
     (csrc/ffa_bwd_dq_tc.cuh ``Smem``): the heads' Q and dO tiles of bq
     rows, two stages of the k tile's K and V, and 1024 bytes to align the
     window; at d = 256 also a bq x bk bf16 dS tile a head, and one K/V stage
@@ -122,6 +143,8 @@ def dq_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, heads: 
     float32 (csrc/ffa_bwd_dq.cuh ``DqSmem``, 64 x 64): the heads' q and dO
     tiles, the k and v tiles, the dS tile (at d = 256 the contraction's
     128-column chunks)."""
+    if itemsize == 2 and ws_dq(d, bq, bk, heads):
+        return 4 * 64 * d * 2 + 2 * bk * d * 4 + 64 + 1024
     if itemsize == 2:
         wide = d > SPLIT_WIDTH
         stages = 1 if wide and heads > 1 else 2

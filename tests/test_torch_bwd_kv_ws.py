@@ -177,10 +177,11 @@ def clean_env(monkeypatch):
 @pytest.mark.parametrize("d", [64, 128])
 def test_card_default_moves_the_kmajor_pass_only(d, clean_env):
     """bf16 at d 64/128 with the default tiles: the k-major pass runs 64 x
-    128 on the card, the dq pass and the forward keep 64 x 64."""
+    128 on the card, the dq pass its own card tiles (the warp-specialised
+    dq body's, tests/test_torch_dq_ws.py), and the forward keeps 64 x 64."""
     got = tffa.card_bwd_params(_params(), d, d, 2)
     assert got.dkv_blocks() == (BQ, BK)
-    assert got.dq_blocks() == (64, 64) and (got.block_q, got.block_k) == (64, 64)
+    assert got.dq_blocks() == mem_budget.WS_DQ_TILES and (got.block_q, got.block_k) == (64, 64)
 
 
 @pytest.mark.parametrize("case", ["float32", "d256", "dv", "tiles", "own_dkv", "pinned", "pinned_dkv", "auto"])
@@ -235,17 +236,19 @@ def test_mode_model_prices_the_instance_that_runs(clean_env):
     """On the card the mode model reads the k-major pass at 64 x 128 (its
     shape's k-major tiles, half the k-major runs' items of 64 x 64, one CTA
     an SM at the refitted constants), and the mode it picks at the train
-    shape is fused."""
+    shape, with the dq pass at its own card tiles beside it, is split (the
+    card times the split pair 7% faster there: tests/test_torch_dq_ws.py)."""
     from tests.test_torch_tensor_cores import BWD_MODE_MASKS
 
     qr, kr, types, sq, sk, hq, hk, _ = BWD_MODE_MASKS["train_docs_8192_bf16"]
     plan, params = tffa.plan_params(qr, kr, types, None, None, sq, sk, 128, None, 0.0)
     card = tffa.card_bwd_params(params, 128, 128, 2)
     plan_dq, plan_dkv = tffa.bwd_plans(plan, card, sq, sk)
-    assert (plan_dkv.block_q, plan_dkv.block_k) == (BQ, BK) and (plan_dq.block_q, plan_dq.block_k) == (64, 64)
+    assert (plan_dkv.block_q, plan_dkv.block_k) == (BQ, BK)
+    assert (plan_dq.block_q, plan_dq.block_k) == mem_budget.WS_DQ_TILES
     shape = tffa.bwd_shape(plan_dq, hq, hk, 128, 128, 2, plan_dkv)
     assert shape.dkv_blocks() == (BQ, BK)
     assert tile_policy.tile_area(shape, "fused") == 2.0
-    assert tffa.ffa_bwd_mode(plan, card, 128, 128, 2, hq, hk) == "fused"
+    assert tffa.ffa_bwd_mode(plan, card, 128, 128, 2, hq, hk) == "split"
     modeled = tile_policy.kernel_ms(shape)
     assert math.isfinite(modeled["fused"]) and modeled["fused"] > 0

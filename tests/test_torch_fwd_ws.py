@@ -187,7 +187,8 @@ def test_card_default_moves_the_forward_only(d, heads, clean_env):
     tiles (B1 BQ x BK; packed, whatever its heads at 64 x 64, BQ / 2 x BK,
     where it packs two) over the same slices re-tiled, built once and kept
     on the plan; the params the caller keeps for the backward are
-    untouched, and its per-pass tiles on the card are what they were."""
+    untouched, and its per-pass tiles on the card are the backward's own
+    (``card_bwd_params``: the warp-specialised dq and k-major tiles)."""
     (plan, params), sq, sk = _plan(d=d)
     bq = BQ if heads == 1 else BQ // 2
     got_plan, got = tffa.card_fwd_params(plan, params, d, d, 2, heads, sq, sk)
@@ -203,7 +204,8 @@ def test_card_default_moves_the_forward_only(d, heads, clean_env):
     assert again[0] is got_plan and again[1] is got  # no host work on the next call
     assert (params.block_q, params.block_k) == (64, 64) and (plan.block_q, plan.block_k) == (64, 64)
     card_bwd = tffa.card_bwd_params(params, d, d, 2)
-    assert card_bwd.dq_blocks() == (64, 64) and card_bwd.dkv_blocks() == mem_budget.WS_DKV_TILES
+    assert card_bwd.dq_blocks() == mem_budget.WS_DQ_TILES
+    assert card_bwd.dkv_blocks() == mem_budget.WS_DKV_TILES
 
 
 @pytest.mark.parametrize("case", ["float32", "d256", "dv", "tiles", "pinned", "auto"])
