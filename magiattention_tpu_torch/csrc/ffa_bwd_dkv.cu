@@ -14,7 +14,7 @@
 // operations at 8 * D flops per live pair and q head against 989 TFLOP/s;
 // at 64 x 128 and D = 64 or 128 (the card's default k-major tile there)
 // csrc/bwd_kv_ws.cuh (FUSED false: a TMA producer warpgroup and two
-// consumer warpgroups, 133,184 bytes at D = 128, one CTA an SM), at every
+// consumer warpgroups, 166,528 bytes at D = 128, one CTA an SM), at every
 // other tile and at D = 256 csrc/bwd_kv_tc.cuh (cp.async; 100,352 bytes at
 // D = 128, 64 x 64, two CTAs per SM). Either body's dk and dv equal the
 // fused kernel's at the same tile to the bit. float32: csrc/bwd_kv.cuh (FUSED false), float32 FMA on the CUDA

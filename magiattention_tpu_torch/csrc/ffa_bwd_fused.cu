@@ -29,9 +29,9 @@
 // Two bodies. bfloat16 (shared with the split dk/dv kernel's bf16 entry),
 // the products on the tensor cores: at 64 x 128 and D = 64 or 128 (the
 // card's default k-major tile there) csrc/bwd_kv_ws.cuh with FUSED (a TMA
-// producer warpgroup, two consumer warpgroups on the 128-row k tile, dQ one
-// depth-128 product added by one TMA bulk reduce a step; 231,488 bytes at
-// D = 128, one CTA an SM), at every other tile and at D = 256
+// producer warpgroup, two consumer warpgroups on the 128-row k tile, each
+// consumer's half of dQ one depth-128 product a step behind, added by TMA
+// bulk reduces; 231,552 bytes at D = 128, one CTA an SM), at every other tile and at D = 256
 // csrc/bwd_kv_tc.cuh with FUSED (one warpgroup per 64 k rows, the next
 // step's Q and dO double-buffered by cp.async, dq added by 16-byte vector
 // atomics; 108,544 bytes at D = 128, 64 x 64, two CTAs per SM).

@@ -385,6 +385,40 @@ __device__ __forceinline__ void wgmma_ss_n32_t00(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 32] += A[64 x 16] B[16 x 32], A and B from shared memory
+// (transposed: A 1, B 1), float32 accumulate: half of a 64-column dQ
+// block (csrc/bwd_kv_ws.cuh at D = 64), B starting 64 bytes into its
+// panel's rows, where the swizzle (a function of the address) still finds
+// it.
+__device__ __forceinline__ void wgmma_ss_n32_t11(float (&d)[16], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] += A B, both MN-major from shared memory: N = 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_ss_t11(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                             int scale_d = 1) {
+  if constexpr (N == 64)
+    wgmma_ss_n64_t11(d, da, db, scale_d);
+  else
+    wgmma_ss_n32_t11(d, da, db, scale_d);
+}
+
 // D[64 x 128] += A[64 x 16] B[16 x 128], A from shared memory K-major,
 // B MN-major (transposed: A 0, B 1), float32 accumulate.
 __device__ __forceinline__ void wgmma_ss_n128_t01(float (&d)[64], uint64_t da,

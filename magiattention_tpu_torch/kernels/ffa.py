@@ -1141,7 +1141,7 @@ def fused_bwd_feasible(d: int, dv: int) -> bool:
     blocks, 32) with room for addresses and operands (64) within the
     register limit. The bf16 bodies fit wherever that one does: the
     warp-specialised one (csrc/bwd_kv_ws.cuh, the card's 64 x 128 at d 64
-    and 128) takes 231,488 bytes at d 128 and runs its consumer
+    and 128) takes 231,552 bytes at d 128 and runs its consumer
     warpgroups at 240 registers a thread (dk and dv, d; S^T and dP^T, 64;
     one hi + lo fragment pair, 32; the dq block, 32), the cp.async one
     (csrc/bwd_kv_tc.cuh) 108,544 bytes at 64 x 64 and 231,424 at d 256;

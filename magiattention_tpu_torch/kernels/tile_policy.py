@@ -649,8 +649,9 @@ ATOMIC_ADDS_PER_S = 4.45e11
 # and head a reload the L2 mostly serves): the fit leaves its compute a
 # small remainder, and with it the model lands within 7% of the dq times
 # at three of the four masks and 31% under the sink window's
-# (tests/test_torch_dq_ws.py).
-TC_ITEM_US = {"dq": 0.06102, "dq_gqa": 0.04057, "dkv": 1.3201, "fused": 1.9112}
+# (tests/test_torch_dq_ws.py). dkv and fused: the run of bwd_kv_ws.cuh's
+# second form (its pass under the products in flight, ping-pong).
+TC_ITEM_US = {"dq": 0.06102, "dq_gqa": 0.04057, "dkv": 1.0828, "fused": 1.6561}
 # CTAs of each of them one SM runs at once: one (three warpgroups of 168
 # registers a thread fill the register file): a per-item time is a CTA's
 # while it holds the SM. A lone long run (the sink window's) is slower

@@ -35,6 +35,8 @@ DEFAULT_TILES = (64, 64)
 # (csrc/bwd_kv_ws.cuh): 64 x 128 at these head dims
 WS_DKV_TILES = (64, 128)
 WS_DKV_WIDTHS = (64, 128)
+# the Q/dO ring's stages of that body: dk/dv alone (False), fused (True)
+WS_DKV_STAGES = {False: 3, True: 2}
 # the bf16 forward instances of the warp-specialised body
 # (csrc/ffa_fwd_ws.cuh), the card's forward tiles at these head dims
 # (kernels/ffa.py:card_fwd_params): two consumer warpgroups a CTA, B1 at
@@ -169,16 +171,18 @@ def dkv_smem_bytes(d: int, bq: int = 64, bk: int = 64, itemsize: int = 2, fused:
     the four bk x bq bf16 P^T and dS^T tiles (hi and lo) the two column
     warpgroups share instead (231,424 bytes at 64 x 64). The
     warp-specialised instances (:func:`ws_dkv`, csrc/bwd_kv_ws.cuh
-    ``Smem``) keep that layout without the dS^T tiles and add 64 bytes of
-    mbarriers; with ``fused`` two 64 x 64 bf16 dS^T tiles a step parity and
-    the float32 dq staging, two 64 x 64 blocks a consumer (231,488 bytes at
-    d 128). float32 (csrc/bwd_kv.cuh ``DkvSmem``,
+    ``Smem``): K and V, a ring of :data:`WS_DKV_STAGES` stages of Q, dO,
+    lse and delta, 128 bytes of mbarriers and dq-block places; with
+    ``fused`` two 64 x 64 bf16 dS^T tiles a step parity and the float32 dq
+    staging, two blocks of 64 rows x d / 2 columns a consumer (231,552
+    bytes at d 128; dk/dv alone 166,528). float32 (csrc/bwd_kv.cuh ``DkvSmem``,
     64 x 64, the same with fused): K, V, Q and dO at row stride d + 4, the
     P^T and dS^T tiles, the q tile's lse and delta."""
     if itemsize == 2:
         if ws_dkv(d, bq, bk):
-            ds = 4 * 64 * 64 * 2 + 4 * 64 * 64 * 4 if fused else 0
-            return bk * 2 * d * 2 + 4 * bq * d * 2 + ds + 2 * 2 * bq * 4 + 64 + 1024
+            stages = WS_DKV_STAGES[fused]
+            ds = 4 * 64 * 64 * 2 + 4 * 64 * (d // 2) * 4 if fused else 0
+            return bk * 2 * d * 2 + stages * (2 * bq * d * 2 + 2 * bq * 4) + ds + 128 + 1024
         if d > SPLIT_WIDTH:
             ds = 4 * bk * bq * 2
         else:

@@ -8,15 +8,21 @@ here:
 
 - its bf16 arithmetic in plain PyTorch: per (64-row q tile, 128-row k
   tile) pair, S^T and dP^T in float32, P^T and dS^T each as bf16 hi + lo
-  feeding dV and dK of each 64-key half, and dQ as ONE depth-128 product of
-  dS's hi over both halves, added to the workspace whole (rows outside the
-  pair's live set carry exact zeros). It holds against the JAX package's
-  ``ffa_attn`` gradients on the same numpy inputs within chip_smoke.py's
-  bf16 gates (atol 2e-2, rel-norm 1e-2) on a causal mask, a varlen mask
-  with uncovered rows and a sink window's global tokens; dq of an
-  uncovered row is exactly 0;
+  feeding dV and dK of each 64-key half, and dQ as each consumer's half of
+  the columns, a depth-128 product of dS's hi over both key halves, added
+  to the workspace one step late (the fused body's order: a step's block
+  is computed and added in the k tile's next step, the last one after the
+  walk; rows outside the pair's live set carry exact zeros). It holds
+  against the JAX package's ``ffa_attn`` gradients on the same numpy
+  inputs within chip_smoke.py's bf16 gates (atol 2e-2, rel-norm 1e-2) on a
+  causal mask, a varlen mask with uncovered rows, a sink window's global
+  tokens and a causal mask under softcap 30; dq of an uncovered row is
+  exactly 0;
 - each compiled instance's shared memory: ``utils/mem_budget.py`` against
-  the header's ``Smem`` layout (read from the source) and the opt-in limit;
+  the header's ``Smem`` layout (read from the source: the Q/dO ring's
+  stages, the fused body's dS^T tiles and dq staging) and the opt-in limit;
+- the routing: the instances the header sends to this body are
+  ``mem_budget.ws_dkv``'s;
 - the card's default k-major tile: ``card_bwd_params`` moves a bf16 d-64/128
   backward's k-major pass to 64 x 128 and nothing else, and only the
   card's path applies it (CPU plans and params stay the JAX package's);
@@ -45,7 +51,7 @@ CSRC = Path(tffa.__file__).resolve().parent.parent / "csrc"
 BQ, BK = mem_budget.WS_DKV_TILES
 
 
-def _ws_backward(q, k, v, do, lse, delta, mask, scale):
+def _ws_backward(q, k, v, do, lse, delta, mask, scale, softcap=0.0):
     """The warp-specialised body's arithmetic, pair by pair of the k-major
     walk: (dq, dk, dv) float32."""
     sq, hq, d = q.shape
@@ -57,6 +63,7 @@ def _ws_backward(q, k, v, do, lse, delta, mask, scale):
     dv = torch.zeros(sk, hk, d)
     for k0 in range(0, sk, BK):
         k1 = min(k0 + BK, sk)
+        last = None  # the last step's dq block and its place, added a step late
         for h in range(hq):
             kv = h // g
             for q0 in range(0, sq, BQ):
@@ -64,9 +71,13 @@ def _ws_backward(q, k, v, do, lse, delta, mask, scale):
                 live = mask[q0:q1, k0:k1] & torch.isfinite(lse[q0:q1, h])[:, None]
                 if not live.any():
                     continue
-                s = qf[q0:q1, h] @ kf[k0:k1, kv].T * scale
-                p = torch.where(live, torch.exp(s - torch.where(live, lse[q0:q1, h, None], 0.0)), 0.0)
-                ds = p * (dof[q0:q1, h] @ vf[k0:k1, kv].T - delta[q0:q1, h, None])
+                x = qf[q0:q1, h] @ kf[k0:k1, kv].T * scale
+                dcap = 1.0
+                if softcap > 0:
+                    th = torch.tanh(x / softcap)
+                    x, dcap = softcap * th, 1.0 - th * th
+                p = torch.where(live, torch.exp(x - torch.where(live, lse[q0:q1, h, None], 0.0)), 0.0)
+                ds = p * (dof[q0:q1, h] @ vf[k0:k1, kv].T - delta[q0:q1, h, None]) * dcap
                 p_hi, p_lo = _hi_lo(p)
                 ds_hi, ds_lo = _hi_lo(ds)
                 for c in range(0, k1 - k0, 64):  # a consumer's 64 keys
@@ -74,16 +85,22 @@ def _ws_backward(q, k, v, do, lse, delta, mask, scale):
                     cols = slice(c, c + 64)
                     dv[rows, kv] += p_hi[:, cols].T @ dof[q0:q1, h] + p_lo[:, cols].T @ dof[q0:q1, h]
                     dk[rows, kv] += ds_hi[:, cols].T @ qf[q0:q1, h] + ds_lo[:, cols].T @ qf[q0:q1, h]
-                block = ds_hi @ kf[k0:k1, kv]  # one product over the 128 keys
+                if last is not None:
+                    dq[last[0]] += last[1]
+                # each consumer's d / 2 columns, one product over the 128 keys
+                block = torch.cat([ds_hi @ kf[k0:k1, kv, c:c + d // 2] for c in (0, d // 2)], 1)
                 masked_rows = ~live.any(1)
                 assert not block[masked_rows].any()  # exact zeros: the add leaves them
-                dq[q0:q1, h] += block
+                last = ((slice(q0, q1), h), block)
+        if last is not None:
+            dq[last[0]] += last[1]
     return dq * scale, dk * scale, dv
 
 
-def _jax_grads(q, k, v, do, qr, kr, lo, hi, scale):
+def _jax_grads(q, k, v, do, qr, kr, lo, hi, scale, softcap=0.0):
     def f(q_, k_, v_):
-        return jffa.ffa_attn(q_, k_, v_, qr, kr, softmax_scale=scale, d_lo=lo, d_hi=hi)
+        return jffa.ffa_attn(q_, k_, v_, qr, kr, softmax_scale=scale, softcap=softcap,
+                             d_lo=lo, d_hi=hi)
 
     (out, lse), vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
     grads = vjp((jnp.asarray(do), jnp.zeros_like(lse)))
@@ -92,21 +109,24 @@ def _jax_grads(q, k, v, do, qr, kr, lo, hi, scale):
 
 def _ws_masks():
     qr, kr, types = _sink_window(256)
-    return {
-        "causal": _typed([[0, 256]], [[0, 256]], [1], 256, 256),
-        "uncovered": MASKS["uncovered"],
-        "sink_window": _typed(qr, kr, types, 256, 256),
+    causal = _typed([[0, 256]], [[0, 256]], [1], 256, 256)
+    return {  # mask -> (its arrays, softcap)
+        "causal": (causal, 0.0),
+        "uncovered": (MASKS["uncovered"], 0.0),
+        "sink_window": (_typed(qr, kr, types, 256, 256), 0.0),
+        "softcap30_causal": (causal, 30.0),
     }
 
 
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("mask", sorted(_ws_masks()))
 def test_ws_bf16_arithmetic_matches_jax(mask, d):
-    """The body's arithmetic (hi + lo dK and dV per 64-key half, dQ as one
-    depth-128 product of dS's hi) against the JAX package's ffa_attn
-    gradients on the same numpy inputs (bf16-rounded, float32 on the JAX
-    side) within the bf16 gates; dq of an uncovered row exactly 0."""
-    qr, kr, lo, hi, sq, sk = _ws_masks()[mask]
+    """The body's arithmetic (hi + lo dK and dV per 64-key half, each
+    consumer's dQ columns as one depth-128 product of dS's hi, added a
+    step late) against the JAX package's ffa_attn gradients on the same
+    numpy inputs (bf16-rounded, float32 on the JAX side) within the bf16
+    gates; dq of an uncovered row exactly 0."""
+    (qr, kr, lo, hi, sq, sk), softcap = _ws_masks()[mask]
     hq, hk = 4, 2
     rng = np.random.default_rng(26 + d)
     q, k, v, do = (
@@ -114,11 +134,12 @@ def test_ws_bf16_arithmetic_matches_jax(mask, d):
         for shape in ((sq, hq, d), (sk, hk, d), (sk, hk, d), (sq, hq, d))
     )
     scale = d ** -0.5
-    jout, jlse, jgrads = _jax_grads(*(t.float().numpy() for t in (q, k, v, do)), qr, kr, lo, hi, scale)
+    jout, jlse, jgrads = _jax_grads(*(t.float().numpy() for t in (q, k, v, do)), qr, kr, lo, hi,
+                                    scale, softcap)
     lse = torch.from_numpy(jlse)
     delta = (torch.from_numpy(jout) * do.float()).sum(-1)
     mask_t = build_dense_mask_band(qr, kr, lo, hi, sq, sk, device="cpu")
-    got = _ws_backward(q, k, v, do, lse, delta, mask_t, scale)
+    got = _ws_backward(q, k, v, do, lse, delta, mask_t, scale, softcap)
     for name, a, w in zip(("dq", "dk", "dv"), got, jgrads):
         a, b = a.double(), torch.from_numpy(w).double()
         assert (a - b).abs().max().item() <= 2e-2, name
@@ -129,16 +150,16 @@ def test_ws_bf16_arithmetic_matches_jax(mask, d):
     assert not got[0][uncovered].any()
 
 
-def _header_smem(d: int, fused: bool) -> int:
-    """``kv_ws::Smem<D, FUSED>::bytes`` evaluated from the header's text."""
+def _header_smem(d: int, fused: bool, name: str = "bytes") -> int:
+    """``kv_ws::Smem<D, FUSED>::<name>`` evaluated from the header's text."""
     src = (CSRC / "bwd_kv_ws.cuh").read_text()
     body = src[src.index("struct Smem {"):]
     body = body[:body.index("};")]
     env = {"D": d, "FUSED": fused, "BQ": BQ, "BK": BK}
-    for name, expr in re.findall(r"static constexpr \w+ (\w+) =\s*([^;]+);", body):
+    for var, expr in re.findall(r"static constexpr \w+ (\w+) =\s*([^;]+);", body):
         expr = re.sub(r"(\w+) \? ([^:]+) : (.+)", r"(\2 if \1 else \3)", " ".join(expr.split()))
-        env[name] = eval(expr.replace("/", "//"), {}, env)
-    return env["bytes"]
+        env[var] = eval(expr.replace("/", "//"), {}, env)
+    return env[name]
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -153,11 +174,30 @@ def test_ws_smem_matches_the_header(d, fused):
     assert mem_budget.ws_dkv(d, BQ, BK)
     assert (BQ, BK) in mem_budget.compiled_tiles(kernel, 2, d)
     assert mem_budget.ctas_per_sm(kernel, d, BQ, BK) == 1
-    if d == 128 and fused:
-        assert want == 231_488
+    assert _header_smem(d, fused, "STAGES") == mem_budget.WS_DKV_STAGES[fused]
+    if d == 128:  # three Q/dO stages alone, two beside the fused dq staging
+        assert want == (231_552 if fused else 166_528)
     # the other tiles and widths keep bwd_kv_tc.cuh's body and formula
     assert not mem_budget.ws_dkv(d, 64, 64) and not mem_budget.ws_dkv(256, BQ, BK)
     assert mem_budget.dkv_smem_bytes(128, 64, 64, 2, fused=True) == 108_544
+
+
+def test_ws_routing_matches_the_header():
+    """The bf16 instances the header's ``kv_bf16::WS`` sends to this body
+    are ``mem_budget.ws_dkv``'s, at every compiled tile and width of both
+    k-major kernels."""
+    src = (CSRC / "bwd_kv_ws.cuh").read_text()
+    expr = re.search(r"constexpr bool WS = ([^;]+);", src).group(1)
+    expr = expr.replace("&&", " and ")
+    seen = set()
+    for kernel in ("dkv", "fused"):
+        for d in (64, 128, 256):
+            for bq, bk in mem_budget.compiled_tiles(kernel, 2, d):
+                routed = eval(expr, {}, {"D": d, "BQ": bq, "BK": bk})
+                assert routed == mem_budget.ws_dkv(d, bq, bk), (kernel, d, bq, bk)
+                if routed:
+                    seen.add((d, bq, bk))
+    assert seen == {(d, BQ, BK) for d in mem_budget.WS_DKV_WIDTHS}
 
 
 def _params(block_q=64, block_k=64, **kw):
